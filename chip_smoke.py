@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--layers N] [--seed S]
+    python3 chip_smoke.py [--layers N] [--train-layers N] [--seed S]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
 3. Kernels against their plain PyTorch versions on the card, with the
    stated tolerances, CUDA-event times of the kernel, the plain version
    and the one-call library yardstick (``library_ms``, never used by the
-   port), and the bound computed from this run's shapes.
+   port), and the bound computed from this run's shapes: the flash forward,
+   then the flash backward's dq and dk/dv kernels (bitwise equal on a second
+   call), each in five cases and at the training shape.
 4. Serving: ``init`` -> ``Replica.load`` -> ``ContinuousBatcher`` ->
    ``serve_loop`` at Llama-3-8B width (full depth by default), 8 requests
    of 512 prompt tokens, 16 greedy new tokens each; kernel launch counts
@@ -19,7 +21,16 @@ Phases (any failure exits non-zero and prints no result line):
    two rows of one bucket must give identical tokens.  Last, the time of
    one prefill and one decode step, and a profiled ``generate`` for the
    card's busy share and kernel time by name.
-5. The kernels line (JSON), the card line, and the result line.
+5. Training: ``init`` -> ``init_params`` at Llama-3-8B width
+   (``--train-layers`` deep, 4 by default) -> ``broadcast_parameters`` ->
+   ``DistributedOptimizer(SGD)`` -> ``make_train_step``.  First the
+   gradients of every leaf through the kernels against the same gradients
+   with the plain attention under autograd (at a cut sequence length).  Then
+   5 steps on one fixed batch of 2 x 4096 seeded tokens with the launch
+   counts zeroed just before and read just after: the loss must be finite
+   and fall, and each kernel must launch once per layer and step.  Last,
+   the time per step, tokens/s, peak memory, and a profiled step.
+6. The kernels line (JSON), the card line, and the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
 """
@@ -40,6 +51,17 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core bf16
 N_REQUESTS = 8
 PROMPT_LEN = 512
 NEW_TOKENS = 16
+TRAIN_BATCH = 2
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 5
+# Large enough that SGD updates of bf16 weights (their ulp is near 1e-4 at
+# N(0, 1/4096)) do not round away.  Plain SGD on bf16 weights is not
+# monotone at this size, so the check compares step 5 with step 1 only.
+TRAIN_LR = 0.75
+# The gradient check differentiates the plain attention under autograd,
+# which keeps dense [B, H, T, T] float32 scores per layer: cut T for it.
+GRAD_CHECK_SEQ = 2048
+GRAD_TOL = 5e-2
 
 
 def _fail(msg):
@@ -94,8 +116,33 @@ FLASH_CASES = [
      128, 2e-2, _BF16_REASON),
     ("fully masked rows: Tq=300 > Tk=100 + window 64", 2, 300, 100, 8, 2,
      64, "float32", True, 64, 1e-4, _F32_REASON),
+    ("training shape: B=2 T=4096 causal GQA rep 4, bf16", TRAIN_BATCH,
+     TRAIN_SEQ, TRAIN_SEQ, 32, 8, 128, "bfloat16", True, None, 2e-2,
+     _BF16_REASON),
 ]
 LSE_TOL = 1e-4   # float32 on both sides: only summation order differs
+_BWD_BF16_REASON = ("ds rounded to bf16 from f32 sums taken in another "
+                    "order (an element near a rounding boundary rounds the "
+                    "other way), bf16 outputs")
+
+
+def _bound(nbytes, ops, dt_name):
+    """The least time for the work: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dt_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _sdpa(F, q, k, v, causal, window, mask):
+    """The library yardstick: one scaled_dot_product_attention call on the
+    same [B, T, heads, D] inputs (never used by the port)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
 def flash_phase(torch, fa, dev, seed, flush):
@@ -127,22 +174,13 @@ def flash_phase(torch, fa, dev, seed, flush):
         ops = 4.0 * D * pairs * B * H
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, o)) \
             + lse.numel() * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S[dt_name] * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by = _bound(nbytes, ops, dt_name)
         ms = time_ms(torch, lambda: fa.flash_attention_fwd(
             q, k, v, causal=causal, window=window), flush)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, causal=causal, window=window), flush)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if window is None:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        library_ms = time_ms(torch, lib, flush)
+        library_ms = time_ms(torch, _sdpa(F, q, k, v, causal, window, mask),
+                             flush)
         print(f"flash[{name}] B={B} Tq={Tq} Tk={Tk} H={H} K={K} D={D} "
               f"{dt_name} causal={causal} window={window}: "
               f"o max_abs_err={err_o:.3e} max_rel_err={rel_o:.3e} "
@@ -157,6 +195,86 @@ def flash_phase(torch, fa, dev, seed, flush):
                             plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by))
         del q, k, v, o, lse, o_p, lse_p
+    return results
+
+
+def flash_bwd_phase(torch, fa, dev, seed, flush):
+    """The dq and dk/dv kernels against the plain backward, in the cases of
+    the forward, with a random do, the forward kernel's own lse and delta
+    from o."""
+    import torch.nn.functional as F
+    results = []
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    for (name, B, Tq, Tk, H, K, D, dt_name, causal, window, _,
+         _) in FLASH_CASES:
+        dt = getattr(torch, dt_name)
+        tol, reason = ((2e-2, _BWD_BF16_REASON) if dt == torch.bfloat16
+                       else (1e-4, _F32_REASON))
+        q, k, v, do = (torch.randn(B, T, h, D, generator=gen, device=dev)
+                       .to(dt) for T, h in ((Tq, H), (Tk, K), (Tk, K),
+                                            (Tq, H)))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        scale = 1.0 / D ** 0.5
+        out = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                     window=window)
+        torch.cuda.synchronize()
+        again = fa.flash_attention_bwd(q, k, v, do, lse, delta,
+                                       causal=causal, window=window)
+        bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
+        del again
+        ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                           causal=causal, window=window)
+        errs = {}
+        for g, a, b in zip(("dq", "dk", "dv"), out, ref):
+            err = (a.float() - b.float()).abs().max().item()
+            errs[g] = (err, err / max(b.float().abs().max().item(), 1e-30))
+        ok = bitwise and all(rel <= tol for _, rel in errs.values())
+        del out, ref
+        mask = fa._mask(Tq, Tk, causal, window, dev)
+        pairs = int(mask.sum().item())
+        io = sum(x.numel() * x.element_size() for x in (q, k, v, do)) \
+            + 2 * lse.numel() * 4
+        dq_bound = _bound(io + q.numel() * q.element_size(),
+                          6.0 * D * pairs * B * H, dt_name)
+        dkv_bound = _bound(io + 2 * k.numel() * k.element_size(),
+                           8.0 * D * pairs * B * H, dt_name)
+        ops = fa._bwd_operands(q, k, v, do, lse, delta)
+        dq_ms = time_ms(torch, lambda: fa._launch_dq(
+            *ops, causal, scale, window), flush)
+        dkv_ms = time_ms(torch, lambda: fa._launch_dkv(
+            *ops, causal, scale, window), flush)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, v, do, lse, delta, causal=causal, window=window), flush,
+            iters=5, warmup=1)
+        qkv = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o_lib = _sdpa(F, *qkv, causal, window, mask)()
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, qkv, do.transpose(1, 2), retain_graph=True), flush)
+        print(f"flash_bwd[{name}] B={B} Tq={Tq} Tk={Tk} H={H} K={K} D={D} "
+              f"{dt_name} causal={causal} window={window}: "
+              + "; ".join(f"{g} max_abs_err={e:.3e} max_rel_err={r:.3e}"
+                          for g, (e, r) in errs.items())
+              + f" (tol {tol:g} relative to the largest reference value: "
+              f"{reason}); second call bitwise equal: {bitwise}; dq kernel "
+              f"{dq_ms:.4f} ms (bound {dq_bound[0] * 1e3:.2f} us by "
+              f"{dq_bound[1]}), dk/dv kernel {dkv_ms:.4f} ms (bound "
+              f"{dkv_bound[0] * 1e3:.2f} us by {dkv_bound[1]}), plain "
+              f"backward {plain_ms:.4f} ms, library (SDPA backward) "
+              f"{library_ms:.4f} ms, {6.0 * D * pairs * B * H / 1e9:.2f} + "
+              f"{8.0 * D * pairs * B * H / 1e9:.2f} GFLOP -> "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        results.append(dict(
+            case=name, ok=ok, plain_ms=plain_ms, library_ms=library_ms,
+            dq=dict(max_abs_err=errs["dq"][0], ms=dq_ms,
+                    bound_ms=dq_bound[0], bound_by=dq_bound[1]),
+            dkv=dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                     ms=dkv_ms, bound_ms=dkv_bound[0],
+                     bound_by=dkv_bound[1])))
+        del q, k, v, do, o, lse, delta, ops, qkv, o_lib
+        torch.cuda.empty_cache()
     return results
 
 
@@ -266,8 +384,8 @@ def serving_phase(torch, hvd, tl, fa, layers, seed):
           f"decode step {decode_s * 1e3:.3f} ms (median of 5, host clock "
           f"around synchronised work)", flush=True)
     try:
-        profile_generate(torch, lambda: tl.generate(params, toks,
-                                                    NEW_TOKENS, cfg))
+        profile_call(torch, "generate", lambda: tl.generate(
+            params, toks, NEW_TOKENS, cfg))
     except Exception as exc:  # noqa: BLE001 - a measurement, not a check
         print(f"profile: failed ({type(exc).__name__}: {exc}); busy share "
               f"not measured", flush=True)
@@ -285,7 +403,7 @@ def median_s(torch, fn, n=5):
     return sorted(ts)[n // 2]
 
 
-def profile_generate(torch, fn, top=8):
+def profile_call(torch, label, fn, top=8):
     """Kernel time by name and the device's busy share over one call,
     from torch.profiler's CUDA activity.  A measurement only: where the
     profiler records no device activity it says so and the run goes on."""
@@ -309,17 +427,126 @@ def profile_generate(torch, fn, top=8):
         print("profile: no device activity recorded; busy share not "
               "measured", flush=True)
         return
-    print(f"profile: generate wall {wall * 1e3:.3f} ms (profiled), device "
+    print(f"profile: {label} wall {wall * 1e3:.3f} ms (profiled), device "
           f"busy {busy / 1e3:.3f} ms = {busy / 1e6 / wall:.1%}, "
           f"{len(by_name)} kernel names", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"profile:   {us / 1e3:9.3f} ms  {name[:100]}", flush=True)
 
 
+# ---------------------------------------------------------------- training
+def _leaf_grads(tl, params, x, y, cfg):
+    for _, t in tl.named_parameters(params):
+        t.grad = None
+    loss = tl.loss_fn(params, x, y, cfg)
+    loss.backward()
+    grads = {n: t.grad.detach().clone() for n, t in
+             tl.named_parameters(params)}
+    for _, t in tl.named_parameters(params):
+        t.grad = None
+    return loss.item(), grads
+
+
+def training_phase(torch, hvd, tl, fa, layers, seed):
+    import numpy as np
+    hvd.init()
+    dev = hvd.device()
+    cfg = tl.llama3_8b(n_layers=layers)
+    print(f"training: llama3_8b width, depth cut to {layers} of 32 layers, "
+          f"B={TRAIN_BATCH} T={TRAIN_SEQ}, SGD lr {TRAIN_LR}", flush=True)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 1))
+    hvd.broadcast_parameters(params, root_rank=0)
+    named = list(tl.named_parameters(params))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([t for _, t in named], lr=TRAIN_LR),
+        named_parameters=named)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    step = tl.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int64)).to(dev)
+    x, y = toks[:, :-1], toks[:, 1:]
+    n_params = sum(t.numel() for _, t in named)
+    print(f"training: {n_params / 1e9:.3f} B params bf16 in {len(named)} "
+          f"leaves on {dev}", flush=True)
+
+    # Gradients through the kernels against the plain attention under
+    # autograd, at the initial parameters, on the first GRAD_CHECK_SEQ
+    # tokens of each row (also the warm-up).
+    xc, yc = x[:, :GRAD_CHECK_SEQ], y[:, :GRAD_CHECK_SEQ]
+    loss_k, g_k = _leaf_grads(tl, params, xc, yc, cfg)
+    kernel_attend = tl.flash_attention
+    tl.flash_attention = lambda q, k, v, causal, window: \
+        fa.flash_attention_plain(q, k, v, causal=causal, window=window)[0]
+    try:
+        loss_p, g_p = _leaf_grads(tl, params, xc, yc, cfg)
+    finally:
+        tl.flash_attention = kernel_attend
+    worst, ok = (0.0, ""), True
+    for n in g_k:
+        a, b = g_k[n].float(), g_p[n].float()
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0).item()
+        ok = ok and rel <= GRAD_TOL and bool(torch.isfinite(a).all())
+        worst = max(worst, (rel, n))
+        print(f"training: grad[{n}] kernel vs plain attention max_rel_err="
+              f"{rel:.3e} cosine={cos:.6f}", flush=True)
+    print(f"training: gradient check at T={GRAD_CHECK_SEQ} (cut from "
+          f"{TRAIN_SEQ}: the plain attention under autograd keeps dense "
+          f"scores), {len(g_k)} leaves, loss kernel {loss_k:.6f} plain "
+          f"{loss_p:.6f}, worst max_rel_err {worst[0]:.3e} at {worst[1]} "
+          f"(tol {GRAD_TOL:g} relative to the leaf's largest reference "
+          f"gradient: bf16 activations re-rounded through {layers} layers "
+          f"and ds rounded to bf16 in the kernels) -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches_dq = 0
+    fa.flash_attention_bwd.launches_dkv = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(params, x, y).item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"flash_fwd": fa.flash_attention_fwd.launches,
+                "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
+                "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv}
+    want = layers * TRAIN_STEPS
+    step_s = sorted(times)[len(times) // 2]
+    print(f"training: losses {[round(v, 6) for v in losses]}, step times "
+          f"{[round(t * 1e3, 3) for t in times]} ms, median "
+          f"{step_s * 1e3:.3f} ms = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"{launches} (= {layers} layers x {TRAIN_STEPS} steps = {want} "
+          f"each expected), card {torch.cuda.get_device_name(0)}",
+          flush=True)
+    falls = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    print(f"training: loss finite and lower at step {TRAIN_STEPS} than at "
+          f"step 1: {falls}", flush=True)
+    ok = ok and falls and all(n == want for n in launches.values())
+    try:
+        profile_call(torch, "train step", lambda: step(params, x, y))
+    except Exception as exc:  # noqa: BLE001 - a measurement, not a check
+        print(f"profile: failed ({type(exc).__name__}: {exc}); busy share "
+              f"not measured", flush=True)
+    return ok, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth at llama3_8b width (default 32)")
+    ap.add_argument("--train-layers", type=int, default=4,
+                    help="decoder depth of the training phase at llama3_8b "
+                         "width (default 4)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -355,27 +582,49 @@ def main():
     dev = torch.device("cuda:0")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     cases = flash_phase(torch, fa, dev, args.seed, flush)
+    bwd_cases = flash_bwd_phase(torch, fa, dev, args.seed, flush)
     del flush
-    serve_ok, launches = serving_phase(torch, hvd, tl, fa, args.layers,
-                                       args.seed)
+    torch.cuda.empty_cache()
+    serve_ok, serve_launches = serving_phase(torch, hvd, tl, fa, args.layers,
+                                             args.seed)
+    torch.cuda.empty_cache()
+    train_ok, train_launches = training_phase(torch, hvd, tl, fa,
+                                              args.train_layers, args.seed)
 
-    main_case = cases[0]
-    kernels_ok = all(c["ok"] for c in cases)
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "horovod_tpu/ops/flash_attention.py:98",
-        "launches": launches, "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "pass": kernels_ok and launches > 0,
-    }]
+    fwd, bwd = cases[0], bwd_cases[-1]     # serving and training shapes
+    kernels_ok = all(c["ok"] for c in cases + bwd_cases)
+    launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"],
+                "flash_bwd_dq": train_launches["flash_bwd_dq"],
+                "flash_bwd_dkv": train_launches["flash_bwd_dkv"]}
+    print(f"launches on the main paths: flash_fwd {serve_launches} serving "
+          f"+ {train_launches['flash_fwd']} training; flash_bwd_dq "
+          f"{launches['flash_bwd_dq']}, flash_bwd_dkv "
+          f"{launches['flash_bwd_dkv']} training", flush=True)
+    src = "horovod_tpu_torch/ops/csrc/"
+    kernels = [
+        dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
+             replaces="horovod_tpu/ops/flash_attention.py:98",
+             launches=launches["flash_fwd"], max_abs_err=fwd["max_abs_err"],
+             ms=fwd["ms"], plain_ms=fwd["plain_ms"],
+             bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
+             library_ms=fwd["library_ms"]),
+    ] + [
+        dict(name=f"flash_bwd_{g}", route="cuda", source=src + "flash_bwd.cu",
+             replaces=f"horovod_tpu/ops/flash_attention.py:{line}",
+             launches=launches[f"flash_bwd_{g}"],
+             max_abs_err=bwd[g]["max_abs_err"], ms=bwd[g]["ms"],
+             plain_ms=bwd["plain_ms"], bound_ms=bwd[g]["bound_ms"],
+             bound_by=bwd[g]["bound_by"], library_ms=bwd["library_ms"])
+        for g, line in (("dq", 170), ("dkv", 221))]
+    for kern in kernels:
+        kern["pass"] = kernels_ok and kern["launches"] > 0
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     hvd.shutdown()
-    if not (kernels_ok and serve_ok):
-        _fail(f"kernels ok={kernels_ok}, serving ok={serve_ok}")
+    if not (kernels_ok and serve_ok and train_ok
+            and all(k["pass"] for k in kernels)):
+        _fail(f"kernels ok={kernels_ok}, serving ok={serve_ok}, training "
+              f"ok={train_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

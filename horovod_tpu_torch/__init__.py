@@ -3,8 +3,11 @@
 A second implementation of ``horovod_tpu`` in PyTorch, for NVIDIA H100
 cards, one card per process.  It imports neither JAX nor ``horovod_tpu``;
 the JAX package is the reference its tests hold it against.  So far the
-port covers the serving path: runtime control, parameter broadcast, the
-Llama decoder with its flash-attention forward kernel, and ``serve``.
+port covers the serving path (runtime control, parameter broadcast, the
+Llama decoder with its flash-attention forward kernel, and ``serve``) and
+the training path (``DistributedOptimizer`` over the allreduce family of
+``mpi_ops``, and Llama training through the flash-attention backward
+kernels).
 """
 
 from .common.basics import (  # noqa: F401
@@ -13,7 +16,15 @@ from .common.basics import (  # noqa: F401
     NotInitializedError,
 )
 from .common.process_sets import ProcessSet, global_process_set  # noqa: F401
+from .compression import Compression  # noqa: F401
 from .functions import (  # noqa: F401
     broadcast_parameters, broadcast_optimizer_state,
 )
+from .mpi_ops import (  # noqa: F401
+    ReduceOp, Average, Sum, Min, Max, Product, Adasum,
+    allreduce, allreduce_, allreduce_async, allreduce_async_,
+    grouped_allreduce, grouped_allreduce_, grouped_allreduce_async,
+    grouped_allreduce_async_, synchronize, poll,
+)
+from .optimizer import DistributedOptimizer  # noqa: F401
 from . import serve  # noqa: F401

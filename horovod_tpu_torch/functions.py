@@ -1,16 +1,28 @@
 """Parameter and optimizer-state broadcast.
 
-Port of ``horovod_tpu/jax/optimizer.py:900-922`` (reference:
-``horovod/torch/functions.py``).  In a world of one process the params
-are returned unchanged.  Otherwise every tensor is broadcast from
-``root_rank`` with ``torch.distributed.broadcast``, in place, one call per
-tensor, in the sorted order of the tensors' paths so that every rank issues
-the same calls in the same order.  This direct broadcast stands in until
-the collective engine (negotiation and fusion) is ported.
+Port of ``horovod_tpu/jax/optimizer.py:900-922`` and of the torch binding's
+``horovod_tpu/torch/functions.py:17-85`` (reference:
+``horovod/torch/functions.py``).  ``broadcast_parameters`` takes a tree of
+dicts, lists and tuples with tensor leaves (the port's Llama parameters), a
+``state_dict``, an ``nn.Module`` (through its ``state_dict``, whose tensors
+share storage with the module) or an iterable of ``(name, tensor)`` pairs.
+``broadcast_optimizer_state`` takes a ``torch.optim.Optimizer``, through its
+``state_dict``, or a tree.
+
+In a world of one process both return at once.  Otherwise every tensor is
+broadcast from ``root_rank`` with ``torch.distributed.broadcast``, in place,
+one call per tensor, in the sorted order of the tensors' paths so that
+every rank issues the same calls in the same order; the non-tensor values
+of a ``state_dict`` ride one pickled broadcast and are written back.  An
+optimizer's state is sent as root's structure first, so a rank whose
+optimizer holds no state yet (no step taken) receives root's.  This direct
+broadcast stands in until the collective engine (negotiation and fusion)
+is ported.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -18,40 +30,134 @@ import torch
 from .common import basics
 from .common.process_sets import ProcessSet
 
+# A tensor of root's optimizer state, as its structure is sent.
+_TensorSpec = collections.namedtuple("_TensorSpec", "shape dtype on_cpu")
+
 
 def _leaves(tree, path=()):
-    """``(path, tensor)`` for every tensor of a dict/list/tuple tree."""
-    if isinstance(tree, torch.Tensor):
-        yield path, tree
-    elif isinstance(tree, dict):
+    """``(path, leaf)`` for every leaf of a dict/list/tuple tree: dict keys
+    as strings, list and tuple positions as ints, so that paths sort."""
+    if isinstance(tree, dict):
         for k in tree:
             yield from _leaves(tree[k], path + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaves(v, path + (f"{i:08d}",))
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _active_set(process_set: Optional[ProcessSet]) -> Optional[ProcessSet]:
+    """The set to broadcast over, or None where there is nothing to do (a
+    world of one process, or a rank outside the set)."""
+    if not basics.is_initialized() or basics.size() == 1:
+        return None
+    ps = process_set if process_set is not None else \
+        basics.global_process_set
+    return ps if ps.included(basics.rank()) else None
+
+
+@torch.no_grad()
+def _broadcast_tensors(tree, root_rank: int, ps: ProcessSet) -> None:
+    """Broadcast every tensor leaf in place, in sorted path order.  A tensor
+    off the process group's device, or not contiguous, goes through a
+    staging copy on that device."""
+    import torch.distributed as dist
+    dev = basics.device()
+    for _, t in sorted(_leaves(tree), key=lambda kv: kv[0]):
+        if not isinstance(t, torch.Tensor):
+            continue
+        if t.device == dev and t.is_contiguous():
+            dist.broadcast(t, src=root_rank, group=ps.group)
+        else:
+            buf = t.detach().to(dev).contiguous()
+            dist.broadcast(buf, src=root_rank, group=ps.group)
+            t.copy_(buf)
+
+
+def _broadcast_object(obj, root_rank: int, ps: ProcessSet):
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=root_rank, group=ps.group)
+    return box[0]
 
 
 def broadcast_parameters(params, root_rank: int = 0,
                          process_set: Optional[ProcessSet] = None):
-    """Synchronize a parameter tree from ``root_rank`` to every rank of
+    """Synchronize parameters from ``root_rank`` to every rank of
     ``process_set`` (the global set by default).  Tensors are overwritten
-    in place on the receiving ranks; the tree itself is returned."""
-    if not basics.is_initialized() or basics.size() == 1:
+    in place on the receiving ranks; ``params`` itself is returned."""
+    ps = _active_set(process_set)
+    if ps is None:
         return params
-    import torch.distributed as dist
-    ps = process_set if process_set is not None else \
-        basics.global_process_set
-    if not ps.included(basics.rank()):
-        return params
-    for _, t in sorted(_leaves(params), key=lambda kv: kv[0]):
-        if not t.is_contiguous():
-            raise ValueError("broadcast_parameters needs contiguous tensors")
-        dist.broadcast(t, src=root_rank, group=ps.group)
+    module = params if isinstance(params, torch.nn.Module) else None
+    tree = params.state_dict() if module is not None else params
+    top = tree if isinstance(tree, dict) else {}
+    if not isinstance(tree, (dict, list, tuple)):
+        tree = dict(tree)      # (name, tensor) pairs: nothing to write into
+    extras = {k: v for k, v in top.items()
+              if not isinstance(v, (torch.Tensor, dict, list, tuple))}
+    stray = sorted(".".join(map(str, path)) for path, x in _leaves(tree)
+                   if not isinstance(x, torch.Tensor)
+                   and not (len(path) == 1 and path[0] in map(str, extras)))
+    if stray:
+        raise ValueError(
+            f"broadcast_parameters got non-tensor entries {stray}; only the "
+            f"top-level values of a state_dict may be other objects")
+    _broadcast_tensors(tree, root_rank, ps)
+    if extras:
+        top.update(_broadcast_object(extras, root_rank, ps))
+        if module is not None:
+            module.load_state_dict(top)
     return params
 
 
-def broadcast_optimizer_state(opt_state, root_rank: int = 0,
+def _spec(x):
+    if isinstance(x, torch.Tensor):
+        return _TensorSpec(tuple(x.shape), x.dtype, x.device.type == "cpu")
+    if isinstance(x, dict):
+        return {k: _spec(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_spec(v) for v in x)
+    return x
+
+
+def _materialize(x):
+    if isinstance(x, _TensorSpec):
+        return torch.empty(x.shape, dtype=x.dtype,
+                           device="cpu" if x.on_cpu else basics.device())
+    if isinstance(x, dict):
+        return {k: _materialize(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_materialize(v) for v in x)
+    return x
+
+
+def broadcast_optimizer_state(optimizer, root_rank: int = 0,
                               process_set: Optional[ProcessSet] = None):
-    """Reference: ``horovod/torch/functions.py broadcast_optimizer_state``."""
-    return broadcast_parameters(opt_state, root_rank=root_rank,
-                                process_set=process_set)
+    """Broadcast an optimizer's full state from ``root_rank`` (reference:
+    ``horovod/torch/functions.py broadcast_optimizer_state``).
+
+    A ``torch.optim.Optimizer`` goes through its ``state_dict``: root's
+    structure and non-tensor values (hyperparameters, step counts) as one
+    object, then every state tensor in place, then ``load_state_dict`` on
+    the other ranks.  Anything else is a tree for
+    :func:`broadcast_parameters`.  Returns ``optimizer``."""
+    if not isinstance(optimizer, torch.optim.Optimizer):
+        return broadcast_parameters(optimizer, root_rank=root_rank,
+                                    process_set=process_set)
+    if isinstance(optimizer, torch.optim.LBFGS):
+        raise ValueError("cannot broadcast torch.optim.LBFGS state")
+    ps = _active_set(process_set)
+    if ps is None:
+        return optimizer
+    is_root = basics.rank() == root_rank
+    state = optimizer.state_dict() if is_root else None
+    spec = _broadcast_object(_spec(state) if is_root else None, root_rank,
+                             ps)
+    if not is_root:
+        state = _materialize(spec)
+    _broadcast_tensors(state, root_rank, ps)
+    if not is_root:
+        optimizer.load_state_dict(state)
+    return optimizer

@@ -1,14 +1,20 @@
-"""Llama-family decoder: the dense, single-device serving surface.
+"""Llama-family decoder: the dense, single-device serving and training
+surface.
 
-Port of ``horovod_tpu/models/llama.py:37-230, 313-523, 626-921``.  The
+Port of ``horovod_tpu/models/llama.py:37-230, 313-574, 586-921, 1023-1044``.  The
 parameters are a plain dictionary in the JAX package's own layout
 (``{"embed", "layers": [...], "final_norm", "lm_head"}``), and every weight
 keeps the JAX ``[in, out]`` layout: a projection is ``x @ w``, never
 ``nn.Linear``'s ``x @ w.T``.  :func:`params_from_jax` carries a JAX
 parameter tree (as numpy arrays) over unchanged.
 
-Prefill attends through the flash-attention forward (the Hopper kernel on
-a card, its plain version on the CPU); decode attention over the cache is a
+Training and prefill attend through flash attention (the Hopper kernels on
+a card, their plain versions on the CPU); the training step differentiates
+through the flash backward.  Parameters are leaves that require grad;
+:func:`make_train_step` runs one step of a torch optimizer, such as
+``hvd.DistributedOptimizer``, which averages gradients across processes
+(the JAX ``sync_grads`` is the identity with every mesh axis off, and the
+optimizer does that job here).  Decode attention over the cache is a
 plain masked product, as in the JAX package, because at one query row there
 is no score matrix to tile.  The KV cache is updated in place, where the
 JAX functions return a new one; the functions still return it.
@@ -20,11 +26,12 @@ rolling cache and speculative decoding are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..functions import _leaves
 from ..ops.flash_attention import NEG_INF, flash_attention
 
 
@@ -76,7 +83,8 @@ def llama3_8b(**kw) -> LlamaConfig:
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None) -> Dict:
     """Random dense parameters, ``N(0, 1/fan_in)``, drawn from
-    ``generator`` on ``device`` (the generator's own device by default)."""
+    ``generator`` on ``device`` (the generator's own device by default),
+    as leaves that require grad."""
     device = torch.device(device) if device is not None else \
         generator.device
     D, H, K, Hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -86,10 +94,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     def dense(fan_in, shape):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (w * (1.0 / np.sqrt(fan_in))).to(dt)
+        return (w * (1.0 / np.sqrt(fan_in))).to(dt).requires_grad_(True)
 
     def ones(n):
-        return torch.ones((n,), dtype=dt, device=device)
+        return torch.ones((n,), dtype=dt, device=device,
+                          requires_grad=True)
 
     layers = []
     for _ in range(cfg.n_layers):
@@ -124,12 +133,22 @@ def _to_tensor(a, device, dtype):
 def params_from_jax(tree, device="cpu", dtype: Optional[torch.dtype] = None
                     ) -> Dict:
     """The JAX package's parameter tree (leaves as numpy arrays) as the
-    port's parameters, layouts unchanged (``[in, out]`` weights)."""
+    port's parameters, layouts unchanged (``[in, out]`` weights).  The
+    leaves do not require grad; ``requires_grad_()`` them to train."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device, dtype) for v in tree]
     return _to_tensor(tree, device, dtype)
+
+
+def named_parameters(params) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``("layers.0.wq", tensor)`` pairs in the sorted path order that
+    ``broadcast_parameters`` walks, for ``DistributedOptimizer``'s
+    ``named_parameters``."""
+    for path, t in sorted(_leaves(params), key=lambda kv: kv[0]):
+        if isinstance(t, torch.Tensor):
+            yield ".".join(map(str, path)), t
 
 
 # ------------------------------------------------------------------ forward
@@ -197,6 +216,33 @@ def forward(params, tokens, cfg: LlamaConfig):
         x = _layer_apply(p, x, cfg, positions)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"]
+
+
+# ----------------------------------------------------------------- training
+def loss_fn(params, tokens, targets, cfg: LlamaConfig):
+    """Mean next-token cross-entropy over every token, logits in float32:
+    the dense single-device case of the JAX ``loss_fn`` (no mesh axes, so
+    no partial-sum scaling, and no mixture-of-experts router loss)."""
+    logits = forward(params, tokens, cfg).float()
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long())
+
+
+def make_train_step(cfg: LlamaConfig, optimizer):
+    """Returns ``step(params, tokens, targets) -> loss``: zero the grads,
+    forward, backward, ``optimizer.step()``.  The loss is that of the
+    parameters before the update, as the JAX step returns it.  ``params``
+    must be the leaves ``optimizer`` updates; with
+    ``hvd.DistributedOptimizer`` the step averages the gradients across
+    processes."""
+    def step(params, tokens, targets):
+        optimizer.zero_grad()
+        loss = loss_fn(params, tokens, targets, cfg)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 # ---------------------------------------------------------------- inference

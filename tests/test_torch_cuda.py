@@ -1,6 +1,6 @@
 """Port kernels on the card: each CUDA kernel against its plain PyTorch
-version on the same inputs, and the tiny model served on the card against
-the CPU.  Marked ``cuda``; every test skips on a
+version on the same inputs, and the tiny model served and trained on the
+card against the CPU.  Marked ``cuda``; every test skips on a
 machine without a card.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda`` (this file imports
 no JAX, so it runs where JAX is not installed).
@@ -9,7 +9,12 @@ Tolerances: float32 1e-4 (same arithmetic, different summation order and
 exp/log implementations); bfloat16 2e-2 on o (p is rounded to bfloat16
 before p.v at a different running max in the kernel's online softmax than
 in the dense plain version, so the rounding points differ), 1e-4 on lse
-(float32 on both sides).
+(float32 on both sides).  The backward's dq, dk and dv: 1e-4 in float32
+and 2e-2 in bfloat16, both relative to the largest reference value of the
+three (ds is rounded to bfloat16 from f32 sums taken in another order, so
+an element near a rounding boundary may round the other way, and the
+outputs are bfloat16; one scale for the three because dq can be all
+rounding noise, as with a single key, where ds = p (dp - delta) cancels).
 """
 
 import threading
@@ -18,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import llama as tl
 from horovod_tpu_torch.ops import flash_attention as tfa
 from horovod_tpu_torch.serve import ContinuousBatcher, Replica
@@ -129,3 +135,121 @@ def test_torch_serving_on_card_matches_cpu(cuda_device):
     assert not th.is_alive()
     np.testing.assert_array_equal(out, ref)
     assert tfa.flash_attention_fwd.launches - before == cfg.n_layers
+
+
+def _bwd_inputs(seed, shape, dtype, causal, window, device):
+    """q, k, v, do and the forward kernel's own lse with delta from o."""
+    B, Tq, Tk, H, K, D = shape
+    q, k, v = _inputs(seed, B, Tq, Tk, H, K, D, device, dtype)
+    do = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        B, Tq, H, D).astype(np.float32)).to(device, dtype)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def _assert_rel_close(out, ref, tol, names=("dq", "dk", "dv")):
+    scale = max(b.float().abs().max().item() for b in ref)
+    for name, a, b in zip(names, out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * max(scale, 1e-30), (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,causal,window", [
+    ((2, 130, 130, 8, 2, 128), torch.bfloat16, True, None),
+    ((2, 130, 130, 8, 2, 128), torch.float32, True, None),
+    ((1, 300, 200, 4, 4, 64), torch.float32, False, None),
+    ((1, 200, 200, 4, 1, 128), torch.bfloat16, True, 48),
+    ((1, 160, 40, 2, 1, 64), torch.float32, True, 16),   # empty rows
+    ((1, 1, 1, 4, 4, 64), torch.bfloat16, True, None),   # one row
+    ((3, 77, 77, 16, 2, 128), torch.bfloat16, True, None),   # rep 8
+    ((2, 64, 64, 4, 4, 64), torch.bfloat16, False, None),    # exact tile
+    ((1, 100, 300, 4, 2, 128), torch.float32, True, None),   # Tq < Tk
+])
+def test_torch_flash_bwd_kernels_match_plain(cuda_device, shape, dtype,
+                                             causal, window):
+    """dq and dk/dv kernels against the plain backward, each launched once
+    per call, and bitwise equal on a second call (no atomics)."""
+    q, k, v, do, lse, delta = _bwd_inputs(6, shape, dtype, causal, window,
+                                          cuda_device)
+    before = (tfa.flash_attention_bwd.launches_dq,
+              tfa.flash_attention_bwd.launches_dkv)
+    out = tfa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd.launches_dq,
+            tfa.flash_attention_bwd.launches_dkv) == (before[0] + 1,
+                                                      before[1] + 1)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                        causal=causal, window=window)
+    _assert_rel_close(out, ref, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+    again = tfa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                    window=window)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+def test_torch_flash_bwd_kernels_take_strided_views(cuda_device):
+    """q/k/v as views into a wider tensor and an expanded cotangent (head
+    dim stride 0) give the plain version's answer."""
+    B, T, H, K, D = 2, 96, 4, 2, 64
+    big = torch.from_numpy(np.random.RandomState(3).randn(
+        B, T, H + 2 * K + 3, D).astype(np.float32)).to(cuda_device)
+    q, k, v = big[:, :, :H], big[:, :, H:H + K], big[:, :, H + K:H + 2 * K]
+    assert not q.is_contiguous()
+    qkv = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    do = torch.full((1, 1, 1, 1), 0.5, device=cuda_device).expand_as(o)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    out = tfa.flash_attention_bwd(q, k, v, do, lse, delta, causal=True)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True)
+    _assert_rel_close(out, ref, 1e-4)
+    # Through autograd: the cotangent of a sum is expanded too.
+    (tfa.flash_attention(*qkv, causal=True) * 0.5).sum().backward()
+    _assert_rel_close([x.grad for x in qkv], ref, 1e-4)
+
+
+@pytest.mark.cuda
+def test_torch_training_on_card_matches_cpu(cuda_device):
+    """Two steps of make_train_step + DistributedOptimizer(SGD) on the tiny
+    float32 model give the CPU's losses and parameters (1e-4: float32 on
+    both sides, sums in another order), and each step launched the forward,
+    dq and dk/dv kernels once per layer.  head_dim 64: the kernels take 64
+    or 128."""
+    cfg = tl.tiny(dtype=torch.float32, d_model=256, n_heads=4,
+                  n_kv_heads=2, d_ff=512)
+    hvd.init(device="cpu")    # size 1: the optimizer registers no hooks
+    toks = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (2, 41)).astype(np.int64))
+    runs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        if dev.type == "cuda":
+            params = {k: ([{n: w.detach().to(dev).requires_grad_(True)
+                            for n, w in lay.items()} for lay in v]
+                          if k == "layers" else
+                          v.detach().to(dev).requires_grad_(True))
+                      for k, v in params.items()}
+        named = list(tl.named_parameters(params))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([t for _, t in named], lr=0.5),
+            named_parameters=named)
+        step = tl.make_train_step(cfg, opt)
+        before = (tfa.flash_attention_fwd.launches,
+                  tfa.flash_attention_bwd.launches_dq,
+                  tfa.flash_attention_bwd.launches_dkv)
+        x, y = toks[:, :-1].to(dev), toks[:, 1:].to(dev)
+        losses = [float(step(params, x, y)) for _ in range(2)]
+        after = (tfa.flash_attention_fwd.launches,
+                 tfa.flash_attention_bwd.launches_dq,
+                 tfa.flash_attention_bwd.launches_dkv)
+        runs[dev.type] = (losses, [t.detach().cpu() for _, t in named],
+                          [a - b for a, b in zip(after, before)])
+    assert runs["cpu"][2] == [0, 0, 0]
+    assert runs["cuda"][2] == [2 * cfg.n_layers] * 3
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -137,17 +137,6 @@ def test_torch_flash_rejects_mixed_dtypes():
         tfa.flash_attention(q, k.bfloat16(), k.bfloat16(), causal=True)
 
 
-def test_torch_flash_gradient_raises():
-    """No silent plain backward: a call that needs a gradient raises until
-    the backward kernels are ported."""
-    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 1, 16, 16, 2, 2, 8))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(q, k, v, causal=True)
-    with torch.no_grad():
-        assert tfa.flash_attention(q, k, v, causal=True).shape == q.shape
-
-
 def test_torch_flash_cpu_uses_plain_and_counts_no_launch():
     """A CPU tensor runs the plain version and never counts a launch."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(2, 1, 20, 20, 4, 2, 8))
