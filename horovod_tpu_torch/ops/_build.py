@@ -2,8 +2,9 @@
 
 The build-at-first-use pattern of ``horovod_tpu/common/native.py``: each
 ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, named by a hash of its source so that an
-edited source never reuses a stale library, under ``build/kernels/`` beside
+library with a plain C interface, named by a hash of its source and of every
+header beside it (``*.cuh``, ``*.h``) so that an edited source or shared
+header never reuses a stale library, under ``build/kernels/`` beside
 the package (listed in ``.gitignore``).  Concurrent builders serialise on a
 file lock and write through a private temporary name.
 
@@ -56,9 +57,16 @@ def sources() -> List[str]:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return os.path.join(_OUT_DIR, f"lib{name}.{digest}.so")
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of every header in ``csrc/`` (any of them may be included)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(_CSRC)
+                     if f.endswith((".cuh", ".h")))
+    for fname in [name + ".cu"] + headers:
+        h.update(fname.encode() + b"\0")
+        with open(os.path.join(_CSRC, fname), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(_OUT_DIR, f"lib{name}.{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

@@ -18,18 +18,36 @@
 // contributes exactly 0 (it is never exponentiated), so an empty row with
 // lse = 0 gives dq = 0 and adds nothing to dk, dv.
 //
-// Design.  Both kernels run 256 threads on 64 x 64 tiles staged in shared
-// memory as f32 (rows padded by one word against bank conflicts); each
-// thread owns 4 rows x 4 columns of the score tile and 4 rows x D/16
-// columns of its accumulators, and every product is a plain f32 FMA (exact
-// for bf16 operands, whose products fit an f32 mantissa).
-//   dq:   one CTA per (batch*head, 64-row q tile).  q, do, lse and delta stay
-//         resident; a loop over the live k tiles recomputes s and dp, writes
-//         ds to shared memory and accumulates dq in registers.
-//   dk/dv: one CTA per (batch*kv head, 64-row k tile).  k and v stay
-//         resident; a loop over the rep q heads x live q tiles, inside the
-//         block, accumulates dk and dv in registers.  GQA therefore needs no
-//         atomics, and the result is bitwise reproducible.
+// Designs.
+//   dq (both dtypes) and dk/dv in float32: the first design.  256 threads on
+//   64 x 64 tiles staged in shared memory as f32 (rows padded by one word
+//   against bank conflicts); each thread owns 4 rows x 4 columns of the
+//   score tile and 4 rows x D/16 columns of its accumulators, and every
+//   product is a plain f32 FMA (exact for bf16 operands, whose products fit
+//   an f32 mantissa).
+//     dq:   one CTA per (batch*head, 64-row q tile).  q, do, lse and delta
+//           stay resident; a loop over the live k tiles recomputes s and dp,
+//           writes ds to shared memory and accumulates dq in registers.
+//     dk/dv: one CTA per (batch*kv head, 64-row k tile), k and v resident,
+//           a loop over the rep q heads x live q tiles inside the block.
+//   dk/dv in bfloat16 (flash_bwd_dkv_wgmma_kernel): the products on the
+//   tensor cores.  One CTA of three warpgroups per (batch*kv head, 128-row
+//   k tile).  The producer warpgroup (24 registers a thread after
+//   setmaxnreg) loads k and v once with TMA, then streams 64-row q and do
+//   tiles through a 2-stage ring (128-byte swizzle, rows past Tq arrive as
+//   zeros); its second warp stages each tile's lse (times log2 e) and
+//   delta rows beside them.  Each consumer warpgroup (240 registers) owns
+//   64 k rows and their dk, dv accumulators, and per ring stage computes
+//   S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands K-major,
+//   two commit groups so that p^T is computed while dP^T runs), then
+//   dV += bf16(P^T) dO and dK += bf16(dS^T) Q with P^T and dS^T taken from
+//   registers as the A fragment and dO, Q MN-major.  The mask is two
+//   compares an entry against the q range each k row may attend (ragged
+//   edges, causal diagonal, window; it includes q < Tq, since q rows past
+//   Tq arrive as zeros with lse = delta = 0).  Nothing goes through shared
+//   memory but the TMA tiles and the lse/delta rows.
+// Either way the rep q heads of a kv head are summed inside one block:
+// GQA needs no atomics, and the result is bitwise reproducible.
 // Blocks are numbered heaviest first: under a causal mask the last q tiles
 // (dq) and the first k tiles (dk/dv) meet the most live tiles.
 //
@@ -42,20 +60,25 @@
 // the shapes it runs).
 //
 // Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8): dq uses 128 registers at
-// D=128 with 8 bytes of spill, 126 at D=64; dk/dv uses 182 registers at
-// D=128 and 128 at D=64, no spills; the same for f32 and bf16.  Shared
-// memory per block at D=128 is 149,248 B (dq) and 165,888 B (dk/dv), so one
-// 256-thread block runs per SM.
+// D=128 with 8 bytes of spill, 126 at D=64; the f32 dk/dv kernel 182 at
+// D=128 and 128 at D=64, no spills.  The bf16 dk/dv kernel reports 168
+// (the launch allocation of 384 threads; consumers raise theirs to 240)
+// and 288 B of spill stores at D=128, none at D=64: two 64-register
+// accumulators, the 32-register S^T and dP^T and the A fragments come
+// close to 240 at their peak.  Shared memory per block at D=128: 149,248 B
+// (dq), 165,888 B (f32 dk/dv), 133,160 B (bf16 dk/dv); one block per SM.
 //
-// What this simple design leaves on the table: no tensor cores (wgmma on
-// bf16 tiles would run the five products at up to 15x the f32 FMA rate), no
-// TMA or cp.async overlap of the next tile's load with this tile's math, one
-// block per SM with nothing to hide latency, and no persistent schedule over
-// the causal triangle's uneven tiles.
+// What is left on the table: dq runs no tensor cores yet (it is the next
+// kernel to redesign); the bf16 dk/dv kernel spills, runs 64 x 64 score
+// tiles (m64n64 products, well below the tensor cores' best shape), does
+// not overlap one stage's products with the next stage's, and has no
+// persistent scheduler over the causal triangle's uneven tiles.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -445,6 +468,269 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------- bf16 dk/dv: wgmma + TMA ring
+constexpr int WG = 128;          // threads of a warpgroup
+constexpr int WS_THREADS = 384;  // one producer + two consumer warpgroups
+constexpr int TK = 128;          // k rows per block, 64 per consumer
+constexpr int TQ = 64;           // q rows per ring stage
+constexpr int STAGES = 2;
+
+template <int D>
+struct DkvSmem {
+  static constexpr uint32_t HALF_K = TK * 128;     // one 64-column half
+  static constexpr uint32_t HALF_Q = TQ * 128;
+  static constexpr uint32_t KV_BYTES = D / 64 * HALF_K;   // k or v
+  static constexpr uint32_t QT_BYTES = D / 64 * HALF_Q;   // q or do
+  static constexpr uint32_t TILES = 2 * KV_BYTES + STAGES * 2 * QT_BYTES;
+  static constexpr size_t BYTES =
+      1024 + TILES + STAGES * 2 * TQ * 4 + (2 * STAGES + 1) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               Params p) {
+  using namespace hopper;
+  using S = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align_1k(smem_raw);
+  uint8_t* sV = sK + S::KV_BYTES;
+  uint8_t* ring = sV + S::KV_BYTES;   // stage s: q, then do
+  float* sL = reinterpret_cast<float*>(sK + S::TILES);   // [STAGES][TQ]
+  float* sDel = sL + STAGES * TQ;                        // [STAGES][TQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sDel + STAGES * TQ);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+
+  const int BKH = p.B * p.K;
+  const int kt = blockIdx.x / BKH;   // the first k tiles meet the most q tiles
+  const int bk = blockIdx.x % BKH;
+  const int b = bk / p.K;
+  const int kh = bk % p.K;
+  const int rep = p.H / p.K;
+  const int k0 = kt * TK;
+
+  // The q rows that may attend a key of this tile, as in the f32 kernel;
+  // the loop runs over the rep q heads x these q tiles.
+  int q_lo = 0, q_hi = p.Tq;
+  if (p.causal) {
+    q_lo = k0;
+    if (p.window > 0) q_hi = min(q_hi, min(k0 + TK, p.Tk) - 1 + p.window);
+  }
+  const int qt0 = q_lo / TQ;
+  const int nq = q_hi > qt0 * TQ ? (q_hi - qt0 * TQ + TQ - 1) / TQ : 0;
+  const int n = rep * nq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);   // the TMA thread + the lse/delta warp
+      mbar_init(&empty[s], 2 * WG);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / WG == 0) {
+    // Producer: thread 0 loads k and v once, then keeps the ring of q/do
+    // tiles full; warp 1 stages each tile's lse (log2 units) and delta.
+    producer_regs();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(kvbar, 2 * S::KV_BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sK + c * S::HALF_K, &tk, kvbar, 64 * c, k0, kh, b);
+        tma_load(sV + c * S::HALF_K, &tv, kvbar, 64 * c, k0, kh, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        const int h = kh * rep + i / nq;
+        const int q0 = (qt0 + i % nq) * TQ;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        uint8_t* sq = ring + s * 2 * S::QT_BYTES;
+        mbar_arrive_tx(&full[s], 2 * S::QT_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sq + c * S::HALF_Q, &tq, &full[s], 64 * c, q0, h, b);
+          tma_load(sq + S::QT_BYTES + c * S::HALF_Q, &tdo, &full[s], 64 * c,
+                   q0, h, b);
+        }
+      }
+    } else if (warp == 1) {
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        const int64_t bh = (int64_t)b * p.H + kh * rep + i / nq;
+        const int q0 = (qt0 + i % nq) * TQ;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        for (int r = lane; r < TQ; r += 32) {
+          const int t = q0 + r;
+          sL[s * TQ + r] = t < p.Tq ? p.lse[bh * p.Tq + t] * LOG2E : 0.f;
+          sDel[s * TQ + r] = t < p.Tq ? p.delta[bh * p.Tq + t] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns k rows k0 + 64 c .. + 63 and their dk, dv.
+    consumer_regs();
+    const int c = threadIdx.x / WG - 1;
+    const int warp = (threadIdx.x % WG) / 32;
+    const int lane = threadIdx.x % 32;
+    const int row0 = k0 + 64 * c + 16 * warp + lane / 4;   // and row0 + 8
+    const int col_l = 2 * (lane % 4);
+    const float scale_log2 = p.scale * LOG2E;
+    const uint32_t ka = smem_u32(sK) + c * 64 * 128;
+    const uint32_t va = smem_u32(sV) + c * 64 * 128;
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % STAGES;
+      const int q0 = (qt0 + i % nq) * TQ;
+      const uint32_t sq = smem_u32(ring) + s * 2 * S::QT_BYTES;
+      const uint32_t sdo = sq + S::QT_BYTES;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T (64 k rows x 64 q rows, K-major), in
+      // two groups: p^T is computed while dP^T is still on the tensor cores.
+      float st[32], dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64>(st,
+                     make_desc(ka + (kk / 4) * S::HALF_K + (kk % 4) * 32, 16),
+                     make_desc(sq + (kk / 4) * S::HALF_Q + (kk % 4) * 32, 16),
+                     kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64>(dpt,
+                     make_desc(va + (kk / 4) * S::HALF_K + (kk % 4) * 32, 16),
+                     make_desc(sdo + (kk / 4) * S::HALF_Q + (kk % 4) * 32, 16),
+                     kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+
+      // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale.  The
+      // mask is two compares an entry against the q columns (relative to
+      // q0) that k row row0 + 8 hh may attend, [lo[hh], hi[hh]): the ragged
+      // edges, the causal diagonal and the window.  A masked entry is never
+      // exponentiated (a q row past Tq reads as zeros with lse = delta = 0,
+      // and would give p = 1 if it were).  One path for every tile: a
+      // second, unmasked copy of this code costs the consumers registers.
+      const float* lrow = sL + s * TQ;
+      const float* drow = sDel + s * TQ;
+      int lo[2], hi[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int kr = row0 + 8 * hh;
+        lo[hh] = (p.causal ? kr : 0) - q0;
+        int end = p.Tq;
+        if (p.causal && p.window > 0) end = min(end, kr + p.window);
+        hi[hh] = kr < p.Tk ? end - q0 : lo[hh];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = 8 * j + col_l + e;
+          const float lse2 = lrow[qc];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int idx = 4 * j + 2 * hh + e;
+            const bool ok = qc >= lo[hh] && qc < hi[hh];
+            st[idx] = ok ? exp2f(st[idx] * scale_log2 - lse2) : 0.f;
+          }
+        }
+      wgmma_wait_all();
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float del = drow[8 * j + col_l + e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int idx = 4 * j + 2 * hh + e;
+            dpt[idx] = st[idx] * (dpt[idx] - del) * p.scale;
+          }
+        }
+      // dV += P^T dO and dK += dS^T Q, with p rounded to do's dtype and ds
+      // to q's (bf16) straight into the A fragments; dO and Q are [q rows,
+      // D], MN-major.
+      uint32_t af[16], bf[16];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          af[4 * kk + r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          bf[4 * kk + r] =
+              pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TQ / 16; ++kk)
+        wgmma_rs<D>(dv, &af[4 * kk], make_desc(sdo + kk * 2048, S::HALF_Q));
+#pragma unroll
+      for (int kk = 0; kk < TQ / 16; ++kk)
+        wgmma_rs<D>(dk, &bf[4 * kk], make_desc(sq + kk * 2048, S::HALF_Q));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(&empty[s]);
+    }
+
+    __nv_bfloat16* DK = static_cast<__nv_bfloat16*>(p.o0) +
+                        (int64_t)b * p.o0_sb + (int64_t)kh * p.o0_sh;
+    __nv_bfloat16* DV = static_cast<__nv_bfloat16*>(p.o1) +
+                        (int64_t)b * p.o1_sb + (int64_t)kh * p.o1_sh;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= p.Tk) continue;
+      __nv_bfloat16* krow = DK + (int64_t)row * p.o0_st + col_l;
+      __nv_bfloat16* vrow = DV + (int64_t)row * p.o1_st + col_l;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * hh], dk[4 * j + 2 * hh + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * hh], dv[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::make_map(&mq, p.q, p.B, p.Tq, p.H, D, p.q_sb, p.q_sh, p.q_st,
+                        TQ) ||
+      !hopper::make_map(&mdo, p.dout, p.B, p.Tq, p.H, D, p.d_sb, p.d_sh,
+                        p.d_st, TQ) ||
+      !hopper::make_map(&mk, p.k, p.B, p.Tk, p.K, D, p.k_sb, p.k_sh, p.k_st,
+                        TK) ||
+      !hopper::make_map(&mv, p.v, p.B, p.Tk, p.K, D, p.v_sb, p.v_sh, p.v_st,
+                        TK))
+    return cudaErrorInvalidValue;
+  const size_t smem = DkvSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)p.B * p.K * ((p.Tk + TK - 1) / TK);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, p);
+  return cudaGetLastError();
+}
+
 bool fill(Params& p, const void* q, const void* k, const void* v,
           const void* dout, const void* lse, const void* delta, int B, int H,
           int K, int Tq, int Tk, const int* strides, float scale, int causal,
@@ -514,9 +800,8 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && head_dim == 64) return (int)launch_dkv<float, 64>(p, st);
   if (dtype == 0 && head_dim == 128)
     return (int)launch_dkv<float, 128>(p, st);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_dkv<__nv_bfloat16, 64>(p, st);
+  if (dtype == 1 && head_dim == 64) return (int)launch_dkv_wgmma<64>(p, st);
   if (dtype == 1 && head_dim == 128)
-    return (int)launch_dkv<__nv_bfloat16, 128>(p, st);
+    return (int)launch_dkv_wgmma<128>(p, st);
   return (int)cudaErrorInvalidValue;
 }

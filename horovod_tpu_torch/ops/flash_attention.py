@@ -6,7 +6,20 @@ replaced are ``_fwd_kernel`` (``:98-166``, launched by ``_fwd_impl``), whose
 CUDA source is ``csrc/flash_fwd.cu``, and ``_dq_kernel``/``_dkv_kernel``
 (``:170-273``, launched by ``_bwd_impl``), whose source is
 ``csrc/flash_bwd.cu``.  Each source's header states its bound on the H100
-and what its simple design leaves on the table.
+and what its design leaves on the table.
+
+Two designs, chosen by dtype inside the C entry points:
+
+- bfloat16, forward and dk/dv: warp-specialised blocks of one TMA
+  producer and two consumer warpgroups; the products run on the tensor
+  cores (``wgmma``) from 128-byte-swizzled tiles that TMA streams through a
+  ring of shared-memory stages (``csrc/hopper.cuh`` holds the pieces).  TMA
+  needs a 16-byte-aligned base and batch, head and row strides that are
+  multiples of 16 bytes (:func:`tma_ok`); a bfloat16 operand without them
+  is copied to a fresh contiguous tensor before the launch.
+- float32 everywhere, and the dq kernel in both dtypes: the first design,
+  f32 FMAs on operands staged in shared memory, which keeps float32 exact
+  to the 1e-4 the tests hold (a TF32 ``wgmma`` would not).
 
 Layout: ``[B, T, H, D]`` (the llama layout).  GQA is native: k and v carry
 ``K = H / rep`` heads and each group of ``rep`` consecutive q heads reads
@@ -126,8 +139,30 @@ def _check_kernel_operands(named) -> None:
 
 
 def _strides(x):
-    """(batch, head, row) element strides of a [B, T, heads, D] tensor."""
-    return x.stride(0), x.stride(2), x.stride(1)
+    """(batch, head, row) element strides of a [B, T, heads, D] tensor.  A
+    dimension of size 1 is never stepped along, so it gets the stride a
+    contiguous tensor would have: TMA takes no other value for it."""
+    B, T, H, D = x.shape
+    return (x.stride(0) if B > 1 else T * H * D,
+            x.stride(2) if H > 1 else D,
+            x.stride(1) if T > 1 else H * D)
+
+
+def tma_ok(x) -> bool:
+    """Can TMA describe this ``[B, T, heads, D]`` tensor as it lies?  Its
+    base must be 16-byte aligned and its batch, head and row strides
+    multiples of 16 bytes (the head dim is contiguous)."""
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        s > 0 and s * size % 16 == 0 for s in _strides(x))
+
+
+def _tma_operand(x):
+    """``x`` itself where the bfloat16 kernels can map it, else a fresh
+    contiguous copy (new storage: an aligned base)."""
+    if x.dtype != torch.bfloat16 or tma_ok(x):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _flash_kernel(q, k, v, causal: bool, scale: float,
@@ -135,6 +170,7 @@ def _flash_kernel(q, k, v, causal: bool, scale: float,
     B, Tq, H, D = q.shape
     Tk, K = k.shape[1], k.shape[2]
     _check_kernel_operands((("q", q), ("k", k), ("v", v)))
+    q, k, v = (_tma_operand(x) for x in (q, k, v))
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     err = _lib("flash_fwd").hvd_flash_fwd(
@@ -158,6 +194,7 @@ _SIGNATURES = {
     "flash_fwd": {
         "hvd_flash_fwd": [_VP] * 5 + [_CI] * 6 + [_CI] * 12
         + [ctypes.c_float, _CI, _CI, _CI, _VP],
+        "hvd_wgmma_probe": [_VP] * 3 + [_CI] * 3 + [_VP],
     },
     "flash_bwd": {
         "hvd_flash_bwd_dq": [_VP] * 7 + [_CI] * 6 + [_IP] + [_CI] * 3
@@ -277,11 +314,13 @@ def flash_attention_bwd_plain(q, k, v, do, lse, delta, causal: bool = False,
 
 def _bwd_operands(q, k, v, do, lse, delta):
     """The operands as the backward kernels take them.  One whose head dim
-    is not contiguous (an expanded cotangent, for one) is made contiguous;
-    any other strides go to the kernels as they are."""
+    is not contiguous (an expanded cotangent, for one) is made contiguous,
+    and so is a bfloat16 one that TMA cannot map; any other strides go to
+    the kernels as they are."""
     q, k, v, do = (x if x.stride(3) == 1 else x.contiguous()
                    for x in (q, k, v, do))
     _check_kernel_operands((("q", q), ("k", k), ("v", v), ("do", do)))
+    q, k, v, do = (_tma_operand(x) for x in (q, k, v, do))
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 

@@ -38,6 +38,14 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
+# The edges of the bfloat16 kernels' 128-row tiles: Tq = Tk one short of,
+# one past and one past two tiles, causal and not, D 64 and 128, GQA rep 1
+# and 8 (one kv head).
+TILE_EDGES = [((1, T, T, rep, 1, D), torch.bfloat16, causal, None)
+              for T in (127, 129, 257) for causal in (True, False)
+              for D in (64, 128) for rep in (1, 8)]
+
+
 def _inputs(seed, B, Tq, Tk, H, K, D, device, dtype):
     rng = np.random.RandomState(seed)
     return tuple(torch.from_numpy(rng.randn(B, T, h, D).astype(np.float32))
@@ -56,7 +64,7 @@ def _inputs(seed, B, Tq, Tk, H, K, D, device, dtype):
     ((3, 77, 77, 16, 2, 128), torch.bfloat16, True, None),   # rep 8
     ((2, 64, 64, 4, 4, 64), torch.bfloat16, False, None),    # exact tile
     ((1, 100, 300, 4, 2, 128), torch.float32, True, None),   # Tq < Tk
-])
+] + TILE_EDGES)
 def test_torch_flash_kernel_matches_plain(cuda_device, shape, dtype, causal,
                                           window):
     B, Tq, Tk, H, K, D = shape
@@ -86,6 +94,87 @@ def test_torch_flash_kernel_takes_strided_views(cuda_device):
     o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=True)
     torch.testing.assert_close(o, o_p, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_torch_flash_kernel_takes_strided_bf16_views(cuda_device):
+    """bfloat16 q/k/v as head slices of a wider tensor go to TMA as they lie
+    (their strides are multiples of 16 bytes) and give the plain answer."""
+    B, T, H, K, D = 2, 200, 8, 2, 128
+    big = torch.from_numpy(np.random.RandomState(4).randn(
+        B, T, H + 2 * K + 3, D).astype(np.float32)).to(cuda_device,
+                                                       torch.bfloat16)
+    q, k, v = big[:, :, :H], big[:, :, H:H + K], big[:, :, H + K:H + 2 * K]
+    assert not q.is_contiguous() and all(tfa.tma_ok(x) for x in (q, k, v))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_torch_flash_kernels_copy_unaligned_bf16_operands(cuda_device):
+    """bfloat16 operands at an odd storage offset (a base TMA refuses) are
+    copied by the wrapper and still give the plain answers, forward and
+    backward, with one launch of each kernel."""
+    B, T, H, K, D = 1, 150, 4, 2, 64
+    sizes = (B * T * H * D, B * T * K * D, B * T * K * D)
+    store = torch.from_numpy(np.random.RandomState(5).randn(
+        1 + sum(sizes)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    offs = 1 + np.cumsum((0,) + sizes[:2])     # odd: 2-byte aligned bases
+    q, k, v = (store.as_strided((B, T, h, D), (T * h * D, h * D, D, 1),
+                                int(off)) for h, off in zip((H, K, K), offs))
+    do = torch.from_numpy(np.random.RandomState(6).randn(
+        B, T, H, D).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    assert not any(tfa.tma_ok(x) for x in (q, k, v))
+    before = tfa.flash_attention_fwd.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert tfa.flash_attention_fwd.launches == before + 1
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    out = tfa.flash_attention_bwd(q, k, v, do, lse, delta, causal=True)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True)
+    _assert_rel_close(out, ref, 2e-2)
+
+
+@pytest.mark.cuda
+def test_torch_flash_dkv_bf16_rep8_is_bitwise_reproducible(cuda_device):
+    """The bfloat16 dk/dv kernel sums the 8 q heads of each kv head inside
+    one block, in a fixed order: a second call is bitwise equal."""
+    q, k, v, do, lse, delta = _bwd_inputs(9, (1, 1000, 1000, 16, 2, 128),
+                                          torch.bfloat16, True, None,
+                                          cuda_device)
+    ops = tfa._bwd_operands(q, k, v, do, lse, delta)
+    first = tfa._launch_dkv(*ops, True, 128 ** -0.5, None)
+    again = tfa._launch_dkv(*ops, True, 128 ** -0.5, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("kd", [64, 128])
+def test_torch_wgmma_operand_layouts_match_matmul(cuda_device, mode, n, kd):
+    """The layouts the bfloat16 kernels rely on, one product at a time:
+    K-major operands through TMA and the 128B swizzle (mode 0, as q k^T)
+    and an MN-major B with A from registers (mode 1, as p v), against
+    torch.matmul in float32 (1e-4: bf16 products are exact in f32, only
+    the order of the sums differs)."""
+    g = torch.Generator(device=cuda_device).manual_seed(mode * 4 + n + kd)
+    a = torch.randn(64, kd, generator=g, device=cuda_device).bfloat16()
+    shape = (n, kd) if mode == 0 else (kd, n)
+    b = torch.randn(*shape, generator=g, device=cuda_device).bfloat16()
+    out = torch.zeros(64, n, device=cuda_device)
+    err = tfa._lib("flash_fwd").hvd_wgmma_probe(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, n, kd,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref = a.float() @ (b.float().t() if mode == 0 else b.float())
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -167,7 +256,7 @@ def _assert_rel_close(out, ref, tol, names=("dq", "dk", "dv")):
     ((3, 77, 77, 16, 2, 128), torch.bfloat16, True, None),   # rep 8
     ((2, 64, 64, 4, 4, 64), torch.bfloat16, False, None),    # exact tile
     ((1, 100, 300, 4, 2, 128), torch.float32, True, None),   # Tq < Tk
-])
+] + TILE_EDGES)
 def test_torch_flash_bwd_kernels_match_plain(cuda_device, shape, dtype,
                                              causal, window):
     """dq and dk/dv kernels against the plain backward, each launched once

@@ -158,3 +158,71 @@ def test_torch_flash_bf16_plain_close_to_f32():
     assert o16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
     torch.testing.assert_close(o16.float(), o32, atol=3e-2, rtol=3e-2)
     torch.testing.assert_close(lse16, lse32, atol=3e-2, rtol=3e-2)
+
+
+def _bf16_storage(n, seed=0):
+    return torch.from_numpy(np.random.RandomState(seed).randn(n).astype(
+        np.float32)).bfloat16()
+
+
+def test_torch_flash_tma_ok_accepts_aligned_views():
+    """TMA eligibility of [B, T, heads, D] views: contiguous tensors, head
+    slices of a wider tensor and a storage offset of 8 bf16 elements (16
+    bytes) pass; a size-1 dimension's stride does not matter."""
+    B, T, H, D = 2, 24, 4, 64
+    big = _bf16_storage(B * T * 11 * D).reshape(B, T, 11, D)
+    assert tfa.tma_ok(big[:, :, :H].contiguous())
+    assert tfa.tma_ok(big[:, :, 3:3 + H])          # head slice: strides fine
+    store = _bf16_storage(8 + B * T * H * D)
+    assert tfa.tma_ok(store.as_strided((B, T, H, D),
+                                       (T * H * D, H * D, D, 1), 8))
+    one = store.as_strided((1, T, 1, D), (7, D, 3, 1), 0)
+    assert tfa.tma_ok(one)
+
+
+@pytest.mark.parametrize("view", ["row_stride", "odd_offset", "expanded"])
+def test_torch_flash_tma_ok_refuses_what_tma_cannot_map(view):
+    """A row stride that is not a multiple of 8 bf16 elements, an odd
+    storage offset (a base not 16-byte aligned) and a stride-0 dimension
+    are refused; the kernels' wrapper then copies the operand."""
+    B, T, H, D = 2, 24, 4, 64
+    store = _bf16_storage(16 + B * T * (H * D + 4))
+    if view == "row_stride":
+        x = store.as_strided((B, T, H, D), (T * (H * D + 4), H * D + 4, D, 1))
+    elif view == "odd_offset":
+        x = store.as_strided((B, T, H, D), (T * H * D, H * D, D, 1), 1)
+    else:
+        x = store[:D].reshape(1, 1, 1, D).expand(B, T, H, D)
+    assert not tfa.tma_ok(x)
+    fixed = tfa._tma_operand(x)
+    assert tfa.tma_ok(fixed) and torch.equal(fixed, x)
+
+
+def test_torch_flash_tma_operand_leaves_float32_alone():
+    """Only bfloat16 goes through TMA: a float32 operand is never copied."""
+    x = torch.zeros(1, 4, 2, 8).as_strided((1, 4, 2, 7), (64, 16, 8, 1), 1)
+    assert tfa._tma_operand(x) is x
+
+
+def test_torch_flash_plain_answers_unchanged_on_refused_views():
+    """The plain versions give the same answer on a view TMA refuses as on
+    its contiguous copy, forward and backward."""
+    B, T, H, K, D = 1, 20, 4, 2, 64
+    store = _bf16_storage(1 + 3 * B * T * (H + 1) * D, seed=4)
+
+    def view(i, heads):
+        off = 1 + i * B * T * (H + 1) * D
+        return store.as_strided((B, T, heads, D),
+                                (T * (H + 1) * D, (H + 1) * D, D, 1), off)
+
+    q, k, v = view(0, H), view(1, K), view(2, K)
+    assert not any(tfa.tma_ok(x) for x in (q, k, v))
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    o_c, lse_c = tfa.flash_attention_fwd(qc, kc, vc, causal=True)
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    do = torch.ones_like(o)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = tfa.flash_attention_bwd(q, k, v, do, lse, delta, causal=True)
+    grads_c = tfa.flash_attention_bwd(qc, kc, vc, do, lse, delta, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_c))
