@@ -13,9 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
    port), and the bound computed from this run's shapes: the flash forward,
    then the flash backward's dq and dk/dv kernels (bitwise equal on a second
    call), each in five cases and at the training shape, with TFLOP/s of
-   the causally needed work; then 24 bf16 cases at the edges of the 128-row
-   tiles (correctness only).  Before them, ``cuobjdump -sass`` must find
-   HGMMA (tensor-core) instructions in the bf16 forward and dk/dv kernels.
+   the causally needed work; then 34 bf16 cases at the edges of the tiles
+   (128 rows; 64-row k tiles in dq) and with a window that ends mid-tile
+   (correctness only).  Before them, ``cuobjdump -sass`` must find HGMMA
+   (tensor-core) instructions in the bf16 forward, dq and dk/dv kernels.
 4. Serving: ``init`` -> ``Replica.load`` -> ``ContinuousBatcher`` ->
    ``serve_loop`` at Llama-3-8B width (full depth by default), 8 requests
    of 512 prompt tokens, 16 greedy new tokens each; kernel launch counts
@@ -286,11 +287,15 @@ def flash_bwd_phase(torch, fa, dev, seed, flush):
     return results
 
 
-# The edges of the bfloat16 kernels' 128-row tiles: Tq = Tk one short of,
-# one past and one past two tiles, causal and not, D 64 and 128, GQA rep 1
-# and 8 (one kv head).  Correctness only: at these sizes a time is noise.
-EDGE_CASES = [(T, causal, D, rep) for T in (127, 129, 257)
-              for causal in (True, False) for D in (64, 128) for rep in (1, 8)]
+# The edges of the bfloat16 kernels' tiles (128 rows; the dq kernel's k
+# tiles are 64): Tq = Tk one past a 64-row tile, one short of, one past and
+# one past two 128-row tiles, causal and not, D 64 and 128, GQA rep 1 and 8
+# (one kv head); then a causal window of 100, a multiple of neither tile
+# size, so that rows' first keys and blocks' first live k tiles fall
+# mid-tile.  Correctness only: at these sizes a time is noise.
+EDGE_CASES = [(T, causal, D, rep, None) for T in (65, 127, 129, 257)
+              for causal in (True, False) for D in (64, 128)
+              for rep in (1, 8)] + [(257, True, D, 8, 100) for D in (64, 128)]
 
 
 def edge_phase(torch, fa, dev, seed):
@@ -298,20 +303,22 @@ def edge_phase(torch, fa, dev, seed):
     edges, bf16, at the tolerances of the main cases."""
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     ok_all = True
-    for T, causal, D, rep in EDGE_CASES:
+    for T, causal, D, rep, window in EDGE_CASES:
         q, k, v, do = (torch.randn(1, T, h, D, generator=gen, device=dev)
                        .bfloat16() for h in (rep, 1, 1, rep))
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window)
         err_o = (o.float() - o_p.float()).abs().max().item()
         err_l = (lse - lse_p).abs().max().item()
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
             .contiguous()
-        out = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+        out = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal,
+                                     window=window)
         again = fa.flash_attention_bwd(q, k, v, do, lse, delta,
-                                       causal=causal)
+                                       causal=causal, window=window)
         ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
-                                           causal=causal)
+                                           causal=causal, window=window)
         bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
         rel = {g: (a.float() - b.float()).abs().max().item()
                / max(b.float().abs().max().item(), 1e-30)
@@ -319,7 +326,8 @@ def edge_phase(torch, fa, dev, seed):
         ok = (err_o <= 2e-2 and err_l <= LSE_TOL and bitwise
               and all(r <= 2e-2 for r in rel.values()))
         ok_all = ok_all and ok
-        print(f"edge[T={T} causal={causal} D={D} rep={rep}] bf16: o "
+        print(f"edge[T={T} causal={causal} window={window} D={D} "
+              f"rep={rep}] bf16: o "
               f"max_abs_err={err_o:.3e}, lse {err_l:.3e}, "
               + ", ".join(f"{g} {r:.3e}" for g, r in rel.items())
               + f" (tol 2e-2 / {LSE_TOL:g} / 2e-2 relative), bitwise "
@@ -327,17 +335,21 @@ def edge_phase(torch, fa, dev, seed):
     return ok_all
 
 
-# The kernels that must run on the tensor cores, by library.
-TENSOR_CORE_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
-                       "flash_bwd": "flash_bwd_dkv_wgmma_kernel"}
+# The kernels that must run on the tensor cores, by library, each at both
+# head dims.
+TENSOR_CORE_KERNELS = {
+    "flash_fwd": ["flash_fwd_wgmma_kernel"],
+    "flash_bwd": ["flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"]}
+HEAD_DIMS = (64, 128)
 
 
 def tensor_core_check(_build, libs):
-    """Every bf16 forward and dk/dv kernel in the built libraries holds
-    HGMMA (wgmma) instructions, by ``cuobjdump -sass``."""
+    """Every bf16 forward, dq and dk/dv kernel in the built libraries, at
+    D = 64 and 128, holds HGMMA (wgmma) instructions, by ``cuobjdump
+    -sass``."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     ok = True
-    for lib, want in TENSOR_CORE_KERNELS.items():
+    for lib, wants in TENSOR_CORE_KERNELS.items():
         try:
             res = subprocess.run([tool, "-sass", libs[lib]],
                                  capture_output=True, text=True, timeout=300)
@@ -346,15 +358,22 @@ def tensor_core_check(_build, libs):
             ok = False
             continue
         funcs = res.stdout.split("Function : ")[1:]
-        found = [(f.split()[0], f.count("HGMMA")) for f in funcs
-                 if want in f.split()[0]]
-        for fn, n in found:
-            print(f"sass[{lib}]: {want}{fn.split(want)[1][:12]} has {n} "
-                  f"HGMMA instructions", flush=True)
-        good = res.returncode == 0 and found and all(n > 0 for _, n in found)
-        print(f"sass[{lib}]: {want} on the tensor cores: {bool(good)}",
-              flush=True)
-        ok = ok and bool(good)
+        for want in wants:
+            found = {}
+            for f in funcs:
+                name = f.split()[0]
+                # The mangled template argument: ...kernelILi128EE...
+                m = re.search(want + r"ILi(\d+)E", name)
+                if m:
+                    found[int(m.group(1))] = f.count("HGMMA")
+            for d, n in sorted(found.items()):
+                print(f"sass[{lib}]: {want}<{d}> has {n} HGMMA "
+                      f"instructions", flush=True)
+            good = res.returncode == 0 and all(
+                found.get(d, 0) > 0 for d in HEAD_DIMS)
+            print(f"sass[{lib}]: {want} on the tensor cores at D in "
+                  f"{HEAD_DIMS}: {good}", flush=True)
+            ok = ok and good
     return ok
 
 
@@ -484,9 +503,10 @@ def median_s(torch, fn, n=5):
 
 
 def profile_call(torch, label, fn, top=8):
-    """Kernel time by name and the device's busy share over one call,
-    from torch.profiler's CUDA activity.  A measurement only: where the
-    profiler records no device activity it says so and the run goes on."""
+    """Kernel time by name (the ``top`` largest, then every flash kernel of
+    the port below them) and the device's busy share over one call, from
+    torch.profiler's CUDA activity.  A measurement only: where the profiler
+    records no device activity it says so and the run goes on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -510,7 +530,9 @@ def profile_call(torch, label, fn, top=8):
     print(f"profile: {label} wall {wall * 1e3:.3f} ms (profiled), device "
           f"busy {busy / 1e3:.3f} ms = {busy / 1e6 / wall:.1%}, "
           f"{len(by_name)} kernel names", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, us in ranked[:top] + [kv for kv in ranked[top:]
+                                    if "flash_" in kv[0]]:
         print(f"profile:   {us / 1e3:9.3f} ms  {name[:100]}", flush=True)
 
 
@@ -654,9 +676,9 @@ def main():
     t0 = time.time()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.time() - t0:.1f} s", flush=True)
-    for name in libs:
+    for name, path in libs.items():
         entry = ""
-        for line in _build.build_logs.get(name, "").splitlines():
+        for line in _build.build_logs.get(path, "").splitlines():
             if "Compiling entry function" in line:
                 # The kernel's name and template arguments out of the
                 # mangled name, e.g. flash_fwd_wgmma_kernel<Li128>.
@@ -695,6 +717,8 @@ def main():
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
              replaces="horovod_tpu/ops/flash_attention.py:98",
+             design="flash_fwd_wgmma_kernel: wgmma, q resident, 128-row k/v "
+                    "tiles through a TMA ring",
              launches=launches["flash_fwd"], max_abs_err=fwd["max_abs_err"],
              ms=fwd["ms"], plain_ms=fwd["plain_ms"],
              bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
@@ -707,12 +731,16 @@ def main():
     ] + [
         dict(name=f"flash_bwd_{g}", route="cuda", source=src + "flash_bwd.cu",
              replaces=f"horovod_tpu/ops/flash_attention.py:{line}",
-             launches=launches[f"flash_bwd_{g}"],
+             design=design, launches=launches[f"flash_bwd_{g}"],
              max_abs_err=bwd[g]["max_abs_err"], ms=bwd[g]["ms"],
              plain_ms=bwd["plain_ms"], bound_ms=bwd[g]["bound_ms"],
              bound_by=bwd[g]["bound_by"], library_ms=bwd["library_ms"],
              tflops=bwd[g]["tflops"])
-        for g, line in (("dq", 170), ("dkv", 221))]
+        for g, line, design in (
+            ("dq", 170, "flash_bwd_dq_wgmma_kernel: wgmma, q/do resident, "
+                        "64-row k/v tiles through a TMA ring"),
+            ("dkv", 221, "flash_bwd_dkv_wgmma_kernel: wgmma, k/v resident, "
+                         "64-row q/do tiles through a TMA ring"))]
     for kern in kernels:
         kern["pass"] = kernels_ok and kern["launches"] > 0
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,35 +19,49 @@
 // lse = 0 gives dq = 0 and adds nothing to dk, dv.
 //
 // Designs.
-//   dq (both dtypes) and dk/dv in float32: the first design.  256 threads on
-//   64 x 64 tiles staged in shared memory as f32 (rows padded by one word
-//   against bank conflicts); each thread owns 4 rows x 4 columns of the
-//   score tile and 4 rows x D/16 columns of its accumulators, and every
-//   product is a plain f32 FMA (exact for bf16 operands, whose products fit
-//   an f32 mantissa).
+//   float32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): the first design,
+//   kept because a TF32 wgmma would not hold the 1e-4 the float32 tests
+//   ask.  256 threads on 64 x 64 tiles staged in shared memory (rows
+//   padded by one word against bank conflicts); each thread owns 4 rows x
+//   4 columns of the score tile and 4 rows x D/16 columns of its
+//   accumulators, and every product is a plain f32 FMA.
 //     dq:   one CTA per (batch*head, 64-row q tile).  q, do, lse and delta
 //           stay resident; a loop over the live k tiles recomputes s and dp,
 //           writes ds to shared memory and accumulates dq in registers.
 //     dk/dv: one CTA per (batch*kv head, 64-row k tile), k and v resident,
 //           a loop over the rep q heads x live q tiles inside the block.
-//   dk/dv in bfloat16 (flash_bwd_dkv_wgmma_kernel): the products on the
-//   tensor cores.  One CTA of three warpgroups per (batch*kv head, 128-row
-//   k tile).  The producer warpgroup (24 registers a thread after
-//   setmaxnreg) loads k and v once with TMA, then streams 64-row q and do
-//   tiles through a 2-stage ring (128-byte swizzle, rows past Tq arrive as
-//   zeros); its second warp stages each tile's lse (times log2 e) and
-//   delta rows beside them.  Each consumer warpgroup (240 registers) owns
-//   64 k rows and their dk, dv accumulators, and per ring stage computes
-//   S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands K-major,
-//   two commit groups so that p^T is computed while dP^T runs), then
-//   dV += bf16(P^T) dO and dK += bf16(dS^T) Q with P^T and dS^T taken from
-//   registers as the A fragment and dO, Q MN-major.  The mask is two
-//   compares an entry against the q range each k row may attend (ragged
-//   edges, causal diagonal, window; it includes q < Tq, since q rows past
-//   Tq arrive as zeros with lse = delta = 0).  Nothing goes through shared
-//   memory but the TMA tiles and the lse/delta rows.
+//   bfloat16: the products on the tensor cores, in warp-specialised CTAs of
+//   three warpgroups.  The producer warpgroup (24 registers a thread after
+//   setmaxnreg) loads the block's resident tiles once with TMA and streams
+//   the others through a 2-stage ring (128-byte swizzle; rows past the
+//   ragged edge arrive as zeros), each stage guarded by a full and an
+//   empty mbarrier.  Each consumer warpgroup (240 registers) owns 64 rows
+//   and their accumulators; per ring stage it runs the two score products
+//   (wgmma m64n64k16, both operands K-major, in two commit groups so that
+//   p is computed while the second runs), forms p and ds on the f32
+//   accumulator fragment, rounds them to bf16 once, straight into the
+//   register A fragment of the gradient products, whose B operand is
+//   MN-major.  The mask is two compares an entry against the range the
+//   entry's row may attend (ragged edges, causal diagonal, window), and a
+//   masked entry is never exponentiated.
+//     dq (flash_bwd_dq_wgmma_kernel): one CTA per (batch*head, 128-row q
+//           tile), q and do resident, 64-row k/v tiles through the ring
+//           (only the live ones, k_lo to k_hi).  Per stage S = Q K^T and
+//           dP = dO V^T, then dQ += bf16(dS) K (m64nDk16, K as the
+//           MN-major B, as v in the forward's P V).  A thread's two rows
+//           are fixed for the block, so their lse (times log2 e), delta
+//           and key range live in registers.  Each dq row is summed
+//           inside one CTA: no atomics, as FA3's dq-by-atomics inside the
+//           dk/dv kernel would need.
+//     dk/dv (flash_bwd_dkv_wgmma_kernel): one CTA per (batch*kv head,
+//           128-row k tile), k and v resident, 64-row q/do tiles through
+//           the ring over the rep q heads x live q tiles, the producer's
+//           second warp staging each tile's lse and delta rows beside them.
+//           Per stage S^T = K Q^T and dP^T = V dO^T, then dV += bf16(P^T) dO
+//           and dK += bf16(dS^T) Q.  The mask includes q < Tq, since q rows
+//           past Tq arrive as zeros with lse = delta = 0.
 // Either way the rep q heads of a kv head are summed inside one block:
-// GQA needs no atomics, and the result is bitwise reproducible.
+// GQA needs no atomics, and every result is bitwise reproducible.
 // Blocks are numbered heaviest first: under a causal mask the last q tiles
 // (dq) and the first k tiles (dk/dv) meet the most live tiles.
 //
@@ -59,20 +73,26 @@
 // Both are bound by operations (chip_smoke.py recomputes the figures from
 // the shapes it runs).
 //
-// Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8): dq uses 128 registers at
-// D=128 with 8 bytes of spill, 126 at D=64; the f32 dk/dv kernel 182 at
-// D=128 and 128 at D=64, no spills.  The bf16 dk/dv kernel reports 168
-// (the launch allocation of 384 threads; consumers raise theirs to 240)
-// and 288 B of spill stores at D=128, none at D=64: two 64-register
-// accumulators, the 32-register S^T and dP^T and the A fragments come
-// close to 240 at their peak.  Shared memory per block at D=128: 149,248 B
-// (dq), 165,888 B (f32 dk/dv), 133,160 B (bf16 dk/dv); one block per SM.
+// Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8): the bf16 kernels report
+// 168 registers (the launch allocation of 384 threads; consumers raise
+// theirs to 240).  dq has no spills at D=64 or 128: its consumers hold dq
+// (D/2 registers), S and dP (32 each) and the dS fragment (16).  dk/dv
+// spills 288 B at D=128 (none at D=64): two 64-register accumulators, the
+// 32-register S^T and dP^T and two A fragments come close to 240 at their
+// peak.  A 128-row k tile in dq (HVD_DQ_TK=128) spills 516 B at D=128 and
+// measured slower; a 3-stage ring (HVD_DQ_STAGES=3) gained nothing
+// (ops/dq_tiles.py).  The f32 kernels: dq 128 registers at D=128 with 8 B
+// of spill, 126 at D=64; dk/dv 182 and 128, no spills.  Shared memory per
+// block at D=128: 132,136 B (bf16 dq), 133,160 B (bf16 dk/dv), 149,248 B
+// (f32 dq), 165,888 B (f32 dk/dv); one block per SM.
 //
-// What is left on the table: dq runs no tensor cores yet (it is the next
-// kernel to redesign); the bf16 dk/dv kernel spills, runs 64 x 64 score
-// tiles (m64n64 products, well below the tensor cores' best shape), does
-// not overlap one stage's products with the next stage's, and has no
-// persistent scheduler over the causal triangle's uneven tiles.
+// What is left on the table: no persistent scheduler over the causal
+// triangle's uneven tiles (the heaviest-first order only softens the
+// tail); no overlap inside a consumer of one stage's products with the
+// next stage's (each stage waits for dQ += dS K, or for dV and dK, before
+// the next S); m64n64 score products, below the tensor cores' best shape;
+// dq reads each kv head's k/v once for each of its rep q heads and q
+// tiles, and dk/dv each q head's q/do once for each k tile; dk/dv spills.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,25 +105,6 @@ namespace {
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and widened back: the operand-dtype rounding of p and ds.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 struct Params {
   const void* q;
@@ -141,19 +142,20 @@ __device__ __forceinline__ bool allowed(const Params& p, int row, int col) {
   return ok;
 }
 
-// Stage rows [t0, t0 + 64) of one head into a padded f32 tile, zeros past
-// the ragged edge.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int t0,
-                                          int t_len, int st, int tid) {
+// Stage rows [t0, t0 + 64) of one head into a padded tile, zeros past the
+// ragged edge.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int t0, int t_len, int st,
+                                          int tid) {
   for (int idx = tid; idx < 64 * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
     const int t = t0 + r;
-    dst[r * (D + 1) + c] = t < t_len ? to_f(src[(int64_t)t * st + c]) : 0.f;
+    dst[r * (D + 1) + c] = t < t_len ? src[(int64_t)t * st + c] : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   extern __shared__ float smem[];
   constexpr int DS = D + 1;   // padded row stride of the q/do/k/v tiles
@@ -178,19 +180,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   const int kh = h / (p.H / p.K);   // GQA: rep consecutive q heads share kh
   const int q0 = qt * BQ;
 
-  const T* Q = static_cast<const T*>(p.q) + (int64_t)b * p.q_sb +
-               (int64_t)h * p.q_sh;
-  const T* DO = static_cast<const T*>(p.dout) + (int64_t)b * p.d_sb +
-                (int64_t)h * p.d_sh;
-  const T* Kp = static_cast<const T*>(p.k) + (int64_t)b * p.k_sb +
-                (int64_t)kh * p.k_sh;
-  const T* Vp = static_cast<const T*>(p.v) + (int64_t)b * p.v_sb +
-                (int64_t)kh * p.v_sh;
-  T* DQ = static_cast<T*>(p.o0) + (int64_t)b * p.o0_sb +
-          (int64_t)h * p.o0_sh;
+  const float* Q = static_cast<const float*>(p.q) + (int64_t)b * p.q_sb +
+                   (int64_t)h * p.q_sh;
+  const float* DO = static_cast<const float*>(p.dout) +
+                    (int64_t)b * p.d_sb + (int64_t)h * p.d_sh;
+  const float* Kp = static_cast<const float*>(p.k) + (int64_t)b * p.k_sb +
+                    (int64_t)kh * p.k_sh;
+  const float* Vp = static_cast<const float*>(p.v) + (int64_t)b * p.v_sb +
+                    (int64_t)kh * p.v_sh;
+  float* DQ = static_cast<float*>(p.o0) + (int64_t)b * p.o0_sb +
+              (int64_t)h * p.o0_sh;
 
-  load_tile<T, D>(sQ, Q, q0, p.Tq, p.q_st, tid);
-  load_tile<T, D>(sDO, DO, q0, p.Tq, p.d_st, tid);
+  load_tile<D>(sQ, Q, q0, p.Tq, p.q_st, tid);
+  load_tile<D>(sDO, DO, q0, p.Tq, p.d_st, tid);
   for (int r = tid; r < BQ; r += THREADS) {
     const int t = q0 + r;
     sL[r] = t < p.Tq ? p.lse[(int64_t)bh * p.Tq + t] : 0.f;
@@ -213,8 +215,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
 
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();   // the previous tile's k/v/ds are no longer read
-    load_tile<T, D>(sK, Kp, k0, p.Tk, p.k_st, tid);
-    load_tile<T, D>(sV, Vp, k0, p.Tk, p.v_st, tid);
+    load_tile<D>(sK, Kp, k0, p.Tk, p.k_st, tid);
+    load_tile<D>(sV, Vp, k0, p.Tk, p.v_st, tid);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -257,8 +259,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
           const float pv = expf(s[i][j] * p.scale - lse_r);
           ds = pv * (dp[i][j] - del_r) * p.scale;
         }
-        // ds is rounded to k's dtype for the ds.k product (:211).
-        sDS[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(ds);
+        sDS[(ty * 4 + i) * PS + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -283,11 +284,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     if (row >= p.Tq) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      DQ[(int64_t)row * p.o0_st + tx + 16 * c] = from_f<T>(acc[i][c]);
+      DQ[(int64_t)row * p.o0_st + tx + 16 * c] = acc[i][c];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   extern __shared__ float smem[];
   constexpr int DS = D + 1;   // padded row stride of the k/v/q/do tiles
@@ -313,17 +314,17 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   const int rep = p.H / p.K;
   const int k0 = kt * BK;
 
-  const T* Kp = static_cast<const T*>(p.k) + (int64_t)b * p.k_sb +
-                (int64_t)kh * p.k_sh;
-  const T* Vp = static_cast<const T*>(p.v) + (int64_t)b * p.v_sb +
-                (int64_t)kh * p.v_sh;
-  T* DK = static_cast<T*>(p.o0) + (int64_t)b * p.o0_sb +
-          (int64_t)kh * p.o0_sh;
-  T* DV = static_cast<T*>(p.o1) + (int64_t)b * p.o1_sb +
-          (int64_t)kh * p.o1_sh;
+  const float* Kp = static_cast<const float*>(p.k) + (int64_t)b * p.k_sb +
+                    (int64_t)kh * p.k_sh;
+  const float* Vp = static_cast<const float*>(p.v) + (int64_t)b * p.v_sb +
+                    (int64_t)kh * p.v_sh;
+  float* DK = static_cast<float*>(p.o0) + (int64_t)b * p.o0_sb +
+              (int64_t)kh * p.o0_sh;
+  float* DV = static_cast<float*>(p.o1) + (int64_t)b * p.o1_sb +
+              (int64_t)kh * p.o1_sh;
 
-  load_tile<T, D>(sK, Kp, k0, p.Tk, p.k_st, tid);
-  load_tile<T, D>(sV, Vp, k0, p.Tk, p.v_st, tid);
+  load_tile<D>(sK, Kp, k0, p.Tk, p.k_st, tid);
+  load_tile<D>(sV, Vp, k0, p.Tk, p.v_st, tid);
 
   float dk[4][DC], dv[4][DC];
 #pragma unroll
@@ -344,14 +345,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   for (int r = 0; r < rep; ++r) {
     const int h = kh * rep + r;
     const int bh = b * p.H + h;
-    const T* Q = static_cast<const T*>(p.q) + (int64_t)b * p.q_sb +
-                 (int64_t)h * p.q_sh;
-    const T* DO = static_cast<const T*>(p.dout) + (int64_t)b * p.d_sb +
-                  (int64_t)h * p.d_sh;
+    const float* Q = static_cast<const float*>(p.q) +
+                     (int64_t)b * p.q_sb + (int64_t)h * p.q_sh;
+    const float* DO = static_cast<const float*>(p.dout) +
+                      (int64_t)b * p.d_sb + (int64_t)h * p.d_sh;
     for (int q0 = (q_lo / BQ) * BQ; q0 < q_hi; q0 += BQ) {
       __syncthreads();   // the previous tile's q/do/p/ds are no longer read
-      load_tile<T, D>(sQ, Q, q0, p.Tq, p.q_st, tid);
-      load_tile<T, D>(sDO, DO, q0, p.Tq, p.d_st, tid);
+      load_tile<D>(sQ, Q, q0, p.Tq, p.q_st, tid);
+      load_tile<D>(sDO, DO, q0, p.Tq, p.d_st, tid);
       for (int i = tid; i < BQ; i += THREADS) {
         const int t = q0 + i;
         sL[i] = t < p.Tq ? p.lse[(int64_t)bh * p.Tq + t] : 0.f;
@@ -397,10 +398,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
             pv = expf(s[i][j] * p.scale - sL[tx + 16 * j]);
             ds = pv * (dp[i][j] - sDel[tx + 16 * j]) * p.scale;
           }
-          // p is rounded to do's dtype for p^T.do (:261), ds to q's dtype
-          // for ds^T.q (:265).
-          sP[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(pv);
-          sDS[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(ds);
+          sP[(ty * 4 + i) * PS + tx + 16 * j] = pv;
+          sDS[(ty * 4 + i) * PS + tx + 16 * j] = ds;
         }
       }
       __syncthreads();
@@ -433,38 +432,38 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
     if (row >= p.Tk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      DK[(int64_t)row * p.o0_st + tx + 16 * c] = from_f<T>(dk[i][c]);
-      DV[(int64_t)row * p.o1_st + tx + 16 * c] = from_f<T>(dv[i][c]);
+      DK[(int64_t)row * p.o0_st + tx + 16 * c] = dk[i][c];
+      DV[(int64_t)row * p.o1_st + tx + 16 * c] = dv[i][c];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) +
                2 * BQ) * sizeof(float);
   // Above 48 KB a block's shared memory must be asked for explicitly.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned grid = (unsigned)p.B * p.H * p.n_qt;
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * (BQ + 1) +
                2 * BQ) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
+      flash_bwd_dkv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned grid = (unsigned)p.B * p.K * p.n_kt;
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -708,6 +707,239 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
+// ---------------------------------------------- bf16 dq: wgmma + TMA ring
+// The k tile and ring depth of the dq kernel.  ops/dq_tiles.py rebuilds
+// the library with other values (-DHVD_DQ_TK=128, -DHVD_DQ_STAGES=3) to
+// time them against these.
+#ifndef HVD_DQ_TK
+#define HVD_DQ_TK 64
+#endif
+#ifndef HVD_DQ_STAGES
+#define HVD_DQ_STAGES 2
+#endif
+constexpr int DQ_TQ = 128;              // q rows per block, 64 per consumer
+constexpr int DQ_TK = HVD_DQ_TK;        // k rows per ring stage
+constexpr int DQ_STAGES = HVD_DQ_STAGES;
+static_assert(DQ_TK == 64 || DQ_TK == 128, "wgmma_ss<N> takes N = 64, 128");
+
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t HALF_Q = DQ_TQ * 128;    // one 64-column half
+  static constexpr uint32_t HALF_K = DQ_TK * 128;
+  static constexpr uint32_t Q_BYTES = D / 64 * HALF_Q;    // q or do
+  static constexpr uint32_t KV_BYTES = D / 64 * HALF_K;   // k or v
+  static constexpr uint32_t TILES = 2 * Q_BYTES + DQ_STAGES * 2 * KV_BYTES;
+  static constexpr size_t BYTES = 1024 + TILES + (2 * DQ_STAGES + 1) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              Params p) {
+  using namespace hopper;
+  using S = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align_1k(smem_raw);
+  uint8_t* sDO = sQ + S::Q_BYTES;
+  uint8_t* ring = sDO + S::Q_BYTES;   // stage s: k, then v
+  uint64_t* full = reinterpret_cast<uint64_t*>(sQ + S::TILES);
+  uint64_t* empty = full + DQ_STAGES;
+  uint64_t* qbar = empty + DQ_STAGES;
+
+  const int BH = p.B * p.H;
+  const int qt = p.n_qt - 1 - (int)(blockIdx.x / BH);   // heaviest first
+  const int bh = blockIdx.x % BH;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int kh = h / (p.H / p.K);   // GQA: rep consecutive q heads share kh
+  const int q0 = qt * DQ_TQ;
+
+  // The k range any row of this tile may attend, as in the f32 kernel.
+  const int q_last = min(q0 + DQ_TQ, p.Tq) - 1;
+  int k_hi = p.Tk;
+  if (p.causal) k_hi = min(k_hi, q_last + 1);
+  int k_lo = 0;
+  if (p.causal && p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  const int kt0 = k_lo / DQ_TK;
+  const int n = k_hi > kt0 * DQ_TK ? (k_hi - kt0 * DQ_TK + DQ_TK - 1) / DQ_TK
+                                   : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / WG == 0) {
+    // Producer: one thread loads q and do once, then keeps the ring of k/v
+    // tiles full.
+    producer_regs();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(qbar, 2 * S::Q_BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sQ + c * S::HALF_Q, &tq, qbar, 64 * c, q0, h, b);
+        tma_load(sDO + c * S::HALF_Q, &tdo, qbar, 64 * c, q0, h, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % DQ_STAGES;
+        const int k0 = (kt0 + i) * DQ_TK;
+        mbar_wait(&empty[s], ((i / DQ_STAGES) & 1) ^ 1);
+        uint8_t* sk = ring + s * 2 * S::KV_BYTES;
+        mbar_arrive_tx(&full[s], 2 * S::KV_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sk + c * S::HALF_K, &tk, &full[s], 64 * c, k0, kh, b);
+          tma_load(sk + S::KV_BYTES + c * S::HALF_K, &tv, &full[s], 64 * c,
+                   k0, kh, b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns q rows q0 + 64 c .. + 63 and their dq.
+    consumer_regs();
+    const int c = threadIdx.x / WG - 1;
+    const int warp = (threadIdx.x % WG) / 32;
+    const int lane = threadIdx.x % 32;
+    const int row0 = q0 + 64 * c + 16 * warp + lane / 4;   // and row0 + 8
+    const int col_l = 2 * (lane % 4);
+    const float scale_log2 = p.scale * LOG2E;
+    const uint32_t qa = smem_u32(sQ) + c * 64 * 128;
+    const uint32_t da = smem_u32(sDO) + c * 64 * 128;
+
+    // A thread's rows are fixed for the whole block, so their lse (log2
+    // units), delta and key range [lo, hi) live in registers: the ragged
+    // Tk edge, the causal diagonal and the window.  A row past Tq attends
+    // nothing (hi = lo) and is not written.
+    float lse2[2], del[2];
+    int lo[2], hi[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      const bool in = row < p.Tq;
+      lse2[hh] = in ? p.lse[(int64_t)bh * p.Tq + row] * LOG2E : 0.f;
+      del[hh] = in ? p.delta[(int64_t)bh * p.Tq + row] : 0.f;
+      lo[hh] = p.causal && p.window > 0 ? row - p.window + 1 : 0;
+      hi[hh] = !in ? lo[hh] : p.causal ? min(p.Tk, row + 1) : p.Tk;
+    }
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(qbar, 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % DQ_STAGES;
+      const int k0 = (kt0 + i) * DQ_TK;
+      const uint32_t sk = smem_u32(ring) + s * 2 * S::KV_BYTES;
+      const uint32_t sv = sk + S::KV_BYTES;
+      mbar_wait(&full[s], (i / DQ_STAGES) & 1);
+
+      // S = Q K^T and dP = dO V^T (64 q rows x DQ_TK keys, K-major), in
+      // two groups: p is computed while dP is still on the tensor cores.
+      float st[DQ_TK / 2], dp[DQ_TK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<DQ_TK>(st,
+                        make_desc(qa + (kk / 4) * S::HALF_Q + (kk % 4) * 32, 16),
+                        make_desc(sk + (kk / 4) * S::HALF_K + (kk % 4) * 32, 16),
+                        kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<DQ_TK>(dp,
+                        make_desc(da + (kk / 4) * S::HALF_Q + (kk % 4) * 32, 16),
+                        make_desc(sv + (kk / 4) * S::HALF_K + (kk % 4) * 32, 16),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+
+      // p = exp(s scale - lse), 0 where masked: a masked entry is never
+      // exponentiated (keys past Tk arrive as zeros, and an empty row has
+      // lse = 0).  One path for every tile, as in dk/dv.
+#pragma unroll
+      for (int j = 0; j < DQ_TK / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * hh + e;
+            const int kc = k0 + 8 * j + col_l + e;
+            const bool ok = kc >= lo[hh] && kc < hi[hh];
+            st[idx] = ok ? exp2f(st[idx] * scale_log2 - lse2[hh]) : 0.f;
+          }
+      wgmma_wait_all();
+      fence_regs(dp);
+      // ds = p (dp - delta) scale, rounded to bf16 once (:211), straight
+      // into the A fragment of dQ += dS K.
+      uint32_t af[DQ_TK / 4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_TK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = 8 * kk + 2 * r, hh = r & 1;
+          af[4 * kk + r] =
+              pack_bf16(st[idx] * (dp[idx] - del[hh]) * p.scale,
+                        st[idx + 1] * (dp[idx + 1] - del[hh]) * p.scale);
+        }
+      // K is [DQ_TK keys, D], MN-major, as v in the forward's P V.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_TK / 16; ++kk)
+        wgmma_rs<D>(dq, &af[4 * kk], make_desc(sk + kk * 2048, S::HALF_K));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+      mbar_arrive(&empty[s]);
+    }
+
+    __nv_bfloat16* DQ = static_cast<__nv_bfloat16*>(p.o0) +
+                        (int64_t)b * p.o0_sb + (int64_t)h * p.o0_sh;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= p.Tq) continue;
+      __nv_bfloat16* qrow = DQ + (int64_t)row * p.o0_st + col_l;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * j) =
+            __floats2bfloat162_rn(dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::make_map(&mq, p.q, p.B, p.Tq, p.H, D, p.q_sb, p.q_sh, p.q_st,
+                        DQ_TQ) ||
+      !hopper::make_map(&mdo, p.dout, p.B, p.Tq, p.H, D, p.d_sb, p.d_sh,
+                        p.d_st, DQ_TQ) ||
+      !hopper::make_map(&mk, p.k, p.B, p.Tk, p.K, D, p.k_sb, p.k_sh, p.k_st,
+                        DQ_TK) ||
+      !hopper::make_map(&mv, p.v, p.B, p.Tk, p.K, D, p.v_sb, p.v_sh, p.v_st,
+                        DQ_TK))
+    return cudaErrorInvalidValue;
+  Params w = p;
+  w.n_qt = (p.Tq + DQ_TQ - 1) / DQ_TQ;
+  const size_t smem = DqSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)p.B * p.H * w.n_qt;
+  flash_bwd_dq_wgmma_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, w);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
@@ -772,12 +1004,10 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
   p.o0_sb = dq_sb; p.o0_sh = dq_sh; p.o0_st = dq_st;
   p.o1_sb = p.o1_sh = p.o1_st = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return (int)launch_dq<float, 64>(p, st);
-  if (dtype == 0 && head_dim == 128) return (int)launch_dq<float, 128>(p, st);
-  if (dtype == 1 && head_dim == 64)
-    return (int)launch_dq<__nv_bfloat16, 64>(p, st);
-  if (dtype == 1 && head_dim == 128)
-    return (int)launch_dq<__nv_bfloat16, 128>(p, st);
+  if (dtype == 0 && head_dim == 64) return (int)launch_dq<64>(p, st);
+  if (dtype == 0 && head_dim == 128) return (int)launch_dq<128>(p, st);
+  if (dtype == 1 && head_dim == 64) return (int)launch_dq_wgmma<64>(p, st);
+  if (dtype == 1 && head_dim == 128) return (int)launch_dq_wgmma<128>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -797,9 +1027,8 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.o0_sb = dk_sb; p.o0_sh = dk_sh; p.o0_st = dk_st;
   p.o1_sb = dv_sb; p.o1_sh = dv_sh; p.o1_st = dv_st;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return (int)launch_dkv<float, 64>(p, st);
-  if (dtype == 0 && head_dim == 128)
-    return (int)launch_dkv<float, 128>(p, st);
+  if (dtype == 0 && head_dim == 64) return (int)launch_dkv<64>(p, st);
+  if (dtype == 0 && head_dim == 128) return (int)launch_dkv<128>(p, st);
   if (dtype == 1 && head_dim == 64) return (int)launch_dkv_wgmma<64>(p, st);
   if (dtype == 1 && head_dim == 128)
     return (int)launch_dkv_wgmma<128>(p, st);

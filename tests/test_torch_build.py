@@ -47,3 +47,18 @@ def test_torch_build_source_edit_renames_only_its_library(csrc_copy):
     src.write_text(src.read_text() + "\n// edited\n")
     assert _build._lib_path("flash_fwd") != before["flash_fwd"]
     assert _build._lib_path("flash_bwd") == before["flash_bwd"]
+
+
+@pytest.mark.parametrize("defines", [("HVD_DQ_TK=128",),
+                                     ("HVD_DQ_TK=64", "HVD_DQ_STAGES=3")])
+def test_torch_build_defines_rename_library(defines):
+    """A build with -D defines (a tile variant timed against the shipped
+    kernel) never shares the shipped library's name, nor another
+    variant's."""
+    plain = _build._lib_path("flash_bwd")
+    assert _build._lib_path("flash_bwd", ()) == plain
+    variant = _build._lib_path("flash_bwd", defines)
+    assert variant != plain
+    assert variant == _build._lib_path("flash_bwd", defines)
+    assert variant != _build._lib_path("flash_bwd", defines[:1] + ("X=1",))
+    assert os.path.dirname(variant) == os.path.dirname(plain)

@@ -38,12 +38,17 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
-# The edges of the bfloat16 kernels' 128-row tiles: Tq = Tk one short of,
-# one past and one past two tiles, causal and not, D 64 and 128, GQA rep 1
-# and 8 (one kv head).
+# The edges of the bfloat16 kernels' tiles (128 rows; the dq kernel's k
+# tiles are 64): Tq = Tk one past a 64-row tile, one short of, one past and
+# one past two 128-row tiles, causal and not, D 64 and 128, GQA rep 1 and 8
+# (one kv head).
 TILE_EDGES = [((1, T, T, rep, 1, D), torch.bfloat16, causal, None)
-              for T in (127, 129, 257) for causal in (True, False)
+              for T in (65, 127, 129, 257) for causal in (True, False)
               for D in (64, 128) for rep in (1, 8)]
+# A causal window that is a multiple of neither tile size: a row's first
+# key, and a block's first live k tile, fall mid-tile.
+WINDOW_MID_TILE = [((1, 257, 257, 8, 1, D), torch.bfloat16, True, 100)
+                   for D in (64, 128)]
 
 
 def _inputs(seed, B, Tq, Tk, H, K, D, device, dtype):
@@ -64,7 +69,7 @@ def _inputs(seed, B, Tq, Tk, H, K, D, device, dtype):
     ((3, 77, 77, 16, 2, 128), torch.bfloat16, True, None),   # rep 8
     ((2, 64, 64, 4, 4, 64), torch.bfloat16, False, None),    # exact tile
     ((1, 100, 300, 4, 2, 128), torch.float32, True, None),   # Tq < Tk
-] + TILE_EDGES)
+] + TILE_EDGES + WINDOW_MID_TILE)
 def test_torch_flash_kernel_matches_plain(cuda_device, shape, dtype, causal,
                                           window):
     B, Tq, Tk, H, K, D = shape
@@ -151,6 +156,63 @@ def test_torch_flash_dkv_bf16_rep8_is_bitwise_reproducible(cuda_device):
     again = tfa._launch_dkv(*ops, True, 128 ** -0.5, None)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_torch_flash_dq_bf16_rep8_is_bitwise_reproducible(cuda_device):
+    """The bfloat16 dq kernel sums every key of a row inside one block, in
+    a fixed order and without atomics: a second call is bitwise equal, at
+    rep 8 as at any other."""
+    q, k, v, do, lse, delta = _bwd_inputs(9, (1, 1000, 1000, 16, 2, 128),
+                                          torch.bfloat16, True, None,
+                                          cuda_device)
+    ops = tfa._bwd_operands(q, k, v, do, lse, delta)
+    first = tfa._launch_dq(*ops, True, 128 ** -0.5, None)
+    again = tfa._launch_dq(*ops, True, 128 ** -0.5, None)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def _bf16_views(layout, B, T, H, K, D, device):
+    """bfloat16 q, k, v, do as head slices of a wider tensor ("strided":
+    strides TMA can map) or at an odd storage offset ("unaligned": a base
+    TMA refuses, so the wrapper copies)."""
+    rng = np.random.RandomState(12)
+    if layout == "strided":
+        big = torch.from_numpy(rng.randn(B, T, 2 * H + 2 * K + 3, D).astype(
+            np.float32)).to(device, torch.bfloat16)
+        cuts = np.cumsum((0, H, K, K, H))
+        return tuple(big[:, :, a:b] for a, b in zip(cuts[:-1], cuts[1:]))
+    heads = (H, K, K, H)
+    store = torch.from_numpy(rng.randn(1 + B * T * D * sum(heads)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    offs = 1 + np.cumsum((0,) + tuple(B * T * h * D for h in heads[:-1]))
+    return tuple(store.as_strided((B, T, h, D), (T * h * D, h * D, D, 1),
+                                  int(off)) for h, off in zip(heads, offs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+def test_torch_flash_dq_bf16_views_match_plain(cuda_device, layout):
+    """dq (and dk/dv) of bfloat16 views, read through their strides or
+    copied where TMA cannot map them, give the plain backward's answer
+    with one launch of each kernel."""
+    B, T, H, K, D = 2, 200, 8, 2, 128
+    q, k, v, do = _bf16_views(layout, B, T, H, K, D, cuda_device)
+    assert all(tfa.tma_ok(x) == (layout == "strided") for x in (q, k, v, do))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, window=100)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    before = (tfa.flash_attention_bwd.launches_dq,
+              tfa.flash_attention_bwd.launches_dkv)
+    out = tfa.flash_attention_bwd(q, k, v, do, lse, delta, causal=True,
+                                  window=100)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd.launches_dq,
+            tfa.flash_attention_bwd.launches_dkv) == (before[0] + 1,
+                                                      before[1] + 1)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True,
+                                        window=100)
+    _assert_rel_close(out, ref, 2e-2)
 
 
 @pytest.mark.cuda
@@ -256,7 +318,7 @@ def _assert_rel_close(out, ref, tol, names=("dq", "dk", "dv")):
     ((3, 77, 77, 16, 2, 128), torch.bfloat16, True, None),   # rep 8
     ((2, 64, 64, 4, 4, 64), torch.bfloat16, False, None),    # exact tile
     ((1, 100, 300, 4, 2, 128), torch.float32, True, None),   # Tq < Tk
-] + TILE_EDGES)
+] + TILE_EDGES + WINDOW_MID_TILE)
 def test_torch_flash_bwd_kernels_match_plain(cuda_device, shape, dtype,
                                              causal, window):
     """dq and dk/dv kernels against the plain backward, each launched once

@@ -82,6 +82,13 @@ _CASES = [
     ((1, 64, 64, 2, 2, 32), True, 40, (16, 16)),       # window > block
     ((2, 48, 48, 4, 2, 16), True, 12, (16, 16)),       # window + GQA
     ((1, 40, 16, 2, 1, 16), True, 8, (16, 16)),        # empty rows
+    # The bf16 kernels' tile edges at a small width: rep 8 (one kv head),
+    # T one past a block, and a window that is a multiple of no block, so
+    # that a row's first key falls inside a tile.
+    ((1, 33, 33, 8, 1, 16), True, None, (16, 16)),     # rep 8, T = 2 B + 1
+    ((2, 17, 17, 2, 2, 16), False, None, (16, 16)),    # T one past a block
+    ((1, 65, 65, 8, 1, 16), True, 25, (16, 16)),       # window mid-block
+    ((1, 257, 257, 8, 1, 16), True, 100, (64, 64)),    # the card's geometry
 ]
 
 
