@@ -676,9 +676,9 @@ def main():
     t0 = time.time()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.time() - t0:.1f} s", flush=True)
-    for name, path in libs.items():
+    for name in libs:
         entry = ""
-        for line in _build.build_logs.get(path, "").splitlines():
+        for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry function" in line:
                 # The kernel's name and template arguments out of the
                 # mangled name, e.g. flash_fwd_wgmma_kernel<Li128>.

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "ops", "csrc")
@@ -30,9 +30,9 @@ _OUT_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
-_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
-# Compiler output of each library built by this process, by its path
-# (``-Xptxas -v`` lists registers, shared memory and spills per kernel).
+_libs: Dict[str, ctypes.CDLL] = {}
+# Compiler output of the last build of each kernel (``-Xptxas -v`` lists
+# registers, shared memory and spills per kernel).
 build_logs: Dict[str, str] = {}
 
 
@@ -56,13 +56,10 @@ def sources() -> List[str]:
     return sorted(f[:-3] for f in os.listdir(_CSRC) if f.endswith(".cu"))
 
 
-def _lib_path(name: str, defines: Sequence[str] = ()) -> str:
-    """The library of ``csrc/<name>.cu``, named by a hash of the source, of
-    every header in ``csrc/`` (any of them may be included) and of the
-    ``-D`` defines it is built with."""
+def _lib_path(name: str) -> str:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of every header in ``csrc/`` (any of them may be included)."""
     h = hashlib.sha256()
-    for d in defines:
-        h.update(b"-D" + d.encode() + b"\0")
     headers = sorted(f for f in os.listdir(_CSRC)
                      if f.endswith((".cuh", ".h")))
     for fname in [name + ".cu"] + headers:
@@ -72,12 +69,11 @@ def _lib_path(name: str, defines: Sequence[str] = ()) -> str:
     return os.path.join(_OUT_DIR, f"lib{name}.{h.hexdigest()[:16]}.so")
 
 
-def build(name: str, defines: Sequence[str] = ()) -> str:
-    """Compile ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``, e.g.
-    ``"HVD_DQ_TK=128"``) unless a library of this exact source exists;
-    returns the library's path."""
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless a library of this exact source
+    exists; returns the library's path."""
     os.makedirs(_OUT_DIR, exist_ok=True)
-    out = _lib_path(name, defines)
+    out = _lib_path(name)
     if os.path.exists(out):
         return out
     import fcntl
@@ -88,11 +84,10 @@ def build(name: str, defines: Sequence[str] = ()) -> str:
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3",
                "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-               *(f"-D{d}" for d in defines), "-o", tmp,
-               os.path.join(_CSRC, name + ".cu")]
+               "-o", tmp, os.path.join(_CSRC, name + ".cu")]
         try:
             res = subprocess.run(cmd, capture_output=True, text=True)
-            build_logs[out] = res.stdout + res.stderr
+            build_logs[name] = res.stdout + res.stderr
             if res.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed for {name}.cu (rc {res.returncode}):\n"
@@ -112,12 +107,10 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
     return dict(zip(names, paths))
 
 
-def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
-    built if needed."""
-    key = (name, tuple(defines))
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
     with _lock:
-        lib = _libs.get(key)
+        lib = _libs.get(name)
         if lib is None:
-            lib = _libs[key] = ctypes.CDLL(build(name, defines))
+            lib = _libs[name] = ctypes.CDLL(build(name))
         return lib

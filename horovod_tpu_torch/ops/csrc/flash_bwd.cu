@@ -79,10 +79,10 @@
 // (D/2 registers), S and dP (32 each) and the dS fragment (16).  dk/dv
 // spills 288 B at D=128 (none at D=64): two 64-register accumulators, the
 // 32-register S^T and dP^T and two A fragments come close to 240 at their
-// peak.  A 128-row k tile in dq (HVD_DQ_TK=128) spills 516 B at D=128 and
-// measured slower; a 3-stage ring (HVD_DQ_STAGES=3) gained nothing
-// (ops/dq_tiles.py).  The f32 kernels: dq 128 registers at D=128 with 8 B
-// of spill, 126 at D=64; dk/dv 182 and 128, no spills.  Shared memory per
+// peak.  A 128-row k tile in dq spilled 516 B at D=128 and measured
+// slower; a 3-stage ring gained nothing (PERF.md).  The f32 kernels: dq
+// 128 registers at D=128 with 8 B of spill, 126 at D=64; dk/dv 182 and
+// 128, no spills.  Shared memory per
 // block at D=128: 132,136 B (bf16 dq), 133,160 B (bf16 dk/dv), 149,248 B
 // (f32 dq), 165,888 B (f32 dk/dv); one block per SM.
 //
@@ -708,19 +708,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 }
 
 // ---------------------------------------------- bf16 dq: wgmma + TMA ring
-// The k tile and ring depth of the dq kernel.  ops/dq_tiles.py rebuilds
-// the library with other values (-DHVD_DQ_TK=128, -DHVD_DQ_STAGES=3) to
-// time them against these.
-#ifndef HVD_DQ_TK
-#define HVD_DQ_TK 64
-#endif
-#ifndef HVD_DQ_STAGES
-#define HVD_DQ_STAGES 2
-#endif
 constexpr int DQ_TQ = 128;              // q rows per block, 64 per consumer
-constexpr int DQ_TK = HVD_DQ_TK;        // k rows per ring stage
-constexpr int DQ_STAGES = HVD_DQ_STAGES;
-static_assert(DQ_TK == 64 || DQ_TK == 128, "wgmma_ss<N> takes N = 64, 128");
+constexpr int DQ_TK = 64;               // k rows per ring stage
+constexpr int DQ_STAGES = 2;
 
 template <int D>
 struct DqSmem {

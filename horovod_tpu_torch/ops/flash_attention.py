@@ -10,16 +10,17 @@ and what its design leaves on the table.
 
 Two designs, chosen by dtype inside the C entry points:
 
-- bfloat16, forward and dk/dv: warp-specialised blocks of one TMA
-  producer and two consumer warpgroups; the products run on the tensor
-  cores (``wgmma``) from 128-byte-swizzled tiles that TMA streams through a
-  ring of shared-memory stages (``csrc/hopper.cuh`` holds the pieces).  TMA
-  needs a 16-byte-aligned base and batch, head and row strides that are
-  multiples of 16 bytes (:func:`tma_ok`); a bfloat16 operand without them
-  is copied to a fresh contiguous tensor before the launch.
-- float32 everywhere, and the dq kernel in both dtypes: the first design,
-  f32 FMAs on operands staged in shared memory, which keeps float32 exact
-  to the 1e-4 the tests hold (a TF32 ``wgmma`` would not).
+- bfloat16, all three kernels (forward, dq, dk/dv): warp-specialised
+  blocks of one TMA producer and two consumer warpgroups; the products run
+  on the tensor cores (``wgmma``) from 128-byte-swizzled tiles that TMA
+  streams through a ring of shared-memory stages (``csrc/hopper.cuh`` holds
+  the pieces).  TMA needs a 16-byte-aligned base and batch, head and row
+  strides that are multiples of 16 bytes (:func:`tma_ok`); a bfloat16
+  operand without them is copied to a fresh contiguous tensor before the
+  launch.
+- float32: the first design, f32 FMAs on operands staged in shared memory,
+  which keeps float32 exact to the 1e-4 the tests hold (a TF32 ``wgmma``
+  would not).
 
 Layout: ``[B, T, H, D]`` (the llama layout).  GQA is native: k and v carry
 ``K = H / rep`` heads and each group of ``rep`` consecutive q heads reads

@@ -1,7 +1,8 @@
 """The port's kernel build names each library by its source and by every
 header beside it, so that an edited shared header (``csrc/hopper.cuh``)
-never leaves a stale library in use.  No ``nvcc`` needed: only the names
-are computed."""
+never leaves a stale library in use, reuses a library of the same name, and
+raises without ``nvcc``.  No ``nvcc`` needed: only the names are computed
+and no build runs."""
 
 import os
 import shutil
@@ -49,16 +50,33 @@ def test_torch_build_source_edit_renames_only_its_library(csrc_copy):
     assert _build._lib_path("flash_bwd") == before["flash_bwd"]
 
 
-@pytest.mark.parametrize("defines", [("HVD_DQ_TK=128",),
-                                     ("HVD_DQ_TK=64", "HVD_DQ_STAGES=3")])
-def test_torch_build_defines_rename_library(defines):
-    """A build with -D defines (a tile variant timed against the shipped
-    kernel) never shares the shipped library's name, nor another
-    variant's."""
-    plain = _build._lib_path("flash_bwd")
-    assert _build._lib_path("flash_bwd", ()) == plain
-    variant = _build._lib_path("flash_bwd", defines)
-    assert variant != plain
-    assert variant == _build._lib_path("flash_bwd", defines)
-    assert variant != _build._lib_path("flash_bwd", defines[:1] + ("X=1",))
-    assert os.path.dirname(variant) == os.path.dirname(plain)
+@pytest.fixture()
+def out_dir(tmp_path, monkeypatch):
+    """A private ``build/kernels`` that ``_build`` writes instead."""
+    dst = tmp_path / "kernels"
+    monkeypatch.setattr(_build, "_OUT_DIR", str(dst))
+    return dst
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd"])
+def test_torch_build_existing_library_is_reused(out_dir, monkeypatch, name):
+    """A library of this exact source is returned as it is: no compiler is
+    looked for, nor any log written."""
+    def no_nvcc():
+        raise AssertionError("nvcc looked for")
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    out_dir.mkdir()
+    path = _build._lib_path(name)
+    open(path, "wb").close()
+    assert _build.build(name) == path
+    assert name not in _build.build_logs
+
+
+def test_torch_build_without_nvcc_raises(out_dir, monkeypatch):
+    """Without ``nvcc`` a build raises and leaves no library behind."""
+    import torch.utils.cpp_extension as cpp_ext
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    monkeypatch.setattr(shutil, "which", lambda _: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("flash_fwd")
+    assert not any(p.suffix == ".so" for p in out_dir.iterdir())
