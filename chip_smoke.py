@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Card: the card's name and power limit, as nvidia-smi reports them.
-2. Build: every CUDA kernel of the port from its source, in parallel.
+2. Build: every CUDA kernel of the port from its source, in parallel, and
+   the copied coordinator beside them.
 3. Kernels against their plain PyTorch versions on the card, with the
    stated tolerances, CUDA-event times of the kernel, the plain version
    and the one-call library yardstick (``library_ms``, never used by the
@@ -34,7 +35,22 @@ Phases (any failure exits non-zero and prints no result line):
    counts zeroed just before and read just after: the loss must be finite
    and fall, and each kernel must launch once per layer and step.  Last,
    the time per step, tokens/s, peak memory, and a profiled step.
-6. The kernels line (JSON), the card line, and the result line.
+6. The collective engine.  E1: the fusion pack and unpack kernels against
+   their plain versions, bitwise, on the training configuration's 39 bf16
+   gradients, a float32 + bf16 batch with a bf16 wire and int32 under
+   Average; CUDA-event times on the gradient set with GB/s, the bound and
+   the library yardstick.  E2: size 1 through the engine, a grouped
+   allreduce of the gradient set and ``broadcast_parameters``, bitwise
+   against the plain path, with batches and launches = batches x dtype
+   groups.  E3: two ranks, each a process of this script started with the
+   launcher's env (``--e3-worker``), over NCCL — each rank on its own card
+   where there are two, else both on one card over NCCL's socket
+   transport: ``init`` -> ``broadcast_parameters`` from rank 0 ->
+   ``DistributedOptimizer(SGD)`` -> 5 steps at the training configuration
+   on different batches per rank, with the parameters bitwise equal across
+   ranks after every step, the negotiation counters, and pack and unpack
+   launches = batches per step (the counts zeroed before the steps).
+7. The kernels line (JSON), the card line, and the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
 """
@@ -642,6 +658,353 @@ def training_phase(torch, hvd, tl, fa, layers, seed):
     return ok, launches
 
 
+# ------------------------------------------------------------- the engine
+def _grad_shapes(torch, tl, layers, dev, seed):
+    """The training configuration's parameter leaves, by name and shape."""
+    cfg = tl.llama3_8b(n_layers=layers)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed))
+    shapes = [(n, tuple(t.shape)) for n, t in tl.named_parameters(params)]
+    del params
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def _nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def fusion_phase(torch, fusion, grads, dev, seed, flush):
+    """E1: the pack and unpack kernels against their plain versions, on
+    (A) the 39 bf16 gradients of the training configuration as the
+    two-rank Average moves them (no factors, divisor 2), (B) a mixed
+    float32 + bf16 batch with a bf16 wire, prescale 0.5, postscale 1/3 and
+    divisor 2, (C) int32 with negative odd sums under Average.  Every case
+    must be bitwise equal to the plain version: the kernels round where it
+    rounds (fusion.cu).  Times for (A): CUDA events, L2 flushed."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    bf16, f32 = torch.bfloat16, torch.float32
+    mixed = ([torch.randn(s, generator=gen, device=dev)
+              for s in ((4096, 4096), (1024, 4096), (4096,))]
+             + [torch.randn(s, generator=gen, device=dev).to(bf16)
+                for s in ((4096, 14336), (4096,))])
+    ints = [torch.randint(-1001, 1002, s, generator=gen, device=dev,
+                          dtype=torch.int32) for s in ((3000, 7), (1,))]
+    cases = [("A: training gradient set, bf16, Average over 2",
+              [(grads, bf16)], None, None, 2),
+             ("B: float32 + bf16, bf16 wire, pre 0.5, post 1/3, Average "
+              "over 2", [(mixed[:3], bf16), (mixed[3:], bf16)], 0.5, 1 / 3, 2),
+             ("C: int32, negative odd sums, Average over 2",
+              [(ints, torch.int32)], None, None, 2)]
+    ok, err_pack, err_unpack = True, 0.0, 0.0
+    for name, groups, pre, post, divisor in cases:
+        for ts, wire in groups:
+            buf = fusion.pack(ts, wire, pre)
+            outs = [torch.empty_like(t) for t in ts]
+            fusion.unpack(buf, outs, divisor, post)
+            torch.cuda.synchronize()
+            ref_buf = fusion.pack_plain(ts, wire, pre)
+            ref_outs = [torch.empty_like(t) for t in ts]
+            fusion.unpack_plain(ref_buf, ref_outs, divisor, post)
+            e_p = (buf.double() - ref_buf.double()).abs().max().item()
+            e_u = max((o.double() - r.double()).abs().max().item()
+                      for o, r in zip(outs, ref_outs) if o.numel())
+            same = torch.equal(buf, ref_buf) and all(
+                torch.equal(o, r) for o, r in zip(outs, ref_outs))
+            ok = ok and same
+            err_pack, err_unpack = max(err_pack, e_p), max(err_unpack, e_u)
+            print(f"fusion[{name}] {len(ts)} x {ts[0].dtype} -> "
+                  f"{wire}: pack max_abs_err={e_p:.3e}, unpack "
+                  f"max_abs_err={e_u:.3e}, bitwise equal to the plain "
+                  f"version: {same} -> {'PASS' if same else 'FAIL'}",
+                  flush=True)
+            del buf, outs, ref_buf, ref_outs
+    # Times at the training gradient set (case A).
+    buf = fusion.pack(grads, bf16)
+    outs = [torch.empty_like(g) for g in grads]
+    sizes = [g.numel() for g in grads]
+    in_b, buf_b = _nbytes(grads), buf.numel() * buf.element_size()
+    res = {}
+    for kern, nbytes, fn, plain, lib in (
+            ("pack", in_b + buf_b, lambda: fusion.pack(grads, bf16),
+             lambda: fusion.pack_plain(grads, bf16, None),
+             lambda: torch.cat([g.reshape(-1) for g in grads])),
+            ("unpack", buf_b + in_b, lambda: fusion.unpack(buf, outs, 2),
+             lambda: fusion.unpack_plain(buf, outs, 2, None),
+             lambda: (torch._foreach_copy_(outs, [
+                 s.view(o.shape) for s, o in zip(buf.split(sizes), outs)]),
+                 torch._foreach_mul_(outs, 0.5)))):
+        ms = time_ms(torch, fn, flush)
+        plain_ms = time_ms(torch, plain, flush, iters=5, warmup=1)
+        library_ms = time_ms(torch, lib, flush, iters=5, warmup=1)
+        bound_ms, bound_by = _bound(nbytes, 0, "bfloat16")
+        lib_name = ("torch.cat" if kern == "pack" else
+                    "split + _foreach_copy_ + _foreach_mul_")
+        print(f"fusion[{kern}] training gradient set, {len(grads)} bf16 "
+              f"tensors, {nbytes / 1e9:.3f} GB moved: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+              f"library ({lib_name}) {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by}", flush=True)
+        res[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         gbps=nbytes / ms / 1e6,
+                         max_abs_err=err_pack if kern == "pack"
+                         else err_unpack)
+    del buf, outs
+    return ok, res
+
+
+def _expected_batches(nbytes, threshold):
+    """The engine's cut of one cycle's ungrouped entries of one fusion key:
+    a new batch where the next tensor would pass the threshold."""
+    batches, cur = 0, 0
+    for b in nbytes:
+        if cur and cur + b > threshold:
+            batches, cur = batches + 1, 0
+        cur += b
+    return batches + (1 if cur else 0)
+
+
+def engine_size1_phase(torch, hvd, tl, fusion, grads, layers, seed):
+    """E2: the engine at size 1 on the card (local negotiation, fusion,
+    pack, unpack; the collective is the identity): a grouped allreduce of
+    the gradient set (one atomic group: one batch) and broadcast_parameters
+    of the training configuration's parameters (cut at the fusion
+    threshold), each bitwise equal to its input, which is what the plain
+    path gives at size 1; batches and launches = batches x dtype groups."""
+    hvd.init()
+    eng = hvd.common.basics._get_state().engine
+    cfg = tl.llama3_8b(n_layers=layers)
+    params = tl.init_params(cfg, torch.Generator(
+        device=hvd.device()).manual_seed(seed + 3))
+    named = list(tl.named_parameters(params))
+    before = [t.detach().clone() for _, t in named]
+    ok = True
+    for what, run, expect, inputs, outputs in (
+            ("grouped_allreduce of the gradient set",
+             lambda: hvd.grouped_allreduce(grads), 1, grads, None),
+            ("broadcast_parameters of the parameters",
+             lambda: hvd.broadcast_parameters(params),
+             _expected_batches([t.numel() * t.element_size()
+                                for _, t in named],
+                               eng.fusion_threshold), before,
+             [t for _, t in named])):
+        d0, g0 = eng.pipeline_dispatches, eng.fused_groups
+        fusion.pack.launches = fusion.unpack.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        launches = (fusion.pack.launches, fusion.unpack.launches)
+        batches, groups = eng.pipeline_dispatches - d0, eng.fused_groups - g0
+        outs = out if outputs is None else outputs
+        same = all(torch.equal(a, b) for a, b in zip(outs, inputs))
+        good = (same and batches == expect and groups == batches
+                and launches == (groups, groups))
+        ok = ok and good
+        print(f"engine[size 1: {what}]: {len(inputs)} tensors, bitwise "
+              f"equal to the plain path: {same}, batches {batches} "
+              f"(expected {expect}), dtype groups {groups}, pack/unpack "
+              f"launches {launches} (= batches x dtype groups) -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+        del out, outs
+    del params, named, before
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _checksum(torch, named):
+    """Two integer sums over every parameter's bits (bf16 read as int16):
+    equal on two ranks only if the parameters are, but for a collision."""
+    s1 = s2 = 0
+    for _, t in named:
+        v = t.detach().reshape(-1).view(torch.int16).to(torch.int64)
+        s1 += int(v.sum())
+        s2 += int((v * v).sum())
+        del v
+    return [s1, s2]
+
+
+def e3_worker(args):
+    """One rank of E3, started by ``two_rank_phase`` with the launcher's
+    env: init -> broadcast_parameters from rank 0 (rank 1 starts from other
+    seeds) -> DistributedOptimizer(SGD) -> 5 steps on this rank's own
+    batch.  Writes its counters and checks as JSON to ``args.e3_worker``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r, dev = hvd.rank(), hvd.device()
+    eng = hvd.common.basics._get_state().engine
+    ctl = eng.controller
+    cfg = tl.llama3_8b(n_layers=args.train_layers)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 1 + 1000 * r))
+    named = list(tl.named_parameters(params))
+    sums_before = _checksum(torch, named)
+    t0 = time.perf_counter()
+    hvd.broadcast_parameters(params, root_rank=0)
+    torch.cuda.synchronize()
+    bcast_s = time.perf_counter() - t0
+    sums_bcast = _checksum(torch, named)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([t for _, t in named], lr=TRAIN_LR),
+        named_parameters=named)
+    step = tl.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 2 + r).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int64)).to(dev)
+    x, y = toks[:, :-1], toks[:, 1:]
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches_dq = 0
+    fa.flash_attention_bwd.launches_dkv = 0
+    fusion.pack.launches = fusion.unpack.launches = 0
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        st = ctl.cache_stats
+        c0 = (ctl.rounds, ctl.bytes_sent, st.hits, st.misses,
+              st.full_announces, eng.pipeline_dispatches, eng.fused_groups,
+              fusion.pack.launches, fusion.unpack.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, x, y).item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c1 = (ctl.rounds, ctl.bytes_sent, st.hits, st.misses,
+              st.full_announces, eng.pipeline_dispatches, eng.fused_groups,
+              fusion.pack.launches, fusion.unpack.launches)
+        d = [b - a for a, b in zip(c0, c1)]
+        steps.append(dict(
+            loss=loss, s=dt, rounds=d[0], bytes=d[1], hits=d[2],
+            misses=d[3], full_announces=d[4], batches=d[5],
+            dtype_groups=d[6], pack=d[7], unpack=d[8],
+            slots=len(ctl._slots), sums=_checksum(torch, named)))
+    res = dict(rank=r, device=str(dev), card=torch.cuda.get_device_name(dev),
+               leaves=len(named), bcast_s=bcast_s, sums_before=sums_before,
+               sums_bcast=sums_bcast, steps=steps,
+               pack=fusion.pack.launches, unpack=fusion.unpack.launches,
+               flash=[fa.flash_attention_fwd.launches,
+                      fa.flash_attention_bwd.launches_dq,
+                      fa.flash_attention_bwd.launches_dkv])
+    hvd.shutdown()
+    with open(args.e3_worker, "w") as fh:
+        json.dump(res, fh)
+    print(f"e3 rank {r}: done", flush=True)
+    return 0
+
+
+def two_rank_phase(torch, layers, seed, timeout_s=600):
+    """E3: the training main path on two ranks over NCCL, one process each,
+    started with the launcher's env contract.  With one card both ranks use
+    it: NCCL refuses two ranks of one host on one GPU, and keys that check
+    on its host hash, so each rank gets its own NCCL_HOSTID and NCCL joins
+    them over its socket transport on the loopback device.  With two cards
+    or more each rank takes its own."""
+    import tempfile
+    import numpy as np
+    from horovod_tpu_torch.common.net import free_ports
+    ndev = torch.cuda.device_count()
+    route = ("NCCL, one card per rank" if ndev >= 2 else
+             "NCCL socket transport on loopback, both ranks on one card "
+             "(NCCL_HOSTID per rank)")
+    port, port2 = free_ports(2)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        for r in range(2):
+            env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
+                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                       HOROVOD_CONTROLLER_PORT=str(port),
+                       HOROVOD_CONTROLLER_PORT2=str(port2))
+            if ndev >= 2:
+                env.update(HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2")
+            else:
+                env.update(HOROVOD_LOCAL_RANK="0", HOROVOD_LOCAL_SIZE="1",
+                           NCCL_HOSTID=f"hvd-smoke-rank{r}",
+                           NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--train-layers", str(layers), "--seed", str(seed),
+                 "--e3-worker", os.path.join(tmp, f"rank{r}.json")],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.time()
+        rcs = []
+        try:
+            for p in procs:
+                rcs.append(p.wait(timeout=max(1.0, timeout_s -
+                                              (time.time() - t0))))
+        except subprocess.TimeoutExpired:
+            rcs = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+        wall = time.time() - t0
+        results = []
+        for r in range(2):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if rcs is None or rcs[r] != 0 or not os.path.exists(path):
+                with open(os.path.join(tmp, f"rank{r}.log")) as fh:
+                    tail = fh.read()[-3000:]
+                print(f"e3: rank {r} failed (rc "
+                      f"{None if rcs is None else rcs[r]}, route {route}); "
+                      f"the end of its output:\n{tail}", flush=True)
+                return False, None
+            with open(path) as fh:
+                results.append(json.load(fh))
+    a, b = results
+    print(f"e3: two ranks ({route}) finished in {wall:.1f} s; broadcast of "
+          f"{a['leaves']} parameters {a['bcast_s'] * 1e3:.1f} ms; parameters "
+          f"differed before it: {a['sums_before'] != b['sums_before']}",
+          flush=True)
+    ok = a["sums_before"] != b["sums_before"] and \
+        a["sums_bcast"] == b["sums_bcast"]
+    want_flash = [layers * TRAIN_STEPS] * 3
+    for i, (sa, sb) in enumerate(zip(a["steps"], b["steps"])):
+        same = sa["sums"] == sb["sums"]
+        bound = 12 + -(-sa["slots"] // 8)
+        per_round = sa["bytes"] / max(1, sa["rounds"])
+        warm = i == 0 or (sa["full_announces"] == 0 and sa["misses"] == 0
+                          and sa["hits"] >= a["leaves"]
+                          and per_round <= bound)
+        launches_ok = all(s["pack"] == s["unpack"] == s["dtype_groups"]
+                          == s["batches"] > 0 for s in (sa, sb))
+        ok = ok and same and warm and launches_ok
+        print(f"e3: step {i + 1}: loss rank0 {sa['loss']:.6f} rank1 "
+              f"{sb['loss']:.6f}; parameters bitwise equal across ranks: "
+              f"{same}; step {sa['s'] * 1e3:.1f} / {sb['s'] * 1e3:.1f} ms; "
+              f"rounds {sa['rounds']}, cache hits {sa['hits']}, misses "
+              f"{sa['misses']}, full announces {sa['full_announces']}, "
+              f"{per_round:.2f} B a round (warm bound 12 + "
+              f"ceil({sa['slots']} slots / 8) = {bound} B); batches "
+              f"{sa['batches']} / {sb['batches']}, pack/unpack launches "
+              f"{sa['pack']}/{sa['unpack']} (= batches x 1 dtype group) -> "
+              f"{'PASS' if same and warm and launches_ok else 'FAIL'}",
+              flush=True)
+    for res in results:
+        falls = np.isfinite([s["loss"] for s in res["steps"]]).all() and \
+            res["steps"][-1]["loss"] < res["steps"][0]["loss"]
+        flash_ok = res["flash"] == want_flash
+        ok = ok and falls and flash_ok
+        print(f"e3: rank {res['rank']} on {res['device']} ({res['card']}): "
+              f"loss finite and lower at step {TRAIN_STEPS} than at step 1: "
+              f"{falls}; flash launches fwd/dq/dkv {res['flash']} (= "
+              f"{layers} layers x {TRAIN_STEPS} steps expected)", flush=True)
+    step_ms = sorted(s["s"] for s in a["steps"])[TRAIN_STEPS // 2] * 1e3
+    print(f"e3: median step {step_ms:.1f} ms on rank 0 over {route}: a "
+          f"socket-transport two-rank figure on one card, not an NVLink or "
+          f"InfiniBand one", flush=True)
+    return ok, dict(pack=a["pack"], unpack=a["unpack"], step_ms=step_ms,
+                    route=route)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -650,6 +1013,8 @@ def main():
                     help="decoder depth of the training phase at llama3_8b "
                          "width (default 4)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--e3-worker", metavar="RESULT_JSON",
+                    help=argparse.SUPPRESS)   # one rank of phase E3
     args = ap.parse_args()
 
     import torch
@@ -660,13 +1025,17 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.common import native
         from horovod_tpu_torch.models import llama as tl
         from horovod_tpu_torch.ops import _build
         from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fusion
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 2
+    if args.e3_worker:
+        return e3_worker(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -674,8 +1043,13 @@ def main():
     print(f"card: {card}", flush=True)
 
     t0 = time.time()
+    # The coordinator (g++) builds beside the kernels (nvcc, one each).
+    coord = threading.Thread(target=native._build)
+    coord.start()
     libs = _build.build_all()
-    print(f"build: {sorted(libs)} in {time.time() - t0:.1f} s", flush=True)
+    coord.join()
+    print(f"build: {sorted(libs)} and the coordinator in "
+          f"{time.time() - t0:.1f} s", flush=True)
     for name in libs:
         entry = ""
         for line in _build.build_logs.get(name, "").splitlines():
@@ -701,6 +1075,21 @@ def main():
     torch.cuda.empty_cache()
     train_ok, train_launches = training_phase(torch, hvd, tl, fa,
                                               args.train_layers, args.seed)
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    grads = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+             for _, shape in _grad_shapes(torch, tl, args.train_layers, dev,
+                                          args.seed + 1)]
+    fusion_ok, fusion_res = fusion_phase(torch, fusion, grads, dev,
+                                         args.seed, flush)
+    del flush
+    size1_ok = engine_size1_phase(torch, hvd, tl, fusion, grads,
+                                  args.train_layers, args.seed)
+    del grads
+    torch.cuda.empty_cache()
+    two_ok, two = two_rank_phase(torch, args.train_layers, args.seed)
+    engine_ok = fusion_ok and size1_ok and two_ok
 
     fwd, fwd_train = cases[0], cases[-1]   # serving and training shapes
     bwd = bwd_cases[-1]                    # training shape
@@ -741,15 +1130,31 @@ def main():
                         "64-row k/v tiles through a TMA ring"),
             ("dkv", 221, "flash_bwd_dkv_wgmma_kernel: wgmma, k/v resident, "
                          "64-row q/do tiles through a TMA ring"))]
+    for kern, design in (
+            ("pack", "hvd_fusion_pack: grid-stride loop, binary search over "
+                     "64-bit offsets; prescale, wire cast"),
+            ("unpack", "hvd_fusion_unpack: grid-stride loop, binary search "
+                       "over 64-bit offsets; average, cast back, postscale")):
+        r = fusion_res[kern]
+        kernels.append(dict(
+            name=f"fusion_{kern}", route="cuda", source=src + "fusion.cu",
+            replaces="horovod_tpu/ops/engine.py:1955 (no Pallas kernel: XLA "
+                     "fused this work into _build_fused_reduce)",
+            design=design, launches=two[kern] if two else 0,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], gbps=r["gbps"]))
     for kern in kernels:
-        kern["pass"] = kernels_ok and kern["launches"] > 0
+        kern["pass"] = kernels_ok and engine_ok and kern["launches"] > 0
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     hvd.shutdown()
-    if not (kernels_ok and serve_ok and train_ok
+    if not (kernels_ok and serve_ok and train_ok and engine_ok
             and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
-              f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}")
+              f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
+              f", engine ok={engine_ok} (fusion kernels {fusion_ok}, size 1 "
+              f"{size1_ok}, two ranks {two_ok})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

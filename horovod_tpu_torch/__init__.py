@@ -4,10 +4,12 @@ A second implementation of ``horovod_tpu`` in PyTorch, for NVIDIA H100
 cards, one card per process.  It imports neither JAX nor ``horovod_tpu``;
 the JAX package is the reference its tests hold it against.  So far the
 port covers the serving path (runtime control, parameter broadcast, the
-Llama decoder with its flash-attention forward kernel, and ``serve``) and
-the training path (``DistributedOptimizer`` over the allreduce family of
+Llama decoder with its flash-attention forward kernel, and ``serve``), the
+training path (``DistributedOptimizer`` over the allreduce family of
 ``mpi_ops``, and Llama training through the flash-attention backward
-kernels).
+kernels) and the collective engine under both: negotiation through the
+copied coordinator, fusion, and one collective per fused buffer between
+the pack and unpack kernels.
 """
 
 from .common.basics import (  # noqa: F401
@@ -24,7 +26,8 @@ from .mpi_ops import (  # noqa: F401
     ReduceOp, Average, Sum, Min, Max, Product, Adasum,
     allreduce, allreduce_, allreduce_async, allreduce_async_,
     grouped_allreduce, grouped_allreduce_, grouped_allreduce_async,
-    grouped_allreduce_async_, synchronize, poll,
+    grouped_allreduce_async_, broadcast, broadcast_, broadcast_async,
+    broadcast_async_, broadcast_object, barrier, synchronize, poll,
 )
 from .optimizer import DistributedOptimizer  # noqa: F401
 from . import serve  # noqa: F401

@@ -1,20 +1,27 @@
 """Core runtime state and the ``init``/``rank``/``size`` API family.
 
-Port of ``horovod_tpu/common/basics.py:77-200``.  The world contract:
+Port of ``horovod_tpu/common/basics.py:77-200``, with the engine's start
+(:92-97, 150-157, 228-247, 273) and shutdown order (:278-345).  The world
+contract:
 
 - With no ``HOROVOD_*`` env the world is one process of size 1 and no
-  process group is formed.
+  process group is formed; the collective engine still runs (local
+  negotiation, fusion, the pack and unpack kernels) and its collective is
+  the identity.
 - With ``HOROVOD_RANK``, ``HOROVOD_SIZE``, ``HOROVOD_LOCAL_RANK`` and
   ``HOROVOD_CONTROLLER_ADDR``/``HOROVOD_CONTROLLER_PORT`` set (the launcher
   contract of ``horovod_tpu/runner/run.py``) and a size above 1, ``init()``
-  forms the ``torch.distributed`` world at that address: NCCL when the
-  device is a card, gloo on the CPU.
+  forms the ``torch.distributed`` world at that address (NCCL when the
+  device is a card, gloo on the CPU) and connects the negotiation
+  controller, the copied ``TCPController``, at
+  ``HOROVOD_CONTROLLER_PORT2`` or else the next port up; rank 0 hosts the
+  coordinator's server.
 
 The device is ``cuda:{local_rank}`` unless the caller asks for the CPU
 (``init(device="cpu")``, as the tests do).  With no card and no such
 request ``init()`` raises: the port never carries on on the CPU by itself.
-Elastic membership, topology, the timeline and the collective engine come
-with later parts of the port.
+Elastic membership, the hierarchical controller, topology, the monitor and
+the timeline come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .config import Config
 from .process_sets import ProcessSet, ProcessSetTable, global_process_set
 
 
@@ -49,6 +57,9 @@ class GlobalState:
         self.local_size = 1
         self.device: Optional[torch.device] = None
         self.owns_process_group = False
+        self.config: Optional[Config] = None
+        self.engine = None           # ops.engine.CollectiveEngine
+        self.controller = None       # common.controller.TCPController
         self.process_set_table = ProcessSetTable()
         self._lock = threading.Lock()
 
@@ -107,6 +118,34 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         # Rebind the module-level global_process_set singleton.
         global_process_set.__dict__.update(gs.__dict__)
         st.process_set_table._sets[0] = global_process_set
+        cfg = st.config = Config.from_env()
+        # Wire-visible auto-name counters restart with the runtime, so that
+        # every rank's name sequence stays aligned.
+        from ..ops import eager as _eager
+        _eager.reset_name_counters()
+        from ..ops.engine import CollectiveEngine
+        st.engine = CollectiveEngine(st)
+        if size > 1:
+            from .controller import TCPController
+            if not cfg.controller_addr or not cfg.controller_port:
+                raise RuntimeError(
+                    f"HOROVOD_SIZE={size} needs HOROVOD_CONTROLLER_ADDR "
+                    f"and HOROVOD_CONTROLLER_PORT for the negotiation "
+                    f"controller")
+            st.controller = TCPController(
+                cfg.controller_addr,
+                cfg.controller_port2 or cfg.controller_port + 1,
+                rank=rank, world=size,
+                stall_warn_s=cfg.stall_check_time_s
+                if not cfg.stall_check_disable else 1e18,
+                cache_capacity=cfg.response_cache_capacity,
+                round_timeout_s=cfg.round_timeout_s,
+                connect_retries=cfg.connect_retries,
+                connect_backoff_ms=cfg.connect_backoff_ms,
+                spec_ready_after=cfg.spec_ready_after,
+                round_pipeline=cfg.round_pipeline)
+            st.engine.controller = st.controller
+        st.engine.start()
         st.initialized = True
 
 
@@ -122,10 +161,33 @@ def _make_group(ranks):
 
 
 def shutdown() -> None:
+    """Stop the engine and the controller, then leave the world, in the
+    JAX package's order (``horovod_tpu/common/basics.py:278-345``): quiesce
+    the cycle thread at a round boundary, announce a clean LEAVE on the
+    quiet socket, sever the socket, stop the engine (settling every
+    waiter), close the controller."""
     st = _state
     with st._lock:
         if not st.initialized:
             return
+        eng, ctl = st.engine, st.controller
+        # A control-plane fault (dead peer — HVD303) means no clean LEAVE.
+        abrupt = eng is not None and eng.fault is not None
+        if ctl is not None and eng is not None and not abrupt:
+            # A wedged thread (a peer already died) falls back to the sever
+            # below; a healthy world's in-flight round completes first.
+            if eng.quiesce(timeout=5.0) and eng.fault is None:
+                ctl.leave()
+        if ctl is not None:
+            # Unblock any lock-step round FIRST so the engine thread can't
+            # be left inside the native client when we free it.
+            ctl.interrupt()
+        if eng is not None:
+            eng.stop()
+            st.engine = None
+        if ctl is not None:
+            ctl.shutdown()
+            st.controller = None
         if st.owns_process_group:
             import torch.distributed as dist
             if dist.is_initialized():

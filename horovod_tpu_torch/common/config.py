@@ -1,0 +1,147 @@
+# Copied from horovod_tpu/common/config.py:1-53, 109-200, 381-404 and the
+# matching lines of from_env (:410-497): only the fields the engine and the
+# controller read.
+"""Environment-variable configuration surface.
+
+TPU-native equivalent of the reference's env parser
+(``horovod/common/utils/env_parser.cc``) and the ``HOROVOD_*`` config surface
+described in SURVEY.md §5 ("Config/flag system").  Same two-layer pattern:
+env vars are the core config; the launcher forwards CLI/YAML settings to
+workers as env vars.
+
+We accept both the reference's ``HOROVOD_*`` names (so existing user scripts /
+run-books keep working) and ``HVD_TPU_*`` overrides.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+
+def _env(name: str, default: Optional[str] = None) -> Optional[str]:
+    """Look up HVD_TPU_<name> then HOROVOD_<name>."""
+    for prefix in ("HVD_TPU_", "HOROVOD_"):
+        val = os.environ.get(prefix + name)
+        if val is not None:
+            return val
+    return default
+
+
+def _env_int(name: str, default: int) -> int:
+    val = _env(name)
+    if val is None or val == "":
+        return default
+    try:
+        return int(val)
+    except ValueError:
+        raise ValueError(f"Invalid integer for HOROVOD_{name}: {val!r}")
+
+
+def _env_float(name: str, default: float) -> float:
+    val = _env(name)
+    if val is None or val == "":
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        raise ValueError(f"Invalid float for HOROVOD_{name}: {val!r}")
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    val = _env(name)
+    if val is None or val == "":
+        return default
+    return val.strip().lower() in ("1", "true", "yes", "on")
+
+
+@dataclasses.dataclass
+class Config:
+    """Runtime configuration, parsed once at ``init()``.
+
+    - ``fusion_threshold_bytes``   <- HOROVOD_FUSION_THRESHOLD (default 64 MB)
+    - ``cycle_time_ms``            <- HOROVOD_CYCLE_TIME
+    - ``response_cache_capacity``  <- HOROVOD_RESPONSE_CACHE_CAPACITY
+      (negotiation response cache: the steady-state bitvector fast path)
+    - ``max_inflight``             <- HOROVOD_MAX_INFLIGHT (bounded window
+      of dispatched-but-unsettled fused batches, multi-process mode)
+    - ``stall_check_time_s``       <- HOROVOD_STALL_CHECK_TIME
+    - ``stall_shutdown_time_s``    <- HOROVOD_STALL_SHUTDOWN_TIME
+    - ``stall_check_disable``      <- HOROVOD_STALL_CHECK_DISABLE
+    """
+
+    fusion_threshold_bytes: int = 64 * 1024 * 1024
+    cycle_time_ms: float = 1.0
+    # Negotiation response cache (HOROVOD_RESPONSE_CACHE_CAPACITY, upstream
+    # HOROVOD_CACHE_CAPACITY's role): slot-table size for the steady-state
+    # bitvector fast path, client-side AND server-side.  0 disables (every
+    # cycle does full metadata negotiation).
+    response_cache_capacity: int = 2048
+
+    # max_inflight bounds the dispatched-but-unsettled window in
+    # multi-process mode: >1 lets the cycle thread negotiate round N+1
+    # while the device executes round N.
+    max_inflight: int = 2
+
+    # Control-plane fault tolerance (protocol v4, docs/fault_tolerance.md).
+    # round_timeout_s: per-negotiation-round wall-clock deadline — the
+    # server declares ranks that miss it dead and broadcasts a typed ABORT
+    # to survivors; the client bounds its own response wait at 2x.  Must
+    # exceed the worst legitimate inter-rank skew; 0 disables the deadlines
+    # (dead-socket detection is always on).  connect_retries /
+    # connect_backoff_ms: bounded controller-connect retries with
+    # exponential backoff + jitter, so workers may start before the
+    # coordinator.
+    round_timeout_s: float = 0.0
+    connect_retries: int = 3
+    connect_backoff_ms: float = 500.0
+
+    # Zero-RTT warm control plane (protocol v7, docs/performance.md
+    # "Zero-RTT warm path").  spec_ready_after (HOROVOD_SPEC_READY_AFTER):
+    # after a response-cache slot has been ready-on-first-announce for
+    # this many consecutive rounds, the root piggybacks a predicted
+    # next-round verdict and clients may dispatch it without waiting for
+    # the response; 0 (default) = off, every round lock-step.
+    # round_pipeline (HOROVOD_ROUND_PIPELINE): client-side in-flight
+    # negotiation-round window — 1 (default) = lock-step, >1 sends round
+    # N+1's request before round N's response is read.  Results are
+    # bitwise-identical either way (a mispredict only delays a verdict by
+    # one normal round).
+    spec_ready_after: int = 0
+    round_pipeline: int = 1
+
+    stall_check_time_s: float = 60.0
+    stall_shutdown_time_s: float = 0.0
+    stall_check_disable: bool = False
+
+    # Run the coordinator cycle inline on the submitting thread for blocking
+    # single-controller ops (HOROVOD_INLINE_KICK; the small-tensor latency
+    # fast path — off = legacy wake-the-cycle-thread dispatch).
+    inline_kick: bool = True
+
+    # Control plane (multi-process mode). Set by the launcher.
+    controller_addr: str = ""
+    controller_port: int = 0
+    controller_port2: int = 0
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        return cls(
+            fusion_threshold_bytes=_env_int("FUSION_THRESHOLD", 64 * 1024 * 1024),
+            cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
+            response_cache_capacity=_env_int("RESPONSE_CACHE_CAPACITY", 2048),
+            max_inflight=_env_int("MAX_INFLIGHT", 2),
+            round_timeout_s=_env_float("ROUND_TIMEOUT_S", 0.0),
+            connect_retries=_env_int("CONNECT_RETRIES", 3),
+            connect_backoff_ms=_env_float("CONNECT_BACKOFF_MS", 500.0),
+            spec_ready_after=_env_int("SPEC_READY_AFTER", 0),
+            round_pipeline=_env_int("ROUND_PIPELINE", 1),
+            stall_check_time_s=_env_float("STALL_CHECK_TIME", 60.0),
+            stall_shutdown_time_s=_env_float("STALL_SHUTDOWN_TIME", 0.0),
+            stall_check_disable=_env_bool("STALL_CHECK_DISABLE", False),
+            inline_kick=_env_bool("INLINE_KICK", True),
+            controller_addr=_env("CONTROLLER_ADDR", "") or "",
+            controller_port=_env_int("CONTROLLER_PORT", 0),
+            controller_port2=_env_int("CONTROLLER_PORT2", 0),
+        )

@@ -1,0 +1,118 @@
+# Copied from horovod_tpu/common/native.py:1-114 (the source is the port's
+# own copy of the coordinator, built under build/ as libhvdtpu_torch_coord).
+"""Build + load the native coordinator library via ctypes.
+
+Reference parity: where ``horovod/common/basics.py`` ctypes-loads the
+prebuilt ``mpi_lib_v2`` extension (SURVEY.md §2b P1), we compile
+``horovod_tpu_torch/csrc/coordinator.cc`` once (g++ is in the image; no
+pip/pybind needed) and cache the .so under ``build/coordinator/`` beside the
+package (listed in ``.gitignore``).  Pure-build-on-first-use keeps the repo
+installable without a build step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from typing import Optional
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, "csrc", "coordinator.cc")
+_OUT_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "coordinator")
+_LIB_PREFIX = "libhvdtpu_torch_coord."
+
+
+def _out_path() -> str:
+    """Artifact path keyed on a SOURCE CONTENT hash, not mtime.
+
+    An mtime-keyed rebuild swaps semantics mid-suite: editing
+    ``coordinator.cc`` during an in-flight pytest run made the next
+    ``load()`` in a *different* process rebuild over the path the first
+    process had dlopen'd by name, so one run mixed two protocol versions.
+    Hashing the source into the artifact NAME makes every source version a
+    distinct file — an already-running process keeps its version, a new
+    process builds (or reuses) exactly the version its source says.
+    """
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(_OUT_DIR, f"{_LIB_PREFIX}{digest}.so")
+
+
+def _build() -> str:
+    os.makedirs(_OUT_DIR, exist_ok=True)
+    out = _out_path()
+    if os.path.exists(out):
+        return out
+    # Several worker processes can race to build (e.g. a local -np N launch
+    # on fresh source): serialize builds with an flock and write to a
+    # pid-unique tmp so a racing process can never observe (or produce) a
+    # half-written library.
+    import fcntl
+    with open(os.path.join(_OUT_DIR, "build.lock"), "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
+                   _SRC, "-o", tmp]
+            try:
+                subprocess.run(cmd, check=True, capture_output=True, text=True)
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            # Best-effort GC of superseded versions: a process still running
+            # an old version keeps its dlopen handle — unlinking is safe on
+            # Linux.
+            base = os.path.basename(out)
+            for f in os.listdir(_OUT_DIR):
+                if (f.startswith(_LIB_PREFIX) and f.endswith(".so")
+                        and f != base):
+                    try:
+                        os.unlink(os.path.join(_OUT_DIR, f))
+                    except OSError:
+                        pass
+    return out
+
+
+def load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = _build()
+        lib = ctypes.CDLL(path)
+        lib.hvdtpu_server_start.restype = ctypes.c_void_p
+        lib.hvdtpu_server_start.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_double, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int]
+        lib.hvdtpu_server_stop.argtypes = [ctypes.c_void_p]
+        lib.hvdtpu_server_stats.restype = ctypes.c_int
+        lib.hvdtpu_server_stats.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)]
+        lib.hvdtpu_client_connect.restype = ctypes.c_void_p
+        lib.hvdtpu_client_connect.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int]
+        lib.hvdtpu_client_round.restype = ctypes.c_int
+        lib.hvdtpu_client_round.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
+        lib.hvdtpu_client_send.restype = ctypes.c_int
+        lib.hvdtpu_client_send.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
+        lib.hvdtpu_client_recv.restype = ctypes.c_int
+        lib.hvdtpu_client_recv.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+            ctypes.c_int]
+        lib.hvdtpu_client_pending.restype = ctypes.c_int
+        lib.hvdtpu_client_pending.argtypes = [ctypes.c_void_p]
+        lib.hvdtpu_client_interrupt.argtypes = [ctypes.c_void_p]
+        lib.hvdtpu_client_close.argtypes = [ctypes.c_void_p]
+        _lib = lib
+        return lib

@@ -9,15 +9,15 @@ share storage with the module) or an iterable of ``(name, tensor)`` pairs.
 ``broadcast_optimizer_state`` takes a ``torch.optim.Optimizer``, through its
 ``state_dict``, or a tree.
 
-In a world of one process both return at once.  Otherwise every tensor is
-broadcast from ``root_rank`` with ``torch.distributed.broadcast``, in place,
-one call per tensor, in the sorted order of the tensors' paths so that
-every rank issues the same calls in the same order; the non-tensor values
-of a ``state_dict`` ride one pickled broadcast and are written back.  An
+Before ``init()`` both return at once.  Otherwise every tensor is broadcast
+from ``root_rank`` in place through the collective engine: all of them are
+submitted at once, named ``broadcast.<path>``, so that one negotiation
+round covers them and the engine fuses them into buffers cut at the fusion
+threshold, one broadcast each (in a world of one process the broadcast is
+the identity, the pack and unpack still run).  The non-tensor values of a
+``state_dict`` ride one ``broadcast_object`` and are written back.  An
 optimizer's state is sent as root's structure first, so a rank whose
-optimizer holds no state yet (no step taken) receives root's.  This direct
-broadcast stands in until the collective engine (negotiation and fusion)
-is ported.
+optimizer holds no state yet (no step taken) receives root's.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 
 from .common import basics
 from .common.process_sets import ProcessSet
+from .ops import eager
 
 # A tensor of root's optimizer state, as its structure is sent.
 _TensorSpec = collections.namedtuple("_TensorSpec", "shape dtype on_cpu")
@@ -48,38 +49,26 @@ def _leaves(tree, path=()):
 
 
 def _active_set(process_set: Optional[ProcessSet]) -> Optional[ProcessSet]:
-    """The set to broadcast over, or None where there is nothing to do (a
-    world of one process, or a rank outside the set)."""
-    if not basics.is_initialized() or basics.size() == 1:
+    """The set to broadcast over, or None where there is nothing to do (no
+    runtime yet, or a rank outside the set)."""
+    if not basics.is_initialized():
         return None
     ps = process_set if process_set is not None else \
         basics.global_process_set
     return ps if ps.included(basics.rank()) else None
 
 
-@torch.no_grad()
 def _broadcast_tensors(tree, root_rank: int, ps: ProcessSet) -> None:
-    """Broadcast every tensor leaf in place, in sorted path order.  A tensor
-    off the process group's device, or not contiguous, goes through a
-    staging copy on that device."""
-    import torch.distributed as dist
-    dev = basics.device()
-    for _, t in sorted(_leaves(tree), key=lambda kv: kv[0]):
-        if not isinstance(t, torch.Tensor):
-            continue
-        if t.device == dev and t.is_contiguous():
-            dist.broadcast(t, src=root_rank, group=ps.group)
-        else:
-            buf = t.detach().to(dev).contiguous()
-            dist.broadcast(buf, src=root_rank, group=ps.group)
-            t.copy_(buf)
-
-
-def _broadcast_object(obj, root_rank: int, ps: ProcessSet):
-    import torch.distributed as dist
-    box = [obj]
-    dist.broadcast_object_list(box, src=root_rank, group=ps.group)
-    return box[0]
+    """Broadcast every tensor leaf in place, submitted together in sorted
+    path order."""
+    named = [(".".join(map(str, path)), t)
+             for path, t in sorted(_leaves(tree), key=lambda kv: kv[0])
+             if isinstance(t, torch.Tensor)]
+    if not named:
+        return
+    eager.synchronize(eager.broadcast_many_async(
+        [t for _, t in named], [f"broadcast.{n}" for n, _ in named],
+        root_rank=root_rank, process_set=ps, inplace=True))
 
 
 def broadcast_parameters(params, root_rank: int = 0,
@@ -95,6 +84,10 @@ def broadcast_parameters(params, root_rank: int = 0,
     top = tree if isinstance(tree, dict) else {}
     if not isinstance(tree, (dict, list, tuple)):
         tree = dict(tree)      # (name, tensor) pairs: nothing to write into
+    elif isinstance(tree, (list, tuple)) and tree and all(
+            isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], str)
+            and isinstance(x[1], torch.Tensor) for x in tree):
+        tree = dict(tree)      # a list of (name, tensor) pairs
     extras = {k: v for k, v in top.items()
               if not isinstance(v, (torch.Tensor, dict, list, tuple))}
     stray = sorted(".".join(map(str, path)) for path, x in _leaves(tree)
@@ -106,7 +99,8 @@ def broadcast_parameters(params, root_rank: int = 0,
             f"top-level values of a state_dict may be other objects")
     _broadcast_tensors(tree, root_rank, ps)
     if extras:
-        top.update(_broadcast_object(extras, root_rank, ps))
+        top.update(eager.broadcast_object(extras, root_rank,
+                                          process_set=ps))
         if module is not None:
             module.load_state_dict(top)
     return params
@@ -153,8 +147,8 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0,
         return optimizer
     is_root = basics.rank() == root_rank
     state = optimizer.state_dict() if is_root else None
-    spec = _broadcast_object(_spec(state) if is_root else None, root_rank,
-                             ps)
+    spec = eager.broadcast_object(_spec(state) if is_root else None,
+                                  root_rank, process_set=ps)
     if not is_root:
         state = _materialize(spec)
     _broadcast_tensors(state, root_rank, ps)

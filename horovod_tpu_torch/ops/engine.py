@@ -1,0 +1,793 @@
+# Ported from horovod_tpu/ops/engine.py: CollectiveType 59-66,
+# TensorTableEntry 68-148 (without the partition, fast-lane, prefetch,
+# sharded, hierarchical, donation and span fields), _fusion_key 151-169,
+# start/quiesce/stop/_abort_engine/_settle_queued 416-598,
+# enqueue/enqueue_group 610-697, synchronize/poll 802-850, the cycle
+# 911-1133, _compute_response_list 1136-1335, _perform_operation/
+# _settle_batch/_inflight_ring 1338-1463, _execute_batch 1792-1889 and the
+# fused-reduce and broadcast builders 1896-1953, 2028-2094.
+"""The collective engine: Horovod's background coordinator, on torch tensors.
+
+Port of ``horovod_tpu/ops/engine.py`` (reference: ``horovod/common/
+operations.cc`` ``BackgroundThreadLoop``/``RunLoopOnce``, ``tensor_queue.cc``,
+``fusion_buffer_cache.cc``, ``response_cache.cc`` — SURVEY.md §2a
+N1/N2/N6/N7/N8 and §3.2).  The control plane is the JAX package's: a cycle
+thread drains a thread-safe tensor queue, negotiates which tensors are
+ready on every rank (the copied ``TCPController`` against the copied
+``coordinator.cc``; in a world of one process every submitted tensor is
+ready), fuses them into batches by fusion key and threshold, and dispatches
+one collective per fused dtype buffer.  The data plane is new: each dtype
+group of a batch is packed into one flat buffer by the ``hvd_fusion_pack``
+kernel (prescale, wire cast), reduced or broadcast by one
+``torch.distributed`` call on the set's process group (NCCL on the card,
+gloo on the CPU; none in a set of one, where the collective is the
+identity), and unpacked into the outputs by ``hvd_fusion_unpack`` (average,
+cast back, postscale) — see ``ops/fusion.py``.
+
+Tensors are per-rank: an entry holds this rank's own ``[*S]`` tensor, where
+the JAX engine holds the stacked ``[world, *S]``.  The fusion threshold
+still counts global stacked bytes (per-rank bytes × the set's size, the JAX
+engine's convention), so both engines cut the same batches.
+
+On the card the engine packs, reduces and unpacks on its own stream, from
+the cycle thread.  A submit records a ready event on the caller's current
+stream, which the engine stream waits on before packing; a batch records a
+done event after its unpack, on which the in-flight window settles and
+which ``synchronize`` makes the caller's stream wait on.  This engine's
+cycle thread is the port's only caller of ``torch.distributed``
+collectives.
+
+Out of this slice: allgather, alltoall, reducescatter and join; the fast
+lane, partitioning, chunked pipelining and the checkpoint lane; the
+hierarchical data plane and Adasum; the timeline, tracer, monitor,
+sanitizer and autotuner.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import enum
+import heapq
+import itertools
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from . import collectives as C
+from . import fusion
+from .scheduler import (FUSED_LANE, InflightRing, StallInspector, TensorQueue,
+                        pop_gradient_batches)
+from ..common.exceptions import ControlPlaneError
+from ..utils.logging import get_logger
+
+log = get_logger()
+
+WIRE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+class CollectiveType(enum.Enum):
+    ALLREDUCE = "allreduce"
+    ALLGATHER = "allgather"
+    BROADCAST = "broadcast"
+    ALLTOALL = "alltoall"
+    REDUCESCATTER = "reducescatter"
+    BARRIER = "barrier"
+
+
+@dataclasses.dataclass
+class TensorTableEntry:
+    """One pending collective request (reference: TensorTableEntry, N6)."""
+    handle: int
+    name: str
+    ctype: CollectiveType
+    tensor: Any                      # this rank's [*S] (None for barrier)
+    reduce_op: C.ReduceOp = C.ReduceOp.AVERAGE
+    root_rank: int = 0
+    process_set_id: int = 0
+    prescale_factor: Optional[float] = None
+    postscale_factor: Optional[float] = None
+    group_id: int = -1               # grouped ops execute atomically together
+    # Wire-dtype compression ("bf16"/"fp16"/None): the pack kernel casts a
+    # floating group down to the wire dtype after the prescale, the unpack
+    # kernel casts it back before the postscale.  Reduction ops only; part
+    # of the fusion key AND the negotiation digest (divergence would
+    # execute mismatched batches).
+    compression: Optional[str] = None
+    # Drain priority (higher drains first; default 0 = FIFO).  Stamped by
+    # the DistributedOptimizer bindings with reverse-registration order so
+    # first-needed gradients lead each cycle (ByteScheduler-style priority
+    # scheduling); must be identical across ranks for a given name.
+    priority: int = 0
+    enqueue_time: float = 0.0
+    # Where unpack writes: a tensor of ``tensor``'s shape, dtype and device
+    # (``tensor`` itself for the in-place forms).  ``target``, when set, is
+    # what ``synchronize`` returns, filled from the output unless it is
+    # the output's own memory (the caller's tensor for the in-place forms,
+    # which the engine may have staged onto its device or into contiguous
+    # memory).
+    output: Any = None
+    target: Any = None
+    ready: Any = None                # CUDA event: the inputs are written
+    # filled on completion:
+    result: Any = None
+    done_event: Any = None           # CUDA event: the outputs are written
+    error: Optional[BaseException] = None
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+
+
+def _fusion_key(e: TensorTableEntry) -> Tuple:
+    """Entries with equal keys may fuse into one batch.
+
+    dtype is deliberately NOT part of the key: a batch groups its tensors
+    by dtype (one buffer and one collective per dtype) — this keeps grouped
+    ops with mixed fp32/bf16 members atomic in a single batch (reference:
+    group table N13 semantics)."""
+    return (e.ctype, e.reduce_op, e.root_rank, e.process_set_id,
+            e.prescale_factor, e.postscale_factor, e.compression)
+
+
+def _dist_op(op: C.ReduceOp):
+    import torch.distributed as dist
+    ops = {C.ReduceOp.AVERAGE: dist.ReduceOp.SUM,
+           C.ReduceOp.SUM: dist.ReduceOp.SUM,
+           C.ReduceOp.MIN: dist.ReduceOp.MIN,
+           C.ReduceOp.MAX: dist.ReduceOp.MAX,
+           C.ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT}
+    if op not in ops:
+        raise ValueError(f"Unsupported reduce op for the fused allreduce: "
+                         f"{op!r}")
+    return ops[op]
+
+
+class CollectiveEngine:
+    """Background coordinator: queue → negotiate → fuse → execute.
+
+    Without a controller (a world of one process) negotiation is local:
+    everything submitted is ready.  Multi-process mode plugs a TCP
+    controller in at ``self.controller`` so all processes agree on the
+    response list before executing identical batches; the execution path
+    below is shared by both modes.
+    """
+
+    def __init__(self, state):
+        self._state = state
+        cfg = state.config
+        self.queue = TensorQueue()
+        self.stall = StallInspector(cfg.stall_check_time_s,
+                                    cfg.stall_shutdown_time_s,
+                                    cfg.stall_check_disable)
+        self.cycle_time_s = cfg.cycle_time_ms / 1000.0
+        self.inline_kick = cfg.inline_kick
+        self.fusion_threshold = cfg.fusion_threshold_bytes
+        self.max_inflight = cfg.max_inflight
+        self._inflight: Optional[InflightRing] = None
+        self._backlog: List[tuple] = []       # heap: (lane, -prio, seq, batch)
+        self._backlog_seq = itertools.count()
+        # Data-plane observability: fused batches dispatched, and dtype
+        # groups among them — each is one pack launch, one collective (at
+        # a set size above 1) and one unpack launch.
+        self.pipeline_dispatches = 0
+        self.fused_groups = 0
+        self._streams: Dict[torch.device, Any] = {}
+        self._handle_counter = itertools.count(1)
+        self._handles: Dict[int, TensorTableEntry] = {}
+        self._handles_lock = threading.Lock()
+        self._cycle_lock = threading.Lock()  # serializes cycles (bg + kick)
+        self._shutdown = threading.Event()
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.controller = None       # multi-process TCP controller (optional)
+        # Control-plane fault latch (HVD303): set by _abort_engine when a
+        # ControlPlaneError (dead peer / round timeout) surfaces from
+        # negotiation.  Once set, the engine is cleanly down — every
+        # pending/in-flight waiter was settled with the error, and new
+        # enqueues raise it immediately instead of queueing into a dead
+        # world.
+        self._fault: Optional[BaseException] = None
+        # Clean world-membership change (protocol v6, NOT a fault): set
+        # when the coordinator's leave notice names peers that departed
+        # via clean LEAVE.  World-level (default-process-set) work fails
+        # with it — the control plane's world shrank but the data-plane
+        # world is still the old fixed size, so executing a shrunk-world
+        # verdict would wedge the transport.
+        self._world_changed: Optional[BaseException] = None
+        # On the CPU the gloo collective blocks the cycle thread until it
+        # completes; on the card the launches are asynchronous.
+        self._serialize_launches = state.device.type == "cpu"
+
+    # ------------------------------------------------------------- lifecycle
+    def start(self):
+        self._thread = threading.Thread(
+            target=self._background_loop, name="hvd-torch-coordinator",
+            daemon=True)
+        self._thread.start()
+
+    def quiesce(self, timeout: float = 10.0) -> bool:
+        """Stop the cycle thread at a round boundary for a CLEAN departure.
+
+        Sets the shutdown flag and joins the thread WITHOUT severing the
+        controller socket first: in a healthy world the in-flight
+        lock-step round completes in milliseconds and the thread exits at
+        the loop check, leaving the socket quiet — the precondition for
+        ``controller.leave()`` (the LEAVE frame must not interleave with a
+        round in flight).  Returns True when the thread exited cleanly
+        with no fault latched; False (thread wedged — a peer is already
+        gone or the coordinator is stuck) tells the caller to fall back to
+        the legacy ``interrupt()`` sever."""
+        self._shutdown.set()
+        self._wake.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=timeout)
+            if t.is_alive():
+                return False
+            self._thread = None
+        return self._fault is None
+
+    def stop(self):
+        self._shutdown.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        if self._backlog and self._fault is None:
+            # Undispatched ready batches (the backlog only defers dispatch
+            # while the window is full): dispatch them now, before the
+            # ring drains — their waiters must not outlive the engine
+            # unsignalled.  The fault path already settled them.
+            while self._backlog:
+                _, _, _, batch = heapq.heappop(self._backlog)
+                self._perform_operation(batch)
+        if self._inflight is not None:
+            # Settles every dispatched batch first: a waiter blocked in
+            # synchronize() must never outlive the watcher unsignalled.
+            self._inflight.stop()
+            self._inflight = None
+
+    def _abort_engine(self, exc: BaseException, busy: bool = False):
+        """Clean engine shutdown on a control-plane fault (HVD303).
+
+        Invariant restored here: NO waiter may hang.  Every entry still
+        queued is settled with the error, the in-flight ring fails its
+        window without blocking on device results that may never come
+        (a collective whose participant died can block forever), and new
+        enqueues raise immediately.  Runs on the cycle thread; idempotent.
+
+        ``busy`` is the caller's hint that the failing cycle itself was
+        carrying entries; together with the queue/ring state it picks the
+        log severity — losing a peer with NO work outstanding is the
+        shape of an ordinary staggered clean shutdown (the first rank to
+        leave severs its socket and the server declares it dead; no wire
+        protocol distinguishes that from a crash), so it must not put an
+        ERROR in every clean run's logs."""
+        if self._fault is not None:
+            return
+        self._fault = exc
+        # Everything still waiting to negotiate fails now — the control
+        # plane will never answer it.
+        pending = self.queue.drain()
+        idle = (not busy and not pending and not self._backlog
+                and (self._inflight is None or len(self._inflight) == 0))
+        if idle:
+            log.warning(
+                "control plane lost peer(s) with no work outstanding — a "
+                "staggered clean shutdown looks exactly like this (a peer "
+                "crash between bursts does too); shutting the engine down: "
+                "%s", exc)
+        else:
+            log.error("control plane failed; shutting the engine down "
+                      "cleanly: %s", exc)
+        self._settle_queued(pending, exc)
+        # Ready-but-undispatched batches parked in the backlog are waiters
+        # too: settle them with the fault.
+        while self._backlog:
+            _, _, _, batch = heapq.heappop(self._backlog)
+            self._settle_batch(batch, None, exc)
+        if self._inflight is not None:
+            self._inflight.abort(exc)
+        ctl = self.controller
+        if ctl is not None:
+            # Join waiters are part of the invariant too: the all-joined
+            # verdict can never arrive from a dead control plane.
+            try:
+                ctl.fail_join(exc)
+            except Exception:  # noqa: BLE001 - keep the abort going
+                log.exception("failing join waiters failed")
+        # Stop cycling: further lock-step rounds against a stopped server
+        # would only churn errors.  basics.shutdown() still runs the full
+        # teardown (thread join, controller close) afterwards.
+        self._shutdown.set()
+
+    def _settle_queued(self, entries, exc: BaseException):
+        """Settle queued-but-never-negotiated entries with a fault — THE
+        one implementation of the no-waiter-may-hang invariant for the
+        pre-negotiation stage (both _abort_engine's drain and the
+        enqueue-vs-abort race path funnel through here)."""
+        for e in entries:
+            e.error = exc
+            self.queue.mark_done(e)
+            e.done.set()
+
+    @property
+    def fault(self) -> Optional[BaseException]:
+        """The control-plane fault (HVD303) that shut this engine down, or
+        ``None`` while healthy.  ``basics.shutdown`` keys its
+        abrupt-teardown path off it."""
+        return self._fault
+
+    @property
+    def world_changed(self) -> Optional[BaseException]:
+        """The ``PeerLeftInterrupt`` latched when peers departed via clean
+        LEAVE (protocol v6), or ``None``.  NOT a fault: world-level work
+        fails with it until the world re-forms."""
+        return self._world_changed
+
+    # ------------------------------------------------------------- submit API
+    def enqueue(self, name: str, ctype: CollectiveType, tensor,
+                reduce_op=C.ReduceOp.AVERAGE, root_rank: int = 0,
+                process_set_id: int = 0, prescale_factor=None,
+                postscale_factor=None, group_id: int = -1,
+                compression: Optional[str] = None, priority: int = 0,
+                output=None, target=None) -> int:
+        return self.enqueue_group([dict(
+            name=name, ctype=ctype, tensor=tensor, reduce_op=reduce_op,
+            root_rank=root_rank, process_set_id=process_set_id,
+            prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+            group_id=group_id, compression=compression, priority=priority,
+            output=output, target=target)])[0]
+
+    def enqueue_group(self, items: Sequence[dict]) -> List[int]:
+        """Enqueue several entries atomically w.r.t. the drain — a cycle
+        sees all of them or none, so grouped members always negotiate (and
+        batch) together (reference: group_table N13).  On the card, one
+        ready event is recorded on the caller's current stream for them
+        all: the engine stream waits on it before packing."""
+        if self._fault is not None:
+            # The control plane is down (dead peer / round timeout): fail
+            # fast with the original HVD303 error instead of queueing work
+            # no negotiation round will ever answer.
+            raise self._fault
+        if self._world_changed is not None and any(
+                int(kw.get("process_set_id", 0) or 0) == 0 for kw in items):
+            # Peers departed via clean LEAVE (protocol v6): world-level
+            # work cannot run until the world re-forms.
+            raise self._world_changed
+        entries = []
+        for kw in items:
+            handle = next(self._handle_counter)
+            entries.append(TensorTableEntry(handle=handle, **kw))
+        cuda = [e.tensor.device for e in entries
+                if e.tensor is not None and e.tensor.device.type == "cuda"]
+        if cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(cuda[0]))
+            for e in entries:
+                e.ready = ready
+        with self._handles_lock:
+            for e in entries:
+                self._handles[e.handle] = e
+        try:
+            self.queue.push_many(entries)
+        except ValueError:
+            with self._handles_lock:
+                for e in entries:
+                    self._handles.pop(e.handle, None)
+            raise
+        fault = self._fault
+        if fault is not None:
+            # Lost the race with _abort_engine (the fault landed between
+            # the guard above and the push).  Drain-as-claim: the queue pop
+            # is atomic, so only entries still queued are ours to settle.
+            self._settle_queued(self.queue.drain(), fault)
+        self._wake.set()
+        return [e.handle for e in entries]
+
+    def synchronize(self, handle: int, timeout: Optional[float] = None):
+        """Block until the handle's collective completed; return its
+        result, the output tensor (the caller's own tensor where the
+        entry has a ``target``).  On the card the caller's current stream
+        waits on the batch's done event: the host does not.
+
+        Reference parity: ``horovod/torch/mpi_ops.py synchronize()``."""
+        with self._handles_lock:
+            e = self._handles.get(handle)
+        if e is None:
+            raise ValueError(f"Unknown handle {handle}")
+        if not e.done.wait(timeout):
+            raise TimeoutError(f"Collective {e.name!r} did not complete "
+                               f"within {timeout}s")
+        with self._handles_lock:
+            self._handles.pop(handle, None)
+        if e.error is not None:
+            raise e.error
+        if e.done_event is not None:
+            torch.cuda.current_stream(e.result.device).wait_event(
+                e.done_event)
+        t = e.target
+        if t is None:
+            return e.result
+        if t.device != e.result.device or t.data_ptr() != e.result.data_ptr():
+            with torch.no_grad():
+                t.copy_(e.result)
+        return t
+
+    def poll(self, handle: int) -> bool:
+        with self._handles_lock:
+            e = self._handles.get(handle)
+        if e is None:
+            return True
+        return e.done.is_set()
+
+    # ------------------------------------------------------------- main loop
+    def _background_loop(self):
+        dev = self._state.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            while not self._shutdown.is_set():
+                # Multi-process mode rounds every cycle (peers wait on this
+                # rank's frame); alone, the thread sleeps until a submit.
+                self._wake.wait(timeout=self.cycle_time_s
+                                if self.controller is not None else None)
+                self._wake.clear()
+                try:
+                    self.run_loop_once()
+                except Exception:       # pragma: no cover - engine bug surface
+                    log.exception("coordinator cycle failed")
+
+    def kick(self):
+        """Hint that a caller is about to block on a just-enqueued handle.
+
+        Without a controller: run the cycle INLINE on the calling thread —
+        the submit→wake→cycle-thread→done→waiter round trip costs two thread
+        handoffs; executing the drain/fuse/dispatch pipeline here removes
+        both while preserving fusion (a concurrent burst drains into the
+        same cycle).  Multi-process mode: negotiation must stay on the
+        lock-step cycle thread; just wake it.
+
+        ``HOROVOD_INLINE_KICK=0`` disables the inline path (falling back to
+        waking the cycle thread)."""
+        if self.controller is None and self.inline_kick:
+            self.run_loop_once()
+        else:
+            self._wake.set()
+
+    def run_loop_once(self):
+        """One coordinator cycle (reference: RunLoopOnce, SURVEY.md §3.2).
+
+        Serialized by ``_cycle_lock`` — the background thread and blocking
+        submitters (``kick``) may race to run a cycle.
+
+        Any failure during planning (negotiation error, stall-shutdown
+        abort) must fail the drained entries — never drop them — or waiters
+        in ``synchronize()`` would hang forever.
+        """
+        with self._cycle_lock, torch.no_grad():
+            self._run_cycle_locked()
+
+    def _run_cycle_locked(self):
+        entries = self.queue.drain()
+        if not entries and self.controller is None and not self._backlog:
+            return
+        # Multi-process mode: every rank must complete a (possibly empty)
+        # lock-step negotiation round each cycle, or peers with pending
+        # tensors would block on this rank's missing frame.
+        try:
+            responses, not_ready = self._compute_response_list(entries)
+        except BaseException as exc:  # noqa: BLE001 - propagate to waiters
+            if isinstance(exc, ControlPlaneError):
+                ctl = self.controller
+                if ctl is not None and getattr(ctl, "interrupted", False):
+                    # Expected teardown: basics.shutdown() severed the
+                    # lock-step socket to unblock this thread, which makes
+                    # the in-flight round fail exactly like a peer death.
+                    # Not a fault — settle and exit quietly.
+                    pass
+                else:
+                    # A dead peer / missed round deadline: the control
+                    # plane cannot recover in place — shut the engine down
+                    # cleanly, settling EVERY outstanding waiter with the
+                    # error.  MUST run before this cycle's waiters are
+                    # released below: a waiter that wakes first reads
+                    # engine.fault in basics.shutdown() to pick the abrupt
+                    # teardown.
+                    self._abort_engine(exc, busy=bool(entries))
+            for e in entries:
+                e.error = exc
+                self.queue.mark_done(e)
+                e.done.set()
+            return
+        if not_ready:
+            self.queue.requeue(not_ready)
+        ring = self._inflight_ring()
+        if ring is None:
+            for batch in responses:
+                self._perform_operation(batch)
+        else:
+            # Dispatch backlog: ready batches queue by (priority, arrival)
+            # and each cycle dispatches up to `max_inflight` of them —
+            # leftovers wait HERE, where a later cycle's higher-priority
+            # batch overtakes them.  The budget is a pure function of knob
+            # + heap state (never of local ring occupancy): every rank
+            # pushes identical batches with identical keys, so every rank
+            # pops — and therefore LAUNCHES — in the identical order, which
+            # cross-process collectives require.
+            for batch in responses:
+                prio = max(e.priority for e in batch)
+                heapq.heappush(self._backlog,
+                               (FUSED_LANE, -prio, next(self._backlog_seq),
+                                batch))
+            for batch in pop_gradient_batches(
+                    self._backlog, max(1, int(self.max_inflight))):
+                self._perform_operation(batch)
+        if self._backlog:
+            # Leftovers must not wait out a long cycle timer: run the next
+            # cycle (and its negotiation round) immediately.
+            self._wake.set()
+
+    # --------------------------------------------------------- negotiation
+    def _global_nbytes(self, e: TensorTableEntry) -> int:
+        """The entry's bytes as the JAX engine counts them: the stacked
+        ``[world, *S]`` array of its process set."""
+        if e.tensor is None:
+            return 0
+        world = self._state.process_set_table.get(e.process_set_id).size()
+        return e.tensor.numel() * e.tensor.element_size() * world
+
+    def _compute_response_list(self, entries) -> List[List[TensorTableEntry]]:
+        """Group ready entries into fused batches (reference: N2
+        ``ComputeResponseList``).
+
+        Local mode: all entries are ready.  Grouped entries (group_id >= 0)
+        must land in one batch (reference: group_table N13).  Batches are
+        split at the fusion threshold, never across fusion keys.
+
+        Returns ``(batches, not_ready)``; not-ready entries (multi-process
+        negotiation) are re-queued by the caller for the next cycle.
+        """
+        not_ready: List[TensorTableEntry] = []
+        if self.controller is not None:
+            # Zero-RTT dispatch-safety gate (protocol v7): a speculative
+            # verdict is dispatched before peers have its real verdict,
+            # so this thread must stay free to keep serving them rounds —
+            # only the async in-flight window qualifies.  A blocking CPU
+            # collective (gloo) would starve the peer of the very frame it
+            # needs, deadlocking the fleet.
+            self.controller.spec_dispatch_ok = (
+                not self._serialize_launches and self.max_inflight > 1)
+            ready, errored = self.controller.negotiate(entries)
+            # Per-tensor negotiation failures (shape/dtype divergence across
+            # ranks): fail ONLY those waiters; the runtime stays up
+            # (reference: per-tensor error Responses, SURVEY.md N2).
+            from ..common.controller import NegotiationError
+            # Grouped ops are atomic (reference N13): one member failing
+            # negotiation fails every local member of its group.
+            bad_groups = {e.group_id for e, _ in errored if e.group_id >= 0}
+            if bad_groups:
+                by_handle = {e.handle for e, _ in errored}
+                for e in entries:
+                    if e.group_id in bad_groups and e.handle not in by_handle:
+                        errored.append((e, f"grouped collective aborted: a "
+                                        f"member of group {e.group_id} failed "
+                                        f"negotiation"))
+                        # The member may still be mid-negotiation: clear the
+                        # controller's announce bookkeeping so a retried op
+                        # reusing the name renegotiates from scratch.
+                        self.controller.forget(e)
+            for e, msg in errored:
+                e.error = NegotiationError(msg)
+                self.queue.mark_done(e)
+                # A failed entry is finished: clear the stall inspector's
+                # live-stall state (and warn latch) like any completion.
+                self.stall.progressed(e.name)
+                e.done.set()
+            errored_handles = {e.handle for e, _ in errored}
+            done_handles = {e.handle for e in ready} | errored_handles
+            not_ready = [e for e in entries if e.handle not in done_handles]
+            entries = [e for e in ready if e.handle not in errored_handles]
+            left = getattr(self.controller, "left_ranks", None)
+            if left:
+                # Clean world shrink (protocol v6 leave notice): world-level
+                # verdicts were computed over the SHRUNK control-plane
+                # world, but the data-plane world is still the old fixed
+                # size — executing them would wedge the transport.  Fail
+                # every default-process-set entry (ready AND still-pending)
+                # with PeerLeftInterrupt.
+                if self._world_changed is None:
+                    from ..common.exceptions import PeerLeftInterrupt
+                    self._world_changed = PeerLeftInterrupt(left)
+                exc_left = self._world_changed
+                keep_r: List[TensorTableEntry] = []
+                keep_nr: List[TensorTableEntry] = []
+                poisoned: List[TensorTableEntry] = []
+                for src, kept in ((entries, keep_r), (not_ready, keep_nr)):
+                    for e in src:
+                        if getattr(e, "process_set_id", 0) == 0:
+                            self.controller.forget(e)
+                            poisoned.append(e)
+                        else:
+                            kept.append(e)
+                self._settle_queued(poisoned, exc_left)
+                for e in poisoned:
+                    self.stall.progressed(e.name)
+                entries, not_ready = keep_r, keep_nr
+        self.stall.check(entries + not_ready)
+
+        # Batching must be a pure function of the NEGOTIATED entry order —
+        # never of local handle/group counters, which differ across ranks
+        # (every rank must build identical batches).  Grouped members are
+        # pulled together at the first member's position.
+        batches: List[List[TensorTableEntry]] = []
+        clusters: List[List[TensorTableEntry]] = []
+        seen_groups: set = set()
+        for e in entries:
+            if e.group_id >= 0:
+                if e.group_id in seen_groups:
+                    continue
+                seen_groups.add(e.group_id)
+                clusters.append([m for m in entries
+                                 if m.group_id == e.group_id])
+            else:
+                clusters.append([e])
+
+        by_key: Dict[Tuple, List[List[TensorTableEntry]]] = {}
+        for members in clusters:
+            by_key.setdefault(_fusion_key(members[0]), []).append(members)
+        for key, key_clusters in by_key.items():
+            cur: List[TensorTableEntry] = []
+            cur_bytes = 0
+            for members in key_clusters:
+                mbytes = sum(self._global_nbytes(m) for m in members)
+                if cur and cur_bytes + mbytes > self.fusion_threshold:
+                    batches.append(cur)
+                    cur, cur_bytes = [], 0
+                cur.extend(members)
+                cur_bytes += mbytes
+            if cur:
+                batches.append(cur)
+        return batches, not_ready
+
+    # ----------------------------------------------------------- execution
+    def _perform_operation(self, batch: List[TensorTableEntry]):
+        """Dispatch one fused batch.
+
+        With the in-flight window active (multi-process, MAX_INFLIGHT > 1)
+        the entries are NOT settled here: the batch enters the bounded
+        ring and the completion watcher settles ``e.done`` off this thread
+        once the batch's done event has fired, so the cycle thread proceeds
+        straight to negotiating the next round while the device executes
+        this one."""
+        try:
+            results = self._execute_batch(batch)
+        except BaseException as exc:  # noqa: BLE001 - propagate to waiters
+            self._settle_batch(batch, None, exc)
+            return
+        self.pipeline_dispatches += 1
+        ring = self._inflight_ring()
+        if ring is None:
+            self._settle_batch(batch, results)
+        else:
+            ring.submit(batch, results)
+
+    def _settle_batch(self, batch: List[TensorTableEntry], results,
+                      error: Optional[BaseException] = None):
+        """Completion epilogue (cycle thread inline, or the in-flight
+        watcher): assign results/error, release waiters.  Must never
+        raise — a lost settle hangs synchronize()."""
+        if error is None:
+            outs, done_event = results
+            for e, r in zip(batch, outs):
+                e.result = r
+                e.done_event = done_event
+        else:
+            for e in batch:
+                e.error = error
+        for e in batch:
+            try:
+                self.queue.mark_done(e)
+                self.stall.progressed(e.name)
+            except Exception:  # noqa: BLE001 - keep settling the rest
+                log.exception("settle bookkeeping failed for %r", e.name)
+            finally:
+                e.done.set()
+
+    @staticmethod
+    def _wait_done(results):
+        """The in-flight window's waiter: the batch's done event on the
+        card; a CPU batch completed on the cycle thread."""
+        _, done_event = results
+        if done_event is not None:
+            done_event.synchronize()
+
+    def _inflight_ring(self) -> Optional[InflightRing]:
+        """The bounded dispatch window, or None for inline settling.
+
+        Only the multi-process engine pipelines: single-process cycles
+        have no negotiation to overlap, and the inline-kick latency path
+        relies on same-thread settling.  (The controller attaches after
+        construction, hence the lazy build.)"""
+        if self.max_inflight <= 1 or self.controller is None:
+            return None
+        if self._inflight is None:
+            self._inflight = InflightRing(
+                self._wait_done,
+                lambda b, r, err: self._settle_batch(b, r, err),
+                depth=self.max_inflight)
+        else:
+            self._inflight.depth = max(1, int(self.max_inflight))
+        return self._inflight
+
+    def _stream(self, dev: torch.device):
+        s = self._streams.get(dev)
+        if s is None:
+            s = self._streams[dev] = torch.cuda.Stream(device=dev)
+        return s
+
+    def _execute_batch(self, batch: List[TensorTableEntry]):
+        """Pack, collective and unpack per dtype group of one batch;
+        returns ``(outputs, done_event)`` — the done event (None on the
+        CPU) fires once every output is written."""
+        e0 = batch[0]
+        if e0.ctype == CollectiveType.BARRIER:
+            # The negotiated verdict is the barrier: every rank announced.
+            return [None for _ in batch], None
+        if e0.ctype not in (CollectiveType.ALLREDUCE,
+                            CollectiveType.BROADCAST):
+            raise ValueError(f"Unsupported collective: {e0.ctype}")
+        ps = self._state.process_set_table.get(e0.process_set_id)
+        dev = e0.tensor.device
+        if dev.type != "cuda":
+            return self._run_groups(batch, ps), None
+        stream = self._stream(dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            for ready in {id(e.ready): e.ready for e in batch}.values():
+                if ready is not None:
+                    stream.wait_event(ready)
+            # The caching allocator must not hand these tensors' memory to
+            # their own streams' later work until this stream is done.
+            for e in batch:
+                e.tensor.record_stream(stream)
+                e.output.record_stream(stream)
+            outs = self._run_groups(batch, ps)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return outs, done
+
+    def _run_groups(self, batch: List[TensorTableEntry], ps) -> List:
+        """One buffer per dtype (first-occurrence order), each packed, run
+        through one collective and unpacked — the port of
+        ``_build_fused_reduce``/``_build_allreduce``/``_build_broadcast``:
+        prescale in the source dtype, then the wire cast; Average divides
+        in the buffer's dtype (floor division for integers); the cast
+        back, then the postscale."""
+        e0 = batch[0]
+        allreduce = e0.ctype == CollectiveType.ALLREDUCE
+        world = ps.size()
+        wire = WIRE_DTYPES.get(e0.compression) if allreduce else None
+        pre = e0.prescale_factor if allreduce else None
+        post = e0.postscale_factor if allreduce else None
+        divisor = (world if allreduce and e0.reduce_op == C.ReduceOp.AVERAGE
+                   else 1)
+        dtype_groups: Dict[torch.dtype, List[TensorTableEntry]] = {}
+        for e in batch:
+            dtype_groups.setdefault(e.tensor.dtype, []).append(e)
+        for dt, members in dtype_groups.items():
+            buf = fusion.pack([e.tensor for e in members],
+                              fusion.buffer_dtype(dt, wire), pre)
+            if world > 1:
+                self._collective(buf, e0, ps)
+            fusion.unpack(buf, [e.output for e in members], divisor, post)
+            self.fused_groups += 1
+        return [e.output for e in batch]
+
+    @staticmethod
+    def _collective(buf: torch.Tensor, e0: TensorTableEntry, ps) -> None:
+        """The one collective of a dtype group, on the set's process group
+        (on the card it runs on NCCL's stream, ordered after the pack and
+        before the unpack of this stream)."""
+        import torch.distributed as dist
+        if e0.ctype == CollectiveType.BROADCAST:
+            dist.broadcast(buf, src=ps.ranks[e0.root_rank], group=ps.group)
+        else:
+            dist.all_reduce(buf, op=_dist_op(e0.reduce_op), group=ps.group)

@@ -1,0 +1,202 @@
+"""The fusion buffer: pack a dtype group of tensors into one flat buffer
+before its collective, and unpack the reduced buffer into the outputs.
+
+No Pallas counterpart: the JAX package's fused collective is one jitted XLA
+program (``horovod_tpu/ops/engine.py`` ``_build_fused_reduce``,
+:1955-2026), which fuses this work around its reduction.  Here the
+reduction is one NCCL (or gloo) call, so the work on either side of it is
+two kernels, ``hvd_fusion_pack`` and ``hvd_fusion_unpack``
+(``ops/csrc/fusion.cu``), one launch each per fused batch and dtype group:
+
+- ``pack``: ``buf[off_i + j] = W(round_T(x_i[j] * round_T(pre)))`` — the
+  prescale in the tensors' dtype T, then the cast to the buffer's dtype W
+  (the wire dtype of a compressed float group, else T);
+- ``unpack``: ``out_i[j] = round_T(T(avg_W(buf[off_i + j])) *
+  round_T(post))`` — ``Average``'s division by the set's size in W (floor
+  division for integers), the cast back to T, then the postscale.
+
+Each wrapper takes CPU tensors through its plain PyTorch version
+(``torch.cat``, ``split``, the factor rounded by ``collectives._scale``),
+which the CPU tests hold against the JAX program; a CUDA tensor launches the
+kernel or raises.  ``pack.launches`` and ``unpack.launches`` count kernel
+launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence
+
+import torch
+
+from . import _build
+from .collectives import _scale, scale_factor
+
+# Dtype codes of fusion.cu.
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+          torch.int32: 3, torch.int64: 4}
+_WIRE = (torch.bfloat16, torch.float16)
+_AVG_DIVIDE, _AVG_FLOOR = 1, 2
+
+
+def buffer_dtype(dtype: torch.dtype,
+                 wire: Optional[torch.dtype]) -> torch.dtype:
+    """The buffer's dtype for a group of ``dtype``: the wire dtype for a
+    floating group under compression, else the group's own."""
+    if wire is not None and dtype.is_floating_point and dtype != wire:
+        return wire
+    return dtype
+
+
+def _offsets(tensors: Sequence[torch.Tensor]) -> List[int]:
+    offs = [0]
+    for t in tensors:
+        offs.append(offs[-1] + t.numel())
+    return offs
+
+
+def pack_plain(tensors: Sequence[torch.Tensor], buf_dtype: torch.dtype,
+               prescale: Optional[float]) -> torch.Tensor:
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    return _scale(flat, prescale).to(buf_dtype)
+
+
+def unpack_plain(buf: torch.Tensor, outs: Sequence[torch.Tensor],
+                 divisor: int, postscale: Optional[float]) -> None:
+    red = buf
+    if divisor > 1:
+        red = (red / divisor if red.dtype.is_floating_point
+               else torch.div(red, divisor, rounding_mode="floor"))
+    for out, seg in zip(outs, red.split([o.numel() for o in outs])):
+        out.copy_(_scale(seg.to(out.dtype), postscale).view(out.shape))
+
+
+def _check(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
+    if not tensors:
+        raise ValueError(f"{what} needs at least one tensor")
+    dt, dev = tensors[0].dtype, tensors[0].device
+    for t in tensors:
+        if t.dtype != dt or t.device != dev:
+            raise ValueError(f"{what} takes one dtype group on one device, "
+                             f"got {t.dtype} on {t.device} beside {dt} on "
+                             f"{dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} takes contiguous tensors (the engine "
+                             f"stages a strided view into a copy)")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {dev}")
+    return dev
+
+
+def _kernel_dtype(dtype: torch.dtype, what: str) -> int:
+    if dtype not in _CODES:
+        raise TypeError(f"{what} kernel takes float32, bfloat16, float16, "
+                        f"int32 or int64, got {dtype}")
+    return _CODES[dtype]
+
+
+def _table(ptrs: Sequence[int], offs: Sequence[int],
+           dev: torch.device) -> torch.Tensor:
+    """The kernel's device table: the pointers, then the offsets.  Copied
+    from pinned memory on the current stream, so the host never waits."""
+    host = torch.tensor(list(ptrs) + list(offs), dtype=torch.int64)
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+def _factor_arg(factor: Optional[float], dtype: torch.dtype):
+    if factor is None or factor == 1.0:
+        return 0, 0.0
+    return 1, float(scale_factor(factor, dtype))
+
+
+def pack(tensors: Sequence[torch.Tensor], buf_dtype: torch.dtype,
+         prescale: Optional[float] = None) -> torch.Tensor:
+    """One flat buffer of ``buf_dtype`` holding ``tensors`` (one dtype,
+    contiguous, one device) in order, each scaled by ``prescale``."""
+    dev = _check(tensors, "pack")
+    dt = tensors[0].dtype
+    if buf_dtype != dt and not (dt.is_floating_point and buf_dtype in _WIRE):
+        raise ValueError(f"pack casts a float group to bfloat16 or float16 "
+                         f"only, got {dt} -> {buf_dtype}")
+    if dev.type == "cpu":
+        return pack_plain(tensors, buf_dtype, prescale)
+    src_code = _kernel_dtype(dt, "pack")
+    buf_code = _kernel_dtype(buf_dtype, "pack")
+    offs = _offsets(tensors)
+    buf = torch.empty(offs[-1], dtype=buf_dtype, device=dev)
+    table = _table([t.data_ptr() for t in tensors], offs, dev)
+    scale, f = _factor_arg(prescale, dt)
+    err = _lib().hvd_fusion_pack(
+        table.data_ptr(), len(tensors), offs[-1], buf.data_ptr(), src_code,
+        buf_code, scale, f, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fusion pack kernel launch failed: CUDA error "
+                           f"{err}")
+    pack.launches += 1
+    return buf
+
+
+pack.launches = 0
+
+
+def unpack(buf: torch.Tensor, outs: Sequence[torch.Tensor], divisor: int = 1,
+           postscale: Optional[float] = None) -> None:
+    """Write the reduced ``buf`` into ``outs`` (one dtype, contiguous, on
+    ``buf``'s device, their sizes summing to ``buf``'s): divided by
+    ``divisor`` in ``buf``'s dtype when it is above 1 (floor division for
+    integers), cast to the outputs' dtype, scaled by ``postscale``.  An
+    output may be the packed tensor itself (the in-place forms)."""
+    dev = _check(outs, "unpack")
+    if buf.device != dev or buf.dim() != 1 or not buf.is_contiguous():
+        raise ValueError("unpack takes a flat contiguous buffer on the "
+                         "outputs' device")
+    offs = _offsets(outs)
+    if offs[-1] != buf.numel():
+        raise ValueError(f"the outputs hold {offs[-1]} elements, the buffer "
+                         f"{buf.numel()}")
+    dt = outs[0].dtype
+    if dt != buf.dtype and not (dt.is_floating_point and buf.dtype in _WIRE):
+        raise ValueError(f"unpack casts a bfloat16 or float16 buffer to a "
+                         f"float group only, got {buf.dtype} -> {dt}")
+    if divisor < 1:
+        raise ValueError(f"divisor must be >= 1, got {divisor}")
+    if dev.type == "cpu":
+        unpack_plain(buf, outs, divisor, postscale)
+        return
+    buf_code = _kernel_dtype(buf.dtype, "unpack")
+    out_code = _kernel_dtype(dt, "unpack")
+    avg = 0
+    if divisor > 1:
+        avg = _AVG_DIVIDE if buf.dtype.is_floating_point else _AVG_FLOOR
+    table = _table([o.data_ptr() for o in outs], offs, dev)
+    scale, f = _factor_arg(postscale, dt)
+    err = _lib().hvd_fusion_unpack(
+        table.data_ptr(), len(outs), offs[-1], buf.data_ptr(), buf_code,
+        out_code, avg, int(divisor), scale, f,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fusion unpack kernel launch failed: CUDA error "
+                           f"{err}")
+    unpack.launches += 1
+
+
+unpack.launches = 0
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "hvd_fusion_pack": [_VP, _CI, ctypes.c_longlong, _VP, _CI, _CI, _CI,
+                        ctypes.c_float, _VP],
+    "hvd_fusion_unpack": [_VP, _CI, ctypes.c_longlong, _VP, _CI, _CI, _CI,
+                          _CI, _CI, ctypes.c_float, _VP],
+}
+_LIB = []
+
+
+def _lib():
+    if not _LIB:
+        lib = _build.load("fusion")
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).restype = _CI
+            getattr(lib, fn).argtypes = argtypes
+        _LIB.append(lib)
+    return _LIB[0]

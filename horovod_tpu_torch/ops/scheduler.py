@@ -1,15 +1,135 @@
-# Copied from horovod_tpu/ops/scheduler.py:221-270 (FusedProgramCache only;
-# the rest of that module arrives with the engine).
-"""Data-plane scheduling primitives (no jax imports).
+# Copied from horovod_tpu/ops/scheduler.py:21-31 (imports), 46-47 (the two
+# dispatch lanes the port uses), 77-97 (pop_gradient_batches), 148-151
+# (parent_of), 154-219 (TensorQueue), 221-270 (FusedProgramCache), 272-368
+# (StallInspector) and 371-517 (InflightRing); issue-number tags are dropped
+# from the comments.
+"""Data-plane scheduling primitives (no torch imports).
 
-Only the program cache is here so far.  The serving replica keys its
-per-bucket forward into it, and its hit/miss counters show that batch-size
-churn builds one forward per bucket and no more.
+The pieces of the collective engine that are pure host-side scheduling —
+the pending-tensor queue, the program cache, the stall inspector and the
+in-flight dispatch window — live here so the scheduler logic is
+unit-testable without touching a device (``ops/engine.py`` composes them
+with the fused pack / collective / unpack data plane).  The serving
+replica keys its per-bucket forward into ``FusedProgramCache``.
+
+Reference mapping (SURVEY.md §2a): ``TensorQueue`` ← tensor_queue.cc N6,
+``FusedProgramCache`` ← fusion_buffer_cache.cc N7, ``StallInspector`` ←
+stall inspector N11, ``InflightRing`` ← the in-flight response window
+ByteScheduler-style schedulers bound (Peng et al., SOSP 2019) — a bounded
+ring between the dispatching cycle thread and a completion watcher.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import heapq
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..utils.logging import get_logger
+
+log = get_logger()
+
+# Dispatch-backlog lanes (the heap orders by ``(lane, -priority, seq)``).
+FUSED_LANE = 2
+CKPT_LANE = 3
+
+
+def pop_gradient_batches(heap: List[tuple], budget: int) -> List:
+    """Pop the cycle's dispatchable batches from the backlog heap, in
+    dispatch order: every fast-lane batch, every parameter-prefetch batch
+    (the gathers the NEXT forward pass blocks on), plus up to
+    ``budget`` fused batches.  EXACTLY the pre-checkpoint-lane budget
+    rule — a pure function of knob + heap state, never of checkpoint-lane
+    occupancy: checkpoint items are never popped here and never consume
+    the fused budget, so arming checkpointing cannot change gradient
+    dispatch order (the heap sorts ``CKPT_LANE`` after every dispatch
+    lane, so the guard only ever triggers once no gradient work remains).
+    PREFETCH batches are likewise budget-exempt: arming parameter
+    prefetch inserts gathers AHEAD of the fused drain but never changes
+    which fused batches pop this cycle or their relative order — the
+    invariant the prefetch-lane scheduler tests pin."""
+    out: List = []
+    while heap and heap[0][0] != CKPT_LANE \
+            and (heap[0][0] != FUSED_LANE or budget > 0):
+        if heap[0][0] == FUSED_LANE:
+            budget -= 1
+        out.append(heapq.heappop(heap)[3])
+    return out
+
+
+def parent_of(name: str) -> str:
+    """The parent tensor name behind a partition sub-name (identity for
+    ordinary names)."""
+    return name.rsplit("::part", 1)[0] if "::part" in name else name
+
+
+class TensorQueue:
+    """Thread-safe queue of pending entries (reference: tensor_queue.cc N6).
+
+    Duplicate-name detection mirrors the reference's error on submitting a
+    tensor name twice before completion.
+
+    **Priority drain**: entries carry an integer ``priority`` (default 0);
+    ``drain()`` returns higher priorities first, *stable within equal
+    priority* (arrival order).  The DistributedOptimizer bindings stamp
+    gradients with reverse-registration priority so the tensors the next
+    forward pass needs first lead each cycle (the ByteScheduler insight:
+    layer-0 grads arrive last from backprop but are needed first).
+    Priorities must be stamped identically on every rank — like names,
+    they are part of the deterministic announce order.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: List = []
+        self._pending_names: Dict[str, int] = {}
+
+    def push(self, e):
+        self.push_many([e])
+
+    def push_many(self, entries: Sequence):
+        """Atomic multi-entry push: a drain observes all or none — grouped
+        ops rely on this so members always negotiate in the same round
+        (reference: group_table N13 registers whole groups)."""
+        with self._lock:
+            seen = set()
+            for e in entries:
+                if e.name in self._pending_names or e.name in seen:
+                    raise ValueError(
+                        f"A tensor named {e.name!r} is already pending; "
+                        f"Horovod semantics require unique names per "
+                        f"in-flight collective")
+                seen.add(e.name)
+            now = time.monotonic()
+            for e in entries:
+                self._pending_names[e.name] = e.handle
+                e.enqueue_time = now
+                self._entries.append(e)
+
+    def drain(self) -> List:
+        with self._lock:
+            out, self._entries = self._entries, []
+        # Stable sort: equal priorities keep arrival order, so the default
+        # (all zero) is byte-identical to the historical FIFO drain.
+        out.sort(key=lambda e: -getattr(e, "priority", 0))
+        return out
+
+    def mark_done(self, e):
+        with self._lock:
+            self._pending_names.pop(e.name, None)
+
+    def requeue(self, entries: Sequence):
+        """Put drained-but-not-ready entries back for the next cycle
+        (reference: ComputeResponseList re-queues tensors not yet ready on
+        all ranks).  Names are still registered, so no duplicate check."""
+        with self._lock:
+            self._entries = list(entries) + self._entries
+
+    def pending_count(self) -> int:
+        with self._lock:
+            return len(self._entries)
 
 
 class FusedProgramCache:
@@ -62,3 +182,250 @@ class FusedProgramCache:
         self.hits += 1
         return fn, True
 
+
+class StallInspector:
+    """Warns when entries sit unexecuted too long (reference: N11).
+
+    In single-controller mode entries execute next cycle, so stalls indicate
+    an engine bug; in multi-process mode a stall names the ranks that have
+    not submitted a tensor the others are waiting on — the reference's #1
+    user-facing failure diagnosis (SURVEY.md §5 "race detection").
+    """
+
+    def __init__(self, warn_after_s: float, shutdown_after_s: float,
+                 disabled: bool = False):
+        self.warn_after_s = warn_after_s
+        self.shutdown_after_s = shutdown_after_s
+        self.disabled = disabled
+        self._warned: set = set()
+        # Names currently past the warn threshold — the live stall state
+        # the monitor subsystem exports (/health, per-rank snapshots).
+        # Unlike _warned (a log-once latch), this set empties the moment
+        # the stalled collective completes.
+        self.stalled: set = set()
+
+    def check(self, waiting: Sequence,
+              missing_ranks: Optional[Dict[str, List[int]]] = None):
+        if self.disabled:
+            return
+        now = time.monotonic()
+        # Partitioned sub-tensors (``e.partition = (parent, i, k)``) are
+        # one logical collective to the user: collect them per parent and
+        # report the PARENT once with partition progress, instead of k
+        # near-duplicate HVD302 warnings for ``grad::part0/8``,
+        # ``grad::part1/8``, ...
+        part_groups: Dict[str, list] = {}
+        for e in waiting:
+            part = getattr(e, "partition", None)
+            if part is not None:
+                part_groups.setdefault(part[0], []).append(e)
+                continue
+            self._check_one(e, e.name, now, missing_ranks)
+        for parent_name, group in part_groups.items():
+            e = max(group, key=lambda g: now - g.enqueue_time)
+            k = getattr(e, "partition")[2]
+            settled = self._parts_settled(e, k)
+            self._check_one(e, parent_name, now, missing_ranks,
+                            partition=f" ({settled}/{k} parts settled)")
+
+    @staticmethod
+    def _parts_settled(e, k: int) -> int:
+        """How many of a partitioned tensor's sub-entries already settled
+        (duck-typed off the parent's part list; falls back to 0)."""
+        parts = getattr(getattr(e, "parent", None), "parts", None)
+        if not parts:
+            return 0
+        try:
+            return sum(1 for s in parts if s.done.is_set())
+        except Exception:  # noqa: BLE001 - progress is best-effort
+            return 0
+
+    def _check_one(self, e, report_name: str, now: float, missing_ranks,
+                   partition: str = ""):
+        age = now - e.enqueue_time
+        if age > self.warn_after_s:
+            self.stalled.add(report_name)
+        if age > self.warn_after_s and report_name not in self._warned:
+            self._warned.add(report_name)
+            extra = ""
+            if missing_ranks:
+                missing = missing_ranks.get(e.name) \
+                    or missing_ranks.get(report_name)
+                if missing:
+                    extra = f"; ranks not yet submitted: {missing}"
+            # With tracing armed the entry carries a lifecycle span:
+            # name the phase it is stuck in, not just that it waits.
+            # Duck-typed: a dropped-claim sentinel has no phase_name.
+            pn = getattr(getattr(e, "span", None), "phase_name", None)
+            phase = f" (stuck in phase {pn()})" if pn else ""
+            log.warning(
+                "Stall detected: tensor %r has waited %.1fs for "
+                "negotiation/execution%s%s%s", report_name, age, partition,
+                phase, extra)
+        if (self.shutdown_after_s > 0 and age > self.shutdown_after_s):
+            raise RuntimeError(
+                f"Collective on tensor {report_name!r} stalled for "
+                f"{age:.1f}s (> HOROVOD_STALL_SHUTDOWN_TIME); aborting")
+
+    def progressed(self, name: str):
+        """A once-stalled tensor completed: clear its warned latch so a
+        *later* collective reusing the name (steady-state training reuses
+        gradient names every step) warns afresh instead of being silently
+        swallowed by the first step's latch.  Partition sub-names clear
+        the parent's latch too (the parent is what was warned about) —
+        the next check re-warns with updated part progress."""
+        self._warned.discard(name)
+        self.stalled.discard(name)
+        parent = parent_of(name)
+        if parent != name:
+            self._warned.discard(parent)
+            self.stalled.discard(parent)
+
+
+class InflightRing:
+    """Bounded window of dispatched-but-unsettled fused batches.
+
+    The cycle thread dispatches a fused program (an async XLA launch) and
+    hands ``(batch, results)`` here instead of blocking on device results;
+    the watcher thread waits for completion and settles the waiters
+    (``e.done``) off the cycle thread, so host-side negotiation of cycle
+    N+1 overlaps device execution of cycle N.  ``depth`` bounds how many
+    batches may be in flight (``HOROVOD_MAX_INFLIGHT``); a full ring makes
+    ``submit`` block — the back-pressure that keeps HBM from filling with
+    queued fused buffers.  ``depth`` is runtime-tunable (autotune
+    coordinate): shrinking simply delays the next submit until the window
+    drains below the new bound.
+
+    ``waiter(results)`` blocks until device results are real (the engine
+    passes ``jax.block_until_ready``); ``settler(batch, results, error)``
+    assigns results and releases waiters.  Both injectable, so the ring is
+    testable without jax.
+    """
+
+    def __init__(self, waiter: Callable, settler: Callable, depth: int = 2):
+        self.depth = max(1, int(depth))
+        self._waiter = waiter
+        self._settler = settler
+        self._cv = threading.Condition()
+        self._items: deque = deque()
+        self._stop = False
+        self._abort_error: Optional[BaseException] = None
+        self.high_water = 0
+        self.dispatched = 0
+        self._thread = threading.Thread(
+            target=self._watch, name="hvd-tpu-inflight", daemon=True)
+        self._thread.start()
+
+    def __len__(self) -> int:
+        with self._cv:
+            return len(self._items)
+
+    def submit(self, batch, results):
+        with self._cv:
+            while len(self._items) >= max(1, self.depth) and not self._stop:
+                self._cv.wait(0.1)
+            error = self._abort_error
+            if error is None:
+                # [batch, results, settled]: the flag is the settle claim —
+                # exactly one of watcher/abort flips it (under the lock)
+                # and runs the settler for this batch.
+                self._items.append([batch, results, False])
+                self.dispatched += 1
+                self.high_water = max(self.high_water, len(self._items))
+                self._cv.notify_all()
+                return
+        # Aborted while (or before) waiting for a window slot: the watcher
+        # may be wedged in a device wait that never returns — settle with
+        # the fault here rather than queueing into a dead window.
+        try:
+            self._settler(batch, results, error)
+        except BaseException:  # noqa: BLE001 - submit must not raise here
+            log.exception("in-flight abort settle failed")
+
+    def flush(self, timeout: Optional[float] = None) -> bool:
+        """Block until every submitted batch has settled."""
+        with self._cv:
+            return self._cv.wait_for(lambda: not self._items, timeout)
+
+    def stop(self):
+        """Settle everything already submitted, then stop the watcher —
+        waiters must never hang across an engine shutdown."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=10)
+
+    def abort(self, error: BaseException):
+        """Fail every queued batch with ``error`` WITHOUT waiting on device
+        results, then stop accepting work.
+
+        The control-plane fault path (a dead peer mid-negotiation): device
+        results for already-dispatched batches may never materialize — a
+        cross-process collective whose participant died can block forever —
+        and the watcher itself may be wedged inside ``waiter`` on the head
+        batch for exactly as long.  So the window is drained and settled
+        HERE, on the aborting thread, including the batch the watcher is
+        blocked on.  Each batch is settled by exactly one thread: the
+        per-item claim flag is flipped under the lock, so a batch the
+        watcher already settled SUCCESSFULLY is skipped — a completed
+        collective must not retroactively report the fault.  A ``submit``
+        racing the abort settles its batch with the fault instead of
+        queueing it."""
+        with self._cv:
+            self._abort_error = error
+            self._stop = True
+            doomed = [it for it in self._items if not it[2]]
+            for it in doomed:
+                it[2] = True
+            self._items.clear()
+            self._cv.notify_all()
+        for batch, results, _ in doomed:
+            try:
+                self._settler(batch, results, error)
+            except BaseException:  # noqa: BLE001 - settle the rest anyway
+                log.exception("in-flight abort settle failed")
+
+    def _watch(self):
+        while True:
+            with self._cv:
+                while not self._items and not self._stop:
+                    self._cv.wait(0.2)
+                if not self._items:
+                    return          # stopped and drained
+                head = self._items[0]
+                batch, results = head[0], head[1]
+                abort_error = self._abort_error
+            error = None
+            if abort_error is not None:
+                # Control-plane abort: settle with the fault, never block
+                # on device results that may not be coming.
+                error = abort_error
+            else:
+                try:
+                    self._waiter(results)
+                except BaseException as exc:  # noqa: BLE001 - fail waiters
+                    error = exc
+            # Claim the settle atomically: if abort() got here first (it
+            # can run while this thread is wedged in the device wait) the
+            # batch is already settled with the fault — do not re-settle.
+            with self._cv:
+                claimed = not head[2]
+                head[2] = True
+            try:
+                if claimed:
+                    self._settler(batch, results, error)
+            except BaseException:  # noqa: BLE001 - watcher must survive
+                # A raising settler would otherwise kill this thread and
+                # deadlock every later submit against a never-draining
+                # window.  The settler owns waiter release; all the ring
+                # can do is keep the pipeline alive and make the failure
+                # visible.
+                log.exception("in-flight settle failed")
+            finally:
+                # Pop AFTER settling so the window bounds dispatched-but-
+                # unsettled work (a popped-then-settling batch would let
+                # depth+1 launches pile up).
+                with self._cv:
+                    if self._items:
+                        self._items.popleft()
+                    self._cv.notify_all()

@@ -12,12 +12,12 @@ aggregation, compression, ``Sum`` / ``Average`` ops, pre/post-scale
 factors, process sets, and ``skip_synchronize()``.  In a world of one
 process no hook is registered and ``synchronize()`` returns at once.
 
-The allreduces go through ``mpi_ops``, whose data plane is a direct
-``torch.distributed`` stand-in until the collective engine is ported; it
-matches calls by their order, so gradients the hooks did not submit are
-submitted in the optimizer's parameter order.  ``Adasum`` raises in
-``mpi_ops`` until ``parallel/adasum.py`` is ported, and ``check=`` raises
-until the analyzer is.
+The allreduces go through ``mpi_ops`` and the collective engine: each
+gradient is submitted under its parameter's name (``allreduce.<name>``)
+with its reverse-registration priority, negotiated across ranks by name,
+and fused with the others of its cycle.  ``Adasum`` raises in ``mpi_ops``
+until ``parallel/adasum.py`` is ported, and ``check=`` raises until the
+analyzer is.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         # highest priority, so its gradient — produced LAST by backprop —
         # still leads the next coordinator cycle (ByteScheduler-style
         # scheduling).  Registration order matches across ranks, so the
-        # stamps agree.  The mpi_ops stand-in does not read them yet.
+        # stamps agree.
         self._priorities = {p: len(named_parameters) - i
                             for i, (_, p) in enumerate(named_parameters)}
         self._handles = {}
@@ -166,8 +166,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._synchronized = True
             return
         # Params whose hook never fired this step (e.g. unused branch):
-        # submit now so all ranks stay consistent, in parameter order (the
-        # stand-in data plane matches calls by order, and a set has none).
+        # submit now so all ranks stay consistent, in parameter order.
         for p in (p for group in self.param_groups for p in group["params"]
                   if p in self._requires_update):
             if p not in self._handles:

@@ -404,3 +404,129 @@ def test_torch_training_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- fusion pack and unpack
+# Bitwise against the plain versions in every case: a product of a value
+# and a factor of its own dtype is exact in float32 and rounded once, a
+# division is an IEEE float32 division rounded once to the buffer's dtype,
+# and every cast rounds to nearest even, in the kernels and in PyTorch.
+FUSION_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                (torch.float32, torch.float16), (torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.float16), (torch.float16, torch.float16),
+                (torch.float16, torch.bfloat16), (torch.int32, torch.int32),
+                (torch.int64, torch.int64)]
+
+
+def _fusion_inputs(dt, shapes, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if dt.is_floating_point:
+        return [(torch.randn(s, generator=g) * 4).to(dt).to(device)
+                for s in shapes]
+    return [torch.randint(-1000, 1000, s, generator=g, dtype=dt).to(device)
+            for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,buf", FUSION_PAIRS,
+                         ids=[f"{a}-{b}".replace("torch.", "")
+                              for a, b in FUSION_PAIRS])
+@pytest.mark.parametrize("pre,post,divisor", [(None, None, 1),
+                                              (0.5, 1 / 3, 3)])
+def test_torch_fusion_kernels_match_plain(cuda_device, src, buf, pre, post,
+                                          divisor):
+    from horovod_tpu_torch.ops import fusion
+    shapes = [(3, 5), (0,), (1000,), (7, 1, 9), (257,)]
+    xs = _fusion_inputs(src, shapes, cuda_device)
+    n0 = (fusion.pack.launches, fusion.unpack.launches)
+    b = fusion.pack(xs, buf, pre)
+    outs = [torch.empty_like(x) for x in xs]
+    fusion.unpack(b, outs, divisor, post)
+    torch.cuda.synchronize()
+    assert (fusion.pack.launches, fusion.unpack.launches) == (n0[0] + 1,
+                                                              n0[1] + 1)
+    ref_b = fusion.pack_plain([x.cpu() for x in xs], buf, pre)
+    assert torch.equal(b.cpu(), ref_b)
+    ref_outs = [torch.empty_like(x.cpu()) for x in xs]
+    fusion.unpack_plain(ref_b, ref_outs, divisor, post)
+    for o, r in zip(outs, ref_outs):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_torch_fusion_kernels_past_2gb(cuda_device):
+    """Two bf16 tensors of 1.2 GB each: offsets past 2^31 bytes, and an
+    element of the second tensor past 2^31 bytes into the buffer, land
+    where the plain version puts them."""
+    from horovod_tpu_torch.ops import fusion
+    n = 600_000_000
+    xs = [torch.full((n,), 3.0, dtype=torch.bfloat16, device=cuda_device),
+          torch.full((n,), -5.0, dtype=torch.bfloat16, device=cuda_device)]
+    xs[0][::99_999_989] = 7.0
+    xs[1][-1] = 11.0
+    b = fusion.pack(xs, torch.bfloat16, 0.5)
+    outs = [torch.empty_like(x) for x in xs]
+    fusion.unpack(b, outs, 2, 2.0)
+    torch.cuda.synchronize()
+    assert b.numel() * b.element_size() > 2 ** 31
+    for x, o in zip(xs, outs):
+        want = fusion.pack_plain([x], torch.bfloat16, 0.5) / 2 * 2
+        assert torch.equal(o, want)
+    assert b[n].item() == -2.5 and b[-1].item() == 5.5 and b[0].item() == 3.5
+
+
+@pytest.mark.cuda
+def test_torch_fusion_takes_unaligned_refuses_strided(cuda_device):
+    """A view one element past an aligned base goes to the kernel as it is;
+    a strided view is refused by the wrapper and copied by the engine."""
+    from horovod_tpu_torch.ops import fusion
+    base = _fusion_inputs(torch.bfloat16, [(1001,)], cuda_device)[0]
+    view = base[1:]
+    assert view.data_ptr() % 4 != 0
+    b = fusion.pack([view], torch.bfloat16, 0.5)
+    assert torch.equal(b.cpu(), fusion.pack_plain([view.cpu()],
+                                                  torch.bfloat16, 0.5))
+    strided = base[:1000].view(40, 25).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fusion.pack([strided], torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_torch_engine_round_trip_on_card(cuda_device, monkeypatch):
+    """Size 1 on the card: grouped allreduce (mixed dtypes, wire bf16,
+    factors), in-place on strided and unaligned views, and
+    broadcast_parameters, each equal to the CPU engine's result; one pack
+    and one unpack launch per dtype group."""
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import fusion
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    xs = (_fusion_inputs(torch.float32, [(4, 6), (33,)], "cpu", 1)
+          + _fusion_inputs(torch.bfloat16, [(17,)], "cpu", 2)
+          + _fusion_inputs(torch.int32, [(5,)], "cpu", 3))
+    results = {}
+    for dev in ("cpu", cuda_device):
+        monkeypatch.setattr(basics, "_state", basics.GlobalState())
+        hvd.init(device=dev)
+        eng = basics._get_state().engine
+        n0 = (fusion.pack.launches, fusion.unpack.launches, eng.fused_groups)
+        outs = hvd.grouped_allreduce([x.to(dev) for x in xs], op=hvd.Sum,
+                                     prescale_factor=0.5,
+                                     postscale_factor=1 / 3)
+        base = xs[0].to(dev).clone().t()
+        hvd.allreduce_(base, op=hvd.Sum, postscale_factor=2.0)
+        unaligned = xs[1].to(dev).clone()[1:]
+        hvd.allreduce_(unaligned, op=hvd.Sum, prescale_factor=0.5)
+        params = {"w": xs[0].to(dev).clone(), "l": [xs[3].to(dev).clone()]}
+        assert hvd.broadcast_parameters(params) is params
+        results[str(dev)] = [t.cpu() for t in outs + [base, unaligned,
+                                                      params["w"]]]
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            groups = eng.fused_groups - n0[2]
+            assert groups == 3 + 1 + 1 + 2
+            assert (fusion.pack.launches - n0[0],
+                    fusion.unpack.launches - n0[1]) == (groups, groups)
+        hvd.shutdown()
+    for a, b in zip(results["cpu"], results[str(cuda_device)]):
+        assert torch.equal(a, b)

@@ -85,6 +85,85 @@ def test_torch_port_source_has_no_jax_import():
     assert not bad, bad
 
 
+# torch.distributed calls that are collectives (world set-up and tear-down
+# are not: init_process_group, destroy_process_group, new_group).
+_COLLECTIVES = {
+    "all_reduce", "all_reduce_coalesced", "broadcast", "broadcast_object_list",
+    "all_gather", "all_gather_into_tensor", "all_gather_object",
+    "all_gather_coalesced", "reduce", "reduce_scatter",
+    "reduce_scatter_tensor", "all_to_all", "all_to_all_single", "barrier",
+    "monitored_barrier", "send", "recv", "isend", "irecv",
+    "batch_isend_irecv", "gather", "gather_object", "scatter",
+    "scatter_object_list"}
+# The one module allowed to issue them: the engine's cycle thread.
+_COLLECTIVE_CALLERS = {os.path.join("ops", "engine.py")}
+
+
+def _collective_calls(path):
+    """``(line, name)`` of every torch.distributed collective a file calls,
+    through ``torch.distributed.<name>``, an alias of the module, or a name
+    imported from it."""
+    tree = ast.parse(open(path).read(), path)
+    aliases, direct = set(), set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name == "torch.distributed":
+                    aliases.add(a.asname or "torch.distributed")
+        elif isinstance(node, ast.ImportFrom):
+            if node.module == "torch" and node.level == 0:
+                aliases.update(a.asname or a.name for a in node.names
+                               if a.name == "distributed")
+            if node.module == "torch.distributed" and node.level == 0:
+                direct.update(a.asname or a.name for a in node.names
+                              if a.name in _COLLECTIVES)
+    out = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Name) and f.id in direct:
+            out.append((node.lineno, f.id))
+        elif isinstance(f, ast.Attribute) and f.attr in _COLLECTIVES:
+            owner = ast.unparse(f.value)
+            if owner in aliases or owner == "torch.distributed":
+                out.append((node.lineno, f.attr))
+    return out
+
+
+def test_torch_only_the_engine_calls_collectives():
+    """After the engine slice the cycle thread is the port's only caller of
+    torch.distributed collectives (a main-thread broadcast interleaved with
+    engine-thread allreduces can be issued in different orders on
+    different ranks); basics only forms and destroys the world."""
+    callers = {}
+    for root, _, names in os.walk(PKG):
+        for n in names:
+            if n.endswith(".py"):
+                path = os.path.join(root, n)
+                calls = _collective_calls(path)
+                if calls:
+                    callers[os.path.relpath(path, PKG)] = calls
+    smoke = _collective_calls(os.path.join(REPO, "chip_smoke.py"))
+    assert not smoke, smoke
+    assert set(callers) == _COLLECTIVE_CALLERS, callers
+    assert {n for _, n in callers[os.path.join("ops", "engine.py")]} == {
+        "all_reduce", "broadcast"}
+
+
+def test_torch_collective_scan_sees_every_spelling(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import torch\nimport torch.distributed as dist\n"
+        "from torch import distributed as d2\n"
+        "from torch.distributed import all_gather as ag\n"
+        "dist.all_reduce(x)\nd2.barrier()\nag(y, x)\n"
+        "torch.distributed.broadcast(x, 0)\ndist.init_process_group('gloo')\n"
+        "other.broadcast(x)\n")
+    assert sorted(n for _, n in _collective_calls(str(src))) == [
+        "ag", "all_reduce", "barrier", "broadcast"]
+
+
 def test_torch_init_without_card_raises(monkeypatch):
     """With no card and no explicit CPU request, init() raises instead of
     carrying on on the CPU."""
