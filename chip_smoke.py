@@ -36,20 +36,31 @@ Phases (any failure exits non-zero and prints no result line):
    and fall, and each kernel must launch once per layer and step.  Last,
    the time per step, tokens/s, peak memory, and a profiled step.
 6. The collective engine.  E1: the fusion pack and unpack kernels against
-   their plain versions, bitwise, on the training configuration's 39 bf16
-   gradients, a float32 + bf16 batch with a bf16 wire and int32 under
-   Average; CUDA-event times on the gradient set with GB/s, the bound and
-   the library yardstick.  E2: size 1 through the engine, a grouped
-   allreduce of the gradient set and ``broadcast_parameters``, bitwise
-   against the plain path, with batches and launches = batches x dtype
-   groups.  E3: two ranks, each a process of this script started with the
-   launcher's env (``--e3-worker``), over NCCL — each rank on its own card
-   where there are two, else both on one card over NCCL's socket
-   transport: ``init`` -> ``broadcast_parameters`` from rank 0 ->
-   ``DistributedOptimizer(SGD)`` -> 5 steps at the training configuration
-   on different batches per rank, with the parameters bitwise equal across
-   ranks after every step, the negotiation counters, and pack and unpack
-   launches = batches per step (the counts zeroed before the steps).
+   their plain versions, bitwise: (A) the training configuration's 39 bf16
+   gradients, (B) float32 with a bf16 wire and bf16 under factors, (C)
+   int32 under Average, (D) an alignment sweep (odd numels, bases 1-7
+   elements past an aligned one, an empty tensor between), (E) the byte
+   path for bool, uint8, int8, int16, float64, complex64 and complex128
+   and the float64, int8 and uint8 arithmetic, and 16-byte aligned bytes
+   with a ragged end (the bulk copies); CUDA-event times on the gradient
+   set (the card's time, with a sleep before the start event so that no
+   wait for the host falls inside; the call's time, with any wait for the
+   host inside; the host's time a call) with GB/s, the bound and the
+   library yardstick, the bulk copies against the walk on the same bytes,
+   and ``fusion.cu`` must build without spills.  E2: size 1 through the
+   engine, a grouped allreduce of the gradient set and
+   ``broadcast_parameters`` of the parameters and of a module with a
+   buffer of each of those seven dtypes, bitwise against the plain path,
+   with batches and launches = batches x dtype groups.  E3: two ranks,
+   each a process of this script started with the launcher's env
+   (``--e3-worker``), over NCCL — each rank on its own card where there
+   are two, else both on one card over NCCL's socket transport: ``init``
+   -> ``broadcast_parameters`` from rank 0 (the parameters, then the
+   seven-dtype module) -> ``DistributedOptimizer(SGD)`` -> 5 steps at the
+   training configuration on different batches per rank, with the
+   parameters bitwise equal across ranks after every step, the
+   negotiation counters, and pack and unpack launches = batches per step
+   (the counts zeroed before the steps).
 7. The kernels line (JSON), the card line, and the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -59,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -100,15 +112,20 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, flush, iters=10, warmup=3):
+def time_ms(torch, fn, flush, iters=10, warmup=3, lead=False):
     """Mean CUDA-event time of ``fn`` over ``iters`` launches, with the L2
-    cache flushed before each (the serving path meets its inputs cold)."""
+    cache flushed before each (the serving path meets its inputs cold).
+    ``lead``: the card sleeps about a millisecond before the start event,
+    so the host has enqueued all of ``fn``'s work by then and the time is
+    the card's alone, with no wait for the host inside it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if lead:
+            torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -674,52 +691,175 @@ def _nbytes(ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def fusion_phase(torch, fusion, grads, dev, seed, flush):
-    """E1: the pack and unpack kernels against their plain versions, on
-    (A) the 39 bf16 gradients of the training configuration as the
-    two-rank Average moves them (no factors, divisor 2), (B) a mixed
-    float32 + bf16 batch with a bf16 wire, prescale 0.5, postscale 1/3 and
-    divisor 2, (C) int32 with negative odd sums under Average.  Every case
-    must be bitwise equal to the plain version: the kernels round where it
-    rounds (fusion.cu).  Times for (A): CUDA events, L2 flushed."""
-    gen = torch.Generator(device=dev).manual_seed(seed + 21)
-    bf16, f32 = torch.bfloat16, torch.float32
+def _err(a, b):
+    """The largest absolute difference of two tensors of one dtype."""
+    if a.numel() == 0:
+        return 0.0
+    if a.dtype.is_complex:
+        return (a - b).abs().max().item()
+    return (a.double() - b.double()).abs().max().item()
+
+
+def _views(fill, numels):
+    """Tensors of ``numels`` elements from ``fill(n)``, each a view whose
+    base lies 1-7 elements past an aligned one."""
+    return [fill(1 + k % 7 + n)[1 + k % 7:] for k, n in enumerate(numels)]
+
+
+def _fusion_cases(torch, grads, dev, gen):
+    """E1's cases: (name, tensors, buffer dtype, outputs or None, pre,
+    post, divisor)."""
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+
+    def randn(dt):
+        return lambda n: torch.randn(n, generator=gen, device=dev).to(dt)
+
+    def randint(dt, lo, hi):
+        return lambda n: torch.randint(lo, hi, (n,), generator=gen,
+                                       device=dev, dtype=dt)
+
     mixed = ([torch.randn(s, generator=gen, device=dev)
               for s in ((4096, 4096), (1024, 4096), (4096,))]
              + [torch.randn(s, generator=gen, device=dev).to(bf16)
                 for s in ((4096, 14336), (4096,))])
     ints = [torch.randint(-1001, 1002, s, generator=gen, device=dev,
-                          dtype=torch.int32) for s in ((3000, 7), (1,))]
-    cases = [("A: training gradient set, bf16, Average over 2",
-              [(grads, bf16)], None, None, 2),
-             ("B: float32 + bf16, bf16 wire, pre 0.5, post 1/3, Average "
-              "over 2", [(mixed[:3], bf16), (mixed[3:], bf16)], 0.5, 1 / 3, 2),
-             ("C: int32, negative odd sums, Average over 2",
-              [(ints, torch.int32)], None, None, 2)]
+                          dtype=i32) for s in ((3000, 7), (1,))]
+    cases = [("A: training gradient set, bf16, Average over 2", grads, bf16,
+              None, None, None, 2),
+             ("B: float32, bf16 wire, pre 0.5, post 1/3, Average over 2",
+              mixed[:3], bf16, None, 0.5, 1 / 3, 2),
+             ("B: bf16, pre 0.5, post 1/3, Average over 2", mixed[3:], bf16,
+              None, 0.5, 1 / 3, 2),
+             ("C: int32, negative odd sums, Average over 2", ints, i32, None,
+              None, None, 2)]
+    # D: the alignment sweep.  Every base (inputs and outputs) 1-7
+    # elements past an aligned one, an empty tensor in the middle.
+    numels = (1, 7, 8, 9, 0, 4095, 4097)
+    for label, fill, wire in (("bf16", randn(bf16), bf16),
+                              ("float32 -> bf16 wire", randn(f32), bf16),
+                              ("int32", randint(i32, -1001, 1002), i32)):
+        for how, pre, post, div in (("bytes", None, None, 1),
+                                    ("pre 0.5, post 1/3, Average over 2",
+                                     0.5, 1 / 3, 2)):
+            ts = _views(fill, numels)
+            outs = _views(fill, numels)
+            cases.append((f"D: {label}, shifted bases, {how}", ts, wire,
+                          outs, pre, post, div))
+    # E: the byte path for every dtype the arithmetic path does not take,
+    # and the float64, int8 and uint8 arithmetic.
+    shapes = ((333, 7), (0,), (1,), (4097,))
+    byte_fills = {
+        torch.bool: lambda n: torch.randint(0, 2, (n,), generator=gen,
+                                            device=dev).bool(),
+        torch.uint8: randint(torch.uint8, 0, 256),
+        torch.int8: randint(torch.int8, -128, 128),
+        torch.int16: randint(torch.int16, -32768, 32768),
+        torch.float64: lambda n: torch.randn(n, generator=gen, device=dev,
+                                             dtype=torch.float64),
+        torch.complex64: lambda n: torch.randn(
+            n, generator=gen, device=dev, dtype=torch.complex64),
+        torch.complex128: lambda n: torch.randn(
+            n, generator=gen, device=dev, dtype=torch.complex128)}
+    for dt, fill in byte_fills.items():
+        ts = [fill(math.prod(s)).view(s) for s in shapes[:-1]]
+        ts += _views(fill, [shapes[-1][0]])
+        cases.append((f"E: {str(dt)[6:]}, bytes", ts, dt, None, None, None,
+                      1))
+    # The bulk copies: 16-byte aligned tensors, the last one ragged, 48 MB
+    # (several chunks a block, so every stage of the ring is reused).
+    ts = [byte_fills[torch.uint8](n) for n in (16 * 4096, 0, 16 * 1000,
+                                               48 * 10**6 + 7)]
+    cases.append(("E: uint8, bytes, 16-byte aligned, the last tensor "
+                  "ragged (bulk copies)", ts, torch.uint8, None, None, None,
+                  1))
+    for dt, pre, post in ((torch.float64, 0.5, 1 / 3), (torch.int8, 0.5, None),
+                          (torch.uint8, None, None)):
+        ts = [byte_fills[dt](math.prod(s)).view(s) for s in shapes]
+        cases.append((f"E: {str(dt)[6:]}, Average over 2"
+                      + (f", pre {pre}" if pre else "")
+                      + (", post 1/3" if post else ""), ts, dt, None, pre,
+                      post, 2))
+    return cases
+
+
+def _host_us(torch, fn, iters=20):
+    """The host's time to issue one call of ``fn``, while the card sleeps
+    (so no call waits for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda._sleep(2_000_000)
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / iters * 1e6
+
+
+def _copy_kernel(torch, fusion, tensors, raw, to_buffer, aligned):
+    """A function that launches ``hvd_fusion_copy`` alone between
+    ``tensors`` and the bytes ``raw``, its table built now: by the bulk
+    copies (``aligned`` 1; every tensor 16-byte aligned) or by the walk
+    (0).  A comparison only: the wrappers build a table each call, take
+    the bulk copies whenever they can, and count their launches."""
+    offs = fusion._offsets([t.numel() * t.element_size() for t in tensors])
+    table = fusion._table([t.data_ptr() for t in tensors], offs, raw.device)
+    stream = torch.cuda.current_stream(raw.device).cuda_stream
+    lib = fusion._lib()
+
+    def launch():
+        err = lib.hvd_fusion_copy(table.data_ptr(), len(tensors), offs[-1],
+                                  raw.data_ptr(), int(to_buffer), aligned,
+                                  stream)
+        if err:
+            raise RuntimeError(f"hvd_fusion_copy failed: CUDA error {err}")
+    return launch
+
+
+def fusion_phase(torch, fusion, grads, dev, seed, flush):
+    """E1: the pack and unpack kernels against their plain versions, on
+    (A) the 39 bf16 gradients of the training configuration as the
+    two-rank Average moves them (no factors, divisor 2: the byte path in,
+    the arithmetic path out), (B) float32 with a bf16 wire and bf16, with
+    prescale 0.5, postscale 1/3 and divisor 2, (C) int32 with negative odd
+    sums under Average, (D) an alignment sweep (numels 1, 7, 8, 9, 0, 4095,
+    4097 at bases 1-7 elements past an aligned one, inputs and outputs, in
+    bf16, float32 -> bf16 wire and int32, by bytes and with arithmetic),
+    (E) the byte path for bool, uint8, int8, int16, float64, complex64 and
+    complex128, and the float64, int8 and uint8 arithmetic under Average
+    over 2.  Every case must be bitwise equal to the plain version: the
+    kernels round where it rounds (fusion.cu).  Times for (A): CUDA events,
+    L2 flushed."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    bf16 = torch.bfloat16
     ok, err_pack, err_unpack = True, 0.0, 0.0
-    for name, groups, pre, post, divisor in cases:
-        for ts, wire in groups:
-            buf = fusion.pack(ts, wire, pre)
-            outs = [torch.empty_like(t) for t in ts]
-            fusion.unpack(buf, outs, divisor, post)
-            torch.cuda.synchronize()
-            ref_buf = fusion.pack_plain(ts, wire, pre)
-            ref_outs = [torch.empty_like(t) for t in ts]
-            fusion.unpack_plain(ref_buf, ref_outs, divisor, post)
-            e_p = (buf.double() - ref_buf.double()).abs().max().item()
-            e_u = max((o.double() - r.double()).abs().max().item()
-                      for o, r in zip(outs, ref_outs) if o.numel())
-            same = torch.equal(buf, ref_buf) and all(
-                torch.equal(o, r) for o, r in zip(outs, ref_outs))
-            ok = ok and same
-            err_pack, err_unpack = max(err_pack, e_p), max(err_unpack, e_u)
-            print(f"fusion[{name}] {len(ts)} x {ts[0].dtype} -> "
-                  f"{wire}: pack max_abs_err={e_p:.3e}, unpack "
-                  f"max_abs_err={e_u:.3e}, bitwise equal to the plain "
-                  f"version: {same} -> {'PASS' if same else 'FAIL'}",
-                  flush=True)
-            del buf, outs, ref_buf, ref_outs
-    # Times at the training gradient set (case A).
+    for name, ts, wire, outs, pre, post, divisor in _fusion_cases(
+            torch, grads, dev, gen):
+        buf = fusion.pack(ts, wire, pre)
+        outs = outs if outs is not None else [torch.empty_like(t)
+                                              for t in ts]
+        fusion.unpack(buf, outs, divisor, post)
+        torch.cuda.synchronize()
+        ref_buf = fusion.pack_plain(ts, wire, pre)
+        ref_outs = [torch.empty_like(t) for t in ts]
+        fusion.unpack_plain(ref_buf, ref_outs, divisor, post)
+        e_p = _err(buf, ref_buf)
+        e_u = max(_err(o, r) for o, r in zip(outs, ref_outs))
+        same = torch.equal(buf, ref_buf) and all(
+            torch.equal(o, r) for o, r in zip(outs, ref_outs))
+        ok = ok and same
+        err_pack, err_unpack = max(err_pack, e_p), max(err_unpack, e_u)
+        print(f"fusion[{name}] {len(ts)} x {ts[0].dtype} -> {wire}: pack "
+              f"max_abs_err={e_p:.3e}, unpack max_abs_err={e_u:.3e}, "
+              f"bitwise equal to the plain version: {same} -> "
+              f"{'PASS' if same else 'FAIL'}", flush=True)
+        del buf, outs, ref_buf, ref_outs
+    # Times at the training gradient set (case A): the card's time (a lead
+    # before the start event, so no wait for the host is inside it) of the
+    # kernel, its plain version and the library call; the call's time (the
+    # host's work for the call inside the events when the card waits for
+    # it); and the host's time a call.
     buf = fusion.pack(grads, bf16)
     outs = [torch.empty_like(g) for g in grads]
     sizes = [g.numel() for g in grads]
@@ -734,9 +874,12 @@ def fusion_phase(torch, fusion, grads, dev, seed, flush):
              lambda: (torch._foreach_copy_(outs, [
                  s.view(o.shape) for s, o in zip(buf.split(sizes), outs)]),
                  torch._foreach_mul_(outs, 0.5)))):
-        ms = time_ms(torch, fn, flush)
-        plain_ms = time_ms(torch, plain, flush, iters=5, warmup=1)
-        library_ms = time_ms(torch, lib, flush, iters=5, warmup=1)
+        ms = time_ms(torch, fn, flush, lead=True)
+        call_ms = time_ms(torch, fn, flush)
+        plain_ms = time_ms(torch, plain, flush, iters=5, warmup=1, lead=True)
+        library_ms = time_ms(torch, lib, flush, iters=5, warmup=1, lead=True)
+        host = {w: _host_us(torch, f) for w, f in (("kernel", fn),
+                                                    ("library", lib))}
         bound_ms, bound_by = _bound(nbytes, 0, "bfloat16")
         lib_name = ("torch.cat" if kern == "pack" else
                     "split + _foreach_copy_ + _foreach_mul_")
@@ -744,13 +887,48 @@ def fusion_phase(torch, fusion, grads, dev, seed, flush):
               f"tensors, {nbytes / 1e9:.3f} GB moved: kernel {ms:.4f} ms "
               f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
               f"library ({lib_name}) {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by}", flush=True)
-        res[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         gbps=nbytes / ms / 1e6,
+              f"{bound_ms:.4f} ms by {bound_by}; the call with the host's "
+              f"work inside the events {call_ms:.4f} ms; host time a call: "
+              f"kernel {host['kernel']:.1f} us, library "
+              f"{host['library']:.1f} us", flush=True)
+        res[kern] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, gbps=nbytes / ms / 1e6,
+                         host_us=host["kernel"],
                          max_abs_err=err_pack if kern == "pack"
                          else err_unpack)
-    del buf, outs
+    print(f"fusion: pack no slower than torch.cat on the card: "
+          f"{res['pack']['ms'] <= res['pack']['library_ms']}", flush=True)
+    # The other paths at the same size, the card's time: unpack by bytes (a
+    # broadcast group: the bulk copies), pack with every tensor at another
+    # 16-byte phase than its place in the buffer (one bf16 element first:
+    # the walk, realigning), the byte copies' kernel alone on a table built
+    # before, by the bulk copies and by the walk, and a one-tensor copy_.
+    one = torch.zeros(1, dtype=bf16, device=dev)
+    shifted = [one] + grads
+    raw = buf.view(torch.uint8)
+    dst = torch.empty_like(raw)
+    for what, fn in (("unpack by bytes (divisor 1), bulk copies",
+                      lambda: fusion.unpack(buf, outs)),
+                     ("pack, sources at another 16-byte phase, walk",
+                      lambda: fusion.pack(shifted, bf16)),
+                     ("pack by bytes, bulk copies, kernel alone",
+                      _copy_kernel(torch, fusion, grads, raw, True, 1)),
+                     ("pack by bytes, walk, kernel alone",
+                      _copy_kernel(torch, fusion, grads, raw, True, 0)),
+                     ("unpack by bytes, bulk copies, kernel alone",
+                      _copy_kernel(torch, fusion, outs, raw, False, 1)),
+                     ("unpack by bytes, walk, kernel alone",
+                      _copy_kernel(torch, fusion, outs, raw, False, 0)),
+                     ("one-tensor copy_ of the same bytes (the card's own "
+                      "device-to-device copy)", lambda: dst.copy_(raw))):
+        ms = time_ms(torch, fn, flush, lead=True)
+        nbytes = in_b + buf_b
+        print(f"fusion[{what}] training gradient set: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s), bound "
+              f"{_bound(nbytes, 0, 'bfloat16')[0]:.4f} ms", flush=True)
+        res[what] = ms
+    del buf, outs, dst
     return ok, res
 
 
@@ -765,30 +943,77 @@ def _expected_batches(nbytes, threshold):
     return batches + (1 if cur else 0)
 
 
+# The dtypes that only the byte path carries, or whose arithmetic is new.
+BYTE_DTYPES = ("bool", "uint8", "int8", "int16", "float64", "complex64",
+               "complex128")
+
+
+def _dtype_module(torch, dev, seed):
+    """A module with a float32 parameter and a registered buffer of each of
+    ``BYTE_DTYPES``, from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mod = torch.nn.Module()
+    mod.weight = torch.nn.Parameter(torch.randn(32, 64, generator=gen,
+                                                device=dev))
+    for k, name in enumerate(BYTE_DTYPES):
+        dt = getattr(torch, name)
+        shape = (97 + k, 3)
+        if dt.is_floating_point or dt.is_complex:
+            t = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+        elif dt == torch.bool:
+            t = torch.randint(0, 2, shape, generator=gen, device=dev).bool()
+        else:
+            info = torch.iinfo(dt)
+            t = torch.randint(info.min, info.max + 1, shape, generator=gen,
+                              device=dev, dtype=dt)
+        mod.register_buffer(f"buf_{name}", t)
+    return mod
+
+
+def _byte_sums(torch, tensors):
+    """A position-weighted sum of each tensor's bytes."""
+    sums = []
+    for t in tensors:
+        v = t.detach().reshape(-1).view(torch.uint8).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device) % 251 + 1
+        sums.append(int((v * w).sum()))
+    return sums
+
+
 def engine_size1_phase(torch, hvd, tl, fusion, grads, layers, seed):
     """E2: the engine at size 1 on the card (local negotiation, fusion,
     pack, unpack; the collective is the identity): a grouped allreduce of
-    the gradient set (one atomic group: one batch) and broadcast_parameters
+    the gradient set (one atomic group: one batch), broadcast_parameters
     of the training configuration's parameters (cut at the fusion
-    threshold), each bitwise equal to its input, which is what the plain
-    path gives at size 1; batches and launches = batches x dtype groups."""
+    threshold) and of a module with a buffer of each of ``BYTE_DTYPES``
+    (bool and uint8 among them: one batch, a dtype group each, by bytes),
+    each bitwise equal to its input, which
+    is what the plain path gives at size 1; launches = batches x dtype
+    groups."""
     hvd.init()
+    dev = hvd.device()
     eng = hvd.common.basics._get_state().engine
     cfg = tl.llama3_8b(n_layers=layers)
-    params = tl.init_params(cfg, torch.Generator(
-        device=hvd.device()).manual_seed(seed + 3))
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 3))
     named = list(tl.named_parameters(params))
     before = [t.detach().clone() for _, t in named]
+    mod = _dtype_module(torch, dev, seed + 4)
+    mod_before = [t.clone() for t in mod.state_dict().values()]
+    n_batches = _expected_batches([t.numel() * t.element_size()
+                                   for _, t in named], eng.fusion_threshold)
     ok = True
     for what, run, expect, inputs, outputs in (
             ("grouped_allreduce of the gradient set",
-             lambda: hvd.grouped_allreduce(grads), 1, grads, None),
+             lambda: hvd.grouped_allreduce(grads), (1, 1), grads, None),
             ("broadcast_parameters of the parameters",
-             lambda: hvd.broadcast_parameters(params),
-             _expected_batches([t.numel() * t.element_size()
-                                for _, t in named],
-                               eng.fusion_threshold), before,
-             [t for _, t in named])):
+             lambda: hvd.broadcast_parameters(params), (n_batches, n_batches),
+             before, [t for _, t in named]),
+            ("broadcast_parameters of a module with a buffer of each of "
+             + ", ".join(BYTE_DTYPES),
+             lambda: hvd.broadcast_parameters(mod),
+             (1, 1 + len(BYTE_DTYPES)), mod_before,
+             list(mod.state_dict().values()))):
         d0, g0 = eng.pipeline_dispatches, eng.fused_groups
         fusion.pack.launches = fusion.unpack.launches = 0
         out = run()
@@ -796,17 +1021,19 @@ def engine_size1_phase(torch, hvd, tl, fusion, grads, layers, seed):
         launches = (fusion.pack.launches, fusion.unpack.launches)
         batches, groups = eng.pipeline_dispatches - d0, eng.fused_groups - g0
         outs = out if outputs is None else outputs
-        same = all(torch.equal(a, b) for a, b in zip(outs, inputs))
-        good = (same and batches == expect and groups == batches
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(outs, inputs))
+        good = (same and (batches, groups) == expect
                 and launches == (groups, groups))
         ok = ok and good
-        print(f"engine[size 1: {what}]: {len(inputs)} tensors, bitwise "
-              f"equal to the plain path: {same}, batches {batches} "
-              f"(expected {expect}), dtype groups {groups}, pack/unpack "
-              f"launches {launches} (= batches x dtype groups) -> "
-              f"{'PASS' if good else 'FAIL'}", flush=True)
+        print(f"engine[size 1: {what}]: {len(inputs)} tensors "
+              f"({sorted({str(t.dtype)[6:] for t in inputs})}), bitwise "
+              f"equal to the plain path: {same}, batches {batches}, dtype "
+              f"groups {groups} (expected {expect}), pack/unpack launches "
+              f"{launches} (= dtype groups) -> {'PASS' if good else 'FAIL'}",
+              flush=True)
         del out, outs
-    del params, named, before
+    del params, named, before, mod, mod_before
     torch.cuda.empty_cache()
     return ok
 
@@ -850,6 +1077,13 @@ def e3_worker(args):
     torch.cuda.synchronize()
     bcast_s = time.perf_counter() - t0
     sums_bcast = _checksum(torch, named)
+    # Every dtype the byte path carries, over NCCL: rank 1's buffers start
+    # from another seed and must end as rank 0's bytes.
+    mod = _dtype_module(torch, dev, args.seed + 4 + r)
+    mod_before = _byte_sums(torch, mod.state_dict().values())
+    hvd.broadcast_parameters(mod, root_rank=0)
+    mod_bcast = _byte_sums(torch, mod.state_dict().values())
+    del mod
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD([t for _, t in named], lr=TRAIN_LR),
         named_parameters=named)
@@ -884,7 +1118,8 @@ def e3_worker(args):
             slots=len(ctl._slots), sums=_checksum(torch, named)))
     res = dict(rank=r, device=str(dev), card=torch.cuda.get_device_name(dev),
                leaves=len(named), bcast_s=bcast_s, sums_before=sums_before,
-               sums_bcast=sums_bcast, steps=steps,
+               sums_bcast=sums_bcast, mod_before=mod_before,
+               mod_bcast=mod_bcast, steps=steps,
                pack=fusion.pack.launches, unpack=fusion.unpack.launches,
                flash=[fa.flash_attention_fwd.launches,
                       fa.flash_attention_bwd.launches_dq,
@@ -966,6 +1201,13 @@ def two_rank_phase(torch, layers, seed, timeout_s=600):
           flush=True)
     ok = a["sums_before"] != b["sums_before"] and \
         a["sums_bcast"] == b["sums_bcast"]
+    mod_ok = (all(x != y for x, y in zip(a["mod_before"], b["mod_before"]))
+              and a["mod_bcast"] == b["mod_bcast"] == a["mod_before"])
+    ok = ok and mod_ok
+    print(f"e3: broadcast_parameters of a module with a buffer of each of "
+          f"{', '.join(BYTE_DTYPES)} (and a float32 weight): rank 1 holds "
+          f"rank 0's bytes after it: {mod_ok} -> "
+          f"{'PASS' if mod_ok else 'FAIL'}", flush=True)
     want_flash = [layers * TRAIN_STEPS] * 3
     for i, (sa, sb) in enumerate(zip(a["steps"], b["steps"])):
         same = sa["sums"] == sb["sums"]
@@ -1050,6 +1292,7 @@ def main():
     coord.join()
     print(f"build: {sorted(libs)} and the coordinator in "
           f"{time.time() - t0:.1f} s", flush=True)
+    spilled = set()
     for name in libs:
         entry = ""
         for line in _build.build_logs.get(name, "").splitlines():
@@ -1061,6 +1304,11 @@ def main():
                 entry = f"{m.group(1)}<{m.group(2)}>" if m else line
             elif "registers" in line or "spill" in line:
                 print(f"build[{name}]: {entry}: {line.strip()}", flush=True)
+                if re.search(r"[1-9]\d* bytes spill", line):
+                    spilled.add(name)
+    # The fusion kernels are memory bound: a spill would be a second pass.
+    no_spills = "fusion" in _build.build_logs and "fusion" not in spilled
+    print(f"build: fusion.cu without spills: {no_spills}", flush=True)
     tc_ok = tensor_core_check(_build, libs)
 
     dev = torch.device("cuda:0")
@@ -1089,7 +1337,7 @@ def main():
     del grads
     torch.cuda.empty_cache()
     two_ok, two = two_rank_phase(torch, args.train_layers, args.seed)
-    engine_ok = fusion_ok and size1_ok and two_ok
+    engine_ok = fusion_ok and size1_ok and two_ok and no_spills
 
     fwd, fwd_train = cases[0], cases[-1]   # serving and training shapes
     bwd = bwd_cases[-1]                    # training shape
@@ -1131,10 +1379,17 @@ def main():
             ("dkv", 221, "flash_bwd_dkv_wgmma_kernel: wgmma, k/v resident, "
                          "64-row q/do tiles through a TMA ring"))]
     for kern, design in (
-            ("pack", "hvd_fusion_pack: grid-stride loop, binary search over "
-                     "64-bit offsets; prescale, wire cast"),
-            ("unpack", "hvd_fusion_unpack: grid-stride loop, binary search "
-                       "over 64-bit offsets; average, cast back, postscale")):
+            ("pack", "hvd_fusion_copy (no factor, no cast; 16-byte aligned "
+                     "tensors): a block of one warp a 32 KB chunk, "
+                     "cp.async.bulk global -> shared -> global on an "
+                     "mbarrier; else a block a 128 KB chunk walking its "
+                     "tensors, 16-byte vectors, up to 8 in flight a thread, "
+                     "funnel-shift realignment, prescale and wire cast "
+                     "(hvd_fusion_pack)"),
+            ("unpack", "hvd_fusion_unpack (average, cast back, postscale): "
+                       "a block a 128 KB chunk walking its tensors, "
+                       "16-byte vectors, up to 8 in flight a thread; the "
+                       "byte path (hvd_fusion_copy) as pack's")):
         r = fusion_res[kern]
         kernels.append(dict(
             name=f"fusion_{kern}", route="cuda", source=src + "fusion.cu",
@@ -1143,7 +1398,8 @@ def main():
             design=design, launches=two[kern] if two else 0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], gbps=r["gbps"]))
+            library_ms=r["library_ms"], gbps=r["gbps"],
+            call_ms=r["call_ms"], host_us=r["host_us"]))
     for kern in kernels:
         kern["pass"] = kernels_ok and engine_ok and kern["launches"] > 0
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,8 +31,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# Compiler output of the last build of each kernel (``-Xptxas -v`` lists
-# registers, shared memory and spills per kernel).
+# Compiler output of each kernel's build (``-Xptxas -v`` lists registers,
+# shared memory and spills per kernel), kept beside the library.
 build_logs: Dict[str, str] = {}
 
 
@@ -69,18 +69,26 @@ def _lib_path(name: str) -> str:
     return os.path.join(_OUT_DIR, f"lib{name}.{h.hexdigest()[:16]}.so")
 
 
+def _reuse(name: str, out: str) -> str:
+    """A library built earlier: its compiler output comes from beside it."""
+    if name not in build_logs and os.path.exists(out + ".log"):
+        with open(out + ".log") as fh:
+            build_logs[name] = fh.read()
+    return out
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless a library of this exact source
     exists; returns the library's path."""
     os.makedirs(_OUT_DIR, exist_ok=True)
     out = _lib_path(name)
     if os.path.exists(out):
-        return out
+        return _reuse(name, out)
     import fcntl
     with open(os.path.join(_OUT_DIR, f"{name}.lock"), "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if os.path.exists(out):
-            return out
+            return _reuse(name, out)
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3",
                "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -92,6 +100,8 @@ def build(name: str) -> str:
                 raise RuntimeError(
                     f"nvcc failed for {name}.cu (rc {res.returncode}):\n"
                     f"{res.stderr[-4000:]}")
+            with open(out + ".log", "w") as fh:
+                fh.write(build_logs[name])
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):

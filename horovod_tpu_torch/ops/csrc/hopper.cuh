@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks shared by the flash kernels: mbarriers,
+// Hopper (sm_90a) building blocks shared by the kernels: mbarriers,
 // TMA tile loads, the tensor maps that describe a [B, T, heads, D] bf16
 // operand to TMA, wgmma shared-memory descriptors and the wgmma products
 // the kernels issue.  Device code only runs on the card; the host helper

@@ -245,23 +245,22 @@ def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None,
                      process_set: Optional[ProcessSet] = None):
     """Pickle-broadcast an arbitrary Python object (reference:
     ``horovod/torch/functions.py broadcast_object``): its length, then its
-    bytes padded to whole int32 words, so that both ride the fusion
-    kernels' dtypes."""
+    bytes (a broadcast goes by bytes, whatever the dtype)."""
     dev = basics.device()
     payload = pickle.dumps(obj)
     n = torch.tensor([len(payload)], dtype=torch.int64, device=dev)
     size = int(broadcast(n, root_rank=root_rank,
                          name=_auto_name("bcast_obj_size", name),
                          process_set=process_set).item())
-    words = bytearray((size + 3) // 4 * 4)
+    data = bytearray(size)
     k = min(len(payload), size)
-    words[:k] = payload[:k]
-    buf = torch.frombuffer(words, dtype=torch.int32).to(dev) if words else \
-        torch.zeros(0, dtype=torch.int32, device=dev)
+    data[:k] = payload[:k]
+    buf = torch.frombuffer(data, dtype=torch.uint8).to(dev) if data else \
+        torch.zeros(0, dtype=torch.uint8, device=dev)
     out = broadcast(buf, root_rank=root_rank,
                     name=_auto_name("bcast_obj", name),
                     process_set=process_set)
-    return pickle.loads(out.cpu().numpy().tobytes()[:size])
+    return pickle.loads(out.cpu().numpy().tobytes())
 
 
 # ------------------------------------------------------------------- control

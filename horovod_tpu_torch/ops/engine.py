@@ -3,7 +3,8 @@
 # sharded, hierarchical, donation and span fields), _fusion_key 151-169,
 # start/quiesce/stop/_abort_engine/_settle_queued 416-598,
 # enqueue/enqueue_group 610-697, synchronize/poll 802-850, the cycle
-# 911-1133, _compute_response_list 1136-1335, _perform_operation/
+# 911-1133, _compute_response_list 1136-1335 (the in-flight abort on a
+# leave notice 1252-1268), _perform_operation/
 # _settle_batch/_inflight_ring 1338-1463, _execute_batch 1792-1889 and the
 # fused-reduce and broadcast builders 1896-1953, 2028-2094.
 """The collective engine: Horovod's background coordinator, on torch tensors.
@@ -22,7 +23,10 @@ kernel (prescale, wire cast), reduced or broadcast by one
 ``torch.distributed`` call on the set's process group (NCCL on the card,
 gloo on the CPU; none in a set of one, where the collective is the
 identity), and unpacked into the outputs by ``hvd_fusion_unpack`` (average,
-cast back, postscale) — see ``ops/fusion.py``.
+cast back, postscale) — see ``ops/fusion.py``.  A broadcast group goes by
+bytes, whatever its dtype.  On the card an allreduce takes the dtypes that
+NCCL reduces as the JAX engine does (``fusion.check_arithmetic``) and
+refuses any other at submission.
 
 Tensors are per-rank: an entry holds this rank's own ``[*S]`` tensor, where
 the JAX engine holds the stacked ``[world, *S]``.  The fusion threshold
@@ -354,6 +358,15 @@ class CollectiveEngine:
             # Peers departed via clean LEAVE (protocol v6): world-level
             # work cannot run until the world re-forms.
             raise self._world_changed
+        if self._state.device.type == "cuda":
+            # Refused here, never from the cycle thread: NCCL has no int16
+            # or complex reduction, and it sums bool as a logical or where
+            # the JAX engine counts.
+            for kw in items:
+                if kw["ctype"] == CollectiveType.ALLREDUCE:
+                    fusion.check_arithmetic(
+                        kw["tensor"].dtype,
+                        f"allreduce of {kw['name']!r} on the card")
         entries = []
         for kw in items:
             handle = next(self._handle_counter)
@@ -612,6 +625,19 @@ class CollectiveEngine:
                 for e in poisoned:
                     self.stall.progressed(e.name)
                 entries, not_ready = keep_r, keep_nr
+                # Zero-RTT race closure (protocol v7): a SPECULATIVE
+                # dispatch may have preceded this notice by one round — a
+                # world collective launched from a predicted verdict in
+                # the very round the leaver departed was never dispatched
+                # by the leaver and can never complete.  With speculation
+                # armed, settle the in-flight window with the same
+                # re-rendezvous interrupt instead of letting its waiters
+                # wedge on a dead collective.
+                ctl = self.controller
+                if (self._inflight is not None and len(self._inflight)
+                        and getattr(ctl, "spec_ready_after", 0) > 0
+                        and getattr(ctl, "spec_dispatch_ok", False)):
+                    self._inflight.abort(exc_left)
         self.stall.check(entries + not_ready)
 
         # Batching must be a pure function of the NEGOTIATED entry order —
@@ -785,9 +811,12 @@ class CollectiveEngine:
     def _collective(buf: torch.Tensor, e0: TensorTableEntry, ps) -> None:
         """The one collective of a dtype group, on the set's process group
         (on the card it runs on NCCL's stream, ordered after the pack and
-        before the unpack of this stream)."""
+        before the unpack of this stream).  A broadcast moves the buffer as
+        bytes: NCCL and gloo both take uint8, and a byte copy is bitwise
+        root's tensor for every dtype."""
         import torch.distributed as dist
         if e0.ctype == CollectiveType.BROADCAST:
-            dist.broadcast(buf, src=ps.ranks[e0.root_rank], group=ps.group)
+            dist.broadcast(buf.view(torch.uint8), src=ps.ranks[e0.root_rank],
+                           group=ps.group)
         else:
             dist.all_reduce(buf, op=_dist_op(e0.reduce_op), group=ps.group)

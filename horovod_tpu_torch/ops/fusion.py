@@ -15,11 +15,20 @@ two kernels, ``hvd_fusion_pack`` and ``hvd_fusion_unpack``
   round_T(post))`` — ``Average``'s division by the set's size in W (floor
   division for integers), the cast back to T, then the postscale.
 
+A group with no arithmetic (no factor, no wire cast, no division: every
+broadcast group, and the gradients of an allreduce without factors on the
+way in) goes by bytes: ``hvd_fusion_copy`` copies any dtype, bool and
+complex included, with no dtype code — by Hopper's bulk asynchronous copies
+when every tensor and its place in the buffer start on a 16-byte boundary,
+else by the same 16-byte walk as the arithmetic path.  The arithmetic path
+takes float32, float64, bfloat16, float16, int8, uint8, int32 and int64.
+
 Each wrapper takes CPU tensors through its plain PyTorch version
-(``torch.cat``, ``split``, the factor rounded by ``collectives._scale``),
-which the CPU tests hold against the JAX program; a CUDA tensor launches the
-kernel or raises.  ``pack.launches`` and ``unpack.launches`` count kernel
-launches only.
+(``torch.cat``, ``split``, the factor rounded by ``collectives._scale``; a
+``torch.cat`` of byte views for the byte path), which the CPU tests hold
+against the JAX program; a CUDA tensor launches the kernel or raises.
+``pack.launches`` and ``unpack.launches`` count kernel launches only, of
+either path.
 """
 
 from __future__ import annotations
@@ -32,9 +41,10 @@ import torch
 from . import _build
 from .collectives import _scale, scale_factor
 
-# Dtype codes of fusion.cu.
+# Dtype codes of fusion.cu's arithmetic path.
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-          torch.int32: 3, torch.int64: 4}
+          torch.int32: 3, torch.int64: 4, torch.float64: 5, torch.int8: 6,
+          torch.uint8: 7}
 _WIRE = (torch.bfloat16, torch.float16)
 _AVG_DIVIDE, _AVG_FLOOR = 1, 2
 
@@ -48,10 +58,10 @@ def buffer_dtype(dtype: torch.dtype,
     return dtype
 
 
-def _offsets(tensors: Sequence[torch.Tensor]) -> List[int]:
+def _offsets(sizes: Sequence[int]) -> List[int]:
     offs = [0]
-    for t in tensors:
-        offs.append(offs[-1] + t.numel())
+    for n in sizes:
+        offs.append(offs[-1] + n)
     return offs
 
 
@@ -88,10 +98,16 @@ def _check(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
     return dev
 
 
-def _kernel_dtype(dtype: torch.dtype, what: str) -> int:
+def check_arithmetic(dtype: torch.dtype, what: str) -> None:
+    """Raise ``TypeError`` unless the kernels' arithmetic path takes
+    ``dtype`` (the byte path takes every dtype)."""
     if dtype not in _CODES:
-        raise TypeError(f"{what} kernel takes float32, bfloat16, float16, "
-                        f"int32 or int64, got {dtype}")
+        names = ", ".join(str(d).replace("torch.", "") for d in _CODES)
+        raise TypeError(f"{what} takes {names}, got {dtype}")
+
+
+def _code(dtype: torch.dtype, what: str) -> int:
+    check_arithmetic(dtype, f"the {what} kernel's arithmetic path")
     return _CODES[dtype]
 
 
@@ -109,6 +125,68 @@ def _factor_arg(factor: Optional[float], dtype: torch.dtype):
     return 1, float(scale_factor(factor, dtype))
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"fusion {what} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def _byte_sizes(tensors: Sequence[torch.Tensor]) -> List[int]:
+    return [t.numel() * t.element_size() for t in tensors]
+
+
+def _aligned(buf_ptr: int, ptrs: Sequence[int], offs: Sequence[int],
+             sizes: Sequence[int]) -> int:
+    """1 when the buffer, every non-empty tensor and its place in the
+    buffer (byte offsets) start on a 16-byte boundary: the byte path's bulk
+    copies."""
+    return int(buf_ptr % 16 == 0
+               and all(p % 16 == 0 for p, n in zip(ptrs, sizes) if n)
+               and all(o % 16 == 0 for o in offs[:-1]))
+
+
+def _copy(tensors: Sequence[torch.Tensor], buf: torch.Tensor,
+          to_buffer: int, dev: torch.device) -> None:
+    """``hvd_fusion_copy`` between ``tensors`` and ``buf``'s bytes."""
+    sizes = _byte_sizes(tensors)
+    offs = _offsets(sizes)
+    ptrs = [t.data_ptr() for t in tensors]
+    table = _table(ptrs, offs, dev)
+    _launched(_lib().hvd_fusion_copy(
+        table.data_ptr(), len(tensors), offs[-1], buf.data_ptr(), to_buffer,
+        _aligned(buf.data_ptr(), ptrs, offs, sizes), _stream(dev)),
+        "pack" if to_buffer else "unpack")
+
+
+def _pack_bytes(tensors: Sequence[torch.Tensor],
+                dev: torch.device) -> torch.Tensor:
+    """The byte path of ``pack``: the tensors' bytes in order, as one
+    buffer of their dtype."""
+    dt = tensors[0].dtype
+    if dev.type == "cpu":
+        return torch.cat([t.reshape(-1).view(torch.uint8)
+                          for t in tensors]).view(dt)
+    buf = torch.empty(sum(_byte_sizes(tensors)), dtype=torch.uint8,
+                      device=dev)
+    _copy(tensors, buf, 1, dev)
+    return buf.view(dt)
+
+
+def _unpack_bytes(buf: torch.Tensor, outs: Sequence[torch.Tensor],
+                  dev: torch.device) -> None:
+    """The byte path of ``unpack``: the buffer's bytes into the outputs."""
+    if dev.type == "cpu":
+        for out, seg in zip(outs, buf.view(torch.uint8).split(
+                _byte_sizes(outs))):
+            out.reshape(-1).view(torch.uint8).copy_(seg)
+        return
+    _copy(outs, buf, 0, dev)
+
+
 def pack(tensors: Sequence[torch.Tensor], buf_dtype: torch.dtype,
          prescale: Optional[float] = None) -> torch.Tensor:
     """One flat buffer of ``buf_dtype`` holding ``tensors`` (one dtype,
@@ -118,21 +196,21 @@ def pack(tensors: Sequence[torch.Tensor], buf_dtype: torch.dtype,
     if buf_dtype != dt and not (dt.is_floating_point and buf_dtype in _WIRE):
         raise ValueError(f"pack casts a float group to bfloat16 or float16 "
                          f"only, got {dt} -> {buf_dtype}")
-    if dev.type == "cpu":
-        return pack_plain(tensors, buf_dtype, prescale)
-    src_code = _kernel_dtype(dt, "pack")
-    buf_code = _kernel_dtype(buf_dtype, "pack")
-    offs = _offsets(tensors)
-    buf = torch.empty(offs[-1], dtype=buf_dtype, device=dev)
-    table = _table([t.data_ptr() for t in tensors], offs, dev)
     scale, f = _factor_arg(prescale, dt)
-    err = _lib().hvd_fusion_pack(
-        table.data_ptr(), len(tensors), offs[-1], buf.data_ptr(), src_code,
-        buf_code, scale, f, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fusion pack kernel launch failed: CUDA error "
-                           f"{err}")
-    pack.launches += 1
+    if buf_dtype == dt and not scale:
+        buf = _pack_bytes(tensors, dev)
+    elif dev.type == "cpu":
+        return pack_plain(tensors, buf_dtype, prescale)
+    else:
+        offs = _offsets([t.numel() for t in tensors])
+        buf = torch.empty(offs[-1], dtype=buf_dtype, device=dev)
+        table = _table([t.data_ptr() for t in tensors], offs, dev)
+        _launched(_lib().hvd_fusion_pack(
+            table.data_ptr(), len(tensors), offs[-1], buf.data_ptr(),
+            _code(dt, "pack"), _code(buf_dtype, "pack"), scale, f,
+            _stream(dev)), "pack")
+    if dev.type == "cuda":
+        pack.launches += 1
     return buf
 
 
@@ -150,7 +228,7 @@ def unpack(buf: torch.Tensor, outs: Sequence[torch.Tensor], divisor: int = 1,
     if buf.device != dev or buf.dim() != 1 or not buf.is_contiguous():
         raise ValueError("unpack takes a flat contiguous buffer on the "
                          "outputs' device")
-    offs = _offsets(outs)
+    offs = _offsets([o.numel() for o in outs])
     if offs[-1] != buf.numel():
         raise ValueError(f"the outputs hold {offs[-1]} elements, the buffer "
                          f"{buf.numel()}")
@@ -160,34 +238,34 @@ def unpack(buf: torch.Tensor, outs: Sequence[torch.Tensor], divisor: int = 1,
                          f"float group only, got {buf.dtype} -> {dt}")
     if divisor < 1:
         raise ValueError(f"divisor must be >= 1, got {divisor}")
-    if dev.type == "cpu":
+    scale, f = _factor_arg(postscale, dt)
+    if buf.dtype == dt and divisor == 1 and not scale:
+        _unpack_bytes(buf, outs, dev)
+    elif dev.type == "cpu":
         unpack_plain(buf, outs, divisor, postscale)
         return
-    buf_code = _kernel_dtype(buf.dtype, "unpack")
-    out_code = _kernel_dtype(dt, "unpack")
-    avg = 0
-    if divisor > 1:
-        avg = _AVG_DIVIDE if buf.dtype.is_floating_point else _AVG_FLOOR
-    table = _table([o.data_ptr() for o in outs], offs, dev)
-    scale, f = _factor_arg(postscale, dt)
-    err = _lib().hvd_fusion_unpack(
-        table.data_ptr(), len(outs), offs[-1], buf.data_ptr(), buf_code,
-        out_code, avg, int(divisor), scale, f,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fusion unpack kernel launch failed: CUDA error "
-                           f"{err}")
-    unpack.launches += 1
+    else:
+        avg = 0
+        if divisor > 1:
+            avg = _AVG_DIVIDE if buf.dtype.is_floating_point else _AVG_FLOOR
+        table = _table([o.data_ptr() for o in outs], offs, dev)
+        _launched(_lib().hvd_fusion_unpack(
+            table.data_ptr(), len(outs), offs[-1], buf.data_ptr(),
+            _code(buf.dtype, "unpack"), _code(dt, "unpack"), avg,
+            int(divisor), scale, f, _stream(dev)), "unpack")
+    if dev.type == "cuda":
+        unpack.launches += 1
 
 
 unpack.launches = 0
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "hvd_fusion_pack": [_VP, _CI, ctypes.c_longlong, _VP, _CI, _CI, _CI,
-                        ctypes.c_float, _VP],
-    "hvd_fusion_unpack": [_VP, _CI, ctypes.c_longlong, _VP, _CI, _CI, _CI,
-                          _CI, _CI, ctypes.c_float, _VP],
+    "hvd_fusion_pack": [_VP, _CI, _LL, _VP, _CI, _CI, _CI, ctypes.c_double,
+                        _VP],
+    "hvd_fusion_unpack": [_VP, _CI, _LL, _VP, _CI, _CI, _CI, _CI, _CI,
+                          ctypes.c_double, _VP],
+    "hvd_fusion_copy": [_VP, _CI, _LL, _VP, _CI, _CI, _VP],
 }
 _LIB = []
 

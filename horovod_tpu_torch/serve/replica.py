@@ -26,6 +26,7 @@ and returns a tensor (or array) whose first dim is the batch.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -128,17 +129,31 @@ class Replica:
         return self._run(x, batch.bucket, x.shape[0])
 
     # ---------------------------------------------------------- serve loop
-    def _peer_fault_verdict(self, exc):
-        """Resolve one forward failure: a typed control-plane error IS the
-        verdict.  The port has no collective engine yet, so there is no
-        fault latch to poll (the JAX replica's ``fault_grace_s`` wait) and
-        any other failure is an application error in one forward."""
+    def _peer_fault_verdict(self, exc, grace_s: float):
+        """Resolve one forward failure against the control plane.
+
+        A dying peer races two planes: the typed HVD303 abort (control)
+        and the in-flight device collective failing underneath (data).
+        Typed errors ARE the verdict; for anything else, wait up to
+        ``grace_s`` for the engine's fault latch to converge — confirmed
+        means "the world died", unconfirmed means "this forward is buggy"
+        (an application error the quarantine budget handles)."""
         if isinstance(exc, (HorovodInternalError, HostsUpdatedInterrupt)):
             return exc
-        return None
+        if not basics.is_initialized():
+            return None
+        eng = basics._get_state().engine
+        deadline = time.monotonic() + max(0.0, grace_s)
+        while True:
+            fault = getattr(eng, "fault", None)
+            if fault is not None:
+                return fault
+            if time.monotonic() >= deadline:
+                return None
+            time.sleep(0.05)
 
     def serve_loop(self, batcher, stop: Optional[threading.Event] = None,
-                   poll_s: float = 0.05) -> int:
+                   poll_s: float = 0.05, fault_grace_s: float = 0.0) -> int:
         """Consume ``batcher`` until ``stop`` is set AND the queue drained
         (or the batcher is draining and empty).  Returns batches served.
 
@@ -146,7 +161,10 @@ class Replica:
         (``batcher.fail`` — retryable until quarantined), not raised.  A
         PEER FAULT mid-batch fails the interrupted batch retryably, leaves
         queued requests untouched with their original deadlines, and
-        re-raises the typed error for the caller to re-rendezvous."""
+        re-raises the typed error for the caller to re-rendezvous.
+        ``fault_grace_s`` bounds how long an untyped forward failure may
+        wait for the control plane's verdict before being treated as an
+        application bug (0 = one immediate check)."""
         served = 0
         while True:
             if stop is not None and stop.is_set() and batcher.pending() == 0:
@@ -159,7 +177,7 @@ class Replica:
             try:
                 results = self.forward_batch(batch)
             except Exception as exc:  # noqa: BLE001 - resolved below
-                verdict = self._peer_fault_verdict(exc)
+                verdict = self._peer_fault_verdict(exc, fault_grace_s)
                 if verdict is not None:
                     log.warning(
                         "serve: peer fault mid-batch (%s) — %d request(s) "

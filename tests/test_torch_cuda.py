@@ -408,49 +408,105 @@ def test_torch_training_on_card_matches_cpu(cuda_device):
 
 # ------------------------------------------------- fusion pack and unpack
 # Bitwise against the plain versions in every case: a product of a value
-# and a factor of its own dtype is exact in float32 and rounded once, a
-# division is an IEEE float32 division rounded once to the buffer's dtype,
-# and every cast rounds to nearest even, in the kernels and in PyTorch.
+# and a factor of its own dtype is exact in float32 (double for float64)
+# and rounded once, a division is an IEEE division in the buffer's
+# precision rounded once to it, and every cast rounds to nearest even, in
+# the kernels and in PyTorch.  The byte path copies.
+_F64, _I8, _U8 = torch.float64, torch.int8, torch.uint8
 FUSION_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                 (torch.float32, torch.float16), (torch.bfloat16, torch.bfloat16),
                 (torch.bfloat16, torch.float16), (torch.float16, torch.float16),
                 (torch.float16, torch.bfloat16), (torch.int32, torch.int32),
-                (torch.int64, torch.int64)]
+                (torch.int64, torch.int64), (_F64, _F64), (_F64, torch.bfloat16),
+                (_F64, torch.float16), (_I8, _I8), (_U8, _U8)]
+# Dtypes only the byte path carries: no factors, no division.
+BYTE_ONLY = [torch.bool, torch.int16, torch.complex64, torch.complex128]
+FUSION_CASES = ([(a, b, pre, post, div) for a, b in FUSION_PAIRS
+                 for pre, post, div in ((None, None, 1), (0.5, 1 / 3, 3))]
+                + [(d, d, None, None, 1) for d in BYTE_ONLY])
+_INT_RANGE = {_I8: (-128, 128), _U8: (0, 256), torch.int16: (-32768, 32768)}
 
 
 def _fusion_inputs(dt, shapes, device, seed=0):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    if dt.is_floating_point:
-        return [(torch.randn(s, generator=g) * 4).to(dt).to(device)
+    if dt.is_floating_point or dt.is_complex:
+        base = dt if dt in (_F64, torch.complex64, torch.complex128) \
+            else torch.float32
+        return [(torch.randn(s, generator=g, dtype=base) * 4).to(dt)
+                .to(device) for s in shapes]
+    if dt == torch.bool:
+        return [torch.randint(0, 2, s, generator=g).bool().to(device)
                 for s in shapes]
-    return [torch.randint(-1000, 1000, s, generator=g, dtype=dt).to(device)
+    lo, hi = _INT_RANGE.get(dt, (-1000, 1000))
+    return [torch.randint(lo, hi, s, generator=g, dtype=dt).to(device)
             for s in shapes]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("src,buf", FUSION_PAIRS,
-                         ids=[f"{a}-{b}".replace("torch.", "")
-                              for a, b in FUSION_PAIRS])
-@pytest.mark.parametrize("pre,post,divisor", [(None, None, 1),
-                                              (0.5, 1 / 3, 3)])
-def test_torch_fusion_kernels_match_plain(cuda_device, src, buf, pre, post,
-                                          divisor):
+def _pack_unpack_match_plain(xs, buf, pre, post, divisor, outs=None):
+    """One pack and one unpack launch, each bitwise the plain version."""
     from horovod_tpu_torch.ops import fusion
-    shapes = [(3, 5), (0,), (1000,), (7, 1, 9), (257,)]
-    xs = _fusion_inputs(src, shapes, cuda_device)
     n0 = (fusion.pack.launches, fusion.unpack.launches)
     b = fusion.pack(xs, buf, pre)
-    outs = [torch.empty_like(x) for x in xs]
+    outs = [torch.empty_like(x) for x in xs] if outs is None else outs
     fusion.unpack(b, outs, divisor, post)
     torch.cuda.synchronize()
     assert (fusion.pack.launches, fusion.unpack.launches) == (n0[0] + 1,
                                                               n0[1] + 1)
     ref_b = fusion.pack_plain([x.cpu() for x in xs], buf, pre)
-    assert torch.equal(b.cpu(), ref_b)
+    assert b.dtype == ref_b.dtype and torch.equal(b.cpu(), ref_b)
     ref_outs = [torch.empty_like(x.cpu()) for x in xs]
     fusion.unpack_plain(ref_b, ref_outs, divisor, post)
     for o, r in zip(outs, ref_outs):
         assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,buf,pre,post,divisor", FUSION_CASES,
+                         ids=[f"{a}-{b}-{d}".replace("torch.", "")
+                              for a, b, _, _, d in FUSION_CASES])
+def test_torch_fusion_kernels_match_plain(cuda_device, src, buf, pre, post,
+                                          divisor):
+    shapes = [(3, 5), (0,), (1000,), (7, 1, 9), (257,)]
+    _pack_unpack_match_plain(_fusion_inputs(src, shapes, cuda_device), buf,
+                             pre, post, divisor)
+
+
+def _shifted(dt, numels, device, seed):
+    """Views whose bases lie 1-7 elements past an aligned one."""
+    return [x[1 + k % 7:] for k, x in enumerate(_fusion_inputs(
+        dt, [(1 + k % 7 + n,) for k, n in enumerate(numels)], device, seed))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,buf", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.int32, torch.int32)])
+@pytest.mark.parametrize("pre,post,divisor", [(None, None, 1),
+                                              (0.5, 1 / 3, 2)])
+def test_torch_fusion_kernels_alignment_sweep(cuda_device, src, buf, pre,
+                                              post, divisor):
+    """Numels 1, 7, 8, 9, 4095 and 4097 with an empty tensor between, every
+    input and output base 1-7 elements past an aligned one: the kernels'
+    scalar heads and tails and their realigned 16-byte body."""
+    numels = (1, 7, 8, 9, 0, 4095, 4097)
+    _pack_unpack_match_plain(_shifted(src, numels, cuda_device, 1), buf, pre,
+                             post, divisor,
+                             outs=_shifted(src, numels, cuda_device, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,numels", [
+    (torch.uint8, (16 * 4096, 0, 16 * 1000, 48 * 10**6 + 7)),
+    (torch.bfloat16, (8 * 3, 8 * 10**6, 13)),
+    (torch.complex64, (2 * 5, 2**22 + 1))],
+    ids=["uint8", "bfloat16", "complex64"])
+def test_torch_fusion_bulk_copies_match_plain(cuda_device, dt, numels):
+    """Tensors on the allocator's 16-byte boundaries, each but the last a
+    whole number of 16 bytes: the byte path's bulk copies, with a ragged
+    end, an empty tensor, and enough chunks that every stage of the ring
+    is reused."""
+    xs = _fusion_inputs(dt, [(n,) for n in numels], cuda_device, 5)
+    _pack_unpack_match_plain(xs, dt, None, None, 1)
 
 
 @pytest.mark.cuda
@@ -530,3 +586,55 @@ def test_torch_engine_round_trip_on_card(cuda_device, monkeypatch):
         hvd.shutdown()
     for a, b in zip(results["cpu"], results[str(cuda_device)]):
         assert torch.equal(a, b)
+
+
+def _init_on(dev, monkeypatch):
+    from horovod_tpu_torch.common import basics
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(basics, "_state", basics.GlobalState())
+    hvd.init(device=dev)
+    return basics._get_state().engine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.int8,
+                                   torch.int16, torch.float64,
+                                   torch.complex64, torch.complex128])
+def test_torch_broadcast_carries_dtype_on_card(cuda_device, monkeypatch,
+                                               dtype):
+    """broadcast_ and broadcast_parameters of a dtype the byte path
+    carries, through the engine on the card: the tensor's own bytes, one
+    pack and one unpack launch a dtype group."""
+    from horovod_tpu_torch.ops import fusion
+    eng = _init_on(cuda_device, monkeypatch)
+    try:
+        x, y = _fusion_inputs(dtype, [(37, 3), (1001,)], cuda_device, 4)
+        want = (x.clone(), y.clone())
+        n0 = (fusion.pack.launches, fusion.unpack.launches, eng.fused_groups)
+        assert hvd.broadcast_(x, root_rank=0) is x
+        params = {"w": y, "b": [torch.ones(5, device=cuda_device)]}
+        assert hvd.broadcast_parameters(params) is params
+        torch.cuda.synchronize()
+        assert torch.equal(x, want[0]) and torch.equal(params["w"], want[1])
+        groups = eng.fused_groups - n0[2]
+        assert groups == 1 + 2
+        assert (fusion.pack.launches - n0[0],
+                fusion.unpack.launches - n0[1]) == (groups, groups)
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int16, torch.complex64])
+def test_torch_allreduce_refuses_on_card(cuda_device, monkeypatch, dtype):
+    """A dtype NCCL cannot reduce as the JAX engine does raises TypeError
+    at submission, naming it; nothing reaches the cycle."""
+    eng = _init_on(cuda_device, monkeypatch)
+    try:
+        x = _fusion_inputs(dtype, [(4,)], cuda_device)[0]
+        with pytest.raises(TypeError, match=str(dtype).replace("torch.", "")):
+            hvd.allreduce(x)
+        assert eng.pipeline_dispatches == 0
+    finally:
+        hvd.shutdown()

@@ -13,7 +13,8 @@
   integers (halves after a prescale of 0.5), so the sums are exact in every
   dtype and each rounding the two programs make is one they make at the
   same place.
-- The two faults the engine slice repaired, each on its input.
+- The two faults the engine slice repaired, each on its input, and the
+  in-flight abort on a clean LEAVE under speculative dispatch.
 - One two-process gloo world through ``init()``, the copied coordinator
   and the engine: ``grouped_allreduce`` for every op (SUM/MIN/MAX bitwise
   equal to numpy on integer-valued floats), ``broadcast_parameters``, a
@@ -27,6 +28,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import threading
 import time
 import types
 
@@ -277,6 +279,76 @@ def test_torch_average_floor_divides_integers(hvd):
     out = torch.empty(2, dtype=torch.int32)
     fusion.unpack(torch.tensor([-3, 5], dtype=torch.int32), [out], divisor=2)
     assert out.tolist() == ref.tolist()
+
+
+class _LeaveController:
+    """What the engine reads of a controller in a round whose leave notice
+    names rank 1, with speculative dispatch armed."""
+    left_ranks = [1]
+    spec_ready_after = 1
+    spec_dispatch_ok = True
+
+    def negotiate(self, entries):
+        return list(entries), []
+
+    def forget(self, e):
+        pass
+
+
+class _NeverDone:
+    """A done event whose collective never completes (until released)."""
+
+    def __init__(self, release):
+        self._release = release
+
+    def synchronize(self):
+        self._release.wait()
+
+
+def test_torch_leave_notice_aborts_the_inflight_window():
+    """A world allreduce dispatched from a predicted verdict in the round a
+    peer left can never complete: on the leave notice the engine settles
+    its in-flight window with PeerLeftInterrupt (the JAX engine's
+    ``engine.py:1252-1268``), so the waiter does not hang.  The engine is
+    the card's (speculation needs its asynchronous launches)."""
+    from horovod_tpu_torch.common.exceptions import PeerLeftInterrupt
+    table = ProcessSetTable()
+    table.initialize(2, lambda ranks: None)
+    eng = port_engine.CollectiveEngine(types.SimpleNamespace(
+        config=Config(), process_set_table=table,
+        device=torch.device("cuda")))
+    eng.controller = _LeaveController()
+    x = torch.zeros(3)
+    e = port_engine.TensorTableEntry(
+        handle=1, name="grad", ctype=port_engine.CollectiveType.ALLREDUCE,
+        tensor=x, output=x)
+    eng._handles[e.handle] = e
+    release = threading.Event()
+    ring = eng._inflight_ring()
+    try:
+        ring.submit([e], ([x], _NeverDone(release)))
+        eng._compute_response_list([])
+        with pytest.raises(PeerLeftInterrupt):
+            eng.synchronize(e.handle, timeout=5)
+        assert len(ring) == 0
+    finally:
+        release.set()
+        ring.stop()
+
+
+@pytest.mark.parametrize("ptrs,sizes,bulk", [
+    ((0x1000, 0x2000), (32, 7), 1),
+    ((0x1000, 0x2008), (32, 16), 0),
+    ((0x1000, 0x2000), (24, 16), 0),
+    ((0x1000, 0x7, 0x2000), (16, 0, 5), 1)],
+    ids=["last-ragged", "base-off-16", "place-off-16", "empty-between"])
+def test_torch_byte_path_takes_bulk_copies_when_aligned(ptrs, sizes, bulk):
+    """The byte path's bulk copies need every tensor's base and its place
+    in the buffer on a 16-byte boundary (an empty tensor's pointer is never
+    read, and the last tensor may end anywhere); the buffer's base too."""
+    offs = fusion._offsets(sizes)
+    assert fusion._aligned(0x10000, ptrs, offs, sizes) == bulk
+    assert fusion._aligned(0x10008, ptrs, offs, sizes) == 0
 
 
 def test_torch_fusion_wrappers_refuse_what_they_do_not_take():

@@ -1,8 +1,10 @@
 """The port's serving plane on the CPU: ``Replica`` behind the copied
 ``ContinuousBatcher`` answers with the tokens a direct ``generate`` gives,
 the per-bucket forward cache misses once per bucket, a repeated version is
-a no-op, failures route as in the JAX replica, and ``broadcast_parameters``
-fans weights out over a real two-process gloo world.
+a no-op, failures route as in the JAX replica (an untyped failure waits up
+to ``fault_grace_s`` for the engine's fault, as the JAX replica does on the
+same stub engine), and ``broadcast_parameters`` fans weights out over a
+real two-process gloo world.
 """
 
 import json
@@ -11,6 +13,8 @@ import subprocess
 import sys
 import textwrap
 import threading
+import time
+import types
 import urllib.request
 
 import numpy as np
@@ -140,6 +144,65 @@ def test_torch_replica_routes_failures(model):
         rep.serve_loop(b)
     with pytest.raises(ReplicaFaulted):
         r3.wait(timeout=5)
+
+
+class _LatchingEngine:
+    """An engine whose fault latches ``after`` seconds after it is made
+    (never when ``after`` is None)."""
+
+    def __init__(self, fault, after):
+        self._fault = fault
+        self._at = None if after is None else time.monotonic() + after
+
+    @property
+    def fault(self):
+        if self._at is not None and time.monotonic() >= self._at:
+            return self._fault
+        return None
+
+
+@pytest.mark.parametrize("latch", [0.2, None], ids=["latched", "never"])
+@pytest.mark.parametrize("impl", ["jax", "torch"])
+def test_torch_replica_waits_for_the_engine_fault(monkeypatch, impl, latch):
+    """A forward that fails with an untyped error while the engine's fault
+    latches within ``fault_grace_s``: the batch fails retryably and the
+    fault is re-raised.  With no fault in the grace window it is an
+    application error, and the loop goes on.  The JAX replica and the
+    port's, on the same stub engine."""
+    if impl == "jax":
+        from horovod_tpu import serve
+        from horovod_tpu.common import basics
+        from horovod_tpu.common.exceptions import PeerFailureError as Fault
+    else:
+        import horovod_tpu_torch.serve as serve
+        from horovod_tpu_torch.common import basics
+        Fault = PeerFailureError
+    fault = Fault("peer 1 died")
+    eng = _LatchingEngine(fault, latch)
+    monkeypatch.setattr(basics, "is_initialized", lambda: True)
+    monkeypatch.setattr(basics, "_get_state",
+                        lambda: types.SimpleNamespace(engine=eng))
+    rep = serve.Replica(lambda p, x: x)
+
+    def broken(batch):
+        raise RuntimeError("the in-flight collective failed")
+    rep.forward_batch = broken
+    b = serve.ContinuousBatcher(max_batch=2, max_inflight=1)
+    req = b.submit(_prompts(1)[0], deadline_ms=60000)
+    if latch is not None:
+        with pytest.raises(Fault) as info:
+            rep.serve_loop(b, fault_grace_s=5.0)
+        assert info.value is fault
+        with pytest.raises(serve.ReplicaFaulted):
+            req.wait(timeout=5)
+    else:
+        stop = threading.Event()
+        stop.set()
+        t0 = time.monotonic()
+        assert rep.serve_loop(b, stop, fault_grace_s=0.3) == 0
+        assert time.monotonic() - t0 >= 0.3
+        with pytest.raises(serve.ForwardFailed):
+            req.wait(timeout=5)
 
 
 def test_torch_frontdoor_http_into_replica(model):
