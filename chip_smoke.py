@@ -52,7 +52,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``broadcast_parameters`` of the parameters and of a module with a
    buffer of each of those seven dtypes, bitwise against the plain path,
    with batches and launches = batches x dtype groups.  E3: two ranks,
-   each a process of this script started with the launcher's env
+   each a process of this script started by the port's launcher
    (``--e3-worker``), over NCCL — each rank on its own card where there
    are two, else both on one card over NCCL's socket transport: ``init``
    -> ``broadcast_parameters`` from rank 0 (the parameters, then the
@@ -60,7 +60,22 @@ Phases (any failure exits non-zero and prints no result line):
    training configuration on different batches per rank, with the
    parameters bitwise equal across ranks after every step, the
    negotiation counters, and pack and unpack launches = batches per step
-   (the counts zeroed before the steps).
+   (the counts zeroed before the steps).  E1 case F: the kernels in the
+   allgather layout (2 x 39 destination views) and the reducescatter and
+   alltoall layout (2 x 39 source views, rank-major) on the gradient set,
+   and the promoting casts (bool, int8, uint8, int16 -> int32 and back),
+   bitwise, with times.  E3 and E4 start their two ranks through the
+   port's launcher (``python -m horovod_tpu_torch.runner -np 2 -H
+   localhost:1,127.0.0.1:1``, ``-H localhost:2`` with two cards).  E4, at
+   the training configuration's width: reducescatter (Sum, Average) of
+   the integer-valued bf16 gradient set and an allgather of the shards,
+   bitwise against the sums each rank recomputes from both ranks' seeds;
+   an even and a ragged alltoall of a [2 x 4096, 4096] bf16 activation;
+   allgather_object and a join in which rank 1 submits one allreduce
+   fewer (rank 0's result holds the fill value); SyncBatchNorm forward and
+   backward on [32, 256, 56, 56] bf16 a rank against BatchNorm2d on the
+   global batch; the promoting allreduce dtypes against the JAX engine's
+   outcomes; each collective's time and its launches = dtype groups.
 7. The kernels line (JSON), the card line, and the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -932,6 +947,138 @@ def fusion_phase(torch, fusion, grads, dev, seed, flush):
     return ok, res
 
 
+def layout_phase(torch, fusion, grads, dev, seed, flush):
+    """E1 case F: the fusion kernels in the new collectives' layouts at a
+    world of two, on the training gradient set, and on the promoting
+    casts; each bitwise equal to its plain version.  (F1) The allgather
+    unpack: two ranks' buffers (here the same bytes twice) through 2 x 39
+    destination views into outputs of twice the rows.  (F2) The
+    reducescatter and alltoall pack: 2 x 39 source views, rank-major.
+    (F3) The reducescatter unpack: rank 0's chunk under Average over 2
+    into 39 outputs of half the rows.  (F4) The widening pack (bool, int8,
+    uint8, int16 -> int32) and, after the buffer is doubled as a sum of
+    two equal ranks, the narrowing unpack (int32 -> int16 past int16's
+    range, floor-divided by 2; bool's int32 counts divided by 2; int32
+    read as uint32), and an int32 buffer into float32 under a division
+    (a reducescatter's Average of integers).  Times: the card's, as E1's
+    case A."""
+    from horovod_tpu_torch.ops import engine
+    world, bf16, i32 = 2, torch.bfloat16, torch.int32
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    numels = [g.numel() for g in grads]
+    sizes = engine._rows(grads, world)
+    ok, res = True, {}
+
+    def verdict(name, got, ref, extra=""):
+        nonlocal ok
+        # uint32 compares as its int32 bits (its CUDA operators are few).
+        got, ref = ([t.view(i32) if t.dtype == torch.uint32 else t
+                     for t in ts] for ts in (got, ref))
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, ref))
+        err = max(_err(a, b) for a, b in zip(got, ref))
+        ok = ok and same
+        print(f"fusion[F: {name}]: max_abs_err={err:.3e}, bitwise equal to "
+              f"the plain version: {same}{extra} -> "
+              f"{'PASS' if same else 'FAIL'}", flush=True)
+        return err
+
+    def timed(name, fn, plain, lib, lib_name, nbytes):
+        ms = time_ms(torch, fn, flush, lead=True)
+        plain_ms = time_ms(torch, plain, flush, iters=3, warmup=1, lead=True)
+        lib_ms = time_ms(torch, lib, flush, iters=3, warmup=1, lead=True)
+        bound_ms = _bound(nbytes, 0, "bfloat16")[0]
+        print(f"fusion[F: {name}] training gradient set, {nbytes / 1e9:.3f}"
+              f" GB moved: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)"
+              f", plain {plain_ms:.4f} ms, library ({lib_name}) "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes",
+              flush=True)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, gbps=nbytes / ms / 1e6)
+
+    # F1: the allgather unpack.
+    buf = fusion.pack(grads, bf16)
+    gathered = torch.cat([buf, buf])
+    outs = [torch.empty((world * g.shape[0],) + tuple(g.shape[1:]),
+                        dtype=bf16, device=dev) for g in grads]
+    dst = engine._views(outs, numels, world)
+    fusion.unpack(gathered, dst)
+    torch.cuda.synchronize()
+    ref = [torch.empty_like(o) for o in outs]
+    fusion.unpack_plain(gathered, engine._views(ref, numels, world), 1, None)
+    verdict("allgather unpack, 2 x 39 destination views", outs, ref,
+            f"; each output is its gradient twice: "
+            f"{all(torch.equal(o, torch.cat([g, g])) for o, g in zip(outs, grads))}")
+    del ref
+    parts = [v.numel() for v in dst]
+    timed("allgather unpack", lambda: fusion.unpack(gathered, dst),
+          lambda: fusion.unpack_plain(gathered, dst, 1, None),
+          lambda: torch._foreach_copy_(dst, list(gathered.split(parts))),
+          "split + _foreach_copy_", 2 * gathered.numel() * 2)
+    del gathered, outs, dst
+    # F2: the rank-major pack of the reducescatter and the alltoall.
+    src = engine._views(grads, sizes, world)
+    packed = fusion.pack(src, bf16)
+    torch.cuda.synchronize()
+    verdict("reducescatter/alltoall pack, 2 x 39 source views, rank-major",
+            [packed], [fusion.pack_plain(src, bf16, None)])
+    timed("rank-major pack", lambda: fusion.pack(src, bf16),
+          lambda: fusion.pack_plain(src, bf16, None),
+          lambda: torch.cat([v.reshape(-1) for v in src]), "torch.cat",
+          2 * packed.numel() * 2)
+    # F3: the reducescatter unpack of rank 0's chunk, Average over 2.
+    chunk = packed[:sum(sizes)]
+    halves = [torch.empty((g.shape[0] // world,) + tuple(g.shape[1:]),
+                          dtype=bf16, device=dev) for g in grads]
+    fusion.unpack(chunk, halves, 2)
+    torch.cuda.synchronize()
+    ref = [torch.empty_like(h) for h in halves]
+    fusion.unpack_plain(chunk, ref, 2, None)
+    verdict("reducescatter unpack, Average over 2, 39 half outputs", halves,
+            ref)
+    del ref
+    timed("reducescatter unpack", lambda: fusion.unpack(chunk, halves, 2),
+          lambda: fusion.unpack_plain(chunk, halves, 2, None),
+          lambda: (torch._foreach_copy_(halves, [
+              p.view(h.shape) for p, h in zip(chunk.split(
+                  [h.numel() for h in halves]), halves)]),
+              torch._foreach_mul_(halves, 0.5)),
+          "split + _foreach_copy_ + _foreach_mul_", 2 * chunk.numel() * 2)
+    del buf, packed, chunk, halves, src
+    torch.cuda.empty_cache()
+    # F4: the promoting casts.
+    shapes = ((333, 7), (0,), (1,), (4097,))
+
+    def ints(dt, lo, hi):
+        return [torch.randint(lo, hi, s, generator=gen, device=dev,
+                              dtype=dt) for s in shapes]
+    cases = (("bool -> int32, counts / 2 (bool Average)",
+              [t.bool() for t in ints(torch.uint8, 0, 2)], i32, 2),
+             ("int8 -> int32 (int8 Product)", ints(torch.int8, -128, 128),
+              i32, 1),
+             ("uint8 -> int32 -> uint32 (uint8 Product)",
+              ints(torch.uint8, 0, 256), torch.uint32, 1),
+             ("int16 -> int32 -> int16 past its range, floor / 2 (int16 "
+              "Average)", ints(torch.int16, -32768, 32768), torch.int16, 2),
+             ("int32 -> float32, / 2 (reducescatter Average of int32)",
+              ints(i32, -70000, 70000), torch.float32, 2))
+    for name, ts, out_dt, divisor in cases:
+        b = fusion.pack(ts, i32)
+        ref_b = fusion.pack_plain(ts, i32, None)
+        red = b * 2
+        red = red.view(torch.uint32) if out_dt == torch.uint32 else red
+        outs = [torch.empty(t.shape, dtype=out_dt, device=dev) for t in ts]
+        fusion.unpack(red, outs, divisor)
+        torch.cuda.synchronize()
+        ref_red = ref_b * 2
+        ref_red = ref_red.view(torch.uint32) if out_dt == torch.uint32 \
+            else ref_red
+        ref = [torch.empty_like(o) for o in outs]
+        fusion.unpack_plain(ref_red, ref, divisor, None)
+        verdict(name, [b] + outs, [ref_b] + ref)
+    return ok, res
+
+
 def _expected_batches(nbytes, threshold):
     """The engine's cut of one cycle's ungrouped entries of one fusion key:
     a new batch where the next tensor would pass the threshold."""
@@ -1054,7 +1201,8 @@ def e3_worker(args):
     """One rank of E3, started by ``two_rank_phase`` with the launcher's
     env: init -> broadcast_parameters from rank 0 (rank 1 starts from other
     seeds) -> DistributedOptimizer(SGD) -> 5 steps on this rank's own
-    batch.  Writes its counters and checks as JSON to ``args.e3_worker``."""
+    batch.  Writes its counters and checks as JSON to
+    ``rank<HOROVOD_RANK>.json`` in the directory ``args.e3_worker``."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1125,75 +1273,347 @@ def e3_worker(args):
                       fa.flash_attention_bwd.launches_dq,
                       fa.flash_attention_bwd.launches_dkv])
     hvd.shutdown()
-    with open(args.e3_worker, "w") as fh:
-        json.dump(res, fh)
+    _write_result(args.e3_worker, res)
     print(f"e3 rank {r}: done", flush=True)
     return 0
 
 
-def two_rank_phase(torch, layers, seed, timeout_s=600):
-    """E3: the training main path on two ranks over NCCL, one process each,
-    started with the launcher's env contract.  With one card both ranks use
-    it: NCCL refuses two ranks of one host on one GPU, and keys that check
-    on its host hash, so each rank gets its own NCCL_HOSTID and NCCL joins
-    them over its socket transport on the loopback device.  With two cards
-    or more each rank takes its own."""
+def _write_result(directory, res):
+    """A rank's result, at the path its launcher rank names."""
+    path = os.path.join(directory, f"rank{os.environ['HOROVOD_RANK']}.json")
+    with open(path, "w") as fh:
+        json.dump(res, fh)
+
+
+def launch_two_ranks(torch, flag, layers, seed, timeout_s):
+    """Two copies of this script with ``flag``, started by the port's
+    launcher: ``python -m horovod_tpu_torch.runner -np 2 -H
+    localhost:1,127.0.0.1:1`` on one card (the launcher gives each host
+    entry its own NCCL_HOSTID, and the loopback entries NCCL's socket
+    transport on ``lo``: NCCL refuses two ranks of one host on one GPU),
+    ``-H localhost:2`` with two cards or more (each rank on
+    ``cuda:{local rank}``).  Returns ``(results, route, wall)``, results
+    None when a rank failed; every process is gone on return."""
+    import signal
     import tempfile
-    import numpy as np
-    from horovod_tpu_torch.common.net import free_ports
     ndev = torch.cuda.device_count()
+    hosts = "localhost:2" if ndev >= 2 else "localhost:1,127.0.0.1:1"
     route = ("NCCL, one card per rank" if ndev >= 2 else
              "NCCL socket transport on loopback, both ranks on one card "
-             "(NCCL_HOSTID per rank)")
-    port, port2 = free_ports(2)
+             "(NCCL_HOSTID per -H entry)")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
     with tempfile.TemporaryDirectory() as tmp:
-        procs, logs = [], []
-        for r in range(2):
-            env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
-                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                       HOROVOD_CONTROLLER_PORT=str(port),
-                       HOROVOD_CONTROLLER_PORT2=str(port2))
-            if ndev >= 2:
-                env.update(HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2")
-            else:
-                env.update(HOROVOD_LOCAL_RANK="0", HOROVOD_LOCAL_SIZE="1",
-                           NCCL_HOSTID=f"hvd-smoke-rank{r}",
-                           NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
-            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
-            logs.append(log)
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--train-layers", str(layers), "--seed", str(seed),
-                 "--e3-worker", os.path.join(tmp, f"rank{r}.json")],
-                env=env, stdout=log, stderr=subprocess.STDOUT))
+        logs = os.path.join(tmp, "logs")
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
+               "-H", hosts, "--output-filename", logs, sys.executable,
+               os.path.abspath(__file__), "--train-layers", str(layers),
+               "--seed", str(seed), flag, tmp]
+        print(f"{flag[2:4]}: python {' '.join(cmd[1:9])} python "
+              f"chip_smoke.py {flag} {tmp}", flush=True)
         t0 = time.time()
-        rcs = []
+        launcher = subprocess.Popen(cmd, cwd=here, env=env,
+                                    start_new_session=True)
         try:
-            for p in procs:
-                rcs.append(p.wait(timeout=max(1.0, timeout_s -
-                                              (time.time() - t0))))
+            rc = launcher.wait(timeout=timeout_s)
         except subprocess.TimeoutExpired:
-            rcs = None
+            rc = None
         finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for log in logs:
-                log.close()
+            if launcher.poll() is None:
+                os.killpg(launcher.pid, signal.SIGKILL)
+                launcher.wait()
         wall = time.time() - t0
         results = []
         for r in range(2):
             path = os.path.join(tmp, f"rank{r}.json")
-            if rcs is None or rcs[r] != 0 or not os.path.exists(path):
-                with open(os.path.join(tmp, f"rank{r}.log")) as fh:
-                    tail = fh.read()[-3000:]
-                print(f"e3: rank {r} failed (rc "
-                      f"{None if rcs is None else rcs[r]}, route {route}); "
-                      f"the end of its output:\n{tail}", flush=True)
-                return False, None
+            if rc != 0 or not os.path.exists(path):
+                tail = ""
+                for stream in ("stdout", "stderr"):
+                    f = os.path.join(logs, f"rank.{r}", stream)
+                    if os.path.exists(f):
+                        with open(f) as fh:
+                            tail += fh.read()[-2000:]
+                print(f"{flag[2:4]}: rank {r} failed (launcher rc {rc}, "
+                      f"route {route}); the end of its output:\n{tail}",
+                      flush=True)
+                return None, route, wall
             with open(path) as fh:
                 results.append(json.load(fh))
+    return results, route, wall
+
+
+# The JAX engine's allreduce outcomes on two ranks for the dtypes NCCL does
+# not reduce as it does (ROADMAP queue 3; tests/test_torch_dtypes.py holds
+# the port to the same on the CPU): dtype, the two ranks' values, and per
+# op the result's dtype and values, or "raises".
+PROMOTE_CASES = (
+    ("bool", ([True, False, True], [True, True, False]),
+     {"Sum": ("int32", [2, 1, 1]), "Average": ("int32", [1, 0, 0]),
+      "Product": ("int32", [1, 0, 0]), "Min": ("bool", [True, False, False]),
+      "Max": ("bool", [True, True, True])}),
+    ("int16", ([30000, -2, 300], [30000, 5, -7]),
+     {"Sum": ("int16", [-5536, 3, 293]), "Average": ("int16", [-2768, 1, 146]),
+      "Product": ("int32", [900000000, -10, -2100]),
+      "Min": ("int16", [30000, -2, -7]), "Max": ("int16", [30000, 5, 300])}),
+    ("int8", ([100, 3, -7], [3, 90, 2]),
+     {"Sum": ("int8", [103, 93, -5]), "Product": ("int32", [300, 270, -14])}),
+    ("uint8", ([100, 3, 7], [3, 90, 2]),
+     {"Product": ("uint32", [300, 270, 14])}),
+    ("complex64", ([1 + 2j, -1j, 3], [2 - 1j, 4, 0.5j]),
+     {"Sum": ("complex64", [3 + 1j, 4 - 1j, 3 + 0.5j]),
+      "Product": ("complex64", [4 + 3j, -4j, 1.5j]),
+      "Average": ("raises", None), "Min": ("raises", None),
+      "Max": ("raises", None)}))
+E4_ROWS = 2 * 4096          # an expert dispatch's [2 x 4096, 4096] tokens
+E4_BN = (32, 256, 56, 56)   # ResNet-50's first stage, per rank
+E4_BN_TOL = 4e-2            # bf16 output and input gradient, |y| < 8
+
+
+def _e4_grads(torch, shapes, dev, seed, rank):
+    """Rank ``rank``'s integer-valued bf16 gradients (exact sums), in
+    order, from its own generator: either rank can replay them."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 100 + rank)
+    for shape in shapes:
+        yield torch.randint(-8, 9, shape, generator=gen, device=dev,
+                            dtype=torch.int16).to(torch.bfloat16)
+
+
+def _e4_rows(torch, dev, seed, rank):
+    """Rank ``rank``'s [2 x 4096, 4096] bf16 activation and ragged splits."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 200 + rank)
+    x = torch.randn(E4_ROWS, 4096, generator=gen, device=dev).to(
+        torch.bfloat16)
+    a = int(torch.randint(0, E4_ROWS + 1, (1,), generator=gen,
+                          device=dev).item())
+    return x, [a, E4_ROWS - a]
+
+
+def _e4_bn(torch, dev, seed, rank):
+    gen = torch.Generator(device=dev).manual_seed(seed + 300 + rank)
+    x = torch.randn(E4_BN, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(E4_BN, generator=gen, device=dev).to(torch.bfloat16)
+    return x, g
+
+
+def e4_worker(args):
+    """One rank of E4, started by the port's launcher: reducescatter (Sum,
+    then Average) of the training configuration's gradients and an
+    allgather of the Sum's shards back; an even and a ragged alltoall of
+    an expert dispatch's activation; allgather_object, then a join in
+    which rank 1 submits one allreduce fewer; SyncBatchNorm forward and
+    backward; the promoting allreduce dtypes against the JAX engine's
+    outcomes.  Each collective's launches and time are recorded; the
+    result goes to ``rank<HOROVOD_RANK>.json`` in ``args.e4_worker``."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import engine as engine_mod
+    from horovod_tpu_torch.ops import fusion
+    hvd.init()
+    r, dev = hvd.rank(), hvd.device()
+    eng = hvd.common.basics._get_state().engine
+    seed = args.seed
+    checks, timing = {}, {}
+
+    def run(name, fn):
+        """``fn()`` with the launch counts zeroed just before and read just
+        after, and its time to the results on the card."""
+        fusion.pack.launches = fusion.unpack.launches = 0
+        d0, g0 = eng.pipeline_dispatches, eng.fused_groups
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        timing[name] = dict(
+            s=time.perf_counter() - t0,
+            batches=eng.pipeline_dispatches - d0,
+            groups=eng.fused_groups - g0, pack=fusion.pack.launches,
+            unpack=fusion.unpack.launches)
+        return out
+
+    # Reducescatter and allgather of the gradient set.
+    shapes = [sh for _, sh in _grad_shapes(torch, tl, args.train_layers, dev,
+                                           seed + 1)]
+    grads = list(_e4_grads(torch, shapes, dev, seed, r))
+    nbytes = _nbytes(grads)
+    rs = {}
+    for op in ("Sum", "Average"):
+        rs[op] = run(f"reducescatter {op}", lambda op=op: hvd.synchronize([
+            hvd.reducescatter_async(g, name=f"e4.rs.{op}.{i}",
+                                    op=getattr(hvd, op))
+            for i, g in enumerate(grads)]))
+    full = run("allgather", lambda: hvd.synchronize([
+        hvd.allgather_async(t, name=f"e4.ag.{i}")
+        for i, t in enumerate(rs["Sum"])]))
+    del grads
+    same = {"reducescatter Sum": True, "reducescatter Average": True,
+            "allgather": True}
+    for i, (g0, g1) in enumerate(zip(_e4_grads(torch, shapes, dev, seed, 0),
+                                     _e4_grads(torch, shapes, dev, seed, 1))):
+        total = g0 + g1                    # integers: exact in bf16
+        n = total.shape[0] // 2
+        mine = total[r * n:(r + 1) * n]
+        same["reducescatter Sum"] &= torch.equal(rs["Sum"][i], mine)
+        same["reducescatter Average"] &= torch.equal(rs["Average"][i],
+                                                     mine / 2)
+        same["allgather"] &= torch.equal(full[i], total)
+    checks.update(same)
+    del rs, full
+    torch.cuda.empty_cache()
+    # Alltoall, even and ragged, of an expert dispatch's activation.
+    x, splits = _e4_rows(torch, dev, seed, r)
+    even = run("alltoall", lambda: hvd.alltoall(x, name="e4.a2a"))
+    ragged, rsplits = run("alltoall ragged", lambda: hvd.alltoall(
+        x, splits=splits, name="e4.a2av"))
+    del x
+    peers = [_e4_rows(torch, dev, seed, q) for q in range(2)]
+    half = E4_ROWS // 2
+    checks["alltoall"] = torch.equal(even, torch.cat(
+        [px[r * half:(r + 1) * half] for px, _ in peers]))
+    rows = []
+    for px, sp in peers:
+        start = sum(sp[:r])
+        rows.append(px[start:start + sp[r]])
+    checks["alltoall ragged"] = (torch.equal(ragged, torch.cat(rows)) and
+                                 rsplits.tolist() == [sp[r] for _, sp in
+                                                      peers])
+    del even, ragged, peers, rows
+    # Objects, then a join in which rank 1 submits one allreduce fewer.
+    objs = run("allgather_object", lambda: hvd.allgather_object(
+        {"rank": r, "card": torch.cuda.get_device_name(dev)}))
+    checks["allgather_object"] = [o["rank"] for o in objs] == [0, 1]
+    v = torch.tensor([1.5, -2.0, 7.0], device=dev) * (r + 1)
+    both = run("allreduce before join", lambda: hvd.allreduce(
+        v, op=hvd.Sum, name="e4.join.sum"))
+    checks["allreduce before join"] = both.tolist() == [4.5, -6.0, 21.0]
+    if r == 0:
+        alone = run("allreduce while rank 1 is joined", lambda: hvd.allreduce(
+            v, op=hvd.Min, name="e4.join.min"))
+        fill = engine_mod._join_fill_value(
+            engine_mod.CollectiveType.ALLREDUCE, hvd.Min, torch.float32)
+        checks["join fill value"] = torch.equal(
+            alone, torch.minimum(v, torch.full_like(v, fill)))
+    last = run("join", hvd.join)
+    checks["join returns the last rank"] = last == 0
+    # SyncBatchNorm against BatchNorm2d on the global batch.
+    bn = hvd.SyncBatchNorm(E4_BN[1]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 301)
+    with torch.no_grad():
+        bn.weight.copy_(1 + 0.1 * torch.randn(E4_BN[1], generator=gen,
+                                              device=dev))
+        bn.bias.copy_(0.1 * torch.randn(E4_BN[1], generator=gen, device=dev))
+    ref_bn = torch.nn.BatchNorm2d(E4_BN[1]).to(dev)
+    ref_bn.load_state_dict(bn.state_dict())
+    xb, gy = _e4_bn(torch, dev, seed, r)
+    xb.requires_grad_()
+
+    def bn_step():
+        y = bn(xb)
+        y.backward(gy)
+        return y
+    y = run("SyncBatchNorm forward and backward", bn_step)
+    ins = [_e4_bn(torch, dev, seed, q) for q in range(2)]
+    xr = torch.cat([a for a, _ in ins]).float().requires_grad_()
+    yr = ref_bn(xr)
+    yr.backward(torch.cat([g for _, g in ins]).float())
+    rows = slice(r * E4_BN[0], (r + 1) * E4_BN[0])
+    bn_err = dict(
+        y=(y.float() - yr[rows]).abs().max().item(),
+        dx=(xb.grad.float() - xr.grad[rows]).abs().max().item(),
+        mean=(bn.running_mean - ref_bn.running_mean).abs().max().item(),
+        var=(bn.running_var - ref_bn.running_var).abs().max().item())
+    checks["SyncBatchNorm"] = (bn_err["y"] <= E4_BN_TOL
+                               and bn_err["dx"] <= E4_BN_TOL
+                               and bn_err["mean"] <= 1e-3
+                               and bn_err["var"] <= 1e-3)
+    del ins, xr, yr, y
+    xb.grad = None              # the first call's time holds the warm-up
+    run("SyncBatchNorm forward and backward, second call", bn_step)
+    del xb
+    # The promoting dtypes against the JAX engine's outcomes.
+    promote = {}
+    for name, values, outcomes in PROMOTE_CASES:
+        for op, (want_dt, want) in outcomes.items():
+            t = torch.tensor(values[r], dtype=getattr(torch, name),
+                             device=dev)
+            try:
+                got = hvd.allreduce(t, op=getattr(hvd, op),
+                                    name=f"e4.dt.{name}.{op}")
+                got = (str(got.dtype)[6:], got.cpu().tolist())
+            except TypeError:
+                got = ("raises", None)
+            promote[f"{name} {op}"] = got == (want_dt, want)
+    checks["promoting dtypes"] = all(promote.values())
+    hvd.shutdown()
+    _write_result(args.e4_worker, dict(
+        rank=r, checks=checks, timing=timing, bn_err=bn_err,
+        promote=promote, grad_bytes=nbytes, leaves=len(shapes),
+        card=torch.cuda.get_device_name(dev)))
+    print(f"e4 rank {r}: done", flush=True)
+    return 0
+
+
+def e4_phase(torch, layers, seed, card, timeout_s=420):
+    """E4: the new collectives on two ranks through the port's launcher at
+    the training configuration's full width (``e4_worker``): every check
+    on both ranks, and pack launches = unpack launches = the dtype groups
+    of the collective's batches (the counts zeroed just before each)."""
+    results, route, wall = launch_two_ranks(torch, "--e4-worker", layers,
+                                            seed, timeout_s)
+    if results is None:
+        return False, None
+    ok = True
+    for res in results:
+        for what, good in res["checks"].items():
+            ok = ok and good
+            if not good or res["rank"] == 0:
+                print(f"e4: rank {res['rank']}: {what}: "
+                      f"{'PASS' if good else 'FAIL'}", flush=True)
+        bad = [k for k, v in res["promote"].items() if not v]
+        if bad:
+            print(f"e4: rank {res['rank']}: promoting dtypes that differ "
+                  f"from the JAX engine: {bad}", flush=True)
+    a = results[0]
+    e = a["bn_err"]
+    print(f"e4: SyncBatchNorm {list(E4_BN)} bf16 a rank against "
+          f"BatchNorm2d on the global batch: max_abs_err y {e['y']:.3e}, "
+          f"dx {e['dx']:.3e} (tolerance {E4_BN_TOL}), running mean "
+          f"{e['mean']:.3e}, var {e['var']:.3e} (1e-3)", flush=True)
+    launches = {"pack": 0, "unpack": 0}
+    for name, t in a["timing"].items():
+        # A joined rank runs its peer's allreduce inside join().
+        counts_ok = all(
+            res["timing"][name]["pack"] == res["timing"][name]["unpack"]
+            == res["timing"][name]["groups"]
+            and (res["timing"][name]["batches"] > 0 or name == "join")
+            for res in results if name in res["timing"])
+        ok = ok and counts_ok
+        launches["pack"] += t["pack"]
+        launches["unpack"] += t["unpack"]
+        gb = a["grad_bytes"] / 1e9 if "reducescatter" in name or \
+            name == "allgather" else None
+        print(f"e4: {name}: {t['s'] * 1e3:.1f} ms on rank 0"
+              + (f" ({gb:.3f} GB of gradients a rank)" if gb else "")
+              + f"; batches {t['batches']}, dtype groups {t['groups']}, "
+              f"pack/unpack launches {t['pack']}/{t['unpack']} -> "
+              f"{'PASS' if counts_ok else 'FAIL'} [{card}; two ranks on "
+              f"{route}, no NVLink figure]", flush=True)
+    print(f"e4: two ranks through the launcher in {wall:.1f} s -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    return ok, launches
+
+
+def two_rank_phase(torch, layers, seed, timeout_s=600):
+    """E3: the training main path on two ranks over NCCL, one process each,
+    started by the port's launcher (``launch_two_ranks``)."""
+    import numpy as np
+    results, route, wall = launch_two_ranks(torch, "--e3-worker", layers,
+                                            seed, timeout_s)
+    if results is None:
+        return False, None
     a, b = results
     print(f"e3: two ranks ({route}) finished in {wall:.1f} s; broadcast of "
           f"{a['leaves']} parameters {a['bcast_s'] * 1e3:.1f} ms; parameters "
@@ -1255,8 +1675,10 @@ def main():
                     help="decoder depth of the training phase at llama3_8b "
                          "width (default 4)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--e3-worker", metavar="RESULT_JSON",
+    ap.add_argument("--e3-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E3
+    ap.add_argument("--e4-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase E4
     args = ap.parse_args()
 
     import torch
@@ -1278,6 +1700,8 @@ def main():
         return 2
     if args.e3_worker:
         return e3_worker(args)
+    if args.e4_worker:
+        return e4_worker(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1331,13 +1755,16 @@ def main():
                                           args.seed + 1)]
     fusion_ok, fusion_res = fusion_phase(torch, fusion, grads, dev,
                                          args.seed, flush)
+    layout_ok, _ = layout_phase(torch, fusion, grads, dev, args.seed, flush)
     del flush
     size1_ok = engine_size1_phase(torch, hvd, tl, fusion, grads,
                                   args.train_layers, args.seed)
     del grads
     torch.cuda.empty_cache()
     two_ok, two = two_rank_phase(torch, args.train_layers, args.seed)
-    engine_ok = fusion_ok and size1_ok and two_ok and no_spills
+    four_ok, four = e4_phase(torch, args.train_layers, args.seed, card)
+    engine_ok = (fusion_ok and layout_ok and size1_ok and two_ok and four_ok
+                 and no_spills)
 
     fwd, fwd_train = cases[0], cases[-1]   # serving and training shapes
     bwd = bwd_cases[-1]                    # training shape
@@ -1395,7 +1822,10 @@ def main():
             name=f"fusion_{kern}", route="cuda", source=src + "fusion.cu",
             replaces="horovod_tpu/ops/engine.py:1955 (no Pallas kernel: XLA "
                      "fused this work into _build_fused_reduce)",
-            design=design, launches=two[kern] if two else 0,
+            design=design,
+            launches=(two[kern] if two else 0) + (four[kern] if four else 0),
+            launches_e3=two[kern] if two else 0,
+            launches_e4=four[kern] if four else 0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"],
@@ -1409,8 +1839,9 @@ def main():
             and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
-              f", engine ok={engine_ok} (fusion kernels {fusion_ok}, size 1 "
-              f"{size1_ok}, two ranks {two_ok})")
+              f", engine ok={engine_ok} (fusion kernels {fusion_ok}, "
+              f"layouts and casts {layout_ok}, size 1 {size1_ok}, two ranks "
+              f"{two_ok}, collectives on two ranks {four_ok})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

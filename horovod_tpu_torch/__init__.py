@@ -7,9 +7,12 @@ port covers the serving path (runtime control, parameter broadcast, the
 Llama decoder with its flash-attention forward kernel, and ``serve``), the
 training path (``DistributedOptimizer`` over the allreduce family of
 ``mpi_ops``, and Llama training through the flash-attention backward
-kernels) and the collective engine under both: negotiation through the
+kernels), the collective engine under both (negotiation through the
 copied coordinator, fusion, and one collective per fused buffer between
-the pack and unpack kernels.
+the pack and unpack kernels), the rest of the collectives a world above
+one rank uses (allgather, alltoall, reducescatter, join) with
+``SyncBatchNorm``, and the launcher, ``python -m
+horovod_tpu_torch.runner``.
 """
 
 from .common.basics import (  # noqa: F401
@@ -26,8 +29,13 @@ from .mpi_ops import (  # noqa: F401
     ReduceOp, Average, Sum, Min, Max, Product, Adasum,
     allreduce, allreduce_, allreduce_async, allreduce_async_,
     grouped_allreduce, grouped_allreduce_, grouped_allreduce_async,
-    grouped_allreduce_async_, broadcast, broadcast_, broadcast_async,
-    broadcast_async_, broadcast_object, barrier, synchronize, poll,
+    grouped_allreduce_async_, allgather, allgather_async, grouped_allgather,
+    grouped_allgather_async, allgather_object, broadcast, broadcast_,
+    broadcast_async, broadcast_async_, broadcast_object, alltoall,
+    alltoall_async, reducescatter, reducescatter_async,
+    grouped_reducescatter, grouped_reducescatter_async, barrier, join,
+    synchronize, poll,
 )
 from .optimizer import DistributedOptimizer  # noqa: F401
+from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from . import serve  # noqa: F401

@@ -78,6 +78,13 @@ def _resolve_device(device, local_rank: int) -> torch.device:
         raise RuntimeError(
             "horovod_tpu_torch.init(): no CUDA device is available; pass "
             "device='cpu' to run on the CPU explicitly")
+    count = torch.cuda.device_count()
+    if local_rank >= count:
+        raise RuntimeError(
+            f"horovod_tpu_torch.init(): local rank {local_rank} has no card: "
+            f"this host has {count} CUDA device(s) visible; launch at most "
+            f"{count} rank(s) a host (-H host:{count}), or give each rank "
+            f"its own host entry with NCCL_HOSTID where ranks share a card")
     return torch.device(f"cuda:{local_rank}")
 
 

@@ -1,14 +1,21 @@
 # Ported from horovod_tpu/torch/mpi_ops.py:35-41, 136-166 (synchronize,
-# poll), 170-306 (the allreduce family and broadcast), 308-312
-# (broadcast_object) and 374-375 (barrier).
+# poll), 170-306 (the allreduce family, allgather and broadcast), 308-379
+# (broadcast_object, allgather_object, alltoall, reducescatter, barrier,
+# join); the grouped allgather and reducescatter from
+# horovod_tpu/ops/eager.py:375-464.  What horovod_tpu/ops/bridge.py does for
+# a ragged alltoall on per-rank tensors (the splits check, this rank's
+# result) is the eager layer's two-stage handle here.
 """The torch binding's collectives over ``torch.Tensor``, with integer
 handles.
 
 Port of ``horovod_tpu/torch/mpi_ops.py`` (reference:
 ``horovod/torch/mpi_ops.py``): ``allreduce``, ``allreduce_``,
-``grouped_allreduce``, ``broadcast``, ``broadcast_`` and their ``_async``
-forms, resolved by ``synchronize`` and ``poll``; ``broadcast_object`` and
-``barrier``.  Every call goes through the collective engine
+``grouped_allreduce``, ``allgather``, ``grouped_allgather``,
+``broadcast``, ``broadcast_``, ``alltoall`` (even, or ragged with
+``splits``), ``reducescatter``, ``grouped_reducescatter`` and their
+``_async`` forms, resolved by ``synchronize`` and ``poll``;
+``broadcast_object``, ``allgather_object``, ``barrier`` and ``join``.
+Every call goes through the collective engine
 (``ops/eager.py`` → ``ops/engine.py``): negotiated by name across ranks,
 fused with the other tensors of its cycle, packed, reduced or broadcast by
 one collective per fused dtype buffer (NCCL on the card, gloo on the CPU),
@@ -20,7 +27,11 @@ dtype, with floor division for integers; ``compression="bf16"``/``"fp16"``
 casts a floating tensor to that wire dtype around the collective, and the
 result comes back in the input's dtype.  In a world of one process the
 collective is the identity and the scale factors still apply.
-Allgather, alltoall, reducescatter and join come in a later slice.
+
+A result has the JAX engine's dtype, which the JAX torch binding casts
+back to the input's (``horovod_tpu/torch/mpi_ops.py:151-152``): a bool
+``Sum`` counts in int32, an int8 ``Product`` returns int32, an integer
+``reducescatter`` ``Average`` float32 (``ops/engine.py`` ``reduce_dtypes``).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 
 from .common.process_sets import ProcessSet
 from .ops import collectives as C
+from .common import basics
 from .ops import eager
 
 ReduceOp = C.ReduceOp
@@ -149,6 +161,41 @@ def grouped_allreduce_(tensors: Sequence[torch.Tensor],
         tensors, name, op, prescale_factor, postscale_factor, process_set)]
 
 
+# ------------------------------------------------------------------ allgather
+def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
+                    process_set: Optional[ProcessSet] = None) -> int:
+    return eager.allgather_async(tensor, name=name, process_set=process_set)
+
+
+def allgather(tensor: torch.Tensor, name: Optional[str] = None,
+              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Every rank's tensor concatenated on dim 0 in rank order."""
+    return synchronize(allgather_async(tensor, name, process_set))
+
+
+def grouped_allgather_async(tensors: Sequence[torch.Tensor],
+                            name: Optional[str] = None,
+                            process_set: Optional[ProcessSet] = None
+                            ) -> List[int]:
+    return eager.grouped_allgather_async(tensors, name=name,
+                                         process_set=process_set)
+
+
+def grouped_allgather(tensors: Sequence[torch.Tensor],
+                      name: Optional[str] = None,
+                      process_set: Optional[ProcessSet] = None):
+    return synchronize(grouped_allgather_async(tensors, name, process_set))
+
+
+def allgather_object(obj, name: Optional[str] = None,
+                     process_set: Optional[ProcessSet] = None,
+                     per_rank: Optional[bool] = None) -> list:
+    """List of every rank's pickled object (reference:
+    ``horovod/torch/mpi_ops.py allgather_object``)."""
+    return eager.allgather_object(obj, name=name, process_set=process_set,
+                                  per_rank=per_rank)
+
+
 # ------------------------------------------------------------------ broadcast
 def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
                     name: Optional[str] = None,
@@ -182,6 +229,64 @@ def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None,
                                   process_set=process_set)
 
 
+# ------------------------------------------------------------------ alltoall
+def alltoall_async(tensor: torch.Tensor, splits=None,
+                   name: Optional[str] = None,
+                   process_set: Optional[ProcessSet] = None):
+    if splits is not None:
+        return eager.alltoall_async(tensor, splits=splits, name=name,
+                                    process_set=process_set)
+    world = (process_set.size() if process_set is not None
+             else basics.size())
+    if tensor.dim() == 0 or tensor.shape[0] % world != 0:
+        raise ValueError(
+            f"alltoall with even splits needs dim0 divisible by the "
+            f"process set size ({world}); got {tuple(tensor.shape)}")
+    return eager.alltoall_async(tensor, name=name, process_set=process_set)
+
+
+def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
+             process_set: Optional[ProcessSet] = None):
+    """Even splits: returns the gathered tensor.  With ``splits``: returns
+    ``(output, received_splits)`` (reference ``hvd.alltoall`` ragged form)."""
+    return synchronize(alltoall_async(tensor, splits, name, process_set))
+
+
+# -------------------------------------------------------------- reducescatter
+def reducescatter_async(tensor: torch.Tensor, name: Optional[str] = None,
+                        op: ReduceOp = Sum,
+                        process_set: Optional[ProcessSet] = None) -> int:
+    return eager.reducescatter_async(tensor, name=name, op=op,
+                                     process_set=process_set)
+
+
+def reducescatter(tensor: torch.Tensor, name: Optional[str] = None,
+                  op: ReduceOp = Sum,
+                  process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    return synchronize(reducescatter_async(tensor, name, op, process_set))
+
+
+def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
+                                name: Optional[str] = None,
+                                op: ReduceOp = Sum,
+                                process_set: Optional[ProcessSet] = None
+                                ) -> List[int]:
+    return eager.grouped_reducescatter_async(tensors, name=name, op=op,
+                                             process_set=process_set)
+
+
+def grouped_reducescatter(tensors: Sequence[torch.Tensor],
+                          name: Optional[str] = None, op: ReduceOp = Sum,
+                          process_set: Optional[ProcessSet] = None):
+    return synchronize(grouped_reducescatter_async(tensors, name, op,
+                                                   process_set))
+
+
 # ------------------------------------------------------------------- control
 def barrier(process_set: Optional[ProcessSet] = None):
     return eager.barrier(process_set=process_set)
+
+
+def join(timeout: Optional[float] = None) -> int:
+    """This rank submits no more work; returns the last rank to join."""
+    return eager.join(timeout)

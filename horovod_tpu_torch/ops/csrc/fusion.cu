@@ -15,10 +15,15 @@
 //                                          * round_T(post))
 //
 // T is the tensors' dtype (float32, float64, bfloat16, float16, int8, uint8,
-// int32, int64) and W the buffer's (T, or bfloat16/float16 as the wire dtype
-// of a float group).  avg is the identity, a division by n in W (Average),
-// or floor division for integers.  Integers scale in float32 and are cast
-// back, truncating; float64 computes in double.  Each rounding is where the
+// int32, int64; bool and int16 as sources of a widening) and W the buffer's
+// (T, bfloat16/float16 as the wire dtype of a float group, or int32 where
+// the reduction counts bool or multiplies small integers wider and where
+// int16 travels, NCCL having no int16).  avg is the identity, a division
+// by n in W (Average), or floor division for integers, after the cast to
+// an integer T (an int32 sum narrowed to int16 wraps first, as the JAX
+// program's int16 sum does); an integer W into a float32 T divides in
+// float32 after the cast (a reducescatter's Average).  Integers scale in
+// float32 and are cast back, truncating; float64 computes in double.  Each rounding is where the
 // JAX program rounds (collectives.py:61-68, engine.py:1989-2010), so
 // bf16-in/bf16-out and integer results are bitwise those of the plain
 // PyTorch versions in ops/fusion.py: a bf16 or fp16 product of two values of
@@ -87,7 +92,7 @@ namespace {
 
 enum Dtype : int {
   kF32 = 0, kBF16 = 1, kF16 = 2, kI32 = 3, kI64 = 4, kF64 = 5, kI8 = 6,
-  kU8 = 7
+  kU8 = 7, kBool = 8, kI16 = 9
 };
 enum Avg : int { kNone = 0, kDivide = 1, kFloorDivide = 2 };
 
@@ -157,8 +162,15 @@ struct UnpackOp {
   typename Acc<T>::type f;
   __device__ __forceinline__ T operator()(W b) const {
     if constexpr (std::is_integral_v<T>) {
-      const T v = avg == kFloorDivide ? floor_div<T>(b, static_cast<T>(n)) : b;
+      const T c = static_cast<T>(b);
+      const T v = avg == kFloorDivide ? floor_div<T>(c, static_cast<T>(n)) : c;
       return scale ? static_cast<T>(static_cast<float>(v) * f) : v;
+    } else if constexpr (std::is_integral_v<W>) {
+      float v = static_cast<float>(b);
+      if (avg == kDivide) v = v / static_cast<float>(n);
+      T t = from_acc<T>(v);
+      if (scale) t = from_acc<T>(to_acc(t) * f);
+      return t;
     } else {
       using AW = typename Acc<W>::type;
       AW v = to_acc(b);
@@ -506,6 +518,10 @@ extern "C" int hvd_fusion_pack(const void* table, int n, long long total,
     HVD_PACK(kU8, kU8, uint8_t, uint8_t)
     HVD_PACK(kI32, kI32, int32_t, int32_t)
     HVD_PACK(kI64, kI64, long long, long long)
+    HVD_PACK(kBool, kI32, bool, int32_t)
+    HVD_PACK(kI8, kI32, int8_t, int32_t)
+    HVD_PACK(kU8, kI32, uint8_t, int32_t)
+    HVD_PACK(kI16, kI32, int16_t, int32_t)
   }
 #undef HVD_PACK
   return (int)cudaErrorInvalidValue;
@@ -539,6 +555,11 @@ extern "C" int hvd_fusion_unpack(const void* table, int n, long long total,
     HVD_UNPACK(kU8, kU8, uint8_t, uint8_t)
     HVD_UNPACK(kI32, kI32, int32_t, int32_t)
     HVD_UNPACK(kI64, kI64, long long, long long)
+    HVD_UNPACK(kI32, kI16, int32_t, int16_t)
+    HVD_UNPACK(kI8, kF32, int8_t, float)
+    HVD_UNPACK(kU8, kF32, uint8_t, float)
+    HVD_UNPACK(kI32, kF32, int32_t, float)
+    HVD_UNPACK(kI64, kF32, long long, float)
   }
 #undef HVD_UNPACK
   return (int)cudaErrorInvalidValue;

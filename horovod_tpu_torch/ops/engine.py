@@ -5,8 +5,10 @@
 # enqueue/enqueue_group 610-697, synchronize/poll 802-850, the cycle
 # 911-1133, _compute_response_list 1136-1335 (the in-flight abort on a
 # leave notice 1252-1268), _perform_operation/
-# _settle_batch/_inflight_ring 1338-1463, _execute_batch 1792-1889 and the
-# fused-reduce and broadcast builders 1896-1953, 2028-2094.
+# _settle_batch/_inflight_ring 1338-1463, _join_fill_value/
+# _synthesize_join_entry 1470-1566, _execute_batch 1792-1889 and the
+# builders 1896-2094 (fused reduce, allreduce, broadcast), 2136-2148
+# (allgather) and 2225-2275 (reducescatter, alltoall).
 """The collective engine: Horovod's background coordinator, on torch tensors.
 
 Port of ``horovod_tpu/ops/engine.py`` (reference: ``horovod/common/
@@ -23,10 +25,20 @@ kernel (prescale, wire cast), reduced or broadcast by one
 ``torch.distributed`` call on the set's process group (NCCL on the card,
 gloo on the CPU; none in a set of one, where the collective is the
 identity), and unpacked into the outputs by ``hvd_fusion_unpack`` (average,
-cast back, postscale) — see ``ops/fusion.py``.  A broadcast group goes by
-bytes, whatever its dtype.  On the card an allreduce takes the dtypes that
-NCCL reduces as the JAX engine does (``fusion.check_arithmetic``) and
-refuses any other at submission.
+cast back, postscale) — see ``ops/fusion.py``.  A broadcast, allgather or
+alltoall group goes by bytes, whatever its dtype.  Allgather unpacks
+through world × N destination views (rank r's part of tensor i lands at
+rows ``[r·S0_i, (r+1)·S0_i)`` of its output); reducescatter and alltoall
+pack through world × N source views, rank-major, so that rank q's chunk is
+contiguous.
+
+An allreduce gives the JAX engine's outcome for every dtype
+(``reduce_dtypes``): bool counts in int32 (``Min``/``Max`` stay bool),
+int16 travels as int32 and is narrowed back, an int8/int16 ``Product``
+returns int32 and a uint8 one uint32, complex ``Sum`` reduces float pairs
+and complex ``Product`` gathers and multiplies in rank order.  The pack
+kernel widens and the unpack kernel narrows.  What the JAX engine refuses
+(complex ``Average``/``Min``/``Max``) is refused at submission.
 
 Tensors are per-rank: an entry holds this rank's own ``[*S]`` tensor, where
 the JAX engine holds the stacked ``[world, *S]``.  The fusion threshold
@@ -41,20 +53,25 @@ which ``synchronize`` makes the caller's stream wait on.  This engine's
 cycle thread is the port's only caller of ``torch.distributed``
 collectives.
 
-Out of this slice: allgather, alltoall, reducescatter and join; the fast
-lane, partitioning, chunked pipelining and the checkpoint lane; the
-hierarchical data plane and Adasum; the timeline, tracer, monitor,
-sanitizer and autotuner.
+A joined rank (``join``) takes part in every collective its peers submit
+with an identity contribution (``_join_fill_value``), synthesized by the
+controller's ``synthesizer`` hook from the negotiated digest.
+
+Out of this slice: the fast lane, partitioning, chunked pipelining and the
+checkpoint lane; the hierarchical data plane and Adasum; the timeline,
+tracer, monitor, sanitizer and autotuner.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import enum
 import heapq
 import itertools
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -105,14 +122,17 @@ class TensorTableEntry:
     # scheduling); must be identical across ranks for a given name.
     priority: int = 0
     enqueue_time: float = 0.0
-    # Where unpack writes: a tensor of ``tensor``'s shape, dtype and device
-    # (``tensor`` itself for the in-place forms).  ``target``, when set, is
+    # Where unpack writes: the result's tensor on the engine's device
+    # (``tensor`` itself for the in-place forms whose result keeps its
+    # dtype; made at submission when not given).  ``target``, when set, is
     # what ``synchronize`` returns, filled from the output unless it is
     # the output's own memory (the caller's tensor for the in-place forms,
     # which the engine may have staged onto its device or into contiguous
-    # memory).
+    # memory).  ``home``, when set, is the caller's device, where
+    # ``synchronize`` returns a result staged from it.
     output: Any = None
     target: Any = None
+    home: Any = None
     ready: Any = None                # CUDA event: the inputs are written
     # filled on completion:
     result: Any = None
@@ -130,6 +150,82 @@ def _fusion_key(e: TensorTableEntry) -> Tuple:
     group table N13 semantics)."""
     return (e.ctype, e.reduce_op, e.root_rank, e.process_set_id,
             e.prescale_factor, e.postscale_factor, e.compression)
+
+
+def reduce_dtypes(ctype: CollectiveType, dtype: torch.dtype,
+                  op: C.ReduceOp) -> Tuple[torch.dtype, torch.dtype]:
+    """``(buffer dtype, result dtype)`` of a reduction of ``dtype`` under
+    ``op``: what the JAX engine gives without x64
+    (``horovod_tpu/ops/engine.py`` ``_build_allreduce`` :2028-2073,
+    ``_build_reducescatter`` :2225-2260).  The buffer's dtype is what the
+    collective reduces: int32 where the JAX program counts or multiplies
+    in a wider type (NCCL has no int16), the group's own otherwise; a
+    complex group reduces its float pairs.  Raises ``TypeError`` for what
+    the JAX engine refuses (complex ``Average``/``Min``/``Max``), and for
+    the reducescatter dtypes not ported (bool, int16, complex)."""
+    P = C.ReduceOp.PRODUCT
+    counted = dtype in (torch.int8, torch.uint8, torch.int16)
+    if ctype == CollectiveType.REDUCESCATTER:
+        if dtype in (torch.bool, torch.int16) or dtype.is_complex:
+            raise TypeError(f"reducescatter takes no {dtype} in the port "
+                            f"(ROADMAP queue 3)")
+        if op == C.ReduceOp.AVERAGE and not dtype.is_floating_point:
+            return dtype, torch.float32       # divides with `/`, :2239-2240
+    elif dtype.is_complex:
+        if op not in (C.ReduceOp.SUM, P):
+            raise TypeError(f"allreduce of {dtype} takes Sum and Product, as "
+                            f"the JAX engine does, got {op.name}")
+        return dtype, dtype
+    elif dtype == torch.bool:
+        if op in (C.ReduceOp.MIN, C.ReduceOp.MAX):
+            return dtype, dtype
+        return torch.int32, torch.int32
+    elif dtype == torch.int16 and op != P:
+        return torch.int32, torch.int16
+    if op == P and counted:
+        return torch.int32, (torch.uint32 if dtype == torch.uint8
+                             else torch.int32)
+    return dtype, dtype
+
+
+def _join_fill_value(ctype: CollectiveType, op: C.ReduceOp,
+                     dtype: torch.dtype):
+    """A joined rank's implicit contribution: the reduction's identity,
+    so that it cannot change the peers' result (plain zeros would zero a
+    ``Product`` or clamp a ``Max`` of negatives); zeros for the payload of
+    a broadcast, allgather or alltoall."""
+    if ctype not in (CollectiveType.ALLREDUCE,
+                     CollectiveType.REDUCESCATTER):
+        return 0
+    if op == C.ReduceOp.PRODUCT:
+        return 1
+    if op in (C.ReduceOp.MIN, C.ReduceOp.MAX):
+        hi = op == C.ReduceOp.MIN          # the identity of Min is the max
+        if dtype == torch.bool:
+            return hi
+        info = (torch.finfo(dtype) if dtype.is_floating_point
+                else torch.iinfo(dtype))
+        return info.max if hi else info.min
+    return 0                               # Sum, Average (divides by world)
+
+
+def _pairs(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous complex tensor as its flat float pairs."""
+    return torch.view_as_real(t).reshape(-1)
+
+
+def _rows(tensors, world: int) -> List[int]:
+    """Each tensor's elements in one of ``world`` chunks of dim 0."""
+    return [(t.shape[0] // world) * (t.numel() // t.shape[0])
+            if t.shape[0] else 0 for t in tensors]
+
+
+def _views(tensors, sizes: Sequence[int], world: int) -> List[torch.Tensor]:
+    """World × N flat views, rank-major: view ``(q, i)`` is elements
+    ``[q·n_i, (q+1)·n_i)`` of tensor i."""
+    flat = [t.view(-1) for t in tensors]
+    return [f[q * n:(q + 1) * n] for q in range(world)
+            for f, n in zip(flat, sizes)]
 
 
 def _dist_op(op: C.ReduceOp):
@@ -358,19 +454,16 @@ class CollectiveEngine:
             # Peers departed via clean LEAVE (protocol v6): world-level
             # work cannot run until the world re-forms.
             raise self._world_changed
-        if self._state.device.type == "cuda":
-            # Refused here, never from the cycle thread: NCCL has no int16
-            # or complex reduction, and it sums bool as a logical or where
-            # the JAX engine counts.
-            for kw in items:
-                if kw["ctype"] == CollectiveType.ALLREDUCE:
-                    fusion.check_arithmetic(
-                        kw["tensor"].dtype,
-                        f"allreduce of {kw['name']!r} on the card")
         entries = []
         for kw in items:
             handle = next(self._handle_counter)
-            entries.append(TensorTableEntry(handle=handle, **kw))
+            e = TensorTableEntry(handle=handle, **kw)
+            # Refused here, never from the cycle thread: what the JAX
+            # engine refuses too.
+            self._check_entry(e)
+            if e.output is None:
+                e.output = self._make_output(e)
+            entries.append(e)
         cuda = [e.tensor.device for e in entries
                 if e.tensor is not None and e.tensor.device.type == "cuda"]
         if cuda:
@@ -397,6 +490,47 @@ class CollectiveEngine:
         self._wake.set()
         return [e.handle for e in entries]
 
+    def _check_entry(self, e: TensorTableEntry) -> None:
+        """Raise for a submission the JAX engine refuses: a complex
+        ``Average``/``Min``/``Max``; a 0-d tensor to a collective along
+        dim 0; a ``Sum``/``Average`` reducescatter or an alltoall whose dim
+        0 does not divide by the set's size."""
+        t, ct = e.tensor, e.ctype
+        if ct in (CollectiveType.ALLREDUCE, CollectiveType.REDUCESCATTER):
+            reduce_dtypes(ct, t.dtype, e.reduce_op)
+        if ct not in (CollectiveType.ALLGATHER, CollectiveType.ALLTOALL,
+                      CollectiveType.REDUCESCATTER):
+            return
+        if t.dim() == 0:
+            raise ValueError(f"{ct.value} of {e.name!r} runs along dim 0 "
+                             f"and takes no 0-d tensor")
+        world = self._state.process_set_table.get(e.process_set_id).size()
+        even = ct == CollectiveType.ALLTOALL or e.reduce_op in (
+            C.ReduceOp.SUM, C.ReduceOp.AVERAGE)
+        if ct != CollectiveType.ALLGATHER and even and t.shape[0] % world:
+            raise ValueError(f"{ct.value} of {e.name!r} needs dim 0 "
+                             f"divisible by the set's size {world}, got "
+                             f"{tuple(t.shape)}")
+
+    def _make_output(self, e: TensorTableEntry):
+        """The result's tensor on the tensor's device: an allgather's is
+        world× longer in dim 0, a reducescatter's a world-th (the rows
+        past ``world × (S0 // world)`` of a ``Min``/``Max``/``Product``
+        are dropped, as the JAX engine drops them)."""
+        t = e.tensor
+        if t is None:
+            return None
+        world = self._state.process_set_table.get(e.process_set_id).size()
+        shape, dt = tuple(t.shape), t.dtype
+        if e.ctype in (CollectiveType.ALLREDUCE,
+                       CollectiveType.REDUCESCATTER):
+            dt = reduce_dtypes(e.ctype, dt, e.reduce_op)[1]
+        if e.ctype == CollectiveType.ALLGATHER:
+            shape = (world * shape[0],) + shape[1:]
+        elif e.ctype == CollectiveType.REDUCESCATTER:
+            shape = (shape[0] // world,) + shape[1:]
+        return torch.empty(shape, dtype=dt, device=t.device)
+
     def synchronize(self, handle: int, timeout: Optional[float] = None):
         """Block until the handle's collective completed; return its
         result, the output tensor (the caller's own tensor where the
@@ -420,6 +554,8 @@ class CollectiveEngine:
                 e.done_event)
         t = e.target
         if t is None:
+            if e.home is not None and e.result is not None:
+                return e.result.to(e.home)
             return e.result
         if t.device != e.result.device or t.data_ptr() != e.result.data_ptr():
             with torch.no_grad():
@@ -561,6 +697,9 @@ class CollectiveEngine:
         """
         not_ready: List[TensorTableEntry] = []
         if self.controller is not None:
+            # While this rank is joined, the controller builds its part of
+            # every collective a peer submits through this hook.
+            self.controller.synthesizer = self._synthesize_join_entry
             # Zero-RTT dispatch-safety gate (protocol v7): a speculative
             # verdict is dispatched before peers have its real verdict,
             # so this thread must stay free to keep serving them rounds —
@@ -726,6 +865,13 @@ class CollectiveEngine:
         if done_event is not None:
             done_event.synchronize()
 
+    @staticmethod
+    def _batch_done(results) -> bool:
+        """The in-flight window's probe: whether the batch completed,
+        without waiting.  An abort settles such a batch with its results."""
+        _, done_event = results
+        return done_event is None or done_event.query()
+
     def _inflight_ring(self) -> Optional[InflightRing]:
         """The bounded dispatch window, or None for inline settling.
 
@@ -739,10 +885,47 @@ class CollectiveEngine:
             self._inflight = InflightRing(
                 self._wait_done,
                 lambda b, r, err: self._settle_batch(b, r, err),
-                depth=self.max_inflight)
+                depth=self.max_inflight, probe=self._batch_done)
         else:
             self._inflight.depth = max(1, int(self.max_inflight))
         return self._inflight
+
+    def _synthesize_join_entry(self, name: str, digest: str,
+                               group_id: int = -1) -> TensorTableEntry:
+        """This rank's part, while it is joined, of a collective a peer
+        submitted: the digest (``TCPController._digest``: collective,
+        dtype, per-rank shape, op, root, factors, wire compression) gives
+        the same entry the peers batch, holding the identity of the
+        reduction (``_join_fill_value``), and the echoed group id keeps
+        grouped batching."""
+        handle = next(self._handle_counter)
+        now = time.monotonic()   # a fresh age: must not trip the stall check
+        if digest == "barrier":
+            return TensorTableEntry(handle=handle, name=name,
+                                    ctype=CollectiveType.BARRIER,
+                                    tensor=None, enqueue_time=now)
+        parts = digest.split("|")
+        ctype = CollectiveType(parts[0])
+        dtype = getattr(torch, parts[1])
+        shape = tuple(ast.literal_eval(parts[2]))
+        op = C.ReduceOp[parts[3]]
+        pre = None if parts[5] == "None" else float(parts[5])
+        post = None if parts[6] == "None" else float(parts[6])
+        comp = parts[7] if len(parts) > 7 and parts[7] in WIRE_DTYPES \
+            else None
+        dev = self._state.device
+        fill = torch.full(shape, _join_fill_value(ctype, op, dtype),
+                          dtype=dtype, device=dev)
+        e = TensorTableEntry(
+            handle=handle, name=name, ctype=ctype, tensor=fill,
+            reduce_op=op, root_rank=int(parts[4]), prescale_factor=pre,
+            postscale_factor=post, group_id=group_id, compression=comp,
+            enqueue_time=now)
+        e.output = self._make_output(e)
+        if dev.type == "cuda":
+            e.ready = torch.cuda.Event()
+            e.ready.record(torch.cuda.current_stream(dev))
+        return e
 
     def _stream(self, dev: torch.device):
         s = self._streams.get(dev)
@@ -758,9 +941,6 @@ class CollectiveEngine:
         if e0.ctype == CollectiveType.BARRIER:
             # The negotiated verdict is the barrier: every rank announced.
             return [None for _ in batch], None
-        if e0.ctype not in (CollectiveType.ALLREDUCE,
-                            CollectiveType.BROADCAST):
-            raise ValueError(f"Unsupported collective: {e0.ctype}")
         ps = self._state.process_set_table.get(e0.process_set_id)
         dev = e0.tensor.device
         if dev.type != "cuda":
@@ -782,41 +962,141 @@ class CollectiveEngine:
 
     def _run_groups(self, batch: List[TensorTableEntry], ps) -> List:
         """One buffer per dtype (first-occurrence order), each packed, run
-        through one collective and unpacked — the port of
-        ``_build_fused_reduce``/``_build_allreduce``/``_build_broadcast``:
-        prescale in the source dtype, then the wire cast; Average divides
-        in the buffer's dtype (floor division for integers); the cast
-        back, then the postscale."""
-        e0 = batch[0]
-        allreduce = e0.ctype == CollectiveType.ALLREDUCE
-        world = ps.size()
-        wire = WIRE_DTYPES.get(e0.compression) if allreduce else None
-        pre = e0.prescale_factor if allreduce else None
-        post = e0.postscale_factor if allreduce else None
-        divisor = (world if allreduce and e0.reduce_op == C.ReduceOp.AVERAGE
-                   else 1)
-        dtype_groups: Dict[torch.dtype, List[TensorTableEntry]] = {}
+        through one collective and unpacked — the port of the JAX engine's
+        builders, one dtype group at a time."""
+        groups: Dict[torch.dtype, List[TensorTableEntry]] = {}
         for e in batch:
-            dtype_groups.setdefault(e.tensor.dtype, []).append(e)
-        for dt, members in dtype_groups.items():
-            buf = fusion.pack([e.tensor for e in members],
-                              fusion.buffer_dtype(dt, wire), pre)
-            if world > 1:
-                self._collective(buf, e0, ps)
-            fusion.unpack(buf, [e.output for e in members], divisor, post)
+            groups.setdefault(e.tensor.dtype, []).append(e)
+        run = {CollectiveType.ALLREDUCE: self._run_allreduce,
+               CollectiveType.BROADCAST: self._run_broadcast,
+               CollectiveType.ALLGATHER: self._run_allgather,
+               CollectiveType.REDUCESCATTER: self._run_reducescatter,
+               CollectiveType.ALLTOALL: self._run_alltoall}[batch[0].ctype]
+        for members in groups.values():
+            run(members, ps)
             self.fused_groups += 1
         return [e.output for e in batch]
 
-    @staticmethod
-    def _collective(buf: torch.Tensor, e0: TensorTableEntry, ps) -> None:
-        """The one collective of a dtype group, on the set's process group
-        (on the card it runs on NCCL's stream, ordered after the pack and
-        before the unpack of this stream).  A broadcast moves the buffer as
-        bytes: NCCL and gloo both take uint8, and a byte copy is bitwise
-        root's tensor for every dtype."""
-        import torch.distributed as dist
-        if e0.ctype == CollectiveType.BROADCAST:
+    def _run_allreduce(self, members: List[TensorTableEntry], ps) -> None:
+        """``_build_fused_reduce``/``_build_allreduce``: prescale in the
+        source dtype, then the cast to the buffer's dtype (the wire dtype,
+        or ``reduce_dtypes``'s widening); Average divides (floor division
+        for integers, after narrowing); the cast back, then the
+        postscale."""
+        e0, world = members[0], ps.size()
+        dt, op = e0.tensor.dtype, e0.reduce_op
+        ins = [e.tensor for e in members]
+        outs = [e.output for e in members]
+        buf_dt = reduce_dtypes(CollectiveType.ALLREDUCE, dt, op)[0]
+        wire = WIRE_DTYPES.get(e0.compression)
+        if dt.is_complex:
+            ins, outs = [_pairs(t) for t in ins], [_pairs(o) for o in outs]
+            buf_dt, wire = ins[0].dtype, None
+        buf = fusion.pack(ins, fusion.buffer_dtype(buf_dt, wire),
+                          e0.prescale_factor)
+        if world > 1:
+            if dt.is_complex and op == C.ReduceOp.PRODUCT:
+                buf = self._complex_product(buf, ps)
+            else:
+                self._all_reduce(buf, op, ps)
+        if outs[0].dtype == torch.uint32:
+            buf = buf.view(torch.uint32)      # int32 products, same bits
+        divisor = world if op == C.ReduceOp.AVERAGE else 1
+        fusion.unpack(buf, outs, divisor, e0.postscale_factor)
+
+    def _run_broadcast(self, members: List[TensorTableEntry], ps) -> None:
+        """By bytes: a byte copy is bitwise root's tensor for every
+        dtype."""
+        e0 = members[0]
+        buf = fusion.pack([e.tensor for e in members], e0.tensor.dtype)
+        if ps.size() > 1:
+            import torch.distributed as dist
             dist.broadcast(buf.view(torch.uint8), src=ps.ranks[e0.root_rank],
                            group=ps.group)
-        else:
-            dist.all_reduce(buf, op=_dist_op(e0.reduce_op), group=ps.group)
+        fusion.unpack(buf, [e.output for e in members])
+
+    def _run_allgather(self, members: List[TensorTableEntry], ps) -> None:
+        """``_build_allgather`` (tiled on dim 0), by bytes: every rank's
+        buffer lands rank-major in one gathered buffer, unpacked through
+        world × N destination views."""
+        world = ps.size()
+        ins = [e.tensor for e in members]
+        buf = fusion.pack(ins, ins[0].dtype)
+        out = buf
+        if world > 1:
+            import torch.distributed as dist
+            out = torch.empty(world * buf.numel(), dtype=buf.dtype,
+                              device=buf.device)
+            dist.all_gather_into_tensor(out.view(torch.uint8),
+                                        buf.view(torch.uint8),
+                                        group=ps.group)
+        fusion.unpack(out, _views([e.output for e in members],
+                                  [t.numel() for t in ins], world))
+
+    def _run_reducescatter(self, members: List[TensorTableEntry],
+                           ps) -> None:
+        """``_build_reducescatter``: world × N source views packed
+        rank-major, one reduce-scatter (NCCL's own Min/Max/Product where
+        the JAX program gathers, reduces and slices), and Average's
+        division in the result's dtype (``/``: an integer input comes
+        back float32)."""
+        e0, world = members[0], ps.size()
+        ins = [e.tensor for e in members]
+        sizes = _rows(ins, world)
+        buf_dt, out_dt = reduce_dtypes(CollectiveType.REDUCESCATTER,
+                                       ins[0].dtype, e0.reduce_op)
+        buf = fusion.pack(_views(ins, sizes, world), buf_dt)
+        red = buf
+        if world > 1:
+            import torch.distributed as dist
+            red = torch.empty(sum(sizes), dtype=buf_dt, device=buf.device)
+            dist.reduce_scatter_tensor(red, buf, op=_dist_op(e0.reduce_op),
+                                       group=ps.group)
+        if out_dt == torch.uint32:
+            red = red.view(torch.uint32)
+        divisor = world if e0.reduce_op == C.ReduceOp.AVERAGE else 1
+        fusion.unpack(red, [e.output for e in members], divisor)
+
+    def _run_alltoall(self, members: List[TensorTableEntry], ps) -> None:
+        """``_build_alltoall`` (split and concatenated on dim 0), by
+        bytes: chunk q of every tensor packed together for rank q, one
+        all-to-all, and rank r's chunks unpacked to rows
+        ``[r·S0_i/world, (r+1)·S0_i/world)`` of each output."""
+        world = ps.size()
+        ins = [e.tensor for e in members]
+        sizes = _rows(ins, world)
+        buf = fusion.pack(_views(ins, sizes, world), ins[0].dtype)
+        out = buf
+        if world > 1:
+            import torch.distributed as dist
+            out = torch.empty_like(buf)
+            dist.all_to_all_single(out.view(torch.uint8),
+                                   buf.view(torch.uint8), group=ps.group)
+        fusion.unpack(out, _views([e.output for e in members], sizes,
+                                  world))
+
+    @staticmethod
+    def _all_reduce(buf: torch.Tensor, op: C.ReduceOp, ps) -> None:
+        """The group's one allreduce (on the card on NCCL's stream, ordered
+        after the pack and before the unpack of this stream).  A bool
+        buffer (``Min``/``Max``) reduces as bytes."""
+        import torch.distributed as dist
+        if buf.dtype == torch.bool:
+            buf = buf.view(torch.uint8)
+        dist.all_reduce(buf, op=_dist_op(op), group=ps.group)
+
+    @staticmethod
+    def _complex_product(buf: torch.Tensor, ps) -> torch.Tensor:
+        """A complex ``Product`` (float pairs in ``buf``): every rank's
+        buffer gathered, multiplied in rank order as the JAX program's
+        ``jnp.prod`` over the gathered axis."""
+        import torch.distributed as dist
+        world = ps.size()
+        g = torch.empty(world * buf.numel(), dtype=buf.dtype,
+                        device=buf.device)
+        dist.all_gather_into_tensor(g, buf, group=ps.group)
+        c = torch.view_as_complex(g.view(world, -1, 2))
+        prod = c[0]
+        for r in range(1, world):
+            prod = prod * c[r]
+        return _pairs(prod.contiguous())

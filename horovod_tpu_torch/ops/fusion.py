@@ -10,10 +10,16 @@ two kernels, ``hvd_fusion_pack`` and ``hvd_fusion_unpack``
 
 - ``pack``: ``buf[off_i + j] = W(round_T(x_i[j] * round_T(pre)))`` — the
   prescale in the tensors' dtype T, then the cast to the buffer's dtype W
-  (the wire dtype of a compressed float group, else T);
+  (the wire dtype of a compressed float group; int32 for a bool, int8,
+  uint8 or int16 group that the reduction counts or multiplies wider; else
+  T);
 - ``unpack``: ``out_i[j] = round_T(T(avg_W(buf[off_i + j])) *
-  round_T(post))`` — ``Average``'s division by the set's size in W (floor
-  division for integers), the cast back to T, then the postscale.
+  round_T(post))`` — ``Average``'s division by the set's size in W, the
+  cast back to T, then the postscale.  An integer output is cast first
+  (an int32 buffer narrowed to int16 wraps, as the JAX program's int16
+  sum does) and floor-divided in its own dtype; an integer buffer into a
+  float32 output (a reducescatter's ``Average``, ``/`` in the JAX program)
+  divides in float32 after the cast.
 
 A group with no arithmetic (no factor, no wire cast, no division: every
 broadcast group, and the gradients of an allreduce without factors on the
@@ -21,7 +27,8 @@ way in) goes by bytes: ``hvd_fusion_copy`` copies any dtype, bool and
 complex included, with no dtype code — by Hopper's bulk asynchronous copies
 when every tensor and its place in the buffer start on a 16-byte boundary,
 else by the same 16-byte walk as the arithmetic path.  The arithmetic path
-takes float32, float64, bfloat16, float16, int8, uint8, int32 and int64.
+takes float32, float64, bfloat16, float16, int8, uint8, int32 and int64,
+and bool and int16 as sources of the widening to int32.
 
 Each wrapper takes CPU tensors through its plain PyTorch version
 (``torch.cat``, ``split``, the factor rounded by ``collectives._scale``; a
@@ -44,9 +51,26 @@ from .collectives import _scale, scale_factor
 # Dtype codes of fusion.cu's arithmetic path.
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
           torch.int32: 3, torch.int64: 4, torch.float64: 5, torch.int8: 6,
-          torch.uint8: 7}
+          torch.uint8: 7, torch.bool: 8, torch.int16: 9}
 _WIRE = (torch.bfloat16, torch.float16)
+_WIDENED = (torch.bool, torch.int8, torch.uint8, torch.int16)
+_INTEGERS = (torch.int8, torch.uint8, torch.int32, torch.int64)
 _AVG_DIVIDE, _AVG_FLOOR = 1, 2
+
+
+def _packs(src: torch.dtype, buf: torch.dtype) -> bool:
+    """The casts ``pack`` takes: none, a float group to a wire dtype, or
+    a small integer or bool group widened to int32."""
+    return (buf == src or (src.is_floating_point and buf in _WIRE)
+            or (src in _WIDENED and buf == torch.int32))
+
+
+def _unpacks(buf: torch.dtype, out: torch.dtype) -> bool:
+    """The casts ``unpack`` takes: none, a wire buffer to a float group,
+    int32 narrowed to int16, or an integer buffer to float32."""
+    return (out == buf or (out.is_floating_point and buf in _WIRE)
+            or (buf == torch.int32 and out == torch.int16)
+            or (buf in _INTEGERS and out == torch.float32))
 
 
 def buffer_dtype(dtype: torch.dtype,
@@ -73,7 +97,10 @@ def pack_plain(tensors: Sequence[torch.Tensor], buf_dtype: torch.dtype,
 
 def unpack_plain(buf: torch.Tensor, outs: Sequence[torch.Tensor],
                  divisor: int, postscale: Optional[float]) -> None:
+    dt = outs[0].dtype
     red = buf
+    if not (dt.is_floating_point and buf.dtype.is_floating_point):
+        red = red.to(dt)
     if divisor > 1:
         red = (red / divisor if red.dtype.is_floating_point
                else torch.div(red, divisor, rounding_mode="floor"))
@@ -98,16 +125,13 @@ def _check(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
     return dev
 
 
-def check_arithmetic(dtype: torch.dtype, what: str) -> None:
-    """Raise ``TypeError`` unless the kernels' arithmetic path takes
-    ``dtype`` (the byte path takes every dtype)."""
+def _code(dtype: torch.dtype, what: str) -> int:
+    """``dtype``'s code; ``TypeError`` where the kernels' arithmetic path
+    takes no such dtype (the byte path takes every dtype)."""
     if dtype not in _CODES:
         names = ", ".join(str(d).replace("torch.", "") for d in _CODES)
-        raise TypeError(f"{what} takes {names}, got {dtype}")
-
-
-def _code(dtype: torch.dtype, what: str) -> int:
-    check_arithmetic(dtype, f"the {what} kernel's arithmetic path")
+        raise TypeError(f"the {what} kernel's arithmetic path takes {names}, "
+                        f"got {dtype}")
     return _CODES[dtype]
 
 
@@ -193,9 +217,10 @@ def pack(tensors: Sequence[torch.Tensor], buf_dtype: torch.dtype,
     contiguous, one device) in order, each scaled by ``prescale``."""
     dev = _check(tensors, "pack")
     dt = tensors[0].dtype
-    if buf_dtype != dt and not (dt.is_floating_point and buf_dtype in _WIRE):
-        raise ValueError(f"pack casts a float group to bfloat16 or float16 "
-                         f"only, got {dt} -> {buf_dtype}")
+    if not _packs(dt, buf_dtype):
+        raise ValueError(f"pack casts a float group to bfloat16 or float16, "
+                         f"or widens a small integer group to int32, got "
+                         f"{dt} -> {buf_dtype}")
     scale, f = _factor_arg(prescale, dt)
     if buf_dtype == dt and not scale:
         buf = _pack_bytes(tensors, dev)
@@ -233,9 +258,10 @@ def unpack(buf: torch.Tensor, outs: Sequence[torch.Tensor], divisor: int = 1,
         raise ValueError(f"the outputs hold {offs[-1]} elements, the buffer "
                          f"{buf.numel()}")
     dt = outs[0].dtype
-    if dt != buf.dtype and not (dt.is_floating_point and buf.dtype in _WIRE):
+    if not _unpacks(buf.dtype, dt):
         raise ValueError(f"unpack casts a bfloat16 or float16 buffer to a "
-                         f"float group only, got {buf.dtype} -> {dt}")
+                         f"float group, int32 to int16, or an integer buffer "
+                         f"to float32, got {buf.dtype} -> {dt}")
     if divisor < 1:
         raise ValueError(f"divisor must be >= 1, got {divisor}")
     scale, f = _factor_arg(postscale, dt)
@@ -247,7 +273,7 @@ def unpack(buf: torch.Tensor, outs: Sequence[torch.Tensor], divisor: int = 1,
     else:
         avg = 0
         if divisor > 1:
-            avg = _AVG_DIVIDE if buf.dtype.is_floating_point else _AVG_FLOOR
+            avg = _AVG_DIVIDE if dt.is_floating_point else _AVG_FLOOR
         table = _table([o.data_ptr() for o in outs], offs, dev)
         _launched(_lib().hvd_fusion_unpack(
             table.data_ptr(), len(outs), offs[-1], buf.data_ptr(),

@@ -2,7 +2,8 @@
 # dispatch lanes the port uses), 77-97 (pop_gradient_batches), 148-151
 # (parent_of), 154-219 (TensorQueue), 221-270 (FusedProgramCache), 272-368
 # (StallInspector) and 371-517 (InflightRing); issue-number tags are dropped
-# from the comments.
+# from the comments.  InflightRing gained a ``probe``: its abort settles a
+# batch that already completed with its results, not with the fault.
 """Data-plane scheduling primitives (no torch imports).
 
 The pieces of the collective engine that are pure host-side scheduling —
@@ -298,14 +299,17 @@ class InflightRing:
 
     ``waiter(results)`` blocks until device results are real (the engine
     passes ``jax.block_until_ready``); ``settler(batch, results, error)``
-    assigns results and releases waiters.  Both injectable, so the ring is
-    testable without jax.
+    assigns results and releases waiters; ``probe(results)``, when given,
+    says without blocking whether the results are real already.  All
+    injectable, so the ring is testable without a device.
     """
 
-    def __init__(self, waiter: Callable, settler: Callable, depth: int = 2):
+    def __init__(self, waiter: Callable, settler: Callable, depth: int = 2,
+                 probe: Optional[Callable] = None):
         self.depth = max(1, int(depth))
         self._waiter = waiter
         self._settler = settler
+        self._probe = probe
         self._cv = threading.Condition()
         self._items: deque = deque()
         self._stop = False
@@ -370,7 +374,11 @@ class InflightRing:
         watcher already settled SUCCESSFULLY is skipped — a completed
         collective must not retroactively report the fault.  A ``submit``
         racing the abort settles its batch with the fault instead of
-        queueing it."""
+        queueing it.  A batch whose collective already completed (the
+        ``probe`` says so) but that the watcher has not settled yet
+        settles with its results: the fault is a later round's, and the
+        peer that died may have taken the same batch's results with it
+        (the coordinator's host exiting after its last collective)."""
         with self._cv:
             self._abort_error = error
             self._stop = True
@@ -381,9 +389,18 @@ class InflightRing:
             self._cv.notify_all()
         for batch, results, _ in doomed:
             try:
-                self._settler(batch, results, error)
+                self._settler(batch, results,
+                              None if self._completed(results) else error)
             except BaseException:  # noqa: BLE001 - settle the rest anyway
                 log.exception("in-flight abort settle failed")
+
+    def _completed(self, results) -> bool:
+        if self._probe is None:
+            return False
+        try:
+            return bool(self._probe(results))
+        except BaseException:  # noqa: BLE001 - an unreadable batch failed
+            return False
 
     def _watch(self):
         while True:

@@ -1,0 +1,468 @@
+# Ported from horovod_tpu/runner/run.py:1-650: HostSpec, parse_hosts,
+# parse_hostfile, the argument surface, _apply_config_file, placement,
+# tuning_env, wait_and_reap, worker_envs, ssh_command, launch_workers and
+# main.  platform_worker_env (:359-388, JAX and XLA variables) is replaced
+# by the card's counterpart; the flags of what the port lacks are refused.
+"""The launcher's argument surface and launch orchestration.
+
+Parity with the reference launcher (``horovod/runner/launch.py``, ``run.py``,
+``gloo_run.py`` — SURVEY.md §2b P7, §3.3): parse ``-np``/``-H``/
+``--hostfile`` and the tuning flags (plus ``--config-file`` YAML mirroring
+them), compute the rank→host placement, and spawn one worker process per
+rank, locally or over ssh, with the ``HOROVOD_*`` environment injected.
+Rank 0's host serves the ``torch.distributed`` rendezvous at
+``HOROVOD_CONTROLLER_PORT`` and the negotiation coordinator at
+``HOROVOD_CONTROLLER_PORT2`` (``common/basics.py`` ``init``), and each
+worker computes on ``cuda:{HOROVOD_LOCAL_RANK}``; the launcher sets no
+``CUDA_VISIBLE_DEVICES``.
+
+Where two ``-H`` entries are the same machine (``localhost:1,127.0.0.1:1``
+on one card), each entry's ranks get their own ``NCCL_HOSTID``: NCCL refuses
+two ranks of one host on one GPU and keys that check on the host, so the
+ranks join over NCCL's socket transport instead (on the loopback device for
+loopback entries).
+
+A flag whose feature the port lacks is refused when it is parsed, naming
+the ROADMAP item that brings it, rather than forwarded to workers that
+would ignore it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import shlex
+import socket
+import subprocess
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+@dataclasses.dataclass
+class HostSpec:
+    hostname: str
+    slots: int
+
+
+def parse_hosts(hosts: str) -> List[HostSpec]:
+    """Parse ``-H host1:2,host2:4`` (reference: runner/common/util/hosts.py)."""
+    specs = []
+    for part in hosts.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part:
+            name, slots = part.rsplit(":", 1)
+            specs.append(HostSpec(name, int(slots)))
+        else:
+            specs.append(HostSpec(part, 1))
+    return specs
+
+
+def parse_hostfile(path: str) -> List[HostSpec]:
+    """Parse a hostfile with ``hostname slots=N`` lines (reference format)."""
+    specs = []
+    with open(path) as fh:
+        for line in fh:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            fields = line.split()
+            name = fields[0]
+            slots = 1
+            for f in fields[1:]:
+                if f.startswith("slots="):
+                    slots = int(f.split("=", 1)[1])
+            specs.append(HostSpec(name, slots))
+    return specs
+
+
+# The JAX launcher's flags whose feature the port lacks: flag → what brings
+# it.  Each is parsed, then refused.
+_TPU = "runner/tpu_vm.py has no GPU counterpart"
+_ELASTIC = "elastic/ is not ported (ROADMAP queue 1 item 6)"
+_DEPTH = "ROADMAP queue 1 item 3, data-plane depth"
+_OBSERVE = "ROADMAP queue 1 item 7, observability"
+NOT_PORTED: Dict[str, str] = {
+    "--tpu": _TPU, "--zone": _TPU, "--project": _TPU,
+    "--tpu-topology-aware": _TPU, "--gke-jobset": _TPU,
+    "--container-image": _TPU, "--gke-num-hosts": _TPU,
+    "--gke-accelerator": _TPU, "--gke-topology": _TPU,
+    "--gke-chips-per-host": _TPU,
+    "--min-np": _ELASTIC, "--max-np": _ELASTIC,
+    "--host-discovery-script": _ELASTIC,
+    "--tpu-metadata-discovery": _ELASTIC, "--slots-per-host": _ELASTIC,
+    "--autoscale": _ELASTIC, "--autoscale-interval": _ELASTIC,
+    "--scale-command": _ELASTIC, "--preempt-grace-s": _ELASTIC,
+    "--commit-max-age-s": _ELASTIC,
+    "--hierarchical-controller": "common/host_agent.py is not ported "
+                                 "(ROADMAP queue 1 item 6)",
+    "--pipeline-chunk-mb": f"chunked pipelining, {_DEPTH}",
+    "--fast-lane-threshold-kb": f"the fast lane, {_DEPTH}",
+    "--partition-threshold-mb": f"partitioning, {_DEPTH}",
+    "--ckpt-dir": f"the checkpoint lane, {_DEPTH}",
+    "--ckpt-chunk-mb": f"the checkpoint lane, {_DEPTH}",
+    "--ckpt-lane-budget": f"the checkpoint lane, {_DEPTH}",
+    "--autotune": f"ops/autotune.py, {_DEPTH}",
+    "--autotune-log-file": f"ops/autotune.py, {_DEPTH}",
+    "--cache-capacity": "the port compiles no fused programs to cache (the "
+                        "negotiation response cache is "
+                        "HOROVOD_RESPONSE_CACHE_CAPACITY)",
+    "--monitor": f"the monitor, {_OBSERVE}",
+    "--monitor-port": f"the monitor, {_OBSERVE}",
+    "--monitor-interval": f"the monitor, {_OBSERVE}",
+    "--trace-filename": f"the tracer, {_OBSERVE}",
+    "--trace-ring": f"the tracer, {_OBSERVE}",
+    "--timeline-filename": f"the timeline, {_OBSERVE}",
+    "--timeline-mark-cycles": f"the timeline, {_OBSERVE}",
+    "--hierarchical-allreduce": "ROADMAP queue 1 item 4, hierarchical "
+                                "collectives",
+    "--hierarchical-allgather": "ROADMAP queue 1 item 4, hierarchical "
+                                "collectives",
+    "--hierarchical-broadcast": "ROADMAP queue 1 item 4, hierarchical "
+                                "collectives",
+    "--sharded": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
+    "--sharded-params": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
+    "--prefetch-depth": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
+    "--serve": "ROADMAP queue 1 item 9, multi-process serving",
+    "--serve-port": "ROADMAP queue 1 item 9, multi-process serving",
+}
+# Those of them that take no value.
+_SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery",
+             "--autoscale", "--hierarchical-controller", "--autotune",
+             "--monitor", "--timeline-mark-cycles",
+             "--hierarchical-allreduce", "--hierarchical-allgather",
+             "--hierarchical-broadcast", "--sharded", "--sharded-params",
+             "--serve"}
+
+# Tuning flags forwarded to every worker as HOROVOD_* env: flag, variable,
+# scale.  Each is read by the port's Config.from_env.
+_TUNING = (("fusion_threshold_mb", "HOROVOD_FUSION_THRESHOLD", 1024 * 1024),
+           ("cycle_time_ms", "HOROVOD_CYCLE_TIME", 1),
+           ("max_inflight", "HOROVOD_MAX_INFLIGHT", 1),
+           ("spec_ready_after", "HOROVOD_SPEC_READY_AFTER", 1),
+           ("round_pipeline", "HOROVOD_ROUND_PIPELINE", 1),
+           ("stall_check_time", "HOROVOD_STALL_CHECK_TIME", 1),
+           ("stall_shutdown_time", "HOROVOD_STALL_SHUTDOWN_TIME", 1),
+           ("round_timeout", "HOROVOD_ROUND_TIMEOUT_S", 1),
+           ("connect_retries", "HOROVOD_CONNECT_RETRIES", 1),
+           ("connect_backoff_ms", "HOROVOD_CONNECT_BACKOFF_MS", 1))
+
+
+def _dest(flag: str) -> str:
+    return flag.lstrip("-").replace("-", "_")
+
+
+def parse_args(argv: Sequence[str]) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.runner",
+        description="Launch a horovod_tpu_torch distributed job",
+        usage="python -m horovod_tpu_torch.runner -np NP [options] "
+              "<command> [args...]")
+    p.add_argument("-np", "--num-proc", type=int, dest="np",
+                   help="Total number of worker processes")
+    p.add_argument("-H", "--hosts", dest="hosts",
+                   help="Comma-separated host:slots list")
+    p.add_argument("--hostfile", dest="hostfile",
+                   help="Hostfile with 'hostname slots=N' lines")
+    p.add_argument("--network-interface", dest="nics",
+                   help="Network interface(s) for the control plane")
+    p.add_argument("--start-timeout", type=int, default=600)
+    p.add_argument("--ssh-port", type=int, default=None)
+    p.add_argument("--ssh-identity-file", default=None)
+    p.add_argument("--verbose", "-v", action="count", default=0)
+    p.add_argument("--config-file", dest="config_file",
+                   help="YAML config mirroring the CLI flags")
+    p.add_argument("--output-filename", dest="output_filename",
+                   help="Redirect worker stdout/stderr to "
+                        "<dir>/rank.<N>/stdout|stderr")
+    # Tuning knobs forwarded as HOROVOD_* env (reference: launch.py does the
+    # same forwarding).
+    p.add_argument("--fusion-threshold-mb", type=int, default=None)
+    p.add_argument("--cycle-time-ms", type=float, default=None)
+    p.add_argument("--max-inflight", type=int, default=None,
+                   help="Bound on dispatched-but-unsettled fused batches "
+                        "(1 = settle inline, no overlap)")
+    p.add_argument("--spec-ready-after", type=int, default=None,
+                   help="Zero-RTT warm path (protocol v7): after a "
+                        "response-cache slot has been ready-on-first-"
+                        "announce for this many consecutive rounds, the "
+                        "coordinator predicts the next-round verdict and "
+                        "clients dispatch it without waiting; 0 = off")
+    p.add_argument("--round-pipeline", type=int, default=None,
+                   help="In-flight negotiation-round window per client: "
+                        "1 = lock-step (default), >1 sends round N+1's "
+                        "request before round N's response is read")
+    p.add_argument("--stall-check-time", type=float, default=None)
+    p.add_argument("--stall-shutdown-time", type=float, default=None)
+    p.add_argument("--round-timeout", type=float, default=None,
+                   help="Per-negotiation-round wall-clock deadline in "
+                        "seconds: ranks that miss it are declared dead and "
+                        "survivors get a typed HVD303 abort; 0/unset "
+                        "disables the deadline (dead-socket detection is "
+                        "always on)")
+    p.add_argument("--connect-retries", type=int, default=None,
+                   help="Bounded controller-connect retries (workers may "
+                        "start before the coordinator)")
+    p.add_argument("--connect-backoff-ms", type=float, default=None,
+                   help="Base backoff between connect retries "
+                        "(exponential, jittered)")
+    for flag, why in NOT_PORTED.items():
+        if flag in _SWITCHES:
+            p.add_argument(flag, action="store_true", help=f"refused: {why}")
+        else:
+            p.add_argument(flag, default=None, help=f"refused: {why}")
+    p.add_argument("command", nargs=argparse.REMAINDER,
+                   help="Training command")
+    args = p.parse_args(list(argv))
+
+    if args.config_file:
+        _apply_config_file(args)
+    for flag, why in NOT_PORTED.items():
+        if getattr(args, _dest(flag)) not in (None, False):
+            p.error(f"{flag} is not ported: {why}")
+    if not args.command:
+        p.error("no training command given")
+    if args.command and args.command[0] == "--":
+        args.command = args.command[1:]
+    if args.np is None:
+        p.error("-np is required")
+    return args
+
+
+def _apply_config_file(args: argparse.Namespace):
+    """YAML config file mirroring flags (reference: --config-file)."""
+
+    def parse_scalar(v: str):
+        v = v.strip()
+        if v.lower() in ("true", "yes"):
+            return True
+        if v.lower() in ("false", "no"):
+            return False
+        for cast in (int, float):
+            try:
+                return cast(v)
+            except ValueError:
+                pass
+        return v
+
+    with open(args.config_file) as fh:
+        for line in fh:
+            line = line.split("#", 1)[0].strip()
+            if not line or ":" not in line:
+                continue
+            key, val = line.split(":", 1)
+            key = key.strip().replace("-", "_")
+            if hasattr(args, key) and getattr(args, key) in (None, False):
+                setattr(args, key, parse_scalar(val))
+
+
+def placement(args) -> List[HostSpec]:
+    if args.hostfile:
+        hosts = parse_hostfile(args.hostfile)
+    elif args.hosts:
+        hosts = parse_hosts(args.hosts)
+    else:
+        hosts = [HostSpec("localhost", args.np)]
+    total = sum(h.slots for h in hosts)
+    if args.np is not None and total < args.np:
+        raise ValueError(f"Requested -np {args.np} but hosts provide only "
+                         f"{total} slots")
+    return hosts
+
+
+def _free_ports(n: int) -> List[int]:
+    from ..common.net import free_ports
+    return free_ports(n)
+
+
+def _is_loopback(hostname: str) -> bool:
+    return hostname == "localhost" or hostname.startswith("127.")
+
+
+def platform_worker_env(hosts: List[HostSpec], cross_rank: int,
+                        base: Optional[Dict[str, str]] = None
+                        ) -> Dict[str, str]:
+    """The card's env for the ranks of host entry ``cross_rank``: nothing,
+    unless another entry is the same machine.  Then the entry gets its own
+    ``NCCL_HOSTID`` (NCCL refuses two ranks of one host on one GPU, and
+    checks by host), and a loopback entry NCCL's socket transport on the
+    loopback device with InfiniBand off.  A variable already in ``base``
+    (the launcher's env) is the user's choice and stays."""
+    from ..common.net import is_local_host
+    base = os.environ if base is None else base
+    local = [is_local_host(h.hostname) for h in hosts]
+    if not local[cross_rank] or sum(local) < 2:
+        return {}
+    h = hosts[cross_rank]
+    out = {"NCCL_HOSTID": f"hvd-{cross_rank}-{h.hostname}"}
+    if _is_loopback(h.hostname):
+        out.update(NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
+    return {k: base.get(k, v) for k, v in out.items()}
+
+
+def tuning_env(args) -> Dict[str, str]:
+    """HOROVOD_* env derived from the launcher's tuning flags — shared by
+    every launch path so a knob can never work on one path and silently
+    vanish on another.  A flag the port has no feature for never gets
+    here: ``parse_args`` refuses it."""
+    env: Dict[str, str] = {}
+    for flag, var, scale in _TUNING:
+        val = getattr(args, flag, None)
+        if val is not None:
+            env[var] = str(int(val * scale) if scale != 1 else val)
+    return env
+
+
+def wait_and_reap(procs: List[subprocess.Popen],
+                  poll_interval_s: float = 0.2) -> int:
+    """Wait for every worker, propagate the first failure, terminate
+    stragglers.
+
+    Polls ALL workers rather than waiting in list order: the moment any
+    worker exits nonzero, the survivors are terminated — one crashed rank
+    must not leave the rest running until their own timeouts fire (the
+    reference launcher's safe_shell_exec kills the process group the same
+    way).
+    """
+    import time
+    rc = 0
+    live = list(procs)
+    try:
+        while live:
+            still = []
+            for p in live:
+                code = p.poll()
+                if code is None:
+                    still.append(p)
+                elif code != 0 and rc == 0:
+                    rc = code
+            live = still
+            if rc != 0:
+                break
+            if live:
+                time.sleep(poll_interval_s)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    p.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    return rc
+
+
+def worker_envs(args, hosts: List[HostSpec],
+                coordinator: Tuple[str, int, int]) -> List[Dict[str, str]]:
+    """Compute the per-rank env injection (reference §3.3: HOROVOD_RANK,
+    HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_CROSS_RANK, rendezvous addr)."""
+    np_total = args.np
+    envs = []
+    rank = 0
+    for cross_rank, h in enumerate(hosts):
+        for local_rank in range(h.slots):
+            if rank >= np_total:
+                break
+            env = platform_worker_env(hosts, cross_rank)
+            env |= {
+                "HOROVOD_RANK": str(rank),
+                "HOROVOD_SIZE": str(np_total),
+                "HOROVOD_LOCAL_RANK": str(local_rank),
+                "HOROVOD_LOCAL_SIZE": str(min(h.slots, np_total - rank + local_rank)),
+                "HOROVOD_CROSS_RANK": str(cross_rank),
+                "HOROVOD_CROSS_SIZE": str(len(hosts)),
+                "HOROVOD_CONTROLLER_ADDR": coordinator[0],
+                "HOROVOD_CONTROLLER_PORT": str(coordinator[1]),
+                "HOROVOD_CONTROLLER_PORT2": str(coordinator[2]),
+                "HOROVOD_HOSTNAME": h.hostname,
+            }
+            env |= tuning_env(args)
+            envs.append(env)
+            rank += 1
+    return envs
+
+
+def ssh_command(host: str, env: Dict[str, str], command: List[str],
+                ssh_port: Optional[int] = None,
+                identity_file: Optional[str] = None) -> List[str]:
+    """Build the remote spawn command (reference: gloo_run's ssh exec via
+    safe_shell_exec; tested by asserting on the generated argv, like
+    ``test/single/test_run.py``)."""
+    exports = " ".join(f"{k}={shlex.quote(v)}" for k, v in sorted(env.items()))
+    remote = f"cd {shlex.quote(os.getcwd())} && env {exports} " + \
+        " ".join(shlex.quote(c) for c in command)
+    cmd = ["ssh", "-o", "StrictHostKeyChecking=no"]
+    if ssh_port:
+        cmd += ["-p", str(ssh_port)]
+    if identity_file:
+        cmd += ["-i", identity_file]
+    cmd += [host, remote]
+    return cmd
+
+
+def launch_workers(args, hosts: List[HostSpec],
+                   addrs: Optional[Dict[str, str]] = None) -> int:
+    """Spawn all workers, wait, propagate first failure (local + ssh).
+
+    ``addrs`` (from the bootstrap probe phase) overrides the coordinator
+    address with host 0's resolved control-plane address — this is what
+    makes ``--network-interface`` actually select the control plane."""
+    ports = _free_ports(2)
+    if addrs:
+        coord_host = addrs[hosts[0].hostname]
+    else:
+        coord_host = (hosts[0].hostname if hosts[0].hostname != "localhost"
+                      else "127.0.0.1")
+    coord = (coord_host, ports[0], ports[1])
+    envs = worker_envs(args, hosts, coord)
+    procs: List[subprocess.Popen] = []
+    for rank, env in enumerate(envs):
+        host = env["HOROVOD_HOSTNAME"]
+        full_env = {**os.environ, **env}
+        stdout = stderr = None
+        if args.output_filename:
+            d = os.path.join(args.output_filename, f"rank.{rank}")
+            os.makedirs(d, exist_ok=True)
+            stdout = open(os.path.join(d, "stdout"), "w")
+            stderr = open(os.path.join(d, "stderr"), "w")
+        if host in ("localhost", "127.0.0.1", socket.gethostname()):
+            proc = subprocess.Popen(args.command, env=full_env,
+                                    stdout=stdout, stderr=stderr)
+        else:
+            cmd = ssh_command(host, env, args.command, args.ssh_port,
+                              args.ssh_identity_file)
+            proc = subprocess.Popen(cmd, env=os.environ.copy(),
+                                    stdout=stdout, stderr=stderr)
+        procs.append(proc)
+    return wait_and_reap(procs)
+
+
+def main(argv: Sequence[str]) -> int:
+    args = parse_args(argv)
+    hosts = placement(args)
+    if args.verbose:
+        print(f"[horovod_tpu_torch.runner] launching np={args.np} over "
+              f"{[(h.hostname, h.slots) for h in hosts]}", file=sys.stderr)
+    # Pre-launch bootstrap (reference P8): probe NICs + mutual connectivity
+    # whenever a host is remote or an explicit interface was requested —
+    # refuse fast with the exact broken pair instead of spawning workers
+    # that would hang in rendezvous.
+    addrs = None
+    from ..common.net import is_local_host
+    if args.nics or any(not is_local_host(h.hostname) for h in hosts):
+        from .bootstrap import bootstrap_hosts
+        try:
+            addrs = bootstrap_hosts(
+                hosts, nic=args.nics, ssh_port=args.ssh_port,
+                identity_file=args.ssh_identity_file,
+                timeout_s=min(args.start_timeout, 120),
+                verbose=args.verbose)
+        except RuntimeError as exc:
+            print(f"[horovod_tpu_torch.runner] {exc}", file=sys.stderr)
+            return 1
+    return launch_workers(args, hosts, addrs)

@@ -628,13 +628,142 @@ def test_torch_broadcast_carries_dtype_on_card(cuda_device, monkeypatch,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bool, torch.int16, torch.complex64])
 def test_torch_allreduce_refuses_on_card(cuda_device, monkeypatch, dtype):
-    """A dtype NCCL cannot reduce as the JAX engine does raises TypeError
-    at submission, naming it; nothing reaches the cycle."""
-    eng = _init_on(cuda_device, monkeypatch)
-    try:
-        x = _fusion_inputs(dtype, [(4,)], cuda_device)[0]
-        with pytest.raises(TypeError, match=str(dtype).replace("torch.", "")):
-            hvd.allreduce(x)
-        assert eng.pipeline_dispatches == 0
-    finally:
-        hvd.shutdown()
+    """The card refuses at submission only what the JAX engine refuses, a
+    complex Average, naming it, and nothing reaches the cycle; a bool or
+    int16 Average gives the JAX engine's dtype (int32 counts, int16) and
+    the CPU engine's values."""
+    x = _fusion_inputs(dtype, [(4,)], "cpu")[0]
+    if dtype.is_complex:
+        eng = _init_on(cuda_device, monkeypatch)
+        try:
+            with pytest.raises(TypeError,
+                               match=str(dtype).replace("torch.", "")):
+                hvd.allreduce(x.to(cuda_device))
+            assert eng.pipeline_dispatches == 0
+        finally:
+            hvd.shutdown()
+        return
+    got = []
+    for dev in ("cpu", cuda_device):
+        _init_on(dev, monkeypatch)
+        try:
+            got.append(hvd.allreduce(x.to(dev)).cpu())
+        finally:
+            hvd.shutdown()
+    want = torch.int32 if dtype == torch.bool else dtype
+    assert got[0].dtype == got[1].dtype == want
+    assert torch.equal(got[0], got[1])
+
+
+# The promoting casts of an allreduce and a reducescatter: widening in the
+# pack kernel, narrowing (then floor division) or an integer buffer into
+# float32 (then division) in the unpack kernel.
+PROMOTE_PACK = [torch.bool, _I8, _U8, torch.int16]
+PROMOTE_UNPACK = [(torch.int32, torch.int16, 1), (torch.int32, torch.int16, 2),
+                  (torch.int32, torch.float32, 2), (_I8, torch.float32, 2),
+                  (_U8, torch.float32, 2), (torch.int64, torch.float32, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", PROMOTE_PACK,
+                         ids=[str(d)[6:] for d in PROMOTE_PACK])
+def test_torch_fusion_widening_pack_matches_plain(cuda_device, src):
+    from horovod_tpu_torch.ops import fusion
+    xs = _fusion_inputs(src, [(3, 5), (0,), (1000,), (257,)], cuda_device)
+    b = fusion.pack(xs, torch.int32)
+    torch.cuda.synchronize()
+    ref = fusion.pack_plain([x.cpu() for x in xs], torch.int32, None)
+    assert b.dtype == torch.int32 and torch.equal(b.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buf,out,divisor", PROMOTE_UNPACK,
+                         ids=[f"{str(b)[6:]}-{str(o)[6:]}-{d}"
+                              for b, o, d in PROMOTE_UNPACK])
+def test_torch_fusion_narrowing_unpack_matches_plain(cuda_device, buf, out,
+                                                     divisor):
+    """int32 sums past int16's range wrap before the floor division, as
+    the JAX program's int16 sum does."""
+    from horovod_tpu_torch.ops import fusion
+    lo, hi = (-70000, 70000) if buf == torch.int32 else \
+        _INT_RANGE.get(buf, (-1000, 1000))
+    g = torch.Generator().manual_seed(3)
+    b = torch.randint(lo, hi, (2301,), generator=g, dtype=buf)
+    outs = [torch.empty(n, dtype=out, device=cuda_device)
+            for n in (1000, 0, 1301)]
+    fusion.unpack(b.to(cuda_device), outs, divisor)
+    torch.cuda.synchronize()
+    ref = [torch.empty(o.shape, dtype=out) for o in outs]
+    fusion.unpack_plain(b, ref, divisor, None)
+    for o, r in zip(outs, ref):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.int32])
+def test_torch_fusion_rank_major_layouts_match_plain(cuda_device, dt):
+    """The reducescatter/alltoall pack (world × N source views, rank-major)
+    and the allgather unpack (world × N destination views) at a world of
+    two, each one launch, bitwise the plain version."""
+    from horovod_tpu_torch.ops import engine, fusion
+    xs = _fusion_inputs(dt, [(6, 5), (2, 3), (4, 1001)], cuda_device, 7)
+    sizes = engine._rows(xs, 2)
+    n0 = (fusion.pack.launches, fusion.unpack.launches)
+    b = fusion.pack(engine._views(xs, sizes, 2), dt)
+    # Two ranks' allgather buffers (here the same tensors twice).
+    g = torch.cat([fusion.pack(xs, dt)] * 2)
+    outs = [torch.empty((2 * x.shape[0],) + x.shape[1:], dtype=dt,
+                        device=cuda_device) for x in xs]
+    fusion.unpack(g, engine._views(outs, [x.numel() for x in xs], 2))
+    torch.cuda.synchronize()
+    assert (fusion.pack.launches - n0[0], fusion.unpack.launches - n0[1]) \
+        == (2, 1)
+    cpu = [x.cpu() for x in xs]
+    ref = torch.cat([x.reshape(2, -1)[q] for q in range(2) for x in cpu])
+    assert torch.equal(b.cpu(), ref)
+    for o, x in zip(outs, cpu):
+        assert torch.equal(o.cpu(), torch.cat([x, x]))
+
+
+@pytest.mark.cuda
+def test_torch_collectives_round_trip_on_card(cuda_device, monkeypatch):
+    """Size 1 on the card, each result equal to the CPU engine's: an
+    allgather, a grouped reducescatter (Sum, and an int32 Average that
+    returns float32), an even and a ragged alltoall, allgather_object, a
+    bool Sum and uint8 Product (int32 and uint32 results), a complex Sum
+    and Product; one pack and one unpack launch a dtype group."""
+    from horovod_tpu_torch.ops import fusion
+    x = _fusion_inputs(torch.float32, [(4, 6)], "cpu", 1)[0]
+    i = _fusion_inputs(torch.int32, [(6, 2)], "cpu", 2)[0]
+    b = _fusion_inputs(torch.bool, [(9,)], "cpu", 3)[0]
+    u = _fusion_inputs(_U8, [(9,)], "cpu", 4)[0]
+    c = _fusion_inputs(torch.complex64, [(5,)], "cpu", 5)[0]
+    results = {}
+    for dev in ("cpu", cuda_device):
+        eng = _init_on(dev, monkeypatch)
+        try:
+            n0 = (fusion.pack.launches, fusion.unpack.launches,
+                  eng.fused_groups)
+            out = [hvd.allgather(x.to(dev))]
+            out += hvd.grouped_reducescatter([x.to(dev), i.to(dev)])
+            out.append(hvd.reducescatter(i.to(dev), op=hvd.Average))
+            out.append(hvd.alltoall(i.to(dev)))
+            out += list(hvd.alltoall(x.to(dev), splits=[4]))
+            out += [hvd.allreduce(b.to(dev), op=hvd.Sum),
+                    hvd.allreduce(u.to(dev), op=hvd.Product),
+                    hvd.allreduce(c.to(dev), op=hvd.Sum),
+                    hvd.allreduce(c.to(dev), op=hvd.Product)]
+            assert hvd.allgather_object({"d": str(dev)[:3]}) == [
+                {"d": str(dev)[:3]}]
+            results[str(dev)] = [t.cpu() for t in out]
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                groups = eng.fused_groups - n0[2]
+                assert (fusion.pack.launches - n0[0],
+                        fusion.unpack.launches - n0[1]) == (groups, groups)
+        finally:
+            hvd.shutdown()
+    for a, r in zip(results["cpu"], results[str(cuda_device)]):
+        assert a.dtype == r.dtype and torch.equal(a, r)
+    assert [t.dtype for t in results["cpu"][-4:]] == [
+        torch.int32, torch.uint32, torch.complex64, torch.complex64]

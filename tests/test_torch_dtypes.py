@@ -9,10 +9,14 @@
   result is bitwise root's tensor and bitwise the JAX engine's broadcast of
   the same inputs.  The inputs hold no -0.0 and no NaN: the JAX broadcast
   is a psum of root's value and zeros, which turns -0.0 into +0.0.
-- On the card an allreduce of a dtype NCCL cannot reduce as the JAX engine
-  does (int16, bool, complex) raises TypeError at submission.  On the CPU
-  the port keeps what gloo does, and the same world pins where that agrees
-  with the JAX engine and where it does not (ROADMAP queue 3).
+- An allreduce gives the JAX engine's outcome for every dtype it holds
+  without x64, on both devices: bool counts in int32 (``Min``/``Max`` stay
+  bool), int16 reduces in int16 (int32 on the wire, wrapping as the JAX
+  program's int16 sum wraps), int8/int16 ``Product`` returns int32 and
+  uint8 ``Product`` uint32, complex ``Sum``/``Product`` work.  What the
+  JAX engine refuses (complex ``Average``/``Min``/``Max``) the port
+  refuses at submission, on the card as on the CPU; the same world pins
+  every case against the JAX engine.
 """
 
 import os
@@ -100,27 +104,30 @@ def test_torch_broadcast_group_goes_by_bytes(monkeypatch, name):
         assert o.dtype == dt and torch.equal(o, x)
 
 
-_CARD_REFUSED = ["int16", "bool", "complex64", "complex128"]
+# The JAX engine's Average of each dtype (complex: floor_divide raises).
+_AVERAGE = {"int16": "int16", "bool": "int32", "complex64": None,
+            "complex128": None, "float64": "float64", "int8": "int8",
+            "uint8": "uint8"}
 
 
-@pytest.mark.parametrize("name", _CARD_REFUSED
-                         + ["float64", "int8", "uint8"])
+@pytest.mark.parametrize("name", list(_AVERAGE))
 def test_torch_card_allreduce_refuses_at_submission(name):
-    """An engine on the card refuses int16, bool and complex allreduces
-    when they are submitted, naming the dtype; it takes float64, int8 and
-    uint8.  (The tensors are CPU tensors: the check reads only the dtype,
-    and nothing runs a cycle.)"""
+    """An engine on the card refuses at submission what the JAX engine
+    refuses too, naming the op: a complex Average.  It takes the rest,
+    with an output of the JAX engine's result dtype.  (The tensors are CPU
+    tensors: the check reads only the dtype, and nothing runs a cycle.)"""
     eng = _engine(1, device="cuda")
     x = torch.zeros(3, dtype=getattr(torch, name))
     submit = lambda: eng.enqueue(  # noqa: E731
-        "g", port_engine.CollectiveType.ALLREDUCE, x, output=x)
-    if name in _CARD_REFUSED:
-        with pytest.raises(TypeError, match=f"got torch.{name}"):
+        "g", port_engine.CollectiveType.ALLREDUCE, x)
+    if _AVERAGE[name] is None:
+        with pytest.raises(TypeError, match=f"{name} takes Sum and Product"):
             submit()
         assert len(eng.queue.drain()) == 0
     else:
         submit()
-        assert len(eng.queue.drain()) == 1
+        e, = eng.queue.drain()
+        assert e.output.dtype == getattr(torch, _AVERAGE[name])
     # A broadcast of any dtype is taken.
     eng.enqueue("b", port_engine.CollectiveType.BROADCAST, x, output=x)
 
@@ -154,20 +161,22 @@ _WORKER = textwrap.dedent("""
     print("DTYPES_OK", r)
 """)
 
-# The CPU allreduce of the dtypes the card refuses: what the port (gloo)
-# does against the JAX engine, on this world's inputs.
+# The allreduce of the dtypes NCCL and gloo do not reduce as the JAX engine
+# does, on this world's inputs: the int16 sum of 30000 and 30000 wraps,
+# and the int8 and uint8 products leave their dtype.
 _REDUCE_INPUTS = {
     "bool": [np.array([True, False, True]), np.array([True, True, False])],
-    "int16": [np.array([1, -2, 300], np.int16),
-              np.array([2, 5, -7], np.int16)],
+    "int16": [np.array([30000, -2, 300], np.int16),
+              np.array([30000, 5, -7], np.int16)],
+    "int8": [np.array([100, 3, -7], np.int8), np.array([3, 90, 2], np.int8)],
+    "uint8": [np.array([100, 3, 7], np.uint8),
+              np.array([3, 90, 2], np.uint8)],
     "complex64": [np.array([1 + 2j, -1j, 3], np.complex64),
                   np.array([2 - 1j, 4, 0.5j], np.complex64)]}
-CPU_PIN = {("bool", "Sum"): "differs", ("bool", "Min"): "agrees",
-           ("bool", "Max"): "agrees", ("int16", "Sum"): "port raises",
-           ("int16", "Min"): "port raises", ("int16", "Max"): "port raises",
-           ("complex64", "Sum"): "agrees",
-           ("complex64", "Min"): "both raise",
-           ("complex64", "Max"): "both raise"}
+_OPS = ("Sum", "Average", "Min", "Max", "Product")
+CPU_PIN = {(n, op): "agrees" for n in _REDUCE_INPUTS for op in _OPS}
+CPU_PIN.update({("complex64", op): "both raise"
+                for op in ("Average", "Min", "Max")})
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +188,7 @@ def gloo_world(tmp_path_factory):
     ins = [{"bcast": {n: _to_torch(_values(n, r)).view(torch.uint8).numpy()
                       for n in PARITY},
             "reduce": {(n, op): xs[r] for n, xs in _REDUCE_INPUTS.items()
-                       for op in ("Sum", "Min", "Max")}}
+                       for op in _OPS}}
            for r in range(2)]
     with open(tmp / "ins.pkl", "wb") as fh:
         pickle.dump(ins, fh)

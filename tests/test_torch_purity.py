@@ -148,7 +148,8 @@ def test_torch_only_the_engine_calls_collectives():
     assert not smoke, smoke
     assert set(callers) == _COLLECTIVE_CALLERS, callers
     assert {n for _, n in callers[os.path.join("ops", "engine.py")]} == {
-        "all_reduce", "broadcast"}
+        "all_reduce", "broadcast", "all_gather_into_tensor",
+        "reduce_scatter_tensor", "all_to_all_single"}
 
 
 def test_torch_collective_scan_sees_every_spelling(tmp_path):

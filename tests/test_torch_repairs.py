@@ -1,0 +1,89 @@
+"""The port's repaired faults, each pinned on the CPU.
+
+- Shutdown race: a batch whose collective completed settles with its
+  result even when the next negotiation round fails because the
+  coordinator's host exited (the last rank to finish a two-rank run).
+- A rank whose local rank has no card is refused by ``init()`` at once,
+  naming the local rank and the card count.
+"""
+
+import threading
+import types
+
+import pytest
+import torch
+
+from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.common.config import Config
+from horovod_tpu_torch.common.exceptions import PeerFailureError
+from horovod_tpu_torch.common.process_sets import ProcessSetTable
+from horovod_tpu_torch.ops import engine as port_engine
+
+
+class _DyingCoordinator:
+    """A controller whose first round makes every entry ready and whose
+    second fails as a round does once the coordinator's host has exited."""
+    left_ranks = None
+    interrupted = False
+    spec_dispatch_ok = False
+
+    def __init__(self):
+        self.rounds = 0
+        self.join_error = None
+
+    def negotiate(self, entries):
+        self.rounds += 1
+        if self.rounds == 1:
+            return list(entries), []
+        raise PeerFailureError("controller round rc=-1", dead_ranks=[0])
+
+    def forget(self, e):
+        pass
+
+    def fail_join(self, exc):
+        self.join_error = exc
+
+
+def test_torch_completed_batch_settles_with_its_result(monkeypatch):
+    """The watcher has not yet claimed the completed batch (its waiter is
+    held) when the next round fails: the abort must hand the waiter the
+    batch's result, and the engine still latches the fault."""
+    table = ProcessSetTable()
+    table.initialize(2, lambda ranks: None)
+    eng = port_engine.CollectiveEngine(types.SimpleNamespace(
+        config=Config(), process_set_table=table,
+        device=torch.device("cpu")))
+    eng.controller = _DyingCoordinator()
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda buf, op, group: buf.mul_(2))
+    held, release = threading.Event(), threading.Event()
+
+    def waiter(results):
+        held.set()
+        release.wait()
+    eng._wait_done = waiter
+    x = torch.arange(4, dtype=torch.float32)
+    h = eng.enqueue("last", port_engine.CollectiveType.ALLREDUCE, x,
+                    reduce_op=port_engine.C.ReduceOp.SUM,
+                    output=torch.empty_like(x))
+    try:
+        eng.run_loop_once()                  # the batch's collective
+        assert held.wait(5)
+        eng.run_loop_once()                  # the round that fails
+        assert isinstance(eng.fault, PeerFailureError)
+        out = eng.synchronize(h, timeout=5)
+        assert torch.equal(out, 2 * x)
+        assert eng.controller.join_error is eng.fault
+    finally:
+        release.set()
+        eng.stop()
+
+
+def test_torch_init_refuses_a_local_rank_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert basics._resolve_device(None, 0) == torch.device("cuda:0")
+    with pytest.raises(RuntimeError, match=r"local rank 1 .* 1 CUDA device"):
+        basics._resolve_device(None, 1)
+    # An explicit device is the caller's choice.
+    assert basics._resolve_device("cpu", 3) == torch.device("cpu")

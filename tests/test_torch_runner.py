@@ -1,0 +1,331 @@
+"""The port's launcher (``python -m horovod_tpu_torch.runner``) against the
+cases of ``tests/test_runner.py`` that apply to it, each run on the JAX
+launcher and on the port's, as cases of one test: host parsing, the
+hostfile, arguments and the config file, placement, ``worker_envs``,
+``ssh_command``, a local launch end to end, failure propagation and the
+bootstrap services.  Then what only the port has: the card's env (no JAX
+or XLA variable; ``NCCL_HOSTID`` where two ``-H`` entries are one machine)
+and the refusal of every flag whose feature it lacks.
+
+No counterpart: ``test_platform_worker_env_cpu_hygiene`` (JAX's CPU
+collectives and XLA device-count flag; the card's env replaces it),
+``test_worker_envs_hierarchical_controller`` and
+``test_sharded_flag_forwards_fleet_uniform_env`` (refused flags here), and
+``TestTPUVMBackend`` (``runner/tpu_vm.py`` has no GPU counterpart; its
+flags are refused).
+"""
+
+import importlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import threading
+
+import pytest
+
+from horovod_tpu_torch.runner import run as port_run
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RUNNERS = ["horovod_tpu.runner", "horovod_tpu_torch.runner"]
+
+
+def _mod(pkg, name="run"):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+@pytest.fixture(params=RUNNERS, ids=["jax", "port"])
+def run(request):
+    return _mod(request.param)
+
+
+@pytest.fixture(params=RUNNERS, ids=["jax", "port"])
+def bootstrap(request):
+    return _mod(request.param, "bootstrap")
+
+
+def test_torch_runner_parse_hosts(run):
+    specs = run.parse_hosts("a:4,b:2,c")
+    assert [(s.hostname, s.slots) for s in specs] == [("a", 4), ("b", 2),
+                                                      ("c", 1)]
+
+
+def test_torch_runner_parse_hostfile(run, tmp_path):
+    f = tmp_path / "hosts"
+    f.write_text("# comment\nnode1 slots=4\nnode2 slots=2  # trailing\n\n"
+                 "node3\n")
+    specs = run.parse_hostfile(str(f))
+    assert [(s.hostname, s.slots) for s in specs] == [
+        ("node1", 4), ("node2", 2), ("node3", 1)]
+
+
+def test_torch_runner_parse_args_basic(run):
+    args = run.parse_args(["-np", "4", "python", "train.py", "--lr", "0.1"])
+    assert args.np == 4
+    assert args.command == ["python", "train.py", "--lr", "0.1"]
+
+
+@pytest.mark.parametrize("argv", [["python", "train.py"], ["-np", "2"]],
+                         ids=["requires-np", "requires-command"])
+def test_torch_runner_parse_args_refuses(run, argv):
+    with pytest.raises(SystemExit):
+        run.parse_args(argv)
+
+
+def test_torch_runner_config_file(run, tmp_path):
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("fusion-threshold-mb: 32\ncycle-time-ms: 2.5\n"
+                   "max-inflight: 3\n")
+    args = run.parse_args(["-np", "2", "--config-file", str(cfg),
+                           "python", "t.py"])
+    assert args.fusion_threshold_mb == 32
+    assert args.cycle_time_ms == 2.5
+    assert args.max_inflight == 3
+
+
+def test_torch_runner_placement_overflow(run):
+    args = run.parse_args(["-np", "8", "-H", "a:2,b:2", "python", "t.py"])
+    with pytest.raises(ValueError, match="only 4 slots"):
+        run.placement(args)
+
+
+def test_torch_runner_worker_envs(run):
+    args = run.parse_args(["-np", "4", "-H", "a:2,b:2",
+                           "--fusion-threshold-mb", "16",
+                           "--round-timeout", "30", "python", "t.py"])
+    hosts = run.placement(args)
+    envs = run.worker_envs(args, hosts, ("1.2.3.4", 5555, 5556))
+    assert len(envs) == 4
+    assert envs[0]["HOROVOD_RANK"] == "0"
+    assert envs[3]["HOROVOD_RANK"] == "3"
+    assert envs[2]["HOROVOD_LOCAL_RANK"] == "0"
+    assert envs[2]["HOROVOD_CROSS_RANK"] == "1"
+    assert all(e["HOROVOD_SIZE"] == "4" for e in envs)
+    assert all(e["HOROVOD_CONTROLLER_ADDR"] == "1.2.3.4" for e in envs)
+    assert [(e["HOROVOD_CONTROLLER_PORT"], e["HOROVOD_CONTROLLER_PORT2"])
+            for e in envs] == [("5555", "5556")] * 4
+    assert envs[0]["HOROVOD_FUSION_THRESHOLD"] == str(16 * 1024 * 1024)
+    assert envs[1]["HOROVOD_ROUND_TIMEOUT_S"] == "30.0"
+    assert all("HOROVOD_AGENT_PORT" not in e for e in envs)
+
+
+def test_torch_runner_ssh_command(run):
+    env = {"HOROVOD_RANK": "3", "HOROVOD_SIZE": "4"}
+    cmd = run.ssh_command("node2", env, ["python", "train.py"],
+                          ssh_port=2222, identity_file="/id")
+    assert cmd[0] == "ssh"
+    assert "-p" in cmd and "2222" in cmd
+    assert "-i" in cmd and "/id" in cmd
+    assert cmd[-2] == "node2"
+    remote = cmd[-1]
+    assert "HOROVOD_RANK=3" in remote and "python train.py" in remote
+    assert os.getcwd() in remote
+
+
+def test_torch_runner_local_launch_end_to_end(run, tmp_path):
+    """Spawn 2 local worker processes and check the injected env."""
+    out = tmp_path / "o"
+    script = tmp_path / "w.py"
+    script.write_text(
+        "import os\n"
+        "print(os.environ['HOROVOD_RANK'], os.environ['HOROVOD_SIZE'])\n")
+    args = run.parse_args(["-np", "2", "--output-filename", str(out),
+                           sys.executable, str(script)])
+    assert run.launch_workers(args, run.placement(args)) == 0
+    assert (out / "rank.0" / "stdout").read_text().strip() == "0 2"
+    assert (out / "rank.1" / "stdout").read_text().strip() == "1 2"
+
+
+def test_torch_runner_local_launch_propagates_failure(run, tmp_path):
+    script = tmp_path / "bad.py"
+    script.write_text("import sys; sys.exit(3)\n")
+    args = run.parse_args(["-np", "2", sys.executable, str(script)])
+    assert run.launch_workers(args, run.placement(args)) == 3
+
+
+# ---------------------------------------------------------------- bootstrap
+def _probe_thread(bootstrap, port, label, nic=None):
+    rc = {}
+    t = threading.Thread(
+        target=lambda: rc.setdefault(
+            "rc", bootstrap.probe_main("127.0.0.1", port, label, nic)),
+        daemon=True)
+    t.start()
+    return t, rc
+
+
+def test_torch_runner_list_nics_has_loopback(bootstrap):
+    assert bootstrap.list_nics().get("lo") == "127.0.0.1"
+
+
+def test_torch_runner_register_and_matrix_ok(bootstrap):
+    svc = bootstrap.DriverService(["localhost"], timeout_s=20)
+    t, rc = _probe_thread(bootstrap, svc.port, "localhost")
+    try:
+        addrs = svc.run()
+    finally:
+        svc.close()
+    t.join(timeout=10)
+    assert addrs == {"localhost": "127.0.0.1"} and rc.get("rc") == 0
+
+
+def test_torch_runner_nic_selection_and_missing_nic(bootstrap):
+    svc = bootstrap.DriverService(["localhost"], nic="lo", timeout_s=20)
+    t, _ = _probe_thread(bootstrap, svc.port, "localhost", nic="lo")
+    try:
+        addrs = svc.run()
+    finally:
+        svc.close()
+    t.join(timeout=10)
+    assert addrs == {"localhost": "127.0.0.1"}
+    svc = bootstrap.DriverService(["localhost"], nic="no_such_nic0",
+                                  timeout_s=20)
+    t, _ = _probe_thread(bootstrap, svc.port, "localhost",
+                         nic="no_such_nic0")
+    try:
+        with pytest.raises(RuntimeError, match="no interface named"):
+            svc.run()
+    finally:
+        svc.close()
+    t.join(timeout=10)
+
+
+def test_torch_runner_connectivity_failure_names_pair(bootstrap):
+    """A fake peer registers with a dead listen port: the launch must
+    refuse naming exactly (real host, fake host)."""
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead_port = dead.getsockname()[1]
+    dead.close()
+    svc = bootstrap.DriverService(["localhost", "ghost"], timeout_s=30)
+    t, _ = _probe_thread(bootstrap, svc.port, "localhost")
+
+    def fake_ghost():
+        s = socket.create_connection(("127.0.0.1", svc.port), timeout=10)
+        s.sendall((json.dumps(
+            {"type": "register", "host": "ghost", "nics": {},
+             "addr": None, "listen_port": dead_port, "slots": 1,
+             "nic_found": True}) + "\n").encode())
+        fh = s.makefile()
+        fh.readline()                      # check request
+        s.sendall((json.dumps(
+            {"type": "result", "host": "ghost",
+             "reachable": {"localhost": True}}) + "\n").encode())
+        fh.readline()
+        s.close()
+
+    g = threading.Thread(target=fake_ghost, daemon=True)
+    g.start()
+    try:
+        with pytest.raises(RuntimeError,
+                           match="'localhost' cannot reach .*'ghost'"):
+            svc.run()
+    finally:
+        svc.close()
+    t.join(timeout=15)
+    g.join(timeout=15)
+
+
+def test_torch_runner_timeout_names_missing_host(bootstrap):
+    svc = bootstrap.DriverService(["localhost", "never-shows-up"],
+                                  timeout_s=2)
+    t, _ = _probe_thread(bootstrap, svc.port, "localhost")
+    try:
+        with pytest.raises(RuntimeError, match="never-shows-up"):
+            svc.run()
+    finally:
+        svc.close()
+    t.join(timeout=15)
+
+
+def test_torch_runner_probe_runs_on_the_port_module():
+    """The probe command the port's bootstrap spawns names the port's own
+    module, and the module starts."""
+    src = open(port_run.__file__.replace("run.py", "bootstrap.py")).read()
+    assert "horovod_tpu.runner.task_probe" not in src
+    assert src.count("horovod_tpu_torch.runner.task_probe") >= 2
+    res = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.task_probe",
+         "--help"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "--driver-addr" in res.stdout
+
+
+# ------------------------------------------------------- the port's own
+def test_torch_runner_card_env_hygiene():
+    """No JAX or XLA variable reaches a worker, and no CUDA_VISIBLE_DEVICES:
+    each worker takes cuda:{HOROVOD_LOCAL_RANK}."""
+    args = port_run.parse_args(["-np", "4", "-H", "a:2,b:2", "python",
+                                "t.py"])
+    envs = port_run.worker_envs(args, port_run.placement(args),
+                                ("1.2.3.4", 5555, 5556))
+    for e in envs:
+        assert not [k for k in e if k.startswith(("JAX_", "XLA_"))], e
+        assert "CUDA_VISIBLE_DEVICES" not in e
+        assert "NCCL_HOSTID" not in e        # two machines
+    assert [e["HOROVOD_LOCAL_RANK"] for e in envs] == ["0", "1", "0", "1"]
+
+
+def test_torch_runner_one_machine_twice_gets_a_host_id_an_entry():
+    """``-H localhost:1,127.0.0.1:1`` names one machine twice (two ranks on
+    one card): each entry gets its own NCCL_HOSTID and the socket
+    transport on the loopback device; each rank is local rank 0."""
+    args = port_run.parse_args(["-np", "2", "-H", "localhost:1,127.0.0.1:1",
+                                "python", "t.py"])
+    hosts = port_run.placement(args)
+    envs = port_run.worker_envs(args, hosts, ("127.0.0.1", 5555, 5556))
+    assert [e["HOROVOD_LOCAL_RANK"] for e in envs] == ["0", "0"]
+    ids = [e["NCCL_HOSTID"] for e in envs]
+    assert len(set(ids)) == 2
+    assert all(e["NCCL_SOCKET_IFNAME"] == "lo" and e["NCCL_IB_DISABLE"] == "1"
+               for e in envs)
+    # The user's own choice stays.
+    env = port_run.platform_worker_env(hosts, 1, {"NCCL_SOCKET_IFNAME": "eth0"})
+    assert env["NCCL_SOCKET_IFNAME"] == "eth0"
+    # One entry with two slots is one host to NCCL: nothing added.
+    args = port_run.parse_args(["-np", "2", "-H", "localhost:2", "python",
+                                "t.py"])
+    envs = port_run.worker_envs(args, port_run.placement(args),
+                                ("127.0.0.1", 5555, 5556))
+    assert all("NCCL_HOSTID" not in e for e in envs)
+    assert [e["HOROVOD_LOCAL_RANK"] for e in envs] == ["0", "1"]
+
+
+@pytest.mark.parametrize("flag", sorted(port_run.NOT_PORTED))
+def test_torch_runner_refuses_what_is_not_ported(flag, capsys, tmp_path):
+    """Each flag whose feature the port lacks is refused when parsed,
+    naming what brings it, on the command line and in a config file."""
+    why = port_run.NOT_PORTED[flag]
+    value = [] if flag in port_run._SWITCHES else ["1"]
+    with pytest.raises(SystemExit):
+        port_run.parse_args(["-np", "2", flag, *value, "python", "t.py"])
+    err = " ".join(capsys.readouterr().err.split())
+    assert f"{flag} is not ported: {' '.join(why.split())}" in err
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f"{flag.lstrip('-')}: {'true' if not value else 1}\n")
+    with pytest.raises(SystemExit):
+        port_run.parse_args(["-np", "2", "--config-file", str(cfg),
+                             "python", "t.py"])
+    assert "is not ported" in capsys.readouterr().err
+
+
+def test_torch_runner_forwards_only_what_the_port_reads(monkeypatch):
+    """Every forwarded variable round-trips into the port's Config."""
+    from horovod_tpu_torch.common.config import Config
+    args = port_run.parse_args([
+        "-np", "2", "--fusion-threshold-mb", "8", "--cycle-time-ms", "2",
+        "--max-inflight", "3", "--spec-ready-after", "4",
+        "--round-pipeline", "2", "--stall-check-time", "9",
+        "--stall-shutdown-time", "0", "--round-timeout", "20",
+        "--connect-retries", "5", "--connect-backoff-ms", "100",
+        "python", "t.py"])
+    env = port_run.tuning_env(args)
+    assert len(env) == len(port_run._TUNING)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = Config.from_env()
+    assert (cfg.fusion_threshold_bytes, cfg.cycle_time_ms, cfg.max_inflight,
+            cfg.spec_ready_after, cfg.round_pipeline, cfg.stall_check_time_s,
+            cfg.round_timeout_s, cfg.connect_retries,
+            cfg.connect_backoff_ms) == (8 << 20, 2.0, 3, 4, 2, 9.0, 20.0, 5,
+                                        100.0)

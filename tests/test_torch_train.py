@@ -347,13 +347,14 @@ _WORKER = textwrap.dedent("""
 def test_torch_train_two_process_gloo(tmp_path):
     script = tmp_path / "train2.py"
     script.write_text(_WORKER)
-    port, = free_ports(1)
+    port, port2 = free_ports(2)
     procs = []
     for r in range(2):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
                    HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
                    HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                   HOROVOD_CONTROLLER_PORT=str(port))
+                   HOROVOD_CONTROLLER_PORT=str(port),
+                   HOROVOD_CONTROLLER_PORT2=str(port2))
         procs.append(subprocess.Popen(
             [sys.executable, str(script), REPO], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
