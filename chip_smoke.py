@@ -6,6 +6,11 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Card: the card's name and power limit, as nvidia-smi reports them.
+   Then CUDA's module loading, in a child process a case alone on the
+   card: lazy (torch's default) and eager (the launcher's) with the
+   context's time and memory and a first GEMM's, and ``hvd.init()``'s
+   request for eager loading made before the driver starts (it must hold)
+   and after ``torch.cuda.is_available()`` (reported).
 2. Build: every CUDA kernel of the port from its source, in parallel, and
    the copied coordinator beside them.
 3. Kernels against their plain PyTorch versions on the card, with the
@@ -13,11 +18,14 @@ Phases (any failure exits non-zero and prints no result line):
    and the one-call library yardstick (``library_ms``, never used by the
    port), and the bound computed from this run's shapes: the flash forward,
    then the flash backward's dq and dk/dv kernels (bitwise equal on a second
-   call), each in five cases and at the training shape, with TFLOP/s of
-   the causally needed work; then 34 bf16 cases at the edges of the tiles
-   (128 rows; 64-row k tiles in dq) and with a window that ends mid-tile
-   (correctness only).  Before them, ``cuobjdump -sass`` must find HGMMA
-   (tensor-core) instructions in the bf16 forward, dq and dk/dv kernels.
+   call), each in five cases, at the training shape, at the ring's
+   off-diagonal block (the training shape non-causal, what a ring step
+   after the first runs) and at Ulysses' inner attention (8,192 tokens
+   causal, 16/4 heads), with TFLOP/s of the causally needed work; then
+   34 bf16 cases at the edges of the tiles (128 rows; 64-row k tiles in
+   dq) and with a window that ends mid-tile (correctness only).  Before
+   them, ``cuobjdump -sass`` must find HGMMA (tensor-core) instructions in
+   the bf16 forward, dq and dk/dv kernels.
 4. Serving: ``init`` -> ``Replica.load`` -> ``ContinuousBatcher`` ->
    ``serve_loop`` at Llama-3-8B width (full depth by default), 8 requests
    of 512 prompt tokens, 16 greedy new tokens each; kernel launch counts
@@ -74,9 +82,23 @@ Phases (any failure exits non-zero and prints no result line):
    allgather_object and a join in which rank 1 submits one allreduce
    fewer (rank 0's result holds the fill value); SyncBatchNorm forward and
    backward on [32, 256, 56, 56] bf16 a rank against BatchNorm2d on the
-   global batch; the promoting allreduce dtypes against the JAX engine's
-   outcomes; each collective's time and its launches = dtype groups.
-7. The kernels line (JSON), the card line, and the result line.
+   global batch; the promoting allreduce and reducescatter dtypes against
+   the JAX engine's outcomes; each collective's time and its launches =
+   dtype groups.
+7. Sequence parallelism.  E5, two ranks through the launcher as E3, the
+   training configuration's width at the full max_seq of 8,192 tokens
+   split over ``make_mesh({"sp": 2})`` (4,096 a rank), with
+   ``DistributedOptimizer``'s hooks live: the averaged gradients at 4,096
+   tokens against a single-rank full-sequence step (ring, then Ulysses),
+   then 3 steps with ``sp_impl="ring"`` and 3 with ``"ulysses"`` from the
+   broadcast weights: each rank loading its kernels eagerly, parameters
+   bitwise equal across ranks every step, finite losses, the two engines'
+   step-1 losses within 1e-3, the flash launches of the ring's schedule
+   (rank r of n: forward layers x (r + 1), dq and dk/dv layers x (n - r) a
+   step; Ulysses layers each), the step's time, the exchanges' time (CUDA
+   events around each wait) and peak memory.
+8. The whole run's wall time, the kernels line (JSON), the card line, and
+   the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
 """
@@ -151,6 +173,86 @@ def time_ms(torch, fn, flush, iters=10, warmup=3, lead=False):
     return total / iters
 
 
+# --------------------------------------------------------- module loading
+# One child process a case, alone on the card: how it chooses the CUDA
+# driver's module loading mode (argv[2]), then the context's creation and
+# a first bf16 GEMM (cuBLAS's kernels), each timed, and the card's memory
+# in use after each against before the child's context (nvidia-smi).
+_LOADING_CHILD = r"""
+import json, os, subprocess, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from horovod_tpu_torch.common import basics
+
+def used_mib():
+    return float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+
+how = sys.argv[2]
+base = used_mib()
+if how == "init before the driver":
+    basics._ask_eager_module_loading(2, None)
+torch.cuda.is_available()
+if how == "init after is_available":
+    basics._ask_eager_module_loading(2, None)
+t0 = time.perf_counter()
+torch.cuda.set_device(0)
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+ctx_mib = used_mib() - base
+x = torch.ones(256, 256, device="cuda", dtype=torch.bfloat16)
+(x @ x).sum().item()
+t2 = time.perf_counter()
+print(json.dumps(dict(mode=basics.cuda_module_loading(), ctx_s=t1 - t0,
+                      ctx_mib=ctx_mib, gemm_s=t2 - t1,
+                      gemm_mib=used_mib() - base)))
+"""
+# (case, CUDA_MODULE_LOADING in the child's env, the mode it must get;
+# None: reported, not held)
+_LOADING_CASES = (
+    ("torch's default", "LAZY", "LAZY"),
+    ("the launcher's", "EAGER", "EAGER"),
+    ("init before the driver", None, "EAGER"),
+    ("init after is_available", None, None),
+)
+
+
+def module_loading_phase():
+    """What eager module loading (the launcher's, and ``hvd.init()``'s
+    request at a size above 1) costs a rank against CUDA's lazy default:
+    the context's time and device memory, then a first GEMM's.  Runs
+    before this process makes a context, so each child is alone on the
+    card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ok = True
+    for name, env_mode, want in _LOADING_CASES:
+        env = {k: v for k, v in os.environ.items()
+               if k != "CUDA_MODULE_LOADING"}
+        if env_mode:
+            env["CUDA_MODULE_LOADING"] = env_mode
+        res = subprocess.run([sys.executable, "-c", _LOADING_CHILD, here,
+                              name], env=env, capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode != 0:
+            print(f"loading[{name}]: child failed: {res.stderr[-2000:]}",
+                  flush=True)
+            ok = False
+            continue
+        m = json.loads(res.stdout.strip().splitlines()[-1])
+        good = want is None or m["mode"] == want
+        ok = ok and good
+        print(f"loading[{name}]: CUDA_MODULE_LOADING={env_mode} -> driver "
+              f"mode {m['mode']} (want {want or 'any'}); context "
+              f"{m['ctx_s'] * 1e3:.1f} ms, {m['ctx_mib']:.0f} MiB; first "
+              f"bf16 GEMM {m['gemm_s'] * 1e3:.1f} ms, then "
+              f"{m['gemm_mib']:.0f} MiB in use (nvidia-smi, against before "
+              f"the context) -> {'PASS' if good else 'FAIL'}", flush=True)
+    return ok
+
+
 # ------------------------------------------------------------- flash cases
 # (name, B, Tq, Tk, H, K, D, dtype, causal, window, o-tolerance, reason)
 _BF16_REASON = ("bf16 output rounding (2^-8 relative) plus p rounded to "
@@ -158,6 +260,10 @@ _BF16_REASON = ("bf16 output rounding (2^-8 relative) plus p rounded to "
                 "softmax than in the dense plain version")
 _F32_REASON = ("same float32 arithmetic; sums taken in another order and "
                "exp/log from other implementations")
+TRAIN_CASE = "training shape: B=2 T=4096 causal GQA rep 4, bf16"
+RING_CASE = "ring off-diagonal block: B=2 T=4096 non-causal GQA rep 4, bf16"
+ULYSSES_CASE = ("Ulysses inner attention: B=2 T=8192 causal, 16/4 heads, "
+                "bf16")
 FLASH_CASES = [
     ("serving shape: causal GQA rep 4, bf16", 8, 512, 512, 32, 8, 128,
      "bfloat16", True, None, 2e-2, _BF16_REASON),
@@ -169,10 +275,20 @@ FLASH_CASES = [
      128, 2e-2, _BF16_REASON),
     ("fully masked rows: Tq=300 > Tk=100 + window 64", 2, 300, 100, 8, 2,
      64, "float32", True, 64, 1e-4, _F32_REASON),
-    ("training shape: B=2 T=4096 causal GQA rep 4, bf16", TRAIN_BATCH,
-     TRAIN_SEQ, TRAIN_SEQ, 32, 8, 128, "bfloat16", True, None, 2e-2,
-     _BF16_REASON),
+    (TRAIN_CASE, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 128, "bfloat16",
+     True, None, 2e-2, _BF16_REASON),
+    # What a ring step s > 0 runs (E5): a whole 4,096-token block of k/v
+    # for 4,096 queries, non-causal.
+    (RING_CASE, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 128, "bfloat16",
+     False, None, 2e-2, _BF16_REASON),
+    # What Ulysses runs inside its all-to-alls (E5): the whole 8,192-token
+    # sequence, causal, with this rank's half of the heads.
+    (ULYSSES_CASE, TRAIN_BATCH, 2 * TRAIN_SEQ, 2 * TRAIN_SEQ, 16, 4, 128,
+     "bfloat16", True, None, 2e-2, _BF16_REASON),
 ]
+# The numbers of one case that the kernels line carries under a prefix.
+_CASE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "max_abs_err", "tflops")
 LSE_TOL = 1e-4   # float32 on both sides: only summation order differs
 _BWD_BF16_REASON = ("ds rounded to bf16 from f32 sums taken in another "
                     "order (an element near a rounding boundary rounds the "
@@ -1061,20 +1177,25 @@ def layout_phase(torch, fusion, grads, dev, seed, flush):
              ("int16 -> int32 -> int16 past its range, floor / 2 (int16 "
               "Average)", ints(torch.int16, -32768, 32768), torch.int16, 2),
              ("int32 -> float32, / 2 (reducescatter Average of int32)",
-              ints(i32, -70000, 70000), torch.float32, 2))
+              ints(i32, -70000, 70000), torch.float32, 2),
+             ("int16 -> int32 -> int16 past its range -> float32, / 2 "
+              "(reducescatter Average of int16)",
+              ints(torch.int16, -32768, 32768), torch.float32, 2))
     for name, ts, out_dt, divisor in cases:
+        narrow = torch.int16 if ts[0].dtype == torch.int16 \
+            and out_dt == torch.float32 else None
         b = fusion.pack(ts, i32)
         ref_b = fusion.pack_plain(ts, i32, None)
         red = b * 2
         red = red.view(torch.uint32) if out_dt == torch.uint32 else red
         outs = [torch.empty(t.shape, dtype=out_dt, device=dev) for t in ts]
-        fusion.unpack(red, outs, divisor)
+        fusion.unpack(red, outs, divisor, narrow=narrow)
         torch.cuda.synchronize()
         ref_red = ref_b * 2
         ref_red = ref_red.view(torch.uint32) if out_dt == torch.uint32 \
             else ref_red
         ref = [torch.empty_like(o) for o in outs]
-        fusion.unpack_plain(ref_red, ref, divisor, None)
+        fusion.unpack_plain(ref_red, ref, divisor, None, narrow)
         verdict(name, [b] + outs, [ref_b] + ref)
     return ok, res
 
@@ -1330,17 +1451,19 @@ def launch_two_ranks(torch, flag, layers, seed, timeout_s):
             path = os.path.join(tmp, f"rank{r}.json")
             if rc != 0 or not os.path.exists(path):
                 tail = ""
-                for stream in ("stdout", "stderr"):
-                    f = os.path.join(logs, f"rank.{r}", stream)
+                for f in (os.path.join(logs, f"rank.{r}", "stdout"),
+                          os.path.join(logs, f"rank.{r}", "stderr"),
+                          os.path.join(tmp, f"stacks{r}.txt")):
                     if os.path.exists(f):
                         with open(f) as fh:
-                            tail += fh.read()[-2000:]
+                            tail += fh.read()[-6000:]
                 print(f"{flag[2:4]}: rank {r} failed (launcher rc {rc}, "
                       f"route {route}); the end of its output:\n{tail}",
                       flush=True)
-                return None, route, wall
-            with open(path) as fh:
-                results.append(json.load(fh))
+                results = None
+            elif results is not None:
+                with open(path) as fh:
+                    results.append(json.load(fh))
     return results, route, wall
 
 
@@ -1366,6 +1489,41 @@ PROMOTE_CASES = (
       "Product": ("complex64", [4 + 3j, -4j, 1.5j]),
       "Average": ("raises", None), "Min": ("raises", None),
       "Max": ("raises", None)}))
+# The same for the reducescatter (tests/test_torch_dtypes.py holds the
+# port to the JAX engine on the CPU): the result's dtype and each rank's
+# chunk, or "raises".  int16, int8 and uint8 sums wrap; complex 1 and 1+1j
+# tie on the real part.
+SCATTER_CASES = (
+    ("bool", ([True, False, True, True], [True, True, False, False]),
+     {"Sum": ("raises", None), "Average": ("raises", None),
+      "Min": ("bool", [[True, False], [False, False]]),
+      "Max": ("bool", [[True, True], [True, True]]),
+      "Product": ("int32", [[1, 0], [0, 0]])}),
+    ("int16", ([30000, -2, 1, 2], [30000, 5, -7, 3]),
+     {"Sum": ("int16", [[-5536, 3], [-6, 5]]),
+      "Average": ("float32", [[-2768.0, 1.5], [-3.0, 2.5]]),
+      "Min": ("int16", [[30000, -2], [-7, 2]]),
+      "Max": ("int16", [[30000, 5], [1, 3]]),
+      "Product": ("int32", [[900000000, -10], [-7, 6]])}),
+    ("int8", ([100, 3, -7, 4], [30, 90, 2, 50]),
+     {"Sum": ("int8", [[-126, 93], [-5, 54]]),
+      "Average": ("float32", [[-63.0, 46.5], [-2.5, 27.0]]),
+      "Min": ("int8", [[30, 3], [-7, 4]]),
+      "Max": ("int8", [[100, 90], [2, 50]]),
+      "Product": ("int32", [[3000, 270], [-14, 200]])}),
+    ("uint8", ([200, 3, 7, 200], [100, 90, 2, 100]),
+     {"Sum": ("uint8", [[44, 93], [9, 44]]),
+      "Average": ("float32", [[22.0, 46.5], [4.5, 22.0]]),
+      "Min": ("uint8", [[100, 3], [2, 100]]),
+      "Max": ("uint8", [[200, 90], [7, 200]]),
+      "Product": ("uint32", [[20000, 270], [14, 20000]])}),
+    ("complex64", ([1 + 2j, -1j, 3, 1], [2 - 1j, 4, 0.5j, 1 + 1j]),
+     {"Sum": ("complex64", [[3 + 1j, 4 - 1j], [3 + 0.5j, 2 + 1j]]),
+      "Average": ("complex64", [[1.5 + 0.5j, 2 - 0.5j],
+                                [1.5 + 0.25j, 1 + 0.5j]]),
+      "Min": ("complex64", [[1 + 2j, -1j], [0.5j, 1]]),
+      "Max": ("complex64", [[2 - 1j, 4], [3, 1 + 1j]]),
+      "Product": ("complex64", [[4 + 3j, -4j], [1.5j, 1 + 1j]])}))
 E4_ROWS = 2 * 4096          # an expert dispatch's [2 x 4096, 4096] tokens
 E4_BN = (32, 256, 56, 56)   # ResNet-50's first stage, per rank
 E4_BN_TOL = 4e-2            # bf16 output and input gradient, |y| < 8
@@ -1533,20 +1691,27 @@ def e4_worker(args):
     xb.grad = None              # the first call's time holds the warm-up
     run("SyncBatchNorm forward and backward, second call", bn_step)
     del xb
-    # The promoting dtypes against the JAX engine's outcomes.
+    # The promoting dtypes of an allreduce and a reducescatter against the
+    # JAX engine's outcomes.
     promote = {}
-    for name, values, outcomes in PROMOTE_CASES:
-        for op, (want_dt, want) in outcomes.items():
-            t = torch.tensor(values[r], dtype=getattr(torch, name),
-                             device=dev)
-            try:
-                got = hvd.allreduce(t, op=getattr(hvd, op),
-                                    name=f"e4.dt.{name}.{op}")
-                got = (str(got.dtype)[6:], got.cpu().tolist())
-            except TypeError:
-                got = ("raises", None)
-            promote[f"{name} {op}"] = got == (want_dt, want)
-    checks["promoting dtypes"] = all(promote.values())
+    for what, fn, cases in (("allreduce", hvd.allreduce, PROMOTE_CASES),
+                            ("reducescatter", hvd.reducescatter,
+                             SCATTER_CASES)):
+        for name, values, outcomes in cases:
+            for op, (want_dt, want) in outcomes.items():
+                t = torch.tensor(values[r], dtype=getattr(torch, name),
+                                 device=dev)
+                try:
+                    got = fn(t, op=getattr(hvd, op),
+                             name=f"e4.dt.{what}.{name}.{op}")
+                    got = (str(got.dtype)[6:], got.cpu().tolist())
+                except TypeError:
+                    got = ("raises", None)
+                if want is not None and what == "reducescatter":
+                    want = want[r]
+                promote[f"{what} {name} {op}"] = got == (want_dt, want)
+        checks[f"promoting dtypes ({what})"] = all(
+            v for k, v in promote.items() if k.startswith(what))
     hvd.shutdown()
     _write_result(args.e4_worker, dict(
         rank=r, checks=checks, timing=timing, bn_err=bn_err,
@@ -1667,6 +1832,249 @@ def two_rank_phase(torch, layers, seed, timeout_s=600):
                     route=route)
 
 
+# E5: sequence-parallel training at the full max_seq split over two ranks.
+E5_SEQ = 8192            # Llama-3-8B's max_seq: 4,096 tokens a rank at sp=2
+E5_CHECK_SEQ = 4096      # the gradient check's whole sequence
+E5_STEPS = 3
+# Ring against Ulysses, step 1, relative: bf16 activations, attention by
+# other kernels' schedules (sound runs read 0 and 1.1e-5).
+E5_LOSS_TOL = 1e-3
+E5_TIMEOUT_S = 420
+
+
+def _clone_tree(tree):
+    """The parameter tree's leaves as fresh leaves that require grad (no
+    optimizer hooks on them)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.detach().clone().requires_grad_(True)
+
+
+def e5_worker(args):
+    """One rank of E5, started by the port's launcher: the training main
+    path with the sequence split over ``make_mesh({"sp": 2})``.  From the
+    weights broadcast from rank 0: the gradient check at E5_CHECK_SEQ
+    (ring, then Ulysses: the optimizer's averaged gradients before
+    ``step()`` against a single-rank full-sequence step on rank 0), then
+    E5_STEPS steps with ``sp_impl="ring"`` and E5_STEPS with "ulysses" at
+    E5_SEQ, each from the broadcast weights, with the launch counts zeroed
+    just before each step and read just after, the exchange times (CUDA
+    events around each exchange's wait, ``mesh.timing``) and the
+    parameters' checksums.  The result goes to ``rank<HOROVOD_RANK>.json``
+    in ``args.e5_worker``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    import faulthandler
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # A hang is a failure: every thread's stack goes to the result
+    # directory before the phase's timeout kills the ranks.
+    stacks = open(os.path.join(args.e5_worker, "stacks"
+                               f"{os.environ['HOROVOD_RANK']}.txt"), "w")
+    faulthandler.dump_traceback_later(E5_TIMEOUT_S - 60, exit=False,
+                                      file=stacks)
+    hvd.init()
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    from horovod_tpu_torch.common.basics import cuda_module_loading
+    loading = cuda_module_loading()
+
+    def progress(what):
+        print(f"e5 rank {r}: {what} at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+    t_start = time.perf_counter()
+    mesh = parallel.make_mesh({"sp": n})
+    progress("mesh made")
+    ring = tl.llama3_8b(n_layers=args.train_layers, sp_impl="ring")
+    ulysses = dataclasses.replace(ring, sp_impl="ulysses")
+    params = tl.init_params(ring, torch.Generator(device=dev).manual_seed(
+        args.seed + 1 + 1000 * r))
+    named = list(tl.named_parameters(params))
+    hvd.broadcast_parameters(params, root_rank=0)
+    start = [t.detach().clone() for _, t in named]
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([t for _, t in named], lr=TRAIN_LR),
+        named_parameters=named)
+
+    def restore():
+        with torch.no_grad():
+            for (_, t), s0 in zip(named, start):
+                t.copy_(s0)
+
+    def batch(T, seed):
+        """The same B x T tokens on every rank, and this rank's shard."""
+        toks = torch.from_numpy(np.random.RandomState(seed).randint(
+            0, ring.vocab_size, (TRAIN_BATCH, T + 1)).astype(np.int64)).to(
+                dev)
+        x, y = toks[:, :-1], toks[:, 1:]
+        c = T // n
+        return (x, y), tuple(a[:, r * c:(r + 1) * c].contiguous()
+                             for a in (x, y))
+
+    # The gradient check: rank 0's single-rank full-sequence reference
+    # first, on clones without hooks, while rank 1 waits.
+    (xf, yf), (xs, ys) = batch(E5_CHECK_SEQ, args.seed + 50)
+    ref = None
+    if r == 0:
+        ref_params = _clone_tree(params)
+        leaves = [t for _, t in tl.named_parameters(ref_params)]
+        ref = torch.autograd.grad(tl.loss_fn(ref_params, xf, yf, ring),
+                                  leaves)
+        del ref_params, leaves
+        torch.cuda.empty_cache()
+    progress("reference gradients done")
+    grad_check = {}
+    for cfg in (ring, ulysses):
+        opt.zero_grad()
+        tl.loss_fn(params, xs, ys, cfg, mesh).backward()
+        opt.synchronize()
+        if r == 0:
+            worst = 0.0
+            for (_, t), g in zip(named, ref):
+                a, b = t.grad.float(), g.float()
+                rel = (a - b).abs().max().item() / max(
+                    b.abs().max().item(), 1e-30)
+                if not bool(torch.isfinite(a).all()):
+                    rel = float("inf")
+                worst = max(worst, rel)
+            grad_check[cfg.sp_impl] = worst
+        with opt.skip_synchronize():
+            opt.step()
+        restore()
+        progress(f"gradient check ({cfg.sp_impl}) done")
+    del ref
+    torch.cuda.empty_cache()
+
+    _, (x, y) = batch(E5_SEQ, args.seed + 60)
+    runs = {}
+    for cfg in (ring, ulysses):
+        restore()
+        step = tl.make_train_step(cfg, opt, mesh)
+        steps = []
+        for _ in range(E5_STEPS):
+            fa.flash_attention_fwd.launches = 0
+            fa.flash_attention_bwd.launches_dq = 0
+            fa.flash_attention_bwd.launches_dkv = 0
+            mesh.timing = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = step(params, x, y).item()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            marks, mesh.timing = mesh.timing, None
+            steps.append(dict(
+                loss=loss, s=dt, exchanges=len(marks),
+                exchange_ms=parallel.timed_ms(marks),
+                launches=[fa.flash_attention_fwd.launches,
+                          fa.flash_attention_bwd.launches_dq,
+                          fa.flash_attention_bwd.launches_dkv],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                sums=_checksum(torch, named)))
+            progress(f"{cfg.sp_impl} step {len(steps)} done")
+        runs[cfg.sp_impl] = steps
+    mesh.shutdown()
+    hvd.shutdown()
+    faulthandler.cancel_dump_traceback_later()
+    stacks.close()
+    _write_result(args.e5_worker, dict(
+        rank=r, size=n, device=str(dev), card=torch.cuda.get_device_name(dev),
+        loading=loading, grad_check=grad_check, runs=runs))
+    print(f"e5 rank {r}: done", flush=True)
+    return 0
+
+
+def e5_phase(torch, layers, seed, card, timeout_s=E5_TIMEOUT_S):
+    """E5: sequence-parallel training on two ranks through the port's
+    launcher (``e5_worker``), with the optimizer's hooks live: parameters
+    bitwise equal across ranks after every step, finite losses, the ring's
+    and Ulysses' step-1 losses within E5_LOSS_TOL, the gradients within
+    GRAD_TOL of a single-rank step, and the launch counts of the ring's
+    schedule: on rank r of n, per step, the forward ``layers x (r + 1)``
+    times and dq, dk/dv ``layers x (n - r)`` times each; Ulysses
+    ``layers`` each."""
+    import numpy as np
+    results, route, wall = launch_two_ranks(torch, "--e5-worker", layers,
+                                            seed, timeout_s)
+    if results is None:
+        return False, None
+    n, a = len(results), results[0]
+    modes = [res["loading"] for res in results]
+    ok = all(m == "EAGER" for m in modes)
+    print(f"e5: the ranks' CUDA module loading {modes} (EAGER: a lazy "
+          f"first launch beside a spinning "
+          f"collective can deadlock) -> {'PASS' if ok else 'FAIL'}",
+          flush=True)
+    for impl in ("ring", "ulysses"):
+        for i, steps in enumerate(zip(*(res["runs"][impl]
+                                        for res in results))):
+            same = len({str(st["sums"]) for st in steps}) == 1
+            finite = all(np.isfinite(st["loss"]) for st in steps)
+            launches_ok = True
+            for res, st in zip(results, steps):
+                rr = res["rank"]
+                want = ([layers * (rr + 1)] + [layers * (n - rr)] * 2
+                        if impl == "ring" else [layers] * 3)
+                launches_ok = launches_ok and st["launches"] == want
+            ok = ok and same and finite and launches_ok
+            step_ms = " / ".join(f"{st['s'] * 1e3:.1f}" for st in steps)
+            exch_ms = " / ".join(f"{st['exchange_ms']:.1f}" for st in steps)
+            print(f"e5: {impl} step {i + 1}: losses "
+                  f"{[round(st['loss'], 6) for st in steps]} (each rank's "
+                  f"own {E5_SEQ // n:,} tokens a row); parameters bitwise "
+                  f"equal across ranks: {same}; step {step_ms} ms; "
+                  f"{steps[0]['exchanges']} exchanges taking {exch_ms} ms; "
+                  f"flash launches fwd/dq/dkv "
+                  f"{[st['launches'] for st in steps]} -> "
+                  f"{'PASS' if same and finite and launches_ok else 'FAIL'}",
+                  flush=True)
+    for res in results:
+        l_ring = res["runs"]["ring"][0]["loss"]
+        l_uly = res["runs"]["ulysses"][0]["loss"]
+        rel = abs(l_ring - l_uly) / max(abs(l_uly), 1e-30)
+        agree = rel <= E5_LOSS_TOL
+        ok = ok and agree
+        print(f"e5: rank {res['rank']}: step-1 loss ring {l_ring:.6f} "
+              f"Ulysses {l_uly:.6f}, relative difference {rel:.3e} (tol "
+              f"{E5_LOSS_TOL:g}: bf16 activations, attention by other "
+              f"kernels' schedules) -> {'PASS' if agree else 'FAIL'}",
+              flush=True)
+    for impl, worst in a["grad_check"].items():
+        good = worst <= GRAD_TOL
+        ok = ok and good
+        print(f"e5: gradient check ({impl}) at T={E5_CHECK_SEQ} "
+              f"({E5_CHECK_SEQ // n:,} a rank): the optimizer's averaged "
+              f"gradients against a single-rank full-sequence step on rank "
+              f"0, worst max_rel_err {worst:.3e} over "
+              f"{layers * 9 + 3} leaves (tol {GRAD_TOL:g} relative to the "
+              f"leaf's largest reference gradient) -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    summary = {}
+    for impl in ("ring", "ulysses"):
+        steps = a["runs"][impl]
+        med = sorted(st["s"] for st in steps)[len(steps) // 2] * 1e3
+        exch = sorted(st["exchange_ms"] for st in steps)[len(steps) // 2]
+        peak = max(st["peak_gib"] for res in results
+                   for st in res["runs"][impl])
+        summary[impl] = dict(step_ms=med, exchange_ms=exch, peak_gib=peak)
+        print(f"e5: {impl}: median step {med:.1f} ms on rank 0 "
+              f"({TRAIN_BATCH * E5_SEQ / med * 1e3:.1f} tokens/s over both "
+              f"ranks), exchange {exch:.1f} ms a step (CUDA events around "
+              f"the waits), peak memory {peak:.2f} GiB a rank [{card}; two "
+              f"ranks on {route}]", flush=True)
+    print(f"e5: two ranks through the launcher in {wall:.1f} s -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    launches = [sum(st["launches"][k] for impl in ("ring", "ulysses")
+                    for st in a["runs"][impl]) for k in range(3)]
+    return ok, dict(launches=launches, summary=summary)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1679,6 +2087,8 @@ def main():
                     help=argparse.SUPPRESS)   # one rank of phase E3
     ap.add_argument("--e4-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E4
+    ap.add_argument("--e5-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase E5
     args = ap.parse_args()
 
     import torch
@@ -1702,11 +2112,15 @@ def main():
         return e3_worker(args)
     if args.e4_worker:
         return e4_worker(args)
+    if args.e5_worker:
+        return e5_worker(args)
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    loading_ok = module_loading_phase()
 
     t0 = time.time()
     # The coordinator (g++) builds beside the kernels (nvcc, one each).
@@ -1763,20 +2177,29 @@ def main():
     torch.cuda.empty_cache()
     two_ok, two = two_rank_phase(torch, args.train_layers, args.seed)
     four_ok, four = e4_phase(torch, args.train_layers, args.seed, card)
-    engine_ok = (fusion_ok and layout_ok and size1_ok and two_ok and four_ok
+    engine_ok = (loading_ok and fusion_ok and layout_ok and size1_ok
+                 and two_ok and four_ok
                  and no_spills)
+    sp_ok, sp = e5_phase(torch, args.train_layers, args.seed, card)
 
-    fwd, fwd_train = cases[0], cases[-1]   # serving and training shapes
-    bwd = bwd_cases[-1]                    # training shape
+    by_name = {c["case"]: c for c in cases}
+    fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
+    fwd_ring, fwd_uly = by_name[RING_CASE], by_name[ULYSSES_CASE]
+    bwd_by_name = {c["case"]: c for c in bwd_cases}
+    bwd, bwd_ring = bwd_by_name[TRAIN_CASE], bwd_by_name[RING_CASE]
+    bwd_uly = bwd_by_name[ULYSSES_CASE]
     kernels_ok = all(c["ok"] for c in cases + bwd_cases) and edges_ok \
         and tc_ok
-    launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"],
-                "flash_bwd_dq": train_launches["flash_bwd_dq"],
-                "flash_bwd_dkv": train_launches["flash_bwd_dkv"]}
+    e5 = sp["launches"] if sp else [0, 0, 0]
+    launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
+                + e5[0],
+                "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1],
+                "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
-          f"+ {train_launches['flash_fwd']} training; flash_bwd_dq "
-          f"{launches['flash_bwd_dq']}, flash_bwd_dkv "
-          f"{launches['flash_bwd_dkv']} training", flush=True)
+          f"+ {train_launches['flash_fwd']} training + {e5[0]} "
+          f"sequence-parallel (E5 rank 0); flash_bwd_dq "
+          f"{train_launches['flash_bwd_dq']} + {e5[1]}, flash_bwd_dkv "
+          f"{train_launches['flash_bwd_dkv']} + {e5[2]}", flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
@@ -1791,7 +2214,14 @@ def main():
              train_bound_ms=fwd_train["bound_ms"],
              train_bound_by=fwd_train["bound_by"],
              train_library_ms=fwd_train["library_ms"],
-             train_tflops=fwd_train["tflops"]),
+             train_tflops=fwd_train["tflops"], launches_e5=e5[0],
+             ring_ms=fwd_ring["ms"], ring_plain_ms=fwd_ring["plain_ms"],
+             ring_bound_ms=fwd_ring["bound_ms"],
+             ring_bound_by=fwd_ring["bound_by"],
+             ring_library_ms=fwd_ring["library_ms"],
+             ring_max_abs_err=fwd_ring["max_abs_err"],
+             ring_tflops=fwd_ring["tflops"],
+             **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS}),
     ] + [
         dict(name=f"flash_bwd_{g}", route="cuda", source=src + "flash_bwd.cu",
              replaces=f"horovod_tpu/ops/flash_attention.py:{line}",
@@ -1799,7 +2229,17 @@ def main():
              max_abs_err=bwd[g]["max_abs_err"], ms=bwd[g]["ms"],
              plain_ms=bwd["plain_ms"], bound_ms=bwd[g]["bound_ms"],
              bound_by=bwd[g]["bound_by"], library_ms=bwd["library_ms"],
-             tflops=bwd[g]["tflops"])
+             tflops=bwd[g]["tflops"], launches_e5=e5[1 if g == "dq" else 2],
+             ring_ms=bwd_ring[g]["ms"], ring_plain_ms=bwd_ring["plain_ms"],
+             ring_bound_ms=bwd_ring[g]["bound_ms"],
+             ring_bound_by=bwd_ring[g]["bound_by"],
+             ring_library_ms=bwd_ring["library_ms"],
+             ring_max_abs_err=bwd_ring[g]["max_abs_err"],
+             ring_tflops=bwd_ring[g]["tflops"],
+             **{f"ulysses_{k}": bwd_uly[g][k] for k in _CASE_KEYS
+                if k in bwd_uly[g]},
+             ulysses_plain_ms=bwd_uly["plain_ms"],
+             ulysses_library_ms=bwd_uly["library_ms"])
         for g, line, design in (
             ("dq", 170, "flash_bwd_dq_wgmma_kernel: wgmma, q/do resident, "
                         "64-row k/v tiles through a TMA ring"),
@@ -1831,17 +2271,22 @@ def main():
             library_ms=r["library_ms"], gbps=r["gbps"],
             call_ms=r["call_ms"], host_us=r["host_us"]))
     for kern in kernels:
-        kern["pass"] = kernels_ok and engine_ok and kern["launches"] > 0
+        kern["pass"] = (kernels_ok and engine_ok and sp_ok
+                        and kern["launches"] > 0)
+    print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     hvd.shutdown()
-    if not (kernels_ok and serve_ok and train_ok and engine_ok
+    if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
-              f", engine ok={engine_ok} (fusion kernels {fusion_ok}, "
+              f", engine ok={engine_ok} (module loading {loading_ok}, "
+              f"fusion kernels {fusion_ok}, "
               f"layouts and casts {layout_ok}, size 1 {size1_ok}, two ranks "
-              f"{two_ok}, collectives on two ranks {four_ok})")
+              f"{two_ok}, collectives on two ranks {four_ok}), sequence "
+              f"parallel ok={sp_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

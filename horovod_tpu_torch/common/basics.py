@@ -18,16 +18,28 @@ contract:
   coordinator's server.
 
 The device is ``cuda:{local_rank}`` unless the caller asks for the CPU
-(``init(device="cpu")``, as the tests do).  With no card and no such
-request ``init()`` raises: the port never carries on on the CPU by itself.
-Elastic membership, the hierarchical controller, topology, the monitor and
+(``init(device="cpu")``, as the tests do).  At a size above 1 on a card
+the process must load its CUDA kernels eagerly: under CUDA's lazy module
+loading a kernel's first launch may wait for the context to go idle, which
+a collective kernel spinning for a peer never lets it do, and two ranks
+each loading a kernel beside one wait for each other for ever.  ``init()``
+asks for eager loading (``CUDA_MODULE_LOADING=EAGER``) when the variable
+is unset and the CUDA driver not yet initialised, and warns when the
+driver reports lazy loading all the same: the driver reads the variable
+once, at its initialisation, which ``torch.cuda.is_available()`` already
+performs.  The port's launcher sets the variable for every worker.
+
+With no card and no request for the CPU ``init()`` raises: the port
+never carries on on the CPU by itself.  Elastic membership, the hierarchical controller, topology, the monitor and
 the timeline come with later parts of the port.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import threading
+import warnings
 from typing import Optional, Sequence
 
 import torch
@@ -71,6 +83,48 @@ def _get_state() -> GlobalState:
     return _state
 
 
+def _libcuda():
+    try:
+        return ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+
+
+def _cuda_driver_initialized() -> bool:
+    """Whether this process has initialised the CUDA driver (``cuInit``);
+    False without a driver."""
+    lib = _libcuda()
+    if lib is None:
+        return False
+    count = ctypes.c_int()
+    # CUDA_ERROR_NOT_INITIALIZED (3) until cuInit.
+    return lib.cuDeviceGetCount(ctypes.byref(count)) != 3
+
+
+def cuda_module_loading() -> Optional[str]:
+    """The CUDA driver's module loading mode in this process, ``"EAGER"``
+    or ``"LAZY"``; None without a driver or before its initialisation."""
+    lib = _libcuda()
+    if lib is None:
+        return None
+    mode = ctypes.c_int()
+    if lib.cuModuleGetLoadingMode(ctypes.byref(mode)) != 0:
+        return None
+    return {1: "EAGER", 2: "LAZY"}.get(mode.value)
+
+
+def _ask_eager_module_loading(size: int, device) -> None:
+    """Ask for eager module loading before this process initialises the
+    CUDA driver, where it will run collectives on a card and the user has
+    not chosen a mode."""
+    if size <= 1 or (device is not None
+                     and torch.device(device).type != "cuda"):
+        return
+    if "CUDA_MODULE_LOADING" not in os.environ \
+            and not _cuda_driver_initialized():
+        os.environ["CUDA_MODULE_LOADING"] = "EAGER"
+
+
 def _resolve_device(device, local_rank: int) -> torch.device:
     if device is not None:
         return torch.device(device)
@@ -99,9 +153,19 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         rank = _env_int("HOROVOD_RANK", 0)
         local_rank = _env_int("HOROVOD_LOCAL_RANK", 0)
         local_size = _env_int("HOROVOD_LOCAL_SIZE", size)
+        _ask_eager_module_loading(size, device)
         dev = _resolve_device(device, local_rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
+            if size > 1 and cuda_module_loading() == "LAZY":
+                warnings.warn(
+                    "horovod_tpu_torch.init(): this process loads CUDA "
+                    "kernels lazily (the driver was initialised before "
+                    "init(), or CUDA_MODULE_LOADING says so); a kernel's "
+                    "first launch beside a collective waiting for a peer "
+                    "can deadlock the ranks.  Start the process with "
+                    "CUDA_MODULE_LOADING=EAGER, as the port's launcher "
+                    "does.", RuntimeWarning, stacklevel=2)
         st.owns_process_group = False
         if size > 1:
             import torch.distributed as dist

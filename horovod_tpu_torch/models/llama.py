@@ -1,11 +1,11 @@
-"""Llama-family decoder: the dense, single-device serving and training
-surface.
+"""Llama-family decoder: the dense serving and training surface, with
+sequence parallelism in training.
 
-Port of ``horovod_tpu/models/llama.py:37-230, 313-574, 586-921, 1023-1044``.  The
-parameters are a plain dictionary in the JAX package's own layout
-(``{"embed", "layers": [...], "final_norm", "lm_head"}``), and every weight
-keeps the JAX ``[in, out]`` layout: a projection is ``x @ w``, never
-``nn.Linear``'s ``x @ w.T``.  :func:`params_from_jax` carries a JAX
+Port of ``horovod_tpu/models/llama.py:37-230, 313-577, 586-921,
+1023-1044``.  The parameters are a plain dictionary in the JAX package's
+own layout (``{"embed", "layers": [...], "final_norm", "lm_head"}``), and
+every weight keeps the JAX ``[in, out]`` layout: a projection is ``x @
+w``, never ``nn.Linear``'s ``x @ w.T``.  :func:`params_from_jax` carries a JAX
 parameter tree (as numpy arrays) over unchanged.
 
 Training and prefill attend through flash attention (the Hopper kernels on
@@ -19,8 +19,19 @@ plain masked product, as in the JAX package, because at one query row there
 is no score matrix to tile.  The KV cache is updated in place, where the
 JAX functions return a new one; the functions still return it.
 
-Mixture-of-experts, tensor/sequence/pipeline/expert parallelism, the
-rolling cache and speculative decoding are not ported yet.
+Sequence parallelism: ``forward``, ``loss_fn`` and ``make_train_step``
+take a :class:`~horovod_tpu_torch.parallel.ProcessMesh` (``mesh=``), the
+counterpart of ``shard_map`` binding the axis names.  Where the mesh's
+``cfg.sp_axis`` has a size above 1, each rank holds ``[B, T/sp]`` tokens
+in rank order along it, attention is ``ring_attention`` or
+``ulysses_attention`` (``cfg.sp_impl``) and positions start at
+``sp_rank · T/sp``.  With no mesh, no such axis or an axis of size 1 the
+path is the single-rank one.  Prefill and decode take no mesh: they run
+on one rank's whole sequence (a token-at-a-time cache has no sequence to
+split), so the JAX ``_decode_axes_check`` refusal has no input to refuse.
+
+Mixture-of-experts, tensor/pipeline/expert parallelism, the rolling cache
+and speculative decoding are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ import torch
 
 from ..functions import _leaves
 from ..ops.flash_attention import NEG_INF, flash_attention
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +59,15 @@ class LlamaConfig:
     max_seq: int = 8192
     rope_theta: float = 500000.0
     dtype: torch.dtype = torch.bfloat16
+    # The mesh axis the sequence is split over (None: never split), and
+    # its engine: "ring" (k/v rotate; any head count, O(T/sp) memory) or
+    # "ulysses" (two all-to-alls to a head-split layout; needs the q AND
+    # kv heads divisible by sp).
+    sp_axis: Optional[str] = "sp"
+    sp_impl: str = "ring"
     # Sliding-window (Mistral-style) causal attention over the last
     # ``sliding_window`` positions; the flash kernel skips whole tiles
-    # outside the band.
+    # outside the band.  Not with sequence parallelism.
     sliding_window: Optional[int] = None
     norm_eps: float = 1e-5
 
@@ -57,6 +76,10 @@ class LlamaConfig:
         return self.d_model // self.n_heads
 
     def __post_init__(self):
+        if self.sp_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"sp_impl must be 'ring' or 'ulysses', got "
+                f"{self.sp_impl!r}")
         if self.sliding_window is not None and self.sliding_window < 1:
             raise ValueError(
                 f"sliding_window must be >= 1 (or None to disable), got "
@@ -194,50 +217,100 @@ def _local_attend(q, k, v, cfg: LlamaConfig):
     return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
 
 
+def _sp(cfg: LlamaConfig, mesh) -> int:
+    """The sequence-parallel degree: the size of ``cfg.sp_axis`` in
+    ``mesh``, 1 without a mesh or without that axis."""
+    if mesh is None or cfg.sp_axis is None \
+            or cfg.sp_axis not in mesh.axis_names:
+        return 1
+    return mesh.size(cfg.sp_axis)
+
+
+def _attend(q, k, v, cfg: LlamaConfig, mesh):
+    """Causal self-attention of this rank's shard: over the sp ring or by
+    head exchange when the sequence is split, else local.  GQA kv passes
+    un-repeated either way."""
+    sp = _sp(cfg, mesh)
+    if sp > 1 and cfg.sliding_window:
+        raise ValueError(
+            "sliding_window composes with dp/tp/pp/ep but not (yet) with "
+            "sequence parallelism — disable sp_axis or the window")
+    if sp > 1 and cfg.sp_impl == "ulysses":
+        return ulysses_attention(q, k, v, mesh, axis_name=cfg.sp_axis,
+                                 causal=True)
+    if sp > 1:
+        return ring_attention(q, k, v, mesh, axis_name=cfg.sp_axis,
+                              causal=True)
+    return _local_attend(q, k, v, cfg)
+
+
 def _mlp(x, p, cfg: LlamaConfig):
     """Dense SwiGLU MLP."""
     h = torch.nn.functional.silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
 
 
-def _layer_apply(p, x, cfg: LlamaConfig, positions):
+def _layer_apply(p, x, cfg: LlamaConfig, positions, mesh=None):
     h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg, positions)
-    x = x + _wo_project(_local_attend(q, k, v, cfg), p, cfg)
+    x = x + _wo_project(_attend(q, k, v, cfg, mesh), p, cfg)
     return x + _mlp(_rmsnorm(x, p["mlp_norm"], cfg.norm_eps), p, cfg)
 
 
-def forward(params, tokens, cfg: LlamaConfig):
-    """Logits ``[B, T, vocab]`` for ``tokens [B, T]``."""
+def forward(params, tokens, cfg: LlamaConfig, mesh=None):
+    """Logits ``[B, T, vocab]`` for this rank's ``tokens [B, T]``: with
+    the sequence split over ``mesh``, its ``T`` positions start at
+    ``sp_rank · T``."""
     T = tokens.shape[1]
-    positions = torch.arange(T, device=tokens.device)
+    start = mesh.index(cfg.sp_axis) * T if _sp(cfg, mesh) > 1 else 0
+    positions = start + torch.arange(T, device=tokens.device)
     x = params["embed"][tokens.long()]
     for p in params["layers"]:
-        x = _layer_apply(p, x, cfg, positions)
+        x = _layer_apply(p, x, cfg, positions, mesh)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"]
 
 
 # ----------------------------------------------------------------- training
-def loss_fn(params, tokens, targets, cfg: LlamaConfig):
-    """Mean next-token cross-entropy over every token, logits in float32:
-    the dense single-device case of the JAX ``loss_fn`` (no mesh axes, so
-    no partial-sum scaling, and no mixture-of-experts router loss)."""
-    logits = forward(params, tokens, cfg).float()
+def loss_fn(params, tokens, targets, cfg: LlamaConfig, mesh=None):
+    """Mean next-token cross-entropy over this rank's tokens, logits in
+    float32 (no mixture-of-experts router loss).
+
+    The JAX ``loss_fn`` returns a partial loss scaled by 1/(global token
+    count), which ``sync_grads`` sums over the ranks.  Here
+    ``hvd.DistributedOptimizer`` averages the gradients over the dp × sp
+    ranks instead, so each rank's loss is the mean over its own tokens;
+    that average is the gradient of the global mean because the ring's
+    backward returns every dk/dv contribution to the rank that owns the
+    k/v (Ulysses' exchange is its own inverse) and every rank holds the
+    same number of tokens."""
+    logits = forward(params, tokens, cfg, mesh).float()
     return torch.nn.functional.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long())
 
 
-def make_train_step(cfg: LlamaConfig, optimizer):
+def psum_loss(loss, cfg: LlamaConfig, mesh=None):
+    """The global mean loss, for logging: the mean of every rank's
+    :func:`loss_fn` over the world (the mesh spans it) through the engine,
+    as the JAX ``psum_loss`` sums the partial losses; this rank's loss
+    without a mesh or in a world of one."""
+    from .. import mpi_ops
+    loss = loss.detach()
+    if mesh is None or all(n == 1 for n in mesh.shape.values()):
+        return loss
+    return mpi_ops.allreduce(loss, op=mpi_ops.Average, name="llama.loss")
+
+
+def make_train_step(cfg: LlamaConfig, optimizer, mesh=None):
     """Returns ``step(params, tokens, targets) -> loss``: zero the grads,
-    forward, backward, ``optimizer.step()``.  The loss is that of the
-    parameters before the update, as the JAX step returns it.  ``params``
-    must be the leaves ``optimizer`` updates; with
-    ``hvd.DistributedOptimizer`` the step averages the gradients across
-    processes."""
+    forward, backward, ``optimizer.step()``.  The loss is this rank's (of
+    its tokens) for the parameters before the update; :func:`psum_loss`
+    gives the global mean.  ``params`` must be the leaves ``optimizer``
+    updates; with ``hvd.DistributedOptimizer`` the step averages the
+    gradients across processes.  ``mesh``: as in :func:`forward`."""
     def step(params, tokens, targets):
         optimizer.zero_grad()
-        loss = loss_fn(params, tokens, targets, cfg)
+        loss = loss_fn(params, tokens, targets, cfg, mesh)
         loss.backward()
         optimizer.step()
         return loss.detach()

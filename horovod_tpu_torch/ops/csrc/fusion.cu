@@ -22,9 +22,11 @@
 // by n in W (Average), or floor division for integers, after the cast to
 // an integer T (an int32 sum narrowed to int16 wraps first, as the JAX
 // program's int16 sum does); an integer W into a float32 T divides in
-// float32 after the cast (a reducescatter's Average).  Integers scale in
-// float32 and are cast back, truncating; float64 computes in double.  Each rounding is where the
-// JAX program rounds (collectives.py:61-68, engine.py:1989-2010), so
+// float32 after the cast (a reducescatter's Average), an int32 W of int16
+// sums after narrowing to int16 (kNarrowDivide: the int16 sum's wrap).
+// Integers scale in float32 and are cast back, truncating; float64
+// computes in double.  Each rounding is where the JAX program rounds
+// (collectives.py:61-68, engine.py:1989-2010), so
 // bf16-in/bf16-out and integer results are bitwise those of the plain
 // PyTorch versions in ops/fusion.py: a bf16 or fp16 product of two values of
 // its own type is exact in float32 and is rounded once; a division is an
@@ -94,7 +96,9 @@ enum Dtype : int {
   kF32 = 0, kBF16 = 1, kF16 = 2, kI32 = 3, kI64 = 4, kF64 = 5, kI8 = 6,
   kU8 = 7, kBool = 8, kI16 = 9
 };
-enum Avg : int { kNone = 0, kDivide = 1, kFloorDivide = 2 };
+enum Avg : int {
+  kNone = 0, kDivide = 1, kFloorDivide = 2, kNarrowDivide = 3
+};
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 2;          // register budget: 128 a thread
@@ -167,7 +171,15 @@ struct UnpackOp {
       return scale ? static_cast<T>(static_cast<float>(v) * f) : v;
     } else if constexpr (std::is_integral_v<W>) {
       float v = static_cast<float>(b);
-      if (avg == kDivide) v = v / static_cast<float>(n);
+      bool divide = avg == kDivide;
+      if constexpr (std::is_same_v<W, int32_t>) {
+        // kNarrowDivide: an int32 sum of int16 values wraps to int16 first.
+        if (avg == kNarrowDivide) {
+          v = static_cast<float>(static_cast<int16_t>(b));
+          divide = true;
+        }
+      }
+      if (divide) v = v / static_cast<float>(n);
       T t = from_acc<T>(v);
       if (scale) t = from_acc<T>(to_acc(t) * f);
       return t;
@@ -528,7 +540,8 @@ extern "C" int hvd_fusion_pack(const void* table, int n, long long total,
 }
 
 // table: device int64 [2n + 1] = n output pointers, then n + 1 offsets.
-// avg: 0 none, 1 divide by divisor in the buffer's dtype, 2 floor divide.
+// avg: 0 none, 1 divide by divisor in the buffer's dtype, 2 floor divide,
+// 3 narrow an int32 buffer to int16, then divide in float32.
 extern "C" int hvd_fusion_unpack(const void* table, int n, long long total,
                                  void* buf, int buf_dtype, int out_dtype,
                                  int avg, int divisor, int scale,

@@ -32,13 +32,16 @@ rows ``[r·S0_i, (r+1)·S0_i)`` of its output); reducescatter and alltoall
 pack through world × N source views, rank-major, so that rank q's chunk is
 contiguous.
 
-An allreduce gives the JAX engine's outcome for every dtype
-(``reduce_dtypes``): bool counts in int32 (``Min``/``Max`` stay bool),
-int16 travels as int32 and is narrowed back, an int8/int16 ``Product``
-returns int32 and a uint8 one uint32, complex ``Sum`` reduces float pairs
-and complex ``Product`` gathers and multiplies in rank order.  The pack
-kernel widens and the unpack kernel narrows.  What the JAX engine refuses
-(complex ``Average``/``Min``/``Max``) is refused at submission.
+An allreduce and a reducescatter give the JAX engine's outcome for every
+dtype (``reduce_dtypes``): bool counts in int32 (``Min``/``Max`` stay
+bool), int16 travels as int32 and is narrowed back, an int8/int16
+``Product`` returns int32 and a uint8 one uint32, complex ``Sum`` reduces
+float pairs and complex ``Product`` gathers and multiplies in rank order;
+a reducescatter's ``Average`` of integers returns float32, and its complex
+``Average``/``Min``/``Max`` work as the JAX engine's do.  The pack kernel
+widens and the unpack kernel narrows.  What the JAX engine refuses (a
+complex allreduce's ``Average``/``Min``/``Max``, a bool reducescatter's
+``Sum``/``Average``) is refused at submission.
 
 Tensors are per-rank: an entry holds this rank's own ``[*S]`` tensor, where
 the JAX engine holds the stacked ``[world, *S]``.  The fusion threshold
@@ -159,33 +162,34 @@ def reduce_dtypes(ctype: CollectiveType, dtype: torch.dtype,
     (``horovod_tpu/ops/engine.py`` ``_build_allreduce`` :2028-2073,
     ``_build_reducescatter`` :2225-2260).  The buffer's dtype is what the
     collective reduces: int32 where the JAX program counts or multiplies
-    in a wider type (NCCL has no int16), the group's own otherwise; a
-    complex group reduces its float pairs.  Raises ``TypeError`` for what
-    the JAX engine refuses (complex ``Average``/``Min``/``Max``), and for
-    the reducescatter dtypes not ported (bool, int16, complex)."""
+    in a wider type and where int16 travels (NCCL has no int16), the
+    group's own otherwise; a complex group reduces its float pairs or is
+    gathered.  A reducescatter's ``Average`` divides with ``/``, so an
+    integer input comes back float32 (an int16 sum wraps first).  Raises
+    ``TypeError`` for what the JAX engine refuses: a complex allreduce's
+    ``Average``/``Min``/``Max`` and a bool reducescatter's ``Sum``/
+    ``Average`` (its ``psum_scatter`` adds no bool)."""
     P = C.ReduceOp.PRODUCT
-    counted = dtype in (torch.int8, torch.uint8, torch.int16)
-    if ctype == CollectiveType.REDUCESCATTER:
-        if dtype in (torch.bool, torch.int16) or dtype.is_complex:
-            raise TypeError(f"reducescatter takes no {dtype} in the port "
-                            f"(ROADMAP queue 3)")
-        if op == C.ReduceOp.AVERAGE and not dtype.is_floating_point:
-            return dtype, torch.float32       # divides with `/`, :2239-2240
-    elif dtype.is_complex:
-        if op not in (C.ReduceOp.SUM, P):
+    scatter = ctype == CollectiveType.REDUCESCATTER
+    if dtype.is_complex:
+        if not scatter and op not in (C.ReduceOp.SUM, P):
             raise TypeError(f"allreduce of {dtype} takes Sum and Product, as "
                             f"the JAX engine does, got {op.name}")
         return dtype, dtype
-    elif dtype == torch.bool:
+    if dtype == torch.bool:
         if op in (C.ReduceOp.MIN, C.ReduceOp.MAX):
             return dtype, dtype
+        if scatter and op != P:
+            raise TypeError(f"reducescatter of {dtype} takes Min, Max and "
+                            f"Product, as the JAX engine does, got {op.name}")
         return torch.int32, torch.int32
-    elif dtype == torch.int16 and op != P:
-        return torch.int32, torch.int16
-    if op == P and counted:
+    if op == P and dtype in (torch.int8, torch.uint8, torch.int16):
         return torch.int32, (torch.uint32 if dtype == torch.uint8
                              else torch.int32)
-    return dtype, dtype
+    buf = torch.int32 if dtype == torch.int16 else dtype
+    if scatter and op == C.ReduceOp.AVERAGE and not dtype.is_floating_point:
+        return buf, torch.float32           # divides with `/`, :2239-2240
+    return buf, dtype
 
 
 def _join_fill_value(ctype: CollectiveType, op: C.ReduceOp,
@@ -204,7 +208,7 @@ def _join_fill_value(ctype: CollectiveType, op: C.ReduceOp,
         if dtype == torch.bool:
             return hi
         info = (torch.finfo(dtype) if dtype.is_floating_point
-                else torch.iinfo(dtype))
+                or dtype.is_complex else torch.iinfo(dtype))
         return info.max if hi else info.min
     return 0                               # Sum, Average (divides by world)
 
@@ -996,7 +1000,7 @@ class CollectiveEngine:
                           e0.prescale_factor)
         if world > 1:
             if dt.is_complex and op == C.ReduceOp.PRODUCT:
-                buf = self._complex_product(buf, ps)
+                buf = self._complex_gathered(buf, op, ps)
             else:
                 self._all_reduce(buf, op, ps)
         if outs[0].dtype == torch.uint32:
@@ -1039,23 +1043,41 @@ class CollectiveEngine:
         rank-major, one reduce-scatter (NCCL's own Min/Max/Product where
         the JAX program gathers, reduces and slices), and Average's
         division in the result's dtype (``/``: an integer input comes
-        back float32)."""
+        back float32).  The buffer is ``reduce_dtypes``'s: int16 travels
+        as int32 and its sum wraps back to int16 in the unpack, before an
+        ``Average``'s division; a complex group reduces its float pairs
+        (``Sum``, ``Average``) or is gathered and reduced in rank order
+        (``Min``/``Max`` lexicographic, ``Product``)."""
         e0, world = members[0], ps.size()
+        op, dt = e0.reduce_op, e0.tensor.dtype
         ins = [e.tensor for e in members]
+        outs = [e.output for e in members]
         sizes = _rows(ins, world)
-        buf_dt, out_dt = reduce_dtypes(CollectiveType.REDUCESCATTER,
-                                       ins[0].dtype, e0.reduce_op)
-        buf = fusion.pack(_views(ins, sizes, world), buf_dt)
+        buf_dt, out_dt = reduce_dtypes(CollectiveType.REDUCESCATTER, dt, op)
+        srcs = _views(ins, sizes, world)
+        if dt.is_complex:
+            srcs, outs = [_pairs(v) for v in srcs], [_pairs(o) for o in outs]
+            sizes, buf_dt = [2 * n for n in sizes], srcs[0].dtype
+        buf = fusion.pack(srcs, buf_dt)
         red = buf
         if world > 1:
-            import torch.distributed as dist
-            red = torch.empty(sum(sizes), dtype=buf_dt, device=buf.device)
-            dist.reduce_scatter_tensor(red, buf, op=_dist_op(e0.reduce_op),
-                                       group=ps.group)
+            n = sum(sizes)
+            if dt.is_complex and op not in (C.ReduceOp.SUM,
+                                            C.ReduceOp.AVERAGE):
+                q = ps.rank_in_set(self._state.rank)
+                red = self._complex_gathered(buf, op, ps)[q * n:(q + 1) * n]
+            else:
+                import torch.distributed as dist
+                red = torch.empty(n, dtype=buf_dt, device=buf.device)
+                wire = torch.uint8 if buf_dt == torch.bool else buf_dt
+                dist.reduce_scatter_tensor(red.view(wire), buf.view(wire),
+                                           op=_dist_op(op), group=ps.group)
         if out_dt == torch.uint32:
             red = red.view(torch.uint32)
-        divisor = world if e0.reduce_op == C.ReduceOp.AVERAGE else 1
-        fusion.unpack(red, [e.output for e in members], divisor)
+        divisor = world if op == C.ReduceOp.AVERAGE else 1
+        narrow = (torch.int16 if dt == torch.int16
+                  and out_dt == torch.float32 else None)
+        fusion.unpack(red, outs, divisor, narrow=narrow)
 
     def _run_alltoall(self, members: List[TensorTableEntry], ps) -> None:
         """``_build_alltoall`` (split and concatenated on dim 0), by
@@ -1086,17 +1108,26 @@ class CollectiveEngine:
         dist.all_reduce(buf, op=_dist_op(op), group=ps.group)
 
     @staticmethod
-    def _complex_product(buf: torch.Tensor, ps) -> torch.Tensor:
-        """A complex ``Product`` (float pairs in ``buf``): every rank's
-        buffer gathered, multiplied in rank order as the JAX program's
-        ``jnp.prod`` over the gathered axis."""
+    def _complex_gathered(buf: torch.Tensor, op: C.ReduceOp,
+                          ps) -> torch.Tensor:
+        """A complex ``Product``, ``Min`` or ``Max`` (float pairs in
+        ``buf``): every rank's buffer gathered and reduced in rank order,
+        as the JAX program's ``jnp.prod``/``min``/``max`` over the gathered
+        axis (``Min``/``Max`` order complex numbers by real part, then
+        imaginary part, as XLA does)."""
         import torch.distributed as dist
         world = ps.size()
         g = torch.empty(world * buf.numel(), dtype=buf.dtype,
                         device=buf.device)
         dist.all_gather_into_tensor(g, buf, group=ps.group)
         c = torch.view_as_complex(g.view(world, -1, 2))
-        prod = c[0]
+        acc = c[0]
         for r in range(1, world):
-            prod = prod * c[r]
-        return _pairs(prod.contiguous())
+            if op == C.ReduceOp.PRODUCT:
+                acc = acc * c[r]
+                continue
+            a, b = acc, c[r]
+            past = torch.gt if op == C.ReduceOp.MAX else torch.lt
+            acc = torch.where(past(b.real, a.real) | (
+                (b.real == a.real) & past(b.imag, a.imag)), b, a)
+        return _pairs(acc.contiguous())

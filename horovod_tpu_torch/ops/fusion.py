@@ -19,7 +19,9 @@ two kernels, ``hvd_fusion_pack`` and ``hvd_fusion_unpack``
   (an int32 buffer narrowed to int16 wraps, as the JAX program's int16
   sum does) and floor-divided in its own dtype; an integer buffer into a
   float32 output (a reducescatter's ``Average``, ``/`` in the JAX program)
-  divides in float32 after the cast.
+  divides in float32 after the cast, an int32 buffer of int16 sums after
+  narrowing to int16 first (``narrow``: the JAX program's int16 sum
+  wraps before its ``/``).
 
 A group with no arithmetic (no factor, no wire cast, no division: every
 broadcast group, and the gradients of an allreduce without factors on the
@@ -55,7 +57,7 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 _WIRE = (torch.bfloat16, torch.float16)
 _WIDENED = (torch.bool, torch.int8, torch.uint8, torch.int16)
 _INTEGERS = (torch.int8, torch.uint8, torch.int32, torch.int64)
-_AVG_DIVIDE, _AVG_FLOOR = 1, 2
+_AVG_DIVIDE, _AVG_FLOOR, _AVG_NARROW_DIVIDE = 1, 2, 3
 
 
 def _packs(src: torch.dtype, buf: torch.dtype) -> bool:
@@ -96,9 +98,10 @@ def pack_plain(tensors: Sequence[torch.Tensor], buf_dtype: torch.dtype,
 
 
 def unpack_plain(buf: torch.Tensor, outs: Sequence[torch.Tensor],
-                 divisor: int, postscale: Optional[float]) -> None:
+                 divisor: int, postscale: Optional[float],
+                 narrow: Optional[torch.dtype] = None) -> None:
     dt = outs[0].dtype
-    red = buf
+    red = buf if narrow is None else buf.to(narrow)
     if not (dt.is_floating_point and buf.dtype.is_floating_point):
         red = red.to(dt)
     if divisor > 1:
@@ -243,12 +246,15 @@ pack.launches = 0
 
 
 def unpack(buf: torch.Tensor, outs: Sequence[torch.Tensor], divisor: int = 1,
-           postscale: Optional[float] = None) -> None:
+           postscale: Optional[float] = None,
+           narrow: Optional[torch.dtype] = None) -> None:
     """Write the reduced ``buf`` into ``outs`` (one dtype, contiguous, on
     ``buf``'s device, their sizes summing to ``buf``'s): divided by
     ``divisor`` in ``buf``'s dtype when it is above 1 (floor division for
     integers), cast to the outputs' dtype, scaled by ``postscale``.  An
-    output may be the packed tensor itself (the in-place forms)."""
+    output may be the packed tensor itself (the in-place forms).
+    ``narrow=torch.int16`` passes an int32 buffer's values through int16
+    (wrapping) before a float32 output's division."""
     dev = _check(outs, "unpack")
     if buf.device != dev or buf.dim() != 1 or not buf.is_contiguous():
         raise ValueError("unpack takes a flat contiguous buffer on the "
@@ -264,15 +270,22 @@ def unpack(buf: torch.Tensor, outs: Sequence[torch.Tensor], divisor: int = 1,
                          f"to float32, got {buf.dtype} -> {dt}")
     if divisor < 1:
         raise ValueError(f"divisor must be >= 1, got {divisor}")
+    if narrow is not None and (narrow, buf.dtype, dt) != (
+            torch.int16, torch.int32, torch.float32):
+        raise ValueError(f"unpack narrows an int32 buffer to int16 before "
+                         f"a float32 output only, got {buf.dtype} -> "
+                         f"{narrow} -> {dt}")
     scale, f = _factor_arg(postscale, dt)
     if buf.dtype == dt and divisor == 1 and not scale:
         _unpack_bytes(buf, outs, dev)
     elif dev.type == "cpu":
-        unpack_plain(buf, outs, divisor, postscale)
+        unpack_plain(buf, outs, divisor, postscale, narrow)
         return
     else:
         avg = 0
-        if divisor > 1:
+        if narrow is not None:
+            avg = _AVG_NARROW_DIVIDE
+        elif divisor > 1:
             avg = _AVG_DIVIDE if dt.is_floating_point else _AVG_FLOOR
         table = _table([o.data_ptr() for o in outs], offs, dev)
         _launched(_lib().hvd_fusion_unpack(

@@ -16,6 +16,7 @@ Rank 0's host serves the ``torch.distributed`` rendezvous at
 worker computes on ``cuda:{HOROVOD_LOCAL_RANK}``; the launcher sets no
 ``CUDA_VISIBLE_DEVICES``.
 
+Every worker loads its CUDA kernels eagerly (``platform_worker_env``).
 Where two ``-H`` entries are the same machine (``localhost:1,127.0.0.1:1``
 on one card), each entry's ranks get their own ``NCCL_HOSTID``: NCCL refuses
 two ranks of one host on one GPU and keys that check on the host, so the
@@ -284,21 +285,31 @@ def _is_loopback(hostname: str) -> bool:
 def platform_worker_env(hosts: List[HostSpec], cross_rank: int,
                         base: Optional[Dict[str, str]] = None
                         ) -> Dict[str, str]:
-    """The card's env for the ranks of host entry ``cross_rank``: nothing,
-    unless another entry is the same machine.  Then the entry gets its own
-    ``NCCL_HOSTID`` (NCCL refuses two ranks of one host on one GPU, and
-    checks by host), and a loopback entry NCCL's socket transport on the
-    loopback device with InfiniBand off.  A variable already in ``base``
-    (the launcher's env) is the user's choice and stays."""
+    """The card's env for the ranks of host entry ``cross_rank``.
+
+    Every worker loads its CUDA kernels when its context is made
+    (``CUDA_MODULE_LOADING=EAGER``): under CUDA's lazy loading a kernel's
+    first launch may wait for the whole context to go idle, which a
+    collective kernel spinning for a peer never does, and two ranks each
+    loading a kernel beside such a kernel wait for each other for ever
+    (the engine's allreduces beside the sequence-parallel exchanges of a
+    first step did).  ``hvd.init()`` cannot do it alone: the driver reads
+    the variable once, when it initialises, and a script usually calls
+    ``torch.cuda.is_available()`` before ``init()``.  Where another entry
+    is the same machine, the entry also gets its own ``NCCL_HOSTID`` (NCCL
+    refuses two ranks of one host on one GPU, and checks by host), and a
+    loopback entry NCCL's socket transport on the loopback device with
+    InfiniBand off.  A variable already in ``base`` (the launcher's env)
+    is the user's choice and stays."""
     from ..common.net import is_local_host
     base = os.environ if base is None else base
+    out = {"CUDA_MODULE_LOADING": "EAGER"}
     local = [is_local_host(h.hostname) for h in hosts]
-    if not local[cross_rank] or sum(local) < 2:
-        return {}
-    h = hosts[cross_rank]
-    out = {"NCCL_HOSTID": f"hvd-{cross_rank}-{h.hostname}"}
-    if _is_loopback(h.hostname):
-        out.update(NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
+    if local[cross_rank] and sum(local) >= 2:
+        h = hosts[cross_rank]
+        out["NCCL_HOSTID"] = f"hvd-{cross_rank}-{h.hostname}"
+        if _is_loopback(h.hostname):
+            out.update(NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
     return {k: base.get(k, v) for k, v in out.items()}
 
 

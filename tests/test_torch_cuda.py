@@ -700,6 +700,60 @@ def test_torch_fusion_narrowing_unpack_matches_plain(cuda_device, buf, out,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [1, 2, 3])
+def test_torch_fusion_narrow_divide_unpack_matches_plain(cuda_device,
+                                                         divisor):
+    """An int32 buffer of int16 sums into float32 outputs: narrowed to
+    int16 (wrapping) before the division, as a reducescatter's int16
+    ``Average`` in the JAX program wraps before its ``/``."""
+    from horovod_tpu_torch.ops import fusion
+    g = torch.Generator().manual_seed(5)
+    b = torch.randint(-70000, 70000, (2301,), generator=g, dtype=torch.int32)
+    outs = [torch.empty(n, dtype=torch.float32, device=cuda_device)
+            for n in (1000, 0, 1301)]
+    fusion.unpack(b.to(cuda_device), outs, divisor, narrow=torch.int16)
+    torch.cuda.synchronize()
+    ref = [torch.empty(o.shape) for o in outs]
+    fusion.unpack_plain(b, ref, divisor, None, torch.int16)
+    for o, r in zip(outs, ref):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_torch_reducescatter_dtypes_on_card(cuda_device, monkeypatch):
+    """Size 1 on the card, each reducescatter of bool, int8, uint8, int16
+    and complex64 under every op the JAX engine takes equal to the CPU
+    engine's, in value and dtype (bool ``Sum``/``Average`` raise on
+    both)."""
+    ops = ("Sum", "Average", "Min", "Max", "Product")
+    xs = {dt: _fusion_inputs(dt, [(6, 3)], "cpu", 7)[0]
+          for dt in (torch.bool, _I8, _U8, torch.int16, torch.complex64)}
+    results = {}
+    for dev in ("cpu", cuda_device):
+        _init_on(dev, monkeypatch)
+        try:
+            got = {}
+            for dt, x in xs.items():
+                for op in ops:
+                    try:
+                        got[(dt, op)] = hvd.reducescatter(
+                            x.to(dev), op=getattr(hvd, op)).cpu()
+                    except TypeError:
+                        got[(dt, op)] = None
+            results[str(dev)] = got
+        finally:
+            hvd.shutdown()
+    cpu, card = results["cpu"], results[str(cuda_device)]
+    assert [k for k, v in cpu.items() if v is None] == [
+        (torch.bool, "Sum"), (torch.bool, "Average")]
+    for k, a in cpu.items():
+        r = card[k]
+        assert (a is None) == (r is None), k
+        if a is not None:
+            assert a.dtype == r.dtype and torch.equal(a, r), k
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.int32])
 def test_torch_fusion_rank_major_layouts_match_plain(cuda_device, dt):
     """The reducescatter/alltoall pack (world × N source views, rank-major)

@@ -17,6 +17,13 @@
   JAX engine refuses (complex ``Average``/``Min``/``Max``) the port
   refuses at submission, on the card as on the CPU; the same world pins
   every case against the JAX engine.
+- A reducescatter does the same for bool, int8, uint8, int16 and complex64
+  under the five ops: int16 travels as int32 and its sum wraps back to
+  int16 (also before an ``Average``'s ``/``, which returns float32, as for
+  every integer dtype), bool ``Min``/``Max`` stay bool and ``Product``
+  counts in int32, bool ``Sum``/``Average`` raise as in the JAX engine
+  (its ``psum_scatter`` adds no bool), and complex64 takes every op
+  (``Min``/``Max`` by real part, then imaginary part).
 """
 
 import os
@@ -155,6 +162,14 @@ _WORKER = textwrap.dedent("""
             out[(name, op)] = (str(res.dtype)[6:], res.tolist())
         except Exception as exc:
             out[(name, op)] = ("raises", type(exc).__name__)
+    for (name, op), x in ins["scatter"].items():
+        try:
+            res = hvd.reducescatter(torch.from_numpy(x),
+                                    op=getattr(hvd, op),
+                                    name=f"rs.{name}.{op}")
+            out[("rs", name, op)] = (str(res.dtype)[6:], res.tolist())
+        except Exception as exc:
+            out[("rs", name, op)] = ("raises", type(exc).__name__)
     hvd.shutdown()
     with open(sys.argv[3] + f".{r}", "wb") as fh:
         pickle.dump(out, fh)
@@ -178,6 +193,32 @@ CPU_PIN = {(n, op): "agrees" for n in _REDUCE_INPUTS for op in _OPS}
 CPU_PIN.update({("complex64", op): "both raise"
                 for op in ("Average", "Min", "Max")})
 
+# The reducescatter's inputs, four elements a rank (two a rank's chunk):
+# int16 30000 + 30000, int8 100 + 30 and uint8 200 + 100 wrap; complex
+# 1 and 1+1j tie on the real part.  "int16 [1, 2]" is int16 [1, 2] from
+# each rank, Sum: [2] and [4].
+_SCATTER_INPUTS = {
+    "bool": [np.array([True, False, True, True]),
+             np.array([True, True, False, False])],
+    "int16": [np.array([30000, -2, 1, 2], np.int16),
+              np.array([30000, 5, -7, 3], np.int16)],
+    "int8": [np.array([100, 3, -7, 4], np.int8),
+             np.array([30, 90, 2, 50], np.int8)],
+    "uint8": [np.array([200, 3, 7, 200], np.uint8),
+              np.array([100, 90, 2, 100], np.uint8)],
+    "complex64": [np.array([1 + 2j, -1j, 3, 1], np.complex64),
+                  np.array([2 - 1j, 4, 0.5j, 1 + 1j], np.complex64)]}
+SCATTER_PIN = {(n, op): "agrees" for n in _SCATTER_INPUTS for op in _OPS}
+SCATTER_PIN.update({("bool", op): "both raise" for op in ("Sum",
+                                                          "Average")})
+SCATTER_PIN[("int16 [1, 2]", "Sum")] = "agrees"
+
+
+def _scatter_inputs(name):
+    if name == "int16 [1, 2]":
+        return [np.array([1, 2], np.int16)] * 2
+    return _SCATTER_INPUTS[name]
+
 
 @pytest.fixture(scope="module")
 def gloo_world(tmp_path_factory):
@@ -188,7 +229,9 @@ def gloo_world(tmp_path_factory):
     ins = [{"bcast": {n: _to_torch(_values(n, r)).view(torch.uint8).numpy()
                       for n in PARITY},
             "reduce": {(n, op): xs[r] for n, xs in _REDUCE_INPUTS.items()
-                       for op in _OPS}}
+                       for op in _OPS},
+            "scatter": {(n, op): _scatter_inputs(n)[r]
+                        for n, op in SCATTER_PIN}}
            for r in range(2)]
     with open(tmp / "ins.pkl", "wb") as fh:
         pickle.dump(ins, fh)
@@ -261,3 +304,31 @@ def test_torch_cpu_allreduce_dtype_pin(hvd, gloo_world, case):
     else:
         seen = "agrees" if got == ref else "differs"
     assert seen == CPU_PIN[case], (case, got, ref)
+
+
+def _pinned(got, ref):
+    if got[0] == "raises":
+        return "both raise" if ref[0] == "raises" else "port raises"
+    return "agrees" if got == ref else "differs"
+
+
+@pytest.mark.parametrize("case", sorted(SCATTER_PIN), ids="-".join)
+def test_torch_cpu_reducescatter_dtype_pin(hvd, gloo_world, case):
+    """Each rank's chunk of a reducescatter through the port's engine
+    against the JAX engine's row for that rank: the same dtype and values,
+    or both raise."""
+    name, op = case
+    ps = _jax_ps(hvd)
+    try:
+        ref = np.asarray(hvd.reducescatter(hvd.stack_per_rank(
+            _scatter_inputs(name), ps), op=getattr(hvd, op),
+            process_set=ps))
+        refs = [(ref.dtype.name, ref[r].tolist()) for r in range(2)]
+    except Exception as exc:  # noqa: BLE001 - the outcome is pinned
+        refs = [("raises", type(exc).__name__)] * 2
+    finally:
+        hvd.remove_process_set(ps)
+    seen = {_pinned(gloo_world[r][("rs",) + case], refs[r])
+            for r in range(2)}
+    assert seen == {SCATTER_PIN[case]}, (case, [gloo_world[r][("rs",) + case]
+                                                for r in range(2)], refs)

@@ -95,8 +95,13 @@ _COLLECTIVES = {
     "monitored_barrier", "send", "recv", "isend", "irecv",
     "batch_isend_irecv", "gather", "gather_object", "scatter",
     "scatter_object_list"}
-# The one module allowed to issue them: the engine's cycle thread.
-_COLLECTIVE_CALLERS = {os.path.join("ops", "engine.py")}
+# The modules allowed to issue them, and which: the engine's cycle thread,
+# and the process mesh's exchanges (the counterparts of lax.ppermute and
+# lax.all_to_all, on communicators the engine never uses).
+_ENGINE = os.path.join("ops", "engine.py")
+_MESH = os.path.join("parallel", "mesh.py")
+_COLLECTIVE_CALLERS = {_ENGINE, _MESH}
+_MESH_CALLS = {"batch_isend_irecv", "isend", "irecv", "all_to_all_single"}
 
 
 def _collective_calls(path):
@@ -132,10 +137,13 @@ def _collective_calls(path):
 
 
 def test_torch_only_the_engine_calls_collectives():
-    """After the engine slice the cycle thread is the port's only caller of
-    torch.distributed collectives (a main-thread broadcast interleaved with
-    engine-thread allreduces can be issued in different orders on
-    different ranks); basics only forms and destroys the world."""
+    """The engine's cycle thread is the port's only caller of
+    torch.distributed collectives on a process set's group (a main-thread
+    broadcast interleaved with engine-thread allreduces can be issued in
+    different orders on different ranks); basics only forms and destroys
+    the world.  The process mesh may exchange too, only by point-to-point
+    rotations and all-to-alls, and only on its own groups
+    (``test_torch_mesh_exchanges_run_on_mesh_groups``)."""
     callers = {}
     for root, _, names in os.walk(PKG):
         for n in names:
@@ -147,9 +155,55 @@ def test_torch_only_the_engine_calls_collectives():
     smoke = _collective_calls(os.path.join(REPO, "chip_smoke.py"))
     assert not smoke, smoke
     assert set(callers) == _COLLECTIVE_CALLERS, callers
-    assert {n for _, n in callers[os.path.join("ops", "engine.py")]} == {
+    assert {n for _, n in callers[_ENGINE]} == {
         "all_reduce", "broadcast", "all_gather_into_tensor",
         "reduce_scatter_tensor", "all_to_all_single"}
+    assert {n for _, n in callers[_MESH]} <= _MESH_CALLS, callers[_MESH]
+
+
+def _group_sources(path):
+    """``(line, call, group expression, its sources)`` for every call in
+    ``path`` that takes a process group: the mesh's collectives and the
+    ``P2POp``s that ``batch_isend_irecv`` issues; ``sources`` are the
+    right-hand sides assigned, in the enclosing function, to the name the
+    group is taken from."""
+    tree = ast.parse(open(path).read(), path)
+    out = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        assigned = {}
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Assign):
+                for t in node.targets:
+                    if isinstance(t, ast.Name):
+                        assigned.setdefault(t.id, []).append(
+                            ast.unparse(node.value))
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Call):
+                continue
+            name = ast.unparse(node.func).split(".")[-1]
+            if name not in _MESH_CALLS - {"batch_isend_irecv"} | {"P2POp"}:
+                continue
+            group = [k.value for k in node.keywords if k.arg == "group"]
+            expr = ast.unparse(group[0]) if group else None
+            owner = group[0].value.id if group and isinstance(
+                group[0], ast.Attribute) and isinstance(
+                group[0].value, ast.Name) else None
+            out.append((node.lineno, name, expr, assigned.get(owner, [])))
+    return out
+
+
+def test_torch_mesh_exchanges_run_on_mesh_groups():
+    """Every exchange of the process mesh passes ``group=`` taken from a
+    mesh axis (``ax = mesh.axis(axis)``; ``ax.group``), never a process
+    set's group or the world's default."""
+    found = _group_sources(os.path.join(PKG, _MESH))
+    assert {name for _, name, _, _ in found} == {"P2POp",
+                                                 "all_to_all_single"}
+    for line, name, expr, sources in found:
+        assert expr == "ax.group", (line, name, expr)
+        assert sources == ["mesh.axis(axis)"], (line, name, sources)
 
 
 def test_torch_collective_scan_sees_every_spelling(tmp_path):

@@ -291,6 +291,44 @@ def test_torch_runner_one_machine_twice_gets_a_host_id_an_entry():
     assert [e["HOROVOD_LOCAL_RANK"] for e in envs] == ["0", "1"]
 
 
+def test_torch_runner_workers_load_kernels_eagerly():
+    """Every worker gets ``CUDA_MODULE_LOADING=EAGER`` (a kernel loaded
+    lazily beside a collective spinning for a peer can wait for ever),
+    on one machine or two; the user's own value stays."""
+    for hosts in ("a:2,b:2", "localhost:1,127.0.0.1:1"):
+        args = port_run.parse_args(["-np", "2", "-H", hosts, "python",
+                                    "t.py"])
+        envs = port_run.worker_envs(args, port_run.placement(args),
+                                    ("127.0.0.1", 5555, 5556))
+        assert all(e["CUDA_MODULE_LOADING"] == "EAGER" for e in envs)
+    env = port_run.platform_worker_env(port_run.placement(args), 0,
+                                       {"CUDA_MODULE_LOADING": "LAZY"})
+    assert env["CUDA_MODULE_LOADING"] == "LAZY"
+
+
+@pytest.mark.parametrize("size,device,driver_up,user,want", [
+    (2, None, False, None, "EAGER"),          # asked for before cuInit
+    (2, "cuda:0", False, None, "EAGER"),
+    (2, None, True, None, None),              # too late: init warns
+    (2, None, False, "LAZY", "LAZY"),         # the user's choice stays
+    (1, None, False, None, None),             # no collectives at size 1
+    (2, "cpu", False, None, None),            # gloo on the CPU
+])
+def test_torch_init_asks_for_eager_module_loading(monkeypatch, size, device,
+                                                  driver_up, user, want):
+    """``hvd.init()`` asks for eager module loading where it will run
+    collectives on a card, the user chose no mode and the driver does not
+    yet read one."""
+    from horovod_tpu_torch.common import basics
+    monkeypatch.delenv("CUDA_MODULE_LOADING", raising=False)
+    if user is not None:
+        monkeypatch.setenv("CUDA_MODULE_LOADING", user)
+    monkeypatch.setattr(basics, "_cuda_driver_initialized",
+                        lambda: driver_up)
+    basics._ask_eager_module_loading(size, device)
+    assert os.environ.get("CUDA_MODULE_LOADING") == want
+
+
 @pytest.mark.parametrize("flag", sorted(port_run.NOT_PORTED))
 def test_torch_runner_refuses_what_is_not_ported(flag, capsys, tmp_path):
     """Each flag whose feature the port lacks is refused when parsed,
