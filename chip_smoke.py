@@ -97,7 +97,27 @@ Phases (any failure exits non-zero and prints no result line):
    (rank r of n: forward layers x (r + 1), dq and dk/dv layers x (n - r) a
    step; Ulysses layers each), the step's time, the exchanges' time (CUDA
    events around each wait) and peak memory.
-8. The whole run's wall time, the kernels line (JSON), the card line, and
+8. The model families (E6), at the full width of their published
+   configurations.  The kernel phase above also runs the three attention
+   shapes they give the kernels at head_dim 64 (BERT-Large B=8 T=512 16
+   heads and ViT-B/16 B=32 T=197 12 heads, non-causal; GPT-2 B=8 T=1024
+   12 heads, causal).  ResNet-50 (224², 1000 classes, width 64, batch 32,
+   bf16 compute, float32 parameters and batch norm, channels_last) at
+   size 1: steps of ``DistributedOptimizer(SGD momentum)`` on one fixed
+   batch, the loss finite and lower at the end, images/s, the weight
+   permute's cost and a profiled step.  BERT-Large (24 layers, T=512,
+   B=8, a 15 % mask): the gradients through the kernels against the plain
+   attention under autograd at T=256, then steps; ViT-B/16 and GPT-2
+   (124M): steps, each with the flash launches (each kernel once a layer
+   and step); GPT-2's greedy generation of 32 tokens, its cached logits
+   against the flash forward's.  Then two ranks through the launcher as
+   E3 (``--e6-worker``): ResNet-50 with the cross-rank batch norm, the
+   MNIST convnet and BERT-Large with another mask count on each rank,
+   each from rank 0's broadcast parameters: parameters (and ResNet's
+   running statistics) bitwise equal across ranks every step, 2 x 53
+   batch-norm exchanges a ResNet step, the allreduces and engine batches
+   a step, pack = unpack launches = dtype groups.
+9. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -264,6 +284,11 @@ TRAIN_CASE = "training shape: B=2 T=4096 causal GQA rep 4, bf16"
 RING_CASE = "ring off-diagonal block: B=2 T=4096 non-causal GQA rep 4, bf16"
 ULYSSES_CASE = ("Ulysses inner attention: B=2 T=8192 causal, 16/4 heads, "
                 "bf16")
+# E6: the models' attention at head_dim 64.
+BERT_CASE = "BERT-Large attention: B=8 T=512 16 heads D=64 non-causal, bf16"
+VIT_CASE = "ViT-B/16 attention: B=32 T=197 12 heads D=64 non-causal, bf16"
+GPT2_CASE = "GPT-2 attention: B=8 T=1024 12 heads D=64 causal, bf16"
+MODEL_CASES = {"bert": BERT_CASE, "vit": VIT_CASE, "gpt2": GPT2_CASE}
 FLASH_CASES = [
     ("serving shape: causal GQA rep 4, bf16", 8, 512, 512, 32, 8, 128,
      "bfloat16", True, None, 2e-2, _BF16_REASON),
@@ -285,6 +310,13 @@ FLASH_CASES = [
     # sequence, causal, with this rank's half of the heads.
     (ULYSSES_CASE, TRAIN_BATCH, 2 * TRAIN_SEQ, 2 * TRAIN_SEQ, 16, 4, 128,
      "bfloat16", True, None, 2e-2, _BF16_REASON),
+    # What E6's models run: q, k, v [B, T, heads, 64] of each layer.
+    (BERT_CASE, 8, 512, 512, 16, 16, 64, "bfloat16", False, None, 2e-2,
+     _BF16_REASON),
+    (VIT_CASE, 32, 197, 197, 12, 12, 64, "bfloat16", False, None, 2e-2,
+     _BF16_REASON),
+    (GPT2_CASE, 8, 1024, 1024, 12, 12, 64, "bfloat16", True, None, 2e-2,
+     _BF16_REASON),
 ]
 # The numbers of one case that the kernels line carries under a prefix.
 _CASE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2075,6 +2107,505 @@ def e5_phase(torch, layers, seed, card, timeout_s=E5_TIMEOUT_S):
     return ok, dict(launches=launches, summary=summary)
 
 
+# ---------------------------------------------------------------- E6: models
+# The model families at their published widths (horovod_tpu_torch/models).
+RESNET_BATCH = 32        # a rank: examples/resnet_synthetic.py:42
+RESNET_STEPS = 6
+RESNET_LR = 0.01         # SGD, momentum 0.9: examples/resnet_synthetic.py:88
+BERT_BATCH, BERT_SEQ, BERT_MASK = 8, 512, 0.15
+# The gradient check's sequence: the plain attention under autograd keeps
+# dense [B, H, T, T] float32 scores in all 24 layers.
+BERT_CHECK_SEQ = 256
+# The wq/wk gradients of a randomly initialised BERT are sums over
+# near-uniform attention rows that nearly cancel, so the bf16 rounding of
+# ds (the Pallas kernels' own: horovod_tpu/ops/flash_attention.py:211,
+# 265) is large beside them: they are held by their direction.
+QK_COS_TOL = 0.9
+VIT_BATCH = 32
+GPT2_BATCH, GPT2_SEQ = 8, 1024
+GEN_BATCH, GEN_PROMPT, GEN_TOKENS = 4, 16, 32
+MODEL_STEPS = 3
+MODEL_LR = 0.5
+MNIST_BATCH = 64         # a rank
+E6_TIMEOUT_S = 600
+# The cached decode against the flash forward, relative to the largest
+# logit: bf16 activations through 12 layers by other kernels.
+DECODE_TOL = 5e-2
+
+
+def _flash_counts(fa):
+    return [fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd.launches_dq,
+            fa.flash_attention_bwd.launches_dkv]
+
+
+def _zero_flash(fa):
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches_dq = 0
+    fa.flash_attention_bwd.launches_dkv = 0
+
+
+def _sgd(torch, hvd, named, lr, momentum=0.0):
+    return hvd.DistributedOptimizer(
+        torch.optim.SGD([t for _, t in named], lr=lr, momentum=momentum),
+        named_parameters=named)
+
+
+def _timed_steps(torch, fa, step, n):
+    """``n`` calls of ``step() -> loss`` with the flash counts zeroed just
+    before: ``(losses, seconds, launches [fwd, dq, dkv])``."""
+    _zero_flash(fa)
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return losses, times, _flash_counts(fa)
+
+
+def _kernel_vs_plain_grads(torch, fa, mod, named, loss_of):
+    """Every leaf's gradient of ``loss_of()`` through the kernels against
+    the same with ``mod``'s attention on the plain version under autograd
+    (dense, p and ds in float32): ``(loss kernel, loss plain, {leaf:
+    (max_rel_err, cosine)}, relative error of the whole gradient)``."""
+    def grads():
+        for _, t in named:
+            t.grad = None
+        loss = loss_of()
+        loss.backward()
+        g = {n: t.grad.detach().float() for n, t in named}
+        for _, t in named:
+            t.grad = None
+        return loss.item(), g
+
+    loss_k, g_k = grads()
+    kernel = mod.flash_attention
+    mod.flash_attention = lambda q, k, v, causal: \
+        fa.flash_attention_plain(q, k, v, causal=causal)[0]
+    try:
+        loss_p, g_p = grads()
+    finally:
+        mod.flash_attention = kernel
+    leaves, diff2, ref2 = {}, 0.0, 0.0
+    for n in g_k:
+        a, b = g_k[n], g_p[n]
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if not bool(torch.isfinite(a).all()):
+            rel = float("inf")
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0).item()
+        leaves[n] = (rel, cos)
+        diff2 += (a - b).square().sum().item()
+        ref2 += b.square().sum().item()
+    return loss_k, loss_p, leaves, (diff2 / max(ref2, 1e-30)) ** 0.5
+
+
+def _mlm_batch(torch, cfg, batch, seq, rate, seed, dev):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab_size, (batch, seq))
+    tgts = rng.randint(0, cfg.vocab_size, (batch, seq))
+    mask = (rng.rand(batch, seq) < rate).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (toks, tgts, mask))
+
+
+def resnet_phase(torch, hvd, fa, seed, card, flush):
+    """E6, ResNet-50 at size 1: steps on one fixed batch, images/s, the
+    weight permute's cost and a profiled step."""
+    import numpy as np
+    from horovod_tpu_torch.models import resnet as tr
+    hvd.init()
+    dev = hvd.device()
+    cfg = tr.ResNetConfig()
+    params, stats = tr.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(seed + 30))
+    named = list(tr.named_parameters(params))
+    hvd.broadcast_parameters(params, root_rank=0)
+    step = tr.make_train_step(cfg, _sgd(torch, hvd, named, RESNET_LR, 0.9))
+    x, y = (torch.from_numpy(a).to(dev) for a in tr.synthetic_batch(
+        RESNET_BATCH, 224, cfg.num_classes, seed + 31))
+    print(f"models: resnet50 (depth {cfg.depth}, width {cfg.width}, 224², "
+          f"{cfg.num_classes} classes), {sum(t.numel() for _, t in named):,}"
+          f" float32 parameters in {len(named)} leaves, bf16 compute, "
+          f"channels_last activations, batch {RESNET_BATCH}, SGD lr "
+          f"{RESNET_LR} momentum 0.9", flush=True)
+    state = {"stats": stats}
+
+    def one():
+        loss, state["stats"] = step(params, state["stats"], x, y)
+        return loss
+
+    ex0 = tr.cross_rank_moments.exchanges
+    losses, times, _ = _timed_steps(torch, fa, one, RESNET_STEPS)
+    falls = bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+    stats_ok = all(bool(torch.isfinite(t).all()) for _, t in
+                   tr.named_parameters(state["stats"]))
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"models: resnet50 losses {[round(v, 5) for v in losses]}, step "
+          f"times {[round(t * 1e3, 2) for t in times]} ms; median of steps "
+          f"2-{RESNET_STEPS} {step_s * 1e3:.2f} ms = "
+          f"{RESNET_BATCH / step_s:.1f} images/s [{card}]; loss finite and "
+          f"lower at step {RESNET_STEPS} than at step 1: {falls}; running "
+          f"statistics finite: {stats_ok}; batch-norm exchanges "
+          f"{tr.cross_rank_moments.exchanges - ex0} (0 at size 1)",
+          flush=True)
+    # What the HWIO -> channels_last permute of the 53 convolution weights
+    # costs a step: forward copy and backward copy of the gradient, against
+    # the bf16 cast alone (which the JAX model does as well).
+    convs = [t for _, t in named if t.dim() == 4]
+    cl = torch.channels_last
+
+    def permute_cast():
+        outs = [w.permute(3, 2, 0, 1).to(cfg.compute_dtype, memory_format=cl)
+                for w in convs]
+        torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+    def cast_only():
+        outs = [w.to(cfg.compute_dtype) for w in convs]
+        torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+    # The card's time alone (lead): the host's 2 x 53 small enqueues would
+    # otherwise fall inside the events.
+    permute_ms = time_ms(torch, permute_cast, flush, lead=True)
+    cast_ms = time_ms(torch, cast_only, flush, lead=True)
+    for _, t in named:
+        t.grad = None
+    print(f"models: resnet50 weight permute HWIO -> channels_last with the "
+          f"bf16 cast, forward + backward, {permute_ms:.4f} ms a step; the "
+          f"cast alone {cast_ms:.4f} ms; the permute adds "
+          f"{permute_ms - cast_ms:.4f} ms "
+          f"({(permute_ms - cast_ms) / (step_s * 1e3):.2%} of the step) "
+          f"[{card}]", flush=True)
+    try:
+        profile_call(torch, "resnet50 step", one)
+    except Exception as exc:  # noqa: BLE001 - a measurement, not a check
+        print(f"profile: failed ({type(exc).__name__}: {exc}); busy share "
+              f"not measured", flush=True)
+    del params, state, named, step
+    torch.cuda.empty_cache()
+    return falls and stats_ok, dict(step_ms=step_s * 1e3,
+                                    images_s=RESNET_BATCH / step_s,
+                                    permute_ms=permute_ms - cast_ms)
+
+
+def transformer_phase(torch, hvd, fa, seed, card):
+    """E6, BERT-Large, ViT-B/16 and GPT-2 at size 1: BERT's gradients
+    through the kernels against the plain attention, MODEL_STEPS steps of
+    each with the flash launches (each kernel once a layer and step), and
+    GPT-2's greedy generation with its cached logits against the flash
+    forward's."""
+    import numpy as np
+    from horovod_tpu_torch.models import bert as tb, gpt2 as tg, vit as tv
+    hvd.init()
+    dev = hvd.device()
+    ok, launches, summary = True, [0, 0, 0], {}
+
+    def run(name, cfg, named, step, steps=MODEL_STEPS):
+        nonlocal ok
+        losses, times, counts = _timed_steps(torch, fa, step, steps)
+        want = [cfg.n_layers * steps] * 3
+        good = bool(np.isfinite(losses).all()) and counts == want
+        ok = ok and good
+        for i in range(3):
+            launches[i] += counts[i]
+        step_s = sorted(times[1:])[len(times[1:]) // 2]
+        summary[name] = dict(step_ms=step_s * 1e3)
+        print(f"models: {name} losses {[round(v, 5) for v in losses]}, "
+              f"step times {[round(t * 1e3, 2) for t in times]} ms, median "
+              f"of steps 2-{steps} {step_s * 1e3:.2f} ms; flash launches "
+              f"fwd/dq/dkv {counts} (= {cfg.n_layers} layers x {steps} "
+              f"steps each) -> {'PASS' if good else 'FAIL'} [{card}]",
+              flush=True)
+        return step_s
+
+    # BERT-Large: 24 layers, d 1024, T 512, B 8, a 15 % mask.
+    cfg = tb.bert_large()
+    params = tb.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 40))
+    named = list(tb.named_parameters(params))
+    toks, tgts, mask = _mlm_batch(torch, cfg, BERT_BATCH, BERT_SEQ,
+                                  BERT_MASK, seed + 41, dev)
+    c = BERT_CHECK_SEQ
+    loss_k, loss_p, leaves, whole = _kernel_vs_plain_grads(
+        torch, fa, tb, named, lambda: tb.mlm_loss_fn(
+            params, toks[:, :c], tgts[:, :c], mask[:, :c], cfg))
+    qk = {n: v for n, v in leaves.items() if n.endswith((".wq", ".wk"))}
+    rest = {n: v for n, v in leaves.items() if n not in qk}
+    worst_rest = max((v[0], n) for n, v in rest.items())
+    worst_qk = max((v[0], n) for n, v in qk.items())
+    low_cos = min((v[1], n) for n, v in qk.items())
+    good = (whole <= GRAD_TOL and worst_rest[0] <= GRAD_TOL
+            and low_cos[0] >= QK_COS_TOL)
+    ok = ok and good
+    print(f"models: bert-large gradients through the kernels against the "
+          f"plain attention under autograd at T={c} (cut from {BERT_SEQ}: "
+          f"the plain attention keeps dense scores), {len(leaves)} leaves, "
+          f"loss kernel {loss_k:.6f} plain {loss_p:.6f}: the whole "
+          f"gradient's relative error {whole:.3e} (tol {GRAD_TOL:g}); "
+          f"worst max_rel_err {worst_rest[0]:.3e} at {worst_rest[1]} "
+          f"over the {len(rest)} leaves but wq/wk (tol {GRAD_TOL:g} "
+          f"relative to the leaf's largest reference gradient); wq/wk "
+          f"worst max_rel_err {worst_qk[0]:.3e} at {worst_qk[1]}, lowest "
+          f"cosine {low_cos[0]:.5f} at {low_cos[1]} (tol {QK_COS_TOL:g}: "
+          f"their gradients are ~1 % of wv's, sums over near-uniform "
+          f"attention rows that cancel, and the kernels round ds to bf16 "
+          f"before ds.k as the Pallas kernels do) -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    step = tb.make_train_step(cfg, _sgd(torch, hvd, named, MODEL_LR))
+    print(f"models: bert-large {sum(t.numel() for _, t in named):,} bf16 "
+          f"parameters, B={BERT_BATCH} T={BERT_SEQ}, "
+          f"{int(mask.sum())} masked positions", flush=True)
+    s = run("bert-large", cfg, named, lambda: step(params, toks, tgts, mask))
+    summary["bert-large"]["tokens_s"] = BERT_BATCH * BERT_SEQ / s
+    del params, named, step, toks, tgts, mask
+    torch.cuda.empty_cache()
+
+    # ViT-B/16: 224², 196 patches + CLS = 197 rows, B 32.
+    cfg = tv.vit_b16()
+    params = tv.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 42))
+    named = list(tv.named_parameters(params))
+    rng = np.random.RandomState(seed + 43)
+    x = torch.from_numpy(rng.randn(VIT_BATCH, 224, 224, 3).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, cfg.n_classes, VIT_BATCH)).to(dev)
+    step = tv.make_train_step(cfg, _sgd(torch, hvd, named, MODEL_LR))
+    s = run("vit-b16", cfg, named, lambda: step(params, x, y))
+    summary["vit-b16"]["images_s"] = VIT_BATCH / s
+    del params, named, step, x, y
+    torch.cuda.empty_cache()
+
+    # GPT-2 (124M): T 1024, B 8, then a greedy generation.
+    cfg = tg.gpt2()
+    params = tg.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 44))
+    named = list(tg.named_parameters(params))
+    toks = torch.from_numpy(np.random.RandomState(seed + 45).randint(
+        0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ + 1))).to(dev)
+    step = tg.make_train_step(cfg, _sgd(torch, hvd, named, MODEL_LR))
+    s = run("gpt2", cfg, named, lambda: step(params, toks[:, :-1],
+                                             toks[:, 1:]))
+    summary["gpt2"]["tokens_s"] = GPT2_BATCH * GPT2_SEQ / s
+    prompt = toks[:GEN_BATCH, :GEN_PROMPT]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tg.generate(params, prompt, GEN_TOKENS, cfg)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    with torch.no_grad():
+        full = tg.forward(params, prompt, cfg)[:, -1]
+    cache = tg.init_cache(cfg, prompt.shape[0], GEN_PROMPT, dev)
+    for i in range(GEN_PROMPT):
+        cached, cache = tg.decode_step(params, cache, prompt[:, i], i, cfg)
+    rel = (cached - full).abs().max().item() / full.abs().max().item()
+    same = int((cached.argmax(-1) == full.argmax(-1)).sum())
+    good = (out.shape == (prompt.shape[0], GEN_TOKENS) and int(out.min()) >= 0
+            and int(out.max()) < cfg.vocab_size and rel <= DECODE_TOL
+            and torch.equal(out[:, 0], cached.argmax(-1).to(out.dtype)))
+    ok = ok and good
+    steps = GEN_PROMPT + GEN_TOKENS - 1
+    summary["gpt2"].update(gen_ms_token=gen_s * 1e3 / GEN_TOKENS,
+                           gen_ms_step=gen_s * 1e3 / steps)
+    print(f"models: gpt2 greedy generate of {GEN_TOKENS} tokens from "
+          f"{GEN_BATCH} x {GEN_PROMPT}-token prompts (fed a token at a time,"
+          f" {steps} cached decode steps): {gen_s * 1e3:.1f} ms, "
+          f"{gen_s * 1e3 / GEN_TOKENS:.2f} ms a generated token, "
+          f"{gen_s * 1e3 / steps:.2f} ms a decode step [{card}]; row 0: "
+          f"{out[0].tolist()}; the cached logits at the prompt's last "
+          f"position against the flash forward's max_rel_err {rel:.3e} (tol "
+          f"{DECODE_TOL:g} relative to the largest logit), greedy token "
+          f"agrees on {same}/{prompt.shape[0]} rows -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    del params, named, step, toks, cache
+    torch.cuda.empty_cache()
+    return ok, launches, summary
+
+
+def e6_worker(args):
+    """One rank of E6's size-2 run, started by the port's launcher:
+    ResNet-50 with the cross-rank batch norm, the MNIST convnet and
+    BERT-Large, each from rank 0's broadcast parameters (rank 1 starts
+    from other seeds) through ``DistributedOptimizer`` on this rank's own
+    batch, BERT's with another mask count on each rank.  Each step's loss,
+    time, engine counters, batch-norm exchanges and the parameters' (and
+    ResNet's statistics') checksums go to ``rank<HOROVOD_RANK>.json`` in
+    ``args.e6_worker``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as tb, mnist as tm
+    from horovod_tpu_torch.models import resnet as tr
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init()
+    r, dev = hvd.rank(), hvd.device()
+    eng = hvd.common.basics._get_state().engine
+    ctl = eng.controller
+    # The host's time inside the blocking batch-norm exchanges (the
+    # negotiation, the allreduce and the wait for the peer).
+    exchange_s = [0.0]
+    world_mean = tr._world_mean
+
+    def timed_world_mean(t, name):
+        t0 = time.perf_counter()
+        out = world_mean(t, name)
+        exchange_s[0] += time.perf_counter() - t0
+        return out
+
+    tr._world_mean = timed_world_mean
+
+    def counters():
+        st = ctl.cache_stats
+        return [eng.pipeline_dispatches, eng.fused_groups,
+                st.hits + st.misses, fusion.pack.launches,
+                fusion.unpack.launches, tr.cross_rank_moments.exchanges,
+                exchange_s[0]]
+
+    def gen(k):
+        return torch.Generator(device=dev).manual_seed(args.seed + k
+                                                       + 1000 * r)
+
+    def run(named, step, n, extra=None):
+        fusion.pack.launches = fusion.unpack.launches = 0
+        _zero_flash(fa)
+        steps = []
+        for _ in range(n):
+            c0 = counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            d = [b - a for a, b in zip(c0, counters())]
+            steps.append(dict(
+                loss=loss, s=dt, batches=d[0], groups=d[1], allreduces=d[2],
+                pack=d[3], unpack=d[4], bn=d[5], bn_s=d[6],
+                sums=_checksum(torch, named),
+                stats=_checksum(torch, list(tr.named_parameters(extra())))
+                if extra else None))
+        return dict(steps=steps, flash=_flash_counts(fa),
+                    pack=fusion.pack.launches, unpack=fusion.unpack.launches)
+
+    res = dict(rank=r, device=str(dev), card=torch.cuda.get_device_name(dev))
+    # ResNet-50 with the cross-rank batch norm.
+    cfg = tr.ResNetConfig()
+    params, stats = tr.init_params(cfg, gen(30))
+    named = list(tr.named_parameters(params))
+    hvd.broadcast_parameters(params, root_rank=0)
+    step = tr.make_train_step(cfg, _sgd(torch, hvd, named, RESNET_LR, 0.9))
+    x, y = (torch.from_numpy(a).to(dev) for a in tr.synthetic_batch(
+        RESNET_BATCH, 224, cfg.num_classes, args.seed + 31 + r))
+    state = {"stats": stats}
+
+    def one():
+        loss, state["stats"] = step(params, state["stats"], x, y)
+        return loss
+
+    res["resnet"] = run(named, one, MODEL_STEPS, lambda: state["stats"])
+    res["resnet"]["bn_layers"] = len([n for n, _ in named
+                                      if n.endswith("bn.scale")])
+    del params, state, named, step, x, y
+    torch.cuda.empty_cache()
+    # The MNIST convnet.
+    params = tm.init_params(gen(32))
+    named = list(tm.named_parameters(params))
+    hvd.broadcast_parameters(params, root_rank=0)
+    step = tm.make_train_step(_sgd(torch, hvd, named, RESNET_LR, 0.9))
+    x, y = (torch.from_numpy(a).to(dev) for a in tm.synthetic_batch(
+        MNIST_BATCH, args.seed + 33 + r))
+    res["mnist"] = run(named, lambda: step(params, x, y), MODEL_STEPS)
+    del params, named, step, x, y
+    # BERT-Large, another mask rate on each rank.
+    cfg = tb.bert_large()
+    params = tb.init_params(cfg, gen(40))
+    named = list(tb.named_parameters(params))
+    hvd.broadcast_parameters(params, root_rank=0)
+    step = tb.make_train_step(cfg, _sgd(torch, hvd, named, MODEL_LR))
+    toks, tgts, mask = _mlm_batch(torch, cfg, BERT_BATCH, BERT_SEQ,
+                                  BERT_MASK * (1 - 0.5 * r),
+                                  args.seed + 41 + r, dev)
+    res["bert"] = run(named, lambda: step(params, toks, tgts, mask),
+                      MODEL_STEPS - 1)
+    res["bert"]["masked"] = int(mask.sum())
+    res["bert"]["layers"] = cfg.n_layers
+    del params, named, step
+    hvd.shutdown()
+    _write_result(args.e6_worker, res)
+    print(f"e6 rank {r}: done", flush=True)
+    return 0
+
+
+def e6_phase(torch, seed, card, timeout_s=E6_TIMEOUT_S):
+    """E6 at size 2, through the port's launcher (``e6_worker``): for each
+    model, the parameters bitwise equal across the ranks after every step
+    (and ResNet's running statistics), finite losses, pack = unpack
+    launches = the dtype groups of the step's batches, ResNet's batch-norm
+    exchanges (two a layer and step) and BERT's flash launches."""
+    import numpy as np
+    results, route, wall = launch_two_ranks(torch, "--e6-worker", 0, seed,
+                                            timeout_s)
+    if results is None:
+        return False, None
+    a, b = results
+    ok = True
+    for model in ("resnet", "mnist", "bert"):
+        for i, (sa, sb) in enumerate(zip(a[model]["steps"],
+                                         b[model]["steps"])):
+            same = sa["sums"] == sb["sums"] and sa["stats"] == sb["stats"]
+            finite = bool(np.isfinite([sa["loss"], sb["loss"]]).all())
+            fused = all(s["pack"] == s["unpack"] == s["groups"] > 0
+                        and s["batches"] > 0 for s in (sa, sb))
+            good = same and finite and fused
+            extra = ""
+            if model == "resnet":
+                want = 2 * a[model]["bn_layers"]
+                good = good and sa["bn"] == sb["bn"] == want
+                extra = (f"; batch-norm exchanges {sa['bn']} / {sb['bn']} "
+                         f"(= 2 x {a[model]['bn_layers']} layers expected),"
+                         f" {sa['bn_s'] * 1e3:.1f} ms of the step inside "
+                         f"them on rank 0 (host clock around the blocking "
+                         f"allreduces), running statistics bitwise equal: "
+                         f"{sa['stats'] == sb['stats']}")
+            ok = ok and good
+            print(f"e6: {model} step {i + 1}: losses {sa['loss']:.5f} / "
+                  f"{sb['loss']:.5f}; parameters bitwise equal across ranks:"
+                  f" {sa['sums'] == sb['sums']}{extra}; step "
+                  f"{sa['s'] * 1e3:.1f} / {sb['s'] * 1e3:.1f} ms; "
+                  f"allreduces {sa['allreduces']}, engine batches "
+                  f"{sa['batches']}, dtype groups {sa['groups']}, pack/"
+                  f"unpack launches {sa['pack']}/{sa['unpack']} -> "
+                  f"{'PASS' if good else 'FAIL'}", flush=True)
+    layers = a["bert"]["layers"]
+    want = [layers * len(a["bert"]["steps"])] * 3
+    flash_ok = a["bert"]["flash"] == b["bert"]["flash"] == want
+    masks = (a["bert"]["masked"], b["bert"]["masked"])
+    ok = ok and flash_ok and masks[0] != masks[1]
+    print(f"e6: bert masked positions {masks[0]} / {masks[1]} (unequal: the "
+          f"loss divides by the global count); flash launches fwd/dq/dkv "
+          f"{a['bert']['flash']} / {b['bert']['flash']} (= {layers} layers x "
+          f"{len(a['bert']['steps'])} steps expected)", flush=True)
+    med = {m: sorted(s["s"] for s in a[m]["steps"][1:])[
+        len(a[m]["steps"][1:]) // 2] * 1e3 for m in ("resnet", "bert")}
+    bn_ms = sorted(s["bn_s"] for s in a["resnet"]["steps"][1:])[
+        len(a["resnet"]["steps"][1:]) // 2] * 1e3
+    print(f"e6: median step of steps 2- on rank 0: resnet50 "
+          f"{med['resnet']:.1f} ms "
+          f"({2 * RESNET_BATCH / med['resnet'] * 1e3:.1f} images/s over both "
+          f"ranks; {bn_ms:.1f} ms in its batch-norm exchanges), bert-large "
+          f"{med['bert']:.1f} ms "
+          f"[{card}; two ranks on {route}, no NVLink figure]; the launcher "
+          f"run in {wall:.1f} s -> {'PASS' if ok else 'FAIL'}", flush=True)
+    pack = sum(a[m]["pack"] for m in ("resnet", "mnist", "bert"))
+    unpack = sum(a[m]["unpack"] for m in ("resnet", "mnist", "bert"))
+    return ok, dict(pack=pack, unpack=unpack, flash=a["bert"]["flash"],
+                    step_ms=med)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2089,6 +2620,8 @@ def main():
                     help=argparse.SUPPRESS)   # one rank of phase E4
     ap.add_argument("--e5-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E5
+    ap.add_argument("--e6-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase E6
     args = ap.parse_args()
 
     import torch
@@ -2114,6 +2647,8 @@ def main():
         return e4_worker(args)
     if args.e5_worker:
         return e5_worker(args)
+    if args.e6_worker:
+        return e6_worker(args)
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2181,6 +2716,14 @@ def main():
                  and two_ok and four_ok
                  and no_spills)
     sp_ok, sp = e5_phase(torch, args.train_layers, args.seed, card)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    resnet_ok, _ = resnet_phase(torch, hvd, fa, args.seed, card, flush)
+    del flush
+    torch.cuda.empty_cache()
+    tf_ok, tf_launches, _ = transformer_phase(torch, hvd, fa, args.seed,
+                                              card)
+    e6_ok, e6 = e6_phase(torch, args.seed, card)
+    models_ok = resnet_ok and tf_ok and e6_ok
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -2191,15 +2734,22 @@ def main():
     kernels_ok = all(c["ok"] for c in cases + bwd_cases) and edges_ok \
         and tc_ok
     e5 = sp["launches"] if sp else [0, 0, 0]
+    # E6: the size-1 models, then BERT on rank 0 of the size-2 run.
+    m6 = [a + b for a, b in zip(tf_launches,
+                                e6["flash"] if e6 else [0, 0, 0])]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
-                + e5[0],
-                "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1],
-                "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]}
+                + e5[0] + m6[0],
+                "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
+                + m6[1],
+                "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
+                + m6[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
-          f"sequence-parallel (E5 rank 0); flash_bwd_dq "
-          f"{train_launches['flash_bwd_dq']} + {e5[1]}, flash_bwd_dkv "
-          f"{train_launches['flash_bwd_dkv']} + {e5[2]}", flush=True)
+          f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
+          f"size 2); flash_bwd_dq {train_launches['flash_bwd_dq']} + "
+          f"{e5[1]} + {m6[1]}, flash_bwd_dkv "
+          f"{train_launches['flash_bwd_dkv']} + {e5[2]} + {m6[2]}",
+          flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
@@ -2221,7 +2771,10 @@ def main():
              ring_library_ms=fwd_ring["library_ms"],
              ring_max_abs_err=fwd_ring["max_abs_err"],
              ring_tflops=fwd_ring["tflops"],
-             **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS}),
+             **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS},
+             launches_e6=m6[0],
+             **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
+                for k in _CASE_KEYS}),
     ] + [
         dict(name=f"flash_bwd_{g}", route="cuda", source=src + "flash_bwd.cu",
              replaces=f"horovod_tpu/ops/flash_attention.py:{line}",
@@ -2239,7 +2792,14 @@ def main():
              **{f"ulysses_{k}": bwd_uly[g][k] for k in _CASE_KEYS
                 if k in bwd_uly[g]},
              ulysses_plain_ms=bwd_uly["plain_ms"],
-             ulysses_library_ms=bwd_uly["library_ms"])
+             ulysses_library_ms=bwd_uly["library_ms"],
+             launches_e6=m6[1 if g == "dq" else 2],
+             **{f"{m}_{k}": bwd_by_name[case][g][k]
+                for m, case in MODEL_CASES.items() for k in _CASE_KEYS
+                if k in bwd_by_name[case][g]},
+             **{f"{m}_{k}": bwd_by_name[case][k]
+                for m, case in MODEL_CASES.items()
+                for k in ("plain_ms", "library_ms")})
         for g, line, design in (
             ("dq", 170, "flash_bwd_dq_wgmma_kernel: wgmma, q/do resident, "
                         "64-row k/v tiles through a TMA ring"),
@@ -2263,15 +2823,17 @@ def main():
             replaces="horovod_tpu/ops/engine.py:1955 (no Pallas kernel: XLA "
                      "fused this work into _build_fused_reduce)",
             design=design,
-            launches=(two[kern] if two else 0) + (four[kern] if four else 0),
+            launches=(two[kern] if two else 0) + (four[kern] if four else 0)
+            + (e6[kern] if e6 else 0),
             launches_e3=two[kern] if two else 0,
             launches_e4=four[kern] if four else 0,
+            launches_e6=e6[kern] if e6 else 0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"],
             call_ms=r["call_ms"], host_us=r["host_us"]))
     for kern in kernels:
-        kern["pass"] = (kernels_ok and engine_ok and sp_ok
+        kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and kern["launches"] > 0)
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
@@ -2279,14 +2841,15 @@ def main():
     print(card, flush=True)
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
-            and all(k["pass"] for k in kernels)):
+            and models_ok and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
               f", engine ok={engine_ok} (module loading {loading_ok}, "
               f"fusion kernels {fusion_ok}, "
               f"layouts and casts {layout_ok}, size 1 {size1_ok}, two ranks "
               f"{two_ok}, collectives on two ranks {four_ok}), sequence "
-              f"parallel ok={sp_ok}")
+              f"parallel ok={sp_ok}, models ok={models_ok} (resnet50 "
+              f"{resnet_ok}, transformers {tf_ok}, two ranks {e6_ok})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

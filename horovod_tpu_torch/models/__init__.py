@@ -1,1 +1,24 @@
-"""Models of the port."""
+"""The port's model families.
+
+Lazy submodule access, as ``horovod_tpu/models/__init__.py`` gives it:
+``horovod_tpu_torch.models.resnet`` works after ``import
+horovod_tpu_torch.models`` without importing every family eagerly.  The
+JAX package's ``moe``, ``dlrm`` and ``convert`` are not ported yet.
+"""
+
+_FAMILIES = ("llama", "gpt2", "bert", "vit", "resnet", "mnist")
+
+__all__ = list(_FAMILIES)
+
+
+def __getattr__(name):
+    if name in _FAMILIES:
+        import importlib
+        mod = importlib.import_module("." + name, __name__)
+        globals()[name] = mod          # cache for next access
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_FAMILIES))

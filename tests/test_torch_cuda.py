@@ -821,3 +821,64 @@ def test_torch_collectives_round_trip_on_card(cuda_device, monkeypatch):
         assert a.dtype == r.dtype and torch.equal(a, r)
     assert [t.dtype for t in results["cpu"][-4:]] == [
         torch.int32, torch.uint32, torch.complex64, torch.complex64]
+
+
+# ------------------------------------------------------------ model families
+def _to_card(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_card(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v, dev) for v in tree]
+    return tree.detach().to(dev)
+
+
+def _family_case(family):
+    """``(params, run(params, device) -> output, flash forward launches a
+    call)`` of one family in float32 at a small size; the transformers at
+    head_dim 64, which the kernels take."""
+    from horovod_tpu_torch.models import bert as tb, gpt2 as tg
+    from horovod_tpu_torch.models import mnist as tm, resnet as tr
+    from horovod_tpu_torch.models import vit as tv
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.RandomState(1)
+    if family.startswith("resnet"):
+        depth, train = {"resnet18-train": (18, True),
+                        "resnet50-eval": (50, False)}[family]
+        cfg = tr.ResNetConfig(depth=depth, width=8, num_classes=10,
+                              compute_dtype=torch.float32)
+        params, stats = tr.init_params(cfg, gen)
+        x = torch.from_numpy(rng.randn(4, 33, 33, 3).astype(np.float32))
+        return (params, lambda p, d: tr.forward(
+            p, _to_card(stats, d), x.to(d), cfg, train)[0], 0)
+    if family == "mnist":
+        x = torch.from_numpy(tm.synthetic_batch(8, seed=2)[0])
+        return tm.init_params(gen), lambda p, d: tm.forward(p, x.to(d)), 0
+    wide = dict(dtype=torch.float32, d_model=256, n_heads=4, d_ff=512)
+    if family == "vit":
+        cfg = tv.tiny(**wide)
+        x = torch.from_numpy(rng.randn(2, 32, 32, 3).astype(np.float32))
+        return (tv.init_params(cfg, gen),
+                lambda p, d: tv.logits(p, x.to(d), cfg), cfg.n_layers)
+    mod = {"bert": tb, "gpt2": tg}[family]
+    cfg = mod.tiny(**wide)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 40)))
+    return (mod.init_params(cfg, gen),
+            lambda p, d: mod.forward(p, toks.to(d), cfg), cfg.n_layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["resnet18-train", "resnet50-eval",
+                                    "mnist", "bert", "vit", "gpt2"])
+def test_torch_model_forward_on_card_matches_cpu(cuda_device, family):
+    """Each family's forward on the card against its CPU run, float32
+    within 1e-4 (sums in another order; TF32 off), the transformers'
+    attention through the flash forward kernel once a layer."""
+    torch.backends.cudnn.allow_tf32 = False
+    params, run, layers = _family_case(family)
+    with torch.no_grad():
+        ref = run(params, torch.device("cpu"))
+        before = tfa.flash_attention_fwd.launches
+        out = run(_to_card(params, cuda_device), cuda_device)
+        torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches - before == layers
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
