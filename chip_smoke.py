@@ -117,7 +117,29 @@ Phases (any failure exits non-zero and prints no result line):
    running statistics) bitwise equal across ranks every step, 2 x 53
    batch-norm exchanges a ResNet step, the allreduces and engine batches
    a step, pack = unpack launches = dtype groups.
-9. The whole run's wall time, the kernels line (JSON), the card line, and
+9. Adasum and the two-level collectives.  The Adasum kernels against
+   their plain versions (after the engine's E1): for each distinct size of
+   the training configuration's gradients, the float32 halves of one (a
+   first halving round's segments), then an odd length and an empty
+   tensor; ``hvd_adasum_dots`` within DOTS_RTOL of a float64 sum and
+   bitwise on a second call, ``hvd_adasum_combine`` bitwise its plain
+   version (both sides, in place), with CUDA-event times, bounds and the
+   library's calls.  Then E7 (``--e7-worker``, after E6): four ranks
+   through the launcher with ``--hierarchical-allreduce
+   --hierarchical-allgather --hierarchical-broadcast`` and
+   ``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2`` (two slices of two; one ``-H``
+   entry a rank on one card, ``-H localhost:4`` with four cards): the
+   two-level Sum/Average/Min/Max of an integer-valued bf16 decoder layer's
+   gradients bitwise the flat submission and the exact result, two-level
+   allgather and broadcast (the root in the other slice) bitwise flat,
+   Adasum of a float32 gradient set two-level and flat (bitwise each other
+   and across ranks, within ADASUM_RTOL/ATOL of the float64 tree), the
+   tree on a process set of 3, then ``DistributedOptimizer(SGD,
+   op=hvd.Adasum)`` training Llama at full width (E7_LAYERS deep) from
+   rank 0's broadcast weights for 3 steps: parameters bitwise equal on the
+   four ranks every step, the flash launches, and the Adasum launches =
+   2 rounds x the steps' dtype groups.
+10. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -1339,11 +1361,13 @@ def engine_size1_phase(torch, hvd, tl, fusion, grads, layers, seed):
 
 
 def _checksum(torch, named):
-    """Two integer sums over every parameter's bits (bf16 read as int16):
-    equal on two ranks only if the parameters are, but for a collision."""
+    """Two integer sums over every tensor's bits (bf16 read as int16,
+    float32 as int32): equal on two ranks only if the tensors are, but for
+    a collision."""
     s1 = s2 = 0
     for _, t in named:
-        v = t.detach().reshape(-1).view(torch.int16).to(torch.int64)
+        iv = torch.int32 if t.element_size() == 4 else torch.int16
+        v = t.detach().reshape(-1).view(iv).to(torch.int64)
         s1 += int(v.sum())
         s2 += int((v * v).sum())
         del v
@@ -1438,34 +1462,43 @@ def _write_result(directory, res):
         json.dump(res, fh)
 
 
-def launch_two_ranks(torch, flag, layers, seed, timeout_s):
-    """Two copies of this script with ``flag``, started by the port's
-    launcher: ``python -m horovod_tpu_torch.runner -np 2 -H
-    localhost:1,127.0.0.1:1`` on one card (the launcher gives each host
-    entry its own NCCL_HOSTID, and the loopback entries NCCL's socket
-    transport on ``lo``: NCCL refuses two ranks of one host on one GPU),
-    ``-H localhost:2`` with two cards or more (each rank on
-    ``cuda:{local rank}``).  Returns ``(results, route, wall)``, results
-    None when a rank failed; every process is gone on return."""
+def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
+                 launcher_flags=(), env_extra=None):
+    """``np_`` copies of this script with ``flag``, started by the port's
+    launcher: ``python -m horovod_tpu_torch.runner -np N -H
+    localhost:1,127.0.0.1:1,...`` on one card, one ``-H`` entry a rank (the
+    launcher gives each host entry its own NCCL_HOSTID, and the loopback
+    entries NCCL's socket transport on ``lo``: NCCL refuses two ranks of
+    one host on one GPU), ``-H localhost:N`` with N cards or more (each
+    rank on ``cuda:{local rank}``).  ``launcher_flags`` go to the launcher,
+    ``env_extra`` into its environment (which the workers inherit).
+    Returns ``(results, route, wall)``, results None when a rank failed;
+    every process is gone on return."""
     import signal
     import tempfile
     ndev = torch.cuda.device_count()
-    hosts = "localhost:2" if ndev >= 2 else "localhost:1,127.0.0.1:1"
-    route = ("NCCL, one card per rank" if ndev >= 2 else
-             "NCCL socket transport on loopback, both ranks on one card "
-             "(NCCL_HOSTID per -H entry)")
+    if ndev >= np_:
+        hosts = f"localhost:{np_}"
+        route = "NCCL, one card per rank"
+    else:
+        hosts = ",".join(["localhost:1"] + [f"127.0.0.{i}:1"
+                                            for i in range(1, np_)])
+        route = (f"NCCL socket transport on loopback, all {np_} ranks on "
+                 f"one card (NCCL_HOSTID per -H entry)")
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
-            os.pathsep) if p]))
+            os.pathsep) if p]), **(env_extra or {}))
     with tempfile.TemporaryDirectory() as tmp:
         logs = os.path.join(tmp, "logs")
-        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
-               "-H", hosts, "--output-filename", logs, sys.executable,
-               os.path.abspath(__file__), "--train-layers", str(layers),
-               "--seed", str(seed), flag, tmp]
-        print(f"{flag[2:4]}: python {' '.join(cmd[1:9])} python "
-              f"chip_smoke.py {flag} {tmp}", flush=True)
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+               str(np_), "-H", hosts, *launcher_flags, "--output-filename",
+               logs, sys.executable, os.path.abspath(__file__),
+               "--train-layers", str(layers), "--seed", str(seed), flag, tmp]
+        shown = [f"{k}={v}" for k, v in (env_extra or {}).items()]
+        shown += ["python"] + cmd[1:cmd.index("--output-filename") + 2]
+        print(f"{flag[2:4]}: {' '.join(shown)} python chip_smoke.py "
+              f"{flag} {tmp}", flush=True)
         t0 = time.time()
         launcher = subprocess.Popen(cmd, cwd=here, env=env,
                                     start_new_session=True)
@@ -1479,7 +1512,7 @@ def launch_two_ranks(torch, flag, layers, seed, timeout_s):
                 launcher.wait()
         wall = time.time() - t0
         results = []
-        for r in range(2):
+        for r in range(np_):
             path = os.path.join(tmp, f"rank{r}.json")
             if rc != 0 or not os.path.exists(path):
                 tail = ""
@@ -1758,7 +1791,7 @@ def e4_phase(torch, layers, seed, card, timeout_s=420):
     the training configuration's full width (``e4_worker``): every check
     on both ranks, and pack launches = unpack launches = the dtype groups
     of the collective's batches (the counts zeroed just before each)."""
-    results, route, wall = launch_two_ranks(torch, "--e4-worker", layers,
+    results, route, wall = launch_ranks(torch, "--e4-worker", layers,
                                             seed, timeout_s)
     if results is None:
         return False, None
@@ -1805,9 +1838,9 @@ def e4_phase(torch, layers, seed, card, timeout_s=420):
 
 def two_rank_phase(torch, layers, seed, timeout_s=600):
     """E3: the training main path on two ranks over NCCL, one process each,
-    started by the port's launcher (``launch_two_ranks``)."""
+    started by the port's launcher (``launch_ranks``)."""
     import numpy as np
-    results, route, wall = launch_two_ranks(torch, "--e3-worker", layers,
+    results, route, wall = launch_ranks(torch, "--e3-worker", layers,
                                             seed, timeout_s)
     if results is None:
         return False, None
@@ -2032,7 +2065,7 @@ def e5_phase(torch, layers, seed, card, timeout_s=E5_TIMEOUT_S):
     times and dq, dk/dv ``layers x (n - r)`` times each; Ulysses
     ``layers`` each."""
     import numpy as np
-    results, route, wall = launch_two_ranks(torch, "--e5-worker", layers,
+    results, route, wall = launch_ranks(torch, "--e5-worker", layers,
                                             seed, timeout_s)
     if results is None:
         return False, None
@@ -2547,7 +2580,7 @@ def e6_phase(torch, seed, card, timeout_s=E6_TIMEOUT_S):
     launches = the dtype groups of the step's batches, ResNet's batch-norm
     exchanges (two a layer and step) and BERT's flash launches."""
     import numpy as np
-    results, route, wall = launch_two_ranks(torch, "--e6-worker", 0, seed,
+    results, route, wall = launch_ranks(torch, "--e6-worker", 0, seed,
                                             timeout_s)
     if results is None:
         return False, None
@@ -2606,6 +2639,487 @@ def e6_phase(torch, seed, card, timeout_s=E6_TIMEOUT_S):
                     step_ms=med)
 
 
+# ----------------------------------------------------------------- Adasum
+# The dots against a float64 sum: |error| within DOTS_RTOL of |k|·|r| for
+# k·r (its value may cancel to near zero), of the value for k·k and r·r.
+DOTS_RTOL = 1e-5
+ADASUM_ODD = 1_000_003         # an odd length: 16-byte loads and a tail
+
+
+def adasum_phase(torch, ak, shapes, dev, seed, flush):
+    """The Adasum kernels against their plain versions on the card: for
+    each distinct size of the training configuration's gradients, the
+    float32 halves of one (``kept`` the first half, ``received`` the
+    second: a first halving round's segments), then an odd length and an
+    empty tensor.  ``hvd_adasum_dots`` within DOTS_RTOL of a float64 sum
+    and bitwise equal on a second call; ``hvd_adasum_combine`` bitwise
+    equal to the plain version given the same triple, for both sides and in
+    place.  CUDA-event times at the largest size (the card's time alone,
+    L2 flushed) against the bound (bytes) and the library yardstick."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    sizes = sorted({math.prod(s) // 2 for _, s in shapes}) + [ADASUM_ODD, 0]
+    ok, worst = True, {"dots": 0.0, "combine": 0.0}
+    for n in sizes:
+        g = torch.randn(2 * n, generator=gen, device=dev).to(
+            torch.bfloat16).float()
+        k, r = g[:n], g[n:]
+        d1, d2 = ak.dots(k, r), ak.dots(k, r)
+        kd, rd = k.double(), r.double()
+        ref = torch.stack([kd @ rd, kd @ kd, rd @ rd])
+        scale = torch.stack([(ref[1] * ref[2]).sqrt(), ref[1], ref[2]])
+        rel = ((d1.double() - ref).abs() / scale.clamp_min(1e-300)).max()
+        rel = float(rel) if n else float(d1.abs().max())
+        same = bool(torch.equal(d1, d2))
+        combined = []
+        for is_low in (True, False):
+            got = ak.combine(k, r, d1, is_low)
+            plain = ak.combine_plain(k, r, d1, is_low, torch.empty_like(k))
+            inplace = k.clone()
+            ak.combine(inplace, r, d1, is_low, out=inplace)
+            combined.append(torch.equal(got, plain)
+                            and torch.equal(inplace, plain))
+            cerr = _err(got, plain)
+            worst["combine"] = max(worst["combine"], cerr)
+        worst["dots"] = max(worst["dots"], rel)
+        good = rel <= DOTS_RTOL and same and all(combined)
+        ok = ok and good
+        print(f"adasum[n={n}]: dots relative error {rel:.2e} (tolerance "
+              f"{DOTS_RTOL:g}), bitwise on a second call: {same}; combine "
+              f"bitwise the plain version (low, high side, in place): "
+              f"{combined} -> {'PASS' if good else 'FAIL'}", flush=True)
+        del g, k, r, kd, rd
+    n = max(sizes)
+    g = torch.randn(2 * n, generator=gen, device=dev).to(
+        torch.bfloat16).float()
+    k, r = g[:n], g[n:]
+    tri = ak.dots(k, r)
+    ca, cb = (float(c) for c in ak.coefficients(tri))
+    out = torch.empty_like(k)
+    res = {}
+    for name, kern, plain, lib, nbytes in (
+            ("dots", lambda: ak.dots(k, r), lambda: ak.dots_plain(k, r),
+             lambda: (torch.dot(k, r), torch.dot(k, k), torch.dot(r, r)),
+             8 * n + 12),
+            ("combine", lambda: ak.combine(k, r, tri, True, out=out),
+             lambda: ak.combine_plain(k, r, tri, True, out),
+             lambda: torch.add(k.mul(ca), r, alpha=cb), 12 * n)):
+        ms = time_ms(torch, kern, flush, lead=True)
+        plain_ms = time_ms(torch, plain, flush, lead=True)
+        lib_ms = time_ms(torch, lib, flush, lead=True)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by="bytes",
+                         gbps=nbytes / ms / 1e6, max_abs_err=worst[name],
+                         n=n)
+        lib_name = ("three torch.dot" if name == "dots"
+                    else "torch.add(k.mul(ca), r, alpha=cb)")
+        print(f"adasum[{name}, n={n} float32]: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms ({lib_name}), bound {bound:.4f} ms "
+              f"(bytes)", flush=True)
+    del g, k, r, out
+    torch.cuda.empty_cache()
+    return ok, res
+
+
+E7_RANKS = 4
+E7_LOCAL = 2             # HOROVOD_HIERARCHICAL_LOCAL_SIZE: 2 slices of 2
+E7_LAYERS = 2
+E7_STEPS = 3
+# Adasum of four nearly orthogonal gradients is close to their sum, four
+# times the average that E3's TRAIN_LR was chosen for.
+E7_LR = TRAIN_LR / E7_RANKS
+ADASUM_RTOL, ADASUM_ATOL = 1e-4, 1e-5
+E7_TIMEOUT_S = 600
+E7_HIER_FLAGS = ("--hierarchical-allreduce", "--hierarchical-allgather",
+                 "--hierarchical-broadcast")
+
+
+def _layer_shapes(cfg, attention_only=False):
+    """One decoder layer's gradients at ``cfg``'s width, by name."""
+    D, F = cfg.d_model, cfg.d_ff
+    Q, K = cfg.n_heads * (D // cfg.n_heads), cfg.n_kv_heads * (
+        D // cfg.n_heads)
+    shapes = [("attn_norm", (D,)), ("mlp_norm", (D,)), ("wq", (D, Q)),
+              ("wk", (D, K)), ("wv", (D, K)), ("wo", (Q, D))]
+    if not attention_only:
+        shapes += [("w1", (D, F)), ("w2", (F, D)), ("w3", (D, F))]
+    return shapes
+
+
+def _e7_tensors(torch, shapes, dev, seed, rank, kind):
+    """Rank ``rank``'s tensors: integer-valued bf16 in [-3, 3] ("ints"),
+    bf16 normal ("bf16") or float32 normal ("f32"), from its own seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7000 + 97 * rank)
+    out = []
+    for _, s in shapes:
+        if kind == "ints":
+            out.append(torch.randint(-3, 4, s, generator=gen, device=dev).to(
+                torch.bfloat16))
+        else:
+            t = torch.randn(s, generator=gen, device=dev)
+            out.append(t.to(torch.bfloat16) if kind == "bf16" else t)
+    return out
+
+
+def _adasum64(torch, vals):
+    """The pairwise tree of ``parallel/adasum.py`` in float64."""
+    vals = list(vals)
+
+    def comb(a, b):
+        ab, aa, bb = a @ b, a @ a, b @ b
+        return ((1 - ab / (2 * aa + 1e-30)) * a
+                + (1 - ab / (2 * bb + 1e-30)) * b)
+    while len(vals) > 1:
+        nxt = [comb(vals[i], vals[i + 1])
+               for i in range(0, len(vals) - 1, 2)]
+        if len(vals) % 2:
+            nxt[-1] = comb(nxt[-1], vals[-1])
+        vals = nxt
+    return vals[0]
+
+
+def e7_worker(args):
+    """One rank of E7, started by ``e7_phase`` through the port's launcher
+    with ``--hierarchical-allreduce --hierarchical-allgather
+    --hierarchical-broadcast`` and ``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2``:
+    (a) the two-level Sum/Average/Min/Max of an integer-valued bf16
+    gradient set against the same submission with ``hierarchical=False``
+    and against the sums this rank recomputes from every rank's seed;
+    (b) two-level allgather and broadcast (the root in the other slice)
+    against flat; (c) Adasum of a float32 gradient set, flat VHD and
+    two-level, then the tree on a process set of 3 ranks, against the
+    float64 tree of every rank's tensors; (d) ``DistributedOptimizer(SGD,
+    op=hvd.Adasum)`` training Llama at full width from rank 0's broadcast
+    weights, each rank its own batch, with the launch counts zeroed just
+    before the steps and read just after.  Writes
+    ``rank<HOROVOD_RANK>.json`` in ``args.e7_worker``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import adasum as ak
+    from horovod_tpu_torch.ops import eager
+    from horovod_tpu_torch.ops import flash_attention as fa
+    import faulthandler
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stacks = open(os.path.join(args.e7_worker, "stacks"
+                               f"{os.environ['HOROVOD_RANK']}.txt"), "w")
+    faulthandler.dump_traceback_later(E7_TIMEOUT_S - 60, exit=False,
+                                      file=stacks)
+    hvd.init()
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    eng = hvd.common.basics._get_state().engine
+    st = eng._slice_topology(0)
+    res = dict(rank=r, size=n, device=str(dev),
+               card=torch.cuda.get_device_name(dev),
+               slices=[st.num_slices, st.local_size] if st else None,
+               groups=eng._hier is not None)
+    t_start = time.perf_counter()
+
+    def progress(what):
+        print(f"e7 rank {r}: {what} at {time.perf_counter() - t_start:.1f} "
+              f"s", flush=True)
+
+    def legs():
+        return [eng.hier_dispatches, eng.hier_intra_legs,
+                eng.hier_cross_legs, eng.hier_ag_dispatches,
+                eng.hier_ag_intra_legs, eng.hier_ag_cross_legs,
+                eng.hier_bcast_dispatches, eng.hier_bcast_intra_legs,
+                eng.hier_bcast_cross_legs]
+
+    cfg = tl.llama3_8b(n_layers=args.train_layers)
+    layer = _layer_shapes(cfg)
+    # (a) the two-level allreduce of an integer-valued bf16 gradient set.
+    mine = _e7_tensors(torch, layer, dev, args.seed, r, "ints")
+    # The exact results, from every rank's seed (small integers: exact in
+    # bf16 and in any order of the sum).
+    exact = {}
+    for q in range(n):
+        theirs = [t.float() for t in _e7_tensors(torch, layer, dev,
+                                                  args.seed, q, "ints")]
+        if not exact:
+            exact = {op: [t.clone() for t in theirs]
+                     for op in ("Sum", "Min", "Max")}
+            continue
+        for i, t in enumerate(theirs):
+            exact["Sum"][i] += t
+            exact["Min"][i] = torch.minimum(exact["Min"][i], t)
+            exact["Max"][i] = torch.maximum(exact["Max"][i], t)
+        del theirs
+    exact["Average"] = [t / n for t in exact["Sum"]]
+    res["set_bytes"] = _nbytes(mine)
+    allreduce = {}
+    for op in ("Sum", "Average", "Min", "Max"):
+        want = [t.to(torch.bfloat16) for t in exact.pop(op)]
+        c0 = legs()
+        t0 = time.perf_counter()
+        hier = eager.grouped_allreduce(mine, name=f"e7.h.{op}",
+                                       op=getattr(hvd, op))
+        torch.cuda.synchronize()
+        hier_s = time.perf_counter() - t0
+        c1 = legs()
+        t0 = time.perf_counter()
+        flat = eager.grouped_allreduce(mine, name=f"e7.f.{op}",
+                                       op=getattr(hvd, op),
+                                       hierarchical=False)
+        torch.cuda.synchronize()
+        flat_s = time.perf_counter() - t0
+        allreduce[op] = dict(
+            same=all(torch.equal(a, b) for a, b in zip(hier, flat)),
+            right=all(torch.equal(a, b) for a, b in zip(hier, want)),
+            legs=[b - a for a, b in zip(c0, c1)][:3],
+            flat_legs=[b - a for a, b in zip(c1, legs())][:3],
+            hier_s=hier_s, flat_s=flat_s,
+            bits=_checksum(torch, enumerate(hier)))
+        del hier, flat, want
+    res["allreduce"] = allreduce
+    progress("(a) two-level allreduce done")
+    # (b) allgather and broadcast, the root in the other slice.
+    attn = _layer_shapes(cfg, attention_only=True)[2:4]
+    ag_in = _e7_tensors(torch, attn, dev, args.seed + 1, r, "bf16")
+    want = [torch.cat(t) for t in zip(*[
+        _e7_tensors(torch, attn, dev, args.seed + 1, q, "bf16")
+        for q in range(n)])]
+    c0 = legs()
+    hier = eager.grouped_allgather(ag_in, name="e7.ag.h")
+    c1 = legs()
+    flat = [eager._engine().synchronize(h) for h in [
+        eager._engine().enqueue(f"e7.ag.f.{i}",
+                                eager.CollectiveType.ALLGATHER, t,
+                                hierarchical=False) for i, t in
+        enumerate(ag_in)]]
+    root = n - 1
+    b_in = _e7_tensors(torch, attn, dev, args.seed + 2, r, "bf16")
+    b_want = _e7_tensors(torch, attn, dev, args.seed + 2, root, "bf16")
+    c2 = legs()
+    b_hier = [hvd.broadcast(t, root_rank=root, name=f"e7.b.h.{i}")
+              for i, t in enumerate(b_in)]
+    c3 = legs()
+    b_flat = [eager._engine().synchronize(eager._engine().enqueue(
+        f"e7.b.f.{i}", eager.CollectiveType.BROADCAST, t.clone(),
+        root_rank=root, hierarchical=False)) for i, t in enumerate(b_in)]
+    torch.cuda.synchronize()
+    res["allgather"] = dict(
+        same=all(torch.equal(a, b) for a, b in zip(hier, flat)),
+        right=all(torch.equal(a, b) for a, b in zip(hier, want)),
+        legs=[b - a for a, b in zip(c0, c1)][3:6])
+    res["broadcast"] = dict(
+        root=root,
+        same=all(torch.equal(a, b) for a, b in zip(b_hier, b_flat)),
+        right=all(torch.equal(a, b) for a, b in zip(b_hier, b_want)),
+        legs=[b - a for a, b in zip(c2, c3)][6:9])
+    del ag_in, want, hier, flat, b_in, b_want, b_hier, b_flat
+    progress("(b) allgather and broadcast done")
+    # (c) Adasum of a float32 gradient set: two-level, flat VHD, the tree.
+    attn = _layer_shapes(cfg, attention_only=True)
+    x = _e7_tensors(torch, attn, dev, args.seed + 3, r, "f32")
+    ref = _adasum64(torch, [torch.cat([t.reshape(-1).double() for t in ts])
+                            for ts in (_e7_tensors(torch, attn, dev,
+                                                   args.seed + 3, q, "f32")
+                                       for q in range(n))])
+
+    def close(out, want_):
+        got = torch.cat([t.reshape(-1).double() for t in out])
+        err = (got - want_).abs()
+        return (bool((err <= ADASUM_ATOL + ADASUM_RTOL * want_.abs()).all()),
+                float(err.max()))
+    c0 = legs()
+    t0 = time.perf_counter()
+    a_hier = eager.grouped_allreduce(x, name="e7.a.h", op=hvd.Adasum)
+    torch.cuda.synchronize()
+    ah_s = time.perf_counter() - t0
+    c1 = legs()
+    t0 = time.perf_counter()
+    a_flat = eager.grouped_allreduce(x, name="e7.a.f", op=hvd.Adasum,
+                                     hierarchical=False)
+    torch.cuda.synchronize()
+    af_s = time.perf_counter() - t0
+    within, err = close(a_hier, ref)
+    res["adasum"] = dict(
+        same=all(torch.equal(a, b) for a, b in zip(a_hier, a_flat)),
+        within=within, max_err=err, legs=[b - a for a, b in zip(c0, c1)][:3],
+        hier_s=ah_s, flat_s=af_s, bits=_checksum(torch, enumerate(a_hier)),
+        nbytes=_nbytes(x))
+    del a_hier, a_flat, ref
+    ps = hvd.add_process_set(list(range(3)))
+    if r < 3:
+        ref3 = _adasum64(torch, [
+            torch.cat([t.reshape(-1).double() for t in _e7_tensors(
+                torch, attn, dev, args.seed + 3, q, "f32")])
+            for q in range(3)])
+        a3 = eager.grouped_allreduce(x, name="e7.a.3", op=hvd.Adasum,
+                                     process_set=ps)
+        within3, err3 = close(a3, ref3)
+        res["adasum3"] = dict(within=within3, max_err=err3,
+                              bits=_checksum(torch, enumerate(a3)))
+        del a3, ref3
+    hvd.remove_process_set(ps)
+    del x
+    torch.cuda.empty_cache()
+    progress("(c) Adasum done")
+    # (d) DistributedOptimizer(SGD, op=Adasum) training Llama.
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 1 + 1000 * r))
+    named = list(tl.named_parameters(params))
+    sums_before = _checksum(torch, named)
+    c0 = legs()
+    hvd.broadcast_parameters(params, root_rank=0)
+    torch.cuda.synchronize()
+    res["bcast_legs"] = [b - a for a, b in zip(c0, legs())][6:9]
+    res["sums_before"], res["sums_bcast"] = sums_before, _checksum(torch,
+                                                                   named)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([t for _, t in named], lr=E7_LR),
+        named_parameters=named, op=hvd.Adasum)
+    step = tl.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 2 + r).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int64)).to(dev)
+    xb, yb = toks[:, :-1], toks[:, 1:]
+    _zero_flash(fa)
+    ak.dots.launches = ak.combine.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(E7_STEPS):
+        c0 = [eng.pipeline_dispatches, eng.fused_groups] + legs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, xb, yb).item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d = [b - a for a, b in zip(c0, [eng.pipeline_dispatches,
+                                        eng.fused_groups] + legs())]
+        steps.append(dict(loss=loss, s=dt, batches=d[0], groups=d[1],
+                          hier=d[2:5], sums=_checksum(torch, named)))
+        progress(f"(d) step {len(steps)} done")
+    res["train"] = dict(
+        layers=cfg.n_layers, steps=steps, flash=_flash_counts(fa),
+        dots=ak.dots.launches, combine=ak.combine.launches,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        leaves=len(named), grad_bytes=_nbytes([t for _, t in named]))
+    hvd.shutdown()
+    faulthandler.cancel_dump_traceback_later()
+    stacks.close()
+    _write_result(args.e7_worker, res)
+    print(f"e7 rank {r}: done", flush=True)
+    return 0
+
+
+def e7_phase(torch, layers, seed, card, timeout_s=E7_TIMEOUT_S):
+    """E7: four ranks through the port's launcher with the hierarchical
+    flags (``e7_worker``).  Every result bitwise equal across the ranks
+    and the two-level ones to flat; Adasum within ADASUM_RTOL/ADASUM_ATOL
+    of the float64 tree; the training's parameters bitwise equal across
+    ranks after every step, finite losses, the flash launches (each kernel
+    once a layer and step) and the Adasum launches (the VHD's rounds x the
+    steps' dtype groups).  Returns ``(ok, counts)``."""
+    import numpy as np
+    results, route, wall = launch_ranks(
+        torch, "--e7-worker", layers, seed, timeout_s, E7_RANKS,
+        E7_HIER_FLAGS, {"HOROVOD_HIERARCHICAL_LOCAL_SIZE": str(E7_LOCAL)})
+    if results is None:
+        return False, None
+    a = results[0]
+    ok = all(x["slices"] == [E7_RANKS // E7_LOCAL, E7_LOCAL] and x["groups"]
+             for x in results)
+    print(f"e7: {E7_RANKS} ranks ({route}) in {wall:.1f} s; slices "
+          f"{a['slices'][0] if a['slices'] else 0} x "
+          f"{a['slices'][1] if a['slices'] else 0} from "
+          f"HOROVOD_HIERARCHICAL_LOCAL_SIZE={E7_LOCAL}, the local and cross "
+          f"groups made on every rank: {ok}", flush=True)
+    for op, x in a["allreduce"].items():
+        across = all(y["allreduce"][op]["bits"] == x["bits"]
+                     for y in results)
+        good = (across and all(y["allreduce"][op]["same"]
+                               and y["allreduce"][op]["right"]
+                               for y in results)
+                and x["legs"] == [1, 2, 1] and x["flat_legs"] == [0, 0, 0])
+        ok = ok and good
+        print(f"e7[a, {op}]: the integer-valued bf16 layer gradient set "
+              f"({a['set_bytes'] / 2**20:.0f} MiB a rank) two-level "
+              f"bitwise the flat submission: {x['same']}, the exact "
+              f"result: {x['right']}, the same on every rank: {across}; "
+              f"dispatches/local/cross legs {x['legs']} (flat "
+              f"{x['flat_legs']}); {x['hier_s'] * 1e3:.1f} ms two-level, "
+              f"{x['flat_s'] * 1e3:.1f} ms flat on rank 0 -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    for kind, want in (("allgather", [1, 1, 1]), ("broadcast", [2, 2, 2])):
+        good = all(y[kind]["same"] and y[kind]["right"] for y in results) \
+            and a[kind]["legs"] == want
+        ok = ok and good
+        root = (f" (root {a[kind]['root']}, in the other slice)"
+                if kind == "broadcast" else "")
+        print(f"e7[b, {kind}]: two-level bitwise flat and the expected "
+              f"bytes on every rank: {good}{root}; dispatches/local/cross "
+              f"legs {a[kind]['legs']} -> {'PASS' if good else 'FAIL'}",
+              flush=True)
+    x = a["adasum"]
+    across = all(y["adasum"]["bits"] == x["bits"] for y in results)
+    good = (across and all(y["adasum"]["same"] and y["adasum"]["within"]
+                           for y in results) and x["legs"] == [1, 2, 1])
+    ok = ok and good
+    print(f"e7[c]: Adasum of a float32 attention gradient set "
+          f"({x['nbytes'] / 2**20:.0f} MiB a rank): two-level bitwise the "
+          f"flat VHD: {x['same']}, the same on every rank: {across}, within "
+          f"rtol {ADASUM_RTOL:g} atol {ADASUM_ATOL:g} of the float64 tree: "
+          f"{x['within']} (max error {x['max_err']:.2e}); legs "
+          f"{x['legs']}; {x['hier_s'] * 1e3:.1f} ms two-level, "
+          f"{x['flat_s'] * 1e3:.1f} ms flat -> {'PASS' if good else 'FAIL'}",
+          flush=True)
+    three = [y["adasum3"] for y in results[:3]]
+    good = all(t["within"] for t in three) and all(
+        t["bits"] == three[0]["bits"] for t in three)
+    ok = ok and good
+    print(f"e7[c]: Adasum on a process set of 3 ranks (the tree): within "
+          f"the tolerance of the float64 tree on each: "
+          f"{[t['within'] for t in three]} (max error "
+          f"{max(t['max_err'] for t in three):.2e}), the same on the three: "
+          f"{all(t['bits'] == three[0]['bits'] for t in three)} -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    bc = (len({str(y["sums_before"]) for y in results}) == E7_RANKS
+          and all(y["sums_bcast"] == a["sums_bcast"] for y in results)
+          and a["bcast_legs"][0] > 0)
+    ok = ok and bc
+    t = a["train"]
+    print(f"e7[d]: Llama at full width, {t['layers']} layers (of 32; "
+          f"{E7_LAYERS} keep four ranks on one card within a few minutes "
+          f"over NCCL's sockets), {t['leaves']} leaves ({t['grad_bytes'] / 2**30:.2f} "
+          f"GiB of bf16 gradients a rank): rank 0's weights on every rank "
+          f"after broadcast_parameters ({a['bcast_legs'][0]} two-level "
+          f"broadcasts): {bc}", flush=True)
+    rounds = (E7_RANKS).bit_length() - 1
+    for i in range(E7_STEPS):
+        ss = [y["train"]["steps"][i] for y in results]
+        same = all(s["sums"] == ss[0]["sums"] for s in ss)
+        finite = bool(np.isfinite([s["loss"] for s in ss]).all())
+        hier = all(s["hier"] == [s["batches"], 2 * s["batches"],
+                                 s["batches"]] for s in ss)
+        good = same and finite and hier
+        ok = ok and good
+        losses = " / ".join(f"{s['loss']:.5f}" for s in ss)
+        print(f"e7[d] step {i + 1}: losses {losses}; parameters "
+              f"bitwise equal across the {E7_RANKS} ranks: {same}; "
+              f"{ss[0]['batches']} batches, {ss[0]['groups']} dtype "
+              f"groups, all two-level: {hier}; step {ss[0]['s']:.2f} s on "
+              f"rank 0 -> {'PASS' if good else 'FAIL'}", flush=True)
+    groups = sum(s["groups"] for s in t["steps"])
+    want_flash = [t["layers"] * E7_STEPS] * 3
+    launch_ok = (t["flash"] == want_flash
+                 and t["dots"] == t["combine"] == rounds * groups > 0
+                 and all(y["train"]["dots"] == t["dots"] for y in results))
+    ok = ok and launch_ok
+    med = sorted(s["s"] for s in t["steps"])[len(t["steps"]) // 2]
+    print(f"e7[d]: flash launches fwd/dq/dkv {t['flash']} (= {want_flash} "
+          f"expected); Adasum launches dots {t['dots']}, combine "
+          f"{t['combine']} (= {rounds} rounds x {groups} dtype groups "
+          f"expected); median step {med:.2f} s, peak memory "
+          f"{t['peak_gib']:.2f} GiB on rank 0 [{card}; {route}] -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    return ok, dict(dots=t["dots"], combine=t["combine"], step_s=med)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2622,6 +3136,8 @@ def main():
                     help=argparse.SUPPRESS)   # one rank of phase E5
     ap.add_argument("--e6-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E6
+    ap.add_argument("--e7-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase E7
     args = ap.parse_args()
 
     import torch
@@ -2635,6 +3151,7 @@ def main():
         from horovod_tpu_torch.common import native
         from horovod_tpu_torch.models import llama as tl
         from horovod_tpu_torch.ops import _build
+        from horovod_tpu_torch.ops import adasum as ak
         from horovod_tpu_torch.ops import flash_attention as fa
         from horovod_tpu_torch.ops import fusion
     except ImportError as exc:
@@ -2649,6 +3166,8 @@ def main():
         return e5_worker(args)
     if args.e6_worker:
         return e6_worker(args)
+    if args.e7_worker:
+        return e7_worker(args)
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2699,12 +3218,14 @@ def main():
     torch.cuda.empty_cache()
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    shapes = _grad_shapes(torch, tl, args.train_layers, dev, args.seed + 1)
     grads = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-             for _, shape in _grad_shapes(torch, tl, args.train_layers, dev,
-                                          args.seed + 1)]
+             for _, shape in shapes]
     fusion_ok, fusion_res = fusion_phase(torch, fusion, grads, dev,
                                          args.seed, flush)
     layout_ok, _ = layout_phase(torch, fusion, grads, dev, args.seed, flush)
+    adasum_ok, adasum_res = adasum_phase(torch, ak, shapes, dev, args.seed,
+                                         flush)
     del flush
     size1_ok = engine_size1_phase(torch, hvd, tl, fusion, grads,
                                   args.train_layers, args.seed)
@@ -2724,6 +3245,7 @@ def main():
                                               card)
     e6_ok, e6 = e6_phase(torch, args.seed, card)
     models_ok = resnet_ok and tf_ok and e6_ok
+    e7_ok, e7 = e7_phase(torch, E7_LAYERS, args.seed, card)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -2832,16 +3354,36 @@ def main():
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"],
             call_ms=r["call_ms"], host_us=r["host_us"]))
+    for kern, line, design in (
+            ("dots", 34, "hvd_adasum_dots: a grid-stride loop of 16-byte "
+                         "loads, float32 sums a thread, warp shuffles, then "
+                         "the blocks' partials in block order (no float "
+                         "atomics: deterministic)"),
+            ("combine", 235, "hvd_adasum_combine: the coefficients from the "
+                             "summed triple on the card, a grid-stride loop "
+                             "of 16-byte loads and stores, no FMA "
+                             "contraction, in place over the kept half")):
+        r = adasum_res[kern]
+        kernels.append(dict(
+            name=f"adasum_{kern}", route="cuda", source=src + "adasum.cu",
+            replaces=f"horovod_tpu/parallel/adasum.py:{line} (no Pallas "
+                     f"kernel: XLA fused this work into the collective "
+                     f"program)",
+            design=design, launches=e7[kern] if e7 else 0,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], gbps=r["gbps"], n=r["n"]))
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
-                        and kern["launches"] > 0)
+                        and adasum_ok and e7_ok and kern["launches"] > 0)
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
-            and models_ok and all(k["pass"] for k in kernels)):
+            and models_ok and adasum_ok and e7_ok
+            and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
               f", engine ok={engine_ok} (module loading {loading_ok}, "
@@ -2849,7 +3391,8 @@ def main():
               f"layouts and casts {layout_ok}, size 1 {size1_ok}, two ranks "
               f"{two_ok}, collectives on two ranks {four_ok}), sequence "
               f"parallel ok={sp_ok}, models ok={models_ok} (resnet50 "
-              f"{resnet_ok}, transformers {tf_ok}, two ranks {e6_ok})")
+              f"{resnet_ok}, transformers {tf_ok}, two ranks {e6_ok}), "
+              f"adasum kernels ok={adasum_ok}, four ranks (E7) ok={e7_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -30,8 +30,15 @@ once, at its initialisation, which ``torch.cuda.is_available()`` already
 performs.  The port's launcher sets the variable for every worker.
 
 With no card and no request for the CPU ``init()`` raises: the port
-never carries on on the CPU by itself.  Elastic membership, the hierarchical controller, topology, the monitor and
-the timeline come with later parts of the port.
+never carries on on the CPU by itself.
+
+``init()`` builds the world's layout over hosts (``common/topology.py``,
+from the launcher's ``HOROVOD_LOCAL_COUNTS``), as the JAX ``init()`` builds
+its topology (:139), and has the engine make the two-level data plane's
+groups where the global set has a slice topology
+(``ops/engine.py`` ``_make_hier_groups``).  Elastic membership, the
+hierarchical controller, the monitor and the timeline come with later
+parts of the port.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 
 from .config import Config
 from .process_sets import ProcessSet, ProcessSetTable, global_process_set
+from .topology import Topology, build_topology
 
 
 class NotInitializedError(RuntimeError):
@@ -68,6 +76,7 @@ class GlobalState:
         self.local_rank = 0
         self.local_size = 1
         self.device: Optional[torch.device] = None
+        self.topology: Optional[Topology] = None
         self.owns_process_group = False
         self.config: Optional[Config] = None
         self.engine = None           # ops.engine.CollectiveEngine
@@ -184,6 +193,7 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         st.rank, st.size = rank, size
         st.local_rank, st.local_size = local_rank, local_size
         st.device = dev
+        st.topology = build_topology(size, rank)
         gs = st.process_set_table.initialize(size, _make_group,
                                              extra_sets=process_sets)
         # Rebind the module-level global_process_set singleton.
@@ -196,6 +206,7 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         _eager.reset_name_counters()
         from ..ops.engine import CollectiveEngine
         st.engine = CollectiveEngine(st)
+        st.engine._make_hier_groups()
         if size > 1:
             from .controller import TCPController
             if not cfg.controller_addr or not cfg.controller_port:
@@ -266,6 +277,7 @@ def shutdown() -> None:
         st.owns_process_group = False
         st.process_set_table = ProcessSetTable()
         st.device = None
+        st.topology = None
         st.initialized = False
 
 

@@ -1,6 +1,6 @@
-# Copied from horovod_tpu/common/config.py:1-53, 109-200, 381-404 and the
-# matching lines of from_env (:410-497): only the fields the engine and the
-# controller read.
+# Copied from horovod_tpu/common/config.py:1-53, 109-200, 202-227, 381-404
+# and the matching lines of from_env (:410-497): only the fields the engine
+# and the controller read.
 """Environment-variable configuration surface.
 
 TPU-native equivalent of the reference's env parser
@@ -69,6 +69,14 @@ class Config:
     - ``stall_check_time_s``       <- HOROVOD_STALL_CHECK_TIME
     - ``stall_shutdown_time_s``    <- HOROVOD_STALL_SHUTDOWN_TIME
     - ``stall_check_disable``      <- HOROVOD_STALL_CHECK_DISABLE
+    - ``hierarchical_allreduce``   <- HOROVOD_HIERARCHICAL_ALLREDUCE
+    - ``hierarchical_allgather``   <- HOROVOD_HIERARCHICAL_ALLGATHER
+    - ``hierarchical_broadcast``   <- HOROVOD_HIERARCHICAL_BROADCAST
+    - ``hierarchical_local_size``  <- HOROVOD_HIERARCHICAL_LOCAL_SIZE
+    - ``hier_threshold_bytes``     <- HOROVOD_HIER_THRESHOLD (flat-vs-
+      two-level payload crossover; 0 = always two-level when armed)
+    - ``slice_map``                <- HOROVOD_SLICE_MAP (explicit slice
+      membership; see parallel/topology.py)
     """
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
@@ -115,6 +123,28 @@ class Config:
     stall_shutdown_time_s: float = 0.0
     stall_check_disable: bool = False
 
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    # Two-level broadcast on the same slice topology: the root's leader
+    # exchange over the cross group, then the fan-out inside each slice,
+    # bitwise the flat broadcast (pure data movement).  Like the allgather
+    # knob, the decision is purely topological (no payload crossover) and
+    # rides the fusion key only, never the negotiation digest.
+    hierarchical_broadcast: bool = False
+    # Local-axis extent for the two-level (cross x local) collectives; 0 =
+    # derive from the launcher's ranks per host (HOROVOD_LOCAL_COUNTS).
+    hierarchical_local_size: int = 0
+    # Payload crossover for the two-level data plane: fused allreduce
+    # batches whose per-rank payload is at least this many bytes take the
+    # RS(local) -> AR(cross) -> AG(local) schedule; smaller batches stay
+    # flat.  0 = every eligible batch goes two-level once the mode is
+    # armed.  Not part of the negotiation digest.
+    hier_threshold_bytes: int = 0
+    # Explicit slice membership ("4" = uniform slice size, "4,4" =
+    # per-slice sizes); empty = derive from hierarchical_local_size, then
+    # from the ranks per host (parallel/topology.py precedence order).
+    slice_map: str = ""
+
     # Run the coordinator cycle inline on the submitting thread for blocking
     # single-controller ops (HOROVOD_INLINE_KICK; the small-tensor latency
     # fast path — off = legacy wake-the-cycle-thread dispatch).
@@ -140,6 +170,12 @@ class Config:
             stall_check_time_s=_env_float("STALL_CHECK_TIME", 60.0),
             stall_shutdown_time_s=_env_float("STALL_SHUTDOWN_TIME", 0.0),
             stall_check_disable=_env_bool("STALL_CHECK_DISABLE", False),
+            hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE", False),
+            hierarchical_allgather=_env_bool("HIERARCHICAL_ALLGATHER", False),
+            hierarchical_broadcast=_env_bool("HIERARCHICAL_BROADCAST", False),
+            hierarchical_local_size=_env_int("HIERARCHICAL_LOCAL_SIZE", 0),
+            hier_threshold_bytes=_env_int("HIER_THRESHOLD", 0),
+            slice_map=_env("SLICE_MAP", "") or "",
             inline_kick=_env_bool("INLINE_KICK", True),
             controller_addr=_env("CONTROLLER_ADDR", "") or "",
             controller_port=_env_int("CONTROLLER_PORT", 0),

@@ -124,13 +124,6 @@ def _item(tensor: torch.Tensor, inplace: bool = False,
     return dict(tensor=staged, home=None if t.device == dev else t.device)
 
 
-def _check_op(op: C.ReduceOp):
-    if op == C.ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet: it arrives with parallel/adasum.py "
-            "(ROADMAP queue 1, hierarchical collectives and Adasum)")
-
-
 def _reduced_dtype(tensor, op: C.ReduceOp) -> Optional[torch.dtype]:
     """An allreduce's result dtype (the JAX engine's outcome), or None for
     what is not a tensor (``_item`` refuses it)."""
@@ -153,7 +146,8 @@ def allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
                     postscale_factor: Optional[float] = None,
                     process_set: Optional[ProcessSet] = None,
                     compression=None, priority: int = 0,
-                    inplace: bool = False) -> int:
+                    inplace: bool = False,
+                    hierarchical: Optional[bool] = None) -> int:
     """``compression="bf16"``/``"fp16"`` casts a floating tensor to the
     wire dtype in the pack kernel (after the prescale) and back in the
     unpack kernel (before the postscale); the result is in the input dtype.
@@ -161,8 +155,16 @@ def allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
     ``priority``: higher drains first from the coordinator queue (stable
     within equal priority).  Must be stamped identically on every rank —
     the DistributedOptimizer bindings use reverse registration order so
-    first-needed gradients lead each cycle."""
-    _check_op(op)
+    first-needed gradients lead each cycle.
+
+    ``op=Adasum`` combines the ranks' tensors by adaptive summation
+    (``parallel/adasum.py``), in float32 over the whole fused buffer of
+    the tensor's batch and dtype, and returns the input's dtype.
+
+    ``hierarchical``: per-call override of the two-level schedule (True
+    forces it where the world has slices, False pins flat, None defers to
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE`` and ``HOROVOD_HIER_THRESHOLD``);
+    the same on every rank."""
     comp = _wire_mode(compression)
     return _submit([dict(
         _item(tensor, inplace, _reduced_dtype(tensor, op)),
@@ -170,7 +172,7 @@ def allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
         ctype=CollectiveType.ALLREDUCE, reduce_op=op,
         process_set_id=_ps(process_set), prescale_factor=prescale_factor,
         postscale_factor=postscale_factor, compression=comp,
-        priority=priority)])[0]
+        priority=priority, hierarchical=hierarchical)])[0]
 
 
 def allreduce(tensor: torch.Tensor, name: Optional[str] = None,
@@ -179,10 +181,11 @@ def allreduce(tensor: torch.Tensor, name: Optional[str] = None,
               postscale_factor: Optional[float] = None,
               process_set: Optional[ProcessSet] = None,
               compression=None, priority: int = 0,
-              inplace: bool = False) -> torch.Tensor:
+              inplace: bool = False,
+              hierarchical: Optional[bool] = None) -> torch.Tensor:
     return synchronize(allreduce_async(
         tensor, name, op, prescale_factor, postscale_factor, process_set,
-        compression, priority, inplace))
+        compression, priority, inplace, hierarchical))
 
 
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
@@ -193,14 +196,15 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
                             process_set: Optional[ProcessSet] = None,
                             compression=None,
                             priorities: Optional[Sequence[int]] = None,
-                            inplace: bool = False) -> List[int]:
+                            inplace: bool = False,
+                            hierarchical: Optional[bool] = None
+                            ) -> List[int]:
     """Enqueue a group that fuses/executes atomically (reference: N13).
 
     ``priorities`` (one int per tensor, same on every rank): drain
     priority per member — the group still executes atomically, but its
     position among OTHER clusters in the cycle follows its members'
     priorities."""
-    _check_op(op)
     ps_id = _ps(process_set)
     comp = _wire_mode(compression)
     gid = next(_group_counter)
@@ -216,7 +220,7 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
         _item(t, inplace, _reduced_dtype(t, op)), name=f"{base}.{i}",
         ctype=CollectiveType.ALLREDUCE, reduce_op=op, process_set_id=ps_id,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        group_id=gid, compression=comp,
+        group_id=gid, compression=comp, hierarchical=hierarchical,
         priority=int(priorities[i]) if priorities is not None else 0)
         for i, t in enumerate(tensors)])
 
@@ -229,10 +233,11 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       process_set: Optional[ProcessSet] = None,
                       compression=None,
                       priorities: Optional[Sequence[int]] = None,
-                      inplace: bool = False):
+                      inplace: bool = False,
+                      hierarchical: Optional[bool] = None):
     return synchronize(grouped_allreduce_async(
         tensors, name, op, prescale_factor, postscale_factor, process_set,
-        compression, priorities, inplace))
+        compression, priorities, inplace, hierarchical))
 
 
 # ------------------------------------------------------------------ allgather
@@ -295,7 +300,6 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
                                 priorities: Optional[Sequence[int]] = None
                                 ) -> List[int]:
     """Reference: ``hvd.grouped_reducescatter`` (upstream v0.28)."""
-    _check_op(op)
     return _grouped_async(tensors, name, "grouped_reducescatter",
                           CollectiveType.REDUCESCATTER, process_set,
                           priorities, reduce_op=op)
@@ -510,7 +514,6 @@ def reducescatter_async(tensor: torch.Tensor, name: Optional[str] = None,
     ``Max`` and ``Product`` drop the last ``S0 % world`` rows, and
     ``Average`` divides with ``/`` (an integer input returns float32), as
     the JAX engine does."""
-    _check_op(op)
     return _submit([dict(_item(tensor),
                          name=_auto_name("reducescatter", name),
                          ctype=CollectiveType.REDUCESCATTER, reduce_op=op,

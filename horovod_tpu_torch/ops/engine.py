@@ -1,14 +1,17 @@
 # Ported from horovod_tpu/ops/engine.py: CollectiveType 59-66,
 # TensorTableEntry 68-148 (without the partition, fast-lane, prefetch,
-# sharded, hierarchical, donation and span fields), _fusion_key 151-169,
+# sharded, donation and span fields), _fusion_key 151-169,
 # start/quiesce/stop/_abort_engine/_settle_queued 416-598,
 # enqueue/enqueue_group 610-697, synchronize/poll 802-850, the cycle
 # 911-1133, _compute_response_list 1136-1335 (the in-flight abort on a
 # leave notice 1252-1268), _perform_operation/
 # _settle_batch/_inflight_ring 1338-1463, _join_fill_value/
-# _synthesize_join_entry 1470-1566, _execute_batch 1792-1889 and the
-# builders 1896-2094 (fused reduce, allreduce, broadcast), 2136-2148
-# (allgather) and 2225-2275 (reducescatter, alltoall).
+# _synthesize_join_entry 1470-1566, _slice_topology/_hier_decision/
+# _hier_ag_decision/_hier_bcast_decision/_batch_payload_bytes 1568-1707,
+# _execute_batch 1792-1889 (with its two-level verdict and leg counters
+# 1802-1830) and the builders 1896-2094 (fused reduce, allreduce with
+# Adasum, broadcast, two-level broadcast), 2136-2222 (allgather, two-level
+# allreduce and allgather) and 2225-2275 (reducescatter, alltoall).
 """The collective engine: Horovod's background coordinator, on torch tensors.
 
 Port of ``horovod_tpu/ops/engine.py`` (reference: ``horovod/common/
@@ -58,11 +61,35 @@ collectives.
 
 A joined rank (``join``) takes part in every collective its peers submit
 with an identity contribution (``_join_fill_value``), synthesized by the
-controller's ``synthesizer`` hook from the negotiated digest.
+controller's ``synthesizer`` hook from the negotiated digest (zeros for
+``Adasum``: ``adasum(a, 0) = a``).
+
+``Adasum`` (``parallel/adasum.py``) runs on the packed dtype-group buffer
+after the wire cast, as the JAX engine's ``_build_fused_reduce`` runs it
+on its concatenation: the coefficients are those of the whole fused
+buffer, not of each tensor.  A set of a power-of-two size above 1 takes
+vector-halving-doubling, its pairwise swaps ``batch_isend_irecv`` calls on
+the set's group; any other size gathers and reduces by the tree.  Every
+dtype keeps its own (the arithmetic is float32, cast back as the JAX
+``_vhd`` casts); a reducescatter refuses ``Adasum``.
+
+The two-level data plane (``parallel/hierarchical.py``): where the global
+set has a slice topology (``_slice_topology``: ``HOROVOD_SLICE_MAP``,
+``HOROVOD_HIERARCHICAL_LOCAL_SIZE`` or the launcher's uniform ranks per
+host), ``init()`` has the engine make one local group per slice and one
+cross group per local index (``_make_hier_groups``).  A batch then goes
+two-level when its verdict says so (``_hier_decision``,
+``_hier_ag_decision``, ``_hier_bcast_decision``: pure functions of the
+negotiated batch, the knobs and the static topology, so every rank
+decides alike with no control-plane traffic): allreduce ``Sum``/
+``Average``/``Min``/``Max`` as reduce-scatter(local) → allreduce(cross) →
+allgather(local), ``Adasum`` as the VHD with its local rounds first,
+allgather as local then cross, broadcast as the root's cross leg then the
+local fan-out.  Each is bitwise the flat path where the JAX engine's is
+(min/max, data movement, sums of exact values, the VHD's schedule).
 
 Out of this slice: the fast lane, partitioning, chunked pipelining and the
-checkpoint lane; the hierarchical data plane and Adasum; the timeline,
-tracer, monitor, sanitizer and autotuner.
+checkpoint lane; the timeline, tracer, monitor, sanitizer and autotuner.
 """
 
 from __future__ import annotations
@@ -119,6 +146,13 @@ class TensorTableEntry:
     # of the fusion key AND the negotiation digest (divergence would
     # execute mismatched batches).
     compression: Optional[str] = None
+    # Two-level data plane: per-call override of the engine's
+    # HOROVOD_HIERARCHICAL_* default — True forces the two-level schedule
+    # for this entry, False forces flat, None defers to the knob (and the
+    # HOROVOD_HIER_THRESHOLD crossover for allreduce).  Part of the fusion
+    # key but NOT the negotiation digest: the value must be the same on
+    # every rank, because batching groups by fusion key.
+    hierarchical: Optional[bool] = None
     # Drain priority (higher drains first; default 0 = FIFO).  Stamped by
     # the DistributedOptimizer bindings with reverse-registration order so
     # first-needed gradients lead each cycle (ByteScheduler-style priority
@@ -152,7 +186,8 @@ def _fusion_key(e: TensorTableEntry) -> Tuple:
     ops with mixed fp32/bf16 members atomic in a single batch (reference:
     group table N13 semantics)."""
     return (e.ctype, e.reduce_op, e.root_rank, e.process_set_id,
-            e.prescale_factor, e.postscale_factor, e.compression)
+            e.prescale_factor, e.postscale_factor, e.compression,
+            e.hierarchical)
 
 
 def reduce_dtypes(ctype: CollectiveType, dtype: torch.dtype,
@@ -160,7 +195,12 @@ def reduce_dtypes(ctype: CollectiveType, dtype: torch.dtype,
     """``(buffer dtype, result dtype)`` of a reduction of ``dtype`` under
     ``op``: what the JAX engine gives without x64
     (``horovod_tpu/ops/engine.py`` ``_build_allreduce`` :2028-2073,
-    ``_build_reducescatter`` :2225-2260).  The buffer's dtype is what the
+    ``_build_reducescatter`` :2225-2260).  ``Adasum`` keeps every dtype,
+    as the JAX ``_vhd`` and ``adasum_combine`` cast to float32 and back
+    (a complex group keeps its real part; a float out of an integer
+    dtype's range converts as the platform converts, in both engines
+    undefined), and a reducescatter refuses it (``ValueError``, as
+    ``_build_reducescatter`` :2225-2229).  The buffer's dtype is what the
     collective reduces: int32 where the JAX program counts or multiplies
     in a wider type and where int16 travels (NCCL has no int16), the
     group's own otherwise; a complex group reduces its float pairs or is
@@ -171,6 +211,11 @@ def reduce_dtypes(ctype: CollectiveType, dtype: torch.dtype,
     ``Average`` (its ``psum_scatter`` adds no bool)."""
     P = C.ReduceOp.PRODUCT
     scatter = ctype == CollectiveType.REDUCESCATTER
+    if op == C.ReduceOp.ADASUM:
+        if scatter:
+            raise ValueError(f"reducescatter does not support ReduceOp "
+                             f"{op.name}, as the JAX engine does not")
+        return dtype, dtype
     if dtype.is_complex:
         if not scatter and op not in (C.ReduceOp.SUM, P):
             raise TypeError(f"allreduce of {dtype} takes Sum and Product, as "
@@ -245,6 +290,23 @@ def _dist_op(op: C.ReduceOp):
     return ops[op]
 
 
+def _wire_view(t: torch.Tensor) -> torch.Tensor:
+    """A bool buffer reduces (``Min``/``Max``) as bytes."""
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+@dataclasses.dataclass(frozen=True)
+class _HierGroups:
+    """This rank's groups of the two-level data plane: its slice's local
+    group and the cross group of its local index, with their world ranks
+    in group order."""
+    topo: Any                        # parallel.topology.SliceTopology
+    local: Any
+    local_ranks: Tuple[int, ...]
+    cross: Any
+    cross_ranks: Tuple[int, ...]
+
+
 class CollectiveEngine:
     """Background coordinator: queue → negotiate → fuse → execute.
 
@@ -274,6 +336,33 @@ class CollectiveEngine:
         # a set size above 1) and one unpack launch.
         self.pipeline_dispatches = 0
         self.fused_groups = 0
+        # The two-level data plane's knobs (read by the verdicts on every
+        # dispatch), its cached slice topology per process set, and its
+        # groups (``_make_hier_groups``).
+        self.hierarchical_allreduce = cfg.hierarchical_allreduce
+        self.hierarchical_allgather = cfg.hierarchical_allgather
+        self.hierarchical_broadcast = cfg.hierarchical_broadcast
+        self._hier_local_size = cfg.hierarchical_local_size
+        self.hier_threshold_bytes = cfg.hier_threshold_bytes
+        self.slice_map = cfg.slice_map
+        self._slice_topos: Dict[int, Any] = {}
+        self._hier: Optional[_HierGroups] = None
+        # Leg counters, per batch: one two-level allreduce = 2 local legs
+        # (reduce-scatter + allgather) + 1 cross leg; one two-level
+        # allgather = 1 local + 1 cross gather; one two-level broadcast =
+        # 1 cross leg (the root to each slice) + 1 local fan-out.
+        self.hier_dispatches = 0
+        self.hier_intra_legs = 0
+        self.hier_cross_legs = 0
+        self.hier_ag_dispatches = 0
+        self.hier_ag_intra_legs = 0
+        self.hier_ag_cross_legs = 0
+        self.hier_bcast_dispatches = 0
+        self.hier_bcast_intra_legs = 0
+        self.hier_bcast_cross_legs = 0
+        # A rejected HOROVOD_SLICE_MAP, counted once per process set (the
+        # probe is cached), so a fleet can see why it stayed flat.
+        self.slice_map_fallbacks = 0
         self._streams: Dict[torch.device, Any] = {}
         self._handle_counter = itertools.count(1)
         self._handles: Dict[int, TensorTableEntry] = {}
@@ -434,13 +523,14 @@ class CollectiveEngine:
                 process_set_id: int = 0, prescale_factor=None,
                 postscale_factor=None, group_id: int = -1,
                 compression: Optional[str] = None, priority: int = 0,
-                output=None, target=None) -> int:
+                output=None, target=None,
+                hierarchical: Optional[bool] = None) -> int:
         return self.enqueue_group([dict(
             name=name, ctype=ctype, tensor=tensor, reduce_op=reduce_op,
             root_rank=root_rank, process_set_id=process_set_id,
             prescale_factor=prescale_factor, postscale_factor=postscale_factor,
             group_id=group_id, compression=compression, priority=priority,
-            output=output, target=target)])[0]
+            output=output, target=target, hierarchical=hierarchical)])[0]
 
     def enqueue_group(self, items: Sequence[dict]) -> List[int]:
         """Enqueue several entries atomically w.r.t. the drain — a cycle
@@ -496,7 +586,8 @@ class CollectiveEngine:
 
     def _check_entry(self, e: TensorTableEntry) -> None:
         """Raise for a submission the JAX engine refuses: a complex
-        ``Average``/``Min``/``Max``; a 0-d tensor to a collective along
+        ``Average``/``Min``/``Max``; an ``Adasum`` reducescatter; a 0-d
+        tensor to a collective along
         dim 0; a ``Sum``/``Average`` reducescatter or an alltoall whose dim
         0 does not divide by the set's size."""
         t, ct = e.tensor, e.ctype
@@ -931,6 +1022,185 @@ class CollectiveEngine:
             e.ready.record(torch.cuda.current_stream(dev))
         return e
 
+    # --------------------------------------------------- two-level data plane
+    def _slice_topology(self, ps_id: int):
+        """The slice-level structure of this process set's world
+        (``parallel/topology.py``), derived once and cached, or None.
+
+        Precedence: ``HOROVOD_SLICE_MAP`` → ``HOROVOD_HIERARCHICAL_
+        LOCAL_SIZE`` → the launcher's ranks per host, when uniform (GPU
+        ranks carry no slice index).  Only the global process set is
+        eligible: subgroup process sets keep the flat path, as in the JAX
+        engine.  A malformed slice map logs once and falls back flat."""
+        if ps_id != 0:
+            return None
+        if ps_id in self._slice_topos:
+            return self._slice_topos[ps_id]
+        from ..parallel import topology as slice_topo
+        topo = getattr(self._state, "topology", None)
+        world = self._state.process_set_table.get(ps_id).size()
+        try:
+            st = slice_topo.slice_topology(
+                None, world=world, slice_map=self.slice_map,
+                local_size=self._hier_local_size,
+                local_counts=(topo.local_counts
+                              if topo is not None else None))
+        except ValueError as exc:
+            self.slice_map_fallbacks += 1
+            log.warning(
+                "HOROVOD_SLICE_MAP rejected for process set %d (%s); "
+                "hierarchical allreduce/allgather/broadcast stay FLAT on "
+                "this fleet — fix the slice map to uniform sizes to "
+                "re-enable two-level collectives", ps_id, exc)
+            st = None
+        self._slice_topos[ps_id] = st
+        return st
+
+    def _make_hier_groups(self) -> None:
+        """Make the two-level data plane's groups, where the global set
+        has a slice topology: one local group per slice, then one cross
+        group per local index, on every rank (``dist.new_group`` is a
+        collective: every rank makes every group, those it is not in
+        included).  ``init()`` calls this on its own thread before the
+        cycle thread starts, after the process sets given to ``init()``
+        and before any later ``add_process_set``, so every rank makes its
+        groups in the same order; made then, a per-call
+        ``hierarchical=True`` finds them too.  Slices are contiguous,
+        equal blocks of ranks (host-major)."""
+        st = self._slice_topology(0)
+        if st is None or self._state.size == 1:
+            return
+        import torch.distributed as dist
+        L, C = st.local_size, st.num_slices
+        local = [tuple(range(s * L, (s + 1) * L)) for s in range(C)]
+        cross = [tuple(c * L + i for c in range(C)) for i in range(L)]
+        local_groups = [dist.new_group(list(r)) for r in local]
+        cross_groups = [dist.new_group(list(r)) for r in cross]
+        s, i = divmod(self._state.rank, L)
+        self._hier = _HierGroups(st, local_groups[s], local[s],
+                                 cross_groups[i], cross[i])
+
+    def _groups(self) -> _HierGroups:
+        if self._hier is None:
+            raise RuntimeError("the two-level groups were not made: the "
+                               "global set had no slice topology at init()")
+        return self._hier
+
+    def _legs(self):
+        """``parallel.hierarchical.Legs`` bound to this rank's groups."""
+        import torch.distributed as dist
+        from ..parallel.hierarchical import Legs
+        h = self._groups()
+        ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+               "max": dist.ReduceOp.MAX}
+        lg, cg = h.local, h.cross
+
+        def reduce_scatter(out, inp, op):
+            dist.reduce_scatter_tensor(_wire_view(out), _wire_view(inp),
+                                       op=ops[op], group=lg)
+
+        def all_reduce(t, op):
+            dist.all_reduce(_wire_view(t), op=ops[op], group=cg)
+
+        def gather(group):
+            def run(out, inp):
+                dist.all_gather_into_tensor(out.view(torch.uint8),
+                                            inp.view(torch.uint8),
+                                            group=group)
+            return run
+
+        def broadcast(group, ranks):
+            def run(t, src):
+                dist.broadcast(t.view(torch.uint8), src=ranks[src],
+                               group=group)
+            return run
+
+        st = h.topo
+        cross_index, local_index = divmod(self._state.rank, st.local_size)
+        return Legs(st.local_size, st.num_slices, local_index, cross_index,
+                    reduce_scatter, all_reduce, gather(lg), gather(cg),
+                    broadcast(lg, h.local_ranks),
+                    broadcast(cg, h.cross_ranks))
+
+    def _hier_decision(self, e0: TensorTableEntry, nbytes: int) -> bool:
+        """Per-batch flat-vs-two-level verdict for allreduce — a pure
+        function of the negotiated batch (op, bytes), the knobs and the
+        static slice topology, so every rank decides alike with no
+        control-plane traffic.  ``nbytes`` counts per-rank payload bytes.
+        Adasum needs power-of-two extents at both levels."""
+        if e0.hierarchical is False:
+            return False
+        if e0.hierarchical is None and not self.hierarchical_allreduce:
+            return False
+        if e0.ctype != CollectiveType.ALLREDUCE:
+            return False
+        if e0.reduce_op not in (C.ReduceOp.SUM, C.ReduceOp.AVERAGE,
+                                C.ReduceOp.MIN, C.ReduceOp.MAX,
+                                C.ReduceOp.ADASUM):
+            return False
+        if e0.hierarchical is None and nbytes < self.hier_threshold_bytes:
+            return False
+        st = self._slice_topology(e0.process_set_id)
+        if st is None:
+            return False
+        if e0.reduce_op == C.ReduceOp.ADASUM:
+            from ..parallel.topology import hier_bit_orders
+            if hier_bit_orders(st.local_size, st.num_slices) is None:
+                return False
+        return True
+
+    def _hier_ag_decision(self, e0: TensorTableEntry) -> bool:
+        """Allgather's verdict: the override, the knob and the topology; no
+        payload crossover (a two-level gather moves the flat gather's
+        bytes, only fewer of them over the cross links)."""
+        if e0.ctype != CollectiveType.ALLGATHER:
+            return False
+        if e0.hierarchical is False:
+            return False
+        if e0.hierarchical is None and not self.hierarchical_allgather:
+            return False
+        return self._slice_topology(e0.process_set_id) is not None
+
+    def _hier_bcast_decision(self, e0: TensorTableEntry) -> bool:
+        """Broadcast's verdict, purely topological like allgather's."""
+        if e0.ctype != CollectiveType.BROADCAST:
+            return False
+        if e0.hierarchical is False:
+            return False
+        if e0.hierarchical is None and not self.hierarchical_broadcast:
+            return False
+        return self._slice_topology(e0.process_set_id) is not None
+
+    @staticmethod
+    def _batch_payload_bytes(batch) -> int:
+        """Per-rank payload bytes of a fused batch."""
+        return sum(e.tensor.numel() * e.tensor.element_size()
+                   for e in batch if e.tensor is not None)
+
+    def _hier_verdict(self, batch: List[TensorTableEntry]) -> bool:
+        """The batch's two-level verdict, counting its legs when it is
+        taken."""
+        e0 = batch[0]
+        if e0.ctype == CollectiveType.ALLGATHER:
+            hier = self._hier_ag_decision(e0)
+            if hier:
+                self.hier_ag_dispatches += 1
+                self.hier_ag_intra_legs += 1
+                self.hier_ag_cross_legs += 1
+        elif e0.ctype == CollectiveType.BROADCAST:
+            hier = self._hier_bcast_decision(e0)
+            if hier:
+                self.hier_bcast_dispatches += 1
+                self.hier_bcast_cross_legs += 1
+                self.hier_bcast_intra_legs += 1
+        else:
+            hier = self._hier_decision(e0, self._batch_payload_bytes(batch))
+            if hier:
+                self.hier_dispatches += 1
+                self.hier_intra_legs += 2
+                self.hier_cross_legs += 1
+        return hier
+
     def _stream(self, dev: torch.device):
         s = self._streams.get(dev)
         if s is None:
@@ -976,19 +1246,24 @@ class CollectiveEngine:
                CollectiveType.ALLGATHER: self._run_allgather,
                CollectiveType.REDUCESCATTER: self._run_reducescatter,
                CollectiveType.ALLTOALL: self._run_alltoall}[batch[0].ctype]
+        hier = ps.size() > 1 and self._hier_verdict(batch)
         for members in groups.values():
-            run(members, ps)
+            run(members, ps, hier)
             self.fused_groups += 1
         return [e.output for e in batch]
 
-    def _run_allreduce(self, members: List[TensorTableEntry], ps) -> None:
+    def _run_allreduce(self, members: List[TensorTableEntry], ps,
+                       hier: bool = False) -> None:
         """``_build_fused_reduce``/``_build_allreduce``: prescale in the
         source dtype, then the cast to the buffer's dtype (the wire dtype,
         or ``reduce_dtypes``'s widening); Average divides (floor division
         for integers, after narrowing); the cast back, then the
-        postscale."""
+        postscale.  Two-level (``hier``): the same buffer through
+        ``parallel/hierarchical.py``'s legs."""
         e0, world = members[0], ps.size()
         dt, op = e0.tensor.dtype, e0.reduce_op
+        if op == C.ReduceOp.ADASUM:
+            return self._run_adasum(members, ps, hier)
         ins = [e.tensor for e in members]
         outs = [e.output for e in members]
         buf_dt = reduce_dtypes(CollectiveType.ALLREDUCE, dt, op)[0]
@@ -1001,6 +1276,13 @@ class CollectiveEngine:
         if world > 1:
             if dt.is_complex and op == C.ReduceOp.PRODUCT:
                 buf = self._complex_gathered(buf, op, ps)
+            elif hier:
+                from ..parallel import hierarchical as H
+                legs = self._legs()
+                buf = (H.hierarchical_allreduce_minmax(
+                    buf, op.name.lower(), legs)
+                    if op in (C.ReduceOp.MIN, C.ReduceOp.MAX)
+                    else H.hierarchical_allreduce(buf, legs))
             else:
                 self._all_reduce(buf, op, ps)
         if outs[0].dtype == torch.uint32:
@@ -1008,26 +1290,97 @@ class CollectiveEngine:
         divisor = world if op == C.ReduceOp.AVERAGE else 1
         fusion.unpack(buf, outs, divisor, e0.postscale_factor)
 
-    def _run_broadcast(self, members: List[TensorTableEntry], ps) -> None:
-        """By bytes: a byte copy is bitwise root's tensor for every
-        dtype."""
+    def _run_adasum(self, members: List[TensorTableEntry], ps,
+                    hier: bool) -> None:
+        """``_build_allreduce``'s ``ADASUM`` (JAX :2045-2066) on the packed
+        dtype-group buffer: prescale, the wire cast, Adasum in float32
+        over the whole buffer and the cast back to the buffer's dtype,
+        then the unpack's cast to the source and postscale (no divisor)."""
+        e0, world = members[0], ps.size()
+        buf = fusion.pack([e.tensor for e in members],
+                          fusion.buffer_dtype(e0.tensor.dtype,
+                                              WIRE_DTYPES.get(e0.compression)),
+                          e0.prescale_factor)
+        if world > 1 and buf.numel():
+            buf.copy_(self._adasum(buf, ps, hier))
+        fusion.unpack(buf, [e.output for e in members], 1,
+                      e0.postscale_factor)
+
+    def _adasum(self, buf: torch.Tensor, ps, hier: bool) -> torch.Tensor:
+        """The two-level VHD when ``hier``; the VHD over the set's group
+        at a power-of-two size; else every rank's buffer gathered and the
+        tree."""
+        from ..parallel import adasum as A
+        world = ps.size()
+        if hier:
+            h = self._groups()
+            L, C = h.topo.local_size, h.topo.num_slices
+            s, i = divmod(self._state.rank, L)
+            return A.adasum_allreduce_hier(
+                buf, (self._swapper(h.local, h.local_ranks), i, L),
+                (self._swapper(h.cross, h.cross_ranks), s, C))
+        if world & (world - 1) == 0:
+            return A.adasum_allreduce_hd(
+                buf, self._swapper(ps.group, ps.ranks),
+                ps.rank_in_set(self._state.rank), world)
+        return A.adasum_allreduce(buf, lambda x: self._gathered(x, ps))
+
+    @staticmethod
+    def _swapper(group, ranks: Sequence[int]):
+        """``parallel.adasum``'s swap on ``group``: ``send`` to the rank at
+        position ``peer`` of ``ranks``, its tensor into ``out``, as one
+        ``batch_isend_irecv`` (the send and the receive cannot block each
+        other)."""
+        import torch.distributed as dist
+
+        def swap(send, out, peer):
+            r = ranks[peer]
+            for req in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, send, r, group=group),
+                     dist.P2POp(dist.irecv, out, r, group=group)]):
+                req.wait()
+        return swap
+
+    @staticmethod
+    def _gathered(x: torch.Tensor, ps) -> List[torch.Tensor]:
+        """Every rank's ``x`` in rank order, by bytes."""
+        import torch.distributed as dist
+        g = torch.empty(ps.size() * x.numel(), dtype=x.dtype,
+                        device=x.device)
+        dist.all_gather_into_tensor(g.view(torch.uint8),
+                                    x.view(torch.uint8), group=ps.group)
+        return list(g.view(ps.size(), -1).unbind(0))
+
+    def _run_broadcast(self, members: List[TensorTableEntry], ps,
+                       hier: bool = False) -> None:
+        """By bytes: a byte copy is bitwise root's tensor for every dtype;
+        two-level (``hier``) as the root's cross leg, then the local
+        fan-out."""
         e0 = members[0]
         buf = fusion.pack([e.tensor for e in members], e0.tensor.dtype)
-        if ps.size() > 1:
+        if hier:
+            from ..parallel.hierarchical import hierarchical_broadcast
+            hierarchical_broadcast(buf, e0.root_rank, self._legs())
+        elif ps.size() > 1:
             import torch.distributed as dist
             dist.broadcast(buf.view(torch.uint8), src=ps.ranks[e0.root_rank],
                            group=ps.group)
         fusion.unpack(buf, [e.output for e in members])
 
-    def _run_allgather(self, members: List[TensorTableEntry], ps) -> None:
+    def _run_allgather(self, members: List[TensorTableEntry], ps,
+                       hier: bool = False) -> None:
         """``_build_allgather`` (tiled on dim 0), by bytes: every rank's
         buffer lands rank-major in one gathered buffer, unpacked through
-        world × N destination views."""
+        world × N destination views; two-level (``hier``) as a local then
+        a cross gather, which lands the same bytes in the same order."""
         world = ps.size()
         ins = [e.tensor for e in members]
         buf = fusion.pack(ins, ins[0].dtype)
         out = buf
-        if world > 1:
+        if hier:
+            from ..parallel.hierarchical import hierarchical_allgather
+            out = hierarchical_allgather(buf, self._legs())
+        elif world > 1:
             import torch.distributed as dist
             out = torch.empty(world * buf.numel(), dtype=buf.dtype,
                               device=buf.device)
@@ -1038,7 +1391,7 @@ class CollectiveEngine:
                                   [t.numel() for t in ins], world))
 
     def _run_reducescatter(self, members: List[TensorTableEntry],
-                           ps) -> None:
+                           ps, hier: bool = False) -> None:
         """``_build_reducescatter``: world × N source views packed
         rank-major, one reduce-scatter (NCCL's own Min/Max/Product where
         the JAX program gathers, reduces and slices), and Average's
@@ -1079,7 +1432,8 @@ class CollectiveEngine:
                   and out_dt == torch.float32 else None)
         fusion.unpack(red, outs, divisor, narrow=narrow)
 
-    def _run_alltoall(self, members: List[TensorTableEntry], ps) -> None:
+    def _run_alltoall(self, members: List[TensorTableEntry], ps,
+                      hier: bool = False) -> None:
         """``_build_alltoall`` (split and concatenated on dim 0), by
         bytes: chunk q of every tensor packed together for rank q, one
         all-to-all, and rank r's chunks unpacked to rows

@@ -15,9 +15,11 @@ process no hook is registered and ``synchronize()`` returns at once.
 The allreduces go through ``mpi_ops`` and the collective engine: each
 gradient is submitted under its parameter's name (``allreduce.<name>``)
 with its reverse-registration priority, negotiated across ranks by name,
-and fused with the others of its cycle.  ``Adasum`` raises in ``mpi_ops``
-until ``parallel/adasum.py`` is ported, and ``check=`` raises until the
-analyzer is.
+and fused with the others of its cycle.  ``op=Adasum`` combines the
+ranks' gradients by adaptive summation (``parallel/adasum.py``, over each
+fused dtype buffer, as the JAX engine does): a raw Adasum with no divisor,
+and ``gradient_predivide_factor`` is refused with it.  ``check=`` raises
+until the analyzer is ported.
 """
 
 from __future__ import annotations

@@ -1,8 +1,17 @@
-"""Parallel schemes beyond data parallelism: the process mesh and sequence
-parallelism (ring and Ulysses attention).  Port of
-``horovod_tpu/parallel/__init__.py:6-14``; ``spmd``, ``pipeline``,
-``adasum``, ``hierarchical``, ``topology`` and ``zero`` are still to port
-(``ROADMAP.md`` queue 1)."""
+"""Parallel schemes beyond data parallelism: the process mesh, sequence
+parallelism (ring and Ulysses attention), Adasum, the two-level
+collectives and the slice topology they run on.  Port of
+``horovod_tpu/parallel/__init__.py:6-14``; ``spmd``, ``pipeline`` and
+``zero`` are still to port (``ROADMAP.md`` queue 1)."""
+
+from .adasum import (  # noqa: F401
+    adasum_allreduce, adasum_allreduce_hd, adasum_allreduce_hier,
+    adasum_combine, vhd,
+)
+from .hierarchical import (  # noqa: F401
+    Legs, hierarchical_allgather, hierarchical_allreduce,
+    hierarchical_allreduce_minmax, hierarchical_broadcast,
+)
 
 from .mesh import (  # noqa: F401
     DP, EP, PP, SP, TP, ProcessMesh, all_to_all, axes_of, infer_mesh,
@@ -10,6 +19,10 @@ from .mesh import (  # noqa: F401
 )
 from .ring_attention import (  # noqa: F401
     local_flash_attention, ring_attention,
+)
+from .topology import (  # noqa: F401
+    SliceTopology, cross_fraction, hier_bit_orders, modeled_leg_bytes,
+    parse_slice_map, slice_topology,
 )
 from .ulysses import (  # noqa: F401
     heads_to_seq, seq_to_heads, ulysses_attention,

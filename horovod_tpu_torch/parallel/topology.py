@@ -1,0 +1,242 @@
+# Copied from horovod_tpu/parallel/topology.py:34-252 (SliceTopology,
+# parse_slice_map, _normalize, slice_topology, _cross_ring_order,
+# hier_bit_orders, modeled_leg_bytes, cross_fraction); only this docstring
+# is new.
+"""Slice-level topology for two-level collectives.
+
+The fused data plane groups ranks by **slice**: the unit whose interior
+links are fast (NVLink within a host on GPUs) and whose exterior links are
+slow (InfiniBand or Ethernet between hosts).  This module derives that
+structure once and hands the engine what it needs to lay a (cross, local)
+grid over the rank list: which contiguous block of ranks shares a slice,
+the leader of each slice, and the order of the cross ring.
+
+GPU ranks carry no ``slice_index`` or ``coords`` attributes, so the port
+calls :func:`slice_topology` with ``devices=None`` and a ``world``: the
+slices come from ``HOROVOD_SLICE_MAP``, ``HOROVOD_HIERARCHICAL_LOCAL_SIZE``
+or the launcher's ranks per host (``local_counts``), in that order, and the
+cross ring is in slice-id order.  Ranks are host-major (the launcher
+numbers a host's ranks consecutively), so a slice is always a contiguous,
+equal block of ranks.
+
+Pure Python: it imports neither torch nor numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SliceTopology:
+    """Two-level structure of an ordered rank world.
+
+    ``slice_of[r]`` is the 0-based slice of rank ``r``; blocks are
+    contiguous and uniform (``local_size`` ranks each).  ``leaders`` holds
+    the first rank of every slice, indexed by slice id.  ``cross_order``
+    lists slice ids in DCN ring order — leader torus coordinates
+    lexicographically when known, slice-id order otherwise."""
+
+    world: int
+    num_slices: int
+    local_size: int
+    slice_of: Tuple[int, ...]
+    leaders: Tuple[int, ...]
+    cross_order: Tuple[int, ...]
+    coords: Optional[Tuple[Optional[Tuple[int, ...]], ...]] = None
+
+    def ranks_of_slice(self, s: int) -> List[int]:
+        return [r for r in range(self.world) if self.slice_of[r] == s]
+
+    def leader_set_ranks(self) -> List[int]:
+        """Ranks of the per-slice leader process set, in cross ring order.
+
+        Callers register it with ``hvd.add_process_set`` themselves (this
+        module stays jax-free); the engine's cross mesh axis follows the
+        same rank blocks, so leader-set collectives and the fused
+        cross-slice leg see the same DCN ring."""
+        return [self.leaders[s] for s in self.cross_order]
+
+
+def parse_slice_map(text: str, world: int) -> Optional[Tuple[int, ...]]:
+    """Parse ``HOROVOD_SLICE_MAP`` into a rank→slice tuple.
+
+    Two spellings, both rank-order (the only order the engine's
+    slice-major reshape supports):
+
+    - ``"4"`` — uniform slice size: every consecutive block of 4 ranks is
+      one slice.
+    - ``"4,4"`` — explicit per-slice sizes (must sum to ``world``; sizes
+      must be uniform, since the (cross, local) mesh is rectangular).
+
+    Empty/None disables the override.  Malformed values raise
+    ``ValueError`` — a mis-typed slice map silently falling back to flat
+    would be invisible until the first multi-slice profile."""
+    if not text:
+        return None
+    parts = [p.strip() for p in str(text).split(",") if p.strip()]
+    try:
+        sizes = [int(p) for p in parts]
+    except ValueError:
+        raise ValueError(f"HOROVOD_SLICE_MAP: non-integer entry in {text!r}")
+    if len(sizes) == 1:
+        local = sizes[0]
+        if local <= 0 or world % local:
+            raise ValueError(
+                f"HOROVOD_SLICE_MAP={text!r}: slice size {local} does not "
+                f"divide world {world}")
+        sizes = [local] * (world // local)
+    if sum(sizes) != world:
+        raise ValueError(
+            f"HOROVOD_SLICE_MAP={text!r}: sizes sum to {sum(sizes)}, "
+            f"world is {world}")
+    if any(s != sizes[0] for s in sizes):
+        raise ValueError(
+            f"HOROVOD_SLICE_MAP={text!r}: slice sizes must be uniform "
+            f"(the hierarchical mesh is rectangular), got {sizes}")
+    out: List[int] = []
+    for s, n in enumerate(sizes):
+        out.extend([s] * n)
+    return tuple(out)
+
+
+def _normalize(raw_ids: Sequence) -> Optional[Tuple[int, ...]]:
+    """Map arbitrary slice labels to 0-based ids by first appearance,
+    validating the contiguous-equal-blocks invariant."""
+    ids: Dict = {}
+    out: List[int] = []
+    for v in raw_ids:
+        if v not in ids:
+            ids[v] = len(ids)
+        out.append(ids[v])
+    num = len(ids)
+    if num <= 1:
+        return None
+    world = len(out)
+    if world % num:
+        return None
+    local = world // num
+    for r, s in enumerate(out):
+        if s != r // local:
+            return None            # non-contiguous or non-uniform blocks
+    return tuple(out)
+
+
+def slice_topology(devices: Optional[Sequence] = None, *,
+                   world: Optional[int] = None,
+                   slice_map: Optional[str] = None,
+                   local_size: int = 0,
+                   local_counts: Optional[Sequence[int]] = None,
+                   ) -> Optional[SliceTopology]:
+    """Derive the two-level structure, or None when the world is flat.
+
+    Precedence (first that yields ≥2 slices of ≥2 ranks wins):
+
+    1. ``slice_map`` — the explicit ``HOROVOD_SLICE_MAP`` override
+       (CPU/simulated worlds; malformed values raise).
+    2. ``slice_index`` device attributes — real multi-slice TPU worlds.
+    3. ``local_size`` — the ``HOROVOD_HIERARCHICAL_LOCAL_SIZE`` knob.
+    4. ``local_counts`` — one slice per process when every process holds
+       the same device count (the PR-3 era host-based derivation).
+
+    ``devices`` are duck-typed (only ``slice_index``/``coords`` are read,
+    both optional) so tests can pass plain namespaces and the module
+    never needs a backend."""
+    if world is None:
+        world = len(devices) if devices is not None else 0
+    if world <= 3:                # 2 slices of 2 is the smallest two-level
+        return None
+    slice_of: Optional[Tuple[int, ...]] = None
+    if slice_map:
+        slice_of = parse_slice_map(slice_map, world)
+    if slice_of is None and devices is not None:
+        ids = [getattr(d, "slice_index", None) for d in devices]
+        if all(i is not None for i in ids):
+            slice_of = _normalize(ids)
+    if slice_of is None and local_size > 1 \
+            and world % local_size == 0 and world // local_size > 1:
+        slice_of = tuple(r // local_size for r in range(world))
+    if slice_of is None and local_counts:
+        counts = list(local_counts)
+        if len(counts) > 1 and counts[0] > 1 \
+                and all(c == counts[0] for c in counts) \
+                and sum(counts) == world:
+            slice_of = tuple(r // counts[0] for r in range(world))
+    if slice_of is None:
+        return None
+    num = slice_of[-1] + 1
+    local = world // num
+    if local <= 1 or num <= 1:
+        return None
+    leaders = tuple(s * local for s in range(num))
+    coords: Optional[Tuple] = None
+    if devices is not None:
+        cs = tuple(tuple(c) if c is not None else None
+                   for c in (getattr(d, "coords", None) for d in devices))
+        if any(c is not None for c in cs):
+            coords = cs
+    cross_order = _cross_ring_order(leaders, coords)
+    return SliceTopology(world=world, num_slices=num, local_size=local,
+                         slice_of=slice_of, leaders=leaders,
+                         cross_order=cross_order, coords=coords)
+
+
+def _cross_ring_order(leaders: Tuple[int, ...],
+                      coords: Optional[Tuple]) -> Tuple[int, ...]:
+    """DCN ring order over slices: leaders sorted by torus coordinates
+    (lexicographic — neighbors in the outermost DCN dimension end up
+    adjacent in the ring), slice-id order when coords are unknown."""
+    n = len(leaders)
+    if coords is None:
+        return tuple(range(n))
+    def key(s: int):
+        c = coords[leaders[s]] if leaders[s] < len(coords) else None
+        return (0, c, s) if c is not None else (1, (), s)
+    return tuple(sorted(range(n), key=key))
+
+
+def hier_bit_orders(local_size: int, num_slices: int
+                    ) -> Optional[Tuple[List[int], List[int]]]:
+    """Per-level VHD round schedules ``(local_bits, cross_bits)``.
+
+    Adasum's vector-halving-doubling needs power-of-two extents at each
+    level; rounds walk bits low-to-high so the innermost (fastest ICI)
+    dimension exchanges first — the fully-halved 1/local shard is what
+    crosses DCN.  None when either extent is not a power of two (the
+    engine's crossover decision then keeps the flat path)."""
+    if local_size < 2 or num_slices < 2:
+        return None
+    if local_size & (local_size - 1) or num_slices & (num_slices - 1):
+        return None
+    return (list(range(local_size.bit_length() - 1)),
+            list(range(num_slices.bit_length() - 1)))
+
+
+def modeled_leg_bytes(nbytes: int, world: int, local_size: int
+                      ) -> Dict[str, float]:
+    """Ring-modeled per-rank wire bytes for a payload of ``nbytes``.
+
+    ``flat``: one world ring allreduce — ``2·n·(W−1)/W``.
+    ``intra``: the two ICI legs (reduce-scatter + allgather over the
+    slice) — ``2·n·(L−1)/L``.  ``cross``: the DCN leg, an allreduce of
+    the 1/L shard over the leader ring — ``2·(n/L)·(C−1)/C``, i.e. the
+    slow links carry ≤ 1/local_size of the flat ring's bytes — the
+    whole point of the two-level schedule."""
+    world = max(1, int(world))
+    local = max(1, int(local_size))
+    cross = max(1, world // local)
+    return {
+        "flat": 2.0 * nbytes * (world - 1) / world,
+        "intra": 2.0 * nbytes * (local - 1) / local,
+        "cross": 2.0 * (nbytes / local) * (cross - 1) / cross,
+    }
+
+
+def cross_fraction(nbytes: int, world: int, local_size: int) -> float:
+    """Modeled share of a hierarchical reduce's wire time on the cross
+    (DCN) leg — the trace layer splits the ``reduce`` phase with this
+    (hosts cannot stamp inside one XLA launch)."""
+    legs = modeled_leg_bytes(max(1, nbytes), world, local_size)
+    total = legs["intra"] + legs["cross"]
+    return legs["cross"] / total if total > 0 else 0.0

@@ -1,8 +1,9 @@
 # Ported from horovod_tpu/runner/run.py:1-650: HostSpec, parse_hosts,
 # parse_hostfile, the argument surface, _apply_config_file, placement,
-# tuning_env, wait_and_reap, worker_envs, ssh_command, launch_workers and
-# main.  platform_worker_env (:359-388, JAX and XLA variables) is replaced
-# by the card's counterpart; the flags of what the port lacks are refused.
+# tuning_env (with the --hierarchical-* switches of :175-182, 438-443),
+# wait_and_reap, worker_envs, ssh_command, launch_workers and main.
+# platform_worker_env (:359-388, JAX and XLA variables) is replaced by the
+# card's counterpart; the flags of what the port lacks are refused.
 """The launcher's argument surface and launch orchestration.
 
 Parity with the reference launcher (``horovod/runner/launch.py``, ``run.py``,
@@ -14,7 +15,13 @@ Rank 0's host serves the ``torch.distributed`` rendezvous at
 ``HOROVOD_CONTROLLER_PORT`` and the negotiation coordinator at
 ``HOROVOD_CONTROLLER_PORT2`` (``common/basics.py`` ``init``), and each
 worker computes on ``cuda:{HOROVOD_LOCAL_RANK}``; the launcher sets no
-``CUDA_VISIBLE_DEVICES``.
+``CUDA_VISIBLE_DEVICES``.  Every worker also gets ``HOROVOD_LOCAL_COUNTS``,
+the ranks of each host entry in host order (the same list on every rank:
+``common/topology.py`` derives the two-level slices from it), and
+``--hierarchical-allreduce``/``-allgather``/``-broadcast`` reach it as
+``HOROVOD_HIERARCHICAL_*=1``.  Every entry that names this machine
+(``common/net.is_local_host``: ``localhost``, ``127.0.0.2``, its name or
+addresses) is spawned here; the others by ssh.
 
 Every worker loads its CUDA kernels eagerly (``platform_worker_env``).
 Where two ``-H`` entries are the same machine (``localhost:1,127.0.0.1:1``
@@ -34,7 +41,6 @@ import argparse
 import dataclasses
 import os
 import shlex
-import socket
 import subprocess
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -117,12 +123,6 @@ NOT_PORTED: Dict[str, str] = {
     "--trace-ring": f"the tracer, {_OBSERVE}",
     "--timeline-filename": f"the timeline, {_OBSERVE}",
     "--timeline-mark-cycles": f"the timeline, {_OBSERVE}",
-    "--hierarchical-allreduce": "ROADMAP queue 1 item 4, hierarchical "
-                                "collectives",
-    "--hierarchical-allgather": "ROADMAP queue 1 item 4, hierarchical "
-                                "collectives",
-    "--hierarchical-broadcast": "ROADMAP queue 1 item 4, hierarchical "
-                                "collectives",
     "--sharded": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
     "--sharded-params": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
     "--prefetch-depth": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
@@ -132,10 +132,8 @@ NOT_PORTED: Dict[str, str] = {
 # Those of them that take no value.
 _SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery",
              "--autoscale", "--hierarchical-controller", "--autotune",
-             "--monitor", "--timeline-mark-cycles",
-             "--hierarchical-allreduce", "--hierarchical-allgather",
-             "--hierarchical-broadcast", "--sharded", "--sharded-params",
-             "--serve"}
+             "--monitor", "--timeline-mark-cycles", "--sharded",
+             "--sharded-params", "--serve"}
 
 # Tuning flags forwarded to every worker as HOROVOD_* env: flag, variable,
 # scale.  Each is read by the port's Config.from_env.
@@ -149,6 +147,11 @@ _TUNING = (("fusion_threshold_mb", "HOROVOD_FUSION_THRESHOLD", 1024 * 1024),
            ("round_timeout", "HOROVOD_ROUND_TIMEOUT_S", 1),
            ("connect_retries", "HOROVOD_CONNECT_RETRIES", 1),
            ("connect_backoff_ms", "HOROVOD_CONNECT_BACKOFF_MS", 1))
+
+
+# Two-level data-plane switches, forwarded as HOROVOD_<FLAG>=1.
+_HIER_FLAGS = ("hierarchical_allreduce", "hierarchical_allgather",
+               "hierarchical_broadcast")
 
 
 def _dest(flag: str) -> str:
@@ -209,6 +212,23 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
     p.add_argument("--connect-backoff-ms", type=float, default=None,
                    help="Base backoff between connect retries "
                         "(exponential, jittered)")
+    p.add_argument("--hierarchical-allreduce", action="store_true",
+                   help="Two-level allreduce on the slice topology: "
+                        "reduce-scatter inside each slice, allreduce "
+                        "across slices, allgather inside; Adasum's "
+                        "halving-doubling with its local rounds first "
+                        "(HOROVOD_HIERARCHICAL_ALLREDUCE; slices from "
+                        "HOROVOD_SLICE_MAP, HOROVOD_HIERARCHICAL_LOCAL_"
+                        "SIZE or uniform hosts)")
+    p.add_argument("--hierarchical-allgather", action="store_true",
+                   help="Two-level allgather on the slice topology "
+                        "(inside each slice, then across), bitwise the "
+                        "flat one (HOROVOD_HIERARCHICAL_ALLGATHER)")
+    p.add_argument("--hierarchical-broadcast", action="store_true",
+                   help="Two-level broadcast on the slice topology (the "
+                        "root to each slice, then the fan-out inside), "
+                        "bitwise the flat one "
+                        "(HOROVOD_HIERARCHICAL_BROADCAST)")
     for flag, why in NOT_PORTED.items():
         if flag in _SWITCHES:
             p.add_argument(flag, action="store_true", help=f"refused: {why}")
@@ -323,6 +343,9 @@ def tuning_env(args) -> Dict[str, str]:
         val = getattr(args, flag, None)
         if val is not None:
             env[var] = str(int(val * scale) if scale != 1 else val)
+    for flag in _HIER_FLAGS:
+        if getattr(args, flag, False):
+            env[f"HOROVOD_{flag.upper()}"] = "1"
     return env
 
 
@@ -375,6 +398,14 @@ def worker_envs(args, hosts: List[HostSpec],
     np_total = args.np
     envs = []
     rank = 0
+    # Ranks on each host entry, host-major: the same list for every rank,
+    # from which each derives the slices (common/topology.py).
+    counts, left = [], np_total
+    for h in hosts:
+        if left <= 0:
+            break
+        counts.append(min(h.slots, left))
+        left -= counts[-1]
     for cross_rank, h in enumerate(hosts):
         for local_rank in range(h.slots):
             if rank >= np_total:
@@ -387,6 +418,7 @@ def worker_envs(args, hosts: List[HostSpec],
                 "HOROVOD_LOCAL_SIZE": str(min(h.slots, np_total - rank + local_rank)),
                 "HOROVOD_CROSS_RANK": str(cross_rank),
                 "HOROVOD_CROSS_SIZE": str(len(hosts)),
+                "HOROVOD_LOCAL_COUNTS": ",".join(map(str, counts)),
                 "HOROVOD_CONTROLLER_ADDR": coordinator[0],
                 "HOROVOD_CONTROLLER_PORT": str(coordinator[1]),
                 "HOROVOD_CONTROLLER_PORT2": str(coordinator[2]),
@@ -423,6 +455,7 @@ def launch_workers(args, hosts: List[HostSpec],
     ``addrs`` (from the bootstrap probe phase) overrides the coordinator
     address with host 0's resolved control-plane address — this is what
     makes ``--network-interface`` actually select the control plane."""
+    from ..common.net import is_local_host
     ports = _free_ports(2)
     if addrs:
         coord_host = addrs[hosts[0].hostname]
@@ -441,7 +474,7 @@ def launch_workers(args, hosts: List[HostSpec],
             os.makedirs(d, exist_ok=True)
             stdout = open(os.path.join(d, "stdout"), "w")
             stderr = open(os.path.join(d, "stderr"), "w")
-        if host in ("localhost", "127.0.0.1", socket.gethostname()):
+        if is_local_host(host):
             proc = subprocess.Popen(args.command, env=full_env,
                                     stdout=stdout, stderr=stderr)
         else:

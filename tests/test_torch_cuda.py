@@ -882,3 +882,122 @@ def test_torch_model_forward_on_card_matches_cpu(cuda_device, family):
         torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches - before == layers
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------------ Adasum
+# Lengths: empty, under one 16-byte vector, a vector and a tail, many
+# blocks; an odd base offset takes the scalar path.
+ADASUM_LENGTHS = [0, 1, 3, 4, 17, 1000, 4097, 1 << 20]
+
+
+def _adasum_pair(n, dev, seed, offset=0):
+    g = torch.from_numpy(np.random.RandomState(seed).randn(
+        2 * (n + offset)).astype(np.float32)).to(dev)
+    return g[offset:offset + n], g[n + 2 * offset:2 * n + 2 * offset]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", ADASUM_LENGTHS)
+def test_torch_adasum_dots_match_plain_on_card(cuda_device, n, offset):
+    """``hvd_adasum_dots`` against a float64 sum: k·r within 1e-5 of
+    |k|·|r|, k·k and r·r within 1e-5 relative (float32 sums in another
+    order); bitwise on a second call; one launch a call."""
+    from horovod_tpu_torch.ops import adasum as ak
+    k, r = _adasum_pair(n, cuda_device, n, offset)
+    before = ak.dots.launches
+    d1, d2 = ak.dots(k, r), ak.dots(k, r)
+    torch.cuda.synchronize()
+    assert ak.dots.launches == before + 2
+    assert torch.equal(d1, d2)
+    kd, rd = k.double().cpu(), r.double().cpu()
+    ref = [float(kd @ rd), float(kd @ kd), float(rd @ rd)]
+    got = d1.double().cpu().tolist()
+    assert abs(got[0] - ref[0]) <= 1e-5 * np.sqrt(ref[1] * ref[2]) + 1e-30
+    for g, w in zip(got[1:], ref[1:]):
+        assert abs(g - w) <= 1e-5 * w + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("is_low", [True, False])
+@pytest.mark.parametrize("n", ADASUM_LENGTHS)
+def test_torch_adasum_combine_matches_plain_on_card(cuda_device, n, is_low,
+                                                    offset):
+    """``hvd_adasum_combine`` bitwise its plain version given the same
+    triple, on the card and on the CPU (each product and the sum rounded
+    once, the coefficients by one IEEE division each), in place too."""
+    from horovod_tpu_torch.ops import adasum as ak
+    k, r = _adasum_pair(n, cuda_device, 100 + n, offset)
+    tri = ak.dots(k, r)
+    before = ak.combine.launches
+    got = ak.combine(k, r, tri, is_low)
+    plain = ak.combine_plain(k, r, tri, is_low, torch.empty_like(k))
+    cpu = ak.combine(k.cpu(), r.cpu(), tri.cpu(), is_low)
+    inplace = k.clone()
+    ak.combine(inplace, r, tri, is_low, out=inplace)
+    torch.cuda.synchronize()
+    assert ak.combine.launches == before + (2 if n else 0)
+    assert torch.equal(got, plain) and torch.equal(got, inplace)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_torch_adasum_vhd_on_card_matches_cpu(cuda_device, n):
+    """The VHD core of n simulated ranks (threads in lock step) on the
+    card: every rank the same bits, within 1e-5 of the CPU run (the dots
+    sum in another order), bitwise the two-level schedule where n has two
+    levels, and two kernel launches of each a round."""
+    from horovod_tpu_torch.ops import adasum as ak
+    from horovod_tpu_torch.parallel import adasum as pad
+    vals = np.random.RandomState(n).randn(n, 333).astype(np.float32)
+
+    def run(dev, local=None):
+        barrier, box, outs = threading.Barrier(n, timeout=30), {}, [None] * n
+
+        def swapper(rank, ranks):
+            def swap(send, out, peer):
+                box[(rank, ranks[peer])] = send.clone()
+                barrier.wait()
+                out.copy_(box.pop((ranks[peer], rank)))
+                barrier.wait()
+            return swap
+
+        def body(r):
+            with torch.cuda.device(cuda_device):
+                x = torch.from_numpy(vals[r]).to(dev)
+                if local is None:
+                    outs[r] = pad.adasum_allreduce_hd(
+                        x, swapper(r, list(range(n))), r, n)
+                else:
+                    s, i = divmod(r, local)
+                    c = n // local
+                    outs[r] = pad.adasum_allreduce_hier(
+                        x, (swapper(r, [s * local + j
+                                        for j in range(local)]), i, local),
+                        (swapper(r, [q * local + i for q in range(c)]), s,
+                         c))
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        return [o.cpu() for o in outs]
+
+    before = (ak.dots.launches, ak.combine.launches)
+    card = run(cuda_device)
+    rounds = n.bit_length() - 1
+    assert (ak.dots.launches - before[0],
+            ak.combine.launches - before[1]) == (n * rounds, n * rounds)
+    cpu = run("cpu")
+    for o in card:
+        assert torch.equal(o, card[0])
+        np.testing.assert_allclose(o.numpy(), cpu[0].numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    if n >= 4:
+        for a, b in zip(card, run(cuda_device, local=2)):
+            assert torch.equal(a, b)

@@ -143,7 +143,9 @@ def test_torch_only_the_engine_calls_collectives():
     different orders on different ranks); basics only forms and destroys
     the world.  The process mesh may exchange too, only by point-to-point
     rotations and all-to-alls, and only on its own groups
-    (``test_torch_mesh_exchanges_run_on_mesh_groups``)."""
+    (``test_torch_mesh_exchanges_run_on_mesh_groups``).  The engine's
+    Adasum swaps pairs by ``batch_isend_irecv``, in ``_swapper`` only
+    (``test_torch_engine_swaps_only_in_its_swapper``)."""
     callers = {}
     for root, _, names in os.walk(PKG):
         for n in names:
@@ -157,7 +159,7 @@ def test_torch_only_the_engine_calls_collectives():
     assert set(callers) == _COLLECTIVE_CALLERS, callers
     assert {n for _, n in callers[_ENGINE]} == {
         "all_reduce", "broadcast", "all_gather_into_tensor",
-        "reduce_scatter_tensor", "all_to_all_single"}
+        "reduce_scatter_tensor", "all_to_all_single", "batch_isend_irecv"}
     assert {n for _, n in callers[_MESH]} <= _MESH_CALLS, callers[_MESH]
 
 
@@ -204,6 +206,29 @@ def test_torch_mesh_exchanges_run_on_mesh_groups():
     for line, name, expr, sources in found:
         assert expr == "ax.group", (line, name, expr)
         assert sources == ["mesh.axis(axis)"], (line, name, sources)
+
+
+def test_torch_engine_swaps_only_in_its_swapper():
+    """The engine's point-to-point ops (Adasum's pairwise swaps) are the
+    ``P2POp``s of one ``batch_isend_irecv`` in ``_swapper``, each on the
+    group that its caller binds (the set's, or a two-level local or cross
+    group the engine made), never the world's default."""
+    tree = ast.parse(open(os.path.join(PKG, _ENGINE)).read())
+    found = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call) and ast.unparse(
+                    node.func).split(".")[-1] in ("P2POp",
+                                                  "batch_isend_irecv"):
+                group = [ast.unparse(k.value) for k in node.keywords
+                         if k.arg == "group"]
+                found.append((fn.name, ast.unparse(node.func), group))
+    assert {f for f, _, _ in found} == {"_swapper", "swap"}, found
+    for _, call, group in found:
+        if call.endswith("P2POp"):
+            assert group == ["group"], found
 
 
 def test_torch_collective_scan_sees_every_spelling(tmp_path):

@@ -5,7 +5,10 @@ hostfile, arguments and the config file, placement, ``worker_envs``,
 ``ssh_command``, a local launch end to end, failure propagation and the
 bootstrap services.  Then what only the port has: the card's env (no JAX
 or XLA variable; ``NCCL_HOSTID`` where two ``-H`` entries are one machine)
-and the refusal of every flag whose feature it lacks.
+and the refusal of every flag whose feature it lacks; the
+``--hierarchical-*`` switches forwarded on both launchers, the ranks per
+host that every worker gets, and four ``-H`` entries of this machine
+spawned here, not by ssh.
 
 No counterpart: ``test_platform_worker_env_cpu_hygiene`` (JAX's CPU
 collectives and XLA device-count flag; the card's env replaces it),
@@ -367,3 +370,92 @@ def test_torch_runner_forwards_only_what_the_port_reads(monkeypatch):
             cfg.round_timeout_s, cfg.connect_retries,
             cfg.connect_backoff_ms) == (8 << 20, 2.0, 3, 4, 2, 9.0, 20.0, 5,
                                         100.0)
+
+
+# ------------------------------------------------- the two-level data plane
+_HIER_FLAGS = ("--hierarchical-allreduce", "--hierarchical-allgather",
+               "--hierarchical-broadcast")
+_HIER_VARS = ("HOROVOD_HIERARCHICAL_ALLREDUCE",
+              "HOROVOD_HIERARCHICAL_ALLGATHER",
+              "HOROVOD_HIERARCHICAL_BROADCAST")
+
+
+def test_torch_runner_forwards_hierarchical_flags(run):
+    """The three ``--hierarchical-*`` flags reach every worker as
+    ``HOROVOD_HIERARCHICAL_*=1`` on both launchers, and none without
+    them."""
+    args = run.parse_args(["-np", "4", "-H", "a:2,b:2", *_HIER_FLAGS,
+                           "python", "t.py"])
+    envs = run.worker_envs(args, run.placement(args),
+                           ("1.2.3.4", 5555, 5556))
+    for env in [run.tuning_env(args)] + envs:
+        assert all(env[v] == "1" for v in _HIER_VARS)
+    plain = run.parse_args(["-np", "2", "python", "t.py"])
+    assert not set(_HIER_VARS) & set(run.tuning_env(plain))
+
+
+def test_torch_runner_hierarchical_flags_reach_the_config(monkeypatch):
+    from horovod_tpu_torch.common.config import Config
+    args = port_run.parse_args(["-np", "4", *_HIER_FLAGS, "python", "t.py"])
+    for k, v in port_run.tuning_env(args).items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("HOROVOD_HIERARCHICAL_LOCAL_SIZE", "2")
+    monkeypatch.setenv("HOROVOD_HIER_THRESHOLD", "4096")
+    monkeypatch.setenv("HOROVOD_SLICE_MAP", "2,2")
+    cfg = Config.from_env()
+    assert (cfg.hierarchical_allreduce, cfg.hierarchical_allgather,
+            cfg.hierarchical_broadcast, cfg.hierarchical_local_size,
+            cfg.hier_threshold_bytes, cfg.slice_map) == (
+        True, True, True, 2, 4096, "2,2")
+
+
+def test_torch_runner_still_refuses_the_hierarchical_controller(capsys):
+    """The two-level control plane needs ``common/host_agent.py``, which
+    is not ported: its flag stays refused."""
+    with pytest.raises(SystemExit):
+        port_run.parse_args(["-np", "4", "--hierarchical-controller",
+                             "python", "t.py"])
+    assert "--hierarchical-controller is not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("hosts,np_,counts", [
+    ("a:2,b:1,c:3", 6, "2,1,3"), ("a:2,b:2", 3, "2,1"),
+    ("localhost:4", 4, "4"), ("a:1,b:1,c:1,d:1", 4, "1,1,1,1")])
+def test_torch_runner_gives_every_rank_the_ranks_per_host(hosts, np_,
+                                                          counts):
+    """``HOROVOD_LOCAL_COUNTS`` beside ``HOROVOD_CROSS_SIZE``: the ranks of
+    each host entry in host order, the same list on every rank, from
+    which each derives the slices alike (``common/topology.py``)."""
+    args = port_run.parse_args(["-np", str(np_), "-H", hosts, "python",
+                                "t.py"])
+    envs = port_run.worker_envs(args, port_run.placement(args),
+                                ("1.2.3.4", 5555, 5556))
+    assert [e["HOROVOD_LOCAL_COUNTS"] for e in envs] == [counts] * np_
+
+
+def test_torch_runner_spawns_every_local_entry_locally(tmp_path,
+                                                       monkeypatch):
+    """Four entries that all name this machine (``localhost``,
+    ``127.0.0.1``, ``127.0.0.2``, ``127.0.0.3``: four ranks on one card,
+    each with its own NCCL host id) are spawned here, not over ssh: the
+    launcher asks ``common/net.is_local_host``, as its bootstrap does."""
+    def no_ssh(*a, **k):
+        raise AssertionError(f"ssh for a local entry: {a}")
+    monkeypatch.setattr(port_run, "ssh_command", no_ssh)
+    out = tmp_path / "o"
+    script = tmp_path / "w.py"
+    script.write_text(
+        "import os\n"
+        "print(os.environ['HOROVOD_RANK'], os.environ['HOROVOD_HOSTNAME'],"
+        " os.environ['HOROVOD_LOCAL_COUNTS'], os.environ['NCCL_HOSTID'])\n")
+    hosts = "localhost:1,127.0.0.1:1,127.0.0.2:1,127.0.0.3:1"
+    args = port_run.parse_args(["-np", "4", "-H", hosts,
+                                "--output-filename", str(out),
+                                sys.executable, str(script)])
+    assert port_run.launch_workers(args, port_run.placement(args)) == 0
+    seen = [(out / f"rank.{r}" / "stdout").read_text().split()
+            for r in range(4)]
+    assert [s[:3] for s in seen] == [
+        [str(r), h.split(":")[0], "1,1,1,1"]
+        for r, h in enumerate(hosts.split(","))]
+    assert len({s[3] for s in seen}) == 4

@@ -211,7 +211,8 @@ def test_torch_distributed_optimizer_skip_synchronize(world):
 
 def test_torch_allreduce_single_process(world):
     """A world of one: the tensor comes back with only the scale factors
-    applied, in its own dtype, never aliasing the input; Adasum raises."""
+    applied, in its own dtype, never aliasing the input; Adasum too (the
+    JAX engine's Adasum of one rank is its tensor)."""
     t = torch.arange(6, dtype=torch.float32).reshape(2, 3)
     out = world.allreduce(t, op=world.Sum, prescale_factor=2.0,
                           postscale_factor=3.0)
@@ -233,8 +234,8 @@ def test_torch_allreduce_single_process(world):
     assert world.grouped_allreduce_(ys, postscale_factor=2.0)[1] is ys[1]
     assert torch.equal(ys[0], t * 2)
     assert int(world.Average) == 0 and int(world.Adasum) == 2
-    with pytest.raises(NotImplementedError, match="adasum"):
-        world.allreduce(t, op=world.Adasum)
+    ada = world.allreduce(t, op=world.Adasum, prescale_factor=2.0)
+    assert torch.equal(ada, t * 2) and ada.data_ptr() != t.data_ptr()
     with pytest.raises(ValueError, match="compression"):
         world.allreduce_async(t, compression="int8")
 
