@@ -139,7 +139,28 @@ Phases (any failure exits non-zero and prints no result line):
    rank 0's broadcast weights for 3 steps: parameters bitwise equal on the
    four ranks every step, the flash launches, and the Adasum launches =
    2 rounds x the steps' dtype groups.
-10. The whole run's wall time, the kernels line (JSON), the card line, and
+10. Observability.  After E2, the trace A/B at size 1: the engine's
+   grouped allreduce of the gradient set with the tracer detached and
+   attached (off, on, on, off), no batch timed while detached.  Then E8
+   (``--e8-worker``, after E7): two ranks through the launcher as E3 with
+   ``--timeline-filename``, ``--timeline-mark-cycles``,
+   ``--trace-filename``, ``--monitor``, ``--monitor-port`` (a free port)
+   and ``--monitor-interval 1``, Llama at full width cut to E8_LAYERS
+   (1.30 GiB of bf16 gradients a rank), 3 steps of
+   ``DistributedOptimizer(SGD)`` with the launch counts zeroed before and
+   read after: each rank's timeline parses with every gradient through
+   QUEUE -> NEGOTIATE_ALLREDUCE -> NCCL_ALLREDUCE once a step and cycle
+   marks; ``python -m horovod_tpu_torch.trace`` merges the two trace files
+   (two rank lanes, cycle flows, a report naming the phases); rank 0's
+   reduce phase above zero and its phase sum within 5 % of its mean
+   lifecycle; each step's CUDA-event pack + NCCL + unpack time above zero
+   and within the step; rank 0's /metrics, /health and /snapshot answering
+   during step 2 with both ranks in the table; rank 0's
+   ``hvd.profile_step`` trace of step 3 naming the pack's kernel and an
+   NCCL kernel; pack = unpack launches = dtype groups; parameters bitwise
+   equal across ranks every step; each rank's cross_rank, cross_size,
+   is_homogeneous and capability probes.
+11. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -148,6 +169,8 @@ It imports nothing of JAX and nothing of ``horovod_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import glob
 import json
 import math
 import os
@@ -1463,17 +1486,20 @@ def _write_result(directory, res):
 
 
 def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
-                 launcher_flags=(), env_extra=None):
+                 launcher_flags=(), env_extra=None, inspect=None):
     """``np_`` copies of this script with ``flag``, started by the port's
     launcher: ``python -m horovod_tpu_torch.runner -np N -H
     localhost:1,127.0.0.1:1,...`` on one card, one ``-H`` entry a rank (the
     launcher gives each host entry its own NCCL_HOSTID, and the loopback
     entries NCCL's socket transport on ``lo``: NCCL refuses two ranks of
     one host on one GPU), ``-H localhost:N`` with N cards or more (each
-    rank on ``cuda:{local rank}``).  ``launcher_flags`` go to the launcher,
-    ``env_extra`` into its environment (which the workers inherit).
-    Returns ``(results, route, wall)``, results None when a rank failed;
-    every process is gone on return."""
+    rank on ``cuda:{local rank}``).  ``launcher_flags`` go to the launcher
+    (``{tmp}`` in one is the ranks' result directory), ``env_extra`` into
+    its environment (which the workers inherit).  ``inspect(tmp)``, when
+    given, runs after the ranks succeeded and before the directory goes,
+    and its value is appended to the results.  Returns ``(results, route,
+    wall)``, results None when a rank failed; every process is gone on
+    return."""
     import signal
     import tempfile
     ndev = torch.cuda.device_count()
@@ -1491,8 +1517,9 @@ def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
             os.pathsep) if p]), **(env_extra or {}))
     with tempfile.TemporaryDirectory() as tmp:
         logs = os.path.join(tmp, "logs")
+        flags = [f.format(tmp=tmp) for f in launcher_flags]
         cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
-               str(np_), "-H", hosts, *launcher_flags, "--output-filename",
+               str(np_), "-H", hosts, *flags, "--output-filename",
                logs, sys.executable, os.path.abspath(__file__),
                "--train-layers", str(layers), "--seed", str(seed), flag, tmp]
         shown = [f"{k}={v}" for k, v in (env_extra or {}).items()]
@@ -1529,6 +1556,8 @@ def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
             elif results is not None:
                 with open(path) as fh:
                     results.append(json.load(fh))
+        if results is not None and inspect is not None:
+            results.append(inspect(tmp))
     return results, route, wall
 
 
@@ -3120,6 +3149,377 @@ def e7_phase(torch, layers, seed, card, timeout_s=E7_TIMEOUT_S):
     return ok, dict(dots=t["dots"], combine=t["combine"], step_s=med)
 
 
+# ---------------------------------------------------------- observability
+E8_LAYERS = 2
+E8_STEPS = 3
+E8_TIMEOUT_S = 300
+E8_PHASE_TOL = 0.05      # phase_sum_us within 5 % of cycle_us
+E8_FLAGS = ("--timeline-filename", "{tmp}/tl", "--timeline-mark-cycles",
+            "--trace-filename", "{tmp}/tr", "--monitor", "--monitor-port",
+            "{port}", "--monitor-interval", "1")
+E8_LANES = ("QUEUE", "NEGOTIATE_ALLREDUCE", "NCCL_ALLREDUCE")
+# The pack's kernels in a Chrome trace (fusion.cu: what hvd_fusion_pack
+# and hvd_fusion_copy launch, kPack = true), and NCCL's.
+E8_PACK_KERNEL = re.compile(r"walk_kernel<.*, true>|bulk_kernel<true>")
+E8_NCCL_KERNEL = re.compile(r"nccl", re.I)
+E8_PROBES = ("nccl_built", "gloo_enabled", "mpi_enabled",
+             "mpi_threads_supported", "cuda_built", "rocm_built")
+
+
+def _scrape(port, running, out):
+    """Rank 0's monitor port while ``running`` is set: the first answers
+    of ``/metrics``, ``/health`` and ``/snapshot`` that came back while it
+    still was."""
+    import urllib.request
+    base = f"http://127.0.0.1:{port}"
+    while running.is_set() and "snapshot" not in out:
+        try:
+            got = {p: urllib.request.urlopen(base + p, timeout=10).read()
+                   for p in ("/metrics", "/health", "/snapshot")}
+        except OSError as exc:
+            out.setdefault("errors", []).append(str(exc))
+            time.sleep(0.2)
+            continue
+        if not running.is_set():
+            return
+        m = re.search(r'^hvd_cycles_total\{rank="0"\} (\S+)$',
+                      got["/metrics"].decode(), re.M)
+        out["cycles_total"] = float(m.group(1)) if m else None
+        out["health"] = json.loads(got["/health"])["status"]
+        out["snapshot"] = sorted(json.loads(got["/snapshot"])["table"])
+
+
+def e8_worker(args):
+    """One rank of E8, started by ``e8_phase`` through the port's launcher
+    with the timeline, tracer and monitor armed (``E8_FLAGS``): init ->
+    broadcast_parameters from rank 0 -> DistributedOptimizer(SGD) ->
+    ``E8_STEPS`` steps of Llama at full width on this rank's own batch,
+    the launch counts zeroed just before and read just after.  Rank 0
+    scrapes its monitor port while step 2 runs and profiles step 3 with
+    ``hvd.profile_step``.  Writes ``rank<HOROVOD_RANK>.json`` in
+    ``args.e8_worker``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r, dev = hvd.rank(), hvd.device()
+    st = basics._get_state()
+    eng, ctl = st.engine, st.controller
+    res = dict(rank=r, card=torch.cuda.get_device_name(dev),
+               tracer=eng.tracer is not None, monitor=st.monitor is not None,
+               queries=dict(cross_rank=hvd.cross_rank(),
+                            cross_size=hvd.cross_size(),
+                            is_homogeneous=hvd.is_homogeneous(),
+                            **{p: getattr(hvd, p)() for p in E8_PROBES}))
+    cfg = tl.llama3_8b(n_layers=args.train_layers)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 1 + 1000 * r))
+    named = list(tl.named_parameters(params))
+    hvd.broadcast_parameters(params, root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([t for _, t in named], lr=TRAIN_LR),
+        named_parameters=named)
+    step = tl.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 2 + r).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int64)).to(dev)
+    x, y = toks[:, :-1], toks[:, 1:]
+    prof_dir = os.path.join(args.e8_worker, "profile")
+
+    def counters():
+        return [eng.reduce_pack_us_total, eng.reduce_collective_us_total,
+                eng.reduce_unpack_us_total, eng.timed_batches,
+                eng.pipeline_dispatches, eng.fused_groups,
+                fusion.pack.launches, fusion.unpack.launches]
+
+    _zero_flash(fa)
+    fusion.pack.launches = fusion.unpack.launches = 0
+    steps, scraped = [], {}
+    for i in range(E8_STEPS):
+        running = threading.Event()
+        poll = None
+        if i == 1 and r == 0:
+            running.set()
+            poll = threading.Thread(target=_scrape, args=(
+                int(os.environ["HOROVOD_MONITOR_PORT"]), running, scraped))
+        prof = (hvd.profile_step(prof_dir) if i == 2 and r == 0
+                else contextlib.nullcontext())
+        c0 = counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if poll is not None:
+            poll.start()
+        with prof:
+            loss = step(params, x, y).item()
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        running.clear()
+        if poll is not None:
+            poll.join(timeout=30)
+        d = [b - a for a, b in zip(c0, counters())]
+        steps.append(dict(loss=loss, s=dt, pack_us=d[0], coll_us=d[1],
+                          unpack_us=d[2], timed=d[3], batches=d[4],
+                          groups=d[5], pack=d[6], unpack=d[7],
+                          profiled=i == 2 and r == 0,
+                          sums=_checksum(torch, named)))
+    res.update(steps=steps, scraped=scraped, flash=_flash_counts(fa),
+               pack=fusion.pack.launches, unpack=fusion.unpack.launches,
+               summary=eng.tracer.phase_summary(), leaves=len(named),
+               grad_bytes=_nbytes([t for _, t in named]),
+               monitor_bytes=ctl.monitor_bytes_sent,
+               frames=st.monitor.frames_sent)
+    hvd.shutdown()
+    _write_result(args.e8_worker, res)
+    print(f"e8 rank {r}: done", flush=True)
+    return 0
+
+
+def _lanes(path):
+    """A timeline's activities by tensor: name -> the B events' names in
+    order; and its cycle marks."""
+    with open(path) as fh:
+        events = json.load(fh)
+    names = {e["tid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e["name"] == "thread_name"}
+    lanes = {}
+    for e in events:
+        if e.get("ph") == "B":
+            lanes.setdefault(names[e["tid"]], []).append(e["name"])
+    marks = sum(1 for e in events if e["name"] == "CYCLE_START")
+    return lanes, marks
+
+
+def _e8_files(tmp, np_):
+    """E8's files, read before the result directory goes: each rank's
+    timeline, the two trace files merged by ``python -m
+    horovod_tpu_torch.trace`` (with its report), and rank 0's profile."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = dict(timelines=[])
+    for r in range(np_):
+        lanes, marks = _lanes(os.path.join(tmp, f"tl.{r}"))
+        grads = {n: [a for a in acts if a in E8_LANES]
+                 for n, acts in lanes.items() if n.startswith("allreduce.")}
+        out["timelines"].append(dict(
+            lanes=len(lanes), grads=len(grads), marks=marks,
+            ordered=sorted({len(a) // 3 for a in grads.values()
+                            if a == list(E8_LANES) * (len(a) // 3)}),
+            misordered=[n for n, a in grads.items()
+                        if a != list(E8_LANES) * (len(a) // 3)
+                        or not a][:4]))
+    merged = os.path.join(tmp, "merged.json")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.trace",
+         os.path.join(tmp, "tr"), "--report", "-o", merged],
+        cwd=here, capture_output=True, text=True, timeout=120)
+    out["merge_s"] = time.perf_counter() - t0
+    out["merge_rc"] = run.returncode
+    out["report"] = run.stdout[-3000:] + run.stderr[-1000:]
+    if run.returncode == 0:
+        with open(merged) as fh:
+            ev = json.load(fh)["traceEvents"]
+        out["rank_lanes"] = len({e["pid"] for e in ev
+                                 if e.get("name") == "process_name"})
+        out["flows"] = sum(1 for e in ev if e.get("ph") in ("s", "t", "f"))
+    kernels = []
+    for path in glob.glob(os.path.join(tmp, "profile", "*.json")):
+        with open(path) as fh:
+            kernels += [e["name"] for e in json.load(fh)["traceEvents"]
+                        if e.get("cat") == "kernel"]
+    out["profile_kernels"] = len(kernels)
+    out["profile_pack"] = sorted({k[:90] for k in kernels
+                                  if E8_PACK_KERNEL.search(k)})[:3]
+    out["profile_nccl"] = sorted({k[:90] for k in kernels
+                                  if E8_NCCL_KERNEL.search(k)})[:3]
+    return out
+
+
+def e8_phase(torch, layers, seed, card, timeout_s=E8_TIMEOUT_S):
+    """E8: two ranks through the port's launcher with the timeline, the
+    tracer and the monitor armed (``e8_worker``), and its nine checks:
+    (1) each rank's timeline parses, every gradient goes QUEUE ->
+    NEGOTIATE_ALLREDUCE -> NCCL_ALLREDUCE once a step, with cycle marks;
+    (2) the trace files merge into one perfetto file with two rank lanes
+    and cycle flows, and the report names a phase; (3) rank 0's reduce
+    phase is nonzero and its phase sum within E8_PHASE_TOL of its mean
+    lifecycle; (4) each step's CUDA-event pack + collective + unpack time
+    is above zero and within the step's wall time; (5) rank 0's monitor
+    port answered ``/metrics``, ``/health`` and ``/snapshot`` during step
+    2 with cycles counted and both ranks in the table; (6) rank 0's
+    profile names the pack's kernel and an NCCL kernel; (7) pack and
+    unpack launches = the steps' dtype groups; (8) parameters bitwise
+    equal across the ranks after every step; (9) the runtime's queries.
+    Returns ``(ok, counts)``."""
+    import numpy as np
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch.common.net import free_ports
+    port, = free_ports(1)
+    flags = [f.replace("{port}", str(port)) for f in E8_FLAGS]
+    results, route, wall = launch_ranks(
+        torch, "--e8-worker", layers, seed, timeout_s, 2, flags,
+        inspect=lambda tmp: _e8_files(tmp, 2))
+    if results is None:
+        return False, None
+    *ranks, files = results
+    a = ranks[0]
+    ok = all(x["tracer"] and x["monitor"] for x in ranks)
+    print(f"e8: 2 ranks ({route}) in {wall:.1f} s with "
+          f"{' '.join(E8_FLAGS[:-5])} --monitor --monitor-port {port} "
+          f"--monitor-interval 1; tracer and monitor armed on both: {ok}",
+          flush=True)
+    # (9) the runtime's queries.
+    q = [x["queries"] for x in ranks]
+    good = (all(x["cross_size"] == 2 and x["is_homogeneous"]
+                and x["nccl_built"] and x["cuda_built"] for x in q)
+            and sorted(x["cross_rank"] for x in q) == [0, 1])
+    ok = ok and good
+    for r, x in enumerate(q):
+        print(f"e8[9] rank {r}: " + ", ".join(f"{k} {v}" for k, v in
+                                             x.items())
+              + f" -> {'PASS' if good else 'FAIL'}", flush=True)
+    # (7), (8), (4): the steps.
+    for i in range(E8_STEPS):
+        ss = [x["steps"][i] for x in ranks]
+        same = all(s["sums"] == ss[0]["sums"] for s in ss)
+        finite = bool(np.isfinite([s["loss"] for s in ss]).all())
+        launches = all(s["pack"] == s["unpack"] == s["groups"] > 0
+                       for s in ss)
+        red = [(s["pack_us"] + s["coll_us"] + s["unpack_us"]) / 1e6
+               for s in ss]
+        timed = all(0 < t <= s["s"] and s["timed"] == s["batches"]
+                    for t, s in zip(red, ss))
+        good = same and finite and launches and timed
+        ok = ok and good
+        s = ss[0]
+        losses = " / ".join(f"{t['loss']:.5f}" for t in ss)
+        note = " (profiled on rank 0)" if s["profiled"] else ""
+        print(f"e8 step {i + 1}{note}: losses {losses}; "
+              f"parameters bitwise equal across ranks: {same}; "
+              f"{s['batches']} batches, {s['groups']} dtype groups, "
+              f"pack/unpack launches {s['pack']}/{s['unpack']} (= dtype "
+              f"groups: {launches}); step {s['s'] * 1e3:.1f} ms armed on "
+              f"rank 0, of it on the card pack {s['pack_us'] / 1e3:.2f} ms, "
+              f"NCCL {s['coll_us'] / 1e3:.2f} ms, unpack "
+              f"{s['unpack_us'] / 1e3:.2f} ms (CUDA events, "
+              f"{s['timed']} batches timed; within the step on both ranks: "
+              f"{timed}) -> {'PASS' if good else 'FAIL'}", flush=True)
+    # (3) rank 0's phases.
+    sm = a["summary"]
+    ph = sm["phases_us"] or {}
+    good = (bool(ph) and ph.get("reduce", 0) > 0 and abs(
+        sm["phase_sum_us"] - sm["cycle_us"]) <= E8_PHASE_TOL * sm["cycle_us"])
+    ok = ok and good
+    print(f"e8[3]: rank 0's {sm['spans']} spans, mean us: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ph.items())
+          + f"; phase sum {sm['phase_sum_us']} us against the mean "
+          f"lifecycle {sm['cycle_us']} us (within {E8_PHASE_TOL:.0%}) "
+          f"-> {'PASS' if good else 'FAIL'}", flush=True)
+    # (1) the timelines.
+    good = True
+    for r, t in enumerate(files["timelines"]):
+        g = (t["grads"] == a["leaves"] and t["marks"] > 0
+             and t["ordered"] == [E8_STEPS] and not t["misordered"])
+        good = good and g
+        print(f"e8[1] rank {r}: timeline parses, {t['lanes']} lanes, "
+              f"{t['grads']} gradients (of {a['leaves']} leaves) each "
+              f"{' -> '.join(E8_LANES)} x {t['ordered']} (steps "
+              f"{E8_STEPS}), out of order {t['misordered']}, "
+              f"{t['marks']} cycle marks -> {'PASS' if g else 'FAIL'}",
+              flush=True)
+    ok = ok and good
+    # (2) the merged trace.
+    rep = files["report"]
+    good = (files["merge_rc"] == 0 and files.get("rank_lanes") == 2
+            and files.get("flows", 0) > 0
+            and any(p in rep for p in ("queue", "negotiation", "reduce")))
+    ok = ok and good
+    print(f"e8[2]: python -m horovod_tpu_torch.trace merged both ranks' "
+          f"files in {files['merge_s']:.1f} s (rc {files['merge_rc']}): "
+          f"{files.get('rank_lanes')} rank lanes, {files.get('flows')} "
+          f"flow points; report:\n{rep.strip()[:1500]}\n"
+          f"e8[2] -> {'PASS' if good else 'FAIL'}", flush=True)
+    # (5) the monitor.
+    sc = a["scraped"]
+    good = ((sc.get("cycles_total") or 0) > 0 and sc.get("snapshot")
+            == ["0", "1"] and sc.get("health") is not None)
+    ok = ok and good
+    print(f"e8[5]: rank 0's monitor during step 2: hvd_cycles_total "
+          f"{sc.get('cycles_total')}, /health {sc.get('health')}, "
+          f"/snapshot ranks {sc.get('snapshot')}, errors "
+          f"{sc.get('errors', [])[:2]}; frames sent {a['frames']}, "
+          f"monitor frame bytes {a['monitor_bytes']} on rank 0 -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    # (6) the profile.
+    good = bool(files["profile_pack"]) and bool(files["profile_nccl"])
+    ok = ok and good
+    print(f"e8[6]: rank 0's hvd.profile_step trace of step 3: "
+          f"{files['profile_kernels']} kernel events; the pack's kernel "
+          f"{files['profile_pack'][:1]}, NCCL {files['profile_nccl'][:1]} "
+          f"-> {'PASS' if good else 'FAIL'}", flush=True)
+    steps = a["steps"]
+    med = sorted(s["s"] for s in steps)[len(steps) // 2]
+    print(f"e8: Llama at full width, {layers} layers, {a['leaves']} leaves "
+          f"({a['grad_bytes'] / 2**30:.2f} GiB of bf16 gradients a rank); "
+          f"median step {med:.3f} s armed [{card}; {route}: NCCL's socket "
+          f"transport, not NVLink] -> {'PASS' if ok else 'FAIL'}",
+          flush=True)
+    return ok, dict(pack=a["pack"], unpack=a["unpack"], flash=a["flash"],
+                    step_s=med)
+
+
+def trace_ab_phase(torch, hvd, grads, iters=5):
+    """The size-1 counterpart of the JAX bench's trace A/B: the engine's
+    grouped allreduce of the gradient set with the tracer detached (the
+    disarmed default) and attached (no file), in turns off, on, on, off,
+    each a median of ``iters`` calls; disarmed, no batch may be timed.
+    Returns ok."""
+    from horovod_tpu_torch.trace import TraceRecorder
+    eng = hvd.common.basics._get_state().engine
+    dev = hvd.device()
+    if eng.tracer is not None:
+        print("trace A/B: the engine was started armed; skipped", flush=True)
+        return False
+
+    def call():
+        hvd.grouped_allreduce(grads, name="trace_ab")
+        torch.cuda.synchronize()
+
+    call()
+    times = {False: [], True: []}
+    timed0 = eng.timed_batches
+    disarmed_timed, summary = 0, None
+    for armed in (False, True, True, False):
+        rec = eng.tracer = TraceRecorder(capacity=4096) if armed else None
+        t = eng.timed_batches
+        times[armed].append(median_s(torch, call, iters))
+        eng.tracer = None
+        # A disarmed cycle reads the inline-settled batches' card times.
+        hvd.allreduce(torch.zeros(1, device=dev), name="trace_ab.read")
+        torch.cuda.synchronize()
+        if armed:
+            summary = rec.phase_summary()
+        else:
+            disarmed_timed += eng.timed_batches - t
+    off = sum(times[False]) / 2 * 1e3
+    on = sum(times[True]) / 2 * 1e3
+    ph = (summary or {}).get("phases_us") or {}
+    ok = disarmed_timed == 0 and eng.timed_batches > timed0 and bool(ph)
+    print(f"trace A/B at size 1: grouped_allreduce of the gradient set "
+          f"({_nbytes(grads) / 1e9:.2f} GB, {len(grads)} tensors), "
+          f"disarmed {off:.3f} ms, armed {on:.3f} ms ({on / off - 1:+.1%}); "
+          f"armed phases (us) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ph.items())
+          + f"; batches timed while disarmed {disarmed_timed} -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -3138,6 +3538,8 @@ def main():
                     help=argparse.SUPPRESS)   # one rank of phase E6
     ap.add_argument("--e7-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E7
+    ap.add_argument("--e8-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase E8
     args = ap.parse_args()
 
     import torch
@@ -3168,6 +3570,8 @@ def main():
         return e6_worker(args)
     if args.e7_worker:
         return e7_worker(args)
+    if args.e8_worker:
+        return e8_worker(args)
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3229,6 +3633,7 @@ def main():
     del flush
     size1_ok = engine_size1_phase(torch, hvd, tl, fusion, grads,
                                   args.train_layers, args.seed)
+    ab_ok = trace_ab_phase(torch, hvd, grads)
     del grads
     torch.cuda.empty_cache()
     two_ok, two = two_rank_phase(torch, args.train_layers, args.seed)
@@ -3246,6 +3651,10 @@ def main():
     e6_ok, e6 = e6_phase(torch, args.seed, card)
     models_ok = resnet_ok and tf_ok and e6_ok
     e7_ok, e7 = e7_phase(torch, E7_LAYERS, args.seed, card)
+    t_e8 = time.time()
+    e8_ok, e8 = e8_phase(torch, E8_LAYERS, args.seed, card)
+    e8_ok = e8_ok and ab_ok
+    print(f"e8: the phase in {time.time() - t_e8:.1f} s", flush=True)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -3259,19 +3668,20 @@ def main():
     # E6: the size-1 models, then BERT on rank 0 of the size-2 run.
     m6 = [a + b for a, b in zip(tf_launches,
                                 e6["flash"] if e6 else [0, 0, 0])]
+    f8 = e8["flash"] if e8 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
-                + e5[0] + m6[0],
+                + e5[0] + m6[0] + f8[0],
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
-                + m6[1],
+                + m6[1] + f8[1],
                 "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
-                + m6[2]}
+                + m6[2] + f8[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
           f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
-          f"size 2); flash_bwd_dq {train_launches['flash_bwd_dq']} + "
-          f"{e5[1]} + {m6[1]}, flash_bwd_dkv "
-          f"{train_launches['flash_bwd_dkv']} + {e5[2]} + {m6[2]}",
-          flush=True)
+          f"size 2) + {f8[0]} observability (E8, rank 0); flash_bwd_dq "
+          f"{train_launches['flash_bwd_dq']} + {e5[1]} + {m6[1]} + "
+          f"{f8[1]}, flash_bwd_dkv {train_launches['flash_bwd_dkv']} + "
+          f"{e5[2]} + {m6[2]} + {f8[2]}", flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
@@ -3294,7 +3704,7 @@ def main():
              ring_max_abs_err=fwd_ring["max_abs_err"],
              ring_tflops=fwd_ring["tflops"],
              **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS},
-             launches_e6=m6[0],
+             launches_e6=m6[0], launches_e8=f8[0],
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
     ] + [
@@ -3316,6 +3726,7 @@ def main():
              ulysses_plain_ms=bwd_uly["plain_ms"],
              ulysses_library_ms=bwd_uly["library_ms"],
              launches_e6=m6[1 if g == "dq" else 2],
+             launches_e8=f8[1 if g == "dq" else 2],
              **{f"{m}_{k}": bwd_by_name[case][g][k]
                 for m, case in MODEL_CASES.items() for k in _CASE_KEYS
                 if k in bwd_by_name[case][g]},
@@ -3346,10 +3757,11 @@ def main():
                      "fused this work into _build_fused_reduce)",
             design=design,
             launches=(two[kern] if two else 0) + (four[kern] if four else 0)
-            + (e6[kern] if e6 else 0),
+            + (e6[kern] if e6 else 0) + (e8[kern] if e8 else 0),
             launches_e3=two[kern] if two else 0,
             launches_e4=four[kern] if four else 0,
             launches_e6=e6[kern] if e6 else 0,
+            launches_e8=e8[kern] if e8 else 0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"],
@@ -3375,14 +3787,15 @@ def main():
             library_ms=r["library_ms"], gbps=r["gbps"], n=r["n"]))
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
-                        and adasum_ok and e7_ok and kern["launches"] > 0)
+                        and adasum_ok and e7_ok and e8_ok
+                        and kern["launches"] > 0)
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
-            and models_ok and adasum_ok and e7_ok
+            and models_ok and adasum_ok and e7_ok and e8_ok
             and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
@@ -3392,7 +3805,8 @@ def main():
               f"{two_ok}, collectives on two ranks {four_ok}), sequence "
               f"parallel ok={sp_ok}, models ok={models_ok} (resnet50 "
               f"{resnet_ok}, transformers {tf_ok}, two ranks {e6_ok}), "
-              f"adasum kernels ok={adasum_ok}, four ranks (E7) ok={e7_ok}")
+              f"adasum kernels ok={adasum_ok}, four ranks (E7) ok={e7_ok}, "
+              f"observability (E8, trace A/B {ab_ok}) ok={e8_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,9 @@ horovod_tpu_torch.runner``.
 from .common.basics import (  # noqa: F401
     init, shutdown, is_initialized, rank, size, local_rank, local_size,
     device, add_process_set, remove_process_set, process_set_included,
-    NotInitializedError,
+    NotInitializedError, cross_rank, cross_size, is_homogeneous, nccl_built,
+    gloo_enabled, mpi_enabled, mpi_threads_supported, cuda_built, rocm_built,
+    start_timeline, stop_timeline, start_profile, stop_profile, profile_step,
 )
 from .common.process_sets import ProcessSet, global_process_set  # noqa: F401
 from .compression import Compression  # noqa: F401

@@ -1,7 +1,10 @@
 """Core runtime state and the ``init``/``rank``/``size`` API family.
 
 Port of ``horovod_tpu/common/basics.py:77-200``, with the engine's start
-(:92-97, 150-157, 228-247, 273) and shutdown order (:278-345).  The world
+(:92-97, 150-157, 228-247, 273) and shutdown order (:278-345), the
+timeline (:146-148, 354-356), the monitor agent (:249-272, 318-320), the
+host queries (:447-466), the capability probes (:494-515) and the
+timeline and profiler controls (:522-570).  The world
 contract:
 
 - With no ``HOROVOD_*`` env the world is one process of size 1 and no
@@ -36,13 +39,25 @@ never carries on on the CPU by itself.
 from the launcher's ``HOROVOD_LOCAL_COUNTS``), as the JAX ``init()`` builds
 its topology (:139), and has the engine make the two-level data plane's
 groups where the global set has a slice topology
-(``ops/engine.py`` ``_make_hier_groups``).  Elastic membership, the
-hierarchical controller, the monitor and the timeline come with later
-parts of the port.
+(``ops/engine.py`` ``_make_hier_groups``).
+
+Observability: ``init()`` opens the Chrome timeline when
+``HOROVOD_TIMELINE`` names a file (the launcher's
+``--timeline-filename``, one file a rank) and, with ``HOROVOD_MONITOR=1``,
+installs the ``MonitorAgent`` before the engine's first cycle, rank 0
+serving ``/metrics``, ``/health`` and ``/snapshot`` at
+``HOROVOD_MONITOR_PORT`` (a port it cannot bind only warns: telemetry is
+best-effort, as in the JAX package).  The engine arms its tracer from
+``HOROVOD_TRACE`` itself.  ``start_profile``/``profile_step`` trace the
+card with ``torch.profiler`` into a Chrome trace, the counterpart of the
+JAX package's ``jax.profiler`` trace.
+
+Elastic membership and the hierarchical controller are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
@@ -81,6 +96,8 @@ class GlobalState:
         self.config: Optional[Config] = None
         self.engine = None           # ops.engine.CollectiveEngine
         self.controller = None       # common.controller.TCPController
+        self.timeline = None         # utils.timeline.Timeline
+        self.monitor = None          # monitor.agent.MonitorAgent
         self.process_set_table = ProcessSetTable()
         self._lock = threading.Lock()
 
@@ -200,6 +217,9 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         global_process_set.__dict__.update(gs.__dict__)
         st.process_set_table._sets[0] = global_process_set
         cfg = st.config = Config.from_env()
+        from ..utils.timeline import Timeline
+        st.timeline = Timeline(cfg.timeline_filename,
+                               mark_cycles=cfg.timeline_mark_cycles)
         # Wire-visible auto-name counters restart with the runtime, so that
         # every rank's name sequence stays aligned.
         from ..ops import eager as _eager
@@ -227,6 +247,24 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                 spec_ready_after=cfg.spec_ready_after,
                 round_pipeline=cfg.round_pipeline)
             st.engine.controller = st.controller
+        if cfg.monitor:
+            # Installed before engine.start() so that the very first cycle
+            # is observed.
+            from ..monitor.agent import MonitorAgent
+            st.monitor = MonitorAgent(
+                engine=st.engine, controller=st.controller, rank=rank,
+                world=size, interval_s=cfg.monitor_interval_s,
+                timeline=st.timeline)
+            if cfg.monitor_port > 0 and rank == 0:
+                try:
+                    st.monitor.serve_http(cfg.monitor_port)
+                except OSError as exc:
+                    # A taken port must not kill training: the telemetry
+                    # plane is best-effort.
+                    from ..utils.logging import get_logger
+                    get_logger().warning(
+                        "monitor: could not bind HTTP port %d (%s); "
+                        "exporter disabled", cfg.monitor_port, exc)
         st.engine.start()
         st.initialized = True
 
@@ -267,9 +305,15 @@ def shutdown() -> None:
         if eng is not None:
             eng.stop()
             st.engine = None
+        if st.monitor is not None:
+            st.monitor.close()
+            st.monitor = None
         if ctl is not None:
             ctl.shutdown()
             st.controller = None
+        if st.timeline is not None:
+            st.timeline.close()
+            st.timeline = None
         if st.owns_process_group:
             import torch.distributed as dist
             if dist.is_initialized():
@@ -327,3 +371,132 @@ def remove_process_set(ps: ProcessSet):
 
 def process_set_included(ps: ProcessSet) -> bool:
     return ps.included(rank())
+
+
+def cross_size() -> int:
+    """The number of hosts: the launcher's ``HOROVOD_CROSS_SIZE``, else the
+    hosts of ``HOROVOD_LOCAL_COUNTS``, else one host a rank."""
+    st = _checked()
+    env = st.config.cross_size_env
+    if env > 0:
+        return env
+    counts = st.topology.local_counts
+    return len(counts) if counts is not None else st.size
+
+
+def cross_rank() -> int:
+    """This rank's host index: the launcher's ``HOROVOD_CROSS_RANK``, else
+    its host in ``HOROVOD_LOCAL_COUNTS``, else its rank."""
+    st = _checked()
+    env = st.config.cross_rank_env
+    if env >= 0:
+        return env
+    t = st.topology
+    return t.my_host if t.local_counts is not None else st.rank
+
+
+def is_homogeneous() -> bool:
+    """Whether every host runs the same number of ranks (True when the
+    launcher gave no layout: one rank a host)."""
+    counts = _checked().topology.local_counts
+    return counts is None or all(c == counts[0] for c in counts)
+
+
+# Capability probes, for API parity with HorovodBasics (reference
+# horovod/common/basics.py): the answers of this torch build.
+def nccl_built() -> bool:
+    import torch.distributed as dist
+    return bool(dist.is_available() and dist.is_nccl_available())
+
+
+def gloo_enabled() -> bool:
+    import torch.distributed as dist
+    return bool(dist.is_available() and dist.is_gloo_available())
+
+
+def mpi_enabled() -> bool:
+    import torch.distributed as dist
+    return bool(dist.is_available() and dist.is_mpi_available())
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def cuda_built() -> bool:
+    return bool(torch.backends.cuda.is_built())
+
+
+def rocm_built() -> bool:
+    return torch.version.hip is not None
+
+
+def start_timeline(filename: str, mark_cycles: bool = False):
+    """Begin writing a Chrome-trace timeline (reference: timeline.cc N10),
+    replacing the current one."""
+    st = _checked()
+    from ..utils.timeline import Timeline
+    if st.timeline is not None:
+        st.timeline.close()
+    st.timeline = Timeline(filename, mark_cycles=mark_cycles)
+
+
+def stop_timeline():
+    """Close the timeline; the engine goes on with a disabled one."""
+    st = _checked()
+    if st.timeline is not None:
+        st.timeline.close()
+    from ..utils.timeline import Timeline
+    st.timeline = Timeline("", mark_cycles=False)
+
+
+_profiler = None
+
+
+def start_profile(logdir: str):
+    """Start a device-level profiler trace: ``torch.profiler`` over the
+    host and the card (the port's kernels, NCCL's and the library's by
+    name), written as a Chrome trace into ``logdir`` by
+    :func:`stop_profile`.  The coordinator's timeline (``start_timeline``)
+    covers each tensor's negotiation and collective phases; this is the
+    complementary device view.  One trace at a time."""
+    global _profiler
+    if _profiler is not None:
+        raise RuntimeError("a profile is already running; stop_profile() "
+                           "first")
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.__enter__()
+    _profiler = (prof, logdir)
+
+
+def stop_profile():
+    """Stop the trace started by :func:`start_profile` and write it to
+    ``<logdir>/trace.<pid>.json``; returns the file's path."""
+    global _profiler
+    if _profiler is None:
+        raise RuntimeError("no profile is running; start_profile() first")
+    prof, logdir = _profiler
+    _profiler = None
+    prof.__exit__(None, None, None)
+    path = os.path.join(logdir, f"trace.{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def profile_step(logdir: str):
+    """Context manager profiling one region (e.g. a train step)::
+
+        with hvd.profile_step("/tmp/prof"):
+            loss = train_step(...)
+    """
+    start_profile(logdir)
+    try:
+        yield
+    finally:
+        stop_profile()

@@ -1,6 +1,8 @@
 # Copied from horovod_tpu/common/config.py:1-53, 109-200, 202-227, 381-404
 # and the matching lines of from_env (:410-497): only the fields the engine
-# and the controller read.
+# and the controller read; the monitor (:146-154), timeline and trace
+# (:184-196) fields, the launcher's cross rank and size (:403-404) and their
+# parsing (:420-430, :495-496, :502-508).
 """Environment-variable configuration surface.
 
 TPU-native equivalent of the reference's env parser
@@ -77,6 +79,14 @@ class Config:
       two-level payload crossover; 0 = always two-level when armed)
     - ``slice_map``                <- HOROVOD_SLICE_MAP (explicit slice
       membership; see parallel/topology.py)
+    - ``monitor``/``monitor_port``/``monitor_interval_s`` <-
+      HOROVOD_MONITOR/_MONITOR_PORT/_MONITOR_INTERVAL
+    - ``timeline_filename``/``timeline_mark_cycles`` <- HOROVOD_TIMELINE/
+      _TIMELINE_MARK_CYCLES
+    - ``trace``/``trace_filename`` <- HOROVOD_TRACE (a path or a boolean),
+      ``trace_ring`` <- HOROVOD_TRACE_RING
+    - ``cross_rank_env``/``cross_size_env`` <- HOROVOD_CROSS_RANK/
+      HOROVOD_CROSS_SIZE (the launcher's)
     """
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
@@ -119,6 +129,29 @@ class Config:
     spec_ready_after: int = 0
     round_pipeline: int = 1
 
+    # Cross-rank telemetry & health subsystem (horovod_tpu_torch.monitor).
+    # HOROVOD_MONITOR=1 enables the per-rank metric registry + the
+    # coordinator monitor side-channel (protocol v3); HOROVOD_MONITOR_PORT
+    # > 0 additionally serves /metrics (Prometheus) + /health (JSON) over
+    # HTTP on rank 0; HOROVOD_MONITOR_INTERVAL is the snapshot reporting
+    # period in seconds.
+    monitor: bool = False
+    monitor_port: int = 0
+    monitor_interval_s: float = 5.0
+
+    timeline_filename: str = ""
+    timeline_mark_cycles: bool = False
+
+    # Distributed collective tracing (horovod_tpu_torch.trace).
+    # HOROVOD_TRACE=<path> arms per-tensor lifecycle spans AND writes this
+    # rank's trace file there (the launcher suffixes the base per rank;
+    # merge with `python -m horovod_tpu_torch.trace`); HOROVOD_TRACE=1 arms
+    # the in-memory recorder only.  Unset = strictly zero cost.
+    # HOROVOD_TRACE_RING bounds the preallocated span ring.
+    trace: bool = False
+    trace_filename: str = ""
+    trace_ring: int = 4096
+
     stall_check_time_s: float = 60.0
     stall_shutdown_time_s: float = 0.0
     stall_check_disable: bool = False
@@ -154,10 +187,13 @@ class Config:
     controller_addr: str = ""
     controller_port: int = 0
     controller_port2: int = 0
+    # The launcher's host index and host count (-1 = unset).
+    cross_rank_env: int = -1
+    cross_size_env: int = -1
 
     @classmethod
     def from_env(cls) -> "Config":
-        return cls(
+        cfg = cls(
             fusion_threshold_bytes=_env_int("FUSION_THRESHOLD", 64 * 1024 * 1024),
             cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
             response_cache_capacity=_env_int("RESPONSE_CACHE_CAPACITY", 2048),
@@ -167,6 +203,12 @@ class Config:
             connect_backoff_ms=_env_float("CONNECT_BACKOFF_MS", 500.0),
             spec_ready_after=_env_int("SPEC_READY_AFTER", 0),
             round_pipeline=_env_int("ROUND_PIPELINE", 1),
+            monitor=_env_bool("MONITOR", False),
+            monitor_port=_env_int("MONITOR_PORT", 0),
+            monitor_interval_s=_env_float("MONITOR_INTERVAL", 5.0),
+            timeline_filename=_env("TIMELINE", "") or "",
+            timeline_mark_cycles=_env_bool("TIMELINE_MARK_CYCLES", False),
+            trace_ring=_env_int("TRACE_RING", 4096),
             stall_check_time_s=_env_float("STALL_CHECK_TIME", 60.0),
             stall_shutdown_time_s=_env_float("STALL_SHUTDOWN_TIME", 0.0),
             stall_check_disable=_env_bool("STALL_CHECK_DISABLE", False),
@@ -180,4 +222,15 @@ class Config:
             controller_addr=_env("CONTROLLER_ADDR", "") or "",
             controller_port=_env_int("CONTROLLER_PORT", 0),
             controller_port2=_env_int("CONTROLLER_PORT2", 0),
+            cross_rank_env=_env_int("CROSS_RANK", -1),
+            cross_size_env=_env_int("CROSS_SIZE", -1),
         )
+        # HOROVOD_TRACE: a bool-ish value arms the in-memory recorder only;
+        # anything else is the per-rank trace file path (and arms it).
+        raw_trace = (_env("TRACE", "") or "").strip()
+        if raw_trace:
+            cfg.trace = raw_trace.lower() not in ("0", "false", "no", "off")
+            if cfg.trace and raw_trace.lower() not in ("1", "true", "yes",
+                                                       "on"):
+                cfg.trace_filename = raw_trace
+        return cfg

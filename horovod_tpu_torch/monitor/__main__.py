@@ -1,0 +1,172 @@
+# Copied from horovod_tpu/monitor/__main__.py:1-170 (the CLI); jax-free, the
+# port keeps its own copy; the CLI's name is the port's.
+"""``python -m horovod_tpu_torch.monitor`` — pretty-print a live or dumped
+fleet snapshot (no jax required).
+
+Usage::
+
+    python -m horovod_tpu_torch.monitor --url http://host:9090    # live exporter
+    python -m horovod_tpu_torch.monitor snapshot.json             # dumped file
+    python -m horovod_tpu_torch.monitor --url ... --json          # raw JSON
+    python -m horovod_tpu_torch.monitor --url ... --watch 2       # refresh loop
+
+The live mode reads the rank-0 HTTP exporter started by
+``HOROVOD_MONITOR_PORT`` (``/snapshot``); the file mode reads a JSON dump
+of the same shape (e.g. ``curl :9090/snapshot > snap.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import List, Optional
+
+
+def _fetch(url: str) -> dict:
+    import urllib.request
+    base = url.rstrip("/")
+    if not base.endswith("/snapshot"):
+        base += "/snapshot"
+    with urllib.request.urlopen(base, timeout=10) as resp:
+        return json.loads(resp.read().decode())
+
+
+def _fmt(v, suffix: str = "") -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:g}{suffix}"
+    return f"{v}{suffix}"
+
+
+def render(dump: dict) -> str:
+    """Human-readable fleet view from a ``/snapshot`` dump."""
+    health = dump.get("health", {})
+    lines: List[str] = []
+    status = health.get("status", "unknown")
+    lines.append(f"fleet status: {status.upper()}   "
+                 f"world={health.get('world', '?')}   "
+                 f"interval={_fmt(health.get('monitor_interval_s'), 's')}")
+    skew = health.get("cycle_us_spread")
+    if skew is not None:
+        lines.append(f"straggler: slowest rank "
+                     f"{health.get('slowest_rank')}  "
+                     f"cycle-time spread {skew:g} us")
+    ranks = health.get("ranks", {})
+    if ranks:
+        lines.append("")
+        lines.append(f"{'rank':>4}  {'alive':>5}  {'cycle':>8}  "
+                     f"{'cyc-age':>8}  {'seen':>7}  stalled")
+        for r in sorted(ranks, key=lambda k: int(k)):
+            info = ranks[r]
+            stalled = ",".join(info.get("stalled") or []) or "-"
+            lines.append(
+                f"{r:>4}  {'yes' if info.get('alive') else 'NO':>5}  "
+                f"{_fmt(info.get('cycle')):>8}  "
+                f"{_fmt(info.get('last_cycle_age_s'), 's'):>8}  "
+                f"{_fmt(info.get('last_seen_s'), 's'):>7}  {stalled}")
+    table = dump.get("table", {})
+    for r in sorted(table, key=lambda k: int(k)):
+        snap = table[r]
+        ledger = snap.get("ledger") or []
+        if ledger:
+            lines.append("")
+            lines.append(f"rank {r} ledger tail:")
+            lines.extend(f"  {e}" for e in ledger)
+    # A few headline metrics per rank, if present.
+    heads = ["hvd_negotiation_us_total", "hvd_response_cache_hits_total",
+             "hvd_response_cache_misses_total", "hvd_stalled_collectives",
+             "hvd_monitor_frame_bytes_total"]
+    rows = []
+    for r in sorted(table, key=lambda k: int(k)):
+        m = table[r].get("metrics") or {}
+        if any(h in m for h in heads):
+            rows.append((r, [m.get(h) for h in heads]))
+    if rows:
+        lines.append("")
+        lines.append("rank  " + "  ".join(h[len("hvd_"):] for h in heads))
+        for r, vals in rows:
+            lines.append(f"{r:>4}  " + "  ".join(_fmt(v) for v in vals))
+    # Lifecycle phase means from the trace digests (HOROVOD_TRACE armed):
+    # which host-side phase eats the cycle, per rank (docs/timeline.md).
+    phase_rows = []
+    phase_names = None
+    for r in sorted(table, key=lambda k: int(k)):
+        tr = table[r].get("trace") or {}
+        phases = tr.get("phases")
+        if not phases:
+            continue
+        if phase_names is None:
+            phase_names = list(phases)
+        means = []
+        for p in phase_names:
+            total, count = (phases.get(p) or [0, 0])[:2]
+            means.append(round(total / count, 1) if count else None)
+        phase_rows.append((r, tr.get("spans"), means, tr.get("cycle_us")))
+    if phase_rows:
+        lines.append("")
+        lines.append("lifecycle phases, mean us (trace digests):")
+        lines.append("rank  spans  "
+                     + "  ".join(f"{p:>11}" for p in phase_names)
+                     + f"  {'cycle':>9}")
+        for r, spans, means, cyc in phase_rows:
+            lines.append(f"{r:>4}  {_fmt(spans):>5}  "
+                         + "  ".join(f"{_fmt(v):>11}" for v in means)
+                         + f"  {_fmt(cyc):>9}")
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.monitor",
+        description="Pretty-print a horovod_tpu fleet telemetry snapshot")
+    p.add_argument("file", nargs="?",
+                   help="dumped /snapshot JSON file (omit with --url)")
+    p.add_argument("--url", help="live exporter base URL "
+                                 "(http://host:HOROVOD_MONITOR_PORT)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw JSON instead of the table")
+    p.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
+                   help="refresh the live view every N seconds")
+    args = p.parse_args(argv)
+    if bool(args.file) == bool(args.url):
+        p.error("pass exactly one of: a snapshot file, or --url")
+    if args.watch and not args.url:
+        p.error("--watch needs --url")
+
+    def once() -> int:
+        if args.url:
+            try:
+                dump = _fetch(args.url)
+            except Exception as exc:  # noqa: BLE001 - CLI surface
+                print(f"error: could not fetch {args.url}: {exc}",
+                      file=sys.stderr)
+                return 1
+        else:
+            try:
+                with open(args.file) as fh:
+                    dump = json.load(fh)
+            except (OSError, ValueError) as exc:
+                print(f"error: could not read {args.file}: {exc}",
+                      file=sys.stderr)
+                return 1
+        print(json.dumps(dump, indent=2) if args.json else render(dump))
+        return 0
+
+    if not args.watch:
+        return once()
+    try:
+        while True:
+            print("\x1b[2J\x1b[H", end="")      # clear screen
+            rc = once()
+            if rc:
+                return rc
+            time.sleep(args.watch)
+    except KeyboardInterrupt:
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,662 @@
+# Copied from horovod_tpu/monitor/agent.py:1-659 (MonitorAgent); jax-free, the
+# port keeps its own copy; issue-number tags
+# are dropped from the comments.
+"""MonitorAgent: wires the telemetry subsystem into a live runtime.
+
+One agent per initialized process (``hvd.init()`` with ``HOROVOD_MONITOR=1``
+— see ``common/basics.py``).  Everything here is duck-typed against the
+engine/controller/sanitizer objects and imports no jax, so the agent (and
+the whole ``horovod_tpu_torch.monitor`` package) stays importable on the
+jax-free fast test tier.
+
+Responsibilities:
+
+- own the per-rank :class:`~.registry.MetricRegistry` and register the
+  collectors that refresh it from the engine, scheduler primitives,
+  response cache, in-flight ring and sanitizer;
+- encode this rank's periodic snapshot for the controller's low-priority
+  monitor frames (``monitor_source``) and decode peers' re-broadcast
+  snapshots into the :class:`~.aggregator.RankAggregator`
+  (``monitor_sink``), flushing the table at join-epoch boundaries;
+- version-gated fallback: a v2 server never echoes the monitor section, so
+  after a grace window the agent stops attaching frames and logs once —
+  local metrics keep working, cross-rank aggregation reports unavailable;
+- feed the sanitizer's HVD302 stall reports with the *laggards'* ledger
+  tails (``peer_ledger_report``) and the timeline with a ``monitor``
+  counter track;
+- serve ``/metrics`` + ``/health`` over HTTP on rank 0 when a port is
+  configured.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Dict, List, Optional
+
+from .aggregator import RankAggregator
+from .registry import MetricRegistry
+from ..trace.core import PHASES as _TRACE_PHASES
+from ..utils.logging import get_logger
+
+log = get_logger()
+
+# Rounds to keep attaching monitor frames while waiting for the server to
+# prove it speaks protocol v3 (echoing the MON1 section).  Generous: the
+# very first response already carries the echo on a v3 server.
+_PROTO_GRACE_ROUNDS = 64
+
+
+class MonitorAgent:
+    """Cross-rank telemetry agent for one runtime process."""
+
+    def __init__(self, engine=None, controller=None, rank: int = 0,
+                 world: int = 1, interval_s: float = 5.0, timeline=None,
+                 registry: Optional[MetricRegistry] = None):
+        self.rank = int(rank)
+        self.world = max(1, int(world))
+        self.interval_s = max(0.05, float(interval_s))
+        self.registry = registry if registry is not None else MetricRegistry()
+        self.aggregator = RankAggregator(self.world)
+        self._engine = engine
+        self._controller = controller
+        self._timeline = timeline
+        self._lock = threading.Lock()
+        self._last_frame = 0.0            # monotonic; 0 = send immediately
+        self._last_self_update = 0.0
+        self._proto_warned = False
+        self.frames_sent = 0
+        self.frames_received = 0
+        self._tl_last = 0.0
+        self._http = None
+        self._stall = None
+        self._peer_cb = self.peer_ledger_report    # stable bound-method ref
+        if engine is not None:
+            self._register_collectors(engine, controller)
+            engine.monitor = self
+            stall = getattr(engine, "stall", None)
+            if stall is not None and hasattr(stall, "peer_ledger_source"):
+                # Sanitizer mode: HVD302 reports quote the laggards'
+                # ledger tails from the aggregation table.
+                stall.peer_ledger_source = self._peer_cb
+                self._stall = stall
+        # Control-plane fault state (HVD303): set by the engine's
+        # _abort_engine hook; flips /health to "peer_dead" with the
+        # dead-rank list so operators see WHO died, not just that the
+        # fleet degraded.
+        self._peer_failure: Optional[dict] = None
+        # Readiness latch (docs/serving.md): /ready
+        # splits load-balancer admission from liveness.  A draining
+        # replica is perfectly HEALTHY (in-flight requests must finish,
+        # so /health stays ok) but must take no NEW traffic — the elastic
+        # drain path flips this to NotReady the moment the elastic launcher's
+        # cordon reaches the worker (elastic/worker.py), and the serving
+        # front door flips it around its own drain.
+        self._ready = True
+        self._not_ready_reason = ""
+        if controller is not None:
+            controller.monitor_source = self.encode_frame
+            controller.monitor_sink = self.on_frames
+            controller.on_join_epoch = self.on_join_epoch
+            # HVD303 attribution: PeerFailureError / RoundTimeoutError
+            # messages are enriched with the dead ranks' last snapshot
+            # ages and ledger tails from the aggregation table.
+            controller.fault_enricher = self.peer_failure_context
+            # Clean-LEAVE notices (protocol v6): the departed rank stops
+            # counting toward liveness, so /health stays ok — an orderly
+            # departure is not a degradation.
+            if hasattr(controller, "peer_leave_hook"):
+                controller.peer_leave_hook = self.on_peer_leave
+
+    # ----------------------------------------------------------- collectors
+    def _register_collectors(self, engine, controller) -> None:
+        reg = self.registry
+        self.cycle_hist = reg.histogram(
+            "hvd_cycle_time_us", "coordinator cycle wall time (us)")
+
+        def collect(reg: MetricRegistry) -> None:
+            reg.counter("hvd_cycles_total",
+                        "coordinator cycles run").set_total(
+                getattr(engine, "cycle_count", 0))
+            cyc = max(1, getattr(engine, "cycle_count", 0))
+            reg.gauge("hvd_cycle_us_avg",
+                      "mean coordinator cycle wall time (us)").set(
+                round(getattr(engine, "cycle_us_total", 0.0) / cyc, 2))
+            last = getattr(engine, "last_cycle_ts", 0.0)
+            reg.gauge("hvd_last_cycle_age_s",
+                      "seconds since the last coordinator cycle").set(
+                round(time.time() - last, 3) if last else -1)
+            reg.counter("hvd_negotiation_us_total",
+                        "cumulative negotiation wall time (us)").set_total(
+                getattr(engine, "negotiation_us_total", 0.0))
+            reg.counter("hvd_negotiation_cycles_total",
+                        "negotiation rounds run").set_total(
+                getattr(engine, "negotiation_cycles", 0))
+            reg.counter("hvd_pipeline_chunks_total",
+                        "fused-reduce chunks dispatched").set_total(
+                getattr(engine, "pipeline_chunks_total", 0))
+            reg.counter("hvd_pipeline_dispatches_total",
+                        "fused batches dispatched").set_total(
+                getattr(engine, "pipeline_dispatches", 0))
+            # FSDP prefetch lane: dispatches count allgather
+            # batches routed through the PREFETCH lane; overlapped counts
+            # the ones issued while an earlier bucket was still unsettled
+            # — overlapped/dispatches is the pipelining efficiency the
+            # prefetch-depth knob tunes.
+            reg.counter("hvd_prefetch_dispatches_total",
+                        "prefetch-lane allgather batches dispatched"
+                        ).set_total(
+                getattr(engine, "prefetch_dispatches", 0))
+            reg.counter("hvd_prefetch_overlapped_total",
+                        "prefetch allgathers overlapped with compute"
+                        ).set_total(
+                getattr(engine, "prefetch_overlapped", 0))
+            # Two-level allgather legs mirror the allreduce counters:
+            # intra legs ride ICI, cross legs ride DCN leaders.
+            reg.counter("hvd_hier_ag_dispatches_total",
+                        "two-level allgather batches dispatched").set_total(
+                getattr(engine, "hier_ag_dispatches", 0))
+            reg.counter("hvd_hier_ag_intra_legs_total",
+                        "intra-slice allgather legs run").set_total(
+                getattr(engine, "hier_ag_intra_legs", 0))
+            reg.counter("hvd_hier_ag_cross_legs_total",
+                        "cross-slice allgather legs run").set_total(
+                getattr(engine, "hier_ag_cross_legs", 0))
+            # Two-level broadcast legs: cross legs are the
+            # root→leader DCN exchange, intra legs the ICI fan-out.
+            reg.counter("hvd_hier_bcast_dispatches_total",
+                        "two-level broadcast batches dispatched").set_total(
+                getattr(engine, "hier_bcast_dispatches", 0))
+            reg.counter("hvd_hier_bcast_intra_legs_total",
+                        "intra-slice broadcast fan-out legs run").set_total(
+                getattr(engine, "hier_bcast_intra_legs", 0))
+            reg.counter("hvd_hier_bcast_cross_legs_total",
+                        "cross-slice broadcast leader legs run").set_total(
+                getattr(engine, "hier_bcast_cross_legs", 0))
+            reg.counter("hvd_slice_map_fallbacks_total",
+                        "HOROVOD_SLICE_MAP rejections (non-uniform "
+                        "slices); hierarchical collectives forced flat"
+                        ).set_total(
+                getattr(engine, "slice_map_fallbacks", 0))
+            queue = getattr(engine, "queue", None)
+            if queue is not None:
+                reg.gauge("hvd_queue_pending",
+                          "entries awaiting negotiation").set(
+                    queue.pending_count())
+            cache = getattr(engine, "cache", None)
+            if cache is not None:
+                reg.counter("hvd_program_cache_hits_total",
+                            "fused-program cache hits").set_total(cache.hits)
+                reg.counter("hvd_program_cache_misses_total",
+                            "fused-program cache misses").set_total(
+                    cache.misses)
+                reg.counter("hvd_program_cache_evictions_total",
+                            "fused-program cache evictions").set_total(
+                    cache.evictions)
+                reg.gauge("hvd_program_cache_size",
+                          "compiled fused programs held").set(len(cache))
+            ring = getattr(engine, "_inflight", None)
+            if ring is not None:
+                reg.gauge("hvd_inflight_depth",
+                          "dispatched-but-unsettled batches").set(len(ring))
+                reg.gauge("hvd_inflight_high_water",
+                          "in-flight window high-water mark").set(
+                    ring.high_water)
+                reg.counter("hvd_inflight_dispatched_total",
+                            "batches through the in-flight ring").set_total(
+                    ring.dispatched)
+            stall = getattr(engine, "stall", None)
+            stalled = getattr(stall, "stalled", None)
+            if stalled is not None:
+                reg.gauge("hvd_stalled_collectives",
+                          "collectives past the stall-warn threshold").set(
+                    len(stalled))
+            san = getattr(engine, "sanitizer", None)
+            if san is not None:
+                reg.gauge("hvd_sanitizer_ledger_entries",
+                          "entries in the sanitizer ledger").set(
+                    len(san.ledger))
+            sp = getattr(engine, "stateplane", None)
+            if sp is not None:
+                # Resilient state plane: commit freshness is
+                # the autoscaler's stale-state guard input, epoch/failure
+                # counters the recovery audit trail.
+                st = sp.status()
+                age = st.get("last_commit_age_s")
+                if age is None:
+                    # Same sentinel as the aggregator's fleet view: an
+                    # armed-but-never-committed rank is effectively
+                    # infinitely stale, never "fresher than everyone" —
+                    # a -1 here would hide exactly this rank from any
+                    # age > threshold alert while the autoscaler guard
+                    # is pinning the world size on its account.
+                    from .aggregator import NEVER_COMMITTED_AGE_S
+                    age = NEVER_COMMITTED_AGE_S
+                reg.gauge("hvd_last_commit_age_s",
+                          "seconds since the last state-plane commit "
+                          "(never committed = 1e12 sentinel)").set(age)
+                reg.gauge("hvd_ckpt_epoch",
+                          "this rank's in-memory committed epoch").set(
+                    st.get("epoch", -1))
+                reg.gauge("hvd_ckpt_durable_epoch",
+                          "this rank's newest on-disk epoch").set(
+                    st.get("durable_epoch", -1))
+                reg.counter("hvd_ckpt_write_failures_total",
+                            "abandoned checkpoint epochs").set_total(
+                    st.get("write_failures", 0))
+                reg.counter(
+                    "hvd_ckpt_chunks_total",
+                    "checkpoint-lane chunk writes dispatched").set_total(
+                    getattr(engine, "ckpt_chunks_dispatched", 0))
+            tracer = getattr(engine, "tracer", None)
+            if tracer is not None:
+                # Per-phase lifecycle histograms (horovod_tpu.trace):
+                # mirrored from the recorder's own buckets — visible at
+                # /metrics as hvd_trace_<phase>_us and in the CLI view.
+                # Once the two-level data plane engages, the recorder's
+                # payload grows reduce_intra/reduce_cross leg keys
+                # (core.REDUCE_LEGS) and the same loop materializes
+                # hvd_trace_reduce_intra_us / hvd_trace_reduce_cross_us —
+                # the DCN-vs-ICI attribution on /metrics.
+                try:
+                    hists = tracer.phase_histograms()
+                except Exception:  # noqa: BLE001 - telemetry only
+                    hists = {}
+                for phase, (counts, sum_us, count) in hists.items():
+                    reg.histogram(
+                        f"hvd_trace_{phase}_us",
+                        f"tensor-lifecycle {phase} phase (us)",
+                        buckets=tracer.buckets).set_cumulative(
+                        counts, sum_us, count)
+                reg.counter("hvd_trace_spans_total",
+                            "lifecycle spans committed").set_total(
+                    tracer.spans_committed)
+                reg.counter("hvd_trace_spans_dropped_total",
+                            "span claims dropped (ring full)").set_total(
+                    tracer.dropped)
+            ctl = controller if controller is not None \
+                else getattr(engine, "controller", None)
+            if ctl is not None:
+                st = ctl.cache_stats
+                reg.counter("hvd_response_cache_hits_total",
+                            "bit-announce cache hits").set_total(st.hits)
+                reg.counter("hvd_response_cache_misses_total",
+                            "full-announce cache misses").set_total(st.misses)
+                reg.counter("hvd_response_cache_invalidations_total",
+                            "response-cache slots dropped").set_total(
+                    st.invalidations)
+                reg.counter("hvd_response_cache_evictions_total",
+                            "coordinated evictions seen").set_total(
+                    st.evictions)
+                reg.counter("hvd_controller_bytes_sent_total",
+                            "negotiation request bytes").set_total(
+                    ctl.bytes_sent)
+                # Zero-RTT warm path (protocol v7): speculation outcomes
+                # and the in-flight round window.
+                reg.counter("hvd_spec_hits_total",
+                            "speculative verdicts validated").set_total(
+                    getattr(ctl, "spec_hits", 0))
+                reg.counter("hvd_spec_mispredicts_total",
+                            "speculative verdicts mispredicted").set_total(
+                    getattr(ctl, "spec_mispredicts", 0))
+                reg.counter("hvd_spec_rounds_total",
+                            "rounds whose verdict skipped the "
+                            "response wait").set_total(
+                    getattr(ctl, "spec_rounds", 0))
+                reg.gauge("hvd_inflight_rounds",
+                          "negotiation responses currently unread").set(
+                    getattr(ctl, "inflight_rounds", 0))
+                reg.gauge("hvd_inflight_rounds_high_water",
+                          "in-flight negotiation round high-water").set(
+                    getattr(ctl, "inflight_high_water", 0))
+                reg.counter("hvd_monitor_frame_bytes_total",
+                            "monitor side-channel bytes sent").set_total(
+                    getattr(ctl, "monitor_bytes_sent", 0))
+            reg.counter("hvd_monitor_frames_sent_total",
+                        "monitor snapshots shipped").set_total(
+                self.frames_sent)
+            reg.counter("hvd_monitor_frames_received_total",
+                        "peer snapshots received").set_total(
+                self.frames_received)
+            reg.counter("hvd_monitor_table_flushes_total",
+                        "aggregation-table flushes (join epochs)").set_total(
+                self.aggregator.flushes)
+
+        reg.register_collector(collect)
+
+    # ------------------------------------------------------------ snapshots
+    def local_snapshot(self) -> dict:
+        """This rank's side-channel payload (also the self-entry the
+        aggregator keeps fresh in single-controller mode)."""
+        eng = self._engine
+        snap: dict = {"rank": self.rank, "ts": round(time.time(), 3)}
+        if eng is not None:
+            cyc = getattr(eng, "cycle_count", 0)
+            snap["cycle"] = getattr(eng, "_cycle_index", 0)
+            snap["cycle_us_avg"] = (
+                round(getattr(eng, "cycle_us_total", 0.0) / cyc, 2)
+                if cyc else None)
+            last = getattr(eng, "last_cycle_ts", 0.0)
+            snap["last_cycle_age_s"] = (
+                round(time.time() - last, 3) if last else None)
+            stall = getattr(eng, "stall", None)
+            stalled = getattr(stall, "stalled", None)
+            snap["stalled"] = sorted(stalled) if stalled else []
+            san = getattr(eng, "sanitizer", None)
+            if san is not None:
+                snap["ledger"] = [e.render() for e in san.tail(8)]
+            sp = getattr(eng, "stateplane", None)
+            if sp is not None:
+                # State-plane block: rides the side-channel so
+                # rank 0's /health can report fleet commit age and the
+                # stale-state guard has its input.  Version-safe: peers
+                # without the plane just omit the key.
+                try:
+                    snap["checkpoint"] = sp.status()
+                except Exception:  # noqa: BLE001 - telemetry only
+                    pass
+            tracer = getattr(eng, "tracer", None)
+            if tracer is not None:
+                # Compact per-cycle phase digest (horovod_tpu.trace):
+                # rides the MON1 side-channel inside this JSON blob —
+                # size-capped by the recorder (DIGEST_* caps) and version-
+                # safe (pre-trace peers ignore unknown snapshot keys).
+                try:
+                    snap["trace"] = tracer.digest()
+                except Exception:  # noqa: BLE001 - telemetry only
+                    pass
+        snap["metrics"] = self.registry.snapshot()
+        return snap
+
+    def _update_self(self, force: bool = False) -> None:
+        now = time.monotonic()
+        with self._lock:
+            if not force and now - self._last_self_update < self.interval_s:
+                return
+            self._last_self_update = now
+        self.aggregator.update(self.rank, self.local_snapshot())
+
+    # ------------------------------------------- controller frame callbacks
+    def encode_frame(self) -> Optional[bytes]:
+        """``monitor_source`` for the controller: a serialized snapshot
+        every ``interval_s``, else None (the round carries no monitor
+        bytes).  Runs on the cycle thread inside the negotiation round —
+        must be cheap and must NEVER raise (the controller guards it too).
+        """
+        ctl = self._controller
+        if ctl is not None and not ctl.peer_monitor_proto \
+                and getattr(ctl, "rounds", 0) > _PROTO_GRACE_ROUNDS:
+            # Version-gated fallback: the server never echoed the monitor
+            # section — it predates protocol v3.  Stop paying frame bytes;
+            # local metrics (and the HTTP exporter's own-rank view) keep
+            # working without cross-rank aggregation.
+            if not self._proto_warned:
+                self._proto_warned = True
+                log.warning(
+                    "monitor: coordinator does not speak the monitor "
+                    "side-channel (protocol < v3); cross-rank aggregation "
+                    "disabled, local metrics only")
+            return None
+        now = time.monotonic()
+        with self._lock:
+            if now - self._last_frame < self.interval_s:
+                return None
+            self._last_frame = now
+        snap = self.local_snapshot()
+        blob = json.dumps(snap, separators=(",", ":")).encode()
+        if len(blob) > 48 * 1024:
+            # Stay far inside the server's per-blob cap (64KB): a
+            # pathological metric/ledger explosion degrades to the core
+            # health fields rather than being dropped wholesale.
+            snap.pop("metrics", None)
+            snap["ledger"] = (snap.get("ledger") or [])[-2:]
+            blob = json.dumps(snap, separators=(",", ":")).encode()
+            if len(blob) > 64 * 1024:   # still absurd: skip this interval
+                return None
+        self.frames_sent += 1
+        return blob
+
+    def on_frames(self, blobs: List[tuple]) -> None:
+        """``monitor_sink``: peers' (and our own, echoed) fresh snapshots
+        re-broadcast by the server this round."""
+        for rank, blob in blobs:
+            try:
+                self.aggregator.update(rank, json.loads(blob.decode()))
+                self.frames_received += 1
+            except (ValueError, UnicodeDecodeError):
+                log.warning("monitor: undecodable snapshot from rank %s",
+                            rank)
+        self._emit_timeline()
+
+    def on_join_epoch(self, last_rank: int = -1) -> None:
+        """Join epoch ended: the table's snapshots describe an uneven
+        world — flush, like the response-cache slot table."""
+        self.aggregator.flush()
+
+    # ------------------------------------------------------------ engine hook
+    def on_cycle(self, cycle_us: float) -> None:
+        """Per-cycle engine hook (coordinator thread): histogram the cycle
+        time; keep the self-entry fresh at the reporting interval so
+        ``/health`` works in single-controller mode too."""
+        try:
+            self.cycle_hist.observe(cycle_us)
+            if self._controller is None:
+                self._update_self()
+                self._emit_timeline()
+        except Exception:  # noqa: BLE001 - telemetry must never cost a cycle
+            pass
+
+    def _emit_timeline(self) -> None:
+        tl = self._timeline
+        if tl is None or not getattr(tl, "enabled", False):
+            return
+        now = time.monotonic()
+        if now - self._tl_last < self.interval_s:
+            return
+        self._tl_last = now
+        skew = self.aggregator.skew()
+        ctl = self._controller
+        tl.counter("monitor", {
+            "ranks_reporting": len(self.aggregator.ranks()),
+            "cycle_us_spread": skew.get("cycle_us_spread") or 0,
+            "monitor_bytes":
+                getattr(ctl, "monitor_bytes_sent", 0) if ctl else 0})
+
+    # ------------------------------------------------------- fault hooks
+    def on_peer_leave(self, ranks) -> None:
+        """Controller hook (protocol v6 leave notice): clean departures —
+        marked in the aggregator so liveness accounting skips them;
+        deliberately NOT a fault latch (``/health`` stays ok)."""
+        for r in ranks or []:
+            self.aggregator.mark_left(int(r))
+
+    def on_peer_failure(self, dead_ranks, reason: str = "") -> None:
+        """Engine hook (``_abort_engine``): latch the control-plane fault
+        so ``/health`` reports ``peer_dead`` with attribution."""
+        self._peer_failure = {
+            "dead_ranks": sorted(int(r) for r in (dead_ranks or [])),
+            "reason": str(reason)[:2000],
+            "ts": round(time.time(), 3),
+        }
+
+    def peer_failure_context(self, dead_ranks=None) -> str:
+        """Attribution block for HVD303 errors: the dead ranks' last
+        snapshot ages and ledger tails from the aggregation table (or, for
+        unattributed round timeouts, every rank's snapshot age — the
+        stalest rank is the prime suspect)."""
+        table = self.aggregator.table()
+        if not table:
+            return ""
+        ranks = (sorted(int(r) for r in dead_ranks)
+                 if dead_ranks else sorted(table))
+        lines = []
+        for r in ranks:
+            rec = table.get(r)
+            if rec is None:
+                lines.append(f"rank {r}: no snapshot ever received")
+                continue
+            lines.append(f"rank {r}: last snapshot {rec['age_s']:g}s ago")
+            for t in (rec["snap"].get("ledger") or [])[-4:]:
+                lines.append(f"  {t}")
+        if not lines:
+            return ""
+        return ("monitor attribution (snapshot ages via side-channel):\n"
+                + "\n".join(lines))
+
+    # --------------------------------------------------------- readiness
+    def set_ready(self, ready: bool, reason: str = "") -> None:
+        """Flip the /ready verdict.  Liveness is DERIVED (snapshot ages,
+        stall state); readiness is DECLARED — cordon/drain and serving
+        front-door state own it, so a load balancer stops routing to a
+        draining replica while /health still reads ok."""
+        self._ready = bool(ready)
+        self._not_ready_reason = "" if ready else str(reason)[:500]
+
+    def readiness(self) -> dict:
+        """The ``/ready`` JSON body: the declared latch AND the derived
+        fault state — a rank whose control plane died is not ready either,
+        whatever the latch says."""
+        pf = self._peer_failure
+        if pf is not None:
+            return {"ready": False,
+                    "reason": f"peer_dead: {pf['reason'] or pf['dead_ranks']}"}
+        return {"ready": self._ready,
+                "reason": self._not_ready_reason if not self._ready else ""}
+
+    # -------------------------------------------------------------- exports
+    def health(self) -> dict:
+        self._update_self(force=True)
+        out = self.aggregator.health(self.interval_s)
+        out["ready"] = self.readiness()["ready"]
+        pf = self._peer_failure
+        if pf is not None:
+            # A declared control-plane fault outranks every derived
+            # status: the fleet is not "degraded", it lost a member.
+            out["status"] = "peer_dead"
+            out["peer_dead"] = pf["dead_ranks"]
+            out["peer_dead_reason"] = pf["reason"]
+        return out
+
+    def render_prometheus(self) -> str:
+        self._update_self(force=True)
+        out = [self.registry.to_prometheus(f'rank="{self.rank}"')]
+        # Aggregated per-rank series from the side-channel table.
+        table = self.aggregator.table()
+        if table:
+            out.append("# TYPE hvd_rank_alive gauge")
+            for r in sorted(table):
+                alive = self.aggregator.is_alive(table[r]["age_s"],
+                                                 self.interval_s)
+                out.append(f'hvd_rank_alive{{rank="{r}"}} {1 if alive else 0}')
+            out.append("# TYPE hvd_rank_cycle_us_avg gauge")
+            for r in sorted(table):
+                v = table[r]["snap"].get("cycle_us_avg")
+                if v is not None:
+                    out.append(f'hvd_rank_cycle_us_avg{{rank="{r}"}} {v:g}')
+            out.append("# TYPE hvd_rank_stalled_collectives gauge")
+            for r in sorted(table):
+                n = len(table[r]["snap"].get("stalled") or [])
+                out.append(
+                    f'hvd_rank_stalled_collectives{{rank="{r}"}} {n}')
+        # Windowed trend gauges (autoscale policy inputs): emitted only
+        # once their EWMA window fills — absence IS the null.
+        summary = self.aggregator.summary()
+        for name in ("cycle_us_spread_trend", "queue_depth_trend",
+                     "request_rate", "request_rate_trend",
+                     "latency_p99_ms"):
+            v = summary.get(name)
+            if v is not None:
+                out.append(f"# TYPE hvd_{name} gauge")
+                out.append(f"hvd_{name} {v:g}")
+        return "\n".join(out) + "\n"
+
+    def dump(self) -> dict:
+        """Raw JSON snapshot (``/snapshot``; the CLI pretty-prints it)."""
+        self._update_self(force=True)
+        return {"rank": self.rank, "world": self.world,
+                "health": self.aggregator.health(self.interval_s),
+                "table": {str(r): rec["snap"]
+                          for r, rec in self.aggregator.table().items()}}
+
+    def peer_ledger_report(self) -> str:
+        """Laggard attribution block for HVD302 stall reports: every peer
+        rank's last submissions from the aggregation table, plus — when
+        the peers run with tracing armed — the phase each laggard is
+        currently stuck in and its last completed cycle's phase breakdown
+        (the trace digest that rode the same side-channel)."""
+        tails = self.aggregator.peer_ledger_tails(exclude_rank=self.rank)
+        table = self.aggregator.table()
+
+        def _has_trace(rec):
+            tr = rec["snap"].get("trace") or {}
+            return tr.get("open") or tr.get("cycles")
+
+        if not tails and not any(_has_trace(rec) for r, rec in table.items()
+                                 if r != self.rank):
+            return ""
+        lines = []
+        ranks = set(tails) | {r for r in table if r != self.rank}
+        for r in sorted(ranks):
+            if r in tails:
+                lines.append(f"rank {r} last submissions:")
+                lines.extend(f"  {t}" for t in tails[r])
+            lines.extend(f"  {t}" for t in self._peer_phase_lines(table, r))
+        return "peer ledgers (via monitor side-channel):\n" + \
+            "\n".join(lines)
+
+    @staticmethod
+    def _peer_phase_lines(table: dict, rank: int) -> List[str]:
+        """Trace-digest attribution for one peer: current phase per open
+        span, and the last completed cycle's per-phase microseconds."""
+        rec = table.get(rank)
+        tr = (rec["snap"].get("trace") or {}) if rec else {}
+        lines: List[str] = []
+        for name, phase in sorted((tr.get("open") or {}).items()):
+            lines.append(f"rank {rank} currently in phase {phase}: {name}")
+        cycles = tr.get("cycles") or []
+        if cycles:
+            row = cycles[-1]
+            # [cycle, n_tensors, queue, negotiation, copy_in, reduce, drain]
+            body = "  ".join(f"{p}={v}us"
+                             for p, v in zip(_TRACE_PHASES, row[2:]))
+            lines.append(f"rank {rank} last cycle {row[0]} "
+                         f"({row[1]} tensors): {body}")
+        return lines
+
+    # ------------------------------------------------------------ lifecycle
+    def serve_http(self, port: int, addr: str = ""):
+        from .http import MonitorHTTPServer
+        self._http = MonitorHTTPServer(self, port=port, addr=addr).start()
+        return self._http
+
+    @property
+    def http_port(self) -> Optional[int]:
+        return self._http.port if self._http is not None else None
+
+    def close(self) -> None:
+        if self._http is not None:
+            self._http.stop()
+            self._http = None
+        ctl = self._controller
+        if ctl is not None:
+            # The agent owns the controller hooks it installed.
+            ctl.monitor_source = None
+            ctl.monitor_sink = None
+            ctl.on_join_epoch = None
+            # Like the stall source below: only uninstall OUR enricher —
+            # a replacement agent may have installed its own.
+            if getattr(ctl, "fault_enricher", None) is not None and \
+                    getattr(ctl.fault_enricher, "__self__", None) is self:
+                ctl.fault_enricher = None
+        if self._stall is not None:
+            # A replacement agent may have re-installed its own source
+            # (e.g. the bench A/B attaches a temporary agent to a live
+            # engine): only uninstall OUR callback, never someone else's.
+            if getattr(self._stall, "peer_ledger_source", None) \
+                    is self._peer_cb:
+                self._stall.peer_ledger_source = None
+            self._stall = None
+        eng = self._engine
+        if eng is not None and getattr(eng, "monitor", None) is self:
+            eng.monitor = None

@@ -1,6 +1,11 @@
 # Ported from horovod_tpu/ops/engine.py: CollectiveType 59-66,
 # TensorTableEntry 68-148 (without the partition, fast-lane, prefetch,
-# sharded, donation and span fields), _fusion_key 151-169,
+# sharded and donation fields), _SPAN_DROPPED/_live_span 178-184,
+# _fusion_key 151-169, the cycle and negotiation accounting 350-377, the
+# tracer 378-386 and 471-474, the monitor's fault hook 557-564, the
+# timeline lanes and trace stamps 576-587, 682-685, 957-977, 1021-1047,
+# 1114-1133, 1165-1213, 1270-1272, 1346-1350, 1368-1380, 1391 and
+# 1399-1429, the two-level span share 1825-1840,
 # start/quiesce/stop/_abort_engine/_settle_queued 416-598,
 # enqueue/enqueue_group 610-697, synchronize/poll 802-850, the cycle
 # 911-1133, _compute_response_list 1136-1335 (the in-flight abort on a
@@ -88,8 +93,30 @@ allgather as local then cross, broadcast as the root's cross leg then the
 local fan-out.  Each is bitwise the flat path where the JAX engine's is
 (min/max, data movement, sums of exact values, the VHD's schedule).
 
+Observability is the JAX engine's, at its sites: the Chrome timeline
+(``utils/timeline.py``: a ``QUEUE``, ``NEGOTIATE_<type>``, collective and
+``INFLIGHT`` lane per tensor, cycle marks, the ``negotiation``,
+``pipeline`` and ``reduce`` counter tracks), the collective tracer
+(``trace/``: each tensor's span through queue, negotiation, copy_in,
+reduce and drain, armed by ``HOROVOD_TRACE``) and the cycle accounting the
+monitor agent reads (``monitor/agent.py``, which reaches the engine by
+attribute only).  The collective lane is ``NCCL_<type>`` where the JAX
+engine's is ``XLA_<type>`` (``collective_lane``).  On the card a batch's
+host dispatch returns before its work ends, so the reduce phase is the
+card's own time: armed (a tracer, or a timeline with a file), a batch
+records CUDA events on the engine stream before its first pack and after
+each dtype group's pack, collective and unpack, and the span's reduce
+phase is the elapsed time from the first to the last once the done event
+has completed (the in-flight watcher reads them after its wait; an
+inline-settled batch is read at a later cycle's drain, or at ``stop``;
+the cycle thread never waits for them).  The pack, collective and unpack
+times add up in ``reduce_pack_us_total``, ``reduce_collective_us_total``
+and ``reduce_unpack_us_total`` (on the CPU, where the work is done when
+the call returns, host clock times).  Disarmed, every site is one
+attribute check and no event is made beyond the done event.
+
 Out of this slice: the fast lane, partitioning, chunked pipelining and the
-checkpoint lane; the timeline, tracer, monitor, sanitizer and autotuner.
+checkpoint lane; the sanitizer and the autotuner.
 """
 
 from __future__ import annotations
@@ -111,11 +138,19 @@ from . import fusion
 from .scheduler import (FUSED_LANE, InflightRing, StallInspector, TensorQueue,
                         pop_gradient_batches)
 from ..common.exceptions import ControlPlaneError
+from ..trace import maybe_install
 from ..utils.logging import get_logger
 
 log = get_logger()
 
 WIRE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def collective_lane(ctype) -> str:
+    """The timeline's lane for a collective's execution: upstream
+    Horovod's ``NCCL_<type>``, where the JAX engine writes ``XLA_<type>``.
+    The one place the two names are mapped."""
+    return f"NCCL_{ctype.name}"
 
 
 class CollectiveType(enum.Enum):
@@ -159,6 +194,10 @@ class TensorTableEntry:
     # scheduling); must be identical across ranks for a given name.
     priority: int = 0
     enqueue_time: float = 0.0
+    # Lifecycle span (trace.core.TensorSpan) while tracing is armed; the
+    # _SPAN_DROPPED sentinel once a claim was dropped (ring full); None
+    # before the first drain or when disarmed.
+    span: Any = None
     # Where unpack writes: the result's tensor on the engine's device
     # (``tensor`` itself for the in-place forms whose result keeps its
     # dtype; made at submission when not given).  ``target``, when set, is
@@ -176,6 +215,64 @@ class TensorTableEntry:
     done_event: Any = None           # CUDA event: the outputs are written
     error: Optional[BaseException] = None
     done: threading.Event = dataclasses.field(default_factory=threading.Event)
+
+
+# A dropped span claim: the entry stays untraced (claimed at most once).
+_SPAN_DROPPED = object()
+
+
+def _live_span(e):
+    """The entry's span, or None when untraced or dropped."""
+    sp = e.span
+    return None if (sp is None or sp is _SPAN_DROPPED) else sp
+
+
+class _Timing:
+    """One batch's reduce-phase marks: CUDA events with timing on the card
+    (the first before the first pack, then one after each dtype group's
+    pack, collective and unpack), host ``time.monotonic()`` seconds on the
+    CPU (``host``).  ``pending`` holds an inline-settled batch's spans
+    until the card is done, for the recorder that claimed them."""
+
+    __slots__ = ("host", "marks", "t_launch", "pending", "recorder",
+                 "t_settle")
+
+    def __init__(self, host: bool):
+        self.host = host
+        self.marks: List[Any] = []
+        self.t_launch = 0.0
+        self.pending: List[Any] = []
+        self.recorder = None
+        self.t_settle = 0.0
+
+    def mark(self) -> None:
+        if self.host:
+            self.marks.append(time.monotonic())
+        else:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+
+    def reduce_s(self) -> float:
+        """The first mark to the last, in seconds (on the card only once
+        they have completed)."""
+        a, b = self.marks[0], self.marks[-1]
+        return b - a if self.host else a.elapsed_time(b) * 1e-3
+
+    def parts_us(self) -> Tuple[float, float, float]:
+        """(pack, collective, unpack) microseconds summed over the groups;
+        on the card only once the marks have completed."""
+        m = self.marks
+        if self.host:
+            def gap(a, b):
+                return (b - a) * 1e6
+        else:
+            def gap(a, b):
+                return a.elapsed_time(b) * 1e3
+        out = [0.0, 0.0, 0.0]
+        for i in range(1, len(m)):
+            out[(i - 1) % 3] += gap(m[i - 1], m[i])
+        return out[0], out[1], out[2]
 
 
 def _fusion_key(e: TensorTableEntry) -> Tuple:
@@ -389,6 +486,44 @@ class CollectiveEngine:
         # On the CPU the gloo collective blocks the cycle thread until it
         # completes; on the card the launches are asynchronous.
         self._serialize_launches = state.device.type == "cpu"
+        # Control-plane observability: cumulative negotiation wall time and
+        # round count (multi-process mode only); the timeline gets a
+        # per-cycle counter track.
+        self.negotiation_us_total = 0.0
+        self.negotiation_cycles = 0
+        self.last_negotiation_us = 0.0
+        # Whole-cycle wall-time accounting (drain + negotiate + fuse +
+        # dispatch), which the monitor aggregates into slowest-rank and
+        # cycle-time-spread attribution.  `monitor` is a MonitorAgent that
+        # init() installs when HOROVOD_MONITOR=1: None costs one attribute
+        # check a cycle.
+        self.cycle_us_total = 0.0
+        self.cycle_count = 0
+        self.last_cycle_ts = 0.0
+        self._cycle_index = 0
+        self.monitor = None
+        # Collective tracing (HOROVOD_TRACE, trace/): per-tensor lifecycle
+        # spans stamped through the cycle below.  None when disarmed —
+        # every stamp site is then one attribute check.
+        self.tracer = maybe_install(cfg, rank=getattr(state, "rank", 0))
+        # The reduce phase's parts, summed over the timed batches (armed
+        # only): the card's time on its stream on the card.
+        self.reduce_pack_us_total = 0.0
+        self.reduce_collective_us_total = 0.0
+        self.reduce_unpack_us_total = 0.0
+        self.timed_batches = 0
+        self._timing: Optional[_Timing] = None    # the executing batch's
+        self._unread: List[_Timing] = []          # inline, card unread
+
+    @property
+    def _timeline(self):
+        """The runtime's timeline (``basics``), or None."""
+        return getattr(self._state, "timeline", None)
+
+    def _armed(self) -> bool:
+        """Whether batches record their reduce-phase marks."""
+        tl = self._timeline
+        return self.tracer is not None or (tl is not None and tl.enabled)
 
     # ------------------------------------------------------------- lifecycle
     def start(self):
@@ -438,6 +573,14 @@ class CollectiveEngine:
             # synchronize() must never outlive the watcher unsignalled.
             self._inflight.stop()
             self._inflight = None
+        if self._unread:
+            # Inline-settled batches whose card time is still unread: the
+            # engine is going, so wait for them here.
+            self._read_timings(wait=True)
+        if self.tracer is not None:
+            # After the ring: settling commits spans, and the trace file
+            # must hold them all before the final flush.
+            self.tracer.close()
 
     def _abort_engine(self, exc: BaseException, busy: bool = False):
         """Clean engine shutdown on a control-plane fault (HVD303).
@@ -488,6 +631,13 @@ class CollectiveEngine:
                 ctl.fail_join(exc)
             except Exception:  # noqa: BLE001 - keep the abort going
                 log.exception("failing join waiters failed")
+        mon = self.monitor
+        if mon is not None:
+            try:
+                mon.on_peer_failure(getattr(exc, "dead_ranks", []) or [],
+                                    str(exc))
+            except Exception:  # noqa: BLE001 - telemetry only
+                log.exception("monitor peer-failure hook failed")
         # Stop cycling: further lock-step rounds against a stopped server
         # would only churn errors.  basics.shutdown() still runs the full
         # teardown (thread join, controller close) afterwards.
@@ -498,8 +648,18 @@ class CollectiveEngine:
         one implementation of the no-waiter-may-hang invariant for the
         pre-negotiation stage (both _abort_engine's drain and the
         enqueue-vs-abort race path funnel through here)."""
+        tl = self._timeline
+        tr = self.tracer
         for e in entries:
             e.error = exc
+            if tl is not None:
+                tl.end_activity(e.name, "QUEUE")
+            sp = _live_span(e) if tr is not None else None
+            if sp is not None:
+                # Requeued entries may already carry a claimed span: commit
+                # it as aborted so the ring slot is reclaimable.
+                sp.error = True
+                tr.commit(sp)
             self.queue.mark_done(e)
             e.done.set()
 
@@ -575,6 +735,10 @@ class CollectiveEngine:
                 for e in entries:
                     self._handles.pop(e.handle, None)
             raise
+        tl = self._timeline
+        if tl is not None:
+            for e in entries:
+                tl.start_activity(e.name, "QUEUE")
         fault = self._fault
         if fault is not None:
             # Lost the race with _abort_engine (the fault landed between
@@ -711,9 +875,29 @@ class CollectiveEngine:
             self._run_cycle_locked()
 
     def _run_cycle_locked(self):
+        t_cycle0 = time.perf_counter()
+        self._cycle_index += 1
+        tl = self._timeline
+        if tl is not None:
+            tl.mark_cycle(self._cycle_index)
+        if self._unread:
+            self._read_timings()
         entries = self.queue.drain()
         if not entries and self.controller is None and not self._backlog:
             return
+        tr = self.tracer
+        t_trace0 = t_drain = 0.0
+        if tr is not None:
+            t_drain = time.monotonic()
+            t_trace0 = t_drain - (time.perf_counter() - t_cycle0)
+            for e in entries:
+                if e.span is None:
+                    # The queue phase closes at this first drain; requeued
+                    # entries keep their span (still in negotiation).  A
+                    # dropped claim latches the sentinel: claim at most
+                    # once per entry.
+                    e.span = tr.begin(e.name, e.enqueue_time, t_drain) \
+                        or _SPAN_DROPPED
         # Multi-process mode: every rank must complete a (possibly empty)
         # lock-step negotiation round each cycle, or peers with pending
         # tensors would block on this rank's missing frame.
@@ -739,11 +923,42 @@ class CollectiveEngine:
                     self._abort_engine(exc, busy=bool(entries))
             for e in entries:
                 e.error = exc
+                sp = _live_span(e) if tr is not None else None
+                if sp is not None:
+                    sp.error = True
+                    tr.commit(sp)
                 self.queue.mark_done(e)
                 e.done.set()
             return
         if not_ready:
             self.queue.requeue(not_ready)
+        t_ready = 0.0
+        if tr is not None and responses:
+            # Globally-ready verdict: the negotiation phase closes.  The
+            # cycle id is the cross-rank correlation key — the controller's
+            # lock-step round counter, the same on every rank for the same
+            # round; alone, the local cycle index.
+            t_ready = time.monotonic()
+            ctl = self.controller
+            cyc_id = ctl.rounds if ctl is not None else self._cycle_index
+            for batch in responses:
+                for e in batch:
+                    sp = _live_span(e)
+                    if sp is None:
+                        # ONLY synthesized join entries claim here (they
+                        # never drained, so ready-time is their drain).  An
+                        # ordinary entry whose drain-time claim was dropped
+                        # stays untraced.
+                        if e.span is not None or \
+                                not getattr(e, "trace_synthesized", False):
+                            continue
+                        sp = tr.begin(e.name, e.enqueue_time, t_ready)
+                        e.span = sp or _SPAN_DROPPED
+                    if sp is not None:
+                        sp.t_ready = t_ready
+                        sp.cycle = cyc_id
+                        if ctl is not None and sp.slot < 0:
+                            sp.slot = ctl.slot_of(e)
         ring = self._inflight_ring()
         if ring is None:
             for batch in responses:
@@ -769,6 +984,24 @@ class CollectiveEngine:
             # Leftovers must not wait out a long cycle timer: run the next
             # cycle (and its negotiation round) immediately.
             self._wake.set()
+        if responses and tl is not None and tl.enabled:
+            # A port batch is one chunk: the port has no chunked pipelining.
+            tl.counter("pipeline", {
+                "chunks": len(responses),
+                "inflight": len(self._inflight)
+                if self._inflight is not None else 0})
+        if tr is not None and responses:
+            ctl = self.controller
+            tr.cycle(ctl.rounds if ctl is not None else self._cycle_index,
+                     t_trace0, t_drain, t_ready, time.monotonic(),
+                     sum(len(b) for b in responses),
+                     self.last_negotiation_us if ctl is not None else 0.0)
+        dt_us = (time.perf_counter() - t_cycle0) * 1e6
+        self.cycle_us_total += dt_us
+        self.cycle_count += 1
+        self.last_cycle_ts = time.time()
+        if self.monitor is not None:
+            self.monitor.on_cycle(dt_us)
 
     # --------------------------------------------------------- negotiation
     def _global_nbytes(self, e: TensorTableEntry) -> int:
@@ -803,7 +1036,25 @@ class CollectiveEngine:
             # needs, deadlocking the fleet.
             self.controller.spec_dispatch_ok = (
                 not self._serialize_launches and self.max_inflight > 1)
+            t0 = time.perf_counter()
             ready, errored = self.controller.negotiate(entries)
+            dt_us = (time.perf_counter() - t0) * 1e6
+            self.negotiation_us_total += dt_us
+            self.negotiation_cycles += 1
+            self.last_negotiation_us = dt_us
+            tl0 = self._timeline
+            if tl0 is not None and tl0.enabled:
+                st = self.controller.cache_stats
+                ctl0 = self.controller
+                tl0.counter("negotiation", {
+                    "us": round(dt_us, 1), "cache_hits": st.hits,
+                    "cache_misses": st.misses,
+                    "cache_invalidations": st.invalidations,
+                    "spec_hits": getattr(ctl0, "spec_hits", 0),
+                    "spec_mispredicts": getattr(ctl0, "spec_mispredicts",
+                                                0),
+                    "inflight_rounds": getattr(ctl0, "inflight_rounds",
+                                               0)})
             # Per-tensor negotiation failures (shape/dtype divergence across
             # ranks): fail ONLY those waiters; the runtime stays up
             # (reference: per-tensor error Responses, SURVEY.md N2).
@@ -822,8 +1073,16 @@ class CollectiveEngine:
                         # controller's announce bookkeeping so a retried op
                         # reusing the name renegotiates from scratch.
                         self.controller.forget(e)
+            tl = self._timeline
+            tr0 = self.tracer
             for e, msg in errored:
                 e.error = NegotiationError(msg)
+                if tl is not None:
+                    tl.end_activity(e.name, "QUEUE")
+                sp = _live_span(e) if tr0 is not None else None
+                if sp is not None:
+                    sp.error = True
+                    tr0.commit(sp)
                 self.queue.mark_done(e)
                 # A failed entry is finished: clear the stall inspector's
                 # live-stall state (and warn latch) like any completion.
@@ -872,6 +1131,11 @@ class CollectiveEngine:
                         and getattr(ctl, "spec_ready_after", 0) > 0
                         and getattr(ctl, "spec_dispatch_ok", False)):
                     self._inflight.abort(exc_left)
+        tl = self._timeline
+        if tl is not None:
+            for e in entries:
+                tl.end_activity(e.name, "QUEUE")
+                tl.start_activity(e.name, f"NEGOTIATE_{e.ctype.name}")
         self.stall.check(entries + not_ready)
 
         # Batching must be a pure function of the NEGOTIATED entry order —
@@ -918,45 +1182,143 @@ class CollectiveEngine:
         once the batch's done event has fired, so the cycle thread proceeds
         straight to negotiating the next round while the device executes
         this one."""
+        tl = self._timeline
+        if tl is not None:
+            for e in batch:
+                tl.end_activity(e.name, f"NEGOTIATE_{e.ctype.name}")
+                tl.start_activity(e.name, collective_lane(e.ctype))
         try:
             results = self._execute_batch(batch)
         except BaseException as exc:  # noqa: BLE001 - propagate to waiters
             self._settle_batch(batch, None, exc)
             return
+        timing = results[2]
+        if timing is not None:
+            # copy_in closes: on the card once the batch's work has been
+            # handed to its stream, reduce running from there for the
+            # card's time; on the CPU, where the work ran in the call,
+            # at its first pack.
+            timing.t_launch = (timing.marks[0] if timing.host
+                               else time.monotonic())
+            tr = self.tracer
+            if tr is not None:
+                for e in batch:
+                    sp = _live_span(e)
+                    if sp is not None:
+                        sp.t_launch = timing.t_launch
         self.pipeline_dispatches += 1
         ring = self._inflight_ring()
         if ring is None:
             self._settle_batch(batch, results)
         else:
+            if tl is not None:
+                for e in batch:
+                    tl.start_activity(e.name, "INFLIGHT")
             ring.submit(batch, results)
 
     def _settle_batch(self, batch: List[TensorTableEntry], results,
-                      error: Optional[BaseException] = None):
+                      error: Optional[BaseException] = None,
+                      inflight: bool = False):
         """Completion epilogue (cycle thread inline, or the in-flight
-        watcher): assign results/error, release waiters.  Must never
-        raise — a lost settle hangs synchronize()."""
+        watcher): assign results/error, close timeline lanes, stamp the
+        spans, release waiters.  Must never raise — a lost settle hangs
+        synchronize().
+
+        The spans' reduce phase: the host's on the CPU (the work is done
+        when the dispatch returns), the card's CUDA-event time on the
+        card, read here when the batch has completed (the watcher's
+        settle); an inline settle on the card releases the waiters before
+        the card is done, so its spans wait in ``_unread`` for a later
+        cycle."""
+        tl = self._timeline
+        tr = self.tracer
+        t_seen = time.monotonic() if tr is not None else 0.0
+        timing = results[2] if results is not None else None
         if error is None:
-            outs, done_event = results
+            outs, done_event = results[0], results[1]
             for e, r in zip(batch, outs):
                 e.result = r
                 e.done_event = done_event
         else:
             for e in batch:
                 e.error = error
+        ok = timing is not None and error is None
+        card = ok and not timing.host
+        complete = card and inflight and results[1].query()
+        if ok and (timing.host or complete):
+            self._add_parts(timing)
+            # The reduce phase's end: the host's at the last unpack; the
+            # card's time from the launch, but never past this settle.
+            t_result = (timing.marks[-1] if timing.host else
+                        min(timing.t_launch + timing.reduce_s(), t_seen))
+        else:
+            t_result = t_seen
         for e in batch:
             try:
+                if tl is not None:
+                    if inflight:
+                        tl.end_activity(e.name, "INFLIGHT")
+                    tl.end_activity(e.name, collective_lane(e.ctype))
+                sp = _live_span(e) if tr is not None else None
+                if sp is not None:
+                    sp.error = error is not None
+                    if card and not complete:
+                        timing.pending.append(sp)
+                        timing.recorder = tr
+                    else:
+                        sp.t_result = t_result
+                        sp.t_done = time.monotonic()
+                        tr.commit(sp)
                 self.queue.mark_done(e)
                 self.stall.progressed(e.name)
             except Exception:  # noqa: BLE001 - keep settling the rest
                 log.exception("settle bookkeeping failed for %r", e.name)
             finally:
                 e.done.set()
+        if card and not complete:
+            timing.t_settle = time.monotonic()
+            self._unread.append(timing)
+
+    def _add_parts(self, timing: _Timing) -> None:
+        """Sum a completed batch's pack, collective and unpack times into
+        the engine's counters and the timeline's ``reduce`` track."""
+        pack, coll, unpack = timing.parts_us()
+        self.reduce_pack_us_total += pack
+        self.reduce_collective_us_total += coll
+        self.reduce_unpack_us_total += unpack
+        self.timed_batches += 1
+        tl = self._timeline
+        if tl is not None and tl.enabled:
+            tl.counter("reduce", {"pack_us": round(pack, 1),
+                                  "collective_us": round(coll, 1),
+                                  "unpack_us": round(unpack, 1)})
+
+    def _read_timings(self, wait: bool = False) -> None:
+        """Read the inline-settled batches whose card work has completed
+        (all of them with ``wait``, at ``stop``) and commit their spans:
+        reduce is the card's time from the launch, and the span ends when
+        the waiters were released or, if later, when the card was done.
+        In submission order: a batch still running stops the read."""
+        while self._unread:
+            timing = self._unread[0]
+            last = timing.marks[-1]
+            if wait:
+                last.synchronize()
+            elif not last.query():
+                return
+            self._unread.pop(0)
+            self._add_parts(timing)
+            red = timing.reduce_s()
+            for sp in timing.pending:
+                sp.t_result = timing.t_launch + red
+                sp.t_done = max(timing.t_settle, sp.t_result)
+                timing.recorder.commit(sp)
 
     @staticmethod
     def _wait_done(results):
         """The in-flight window's waiter: the batch's done event on the
         card; a CPU batch completed on the cycle thread."""
-        _, done_event = results
+        done_event = results[1]
         if done_event is not None:
             done_event.synchronize()
 
@@ -964,7 +1326,7 @@ class CollectiveEngine:
     def _batch_done(results) -> bool:
         """The in-flight window's probe: whether the batch completed,
         without waiting.  An abort settles such a batch with its results."""
-        _, done_event = results
+        done_event = results[1]
         return done_event is None or done_event.query()
 
     def _inflight_ring(self) -> Optional[InflightRing]:
@@ -979,7 +1341,8 @@ class CollectiveEngine:
         if self._inflight is None:
             self._inflight = InflightRing(
                 self._wait_done,
-                lambda b, r, err: self._settle_batch(b, r, err),
+                lambda b, r, err: self._settle_batch(b, r, err,
+                                                     inflight=True),
                 depth=self.max_inflight, probe=self._batch_done)
         else:
             self._inflight.depth = max(1, int(self.max_inflight))
@@ -996,9 +1359,13 @@ class CollectiveEngine:
         handle = next(self._handle_counter)
         now = time.monotonic()   # a fresh age: must not trip the stall check
         if digest == "barrier":
-            return TensorTableEntry(handle=handle, name=name,
-                                    ctype=CollectiveType.BARRIER,
-                                    tensor=None, enqueue_time=now)
+            e = TensorTableEntry(handle=handle, name=name,
+                                 ctype=CollectiveType.BARRIER, tensor=None,
+                                 enqueue_time=now)
+            # Tracer marker: synthesized entries never drain, so their
+            # span is claimed at the ready verdict instead.
+            e.trace_synthesized = True
+            return e
         parts = digest.split("|")
         ctype = CollectiveType(parts[0])
         dtype = getattr(torch, parts[1])
@@ -1017,6 +1384,7 @@ class CollectiveEngine:
             postscale_factor=post, group_id=group_id, compression=comp,
             enqueue_time=now)
         e.output = self._make_output(e)
+        e.trace_synthesized = True
         if dev.type == "cuda":
             e.ready = torch.cuda.Event()
             e.ready.record(torch.cuda.current_stream(dev))
@@ -1199,6 +1567,19 @@ class CollectiveEngine:
                 self.hier_dispatches += 1
                 self.hier_intra_legs += 2
                 self.hier_cross_legs += 1
+                if self.tracer is not None:
+                    # The reduce phase's modelled cross-link share, which
+                    # the recorder splits the measured reduce by (one
+                    # launch sequence on the stream; the legs are not
+                    # timed apart).
+                    st = self._slice_topology(e0.process_set_id)
+                    from ..parallel.topology import cross_fraction
+                    frac = cross_fraction(self._batch_payload_bytes(batch),
+                                          st.world, st.local_size)
+                    for e in batch:
+                        sp = _live_span(e)
+                        if sp is not None:
+                            sp.cross_frac = frac
         return hier
 
     def _stream(self, dev: torch.device):
@@ -1209,16 +1590,23 @@ class CollectiveEngine:
 
     def _execute_batch(self, batch: List[TensorTableEntry]):
         """Pack, collective and unpack per dtype group of one batch;
-        returns ``(outputs, done_event)`` — the done event (None on the
-        CPU) fires once every output is written."""
+        returns ``(outputs, done_event, timing)`` — the done event (None on
+        the CPU) fires once every output is written; the timing (None
+        disarmed) holds the reduce phase's marks."""
         e0 = batch[0]
         if e0.ctype == CollectiveType.BARRIER:
             # The negotiated verdict is the barrier: every rank announced.
-            return [None for _ in batch], None
+            return [None for _ in batch], None, None
         ps = self._state.process_set_table.get(e0.process_set_id)
         dev = e0.tensor.device
+        timing = _Timing(dev.type != "cuda") if self._armed() else None
         if dev.type != "cuda":
-            return self._run_groups(batch, ps), None
+            self._timing = timing
+            try:
+                self._mark()
+                return self._run_groups(batch, ps), None, timing
+            finally:
+                self._timing = None
         stream = self._stream(dev)
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             for ready in {id(e.ready): e.ready for e in batch}.values():
@@ -1229,10 +1617,35 @@ class CollectiveEngine:
             for e in batch:
                 e.tensor.record_stream(stream)
                 e.output.record_stream(stream)
-            outs = self._run_groups(batch, ps)
+            self._timing = timing
+            try:
+                self._mark()
+                outs = self._run_groups(batch, ps)
+            finally:
+                self._timing = None
             done = torch.cuda.Event()
             done.record(stream)
-        return outs, done
+        return outs, done, timing
+
+    def _mark(self) -> None:
+        """A reduce-phase mark of the executing batch, when armed: a
+        timing CUDA event on the current (engine) stream on the card, the
+        host clock on the CPU."""
+        if self._timing is not None:
+            self._timing.mark()
+
+    def _pack(self, tensors, dtype, prescale=None) -> torch.Tensor:
+        """``fusion.pack``, then the pack's end mark."""
+        buf = fusion.pack(tensors, dtype, prescale)
+        self._mark()
+        return buf
+
+    def _unpack(self, buf, outs, *args, **kwargs) -> None:
+        """The collective's end mark, ``fusion.unpack``, then the
+        unpack's end mark."""
+        self._mark()
+        fusion.unpack(buf, outs, *args, **kwargs)
+        self._mark()
 
     def _run_groups(self, batch: List[TensorTableEntry], ps) -> List:
         """One buffer per dtype (first-occurrence order), each packed, run
@@ -1271,7 +1684,7 @@ class CollectiveEngine:
         if dt.is_complex:
             ins, outs = [_pairs(t) for t in ins], [_pairs(o) for o in outs]
             buf_dt, wire = ins[0].dtype, None
-        buf = fusion.pack(ins, fusion.buffer_dtype(buf_dt, wire),
+        buf = self._pack(ins, fusion.buffer_dtype(buf_dt, wire),
                           e0.prescale_factor)
         if world > 1:
             if dt.is_complex and op == C.ReduceOp.PRODUCT:
@@ -1288,7 +1701,7 @@ class CollectiveEngine:
         if outs[0].dtype == torch.uint32:
             buf = buf.view(torch.uint32)      # int32 products, same bits
         divisor = world if op == C.ReduceOp.AVERAGE else 1
-        fusion.unpack(buf, outs, divisor, e0.postscale_factor)
+        self._unpack(buf, outs, divisor, e0.postscale_factor)
 
     def _run_adasum(self, members: List[TensorTableEntry], ps,
                     hier: bool) -> None:
@@ -1297,13 +1710,13 @@ class CollectiveEngine:
         over the whole buffer and the cast back to the buffer's dtype,
         then the unpack's cast to the source and postscale (no divisor)."""
         e0, world = members[0], ps.size()
-        buf = fusion.pack([e.tensor for e in members],
+        buf = self._pack([e.tensor for e in members],
                           fusion.buffer_dtype(e0.tensor.dtype,
                                               WIRE_DTYPES.get(e0.compression)),
                           e0.prescale_factor)
         if world > 1 and buf.numel():
             buf.copy_(self._adasum(buf, ps, hier))
-        fusion.unpack(buf, [e.output for e in members], 1,
+        self._unpack(buf, [e.output for e in members], 1,
                       e0.postscale_factor)
 
     def _adasum(self, buf: torch.Tensor, ps, hier: bool) -> torch.Tensor:
@@ -1357,7 +1770,7 @@ class CollectiveEngine:
         two-level (``hier``) as the root's cross leg, then the local
         fan-out."""
         e0 = members[0]
-        buf = fusion.pack([e.tensor for e in members], e0.tensor.dtype)
+        buf = self._pack([e.tensor for e in members], e0.tensor.dtype)
         if hier:
             from ..parallel.hierarchical import hierarchical_broadcast
             hierarchical_broadcast(buf, e0.root_rank, self._legs())
@@ -1365,7 +1778,7 @@ class CollectiveEngine:
             import torch.distributed as dist
             dist.broadcast(buf.view(torch.uint8), src=ps.ranks[e0.root_rank],
                            group=ps.group)
-        fusion.unpack(buf, [e.output for e in members])
+        self._unpack(buf, [e.output for e in members])
 
     def _run_allgather(self, members: List[TensorTableEntry], ps,
                        hier: bool = False) -> None:
@@ -1375,7 +1788,7 @@ class CollectiveEngine:
         a cross gather, which lands the same bytes in the same order."""
         world = ps.size()
         ins = [e.tensor for e in members]
-        buf = fusion.pack(ins, ins[0].dtype)
+        buf = self._pack(ins, ins[0].dtype)
         out = buf
         if hier:
             from ..parallel.hierarchical import hierarchical_allgather
@@ -1387,7 +1800,7 @@ class CollectiveEngine:
             dist.all_gather_into_tensor(out.view(torch.uint8),
                                         buf.view(torch.uint8),
                                         group=ps.group)
-        fusion.unpack(out, _views([e.output for e in members],
+        self._unpack(out, _views([e.output for e in members],
                                   [t.numel() for t in ins], world))
 
     def _run_reducescatter(self, members: List[TensorTableEntry],
@@ -1411,7 +1824,7 @@ class CollectiveEngine:
         if dt.is_complex:
             srcs, outs = [_pairs(v) for v in srcs], [_pairs(o) for o in outs]
             sizes, buf_dt = [2 * n for n in sizes], srcs[0].dtype
-        buf = fusion.pack(srcs, buf_dt)
+        buf = self._pack(srcs, buf_dt)
         red = buf
         if world > 1:
             n = sum(sizes)
@@ -1430,7 +1843,7 @@ class CollectiveEngine:
         divisor = world if op == C.ReduceOp.AVERAGE else 1
         narrow = (torch.int16 if dt == torch.int16
                   and out_dt == torch.float32 else None)
-        fusion.unpack(red, outs, divisor, narrow=narrow)
+        self._unpack(red, outs, divisor, narrow=narrow)
 
     def _run_alltoall(self, members: List[TensorTableEntry], ps,
                       hier: bool = False) -> None:
@@ -1441,14 +1854,14 @@ class CollectiveEngine:
         world = ps.size()
         ins = [e.tensor for e in members]
         sizes = _rows(ins, world)
-        buf = fusion.pack(_views(ins, sizes, world), ins[0].dtype)
+        buf = self._pack(_views(ins, sizes, world), ins[0].dtype)
         out = buf
         if world > 1:
             import torch.distributed as dist
             out = torch.empty_like(buf)
             dist.all_to_all_single(out.view(torch.uint8),
                                    buf.view(torch.uint8), group=ps.group)
-        fusion.unpack(out, _views([e.output for e in members], sizes,
+        self._unpack(out, _views([e.output for e in members], sizes,
                                   world))
 
     @staticmethod

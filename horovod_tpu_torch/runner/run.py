@@ -1,7 +1,8 @@
 # Ported from horovod_tpu/runner/run.py:1-650: HostSpec, parse_hosts,
 # parse_hostfile, the argument surface, _apply_config_file, placement,
 # tuning_env (with the --hierarchical-* switches of :175-182, 438-443),
-# wait_and_reap, worker_envs, ssh_command, launch_workers and main.
+# wait_and_reap, worker_envs, ssh_command, launch_workers and main; the
+# observability flags (:121-137) and their forwarding (:409-427, :536-541).
 # platform_worker_env (:359-388, JAX and XLA variables) is replaced by the
 # card's counterpart; the flags of what the port lacks are refused.
 """The launcher's argument surface and launch orchestration.
@@ -19,7 +20,14 @@ worker computes on ``cuda:{HOROVOD_LOCAL_RANK}``; the launcher sets no
 the ranks of each host entry in host order (the same list on every rank:
 ``common/topology.py`` derives the two-level slices from it), and
 ``--hierarchical-allreduce``/``-allgather``/``-broadcast`` reach it as
-``HOROVOD_HIERARCHICAL_*=1``.  Every entry that names this machine
+``HOROVOD_HIERARCHICAL_*=1``.  ``--timeline-filename`` and
+``--trace-filename`` reach each worker as ``HOROVOD_TIMELINE`` and
+``HOROVOD_TRACE`` with its rank appended (``utils/timeline.py``
+``per_rank_filename``), ``--monitor`` (or ``--monitor-port``),
+``--monitor-port``, ``--monitor-interval``, ``--trace-ring`` and
+``--timeline-mark-cycles`` as ``HOROVOD_MONITOR``, ``_MONITOR_PORT``,
+``_MONITOR_INTERVAL``, ``_TRACE_RING`` and ``_TIMELINE_MARK_CYCLES``.
+Every entry that names this machine
 (``common/net.is_local_host``: ``localhost``, ``127.0.0.2``, its name or
 addresses) is spawned here; the others by ssh.
 
@@ -44,6 +52,8 @@ import shlex
 import subprocess
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..utils.timeline import per_rank_filename
 
 
 @dataclasses.dataclass
@@ -90,7 +100,6 @@ def parse_hostfile(path: str) -> List[HostSpec]:
 _TPU = "runner/tpu_vm.py has no GPU counterpart"
 _ELASTIC = "elastic/ is not ported (ROADMAP queue 1 item 6)"
 _DEPTH = "ROADMAP queue 1 item 3, data-plane depth"
-_OBSERVE = "ROADMAP queue 1 item 7, observability"
 NOT_PORTED: Dict[str, str] = {
     "--tpu": _TPU, "--zone": _TPU, "--project": _TPU,
     "--tpu-topology-aware": _TPU, "--gke-jobset": _TPU,
@@ -116,13 +125,6 @@ NOT_PORTED: Dict[str, str] = {
     "--cache-capacity": "the port compiles no fused programs to cache (the "
                         "negotiation response cache is "
                         "HOROVOD_RESPONSE_CACHE_CAPACITY)",
-    "--monitor": f"the monitor, {_OBSERVE}",
-    "--monitor-port": f"the monitor, {_OBSERVE}",
-    "--monitor-interval": f"the monitor, {_OBSERVE}",
-    "--trace-filename": f"the tracer, {_OBSERVE}",
-    "--trace-ring": f"the tracer, {_OBSERVE}",
-    "--timeline-filename": f"the timeline, {_OBSERVE}",
-    "--timeline-mark-cycles": f"the timeline, {_OBSERVE}",
     "--sharded": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
     "--sharded-params": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
     "--prefetch-depth": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
@@ -132,8 +134,7 @@ NOT_PORTED: Dict[str, str] = {
 # Those of them that take no value.
 _SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery",
              "--autoscale", "--hierarchical-controller", "--autotune",
-             "--monitor", "--timeline-mark-cycles", "--sharded",
-             "--sharded-params", "--serve"}
+             "--sharded", "--sharded-params", "--serve"}
 
 # Tuning flags forwarded to every worker as HOROVOD_* env: flag, variable,
 # scale.  Each is read by the port's Config.from_env.
@@ -147,6 +148,11 @@ _TUNING = (("fusion_threshold_mb", "HOROVOD_FUSION_THRESHOLD", 1024 * 1024),
            ("round_timeout", "HOROVOD_ROUND_TIMEOUT_S", 1),
            ("connect_retries", "HOROVOD_CONNECT_RETRIES", 1),
            ("connect_backoff_ms", "HOROVOD_CONNECT_BACKOFF_MS", 1))
+# The observability flags with a value, forwarded the same way (the file
+# names go per rank, in worker_envs).
+_OBSERVE = (("monitor_port", "HOROVOD_MONITOR_PORT", 1),
+            ("monitor_interval", "HOROVOD_MONITOR_INTERVAL", 1),
+            ("trace_ring", "HOROVOD_TRACE_RING", 1))
 
 
 # Two-level data-plane switches, forwarded as HOROVOD_<FLAG>=1.
@@ -229,6 +235,27 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
                         "root to each slice, then the fan-out inside), "
                         "bitwise the flat one "
                         "(HOROVOD_HIERARCHICAL_BROADCAST)")
+    p.add_argument("--timeline-filename", default=None,
+                   help="Write a Chrome-trace timeline per rank at "
+                        "<base>.<rank> (HOROVOD_TIMELINE)")
+    p.add_argument("--timeline-mark-cycles", action="store_true",
+                   help="Mark the coordinator's cycles in the timeline")
+    p.add_argument("--trace-filename", default=None,
+                   help="Arm collective tracing and write one trace file "
+                        "per rank at <base>.<rank>; merge with `python -m "
+                        "horovod_tpu_torch.trace`")
+    p.add_argument("--trace-ring", type=int, default=None,
+                   help="Preallocated trace span-ring capacity "
+                        "(default 4096)")
+    p.add_argument("--monitor", action="store_true",
+                   help="Enable the cross-rank telemetry & health "
+                        "subsystem")
+    p.add_argument("--monitor-port", type=int, default=None,
+                   help="Serve /metrics (Prometheus) + /health (JSON) "
+                        "over HTTP on rank 0 at this port (implies "
+                        "--monitor)")
+    p.add_argument("--monitor-interval", type=float, default=None,
+                   help="Telemetry snapshot period in seconds (default 5)")
     for flag, why in NOT_PORTED.items():
         if flag in _SWITCHES:
             p.add_argument(flag, action="store_true", help=f"refused: {why}")
@@ -339,13 +366,18 @@ def tuning_env(args) -> Dict[str, str]:
     vanish on another.  A flag the port has no feature for never gets
     here: ``parse_args`` refuses it."""
     env: Dict[str, str] = {}
-    for flag, var, scale in _TUNING:
+    for flag, var, scale in _TUNING + _OBSERVE:
         val = getattr(args, flag, None)
         if val is not None:
             env[var] = str(int(val * scale) if scale != 1 else val)
     for flag in _HIER_FLAGS:
         if getattr(args, flag, False):
             env[f"HOROVOD_{flag.upper()}"] = "1"
+    if getattr(args, "monitor", False) \
+            or getattr(args, "monitor_port", None):
+        env["HOROVOD_MONITOR"] = "1"
+    if getattr(args, "timeline_mark_cycles", False):
+        env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
     return env
 
 
@@ -425,6 +457,12 @@ def worker_envs(args, hosts: List[HostSpec],
                 "HOROVOD_HOSTNAME": h.hostname,
             }
             env |= tuning_env(args)
+            if args.timeline_filename:
+                env["HOROVOD_TIMELINE"] = per_rank_filename(
+                    args.timeline_filename, rank)
+            if args.trace_filename:
+                env["HOROVOD_TRACE"] = per_rank_filename(
+                    args.trace_filename, rank)
             envs.append(env)
             rank += 1
     return envs

@@ -1,0 +1,43 @@
+# Copied from horovod_tpu/trace/__init__.py:1-41 (maybe_install :32); jax-free,
+# the port keeps its own copy; the CLI's name is the port's.
+"""Distributed collective tracing (no jax imports — tier-1 purity guarded).
+
+Follows every tensor through its five host-side lifecycle phases (queue →
+negotiation → copy_in → reduce → drain), correlates ranks on the
+negotiation cycle id, and merges the fleet into one perfetto view:
+
+- :mod:`.core`    — span ring + per-phase accumulators (the engine stamps);
+- :mod:`.writer`  — per-rank JSONL trace files (``HOROVOD_TRACE``);
+- :mod:`.merge`   — cross-rank merge into a chrome/perfetto trace with
+  per-rank lanes and cycle flow arrows (``python -m horovod_tpu_torch.trace``);
+- :mod:`.analyze` — critical-path attribution (which phase eats the cycle).
+
+See ``docs/timeline.md`` for knobs and reading recipes.
+"""
+
+from __future__ import annotations
+
+from .core import (DIGEST_MAX_CYCLES, DIGEST_MAX_OPEN, PHASE_BUCKETS_US,
+                   PHASES, REDUCE_LEGS, CycleRecord, TensorSpan,
+                   TraceRecorder)
+from .writer import TraceWriter
+
+__all__ = [
+    "PHASES", "REDUCE_LEGS", "PHASE_BUCKETS_US", "DIGEST_MAX_CYCLES",
+    "DIGEST_MAX_OPEN", "CycleRecord", "TensorSpan", "TraceRecorder",
+    "TraceWriter", "maybe_install",
+]
+
+
+def maybe_install(cfg, rank: int = 0):
+    """Build a :class:`TraceRecorder` when the config arms tracing
+    (``HOROVOD_TRACE``), else None — the engine's ``tracer`` attribute.
+    Called from the engine constructor; a None return keeps every stamp
+    site a single attribute check (the strictly-zero-cost disarmed
+    contract, pinned by the bench trace A/B)."""
+    if not getattr(cfg, "trace", False):
+        return None
+    filename = getattr(cfg, "trace_filename", "") or ""
+    writer = TraceWriter(filename, rank=rank) if filename else None
+    return TraceRecorder(capacity=getattr(cfg, "trace_ring", 4096),
+                         writer=writer, rank=rank)

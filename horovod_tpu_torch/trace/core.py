@@ -1,0 +1,429 @@
+# Copied from horovod_tpu/trace/core.py:1-424 (PHASES :43, REDUCE_LEGS :54,
+# STAMPS :60, phases_from_stamps :63, TensorSpan :96, CycleRecord :160,
+# TraceRecorder :187, phase_summary :378, digest :398); jax-free, the port
+# keeps its own copy; the CLI's name is the port's; issue-number tags
+# are dropped from the comments.
+"""Span core of the distributed collective tracer (no jax imports).
+
+A gradient's latency in the background-coordinator design is spread across
+five host-side phases that the per-rank chrome timeline (N10) and the
+monitor's scalar counters cannot attribute:
+
+    queue       enqueue          -> first cycle drain
+    negotiation first drain      -> globally-ready verdict
+    copy_in     ready            -> fused program dispatched (the fusion
+                                    copy-in / program fetch+launch)
+    reduce      dispatch         -> device results settled (the collective
+                                    itself, as the host observes it)
+    drain       settle begin     -> waiter released (done.set)
+
+The engine stamps monotonic timestamps at each boundary into a
+:class:`TensorSpan` claimed from a preallocated ring (:class:`TraceRecorder`)
+— zero allocation on the hot path (span objects are reused in place), and
+strictly zero cost when tracing is disarmed (``engine.tracer is None``; every
+stamp site is a single attribute check, the same contract the timeline and
+monitor hooks follow).
+
+Cross-rank correlation key: the **negotiation cycle id** (the controller's
+lock-step round counter, identical on every rank for the same round — the
+single-controller engine falls back to its local cycle index) plus the
+response-cache **slot id** when one is known.  The merge tool
+(``python -m horovod_tpu_torch.trace``) joins per-rank trace files on the
+cycle id and draws flow arrows tying the same cycle across ranks' lanes.
+
+Compact per-cycle digests (:meth:`TraceRecorder.digest`) ride the existing
+MON1 monitor side-channel inside the agent's JSON snapshot — interval-gated,
+size-capped (``DIGEST_*`` caps below), and version-safe (old peers ignore
+unknown snapshot keys).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+# Phase names, in lifecycle order.  The wire/digest/JSON key order
+# everywhere else follows this tuple.
+PHASES = ("queue", "negotiation", "copy_in", "reduce", "drain")
+
+# Sub-legs of the ``reduce`` phase for two-level (hierarchical) dispatches:
+# the host cannot stamp inside one XLA launch, so the engine
+# stamps each hier span with the MODELED cross-link share of its wire time
+# (``parallel.topology.cross_fraction`` — DCN bytes over total bytes) and
+# the recorder splits the measured reduce duration accordingly.  Flat
+# spans carry cross_frac 0.0 and never touch the leg accumulators, so the
+# legs partition exactly the hier share of ``reduce``:
+#     reduce_intra  ICI legs (intra-slice reduce-scatter + allgather)
+#     reduce_cross  DCN leg  (cross-slice allreduce over the leader ring)
+REDUCE_LEGS = ("reduce_intra", "reduce_cross")
+
+# Span stamp keys on the wire (writer span lines), in lifecycle order:
+# enqueue, drain, ready, launch, result, finished.  PHASES[i] spans
+# STAMPS[i] -> STAMPS[i+1].  THE single definition — the writer, the merge
+# tool and the analyzer all key off this tuple.
+STAMPS = ("e", "d", "r", "l", "x", "f")
+
+
+def phases_from_stamps(stamps) -> Dict[str, float]:
+    """Per-phase microseconds from the six lifecycle stamps (monotonic
+    seconds, 0.0 = not reached), carrying the last reached stamp forward
+    past missing ones — an aborted span's elapsed time lands in the phase
+    that actually contains it instead of vanishing.  THE one attribution
+    rule: ``TensorSpan.phases_us`` (live recorder/digest) and the offline
+    analyzer both call this, so reports can never disagree on partially
+    stamped spans."""
+    out: Dict[str, float] = {}
+    prev = stamps[0]
+    for phase, t in zip(PHASES, stamps[1:]):
+        if t and prev:
+            out[phase] = max(0.0, (t - prev) * 1e6)
+            prev = t
+        else:
+            out[phase] = 0.0
+    return out
+
+# Per-phase histogram buckets (microseconds): spans the inline-kick fast
+# path through a slow multi-host negotiation round.  Mirrors the monitor
+# registry's default cycle-time buckets so /metrics phase histograms read
+# on the same scale as hvd_cycle_time_us.
+PHASE_BUCKETS_US: Tuple[float, ...] = (
+    50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0, 50000.0,
+    250000.0, 1000000.0)
+
+# MON1 digest caps: recent cycle rows and open-span entries shipped per
+# snapshot.  The rendered digest stays well under the agent's 48KB blob
+# guard (tests pin a hard byte cap).
+DIGEST_MAX_CYCLES = 24
+DIGEST_MAX_OPEN = 8
+
+
+class TensorSpan:
+    """One tensor's lifecycle through one collective (ring slot, reused).
+
+    Timestamps are ``time.monotonic()`` seconds; 0.0 means "not reached".
+    ``cycle`` is the cross-rank correlation id (negotiation round), ``slot``
+    the response-cache slot (-1 unknown).
+    """
+
+    __slots__ = ("name", "cycle", "slot", "t_enqueue", "t_drain", "t_ready",
+                 "t_launch", "t_result", "t_done", "error", "committed",
+                 "cross_frac", "prefetch")
+
+    def __init__(self):
+        self.reset("", 0.0, 0.0)
+        self.committed = True     # a fresh slot is reclaimable
+
+    def reset(self, name: str, t_enqueue: float, t_drain: float) -> None:
+        self.name = name
+        self.cycle = -1
+        self.slot = -1
+        self.t_enqueue = t_enqueue
+        self.t_drain = t_drain
+        self.t_ready = 0.0
+        self.t_launch = 0.0
+        self.t_result = 0.0
+        self.t_done = 0.0
+        self.error = False
+        self.committed = False
+        # Modeled DCN share of the reduce phase; 0.0 = flat dispatch.
+        self.cross_frac = 0.0
+        # FSDP parameter-prefetch gather: stamped at backlog
+        # push for PREFETCH-lane batches; its reduce time feeds the
+        # "prefetch" leg of the phase breakdown (prefetch-depth tuning).
+        self.prefetch = False
+
+    def phase_name(self) -> str:
+        """The phase this span is currently in (stall attribution)."""
+        if self.t_done:
+            return "done"
+        if self.t_result:
+            return "drain"
+        if self.t_launch:
+            return "reduce"
+        if self.t_ready:
+            return "copy_in"
+        if self.t_drain:
+            return "negotiation"
+        return "queue"
+
+    def phases_us(self) -> Dict[str, float]:
+        """Per-phase durations in microseconds, over the stamped prefix of
+        the lifecycle (an aborted span yields zeros past its last stamp).
+        The sum equals ``lifecycle_us`` exactly when every stamp landed."""
+        return phases_from_stamps((self.t_enqueue, self.t_drain,
+                                   self.t_ready, self.t_launch,
+                                   self.t_result, self.t_done))
+
+    def lifecycle_us(self) -> float:
+        end = self.t_done or self.t_result or self.t_launch or \
+            self.t_ready or self.t_drain
+        start = self.t_enqueue or self.t_drain
+        return max(0.0, (end - start) * 1e6) if end and start else 0.0
+
+
+class CycleRecord:
+    """One coordinator cycle's stamps plus the per-phase sums of the spans
+    it carried (filled in as those spans commit — possibly cycles later,
+    when the in-flight window is deep)."""
+
+    __slots__ = ("cycle", "t0", "t_drain", "t_ready", "t_dispatch",
+                 "n_tensors", "negotiation_us", "phase_us", "n_committed")
+
+    def __init__(self, cycle: int, t0: float, t_drain: float, t_ready: float,
+                 t_dispatch: float, n_tensors: int, negotiation_us: float):
+        self.cycle = cycle
+        self.t0 = t0
+        self.t_drain = t_drain
+        self.t_ready = t_ready
+        self.t_dispatch = t_dispatch
+        self.n_tensors = n_tensors
+        self.negotiation_us = negotiation_us
+        self.phase_us = [0.0] * len(PHASES)
+        self.n_committed = 0
+
+    def digest_row(self) -> list:
+        """Compact wire row: [cycle, n_tensors, q, neg, cpy, red, drn] —
+        phase sums rounded to whole microseconds."""
+        return [self.cycle, self.n_tensors] + \
+            [int(round(v)) for v in self.phase_us]
+
+
+class TraceRecorder:
+    """Preallocated span ring + phase accumulators + optional file writer.
+
+    One recorder per engine; built by
+    :func:`horovod_tpu_torch.trace.maybe_install` when ``HOROVOD_TRACE`` arms tracing.  ``begin`` runs on the cycle thread;
+    ``commit`` on the cycle thread or the in-flight watcher — both take one
+    short lock.  Ring slots are recycled oldest-committed-first; if every
+    scanned slot is still open (pathologically deep in-flight windows) the
+    claim is dropped and counted, never blocked.
+    """
+
+    # Bounded forward scan for a reclaimable slot before dropping a claim.
+    _SCAN = 64
+
+    def __init__(self, capacity: int = 4096, cycle_capacity: int = 512,
+                 writer=None, rank: int = 0):
+        self.rank = int(rank)
+        self.capacity = max(16, int(capacity))
+        self.cycle_capacity = max(16, int(cycle_capacity))
+        self.buckets = PHASE_BUCKETS_US
+        self._writer = writer
+        self._lock = threading.Lock()
+        self._ring: List[TensorSpan] = [TensorSpan()
+                                        for _ in range(self.capacity)]
+        self._next = 0
+        self.dropped = 0
+        self.spans_committed = 0
+        # Per-phase accumulators: sum_us, count, per-bucket counts
+        # (len(buckets)+1, last = +Inf overflow).
+        self._phase_sum = {p: 0.0 for p in PHASES}
+        self._phase_buckets = {p: [0] * (len(self.buckets) + 1)
+                               for p in PHASES}
+        # Two-level reduce legs (REDUCE_LEGS): fed only by spans whose
+        # cross_frac > 0 — the flat path never touches these, so their
+        # absence from a digest proves no hier dispatch happened.
+        self._leg_sum = {p: 0.0 for p in REDUCE_LEGS}
+        self._leg_buckets = {p: [0] * (len(self.buckets) + 1)
+                             for p in REDUCE_LEGS}
+        self.leg_spans = 0
+        # FSDP prefetch leg: reduce-phase time of PREFETCH-lane
+        # gathers, keyed "prefetch" in phase_histograms once any commits —
+        # the phase-breakdown signal HOROVOD_PREFETCH_DEPTH tunes against.
+        self._prefetch_sum = 0.0
+        self._prefetch_buckets = [0] * (len(self.buckets) + 1)
+        self.prefetch_spans = 0
+        self.lifecycle_us_total = 0.0
+        # Recent cycles, newest last; _cycle_by_id lets late span commits
+        # find their cycle's aggregate.
+        self._cycles: List[CycleRecord] = []
+        self._cycle_by_id: Dict[int, CycleRecord] = {}
+        # Wall/monotonic anchor pair: maps this process's monotonic stamps
+        # onto a shareable time base for the cross-rank merge.
+        self.anchor_wall = time.time()
+        self.anchor_mono = time.monotonic()
+        if writer is not None:
+            writer.header(rank=self.rank, anchor_wall=self.anchor_wall,
+                          anchor_mono=self.anchor_mono)
+
+    # ------------------------------------------------------------ recording
+    def begin(self, name: str, t_enqueue: float,
+              t_drain: float) -> Optional[TensorSpan]:
+        """Claim a ring slot for a tensor entering negotiation.  Returns
+        None (claim dropped, counted) when no committed slot is found
+        within the bounded scan."""
+        with self._lock:
+            for _ in range(min(self._SCAN, self.capacity)):
+                span = self._ring[self._next]
+                self._next = (self._next + 1) % self.capacity
+                if span.committed:
+                    span.reset(name, t_enqueue, t_drain)
+                    return span
+            self.dropped += 1
+            return None
+
+    def commit(self, span: Optional[TensorSpan]) -> None:
+        """Finalize a span: accumulate its phases, fold them into its
+        cycle's aggregate, emit it to the trace file.  Idempotent; must
+        never raise past its own guard (callers sit on settle paths)."""
+        if span is None or span.committed:
+            return
+        phases = span.phases_us()
+        w = self._writer
+        record = None
+        with self._lock:
+            if span.committed:          # racing commit lost
+                return
+            if w is not None:
+                # Snapshot BEFORE flipping committed: the flip makes the
+                # slot reclaimable, and a concurrent begin() (which only
+                # recycles committed slots, under this lock) could reset
+                # the fields mid-write otherwise.
+                record = (span.name, span.cycle, span.slot, span.t_enqueue,
+                          span.t_drain, span.t_ready, span.t_launch,
+                          span.t_result, span.t_done, span.error,
+                          span.cross_frac)
+            span.committed = True
+            self.spans_committed += 1
+            self.lifecycle_us_total += span.lifecycle_us()
+            for p, v in phases.items():
+                self._phase_sum[p] += v
+                counts = self._phase_buckets[p]
+                for i, le in enumerate(self.buckets):
+                    if v <= le:
+                        counts[i] += 1
+                        break
+                else:
+                    counts[-1] += 1
+            frac = span.cross_frac
+            if frac > 0.0:
+                # Split the measured reduce duration into the modeled
+                # ICI/DCN legs; together they re-add to reduce exactly.
+                self.leg_spans += 1
+                red = phases["reduce"]
+                for leg, v in ((REDUCE_LEGS[0], red * (1.0 - frac)),
+                               (REDUCE_LEGS[1], red * frac)):
+                    self._leg_sum[leg] += v
+                    counts = self._leg_buckets[leg]
+                    for i, le in enumerate(self.buckets):
+                        if v <= le:
+                            counts[i] += 1
+                            break
+                    else:
+                        counts[-1] += 1
+            if span.prefetch:
+                self.prefetch_spans += 1
+                v = phases["reduce"]
+                self._prefetch_sum += v
+                counts = self._prefetch_buckets
+                for i, le in enumerate(self.buckets):
+                    if v <= le:
+                        counts[i] += 1
+                        break
+                else:
+                    counts[-1] += 1
+            rec = self._cycle_by_id.get(span.cycle)
+            if rec is not None:
+                rec.n_committed += 1
+                for i, p in enumerate(PHASES):
+                    rec.phase_us[i] += phases[p]
+        if record is not None:
+            w.span_record(*record)
+
+    def cycle(self, cycle: int, t0: float, t_drain: float, t_ready: float,
+              t_dispatch: float, n_tensors: int,
+              negotiation_us: float) -> None:
+        """Record one coordinator cycle that carried tensors."""
+        rec = CycleRecord(cycle, t0, t_drain, t_ready, t_dispatch,
+                          n_tensors, negotiation_us)
+        with self._lock:
+            self._cycles.append(rec)
+            self._cycle_by_id[cycle] = rec
+            if len(self._cycles) > self.cycle_capacity:
+                old = self._cycles.pop(0)
+                self._cycle_by_id.pop(old.cycle, None)
+        w = self._writer
+        if w is not None:
+            w.cycle(rec)
+
+    # -------------------------------------------------------------- reading
+    def open_spans(self, limit: int = DIGEST_MAX_OPEN) -> Dict[str, str]:
+        """name -> current phase for in-progress spans (stall/digest)."""
+        out: Dict[str, str] = {}
+        with self._lock:
+            for span in self._ring:
+                if not span.committed:
+                    out[span.name] = span.phase_name()
+                    if len(out) >= limit:
+                        break
+        return out
+
+    def phase_histograms(self) -> Dict[str, tuple]:
+        """phase -> (bucket_counts, sum_us, count) cumulative totals, the
+        payload the monitor collector mirrors into registry histograms.
+        The two-level reduce legs (REDUCE_LEGS) appear as extra keys once
+        a hierarchical dispatch commits — the collector mirrors whatever
+        keys arrive, so ``hvd_trace_reduce_intra_us`` /
+        ``hvd_trace_reduce_cross_us`` materialize exactly when the
+        two-level path engages."""
+        with self._lock:
+            out = {p: (list(self._phase_buckets[p]), self._phase_sum[p],
+                       sum(self._phase_buckets[p])) for p in PHASES}
+            if self.leg_spans:
+                for p in REDUCE_LEGS:
+                    out[p] = (list(self._leg_buckets[p]), self._leg_sum[p],
+                              sum(self._leg_buckets[p]))
+            if self.prefetch_spans:
+                out["prefetch"] = (list(self._prefetch_buckets),
+                                   self._prefetch_sum,
+                                   sum(self._prefetch_buckets))
+            return out
+
+    def phase_summary(self) -> dict:
+        """Mean per-phase microseconds + mean lifecycle — the bench.py
+        per-line breakdown.  ``phase_sum_us`` ~= ``cycle_us`` whenever all
+        five stamps landed (the consistency the acceptance test pins)."""
+        with self._lock:
+            n = self.spans_committed
+            if not n:
+                return {"spans": 0, "phases_us": None, "cycle_us": None,
+                        "phase_sum_us": None}
+            phases = {p: round(self._phase_sum[p] / n, 2) for p in PHASES}
+            out = {"spans": n, "phases_us": phases,
+                   "cycle_us": round(self.lifecycle_us_total / n, 2),
+                   "phase_sum_us": round(sum(phases.values()), 2)}
+            if self.leg_spans:
+                out["leg_spans"] = self.leg_spans
+                out["legs_us"] = {
+                    p: round(self._leg_sum[p] / self.leg_spans, 2)
+                    for p in REDUCE_LEGS}
+            return out
+
+    def digest(self) -> dict:
+        """Compact cross-rank digest for the MON1 monitor snapshot."""
+        with self._lock:
+            cycles = [rec.digest_row()
+                      for rec in self._cycles[-DIGEST_MAX_CYCLES:]]
+            phases = {p: [int(round(self._phase_sum[p])),
+                          sum(self._phase_buckets[p])] for p in PHASES}
+            legs = {p: [int(round(self._leg_sum[p])), self.leg_spans]
+                    for p in REDUCE_LEGS} if self.leg_spans else None
+            n, total = self.spans_committed, self.lifecycle_us_total
+        out = {"v": 1, "spans": n, "phases": phases, "cycles": cycles,
+               "dropped": self.dropped}
+        if legs:
+            # Appears only once the two-level path engaged; old peers
+            # ignore unknown digest keys (version-safe).
+            out["legs"] = legs
+        if n:
+            out["cycle_us"] = round(total / n, 1)
+        open_ = self.open_spans()
+        if open_:
+            out["open"] = open_
+        return out
+
+    def close(self) -> None:
+        w, self._writer = self._writer, None
+        if w is not None:
+            w.close()

@@ -1001,3 +1001,61 @@ def test_torch_adasum_vhd_on_card_matches_cpu(cuda_device, n):
     if n >= 4:
         for a, b in zip(card, run(cuda_device, local=2)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_torch_engine_reduce_phase_from_cuda_events(cuda_device):
+    """Armed, each batch's reduce phase is the card's time between the
+    CUDA events around its pack, collective and unpack: the parts add up
+    in the engine's counters and the spans' reduce phase is above zero,
+    with the phases partitioning the lifecycle.  Disarmed, no batch is
+    timed."""
+    from horovod_tpu_torch.trace import TraceRecorder
+    hvd.init(device=cuda_device)
+    try:
+        eng = hvd.common.basics._get_state().engine
+        xs = [torch.full((1 << 20,), float(i), device=cuda_device,
+                         dtype=torch.bfloat16) for i in range(8)]
+        assert eng.tracer is None
+        hvd.grouped_allreduce(xs, name="off", op=hvd.Sum)
+        torch.cuda.synchronize()
+        assert eng.timed_batches == 0
+        eng.tracer = TraceRecorder(capacity=256)
+        for i in range(3):
+            out = hvd.grouped_allreduce(xs, name=f"on.{i}", op=hvd.Sum)
+        torch.cuda.synchronize()
+        hvd.allreduce(torch.zeros(1, device=cuda_device), name="read")
+        assert eng.timed_batches >= 3
+        assert eng.reduce_pack_us_total > 0
+        assert eng.reduce_unpack_us_total > 0
+        s = eng.tracer.phase_summary()
+        assert s["spans"] >= 24 and s["phases_us"]["reduce"] > 0
+        assert abs(s["phase_sum_us"] - s["cycle_us"]) <= \
+            0.05 * s["cycle_us"]
+        for a, x in zip(out, xs):
+            assert torch.equal(a, x)
+    finally:
+        eng.tracer = None
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_torch_profile_step_traces_the_card(cuda_device, tmp_path):
+    """``hvd.profile_step`` writes a Chrome trace in which the fusion
+    pack's kernel appears by name."""
+    import json
+    import re
+    hvd.init(device=cuda_device)
+    try:
+        xs = [torch.randn(1 << 16, device=cuda_device) for _ in range(4)]
+        with hvd.profile_step(str(tmp_path)):
+            hvd.grouped_allreduce(xs, name="prof", prescale_factor=0.5)
+            torch.cuda.synchronize()
+    finally:
+        hvd.shutdown()
+    files = list(tmp_path.glob("*.json"))
+    assert len(files) == 1
+    names = [e["name"] for e in json.loads(files[0].read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"]
+    assert any(re.search(r"walk_kernel<.*, true>", n) for n in names), \
+        names[:20]

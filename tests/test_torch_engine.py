@@ -326,7 +326,7 @@ def test_torch_leave_notice_aborts_the_inflight_window():
     release = threading.Event()
     ring = eng._inflight_ring()
     try:
-        ring.submit([e], ([x], _NeverDone(release)))
+        ring.submit([e], ([x], _NeverDone(release), None))
         eng._compute_response_list([])
         with pytest.raises(PeerLeftInterrupt):
             eng.synchronize(e.handle, timeout=5)

@@ -58,6 +58,53 @@ def test_torch_port_imports_without_jax():
     assert int(res.stdout.split()[-1]) >= 15
 
 
+# The observability modules, copies of jax-free modules of the JAX package:
+# each must import with JAX and horovod_tpu blocked, its own relative
+# imports resolving inside the port.
+OBSERVE_MODULES = (
+    "horovod_tpu_torch.utils.timeline", "horovod_tpu_torch.trace",
+    "horovod_tpu_torch.trace.core", "horovod_tpu_torch.trace.writer",
+    "horovod_tpu_torch.trace.merge", "horovod_tpu_torch.trace.analyze",
+    "horovod_tpu_torch.trace.__main__", "horovod_tpu_torch.monitor",
+    "horovod_tpu_torch.monitor.agent", "horovod_tpu_torch.monitor.aggregator",
+    "horovod_tpu_torch.monitor.http", "horovod_tpu_torch.monitor.__main__",
+    "horovod_tpu_torch.monitor.registry")
+
+_OBSERVE_SRC = _PURITY_SRC.split("import horovod_tpu_torch as hvd")[0] + r"""
+import importlib
+for name in sys.argv[2:]:
+    mod = importlib.import_module(name)
+    assert mod.__file__.startswith(sys.argv[1]), mod.__file__
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+"""
+
+
+def test_torch_observability_modules_import_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _OBSERVE_SRC, REPO,
+                          *OBSERVE_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == str(len(OBSERVE_MODULES))
+
+
+def test_torch_copied_modules_name_their_origin():
+    """Every copied observability module's first line names the JAX
+    file it was copied from, with its lines."""
+    for name in OBSERVE_MODULES:
+        rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
+        path = os.path.join(PKG, rel + ".py")
+        if not os.path.exists(path):
+            path = os.path.join(PKG, rel, "__init__.py")
+        first = open(path).readline()
+        src = os.path.relpath(path, PKG)
+        assert first.startswith(f"# Copied from horovod_tpu/{src}:1-"), \
+            (path, first)
+
+
 def test_torch_blocked_name_rule():
     assert _blocked("horovod_tpu") and _blocked("horovod_tpu.serve")
     assert _blocked("jax.numpy") and _blocked("jaxlib")

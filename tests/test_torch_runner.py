@@ -5,7 +5,8 @@ hostfile, arguments and the config file, placement, ``worker_envs``,
 ``ssh_command``, a local launch end to end, failure propagation and the
 bootstrap services.  Then what only the port has: the card's env (no JAX
 or XLA variable; ``NCCL_HOSTID`` where two ``-H`` entries are one machine)
-and the refusal of every flag whose feature it lacks; the
+and the refusal of every flag whose feature it lacks; the seven
+observability flags forwarded as the JAX launcher forwards them; the
 ``--hierarchical-*`` switches forwarded on both launchers, the ranks per
 host that every worker gets, and four ``-H`` entries of this machine
 spawned here, not by ssh.
@@ -370,6 +371,63 @@ def test_torch_runner_forwards_only_what_the_port_reads(monkeypatch):
             cfg.round_timeout_s, cfg.connect_retries,
             cfg.connect_backoff_ms) == (8 << 20, 2.0, 3, 4, 2, 9.0, 20.0, 5,
                                         100.0)
+
+
+# ---------------------------------------------------------- observability
+# The seven observability flags the port once refused: flag, its value on
+# the command line (none for a switch), the variable it forwards, what a
+# rank gets there (``{r}`` its rank), and the port Config's field and value.
+OBSERVE_FLAGS = {
+    "--monitor": ([], "HOROVOD_MONITOR", "1", "monitor", True),
+    "--monitor-port": (["9123"], "HOROVOD_MONITOR_PORT", "9123",
+                       "monitor_port", 9123),
+    "--monitor-interval": (["0.5"], "HOROVOD_MONITOR_INTERVAL", "0.5",
+                           "monitor_interval_s", 0.5),
+    "--trace-filename": (["/tmp/hvd/tr"], "HOROVOD_TRACE", "/tmp/hvd/tr.{r}",
+                         "trace_filename", "/tmp/hvd/tr.{r}"),
+    "--trace-ring": (["512"], "HOROVOD_TRACE_RING", "512", "trace_ring",
+                     512),
+    "--timeline-filename": (["/tmp/hvd/tl"], "HOROVOD_TIMELINE",
+                            "/tmp/hvd/tl.{r}", "timeline_filename",
+                            "/tmp/hvd/tl.{r}"),
+    "--timeline-mark-cycles": ([], "HOROVOD_TIMELINE_MARK_CYCLES", "1",
+                               "timeline_mark_cycles", True),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(OBSERVE_FLAGS))
+def test_torch_runner_forwards_observability_flag(flag, monkeypatch):
+    """Each flag the port no longer refuses parses, forwards the JAX
+    launcher's variable to every rank with the JAX launcher's value (the
+    file names per rank, ``<base>.<rank>``), and round-trips into the
+    port's Config.  ``--monitor-port`` also arms the monitor, as there."""
+    from horovod_tpu_torch.common.config import Config
+    value, var, want, field, cfg_want = OBSERVE_FLAGS[flag]
+    assert flag not in port_run.NOT_PORTED
+    argv = ["-np", "3", "-H", "a:2,b:1", flag, *value, "python", "t.py"]
+    coord = ("1.2.3.4", 5555, 5556)
+    envs = {}
+    for pkg in RUNNERS:
+        run = _mod(pkg)
+        args = run.parse_args(argv)
+        envs[pkg] = run.worker_envs(args, run.placement(args), coord)
+    for r, (jenv, penv) in enumerate(zip(*envs.values())):
+        assert penv[var] == jenv[var] == want.format(r=r)
+        if flag == "--monitor-port":
+            assert penv["HOROVOD_MONITOR"] == jenv["HOROVOD_MONITOR"] == "1"
+        for k in [k for k in penv if k.startswith("HOROVOD_")
+                  and "CONTROLLER" not in k and k != "HOROVOD_LOCAL_COUNTS"]:
+            monkeypatch.setenv(k, penv[k])
+        got = getattr(Config.from_env(), field)
+        assert got == (cfg_want.format(r=r) if isinstance(cfg_want, str)
+                       else cfg_want)
+        if flag == "--trace-filename":
+            assert Config.from_env().trace is True
+        for k in penv:
+            monkeypatch.delenv(k, raising=False)
+    plain = port_run.parse_args(["-np", "2", "python", "t.py"])
+    assert var not in port_run.worker_envs(plain, port_run.placement(plain),
+                                           coord)[0]
 
 
 # ------------------------------------------------- the two-level data plane
