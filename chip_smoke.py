@@ -160,7 +160,21 @@ Phases (any failure exits non-zero and prints no result line):
    NCCL kernel; pack = unpack launches = dtype groups; parameters bitwise
    equal across ranks every step; each rank's cross_rank, cross_size,
    is_homogeneous and capability probes.
-11. The whole run's wall time, the kernels line (JSON), the card line, and
+11. ZeRO.  E9 (``--e9-worker``, after E8): two ranks through the launcher
+   as E3 with ``--sharded``, ``HOROVOD_TRACE=1`` and
+   ``HOROVOD_PIPELINE_CHUNK`` (E9_CHUNK: 6 buckets), Llama at full width
+   cut to E9_LAYERS, B=2, T=4096, ``DistributedOptimizer(AdamW)`` for 3
+   steps in three modes one after another in the same ranks, each from the
+   same seeded parameters on the same token streams: replicated, ZeRO-1
+   (``sharded=None``, from the flag) and FSDP (``sharded="full"``, its
+   ``gather_params`` timed apart): the parameters' checksums equal across
+   the modes and the ranks; ZeRO-1's optimizer state at most 0.55 of the
+   replicated optimizer's; FSDP's ``memory_allocated`` between steps at
+   most 0.55 of ZeRO-1's; ``prefetch_overlapped >= 1``; the FSDP saveable
+   loaded bitwise into a new optimizer; for each mode the step's time
+   after the first, the tracer's phases, the collectives' card time
+   (``reduce_*_us_total``), peak memory and the launches.
+12. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -3473,6 +3487,289 @@ def e8_phase(torch, layers, seed, card, timeout_s=E8_TIMEOUT_S):
                     step_s=med)
 
 
+# ------------------------------------------------------------ E9: ZeRO
+E9_LAYERS = 2
+E9_STEPS = 3
+E9_LR = 1e-3             # AdamW, state in the parameters' bf16
+E9_CHUNK = 256 << 20     # HOROVOD_PIPELINE_CHUNK: 6 buckets of <= 256 MiB
+E9_TIMEOUT_S = 420
+E9_BYTES_TOL = 0.55      # ZeRO-1 state / replicated; FSDP memory / ZeRO-1
+E9_MODES = ((False, "replicated"), (None, "zero1"), ("full", "fsdp"))
+
+
+def _wait_timed(eng, timeout_s=30.0):
+    """Until the engine has read every dispatched batch's reduce-phase
+    marks (the in-flight watcher reads them after the card is done)."""
+    t0 = time.time()
+    while eng.timed_batches < eng.pipeline_dispatches \
+            and time.time() - t0 < timeout_s:
+        time.sleep(0.005)
+
+
+def e9_worker(args):
+    """One rank of E9, started by ``e9_phase`` through the port's launcher
+    with ``--sharded`` (``HOROVOD_SHARDED_OPTIMIZER=1``), ``HOROVOD_TRACE=1``
+    and ``HOROVOD_PIPELINE_CHUNK``: Llama at full width, ``E9_STEPS`` steps
+    of ``DistributedOptimizer(AdamW)`` in three modes one after another,
+    each from the same seeded parameters on the same token streams:
+    replicated (``sharded=False``), ZeRO-1 (``sharded=None``: the
+    launcher's flag), FSDP (``sharded="full"``, whose gathers are timed
+    apart from the step).  Then the FSDP saveable loaded into a new
+    optimizer.  Writes ``rank<HOROVOD_RANK>.json`` in ``args.e9_worker``."""
+    import gc
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.trace import TraceRecorder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r, dev = hvd.rank(), hvd.device()
+    eng = basics._get_state().engine
+    cfg = tl.llama3_8b(n_layers=args.train_layers)
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 2 + r).randint(
+        0, cfg.vocab_size, (E9_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int64)).to(dev)
+
+    def counters():
+        return [eng.reduce_pack_us_total + eng.reduce_collective_us_total
+                + eng.reduce_unpack_us_total, eng.reduce_collective_us_total,
+                eng.pipeline_dispatches, fusion.pack.launches,
+                fusion.unpack.launches]
+
+    def fresh(seed):
+        params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed))
+        return params, list(tl.named_parameters(params))
+
+    res = dict(rank=r, card=torch.cuda.get_device_name(dev),
+               tracer=eng.tracer is not None, modes={})
+    for sharded, label in E9_MODES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        params, named = fresh(args.seed + 1)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW([t for _, t in named], lr=E9_LR),
+            named_parameters=named, sharded=sharded)
+        step = tl.make_train_step(cfg, opt)
+        eng.tracer = TraceRecorder()
+        _zero_flash(fa)
+        fusion.pack.launches = fusion.unpack.launches = 0
+        o0 = eng.prefetch_overlapped
+        steps = []
+        for i in range(E9_STEPS):
+            x, y = toks[i, :, :-1], toks[i, :, 1:]
+            torch.cuda.synchronize()
+            _wait_timed(eng)
+            c0 = counters()
+            t0 = time.perf_counter()
+            gather_s, cg = 0.0, c0
+            if label == "fsdp" and i > 0:
+                # The gathers apart (make_train_step's gather_params then
+                # finds the parameters in memory and slices nothing new).
+                opt.gather_params()
+                torch.cuda.synchronize()
+                gather_s = time.perf_counter() - t0
+                _wait_timed(eng)
+                cg = counters()
+            loss = step(params, x, y).item()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            _wait_timed(eng)
+            c1 = counters()
+            steps.append(dict(
+                loss=loss, s=dt, gather_s=gather_s,
+                gather_us=cg[0] - c0[0], gather_nccl_us=cg[1] - c0[1],
+                step_us=c1[0] - cg[0], step_nccl_us=c1[1] - cg[1],
+                batches=c1[2] - c0[2], pack=c1[3] - c0[3],
+                unpack=c1[4] - c0[4],
+                allocated=torch.cuda.memory_allocated(dev)))
+        if label == "fsdp":
+            opt.gather_params()
+        torch.cuda.synchronize()
+        m = dict(steps=steps, sums=_checksum(torch, named),
+                 flash=_flash_counts(fa), pack=fusion.pack.launches,
+                 unpack=fusion.unpack.launches,
+                 summary=eng.tracer.phase_summary(),
+                 peak=torch.cuda.max_memory_allocated(dev),
+                 overlapped=eng.prefetch_overlapped - o0,
+                 sharded=getattr(opt, "sharded", False), base=base,
+                 params_bytes=_nbytes([t for _, t in named]))
+        if sharded is False:
+            m["state"] = sum(v.numel() * v.element_size()
+                             for st in opt.state.values()
+                             for v in st.values()
+                             if isinstance(v, torch.Tensor))
+        else:
+            m["state"] = opt.opt_state_bytes()
+            m["buckets"] = len(opt._plan.buckets)
+            m["shards_on"] = sorted({str(s.device) for s in opt._shards})
+        if label == "fsdp":
+            t0 = time.perf_counter()
+            saved = opt.hvd_sharded_saveable()
+            _, named2 = fresh(args.seed + 7)
+            opt2 = hvd.DistributedOptimizer(
+                torch.optim.AdamW([t for _, t in named2], lr=E9_LR),
+                named_parameters=named2, sharded="full")
+            loaded = opt2.load_sharded_saveable(saved)
+            same = loaded and all(
+                torch.equal(a, b) for a, b in zip(opt._shards, opt2._shards))
+            for o1, o2 in zip(opt._inner, opt2._inner):
+                for p1, p2 in zip(o1.param_groups[0]["params"],
+                                  o2.param_groups[0]["params"]):
+                    s1, s2 = o1.state[p1], o2.state[p2]
+                    same = same and sorted(s1) == sorted(s2) and all(
+                        torch.equal(s1[k], s2[k].to(s1[k].device))
+                        for k in s1)
+            m.update(saveable=same, saveable_s=time.perf_counter() - t0,
+                     saveable_gb=sum(_nbytes([t for t in b])
+                                     for b in saved["param_shards"]) / 1e9)
+            del saved, opt2, named2
+        res["modes"][label] = m
+        del opt, step, params, named
+        # The replicated optimizer's hooks and its parameters refer to each
+        # other: only the cycle collector frees them before the next mode.
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    _write_result(args.e9_worker, res)
+    print(f"e9 rank {r}: done", flush=True)
+    return 0
+
+
+def e9_phase(torch, layers, seed, card, timeout_s=E9_TIMEOUT_S):
+    """E9: two ranks through the port's launcher with ``--sharded``
+    (``e9_worker``), and its checks: (1) the parameters' checksums after
+    the steps equal across the replicated, ZeRO-1 and FSDP modes and
+    across the ranks, every loss finite; (2) ZeRO-1's optimizer state at
+    most E9_BYTES_TOL of the replicated optimizer's; (3) FSDP's
+    ``memory_allocated`` between steps at most E9_BYTES_TOL of ZeRO-1's;
+    (4) ``prefetch_overlapped >= 1`` with at least 4 buckets; (5) the FSDP
+    saveable loads bitwise into a new optimizer; (6) ZeRO-1 came from the
+    launcher's flag, its shards on the card; pack = unpack launches.
+    Returns ``(ok, counts)`` (rank 0's launches over the three modes)."""
+    import numpy as np
+    results, route, wall = launch_ranks(
+        torch, "--e9-worker", layers, seed, timeout_s, 2, ("--sharded",),
+        env_extra={"HOROVOD_TRACE": "1",
+                   "HOROVOD_PIPELINE_CHUNK": str(E9_CHUNK)})
+    if results is None:
+        return False, None
+    a = results[0]
+    ok = all(x["tracer"] for x in results)
+    print(f"e9: 2 ranks ({route}) in {wall:.1f} s with --sharded, "
+          f"HOROVOD_TRACE=1, HOROVOD_PIPELINE_CHUNK={E9_CHUNK}; tracer "
+          f"armed on both: {ok}", flush=True)
+    for _, label in E9_MODES:
+        for x in results:
+            m = x["modes"][label]
+            med = sorted(s["s"] for s in m["steps"][1:])[
+                (len(m["steps"]) - 1) // 2] if len(m["steps"]) > 1 else 0.0
+            ph = (m["summary"]["phases_us"] or {})
+            after = m["steps"][1:]
+            n = max(1, len(after))
+            coll = "allreduce" if label == "replicated" else (
+                "reduce-scatter + allgather" if label == "zero1"
+                else "reduce-scatter")
+            gather = (f", allgather (gather_params) "
+                      f"{sum(s['gather_us'] for s in after) / n / 1e3:.1f} "
+                      f"ms on the card (NCCL "
+                      f"{sum(s['gather_nccl_us'] for s in after) / n / 1e3:.1f}"
+                      f"), {sum(s['gather_s'] for s in after) / n * 1e3:.1f} "
+                      f"ms wall" if label == "fsdp" else "")
+            print(f"e9 {label} rank {x['rank']}: losses "
+                  + " / ".join(f"{s['loss']:.5f}" for s in m["steps"])
+                  + f"; step after the first {med * 1e3:.1f} ms (median); "
+                  f"{coll} {sum(s['step_us'] for s in after) / n / 1e3:.1f} "
+                  f"ms a step on the card (pack + NCCL + unpack, CUDA "
+                  f"events; NCCL "
+                  f"{sum(s['step_nccl_us'] for s in after) / n / 1e3:.1f})"
+                  f"{gather}; {m['steps'][-1]['batches']} batches; phases "
+                  f"({m['summary']['spans']} spans, mean us) "
+                  + ", ".join(f"{k} {v:.0f}" for k, v in ph.items())
+                  + f"; optimizer state {m['state'] / 2**30:.3f} GiB, "
+                  f"allocated between steps "
+                  f"{m['steps'][-1]['allocated'] / 2**30:.3f} GiB (at the "
+                  f"mode's start {m['base'] / 2**30:.3f}), peak "
+                  f"{m['peak'] / 2**30:.2f} GiB a rank; launches flash "
+                  f"{m['flash']}, pack/unpack {m['pack']}/{m['unpack']}"
+                  + (f"; {m['buckets']} buckets, prefetch_overlapped "
+                     f"{m['overlapped']}" if "buckets" in m else ""),
+                  flush=True)
+    # (1) the parameters.
+    sums = {(x["rank"], label): x["modes"][label]["sums"]
+            for x in results for _, label in E9_MODES}
+    finite = all(np.isfinite(s["loss"]) for x in results
+                 for m in x["modes"].values() for s in m["steps"])
+    good = finite and len({tuple(v) for v in sums.values()}) == 1
+    ok = ok and good
+    print(f"e9[1]: parameter checksums after {E9_STEPS} steps "
+          f"{sums[(0, 'replicated')]}, equal across the 3 modes and 2 ranks: "
+          f"{len({tuple(v) for v in sums.values()}) == 1}; losses finite "
+          f"{finite} -> {'PASS' if good else 'FAIL'}", flush=True)
+    for x in results:
+        rep, z1, fs = (x["modes"][k] for k in ("replicated", "zero1",
+                                                 "fsdp"))
+        # (2) ZeRO-1's state.
+        ratio = z1["state"] / max(rep["state"], 1)
+        good = ratio <= E9_BYTES_TOL
+        ok = ok and good
+        print(f"e9[2] rank {x['rank']}: optimizer state ZeRO-1 "
+              f"{z1['state']} B / replicated {rep['state']} B = "
+              f"{ratio:.4f} (<= {E9_BYTES_TOL}) -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+        # (3) FSDP's memory between steps.
+        mz, mf = z1["steps"][-1]["allocated"], fs["steps"][-1]["allocated"]
+        good = mf <= E9_BYTES_TOL * mz
+        ok = ok and good
+        print(f"e9[3] rank {x['rank']}: memory_allocated between steps "
+              f"FSDP {mf / 2**30:.3f} GiB / ZeRO-1 {mz / 2**30:.3f} GiB = "
+              f"{mf / max(mz, 1):.4f} (<= {E9_BYTES_TOL}; replicated "
+              f"{rep['steps'][-1]['allocated'] / 2**30:.3f} GiB) -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+        # (4) the prefetch.
+        good = fs["overlapped"] >= 1 and fs["buckets"] >= 4
+        ok = ok and good
+        print(f"e9[4] rank {x['rank']}: FSDP {fs['buckets']} buckets, "
+              f"prefetch_overlapped {fs['overlapped']} -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+        # (5) the saveable.
+        good = fs["saveable"]
+        ok = ok and good
+        print(f"e9[5] rank {x['rank']}: FSDP saveable "
+              f"({fs['saveable_gb']:.2f} GB of gathered parameter shards "
+              f"and the gathered state) loaded bitwise into a new optimizer "
+              f"in {fs['saveable_s']:.1f} s -> {'PASS' if good else 'FAIL'}",
+              flush=True)
+        # (6) the modes and launches.
+        good = (rep["sharded"] is False and z1["sharded"] is True
+                and fs["sharded"] == "full"
+                and z1["shards_on"] == fs["shards_on"] == ["cuda:0"]
+                and all(m["pack"] == m["unpack"] > 0
+                        for m in (rep, z1, fs)))
+        ok = ok and good
+        print(f"e9[6] rank {x['rank']}: modes {rep['sharded']} / "
+              f"{z1['sharded']} (from --sharded) / {fs['sharded']!r}, shards "
+              f"on {z1['shards_on']}; pack = unpack launches in each -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    print(f"e9: Llama at full width, {layers} layers "
+          f"({a['modes']['replicated']['params_bytes'] / 2**30:.2f} GiB of "
+          f"bf16 parameters a rank), AdamW, B={TRAIN_BATCH} T={TRAIN_SEQ} "
+          f"[{card}; {route}: NCCL's socket transport, not NVLink] -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    modes = a["modes"].values()
+    return ok, dict(pack=sum(m["pack"] for m in modes),
+                    unpack=sum(m["unpack"] for m in modes),
+                    flash=[sum(m["flash"][k] for m in modes)
+                           for k in range(3)])
+
+
 def trace_ab_phase(torch, hvd, grads, iters=5):
     """The size-1 counterpart of the JAX bench's trace A/B: the engine's
     grouped allreduce of the gradient set with the tracer detached (the
@@ -3540,6 +3837,8 @@ def main():
                     help=argparse.SUPPRESS)   # one rank of phase E7
     ap.add_argument("--e8-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E8
+    ap.add_argument("--e9-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase E9
     args = ap.parse_args()
 
     import torch
@@ -3572,6 +3871,8 @@ def main():
         return e7_worker(args)
     if args.e8_worker:
         return e8_worker(args)
+    if args.e9_worker:
+        return e9_worker(args)
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3655,6 +3956,9 @@ def main():
     e8_ok, e8 = e8_phase(torch, E8_LAYERS, args.seed, card)
     e8_ok = e8_ok and ab_ok
     print(f"e8: the phase in {time.time() - t_e8:.1f} s", flush=True)
+    t_e9 = time.time()
+    e9_ok, e9 = e9_phase(torch, E9_LAYERS, args.seed, card)
+    print(f"e9: the phase in {time.time() - t_e9:.1f} s", flush=True)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -3669,19 +3973,21 @@ def main():
     m6 = [a + b for a, b in zip(tf_launches,
                                 e6["flash"] if e6 else [0, 0, 0])]
     f8 = e8["flash"] if e8 else [0, 0, 0]
+    f9 = e9["flash"] if e9 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
-                + e5[0] + m6[0] + f8[0],
+                + e5[0] + m6[0] + f8[0] + f9[0],
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
-                + m6[1] + f8[1],
+                + m6[1] + f8[1] + f9[1],
                 "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
-                + m6[2] + f8[2]}
+                + m6[2] + f8[2] + f9[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
           f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
-          f"size 2) + {f8[0]} observability (E8, rank 0); flash_bwd_dq "
-          f"{train_launches['flash_bwd_dq']} + {e5[1]} + {m6[1]} + "
-          f"{f8[1]}, flash_bwd_dkv {train_launches['flash_bwd_dkv']} + "
-          f"{e5[2]} + {m6[2]} + {f8[2]}", flush=True)
+          f"size 2) + {f8[0]} observability (E8, rank 0) + {f9[0]} ZeRO "
+          f"(E9, rank 0); flash_bwd_dq {train_launches['flash_bwd_dq']} + "
+          f"{e5[1]} + {m6[1]} + {f8[1]} + {f9[1]}, flash_bwd_dkv "
+          f"{train_launches['flash_bwd_dkv']} + {e5[2]} + {m6[2]} + "
+          f"{f8[2]} + {f9[2]}", flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
@@ -3704,7 +4010,7 @@ def main():
              ring_max_abs_err=fwd_ring["max_abs_err"],
              ring_tflops=fwd_ring["tflops"],
              **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS},
-             launches_e6=m6[0], launches_e8=f8[0],
+             launches_e6=m6[0], launches_e8=f8[0], launches_e9=f9[0],
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
     ] + [
@@ -3727,6 +4033,7 @@ def main():
              ulysses_library_ms=bwd_uly["library_ms"],
              launches_e6=m6[1 if g == "dq" else 2],
              launches_e8=f8[1 if g == "dq" else 2],
+             launches_e9=f9[1 if g == "dq" else 2],
              **{f"{m}_{k}": bwd_by_name[case][g][k]
                 for m, case in MODEL_CASES.items() for k in _CASE_KEYS
                 if k in bwd_by_name[case][g]},
@@ -3757,11 +4064,13 @@ def main():
                      "fused this work into _build_fused_reduce)",
             design=design,
             launches=(two[kern] if two else 0) + (four[kern] if four else 0)
-            + (e6[kern] if e6 else 0) + (e8[kern] if e8 else 0),
+            + (e6[kern] if e6 else 0) + (e8[kern] if e8 else 0)
+            + (e9[kern] if e9 else 0),
             launches_e3=two[kern] if two else 0,
             launches_e4=four[kern] if four else 0,
             launches_e6=e6[kern] if e6 else 0,
             launches_e8=e8[kern] if e8 else 0,
+            launches_e9=e9[kern] if e9 else 0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"],
@@ -3787,7 +4096,7 @@ def main():
             library_ms=r["library_ms"], gbps=r["gbps"], n=r["n"]))
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
-                        and adasum_ok and e7_ok and e8_ok
+                        and adasum_ok and e7_ok and e8_ok and e9_ok
                         and kern["launches"] > 0)
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
@@ -3795,7 +4104,7 @@ def main():
     print(card, flush=True)
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
-            and models_ok and adasum_ok and e7_ok and e8_ok
+            and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
             and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
@@ -3806,7 +4115,8 @@ def main():
               f"parallel ok={sp_ok}, models ok={models_ok} (resnet50 "
               f"{resnet_ok}, transformers {tf_ok}, two ranks {e6_ok}), "
               f"adasum kernels ok={adasum_ok}, four ranks (E7) ok={e7_ok}, "
-              f"observability (E8, trace A/B {ab_ok}) ok={e8_ok}")
+              f"observability (E8, trace A/B {ab_ok}) ok={e8_ok}, ZeRO (E9) "
+              f"ok={e9_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,8 +11,9 @@ kernels), the collective engine under both (negotiation through the
 copied coordinator, fusion, and one collective per fused buffer between
 the pack and unpack kernels), the rest of the collectives a world above
 one rank uses (allgather, alltoall, reducescatter, join) with
-``SyncBatchNorm``, and the launcher, ``python -m
-horovod_tpu_torch.runner``.
+``SyncBatchNorm``, the launcher, ``python -m horovod_tpu_torch.runner``,
+and the ZeRO-sharded optimizer (``DistributedOptimizer(sharded=True)`` and
+``sharded="full"``) with its saveables.
 """
 
 from .common.basics import (  # noqa: F401
@@ -38,6 +39,8 @@ from .mpi_ops import (  # noqa: F401
     grouped_reducescatter, grouped_reducescatter_async, barrier, join,
     synchronize, poll,
 )
-from .optimizer import DistributedOptimizer  # noqa: F401
+from .optimizer import (  # noqa: F401
+    DistributedOptimizer, is_sharded_saveable, load_sharded_saveable,
+)
 from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from . import serve  # noqa: F401

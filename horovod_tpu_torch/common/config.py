@@ -2,7 +2,9 @@
 # and the matching lines of from_env (:410-497): only the fields the engine
 # and the controller read; the monitor (:146-154), timeline and trace
 # (:184-196) fields, the launcher's cross rank and size (:403-404) and their
-# parsing (:420-430, :495-496, :502-508).
+# parsing (:420-430, :495-496, :502-508); the sharded optimizer's fields
+# (:276-299) with pipeline_chunk_bytes (:128), and their parsing (:416,
+# :448-450).
 """Environment-variable configuration surface.
 
 TPU-native equivalent of the reference's env parser
@@ -87,6 +89,11 @@ class Config:
       ``trace_ring`` <- HOROVOD_TRACE_RING
     - ``cross_rank_env``/``cross_size_env`` <- HOROVOD_CROSS_RANK/
       HOROVOD_CROSS_SIZE (the launcher's)
+    - ``sharded_optimizer``        <- HOROVOD_SHARDED_OPTIMIZER
+    - ``sharded_params``           <- HOROVOD_SHARDED_PARAMS
+    - ``prefetch_depth``           <- HOROVOD_PREFETCH_DEPTH
+    - ``pipeline_chunk_bytes``     <- HOROVOD_PIPELINE_CHUNK (the sharded
+      optimizer's bucket size; the engine has no chunked pipelining yet)
     """
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
@@ -101,6 +108,26 @@ class Config:
     # multi-process mode: >1 lets the cycle thread negotiate round N+1
     # while the device executes round N.
     max_inflight: int = 2
+
+    # HOROVOD_PIPELINE_CHUNK: in the JAX engine the chunk size of its
+    # pipelined fused reductions, which the port does not have yet; here
+    # only the sharded optimizer reads it, as the byte size of its buckets
+    # (greedy, in registration order; 0 = one bucket a param group).
+    pipeline_chunk_bytes: int = 0
+
+    # ZeRO-sharded optimizer.  HOROVOD_SHARDED_OPTIMIZER=1 makes every
+    # DistributedOptimizer built without an explicit ``sharded=`` a
+    # ``sharded=True`` one: gradients reduce-scatter, optimizer state lives
+    # 1/world per rank, the updated shards allgather.
+    # HOROVOD_SHARDED_PARAMS=1 (which takes precedence) makes it
+    # ``sharded="full"`` (ZeRO-3/FSDP): the parameters too live 1/world
+    # per rank between steps, and ``gather_params`` rematerializes them
+    # through prefetch allgathers, HOROVOD_PREFETCH_DEPTH buckets ahead.
+    # The two flags must be the same on every rank (the sharded token is
+    # part of the negotiation digest); the depth is a local knob.
+    sharded_optimizer: bool = False
+    sharded_params: bool = False
+    prefetch_depth: int = 2
 
     # Control-plane fault tolerance (protocol v4, docs/fault_tolerance.md).
     # round_timeout_s: per-negotiation-round wall-clock deadline — the
@@ -197,6 +224,7 @@ class Config:
             fusion_threshold_bytes=_env_int("FUSION_THRESHOLD", 64 * 1024 * 1024),
             cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
             response_cache_capacity=_env_int("RESPONSE_CACHE_CAPACITY", 2048),
+            pipeline_chunk_bytes=_env_int("PIPELINE_CHUNK", 0),
             max_inflight=_env_int("MAX_INFLIGHT", 2),
             round_timeout_s=_env_float("ROUND_TIMEOUT_S", 0.0),
             connect_retries=_env_int("CONNECT_RETRIES", 3),
@@ -224,6 +252,9 @@ class Config:
             controller_port2=_env_int("CONTROLLER_PORT2", 0),
             cross_rank_env=_env_int("CROSS_RANK", -1),
             cross_size_env=_env_int("CROSS_SIZE", -1),
+            sharded_optimizer=_env_bool("SHARDED_OPTIMIZER", False),
+            sharded_params=_env_bool("SHARDED_PARAMS", False),
+            prefetch_depth=_env_int("PREFETCH_DEPTH", 2),
         )
         # HOROVOD_TRACE: a bool-ish value arms the in-memory recorder only;
         # anything else is the per-rank trace file path (and arms it).

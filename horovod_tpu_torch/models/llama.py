@@ -307,8 +307,15 @@ def make_train_step(cfg: LlamaConfig, optimizer, mesh=None):
     its tokens) for the parameters before the update; :func:`psum_loss`
     gives the global mean.  ``params`` must be the leaves ``optimizer``
     updates; with ``hvd.DistributedOptimizer`` the step averages the
-    gradients across processes.  ``mesh``: as in :func:`forward`."""
+    gradients across processes, and with ``sharded="full"`` it first
+    rematerializes the parameters (``optimizer.gather_params()``), which
+    only the shards hold between steps.  ``mesh``: as in
+    :func:`forward`."""
+    full = getattr(optimizer, "sharded", False) == "full"
+
     def step(params, tokens, targets):
+        if full:
+            optimizer.gather_params()
         optimizer.zero_grad()
         loss = loss_fn(params, tokens, targets, cfg, mesh)
         loss.backward()

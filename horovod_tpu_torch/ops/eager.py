@@ -1,7 +1,8 @@
 # Ported from horovod_tpu/ops/eager.py:31-97 (auto names,
 # reset_name_counters, _engine, _ps, _auto_name, _wire_mode), 253-357
 # (allreduce and grouped allreduce), 361-464 (allgather, grouped allgather
-# and reducescatter), 466-478 (broadcast), 501-596 (allgather_object),
+# and reducescatter, with their sharded= and prefetch= 402-460), 466-478
+# (broadcast), 501-596 (allgather_object),
 # 599-622 (broadcast_object), 624-797 (even and ragged alltoall), 799-815
 # (reducescatter), 817-840 (synchronize/poll/barrier) and 842-862 (join).
 """Eager collective API over per-rank torch tensors — the engine's face.
@@ -278,40 +279,57 @@ def _grouped_async(tensors, name, prefix, ctype, process_set,
 def grouped_allgather_async(tensors: Sequence[torch.Tensor],
                             name: Optional[str] = None,
                             process_set: Optional[ProcessSet] = None,
-                            priorities: Optional[Sequence[int]] = None
+                            priorities: Optional[Sequence[int]] = None,
+                            sharded=False, prefetch: bool = False
                             ) -> List[int]:
-    """Reference: ``hvd.grouped_allgather`` (upstream v0.28)."""
+    """Reference: ``hvd.grouped_allgather`` (upstream v0.28).
+
+    ``sharded=True`` marks the group as the allgather leg of a ZeRO-sharded
+    optimizer step (``"full"``: of the FSDP plane): the flag rides the
+    fusion key and the negotiation digest, so a sharded group never fuses
+    with an unsharded collective of the same shapes, and a rank whose flag
+    differs fails negotiation.  ``prefetch=True`` puts the group's batch on
+    the engine's prefetch lane (before the fused lane, outside its
+    budget): the FSDP optimizer marks the gathers of the next buckets'
+    parameters so.  The fusion key holds it, the digest does not: it must
+    be the same on every rank."""
     return _grouped_async(tensors, name, "grouped_allgather",
-                          CollectiveType.ALLGATHER, process_set, priorities)
+                          CollectiveType.ALLGATHER, process_set, priorities,
+                          sharded=sharded, prefetch=prefetch)
 
 
 def grouped_allgather(tensors: Sequence[torch.Tensor],
                       name: Optional[str] = None,
                       process_set: Optional[ProcessSet] = None,
-                      priorities: Optional[Sequence[int]] = None):
+                      priorities: Optional[Sequence[int]] = None,
+                      sharded=False, prefetch: bool = False):
     return synchronize(grouped_allgather_async(tensors, name, process_set,
-                                               priorities))
+                                               priorities, sharded, prefetch))
 
 
 def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
                                 name: Optional[str] = None,
                                 op: C.ReduceOp = C.ReduceOp.SUM,
                                 process_set: Optional[ProcessSet] = None,
-                                priorities: Optional[Sequence[int]] = None
-                                ) -> List[int]:
-    """Reference: ``hvd.grouped_reducescatter`` (upstream v0.28)."""
+                                priorities: Optional[Sequence[int]] = None,
+                                sharded=False) -> List[int]:
+    """Reference: ``hvd.grouped_reducescatter`` (upstream v0.28).  See
+    :func:`grouped_allgather_async` for ``priorities`` and ``sharded``
+    (``"full"`` marks the FSDP gradient reduce-scatter legs)."""
     return _grouped_async(tensors, name, "grouped_reducescatter",
                           CollectiveType.REDUCESCATTER, process_set,
-                          priorities, reduce_op=op)
+                          priorities, reduce_op=op, sharded=sharded)
 
 
 def grouped_reducescatter(tensors: Sequence[torch.Tensor],
                           name: Optional[str] = None,
                           op: C.ReduceOp = C.ReduceOp.SUM,
                           process_set: Optional[ProcessSet] = None,
-                          priorities: Optional[Sequence[int]] = None):
+                          priorities: Optional[Sequence[int]] = None,
+                          sharded=False):
     return synchronize(grouped_reducescatter_async(tensors, name, op,
-                                                   process_set, priorities))
+                                                   process_set, priorities,
+                                                   sharded))
 
 
 def allgather_object(obj, name: Optional[str] = None,

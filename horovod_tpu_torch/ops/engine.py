@@ -1,17 +1,21 @@
 # Ported from horovod_tpu/ops/engine.py: CollectiveType 59-66,
-# TensorTableEntry 68-148 (without the partition, fast-lane, prefetch,
-# sharded and donation fields), _SPAN_DROPPED/_live_span 178-184,
-# _fusion_key 151-169, the cycle and negotiation accounting 350-377, the
+# TensorTableEntry 68-148 (with the sharded 88-98 and prefetch 117-126
+# fields, without the partition, fast-lane, cache-slot and donation
+# fields), _SPAN_DROPPED/_live_span 178-184, _fusion_key 151-169 (without
+# the partition count), the prefetch counters 320-325, the cycle and
+# negotiation accounting 350-377, the
 # tracer 378-386 and 471-474, the monitor's fault hook 557-564, the
 # timeline lanes and trace stamps 576-587, 682-685, 957-977, 1021-1047,
 # 1114-1133, 1165-1213, 1270-1272, 1346-1350, 1368-1380, 1391 and
 # 1399-1429, the two-level span share 1825-1840,
 # start/quiesce/stop/_abort_engine/_settle_queued 416-598,
 # enqueue/enqueue_group 610-697, synchronize/poll 802-850, the cycle
-# 911-1133, _compute_response_list 1136-1335 (the in-flight abort on a
+# 911-1133 (the backlog's prefetch and fused lanes 1076-1094, without the
+# fast lane), _compute_response_list 1136-1335 (the in-flight abort on a
 # leave notice 1252-1268), _perform_operation/
 # _settle_batch/_inflight_ring 1338-1463, _join_fill_value/
-# _synthesize_join_entry 1470-1566, _slice_topology/_hier_decision/
+# _synthesize_join_entry 1470-1566 (with the sharded token 1537-1548),
+# _slice_topology/_hier_decision/
 # _hier_ag_decision/_hier_bcast_decision/_batch_payload_bytes 1568-1707,
 # _execute_batch 1792-1889 (with its two-level verdict and leg counters
 # 1802-1830) and the builders 1896-2094 (fused reduce, allreduce with
@@ -115,6 +119,14 @@ and ``reduce_unpack_us_total`` (on the CPU, where the work is done when
 the call returns, host clock times).  Disarmed, every site is one
 attribute check and no event is made beyond the done event.
 
+The ZeRO-sharded optimizer (``optimizer.py``) marks its reduce-scatter and
+allgather entries ``sharded`` (``True``, or ``"full"`` for FSDP): part of
+the fusion key and of the negotiation digest, so a sharded batch never
+fuses with an unsharded one of the same shapes and a rank whose flag
+differs fails negotiation.  FSDP's parameter gathers are also marked
+``prefetch``: the backlog pushes them on the prefetch lane, ahead of the
+fused lane and outside its budget.
+
 Out of this slice: the fast lane, partitioning, chunked pipelining and the
 checkpoint lane; the sanitizer and the autotuner.
 """
@@ -135,8 +147,8 @@ import torch
 
 from . import collectives as C
 from . import fusion
-from .scheduler import (FUSED_LANE, InflightRing, StallInspector, TensorQueue,
-                        pop_gradient_batches)
+from .scheduler import (FUSED_LANE, PREFETCH_LANE, InflightRing,
+                        StallInspector, TensorQueue, pop_gradient_batches)
 from ..common.exceptions import ControlPlaneError
 from ..trace import maybe_install
 from ..utils.logging import get_logger
@@ -188,6 +200,20 @@ class TensorTableEntry:
     # key but NOT the negotiation digest: the value must be the same on
     # every rank, because batching groups by fusion key.
     hierarchical: Optional[bool] = None
+    # ZeRO-sharded data plane: True for the reduce-scatter/allgather legs
+    # of DistributedOptimizer(sharded=True), "full" for those of
+    # sharded="full" (FSDP).  Part of the fusion key AND the negotiation
+    # digest (the controller's "sharded"/"sharded-full" token): a sharded
+    # batch never fuses with an ordinary collective (or an FSDP one with a
+    # ZeRO-1 one) of the same shapes, and a rank whose flag diverges fails
+    # negotiation instead of executing a mismatched batch.
+    sharded: Any = False
+    # FSDP parameter prefetch: marked on the allgathers that rematerialize
+    # the next buckets' parameters.  The backlog pushes their batch on the
+    # prefetch lane (before the fused lane, outside its budget).  Part of
+    # the fusion key but NOT the digest, like ``hierarchical``: the value
+    # must be the same on every rank.
+    prefetch: bool = False
     # Drain priority (higher drains first; default 0 = FIFO).  Stamped by
     # the DistributedOptimizer bindings with reverse-registration order so
     # first-needed gradients lead each cycle (ByteScheduler-style priority
@@ -284,7 +310,7 @@ def _fusion_key(e: TensorTableEntry) -> Tuple:
     group table N13 semantics)."""
     return (e.ctype, e.reduce_op, e.root_rank, e.process_set_id,
             e.prescale_factor, e.postscale_factor, e.compression,
-            e.hierarchical)
+            e.sharded, e.hierarchical, e.prefetch)
 
 
 def reduce_dtypes(ctype: CollectiveType, dtype: torch.dtype,
@@ -460,6 +486,11 @@ class CollectiveEngine:
         # A rejected HOROVOD_SLICE_MAP, counted once per process set (the
         # probe is cached), so a fleet can see why it stayed flat.
         self.slice_map_fallbacks = 0
+        # FSDP parameter prefetch: prefetch-lane batches dispatched, and
+        # how many gathers the sharded optimizer dispatched while an
+        # earlier bucket's gather was still outstanding (it counts those).
+        self.prefetch_dispatches = 0
+        self.prefetch_overlapped = 0
         self._streams: Dict[torch.device, Any] = {}
         self._handle_counter = itertools.count(1)
         self._handles: Dict[int, TensorTableEntry] = {}
@@ -684,13 +715,15 @@ class CollectiveEngine:
                 postscale_factor=None, group_id: int = -1,
                 compression: Optional[str] = None, priority: int = 0,
                 output=None, target=None,
-                hierarchical: Optional[bool] = None) -> int:
+                hierarchical: Optional[bool] = None, sharded: Any = False,
+                prefetch: bool = False) -> int:
         return self.enqueue_group([dict(
             name=name, ctype=ctype, tensor=tensor, reduce_op=reduce_op,
             root_rank=root_rank, process_set_id=process_set_id,
             prescale_factor=prescale_factor, postscale_factor=postscale_factor,
             group_id=group_id, compression=compression, priority=priority,
-            output=output, target=target, hierarchical=hierarchical)])[0]
+            output=output, target=target, hierarchical=hierarchical,
+            sharded=sharded, prefetch=prefetch)])[0]
 
     def enqueue_group(self, items: Sequence[dict]) -> List[int]:
         """Enqueue several entries atomically w.r.t. the drain — a cycle
@@ -971,12 +1004,23 @@ class CollectiveEngine:
             # + heap state (never of local ring occupancy): every rank
             # pushes identical batches with identical keys, so every rank
             # pops — and therefore LAUNCHES — in the identical order, which
-            # cross-process collectives require.
+            # cross-process collectives require.  FSDP's parameter gathers
+            # take the prefetch lane: before the fused lane and outside its
+            # budget, so they launch ahead of the gradient stream without
+            # reordering it.
             for batch in responses:
+                if batch[0].prefetch:
+                    lane = PREFETCH_LANE
+                    self.prefetch_dispatches += 1
+                    for e in batch:
+                        sp = _live_span(e)
+                        if sp is not None:
+                            sp.prefetch = True
+                else:
+                    lane = FUSED_LANE
                 prio = max(e.priority for e in batch)
                 heapq.heappush(self._backlog,
-                               (FUSED_LANE, -prio, next(self._backlog_seq),
-                                batch))
+                               (lane, -prio, next(self._backlog_seq), batch))
             for batch in pop_gradient_batches(
                     self._backlog, max(1, int(self.max_inflight))):
                 self._perform_operation(batch)
@@ -1352,10 +1396,12 @@ class CollectiveEngine:
                                group_id: int = -1) -> TensorTableEntry:
         """This rank's part, while it is joined, of a collective a peer
         submitted: the digest (``TCPController._digest``: collective,
-        dtype, per-rank shape, op, root, factors, wire compression) gives
-        the same entry the peers batch, holding the identity of the
-        reduction (``_join_fill_value``), and the echoed group id keeps
-        grouped batching."""
+        dtype, per-rank shape, op, root, factors, wire compression, and
+        the sharded token where there is one) gives the same entry the
+        peers batch, holding the identity of the reduction
+        (``_join_fill_value``), and the echoed group id keeps grouped
+        batching.  The prefetch flag is not in the digest: a joined
+        rank's gather stays on the fused lane."""
         handle = next(self._handle_counter)
         now = time.monotonic()   # a fresh age: must not trip the stall check
         if digest == "barrier":
@@ -1375,6 +1421,14 @@ class CollectiveEngine:
         post = None if parts[6] == "None" else float(parts[6])
         comp = parts[7] if len(parts) > 7 and parts[7] in WIRE_DTYPES \
             else None
+        # The ZeRO token, appended only to sharded digests: without it the
+        # entry's fusion key would differ from its peers' sharded entries.
+        sharded: Any = False
+        if len(parts) > 8:
+            if parts[8] == "sharded":
+                sharded = True
+            elif parts[8] == "sharded-full":
+                sharded = "full"
         dev = self._state.device
         fill = torch.full(shape, _join_fill_value(ctype, op, dtype),
                           dtype=dtype, device=dev)
@@ -1382,7 +1436,7 @@ class CollectiveEngine:
             handle=handle, name=name, ctype=ctype, tensor=fill,
             reduce_op=op, root_rank=int(parts[4]), prescale_factor=pre,
             postscale_factor=post, group_id=group_id, compression=comp,
-            enqueue_time=now)
+            sharded=sharded, enqueue_time=now)
         e.output = self._make_output(e)
         e.trace_synthesized = True
         if dev.type == "cuda":

@@ -1,9 +1,10 @@
-# Copied from horovod_tpu/ops/scheduler.py:21-31 (imports), 46-47 (the two
+# Copied from horovod_tpu/ops/scheduler.py:21-31 (imports), 45-47 (the three
 # dispatch lanes the port uses), 77-97 (pop_gradient_batches), 148-151
 # (parent_of), 154-219 (TensorQueue), 221-270 (FusedProgramCache), 272-368
 # (StallInspector) and 371-517 (InflightRing); issue-number tags are dropped
 # from the comments.  InflightRing gained a ``probe``: its abort settles a
-# batch that already completed with its results, not with the fault.
+# batch that already completed with its results, not with the fault; and
+# its watcher lets go of a batch once it has settled it.
 """Data-plane scheduling primitives (no torch imports).
 
 The pieces of the collective engine that are pure host-side scheduling —
@@ -33,6 +34,12 @@ from ..utils.logging import get_logger
 log = get_logger()
 
 # Dispatch-backlog lanes (the heap orders by ``(lane, -priority, seq)``).
+# 1 = parameter-prefetch allgathers (FSDP's gathers of the next buckets'
+# parameters: the next forward pass blocks on them, so they sort ahead of
+# the gradient drain, and they are budget-exempt: their presence never
+# changes which fused batches a cycle dispatches, nor their order), 2 =
+# fused batches, 3 = the checkpoint stream (not ported: nothing pushes it).
+PREFETCH_LANE = 1
 FUSED_LANE = 2
 CKPT_LANE = 3
 
@@ -446,3 +453,6 @@ class InflightRing:
                     if self._items:
                         self._items.popleft()
                     self._cv.notify_all()
+                # Let go of the settled batch before waiting for the next:
+                # its tensors belong to the caller now.
+                del head, batch, results

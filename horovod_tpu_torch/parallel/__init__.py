@@ -1,8 +1,9 @@
 """Parallel schemes beyond data parallelism: the process mesh, sequence
 parallelism (ring and Ulysses attention), Adasum, the two-level
 collectives and the slice topology they run on.  Port of
-``horovod_tpu/parallel/__init__.py:6-14``; ``spmd``, ``pipeline`` and
-``zero`` are still to port (``ROADMAP.md`` queue 1)."""
+``horovod_tpu/parallel/__init__.py:6-14``; ``zero`` holds the ZeRO
+pad+slice convention (its in-graph optimizers have no counterpart);
+``spmd`` and ``pipeline`` are still to port (``ROADMAP.md`` queue 1)."""
 
 from .adasum import (  # noqa: F401
     adasum_allreduce, adasum_allreduce_hd, adasum_allreduce_hier,
@@ -27,3 +28,4 @@ from .topology import (  # noqa: F401
 from .ulysses import (  # noqa: F401
     heads_to_seq, seq_to_heads, ulysses_attention,
 )
+from .zero import shard_info, shard_slice_host, unshard_host  # noqa: F401

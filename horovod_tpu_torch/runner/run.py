@@ -2,7 +2,8 @@
 # parse_hostfile, the argument surface, _apply_config_file, placement,
 # tuning_env (with the --hierarchical-* switches of :175-182, 438-443),
 # wait_and_reap, worker_envs, ssh_command, launch_workers and main; the
-# observability flags (:121-137) and their forwarding (:409-427, :536-541).
+# observability flags (:121-137) and their forwarding (:409-427, :536-541);
+# the sharded optimizer's flags (:155-175) and their forwarding (:433-437).
 # platform_worker_env (:359-388, JAX and XLA variables) is replaced by the
 # card's counterpart; the flags of what the port lacks are refused.
 """The launcher's argument surface and launch orchestration.
@@ -26,7 +27,10 @@ the ranks of each host entry in host order (the same list on every rank:
 ``per_rank_filename``), ``--monitor`` (or ``--monitor-port``),
 ``--monitor-port``, ``--monitor-interval``, ``--trace-ring`` and
 ``--timeline-mark-cycles`` as ``HOROVOD_MONITOR``, ``_MONITOR_PORT``,
-``_MONITOR_INTERVAL``, ``_TRACE_RING`` and ``_TIMELINE_MARK_CYCLES``.
+``_MONITOR_INTERVAL``, ``_TRACE_RING`` and ``_TIMELINE_MARK_CYCLES``;
+``--sharded``, ``--sharded-params`` and ``--prefetch-depth`` as
+``HOROVOD_SHARDED_OPTIMIZER=1``, ``HOROVOD_SHARDED_PARAMS=1`` and
+``HOROVOD_PREFETCH_DEPTH``.
 Every entry that names this machine
 (``common/net.is_local_host``: ``localhost``, ``127.0.0.2``, its name or
 addresses) is spawned here; the others by ssh.
@@ -125,16 +129,13 @@ NOT_PORTED: Dict[str, str] = {
     "--cache-capacity": "the port compiles no fused programs to cache (the "
                         "negotiation response cache is "
                         "HOROVOD_RESPONSE_CACHE_CAPACITY)",
-    "--sharded": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
-    "--sharded-params": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
-    "--prefetch-depth": "ROADMAP queue 1 item 5, ZeRO-1 and FSDP",
     "--serve": "ROADMAP queue 1 item 9, multi-process serving",
     "--serve-port": "ROADMAP queue 1 item 9, multi-process serving",
 }
 # Those of them that take no value.
 _SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery",
              "--autoscale", "--hierarchical-controller", "--autotune",
-             "--sharded", "--sharded-params", "--serve"}
+             "--serve"}
 
 # Tuning flags forwarded to every worker as HOROVOD_* env: flag, variable,
 # scale.  Each is read by the port's Config.from_env.
@@ -256,6 +257,24 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
                         "--monitor)")
     p.add_argument("--monitor-interval", type=float, default=None,
                    help="Telemetry snapshot period in seconds (default 5)")
+    p.add_argument("--sharded", action="store_true",
+                   help="ZeRO-sharded optimizer: DistributedOptimizer "
+                        "defaults to sharded=True (reduce-scatter of "
+                        "gradients, 1/N optimizer state a rank, allgather "
+                        "of the updated shards); forwarded as "
+                        "HOROVOD_SHARDED_OPTIMIZER so that every rank takes "
+                        "the same data plane")
+    p.add_argument("--sharded-params", action="store_true",
+                   help="Full parameter sharding (ZeRO-3/FSDP): "
+                        'DistributedOptimizer defaults to sharded="full" '
+                        "(parameters live 1/N a rank between steps, "
+                        "gather_params() rematerializes them through "
+                        "prefetch allgathers, gradients reduce-scatter "
+                        "into the owning shard); forwarded as "
+                        "HOROVOD_SHARDED_PARAMS")
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="FSDP parameter-gather buckets in flight ahead of "
+                        "use (HOROVOD_PREFETCH_DEPTH; default 2)")
     for flag, why in NOT_PORTED.items():
         if flag in _SWITCHES:
             p.add_argument(flag, action="store_true", help=f"refused: {why}")
@@ -378,6 +397,12 @@ def tuning_env(args) -> Dict[str, str]:
         env["HOROVOD_MONITOR"] = "1"
     if getattr(args, "timeline_mark_cycles", False):
         env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
+    if getattr(args, "sharded", False):
+        env["HOROVOD_SHARDED_OPTIMIZER"] = "1"
+    if getattr(args, "sharded_params", False):
+        env["HOROVOD_SHARDED_PARAMS"] = "1"
+    if getattr(args, "prefetch_depth", None) is not None:
+        env["HOROVOD_PREFETCH_DEPTH"] = str(int(args.prefetch_depth))
     return env
 
 

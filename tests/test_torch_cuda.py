@@ -1059,3 +1059,63 @@ def test_torch_profile_step_traces_the_card(cuda_device, tmp_path):
         "traceEvents"] if e.get("cat") == "kernel"]
     assert any(re.search(r"walk_kernel<.*, true>", n) for n in names), \
         names[:20]
+
+
+def _zero_tree(device):
+    """A bf16 tree with a non-divisible leaf, a scalar and an empty leaf,
+    and its AdamW gradient stream, from a seed."""
+    rng = np.random.RandomState(11)
+    shapes = [(257,), (16, 8), (), (66,), (0, 3), (4096, 33)]
+    params = [torch.from_numpy(np.asarray(rng.randn(*s), np.float32)).to(
+        device, torch.bfloat16).requires_grad_() for s in shapes]
+    grads = [[torch.from_numpy(np.asarray(rng.randn(*s), np.float32)).to(
+        device, torch.bfloat16) for s in shapes] for _ in range(5)]
+    return params, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("foreach,fused", [(None, None), (False, None),
+                                           (None, True)])
+@pytest.mark.parametrize("sharded", [True, "full"])
+def test_torch_sharded_optimizer_on_card_is_plain_adamw(cuda_device,
+                                                        monkeypatch, sharded,
+                                                        foreach, fused):
+    """Size 1 on the card: ``DistributedOptimizer(AdamW, sharded=...)``
+    through the engine's reduce-scatter and allgather (the fusion kernels)
+    gives parameters bitwise those of plain AdamW after 5 steps, and its
+    inner optimizers keep the user's foreach/fused choice."""
+    from horovod_tpu_torch.ops import fusion
+    _init_on(cuda_device, monkeypatch)
+    try:
+        kw = dict(lr=1e-2, weight_decay=0.01, foreach=foreach, fused=fused)
+        ref, grads = _zero_tree(cuda_device)
+        plain = torch.optim.AdamW(ref, **kw)
+        for gs in grads:
+            for p, g in zip(ref, gs):
+                p.grad = g
+            plain.step()
+        ps, _ = _zero_tree(cuda_device)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(ps, **kw),
+                                       sharded=sharded)
+        n0 = fusion.pack.launches
+        for gs in grads:
+            if sharded == "full":
+                opt.gather_params()
+            for p, g in zip(ps, gs):
+                p.grad = g
+            opt.step()
+        if sharded == "full":
+            opt.gather_params()
+        torch.cuda.synchronize()
+        assert fusion.pack.launches > n0
+        for a, b in zip(ref, ps):
+            assert a.shape == b.shape
+            assert torch.equal(a.detach().view(torch.int16),
+                               b.detach().view(torch.int16))
+        for o in opt._inner:
+            g = o.param_groups[0]
+            assert (g["foreach"], g["fused"]) == (foreach, fused)
+            assert o.defaults["foreach"] == foreach
+            assert o.defaults["fused"] == fused
+    finally:
+        hvd.shutdown()

@@ -105,6 +105,47 @@ def test_torch_copied_modules_name_their_origin():
             (path, first)
 
 
+_ZERO_SRC = _PURITY_SRC.split("import horovod_tpu_torch as hvd")[0] + r"""
+import numpy as np, torch
+from horovod_tpu_torch.parallel import zero
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import optimizer
+hvd.init(device='cpu')
+for sharded in (True, 'full'):
+    ps = [torch.randn(7, requires_grad=True), torch.randn(3, 2,
+                                                          requires_grad=True)]
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(ps, lr=0.1),
+                                   sharded=sharded)
+    if sharded == 'full':
+        opt.gather_params()
+    for p in ps:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    assert hvd.is_sharded_saveable(opt.hvd_sharded_saveable())
+assert zero.shard_info(7, 2) == (1, 4)
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', zero.__file__, optimizer.__file__)
+"""
+
+
+def test_torch_zero_modules_stand_alone():
+    """The pad+slice helpers (a copy of ``horovod_tpu/parallel/zero.py``
+    :40-72, whose first line says so) and the sharded optimizer import and
+    run a step in both modes with JAX and horovod_tpu blocked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _ZERO_SRC, REPO],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    _, zero_file, opt_file = res.stdout.split()[-3:]
+    assert zero_file.startswith(PKG) and opt_file.startswith(PKG)
+    first = open(os.path.join(PKG, "parallel", "zero.py")).readline()
+    assert first.startswith("# Copied from horovod_tpu/parallel/zero.py:40-72")
+    head = open(os.path.join(PKG, "optimizer.py")).read(600)
+    assert "horovod_tpu/jax/optimizer.py" in head
+
+
 def test_torch_blocked_name_rule():
     assert _blocked("horovod_tpu") and _blocked("horovod_tpu.serve")
     assert _blocked("jax.numpy") and _blocked("jaxlib")

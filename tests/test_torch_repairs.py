@@ -5,10 +5,21 @@
   coordinator's host exited (the last rank to finish a two-rank run).
 - A rank whose local rank has no card is refused by ``init()`` at once,
   naming the local rank and the card count.
+- The in-flight window's watcher lets go of a batch once it has settled
+  it, so the batch's tensors (inputs, outputs, the fusion buffer) are not
+  held until the next batch arrives.
+- A replicated ``DistributedOptimizer`` with its gradient hooks is freed
+  once nothing refers to it: the hooks, which each parameter holds, refer
+  to it weakly (a strong reference through a tensor's hook dict is a cycle
+  the collector cannot see, which kept the parameters, gradients and
+  optimizer state alive for ever).
 """
 
+import gc
 import threading
+import time
 import types
+import weakref
 
 import pytest
 import torch
@@ -87,3 +98,40 @@ def test_torch_init_refuses_a_local_rank_without_a_card(monkeypatch):
         basics._resolve_device(None, 1)
     # An explicit device is the caller's choice.
     assert basics._resolve_device("cpu", 3) == torch.device("cpu")
+
+
+def test_torch_inflight_ring_drops_a_settled_batch():
+    """Once the watcher has settled a batch and the caller has let go of
+    it, nothing of the window refers to it any more."""
+    from horovod_tpu_torch.ops.scheduler import InflightRing
+    settled = threading.Event()
+    ring = InflightRing(lambda results: None,
+                        lambda batch, results, err: settled.set(), depth=2)
+    try:
+        batch, results = [torch.zeros(4)], (torch.zeros(1 << 10), None)
+        refs = [weakref.ref(batch[0]), weakref.ref(results[0])]
+        ring.submit(batch, results)
+        assert settled.wait(5) and ring.flush(5)
+        del batch, results
+        t0 = time.time()
+        while any(r() is not None for r in refs) and time.time() - t0 < 2:
+            gc.collect()
+            time.sleep(0.01)
+        assert all(r() is None for r in refs)
+    finally:
+        ring.stop()
+
+
+def test_torch_replicated_optimizer_is_collected(monkeypatch):
+    """At a size above 1 the optimizer registers a hook on every
+    parameter; dropped, it must be freed with its parameters."""
+    import horovod_tpu_torch as hvd
+    monkeypatch.setattr(basics, "size", lambda: 2)
+    ps = [torch.zeros(8, requires_grad=True) for _ in range(3)]
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1))
+    assert opt._requires_update == set(ps)
+    refs = [weakref.ref(opt)] + [weakref.ref(p) for p in ps]
+    del opt, ps
+    gc.collect()
+    assert all(r() is None for r in refs)
+

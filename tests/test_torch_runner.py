@@ -9,12 +9,13 @@ and the refusal of every flag whose feature it lacks; the seven
 observability flags forwarded as the JAX launcher forwards them; the
 ``--hierarchical-*`` switches forwarded on both launchers, the ranks per
 host that every worker gets, and four ``-H`` entries of this machine
-spawned here, not by ssh.
+spawned here, not by ssh; the three sharded-optimizer flags forwarded as
+the JAX launcher forwards them (the counterpart of
+``test_sharded_flag_forwards_fleet_uniform_env``).
 
 No counterpart: ``test_platform_worker_env_cpu_hygiene`` (JAX's CPU
 collectives and XLA device-count flag; the card's env replaces it),
-``test_worker_envs_hierarchical_controller`` and
-``test_sharded_flag_forwards_fleet_uniform_env`` (refused flags here), and
+``test_worker_envs_hierarchical_controller`` (a refused flag here), and
 ``TestTPUVMBackend`` (``runner/tpu_vm.py`` has no GPU counterpart; its
 flags are refused).
 """
@@ -433,6 +434,60 @@ def test_torch_runner_forwards_observability_flag(flag, monkeypatch):
 # ------------------------------------------------- the two-level data plane
 _HIER_FLAGS = ("--hierarchical-allreduce", "--hierarchical-allgather",
                "--hierarchical-broadcast")
+# ------------------------------------------------------- sharded optimizer
+# The three sharded-optimizer flags the port once refused: flag, its value
+# on the command line (none for a switch), the variable it forwards, its
+# value there, and the port Config's field and value.
+ZERO_FLAGS = {
+    "--sharded": ([], "HOROVOD_SHARDED_OPTIMIZER", "1", "sharded_optimizer",
+                  True),
+    "--sharded-params": ([], "HOROVOD_SHARDED_PARAMS", "1",
+                         "sharded_params", True),
+    "--prefetch-depth": (["3"], "HOROVOD_PREFETCH_DEPTH", "3",
+                         "prefetch_depth", 3),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(ZERO_FLAGS))
+def test_torch_runner_forwards_sharded_flag(flag, monkeypatch):
+    """Each sharded-optimizer flag parses, reaches every rank with the JAX
+    launcher's variable and value (``worker_envs``; the flags ride the
+    negotiation digest, so every rank must get them), and round-trips
+    into the port's Config, where ``DistributedOptimizer`` reads its
+    default; without the flag the variable is absent and the Config's
+    default holds."""
+    from horovod_tpu_torch.common.config import Config
+    value, var, want, field, cfg_want = ZERO_FLAGS[flag]
+    assert flag not in port_run.NOT_PORTED
+    argv = ["-np", "3", "-H", "a:2,b:1", flag, *value, "python", "t.py"]
+    coord = ("1.2.3.4", 5555, 5556)
+    envs = {}
+    for pkg in RUNNERS:
+        run = _mod(pkg)
+        args = run.parse_args(argv)
+        envs[pkg] = run.worker_envs(args, run.placement(args), coord)
+    for jenv, penv in zip(*envs.values()):
+        assert penv[var] == jenv[var] == want
+        monkeypatch.setenv(var, penv[var])
+        assert getattr(Config.from_env(), field) == cfg_want
+        monkeypatch.delenv(var)
+    plain = port_run.parse_args(["-np", "2", "python", "t.py"])
+    assert var not in port_run.worker_envs(plain, port_run.placement(plain),
+                                           coord)[0]
+    assert getattr(Config.from_env(), field) == getattr(Config(), field)
+
+
+def test_torch_runner_still_refuses_pipeline_chunk(capsys):
+    """``--pipeline-chunk-mb`` stays refused: the port has no chunked
+    pipelining (``HOROVOD_PIPELINE_CHUNK`` sizes only the sharded
+    optimizer's buckets)."""
+    with pytest.raises(SystemExit):
+        port_run.parse_args(["-np", "2", "--sharded", "--pipeline-chunk-mb",
+                             "4", "python", "t.py"])
+    assert "--pipeline-chunk-mb is not ported: chunked pipelining" in \
+        capsys.readouterr().err
+
+
 _HIER_VARS = ("HOROVOD_HIERARCHICAL_ALLREDUCE",
               "HOROVOD_HIERARCHICAL_ALLGATHER",
               "HOROVOD_HIERARCHICAL_BROADCAST")
