@@ -174,7 +174,34 @@ Phases (any failure exits non-zero and prints no result line):
    loaded bitwise into a new optimizer; for each mode the step's time
    after the first, the tracer's phases, the collectives' card time
    (``reduce_*_us_total``), peak memory and the launches.
-12. The whole run's wall time, the kernels line (JSON), the card line, and
+12. Data-plane depth.  E10 (``--e10-worker``, after E9): two ranks through
+   the launcher as E3 with ``--pipeline-chunk-mb 64
+   --fast-lane-threshold-kb 64 --partition-threshold-mb 64`` and
+   ``HOROVOD_TRACE=1``, the worker setting the engine's knobs between
+   modes as the autotuner does.  (a) Llama at full width cut to
+   E10_LAYERS, B=2, T=4096, SGD lr 0.75, 3 steps in each of three modes
+   from the same seeded parameters and tokens: off; chunked at 64 MiB;
+   partitioned at 64 MiB with the fast lane at 64 KB: the parameters'
+   checksums equal across the modes and the ranks, more chunks than
+   batches when chunked and pack launches = chunks, the partition splits
+   the tensors above the threshold give, fast-lane batches and pin hits,
+   ping-pong acquires, the flash launches, and each mode's step, NCCL,
+   pack and unpack card ms, chunk overlap and memory.  (b) ResNet-50 at
+   size 2 (E6's configuration), the fast lane off then on at 64 KB:
+   parameters and statistics bitwise between the two, at least the 106
+   batch-norm exchanges a step on the lane, pin hits from step 2, each
+   step's ms and rank 0's kernels' busy share of its last step.  (d)
+   during step 2 of (b)'s fast mode, 8 checkpoint-lane items writing a
+   seeded payload: each run on the cycle thread with no gradient batch
+   left in its cycle, at most the lane's budget a cycle, all dispatched,
+   the files' bytes exact.  (c) a second launch (``--e10-tune-worker``)
+   with ``--autotune``, warmup 1, 2 cycles a sample, 4 evaluations, over 8
+   steps of that Llama at 1 layer: two samples or more, every applied
+   move at the same lock-step round with the same knobs on both ranks, the
+   log parses, the parameters bitwise across the ranks every step.  E9's
+   pack and unpack launches are held to its chunk plan (the replicated
+   mode's allreduces chunk under ``HOROVOD_PIPELINE_CHUNK``).
+13. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -3561,6 +3588,7 @@ def e9_worker(args):
         _zero_flash(fa)
         fusion.pack.launches = fusion.unpack.launches = 0
         o0 = eng.prefetch_overlapped
+        k0, g0 = eng.pipeline_chunks_total, eng.fused_groups
         steps = []
         for i in range(E9_STEPS):
             x, y = toks[i, :, :-1], toks[i, :, 1:]
@@ -3595,6 +3623,8 @@ def e9_worker(args):
         m = dict(steps=steps, sums=_checksum(torch, named),
                  flash=_flash_counts(fa), pack=fusion.pack.launches,
                  unpack=fusion.unpack.launches,
+                 chunks=eng.pipeline_chunks_total - k0,
+                 groups=eng.fused_groups - g0,
                  summary=eng.tracer.phase_summary(),
                  peak=torch.cuda.max_memory_allocated(dev),
                  overlapped=eng.prefetch_overlapped - o0,
@@ -3747,16 +3777,25 @@ def e9_phase(torch, layers, seed, card, timeout_s=E9_TIMEOUT_S):
               f"and the gathered state) loaded bitwise into a new optimizer "
               f"in {fs['saveable_s']:.1f} s -> {'PASS' if good else 'FAIL'}",
               flush=True)
-        # (6) the modes and launches.
+        # (6) the modes and launches: under HOROVOD_PIPELINE_CHUNK the
+        # replicated mode's allreduces launch pack and unpack once a chunk
+        # of their plan (pipeline_chunks_total), the sharded modes'
+        # reduce-scatters and allgathers (no plan) once a dtype group.
         good = (rep["sharded"] is False and z1["sharded"] is True
                 and fs["sharded"] == "full"
                 and z1["shards_on"] == fs["shards_on"] == ["cuda:0"]
-                and all(m["pack"] == m["unpack"] > 0
-                        for m in (rep, z1, fs)))
+                and rep["pack"] == rep["unpack"] == rep["chunks"] > 0
+                and all(m["pack"] == m["unpack"] == m["groups"] > 0
+                        for m in (z1, fs)))
         ok = ok and good
         print(f"e9[6] rank {x['rank']}: modes {rep['sharded']} / "
               f"{z1['sharded']} (from --sharded) / {fs['sharded']!r}, shards "
-              f"on {z1['shards_on']}; pack = unpack launches in each -> "
+              f"on {z1['shards_on']}; pack/unpack launches "
+              f"{rep['pack']}/{rep['unpack']} replicated (= its chunk plans' "
+              f"{rep['chunks']} chunks, {rep['groups']} dtype groups), "
+              f"{z1['pack']}/{z1['unpack']} ZeRO-1 and {fs['pack']}/"
+              f"{fs['unpack']} FSDP (= their {z1['groups']} and "
+              f"{fs['groups']} dtype groups: not chunked) -> "
               f"{'PASS' if good else 'FAIL'}", flush=True)
     print(f"e9: Llama at full width, {layers} layers "
           f"({a['modes']['replicated']['params_bytes'] / 2**30:.2f} GiB of "
@@ -3768,6 +3807,512 @@ def e9_phase(torch, layers, seed, card, timeout_s=E9_TIMEOUT_S):
                     unpack=sum(m["unpack"] for m in modes),
                     flash=[sum(m["flash"][k] for m in modes)
                            for k in range(3)])
+
+
+# ------------------------------------------------- E10: data-plane depth
+E10_LAYERS = 2
+E10_STEPS = 3
+E10_TIMEOUT_S = 300
+E10_MIB = 64             # the chunk and partition thresholds, MiB
+E10_FAST_KB = 64         # the fast lane's threshold, KB
+E10_FLAGS = ("--pipeline-chunk-mb", str(E10_MIB), "--fast-lane-threshold-kb",
+             str(E10_FAST_KB), "--partition-threshold-mb", str(E10_MIB))
+# (a)'s modes: label, chunk bytes, partition bytes, fast-lane bytes.
+E10_MODES = (("off", 0, 0, 0), ("chunked", E10_MIB << 20, 0, 0),
+             ("partitioned", 0, E10_MIB << 20, E10_FAST_KB << 10))
+E10_RESNET_STEPS = 3
+E10_BN_EXCHANGES = 106   # ResNet-50's batch-norm exchanges a step (2 x 53)
+E10_CKPT_ITEMS = 8       # (d): checkpoint-lane items of 1 MiB each
+E10_CKPT_BYTES = 1 << 20
+E10_TUNE_LAYERS = 1      # (c): the autotuner over this Llama, 8 steps
+E10_TUNE_STEPS = 8
+E10_TUNE_ENV = {"HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+                "HOROVOD_AUTOTUNE_MAX_EVALS": "4"}
+
+
+def _e10_counters(eng, fusion):
+    """The engine's data-plane counters and the fusion launches."""
+    pp = eng._pingpong
+    return dict(pack_us=eng.reduce_pack_us_total,
+                coll_us=eng.reduce_collective_us_total,
+                unpack_us=eng.reduce_unpack_us_total,
+                overlap_us=eng.reduce_overlap_us_total,
+                timed=eng.timed_batches, batches=eng.pipeline_dispatches,
+                chunks=eng.pipeline_chunks_total, groups=eng.fused_groups,
+                splits=eng.partition_splits,
+                fast=eng.fast_lane_dispatches, hits=eng.fast_lane_hits,
+                acquires=pp.acquires if pp is not None else 0,
+                waits=pp.waits if pp is not None else 0,
+                pack=fusion.pack.launches, unpack=fusion.unpack.launches)
+
+
+def _delta(a, b):
+    return {k: b[k] - a[k] for k in a}
+
+
+def _busy_share(torch, fn):
+    """``fn()``'s wall seconds and this process's kernel seconds inside
+    it, from torch.profiler's CUDA activity (None where it records
+    none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) * 1e-6
+    return wall, (busy if busy > 0 else None)
+
+
+def e10_worker(args):
+    """One rank of E10 (a), (b) and (d), started by ``e10_phase`` through
+    the port's launcher with ``E10_FLAGS`` and ``HOROVOD_TRACE=1``.
+    (a) Llama at full width, ``E10_STEPS`` steps of
+    ``DistributedOptimizer(SGD)`` in each of ``E10_MODES`` from the same
+    seeded parameters (the same on both ranks, no broadcast) on the same
+    tokens; the knobs set between the modes, as the autotuner sets them.
+    (b) ResNet-50 at size 2 (E6's configuration), the fast lane off then
+    on, from the same seeded parameters; rank 0 profiles the last step of
+    each.  (d) During step 2 of (b)'s fast mode, ``E10_CKPT_ITEMS``
+    checkpoint-lane items that write a seeded payload.  Writes
+    ``rank<HOROVOD_RANK>.json`` in ``args.e10_worker``."""
+    import gc
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.models import resnet as tr
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops.scheduler import (CKPT_LANE, CheckpointChunk,
+                                                 partition_plan)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init()
+    r, dev, world = hvd.rank(), hvd.device(), hvd.size()
+    eng = basics._get_state().engine
+    res = dict(rank=r, card=torch.cuda.get_device_name(dev),
+               tracer=eng.tracer is not None,
+               knobs=[eng.pipeline_chunk_bytes, eng.partition_threshold,
+                      eng.fast_lane_threshold])
+    # (a) Llama, three modes.
+    cfg = tl.llama3_8b(n_layers=args.train_layers)
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 2 + r).randint(
+        0, cfg.vocab_size, (E10_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int64)).to(dev)
+    res["llama"] = {}
+    for label, chunk, part, fast in E10_MODES:
+        eng.pipeline_chunk_bytes = chunk
+        eng.partition_threshold = part
+        eng.fast_lane_threshold = fast
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = tl.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(args.seed + 1))
+        named = list(tl.named_parameters(params))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([t for _, t in named], lr=TRAIN_LR),
+            named_parameters=named)
+        step = tl.make_train_step(cfg, opt)
+        _zero_flash(fa)
+        _wait_timed(eng)
+        c0 = _e10_counters(eng, fusion)
+        steps = []
+        for i in range(E10_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(params, toks[i, :, :-1], toks[i, :, 1:]).item()
+            torch.cuda.synchronize()
+            steps.append(dict(loss=loss, s=time.perf_counter() - t0))
+        _wait_timed(eng)
+        split = [n for n, t in named if part and t.numel()
+                 * t.element_size() * world > part and len(partition_plan(
+                     t.numel(), t.element_size(), part // world)) > 1]
+        res["llama"][label] = dict(
+            steps=steps, d=_delta(c0, _e10_counters(eng, fusion)),
+            flash=_flash_counts(fa), sums=_checksum(torch, named),
+            split=split, leaves=len(named),
+            allocated=torch.cuda.memory_allocated(dev),
+            peak=torch.cuda.max_memory_allocated(dev))
+        del opt, step, params, named
+    eng.pipeline_chunk_bytes = eng.partition_threshold = 0
+    eng.fast_lane_threshold = 0
+    del toks
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # (b) ResNet-50 at size 2, the fast lane off and on; (d) in step 2 on.
+    rcfg = tr.ResNetConfig()
+    x, y = (torch.from_numpy(a).to(dev) for a in tr.synthetic_batch(
+        RESNET_BATCH, 224, rcfg.num_classes, args.seed + 31 + r))
+    payload = np.random.RandomState(args.seed + 50).randint(
+        0, 256, E10_CKPT_ITEMS * E10_CKPT_BYTES).astype(np.uint8)
+    ckpt_dir = os.path.join(args.e10_worker, f"ckpt{r}")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    runs = []
+
+    def item(i):
+        def run():
+            runs.append(dict(
+                i=i, cycle=eng._cycle_index,
+                grads_left=sum(1 for lane, *_ in eng._backlog
+                               if lane != CKPT_LANE),
+                on_cycle_thread=eng._cycle_owner == threading.get_ident()))
+            with open(os.path.join(ckpt_dir, f"chunk{i}.bin"), "wb") as fh:
+                fh.write(payload[i * E10_CKPT_BYTES:
+                                 (i + 1) * E10_CKPT_BYTES].tobytes())
+        return CheckpointChunk(f"ckpt.{i}", run)
+
+    res["resnet"] = {}
+    for label, fast in (("off", 0), ("fast", E10_FAST_KB << 10)):
+        eng.fast_lane_threshold = fast
+        params, stats = tr.init_params(rcfg, torch.Generator(
+            device=dev).manual_seed(args.seed + 30))
+        named = list(tr.named_parameters(params))
+        step = tr.make_train_step(rcfg, _sgd(torch, hvd, named, RESNET_LR,
+                                             0.9))
+        state = {"stats": stats}
+
+        def one():
+            loss, state["stats"] = step(params, state["stats"], x, y)
+            return float(loss)
+
+        steps = []
+        for i in range(E10_RESNET_STEPS):
+            submitter = None
+            if label == "fast" and i == 1:
+                k0, d0 = eng.ckpt_chunks_dispatched, eng.pipeline_dispatches
+
+                def submit():
+                    t_end = time.time() + 30
+                    while eng.pipeline_dispatches == d0 \
+                            and time.time() < t_end:
+                        time.sleep(0.0005)
+                    eng.submit_checkpoint_io([item(j) for j in
+                                              range(E10_CKPT_ITEMS)])
+
+                submitter = threading.Thread(target=submit)
+            c0 = _e10_counters(eng, fusion)
+            ex0 = tr.cross_rank_moments.exchanges
+            last = i == E10_RESNET_STEPS - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if submitter is not None:
+                submitter.start()
+            busy = None
+            if last and r == 0:
+                wall, busy = _busy_share(torch, one)
+            else:
+                one()
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if submitter is not None:
+                submitter.join(timeout=60)
+                t_end = time.time() + 30
+                while eng.ckpt_chunks_dispatched - k0 < E10_CKPT_ITEMS \
+                        and time.time() < t_end:
+                    time.sleep(0.001)
+                res["ckpt"] = dict(dispatched=eng.ckpt_chunks_dispatched - k0,
+                                   budget=eng.ckpt_lane_budget, runs=runs)
+            steps.append(dict(s=dt, busy=busy, profiled=last and r == 0,
+                              bn=tr.cross_rank_moments.exchanges - ex0,
+                              d=_delta(c0, _e10_counters(eng, fusion))))
+        res["resnet"][label] = dict(
+            steps=steps, sums=_checksum(torch, named),
+            stats=_checksum(torch, list(tr.named_parameters(state["stats"]))))
+        del params, state, named, step
+    eng.fast_lane_threshold = 0
+    files = []
+    for i in range(E10_CKPT_ITEMS):
+        path = os.path.join(ckpt_dir, f"chunk{i}.bin")
+        with open(path, "rb") as fh:
+            files.append(fh.read() == payload[
+                i * E10_CKPT_BYTES:(i + 1) * E10_CKPT_BYTES].tobytes())
+    res["ckpt"]["files"] = files
+    hvd.shutdown()
+    _write_result(args.e10_worker, res)
+    print(f"e10 rank {r}: done", flush=True)
+    return 0
+
+
+def e10_tune_worker(args):
+    """One rank of E10 (c), started through the port's launcher with
+    ``--autotune`` and ``E10_TUNE_ENV``: ``E10_TUNE_STEPS`` steps of Llama
+    at full width, ``args.train_layers`` deep, with every move the
+    autotuner applies recorded with the lock-step round it landed at and
+    the knobs after it.  Writes ``rank<HOROVOD_RANK>.json`` in
+    ``args.e10_tune_worker``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import autotune
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r, dev = hvd.rank(), hvd.device()
+    eng = basics._get_state().engine
+
+    def knobs():
+        ctl = eng.controller
+        return [eng.fusion_threshold, eng.cycle_time_s, ctl.cache_capacity,
+                eng.pipeline_chunk_bytes, eng.max_inflight,
+                eng.fast_lane_threshold, ctl.round_pipeline]
+
+    moves = []
+    apply = autotune.ParameterManager._apply_params
+
+    def recorded(self, params):
+        apply(self, params)
+        moves.append([eng.controller.rounds, knobs()])
+
+    autotune.ParameterManager._apply_params = recorded
+    cfg = tl.llama3_8b(n_layers=args.train_layers)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 1))
+    named = list(tl.named_parameters(params))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([t for _, t in named], lr=TRAIN_LR),
+        named_parameters=named)
+    step = tl.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 2 + r).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int64)).to(dev)
+    _zero_flash(fa)
+    fusion.pack.launches = fusion.unpack.launches = 0
+    steps = []
+    for _ in range(E10_TUNE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, toks[:, :-1], toks[:, 1:]).item()
+        torch.cuda.synchronize()
+        steps.append(dict(loss=loss, s=time.perf_counter() - t0,
+                          sums=_checksum(torch, named)))
+    # Read once the cycle thread has stopped: a move lands at the end of
+    # a cycle, which may still run after the step's waiters are released.
+    hvd.shutdown()
+    t = eng.autotuner
+    res = dict(rank=r, steps=steps, moves=moves, final=knobs(),
+               samples=t._sample_no, evals=t.search.evals,
+               tuning=t.tuning, coords=len(t.search.point),
+               flash=_flash_counts(fa), pack=fusion.pack.launches,
+               unpack=fusion.unpack.launches)
+    _write_result(args.e10_tune_worker, res)
+    print(f"e10 (c) rank {r}: done", flush=True)
+    return 0
+
+
+def _e10_log(tmp):
+    """The autotuner's log (both ranks append to the file the launcher
+    names): (header, sample rows as floats, final lines)."""
+    with open(os.path.join(tmp, "tune.csv")) as fh:
+        lines = fh.read().strip().splitlines()
+    header = lines[0].split(",")
+    rows = [[float(v) for v in ln.split(",")] for ln in lines[1:]
+            if not ln.startswith(("#", "sample,"))]
+    return dict(header=header, rows=rows, widths=sorted({len(x)
+                                                          for x in rows}),
+                finals=[ln for ln in lines if ln.startswith("# final:")])
+
+
+def e10_phase(torch, layers, seed, card, timeout_s=E10_TIMEOUT_S):
+    """E10: the data plane's depth on two ranks through the port's
+    launcher.  (a) Llama at full width (``e10_worker``) in three modes:
+    the parameters' checksums equal across the modes and the ranks; when
+    chunked more chunks than batches; partitioned, the splits the
+    tensors above the threshold give and fast-lane batches; ping-pong
+    acquires in every mode; the flash launches 2 x ``layers`` x steps a
+    mode.  (b) ResNet-50: parameters and statistics bitwise between the
+    fast lane off and on; with it on, at least the 106 batch-norm
+    exchanges a step on the lane, pins serving from step 2.  (d) the
+    checkpoint items: every one run on the cycle thread with no gradient
+    batch left in its cycle, at most the budget a cycle, the count
+    dispatched, the files' bytes exact.  (c) the autotuner
+    (``e10_tune_worker``): two samples or more, every applied move at the
+    same round with the same knobs on both ranks, the log parses, the
+    parameters bitwise across the ranks every step.  Returns ``(ok,
+    counts)`` (rank 0's launches)."""
+    import numpy as np
+    t_a = time.time()
+    results, route, wall = launch_ranks(
+        torch, "--e10-worker", layers, seed, timeout_s, 2, E10_FLAGS,
+        env_extra={"HOROVOD_TRACE": "1"})
+    if results is None:
+        return False, None
+    a, b = results
+    ok = a["tracer"] and b["tracer"]
+    want = [E10_MIB << 20, E10_MIB << 20, E10_FAST_KB << 10]
+    flags_ok = a["knobs"] == b["knobs"] == want
+    ok = ok and flags_ok
+    print(f"e10: 2 ranks ({route}) in {wall:.1f} s with "
+          f"{' '.join(E10_FLAGS)}, HOROVOD_TRACE=1; the engines' knobs at "
+          f"init {a['knobs']} (= the flags: {flags_ok})", flush=True)
+    # (a)
+    sums = {(x["rank"], m): x["llama"][m]["sums"] for x in results
+            for m, *_ in E10_MODES}
+    same = len({tuple(v) for v in sums.values()}) == 1
+    finite = all(np.isfinite(s["loss"]) for x in results
+                 for m in x["llama"].values() for s in m["steps"])
+    ok = ok and same and finite
+    for label, chunk, part, fast in E10_MODES:
+        for x in results:
+            m = x["llama"][label]
+            d = m["d"]
+            steps = E10_STEPS
+            good = (m["flash"] == [layers * steps] * 3 and d["acquires"] > 0
+                    and d["pack"] == d["unpack"] > 0
+                    and d["timed"] == d["batches"])
+            if label == "off":
+                good = good and d["chunks"] == d["batches"] \
+                    and d["splits"] == d["fast"] == 0 \
+                    and d["pack"] == d["groups"]
+            elif label == "chunked":
+                good = good and d["chunks"] > d["batches"] \
+                    and d["pack"] == d["chunks"] and d["splits"] == 0
+            else:
+                good = good and d["splits"] == len(m["split"]) * steps > 0 \
+                    and d["fast"] > 0 and d["hits"] > 0
+            ok = ok and good
+            n = max(1, d["timed"])
+            med = sorted(s["s"] for s in m["steps"])[steps // 2]
+            print(f"e10 (a) {label} rank {x['rank']}: losses "
+                  + " / ".join(f"{s['loss']:.5f}" for s in m["steps"])
+                  + f"; step median {med * 1e3:.1f} ms (steps "
+                  + ", ".join(f"{s['s'] * 1e3:.0f}" for s in m["steps"])
+                  + f"); on the card over the {steps} steps NCCL "
+                  f"{d['coll_us'] / 1e3:.1f} ms, pack {d['pack_us'] / 1e3:.2f}"
+                  f" ms, unpack {d['unpack_us'] / 1e3:.2f} ms, chunk overlap "
+                  f"{d['overlap_us'] / 1e3:.2f} ms ({d['timed']} batches "
+                  f"timed, {d['coll_us'] / n / 1e3:.2f} ms NCCL a batch); "
+                  f"{d['batches']} batches, {d['chunks']} chunks, "
+                  f"{d['groups']} dtype groups, pack/unpack launches "
+                  f"{d['pack']}/{d['unpack']}; partition splits "
+                  f"{d['splits']} (expected {len(m['split'])} x {steps} from "
+                  f"{m['split']}); fast lane {d['fast']} batches, "
+                  f"{d['hits']} pin hits; ping-pong acquires "
+                  f"{d['acquires']}, waits {d['waits']}; flash {m['flash']}; "
+                  f"memory_allocated {m['allocated'] / 2**30:.2f} GiB, peak "
+                  f"{m['peak'] / 2**30:.2f} GiB -> "
+                  f"{'PASS' if good else 'FAIL'}", flush=True)
+    print(f"e10 (a): parameter checksums after {E10_STEPS} steps "
+          f"{sums[(0, 'off')]}, equal across the {len(E10_MODES)} modes and "
+          f"2 ranks: {same}; losses finite: {finite} -> "
+          f"{'PASS' if same and finite else 'FAIL'}", flush=True)
+    # (b)
+    rs = {(x["rank"], m): (x["resnet"][m]["sums"], x["resnet"][m]["stats"])
+          for x in results for m in ("off", "fast")}
+    same = len({(tuple(s), tuple(t)) for s, t in rs.values()}) == 1
+    ok = ok and same
+    for label in ("off", "fast"):
+        for x in results:
+            ss = x["resnet"][label]["steps"]
+            good = all(s["bn"] == E10_BN_EXCHANGES for s in ss)
+            if label == "fast":
+                good = good and all(
+                    s["d"]["fast"] >= E10_BN_EXCHANGES for s in ss) and all(
+                    s["d"]["hits"] > 0 for s in ss[1:])
+            else:
+                good = good and all(s["d"]["fast"] == 0 for s in ss)
+            ok = ok and good
+            print(f"e10 (b) resnet50 fast lane {label} rank {x['rank']}: "
+                  + "; ".join(
+                      f"step {i + 1} {s['s'] * 1e3:.1f} ms"
+                      + (f" (profiled: rank 0's kernels busy "
+                         f"{s['busy'] * 1e3:.1f} ms = "
+                         f"{s['busy'] / s['s']:.1%} of it)"
+                         if s["busy"] else
+                         " (profiled: busy share not measured)"
+                         if s["profiled"] else "")
+                      + f", {s['bn']} batch-norm exchanges, "
+                      f"{s['d']['batches']} batches, fast lane "
+                      f"{s['d']['fast']} ({s['d']['hits']} pin hits)"
+                      for i, s in enumerate(ss))
+                  + f" -> {'PASS' if good else 'FAIL'}", flush=True)
+    print(f"e10 (b): parameters and statistics bitwise equal with the fast "
+          f"lane off and on, on both ranks: {same} -> "
+          f"{'PASS' if same else 'FAIL'}", flush=True)
+    # (d)
+    for x in results:
+        ck = x["ckpt"]
+        per_cycle = {}
+        for run in ck["runs"]:
+            per_cycle[run["cycle"]] = per_cycle.get(run["cycle"], 0) + 1
+        good = (ck["dispatched"] == len(ck["runs"]) == E10_CKPT_ITEMS
+                and all(not run["grads_left"] and run["on_cycle_thread"]
+                        for run in ck["runs"])
+                and max(per_cycle.values()) <= ck["budget"]
+                and all(ck["files"]))
+        ok = ok and good
+        print(f"e10 (d) rank {x['rank']}: {E10_CKPT_ITEMS} checkpoint items "
+              f"submitted during a step, ckpt_chunks_dispatched "
+              f"{ck['dispatched']}; each ran on the cycle thread with no "
+              f"gradient batch left in its cycle: "
+              f"{all(not u['grads_left'] for u in ck['runs'])}; items a "
+              f"cycle {sorted(per_cycle.values())} (budget {ck['budget']}); "
+              f"files' bytes exact {sum(ck['files'])}/{E10_CKPT_ITEMS} -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    wall_a = time.time() - t_a
+    # (c)
+    t_c = time.time()
+    tuned, route_c, wall_c = launch_ranks(
+        torch, "--e10-tune-worker", E10_TUNE_LAYERS, seed, timeout_s, 2,
+        ("--autotune", "--autotune-log-file", "{tmp}/tune.csv"),
+        env_extra=E10_TUNE_ENV, inspect=_e10_log)
+    if tuned is None:
+        return False, None
+    ta, tb, log = tuned
+    good = (ta["samples"] == tb["samples"] >= 2
+            and ta["moves"] == tb["moves"]
+            and len(ta["moves"]) == ta["samples"]
+            and ta["final"] == tb["final"]
+            and [s["sums"] for s in ta["steps"]]
+            == [s["sums"] for s in tb["steps"]]
+            and log["header"][:3] == ["sample", "fusion_threshold_bytes",
+                                      "cycle_time_s"]
+            and log["widths"] == [len(log["header"])]
+            and len(log["rows"]) >= 2
+            and all(np.isfinite(s["loss"]) for s in ta["steps"]))
+    ok = ok and good
+    print(f"e10 (c): autotuner over Llama at full width, {E10_TUNE_LAYERS} "
+          f"layer, {E10_TUNE_STEPS} steps, "
+          + " ".join(f"{k}={v}" for k, v in E10_TUNE_ENV.items())
+          + f" ({route_c}, {wall_c:.1f} s): {ta['coords']} coordinates, "
+          f"{ta['samples']} / {tb['samples']} samples, {ta['evals']} "
+          f"evaluations, tuning done {not ta['tuning']}; moves (round, "
+          f"[fusion threshold, cycle s, cache capacity, chunk, in-flight, "
+          f"fast lane, round pipeline]) {ta['moves']}, the same on both "
+          f"ranks: {ta['moves'] == tb['moves']}; steps "
+          + ", ".join(f"{s['s'] * 1e3:.0f}" for s in ta["steps"])
+          + f" ms; parameters bitwise across the ranks every step: "
+          f"{[s['sums'] for s in ta['steps']] == [s['sums'] for s in tb['steps']]}"
+          f"; log header {log['header']}, {len(log['rows'])} sample rows of "
+          f"widths {log['widths']}, final lines {log['finals'][:2]} -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    print(f"e10: (a), (b), (d) in {wall_a:.1f} s, (c) in "
+          f"{time.time() - t_c:.1f} s [{card}; {route}: NCCL's socket "
+          f"transport, not NVLink] -> {'PASS' if ok else 'FAIL'}",
+          flush=True)
+    flash = [sum(a["llama"][m]["flash"][k] for m, *_ in E10_MODES)
+             + ta["flash"][k] for k in range(3)]
+    pack = (sum(a["llama"][m]["d"]["pack"] for m, *_ in E10_MODES)
+            + sum(s["d"]["pack"] for m in ("off", "fast")
+                  for s in a["resnet"][m]["steps"]) + ta["pack"])
+    unpack = (sum(a["llama"][m]["d"]["unpack"] for m, *_ in E10_MODES)
+              + sum(s["d"]["unpack"] for m in ("off", "fast")
+                    for s in a["resnet"][m]["steps"]) + ta["unpack"])
+    return ok, dict(flash=flash, pack=pack, unpack=unpack)
 
 
 def trace_ab_phase(torch, hvd, grads, iters=5):
@@ -3839,6 +4384,10 @@ def main():
                     help=argparse.SUPPRESS)   # one rank of phase E8
     ap.add_argument("--e9-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E9
+    ap.add_argument("--e10-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of E10 (a, b, d)
+    ap.add_argument("--e10-tune-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of E10 (c)
     args = ap.parse_args()
 
     import torch
@@ -3873,6 +4422,10 @@ def main():
         return e8_worker(args)
     if args.e9_worker:
         return e9_worker(args)
+    if args.e10_worker:
+        return e10_worker(args)
+    if args.e10_tune_worker:
+        return e10_tune_worker(args)
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3959,6 +4512,9 @@ def main():
     t_e9 = time.time()
     e9_ok, e9 = e9_phase(torch, E9_LAYERS, args.seed, card)
     print(f"e9: the phase in {time.time() - t_e9:.1f} s", flush=True)
+    t_e10 = time.time()
+    e10_ok, e10 = e10_phase(torch, E10_LAYERS, args.seed, card)
+    print(f"e10: the phase in {time.time() - t_e10:.1f} s", flush=True)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -3974,20 +4530,22 @@ def main():
                                 e6["flash"] if e6 else [0, 0, 0])]
     f8 = e8["flash"] if e8 else [0, 0, 0]
     f9 = e9["flash"] if e9 else [0, 0, 0]
+    f10 = e10["flash"] if e10 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
-                + e5[0] + m6[0] + f8[0] + f9[0],
+                + e5[0] + m6[0] + f8[0] + f9[0] + f10[0],
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
-                + m6[1] + f8[1] + f9[1],
+                + m6[1] + f8[1] + f9[1] + f10[1],
                 "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
-                + m6[2] + f8[2] + f9[2]}
+                + m6[2] + f8[2] + f9[2] + f10[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
           f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
           f"size 2) + {f8[0]} observability (E8, rank 0) + {f9[0]} ZeRO "
-          f"(E9, rank 0); flash_bwd_dq {train_launches['flash_bwd_dq']} + "
-          f"{e5[1]} + {m6[1]} + {f8[1]} + {f9[1]}, flash_bwd_dkv "
+          f"(E9, rank 0) + {f10[0]} data-plane depth (E10, rank 0); "
+          f"flash_bwd_dq {train_launches['flash_bwd_dq']} + {e5[1]} + "
+          f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]}, flash_bwd_dkv "
           f"{train_launches['flash_bwd_dkv']} + {e5[2]} + {m6[2]} + "
-          f"{f8[2]} + {f9[2]}", flush=True)
+          f"{f8[2]} + {f9[2]} + {f10[2]}", flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
@@ -4011,6 +4569,7 @@ def main():
              ring_tflops=fwd_ring["tflops"],
              **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS},
              launches_e6=m6[0], launches_e8=f8[0], launches_e9=f9[0],
+             launches_e10=f10[0],
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
     ] + [
@@ -4034,6 +4593,7 @@ def main():
              launches_e6=m6[1 if g == "dq" else 2],
              launches_e8=f8[1 if g == "dq" else 2],
              launches_e9=f9[1 if g == "dq" else 2],
+             launches_e10=f10[1 if g == "dq" else 2],
              **{f"{m}_{k}": bwd_by_name[case][g][k]
                 for m, case in MODEL_CASES.items() for k in _CASE_KEYS
                 if k in bwd_by_name[case][g]},
@@ -4065,12 +4625,13 @@ def main():
             design=design,
             launches=(two[kern] if two else 0) + (four[kern] if four else 0)
             + (e6[kern] if e6 else 0) + (e8[kern] if e8 else 0)
-            + (e9[kern] if e9 else 0),
+            + (e9[kern] if e9 else 0) + (e10[kern] if e10 else 0),
             launches_e3=two[kern] if two else 0,
             launches_e4=four[kern] if four else 0,
             launches_e6=e6[kern] if e6 else 0,
             launches_e8=e8[kern] if e8 else 0,
             launches_e9=e9[kern] if e9 else 0,
+            launches_e10=e10[kern] if e10 else 0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"],
@@ -4097,7 +4658,7 @@ def main():
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and adasum_ok and e7_ok and e8_ok and e9_ok
-                        and kern["launches"] > 0)
+                        and e10_ok and kern["launches"] > 0)
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4105,7 +4666,7 @@ def main():
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
-            and all(k["pass"] for k in kernels)):
+            and e10_ok and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
               f", engine ok={engine_ok} (module loading {loading_ok}, "
@@ -4116,7 +4677,7 @@ def main():
               f"{resnet_ok}, transformers {tf_ok}, two ranks {e6_ok}), "
               f"adasum kernels ok={adasum_ok}, four ranks (E7) ok={e7_ok}, "
               f"observability (E8, trace A/B {ab_ok}) ok={e8_ok}, ZeRO (E9) "
-              f"ok={e9_ok}")
+              f"ok={e9_ok}, data-plane depth (E10) ok={e10_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,9 @@
 # (:184-196) fields, the launcher's cross rank and size (:403-404) and their
 # parsing (:420-430, :495-496, :502-508); the sharded optimizer's fields
 # (:276-299) with pipeline_chunk_bytes (:128), and their parsing (:416,
-# :448-450).
+# :448-450); the fast lane's and partitioning's thresholds (:132-144), the
+# checkpoint lane's chunk and budget (:272-273) and the autotuner's fields
+# (:372-376), and their parsing (:418-419, :445-446, :477-481).
 """Environment-variable configuration surface.
 
 TPU-native equivalent of the reference's env parser
@@ -92,8 +94,21 @@ class Config:
     - ``sharded_optimizer``        <- HOROVOD_SHARDED_OPTIMIZER
     - ``sharded_params``           <- HOROVOD_SHARDED_PARAMS
     - ``prefetch_depth``           <- HOROVOD_PREFETCH_DEPTH
-    - ``pipeline_chunk_bytes``     <- HOROVOD_PIPELINE_CHUNK (the sharded
-      optimizer's bucket size; the engine has no chunked pipelining yet)
+    - ``pipeline_chunk_bytes``     <- HOROVOD_PIPELINE_CHUNK (fused-reduce
+      chunk size for pipelined pack/allreduce/unpack, 0 = single chunk;
+      also the sharded optimizer's bucket size)
+    - ``fast_lane_threshold_bytes``<- HOROVOD_FAST_LANE_THRESHOLD (latency
+      fast lane: sub-threshold allreduces skip the fusion buffer; 0 = off)
+    - ``partition_threshold_bytes``<- HOROVOD_PARTITION_THRESHOLD
+      (ByteScheduler-style split of huge tensors into preemptible
+      sub-tensors; 0 = off)
+    - ``ckpt_chunk_bytes``/``ckpt_lane_budget`` <- HOROVOD_CKPT_CHUNK/
+      HOROVOD_CKPT_LANE_BUDGET (the checkpoint lane)
+    - ``autotune``                 <- HOROVOD_AUTOTUNE
+    - ``autotune_log``             <- HOROVOD_AUTOTUNE_LOG
+    - ``autotune_warmup_samples``  <- HOROVOD_AUTOTUNE_WARMUP_SAMPLES
+    - ``autotune_steps_per_sample``<- HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE
+    - ``autotune_max_evals``       <- HOROVOD_AUTOTUNE_MAX_EVALS
     """
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
@@ -109,11 +124,43 @@ class Config:
     # while the device executes round N.
     max_inflight: int = 2
 
-    # HOROVOD_PIPELINE_CHUNK: in the JAX engine the chunk size of its
-    # pipelined fused reductions, which the port does not have yet; here
-    # only the sharded optimizer reads it, as the byte size of its buckets
-    # (greedy, in registration order; 0 = one bucket a param group).
+    # HOROVOD_PIPELINE_CHUNK: the engine splits each dtype group of a fused
+    # allreduce into ceil(bytes / chunk) chunks, each packed, reduced and
+    # unpacked on its own so that pack i+1 and unpack i-1 overlap the
+    # collective of chunk i; 0 (default) = one chunk per fused batch.  The
+    # sharded optimizer reads the engine's live value as the byte size of
+    # its buckets (greedy, in registration order; 0 = one bucket a param
+    # group).  An autotune coordinate when a controller exists.
     pipeline_chunk_bytes: int = 0
+
+    # Small-message latency war (docs/performance.md "Latency fast lane").
+    # fast_lane_threshold_bytes: ungrouped allreduces below this many bytes
+    # skip the fusion-buffer batching entirely — single-tensor batches
+    # dispatched first, each with a pinned plan and staging buffer (still
+    # negotiated, still response-cache-slotted, bitwise-identical
+    # results); 0 = off.  partition_threshold_bytes: tensors above this
+    # many bytes split into priority-inheriting sub-tensors so a small
+    # high-priority gradient preempts a huge transfer between parts
+    # instead of queueing behind the whole of it (ByteScheduler, Peng et
+    # al. SOSP 2019); reassembled transparently at synchronize; 0 = off.
+    # Both must be identical on every rank (the launcher forwards them;
+    # autotune broadcasts fast-lane moves).
+    fast_lane_threshold_bytes: int = 0
+    partition_threshold_bytes: int = 0
+
+    # The checkpoint lane: HOROVOD_CKPT_CHUNK bounds one lane item's write
+    # (the state plane's unit, which reads it), HOROVOD_CKPT_LANE_BUDGET
+    # bounds the items the engine runs at the tail of one cycle.
+    ckpt_chunk_bytes: int = 1 << 20
+    ckpt_lane_budget: int = 2
+
+    # Online autotuning (ops/autotune.py): HOROVOD_AUTOTUNE arms the
+    # parameter manager, HOROVOD_AUTOTUNE_LOG is its CSV log.
+    autotune: bool = False
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_max_evals: int = 48
 
     # ZeRO-sharded optimizer.  HOROVOD_SHARDED_OPTIMIZER=1 makes every
     # DistributedOptimizer built without an explicit ``sharded=`` a
@@ -226,6 +273,16 @@ class Config:
             response_cache_capacity=_env_int("RESPONSE_CACHE_CAPACITY", 2048),
             pipeline_chunk_bytes=_env_int("PIPELINE_CHUNK", 0),
             max_inflight=_env_int("MAX_INFLIGHT", 2),
+            fast_lane_threshold_bytes=_env_int("FAST_LANE_THRESHOLD", 0),
+            partition_threshold_bytes=_env_int("PARTITION_THRESHOLD", 0),
+            ckpt_chunk_bytes=_env_int("CKPT_CHUNK", 1 << 20),
+            ckpt_lane_budget=_env_int("CKPT_LANE_BUDGET", 2),
+            autotune=_env_bool("AUTOTUNE", False),
+            autotune_log=_env("AUTOTUNE_LOG", "") or "",
+            autotune_warmup_samples=_env_int("AUTOTUNE_WARMUP_SAMPLES", 3),
+            autotune_steps_per_sample=_env_int("AUTOTUNE_STEPS_PER_SAMPLE",
+                                               10),
+            autotune_max_evals=_env_int("AUTOTUNE_MAX_EVALS", 48),
             round_timeout_s=_env_float("ROUND_TIMEOUT_S", 0.0),
             connect_retries=_env_int("CONNECT_RETRIES", 3),
             connect_backoff_ms=_env_float("CONNECT_BACKOFF_MS", 500.0),

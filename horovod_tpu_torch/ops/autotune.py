@@ -1,0 +1,535 @@
+# Copied from horovod_tpu/ops/autotune.py:1-535, but _engine_broadcast and
+# _engine_poll (:456-478), which ride the port's eager broadcast_async,
+# poll and synchronize.
+"""Online autotuning of fusion threshold and cycle time.
+
+Parity: the reference's parameter manager (``horovod/common/
+parameter_manager.cc`` — SURVEY.md §2a N9): warmup discard, scored samples
+(bytes reduced per second), *online search* over the continuous
+(fusion-threshold, cycle-time) space — the reference uses Bayesian
+optimization; here it is coordinate descent in log-space with
+multiplicative step decay, which reaches any regime from any start (a 3×3
+multiplier grid around a bad starting point cannot), converges in tens of
+samples, and needs no GP machinery.  ``HOROVOD_AUTOTUNE`` /
+``HOROVOD_AUTOTUNE_LOG`` surface.
+
+Distributed consistency (TPU-native redesign of the reference's
+coordinator-broadcast): the sample *cadence* is a pure function of the
+work-cycle count — identical on every rank because negotiated batches are
+identical — so every rank reaches each sample boundary together and
+enqueues the same agreement broadcast.  Rank 0 feeds ITS score to the
+search and broadcasts the next candidate ``[threshold, cycle, done]``
+through the engine's own collective path; all ranks apply the payload, so
+parameters never diverge even though per-rank timings do.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+# Search bounds (log2-space), matching the reference's explored ranges:
+# fusion 1KB..1GB, cycle 0.1ms..100ms.
+_THR_BOUNDS = (10.0, 30.0)          # 2^10 = 1KB .. 2^30 = 1GB
+_CYC_BOUNDS = (math.log2(1e-4), math.log2(0.1))
+# Response-cache capacity (client-side slot budget), lower bound 16: too
+# small churns the steady-state bitvector path back to full announces.  The
+# upper bound is the server's configured capacity (the client can't ride
+# more slots than the server assigns — anything above it is a dead knob).
+_CAP_LO = 4.0
+# Pipeline coordinates (multi-process only, like the cache coordinate):
+# fused-reduce chunk size 64KB..1GB — below 64KB per-chunk collective
+# overhead always dominates; in-flight window 1..8 fused batches (log2
+# space, rounded to an integer on apply).
+_CHUNK_BOUNDS = (16.0, 30.0)
+_INFLIGHT_BOUNDS = (0.0, 3.0)
+# Latency fast-lane threshold (multi-process only, same gate): 256B..16MB.
+# The left end of the busbw curve is where the fusion buffer costs more
+# than it buys (BENCH_SELF_r03/r05) — the search finds the crossover
+# instead of a hand-set constant.  Note cycle_time is ALREADY the second
+# base coordinate, so the latency pair (fast_lane_threshold, cycle_time)
+# is fully searched, never hand-set.
+_FAST_LANE_BOUNDS = (8.0, 24.0)
+# Hierarchical crossover threshold (two-level ICI/DCN allreduce, armed via
+# HOROVOD_HIERARCHICAL_ALLREDUCE): 1KB..256MB.  Below the crossover a flat
+# ring's single launch beats the three-leg pipeline's fixed cost; above it
+# the ~1/local_size cross-slice byte saving wins.  The crossover depends on
+# the DCN:ICI bandwidth ratio of the actual pod, so it is searched, not
+# hand-set.  Walking the knob only flips per-batch decisions (fusion-key
+# re-keyed, never in the negotiation digest), so moves are control-plane
+# free — the same zero-traffic rule as HOROVOD_PIPELINE_CHUNK.
+_HIER_THR_BOUNDS = (10.0, 28.0)
+# Zero-RTT pair (protocol v7, multi-process only).  spec_ready_after
+# 1..32 consecutive ready-on-first-announce rounds before the coordinator
+# predicts (small = aggressive speculation, large = conservative; 0 — the
+# explicit opt-out — gates the coordinate off entirely, like the cache
+# knob).  round_pipeline 1..4 in-flight negotiation rounds per client.
+_SPEC_BOUNDS = (0.0, 5.0)
+_RPIPE_BOUNDS = (0.0, 2.0)
+# Checkpoint-lane pair —
+# gated on the state plane being armed (HOROVOD_CKPT_DIR): shard-chunk
+# size 64KB..64MB (smaller chunks interleave more finely with gradient
+# cycles but pay more dispatches; bigger chunks stall the cycle tail
+# longer), lane budget 1..8 chunks per engine cycle.  Neither knob can
+# change gradient dispatch order (the budget rule is lane-guarded), so
+# walking them trades ONLY commit latency against cycle-tail time.
+_CKPT_CHUNK_BOUNDS = (16.0, 26.0)
+_CKPT_BUDGET_BOUNDS = (0.0, 3.0)
+
+
+def _clamp(v: float, lo: float, hi: float) -> float:
+    return min(max(v, lo), hi)
+
+
+class LogCoordinateDescent:
+    """Coordinate descent over log2-space points with step decay.
+
+    Protocol: call :meth:`proposal` for the point to measure next, then
+    :meth:`record` with its score.  The first evaluation scores the
+    starting point; each later one either accepts (continue along the
+    winning direction) or moves on (opposite direction → next coordinate →
+    sweep end).  A sweep with no accepted move halves both steps; the
+    search finishes when steps drop under ``min_step`` (≈ a 1.09× factor
+    for 0.125 in log2) or ``max_evals`` is spent.
+    """
+
+    def __init__(self, start: Sequence[float],
+                 bounds: Sequence[Tuple[float, float]],
+                 init_step: float = 2.0, min_step: float = 0.125,
+                 rel_gain: float = 0.02, max_evals: int = 48):
+        self.point = [_clamp(p, *b) for p, b in zip(start, bounds)]
+        self.bounds = list(bounds)
+        self.step = [init_step] * len(self.point)
+        self.min_step = min_step
+        self.rel_gain = rel_gain
+        self.max_evals = max_evals
+        self.evals = 0
+        self.best_score: Optional[float] = None
+        self._coord = 0
+        self._dir = +1
+        self._accepted_on_line = False
+        self._improved_in_sweep = False
+        self._pending: Optional[List[float]] = list(self.point)
+        self.done = False
+
+    def proposal(self) -> Tuple[float, ...]:
+        return tuple(self._pending if self._pending is not None
+                     else self.point)
+
+    def record(self, score: float):
+        """Consume the score of the current proposal; advance the search."""
+        if self.done:
+            return
+        self.evals += 1
+        if self.best_score is None:
+            # Baseline: score of the starting point.
+            self.best_score = score
+        elif (score > self.best_score * (1.0 + self.rel_gain)
+              and self._pending is not None):
+            self.point = list(self._pending)
+            self.best_score = score
+            self._accepted_on_line = True
+            self._improved_in_sweep = True
+        else:
+            self._turn()
+        if self.evals >= self.max_evals:
+            self.done = True
+            self._pending = None
+            return
+        self._propose_next()
+
+    # ------------------------------------------------------------ internals
+    def _turn(self):
+        """Current line is exhausted: flip direction or advance coordinate."""
+        if self._dir == +1 and not self._accepted_on_line:
+            self._dir = -1
+            return
+        self._next_coord()
+
+    def _next_coord(self):
+        self._dir = +1
+        self._accepted_on_line = False
+        self._coord += 1
+        if self._coord >= len(self.point):
+            self._coord = 0
+            if not self._improved_in_sweep:
+                self.step = [s * 0.5 for s in self.step]
+                if max(self.step) < self.min_step:
+                    self.done = True
+            self._improved_in_sweep = False
+
+    def _propose_next(self):
+        """Find the next in-bounds candidate distinct from the current
+        point; skipped (clamped-away) lines count as exhausted."""
+        if self.done:
+            self._pending = None
+            return
+        for _ in range(2 * len(self.point) + 1):
+            cand = list(self.point)
+            c = self._coord
+            cand[c] = _clamp(cand[c] + self._dir * self.step[c],
+                             *self.bounds[c])
+            if abs(cand[c] - self.point[c]) > 1e-12:
+                self._pending = cand
+                return
+            # Clamped onto the current point: this direction is a wall.
+            if self._dir == +1 and not self._accepted_on_line:
+                self._dir = -1
+            else:
+                self._next_coord()
+                if self.done:
+                    self._pending = None
+                    return
+        # Every direction is a wall at this step size — decay and retry.
+        self.step = [s * 0.5 for s in self.step]
+        if max(self.step) < self.min_step:
+            self.done = True
+            self._pending = None
+        else:
+            self._propose_next()
+
+
+class ParameterManager:
+    """Engine-side sampling loop + distributed agreement around the search.
+
+    ``broadcaster(payload) -> handle`` and ``poller(handle) -> payload|None``
+    are injectable for unit tests; the defaults ride the engine's own
+    eager broadcast (root 0), exactly like the final-pick agreement the
+    grid version used — but now EVERY move is agreed, so ranks never
+    diverge mid-search.
+    """
+
+    def __init__(self, engine, warmup_samples: int = 3,
+                 steps_per_sample: int = 10, log_path: str = "",
+                 clock: Optional[Callable[[], float]] = None,
+                 broadcaster=None, poller=None, max_evals: int = 48):
+        self._engine = engine
+        self._warmup_remaining = warmup_samples
+        self._steps_per_sample = steps_per_sample
+        self._log_path = log_path
+        self._clock = clock or time.monotonic
+        self._broadcaster = broadcaster or self._engine_broadcast
+        self._poller = poller or self._engine_poll
+
+        thr0 = max(float(engine.fusion_threshold), 1024.0)
+        cyc0 = max(float(engine.cycle_time_s), 1e-4)
+        starts = [math.log2(thr0), math.log2(cyc0)]
+        bounds = [_THR_BOUNDS, _CYC_BOUNDS]
+        # Third tunable — negotiation response-cache capacity — only when
+        # a multi-process controller exists (single-controller mode has no
+        # negotiation) AND the cache is enabled (capacity 0 is an explicit
+        # opt-out: tuning a dead knob would waste a third of the eval
+        # budget).  Every rank takes the same branch (same env config), so
+        # the agreement payload shape is consistent.
+        ctl = getattr(engine, "controller", None)
+        self._tune_cache = ctl is not None and getattr(ctl, "cache_enabled",
+                                                       False)
+        if self._tune_cache:
+            # The config capacity is both the starting point and the upper
+            # bound: the rank-0 server's slot table was sized from the same
+            # config, so larger client budgets cannot increase coverage.
+            cap0 = max(float(ctl.cache_capacity), 16.0)
+            starts.append(math.log2(cap0))
+            bounds.append((_CAP_LO, max(_CAP_LO + 1.0, math.log2(cap0))))
+        # Pipeline coordinates — gated exactly like the cache coordinate
+        # (multi-process only): chunking/in-flight only matter where a
+        # negotiation round exists to overlap, and single-controller runs
+        # must not waste eval budget on dead knobs.  Every rank reads the
+        # same engine config, so the agreement payload shape matches.
+        self._tune_pipeline = ctl is not None
+        if self._tune_pipeline:
+            chunk0 = max(float(engine.pipeline_chunk_bytes
+                               or engine.fusion_threshold), 1024.0)
+            starts.append(math.log2(chunk0))
+            bounds.append(_CHUNK_BOUNDS)
+            starts.append(math.log2(max(float(engine.max_inflight), 1.0)))
+            bounds.append(_INFLIGHT_BOUNDS)
+        # Sixth coordinate — the latency fast-lane threshold — gated like
+        # the pipeline pair: the fast lane's win (skipping the fusion
+        # buffer + per-cycle key construction) only exists where a
+        # negotiation round and the slot-pinned program path exist.
+        # Moves broadcast through the same agreement payload, so the
+        # threshold can never diverge across ranks (divergence would fork
+        # the batch plan).
+        self._tune_fast_lane = ctl is not None
+        if self._tune_fast_lane:
+            fl0 = max(float(engine.fast_lane_threshold) or 4096.0, 256.0)
+            starts.append(math.log2(fl0))
+            bounds.append(_FAST_LANE_BOUNDS)
+        # Hierarchical crossover coordinate — gated on the two-level mode
+        # being ARMED (HOROVOD_HIERARCHICAL_ALLREDUCE is fleet-uniform
+        # config, so every rank takes the same branch): with the mode off
+        # every batch dispatches flat regardless of the threshold, and
+        # tuning a dead knob would waste eval budget.  Moves ride the same
+        # agreement broadcast, so the per-batch flat-vs-hier decision (a
+        # fusion-key input — batching must stay rank-invariant, HVD110)
+        # can never diverge across ranks.
+        self._tune_hier = (ctl is not None
+                           and getattr(engine, "hierarchical_allreduce",
+                                       False))
+        if self._tune_hier:
+            ht0 = max(float(engine.hier_threshold_bytes) or 65536.0, 1024.0)
+            starts.append(math.log2(ht0))
+            bounds.append(_HIER_THR_BOUNDS)
+        # Zero-RTT pair (protocol v7) — spec_ready_after gated like the
+        # cache coordinate (speculation off is an explicit opt-out, and
+        # the server's streak threshold was fixed at start from the same
+        # config: the client-side knob gates prediction CONSUMPTION, so
+        # walking it trades speculation eagerness against mispredict
+        # fallbacks); round_pipeline gated like the pipeline pair.  Moves
+        # ride the same agreement broadcast, so the in-flight windows can
+        # never diverge across ranks.
+        self._tune_spec = (ctl is not None
+                           and getattr(ctl, "spec_ready_after", 0) > 0)
+        if self._tune_spec:
+            sp0 = max(float(ctl.spec_ready_after), 1.0)
+            starts.append(math.log2(sp0))
+            bounds.append(_SPEC_BOUNDS)
+        self._tune_round_pipeline = ctl is not None
+        if self._tune_round_pipeline:
+            rp0 = max(float(getattr(ctl, "round_pipeline", 1)), 1.0)
+            starts.append(math.log2(rp0))
+            bounds.append(_RPIPE_BOUNDS)
+        # Checkpoint-lane pair — gated on the state plane being ARMED
+        # (HOROVOD_CKPT_DIR is fleet-uniform config, so every rank takes
+        # the same branch and the agreement payload shape matches):
+        # tuning the chunk/budget knobs with no durability stream would
+        # waste eval budget on dead coordinates.
+        self._tune_ckpt = getattr(engine, "stateplane", None) is not None
+        if self._tune_ckpt:
+            ck0 = max(float(engine.stateplane.chunk_bytes), 1024.0)
+            starts.append(math.log2(ck0))
+            bounds.append(_CKPT_CHUNK_BOUNDS)
+            starts.append(math.log2(
+                max(float(engine.ckpt_lane_budget), 1.0)))
+            bounds.append(_CKPT_BUDGET_BOUNDS)
+        self.search = LogCoordinateDescent(
+            start=tuple(starts), bounds=tuple(bounds), max_evals=max_evals)
+        self._sample_no = 0
+        self._cycles_in_sample = 0
+        self._bytes_in_sample = 0
+        self._sample_start = self._clock()
+        self._move_handle = None
+        self.tuning = True
+        self._log_header_written = False
+
+    # ------------------------------------------------------------ schedule
+    def on_cycle(self, nbytes: int):
+        """Called by the engine after every cycle that processed work."""
+        if not self.tuning or nbytes <= 0:
+            return
+        if self._move_handle is not None:
+            self._poll_move()
+            return
+        self._cycles_in_sample += 1
+        self._bytes_in_sample += nbytes
+        if self._cycles_in_sample < self._steps_per_sample:
+            return
+
+        elapsed = max(self._clock() - self._sample_start, 1e-9)
+        score = self._bytes_in_sample / elapsed
+        self._cycles_in_sample = 0
+        self._bytes_in_sample = 0
+        if self._warmup_remaining > 0:
+            self._warmup_remaining -= 1
+            self._sample_start = self._clock()
+            return
+
+        # Rank 0's search consumes rank 0's score; other ranks run the
+        # same code on their local score but their proposals are
+        # overwritten by the agreement broadcast, so only the CADENCE
+        # (score-independent) must match across ranks — and it does.
+        measured = self.search.proposal()
+        self.search.record(score)
+        self._log_sample(measured, score)
+        point = self.search.point if self.search.done \
+            else self.search.proposal()
+        params = [2.0 ** p for p in point]
+        payload = np.asarray(params + [1.0 if self.search.done else 0.0],
+                             np.float64)
+        self._move_handle = self._broadcaster(payload)
+        self._sample_no += 1
+
+    def _apply_params(self, params):
+        self._engine.fusion_threshold = int(params[0])
+        self._engine.cycle_time_s = float(params[1])
+        idx = 2
+        if self._tune_cache and len(params) > idx:
+            # Client-side slot budget: shrinking trims LRU slots (safe —
+            # a dropped slot simply full-announces and relearns), growing
+            # lets more tuples ride the bitvector.
+            self._engine.controller.cache_capacity = max(1, int(params[idx]))
+            idx += 1
+        if self._tune_pipeline and len(params) > idx + 1:
+            # Chunk plans re-key the program cache by COUNT, so walking
+            # this knob recompiles at most once per distinct plan; the
+            # in-flight bound applies from the next dispatch (the ring
+            # reads its depth live).
+            self._engine.pipeline_chunk_bytes = int(params[idx])
+            self._engine.max_inflight = max(1, int(round(params[idx + 1])))
+            idx += 2
+        if self._tune_fast_lane and len(params) > idx:
+            # Applies from the next ready verdict; stale fast-lane pins
+            # self-invalidate on their validity compare.
+            self._engine.fast_lane_threshold = int(params[idx])
+            idx += 1
+        if self._tune_hier and len(params) > idx:
+            # Applies from the next batch's _hier_decision; the program
+            # cache and slot pins re-key on the per-batch DECISION (not
+            # the raw threshold), so walking it recompiles at most one
+            # program per (shape, mode) pair and stale pins self-
+            # invalidate on their validity compare.
+            self._engine.hier_threshold_bytes = max(0, int(params[idx]))
+            idx += 1
+        if self._tune_spec and len(params) > idx:
+            # Client-side consumption gate: never moves to 0 (the bounds
+            # start at 1) — 0 is the config-level opt-out that disables
+            # the coordinate entirely.
+            self._engine.controller.spec_ready_after = max(
+                1, int(round(params[idx])))
+            idx += 1
+        if self._tune_round_pipeline and len(params) > idx:
+            # Applies from the next round: a shrunk window drains
+            # naturally at the next _round's entry drain.
+            self._engine.controller.round_pipeline = max(
+                1, int(round(params[idx])))
+            idx += 1
+        if self._tune_ckpt and len(params) > idx + 1 \
+                and getattr(self._engine, "stateplane", None) is not None:
+            # Applies from the next commit's write job (chunk plans are
+            # per-epoch) and the next cycle's tail pop (the budget is
+            # read live); gradient dispatch order is invariant to both.
+            self._engine.stateplane.chunk_bytes = max(1, int(params[idx]))
+            self._engine.ckpt_lane_budget = max(
+                1, int(round(params[idx + 1])))
+
+    def _poll_move(self):
+        payload = self._poller(self._move_handle)
+        if payload is None:
+            return
+        self._move_handle = None
+        try:
+            values = [float(x) for x in np.asarray(payload).reshape(-1)]
+            params, done = values[:-1], values[-1]
+            if len(params) < 2:
+                raise ValueError("short payload")
+        except Exception:  # pragma: no cover - never break training
+            params = [2.0 ** p for p in self.search.point]
+            done = 1.0
+        self._apply_params(params)
+        if done >= 0.5:
+            self.tuning = False
+            extra = ""
+            idx = 2
+            if self._tune_cache and len(params) > idx:
+                extra += f" response_cache_capacity={int(params[idx])}"
+                idx += 1
+            if self._tune_pipeline and len(params) > idx + 1:
+                extra += (f" pipeline_chunk_bytes={int(params[idx])}"
+                          f" max_inflight="
+                          f"{max(1, int(round(params[idx + 1])))}")
+                idx += 2
+            if self._tune_fast_lane and len(params) > idx:
+                extra += f" fast_lane_threshold={int(params[idx])}"
+                idx += 1
+            if self._tune_hier and len(params) > idx:
+                extra += f" hier_threshold_bytes={int(params[idx])}"
+                idx += 1
+            if self._tune_spec and len(params) > idx:
+                extra += (f" spec_ready_after="
+                          f"{max(1, int(round(params[idx])))}")
+                idx += 1
+            if self._tune_round_pipeline and len(params) > idx:
+                extra += (f" round_pipeline="
+                          f"{max(1, int(round(params[idx])))}")
+                idx += 1
+            if self._tune_ckpt and len(params) > idx + 1:
+                extra += (f" ckpt_chunk_bytes={int(params[idx])}"
+                          f" ckpt_lane_budget="
+                          f"{max(1, int(round(params[idx + 1])))}")
+            self._log_line(f"# final: fusion_threshold={int(params[0])} "
+                           f"cycle_time_s={params[1]:.6f}{extra} "
+                           f"evals={self.search.evals}\n")
+        self._sample_start = self._clock()
+
+    # ----------------------------------------------------- engine transport
+    def _engine_broadcast(self, payload: np.ndarray):
+        """Enqueue the agreement: rank 0's payload broadcast through the
+        engine's own collective path (``eager.broadcast_async``), never
+        waited on here.  Called on the cycle thread, whose submissions
+        wake the cycle thread instead of running a cycle inline; the
+        engine settles the handle where its batch is dispatched, so every
+        rank polls it done at the end of the same cycle."""
+        import torch
+        from . import eager
+        h = eager.broadcast_async(torch.from_numpy(payload), root_rank=0,
+                                  name=f"__autotune.move.{self._sample_no}")
+        self._engine._agreements.add(h)
+        return h
+
+    def _engine_poll(self, handle):
+        from . import eager
+        if not eager.poll(handle):
+            return None
+        return eager.synchronize(handle).cpu().numpy()
+
+    # ------------------------------------------------------------- logging
+    def _log_sample(self, measured, score: float):
+        if not self._log_header_written:
+            cols = ""
+            if self._tune_cache:
+                cols += ",response_cache_capacity"
+            if self._tune_pipeline:
+                cols += ",pipeline_chunk_bytes,max_inflight"
+            if self._tune_fast_lane:
+                cols += ",fast_lane_threshold"
+            if self._tune_hier:
+                cols += ",hier_threshold_bytes"
+            if self._tune_spec:
+                cols += ",spec_ready_after"
+            if self._tune_round_pipeline:
+                cols += ",round_pipeline"
+            if self._tune_ckpt:
+                cols += ",ckpt_chunk_bytes,ckpt_lane_budget"
+            self._log_line(f"sample,fusion_threshold_bytes,cycle_time_s"
+                           f"{cols},score_bytes_per_s\n")
+            self._log_header_written = True
+        params = [2.0 ** p for p in measured]
+        extra = ""
+        idx = 2
+        if self._tune_cache and len(params) > idx:
+            extra += f",{int(params[idx])}"
+            idx += 1
+        if self._tune_pipeline and len(params) > idx + 1:
+            extra += (f",{int(params[idx])}"
+                      f",{max(1, int(round(params[idx + 1])))}")
+            idx += 2
+        if self._tune_fast_lane and len(params) > idx:
+            extra += f",{int(params[idx])}"
+            idx += 1
+        if self._tune_hier and len(params) > idx:
+            extra += f",{int(params[idx])}"
+            idx += 1
+        if self._tune_spec and len(params) > idx:
+            extra += f",{max(1, int(round(params[idx])))}"
+            idx += 1
+        if self._tune_round_pipeline and len(params) > idx:
+            extra += f",{max(1, int(round(params[idx])))}"
+            idx += 1
+        if self._tune_ckpt and len(params) > idx + 1:
+            extra += (f",{int(params[idx])}"
+                      f",{max(1, int(round(params[idx + 1])))}")
+        self._log_line(f"{self._sample_no},{int(params[0])},"
+                       f"{params[1]:.6f}{extra},{score:.1f}\n")
+
+    def _log_line(self, line: str):
+        if not self._log_path:
+            return
+        try:
+            with open(self._log_path, "a") as fh:
+                fh.write(line)
+        except OSError:  # pragma: no cover
+            pass

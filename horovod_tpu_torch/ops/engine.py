@@ -1,25 +1,33 @@
 # Ported from horovod_tpu/ops/engine.py: CollectiveType 59-66,
-# TensorTableEntry 68-148 (with the sharded 88-98 and prefetch 117-126
-# fields, without the partition, fast-lane, cache-slot and donation
-# fields), _SPAN_DROPPED/_live_span 178-184, _fusion_key 151-169 (without
-# the partition count), the prefetch counters 320-325, the cycle and
-# negotiation accounting 350-377, the
-# tracer 378-386 and 471-474, the monitor's fault hook 557-564, the
-# timeline lanes and trace stamps 576-587, 682-685, 957-977, 1021-1047,
-# 1114-1133, 1165-1213, 1270-1272, 1346-1350, 1368-1380, 1391 and
-# 1399-1429, the two-level span share 1825-1840,
-# start/quiesce/stop/_abort_engine/_settle_queued 416-598,
-# enqueue/enqueue_group 610-697, synchronize/poll 802-850, the cycle
-# 911-1133 (the backlog's prefetch and fused lanes 1076-1094, without the
-# fast lane), _compute_response_list 1136-1335 (the in-flight abort on a
-# leave notice 1252-1268), _perform_operation/
-# _settle_batch/_inflight_ring 1338-1463, _join_fill_value/
+# TensorTableEntry 68-148 (with the sharded 88-98, prefetch 117-126, fast-
+# lane 113-118, cache-slot 127-134 and partition 135-141 fields, without the
+# donation field), _SPAN_DROPPED/_live_span 178-184, _fusion_key 151-169,
+# the pipeline, fast-lane, partition and checkpoint-lane state 218-275, the
+# prefetch counters 320-325, the cycle and negotiation accounting 350-377,
+# the tracer 378-386 and 471-474, the autotuner 406-413, the monitor's fault
+# hook 557-564, the timeline lanes and trace stamps 576-587, 682-685,
+# 957-977, 1021-1047, 1114-1133, 1165-1213, 1270-1272, 1346-1350, 1368-1380,
+# 1391 and 1399-1429, the two-level span share 1825-1840,
+# start/quiesce/stop/_abort_engine/_settle_queued 416-598 (the staged
+# checkpoint items and ping-pong slots of 450-465 and 526-546),
+# enqueue/enqueue_group 610-697, _maybe_partition 699-757 (the parts are
+# views: _split_parts/_assemble_parts 759-800 have no counterpart),
+# synchronize/poll 802-850, the checkpoint lane 853-909, the cycle 911-1133
+# (the backlog's fast, prefetch and fused lanes 1076-1094, the checkpoint
+# tail 1098-1103, the autotuner's feed 1124-1127), _compute_response_list
+# 1136-1335 (the slot-drop hook 1150, the in-flight abort on a leave notice
+# 1252-1268, the fast-lane fork 1281-1300), _perform_operation/
+# _settle_batch/_inflight_ring 1338-1463 (the ping-pong slots 1351-1361,
+# 1405-1411, 1457-1459), _join_fill_value/
 # _synthesize_join_entry 1470-1566 (with the sharded token 1537-1548),
 # _slice_topology/_hier_decision/
 # _hier_ag_decision/_hier_bcast_decision/_batch_payload_bytes 1568-1707,
-# _execute_batch 1792-1889 (with its two-level verdict and leg counters
-# 1802-1830) and the builders 1896-2094 (fused reduce, allreduce with
-# Adasum, broadcast, two-level broadcast), 2136-2222 (allgather, two-level
+# _chunk_plan 1709-1734, _on_slot_drop/_fast_pin_key/_execute_fast_lane
+# 1736-1790 (a pin holds a resolved plan and a staging buffer, not a
+# compiled program), _execute_batch 1792-1889 (with its two-level verdict
+# and leg counters 1802-1830 and the pinning 1854-1870) and the builders
+# 1896-2094 (fused reduce with its chunks, allreduce with Adasum,
+# broadcast, two-level broadcast), 2136-2222 (allgather, two-level
 # allreduce and allgather) and 2225-2275 (reducescatter, alltoall).
 """The collective engine: Horovod's background coordinator, on torch tensors.
 
@@ -127,8 +135,40 @@ differs fails negotiation.  FSDP's parameter gathers are also marked
 ``prefetch``: the backlog pushes them on the prefetch lane, ahead of the
 fused lane and outside its budget.
 
-Out of this slice: the fast lane, partitioning, chunked pipelining and the
-checkpoint lane; the sanitizer and the autotuner.
+The data plane's depth, each off by default as in the JAX engine:
+
+- Chunked pipelining (``HOROVOD_PIPELINE_CHUNK``): ``_chunk_plan`` gives
+  each dtype group of a fused allreduce a chunk count; chunk i's views of
+  the group's concatenation (``fusion.span``, boundaries on 16 bytes) are
+  packed into its slice of the group's buffer, reduced by an asynchronous
+  NCCL call, and unpacked once that work is waited on, so that pack i+1
+  and unpack i-1 overlap collective i.  The done event follows the last
+  unpack.  Bitwise the unchunked path (each element is reduced alike).
+- The fast lane (``HOROVOD_FAST_LANE_THRESHOLD``): ungrouped,
+  unpartitioned allreduces under the threshold become single-entry
+  batches, dispatched first; each pins its resolved plan (buffer and wire
+  dtypes, divisor, chunk count) and a staging buffer under its
+  response-cache slot (or its name alone), dropped by the controller's
+  ``slot_drop_hook`` and on any change of shape, dtype, fusion key, chunk
+  knob or two-level verdict.
+- Partitioning (``HOROVOD_PARTITION_THRESHOLD``): an allreduce above the
+  threshold (global bytes, as the fusion threshold counts) splits at
+  enqueue into priority-inheriting parts that are views of its flattened
+  input and output (no split or join copy); ``synchronize`` and ``poll``
+  wait on every part.  Adasum and grouped members stay whole.
+- Ping-pong staging: with the in-flight window, a batch acquires one of
+  two slots per dtype before launch and releases it first thing at its
+  settle (after its done event); each slot owns a real fusion buffer per
+  dtype group, reused and grown to the largest batch.
+- The checkpoint lane (``submit_checkpoint_io``): ``CheckpointChunk``
+  items run at the tail of a cycle, after every gradient batch, at most
+  ``HOROVOD_CKPT_LANE_BUDGET`` a cycle.
+- The autotuner (``HOROVOD_AUTOTUNE``, ``ops/autotune.py``): fed once a
+  cycle that carried work; its agreement broadcast is enqueued into this
+  engine, dispatched like any batch and settled where it is dispatched,
+  so that every rank applies a move at the end of the same cycle.
+
+Out of this slice: the sanitizer.
 """
 
 from __future__ import annotations
@@ -139,6 +179,7 @@ import dataclasses
 import enum
 import heapq
 import itertools
+import math
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -147,8 +188,10 @@ import torch
 
 from . import collectives as C
 from . import fusion
-from .scheduler import (FUSED_LANE, PREFETCH_LANE, InflightRing,
-                        StallInspector, TensorQueue, pop_gradient_batches)
+from .scheduler import (CKPT_LANE, FAST_LANE, FUSED_LANE, PREFETCH_LANE,
+                        InflightRing, PingPongBuffers, StallInspector,
+                        TensorQueue, partition_name, partition_plan,
+                        pop_checkpoint_items, pop_gradient_batches)
 from ..common.exceptions import ControlPlaneError
 from ..trace import maybe_install
 from ..utils.logging import get_logger
@@ -220,6 +263,24 @@ class TensorTableEntry:
     # scheduling); must be identical across ranks for a given name.
     priority: int = 0
     enqueue_time: float = 0.0
+    # Latency fast lane: marked at the ready verdict for sub-threshold
+    # ungrouped allreduces — the entry dispatches as its own single-tensor
+    # batch through its pinned plan and staging buffer, skipping the
+    # batch's planning (bitwise-identical results).
+    fast_lane: bool = False
+    # Response-cache slot (stamped by the controller when this entry's
+    # announce rides the warm-path bitvector; -1 until learned): the
+    # fast-lane pin key.  Slot ids are server-assigned and digest-scoped,
+    # so a pin keyed by a slot is valid for exactly as long as the slot is
+    # (coordinated invalidation via the controller's slot_drop_hook).
+    cache_slot: int = -1
+    # ByteScheduler-style partitioning: a part of a split parent carries
+    # (parent_name, index, count) and the parent entry; the parent itself
+    # never enters the queue and holds its ``parts`` (views of its
+    # flattened input and output), which synchronize waits on.
+    partition: Optional[Tuple] = None
+    parent: Any = None
+    parts: Any = None
     # Lifecycle span (trace.core.TensorSpan) while tracing is armed; the
     # _SPAN_DROPPED sentinel once a claim was dropped (ring full); None
     # before the first drain or when disarmed.
@@ -255,49 +316,58 @@ def _live_span(e):
 
 class _Timing:
     """One batch's reduce-phase marks: CUDA events with timing on the card
-    (the first before the first pack, then one after each dtype group's
-    pack, collective and unpack), host ``time.monotonic()`` seconds on the
-    CPU (``host``).  ``pending`` holds an inline-settled batch's spans
-    until the card is done, for the recorder that claimed them."""
+    (the first before the first pack, then one after each pack, each
+    collective's wait and each unpack, a chunk's or a dtype group's),
+    host ``time.monotonic()`` seconds on the CPU (``host``).  ``parts``
+    says what each interval was: ``(part, starts, end)``, the part (0
+    pack, 1 collective, 2 unpack) running from the latest of the ``starts``
+    marks to the ``end`` mark.  ``pending`` holds an inline-settled
+    batch's spans until the card is done, for the recorder that claimed
+    them."""
 
-    __slots__ = ("host", "marks", "t_launch", "pending", "recorder",
+    __slots__ = ("host", "marks", "parts", "t_launch", "pending", "recorder",
                  "t_settle")
 
     def __init__(self, host: bool):
         self.host = host
         self.marks: List[Any] = []
+        self.parts: List[Tuple[int, Tuple[int, ...], int]] = []
         self.t_launch = 0.0
         self.pending: List[Any] = []
         self.recorder = None
         self.t_settle = 0.0
 
-    def mark(self) -> None:
+    def mark(self) -> int:
+        """A new mark on the current stream (the host clock on the CPU);
+        returns its index."""
         if self.host:
             self.marks.append(time.monotonic())
         else:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.marks.append(ev)
+        return len(self.marks) - 1
+
+    def _gap_us(self, a, b) -> float:
+        return (b - a) * 1e6 if self.host else a.elapsed_time(b) * 1e3
 
     def reduce_s(self) -> float:
         """The first mark to the last, in seconds (on the card only once
         they have completed)."""
-        a, b = self.marks[0], self.marks[-1]
-        return b - a if self.host else a.elapsed_time(b) * 1e-3
+        return self._gap_us(self.marks[0], self.marks[-1]) * 1e-6
 
     def parts_us(self) -> Tuple[float, float, float]:
-        """(pack, collective, unpack) microseconds summed over the groups;
-        on the card only once the marks have completed."""
+        """(pack, collective, unpack) microseconds summed over the chunks
+        and groups; on the card only once the marks have completed.  A
+        chunked group's parts overlap: their sum less the first mark to
+        the last is the overlap.  Marks with no ``parts`` read as
+        consecutive (pack, collective, unpack) triples, a group each."""
         m = self.marks
-        if self.host:
-            def gap(a, b):
-                return (b - a) * 1e6
-        else:
-            def gap(a, b):
-                return a.elapsed_time(b) * 1e3
+        parts = self.parts or [((i - 1) % 3, (i - 1,), i)
+                               for i in range(1, len(m))]
         out = [0.0, 0.0, 0.0]
-        for i in range(1, len(m)):
-            out[(i - 1) % 3] += gap(m[i - 1], m[i])
+        for part, starts, end in parts:
+            out[part] += min(self._gap_us(m[s], m[end]) for s in starts)
         return out[0], out[1], out[2]
 
 
@@ -307,10 +377,15 @@ def _fusion_key(e: TensorTableEntry) -> Tuple:
     dtype is deliberately NOT part of the key: a batch groups its tensors
     by dtype (one buffer and one collective per dtype) — this keeps grouped
     ops with mixed fp32/bf16 members atomic in a single batch (reference:
-    group table N13 semantics)."""
+    group table N13 semantics).
+
+    The partition COUNT distinguishes a part from a same-shaped ordinary
+    tensor, so that a part's fast-lane pin can never serve an unpartitioned
+    entry; parts of equal-shaped parents share one key."""
     return (e.ctype, e.reduce_op, e.root_rank, e.process_set_id,
             e.prescale_factor, e.postscale_factor, e.compression,
-            e.sharded, e.hierarchical, e.prefetch)
+            e.sharded, e.hierarchical, e.prefetch,
+            e.partition[2] if e.partition is not None else 0)
 
 
 def reduce_dtypes(ctype: CollectiveType, dtype: torch.dtype,
@@ -418,6 +493,49 @@ def _wire_view(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
+def _chunk_bounds(n: int, count: int, itemsizes: Sequence[int]) -> List[int]:
+    """The ``count + 1`` boundaries of ``count`` chunks of ``n`` elements
+    (the JAX plan's count), each inner one rounded down to 16 bytes of
+    every dtype in ``itemsizes`` (a chunk view that starts off a 16-byte
+    boundary turns off the bulk copies); a chunk is empty only where
+    ``n`` is under ``count`` × 16 bytes' worth."""
+    g = max(1, 16 // min(itemsizes))
+    return ([0] + [(i * n // count) // g * g for i in range(1, count)]
+            + [n])
+
+
+class _Stage:
+    """A reusable staging buffer (raw bytes, grown to the largest use): a
+    ping-pong slot's for one dtype group, or a fast-lane pin's."""
+
+    __slots__ = ("buf",)
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class _Pin:
+    """A fast-lane tensor's pinned plan: what its allreduce resolved (the
+    buffer's dtype — the wire dtype under compression —, the divisor, the
+    chunk count) and its staging buffer, with what they were resolved
+    from, compared on every use (JAX ``_execute_fast_lane``)."""
+    fkey: Tuple
+    shape: torch.Size
+    dtype: torch.dtype
+    chunk_knob: int
+    hier: bool
+    pack_dtype: torch.dtype
+    divisor: int
+    chunks: int
+    stage: _Stage
+
+
+# Fast-lane pins kept at most (the JAX engine bounds them by its program
+# cache's capacity, 1024 by default).
+_PIN_CAPACITY = 1024
+
+
 @dataclasses.dataclass(frozen=True)
 class _HierGroups:
     """This rank's groups of the two-level data plane: its slice's local
@@ -454,11 +572,50 @@ class CollectiveEngine:
         self._inflight: Optional[InflightRing] = None
         self._backlog: List[tuple] = []       # heap: (lane, -prio, seq, batch)
         self._backlog_seq = itertools.count()
+        # Chunked pipelining (HOROVOD_PIPELINE_CHUNK, a local knob the
+        # autotuner walks): chunks dispatched (a batch's plan total, 1 for
+        # an unchunked batch), and the last cycle's (the timeline's
+        # "pipeline" track).
+        self.pipeline_chunk_bytes = cfg.pipeline_chunk_bytes
+        self.pipeline_chunks_total = 0
+        self.last_cycle_chunks = 0
         # Data-plane observability: fused batches dispatched, and dtype
         # groups among them — each is one pack launch, one collective (at
-        # a set size above 1) and one unpack launch.
+        # a set size above 1) and one unpack launch a chunk.
         self.pipeline_dispatches = 0
         self.fused_groups = 0
+        # The latency war: fast_lane_threshold — ungrouped allreduces below
+        # it skip the fusion batching, single-tensor batches with pinned
+        # plans (_fast_pins: slot id, or name without a slot -> _Pin,
+        # invalidated via the controller's slot_drop_hook);
+        # partition_threshold — tensors above it split at enqueue into
+        # priority-inheriting parts, so that a small high-priority gradient
+        # preempts a huge transfer between parts.  The dispatch backlog
+        # (ring mode only) is what makes preemption real.
+        self.fast_lane_threshold = cfg.fast_lane_threshold_bytes
+        self.partition_threshold = cfg.partition_threshold_bytes
+        self._fast_pins: Dict[Any, _Pin] = {}
+        self.fast_lane_dispatches = 0         # fast-lane batches dispatched
+        self.fast_lane_hits = 0               # ... served by a valid pin
+        self.partition_splits = 0             # parents split at enqueue
+        # Ping-pong staging (made with the in-flight ring): the tokens of
+        # each dispatched batch (by id), and each slot's buffer by (dtype
+        # key, slot); the executing group's stage.
+        self._pingpong: Optional[PingPongBuffers] = None
+        self._staging_tokens: Dict[int, Dict[str, Any]] = {}
+        self._staging: Dict[Tuple[str, int], _Stage] = {}
+        self._stage: Optional[_Stage] = None
+        self._batch_chunks = 0          # the executing batch's chunk count
+        # The checkpoint lane: items staged by submitting threads (own
+        # lock; the cycle thread folds them into the backlog, its only
+        # mutator), run at each cycle's tail after every gradient batch.
+        # The state plane that submits them is not ported (ROADMAP queue
+        # 1 item 6): ``stateplane`` stays None.
+        self._ckpt_staging: List = []
+        self._ckpt_staging_lock = threading.Lock()
+        self.ckpt_lane_budget = max(1, int(cfg.ckpt_lane_budget))
+        self.ckpt_chunks_dispatched = 0
+        self.stateplane = None
         # The two-level data plane's knobs (read by the verdicts on every
         # dispatch), its cached slice topology per process set, and its
         # groups (``_make_hier_groups``).
@@ -542,9 +699,23 @@ class CollectiveEngine:
         self.reduce_pack_us_total = 0.0
         self.reduce_collective_us_total = 0.0
         self.reduce_unpack_us_total = 0.0
+        # The three parts' sum less the batches' spans: what the chunks'
+        # pack, collective and unpack overlapped (0 unchunked).
+        self.reduce_overlap_us_total = 0.0
         self.timed_batches = 0
         self._timing: Optional[_Timing] = None    # the executing batch's
         self._unread: List[_Timing] = []          # inline, card unread
+        # The thread running a cycle: a submission from inside a cycle
+        # (the autotuner's agreement) wakes the cycle thread instead of
+        # running a nested cycle inline.
+        self._cycle_owner: Optional[int] = None
+        # Online autotuning (reference N9 parameter manager): built at the
+        # first cycle, once the controller (multi-process) has attached,
+        # so that its coordinates see it.  Agreement handles settle where
+        # their batch is dispatched (``_perform_operation``).
+        self._autotune = cfg if cfg.autotune else None
+        self.autotuner = None
+        self._agreements: set = set()
 
     @property
     def _timeline(self):
@@ -591,14 +762,23 @@ class CollectiveEngine:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        # The cycle thread is gone: this thread is now the backlog's sole
+        # mutator, so staged checkpoint items can fold in safely.
+        if self._fault is None:
+            self._drain_ckpt_staging()
         if self._backlog and self._fault is None:
             # Undispatched ready batches (the backlog only defers dispatch
             # while the window is full): dispatch them now, before the
             # ring drains — their waiters must not outlive the engine
-            # unsignalled.  The fault path already settled them.
+            # unsignalled.  Checkpoint-lane items run too (the shutdown
+            # finishes the write instead of abandoning it).  The fault
+            # path already settled both.
             while self._backlog:
-                _, _, _, batch = heapq.heappop(self._backlog)
-                self._perform_operation(batch)
+                lane, _, _, item = heapq.heappop(self._backlog)
+                if lane == CKPT_LANE:
+                    self._run_ckpt_item(item)
+                else:
+                    self._perform_operation(item)
         if self._inflight is not None:
             # Settles every dispatched batch first: a waiter blocked in
             # synchronize() must never outlive the watcher unsignalled.
@@ -648,10 +828,25 @@ class CollectiveEngine:
                       "cleanly: %s", exc)
         self._settle_queued(pending, exc)
         # Ready-but-undispatched batches parked in the backlog are waiters
-        # too: settle them with the fault.
+        # too: settle them with the fault.  Checkpoint-lane items fail
+        # their write instead (the previous durable write stays the
+        # restore point), the staged ones too.
+        self._drain_ckpt_staging()
         while self._backlog:
-            _, _, _, batch = heapq.heappop(self._backlog)
-            self._settle_batch(batch, None, exc)
+            lane, _, _, item = heapq.heappop(self._backlog)
+            if lane == CKPT_LANE:
+                try:
+                    item.fail(exc)
+                except Exception:  # noqa: BLE001 - keep the abort going
+                    log.exception("checkpoint-lane abort settle failed")
+            else:
+                self._settle_batch(item, None, exc)
+        if self._pingpong is not None:
+            # Every staging slot settles exactly once: outstanding tokens
+            # are released (a racing watcher settle is then a no-op) and
+            # no dispatcher may block on a slot the wedged watcher will
+            # never free.
+            self._pingpong.abort()
         if self._inflight is not None:
             self._inflight.abort(exc)
         ctl = self.controller
@@ -758,11 +953,17 @@ class CollectiveEngine:
             ready.record(torch.cuda.current_stream(cuda[0]))
             for e in entries:
                 e.ready = ready
+        # ByteScheduler partitioning: tensors above the threshold split
+        # into priority-inheriting parts HERE, before the queue — the parts
+        # are what negotiate (under sub-names every rank derives alike);
+        # the parent stays handle-registered and synchronize waits on its
+        # parts, invisibly to the caller.
+        queued = self._maybe_partition(entries)
         with self._handles_lock:
             for e in entries:
                 self._handles[e.handle] = e
         try:
-            self.queue.push_many(entries)
+            self.queue.push_many(queued)
         except ValueError:
             with self._handles_lock:
                 for e in entries:
@@ -770,7 +971,7 @@ class CollectiveEngine:
             raise
         tl = self._timeline
         if tl is not None:
-            for e in entries:
+            for e in queued:
                 tl.start_activity(e.name, "QUEUE")
         fault = self._fault
         if fault is not None:
@@ -804,6 +1005,62 @@ class CollectiveEngine:
                              f"divisible by the set's size {world}, got "
                              f"{tuple(t.shape)}")
 
+    def _maybe_partition(
+            self, entries: List[TensorTableEntry]) -> List[TensorTableEntry]:
+        """Split oversized allreduce entries into parts (ByteScheduler
+        partitioning): returns the queue-facing entry list, parents
+        replaced by their parts.  Eligibility and the plan are pure
+        functions of the negotiated (shape, dtype) and the fleet-wide
+        threshold, so every rank derives the same sub-names and shapes.
+        Adasum is excluded (its dot products span the whole vector:
+        splitting changes the math); grouped members stay whole (groups
+        are atomic).  A part is a view of the parent's flattened input
+        and of its output: no split copy before, no join copy after."""
+        thr = self.partition_threshold
+        if thr <= 0:
+            return list(entries)
+        out: List[TensorTableEntry] = []
+        for e in entries:
+            if (e.ctype != CollectiveType.ALLREDUCE or e.group_id >= 0
+                    or e.tensor is None
+                    or e.reduce_op == C.ReduceOp.ADASUM
+                    or self._global_nbytes(e) <= thr):
+                out.append(e)
+                continue
+            # The threshold counts global bytes (the fusion threshold's
+            # convention, and the gate's above); the plan runs over this
+            # rank's flat tensor, so scale it down by the set's size —
+            # the gate and the plan never disagree about a split.
+            world = self._state.process_set_table.get(
+                e.process_set_id).size()
+            plan = partition_plan(e.tensor.numel(), e.tensor.element_size(),
+                                  max(1, thr // max(1, world)))
+            if len(plan) <= 1:
+                out.append(e)
+                continue
+            src, dst = e.tensor.view(-1), e.output.view(-1)
+            k = len(plan)
+            subs = []
+            for i, (off, ln) in enumerate(plan):
+                sub = TensorTableEntry(
+                    handle=next(self._handle_counter),
+                    name=partition_name(e.name, i, k), ctype=e.ctype,
+                    tensor=src[off:off + ln], reduce_op=e.reduce_op,
+                    root_rank=e.root_rank, process_set_id=e.process_set_id,
+                    prescale_factor=e.prescale_factor,
+                    postscale_factor=e.postscale_factor,
+                    compression=e.compression,
+                    hierarchical=e.hierarchical,
+                    priority=e.priority,          # priority inheritance
+                    output=dst[off:off + ln], ready=e.ready)
+                sub.partition = (e.name, i, k)
+                sub.parent = e
+                subs.append(sub)
+            e.parts = subs
+            out.extend(subs)
+            self.partition_splits += 1
+        return out
+
     def _make_output(self, e: TensorTableEntry):
         """The result's tensor on the tensor's device: an allgather's is
         world× longer in dim 0, a reducescatter's a world-th (the rows
@@ -834,16 +1091,45 @@ class CollectiveEngine:
             e = self._handles.get(handle)
         if e is None:
             raise ValueError(f"Unknown handle {handle}")
-        if not e.done.wait(timeout):
-            raise TimeoutError(f"Collective {e.name!r} did not complete "
-                               f"within {timeout}s")
-        with self._handles_lock:
-            self._handles.pop(handle, None)
-        if e.error is not None:
-            raise e.error
-        if e.done_event is not None:
-            torch.cuda.current_stream(e.result.device).wait_event(
-                e.done_event)
+        parts = e.parts
+        if parts is not None:
+            # A partitioned entry waits on every part; its output is
+            # whole once they are (the parts wrote views of it).
+            deadline = (None if timeout is None
+                        else time.monotonic() + timeout)
+            for s in parts:
+                left = (None if deadline is None
+                        else max(0.0, deadline - time.monotonic()))
+                if not s.done.wait(left):
+                    raise TimeoutError(
+                        f"Collective {e.name!r} did not complete within "
+                        f"{timeout}s ({sum(1 for p in parts if p.done.is_set())}"
+                        f"/{len(parts)} parts settled)")
+            with self._handles_lock:
+                self._handles.pop(handle, None)
+            # The parts point at the parent and it at them: drop its end,
+            # so that the parent, its input and its output go with the
+            # caller's last reference, not at the next cycle collection.
+            e.parts = None
+            err = next((s.error for s in parts if s.error is not None), None)
+            if err is not None:
+                raise err
+            events = {id(s.done_event): s.done_event for s in parts
+                      if s.done_event is not None}
+            for ev in events.values():
+                torch.cuda.current_stream(e.output.device).wait_event(ev)
+            e.result = e.output
+        else:
+            if not e.done.wait(timeout):
+                raise TimeoutError(f"Collective {e.name!r} did not complete "
+                                   f"within {timeout}s")
+            with self._handles_lock:
+                self._handles.pop(handle, None)
+            if e.error is not None:
+                raise e.error
+            if e.done_event is not None:
+                torch.cuda.current_stream(e.result.device).wait_event(
+                    e.done_event)
         t = e.target
         if t is None:
             if e.home is not None and e.result is not None:
@@ -859,7 +1145,63 @@ class CollectiveEngine:
             e = self._handles.get(handle)
         if e is None:
             return True
+        if e.parts is not None:
+            return all(s.done.is_set() for s in e.parts)
         return e.done.is_set()
+
+    # ------------------------------------------------------- checkpoint lane
+    def submit_checkpoint_io(self, items: Sequence) -> None:
+        """Queue checkpoint-lane work items (``CheckpointChunk``): local
+        writes scheduled at ``CKPT_LANE`` — strictly after every gradient
+        batch, popped by their own per-cycle budget
+        (``HOROVOD_CKPT_LANE_BUDGET``).  Items are plain local-I/O
+        callables, never negotiated: zero control-plane bytes, no
+        cross-rank ordering requirement.  After a fault the lane is
+        closed: items fail at once so the write job abandons its epoch
+        instead of queueing into a dead engine."""
+        # Stage, never touch the heap: this runs on the caller's thread,
+        # and a heappush racing the cycle thread's heappop would corrupt
+        # the backlog order every rank must share.  The cycle thread folds
+        # the staging in at its next turn.  The fault/shutdown check lives
+        # INSIDE the staging lock: _abort_engine latches the fault BEFORE
+        # draining the staging under this same lock, so an item either
+        # lands before that drain (and is failed there) or observes the
+        # latched fault here — never neither.
+        with self._ckpt_staging_lock:
+            fault = self._fault
+            stopped = fault is not None or self._shutdown.is_set()
+            if not stopped:
+                self._ckpt_staging.extend(items)
+        if stopped:
+            for it in items:
+                try:
+                    it.fail(fault or RuntimeError("engine stopped"))
+                except Exception:  # noqa: BLE001 - settle the rest
+                    log.exception("checkpoint item fail hook failed")
+            return
+        self._wake.set()
+
+    def _drain_ckpt_staging(self) -> None:
+        """Fold staged checkpoint items into the backlog heap — CYCLE
+        THREAD ONLY (the heap has exactly one mutator)."""
+        with self._ckpt_staging_lock:
+            items, self._ckpt_staging = self._ckpt_staging, []
+        for it in items:
+            heapq.heappush(
+                self._backlog,
+                (CKPT_LANE, -int(getattr(it, "priority", 0)),
+                 next(self._backlog_seq), it))
+
+    def _run_ckpt_item(self, item) -> None:
+        """Run one checkpoint-lane item on the cycle thread.  The item
+        owns its own retries and failure attribution; the engine only
+        guarantees that a raising item cannot kill the cycle loop."""
+        try:
+            item.run()
+            self.ckpt_chunks_dispatched += 1
+        except BaseException:  # noqa: BLE001 - the cycle must survive
+            log.exception("checkpoint-lane item %r failed",
+                          getattr(item, "name", item))
 
     # ------------------------------------------------------------- main loop
     def _background_loop(self):
@@ -889,7 +1231,8 @@ class CollectiveEngine:
 
         ``HOROVOD_INLINE_KICK=0`` disables the inline path (falling back to
         waking the cycle thread)."""
-        if self.controller is None and self.inline_kick:
+        if (self.controller is None and self.inline_kick
+                and self._cycle_owner != threading.get_ident()):
             self.run_loop_once()
         else:
             self._wake.set()
@@ -905,7 +1248,11 @@ class CollectiveEngine:
         in ``synchronize()`` would hang forever.
         """
         with self._cycle_lock, torch.no_grad():
-            self._run_cycle_locked()
+            self._cycle_owner = threading.get_ident()
+            try:
+                self._run_cycle_locked()
+            finally:
+                self._cycle_owner = None
 
     def _run_cycle_locked(self):
         t_cycle0 = time.perf_counter()
@@ -915,8 +1262,13 @@ class CollectiveEngine:
             tl.mark_cycle(self._cycle_index)
         if self._unread:
             self._read_timings()
+        if self._autotune is not None:
+            self._build_autotuner()
+        self._drain_ckpt_staging()
         entries = self.queue.drain()
         if not entries and self.controller is None and not self._backlog:
+            # (The backlog check keeps the checkpoint lane draining on
+            # otherwise idle cycles at size 1.)
             return
         tr = self.tracer
         t_trace0 = t_drain = 0.0
@@ -992,10 +1344,16 @@ class CollectiveEngine:
                         sp.cycle = cyc_id
                         if ctl is not None and sp.slot < 0:
                             sp.slot = ctl.slot_of(e)
+        cycle_chunks = 0
         ring = self._inflight_ring()
         if ring is None:
+            # Batches a window left in the backlog (the autotuner may close
+            # it) go first, in the backlog's order, as on every rank.
+            for batch in pop_gradient_batches(self._backlog,
+                                              len(self._backlog)):
+                cycle_chunks += self._perform_operation(batch)
             for batch in responses:
-                self._perform_operation(batch)
+                cycle_chunks += self._perform_operation(batch)
         else:
             # Dispatch backlog: ready batches queue by (priority, arrival)
             # and each cycle dispatches up to `max_inflight` of them —
@@ -1007,9 +1365,13 @@ class CollectiveEngine:
             # cross-process collectives require.  FSDP's parameter gathers
             # take the prefetch lane: before the fused lane and outside its
             # budget, so they launch ahead of the gradient stream without
-            # reordering it.
+            # reordering it.  Fast-lane batches lead every cycle, also
+            # outside the budget.  Checkpoint-lane items sort after every
+            # gradient lane and never touch the budget.
             for batch in responses:
-                if batch[0].prefetch:
+                if batch[0].fast_lane:
+                    lane = FAST_LANE
+                elif batch[0].prefetch:
                     lane = PREFETCH_LANE
                     self.prefetch_dispatches += 1
                     for e in batch:
@@ -1023,29 +1385,53 @@ class CollectiveEngine:
                                (lane, -prio, next(self._backlog_seq), batch))
             for batch in pop_gradient_batches(
                     self._backlog, max(1, int(self.max_inflight))):
-                self._perform_operation(batch)
+                cycle_chunks += self._perform_operation(batch)
+        # Checkpoint-lane tail (both dispatch modes): once no gradient
+        # batch remains poppable this cycle, a bounded number of writes
+        # ride the cycle's tail.
+        for item in pop_checkpoint_items(self._backlog,
+                                         self.ckpt_lane_budget):
+            self._run_ckpt_item(item)
         if self._backlog:
             # Leftovers must not wait out a long cycle timer: run the next
             # cycle (and its negotiation round) immediately.
             self._wake.set()
-        if responses and tl is not None and tl.enabled:
-            # A port batch is one chunk: the port has no chunked pipelining.
-            tl.counter("pipeline", {
-                "chunks": len(responses),
-                "inflight": len(self._inflight)
-                if self._inflight is not None else 0})
+        if responses:
+            self.last_cycle_chunks = cycle_chunks
+            if tl is not None and tl.enabled:
+                tl.counter("pipeline", {
+                    "chunks": cycle_chunks,
+                    "inflight": len(self._inflight)
+                    if self._inflight is not None else 0})
         if tr is not None and responses:
             ctl = self.controller
             tr.cycle(ctl.rounds if ctl is not None else self._cycle_index,
                      t_trace0, t_drain, t_ready, time.monotonic(),
                      sum(len(b) for b in responses),
                      self.last_negotiation_us if ctl is not None else 0.0)
+        if self.autotuner is not None and self.autotuner.tuning:
+            nbytes = sum(e.tensor.numel() * e.tensor.element_size()
+                         for b in responses for e in b
+                         if e.tensor is not None)
+            self.autotuner.on_cycle(nbytes)
         dt_us = (time.perf_counter() - t_cycle0) * 1e6
         self.cycle_us_total += dt_us
         self.cycle_count += 1
         self.last_cycle_ts = time.time()
         if self.monitor is not None:
             self.monitor.on_cycle(dt_us)
+
+    def _build_autotuner(self) -> None:
+        """The parameter manager (``ops/autotune.py``), once: at the first
+        cycle, so that a multi-process engine's controller has attached
+        and the search takes its coordinates (cache capacity, chunk,
+        in-flight depth, fast lane, round pipeline, speculation)."""
+        from .autotune import ParameterManager
+        cfg, self._autotune = self._autotune, None
+        self.autotuner = ParameterManager(
+            self, warmup_samples=cfg.autotune_warmup_samples,
+            steps_per_sample=cfg.autotune_steps_per_sample,
+            log_path=cfg.autotune_log, max_evals=cfg.autotune_max_evals)
 
     # --------------------------------------------------------- negotiation
     def _global_nbytes(self, e: TensorTableEntry) -> int:
@@ -1072,6 +1458,7 @@ class CollectiveEngine:
             # While this rank is joined, the controller builds its part of
             # every collective a peer submits through this hook.
             self.controller.synthesizer = self._synthesize_join_entry
+            self.controller.slot_drop_hook = self._on_slot_drop
             # Zero-RTT dispatch-safety gate (protocol v7): a speculative
             # verdict is dispatched before peers have its real verdict,
             # so this thread must stay free to keep serving them rounds —
@@ -1186,7 +1573,28 @@ class CollectiveEngine:
         # never of local handle/group counters, which differ across ranks
         # (every rank must build identical batches).  Grouped members are
         # pulled together at the first member's position.
-        batches: List[List[TensorTableEntry]] = []
+        #
+        # Latency fast lane: sub-threshold ungrouped allreduces skip the
+        # fusion batching — each becomes its own single-tensor batch,
+        # dispatched FIRST (the threshold is the same on every rank and
+        # the bytes derive from the negotiated shape and dtype, so the
+        # fork is the same fleet-wide).  Parts likewise stay single-entry
+        # batches: the part, not a re-fused whole, is the preemption unit.
+        fast: List[TensorTableEntry] = []
+        thr = self.fast_lane_threshold
+        if thr > 0:
+            rest: List[TensorTableEntry] = []
+            for e in entries:
+                if (e.group_id < 0 and e.partition is None
+                        and e.ctype == CollectiveType.ALLREDUCE
+                        and e.tensor is not None
+                        and self._global_nbytes(e) < thr):
+                    e.fast_lane = True
+                    fast.append(e)
+                else:
+                    rest.append(e)
+            entries = rest
+        batches: List[List[TensorTableEntry]] = [[e] for e in fast]
         clusters: List[List[TensorTableEntry]] = []
         seen_groups: set = set()
         for e in entries:
@@ -1201,6 +1609,9 @@ class CollectiveEngine:
 
         by_key: Dict[Tuple, List[List[TensorTableEntry]]] = {}
         for members in clusters:
+            if members[0].partition is not None:
+                batches.append(members)       # one batch per part, never
+                continue                      # re-fused past the split
             by_key.setdefault(_fusion_key(members[0]), []).append(members)
         for key, key_clusters in by_key.items():
             cur: List[TensorTableEntry] = []
@@ -1217,48 +1628,73 @@ class CollectiveEngine:
         return batches, not_ready
 
     # ----------------------------------------------------------- execution
-    def _perform_operation(self, batch: List[TensorTableEntry]):
-        """Dispatch one fused batch.
+    def _perform_operation(self, batch: List[TensorTableEntry]) -> int:
+        """Dispatch one fused batch; returns its chunk count.
 
         With the in-flight window active (multi-process, MAX_INFLIGHT > 1)
         the entries are NOT settled here: the batch enters the bounded
         ring and the completion watcher settles ``e.done`` off this thread
         once the batch's done event has fired, so the cycle thread proceeds
         straight to negotiating the next round while the device executes
-        this one."""
+        this one.  An autotuner agreement settles here, once its done
+        event has fired: every rank then applies the move at the end of
+        this same cycle."""
         tl = self._timeline
         if tl is not None:
             for e in batch:
                 tl.end_activity(e.name, f"NEGOTIATE_{e.ctype.name}")
                 tl.start_activity(e.name, collective_lane(e.ctype))
+        pp = self._pingpong
+        if pp is not None and not batch[0].fast_lane:
+            # Double-buffered fusion staging: claim one of the two slots
+            # of each dtype group before launching, released at settle
+            # (after the done event) — cycle N+1's pack may overlap cycle
+            # N's reduce, N+2's may not.  Fast-lane batches stage into
+            # their pins instead.
+            keys = sorted({str(e.tensor.dtype) for e in batch
+                           if e.tensor is not None})
+            if keys:
+                self._staging_tokens[id(batch)] = {k: pp.acquire(k)
+                                                   for k in keys}
         try:
             results = self._execute_batch(batch)
         except BaseException as exc:  # noqa: BLE001 - propagate to waiters
             self._settle_batch(batch, None, exc)
-            return
-        timing = results[2]
+            return 0
+        timing, chunks = results[2], results[3]
         if timing is not None:
             # copy_in closes: on the card once the batch's work has been
             # handed to its stream, reduce running from there for the
             # card's time; on the CPU, where the work ran in the call,
-            # at its first pack.
+            # at its first pack.  A fast-lane entry served by its pin was
+            # stamped before the work: never restamp.
             timing.t_launch = (timing.marks[0] if timing.host
                                else time.monotonic())
             tr = self.tracer
             if tr is not None:
                 for e in batch:
                     sp = _live_span(e)
-                    if sp is not None:
+                    if sp is not None and not sp.t_launch:
                         sp.t_launch = timing.t_launch
+        self.pipeline_chunks_total += chunks
         self.pipeline_dispatches += 1
+        if batch[0].fast_lane:
+            self.fast_lane_dispatches += 1
+        agreement = bool(self._agreements) and any(
+            e.handle in self._agreements for e in batch)
         ring = self._inflight_ring()
-        if ring is None:
+        if agreement:
+            self._agreements.difference_update(e.handle for e in batch)
+            self._wait_done(results)
+            self._settle_batch(batch, results)
+        elif ring is None:
             self._settle_batch(batch, results)
         else:
             if tl is not None:
                 for e in batch:
                     tl.start_activity(e.name, "INFLIGHT")
             ring.submit(batch, results)
+        return chunks
 
     def _settle_batch(self, batch: List[TensorTableEntry], results,
                       error: Optional[BaseException] = None,
@@ -1274,6 +1710,14 @@ class CollectiveEngine:
         settle); an inline settle on the card releases the waiters before
         the card is done, so its spans wait in ``_unread`` for a later
         cycle."""
+        tokens = self._staging_tokens.pop(id(batch), None)
+        if tokens is not None and self._pingpong is not None:
+            # Hand the staging slots back FIRST: the cycle thread may be
+            # blocked in acquire() waiting on exactly this settle.
+            # Idempotent per token — an abort that already released them
+            # makes this a no-op.
+            for tok in tokens.values():
+                self._pingpong.release(tok)
         tl = self._timeline
         tr = self.tracer
         t_seen = time.monotonic() if tr is not None else 0.0
@@ -1330,6 +1774,8 @@ class CollectiveEngine:
         self.reduce_pack_us_total += pack
         self.reduce_collective_us_total += coll
         self.reduce_unpack_us_total += unpack
+        self.reduce_overlap_us_total += max(
+            0.0, pack + coll + unpack - timing.reduce_s() * 1e6)
         self.timed_batches += 1
         tl = self._timeline
         if tl is not None and tl.enabled:
@@ -1388,6 +1834,9 @@ class CollectiveEngine:
                 lambda b, r, err: self._settle_batch(b, r, err,
                                                      inflight=True),
                 depth=self.max_inflight, probe=self._batch_done)
+            # Double-buffered fusion staging rides the same lifecycle: the
+            # ring's watcher is what hands the ping-pong slots back.
+            self._pingpong = PingPongBuffers(slots=2)
         else:
             self._inflight.depth = max(1, int(self.max_inflight))
         return self._inflight
@@ -1643,14 +2092,15 @@ class CollectiveEngine:
         return s
 
     def _execute_batch(self, batch: List[TensorTableEntry]):
-        """Pack, collective and unpack per dtype group of one batch;
-        returns ``(outputs, done_event, timing)`` — the done event (None on
-        the CPU) fires once every output is written; the timing (None
-        disarmed) holds the reduce phase's marks."""
+        """Pack, collective and unpack per dtype group (and chunk) of one
+        batch; returns ``(outputs, done_event, timing, chunks)`` — the done
+        event (None on the CPU) fires once every output is written; the
+        timing (None disarmed) holds the reduce phase's marks; chunks is
+        the batch's chunk plan total (1 unchunked)."""
         e0 = batch[0]
         if e0.ctype == CollectiveType.BARRIER:
             # The negotiated verdict is the barrier: every rank announced.
-            return [None for _ in batch], None, None
+            return [None for _ in batch], None, None, 0
         ps = self._state.process_set_table.get(e0.process_set_id)
         dev = e0.tensor.device
         timing = _Timing(dev.type != "cuda") if self._armed() else None
@@ -1658,16 +2108,19 @@ class CollectiveEngine:
             self._timing = timing
             try:
                 self._mark()
-                return self._run_groups(batch, ps), None, timing
+                outs = self._run_groups(batch, ps)
+                return outs, None, timing, self._batch_chunks
             finally:
                 self._timing = None
+                self._stage = None
         stream = self._stream(dev)
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             for ready in {id(e.ready): e.ready for e in batch}.values():
                 if ready is not None:
                     stream.wait_event(ready)
             # The caching allocator must not hand these tensors' memory to
-            # their own streams' later work until this stream is done.
+            # their own streams' later work until this stream is done (a
+            # part's or a chunk's view records its whole storage).
             for e in batch:
                 e.tensor.record_stream(stream)
                 e.output.record_stream(stream)
@@ -1677,34 +2130,160 @@ class CollectiveEngine:
                 outs = self._run_groups(batch, ps)
             finally:
                 self._timing = None
+                self._stage = None
             done = torch.cuda.Event()
             done.record(stream)
-        return outs, done, timing
+        return outs, done, timing, self._batch_chunks
 
-    def _mark(self) -> None:
+    def _mark(self) -> int:
         """A reduce-phase mark of the executing batch, when armed: a
         timing CUDA event on the current (engine) stream on the card, the
-        host clock on the CPU."""
-        if self._timing is not None:
-            self._timing.mark()
+        host clock on the CPU.  Returns its index (-1 disarmed)."""
+        t = self._timing
+        return t.mark() if t is not None else -1
 
-    def _pack(self, tensors, dtype, prescale=None) -> torch.Tensor:
-        """``fusion.pack``, then the pack's end mark."""
-        buf = fusion.pack(tensors, dtype, prescale)
-        self._mark()
+    def _staged(self, numel: int, dtype: torch.dtype,
+                dev: torch.device) -> Optional[torch.Tensor]:
+        """The executing group's staging buffer as ``numel`` elements of
+        ``dtype`` — a ping-pong slot's or a fast-lane pin's, grown when
+        too small — or None (a new buffer per batch) without one."""
+        st = self._stage
+        if st is None:
+            return None
+        nbytes = numel * dtype.itemsize
+        if st.buf is None or st.buf.numel() < nbytes \
+                or st.buf.device != dev:
+            st.buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        return st.buf[:nbytes].view(dtype)
+
+    def _pack(self, tensors, dtype, prescale=None,
+              out=None) -> torch.Tensor:
+        """``fusion.pack`` into ``out`` (the group's staging buffer when
+        None), then the pack's end mark."""
+        t = self._timing
+        start = len(t.marks) - 1 if t is not None else -1
+        if out is None:
+            out = self._staged(sum(x.numel() for x in tensors), dtype,
+                               tensors[0].device)
+        buf = fusion.pack(tensors, dtype, prescale, out=out)
+        if t is not None:
+            t.parts.append((0, (start,), t.mark()))
         return buf
 
-    def _unpack(self, buf, outs, *args, **kwargs) -> None:
-        """The collective's end mark, ``fusion.unpack``, then the
-        unpack's end mark."""
-        self._mark()
+    def _unpack(self, buf, outs, *args, coll_from: Sequence[int] = (),
+                **kwargs) -> None:
+        """The collective's end mark (its part from the latest of
+        ``coll_from``, the previous mark by default), ``fusion.unpack``,
+        then the unpack's end mark."""
+        t = self._timing
+        if t is not None:
+            end = t.mark()
+            t.parts.append((1, tuple(coll_from) or (end - 1,), end))
         fusion.unpack(buf, outs, *args, **kwargs)
-        self._mark()
+        if t is not None:
+            t.parts.append((2, (end,), t.mark()))
 
-    def _run_groups(self, batch: List[TensorTableEntry], ps) -> List:
+    def _chunk_plan(self, ctype: CollectiveType, shapes, dtypes) -> Tuple:
+        """Per-dtype-group chunk counts for a fused reduction.
+
+        A pure function of (chunk knob, per-rank shapes, dtypes): every rank
+        computes the same plan from the same negotiated batch.  Empty plan
+        = chunking off or a non-reduction op (gathers and permutes have no
+        cast/reduce/cast stages to overlap).
+
+        Knob 0 is a true OFF, not "fusion-threshold-sized chunks": an
+        atomic cluster (one grouped_allreduce of the whole model, or a
+        single oversized tensor) is never split by the batch planner, so
+        it can exceed the threshold — deriving chunks from it would
+        silently chunk default-config workloads."""
+        if ctype != CollectiveType.ALLREDUCE or self.pipeline_chunk_bytes <= 0:
+            return ()
+        chunk = max(1, int(self.pipeline_chunk_bytes))
+        groups: Dict[torch.dtype, Tuple[int, int]] = {}  # -> (elems, bytes)
+        for s, dt in zip(shapes, dtypes):
+            n = math.prod(s)
+            b = n * dt.itemsize
+            e_, b_ = groups.get(dt, (0, 0))
+            groups[dt] = (e_ + n, b_ + b)
+        return tuple(min(max(1, -(-b // chunk)), max(1, e))
+                     for e, b in groups.values())
+
+    def _on_slot_drop(self, slot: int):
+        """Controller invalidation hook: a response-cache slot this client
+        dropped (eviction / forget / trim / id reuse) takes its fast-lane
+        pin with it."""
+        self._fast_pins.pop(slot, None)
+
+    @staticmethod
+    def _fast_pin_key(e: TensorTableEntry):
+        """Fast-lane pin key: the server-assigned response-cache slot
+        (digest-scoped, coordinated invalidation) when known, the tensor
+        name in a world of one (no slots exist; the validity compare in
+        ``_fast_pin`` keeps name reuse sound)."""
+        return e.cache_slot if e.cache_slot >= 0 else e.name
+
+    def _fast_pin(self, e: TensorTableEntry, hier: bool) -> _Pin:
+        """The fast-lane entry's pin: its pinned plan when still valid —
+        one dict probe and a few scalar compares, no planning — else a new
+        plan pinned in its place.  A pin made under the tensor's name
+        before its slot was learned moves to the slot (the JAX engine
+        drops it and builds anew: here nothing was compiled, and the
+        validity compare below still holds it to the same inputs).
+        ``hier`` is the batch's two-level verdict: a pin resolved under
+        the other verdict is dropped, as is one under another shape,
+        dtype, fusion key or chunk knob."""
+        key = self._fast_pin_key(e)
+        pins = self._fast_pins
+        pin = pins.get(key)
+        if pin is None and key != e.name:
+            # The cold start pinned under the NAME (the slot was still
+            # unlearned at that dispatch): the slot now keys it.
+            pin = pins.pop(e.name, None)
+            if pin is not None:
+                pins[key] = pin
+        if pin is not None and (
+                pin.shape != e.tensor.shape or pin.dtype != e.tensor.dtype
+                or pin.chunk_knob != self.pipeline_chunk_bytes
+                or pin.hier != hier or pin.fkey != _fusion_key(e)):
+            # Stale pin (name reuse under new params, knob retune, ...).
+            del pins[key]
+            pin = None
+        if pin is not None:
+            self.fast_lane_hits += 1
+            tr = self.tracer
+            sp = _live_span(e) if tr is not None else None
+            if sp is not None and not sp.t_launch:
+                # copy_in closes HERE, before the work: the pin fetches no
+                # plan — what follows belongs to the reduce phase.
+                sp.t_launch = time.monotonic()
+            return pin
+        world = self._state.process_set_table.get(e.process_set_id).size()
+        pack_dt, divisor = self._allreduce_plan(e, world)
+        plan = self._chunk_plan(e.ctype, [e.tensor.shape], [e.tensor.dtype])
+        pin = _Pin(_fusion_key(e), e.tensor.shape, e.tensor.dtype,
+                   self.pipeline_chunk_bytes, hier, pack_dt, divisor,
+                   plan[0] if plan else 1, _Stage())
+        pins[key] = pin
+        while len(pins) > _PIN_CAPACITY:
+            pins.pop(next(iter(pins)))
+        return pin
+
+    def _run_groups(self, batch: List[TensorTableEntry], ps):
         """One buffer per dtype (first-occurrence order), each packed, run
-        through one collective and unpacked — the port of the JAX engine's
-        builders, one dtype group at a time."""
+        through its collective and unpacked, chunk by chunk under a chunk
+        plan — the port of the JAX engine's builders, one dtype group at a
+        time.  A fast-lane batch runs its one tensor on its pin.  Returns
+        the outputs; the batch's chunk count is left in
+        ``_batch_chunks``."""
+        e0 = batch[0]
+        hier = ps.size() > 1 and self._hier_verdict(batch)
+        if e0.fast_lane and len(batch) == 1:
+            pin = self._fast_pin(e0, hier)
+            self._stage = pin.stage
+            self._run_allreduce(batch, ps, hier, pin.chunks, pin)
+            self.fused_groups += 1
+            self._batch_chunks = pin.chunks
+            return [e0.output]
         groups: Dict[torch.dtype, List[TensorTableEntry]] = {}
         for e in batch:
             groups.setdefault(e.tensor.dtype, []).append(e)
@@ -1712,57 +2291,154 @@ class CollectiveEngine:
                CollectiveType.BROADCAST: self._run_broadcast,
                CollectiveType.ALLGATHER: self._run_allgather,
                CollectiveType.REDUCESCATTER: self._run_reducescatter,
-               CollectiveType.ALLTOALL: self._run_alltoall}[batch[0].ctype]
-        hier = ps.size() > 1 and self._hier_verdict(batch)
-        for members in groups.values():
-            run(members, ps, hier)
+               CollectiveType.ALLTOALL: self._run_alltoall}[e0.ctype]
+        plan = self._chunk_plan(e0.ctype, [e.tensor.shape for e in batch],
+                                [e.tensor.dtype for e in batch])
+        tokens = self._staging_tokens.get(id(batch))
+        for (dt, members), nch in zip(groups.items(),
+                                      plan or [1] * len(groups)):
+            tok = tokens.get(str(dt)) if tokens else None
+            self._stage = (None if tok is None or tok._released else
+                           self._staging.setdefault((tok.key, tok.slot),
+                                                    _Stage()))
+            if e0.ctype == CollectiveType.ALLREDUCE:
+                run(members, ps, hier, nch)
+            else:
+                run(members, ps, hier)
             self.fused_groups += 1
+        self._batch_chunks = sum(plan) if plan else 1
         return [e.output for e in batch]
 
+    def _allreduce_plan(self, e0: TensorTableEntry,
+                        world: int) -> Tuple[torch.dtype, int]:
+        """An allreduce group's resolved plan: its buffer's dtype (the wire
+        dtype of a compressed float group, ``reduce_dtypes``'s widening;
+        float pairs for complex) and the unpack's divisor."""
+        dt, op = e0.tensor.dtype, e0.reduce_op
+        if op == C.ReduceOp.ADASUM:
+            return fusion.buffer_dtype(dt, WIRE_DTYPES.get(e0.compression)), 1
+        if dt.is_complex:
+            buf_dt = _pairs(torch.empty(1, dtype=dt)).dtype
+        else:
+            buf_dt = fusion.buffer_dtype(
+                reduce_dtypes(CollectiveType.ALLREDUCE, dt, op)[0],
+                WIRE_DTYPES.get(e0.compression))
+        return buf_dt, (world if op == C.ReduceOp.AVERAGE else 1)
+
     def _run_allreduce(self, members: List[TensorTableEntry], ps,
-                       hier: bool = False) -> None:
+                       hier: bool = False, chunks: int = 1,
+                       pin: Optional[_Pin] = None) -> None:
         """``_build_fused_reduce``/``_build_allreduce``: prescale in the
         source dtype, then the cast to the buffer's dtype (the wire dtype,
         or ``reduce_dtypes``'s widening); Average divides (floor division
         for integers, after narrowing); the cast back, then the
         postscale.  Two-level (``hier``): the same buffer through
-        ``parallel/hierarchical.py``'s legs."""
+        ``parallel/hierarchical.py``'s legs.  ``chunks`` > 1 pipelines the
+        group chunk by chunk (``_run_chunks``); ``pin`` is a fast-lane
+        entry's resolved plan."""
         e0, world = members[0], ps.size()
         dt, op = e0.tensor.dtype, e0.reduce_op
         if op == C.ReduceOp.ADASUM:
             return self._run_adasum(members, ps, hier)
         ins = [e.tensor for e in members]
         outs = [e.output for e in members]
-        buf_dt = reduce_dtypes(CollectiveType.ALLREDUCE, dt, op)[0]
-        wire = WIRE_DTYPES.get(e0.compression)
+        buf_dt, divisor = ((pin.pack_dtype, pin.divisor) if pin is not None
+                           else self._allreduce_plan(e0, world))
         if dt.is_complex:
             ins, outs = [_pairs(t) for t in ins], [_pairs(o) for o in outs]
-            buf_dt, wire = ins[0].dtype, None
-        buf = self._pack(ins, fusion.buffer_dtype(buf_dt, wire),
-                          e0.prescale_factor)
+        u32 = outs[0].dtype == torch.uint32      # int32 products, same bits
+        gathered = dt.is_complex and op == C.ReduceOp.PRODUCT
+        if chunks > 1:
+            return self._run_chunks(ins, outs, buf_dt, e0, ps, hier, chunks,
+                                    divisor, u32, gathered)
+        buf = self._pack(ins, buf_dt, e0.prescale_factor)
         if world > 1:
-            if dt.is_complex and op == C.ReduceOp.PRODUCT:
-                buf = self._complex_gathered(buf, op, ps)
-            elif hier:
-                from ..parallel import hierarchical as H
-                legs = self._legs()
-                buf = (H.hierarchical_allreduce_minmax(
-                    buf, op.name.lower(), legs)
+            buf = self._reduce_flat(buf, e0, ps, hier, gathered)
+        if u32:
+            buf = buf.view(torch.uint32)
+        self._unpack(buf, outs, divisor, e0.postscale_factor)
+
+    def _reduce_flat(self, buf: torch.Tensor, e0: TensorTableEntry, ps,
+                     hier: bool, gathered: bool) -> torch.Tensor:
+        """One group's (or chunk's) reduction at a set size above 1, in
+        place where it can be: the complex Product gathered, the two-level
+        legs, or the one allreduce."""
+        op = e0.reduce_op
+        if gathered:
+            return self._complex_gathered(buf, op, ps)
+        if hier:
+            from ..parallel import hierarchical as H
+            legs = self._legs()
+            return (H.hierarchical_allreduce_minmax(buf, op.name.lower(), legs)
                     if op in (C.ReduceOp.MIN, C.ReduceOp.MAX)
                     else H.hierarchical_allreduce(buf, legs))
-            else:
-                self._all_reduce(buf, op, ps)
-        if outs[0].dtype == torch.uint32:
-            buf = buf.view(torch.uint32)      # int32 products, same bits
-        divisor = world if op == C.ReduceOp.AVERAGE else 1
-        self._unpack(buf, outs, divisor, e0.postscale_factor)
+        self._all_reduce(buf, op, ps)
+        return buf
+
+    def _run_chunks(self, ins, outs, buf_dt, e0: TensorTableEntry, ps,
+                    hier: bool, chunks: int, divisor: int, u32: bool,
+                    gathered: bool) -> None:
+        """A dtype group in ``chunks`` chunks: chunk i's views of the
+        group (``fusion.span``) packed into its slice of the group's
+        buffer on the engine stream, then its collective — flat, an
+        asynchronous allreduce — and chunk i-1's unpack once its work is
+        waited on (the engine stream waits; the host does not), so that
+        pack i+1 and unpack i-1 overlap collective i.  Two-level legs and
+        the complex Product's gather run a chunk at a time.  The same
+        elements reduce alike, so the result is the unchunked one."""
+        world = ps.size()
+        n = sum(t.numel() for t in ins)
+        bounds = _chunk_bounds(n, chunks, (ins[0].dtype.itemsize,
+                                           buf_dt.itemsize))
+        full = self._staged(n, buf_dt, ins[0].device)
+        if full is None:
+            full = torch.empty(n, dtype=buf_dt, device=ins[0].device)
+        flat = world > 1 and not hier and not gathered
+        t = self._timing
+        prev_coll: Tuple[int, ...] = ()
+        pending = None
+        for a, b in zip(bounds, bounds[1:]):
+            if a == b:
+                continue
+            buf = self._pack(fusion.span(ins, a, b), buf_dt,
+                             e0.prescale_factor, out=full[a:b])
+            packed = len(t.marks) - 1 if t is not None else -1
+            work = None
+            if flat:
+                work = self._all_reduce(buf, e0.reduce_op, ps, async_op=True)
+            elif world > 1:
+                buf = self._reduce_flat(buf, e0, ps, hier, gathered)
+            if pending is not None:
+                prev_coll = self._finish_chunk(*pending, prev_coll, outs,
+                                               divisor, u32, e0)
+            pending = (buf, work, a, b, packed)
+        if pending is not None:
+            self._finish_chunk(*pending, prev_coll, outs, divisor, u32, e0)
+
+    def _finish_chunk(self, buf, work, a: int, b: int, packed: int,
+                      prev_coll: Tuple[int, ...], outs, divisor: int,
+                      u32: bool, e0: TensorTableEntry) -> Tuple[int, ...]:
+        """Wait on a chunk's collective (the engine stream waits on NCCL's)
+        and unpack it into its views of the outputs; returns the mark of
+        its collective's end, where the next chunk's collective can start
+        at the earliest (NCCL runs them in order)."""
+        if work is not None:
+            work.wait()
+        if u32:
+            buf = buf.view(torch.uint32)
+        t = self._timing
+        coll_from = (packed,) + prev_coll if t is not None else ()
+        self._unpack(buf, fusion.span(outs, a, b), divisor,
+                     e0.postscale_factor, coll_from=coll_from)
+        return (t.parts[-1][1][0],) if t is not None else ()
 
     def _run_adasum(self, members: List[TensorTableEntry], ps,
                     hier: bool) -> None:
         """``_build_allreduce``'s ``ADASUM`` (JAX :2045-2066) on the packed
         dtype-group buffer: prescale, the wire cast, Adasum in float32
         over the whole buffer and the cast back to the buffer's dtype,
-        then the unpack's cast to the source and postscale (no divisor)."""
+        then the unpack's cast to the source and postscale (no divisor).
+        Never chunked: its dot products span the whole buffer."""
         e0, world = members[0], ps.size()
         buf = self._pack([e.tensor for e in members],
                           fusion.buffer_dtype(e0.tensor.dtype,
@@ -1919,14 +2595,20 @@ class CollectiveEngine:
                                   world))
 
     @staticmethod
-    def _all_reduce(buf: torch.Tensor, op: C.ReduceOp, ps) -> None:
-        """The group's one allreduce (on the card on NCCL's stream, ordered
-        after the pack and before the unpack of this stream).  A bool
-        buffer (``Min``/``Max``) reduces as bytes."""
+    def _all_reduce(buf: torch.Tensor, op: C.ReduceOp, ps,
+                    async_op: bool = False):
+        """The group's (or chunk's) one allreduce (on the card on NCCL's
+        stream, ordered after the pack; before the unpack of this stream,
+        or, ``async_op``, once its work is waited on).  A bool buffer
+        (``Min``/``Max``) reduces as bytes."""
         import torch.distributed as dist
         if buf.dtype == torch.bool:
             buf = buf.view(torch.uint8)
+        if async_op:
+            return dist.all_reduce(buf, op=_dist_op(op), group=ps.group,
+                                   async_op=True)
         dist.all_reduce(buf, op=_dist_op(op), group=ps.group)
+        return None
 
     @staticmethod
     def _complex_gathered(buf: torch.Tensor, op: C.ReduceOp,

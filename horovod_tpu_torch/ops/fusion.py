@@ -32,6 +32,13 @@ else by the same 16-byte walk as the arithmetic path.  The arithmetic path
 takes float32, float64, bfloat16, float16, int8, uint8, int32 and int64,
 and bool and int16 as sources of the widening to int32.
 
+``pack`` writes into a buffer the caller gives (``out=``: the engine's
+ping-pong staging slots and fast-lane pins), and both wrappers take any
+contiguous tensors, views that start inside a tensor included: a chunk of
+a pipelined allreduce is the ``span`` of its dtype group's concatenation
+from one element to another, which may begin and end mid-tensor.  No
+chunk is made by a ``torch.cat``.
+
 Each wrapper takes CPU tensors through its plain PyTorch version
 (``torch.cat``, ``split``, the factor rounded by ``collectives._scale``; a
 ``torch.cat`` of byte views for the byte path), which the CPU tests hold
@@ -109,6 +116,25 @@ def unpack_plain(buf: torch.Tensor, outs: Sequence[torch.Tensor],
                else torch.div(red, divisor, rounding_mode="floor"))
     for out, seg in zip(outs, red.split([o.numel() for o in outs])):
         out.copy_(_scale(seg.to(out.dtype), postscale).view(out.shape))
+
+
+def span(tensors: Sequence[torch.Tensor], start: int,
+         end: int) -> List[torch.Tensor]:
+    """Flat views of elements ``[start, end)`` of the tensors'
+    concatenation, in order, the empty ones left out: the first may start
+    and the last may end inside a tensor.  Each tensor must be
+    contiguous."""
+    out: List[torch.Tensor] = []
+    off = 0
+    for t in tensors:
+        n = t.numel()
+        a, b = max(start, off), min(end, off + n)
+        if a < b:
+            out.append(t.view(-1)[a - off:b - off])
+        off += n
+        if off >= end:
+            break
+    return out
 
 
 def _check(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
@@ -189,18 +215,23 @@ def _copy(tensors: Sequence[torch.Tensor], buf: torch.Tensor,
         "pack" if to_buffer else "unpack")
 
 
-def _pack_bytes(tensors: Sequence[torch.Tensor],
-                dev: torch.device) -> torch.Tensor:
+def _pack_bytes(tensors: Sequence[torch.Tensor], dev: torch.device,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The byte path of ``pack``: the tensors' bytes in order, as one
-    buffer of their dtype."""
+    buffer of their dtype (``out``'s bytes when given)."""
     dt = tensors[0].dtype
+    raw = None if out is None else out.view(torch.uint8)
     if dev.type == "cpu":
-        return torch.cat([t.reshape(-1).view(torch.uint8)
-                          for t in tensors]).view(dt)
-    buf = torch.empty(sum(_byte_sizes(tensors)), dtype=torch.uint8,
-                      device=dev)
-    _copy(tensors, buf, 1, dev)
-    return buf.view(dt)
+        parts = [t.reshape(-1).view(torch.uint8) for t in tensors]
+        if raw is None:
+            return torch.cat(parts).view(dt)
+        torch.cat(parts, out=raw)
+        return out
+    if raw is None:
+        raw = torch.empty(sum(_byte_sizes(tensors)), dtype=torch.uint8,
+                          device=dev)
+    _copy(tensors, raw, 1, dev)
+    return raw.view(dt)
 
 
 def _unpack_bytes(buf: torch.Tensor, outs: Sequence[torch.Tensor],
@@ -215,23 +246,38 @@ def _unpack_bytes(buf: torch.Tensor, outs: Sequence[torch.Tensor],
 
 
 def pack(tensors: Sequence[torch.Tensor], buf_dtype: torch.dtype,
-         prescale: Optional[float] = None) -> torch.Tensor:
+         prescale: Optional[float] = None,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One flat buffer of ``buf_dtype`` holding ``tensors`` (one dtype,
-    contiguous, one device) in order, each scaled by ``prescale``."""
+    contiguous, one device) in order, each scaled by ``prescale``: ``out``
+    when given (flat, contiguous, of ``buf_dtype`` on the tensors' device,
+    as many elements as the tensors hold), else a new one."""
     dev = _check(tensors, "pack")
     dt = tensors[0].dtype
     if not _packs(dt, buf_dtype):
         raise ValueError(f"pack casts a float group to bfloat16 or float16, "
                          f"or widens a small integer group to int32, got "
                          f"{dt} -> {buf_dtype}")
+    total = sum(t.numel() for t in tensors)
+    if out is not None and (out.dtype != buf_dtype or out.device != dev
+                            or out.dim() != 1 or not out.is_contiguous()
+                            or out.numel() != total):
+        raise ValueError(f"pack writes a flat contiguous {buf_dtype} buffer "
+                         f"of {total} elements on {dev}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
     scale, f = _factor_arg(prescale, dt)
     if buf_dtype == dt and not scale:
-        buf = _pack_bytes(tensors, dev)
+        buf = _pack_bytes(tensors, dev, out)
     elif dev.type == "cpu":
-        return pack_plain(tensors, buf_dtype, prescale)
+        buf = pack_plain(tensors, buf_dtype, prescale)
+        if out is None:
+            return buf
+        out.copy_(buf)
+        return out
     else:
         offs = _offsets([t.numel() for t in tensors])
-        buf = torch.empty(offs[-1], dtype=buf_dtype, device=dev)
+        buf = out if out is not None else torch.empty(
+            offs[-1], dtype=buf_dtype, device=dev)
         table = _table([t.data_ptr() for t in tensors], offs, dev)
         _launched(_lib().hvd_fusion_pack(
             table.data_ptr(), len(tensors), offs[-1], buf.data_ptr(),

@@ -1,15 +1,19 @@
-# Copied from horovod_tpu/ops/scheduler.py:21-31 (imports), 45-47 (the three
-# dispatch lanes the port uses), 77-97 (pop_gradient_batches), 148-151
-# (parent_of), 154-219 (TensorQueue), 221-270 (FusedProgramCache), 272-368
-# (StallInspector) and 371-517 (InflightRing); issue-number tags are dropped
-# from the comments.  InflightRing gained a ``probe``: its abort settles a
-# batch that already completed with its results, not with the fault; and
-# its watcher lets go of a batch once it has settled it.
+# Copied from horovod_tpu/ops/scheduler.py:21-31 (imports), 44-47 (the four
+# dispatch lanes), 50-74 (CheckpointChunk), 77-97 (pop_gradient_batches),
+# 100-108 (pop_checkpoint_items), 111-145 (partition_plan, partition_name),
+# 148-151 (parent_of), 154-219 (TensorQueue), 221-270 (FusedProgramCache),
+# 272-368 (StallInspector), 371-517 (InflightRing) and 520-614
+# (StagingToken, PingPongBuffers); the reference's tracking tags are
+# dropped from the comments.  InflightRing gained a ``probe``: its abort settles a batch that
+# already completed with its results, not with the fault; and its watcher
+# lets go of a batch once it has settled it.  PingPongBuffers' docstring
+# names the port's staging buffers (the engine's, one a slot and key).
 """Data-plane scheduling primitives (no torch imports).
 
 The pieces of the collective engine that are pure host-side scheduling —
 the pending-tensor queue, the program cache, the stall inspector and the
-in-flight dispatch window — live here so the scheduler logic is
+in-flight dispatch window, the tensor partition plan and the
+double-buffer staging slots — live here so the scheduler logic is
 unit-testable without touching a device (``ops/engine.py`` composes them
 with the fused pack / collective / unpack data plane).  The serving
 replica keys its per-bucket forward into ``FusedProgramCache``.
@@ -19,6 +23,9 @@ Reference mapping (SURVEY.md §2a): ``TensorQueue`` ← tensor_queue.cc N6,
 stall inspector N11, ``InflightRing`` ← the in-flight response window
 ByteScheduler-style schedulers bound (Peng et al., SOSP 2019) — a bounded
 ring between the dispatching cycle thread and a completion watcher.
+``partition_plan`` and ``PingPongBuffers`` are the latency-war half:
+ByteScheduler-style tensor partitioning and the double-buffered fusion
+staging handoff.
 """
 
 from __future__ import annotations
@@ -34,14 +41,47 @@ from ..utils.logging import get_logger
 log = get_logger()
 
 # Dispatch-backlog lanes (the heap orders by ``(lane, -priority, seq)``).
-# 1 = parameter-prefetch allgathers (FSDP's gathers of the next buckets'
-# parameters: the next forward pass blocks on them, so they sort ahead of
-# the gradient drain, and they are budget-exempt: their presence never
-# changes which fused batches a cycle dispatches, nor their order), 2 =
-# fused batches, 3 = the checkpoint stream (not ported: nothing pushes it).
+# 0 = latency fast lane, 1 = parameter-prefetch allgathers (FSDP's
+# gather-on-demand legs — the NEXT forward pass blocks on them, so they
+# sort ahead of the gradient drain, which only the step after needs),
+# 2 = fused gradient batches, 3 = the checkpoint stream: checkpoint chunks
+# sort strictly AFTER every gradient batch and are popped by their own
+# budget, so durability I/O rides each cycle's tail without ever delaying
+# (or re-ordering) gradient dispatch.  PREFETCH is budget-exempt like
+# FAST: its presence can never change WHICH fused batches a cycle
+# dispatches, nor their relative order (pinned by the prefetch-lane
+# scheduler tests).
+FAST_LANE = 0
 PREFETCH_LANE = 1
 FUSED_LANE = 2
 CKPT_LANE = 3
+
+
+class CheckpointChunk:
+    """One checkpoint-lane work item: a bounded local write —
+    one chunk of this rank's 1/N state shard — scheduled through the
+    priority dispatch backlog at :data:`CKPT_LANE`.  Not a collective:
+    it never negotiates, costs zero control-plane bytes, and its dispatch
+    order is invisible to the gradient lanes.  ``run`` performs the
+    chunk (the state plane owns retries/finalize inside it); ``fail`` is
+    the abort path — the engine settles the lane with the fault and the
+    epoch is abandoned, leaving the previous durable epoch in place."""
+
+    __slots__ = ("name", "priority", "_run", "_fail")
+
+    def __init__(self, name: str, run: Callable[[], None],
+                 fail: Optional[Callable] = None, priority: int = 0):
+        self.name = name
+        self.priority = int(priority)
+        self._run = run
+        self._fail = fail
+
+    def run(self) -> None:
+        self._run()
+
+    def fail(self, exc: BaseException) -> None:
+        if self._fail is not None:
+            self._fail(exc)
 
 
 def pop_gradient_batches(heap: List[tuple], budget: int) -> List:
@@ -65,6 +105,54 @@ def pop_gradient_batches(heap: List[tuple], budget: int) -> List:
             budget -= 1
         out.append(heapq.heappop(heap)[3])
     return out
+
+
+def pop_checkpoint_items(heap: List[tuple], budget: int) -> List:
+    """Pop up to ``budget`` checkpoint-lane items — callable only once
+    the gradient lanes are drained (the heap ordering enforces it: the
+    head is ``CKPT_LANE`` exactly when no gradient batch remains)."""
+    out: List = []
+    while heap and heap[0][0] == CKPT_LANE and budget > 0:
+        out.append(heapq.heappop(heap)[3])
+        budget -= 1
+    return out
+
+
+def partition_plan(n_elems: int, itemsize: int,
+                   threshold_bytes: int) -> Tuple[Tuple[int, int], ...]:
+    """Even ``(offset, length)`` split of a flattened per-rank buffer into
+    ~threshold-sized sub-tensors (ByteScheduler partitioning, Peng et al.
+    SOSP 2019: the *partition*, not the fused batch, is the preemption
+    unit — a huge gradient split into parts lets a small high-priority
+    tensor jump the dispatch queue between parts instead of waiting out
+    the whole transfer).
+
+    A pure function of (element count, itemsize, threshold): every rank
+    computes the identical plan from the negotiated shape/dtype, so the
+    sub-tensor names and shapes — which ARE announced — agree across
+    ranks.  Returns ``()`` when no split applies (threshold off, or the
+    buffer already fits), never a 1-part plan."""
+    total = n_elems * itemsize
+    if threshold_bytes <= 0 or n_elems <= 1 or total <= threshold_bytes:
+        return ()
+    parts = -(-total // threshold_bytes)          # ceil
+    parts = min(parts, n_elems)
+    if parts <= 1:
+        return ()
+    per = -(-n_elems // parts)                    # ceil; last part shorter
+    plan = []
+    off = 0
+    while off < n_elems:
+        ln = min(per, n_elems - off)
+        plan.append((off, ln))
+        off += ln
+    return tuple(plan)
+
+
+def partition_name(parent: str, index: int, count: int) -> str:
+    """Wire name of one sub-tensor.  Deterministic across ranks (the parts
+    are negotiated under these names); ``parent_of`` inverts it."""
+    return f"{parent}::part{index}/{count}"
 
 
 def parent_of(name: str) -> str:
@@ -456,3 +544,100 @@ class InflightRing:
                 # Let go of the settled batch before waiting for the next:
                 # its tensors belong to the caller now.
                 del head, batch, results
+
+
+class StagingToken:
+    """One acquired staging slot.  ``release`` is idempotent — exactly one
+    of {normal settle, abort} actually frees the slot, the other is a
+    no-op (mirrors the InflightRing's per-item settle claim)."""
+
+    __slots__ = ("key", "slot", "_released")
+
+    def __init__(self, key, slot: int):
+        self.key = key
+        self.slot = slot
+        self._released = False
+
+
+class PingPongBuffers:
+    """Double-buffered fusion staging: two ownership slots per key (one
+    key per fused-buffer dtype group).
+
+    The cycle thread ``acquire``\\ s a slot before launching a fused batch
+    and the InflightRing watcher ``release``\\ s it when the batch settles
+    — so cycle N+1's copy_in (the pack of the next fused buffer into the
+    other slot's buffer) may start while cycle N's reduce is still on the
+    device, but cycle N+2's may not: at most two fused staging buffers per
+    dtype group ever exist, regardless of how deep
+    ``HOROVOD_MAX_INFLIGHT`` opens the ring.  That is the classic
+    ping-pong buffer pair (reference N7's fusion-buffer reuse, pipelined),
+    and it is what bounds fused-temporary HBM while the window is deep.
+
+    ``abort`` settles every outstanding token exactly once (idempotent per
+    token) and permanently opens the gate — once the control plane is
+    down, no dispatcher may block on a slot the wedged watcher will never
+    release.  torch-free: the scheduler tests drive it directly."""
+
+    def __init__(self, slots: int = 2):
+        self.slots = max(1, int(slots))
+        self._cv = threading.Condition()
+        self._outstanding: Dict[object, List[StagingToken]] = {}
+        self.aborted = False
+        self.acquires = 0
+        self.waits = 0            # acquires that had to block (telemetry)
+
+    def in_flight(self, key) -> int:
+        with self._cv:
+            return len(self._outstanding.get(key, ()))
+
+    def acquire(self, key) -> StagingToken:
+        """Block until one of ``key``'s slots is free (or the pair is
+        aborted); returns the slot's token."""
+        with self._cv:
+            waited = False
+            while (not self.aborted
+                   and len(self._outstanding.get(key, ())) >= self.slots):
+                waited = True
+                self._cv.wait(0.1)
+            if waited:
+                self.waits += 1
+            self.acquires += 1
+            used = {t.slot for t in self._outstanding.get(key, ())}
+            slot = next(i for i in range(self.slots + 1) if i not in used)
+            tok = StagingToken(key, slot)
+            if not self.aborted:
+                self._outstanding.setdefault(key, []).append(tok)
+            else:
+                # Aborted: hand out a pre-released token — the dispatch is
+                # about to fail its entries anyway, and tracking it would
+                # leak (nobody settles after abort).
+                tok._released = True
+            return tok
+
+    def release(self, token: Optional[StagingToken]):
+        if token is None:
+            return
+        with self._cv:
+            if token._released:
+                return                     # abort (or a double settle) won
+            token._released = True
+            lst = self._outstanding.get(token.key)
+            if lst is not None:
+                try:
+                    lst.remove(token)
+                except ValueError:
+                    pass
+                if not lst:
+                    self._outstanding.pop(token.key, None)
+            self._cv.notify_all()
+
+    def abort(self):
+        """Release every outstanding token exactly once and open the gate
+        for good.  Idempotent; safe against concurrent release."""
+        with self._cv:
+            self.aborted = True
+            for lst in self._outstanding.values():
+                for tok in lst:
+                    tok._released = True
+            self._outstanding.clear()
+            self._cv.notify_all()

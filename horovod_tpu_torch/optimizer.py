@@ -716,9 +716,15 @@ def load_sharded_saveable(saved, rank: int, world: int):
 
 
 def _chunk_bytes() -> int:
-    """``HOROVOD_PIPELINE_CHUNK``: the sharded optimizer's bucket bytes."""
-    cfg = basics._get_state().config
-    return int(cfg.pipeline_chunk_bytes) if cfg is not None else 0
+    """The sharded optimizer's bucket bytes: the engine's live chunk knob
+    (``HOROVOD_PIPELINE_CHUNK`` at ``init()``, then wherever the
+    autotuner moves it), as ``horovod_tpu/jax/optimizer.py:663-668``
+    reads it; the config's value without an engine."""
+    st = basics._get_state()
+    if st.engine is not None:
+        return int(st.engine.pipeline_chunk_bytes)
+    return int(st.config.pipeline_chunk_bytes) if st.config is not None \
+        else 0
 
 
 def _prefetch_depth() -> int:

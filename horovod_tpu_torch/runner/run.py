@@ -3,7 +3,9 @@
 # tuning_env (with the --hierarchical-* switches of :175-182, 438-443),
 # wait_and_reap, worker_envs, ssh_command, launch_workers and main; the
 # observability flags (:121-137) and their forwarding (:409-427, :536-541);
-# the sharded optimizer's flags (:155-175) and their forwarding (:433-437).
+# the sharded optimizer's flags (:155-175) and their forwarding (:433-437);
+# the data-plane depth flags (:97-110, 153-154) and their forwarding
+# (:398-402, 428-431).
 # platform_worker_env (:359-388, JAX and XLA variables) is replaced by the
 # card's counterpart; the flags of what the port lacks are refused.
 """The launcher's argument surface and launch orchestration.
@@ -30,7 +32,11 @@ the ranks of each host entry in host order (the same list on every rank:
 ``_MONITOR_INTERVAL``, ``_TRACE_RING`` and ``_TIMELINE_MARK_CYCLES``;
 ``--sharded``, ``--sharded-params`` and ``--prefetch-depth`` as
 ``HOROVOD_SHARDED_OPTIMIZER=1``, ``HOROVOD_SHARDED_PARAMS=1`` and
-``HOROVOD_PREFETCH_DEPTH``.
+``HOROVOD_PREFETCH_DEPTH``; ``--pipeline-chunk-mb``,
+``--fast-lane-threshold-kb``, ``--partition-threshold-mb``, ``--autotune``
+and ``--autotune-log-file`` as ``HOROVOD_PIPELINE_CHUNK``,
+``_FAST_LANE_THRESHOLD``, ``_PARTITION_THRESHOLD`` (bytes),
+``HOROVOD_AUTOTUNE=1`` and ``HOROVOD_AUTOTUNE_LOG``.
 Every entry that names this machine
 (``common/net.is_local_host``: ``localhost``, ``127.0.0.2``, its name or
 addresses) is spawned here; the others by ssh.
@@ -103,7 +109,9 @@ def parse_hostfile(path: str) -> List[HostSpec]:
 # it.  Each is parsed, then refused.
 _TPU = "runner/tpu_vm.py has no GPU counterpart"
 _ELASTIC = "elastic/ is not ported (ROADMAP queue 1 item 6)"
-_DEPTH = "ROADMAP queue 1 item 3, data-plane depth"
+_STATEPLANE = ("the checkpoint lane's only user, the state plane "
+               "(elastic/stateplane.py), is not ported (ROADMAP queue 1 "
+               "item 6)")
 NOT_PORTED: Dict[str, str] = {
     "--tpu": _TPU, "--zone": _TPU, "--project": _TPU,
     "--tpu-topology-aware": _TPU, "--gke-jobset": _TPU,
@@ -118,14 +126,9 @@ NOT_PORTED: Dict[str, str] = {
     "--commit-max-age-s": _ELASTIC,
     "--hierarchical-controller": "common/host_agent.py is not ported "
                                  "(ROADMAP queue 1 item 6)",
-    "--pipeline-chunk-mb": f"chunked pipelining, {_DEPTH}",
-    "--fast-lane-threshold-kb": f"the fast lane, {_DEPTH}",
-    "--partition-threshold-mb": f"partitioning, {_DEPTH}",
-    "--ckpt-dir": f"the checkpoint lane, {_DEPTH}",
-    "--ckpt-chunk-mb": f"the checkpoint lane, {_DEPTH}",
-    "--ckpt-lane-budget": f"the checkpoint lane, {_DEPTH}",
-    "--autotune": f"ops/autotune.py, {_DEPTH}",
-    "--autotune-log-file": f"ops/autotune.py, {_DEPTH}",
+    "--ckpt-dir": _STATEPLANE,
+    "--ckpt-chunk-mb": _STATEPLANE,
+    "--ckpt-lane-budget": _STATEPLANE,
     "--cache-capacity": "the port compiles no fused programs to cache (the "
                         "negotiation response cache is "
                         "HOROVOD_RESPONSE_CACHE_CAPACITY)",
@@ -134,8 +137,7 @@ NOT_PORTED: Dict[str, str] = {
 }
 # Those of them that take no value.
 _SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery",
-             "--autoscale", "--hierarchical-controller", "--autotune",
-             "--serve"}
+             "--autoscale", "--hierarchical-controller", "--serve"}
 
 # Tuning flags forwarded to every worker as HOROVOD_* env: flag, variable,
 # scale.  Each is read by the port's Config.from_env.
@@ -149,6 +151,11 @@ _TUNING = (("fusion_threshold_mb", "HOROVOD_FUSION_THRESHOLD", 1024 * 1024),
            ("round_timeout", "HOROVOD_ROUND_TIMEOUT_S", 1),
            ("connect_retries", "HOROVOD_CONNECT_RETRIES", 1),
            ("connect_backoff_ms", "HOROVOD_CONNECT_BACKOFF_MS", 1))
+# The data-plane depth flags with a value, forwarded the same way.
+_DEPTH = (("pipeline_chunk_mb", "HOROVOD_PIPELINE_CHUNK", 1024 * 1024),
+          ("fast_lane_threshold_kb", "HOROVOD_FAST_LANE_THRESHOLD", 1024),
+          ("partition_threshold_mb", "HOROVOD_PARTITION_THRESHOLD",
+           1024 * 1024))
 # The observability flags with a value, forwarded the same way (the file
 # names go per rank, in worker_envs).
 _OBSERVE = (("monitor_port", "HOROVOD_MONITOR_PORT", 1),
@@ -275,6 +282,24 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
     p.add_argument("--prefetch-depth", type=int, default=None,
                    help="FSDP parameter-gather buckets in flight ahead of "
                         "use (HOROVOD_PREFETCH_DEPTH; default 2)")
+    p.add_argument("--pipeline-chunk-mb", type=float, default=None,
+                   help="Chunk size (MB) for pipelined fused reductions "
+                        "(HOROVOD_PIPELINE_CHUNK; also the sharded "
+                        "optimizer's bucket size); 0 = one chunk per fused "
+                        "batch (no chunking)")
+    p.add_argument("--fast-lane-threshold-kb", type=float, default=None,
+                   help="Latency fast lane: ungrouped allreduces below "
+                        "this many KB skip the fusion batching (single-"
+                        "tensor batches with pinned plans; "
+                        "HOROVOD_FAST_LANE_THRESHOLD); 0 = off")
+    p.add_argument("--partition-threshold-mb", type=float, default=None,
+                   help="Split allreduces above this many MB into priority-"
+                        "inheriting parts (ByteScheduler-style preemption; "
+                        "HOROVOD_PARTITION_THRESHOLD); 0 = off")
+    p.add_argument("--autotune", action="store_true",
+                   help="Tune the engine's knobs online (HOROVOD_AUTOTUNE)")
+    p.add_argument("--autotune-log-file", default=None,
+                   help="The autotuner's CSV log (HOROVOD_AUTOTUNE_LOG)")
     for flag, why in NOT_PORTED.items():
         if flag in _SWITCHES:
             p.add_argument(flag, action="store_true", help=f"refused: {why}")
@@ -385,7 +410,7 @@ def tuning_env(args) -> Dict[str, str]:
     vanish on another.  A flag the port has no feature for never gets
     here: ``parse_args`` refuses it."""
     env: Dict[str, str] = {}
-    for flag, var, scale in _TUNING + _OBSERVE:
+    for flag, var, scale in _TUNING + _DEPTH + _OBSERVE:
         val = getattr(args, flag, None)
         if val is not None:
             env[var] = str(int(val * scale) if scale != 1 else val)
@@ -397,6 +422,10 @@ def tuning_env(args) -> Dict[str, str]:
         env["HOROVOD_MONITOR"] = "1"
     if getattr(args, "timeline_mark_cycles", False):
         env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
+    if getattr(args, "autotune", False):
+        env["HOROVOD_AUTOTUNE"] = "1"
+        if getattr(args, "autotune_log_file", None):
+            env["HOROVOD_AUTOTUNE_LOG"] = args.autotune_log_file
     if getattr(args, "sharded", False):
         env["HOROVOD_SHARDED_OPTIMIZER"] = "1"
     if getattr(args, "sharded_params", False):

@@ -18,6 +18,7 @@ rounding noise, as with a single key, where ds = p (dp - delta) cancels).
 """
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -1119,3 +1120,106 @@ def test_torch_sharded_optimizer_on_card_is_plain_adamw(cuda_device,
             assert o.defaults["fused"] == fused
     finally:
         hvd.shutdown()
+
+
+# ------------------------------------------------- the data plane's depth
+@pytest.fixture()
+def card_engine(cuda_device, monkeypatch):
+    """The port at size 1 on the card."""
+    eng = _init_on(cuda_device, monkeypatch)
+    yield hvd, eng
+    hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_torch_chunked_and_partitioned_bitwise_on_card(card_engine):
+    """Size 1 on the card: a grouped allreduce chunked at 4 KB (float32
+    with a bf16 wire and factors, bf16, int32) and a partitioned one
+    against the plain path, bitwise; pack and unpack launch once a
+    chunk."""
+    from horovod_tpu_torch.ops import fusion
+    hvd, eng = card_engine
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(5000, generator=g, device="cuda"),
+          torch.randn(77, 33, generator=g, device="cuda"),
+          torch.randn(4097, generator=g, device="cuda").to(torch.bfloat16),
+          torch.randint(-9, 9, (999,), generator=g, device="cuda",
+                        dtype=torch.int32)]
+    kw = dict(op=hvd.Average, prescale_factor=0.5, postscale_factor=3.0)
+    base = hvd.grouped_allreduce([x.clone() for x in xs], name="b", **kw)
+    eng.pipeline_chunk_bytes = 4096
+    p0, c0 = fusion.pack.launches, eng.pipeline_chunks_total
+    out = hvd.grouped_allreduce([x.clone() for x in xs], name="c", **kw)
+    torch.cuda.synchronize()
+    chunks = eng.pipeline_chunks_total - c0
+    assert chunks > 4 and fusion.pack.launches - p0 == chunks
+    for a, b in zip(base, out):
+        assert torch.equal(a, b)
+    eng.pipeline_chunk_bytes = 0
+    eng.partition_threshold = 8192
+    s0 = eng.partition_splits
+    part = hvd.allreduce(xs[0].clone(), name="p", **kw)
+    assert eng.partition_splits == s0 + 1
+    eng.partition_threshold = 0
+    assert torch.equal(part, hvd.allreduce(xs[0].clone(), name="q", **kw))
+
+
+@pytest.mark.cuda
+def test_torch_pingpong_buffer_reused_only_after_done_event(card_engine):
+    """Size 1 on the card with a controller that finds everything ready,
+    so that the in-flight window and its ping-pong slots are live: six
+    batches of one dtype, the window's watcher held before its first
+    wait.  Two batches take the two slots; the third waits for a slot
+    until the first has settled, and every batch releases its slot only
+    once its done event has fired; two staging buffers of the dtype
+    exist, reused."""
+    from horovod_tpu_torch.ops import eager
+    hvd, eng = card_engine
+
+    class Ready:
+        rounds = 0
+
+        def negotiate(self, entries):
+            return list(entries), []
+
+        def forget(self, e):
+            pass
+
+    released = []
+    settle = eng._settle_batch
+
+    def checked(batch, results, error=None, inflight=False):
+        if id(batch) in eng._staging_tokens:
+            released.append(error is None and results[1].query())
+        settle(batch, results, error, inflight)
+
+    gate = threading.Event()
+    wait_done = eng._wait_done
+
+    def held(results):
+        gate.wait(30)
+        wait_done(results)
+
+    eng._settle_batch = checked
+    eng._wait_done = held                    # before the window is made
+    eng.controller = Ready()
+    eng.fusion_threshold = 1                 # a batch a tensor
+    x = torch.arange(1 << 22, dtype=torch.float32, device="cuda")
+    hs = [eager.allreduce_async(x, name=f"pp.{i}", op=hvd.Sum)
+          for i in range(6)]
+    t_end = time.time() + 30
+    while (eng._pingpong is None or eng._pingpong.in_flight(
+            "torch.float32") < 2) and time.time() < t_end:
+        time.sleep(0.01)
+    time.sleep(0.3)
+    pp = eng._pingpong
+    assert pp.in_flight("torch.float32") == 2 and pp.acquires == 2
+    gate.set()
+    outs = [eager.synchronize(h) for h in hs]
+    eng._inflight.flush(30)
+    assert all(torch.equal(o, x) for o in outs)
+    assert len(released) == 6 and all(released), released
+    assert pp.waits >= 1 and pp.acquires == 6
+    assert sorted(eng._staging) == [("torch.float32", 0),
+                                    ("torch.float32", 1)]
+    eng.controller = None

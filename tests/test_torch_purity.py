@@ -91,10 +91,51 @@ def test_torch_observability_modules_import_without_jax():
     assert res.stdout.split()[-1] == str(len(OBSERVE_MODULES))
 
 
+# The data-plane depth modules: the autotuner (a copy of the jax-free
+# ``horovod_tpu/ops/autotune.py``), the scheduler copies, the engine and
+# the fusion wrappers that run its chunks.
+DEPTH_MODULES = ("horovod_tpu_torch.ops.autotune",
+                 "horovod_tpu_torch.ops.scheduler",
+                 "horovod_tpu_torch.ops.engine",
+                 "horovod_tpu_torch.ops.fusion")
+
+_DEPTH_SRC = _OBSERVE_SRC.replace("print('PURE', len(sys.argv) - 2)", r"""
+import types
+from horovod_tpu_torch.ops import autotune, scheduler
+eng = types.SimpleNamespace(fusion_threshold=1 << 20, cycle_time_s=1e-3,
+                            fast_lane_threshold=0)
+sent = []
+pm = autotune.ParameterManager(
+    eng, warmup_samples=0, steps_per_sample=1, max_evals=3,
+    broadcaster=lambda p: sent.append(p) or p, poller=lambda h: h)
+for _ in range(10):
+    pm.on_cycle(1 << 20)
+assert sent and not pm.tuning, (sent, pm.tuning)
+assert scheduler.partition_plan(10, 4, 12) == ((0, 3), (3, 3), (6, 3),
+                                               (9, 1))
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_depth_modules_import_without_jax():
+    """The autotuner, the scheduler, the engine and the fusion wrappers
+    import with JAX and horovod_tpu blocked, and the autotuner's search
+    runs to its end on a fake engine."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _DEPTH_SRC, REPO,
+                          *DEPTH_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == str(len(DEPTH_MODULES))
+
+
 def test_torch_copied_modules_name_their_origin():
-    """Every copied observability module's first line names the JAX
-    file it was copied from, with its lines."""
-    for name in OBSERVE_MODULES:
+    """Every copied observability module's first line, and the copied
+    autotuner's, names the JAX file it was copied from, with its lines."""
+    for name in OBSERVE_MODULES + DEPTH_MODULES[:1]:
         rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
         path = os.path.join(PKG, rel + ".py")
         if not os.path.exists(path):

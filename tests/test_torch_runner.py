@@ -477,15 +477,72 @@ def test_torch_runner_forwards_sharded_flag(flag, monkeypatch):
     assert getattr(Config.from_env(), field) == getattr(Config(), field)
 
 
-def test_torch_runner_still_refuses_pipeline_chunk(capsys):
-    """``--pipeline-chunk-mb`` stays refused: the port has no chunked
-    pipelining (``HOROVOD_PIPELINE_CHUNK`` sizes only the sharded
-    optimizer's buckets)."""
-    with pytest.raises(SystemExit):
-        port_run.parse_args(["-np", "2", "--sharded", "--pipeline-chunk-mb",
-                             "4", "python", "t.py"])
-    assert "--pipeline-chunk-mb is not ported: chunked pipelining" in \
-        capsys.readouterr().err
+def test_torch_runner_still_refuses_pipeline_chunk(monkeypatch):
+    """``--pipeline-chunk-mb`` is forwarded now that the engine pipelines
+    its chunks (the name is older than the feature): beside ``--sharded``
+    it reaches every rank as ``HOROVOD_PIPELINE_CHUNK`` in bytes, as the
+    JAX launcher sends it, and the port's Config reads it back."""
+    from horovod_tpu_torch.common.config import Config
+    argv = ["-np", "2", "--sharded", "--pipeline-chunk-mb", "4", "python",
+            "t.py"]
+    args = port_run.parse_args(argv)
+    env = port_run.worker_envs(args, port_run.placement(args),
+                               ("1.2.3.4", 5555, 5556))[1]
+    jargs = _mod(RUNNERS[0]).parse_args(argv)
+    assert env["HOROVOD_PIPELINE_CHUNK"] == str(4 << 20) == \
+        _mod(RUNNERS[0]).tuning_env(jargs)["HOROVOD_PIPELINE_CHUNK"]
+    monkeypatch.setenv("HOROVOD_PIPELINE_CHUNK", env["HOROVOD_PIPELINE_CHUNK"])
+    assert Config.from_env().pipeline_chunk_bytes == 4 << 20
+
+
+# ------------------------------------------------------- data-plane depth
+# The five data-plane depth flags the port once refused: flag, its value
+# on the command line (none for a switch), the variable it forwards, its
+# value there, and the port Config's field and value.
+DEPTH_FLAGS = {
+    "--pipeline-chunk-mb": (["64"], "HOROVOD_PIPELINE_CHUNK",
+                            str(64 << 20), "pipeline_chunk_bytes", 64 << 20),
+    "--fast-lane-threshold-kb": (["64"], "HOROVOD_FAST_LANE_THRESHOLD",
+                                 str(64 << 10), "fast_lane_threshold_bytes",
+                                 64 << 10),
+    "--partition-threshold-mb": (["0.5"], "HOROVOD_PARTITION_THRESHOLD",
+                                 str(1 << 19), "partition_threshold_bytes",
+                                 1 << 19),
+    "--autotune": ([], "HOROVOD_AUTOTUNE", "1", "autotune", True),
+    "--autotune-log-file": (["/tmp/hvd/tune.csv"], "HOROVOD_AUTOTUNE_LOG",
+                            "/tmp/hvd/tune.csv", "autotune_log",
+                            "/tmp/hvd/tune.csv"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(DEPTH_FLAGS))
+def test_torch_runner_forwards_depth_flag(flag, monkeypatch):
+    """Each data-plane depth flag parses, reaches every rank with the JAX
+    launcher's variable and value (the log file only beside
+    ``--autotune``, as there), and round-trips into the port's Config;
+    without the flag the variable is absent and the Config's default
+    holds."""
+    from horovod_tpu_torch.common.config import Config
+    value, var, want, field, cfg_want = DEPTH_FLAGS[flag]
+    assert flag not in port_run.NOT_PORTED
+    extra = ["--autotune"] if flag == "--autotune-log-file" else []
+    argv = ["-np", "3", "-H", "a:2,b:1", *extra, flag, *value, "python",
+            "t.py"]
+    coord = ("1.2.3.4", 5555, 5556)
+    envs = {}
+    for pkg in RUNNERS:
+        run = _mod(pkg)
+        args = run.parse_args(argv)
+        envs[pkg] = run.worker_envs(args, run.placement(args), coord)
+    for jenv, penv in zip(*envs.values()):
+        assert penv[var] == jenv[var] == want
+        monkeypatch.setenv(var, penv[var])
+        assert getattr(Config.from_env(), field) == cfg_want
+        monkeypatch.delenv(var)
+    plain = port_run.parse_args(["-np", "2", "python", "t.py"])
+    assert var not in port_run.worker_envs(plain, port_run.placement(plain),
+                                           coord)[0]
+    assert getattr(Config.from_env(), field) == getattr(Config(), field)
 
 
 _HIER_VARS = ("HOROVOD_HIERARCHICAL_ALLREDUCE",

@@ -563,13 +563,12 @@ def test_torch_sharded_digest_and_fusion_key(ctype, sharded, prefetch,
                                              token):
     """The digest is the JAX string, with the sharded token last (none
     when unsharded; prefetch is not in it); the fusion key is the JAX
-    key without its partition count."""
+    key, its partition count included."""
     je, pe = _entries(sharded, prefetch, ctype)
     d = TCPController._digest(pe)
     assert d == JaxController._digest(je)
     assert d.split("|")[8:] == ([token] if token else [])
-    assert _norm(pengine._fusion_key(pe)) == _norm(jengine._fusion_key(je))[
-        :-1]
+    assert _norm(pengine._fusion_key(pe)) == _norm(jengine._fusion_key(je))
 
 
 def _port_engine(world=2):
@@ -740,3 +739,31 @@ def test_torch_sharded_default_reads_the_config(monkeypatch):
             assert getattr(opt, "sharded", False) == want
     finally:
         st.config = cfg
+
+
+def test_torch_shard_plan_reads_the_engines_live_chunk(monkeypatch):
+    """The bucket bytes are the engine's live chunk knob, as the JAX
+    binding reads them (``horovod_tpu/jax/optimizer.py:663-668``): once
+    the autotuner (or anyone) moves ``engine.pipeline_chunk_bytes`` away
+    from the config's, a new sharded optimizer buckets by the engine's."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+              "HOROVOD_PIPELINE_CHUNK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(basics, "_state", basics.GlobalState())
+    hvd.init(device="cpu")
+    try:
+        st = basics._get_state()
+        assert st.config.pipeline_chunk_bytes == 0
+        st.engine.pipeline_chunk_bytes = 40          # 10 float32 a bucket
+        p = [torch.zeros(10, requires_grad=True) for _ in range(4)]
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(p, lr=0.1),
+                                       sharded=True)
+        assert len(opt._plan.buckets) == 4
+        st.engine.pipeline_chunk_bytes = 0           # one bucket a group
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(p, lr=0.1),
+                                       sharded=True)
+        assert len(opt._plan.buckets) == 1
+    finally:
+        hvd.shutdown()
