@@ -201,7 +201,21 @@ Phases (any failure exits non-zero and prints no result line):
    log parses, the parameters bitwise across the ranks every step.  E9's
    pack and unpack launches are held to its chunk plan (the replicated
    mode's allreduces chunk under ``HOROVOD_PIPELINE_CHUNK``).
-13. The whole run's wall time, the kernels line (JSON), the card line, and
+13. Elastic training.  E11 (``--e11-worker``, after E10): the port's
+   elastic launcher (``--host-discovery-script "cat <hosts>" --min-np 1
+   --max-np 2 --ckpt-dir <tmp> --ckpt-chunk-mb 16``) over two loopback
+   host entries sharing the card over NCCL's sockets; Llama at full width
+   cut to E11_LAYERS, B=2, T=4096, replicated
+   ``DistributedOptimizer(AdamW)`` under ``TorchState`` and
+   ``@hvd.elastic.run``, committed after steps 1, 3, 5 and 7.  Generation
+   1 (size 2) trains steps 1-3 and rank 1 kills itself in step 4's
+   backward; generation 2 (size 1) is the survivor restored to step 3's
+   commit, training steps 4-5, which then adds a third host entry to the
+   host file; generation 3 (size 2) has the joiner restored from the
+   survivor's shard server, steps 6-7, then a clean exit.  Nine checks
+   (``e11_phase``) and the recovery, growth, commit, durable-write, peer
+   restore and step times.
+14. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -4315,6 +4329,473 @@ def e10_phase(torch, layers, seed, card, timeout_s=E10_TIMEOUT_S):
     return ok, dict(flash=flash, pack=pack, unpack=unpack)
 
 
+E11_LAYERS = 2
+E11_STEPS = 7
+E11_COMMITS = (1, 3, 5, 7)
+E11_KILL_STEP = 4        # generation 1's rank 1 dies in this step's backward
+E11_KILL_LEAF = "layers.0.wq"   # ... when this leaf's gradient is computed
+E11_LR = 1e-3            # AdamW, its state in the parameters' bf16
+E11_CHUNK_MB = 16        # --ckpt-chunk-mb
+E11_HOSTS = ("127.0.0.1:1", "127.0.0.2:1")
+E11_JOINER = "127.0.0.3:1"
+E11_MEM_TOL = 32 * 2**20     # check (7), like with like (see e11_phase)
+E11_TIMEOUT_S = 420
+
+
+def _staging_bytes(eng):
+    """The bytes of the engine's ping-pong staging buffers (the fast
+    lane, whose pins hold the others, is off in E11)."""
+    return sum(st.buf.numel() * st.buf.element_size()
+               for st in eng._staging.values() if st.buf is not None)
+
+
+def _opt_checksum(torch, opt):
+    """``_checksum`` over an optimizer's state tensors (AdamW's moments)."""
+    sd = opt.state_dict()["state"]
+    return _checksum(torch, [(f"{i}.{k}", v) for i in sorted(sd)
+                             for k, v in sorted(sd[i].items())
+                             if torch.is_tensor(v) and v.dim() > 0])
+
+
+def e11_worker(args):
+    """One worker of E11, started by the port's elastic driver (``python -m
+    horovod_tpu_torch.runner --host-discovery-script ...``), in every
+    generation it is part of: Llama at full width, ``args.train_layers``
+    deep, B=2, T=4096, replicated ``DistributedOptimizer(AdamW)`` under
+    ``TorchState`` and ``@hvd.elastic.run``, committed after the steps of
+    ``E11_COMMITS``.  Generation 1's rank 1 (``E11_HOSTS[1]``) kills itself
+    in step ``E11_KILL_STEP``'s backward; the survivor, alone after its
+    restore, appends ``E11_JOINER`` to the host file after step 5's commit
+    and waits for the driver's notice.  Every event goes, with its wall
+    time, to ``<dir>/<host>.jsonl``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.elastic import stateplane as spl
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = args.e11_worker
+    me = os.environ["HOROVOD_HOSTNAME"]
+    log = open(os.path.join(out, f"{me}.jsonl"), "a")
+    lock = threading.Lock()
+
+    def rec(**kw):
+        kw["t"] = time.time()
+        with lock:
+            log.write(json.dumps(kw) + "\n")
+            log.flush()
+
+    rec(ev="start")
+    hvd.init()
+    dev = hvd.device()
+    cfg = tl.llama3_8b(n_layers=args.train_layers)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 1))
+    named = list(tl.named_parameters(params))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([t for _, t in named], lr=E11_LR),
+        named_parameters=named)
+    step_fn = tl.make_train_step(cfg, opt)
+    state = hvd.elastic.TorchState(params=params, optimizer=opt, step=0)
+    restore = spl.maybe_restore
+
+    def timed_restore(st, plane):
+        t0 = time.time()
+        src = restore(st, plane)
+        rec(ev="restore", source=src, s=time.time() - t0,
+            disk_reads=plane.disk_reads, shards=plane.peer_shards_fetched,
+            epoch=plane.epoch, digest=plane.memory_state()[2])
+        return src
+
+    spl.maybe_restore = timed_restore
+
+    # A commit's parts on the train thread: the host copy (``save``), the
+    # encode and the digest, each summed over the commit.
+    train_tid = threading.get_ident()
+    parts = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            if threading.get_ident() != train_tid:
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    spl.encode_state = timed("encode", spl.encode_state)
+    spl.blob_digest = timed("digest", spl.blob_digest)
+    state.save = timed("save", state.save)
+
+    def kill(grad):
+        rec(ev="kill")
+        os._exit(1)
+
+    @hvd.elastic.run
+    def train(state):
+        size, rank = hvd.size(), hvd.rank()
+        eng = basics._get_state().engine
+        plane = state._stateplane
+        enter = dict(size=size, rank=rank, step=state.step,
+                     epoch=plane.epoch, source=plane.last_restore_source,
+                     t_enter=time.time(),
+                     mem=torch.cuda.memory_allocated(dev))
+        if size == 1:
+            # The survivor after the fault: the card completes the dead
+            # generation's work (its communicators were aborted), and the
+            # live state is the last commit's bytes.
+            t0 = time.time()
+            torch.cuda.synchronize()
+            enter["synchronize_s"] = time.time() - t0
+            t0 = time.time()
+            enter["digest"] = spl.blob_digest(spl.encode_state(
+                state._saved_state))
+            enter["digest_s"] = time.time() - t0
+            enter["commit_digest"] = plane.memory_state()[2]
+        rec(ev="enter", **enter)
+        _zero_flash(fa)
+        counts = dict(groups=0, pack=0, unpack=0)
+        while state.step < E11_STEPS:
+            rng = np.random.RandomState(args.seed + 100 * state.step + rank)
+            toks = torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+                    np.int64)).to(dev)
+            if (me == E11_HOSTS[1].split(":")[0] and size == 2
+                    and state.step == E11_KILL_STEP - 1):
+                dict(named)[E11_KILL_LEAF].register_hook(kill)
+            c0 = (eng.fused_groups, fusion.pack.launches,
+                  fusion.unpack.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step_fn(state.params, toks[:, :-1], toks[:, 1:]).item()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            for k, a, b in zip(counts, c0, (eng.fused_groups,
+                                            fusion.pack.launches,
+                                            fusion.unpack.launches)):
+                counts[k] += b - a
+            state.step += 1
+            sums = _checksum(torch, named) + _opt_checksum(torch, opt)
+            every = hvd.allgather_object(sums) if size > 1 else [sums]
+            rec(ev="step", step=state.step, size=size, rank=rank, loss=loss,
+                s=dt, sums=sums, same=all(x == sums for x in every),
+                flash=_flash_counts(fa), counts=dict(counts),
+                mem=torch.cuda.memory_allocated(dev),
+                staging=_staging_bytes(eng),
+                chunks=eng.ckpt_chunks_dispatched)
+            if state.step in E11_COMMITS:
+                parts.clear()
+                t0 = time.perf_counter()
+                try:
+                    state.commit()
+                finally:
+                    epoch, blob, digest = plane.memory_state()
+                    t1 = time.perf_counter()
+                    rec(ev="commit", step=state.step, size=size,
+                        epoch=epoch, digest=digest, s=t1 - t0,
+                        parts=dict(parts), blob=len(blob or b""))
+
+                    def durable(epoch=epoch, t0=t0, t1=t1):
+                        ok = plane.wait_durable(epoch, timeout=300)
+                        t = time.perf_counter()
+                        rec(ev="durable", epoch=epoch, ok=ok, s=t - t0,
+                            after=t - t1)
+
+                    threading.Thread(target=durable, daemon=True).start()
+            if size == 1 and state.step == 5:
+                with open(os.path.join(out, "hosts"), "a") as fh:
+                    fh.write(E11_JOINER + "\n")
+                rec(ev="grow")
+                t_end = time.time() + 120
+                while time.time() < t_end:
+                    state.check_host_updates()
+                    time.sleep(0.05)
+                raise RuntimeError("E11: the driver sent no host update")
+
+    train(state)
+    eng = basics._get_state().engine
+    hvd.shutdown()
+    rec(ev="done", step=state.step, chunks=eng.ckpt_chunks_dispatched)
+    return 0
+
+
+def _e11_events(out):
+    """Each worker's events, by host."""
+    ev = {}
+    for path in glob.glob(os.path.join(out, "*.jsonl")):
+        with open(path) as fh:
+            ev[os.path.basename(path)[:-6]] = [json.loads(ln) for ln in fh
+                                               if ln.strip()]
+    return ev
+
+
+def e11_phase(torch, layers, seed, card, timeout_s=E11_TIMEOUT_S):
+    """E11: elastic training through the port's elastic launcher on the
+    card.  Two loopback host entries share the card over NCCL's sockets
+    (``E11_HOSTS``); ``e11_worker`` trains Llama at full width, ``layers``
+    deep; generation 1 (size 2) loses rank 1 mid-backward, generation 2
+    (size 1) is the survivor restored to its last commit, generation 3
+    (size 2) adds ``E11_JOINER``, restored from the survivor's shard
+    server.  Checks: (1) parameters and AdamW state bitwise across the
+    ranks after every step; (2) the survivor's state after its restore is
+    the last commit's bytes (blob digest); (3) the joiner's restore came
+    from the peer, with no disk read, to the survivor's commit digest; (4)
+    the newest durable epoch's manifests are on disk for every rank, and a
+    disk-only restore decodes to the same digest; (5) finite losses; (6)
+    rank 0's launches each generation: each flash kernel layers x steps,
+    pack = unpack = the batches' dtype groups; (7) memory_allocated at the
+    first step of generation 3 (size 2) within ``E11_MEM_TOL`` of
+    generation 1's (size 2), and generation 2's (size 1) within it of
+    generation 1's less the staging bytes that size 2 holds and size 1
+    does not, each generation's staging measured;
+    (8) the survivor's torch.cuda.synchronize() returns after the fault;
+    (9) the driver exits 0 and only the killed worker exits non-zero.
+    Returns ``(ok, launches)``."""
+    import signal
+    import tempfile
+    import numpy as np
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from horovod_tpu_torch.elastic import stateplane as spl
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        hosts, ckpt = os.path.join(tmp, "hosts"), os.path.join(tmp, "ckpt")
+        with open(hosts, "w") as fh:
+            fh.write("\n".join(E11_HOSTS) + "\n")
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner",
+               "--host-discovery-script", f"cat {hosts}", "--min-np", "1",
+               "--max-np", "2", "--ckpt-dir", ckpt, "--ckpt-chunk-mb",
+               str(E11_CHUNK_MB), "--output-filename",
+               os.path.join(tmp, "logs"), "-v", sys.executable,
+               os.path.abspath(__file__), "--train-layers", str(layers),
+               "--seed", str(seed), "--e11-worker", tmp]
+        print(f"e11: python {' '.join(cmd[1:cmd.index('-v') + 1])} python "
+              f"chip_smoke.py --e11-worker {tmp} (hosts: "
+              f"{', '.join(E11_HOSTS)}, then {E11_JOINER})", flush=True)
+        t0 = time.time()
+        with open(os.path.join(tmp, "driver.log"), "w") as dlog:
+            driver = subprocess.Popen(cmd, cwd=here, env=env, stdout=dlog,
+                                      stderr=subprocess.STDOUT,
+                                      start_new_session=True)
+            try:
+                rc = driver.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                rc = None
+            finally:
+                if driver.poll() is None:
+                    os.killpg(driver.pid, signal.SIGKILL)
+                    driver.wait()
+        wall = time.time() - t0
+        with open(os.path.join(tmp, "driver.log")) as fh:
+            dtext = fh.read()
+        ev = _e11_events(tmp)
+        if rc != 0:
+            tail = dtext[-4000:]
+            for r in sorted(glob.glob(os.path.join(tmp, "logs", "*", "*"))):
+                with open(r) as fh:
+                    tail += f"\n--- {os.path.relpath(r, tmp)}\n" + \
+                        fh.read()[-6000:]
+            print(f"e11: the elastic run failed (driver rc {rc}, "
+                  f"{wall:.1f} s); the end of its output:\n{tail}",
+                  flush=True)
+            return False, None
+        surv, dead = E11_HOSTS[0].split(":")[0], E11_HOSTS[1].split(":")[0]
+        join = E11_JOINER.split(":")[0]
+        s_ev, d_ev, j_ev = ev.get(surv, []), ev.get(dead, []), \
+            ev.get(join, [])
+
+        def of(evs, kind, **kw):
+            return [e for e in evs if e["ev"] == kind
+                    and all(e.get(k) == v for k, v in kw.items())]
+
+        # The survivor's generations: its "enter" events split its log.
+        gens, cur = [], None
+        for e in s_ev:
+            if e["ev"] == "enter":
+                cur = dict(enter=e, steps=[], commits=[])
+                gens.append(cur)
+            elif cur is not None and e["ev"] == "step":
+                cur["steps"].append(e)
+            elif cur is not None and e["ev"] == "commit":
+                cur["commits"].append(e)
+        ok = True
+        results = []
+
+        def check(n, good, text):
+            nonlocal ok
+            ok = ok and good
+            results.append(good)
+            print(f"e11 ({n}): {text} -> {'PASS' if good else 'FAIL'}",
+                  flush=True)
+
+        sizes = [g["enter"]["size"] for g in gens]
+        steps_of = [[s["step"] for s in g["steps"]] for g in gens]
+        shape_ok = (sizes == [2, 1, 2]
+                    and steps_of == [[1, 2, 3], [4, 5], [6, 7]])
+        print(f"e11: the survivor's generations: sizes {sizes}, steps "
+              f"{steps_of}; the killed worker's last step "
+              f"{max([s['step'] for s in of(d_ev, 'step')] or [0])}, kill "
+              f"event {bool(of(d_ev, 'kill'))}; the joiner's steps "
+              f"{[s['step'] for s in of(j_ev, 'step')]} -> "
+              f"{'PASS' if shape_ok else 'FAIL'}", flush=True)
+        ok = ok and shape_ok and len(gens) == 3
+        if not (shape_ok and len(gens) == 3):
+            return False, None
+        g1, g2, g3 = gens
+        # (1)
+        pairs = ([(s, of(d_ev, "step", step=s["step"])) for s in
+                  g1["steps"]] + [(s, of(j_ev, "step", step=s["step"]))
+                                  for s in g3["steps"]])
+        same = all(s["same"] and o and o[0]["sums"] == s["sums"]
+                   and o[0]["same"] for s, o in pairs)
+        check(1, same, f"parameters and AdamW state bitwise across the two "
+              f"ranks after steps {[s['step'] for s, _ in pairs]} "
+              f"(checksums exchanged by allgather_object, and the logs "
+              f"agree)")
+        # (2)
+        e2 = g2["enter"]
+        check(2, e2["digest"] == e2["commit_digest"]
+              and e2["step"] == 3 and e2["epoch"] == g1["commits"][-1][
+                  "epoch"],
+              f"the survivor restored step {e2['step']}'s commit (epoch "
+              f"{e2['epoch']}): its state's blob digest {e2['digest']} "
+              f"= the commit's {e2['commit_digest']} (encode + digest "
+              f"{e2['digest_s']:.1f} s)")
+        # (3)
+        jr = of(j_ev, "restore")
+        sc = g2["commits"][-1]
+        good = bool(jr) and jr[0]["source"] == "peer" \
+            and jr[0]["disk_reads"] == 0 and jr[0]["digest"] == \
+            sc["digest"] and jr[0]["epoch"] == sc["epoch"]
+        check(3, good, f"the joiner restored epoch "
+              f"{jr[0]['epoch'] if jr else None} from "
+              f"{jr[0]['source'] if jr else None} ({jr[0]['shards'] if jr else 0}"
+              f" shard(s), {jr[0]['disk_reads'] if jr else None} disk reads) "
+              f"in {jr[0]['s'] if jr else 0:.1f} s, digest "
+              f"{jr[0]['digest'] if jr else None} = the survivor's step-5 "
+              f"commit {sc['digest']}")
+        # (4)
+        epoch = spl.latest_complete_epoch(ckpt)
+        mans = spl.epoch_manifests(ckpt, epoch) if epoch is not None else None
+        last = g3["commits"][-1]
+        t_d = time.time()
+        plane = spl.StatePlane(ckpt, serve=False)
+        data, depoch, source = plane.restore()
+        # The digest the restore verified of the bytes it decoded.
+        disk_digest = plane.memory_state()[2]
+        keys = sorted(data)
+        t_d = time.time() - t_d
+        del data, plane
+        good = (mans is not None and len(mans) == 2
+                and sorted(m["rank"] for m in mans) == [0, 1]
+                and epoch == last["epoch"] == depoch and source == "disk"
+                and disk_digest == last["digest"]
+                == mans[0]["blob_digest"]
+                and keys == ["optimizer", "params", "step"])
+        check(4, good, f"epoch {epoch} is the newest complete on disk with "
+              f"{len(mans or [])} manifests (world "
+              f"{mans[0]['world'] if mans else None}); a disk-only restore "
+              f"({len(mans or [])} shard files read, verified and decoded "
+              f"to {keys} in {t_d:.1f} s) gives digest {disk_digest} = the "
+              f"last commit's {last['digest']}")
+        # (5)
+        losses = [s["loss"] for g in gens for s in g["steps"]] + \
+            [s["loss"] for s in of(d_ev, "step") + of(j_ev, "step")]
+        check(5, all(np.isfinite(losses)),
+              f"losses {[round(x, 4) for x in losses]} finite")
+        # (6)
+        launches = []
+        good = True
+        for i, g in enumerate(gens):
+            last_s = g["steps"][-1]
+            n = len(g["steps"])
+            fl, c = last_s["flash"], last_s["counts"]
+            launches.append(fl + [c["pack"], c["unpack"]])
+            good = good and fl == [layers * n] * 3 and c["pack"] == \
+                c["unpack"] == c["groups"] > 0
+        check(6, good, "rank 0's launches a generation, [fwd, dq, dkv, pack, "
+              f"unpack]: {launches} over {[len(g['steps']) for g in gens]} "
+              f"steps of {layers} layers; dtype groups "
+              f"{[g['steps'][-1]['counts']['groups'] for g in gens]}")
+        # (7) Like with like: generation 3 against generation 1 (both
+        # size 2); generation 2 (size 1) against generation 1 less the
+        # staging bytes the sizes differ by.  A dead generation's leak
+        # shows as a difference above the limit.
+        mems = [g["steps"][0]["mem"] for g in gens]
+        stag = [g["steps"][0]["staging"] for g in gens]
+        want2 = mems[0] - (stag[0] - stag[1])
+        d3, d2 = mems[2] - mems[0], mems[1] - want2
+        check(7, abs(d3) <= E11_MEM_TOL and abs(d2) <= E11_MEM_TOL,
+              f"memory_allocated at each generation's first step "
+              f"{[m / 2**30 for m in mems]} GiB, the engine's staging "
+              f"{[b / 2**30 for b in stag]} GiB; generation 3 - "
+              f"generation 1 = {d3 / 2**20:+.3f} MiB, generation 2 - "
+              f"(generation 1 - the staging it lacks, "
+              f"{want2 / 2**30:.6f} GiB) = {d2 / 2**20:+.3f} MiB (each "
+              f"within {E11_MEM_TOL / 2**20:.0f} MiB; at each "
+              f"generation's entry "
+              f"{[g['enter']['mem'] / 2**30 for g in gens]} GiB)")
+        # (8)
+        check(8, "synchronize_s" in e2,
+              f"the survivor's torch.cuda.synchronize() after the fault "
+              f"returned in {e2.get('synchronize_s', float('nan')):.3f} s")
+        # (9)
+        fails = re.findall(r"elastic driver: (\S+) failed rc=(-?\d+)", dtext)
+        check(9, rc == 0 and fails == [(f"{dead}:0", "1")]
+              and bool(of(s_ev, "done")) and bool(of(j_ev, "done")),
+              f"driver rc {rc}; non-zero worker exits {fails}; the survivor "
+              f"and the joiner finished")
+        # Times.
+        kill_t = of(d_ev, "kill")[0]["t"]
+        rec_s = g2["steps"][0]["t"] - g2["steps"][0]["s"] - kill_t
+        entry_s = e2["t_enter"] - kill_t
+        grow_t = of(s_ev, "grow")[0]["t"]
+        grow_s = g3["steps"][0]["t"] - g3["steps"][0]["s"] - grow_t
+        commits = [(c["step"], c["size"], round(c["s"], 3))
+                   for c in of(s_ev, "commit")]
+        cparts = [(c["step"], round(c["parts"].get("save", 0.0), 3),
+                   round(c["parts"].get("encode", 0.0), 3),
+                   round(c["parts"].get("digest", 0.0), 3),
+                   round(c["blob"] / 1e9 / c["parts"]["digest"], 3)
+                   if c["parts"].get("digest") else None)
+                  for c in of(s_ev, "commit")]
+        durable = [(d["epoch"], d["ok"], round(d["after"], 3))
+                   for d in of(s_ev, "durable")]
+        print(f"e11 times [{card}; NCCL's socket transport on one card]: "
+              f"recovery (kill -> generation 2's first step starts) "
+              f"{rec_s:.2f} s, of which the checks (2) and (8) "
+              f"{e2['synchronize_s'] + e2['digest_s']:.2f} s (kill -> the "
+              f"train function's entry {entry_s:.2f} s); growth (host file "
+              f"-> generation 3's first "
+              f"step starts) {grow_s:.2f} s; commit() on the train thread "
+              f"(step, size, s) {commits}, its parts (step, the host copy "
+              f"save() s, encode_state s, blob_digest s, blob_digest GB/s "
+              f"over the {of(s_ev, 'commit')[0]['blob'] / 1e9:.3f} GB "
+              f"blob) {cparts}; the durable write, commit's "
+              f"return -> wait_durable (epoch, ok, s) {durable}; the "
+              f"joiner's peer restore "
+              f"{jr[0]['s']:.2f} s; steps (s) a generation "
+              + "; ".join(", ".join(f"{s['s']:.3f}" for s in g["steps"])
+                          for g in gens)
+              + f"; ckpt_chunks_dispatched at each generation's last step "
+              f"{[g['steps'][-1]['chunks'] for g in gens]}, at the end "
+              f"{of(s_ev, 'done')[0]['chunks']} (survivor) and "
+              f"{of(j_ev, 'done')[0]['chunks']} (joiner); the whole run "
+              f"{wall:.1f} s", flush=True)
+        print(f"e11: {sum(results)}/9 checks -> "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        total = [sum(x[k] for x in launches) for k in range(5)]
+        return ok, dict(flash=total[:3], pack=total[3], unpack=total[4])
+
+
 def trace_ab_phase(torch, hvd, grads, iters=5):
     """The size-1 counterpart of the JAX bench's trace A/B: the engine's
     grouped allreduce of the gradient set with the tracer detached (the
@@ -4388,6 +4869,8 @@ def main():
                     help=argparse.SUPPRESS)   # one rank of E10 (a, b, d)
     ap.add_argument("--e10-tune-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of E10 (c)
+    ap.add_argument("--e11-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one worker of E11
     args = ap.parse_args()
 
     import torch
@@ -4426,6 +4909,8 @@ def main():
         return e10_worker(args)
     if args.e10_tune_worker:
         return e10_tune_worker(args)
+    if args.e11_worker:
+        return e11_worker(args)
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4515,6 +5000,9 @@ def main():
     t_e10 = time.time()
     e10_ok, e10 = e10_phase(torch, E10_LAYERS, args.seed, card)
     print(f"e10: the phase in {time.time() - t_e10:.1f} s", flush=True)
+    t_e11 = time.time()
+    e11_ok, e11 = e11_phase(torch, E11_LAYERS, args.seed, card)
+    print(f"e11: the phase in {time.time() - t_e11:.1f} s", flush=True)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -4531,21 +5019,23 @@ def main():
     f8 = e8["flash"] if e8 else [0, 0, 0]
     f9 = e9["flash"] if e9 else [0, 0, 0]
     f10 = e10["flash"] if e10 else [0, 0, 0]
+    f11 = e11["flash"] if e11 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
-                + e5[0] + m6[0] + f8[0] + f9[0] + f10[0],
+                + e5[0] + m6[0] + f8[0] + f9[0] + f10[0] + f11[0],
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
-                + m6[1] + f8[1] + f9[1] + f10[1],
+                + m6[1] + f8[1] + f9[1] + f10[1] + f11[1],
                 "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
-                + m6[2] + f8[2] + f9[2] + f10[2]}
+                + m6[2] + f8[2] + f9[2] + f10[2] + f11[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
           f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
           f"size 2) + {f8[0]} observability (E8, rank 0) + {f9[0]} ZeRO "
-          f"(E9, rank 0) + {f10[0]} data-plane depth (E10, rank 0); "
+          f"(E9, rank 0) + {f10[0]} data-plane depth (E10, rank 0) + "
+          f"{f11[0]} elastic (E11, rank 0 of each generation); "
           f"flash_bwd_dq {train_launches['flash_bwd_dq']} + {e5[1]} + "
-          f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]}, flash_bwd_dkv "
-          f"{train_launches['flash_bwd_dkv']} + {e5[2]} + {m6[2]} + "
-          f"{f8[2]} + {f9[2]} + {f10[2]}", flush=True)
+          f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]} + {f11[1]}, "
+          f"flash_bwd_dkv {train_launches['flash_bwd_dkv']} + {e5[2]} + "
+          f"{m6[2]} + {f8[2]} + {f9[2]} + {f10[2]} + {f11[2]}", flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
@@ -4569,7 +5059,7 @@ def main():
              ring_tflops=fwd_ring["tflops"],
              **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS},
              launches_e6=m6[0], launches_e8=f8[0], launches_e9=f9[0],
-             launches_e10=f10[0],
+             launches_e10=f10[0], launches_e11=f11[0],
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
     ] + [
@@ -4594,6 +5084,7 @@ def main():
              launches_e8=f8[1 if g == "dq" else 2],
              launches_e9=f9[1 if g == "dq" else 2],
              launches_e10=f10[1 if g == "dq" else 2],
+             launches_e11=f11[1 if g == "dq" else 2],
              **{f"{m}_{k}": bwd_by_name[case][g][k]
                 for m, case in MODEL_CASES.items() for k in _CASE_KEYS
                 if k in bwd_by_name[case][g]},
@@ -4625,13 +5116,15 @@ def main():
             design=design,
             launches=(two[kern] if two else 0) + (four[kern] if four else 0)
             + (e6[kern] if e6 else 0) + (e8[kern] if e8 else 0)
-            + (e9[kern] if e9 else 0) + (e10[kern] if e10 else 0),
+            + (e9[kern] if e9 else 0) + (e10[kern] if e10 else 0)
+            + (e11[kern] if e11 else 0),
             launches_e3=two[kern] if two else 0,
             launches_e4=four[kern] if four else 0,
             launches_e6=e6[kern] if e6 else 0,
             launches_e8=e8[kern] if e8 else 0,
             launches_e9=e9[kern] if e9 else 0,
             launches_e10=e10[kern] if e10 else 0,
+            launches_e11=e11[kern] if e11 else 0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"],
@@ -4658,7 +5151,7 @@ def main():
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and adasum_ok and e7_ok and e8_ok and e9_ok
-                        and e10_ok and kern["launches"] > 0)
+                        and e10_ok and e11_ok and kern["launches"] > 0)
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4666,7 +5159,7 @@ def main():
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
-            and e10_ok and all(k["pass"] for k in kernels)):
+            and e10_ok and e11_ok and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
               f", engine ok={engine_ok} (module loading {loading_ok}, "
@@ -4677,7 +5170,8 @@ def main():
               f"{resnet_ok}, transformers {tf_ok}, two ranks {e6_ok}), "
               f"adasum kernels ok={adasum_ok}, four ranks (E7) ok={e7_ok}, "
               f"observability (E8, trace A/B {ab_ok}) ok={e8_ok}, ZeRO (E9) "
-              f"ok={e9_ok}, data-plane depth (E10) ok={e10_ok}")
+              f"ok={e9_ok}, data-plane depth (E10) ok={e10_ok}, elastic "
+              f"(E11) ok={e11_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

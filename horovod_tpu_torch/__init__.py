@@ -13,7 +13,10 @@ the pack and unpack kernels), the rest of the collectives a world above
 one rank uses (allgather, alltoall, reducescatter, join) with
 ``SyncBatchNorm``, the launcher, ``python -m horovod_tpu_torch.runner``,
 and the ZeRO-sharded optimizer (``DistributedOptimizer(sharded=True)`` and
-``sharded="full"``) with its saveables.
+``sharded="full"``) with its saveables, and elastic training
+(``hvd.elastic``: the elastic driver behind ``--host-discovery-script``,
+``TorchState``, ``@hvd.elastic.run``, the state plane's sharded
+checkpoints and peer restore).
 """
 
 from .common.basics import (  # noqa: F401
@@ -43,4 +46,5 @@ from .optimizer import (  # noqa: F401
     DistributedOptimizer, is_sharded_saveable, load_sharded_saveable,
 )
 from .sync_batch_norm import SyncBatchNorm  # noqa: F401
+from . import elastic  # noqa: F401
 from . import serve  # noqa: F401

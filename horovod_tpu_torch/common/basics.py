@@ -52,7 +52,25 @@ best-effort, as in the JAX package).  The engine arms its tracer from
 card with ``torch.profiler`` into a Chrome trace, the counterpart of the
 JAX package's ``jax.profiler`` trace.
 
-Elastic membership and the hierarchical controller are not ported.
+Elastic membership (``HOROVOD_ELASTIC=1``, set by the elastic driver,
+``elastic/driver.py``), as the JAX ``init()``/``shutdown()`` do it
+(:96-98, 119-131, 321-370): ``init()`` first fetches the next generation's
+assignment from the driver's rendezvous (``elastic/worker.py``
+``elastic_bootstrap``, which sets the env read below), forms the world
+with an explicit collective timeout, and seeds the controller with the
+zero-RTT streak the last generation carried (``_elastic_carry``).
+``shutdown()`` after a fault aborts every communicator of the generation
+before it stops the engine (``worker.teardown_distributed``): a collective
+kernel waiting for a dead peer keeps spinning on the card until its
+communicator is aborted, and the engine's in-flight window waits on it.  A
+clean LEAVE (ours, or a peer's) aborts the groups too; a whole world
+ending together destroys them.  Either way every process group the
+generation made (the global one, the subsets, the two-level groups) is
+gone before the next ``init()``, process sets of the dead generation are
+unregistered, and a mesh made in it refuses to run
+(``parallel/mesh.py``).
+
+The hierarchical controller is not ported.
 """
 
 from __future__ import annotations
@@ -99,10 +117,25 @@ class GlobalState:
         self.timeline = None         # utils.timeline.Timeline
         self.monitor = None          # monitor.agent.MonitorAgent
         self.process_set_table = ProcessSetTable()
+        # Counts init()s: what a mesh made in an earlier generation of an
+        # elastic world checks against.
+        self.generation = 0
+        # The device init() was asked for (None: the card of the local
+        # rank); an elastic reset asks the same.
+        self.requested_device = None
         self._lock = threading.Lock()
 
 
 _state = GlobalState()
+
+# Zero-RTT streak carryover across elastic generations (the JAX package's
+# ``_elastic_carry``): the engagement hint a clean shutdown captures, which
+# the next generation's controller starts from; a fault clears it.
+_elastic_carry = {"spec_seed": 0}
+
+
+def _env_has_rendezvous() -> bool:
+    return bool(os.environ.get("HOROVOD_RENDEZVOUS_ADDR"))
 
 
 def _get_state() -> GlobalState:
@@ -175,6 +208,14 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
     with st._lock:
         if st.initialized:
             return
+        # Elastic workers fetch rank, size and the controller's ports from
+        # the driver's versioned rendezvous: the bootstrap writes them
+        # into the env read below, and returns the config with this
+        # rank's output file names.
+        boot = None
+        if Config.from_env().elastic and _env_has_rendezvous():
+            from ..elastic.worker import elastic_bootstrap
+            boot = elastic_bootstrap()
         size = _env_int("HOROVOD_SIZE", 1)
         rank = _env_int("HOROVOD_RANK", 0)
         local_rank = _env_int("HOROVOD_LOCAL_RANK", 0)
@@ -192,6 +233,7 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                     "can deadlock the ranks.  Start the process with "
                     "CUDA_MODULE_LOADING=EAGER, as the port's launcher "
                     "does.", RuntimeWarning, stacklevel=2)
+        st.requested_device = device
         st.owns_process_group = False
         if size > 1:
             import torch.distributed as dist
@@ -202,10 +244,15 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                     raise RuntimeError(
                         f"HOROVOD_SIZE={size} needs HOROVOD_CONTROLLER_ADDR "
                         f"and HOROVOD_CONTROLLER_PORT to form the world")
-                dist.init_process_group(
-                    backend="nccl" if dev.type == "cuda" else "gloo",
-                    init_method=f"tcp://{addr}:{port}",
-                    world_size=size, rank=rank)
+                backend = "nccl" if dev.type == "cuda" else "gloo"
+                if boot is not None:
+                    from ..elastic.worker import init_distributed_resilient
+                    init_distributed_resilient(backend, addr, port, size,
+                                               rank)
+                else:
+                    dist.init_process_group(
+                        backend=backend, init_method=f"tcp://{addr}:{port}",
+                        world_size=size, rank=rank)
                 st.owns_process_group = True
         st.rank, st.size = rank, size
         st.local_rank, st.local_size = local_rank, local_size
@@ -216,7 +263,7 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         # Rebind the module-level global_process_set singleton.
         global_process_set.__dict__.update(gs.__dict__)
         st.process_set_table._sets[0] = global_process_set
-        cfg = st.config = Config.from_env()
+        cfg = st.config = boot if boot is not None else Config.from_env()
         from ..utils.timeline import Timeline
         st.timeline = Timeline(cfg.timeline_filename,
                                mark_cycles=cfg.timeline_mark_cycles)
@@ -234,6 +281,7 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                     f"HOROVOD_SIZE={size} needs HOROVOD_CONTROLLER_ADDR "
                     f"and HOROVOD_CONTROLLER_PORT for the negotiation "
                     f"controller")
+            carry = _elastic_carry["spec_seed"] if cfg.elastic else 0
             st.controller = TCPController(
                 cfg.controller_addr,
                 cfg.controller_port2 or cfg.controller_port + 1,
@@ -245,7 +293,8 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                 connect_retries=cfg.connect_retries,
                 connect_backoff_ms=cfg.connect_backoff_ms,
                 spec_ready_after=cfg.spec_ready_after,
-                round_pipeline=cfg.round_pipeline)
+                round_pipeline=cfg.round_pipeline,
+                spec_seed=carry, spec_streak_hint=carry)
             st.engine.controller = st.controller
         if cfg.monitor:
             # Installed before engine.start() so that the very first cycle
@@ -266,6 +315,7 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                         "monitor: could not bind HTTP port %d (%s); "
                         "exporter disabled", cfg.monitor_port, exc)
         st.engine.start()
+        st.generation += 1
         st.initialized = True
 
 
@@ -282,10 +332,13 @@ def _make_group(ranks):
 
 def shutdown() -> None:
     """Stop the engine and the controller, then leave the world, in the
-    JAX package's order (``horovod_tpu/common/basics.py:278-345``): quiesce
+    JAX package's order (``horovod_tpu/common/basics.py:278-370``): quiesce
     the cycle thread at a round boundary, announce a clean LEAVE on the
     quiet socket, sever the socket, stop the engine (settling every
-    waiter), close the controller."""
+    waiter), close the controller, then tear the world down.  After a
+    fault the world's communicators are aborted before the engine stops:
+    its in-flight window waits on the card, where a collective of the dead
+    generation spins until its communicator is aborted."""
     st = _state
     with st._lock:
         if not st.initialized:
@@ -293,15 +346,25 @@ def shutdown() -> None:
         eng, ctl = st.engine, st.controller
         # A control-plane fault (dead peer — HVD303) means no clean LEAVE.
         abrupt = eng is not None and eng.fault is not None
+        # Peers that departed by a clean LEAVE: not a fault, but they will
+        # take part in no teardown of the world.
+        peers_left = bool(getattr(ctl, "left_ranks", None))
+        leave_sent = False
         if ctl is not None and eng is not None and not abrupt:
             # A wedged thread (a peer already died) falls back to the sever
             # below; a healthy world's in-flight round completes first.
             if eng.quiesce(timeout=5.0) and eng.fault is None:
-                ctl.leave()
+                leave_sent = bool(ctl.leave())
+            else:
+                abrupt = eng.fault is not None
         if ctl is not None:
             # Unblock any lock-step round FIRST so the engine thread can't
             # be left inside the native client when we free it.
             ctl.interrupt()
+        elastic = st.config is not None and st.config.elastic
+        if st.owns_process_group and abrupt:
+            from ..elastic.worker import teardown_distributed
+            teardown_distributed(abrupt=True)
         if eng is not None:
             eng.stop()
             st.engine = None
@@ -309,16 +372,34 @@ def shutdown() -> None:
             st.monitor.close()
             st.monitor = None
         if ctl is not None:
+            if elastic:
+                # The zero-RTT hint the next generation starts from; a
+                # faulted generation carries nothing.
+                try:
+                    _elastic_carry["spec_seed"] = (
+                        0 if abrupt else ctl.spec_carry_hint())
+                except Exception:  # noqa: BLE001 - telemetry only
+                    _elastic_carry["spec_seed"] = 0
             ctl.shutdown()
             st.controller = None
         if st.timeline is not None:
             st.timeline.close()
             st.timeline = None
-        if st.owns_process_group:
-            import torch.distributed as dist
-            if dist.is_initialized():
-                dist.destroy_process_group()
+        if st.owns_process_group and not abrupt:
+            from ..elastic.worker import teardown_distributed
+            # In an elastic world a clean LEAVE, ours or a peer's, leaves
+            # ranks that take no part in a destroy: abort, as after a
+            # fault.  A world ending together destroys its groups.
+            teardown_distributed(
+                abrupt=elastic and (leave_sent or peers_left))
         st.owns_process_group = False
+        # Sets of this generation name groups that are gone: unregister
+        # them, so that a later call with one raises instead of running on
+        # a dead group (the global set is rebound at init()).
+        for ps in st.process_set_table.all_sets():
+            if ps.process_set_id not in (None, 0):
+                ps.process_set_id = None
+                ps.group = None
         st.process_set_table = ProcessSetTable()
         st.device = None
         st.topology = None

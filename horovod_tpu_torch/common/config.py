@@ -6,7 +6,8 @@
 # (:276-299) with pipeline_chunk_bytes (:128), and their parsing (:416,
 # :448-450); the fast lane's and partitioning's thresholds (:132-144), the
 # checkpoint lane's chunk and budget (:272-273) and the autotuner's fields
-# (:372-376), and their parsing (:418-419, :445-446, :477-481).
+# (:372-376), and their parsing (:418-419, :445-446, :477-481); ckpt_dir and
+# elastic (:258-271, 407) and their parsing (:444, 497).
 """Environment-variable configuration surface.
 
 TPU-native equivalent of the reference's env parser
@@ -109,6 +110,9 @@ class Config:
     - ``autotune_warmup_samples``  <- HOROVOD_AUTOTUNE_WARMUP_SAMPLES
     - ``autotune_steps_per_sample``<- HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE
     - ``autotune_max_evals``       <- HOROVOD_AUTOTUNE_MAX_EVALS
+    - ``elastic``                  <- HOROVOD_ELASTIC (set by the elastic
+      driver for its workers)
+    - ``ckpt_dir``                 <- HOROVOD_CKPT_DIR (arms the state plane)
     """
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
@@ -153,6 +157,18 @@ class Config:
     # bounds the items the engine runs at the tail of one cycle.
     ckpt_chunk_bytes: int = 1 << 20
     ckpt_lane_budget: int = 2
+
+    # Resilient state plane (elastic/stateplane.py).  HOROVOD_CKPT_DIR
+    # arms overlap-scheduled sharded checkpoints: on every elastic-state
+    # commit each rank streams its 1/N shard of the serialized state
+    # through the engine's checkpoint lane (two-phase manifest) and serves
+    # the committed epoch to re-joining ranks peer-to-peer (disk is the
+    # fallback).
+    ckpt_dir: str = ""
+
+    # Elastic (HOROVOD_ELASTIC=1: init() takes its assignment from the
+    # driver's rendezvous).
+    elastic: bool = False
 
     # Online autotuning (ops/autotune.py): HOROVOD_AUTOTUNE arms the
     # parameter manager, HOROVOD_AUTOTUNE_LOG is its CSV log.
@@ -277,6 +293,8 @@ class Config:
             partition_threshold_bytes=_env_int("PARTITION_THRESHOLD", 0),
             ckpt_chunk_bytes=_env_int("CKPT_CHUNK", 1 << 20),
             ckpt_lane_budget=_env_int("CKPT_LANE_BUDGET", 2),
+            ckpt_dir=_env("CKPT_DIR", "") or "",
+            elastic=_env_bool("ELASTIC", False),
             autotune=_env_bool("AUTOTUNE", False),
             autotune_log=_env("AUTOTUNE_LOG", "") or "",
             autotune_warmup_samples=_env_int("AUTOTUNE_WARMUP_SAMPLES", 3),

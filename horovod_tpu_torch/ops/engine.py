@@ -2,7 +2,8 @@
 # TensorTableEntry 68-148 (with the sharded 88-98, prefetch 117-126, fast-
 # lane 113-118, cache-slot 127-134 and partition 135-141 fields, without the
 # donation field), _SPAN_DROPPED/_live_span 178-184, _fusion_key 151-169,
-# the pipeline, fast-lane, partition and checkpoint-lane state 218-275, the
+# the pipeline, fast-lane, partition and checkpoint-lane state 218-275 (with
+# the state plane's obtain 273-283 and detach 475-485), the
 # prefetch counters 320-325, the cycle and negotiation accounting 350-377,
 # the tracer 378-386 and 471-474, the autotuner 406-413, the monitor's fault
 # hook 557-564, the timeline lanes and trace stamps 576-587, 682-685,
@@ -162,7 +163,9 @@ The data plane's depth, each off by default as in the JAX engine:
   dtype group, reused and grown to the largest batch.
 - The checkpoint lane (``submit_checkpoint_io``): ``CheckpointChunk``
   items run at the tail of a cycle, after every gradient batch, at most
-  ``HOROVOD_CKPT_LANE_BUDGET`` a cycle.
+  ``HOROVOD_CKPT_LANE_BUDGET`` a cycle.  Their user is the state plane
+  (``HOROVOD_CKPT_DIR``, ``elastic/stateplane.py``), obtained in the
+  constructor and detached, never closed, at ``stop``.
 - The autotuner (``HOROVOD_AUTOTUNE``, ``ops/autotune.py``): fed once a
   cycle that carried work; its agreement broadcast is enqueued into this
   engine, dispatched like any batch and settled where it is dispatched,
@@ -609,13 +612,21 @@ class CollectiveEngine:
         # The checkpoint lane: items staged by submitting threads (own
         # lock; the cycle thread folds them into the backlog, its only
         # mutator), run at each cycle's tail after every gradient batch.
-        # The state plane that submits them is not ported (ROADMAP queue
-        # 1 item 6): ``stateplane`` stays None.
         self._ckpt_staging: List = []
         self._ckpt_staging_lock = threading.Lock()
         self.ckpt_lane_budget = max(1, int(cfg.ckpt_lane_budget))
         self.ckpt_chunks_dispatched = 0
         self.stateplane = None
+        if cfg.ckpt_dir:
+            # One plane per directory per PROCESS (stateplane.obtain): it
+            # survives elastic re-init — a survivor's in-memory epoch is
+            # exactly what a re-joining rank restores from, so it must
+            # outlive the generation.  It submits the lane's items.
+            from ..elastic.stateplane import obtain as _obtain_plane
+            self.stateplane = _obtain_plane(
+                cfg.ckpt_dir, rank=getattr(state, "rank", 0),
+                world=getattr(state, "size", 1), engine=self,
+                chunk_bytes=cfg.ckpt_chunk_bytes)
         # The two-level data plane's knobs (read by the verdicts on every
         # dispatch), its cached slice topology per process set, and its
         # groups (``_make_hier_groups``).
@@ -784,14 +795,25 @@ class CollectiveEngine:
             # synchronize() must never outlive the watcher unsignalled.
             self._inflight.stop()
             self._inflight = None
-        if self._unread:
+        if self._unread and self._fault is None:
             # Inline-settled batches whose card time is still unread: the
-            # engine is going, so wait for them here.
+            # engine is going, so wait for them here (not after a fault:
+            # the card may never finish a dead generation's work).
             self._read_timings(wait=True)
         if self.tracer is not None:
             # After the ring: settling commits spans, and the trace file
             # must hold them all before the final flush.
             self.tracer.close()
+        if self.stateplane is not None:
+            # After the backlog drain above: any in-flight durable write
+            # has finished (or failed with attribution).  DETACH, never
+            # close — the plane (its shard server + in-memory epoch)
+            # survives the engine, so a re-joining rank can still restore
+            # from this survivor while the world re-forms.  Commits
+            # between generations write inline.
+            if self.stateplane.engine is self:
+                self.stateplane.engine = None
+            self.stateplane = None
 
     def _abort_engine(self, exc: BaseException, busy: bool = False):
         """Clean engine shutdown on a control-plane fault (HVD303).

@@ -103,8 +103,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._should_synchronize = True
         self._allreduce_delay = {}
 
-        if basics.size() > 1:
+        # In an elastic job the hooks are registered at any size (the
+        # reference's rule): a world of one may grow, and the optimizer
+        # outlives the generation that made it.
+        if basics.size() > 1 or _elastic():
             self._register_hooks()
+
+    def _reset_handles(self):
+        """Forget the gradient handles of a dead generation (an elastic
+        reset): their engine is gone, and the next step starts afresh."""
+        self._handles.clear()
+        for p in self._allreduce_delay:
+            self._allreduce_delay[p] = self.backward_passes_per_step
+        self._synchronized = False
 
     # ----------------------------------------------------------- hooks
     def _register_hooks(self):
@@ -189,7 +200,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def synchronize(self):
         """Wait for all outstanding gradient allreduces and write the
         averaged gradients back (reference: ``synchronize()``)."""
-        if basics.size() <= 1:
+        if not self._requires_update:
+            # No hook registered: a world of one outside an elastic job.
             self._synchronized = True
             return
         # Params whose hook never fired this step (e.g. unused branch):
@@ -713,6 +725,13 @@ def load_sharded_saveable(saved, rank: int, world: int):
     if saved.get("__hvd_full_sharded__") == 1:
         shards = [[reslice(s) for s in b] for b in saved["param_shards"]]
     return ShardedState(plan, inner, shards)
+
+
+def _elastic() -> bool:
+    """Whether this process is an elastic job's worker, as ``init()``
+    read it."""
+    cfg = basics._get_state().config
+    return cfg is not None and cfg.elastic
 
 
 def _chunk_bytes() -> int:

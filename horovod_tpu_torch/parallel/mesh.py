@@ -72,6 +72,10 @@ class ProcessMesh:
             raise ValueError(f"Mesh axes {dict(axis_sizes)} require "
                              f"{int(np.prod(sizes))} ranks, have {world}")
         self._names = tuple(str(a) for a in axis_sizes)
+        # The runtime's generation: an elastic re-init tears down every
+        # group this mesh holds, and the mesh then refuses to run.
+        from ..common import basics
+        self._generation = basics._get_state().generation
         # A list to collect the (start, end) marks around each exchange's
         # wait (CUDA events on the card, host times on the CPU), or None.
         self.timing: Optional[list] = None
@@ -103,7 +107,16 @@ class ProcessMesh:
     def shape(self) -> Dict[str, int]:
         return {a: self._axes[a].size for a in self._names}
 
+    def _stale(self) -> bool:
+        from ..common import basics
+        return basics._get_state().generation != self._generation
+
     def axis(self, name: str) -> MeshAxis:
+        if self._stale():
+            raise RuntimeError(
+                "this mesh was made in an earlier generation of the world "
+                "(an elastic reset has torn its process groups down); make "
+                "a new one with make_mesh() after hvd.init()")
         return self._axes[require_axis(self, name)]
 
     def size(self, name: str) -> int:
@@ -116,6 +129,8 @@ class ProcessMesh:
         """Destroy this mesh's process groups (before ``hvd.shutdown()``)."""
         import torch.distributed as dist
         groups, self._groups = self._groups, []
+        if self._stale():
+            return          # torn down with its generation
         for g in groups:
             dist.destroy_process_group(g)
 

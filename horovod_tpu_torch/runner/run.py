@@ -5,7 +5,9 @@
 # observability flags (:121-137) and their forwarding (:409-427, :536-541);
 # the sharded optimizer's flags (:155-175) and their forwarding (:433-437);
 # the data-plane depth flags (:97-110, 153-154) and their forwarding
-# (:398-402, 428-431).
+# (:398-402, 428-431); the elastic flags (:204-214) and the state plane's
+# (:236-249), their forwarding (:415-422) and the route to the elastic
+# driver (:302-307, 625-628).
 # platform_worker_env (:359-388, JAX and XLA variables) is replaced by the
 # card's counterpart; the flags of what the port lacks are refused.
 """The launcher's argument surface and launch orchestration.
@@ -36,7 +38,19 @@ the ranks of each host entry in host order (the same list on every rank:
 ``--fast-lane-threshold-kb``, ``--partition-threshold-mb``, ``--autotune``
 and ``--autotune-log-file`` as ``HOROVOD_PIPELINE_CHUNK``,
 ``_FAST_LANE_THRESHOLD``, ``_PARTITION_THRESHOLD`` (bytes),
-``HOROVOD_AUTOTUNE=1`` and ``HOROVOD_AUTOTUNE_LOG``.
+``HOROVOD_AUTOTUNE=1`` and ``HOROVOD_AUTOTUNE_LOG``; ``--ckpt-dir``,
+``--ckpt-chunk-mb`` and ``--ckpt-lane-budget`` as ``HOROVOD_CKPT_DIR``,
+``_CKPT_CHUNK`` (bytes) and ``_CKPT_LANE_BUDGET``.
+
+``--host-discovery-script`` (with ``--min-np``, ``--max-np`` and
+``--slots-per-host``) starts an elastic job instead: the elastic driver
+(``elastic/driver.py``) polls the script, publishes each generation's
+assignment on its rendezvous and spawns the workers, each with
+``HOROVOD_ELASTIC=1`` and ``platform_worker_env``'s elastic form: the
+card's variables keyed on the host entry's name, which outlives the
+generation (its index does not), and ProcessGroupNCCL's error handling set
+to abort the communicators and keep the process
+(``TORCH_NCCL_ASYNC_ERROR_HANDLING=2``).
 Every entry that names this machine
 (``common/net.is_local_host``: ``localhost``, ``127.0.0.2``, its name or
 addresses) is spawned here; the others by ssh.
@@ -108,27 +122,20 @@ def parse_hostfile(path: str) -> List[HostSpec]:
 # The JAX launcher's flags whose feature the port lacks: flag → what brings
 # it.  Each is parsed, then refused.
 _TPU = "runner/tpu_vm.py has no GPU counterpart"
-_ELASTIC = "elastic/ is not ported (ROADMAP queue 1 item 6)"
-_STATEPLANE = ("the checkpoint lane's only user, the state plane "
-               "(elastic/stateplane.py), is not ported (ROADMAP queue 1 "
-               "item 6)")
+_ELASTIC = ("the autoscaler and the preemption drains are not ported "
+            "(ROADMAP queue 1 item 6b)")
 NOT_PORTED: Dict[str, str] = {
     "--tpu": _TPU, "--zone": _TPU, "--project": _TPU,
     "--tpu-topology-aware": _TPU, "--gke-jobset": _TPU,
     "--container-image": _TPU, "--gke-num-hosts": _TPU,
     "--gke-accelerator": _TPU, "--gke-topology": _TPU,
     "--gke-chips-per-host": _TPU,
-    "--min-np": _ELASTIC, "--max-np": _ELASTIC,
-    "--host-discovery-script": _ELASTIC,
-    "--tpu-metadata-discovery": _ELASTIC, "--slots-per-host": _ELASTIC,
+    "--tpu-metadata-discovery": _TPU,
     "--autoscale": _ELASTIC, "--autoscale-interval": _ELASTIC,
     "--scale-command": _ELASTIC, "--preempt-grace-s": _ELASTIC,
     "--commit-max-age-s": _ELASTIC,
     "--hierarchical-controller": "common/host_agent.py is not ported "
-                                 "(ROADMAP queue 1 item 6)",
-    "--ckpt-dir": _STATEPLANE,
-    "--ckpt-chunk-mb": _STATEPLANE,
-    "--ckpt-lane-budget": _STATEPLANE,
+                                 "(ROADMAP queue 1 item 6b)",
     "--cache-capacity": "the port compiles no fused programs to cache (the "
                         "negotiation response cache is "
                         "HOROVOD_RESPONSE_CACHE_CAPACITY)",
@@ -155,7 +162,9 @@ _TUNING = (("fusion_threshold_mb", "HOROVOD_FUSION_THRESHOLD", 1024 * 1024),
 _DEPTH = (("pipeline_chunk_mb", "HOROVOD_PIPELINE_CHUNK", 1024 * 1024),
           ("fast_lane_threshold_kb", "HOROVOD_FAST_LANE_THRESHOLD", 1024),
           ("partition_threshold_mb", "HOROVOD_PARTITION_THRESHOLD",
-           1024 * 1024))
+           1024 * 1024),
+          ("ckpt_chunk_mb", "HOROVOD_CKPT_CHUNK", 1024 * 1024),
+          ("ckpt_lane_budget", "HOROVOD_CKPT_LANE_BUDGET", 1))
 # The observability flags with a value, forwarded the same way (the file
 # names go per rank, in worker_envs).
 _OBSERVE = (("monitor_port", "HOROVOD_MONITOR_PORT", 1),
@@ -300,6 +309,33 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
                    help="Tune the engine's knobs online (HOROVOD_AUTOTUNE)")
     p.add_argument("--autotune-log-file", default=None,
                    help="The autotuner's CSV log (HOROVOD_AUTOTUNE_LOG)")
+    # Elastic (reference: _run_elastic)
+    p.add_argument("--min-np", type=int, default=None,
+                   help="Elastic: the fewest ranks the job runs with")
+    p.add_argument("--max-np", type=int, default=None,
+                   help="Elastic: the most ranks the job runs with")
+    p.add_argument("--host-discovery-script", default=None,
+                   help="Elastic: a command printing the available hosts, "
+                        "one 'hostname[:slots]' a line; polled by the "
+                        "elastic driver, which re-forms the world when it "
+                        "changes")
+    p.add_argument("--slots-per-host", type=int, default=None,
+                   help="Elastic: slots of a discovered host that names "
+                        "none (default 1)")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="Resilient state plane: arm sharded checkpoints "
+                        "under this directory — each rank streams its 1/N "
+                        "state shard through the engine's checkpoint lane "
+                        "on every elastic-state commit, and re-joining "
+                        "ranks restore peer-to-peer from survivors "
+                        "(HOROVOD_CKPT_DIR)")
+    p.add_argument("--ckpt-chunk-mb", type=float, default=None,
+                   help="Checkpoint-lane chunk size in MB (one bounded "
+                        "write per lane dispatch; default 1; "
+                        "HOROVOD_CKPT_CHUNK)")
+    p.add_argument("--ckpt-lane-budget", type=int, default=None,
+                   help="Checkpoint chunks dispatched per engine cycle "
+                        "tail (default 2; HOROVOD_CKPT_LANE_BUDGET)")
     for flag, why in NOT_PORTED.items():
         if flag in _SWITCHES:
             p.add_argument(flag, action="store_true", help=f"refused: {why}")
@@ -318,8 +354,8 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
         p.error("no training command given")
     if args.command and args.command[0] == "--":
         args.command = args.command[1:]
-    if args.np is None:
-        p.error("-np is required")
+    if args.np is None and args.host_discovery_script is None:
+        p.error("-np is required (or elastic --host-discovery-script)")
     return args
 
 
@@ -374,8 +410,8 @@ def _is_loopback(hostname: str) -> bool:
 
 
 def platform_worker_env(hosts: List[HostSpec], cross_rank: int,
-                        base: Optional[Dict[str, str]] = None
-                        ) -> Dict[str, str]:
+                        base: Optional[Dict[str, str]] = None,
+                        elastic: bool = False) -> Dict[str, str]:
     """The card's env for the ranks of host entry ``cross_rank``.
 
     Every worker loads its CUDA kernels when its context is made
@@ -391,16 +427,31 @@ def platform_worker_env(hosts: List[HostSpec], cross_rank: int,
     refuses two ranks of one host on one GPU, and checks by host), and a
     loopback entry NCCL's socket transport on the loopback device with
     InfiniBand off.  A variable already in ``base`` (the launcher's env)
-    is the user's choice and stays."""
+    is the user's choice and stays.
+
+    ``elastic=True`` is an elastic worker's env, fixed at its spawn while
+    its host index and the other hosts change between generations: every
+    entry naming this machine gets its ``NCCL_HOSTID``, keyed on the
+    entry's name (which every generation keeps), so that two entries
+    sharing a card stay apart in whichever generation brings them
+    together; and ``TORCH_NCCL_ASYNC_ERROR_HANDLING=2``, under which
+    ProcessGroupNCCL's watchdog aborts the communicators of a failed or
+    timed-out collective and keeps the process (torch's default ends it,
+    and with it the survivor elastic recovery exists to save)."""
     from ..common.net import is_local_host
     base = os.environ if base is None else base
     out = {"CUDA_MODULE_LOADING": "EAGER"}
     local = [is_local_host(h.hostname) for h in hosts]
-    if local[cross_rank] and sum(local) >= 2:
-        h = hosts[cross_rank]
+    h = hosts[cross_rank]
+    if elastic:
+        from ..elastic.worker import NCCL_ERROR_HANDLING
+        out["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = NCCL_ERROR_HANDLING
+        if local[cross_rank]:
+            out["NCCL_HOSTID"] = f"hvd-{h.hostname}"
+    elif local[cross_rank] and sum(local) >= 2:
         out["NCCL_HOSTID"] = f"hvd-{cross_rank}-{h.hostname}"
-        if _is_loopback(h.hostname):
-            out.update(NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
+    if "NCCL_HOSTID" in out and _is_loopback(h.hostname):
+        out.update(NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
     return {k: base.get(k, v) for k, v in out.items()}
 
 
@@ -432,6 +483,8 @@ def tuning_env(args) -> Dict[str, str]:
         env["HOROVOD_SHARDED_PARAMS"] = "1"
     if getattr(args, "prefetch_depth", None) is not None:
         env["HOROVOD_PREFETCH_DEPTH"] = str(int(args.prefetch_depth))
+    if getattr(args, "ckpt_dir", None):
+        env["HOROVOD_CKPT_DIR"] = args.ckpt_dir
     return env
 
 
@@ -580,6 +633,9 @@ def launch_workers(args, hosts: List[HostSpec],
 
 def main(argv: Sequence[str]) -> int:
     args = parse_args(argv)
+    if args.host_discovery_script is not None:
+        from ..elastic.driver import run_elastic
+        return run_elastic(args)
     hosts = placement(args)
     if args.verbose:
         print(f"[horovod_tpu_torch.runner] launching np={args.np} over "

@@ -419,3 +419,126 @@ def test_torch_world_needs_controller_address(monkeypatch):
     monkeypatch.setattr(basics, "_state", basics.GlobalState())
     with pytest.raises(RuntimeError, match="CONTROLLER_ADDR"):
         hvd.init(device="cpu")
+
+
+# The elastic slice: the copied driver-side modules, the state plane, the
+# worker, the state objects, the sampler and the checkpoints.
+ELASTIC_MODULES = (
+    "horovod_tpu_torch.elastic", "horovod_tpu_torch.elastic.rendezvous",
+    "horovod_tpu_torch.elastic.registration",
+    "horovod_tpu_torch.elastic.discovery", "horovod_tpu_torch.elastic.driver",
+    "horovod_tpu_torch.elastic.stateplane", "horovod_tpu_torch.elastic.worker",
+    "horovod_tpu_torch.elastic.state", "horovod_tpu_torch.elastic.sampler",
+    "horovod_tpu_torch.checkpoint")
+
+_ELASTIC_SRC = _OBSERVE_SRC.replace("print('PURE', len(sys.argv) - 2)", r"""
+import numpy as np, torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.elastic import stateplane as spl
+hvd.init(device='cpu')
+st = hvd.elastic.TorchState(params={'w': torch.ones(3, dtype=torch.bfloat16)},
+                            step=2)
+blob = spl.encode_state(st._saved_state)
+back = spl.decode_state(blob)
+assert torch.equal(back['params']['w'], st.params['w']) and back['step'] == 2
+assert hvd.elastic.run and hvd.elastic.ElasticSampler
+hvd.shutdown()
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_elastic_modules_import_without_jax():
+    """The elastic modules import with JAX and horovod_tpu blocked, and a
+    TorchState's committed state makes a round trip through the state
+    plane's blob."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _ELASTIC_SRC, REPO,
+                          *ELASTIC_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == str(len(ELASTIC_MODULES))
+
+
+def test_torch_elastic_modules_name_their_origin():
+    """Every elastic module's first line names the JAX file it was copied
+    or ported from."""
+    for name in ELASTIC_MODULES:
+        rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
+        path = os.path.join(PKG, rel + ".py")
+        if not os.path.exists(path):
+            path = os.path.join(PKG, rel, "__init__.py")
+        first = open(path).readline()
+        assert first.startswith(("# Copied from horovod_tpu/",
+                                 "# Ported from horovod_tpu/")), (path, first)
+
+
+# World set-up and tear-down (not collectives, but each is a call on a
+# communicator's life): who may make, destroy and abort process groups.
+_WORLD_CALLS = {"init_process_group", "destroy_process_group",
+                "_abort_process_group", "new_group"}
+_WORLD_CALLERS = {
+    os.path.join("common", "basics.py"): {"init_process_group",
+                                          "new_group"},
+    os.path.join("elastic", "worker.py"): {"init_process_group",
+                                           "destroy_process_group",
+                                           "_abort_process_group"},
+    _ENGINE: {"new_group"},
+    _MESH: {"new_group", "destroy_process_group"},
+}
+
+
+def _world_calls(path):
+    tree = ast.parse(open(path).read(), path)
+    return {ast.unparse(n.func).split(".")[-1] for n in ast.walk(tree)
+            if isinstance(n, ast.Call)
+            and ast.unparse(n.func).split(".")[-1] in _WORLD_CALLS}
+
+
+def test_torch_world_setup_and_teardown_sites():
+    """The world is formed in basics (and, in an elastic job, in the
+    worker's resilient form), torn down (destroyed, or its communicators
+    aborted) only by the elastic worker's teardown, and groups are made
+    by basics (process sets), the engine (the two-level groups) and the
+    mesh (which destroys its own)."""
+    found = {}
+    for root, _, names in os.walk(PKG):
+        for n in names:
+            if n.endswith(".py"):
+                path = os.path.join(root, n)
+                calls = _world_calls(path)
+                if calls:
+                    found[os.path.relpath(path, PKG)] = calls
+    assert found == _WORLD_CALLERS, found
+    assert not _world_calls(os.path.join(REPO, "chip_smoke.py"))
+
+
+# Modules that open sockets of their own: the control plane's address
+# helpers, the launcher's probe, the monitor's exporter, the serving front
+# door, and the elastic slice's rendezvous, driver pings, worker
+# notifications and the state plane's shard servers.
+_SOCKET_USERS = {
+    os.path.join("common", "net.py"), os.path.join("runner", "bootstrap.py"),
+    os.path.join("monitor", "agent.py"), os.path.join("monitor", "http.py"),
+    os.path.join("serve", "frontdoor.py"),
+    os.path.join("elastic", "rendezvous.py"),
+    os.path.join("elastic", "driver.py"), os.path.join("elastic", "worker.py"),
+    os.path.join("elastic", "stateplane.py")}
+
+
+def test_torch_socket_sites():
+    """No data-plane module opens a socket: the collective engine's
+    traffic goes through torch.distributed and the coordinator's native
+    client only."""
+    users = set()
+    pat = ("socket.socket(", "socket.create_connection(", "HTTPConnection(",
+           "HTTPServer(")
+    for root, _, names in os.walk(PKG):
+        for n in names:
+            if n.endswith(".py"):
+                path = os.path.join(root, n)
+                if any(p in open(path).read() for p in pat):
+                    users.add(os.path.relpath(path, PKG))
+    assert users == _SOCKET_USERS, users
