@@ -215,7 +215,23 @@ Phases (any failure exits non-zero and prints no result line):
    survivor's shard server, steps 6-7, then a clean exit.  Nine checks
    (``e11_phase``) and the recovery, growth, commit, durable-write, peer
    restore and step times.
-14. The whole run's wall time, the kernels line (JSON), the card line, and
+14. Drains, autoscaling and the two-level control plane.  E12
+   (``--e12-driver``, after E11): ``run_elastic`` on
+   ``--hierarchical-controller --autoscale --monitor-port <p>
+   --preempt-grace-s 90 --commit-max-age-s 600 --scale-command ...`` over
+   hosts ``127.0.0.1:2`` and ``127.0.0.2:1`` (three ranks on the card over
+   NCCL's sockets, two behind host 0's agent), the script discovery given
+   preemption notices from a file; Llama at full width cut to E12_LAYERS,
+   B=2, T=4096, AdamW under ``TorchState`` and ``@hvd.elastic.run``
+   (``--e12-worker``).  Generation 1 (size 3) trains steps 1-3, then a
+   notice drains the second host (COMMIT, cordon, DRAIN, clean LEAVE);
+   generation 2 (size 2) trains steps 4-5 from the live state; the host
+   returns, generation 3 (size 3) restores a fresh worker there from a
+   peer and trains steps 6-7, then idles until the policy scales the world
+   in through rank 0's ``/health``; generation 4 (size 2) ends.  Eight
+   checks (``e12_phase``) and the drain, ack, growth, scale-in and step
+   times.
+15. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -4329,7 +4345,7 @@ def e10_phase(torch, layers, seed, card, timeout_s=E10_TIMEOUT_S):
     return ok, dict(flash=flash, pack=pack, unpack=unpack)
 
 
-E11_LAYERS = 2
+E11_LAYERS = 1          # one layer keeps the whole script in its limit
 E11_STEPS = 7
 E11_COMMITS = (1, 3, 5, 7)
 E11_KILL_STEP = 4        # generation 1's rank 1 dies in this step's backward
@@ -4796,6 +4812,613 @@ def e11_phase(torch, layers, seed, card, timeout_s=E11_TIMEOUT_S):
         return ok, dict(flash=total[:3], pack=total[3], unpack=total[4])
 
 
+E12_LAYERS = 1
+E12_LR = 1e-3            # AdamW, its state in the parameters' bf16
+E12_STOPS = {0: 3, 3: 5, 5: 7}   # a generation trains from its entry step
+E12_COMMITS = (1, 5)     # and commits after these steps (and on request)
+E12_HOSTS = ("127.0.0.1:2", "127.0.0.2:1")
+E12_DRAINED = "127.0.0.2"
+E12_MIN_NP = 2           # the policy may scale a world of 3 in, not of 2
+E12_GRACE_S = 90         # --preempt-grace-s: a drained rank's commit first
+E12_CHUNK_MB = 16
+E12_FLAP_S = 4           # the preempted host's absence from discovery
+E12_TIMEOUT_S = 420
+# The driver's policy (Config.from_env in run_elastic): an idle world of 3
+# scales in after 20 s without progress, longer than a commit's blocking
+# pass on the train thread (the idle detector cannot tell the two apart);
+# scale-out and eviction are kept off by their thresholds.
+E12_AUTOSCALE_ENV = {"HOROVOD_AUTOSCALE_IDLE_S": "20",
+                     "HOROVOD_AUTOSCALE_PERSISTENCE": "2",
+                     "HOROVOD_AUTOSCALE_COOLDOWN": "3",
+                     "HOROVOD_AUTOSCALE_STRAGGLER_FACTOR": "50",
+                     "HOROVOD_AUTOSCALE_QUEUE_HIGH": "1e9",
+                     "HOROVOD_AUTOSCALE_QUEUE_TREND": "1e9"}
+
+
+def _e12_paths(tmp):
+    return {k: os.path.join(tmp, k) for k in ("hosts", "notice", "scaled",
+                                             "ckpt", "logs", "driver.json")}
+
+
+def e12_driver(args):
+    """E12's elastic driver, a child of ``e12_phase``: ``run_elastic`` on
+    the launcher's arguments for the autoscaled, drained, two-level job,
+    with the script discovery's class given preemption notices read from
+    ``<dir>/notice`` (the script source reports none) and the driver's
+    class recording, for the phase, its events, the identities it records
+    LEFT, the times of its COMMIT fan-outs and DRAIN pings and its exit
+    code into ``<dir>/driver.json``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch.common.net import free_ports
+    from horovod_tpu_torch.elastic import driver as drv
+    from horovod_tpu_torch.runner import run as prun
+    p = _e12_paths(args.e12_driver)
+
+    class NoticeDiscovery(drv.HostDiscoveryScript):
+        def preemption_notices(self):
+            try:
+                with open(p["notice"]) as fh:
+                    return {ln.strip() for ln in fh if ln.strip()}
+            except FileNotFoundError:
+                return set()
+
+    class Recording(drv.ElasticDriver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.left, self.pings = [], []
+            record_left = self.registry.record_left
+            self.registry.record_left = lambda i: (
+                self.left.append([i, time.time()]), record_left(i))[1]
+
+        def _request_commit_all(self, wait_s=2.0):
+            t0 = time.time()
+            acks = super()._request_commit_all(wait_s=wait_s)
+            self.events[-1]["s"] = time.time() - t0
+            return acks
+
+        def drain_worker(self, identity):
+            ok = super().drain_worker(identity)
+            self.pings.append([identity, ok, time.time()])
+            return ok
+
+        def run(self):
+            rc = None
+            try:
+                rc = super().run()
+                return rc
+            finally:
+                with open(p["driver.json"], "w") as fh:
+                    json.dump(dict(
+                        rc=rc, events=self.events, left=self.left,
+                        pings=self.pings,
+                        blacklisted=sorted(
+                            h for h in ("127.0.0.1", E12_DRAINED)
+                            if self.registry.is_blacklisted(h))), fh)
+
+    drv.HostDiscoveryScript = NoticeDiscovery
+    drv.ElasticDriver = Recording
+    mon, = free_ports(1)
+    argv = ["--host-discovery-script", f"cat {p['hosts']}", "--min-np",
+            str(E12_MIN_NP), "--max-np", "3", "--hierarchical-controller",
+            "--autoscale", "--autoscale-interval", "1", "--monitor",
+            "--monitor-port", str(mon), "--monitor-interval", "1",
+            "--ckpt-dir", p["ckpt"], "--ckpt-chunk-mb", str(E12_CHUNK_MB),
+            "--commit-max-age-s", "600", "--preempt-grace-s",
+            str(E12_GRACE_S), "--scale-command",
+            f'echo "$HVD_AUTOSCALE_ACTION $HVD_AUTOSCALE_HOST" >> '
+            f'{p["scaled"]}', "--output-filename", p["logs"], "-v",
+            sys.executable, os.path.abspath(__file__), "--train-layers",
+            str(args.train_layers), "--seed", str(args.seed),
+            "--e12-worker", args.e12_driver]
+    return drv.run_elastic(prun.parse_args(argv))
+
+
+def e12_worker(args):
+    """One worker of E12, in every generation it is part of: Llama at full
+    width, ``args.train_layers`` deep, B=2, T=4096, replicated
+    ``DistributedOptimizer(AdamW)`` under ``TorchState`` and
+    ``@hvd.elastic.run``.  A generation trains from the step it enters at
+    to the next of ``E12_STOPS`` (committing after ``E12_COMMITS``), then
+    idles: it commits when ``state.should_commit()`` says the driver asked
+    and polls ``state.check_host_updates()``.  Rank 0 acts out the host's
+    life on the phase's behalf: after generation 1 it posts the preemption
+    notice for ``E12_DRAINED``; after generation 2 the host leaves the
+    host file for ``E12_FLAP_S`` seconds while its notice clears, then is
+    listed again.  A generation entered at step 7 returns at once.  Where
+    the host has fewer cards than ranks (host 0's two on one card), a rank
+    computes on ``cuda:0`` with an ``NCCL_HOSTID`` of its own.  Every
+    event goes, with its wall time, to ``<dir>/<host>.<local
+    rank>.<pid>.jsonl``."""
+    import ctypes
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common import controller as ctl_mod
+    from horovod_tpu_torch.elastic import stateplane as spl
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = args.e12_worker
+    p = _e12_paths(tmp)
+    me = os.environ["HOROVOD_HOSTNAME"]
+    ident = f"{me}.{os.environ.get('HOROVOD_LOCAL_RANK', '0')}"
+    log = open(os.path.join(tmp, f"{ident}.{os.getpid()}.jsonl"), "a")
+    lock = threading.Lock()
+
+    def rec(**kw):
+        kw["t"] = time.time()
+        with lock:
+            log.write(json.dumps(kw) + "\n")
+            log.flush()
+
+    leave = ctl_mod.TCPController.leave
+
+    def recorded_leave(self):
+        ok = leave(self)
+        rec(ev="leave", ok=bool(ok))
+        return ok
+
+    ctl_mod.TCPController.leave = recorded_leave
+    restore = spl.maybe_restore
+
+    def timed_restore(st, plane):
+        t0 = time.time()
+        src = restore(st, plane)
+        rec(ev="restore", source=src, s=time.time() - t0,
+            disk_reads=plane.disk_reads, shards=plane.peer_shards_fetched,
+            epoch=plane.epoch, digest=plane.memory_state()[2])
+        return src
+
+    spl.maybe_restore = timed_restore
+
+    def agent():
+        a = basics._get_state().host_agent
+        return None if a is None else dict(port=a.port, ranks=a.ranks,
+                                           **vars(a.stats))
+
+    def root():
+        """The root coordinator's rounds served and mean service µs (the
+        process of rank 0 hosts it)."""
+        ctl = basics._get_state().controller
+        if ctl is None or not getattr(ctl, "_server", None):
+            return None
+        out = (ctypes.c_double * 2)()
+        ctl._lib.hvdtpu_server_stats(ctl._server, out)
+        return [out[0], out[1]]
+
+    rec(ev="start")
+    # Host 0's two ranks share the one card: each its own NCCL host id (a
+    # host of its own to NCCL, whose sockets join them), both on cuda:0.
+    local_rank = int(os.environ.get("HOROVOD_LOCAL_RANK", "0"))
+    device = None
+    if torch.cuda.device_count() <= local_rank:
+        os.environ["NCCL_HOSTID"] = \
+            f"{os.environ.get('NCCL_HOSTID', 'hvd')}-{local_rank}"
+        device = "cuda:0"
+    hvd.init(device=device)
+    dev = hvd.device()
+    cfg = tl.llama3_8b(n_layers=args.train_layers)
+    params = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 1))
+    named = list(tl.named_parameters(params))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([t for _, t in named], lr=E12_LR),
+        named_parameters=named)
+    step_fn = tl.make_train_step(cfg, opt)
+    state = hvd.elastic.TorchState(params=params, optimizer=opt, step=0)
+    _restore = state.restore
+
+    def rollback():
+        rec(ev="rollback", step=state.step)
+        return _restore()
+
+    state.restore = rollback
+
+    def sums():
+        return _checksum(torch, named) + _opt_checksum(torch, opt)
+
+    def commit(why):
+        plane = state._stateplane
+        t0 = time.perf_counter()
+        rec(ev="commit_start", step=state.step, why=why)
+        try:
+            state.commit()      # ends with the update check: may raise
+        finally:
+            epoch, blob, digest = plane.memory_state()
+            rec(ev="commit", step=state.step, why=why, epoch=epoch,
+                digest=digest, s=time.perf_counter() - t0,
+                blob=len(blob or b""))
+
+    def idle():
+        t_end = time.time() + 300
+        while time.time() < t_end:
+            if state.should_commit():
+                commit("request")
+            state.check_host_updates()
+            time.sleep(0.05)
+        raise RuntimeError("E12: the driver sent no host update")
+
+    @hvd.elastic.run
+    def train(state):
+        size, rank = hvd.size(), hvd.rank()
+        eng = basics._get_state().engine
+        plane = state._stateplane
+        entered = state.step
+        rec(ev="enter", size=size, rank=rank, step=entered,
+            epoch=plane.epoch, source=plane.last_restore_source,
+            disk_reads=plane.disk_reads, sums=sums(), agent=agent(),
+            mem=torch.cuda.memory_allocated(dev))
+        if entered not in E12_STOPS:
+            return "done"
+        _zero_flash(fa)
+        counts = dict(groups=0, pack=0, unpack=0)
+        while state.step < E12_STOPS[entered]:
+            rng = np.random.RandomState(args.seed + 100 * state.step + rank)
+            toks = torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+                    np.int64)).to(dev)
+            c0 = (eng.fused_groups, fusion.pack.launches,
+                  fusion.unpack.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step_fn(state.params, toks[:, :-1], toks[:, 1:]).item()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            for k, a, b in zip(counts, c0, (eng.fused_groups,
+                                            fusion.pack.launches,
+                                            fusion.unpack.launches)):
+                counts[k] += b - a
+            state.step += 1
+            s = sums()
+            every = hvd.allgather_object(s)
+            rec(ev="step", step=state.step, size=size, rank=rank, loss=loss,
+                s=dt, sums=s, same=all(x == s for x in every),
+                flash=_flash_counts(fa), counts=dict(counts),
+                mem=torch.cuda.memory_allocated(dev))
+            if state.step in E12_COMMITS:
+                commit("step")
+        rec(ev="trained", step=state.step, size=size, agent=agent(),
+            root=root())
+        if rank == 0 and state.step == 3:
+            with open(p["notice"], "w") as fh:
+                fh.write(E12_DRAINED + "\n")
+            rec(ev="notice")
+        if rank == 0 and state.step == 5:
+            with open(p["hosts"]) as fh:
+                listed = fh.read()
+            with open(p["hosts"], "w") as fh:
+                fh.write(listed.splitlines()[0] + "\n")
+            with open(p["notice"], "w") as fh:
+                fh.write("")
+            rec(ev="notice_cleared")
+            time.sleep(E12_FLAP_S)
+            with open(p["hosts"], "w") as fh:
+                fh.write(listed)
+            rec(ev="relisted")
+        idle()
+
+    res = train(state)
+    inited = hvd.is_initialized()
+    rec(ev="done", step=state.step, res=res, initialized=inited,
+        agent=agent(), root=root() if inited else None)
+    if inited:
+        hvd.shutdown()
+    return 0
+
+
+def _e12_events(tmp):
+    """Each worker process's events, by identity (``<host>.<local
+    rank>``), the processes in the order they started."""
+    procs = {}
+    for path in glob.glob(os.path.join(tmp, "*.jsonl")):
+        with open(path) as fh:
+            evs = [json.loads(ln) for ln in fh if ln.strip()]
+        if evs:
+            procs.setdefault(os.path.basename(path).rsplit(".", 2)[0],
+                             []).append(evs)
+    return {i: sorted(ps, key=lambda evs: evs[0]["t"])
+            for i, ps in procs.items()}
+
+
+def e12_phase(torch, layers, seed, card, timeout_s=E12_TIMEOUT_S):
+    """E12: the rest of elastic through the port's driver on the card.
+    ``e12_driver`` runs ``run_elastic`` with ``--hierarchical-controller
+    --autoscale --monitor-port <p> --ckpt-dir <tmp> --commit-max-age-s 600
+    --preempt-grace-s 90 --scale-command ...`` over ``E12_HOSTS`` (three
+    ranks on one card over NCCL's sockets, two behind host 0's agent),
+    with notices from a file; ``e12_worker`` trains Llama at full width,
+    ``layers`` deep.  Generation 1 (size 3) trains steps 1-3 and the
+    notice drains ``E12_DRAINED``; generation 2 (size 2) trains steps 4-5
+    from the survivors' live state; the host returns and generation 3
+    (size 3) has a fresh worker there restored from a peer, steps 6-7, then
+    every worker idles until the policy, reading rank 0's ``/health``,
+    scales the world in; generation 4 (size 2) ends.  Checks: (1) the
+    generations' sizes 3, 2, 3, 2, the driver's decisions ``preempt_drain``
+    then ``scale_in`` of ``E12_DRAINED``, every commit request acked; (2)
+    both drained workers left by a clean LEAVE and exited 0 before the
+    grace (no termination, no blacklist, LEFT twice), and no survivor's
+    training function saw a fault (no rollback, no traceback); (3)
+    generation 2 starts from generation 1's last state bitwise, with no
+    restore (the HostsUpdatedInterrupt sync); (4) generation 3's joiner
+    restored from a peer with 0 disk reads to the survivors' step-5 commit
+    digest; (5) host 0's agent served the four generations, on the
+    aggregate path in generations 1 and 3, and host 1's last uplink (a
+    round owed no answer: its one rank left) carried the LEAVE;
+    (6) the scale command's file holds ``scale_in`` of the host; (7) the
+    parameters and AdamW state bitwise across the ranks after every step;
+    (8) rank 0's launches each generation: each flash kernel layers x
+    steps, pack = unpack = the batches' dtype groups.  Returns ``(ok,
+    launches)``."""
+    import signal
+    import tempfile
+    import numpy as np
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **E12_AUTOSCALE_ENV, PYTHONPATH=os.pathsep.join(
+        [here] + [q for q in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if q]))
+    with tempfile.TemporaryDirectory() as tmp:
+        p = _e12_paths(tmp)
+        with open(p["hosts"], "w") as fh:
+            fh.write("\n".join(E12_HOSTS) + "\n")
+        cmd = [sys.executable, os.path.abspath(__file__), "--train-layers",
+               str(layers), "--seed", str(seed), "--e12-driver", tmp]
+        print(f"e12: run_elastic over {', '.join(E12_HOSTS)} with "
+              f"--hierarchical-controller --autoscale --monitor-port <free> "
+              f"--preempt-grace-s {E12_GRACE_S} --commit-max-age-s 600 "
+              f"--min-np {E12_MIN_NP} --max-np 3 and "
+              f"{' '.join(f'{k}={v}' for k, v in E12_AUTOSCALE_ENV.items())}"
+              f"; preemption notices from a file", flush=True)
+        t0 = time.time()
+        with open(os.path.join(tmp, "driver.log"), "w") as dlog:
+            driver = subprocess.Popen(cmd, cwd=here, env=env, stdout=dlog,
+                                      stderr=subprocess.STDOUT,
+                                      start_new_session=True)
+            try:
+                rc = driver.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                rc = None
+            finally:
+                if driver.poll() is None:
+                    os.killpg(driver.pid, signal.SIGKILL)
+                    driver.wait()
+        wall = time.time() - t0
+        with open(os.path.join(tmp, "driver.log")) as fh:
+            dtext = fh.read()
+        wtext = ""
+        for r in sorted(glob.glob(os.path.join(p["logs"], "*", "*"))):
+            with open(r) as fh:
+                wtext += f"\n--- {os.path.relpath(r, tmp)}\n" + fh.read()
+        ev = _e12_events(tmp)
+        try:
+            with open(p["driver.json"]) as fh:
+                dres = json.load(fh)
+        except (OSError, ValueError):
+            dres = None
+        if rc != 0 or dres is None:
+            print(f"e12: the elastic run failed (driver rc {rc}, "
+                  f"{wall:.1f} s); the end of its output:\n{dtext[-4000:]}"
+                  f"{wtext[-12000:]}", flush=True)
+            return False, None
+        ok = True
+        results = []
+
+        def check(n, good, text):
+            nonlocal ok
+            ok = ok and good
+            results.append(good)
+            print(f"e12 ({n}): {text} -> {'PASS' if good else 'FAIL'}",
+                  flush=True)
+
+        def of(evs, kind):
+            return [e for e in evs if e["ev"] == kind]
+
+        r0 = [e for evs in ev.get("127.0.0.1.0", []) for e in evs]
+        r1 = [e for evs in ev.get("127.0.0.1.1", []) for e in evs]
+        host1 = ev.get(f"{E12_DRAINED}.0", [])
+        # Rank 0's generations: its "enter" events split its log.
+        gens, cur = [], None
+        for e in r0:
+            if e["ev"] == "enter":
+                cur = dict(enter=e, steps=[], commits=[], trained=None)
+                gens.append(cur)
+            elif cur is not None and e["ev"] == "step":
+                cur["steps"].append(e)
+            elif cur is not None and e["ev"] == "commit":
+                cur["commits"].append(e)
+            elif cur is not None and e["ev"] == "trained":
+                cur["trained"] = e
+        sizes = [g["enter"]["size"] for g in gens]
+        steps_of = [[s["step"] for s in g["steps"]] for g in gens]
+        shape_ok = (sizes == [3, 2, 3, 2] and steps_of == [[1, 2, 3], [4, 5],
+                                                           [6, 7], []]
+                    and len(host1) == 2)
+        print(f"e12: rank 0's generations: sizes {sizes}, steps {steps_of}; "
+              f"{E12_DRAINED}'s workers {len(host1)} -> "
+              f"{'PASS' if shape_ok else 'FAIL'}", flush=True)
+        if not shape_ok:
+            print(f"e12: the end of the output:\n{dtext[-4000:]}"
+                  f"{wtext[-8000:]}", flush=True)
+            return False, None
+        g1, g2, g3, g4 = gens
+        drained1, joiner = host1
+        events = dres["events"]
+        decisions = [e for e in events if e["action"] != "commit_request"]
+        requests = [e for e in events if e["action"] == "commit_request"]
+        # (1)
+        good = ([(e["action"], e.get("host")) for e in decisions]
+                == [("preempt_drain", E12_DRAINED), ("scale_in", E12_DRAINED)]
+                and len(requests) == 2
+                and all(r["acks"] and all(r["acks"].values())
+                        for r in requests))
+        check(1, good, f"generation sizes {sizes}; the driver's decisions "
+              f"{[(e['action'], e.get('host')) for e in decisions]}; commit "
+              f"requests acked {[r['acked'] for r in requests]} of "
+              f"{[sorted(r['acks']) for r in requests]}")
+        # (2)
+        grace = re.findall(r"drain grace .* expired for (\S+)", dtext)
+        bad_exit = re.findall(r"(?:exited|failed) rc=(-?\d+)", dtext)
+        leaves = [of(w, "leave") for w in host1]
+        dones = [of(w, "done") for w in host1]
+        rollbacks = [e for evs in ev.values() for w in evs for e in w
+                     if e["ev"] == "rollback"]
+        hvd303 = len(re.findall(r"HVD303", wtext))
+        good = (not grace and not bad_exit and not dres["blacklisted"]
+                and [x[0] for x in dres["left"]] == [f"{E12_DRAINED}:0"] * 2
+                and all(lv and lv[0]["ok"] for lv in leaves)
+                and all(d and d[0]["res"] is None
+                        and not d[0]["initialized"] for d in dones)
+                and not rollbacks and "Traceback" not in wtext
+                and "PeerFailureError" not in wtext
+                and "HorovodInternalError" not in wtext)
+        check(2, good, f"both drained workers sent a clean LEAVE "
+              f"({[lv[0]['ok'] if lv else None for lv in leaves]}) and "
+              f"exited 0 (non-zero exits {bad_exit}, grace terminations "
+              f"{grace}); recorded LEFT {[x[0] for x in dres['left']]}, "
+              f"blacklisted {dres['blacklisted']}; rollbacks "
+              f"{len(rollbacks)}, tracebacks {wtext.count('Traceback')}; "
+              f"HVD303 warnings in the workers' logs {hvd303} (an idle "
+              f"host-mate of rank 0 when rank 0 re-rendezvoused first)")
+        # (3)
+        e2 = g2["enter"]
+        last1 = g1["steps"][-1]
+        good = (e2["step"] == last1["step"] == 3 and e2["source"] is None
+                and e2["sums"] == last1["sums"])
+        check(3, good, f"generation 2 entered at step {e2['step']} (the "
+              f"last of generation 1: {last1['step']}) with no restore "
+              f"(source {e2['source']}: the HostsUpdatedInterrupt sync of "
+              f"the commit taken at the drain), its parameters and AdamW "
+              f"state {e2['sums']} = step 3's {last1['sums']}")
+        # (4)
+        jr = of(joiner, "restore")
+        c5 = [c for c in g2["commits"] if c["step"] == 5]
+        good = (bool(jr) and bool(c5) and jr[0]["source"] == "peer"
+                and jr[0]["disk_reads"] == 0
+                and jr[0]["digest"] == c5[0]["digest"]
+                and jr[0]["epoch"] == c5[0]["epoch"])
+        check(4, good, f"the fresh worker on {E12_DRAINED} restored epoch "
+              f"{jr[0]['epoch'] if jr else None} from "
+              f"{jr[0]['source'] if jr else None} "
+              f"({jr[0]['shards'] if jr else 0} shard(s), "
+              f"{jr[0]['disk_reads'] if jr else None} disk reads) in "
+              f"{jr[0]['s'] if jr else 0:.2f} s, digest "
+              f"{jr[0]['digest'] if jr else None} = the survivors' step-5 "
+              f"commit {c5[0]['digest'] if c5 else None}")
+        # (5)
+        a_in = [g["enter"]["agent"] for g in gens]
+        a_out = [g["trained"]["agent"] if g["trained"] else None
+                 for g in gens]
+        agg = [(b["agg_rounds"] - a["agg_rounds"]) if a and b else None
+               for a, b in zip(a_in, a_out)]
+        h1 = [of(w, "done")[0]["agent"] for w in host1]
+        roots = [g["trained"]["root"] if g["trained"] else None
+                 for g in gens]
+        good = (a_in[3] is not None and a_in[3]["generations"] == 4
+                and len({a["port"] for a in a_in if a}) == 1
+                and agg[0] and agg[0] > 0 and agg[2] and agg[2] > 0
+                and all(a and a["uplink_frames"] == a["rounds"]
+                        == a["responses_fanned"] + 1 for a in h1)
+                and of(r1, "enter")[0]["agent"] is None)
+        check(5, good, f"host 0's agent (port {a_in[0]['port']}) served "
+              f"generations {[a['generations'] if a else None for a in a_in]}"
+              f" with ranks {[a['ranks'] if a else None for a in a_in]}, "
+              f"aggregate rounds a generation {agg}, uplinks = rounds "
+              f"{[(a['uplink_frames'], a['rounds']) for a in a_out if a]}; "
+              f"host 1's agents' last uplink carried the LEAVE and was owed "
+              f"no response (rounds, uplinks, responses "
+              f"{[(a['rounds'], a['uplink_frames'], a['responses_fanned'])
+                  for a in h1 if a]}; leaves_forwarded, counted when the "
+              f"root's answer retires the rank, "
+              f"{[a['leaves_forwarded'] if a else None for a in h1]}); the "
+              f"root (hvdtpu_server_stats: rounds served, mean service us) "
+              f"in generations 1-3 {roots[:3]}, host 0's uplinks in "
+              f"generation 1 {a_out[0]['uplink_frames']}: one a round a "
+              f"host")
+        # (6)
+        try:
+            with open(p["scaled"]) as fh:
+                scaled = fh.read().split()
+        except OSError:
+            scaled = []
+        check(6, scaled == ["scale_in", E12_DRAINED],
+              f"the scale command's file holds {scaled}")
+        # (7)
+        pairs = []
+        for g in gens:
+            for s in g["steps"]:
+                peers = [e for evs in ev.values() for w in evs for e in w
+                         if e["ev"] == "step" and e["step"] == s["step"]
+                         and e["size"] == s["size"]]
+                pairs.append((s, peers))
+        good = all(s["same"] and len(o) == s["size"]
+                   and all(x["sums"] == s["sums"] and x["same"] for x in o)
+                   for s, o in pairs)
+        check(7, good, f"parameters and AdamW state bitwise across the "
+              f"ranks after steps {[s['step'] for s, _ in pairs]} "
+              f"(checksums exchanged by allgather_object, and the logs "
+              f"agree)")
+        # (8)
+        launches = []
+        good = True
+        for g in gens[:3]:
+            last_s = g["steps"][-1]
+            n = len(g["steps"])
+            fl, c = last_s["flash"], last_s["counts"]
+            launches.append(fl + [c["pack"], c["unpack"]])
+            good = good and fl == [layers * n] * 3 and c["pack"] == \
+                c["unpack"] == c["groups"] > 0
+        check(8, good, "rank 0's launches a generation, [fwd, dq, dkv, pack, "
+              f"unpack]: {launches} over {[len(g['steps']) for g in gens]} "
+              f"steps of {layers} layers; dtype groups "
+              f"{[g['steps'][-1]['counts']['groups'] for g in gens[:3]]}")
+        losses = [s["loss"] for g in gens for s in g["steps"]]
+        if not all(np.isfinite(losses)):
+            ok = False
+            print(f"e12: losses {losses} not finite -> FAIL", flush=True)
+        # Times.
+        ts = {d["action"]: d["ts"] for d in decisions}
+        notice_t = of(r0, "notice")[0]["t"]
+        drain_ping = [x for x in dres["pings"] if x[0] ==
+                      f"{E12_DRAINED}:0"]
+        exit1 = of(drained1, "done")[0]["t"]
+        first2 = g2["steps"][0]["t"] - g2["steps"][0]["s"]
+        relisted = of(r0, "relisted")[0]["t"]
+        first3 = g3["steps"][0]["t"] - g3["steps"][0]["s"]
+        last3 = g3["steps"][-1]["t"]
+        exit2 = of(joiner, "done")[0]["t"]
+        commits = [(c["step"], c["why"], round(c["s"], 3))
+                   for c in of(r0, "commit")]
+        step_s = {n: [round(s["s"], 3) for g in gens for s in g["steps"]
+                      if s["size"] == n] for n in (3, 2)}
+        mems = [round(g["steps"][0]["mem"] / 2**30, 6) if g["steps"]
+                else round(g["enter"]["mem"] / 2**30, 6) for g in gens]
+        print(f"e12 times [{card}; NCCL's socket transport on one card, "
+              f"three ranks]: notice -> the drained worker's exit "
+              f"{exit1 - notice_t:.2f} s (notice -> the driver's "
+              f"preempt_drain {ts['preempt_drain'] - notice_t:.2f} s; the "
+              f"COMMIT fan-out to its acks {requests[0]['s']:.3f} s; the "
+              f"DRAIN ping -> the exit {exit1 - drain_ping[0][2]:.2f} s, by "
+              f"clean LEAVE); the DRAIN ping -> generation 2's first step "
+              f"{first2 - drain_ping[0][2]:.2f} s; growth (the host listed "
+              f"again -> generation 3's first step) {first3 - relisted:.2f}"
+              f" s, the peer restore {jr[0]['s'] if jr else 0:.2f} s; the "
+              f"last step -> SCALE_IN {ts['scale_in'] - last3:.2f} s "
+              f"(HOROVOD_AUTOSCALE_IDLE_S "
+              f"{E12_AUTOSCALE_ENV['HOROVOD_AUTOSCALE_IDLE_S']}), its "
+              f"COMMIT fan-out {requests[1]['s']:.3f} s, the DRAIN ping -> "
+              f"the exit {exit2 - drain_ping[1][2]:.2f} s; commit() on rank "
+              f"0 (step, why, s) {commits}; steps (s) at size 3 "
+              f"{step_s[3]}, at size 2 {step_s[2]}; memory_allocated at "
+              f"each generation's first step {mems} GiB; the whole run "
+              f"{wall:.1f} s", flush=True)
+        print(f"e12: {sum(results)}/8 checks -> "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        total = [sum(x[k] for x in launches) for k in range(5)]
+        return ok, dict(flash=total[:3], pack=total[3], unpack=total[4])
+
+
 def trace_ab_phase(torch, hvd, grads, iters=5):
     """The size-1 counterpart of the JAX bench's trace A/B: the engine's
     grouped allreduce of the gradient set with the tracer detached (the
@@ -4871,6 +5494,10 @@ def main():
                     help=argparse.SUPPRESS)   # one rank of E10 (c)
     ap.add_argument("--e11-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one worker of E11
+    ap.add_argument("--e12-driver", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # E12's elastic driver
+    ap.add_argument("--e12-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one worker of E12
     args = ap.parse_args()
 
     import torch
@@ -4911,6 +5538,10 @@ def main():
         return e10_tune_worker(args)
     if args.e11_worker:
         return e11_worker(args)
+    if args.e12_driver:
+        return e12_driver(args)
+    if args.e12_worker:
+        return e12_worker(args)
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5003,6 +5634,9 @@ def main():
     t_e11 = time.time()
     e11_ok, e11 = e11_phase(torch, E11_LAYERS, args.seed, card)
     print(f"e11: the phase in {time.time() - t_e11:.1f} s", flush=True)
+    t_e12 = time.time()
+    e12_ok, e12 = e12_phase(torch, E12_LAYERS, args.seed, card)
+    print(f"e12: the phase in {time.time() - t_e12:.1f} s", flush=True)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -5020,22 +5654,25 @@ def main():
     f9 = e9["flash"] if e9 else [0, 0, 0]
     f10 = e10["flash"] if e10 else [0, 0, 0]
     f11 = e11["flash"] if e11 else [0, 0, 0]
+    f12 = e12["flash"] if e12 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
-                + e5[0] + m6[0] + f8[0] + f9[0] + f10[0] + f11[0],
+                + e5[0] + m6[0] + f8[0] + f9[0] + f10[0] + f11[0] + f12[0],
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
-                + m6[1] + f8[1] + f9[1] + f10[1] + f11[1],
+                + m6[1] + f8[1] + f9[1] + f10[1] + f11[1] + f12[1],
                 "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
-                + m6[2] + f8[2] + f9[2] + f10[2] + f11[2]}
+                + m6[2] + f8[2] + f9[2] + f10[2] + f11[2] + f12[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
           f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
           f"size 2) + {f8[0]} observability (E8, rank 0) + {f9[0]} ZeRO "
           f"(E9, rank 0) + {f10[0]} data-plane depth (E10, rank 0) + "
-          f"{f11[0]} elastic (E11, rank 0 of each generation); "
+          f"{f11[0]} elastic (E11, rank 0 of each generation) + {f12[0]} "
+          f"drains and autoscaling (E12, rank 0 of each generation); "
           f"flash_bwd_dq {train_launches['flash_bwd_dq']} + {e5[1]} + "
-          f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]} + {f11[1]}, "
+          f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]} + {f11[1]} + {f12[1]}, "
           f"flash_bwd_dkv {train_launches['flash_bwd_dkv']} + {e5[2]} + "
-          f"{m6[2]} + {f8[2]} + {f9[2]} + {f10[2]} + {f11[2]}", flush=True)
+          f"{m6[2]} + {f8[2]} + {f9[2]} + {f10[2]} + {f11[2]} + {f12[2]}",
+          flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
@@ -5060,6 +5697,7 @@ def main():
              **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS},
              launches_e6=m6[0], launches_e8=f8[0], launches_e9=f9[0],
              launches_e10=f10[0], launches_e11=f11[0],
+             launches_e12=f12[0],
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
     ] + [
@@ -5085,6 +5723,7 @@ def main():
              launches_e9=f9[1 if g == "dq" else 2],
              launches_e10=f10[1 if g == "dq" else 2],
              launches_e11=f11[1 if g == "dq" else 2],
+             launches_e12=f12[1 if g == "dq" else 2],
              **{f"{m}_{k}": bwd_by_name[case][g][k]
                 for m, case in MODEL_CASES.items() for k in _CASE_KEYS
                 if k in bwd_by_name[case][g]},
@@ -5117,7 +5756,7 @@ def main():
             launches=(two[kern] if two else 0) + (four[kern] if four else 0)
             + (e6[kern] if e6 else 0) + (e8[kern] if e8 else 0)
             + (e9[kern] if e9 else 0) + (e10[kern] if e10 else 0)
-            + (e11[kern] if e11 else 0),
+            + (e11[kern] if e11 else 0) + (e12[kern] if e12 else 0),
             launches_e3=two[kern] if two else 0,
             launches_e4=four[kern] if four else 0,
             launches_e6=e6[kern] if e6 else 0,
@@ -5125,6 +5764,7 @@ def main():
             launches_e9=e9[kern] if e9 else 0,
             launches_e10=e10[kern] if e10 else 0,
             launches_e11=e11[kern] if e11 else 0,
+            launches_e12=e12[kern] if e12 else 0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"],
@@ -5151,7 +5791,8 @@ def main():
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and adasum_ok and e7_ok and e8_ok and e9_ok
-                        and e10_ok and e11_ok and kern["launches"] > 0)
+                        and e10_ok and e11_ok and e12_ok
+                        and kern["launches"] > 0)
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -5159,7 +5800,8 @@ def main():
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
-            and e10_ok and e11_ok and all(k["pass"] for k in kernels)):
+            and e10_ok and e11_ok and e12_ok
+            and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
               f", engine ok={engine_ok} (module loading {loading_ok}, "
@@ -5171,7 +5813,8 @@ def main():
               f"adasum kernels ok={adasum_ok}, four ranks (E7) ok={e7_ok}, "
               f"observability (E8, trace A/B {ab_ok}) ok={e8_ok}, ZeRO (E9) "
               f"ok={e9_ok}, data-plane depth (E10) ok={e10_ok}, elastic "
-              f"(E11) ok={e11_ok}")
+              f"(E11) ok={e11_ok}, drains and autoscaling (E12) "
+              f"ok={e12_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -70,7 +70,18 @@ gone before the next ``init()``, process sets of the dead generation are
 unregistered, and a mesh made in it refuses to run
 (``parallel/mesh.py``).
 
-The hierarchical controller is not ported.
+The two-level control plane (``HOROVOD_HIERARCHICAL_CONTROLLER=1``), as
+the JAX ``init()``/``shutdown()`` run it (:163-230, 342-353): every
+rank's negotiation client connects to its host's ``HostAgent``
+(``common/host_agent.py``), which the local_rank-0 process owns, and the
+agent presents the host to the root coordinator as one connection; rank 0
+still binds the root server while its own client goes through host 0's
+agent.  Without the launcher's local and cross env the plane is flat, with
+a warning, as in the JAX package.  An agent that cannot bind its port
+raises out of ``init()``.  In an elastic world the agent outlives its
+generation: ``shutdown()`` only ends its generation, and the next
+``init()`` re-forms its links through ``new_generation`` on the same
+stable port (the rendezvous assignment's ``agent_port``).
 """
 
 from __future__ import annotations
@@ -116,6 +127,9 @@ class GlobalState:
         self.controller = None       # common.controller.TCPController
         self.timeline = None         # utils.timeline.Timeline
         self.monitor = None          # monitor.agent.MonitorAgent
+        # common.host_agent.HostAgent of this host, owned by the
+        # local_rank-0 process; kept across elastic generations.
+        self.host_agent = None
         self.process_set_table = ProcessSetTable()
         # Counts init()s: what a mesh made in an earlier generation of an
         # elastic world checks against.
@@ -281,11 +295,20 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                     f"HOROVOD_SIZE={size} needs HOROVOD_CONTROLLER_ADDR "
                     f"and HOROVOD_CONTROLLER_PORT for the negotiation "
                     f"controller")
+            ctrl_port = cfg.controller_port2 or cfg.controller_port + 1
+            connect_addr, connect_port = cfg.controller_addr, ctrl_port
+            server_port = None
+            if cfg.hierarchical_controller:
+                agent_at = _host_agent_for(st, cfg, rank, size, local_rank,
+                                           local_size, ctrl_port)
+                if agent_at is not None:
+                    connect_addr, connect_port = "127.0.0.1", agent_at
+                    if rank == 0:
+                        server_port = ctrl_port
             carry = _elastic_carry["spec_seed"] if cfg.elastic else 0
             st.controller = TCPController(
-                cfg.controller_addr,
-                cfg.controller_port2 or cfg.controller_port + 1,
-                rank=rank, world=size,
+                connect_addr, connect_port,
+                rank=rank, world=size, server_port=server_port,
                 stall_warn_s=cfg.stall_check_time_s
                 if not cfg.stall_check_disable else 1e18,
                 cache_capacity=cfg.response_cache_capacity,
@@ -317,6 +340,55 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         st.engine.start()
         st.generation += 1
         st.initialized = True
+
+
+def _host_agent_for(st: GlobalState, cfg: Config, rank: int, size: int,
+                    local_rank: int, local_size: int,
+                    ctrl_port: int) -> Optional[int]:
+    """Set up this host's agent for the two-level control plane and return
+    the port this rank's client connects to; None (with a warning) when
+    the launcher's local and cross env is missing, and the plane stays
+    flat.  The local_rank-0 process owns the agent: in an elastic world
+    the agent of the last generation serves the next through
+    ``new_generation`` when it listens on the same port."""
+    if ("HOROVOD_LOCAL_RANK" not in os.environ
+            or "HOROVOD_LOCAL_SIZE" not in os.environ
+            or cfg.cross_rank_env < 0):
+        # Deriving a host layout from the defaults would give every process
+        # local rank 0 on host 0, each binding its own agent on one port.
+        from ..utils.logging import get_logger
+        get_logger().warning(
+            "HOROVOD_HIERARCHICAL_CONTROLLER=1 but HOROVOD_LOCAL_RANK/"
+            "LOCAL_SIZE/CROSS_RANK are not set (launch through python -m "
+            "horovod_tpu_torch.runner to get them); using the flat control "
+            "plane")
+        return None
+    from .host_agent import HostAgent
+    cross_rank = cfg.cross_rank_env
+    agent_port = cfg.agent_port or ctrl_port + 1 + cross_rank
+    if local_rank == 0:
+        first = rank - local_rank
+        ranks = list(range(first, min(size, first + local_size)))
+        reused = False
+        if (st.host_agent is not None and cfg.elastic
+                and st.host_agent.port == agent_port):
+            try:
+                st.host_agent.new_generation(cfg.controller_addr, ctrl_port,
+                                             ranks, host_index=cross_rank)
+                reused = True
+            except RuntimeError:
+                # A wedged thread of the last generation: a fresh agent on
+                # the same port (stop() closes the listener first).
+                from ..utils.logging import get_logger
+                get_logger().warning("host agent could not serve a new "
+                                     "generation; replacing it")
+        if not reused:
+            if st.host_agent is not None:
+                st.host_agent.stop()
+            st.host_agent = HostAgent(agent_port, cfg.controller_addr,
+                                      ctrl_port, ranks,
+                                      host_index=cross_rank).start()
+    return agent_port
 
 
 def _make_group(ranks):
@@ -382,6 +454,16 @@ def shutdown() -> None:
                     _elastic_carry["spec_seed"] = 0
             ctl.shutdown()
             st.controller = None
+        if st.host_agent is not None:
+            # After the controller: the agent outlives this process's own
+            # client socket, so that its teardown EOF is observed and
+            # reported upstream.  An elastic world only ends the
+            # generation: the agent and its port serve the next one.
+            if elastic:
+                st.host_agent.end_generation()
+            else:
+                st.host_agent.stop()
+                st.host_agent = None
         if st.timeline is not None:
             st.timeline.close()
             st.timeline = None

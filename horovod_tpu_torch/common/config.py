@@ -7,7 +7,9 @@
 # :448-450); the fast lane's and partitioning's thresholds (:132-144), the
 # checkpoint lane's chunk and budget (:272-273) and the autotuner's fields
 # (:372-376), and their parsing (:418-419, :445-446, :477-481); ckpt_dir and
-# elastic (:258-271, 407) and their parsing (:444, 497).
+# elastic (:258-271, 407) and their parsing (:444, 497); the hierarchical
+# controller, agent port, preemption grace, commit age and autoscale fields
+# (:229-256, 267-274, 306-330) and their parsing (:440-443, 447, 451-463).
 """Environment-variable configuration surface.
 
 TPU-native equivalent of the reference's env parser
@@ -113,6 +115,12 @@ class Config:
     - ``elastic``                  <- HOROVOD_ELASTIC (set by the elastic
       driver for its workers)
     - ``ckpt_dir``                 <- HOROVOD_CKPT_DIR (arms the state plane)
+    - ``hierarchical_controller``/``agent_port`` <-
+      HOROVOD_HIERARCHICAL_CONTROLLER/HOROVOD_AGENT_PORT (per-host agents)
+    - ``preempt_grace_s``          <- HOROVOD_PREEMPT_GRACE_S
+    - ``commit_max_age_s``         <- HOROVOD_COMMIT_MAX_AGE_S
+    - ``autoscale*``               <- HOROVOD_AUTOSCALE, HOROVOD_AUTOSCALE_*
+      (read by the elastic driver's policy, not by workers)
     """
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
@@ -268,6 +276,68 @@ class Config:
     # from the ranks per host (parallel/topology.py precedence order).
     slice_map: str = ""
 
+    # Two-level control plane (protocol v5).  HOROVOD_HIERARCHICAL_CONTROLLER=1:
+    # every rank's negotiation client connects to a per-host agent
+    # (common/host_agent.py, owned by the local_rank-0 process) instead of
+    # the rank-0 root server; the agent collapses its host's warm-path
+    # bitvector frames into ONE fixed-size uplink per round, so root-side
+    # gather work scales with hosts, not ranks.  Per-rank wire bytes are
+    # unchanged (frame-guarded).  Flat single-server mode remains the
+    # default.  Elastic worlds compose: the agent object survives
+    # re-rendezvous generations on a stable per-host port the elastic
+    # driver allocates and ships through the rendezvous assignment.
+    # HOROVOD_AGENT_PORT: the agent's listen port on each host (the
+    # launcher — or the elastic rendezvous — assigns one per host); 0 =
+    # derive deterministically from controller port + cross_rank.
+    hierarchical_controller: bool = False
+    agent_port: int = 0
+
+    # Preemption-driven drains.  When the discovery source posts a
+    # preemption notice for a host, the elastic driver cordons the host and
+    # DRAINs its workers — requesting a state commit first (checkpoint
+    # pacing), then the clean-LEAVE departure — instead of waiting for the
+    # hardware to vanish and crash the fleet mid-collective.
+    # HOROVOD_PREEMPT_GRACE_S bounds the drain: a worker that has not exited
+    # by the deadline is terminated (the legacy sever path), still
+    # classified as a departure, never a blacklist.
+    preempt_grace_s: float = 30.0
+
+    # HOROVOD_COMMIT_MAX_AGE_S is the autoscaler's stale-state guard:
+    # evict/scale_in decisions are refused while the fleet's last commit is
+    # older than this (0 = off) — shrinking a world whose restore point is
+    # stale would convert an orderly drain into lost work.
+    commit_max_age_s: float = 0.0
+
+    # Closed-loop elastic autoscaling — consumed by the elastic DRIVER
+    # (``--host-discovery-script``), not by workers.  HOROVOD_AUTOSCALE=1
+    # turns the policy loop on (requires --monitor-port so the driver can
+    # poll rank 0's /health for the aggregation summary); the remaining
+    # knobs parameterize elastic/autoscale.ScalePolicy: observation
+    # period, scale-out queue thresholds (absolute + EWMA trend),
+    # straggler-evict factor vs the peer median, hysteresis persistence
+    # (consecutive observations), post-decision cooldown, and the idle
+    # window before scale-in.
+    autoscale: bool = False
+    autoscale_interval_s: float = 5.0
+    autoscale_queue_high: float = 16.0
+    autoscale_queue_trend: float = 4.0
+    autoscale_straggler_factor: float = 3.0
+    autoscale_persistence: int = 3
+    autoscale_cooldown_s: float = 30.0
+    autoscale_idle_s: float = 60.0
+    # Request-rate / latency-target autoscaling (serving mode).  All three
+    # are off at 0.  autoscale_rate_high: fleet-aggregate offered QPS per
+    # replica above which (with a rising EWMA trend) the policy scales out.
+    # autoscale_latency_target_ms: serving p99 latency SLO — p99 above
+    # target counts toward scale_out with the same persistence/cooldown
+    # hysteresis as the queue signals.  autoscale_idle_qps: offered load
+    # below this feeds the idle timer (scale_in after autoscale_idle_s),
+    # replacing the training-progress idle test when serving instruments
+    # are present.
+    autoscale_rate_high: float = 0.0
+    autoscale_latency_target_ms: float = 0.0
+    autoscale_idle_qps: float = 0.0
+
     # Run the coordinator cycle inline on the submitting thread for blocking
     # single-controller ops (HOROVOD_INLINE_KICK; the small-tensor latency
     # fast path — off = legacy wake-the-cycle-thread dispatch).
@@ -321,6 +391,24 @@ class Config:
             hierarchical_local_size=_env_int("HIERARCHICAL_LOCAL_SIZE", 0),
             hier_threshold_bytes=_env_int("HIER_THRESHOLD", 0),
             slice_map=_env("SLICE_MAP", "") or "",
+            hierarchical_controller=_env_bool("HIERARCHICAL_CONTROLLER",
+                                              False),
+            agent_port=_env_int("AGENT_PORT", 0),
+            preempt_grace_s=_env_float("PREEMPT_GRACE_S", 30.0),
+            commit_max_age_s=_env_float("COMMIT_MAX_AGE_S", 0.0),
+            autoscale=_env_bool("AUTOSCALE", False),
+            autoscale_interval_s=_env_float("AUTOSCALE_INTERVAL", 5.0),
+            autoscale_queue_high=_env_float("AUTOSCALE_QUEUE_HIGH", 16.0),
+            autoscale_queue_trend=_env_float("AUTOSCALE_QUEUE_TREND", 4.0),
+            autoscale_straggler_factor=_env_float(
+                "AUTOSCALE_STRAGGLER_FACTOR", 3.0),
+            autoscale_persistence=_env_int("AUTOSCALE_PERSISTENCE", 3),
+            autoscale_cooldown_s=_env_float("AUTOSCALE_COOLDOWN", 30.0),
+            autoscale_idle_s=_env_float("AUTOSCALE_IDLE_S", 60.0),
+            autoscale_rate_high=_env_float("AUTOSCALE_RATE_HIGH", 0.0),
+            autoscale_latency_target_ms=_env_float(
+                "AUTOSCALE_LATENCY_TARGET_MS", 0.0),
+            autoscale_idle_qps=_env_float("AUTOSCALE_IDLE_QPS", 0.0),
             inline_kick=_env_bool("INLINE_KICK", True),
             controller_addr=_env("CONTROLLER_ADDR", "") or "",
             controller_port=_env_int("CONTROLLER_PORT", 0),

@@ -1,0 +1,670 @@
+# Copied from horovod_tpu/common/host_agent.py:1-668; issue references
+# are dropped from the comments.
+"""Per-host control-plane aggregator (protocol v5, jax-free).
+
+The scale-out half of the hierarchical control plane (docs/performance.md
+"Control plane at scale"): one ``HostAgent`` per host sits between its
+local ranks' :class:`~.controller.TCPController` clients and the rank-0
+coordinator (``csrc/coordinator.cc``).  Local ranks connect to the agent
+exactly as they would to the root — same handshake, byte-identical frames,
+so the per-rank warm path stays the guarded ~13 B/cycle — while the agent
+presents the whole host to the root as ONE connection:
+
+- **uplink**: each round the agent collects one frame from every local
+  rank.  In the synchronized warm steady state (every rank sent a pure
+  bitvector frame with identical bits — the common case, since all ranks
+  submit the same tensors in the same cycle) the frames collapse into one
+  fixed-size aggregate section that counts for every local rank at once;
+  anything else (full announces, sanitizer tags, FLT1 ads, join frames,
+  asymmetric rounds) is forwarded per-rank, byte-identical, so flat-mode
+  semantics survive unchanged.  MON1 telemetry blobs are extracted and
+  deduplicated into one uplink section per round instead of riding N
+  store-and-forward frames.
+- **downlink**: the root's response is already rank-agnostic (the flat
+  server broadcasts one identical frame to every rank), so the agent fans
+  it down verbatim.  Typed ABORT frames are fanned down the same way.
+- **liveness**: a local rank whose socket dies is propagated up in the
+  next uplink's dead-rank section, so the root aborts the fleet with exact
+  rank attribution; the agent's own death severs its root connection, and
+  the root declares the whole host's ranks dead (coarse but correct —
+  the agent was those ranks' only path).
+- **clean LEAVE (protocol v6)**: a local rank announcing its own orderly
+  departure sends the typed LEAVE frame in place of a round frame; the
+  agent forwards it upstream verbatim (the root drops the rank with no
+  verdict) and then retires the rank — the host's uplink SHRINKS to the
+  survivors and the aggregate warm path re-engages over the smaller rank
+  set, instead of the departure killing the whole host's connection.
+
+Root-side gather work therefore scales with hosts, not ranks: one
+readable fd, one frame parse and one response write per host per round.
+
+**Generation survival:** the agent's identity is its HOST, not
+a rendezvous generation.  ``end_generation``/``new_generation`` tear down
+and re-form the per-generation connections (upstream root, local rank
+sockets, round thread) while the listening socket — on the stable
+per-host port the elastic driver allocated — stays bound, so the same
+agent object serves consecutive re-rendezvous generations whose rank sets
+grew, shrank or were renumbered.  This is what lets
+``HOROVOD_HIERARCHICAL_CONTROLLER=1`` compose with elastic worlds instead
+of being silently forced flat.
+
+No jax imports: the agent must run on the jax-free fast test tier and in
+launcher-adjacent processes.
+"""
+
+from __future__ import annotations
+
+import selectors
+import socket
+import struct
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from ..utils.logging import get_logger
+
+log = get_logger()
+
+# Wire constants — must match csrc/coordinator.cc.
+_AGENT_HELLO = 0xFFFFFF05
+_HUP_MAGIC = 0x35505548        # "HUP5"
+_MON_MAGIC = 0x314E4F4D        # "MON1"
+_ABORT_ESCAPE = 0xFFFFFFFF
+# Clean-LEAVE frame (protocol v6): escape word + "LVE6" magic.
+_LEAVE_ESCAPE = 0xFFFFFFFE
+_LVE_MAGIC = 0x3645564C
+# Zero-RTT warm path (protocol v7): a speculating rank's warm frame is
+# the 13-byte core plus a one-byte ZRT7 confirm section.  Identical
+# confirms across the host stay on the fixed-size aggregate uplink path.
+_ZRT_MAGIC = 0x3754525A
+
+
+def _is_leave_frame(data: bytes) -> bool:
+    return (len(data) >= 8
+            and struct.unpack_from("<II", data) == (_LEAVE_ESCAPE,
+                                                    _LVE_MAGIC))
+
+
+def _read_exact(sock: socket.socket, n: int,
+                stop: Optional[threading.Event] = None) -> Optional[bytes]:
+    """Blocking exact read with stop-aware short timeouts; None on EOF or
+    stop."""
+    buf = b""
+    while len(buf) < n:
+        if stop is not None and stop.is_set():
+            return None
+        try:
+            chunk = sock.recv(n - len(buf))
+        except socket.timeout:
+            continue
+        except OSError:
+            return None
+        if not chunk:
+            return None
+        buf += chunk
+    return buf
+
+
+def _read_frame(sock: socket.socket,
+                stop: Optional[threading.Event] = None) -> Optional[bytes]:
+    hdr = _read_exact(sock, 4, stop)
+    if hdr is None:
+        return None
+    (ln,) = struct.unpack("<I", hdr)
+    if ln == 0:
+        return b""
+    return _read_exact(sock, ln, stop)
+
+
+def _write_frame(sock: socket.socket, payload: bytes) -> bool:
+    try:
+        sock.sendall(struct.pack("<I", len(payload)) + payload)
+        return True
+    except OSError:
+        return False
+
+
+def split_rank_frame(data: bytes):
+    """Parse a client request frame into ``(n_announce, n_tag, core_end,
+    trailing)`` where ``trailing`` is the ``[(magic, payload)]`` list of
+    generic trailing sections and ``core_end`` is the offset where they
+    begin.  Returns None when the frame does not parse — the caller then
+    forwards it verbatim (never aggregates), so a framing bug degrades to
+    flat-mode behavior instead of corruption."""
+    try:
+        off = 0
+        (n_ann,) = struct.unpack_from("<I", data, off)
+        off += 4
+        for _ in range(n_ann):
+            off += 2                                  # required
+            for _f in range(5):                       # name/digest/group/
+                (ln,) = struct.unpack_from("<H", data, off)   # datadep/tag
+                off += 2 + ln
+        (bv_len,) = struct.unpack_from("<I", data, off)
+        off += 4 + bv_len
+        (n_tag,) = struct.unpack_from("<I", data, off)
+        off += 4
+        for _ in range(n_tag):
+            (_slot, ln) = struct.unpack_from("<IH", data, off)
+            off += 6 + ln
+        core_end = off
+        trailing = []
+        while off + 8 <= len(data):
+            magic, ln = struct.unpack_from("<II", data, off)
+            off += 8
+            if off + ln > len(data):
+                return None
+            trailing.append((magic, data[off:off + ln]))
+            off += ln
+        if off != len(data):
+            return None
+        return n_ann, n_tag, core_end, trailing
+    except struct.error:
+        return None
+
+
+class AgentStats:
+    """Uplink accounting the frame-guard tests pin: exactly one uplink per
+    round, and how often the fixed-size aggregate path engaged.
+    Cumulative across re-rendezvous GENERATIONS: the agent is
+    keyed on its host, not on a generation, so the counters survive
+    ``new_generation`` — ``generations`` records how many worlds this one
+    agent object has served."""
+
+    def __init__(self):
+        self.rounds = 0
+        self.uplink_frames = 0
+        self.uplink_bytes = 0
+        self.agg_rounds = 0            # rounds collapsed to ONE aggregate
+        self.last_agg_uplink_len = 0   # payload bytes of the last aggregate
+        self.subframes_forwarded = 0   # per-rank pass-through frames
+        self.mon_blobs_forwarded = 0   # MON1 blobs deduped into uplinks
+        self.responses_fanned = 0
+        self.dead_reports = 0          # out-of-round dead-rank uplinks
+        self.leaves_forwarded = 0      # clean LEAVEs relayed upstream (v6)
+        self.generations = 0           # worlds served by this agent object
+
+
+class HostAgent:
+    """One per-host aggregation point between local ranks and the root."""
+
+    def __init__(self, port: int, upstream_addr: str, upstream_port: int,
+                 ranks: List[int], host_index: int = 0,
+                 listen_addr: str = "127.0.0.1",
+                 connect_timeout_ms: int = 60000):
+        if not ranks:
+            raise ValueError("HostAgent needs at least one local rank")
+        self.ranks = sorted(int(r) for r in ranks)
+        self.host_index = int(host_index)
+        self.upstream_addr = upstream_addr
+        self.upstream_port = int(upstream_port)
+        self.connect_timeout_ms = int(connect_timeout_ms)
+        self.stats = AgentStats()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._up: Optional[socket.socket] = None
+        self._local: Dict[int, socket.socket] = {}   # rank -> socket
+        self._reported_dead: set = set()
+        # Ranks whose EOF arrived AFTER their round frame was already in
+        # hand: reported upstream once the completed round's uplink (which
+        # legitimately includes their last announce) has gone out.
+        self._deferred_dead: List[int] = []
+        # Ranks whose round frame was a clean LEAVE (protocol v6): the
+        # frame is forwarded upstream as a verbatim subframe, and the rank
+        # is retired — removed from the local set and from ``ranks`` so
+        # the aggregate warm path re-engages over the SHRUNK host — once
+        # the round's response has been fanned to the survivors.  Their
+        # trailing EOF must never become a dead-rank report.
+        self._left_pending: set = set()
+        # Per-rank reassembly buffers, persistent ACROSS rounds: a
+        # speculating or pipelined rank (protocol v7) legitimately sends
+        # round N+1's frame before round N's response has been fanned
+        # down, so bytes beyond the current round's frame must survive
+        # the gather instead of dying with a per-call buffer.
+        self._bufs: Dict[int, bytes] = {}
+        self.error: Optional[str] = None
+        # Bound before start() returns so callers (and port-0 users) know
+        # where local ranks must connect.
+        self._lsock = socket.socket()
+        self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._lsock.bind((listen_addr, int(port)))
+        self._lsock.listen(len(self.ranks))
+        self._lsock.settimeout(0.2)
+        self.port = self._lsock.getsockname()[1]
+
+    # ------------------------------------------------------------ lifecycle
+    def start(self) -> "HostAgent":
+        self.stats.generations += 1
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"hvd-host-agent-{self.host_index}")
+        self._thread.start()
+        return self
+
+    def end_generation(self) -> None:
+        """Tear down this GENERATION's connections — upstream root, local
+        rank sockets, the round thread — while keeping the LISTENER bound
+       : the agent's identity is its host (and the stable port
+        the elastic driver allocated for that host), not a generation.
+        ``new_generation`` re-accepts the next world on the same port.
+        Idempotent; safe on a generation that already failed."""
+        self._stop.set()
+        for s in [self._up, *self._local.values()]:
+            if s is not None:
+                try:
+                    s.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+        t = self._thread
+        if t is not None:
+            t.join(timeout=10)
+            if t.is_alive():
+                # Left in place as poison: new_generation refuses to run
+                # beside a thread that would read the replaced stop event
+                # and race the fresh generation's state.
+                self.error = (self.error
+                              or "generation thread failed to stop")
+            else:
+                self._thread = None
+        for s in [self._up, *self._local.values()]:
+            if s is not None:
+                try:
+                    s.close()
+                except OSError:
+                    pass
+        self._local.clear()
+        self._up = None
+        self._bufs.clear()
+        self._left_pending.clear()
+        self._reported_dead.clear()
+        self._deferred_dead = []
+
+    def new_generation(self, upstream_addr: str, upstream_port: int,
+                       ranks: List[int],
+                       host_index: Optional[int] = None) -> "HostAgent":
+        """Serve the NEXT re-rendezvous generation from the same agent
+        object: the previous generation (if any) is ended, the rank set —
+        which may have grown, shrunk, or been renumbered by the elastic
+        driver — replaces the old one, the uplink re-connects to the new
+        generation's root, and local ranks re-connect to the SAME listen
+        port.  This is what lets ``HOROVOD_HIERARCHICAL_CONTROLLER=1``
+        survive elastic churn: LEAVE/join re-negotiate the host's uplink
+        width instead of forcing the fleet flat."""
+        if not ranks:
+            raise ValueError("HostAgent.new_generation needs ranks")
+        self.end_generation()
+        if self._thread is not None and self._thread.is_alive():
+            # The old round thread would read the REPLACED stop event and
+            # run concurrently with the new generation's thread, racing
+            # on the cleared per-generation state — refuse loudly; the
+            # caller falls back to a fresh agent on a fresh port.
+            raise RuntimeError(
+                "host agent: the previous generation's thread failed to "
+                "stop; cannot serve a new generation")
+        self.ranks = sorted(int(r) for r in ranks)
+        if host_index is not None:
+            self.host_index = int(host_index)
+        self.upstream_addr = upstream_addr
+        self.upstream_port = int(upstream_port)
+        self.error = None
+        # A fresh stop event only after the old thread is JOINED — the old
+        # thread reads self._stop, so replacing it earlier could leave it
+        # running against a cleared event.
+        self._stop = threading.Event()
+        self._lsock.listen(len(self.ranks))
+        return self.start()
+
+    def stop(self) -> None:
+        self.end_generation()
+        try:
+            self._lsock.close()
+        except OSError:
+            pass
+
+    close = stop
+
+    def kill(self) -> None:
+        """Abrupt death for fault tests: sever every socket WITHOUT the
+        orderly dead-rank reporting — the root must attribute this host's
+        ranks from the severed connection alone."""
+        self._stop.set()
+        for s in [self._lsock, self._up, *self._local.values()]:
+            if s is not None:
+                try:
+                    s.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+
+    # ----------------------------------------------------------- bootstrap
+    def _accept_local(self) -> bool:
+        """Accept exactly one connection per local rank (handshake: the
+        rank id, same as the root's flat handshake)."""
+        deadline = time.monotonic() + self.connect_timeout_ms / 1000.0
+        want = set(self.ranks)
+        while want and not self._stop.is_set():
+            if time.monotonic() > deadline:
+                self.error = f"local ranks never connected: {sorted(want)}"
+                return False
+            try:
+                conn, _ = self._lsock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return False
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            conn.settimeout(0.2)
+            hs = _read_exact(conn, 4, self._stop)
+            if hs is None:
+                conn.close()
+                continue
+            (rank,) = struct.unpack("<I", hs)
+            if rank not in want:
+                conn.close()
+                continue
+            want.discard(rank)
+            self._local[rank] = conn
+        return not want
+
+    def _connect_upstream(self) -> bool:
+        deadline = time.monotonic() + self.connect_timeout_ms / 1000.0
+        while not self._stop.is_set():
+            if time.monotonic() > deadline:
+                self.error = (f"root coordinator at {self.upstream_addr}:"
+                              f"{self.upstream_port} not reachable")
+                return False
+            try:
+                s = socket.create_connection(
+                    (self.upstream_addr, self.upstream_port), timeout=2.0)
+            except OSError:
+                time.sleep(0.05)
+                continue
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            s.settimeout(0.2)
+            try:
+                s.sendall(struct.pack("<I", _AGENT_HELLO))
+                claim = struct.pack("<II", self.host_index, len(self.ranks))
+                claim += b"".join(struct.pack("<I", r) for r in self.ranks)
+                if not _write_frame(s, claim):
+                    raise OSError("handshake write failed")
+            except OSError:
+                s.close()
+                time.sleep(0.05)
+                continue
+            self._up = s
+            return True
+
+    # ---------------------------------------------------------- round loop
+    def _take_frame(self, rank: int, frames: Dict[int, bytes]) -> None:
+        """Move one complete frame (if reassembled) from the rank's
+        persistent buffer into this round's frame set."""
+        buf = self._bufs.get(rank, b"")
+        if len(buf) < 4:
+            return
+        (ln,) = struct.unpack_from("<I", buf)
+        if len(buf) < 4 + ln:
+            return
+        frames[rank] = buf[4:4 + ln]
+        self._bufs[rank] = buf[4 + ln:]
+        if _is_leave_frame(frames[rank]):
+            # Clean departure (protocol v6): the LEAVE is this rank's
+            # round frame — forwarded upstream verbatim so the root drops
+            # the rank — and the rank retires after the round completes.
+            self._left_pending.add(rank)
+
+    def _gather_local(self, sel) -> Optional[Dict[int, bytes]]:
+        """One frame from every live local rank, multiplexed through the
+        round loop's long-lived selector (registered ONCE per connection,
+        like the root's poller — not rebuilt per round).  Returns None
+        when the round cannot complete (death/abort/teardown) after
+        handling it: local deaths are reported upstream, an upstream frame
+        arriving mid-gather (an ABORT — the only unsolicited downlink) is
+        fanned down.  Reassembly buffers persist across rounds: a
+        speculating/pipelined rank's early next-round frame simply waits
+        its turn (it satisfies the NEXT gather immediately)."""
+        frames: Dict[int, bytes] = {}
+        # Leftover frames from ranks that ran ahead of the fan-out.
+        for rank in list(self._local):
+            self._take_frame(rank, frames)
+        while not self._stop.is_set():
+            if all(r in frames for r in self._local):
+                return frames
+            try:
+                events = sel.select(timeout=0.2)
+            except OSError:
+                return None
+            for key, _ev in events:
+                rank = key.data
+                if rank is None:
+                    # Unsolicited downlink mid-gather = a typed ABORT
+                    # (or root death): fan it down and stop.
+                    frame = _read_frame(self._up, self._stop)
+                    if frame is not None:
+                        self._fan_down(frame)
+                    self._sever_local()
+                    return None
+                if rank not in self._local:
+                    continue
+                s = key.fileobj
+                try:
+                    chunk = s.recv(65536)
+                except socket.timeout:
+                    continue
+                except OSError:
+                    chunk = b""
+                if not chunk:
+                    if rank in frames or rank in self._left_pending:
+                        # EOF AFTER this round's frame (a rank dying right
+                        # after its send, or a leaver's expected sever):
+                        # the frame in hand still counts — retire the
+                        # socket now, report once the round's uplink has
+                        # gone out.  A clean leaver is never reported.
+                        sel.unregister(s)
+                        self._local.pop(rank, None)
+                        self._bufs.pop(rank, None)
+                        if rank not in self._left_pending:
+                            self._deferred_dead.append(rank)
+                        continue
+                    sel.unregister(s)
+                    self._bufs.pop(rank, None)
+                    self._on_local_death(rank)
+                    return None
+                self._bufs[rank] = self._bufs.get(rank, b"") + chunk
+                if rank not in frames:
+                    self._take_frame(rank, frames)
+        return None
+
+    def _on_local_death(self, rank: int) -> None:
+        """A local rank's socket died: report it upstream (the root aborts
+        the fleet with exact rank attribution) and relay the verdict."""
+        self._local.pop(rank, None)
+        self._report_dead([rank])
+
+    def _report_dead(self, ranks: List[int]) -> None:
+        """Ship an out-of-round uplink naming the given dead local ranks
+        (already removed from ``_local``), relay the root's ABORT answer to
+        the survivors, and sever.  Idempotent per rank."""
+        fresh = [r for r in ranks if r not in self._reported_dead]
+        if not fresh or self._stop.is_set():
+            return
+        self._reported_dead.update(fresh)
+        up = self._up
+        if up is None:
+            return
+        payload = struct.pack("<II", _HUP_MAGIC, len(fresh))
+        payload += b"".join(struct.pack("<I", r) for r in fresh)
+        payload += struct.pack("<III", 0, 0, 0)   # agg_nranks, n_sub, n_mon
+        if _write_frame(up, payload):
+            # Counted apart from the per-round uplinks: the one-uplink-
+            # per-round frame guard must not see teardown reports.
+            self.stats.dead_reports += 1
+            # The root answers with the ABORT; fan it to the survivors.
+            frame = _read_frame(up, self._stop)
+            if frame is not None:
+                self._fan_down(frame)
+        self._sever_local()
+
+    def _sever_local(self) -> None:
+        for s in self._local.values():
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def _retire_left(self, sel) -> None:
+        """Retire ranks whose clean LEAVE completed a round: drop their
+        socket and shrink ``ranks`` so the next warm round's aggregate
+        section counts only the survivors — the host's uplink SHRINKS
+        instead of the whole host dying.  Called after the leave round's
+        uplink went out (the root needs the verbatim LEAVE subframe) and
+        before the response fan-out (no response is owed to a leaver)."""
+        for rank in sorted(self._left_pending):
+            s = self._local.pop(rank, None)
+            self._bufs.pop(rank, None)
+            if s is not None:
+                try:
+                    sel.unregister(s)
+                except (KeyError, ValueError):
+                    pass   # EOF handling already unregistered it
+                try:
+                    s.close()
+                except OSError:
+                    pass
+            if rank in self.ranks:
+                self.ranks.remove(rank)
+            self.stats.leaves_forwarded += 1
+        self._left_pending.clear()
+
+    def _build_uplink(self, frames: Dict[int, bytes]) -> bytes:
+        """Fold one round's local frames into the host uplink."""
+        subs: List[Tuple[int, bytes]] = []
+        mons: List[Tuple[int, bytes]] = []
+        cores: List[bytes] = []
+        aggregatable = True
+        for rank in sorted(frames):
+            data = frames[rank]
+            parsed = split_rank_frame(data)
+            if parsed is None:
+                subs.append((rank, data))       # opaque: forward verbatim
+                aggregatable = False
+                continue
+            n_ann, n_tag, core_end, trailing = parsed
+            kept = b"".join(struct.pack("<II", m, len(p)) + p
+                            for m, p in trailing if m != _MON_MAGIC)
+            for m, p in trailing:
+                if m == _MON_MAGIC:
+                    mons.append((rank, p))
+            # A trailing ZRT7 speculation confirm (protocol v7) is part of
+            # the warm steady-state shape: when every local rank sends an
+            # identical one it rides the core-equality check below and
+            # collapses into the aggregate like the bitvector it confirms
+            # (the root's confirm accounting is advisory; the announce
+            # itself is the aggregate bitvector).  Any OTHER trailing
+            # section still forces the per-rank path.
+            warm_trailing = all(m == _ZRT_MAGIC and len(p) == 1
+                                for m, p in trailing if m != _MON_MAGIC)
+            stripped = data[:core_end] + kept
+            if n_ann or n_tag or (kept and not warm_trailing):
+                subs.append((rank, stripped))
+                aggregatable = False
+            else:
+                cores.append(stripped)
+                subs.append((rank, stripped))   # provisional; dropped below
+        agg_bv = None
+        if aggregatable and cores and len(cores) == len(self.ranks) \
+                and all(c == cores[0] for c in cores):
+            # The synchronized warm steady state: every local rank sent a
+            # pure bitvector frame with identical bits — ONE fixed-size
+            # aggregate section replaces them all.
+            (bv_len,) = struct.unpack_from("<I", cores[0], 4)
+            agg_bv = cores[0][8:8 + bv_len]
+            subs = []
+        payload = struct.pack("<II", _HUP_MAGIC, 0)
+        if agg_bv is not None:
+            payload += struct.pack("<II", len(self.ranks), len(agg_bv))
+            payload += agg_bv
+            self.stats.agg_rounds += 1
+        else:
+            payload += struct.pack("<I", 0)
+        payload += struct.pack("<I", len(subs))
+        for rank, data in subs:
+            payload += struct.pack("<II", rank, len(data)) + data
+        self.stats.subframes_forwarded += len(subs)
+        payload += struct.pack("<I", len(mons))
+        for rank, blob in mons:
+            payload += struct.pack("<II", rank, len(blob)) + blob
+        self.stats.mon_blobs_forwarded += len(mons)
+        if agg_bv is not None and not mons:
+            self.stats.last_agg_uplink_len = len(payload)
+        return payload
+
+    def _fan_down(self, frame: bytes) -> List[int]:
+        """Relay one downlink frame to every live local rank; returns the
+        ranks whose write failed (popped from ``_local`` — the CALLER must
+        report them upstream via ``_report_dead``, or the root would keep
+        getting complete rounds from the survivors and never learn of the
+        death)."""
+        dead_writes = []
+        for rank, s in list(self._local.items()):
+            if not _write_frame(s, frame):
+                dead_writes.append(rank)
+        self.stats.responses_fanned += 1
+        for rank in dead_writes:
+            self._local.pop(rank, None)
+        return dead_writes
+
+    def _run(self) -> None:
+        sel = None
+        try:
+            if not self._accept_local():
+                return
+            if not self._connect_upstream():
+                # Local clients are already blocked in their first round:
+                # sever them so they fail typed instead of hanging.
+                self._sever_local()
+                return
+            # One long-lived selector (epoll on Linux — not select(),
+            # whose FD_SETSIZE the negotiation-scaling bench's hundreds of
+            # in-process sockets would blow past), registered ONCE per
+            # connection like the root's poller — never rebuilt per round.
+            sel = selectors.DefaultSelector()
+            for r, s in self._local.items():
+                sel.register(s, selectors.EVENT_READ, r)
+            sel.register(self._up, selectors.EVENT_READ, None)
+            while not self._stop.is_set() and self._local:
+                frames = self._gather_local(sel)
+                if frames is None:
+                    return
+                self.stats.rounds += 1
+                uplink = self._build_uplink(frames)
+                if not _write_frame(self._up, uplink):
+                    # Root died: sever local ranks so their in-flight
+                    # rounds fail typed (unattributed, like flat mode).
+                    self._sever_local()
+                    return
+                self.stats.uplink_frames += 1
+                self.stats.uplink_bytes += len(uplink) + 4
+                resp = _read_frame(self._up, self._stop)
+                if resp is None:
+                    self._sever_local()
+                    return
+                if self._left_pending:
+                    self._retire_left(sel)
+                dead_writes = self._fan_down(resp)
+                if len(resp) >= 4 and struct.unpack_from(
+                        "<I", resp)[0] == _ABORT_ESCAPE:
+                    # Typed fleet abort: the control plane is done.
+                    self._sever_local()
+                    return
+                if dead_writes or self._deferred_dead:
+                    # A rank died between its round send and the response
+                    # fan-out: report it NOW — its silence would otherwise
+                    # be invisible upstream (the survivors keep completing
+                    # rounds, so no deadline ever fires for it).
+                    self._report_dead(dead_writes + self._deferred_dead)
+                    return
+        except Exception as exc:  # noqa: BLE001 - never kill the host process
+            self.error = repr(exc)
+            log.exception("host agent %d failed", self.host_index)
+            self._sever_local()
+        finally:
+            if sel is not None:
+                sel.close()

@@ -14,8 +14,8 @@ the generation's communicators and re-runs ``init()`` (a new world, a new
 engine) before ``state.sync()``.
 
 Import shape: the driver side (driver, discovery, registration,
-rendezvous, the control-flow exceptions) imports without torch's device
-runtime; the state objects (``State``/``ObjectState``/``TorchState``/
+rendezvous, the ``autoscale`` policy engine, the control-flow exceptions)
+imports without torch's device runtime; the state objects (``State``/``ObjectState``/``TorchState``/
 ``run``) and ``ElasticSampler`` load lazily on first attribute access
 (PEP 562).
 """

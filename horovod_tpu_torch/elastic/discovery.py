@@ -1,5 +1,7 @@
-# Copied from horovod_tpu/elastic/discovery.py:1-90, without TPUMetadataDiscovery (:93-177), which has no GPU counterpart,
-# and without preemption_notices (:32-42), whose reader, the preemption drain, is ROADMAP queue 1 item 6b.
+# Copied from horovod_tpu/elastic/discovery.py:1-90, without
+# TPUMetadataDiscovery (:93-177), which has no GPU counterpart: the script
+# and fixed sources report no preemption notices; a HostDiscovery subclass
+# passed to ElasticDriver posts them.
 """Host discovery for elastic training.
 
 Parity: reference ``horovod/runner/elastic/discovery.py`` —
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import subprocess
-from typing import Dict, List
+from typing import Dict, List, Set
 
 from ..utils.logging import get_logger
 
@@ -30,6 +32,17 @@ class DiscoveredHost:
 class HostDiscovery:
     def find_available_hosts_and_slots(self) -> List[DiscoveredHost]:
         raise NotImplementedError
+
+    def preemption_notices(self) -> Set[str]:
+        """Hostnames with an ACTIVE preemption notice: the host
+        is still alive — it stays in the discovered set — but the platform
+        has announced it will be reclaimed soon.  The elastic driver
+        reacts by cordoning the host and DRAINING its workers (commit →
+        clean LEAVE → exit, with a ``preempt_grace_s`` deadline falling
+        back to termination) so the departure is orderly instead of a
+        mid-collective crash.  Default: none — script/fixed discovery
+        sources have no preemption signal."""
+        return set()
 
 
 class HostDiscoveryScript(HostDiscovery):

@@ -1,8 +1,7 @@
 # Copied from horovod_tpu/elastic/driver.py:1-983, with _worker_env (:258-270)
 # on the port's platform_worker_env and run_elastic (:909-983) on the port's
-# tuning_env, without the TPU metadata discovery, and without the autoscaler
-# and the preemption drains (:548-881 and the state and loop steps only they
-# use; their flags are refused, ROADMAP queue 1 item 6b).
+# tuning_env, and without the TPU metadata discovery; issue references are
+# dropped from the comments.
 """The elastic driver: discovery polling, rank assignment, worker lifecycle.
 
 Parity: reference ``horovod/runner/elastic/driver.py`` (``ElasticDriver``)
@@ -57,7 +56,12 @@ class ElasticDriver:
                  rendezvous_addr: Optional[str] = None,
                  output_filename: Optional[str] = None,
                  verbose: int = 0,
-                 discovery_grace_s: Optional[float] = None):
+                 discovery_grace_s: Optional[float] = None,
+                 autoscale_policy=None,
+                 autoscale_interval_s: float = 5.0,
+                 autoscale_source=None,
+                 scale_command: Optional[str] = None,
+                 preempt_grace_s: float = 30.0):
         self.discovery = discovery
         self.command = command
         self.min_np = min_np
@@ -75,7 +79,31 @@ class ElasticDriver:
         self.discovery_grace_s = (2.0 * discovery_interval_s
                                   if discovery_grace_s is None
                                   else max(0.0, float(discovery_grace_s)))
-        # Hierarchical control plane × elastic (ISSUE 12): when the worker
+        # Closed-loop autoscaling (docs/elastic.md): a ScalePolicy consumes
+        # summaries from `autoscale_source` (default: rank 0's monitor
+        # /health endpoint) and this driver executes the decisions —
+        # scale_out through the operator's `scale_command`, evict/scale_in
+        # through the drain pipeline (DRAIN ping → worker finishes its
+        # batch → clean LEAVE → exit 0 → cordoned host leaves the world).
+        self.autoscale_policy = autoscale_policy
+        self.autoscale_interval_s = max(0.5, float(autoscale_interval_s))
+        self._autoscale_source = autoscale_source
+        self.scale_command = scale_command
+        self.events: List[dict] = []    # executed decisions, for operators
+                                        # and the scenario acceptance test
+        # Preemption-driven drains: a discovery preemption
+        # notice gets the DRAIN → clean LEAVE → cordon path, grace-bounded
+        # — a worker still alive past preempt_grace_s is terminated (the
+        # legacy sever), still classified as a departure.
+        self.preempt_grace_s = max(0.0, float(preempt_grace_s))
+        # Hosts cordoned BECAUSE of a preemption notice: released when the
+        # notice clears (recreated preemptible hardware under the same
+        # address must be able to rejoin), unlike evict cordons, which
+        # persist.  Doubles as the handled-once marker: a cordoned host is
+        # never re-drained while its notice stands.
+        self._preempt_cordoned: set = set()
+        self._drain_deadlines: Dict[str, float] = {}
+        # Hierarchical control plane × elastic: when the worker
         # env arms HOROVOD_HIERARCHICAL_CONTROLLER, the driver allocates
         # ONE stable agent port per host — reused across generations, so
         # the generation-surviving HostAgent keeps its listen socket —
@@ -106,6 +134,14 @@ class ElasticDriver:
         # Identities the driver itself terminated (host removed / shrunk):
         # their nonzero exit must not blacklist the host as a failure.
         self._released: set = set()
+        # Identities the autoscaler asked to drain: their exit 0 is a
+        # clean departure (record_left), never the job-success signal.
+        self._draining: set = set()
+        # Hosts the autoscaler retired (straggler evict / scale-in):
+        # excluded from assignment like the blacklist, but clean — an
+        # operator scale-out may un-cordon by naming them again through
+        # `scale_command` + discovery.
+        self._cordoned: set = set()
         # Discovery-flap debounce state: hostname -> (last_seen_monotonic,
         # last_known_slots).
         self._last_seen: Dict[str, tuple] = {}
@@ -116,7 +152,8 @@ class ElasticDriver:
     # ----------------------------------------------------------- assignment
     def active_hosts(self, discovered: List[DiscoveredHost]) -> List[DiscoveredHost]:
         return [h for h in discovered
-                if not self.registry.is_blacklisted(h.hostname)]
+                if not self.registry.is_blacklisted(h.hostname)
+                and h.hostname not in self._cordoned]
 
     def _effective_hosts(self, discovered: List[DiscoveredHost],
                          now: float) -> List[DiscoveredHost]:
@@ -124,7 +161,7 @@ class ElasticDriver:
         vanished less than ``discovery_grace_s`` ago (kept at their last
         known slot count, in their original order — rank assignments must
         not churn when a host misses ONE poll and returns).  New hosts
-        join immediately; blacklist filtering happens in
+        join immediately; blacklist/cordon filtering happens in
         ``active_hosts`` as usual."""
         for h in discovered:
             self._last_seen[h.hostname] = (now, h.slots)
@@ -326,7 +363,7 @@ class ElasticDriver:
         if not assignments:
             return False
         if self._same_layout(assignments):
-            # No-op regeneration guard (ISSUE 14): the active membership
+            # No-op regeneration guard: the active membership
             # and rank layout are IDENTICAL to the live generation — the
             # only delta would be freshly-allocated controller ports.
             # Re-publishing forces every healthy worker through a full
@@ -384,8 +421,13 @@ class ElasticDriver:
                 # kill the driver (script timeout, malformed slots line, ...)
                 log.warning("elastic driver: discovery failed: %s", exc)
                 discovered = []
-            # Effective = flap-debounced; blacklist applied at use.
+            # Effective = flap-debounced; blacklist/cordon applied at use.
             self._hosts = self._effective_hosts(discovered, time.monotonic())
+            # Preemption notices gate the FIRST generation too: a host
+            # with an active notice is cordoned (nothing is assigned yet,
+            # so this is the cordon-only path) rather than knowingly
+            # handed workers that would need an immediate drain.
+            self._check_preemption()
             if self._new_generation(self.active_hosts(self._hosts)):
                 break
             if time.monotonic() > deadline:
@@ -396,6 +438,7 @@ class ElasticDriver:
             time.sleep(self.discovery_interval_s)
 
         last_poll = time.monotonic()
+        last_autoscale = time.monotonic()
         while True:
             # 1. process exits
             changed = self._reap_exits()
@@ -426,6 +469,27 @@ class ElasticDriver:
                         changed = True
                 except Exception as exc:  # noqa: BLE001 - transient poll
                     log.warning("elastic driver: discovery failed: %s", exc)
+                # 3a. preemption notices: an imminently-
+                # preempted host gets the proactive DRAIN → clean LEAVE →
+                # cordon path — never a dead-peer verdict — handled on
+                # every poll, with or without the autoscale policy
+                # (hardware loss does not wait for an autoscale interval).
+                self._check_preemption()
+
+            # 3b. drain-grace enforcement: a drained worker that outlived
+            # its deadline is terminated (the legacy sever fallback) —
+            # still marked DRAINING, so the reap classifies it LEFT.
+            self._enforce_drain_deadlines()
+
+            # 3c. closed-loop autoscaling: consume monitor summaries, let
+            # the policy decide, execute (docs/elastic.md).  Decisions
+            # mutate the world only through the same discovery/cordon/
+            # drain paths the rest of this loop already handles.
+            if (self.autoscale_policy is not None
+                    and time.monotonic() - last_autoscale
+                    >= self.autoscale_interval_s):
+                last_autoscale = time.monotonic()
+                self._autoscale_step()
 
             # 4. re-form the world if needed.  The blacklist is re-applied
             # HERE so a failure-triggered regeneration excludes the host
@@ -446,6 +510,9 @@ class ElasticDriver:
         the clean-exit tests pin (docs/elastic.md "Drain semantics"):
 
         - released (driver terminated it: host removed/shrunk) → LEFT;
+        - draining (autoscale drain → clean LEAVE → exit) → LEFT: never
+          the job-success signal, never a blacklisting failure — the host
+          stays eligible for a later scale-out; triggers regeneration;
         - rc == 0 otherwise → SUCCESS (training completed somewhere);
         - rc != 0 → FAILURE: blacklist the host, trigger regeneration.
 
@@ -459,13 +526,20 @@ class ElasticDriver:
             self._close_out_files(identity)
             # A departed rank's shard server is gone with it: prune its
             # rendezvous state record so later peer restores don't burn
-            # a connect timeout per corpse (ISSUE 14).
+            # a connect timeout per corpse.
             self.rendezvous.drop_state(identity)
             if identity in self._released:
                 self._released.discard(identity)
                 self.registry.record_left(identity)
                 continue
-            if rc == 0:
+            if identity in self._draining:
+                self._draining.discard(identity)
+                self.registry.record_left(identity)
+                if rc != 0:
+                    log.warning("elastic driver: drained worker %s exited "
+                                "rc=%s (expected 0)", identity, rc)
+                changed = True
+            elif rc == 0:
                 self.registry.record_success(identity)
                 if identity in self._assigned:
                     self._success.set()
@@ -478,6 +552,342 @@ class ElasticDriver:
                     self._first_failure_rc = self._first_failure_rc or rc
                     changed = True
         return changed
+
+    # ------------------------------------------------------- autoscaling
+    def _default_autoscale_source(self):
+        """Poll rank 0's monitor ``/health`` (which carries the
+        ``RankAggregator.summary()`` fields — spread, trends, queue depth,
+        cycle counters) for the policy's observation record.  Needs
+        ``HOROVOD_MONITOR_PORT`` forwarded to the workers; returns None —
+        a hold — when the exporter is not up (e.g. mid-re-rendezvous)."""
+        import json
+        import urllib.request
+        port = int(self.extra_env.get("HOROVOD_MONITOR_PORT", "0") or 0)
+        if port <= 0 or not self._assigned:
+            return None
+        a = next((a for a in self._assigned.values() if a["rank"] == 0),
+                 None)
+        if a is None:
+            return None
+        host = a["controller_addr"]
+        with urllib.request.urlopen(f"http://{host}:{port}/health",
+                                    timeout=2.0) as r:
+            return json.loads(r.read().decode())
+
+    def drain_worker(self, identity: str) -> bool:
+        """Ask one worker to drain: finish its batch, send the clean
+        LEAVE, exit 0 (``DRAIN`` verb on the notification channel —
+        the worker-side handler raises ``DrainRequested`` from the next
+        ``state.commit()``).  The identity's exit is then classified as a
+        departure, never a failure.  Best-effort: False when the worker
+        has no registered notification port or the ping failed."""
+        if identity in self._draining:
+            return True
+        port = self.rendezvous.notification_ports().get(identity)
+        if port is None:
+            log.warning("elastic driver: cannot drain %s (no notification "
+                        "port registered)", identity)
+            return False
+        host = identity.rsplit(":", 1)[0]
+        addr = "127.0.0.1" if is_local_host(host) else host
+        try:
+            with socket.create_connection((addr, port), timeout=2.0) as s:
+                s.sendall(b"DRAIN\n")
+        except OSError as exc:
+            log.warning("elastic driver: drain ping to %s failed: %s",
+                        identity, exc)
+            return False
+        self._draining.add(identity)
+        return True
+
+    def cordon(self, hostname: str) -> None:
+        """Retire a host from assignment (clean — unlike the blacklist,
+        the record carries no failure; discovery dropping the host, or an
+        operator re-adding capacity elsewhere, is the durable state)."""
+        self._cordoned.add(hostname)
+
+    # ------------------------------------------------- preemption drains
+    def _request_commit_all(self, wait_s: float = 2.0) -> Dict[str, bool]:
+        """Checkpoint pacing: ask every live worker to commit
+        its elastic state NOW — sent immediately before an imminent
+        scale/preemption decision executes, so the last commit predates
+        the world change by milliseconds instead of a timer period.
+        Best-effort, and fanned out in PARALLEL with a bounded wait: on
+        the preemption path every second counts against the grace
+        window, so one unreachable worker must not serialize the rest.
+        The workers' own commit cadence is the backstop.
+
+        Workers now ACK the ping, the per-worker acks
+        are recorded in the event log (``action: commit_request``), and
+        the dict is returned so the preempt drain can WAIT (grace-
+        bounded) for the doomed host's ack before cordoning — previously
+        nothing recorded whether any worker ever saw the request, and a
+        drain could race its own in-flight snapshot ping."""
+        acks: Dict[str, bool] = {}
+
+        def _ping(identity, addr, port):
+            try:
+                with socket.create_connection((addr, port),
+                                              timeout=1.0) as s:
+                    s.sendall(b"COMMIT\n")
+                    s.settimeout(max(0.5, wait_s))
+                    # Read to the newline (bounded): a single recv can
+                    # legally return a partial segment of "ACK\n", and a
+                    # false-negative ack here cordons a host early on the
+                    # exact path built to make acks truthful.
+                    buf = b""
+                    while b"\n" not in buf and len(buf) < 64:
+                        c = s.recv(8)
+                        if not c:
+                            break
+                        buf += c
+                    if buf.startswith(b"ACK"):
+                        acks[identity] = True
+            except OSError:
+                pass
+
+        pings = []
+        for identity, port in self.rendezvous.notification_ports().items():
+            if identity not in self._procs:
+                continue
+            acks[identity] = False
+            host = identity.rsplit(":", 1)[0]
+            addr = "127.0.0.1" if is_local_host(host) else host
+            t = threading.Thread(target=_ping, args=(identity, addr, port),
+                                 daemon=True)
+            t.start()
+            pings.append(t)
+        deadline = time.monotonic() + max(0.5, wait_s)
+        for t in pings:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        self.events.append({"action": "commit_request",
+                            "acks": dict(acks),
+                            "acked": sorted(i for i, ok in acks.items()
+                                            if ok),
+                            "ts": time.time()})
+        return acks
+
+    def _check_preemption(self) -> None:
+        """Consume the discovery source's preemption notices.  A noticed
+        ASSIGNED host is drained proactively — commit request → cordon →
+        DRAIN pings with a ``preempt_grace_s`` deadline — so the
+        departure takes the clean-LEAVE path before the hardware
+        disappears.  A noticed host OUTSIDE the current assignment is
+        cordoned too (a scale-out must never place workers on doomed
+        hardware).  Preemption cordons are RELEASED when their notice
+        clears: recreated preemptible hardware under the same address —
+        the normal TPU preemption lifecycle — rejoins the world, and a
+        later notice re-triggers the drain."""
+        try:
+            notices = set(self.discovery.preemption_notices())
+        except Exception as exc:  # noqa: BLE001 - transient, like discovery
+            log.warning("elastic driver: preemption poll failed: %s", exc)
+            return
+        for host in sorted(self._preempt_cordoned - notices):
+            self._preempt_cordoned.discard(host)
+            self._cordoned.discard(host)
+            log.warning("elastic driver: preemption notice for %s "
+                        "cleared; host un-cordoned", host)
+        assigned_hosts = {a["hostname"] for a in self._assigned.values()}
+        for host in sorted(notices):
+            if host in self._cordoned:
+                continue           # already handled (or evict-cordoned)
+            self._preempt_cordoned.add(host)
+            if host in assigned_hosts:
+                self._preempt_drain(host)
+            else:
+                # Not in this world (yet): cordon only, so the doomed
+                # host can't be assigned while the notice stands.
+                self.cordon(host)
+                log.warning("elastic driver: preemption notice for "
+                            "unassigned host %s; cordoned", host)
+
+    def _preempt_drain(self, host: str) -> None:
+        """Execute one preemption drain.  The policy (when attached) is
+        the decision source of record — a notice outranks its
+        queue/straggler signals and opens its cooldown window — but the
+        drain itself never waits on autoscaling being enabled.  min_np is
+        deliberately NOT a guard here: the hardware is going away either
+        way, and an orderly departure that later under-runs min_np still
+        beats a mid-collective crash with a dead-peer verdict."""
+        reason = f"preemption notice for host {host} (discovery)"
+        if self.autoscale_policy is not None:
+            try:
+                decision = self.autoscale_policy.observe(
+                    {}, size=len(self._assigned), preempt_hosts=(host,))
+                if getattr(decision, "action", "") == "preempt":
+                    reason = decision.reason
+            except Exception:  # noqa: BLE001 - policy bookkeeping is
+                pass           # advisory; the drain happens regardless
+        log.warning("elastic driver: PREEMPT drain of host %s (%s)",
+                    host, reason)
+        self.events.append({"action": "preempt_drain", "host": host,
+                            "reason": reason, "ts": time.time()})
+        # Commit first (checkpoint pacing), then cordon so the clean exit
+        # regenerates a world that excludes the host, then drain.  The
+        # commit fan-out WAITS — bounded to a slice of the grace window —
+        # for the workers' acks before the cordon: a
+        # drain must not race an in-flight snapshot request, and a
+        # missing ack is logged so the operator can see WHO never got the
+        # pacing ping (its restore point is one timer period older).
+        wait_s = (min(5.0, max(1.0, self.preempt_grace_s / 4.0))
+                  if self.preempt_grace_s > 0 else 1.0)
+        acks = self._request_commit_all(wait_s=wait_s)
+        missing = sorted(i for i, ok in acks.items() if not ok)
+        if missing:
+            log.warning(
+                "elastic driver: preempt drain of %s proceeding without "
+                "commit acks from %s (waited %.1fs); their restore point "
+                "is their last periodic commit", host, missing, wait_s)
+        self.cordon(host)
+        deadline = time.monotonic() + self.preempt_grace_s
+        for identity, a in list(self._assigned.items()):
+            if a["hostname"] != host:
+                continue
+            if self.drain_worker(identity):
+                self._drain_deadlines[identity] = deadline
+            else:
+                # Unreachable worker: the termination fallback, marked
+                # DRAINING so the reap still classifies it LEFT and
+                # triggers the regeneration.
+                proc = self._procs.get(identity)
+                if proc is not None and proc.poll() is None:
+                    self._draining.add(identity)
+                    proc.terminate()
+
+    def _enforce_drain_deadlines(self) -> None:
+        """The grace fallback: a drained worker still alive past its
+        deadline is terminated — the legacy sever path — but stays
+        classified as a departure (DRAINING → LEFT), never a blacklist."""
+        if not self._drain_deadlines:
+            return
+        now = time.monotonic()
+        for identity, deadline in list(self._drain_deadlines.items()):
+            proc = self._procs.get(identity)
+            if proc is None or proc.poll() is not None:
+                self._drain_deadlines.pop(identity, None)
+                continue
+            if now >= deadline:
+                self._drain_deadlines.pop(identity, None)
+                log.warning(
+                    "elastic driver: drain grace (%.0fs) expired for %s; "
+                    "falling back to termination", self.preempt_grace_s,
+                    identity)
+                proc.terminate()
+
+    def _run_scale_command(self, action: str, decision,
+                           host: Optional[str] = None) -> None:
+        """Invoke the operator's capacity hook (``--scale-command``): a
+        shell command receiving the decision through HVD_AUTOSCALE_*
+        env — the cloud-agnostic seam where a deployment resizes its
+        instance group / TPU slice pool.  Discovery is still the source
+        of truth: the command changes what the discovery script reports,
+        the driver reacts as it would to any host change."""
+        if not self.scale_command:
+            return
+        env = dict(os.environ)
+        env["HVD_AUTOSCALE_ACTION"] = action
+        if decision.target_size is not None:
+            env["HVD_AUTOSCALE_TARGET"] = str(decision.target_size)
+        if host is not None:
+            env["HVD_AUTOSCALE_HOST"] = host
+        try:
+            out = subprocess.run(self.scale_command, shell=True, env=env,
+                                 capture_output=True, text=True, timeout=60)
+            if out.returncode != 0:
+                log.warning("elastic driver: scale command rc=%s: %s",
+                            out.returncode, (out.stderr or "").strip())
+        except Exception as exc:  # noqa: BLE001 - capacity hook is
+            # best-effort; the policy retries after its cooldown
+            log.warning("elastic driver: scale command failed: %s", exc)
+
+    def _autoscale_step(self) -> None:
+        """One observe→decide→execute turn of the autoscaler."""
+        try:
+            src = self._autoscale_source or self._default_autoscale_source
+            summary = src()
+        except Exception as exc:  # noqa: BLE001 - telemetry outage = hold
+            log.info("elastic driver: autoscale source unavailable: %s",
+                     exc)
+            return
+        if not summary:
+            return
+        decision = self.autoscale_policy.observe(summary,
+                                                 size=len(self._assigned))
+        if decision.is_hold:
+            return
+        # Checkpoint pacing: a non-hold decision is about to
+        # change the world — ask every worker to commit NOW, not at its
+        # next timer tick, so the restore point predates the change.
+        self._request_commit_all()
+        event = {"action": decision.action, "reason": decision.reason,
+                 "target_size": decision.target_size,
+                 "evict_rank": decision.evict_rank, "ts": time.time()}
+        if decision.action == "evict":
+            identity = next(
+                (i for i, a in self._assigned.items()
+                 if a["rank"] == decision.evict_rank), None)
+            if identity is None or identity in self._draining:
+                return
+            host = self._assigned[identity]["hostname"]
+            if not self._host_removable(host):
+                log.warning(
+                    "elastic driver: autoscale EVICT of %s skipped — "
+                    "retiring host %s would drop below min_np=%s",
+                    identity, host, self.min_np)
+                return
+            event["identity"], event["host"] = identity, host
+            log.warning("elastic driver: autoscale EVICT %s (%s)",
+                        identity, decision.reason)
+            # Cordon first, then drain: when the worker's clean exit
+            # triggers the regeneration, the host is already excluded.
+            self.cordon(host)
+            if not self.drain_worker(identity):
+                # Unreachable worker: fall back to termination.  Marked
+                # DRAINING (not released) so the reap classifies it as a
+                # departure AND triggers the regeneration — a released
+                # exit is silently skipped, which would leave the
+                # survivors waiting on a generation that never forms.
+                proc = self._procs.get(identity)
+                if proc is not None and proc.poll() is None:
+                    self._draining.add(identity)
+                    proc.terminate()
+            self._run_scale_command("evict", decision, host=host)
+        elif decision.action == "scale_out":
+            log.warning("elastic driver: autoscale SCALE_OUT -> %s (%s)",
+                        decision.target_size, decision.reason)
+            self._run_scale_command("scale_out", decision)
+        elif decision.action == "scale_in":
+            # Retire the LAST host of the current generation that does
+            # not carry the coordinator (host 0 must survive a shrink).
+            order: List[str] = []
+            for a in sorted(self._assigned.values(),
+                            key=lambda a: a["rank"]):
+                if a["hostname"] not in order:
+                    order.append(a["hostname"])
+            victims = [h for h in order[1:] if self._host_removable(h)]
+            if not victims:
+                return
+            host = victims[-1]
+            event["host"] = host
+            log.warning("elastic driver: autoscale SCALE_IN: draining "
+                        "host %s (%s)", host, decision.reason)
+            self.cordon(host)
+            for identity, a in self._assigned.items():
+                if a["hostname"] == host:
+                    self.drain_worker(identity)
+            self._run_scale_command("scale_in", decision, host=host)
+        self.events.append(event)
+
+    def _host_removable(self, host: str) -> bool:
+        """min_np at HOST granularity: the policy approves scale-in/evict
+        from rank counts, but retiring a host removes ALL its slots —
+        on multi-slot hosts that can undershoot min_np and the driver
+        would abort the whole job at the next regeneration.  A host is
+        removable only if the surviving assignment still covers min_np."""
+        remaining = sum(1 for a in self._assigned.values()
+                        if a["hostname"] != host)
+        return remaining >= self.min_np
 
     def _close_out_files(self, identity: str):
         for fh in self._out_files.pop(identity, ()):
@@ -513,9 +923,9 @@ def run_elastic(args) -> int:
     discovery = HostDiscoveryScript(args.host_discovery_script,
                                     default_slots=args.slots_per_host or 1)
     # One knob table for every launch path: tuning_env covers the fusion/
-    # cycle/pipeline/stall/monitor/autotune/checkpoint flags, so a knob can
-    # never work on the static path and silently vanish on the elastic
-    # one.
+    # cycle/pipeline/stall/monitor/autotune/checkpoint/controller flags, so
+    # a knob can never work on the static path and silently vanish on the
+    # elastic one.
     from ..runner.run import tuning_env
     extra_env = tuning_env(args)
     # Trace/timeline filenames travel as the BASE: ranks are assigned at
@@ -526,10 +936,45 @@ def run_elastic(args) -> int:
         extra_env["HOROVOD_TIMELINE"] = args.timeline_filename
     if getattr(args, "trace_filename", None):
         extra_env["HOROVOD_TRACE"] = args.trace_filename
+    # Closed-loop autoscaling (docs/elastic.md): the policy lives in the
+    # DRIVER process, parameterized from the same HOROVOD_AUTOSCALE_*
+    # env table Config documents (the launcher's env, not the workers').
+    from ..common.config import Config
+    cfg = Config.from_env()
+    autoscale_on = cfg.autoscale or getattr(args, "autoscale", False)
+    policy = None
+    if autoscale_on:
+        from .autoscale import ScalePolicy
+        policy = ScalePolicy(
+            min_np=min_np, max_np=max_np,
+            queue_high=cfg.autoscale_queue_high,
+            queue_trend_up=cfg.autoscale_queue_trend,
+            straggler_factor=cfg.autoscale_straggler_factor,
+            persistence=cfg.autoscale_persistence,
+            cooldown_s=cfg.autoscale_cooldown_s,
+            idle_s=cfg.autoscale_idle_s,
+            commit_max_age_s=cfg.commit_max_age_s,
+            rate_high=cfg.autoscale_rate_high,
+            latency_target_ms=cfg.autoscale_latency_target_ms,
+            idle_qps=cfg.autoscale_idle_qps)
+        if not extra_env.get("HOROVOD_MONITOR_PORT"):
+            log.warning(
+                "autoscale enabled without --monitor-port: the driver has "
+                "no monitor endpoint to observe, so the policy will hold "
+                "forever; pass --monitor-port to close the loop")
     driver = ElasticDriver(
         discovery, args.command, min_np=min_np, max_np=max_np,
         env=extra_env, start_timeout_s=args.start_timeout,
-        output_filename=args.output_filename, verbose=args.verbose)
+        output_filename=args.output_filename, verbose=args.verbose,
+        autoscale_policy=policy,
+        autoscale_interval_s=(getattr(args, "autoscale_interval", None)
+                              or cfg.autoscale_interval_s),
+        scale_command=getattr(args, "scale_command", None),
+        # `is not None`, not `or`: an explicit --preempt-grace-s 0
+        # (terminate immediately) is a valid setting, not an unset one.
+        preempt_grace_s=(getattr(args, "preempt_grace_s", None)
+                         if getattr(args, "preempt_grace_s", None)
+                         is not None else cfg.preempt_grace_s))
     try:
         return driver.run()
     finally:

@@ -7,7 +7,9 @@
 # the data-plane depth flags (:97-110, 153-154) and their forwarding
 # (:398-402, 428-431); the elastic flags (:204-214) and the state plane's
 # (:236-249), their forwarding (:415-422) and the route to the elastic
-# driver (:302-307, 625-628).
+# driver (:302-307, 625-628); the hierarchical controller, autoscale,
+# preemption and commit-age flags (:198-204, 216-235, 250-253), their
+# forwarding (:417, 444-445) and the agent ports (:501-534, 577-593).
 # platform_worker_env (:359-388, JAX and XLA variables) is replaced by the
 # card's counterpart; the flags of what the port lacks are refused.
 """The launcher's argument surface and launch orchestration.
@@ -40,11 +42,17 @@ and ``--autotune-log-file`` as ``HOROVOD_PIPELINE_CHUNK``,
 ``_FAST_LANE_THRESHOLD``, ``_PARTITION_THRESHOLD`` (bytes),
 ``HOROVOD_AUTOTUNE=1`` and ``HOROVOD_AUTOTUNE_LOG``; ``--ckpt-dir``,
 ``--ckpt-chunk-mb`` and ``--ckpt-lane-budget`` as ``HOROVOD_CKPT_DIR``,
-``_CKPT_CHUNK`` (bytes) and ``_CKPT_LANE_BUDGET``.
+``_CKPT_CHUNK`` (bytes) and ``_CKPT_LANE_BUDGET``;
+``--hierarchical-controller`` and ``--commit-max-age-s`` as
+``HOROVOD_HIERARCHICAL_CONTROLLER=1`` and ``HOROVOD_COMMIT_MAX_AGE_S``,
+and with the two-level control plane each local host entry's agent gets a
+bind-probed port (``HOROVOD_AGENT_PORT``).
 
 ``--host-discovery-script`` (with ``--min-np``, ``--max-np`` and
 ``--slots-per-host``) starts an elastic job instead: the elastic driver
-(``elastic/driver.py``) polls the script, publishes each generation's
+(``elastic/driver.py``; ``--autoscale``, ``--autoscale-interval``,
+``--scale-command`` and ``--preempt-grace-s`` configure its autoscaler
+and drains) polls the script, publishes each generation's
 assignment on its rendezvous and spawns the workers, each with
 ``HOROVOD_ELASTIC=1`` and ``platform_worker_env``'s elastic form: the
 card's variables keyed on the host entry's name, which outlives the
@@ -122,8 +130,6 @@ def parse_hostfile(path: str) -> List[HostSpec]:
 # The JAX launcher's flags whose feature the port lacks: flag → what brings
 # it.  Each is parsed, then refused.
 _TPU = "runner/tpu_vm.py has no GPU counterpart"
-_ELASTIC = ("the autoscaler and the preemption drains are not ported "
-            "(ROADMAP queue 1 item 6b)")
 NOT_PORTED: Dict[str, str] = {
     "--tpu": _TPU, "--zone": _TPU, "--project": _TPU,
     "--tpu-topology-aware": _TPU, "--gke-jobset": _TPU,
@@ -131,11 +137,6 @@ NOT_PORTED: Dict[str, str] = {
     "--gke-accelerator": _TPU, "--gke-topology": _TPU,
     "--gke-chips-per-host": _TPU,
     "--tpu-metadata-discovery": _TPU,
-    "--autoscale": _ELASTIC, "--autoscale-interval": _ELASTIC,
-    "--scale-command": _ELASTIC, "--preempt-grace-s": _ELASTIC,
-    "--commit-max-age-s": _ELASTIC,
-    "--hierarchical-controller": "common/host_agent.py is not ported "
-                                 "(ROADMAP queue 1 item 6b)",
     "--cache-capacity": "the port compiles no fused programs to cache (the "
                         "negotiation response cache is "
                         "HOROVOD_RESPONSE_CACHE_CAPACITY)",
@@ -143,8 +144,7 @@ NOT_PORTED: Dict[str, str] = {
     "--serve-port": "ROADMAP queue 1 item 9, multi-process serving",
 }
 # Those of them that take no value.
-_SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery",
-             "--autoscale", "--hierarchical-controller", "--serve"}
+_SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery", "--serve"}
 
 # Tuning flags forwarded to every worker as HOROVOD_* env: flag, variable,
 # scale.  Each is read by the port's Config.from_env.
@@ -164,7 +164,8 @@ _DEPTH = (("pipeline_chunk_mb", "HOROVOD_PIPELINE_CHUNK", 1024 * 1024),
           ("partition_threshold_mb", "HOROVOD_PARTITION_THRESHOLD",
            1024 * 1024),
           ("ckpt_chunk_mb", "HOROVOD_CKPT_CHUNK", 1024 * 1024),
-          ("ckpt_lane_budget", "HOROVOD_CKPT_LANE_BUDGET", 1))
+          ("ckpt_lane_budget", "HOROVOD_CKPT_LANE_BUDGET", 1),
+          ("commit_max_age_s", "HOROVOD_COMMIT_MAX_AGE_S", 1))
 # The observability flags with a value, forwarded the same way (the file
 # names go per rank, in worker_envs).
 _OBSERVE = (("monitor_port", "HOROVOD_MONITOR_PORT", 1),
@@ -247,6 +248,13 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
                    help="Two-level allgather on the slice topology "
                         "(inside each slice, then across), bitwise the "
                         "flat one (HOROVOD_HIERARCHICAL_ALLGATHER)")
+    p.add_argument("--hierarchical-controller", action="store_true",
+                   help="Two-level control plane: a per-host agent "
+                        "aggregates its ranks' warm-path negotiation "
+                        "frames into one fixed-size uplink per round, so "
+                        "the rank-0 coordinator's gather scales with "
+                        "hosts, not ranks (HOROVOD_HIERARCHICAL_"
+                        "CONTROLLER)")
     p.add_argument("--hierarchical-broadcast", action="store_true",
                    help="Two-level broadcast on the slice topology (the "
                         "root to each slice, then the fan-out inside), "
@@ -322,6 +330,26 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
     p.add_argument("--slots-per-host", type=int, default=None,
                    help="Elastic: slots of a discovered host that names "
                         "none (default 1)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="Elastic: closed-loop autoscaling — the driver "
+                        "polls rank 0's monitor /health and scales the "
+                        "world itself: out on rising load, straggler "
+                        "drain-and-evict on monitor attribution, in when "
+                        "idle.  Requires --monitor-port; knobs via "
+                        "HOROVOD_AUTOSCALE_*")
+    p.add_argument("--autoscale-interval", type=float, default=None,
+                   help="Elastic: seconds between autoscale policy "
+                        "observations (default 5)")
+    p.add_argument("--scale-command", default=None,
+                   help="Elastic: operator capacity hook run on scale "
+                        "decisions with HVD_AUTOSCALE_ACTION/TARGET/HOST "
+                        "in env; it changes what --host-discovery-script "
+                        "reports (e.g. resizes an instance group)")
+    p.add_argument("--preempt-grace-s", type=float, default=None,
+                   help="Elastic: drain grace for preemption notices — a "
+                        "noticed host's workers get this long to commit "
+                        "and leave cleanly before the driver falls back to "
+                        "termination (default 30)")
     p.add_argument("--ckpt-dir", default=None,
                    help="Resilient state plane: arm sharded checkpoints "
                         "under this directory — each rank streams its 1/N "
@@ -336,6 +364,11 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
     p.add_argument("--ckpt-lane-budget", type=int, default=None,
                    help="Checkpoint chunks dispatched per engine cycle "
                         "tail (default 2; HOROVOD_CKPT_LANE_BUDGET)")
+    p.add_argument("--commit-max-age-s", type=float, default=None,
+                   help="Autoscaler stale-state guard: refuse evict/"
+                        "scale_in while the fleet's last state-plane "
+                        "commit is older than this (0 = off; "
+                        "HOROVOD_COMMIT_MAX_AGE_S)")
     for flag, why in NOT_PORTED.items():
         if flag in _SWITCHES:
             p.add_argument(flag, action="store_true", help=f"refused: {why}")
@@ -485,6 +518,8 @@ def tuning_env(args) -> Dict[str, str]:
         env["HOROVOD_PREFETCH_DEPTH"] = str(int(args.prefetch_depth))
     if getattr(args, "ckpt_dir", None):
         env["HOROVOD_CKPT_DIR"] = args.ckpt_dir
+    if getattr(args, "hierarchical_controller", False):
+        env["HOROVOD_HIERARCHICAL_CONTROLLER"] = "1"
     return env
 
 
@@ -531,9 +566,18 @@ def wait_and_reap(procs: List[subprocess.Popen],
 
 
 def worker_envs(args, hosts: List[HostSpec],
-                coordinator: Tuple[str, int, int]) -> List[Dict[str, str]]:
+                coordinator: Tuple[str, int, int],
+                agent_ports: Optional[List[Optional[int]]] = None
+                ) -> List[Dict[str, str]]:
     """Compute the per-rank env injection (reference §3.3: HOROVOD_RANK,
-    HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_CROSS_RANK, rendezvous addr)."""
+    HOROVOD_SIZE, HOROVOD_LOCAL_RANK, HOROVOD_CROSS_RANK, rendezvous addr).
+
+    ``agent_ports`` (hierarchical control plane): one launcher-allocated
+    listen port per host for that host's aggregation agent, injected as
+    HOROVOD_AGENT_PORT so every process on a host agrees where its agent
+    lives.  A None entry means no injection for that host (remote hosts:
+    a port bind-probed on the launcher proves nothing there — the
+    config-side deterministic fallback derives one instead)."""
     np_total = args.np
     envs = []
     rank = 0
@@ -563,6 +607,9 @@ def worker_envs(args, hosts: List[HostSpec],
                 "HOROVOD_CONTROLLER_PORT2": str(coordinator[2]),
                 "HOROVOD_HOSTNAME": h.hostname,
             }
+            if agent_ports is not None \
+                    and agent_ports[cross_rank] is not None:
+                env["HOROVOD_AGENT_PORT"] = str(agent_ports[cross_rank])
             env |= tuning_env(args)
             if args.timeline_filename:
                 env["HOROVOD_TIMELINE"] = per_rank_filename(
@@ -601,14 +648,26 @@ def launch_workers(args, hosts: List[HostSpec],
     address with host 0's resolved control-plane address — this is what
     makes ``--network-interface`` actually select the control plane."""
     from ..common.net import is_local_host
-    ports = _free_ports(2)
+    # Hierarchical control plane: one extra port per host for its
+    # aggregation agent.  Bind-probed HERE only for local/loopback hosts
+    # — a port free on the launcher proves nothing on a remote host, so
+    # remote hosts get NO injection and derive their own from the
+    # controller port and their host index (common/basics.py).
+    agent_ports = None
+    if getattr(args, "hierarchical_controller", False):
+        local_hosts = [is_local_host(h.hostname) for h in hosts]
+        probed = iter(_free_ports(2 + sum(local_hosts)))
+        ports = [next(probed), next(probed)]
+        agent_ports = [next(probed) if loc else None for loc in local_hosts]
+    else:
+        ports = _free_ports(2)
     if addrs:
         coord_host = addrs[hosts[0].hostname]
     else:
         coord_host = (hosts[0].hostname if hosts[0].hostname != "localhost"
                       else "127.0.0.1")
     coord = (coord_host, ports[0], ports[1])
-    envs = worker_envs(args, hosts, coord)
+    envs = worker_envs(args, hosts, coord, agent_ports=agent_ports)
     procs: List[subprocess.Popen] = []
     for rank, env in enumerate(envs):
         host = env["HOROVOD_HOSTNAME"]

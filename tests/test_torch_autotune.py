@@ -450,7 +450,7 @@ def test_torch_autotune_end_to_end(monkeypatch):
 
 
 _WORKER = textwrap.dedent("""
-    import pickle, sys
+    import os, pickle, sys, time
     import torch
     sys.path.insert(0, sys.argv[1])
     import horovod_tpu_torch as hvd
@@ -475,6 +475,19 @@ _WORKER = textwrap.dedent("""
         moves.append((eng.controller.rounds, knobs()))
 
     autotune.ParameterManager._apply_params = recorded
+    # AUTOTUNE_LAG_S: rank 1's cycle tail runs late whenever a move is due
+    # (its waiters are released before the move lands), and rank 0 reads
+    # its tuner only after its own tail has run.
+    lag = float(os.environ.get("AUTOTUNE_LAG_S", "0"))
+    if lag and r == 1:
+        on_cycle = autotune.ParameterManager.on_cycle
+
+        def late(self, nbytes):
+            if self._move_handle is not None:
+                time.sleep(lag)
+            on_cycle(self, nbytes)
+
+        autotune.ParameterManager.on_cycle = late
     torch.manual_seed(0)
     model = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.ReLU(),
                                 torch.nn.Linear(32, 4))
@@ -490,9 +503,18 @@ _WORKER = textwrap.dedent("""
         opt.zero_grad()
         torch.nn.functional.mse_loss(model(x), y).backward()
         opt.step()
-        t = eng.autotuner
         steps.append([float(p.double().sum()) for p in model.parameters()])
-        if t is not None and not t.tuning:
+        if lag and r == 0:
+            time.sleep(2 * lag)
+        # The loop ends at one step on every rank: the first after which
+        # every rank has seen the last move land.  A move lands at the end
+        # of the cycle that dispatched its agreement, which may run after
+        # the step's waiters are released, so one rank's tuner can read
+        # done a step before another's.
+        t = eng.autotuner
+        tuned = float(t is not None and not t.tuning)
+        if hvd.allreduce(torch.tensor([tuned]), op=hvd.Min,
+                         name=f"tuned.{i}").item():
             break
     # Read once the cycle thread has stopped: a move lands at the end of
     # a cycle, which may still run after the step's waiters are released.
@@ -509,15 +531,13 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def world2(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("autotune")
+def _run_world2(tmp, lag_s=0.0):
     (tmp / "w.py").write_text(_WORKER)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "HVD_TPU_"))}
     env.update(PYTHONPATH=REPO, HOROVOD_AUTOTUNE_WARMUP_SAMPLES="1",
                HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE="2",
-               HOROVOD_AUTOTUNE_MAX_EVALS="5")
+               HOROVOD_AUTOTUNE_MAX_EVALS="5", AUTOTUNE_LAG_S=str(lag_s))
     proc = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
          "--autotune", "--autotune-log-file", str(tmp / "tune.csv"),
@@ -538,6 +558,11 @@ def world2(tmp_path_factory):
     return outs, {0: (tmp / "tune.csv").read_text()}
 
 
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    return _run_world2(tmp_path_factory.mktemp("autotune"))
+
+
 def test_torch_autotune_agrees_across_two_ranks(world2):
     """Two ranks under ``--autotune``: the multi-process coordinates are
     searched (cache capacity, chunk, in-flight depth, fast lane, round
@@ -555,6 +580,22 @@ def test_torch_autotune_agrees_across_two_ranks(world2):
     # same knob values after it.
     assert a["moves"] == b["moves"] and len(a["moves"]) == a["samples"]
     assert len({k for _, k in a["moves"]}) >= 2, a["moves"]
+    assert a["final"] == b["final"] == a["moves"][-1][1]
+    for pa, pb in zip(a["params"], b["params"]):
+        assert pa.tobytes() == pb.tobytes()
+
+
+def test_torch_autotune_loop_ends_together_when_one_rank_lags(tmp_path):
+    """Rank 1's cycle tail runs 0.2 s late whenever a move is due, so
+    that its waiters are released before each move lands there, while
+    rank 0 reads its tuner only after its own tail: rank 0 sees tuning
+    done a step before rank 1 does.  The loop still ends at one step on
+    both ranks (a rank that left early would fail the other's last
+    collective with its clean LEAVE), every move lands at the same round
+    on both, and the parameters stay bitwise equal."""
+    (a, b), _ = _run_world2(tmp_path, lag_s=0.2)
+    assert len(a["steps"]) == len(b["steps"]) and a["steps"] == b["steps"]
+    assert a["moves"] == b["moves"] and len(a["moves"]) == a["samples"]
     assert a["final"] == b["final"] == a["moves"][-1][1]
     for pa, pb in zip(a["params"], b["params"]):
         assert pa.tobytes() == pb.tobytes()

@@ -462,6 +462,48 @@ def test_torch_elastic_modules_import_without_jax():
     assert res.stdout.split()[-1] == str(len(ELASTIC_MODULES))
 
 
+# The rest of elastic: the autoscaler, the host agent and the churn
+# harness, copies of jax-free modules of the JAX package.
+DRAIN_MODULES = ("horovod_tpu_torch.elastic.autoscale",
+                 "horovod_tpu_torch.common.host_agent",
+                 "horovod_tpu_torch.testing.churn")
+
+_DRAIN_SRC = _OBSERVE_SRC.replace("print('PURE', len(sys.argv) - 2)", r"""
+from horovod_tpu_torch.elastic.autoscale import SCALE_IN, ScalePolicy
+from horovod_tpu_torch.testing.churn import ChurnRunner
+from horovod_tpu_torch.testing.faults import parse_churn
+p = ScalePolicy(min_np=1, persistence=1, cooldown_s=0.0, idle_s=5.0)
+for t in (100.0, 110.0, 120.0):
+    d = p.observe({'queue_depth': 0, 'progress_total': 7}, 3, now=t)
+assert d.action == SCALE_IN, d
+rep = ChurnRunner(4, ranks_per_host=2, hier=True, rounds=8, warm=2,
+                  script=parse_churn('preempt_notice:1@3')).run()
+assert rep['survived'] and rep['left_ranks'] == [2, 3], rep
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_drain_modules_stand_alone():
+    """The autoscaler, the host agent and the churn harness import with
+    JAX and horovod_tpu blocked; the policy scales an idle fleet in, and
+    a hierarchical churn run drains a host behind real agents over the
+    port's own coordinator."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _DRAIN_SRC, REPO,
+                          *DRAIN_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == str(len(DRAIN_MODULES))
+    for name in DRAIN_MODULES:
+        rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
+        first = open(os.path.join(PKG, rel + ".py")).readline()
+        assert first.startswith(f"# Copied from horovod_tpu/{rel}.py:1-"), \
+            (name, first)
+
+
 def test_torch_elastic_modules_name_their_origin():
     """Every elastic module's first line names the JAX file it was copied
     or ported from."""
@@ -517,15 +559,18 @@ def test_torch_world_setup_and_teardown_sites():
 
 # Modules that open sockets of their own: the control plane's address
 # helpers, the launcher's probe, the monitor's exporter, the serving front
-# door, and the elastic slice's rendezvous, driver pings, worker
-# notifications and the state plane's shard servers.
+# door, the elastic slice's rendezvous, driver pings, worker
+# notifications and the state plane's shard servers, the host agent's
+# listener and links, and the churn harness's simulated ranks.
 _SOCKET_USERS = {
     os.path.join("common", "net.py"), os.path.join("runner", "bootstrap.py"),
     os.path.join("monitor", "agent.py"), os.path.join("monitor", "http.py"),
     os.path.join("serve", "frontdoor.py"),
     os.path.join("elastic", "rendezvous.py"),
     os.path.join("elastic", "driver.py"), os.path.join("elastic", "worker.py"),
-    os.path.join("elastic", "stateplane.py")}
+    os.path.join("elastic", "stateplane.py"),
+    os.path.join("common", "host_agent.py"),
+    os.path.join("testing", "churn.py")}
 
 
 def test_torch_socket_sites():

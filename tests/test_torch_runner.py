@@ -15,8 +15,7 @@ the JAX launcher forwards them (the counterpart of
 
 No counterpart: ``test_platform_worker_env_cpu_hygiene`` (JAX's CPU
 collectives and XLA device-count flag; the card's env replaces it),
-``test_worker_envs_hierarchical_controller`` (a refused flag here), and
-``TestTPUVMBackend`` (``runner/tpu_vm.py`` has no GPU counterpart; its
+and ``TestTPUVMBackend`` (``runner/tpu_vm.py`` has no GPU counterpart; its
 flags are refused).
 """
 
@@ -579,13 +578,26 @@ def test_torch_runner_hierarchical_flags_reach_the_config(monkeypatch):
         True, True, True, 2, 4096, "2,2")
 
 
-def test_torch_runner_still_refuses_the_hierarchical_controller(capsys):
-    """The two-level control plane needs ``common/host_agent.py``, which
-    is not ported: its flag stays refused."""
-    with pytest.raises(SystemExit):
-        port_run.parse_args(["-np", "4", "--hierarchical-controller",
-                             "python", "t.py"])
-    assert "--hierarchical-controller is not ported" in capsys.readouterr().err
+def test_torch_runner_still_refuses_the_hierarchical_controller():
+    """``--hierarchical-controller`` on both launchers (the counterpart of
+    ``test_worker_envs_hierarchical_controller``): the knob is forwarded
+    through ``tuning_env``, one agent port a host is injected, the same on
+    every process of the host, and nothing is refused."""
+    assert "--hierarchical-controller" not in port_run.NOT_PORTED
+    for run in map(_mod, RUNNERS):
+        args = run.parse_args(["-np", "4", "-H", "a:2,b:2",
+                               "--hierarchical-controller", "python",
+                               "t.py"])
+        assert run.tuning_env(args)["HOROVOD_HIERARCHICAL_CONTROLLER"] == "1"
+        coord = ("1.2.3.4", 5555, 5556)
+        envs = run.worker_envs(args, run.placement(args), coord,
+                               agent_ports=[7001, 7002])
+        assert [e["HOROVOD_AGENT_PORT"] for e in envs] == \
+            ["7001", "7001", "7002", "7002"]
+        assert all(e["HOROVOD_HIERARCHICAL_CONTROLLER"] == "1" for e in envs)
+        remote = run.worker_envs(args, run.placement(args), coord,
+                                 agent_ports=[7001, None])
+        assert "HOROVOD_AGENT_PORT" not in remote[2]
 
 
 @pytest.mark.parametrize("hosts,np_,counts", [
