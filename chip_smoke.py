@@ -65,7 +65,8 @@ Phases (any failure exits non-zero and prints no result line):
    are two, else both on one card over NCCL's socket transport: ``init``
    -> ``broadcast_parameters`` from rank 0 (the parameters, then the
    seven-dtype module) -> ``DistributedOptimizer(SGD)`` -> 5 steps at the
-   training configuration on different batches per rank, with the
+   training configuration's width cut to E3_LAYERS (as E4 and E5) on
+   different batches per rank, with the
    parameters bitwise equal across ranks after every step, the
    negotiation counters, and pack and unpack launches = batches per step
    (the counts zeroed before the steps).  E1 case F: the kernels in the
@@ -136,8 +137,8 @@ Phases (any failure exits non-zero and prints no result line):
    and across ranks, within ADASUM_RTOL/ATOL of the float64 tree), the
    tree on a process set of 3, then ``DistributedOptimizer(SGD,
    op=hvd.Adasum)`` training Llama at full width (E7_LAYERS deep) from
-   rank 0's broadcast weights for 3 steps: parameters bitwise equal on the
-   four ranks every step, the flash launches, and the Adasum launches =
+   rank 0's broadcast weights for E7_STEPS steps: parameters bitwise equal
+   on the four ranks every step, the flash launches, and the Adasum launches =
    2 rounds x the steps' dtype groups.
 10. Observability.  After E2, the trace A/B at size 1: the engine's
    grouped allreduce of the gradient set with the tracer detached and
@@ -145,8 +146,8 @@ Phases (any failure exits non-zero and prints no result line):
    (``--e8-worker``, after E7): two ranks through the launcher as E3 with
    ``--timeline-filename``, ``--timeline-mark-cycles``,
    ``--trace-filename``, ``--monitor``, ``--monitor-port`` (a free port)
-   and ``--monitor-interval 1``, Llama at full width cut to E8_LAYERS
-   (1.30 GiB of bf16 gradients a rank), 3 steps of
+   and ``--monitor-interval 1``, Llama at full width cut to E8_LAYERS,
+   3 steps of
    ``DistributedOptimizer(SGD)`` with the launch counts zeroed before and
    read after: each rank's timeline parses with every gradient through
    QUEUE -> NEGOTIATE_ALLREDUCE -> NCCL_ALLREDUCE once a step and cycle
@@ -195,10 +196,12 @@ Phases (any failure exits non-zero and prints no result line):
    seeded payload: each run on the cycle thread with no gradient batch
    left in its cycle, at most the lane's budget a cycle, all dispatched,
    the files' bytes exact.  (c) a second launch (``--e10-tune-worker``)
-   with ``--autotune``, warmup 1, 2 cycles a sample, 4 evaluations, over 8
-   steps of that Llama at 1 layer: two samples or more, every applied
+   with ``--autotune``, warmup 1, 2 cycles a sample, 4 evaluations, over
+   E10_TUNE_STEPS steps of that Llama at 1 layer: two samples or more, every applied
    move at the same lock-step round with the same knobs on both ranks, the
-   log parses, the parameters bitwise across the ranks every step.  E9's
+   search ended on both (its evaluations done, ``tuning`` off, one final
+   line each in the log), the log parses, the parameters bitwise across
+   the ranks every step.  E9's
    pack and unpack launches are held to its chunk plan (the replicated
    mode's allreduces chunk under ``HOROVOD_PIPELINE_CHUNK``).
 13. Elastic training.  E11 (``--e11-worker``, after E10): the port's
@@ -231,7 +234,21 @@ Phases (any failure exits non-zero and prints no result line):
    in through rank 0's ``/health``; generation 4 (size 2) ends.  Eight
    checks (``e12_phase``) and the drain, ack, growth, scale-in and step
    times.
-15. The whole run's wall time, the kernels line (JSON), the card line, and
+15. Expert parallelism.  E13 (``--e13-worker``, after E12): two ranks
+   through the launcher as E3, on ``make_mesh({"ep": 2})``.  (a)
+   ``mixtral_8x7b()`` at full width cut to E13_LAYERS (8 gated experts,
+   top-2, capacity factor 4.0, bf16), B=1 x E13_SEQ tokens a rank, the
+   replicated leaves through ``DistributedOptimizer(AdamW)``, the expert
+   slabs through ``ExpertParallel(AdamW)``, E13_STEPS steps: every leaf's
+   step-1 gradient against a reference with every expert local, the
+   replicated leaves bitwise across the ranks and the slabs not, no token
+   dropped, the flash launches, the all-to-all time.  (b) DLRM at MLPerf's
+   widths (E13_DLRM; rows cut to 1 M a table), its tables split over ep,
+   SGD, E13_STEPS steps of E13_DLRM_BATCH rows a rank, against an ep-off
+   run of the global batch in this process: the losses and their change
+   from step 1, the MLPs and every touched table row as values and as
+   updates (after minus before).
+16. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
@@ -260,6 +277,8 @@ NEW_TOKENS = 16
 TRAIN_BATCH = 2
 TRAIN_SEQ = 4096
 TRAIN_STEPS = 5
+# E3-E5's depth at that width: two layers keep the script in its limit.
+E3_LAYERS = 2
 # Large enough that SGD updates of bf16 weights (their ulp is near 1e-4 at
 # N(0, 1/4096)) do not round away.  Plain SGD on bf16 weights is not
 # monotone at this size, so the check compares step 5 with step 1 only.
@@ -1573,6 +1592,7 @@ def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
     return."""
     import signal
     import tempfile
+    tag = flag[2:].split("-")[0]        # "e13" of "--e13-worker"
     ndev = torch.cuda.device_count()
     if ndev >= np_:
         hosts = f"localhost:{np_}"
@@ -1595,8 +1615,8 @@ def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
                "--train-layers", str(layers), "--seed", str(seed), flag, tmp]
         shown = [f"{k}={v}" for k, v in (env_extra or {}).items()]
         shown += ["python"] + cmd[1:cmd.index("--output-filename") + 2]
-        print(f"{flag[2:4]}: {' '.join(shown)} python chip_smoke.py "
-              f"{flag} {tmp}", flush=True)
+        print(f"{tag}: {' '.join(shown)} python chip_smoke.py {flag} {tmp}",
+              flush=True)
         t0 = time.time()
         launcher = subprocess.Popen(cmd, cwd=here, env=env,
                                     start_new_session=True)
@@ -1620,7 +1640,7 @@ def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
                     if os.path.exists(f):
                         with open(f) as fh:
                             tail += fh.read()[-6000:]
-                print(f"{flag[2:4]}: rank {r} failed (launcher rc {rc}, "
+                print(f"{tag}: rank {r} failed (launcher rc {rc}, "
                       f"route {route}); the end of its output:\n{tail}",
                       flush=True)
                 results = None
@@ -2824,8 +2844,8 @@ def adasum_phase(torch, ak, shapes, dev, seed, flush):
 
 E7_RANKS = 4
 E7_LOCAL = 2             # HOROVOD_HIERARCHICAL_LOCAL_SIZE: 2 slices of 2
-E7_LAYERS = 2
-E7_STEPS = 3
+E7_LAYERS = 1             # one layer keeps the whole script in its limit
+E7_STEPS = 2              # two steps keep the whole script in its limit
 # Adasum of four nearly orthogonal gradients is close to their sum, four
 # times the average that E3's TRAIN_LR was chosen for.
 E7_LR = TRAIN_LR / E7_RANKS
@@ -3221,7 +3241,7 @@ def e7_phase(torch, layers, seed, card, timeout_s=E7_TIMEOUT_S):
 
 
 # ---------------------------------------------------------- observability
-E8_LAYERS = 2
+E8_LAYERS = 1             # one layer keeps the whole script in its limit
 E8_STEPS = 3
 E8_TIMEOUT_S = 300
 E8_PHASE_TOL = 0.05      # phase_sum_us within 5 % of cycle_us
@@ -3840,7 +3860,7 @@ def e9_phase(torch, layers, seed, card, timeout_s=E9_TIMEOUT_S):
 
 
 # ------------------------------------------------- E10: data-plane depth
-E10_LAYERS = 2
+E10_LAYERS = 1            # one layer keeps the whole script in its limit
 E10_STEPS = 3
 E10_TIMEOUT_S = 300
 E10_MIB = 64             # the chunk and partition thresholds, MiB
@@ -3854,8 +3874,10 @@ E10_RESNET_STEPS = 3
 E10_BN_EXCHANGES = 106   # ResNet-50's batch-norm exchanges a step (2 x 53)
 E10_CKPT_ITEMS = 8       # (d): checkpoint-lane items of 1 MiB each
 E10_CKPT_BYTES = 1 << 20
-E10_TUNE_LAYERS = 1      # (c): the autotuner over this Llama, 8 steps
-E10_TUNE_STEPS = 8
+E10_TUNE_LAYERS = 1      # (c): the autotuner over this Llama
+# Enough steps for the search to end on both ranks: at 4 steps it ran 3 of
+# its 4 evaluations, at 8 it ended within the fourth step after the first.
+E10_TUNE_STEPS = 6
 E10_TUNE_ENV = {"HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
                 "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
                 "HOROVOD_AUTOTUNE_MAX_EVALS": "4"}
@@ -4157,6 +4179,58 @@ def _e10_log(tmp):
                 finals=[ln for ln in lines if ln.startswith("# final:")])
 
 
+def e10_tune_phase(torch, seed, timeout_s=E10_TIMEOUT_S):
+    """E10 (c) (``e10_tune_worker``, two ranks through the launcher with
+    ``--autotune``): two samples or more, every applied move at the same
+    round with the same knobs on both ranks, the search ended on both
+    (all its evaluations, ``tuning`` off, the same final line from each
+    rank in the log), the log parses, the parameters bitwise across the
+    ranks every step.  Returns ``(ok, rank 0's result)``, the result None
+    when a rank failed."""
+    import numpy as np
+    tuned, route_c, wall_c = launch_ranks(
+        torch, "--e10-tune-worker", E10_TUNE_LAYERS, seed, timeout_s, 2,
+        ("--autotune", "--autotune-log-file", "{tmp}/tune.csv"),
+        env_extra=E10_TUNE_ENV, inspect=_e10_log)
+    if tuned is None:
+        return False, None
+    ta, tb, log = tuned
+    evals = int(E10_TUNE_ENV["HOROVOD_AUTOTUNE_MAX_EVALS"])
+    ended = (not ta["tuning"] and not tb["tuning"]
+             and ta["evals"] == tb["evals"] == evals
+             and len(log["finals"]) == 2 and len(set(log["finals"])) == 1)
+    good = (ta["samples"] == tb["samples"] >= 2
+            and ta["moves"] == tb["moves"]
+            and len(ta["moves"]) == ta["samples"]
+            and ta["final"] == tb["final"]
+            and ended
+            and [s["sums"] for s in ta["steps"]]
+            == [s["sums"] for s in tb["steps"]]
+            and log["header"][:3] == ["sample", "fusion_threshold_bytes",
+                                      "cycle_time_s"]
+            and log["widths"] == [len(log["header"])]
+            and len(log["rows"]) >= 2
+            and all(np.isfinite(s["loss"]) for s in ta["steps"]))
+    print(f"e10 (c): autotuner over Llama at full width, {E10_TUNE_LAYERS} "
+          f"layer, {E10_TUNE_STEPS} steps, "
+          + " ".join(f"{k}={v}" for k, v in E10_TUNE_ENV.items())
+          + f" ({route_c}, {wall_c:.1f} s): {ta['coords']} coordinates, "
+          f"{ta['samples']} / {tb['samples']} samples, {ta['evals']} / "
+          f"{tb['evals']} evaluations of {evals}, tuning done on both "
+          f"ranks {not ta['tuning'] and not tb['tuning']}; moves (round, "
+          f"[fusion threshold, cycle s, cache capacity, chunk, in-flight, "
+          f"fast lane, round pipeline]) {ta['moves']}, the same on both "
+          f"ranks: {ta['moves'] == tb['moves']}; steps "
+          + ", ".join(f"{s['s'] * 1e3:.0f}" for s in ta["steps"])
+          + f" ms; parameters bitwise across the ranks every step: "
+          f"{[s['sums'] for s in ta['steps']] == [s['sums'] for s in tb['steps']]}"
+          f"; log header {log['header']}, {len(log['rows'])} sample rows of "
+          f"widths {log['widths']}, final lines {log['finals'][:2]}, the "
+          f"search ended on both ranks: {ended} -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    return good, ta
+
+
 def e10_phase(torch, layers, seed, card, timeout_s=E10_TIMEOUT_S):
     """E10: the data plane's depth on two ranks through the port's
     launcher.  (a) Llama at full width (``e10_worker``) in three modes:
@@ -4170,10 +4244,8 @@ def e10_phase(torch, layers, seed, card, timeout_s=E10_TIMEOUT_S):
     checkpoint items: every one run on the cycle thread with no gradient
     batch left in its cycle, at most the budget a cycle, the count
     dispatched, the files' bytes exact.  (c) the autotuner
-    (``e10_tune_worker``): two samples or more, every applied move at the
-    same round with the same knobs on both ranks, the log parses, the
-    parameters bitwise across the ranks every step.  Returns ``(ok,
-    counts)`` (rank 0's launches)."""
+    (:func:`e10_tune_phase`).  Returns ``(ok, counts)`` (rank 0's
+    launches)."""
     import numpy as np
     t_a = time.time()
     results, route, wall = launch_ranks(
@@ -4296,40 +4368,10 @@ def e10_phase(torch, layers, seed, card, timeout_s=E10_TIMEOUT_S):
     wall_a = time.time() - t_a
     # (c)
     t_c = time.time()
-    tuned, route_c, wall_c = launch_ranks(
-        torch, "--e10-tune-worker", E10_TUNE_LAYERS, seed, timeout_s, 2,
-        ("--autotune", "--autotune-log-file", "{tmp}/tune.csv"),
-        env_extra=E10_TUNE_ENV, inspect=_e10_log)
-    if tuned is None:
+    good, ta = e10_tune_phase(torch, seed, timeout_s)
+    if ta is None:
         return False, None
-    ta, tb, log = tuned
-    good = (ta["samples"] == tb["samples"] >= 2
-            and ta["moves"] == tb["moves"]
-            and len(ta["moves"]) == ta["samples"]
-            and ta["final"] == tb["final"]
-            and [s["sums"] for s in ta["steps"]]
-            == [s["sums"] for s in tb["steps"]]
-            and log["header"][:3] == ["sample", "fusion_threshold_bytes",
-                                      "cycle_time_s"]
-            and log["widths"] == [len(log["header"])]
-            and len(log["rows"]) >= 2
-            and all(np.isfinite(s["loss"]) for s in ta["steps"]))
     ok = ok and good
-    print(f"e10 (c): autotuner over Llama at full width, {E10_TUNE_LAYERS} "
-          f"layer, {E10_TUNE_STEPS} steps, "
-          + " ".join(f"{k}={v}" for k, v in E10_TUNE_ENV.items())
-          + f" ({route_c}, {wall_c:.1f} s): {ta['coords']} coordinates, "
-          f"{ta['samples']} / {tb['samples']} samples, {ta['evals']} "
-          f"evaluations, tuning done {not ta['tuning']}; moves (round, "
-          f"[fusion threshold, cycle s, cache capacity, chunk, in-flight, "
-          f"fast lane, round pipeline]) {ta['moves']}, the same on both "
-          f"ranks: {ta['moves'] == tb['moves']}; steps "
-          + ", ".join(f"{s['s'] * 1e3:.0f}" for s in ta["steps"])
-          + f" ms; parameters bitwise across the ranks every step: "
-          f"{[s['sums'] for s in ta['steps']] == [s['sums'] for s in tb['steps']]}"
-          f"; log header {log['header']}, {len(log['rows'])} sample rows of "
-          f"widths {log['widths']}, final lines {log['finals'][:2]} -> "
-          f"{'PASS' if good else 'FAIL'}", flush=True)
     print(f"e10: (a), (b), (d) in {wall_a:.1f} s, (c) in "
           f"{time.time() - t_c:.1f} s [{card}; {route}: NCCL's socket "
           f"transport, not NVLink] -> {'PASS' if ok else 'FAIL'}",
@@ -5419,6 +5461,423 @@ def e12_phase(torch, layers, seed, card, timeout_s=E12_TIMEOUT_S):
         return ok, dict(flash=total[:3], pack=total[3], unpack=total[4])
 
 
+# ----------------------------------------------- E13: expert parallelism
+E13_LAYERS = 1           # Mixtral-8x7B at full width, cut to one layer
+E13_SEQ = 2048           # tokens a rank (B = 1)
+E13_STEPS = 3
+E13_LR = 1e-3            # AdamW, its state in the parameters' bf16
+E13_TIMEOUT_S = 300
+# MLPerf DLRM's published widths (Criteo Terabyte): 26 tables x 128, 13
+# dense features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1 over
+# the JAX model's concatenated interaction; the rows cut from MLPerf's 40 M
+# cap to 1 M a table (13.3 GB of float32 tables), so that both ranks and
+# the reference fit the one card.
+E13_DLRM = dict(n_tables=26, rows_per_table=1_000_000, embed_dim=128,
+                dense_dim=13, bottom_mlp=(512, 256, 128),
+                top_mlp=(1024, 1024, 512, 256, 1))
+E13_DLRM_BATCH = 4096    # a rank
+E13_DLRM_LR = 0.1        # SGD, tests/test_models.py:136's
+E13_LOSS_RTOL = 2e-4     # tests/test_models.py:136's tolerances
+E13_TABLE_TOL = dict(rtol=2e-3, atol=1e-6)
+# Those levels cannot see a wrong table update at these widths: a row is
+# hit about once a run, its update ~1e-7 against the limit's ~2e-5.  So
+# the updates themselves (after minus before) are held, as the relative
+# norm of their difference from the ep-off run's over each table's
+# touched rows and over each MLP leaf, and the loss's change from step 1
+# against the ep-off run's.  A sound run reads float32 rounding there; a
+# table without its step, or without the 1/ep factor, reads about 1.
+E13_UPDATE_TOL = 0.05
+E13_LOSS_CHANGE_TOL = 0.05
+
+
+def _joined(vals, fmt="{:.1f}"):
+    return " / ".join(fmt.format(v) for v in vals)
+
+
+def _rel_norm(torch, a, b):
+    """``‖a − b‖ / ‖b‖`` in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _e13_moe(torch, np, hvd, args, mesh, progress):
+    """E13 (a) on this rank: Mixtral at full width on ``{ep: n}``."""
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.models import llama as tl, moe
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import expert
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    cfg = tl.mixtral_8x7b(n_layers=E13_LAYERS)
+    specs = tl.param_specs(cfg)
+    # Every rank draws every expert from one seed, then keeps its slab.
+    full = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 13))
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 14).randint(
+        0, cfg.vocab_size, (n, E13_SEQ + 1)).astype(np.int64)).to(dev)
+    xs, ys = toks[:, :-1], toks[:, 1:]
+    # The reference: every expert local (no mesh), the ranks' sequences in
+    # turn, gradients averaged: the sharded step's global loss exactly
+    # (the aux loss is per sequence here as it is per rank there).
+    full_named = list(tl.named_parameters(full))
+    for i in range(n):
+        (tl.loss_fn(full, xs[i:i + 1], ys[i:i + 1], cfg) / n).backward()
+    slab = expert.spec_of(specs)
+    e_loc = cfg.n_experts // n
+    ref = {}
+    for name, t in full_named:
+        g = t.grad
+        ref[name] = (g[r * e_loc:(r + 1) * e_loc].clone()
+                     if slab[name] == cfg.ep_axis else g)
+        t.grad = None
+    params = tl.shard_experts(full, cfg, mesh)
+    del full, full_named, g
+    torch.cuda.empty_cache()
+    progress("(a) reference gradients done")
+    named = list(tl.named_parameters(params))
+    rep, sh = expert.split_named(named, specs)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([t for _, t in rep], lr=E13_LR),
+        named_parameters=rep)
+    eps = expert.ExpertParallel(
+        mesh, torch.optim.AdamW([t for _, t in sh], lr=E13_LR))
+    eps.broadcast_parameters(named, specs, root_rank=0)
+    step = tl.make_train_step(cfg, opt, mesh, eps)
+    x, y = xs[r:r + 1].contiguous(), ys[r:r + 1].contiguous()
+    steps, grad_err = [], {}
+    for i in range(E13_STEPS):
+        _zero_flash(fa)
+        moe.moe_ffn.routed, moe.moe_ffn.dropped = 0, 0
+        mesh.timing = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if i == 0:
+            # The step's own sequence, opened for the gradient check.
+            opt.zero_grad()
+            eps.zero_grad()
+            loss = tl.loss_fn(params, x, y, cfg, mesh)
+            loss.backward()
+            opt.synchronize()
+            eps.sync_grads()
+            grad_err = {nm: _rel_norm(torch, t.grad, ref[nm])
+                        for nm, t in named}
+            with opt.skip_synchronize():
+                opt.step()
+            eps.optimizer.step()
+            loss = loss.detach()
+        else:
+            loss = step(params, x, y)
+        lv = loss.item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        marks, mesh.timing = mesh.timing, None
+        steps.append(dict(
+            loss=lv, s=dt, a2a=len(marks), a2a_ms=parallel.timed_ms(marks),
+            launches=_flash_counts(fa), routed=moe.moe_ffn.routed,
+            dropped=int(moe.moe_ffn.dropped),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            rep=_checksum(torch, rep), slab=_checksum(torch, sh)))
+        if i == 0:
+            del ref
+        progress(f"(a) step {i + 1} done")
+    eps.shutdown()
+    return dict(steps=steps, grad_err=grad_err,
+                leaves=[len(rep), len(sh)],
+                slab_gib=sum(t.numel() * t.element_size()
+                             for _, t in sh) / 2**30)
+
+
+def _e13_dlrm(torch, np, hvd, args, mesh, progress):
+    """E13 (b) on this rank: DLRM at MLPerf widths on ``{ep: n}``; the
+    touched rows of this rank's tables and the MLPs go to
+    ``dlrm<rank>.pt`` for the reference in the parent."""
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.models import dlrm, llama as tl
+    from horovod_tpu_torch.parallel import expert
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    cfg = dlrm.DLRMConfig(**E13_DLRM)
+    specs = dlrm.param_specs(cfg)
+    t_loc = cfg.n_tables // n
+    mine = range(r * t_loc, (r + 1) * t_loc)
+    params = dlrm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 15), dev, tables=mine)
+    batch = dlrm.synthetic_batch(cfg, n * E13_DLRM_BATCH, args.seed + 16)
+    b = E13_DLRM_BATCH
+    dense, ids, labels = (torch.from_numpy(a[r * b:(r + 1) * b]).to(dev)
+                          for a in batch)
+    named = list(tl.named_parameters(params))
+    rep, sh = expert.split_named(named, specs)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([t for _, t in rep], lr=E13_DLRM_LR),
+        named_parameters=rep)
+    eps = expert.ExpertParallel(
+        mesh, torch.optim.SGD([t for _, t in sh], lr=E13_DLRM_LR))
+    step = dlrm.make_train_step(cfg, opt, mesh, eps)
+    # The rows the global batch touches in this rank's tables, and their
+    # values (and the MLPs') before the steps: the updates go to the
+    # reference with the values after.
+    every = torch.from_numpy(batch[1]).to(dev).long()
+    rows = {j: torch.unique(every[:, j]) for j in mine}
+    before = {j: params["tables"][i][rows[j]].detach().clone()
+              for i, j in enumerate(mine)}
+    mlp_before = {nm: t.detach().clone() for nm, t in rep}
+    progress("(b) tables drawn")
+    steps = []
+    for _ in range(E13_STEPS):
+        mesh.timing = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step(params, dense, ids, labels)
+        lv = loss.item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        marks, mesh.timing = mesh.timing, None
+        steps.append(dict(
+            loss=lv, mean=dlrm.psum_loss(loss, mesh).item(), s=dt,
+            exchanges=len(marks), exchange_ms=parallel.timed_ms(marks),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            mlp=_checksum(torch, rep)))
+    touched = {}
+    for i, j in enumerate(mine):
+        after = params["tables"][i][rows[j]].detach()
+        touched[j] = (rows[j].cpu(), after.cpu(), (after - before[j]).cpu())
+    mlp = {nm: (t.detach().cpu(), (t.detach() - mlp_before[nm]).cpu())
+           for nm, t in rep}
+    torch.save(dict(rows=touched, mlp=mlp),
+               os.path.join(args.e13_worker, f"dlrm{r}.pt"))
+    eps.shutdown()
+    progress("(b) steps done")
+    return dict(steps=steps, tables=len(mine),
+                table_gib=params["tables"].numel() * 4 / 2**30)
+
+
+def e13_worker(args):
+    """One rank of E13, started by the port's launcher on ``make_mesh({"ep":
+    2})``: (a) Mixtral-8x7B at full width, E13_LAYERS deep, bf16, B=1 x
+    E13_SEQ tokens a rank, the replicated leaves through
+    ``DistributedOptimizer(AdamW)`` and the expert slabs through
+    ``ExpertParallel(AdamW)`` (1/ep, never averaged over ep), E13_STEPS
+    steps: step 1 opened for the gradient check against the reference
+    with every expert local, launch counts zeroed before each step and read
+    after, the all-to-all marks, routed and dropped tokens, checksums of
+    the replicated leaves and of the slab; (b) DLRM at MLPerf's widths
+    (E13_DLRM), its tables split over ep, SGD, E13_STEPS steps on
+    E13_DLRM_BATCH rows a rank.  Writes ``rank<HOROVOD_RANK>.json`` (and
+    ``dlrm<rank>.pt``) in ``args.e13_worker``."""
+    import faulthandler
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stacks = open(os.path.join(args.e13_worker, "stacks"
+                               f"{os.environ['HOROVOD_RANK']}.txt"), "w")
+    faulthandler.dump_traceback_later(E13_TIMEOUT_S - 30, exit=False,
+                                      file=stacks)
+    hvd.init()
+    r, n = hvd.rank(), hvd.size()
+    t_start = time.perf_counter()
+
+    def progress(what):
+        print(f"e13 rank {r}: {what} at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    mesh = parallel.make_mesh({"ep": n})
+    res = dict(rank=r, size=n, card=torch.cuda.get_device_name(
+        hvd.device()))
+    t0 = time.perf_counter()
+    res["moe"] = _e13_moe(torch, np, hvd, args, mesh, progress)
+    res["moe"]["wall"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["dlrm"] = _e13_dlrm(torch, np, hvd, args, mesh, progress)
+    res["dlrm"]["wall"] = time.perf_counter() - t0
+    mesh.shutdown()
+    hvd.shutdown()
+    faulthandler.cancel_dump_traceback_later()
+    stacks.close()
+    _write_result(args.e13_worker, res)
+    print(f"e13 rank {r}: done", flush=True)
+    return 0
+
+
+def _e13_dlrm_reference(torch, seed, n, saved, dev="cuda:0"):
+    """E13 (b)'s reference in this process: the same DLRM, every table
+    here (ep off), the global batch, the same SGD steps; then the ranks'
+    MLPs and every table row the steps touched against it, as values
+    (within E13_TABLE_TOL) and as updates (the relative norm of the
+    difference, a table's touched rows or an MLP leaf at a time).
+    Returns ``(losses, held, worst, rows)``: ``worst`` holds the largest
+    value errors and update norms, and the updates' RMS."""
+    from horovod_tpu_torch.models import dlrm, llama as tl
+    dev = torch.device(dev)
+    cfg = dlrm.DLRMConfig(**E13_DLRM)
+    params = dlrm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 15), dev)
+    batch = [torch.from_numpy(a).to(dev) for a in dlrm.synthetic_batch(
+        cfg, n * E13_DLRM_BATCH, seed + 16)]
+    named = list(tl.named_parameters(params))
+    mine = dict(named)
+    before = {j: params["tables"][j][ids.to(dev)].detach().clone()
+              for s in saved for j, (ids, _, _) in s["rows"].items()}
+    mlp_before = {nm: mine[nm].detach().clone() for nm in saved[0]["mlp"]}
+    step = dlrm.make_train_step(cfg, torch.optim.SGD(
+        [t for _, t in named], lr=E13_DLRM_LR))
+    losses = [step(params, *batch).item() for _ in range(E13_STEPS)]
+    worst = dict(table=0.0, mlp=0.0, table_update=0.0, mlp_update=0.0,
+                 table_rms=0.0, mlp_rms=0.0)
+    held = True
+
+    def hold(got, want, upd, want_upd, what):
+        nonlocal held
+        got, upd = got.to(dev), upd.to(dev)
+        err = (got - want).abs()
+        rel = _rel_norm(torch, upd, want_upd)
+        held = held and bool((err <= E13_TABLE_TOL["atol"] + E13_TABLE_TOL[
+            "rtol"] * want.abs()).all()) and rel <= E13_UPDATE_TOL
+        worst[what] = max(worst[what], float(err.max()) if err.numel()
+                          else 0.0)
+        worst[f"{what}_update"] = max(worst[f"{what}_update"], rel)
+        worst[f"{what}_rms"] = max(worst[f"{what}_rms"], float(
+            want_upd.float().pow(2).mean().sqrt()))
+
+    rows = 0
+    with torch.no_grad():
+        for s in saved:
+            for j, (ids, got, upd) in s["rows"].items():
+                want = params["tables"][j][ids.to(dev)]
+                hold(got, want, upd, want - before[j], "table")
+                rows += ids.numel()
+            for name, (got, upd) in s["mlp"].items():
+                hold(got, mine[name], upd, mine[name] - mlp_before[name],
+                     "mlp")
+    del params, named, mine, batch, before, mlp_before
+    torch.cuda.empty_cache()
+    return losses, held, worst, rows
+
+
+def e13_phase(torch, layers, seed, card, timeout_s=E13_TIMEOUT_S):
+    """E13: expert parallelism on two ranks through the port's launcher
+    (``e13_worker``), on ``{ep: 2}``.  (a) Mixtral at full width: every
+    leaf's step-1 gradient (the replicated leaves world-averaged, the slab
+    after the 1/ep rule) within GRAD_TOL (relative norm) of the reference
+    with every expert local; the replicated leaves bitwise equal across
+    the ranks after every step and the slabs not; no token dropped; the
+    flash launches ``layers`` each a step on each rank; finite losses.
+    (b) DLRM at MLPerf's widths: the world's mean loss each step within
+    E13_LOSS_RTOL of the ep-off reference run here and its change from
+    step 1 within E13_LOSS_CHANGE_TOL of the reference's, the MLPs and
+    every table row the steps touched within E13_TABLE_TOL and their
+    updates within E13_UPDATE_TOL (relative norm) of the reference's, the
+    MLPs bitwise across the ranks."""
+    import numpy as np
+    results, route, wall = launch_ranks(
+        torch, "--e13-worker", layers, seed, timeout_s,
+        inspect=lambda tmp: [torch.load(os.path.join(tmp, f"dlrm{r}.pt"))
+                             for r in range(2)])
+    if results is None:
+        return False, None
+    saved, results = results[-1], results[:-1]
+    n = len(results)
+    ok = True
+    # (a) MoE.
+    runs = [res["moe"] for res in results]
+    for i, steps in enumerate(zip(*(m["steps"] for m in runs))):
+        rep_same = len({str(st["rep"]) for st in steps}) == 1
+        slab_differ = len({str(st["slab"]) for st in steps}) == n
+        finite = all(np.isfinite(st["loss"]) for st in steps)
+        no_drop = all(st["dropped"] == 0 and st["routed"] > 0
+                      for st in steps)
+        launches = all(st["launches"] == [layers] * 3 for st in steps)
+        good = rep_same and slab_differ and finite and no_drop and launches
+        ok = ok and good
+        print(f"e13 (a): step {i + 1}: losses "
+              f"{[round(st['loss'], 6) for st in steps]}; replicated "
+              f"leaves bitwise equal across ranks: {rep_same}; expert "
+              f"slabs differ: {slab_differ}; tokens routed / dropped "
+              f"{[(st['routed'], st['dropped']) for st in steps]}; flash "
+              f"launches fwd/dq/dkv {[st['launches'] for st in steps]}; "
+              f"step {_joined(st['s'] * 1e3 for st in steps)} ms"
+              f"{' (with the gradient check)' if i == 0 else ''}; "
+              f"{steps[0]['a2a']} all-to-alls taking "
+              f"{_joined(st['a2a_ms'] for st in steps)} ms; "
+              f"peak {max(st['peak_gib'] for st in steps):.2f} GiB -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    for res, m in zip(results, runs):
+        worst = max(m["grad_err"].values())
+        good = worst <= GRAD_TOL
+        ok = ok and good
+        name = max(m["grad_err"], key=m["grad_err"].get)
+        print(f"e13 (a): rank {res['rank']}: step-1 gradients of "
+              f"{sum(m['leaves'])} leaves ({m['leaves'][1]} of them the "
+              f"slab, {m['slab_gib']:.2f} GiB) against every expert "
+              f"local: worst relative norm {worst:.3e} ({name}; tol "
+              f"{GRAD_TOL:g}) -> {'PASS' if good else 'FAIL'}", flush=True)
+    a = runs[0]["steps"][1:]
+    med = sorted(st["s"] for st in a)[len(a) // 2] * 1e3
+    a2a = sorted(st["a2a_ms"] for st in a)[len(a) // 2]
+    print(f"e13 (a): Mixtral-8x7B width, {layers} layer, 8 experts top-2 "
+          f"(capacity factor 4.0), ep = {n}: step {med:.1f} ms on rank 0 "
+          f"(the median of steps 2-{E13_STEPS}), all-to-all {a2a:.1f} ms "
+          f"of it (CUDA events around the exchanges), "
+          f"{n * E13_SEQ / med * 1e3:.1f} tokens/s over both ranks, peak "
+          f"{max(st['peak_gib'] for m in runs for st in m['steps']):.2f} "
+          f"GiB a rank, the rank's (a) in {runs[0]['wall']:.1f} s [{card}; "
+          f"two ranks on {route}]", flush=True)
+    # (b) DLRM.
+    runs = [res["dlrm"] for res in results]
+    ref, held, worst, rows = _e13_dlrm_reference(torch, seed, n, saved)
+    first = runs[0]["steps"][0]["mean"]
+    for i, steps in enumerate(zip(*(d["steps"] for d in runs))):
+        mean = steps[0]["mean"]
+        rel = abs(mean - ref[i]) / abs(ref[i])
+        # The loss's change from step 1 (none at step 1 itself).
+        change = (abs((mean - first) - (ref[i] - ref[0]))
+                  / abs(ref[i] - ref[0]) if i else 0.0)
+        mlp_same = len({str(st["mlp"]) for st in steps}) == 1
+        good = (rel <= E13_LOSS_RTOL and change <= E13_LOSS_CHANGE_TOL
+                and mlp_same and all(abs(st["mean"] - mean) == 0
+                                     for st in steps))
+        ok = ok and good
+        print(f"e13 (b): step {i + 1}: the ranks' losses "
+              f"{[round(st['loss'], 6) for st in steps]}, world mean "
+              f"{mean:.6f} against the ep-off run's {ref[i]:.6f} (relative "
+              f"{rel:.2e}, tol {E13_LOSS_RTOL:g}); its change from step 1 "
+              f"{mean - first:.3e} against {ref[i] - ref[0]:.3e} (relative "
+              f"{change:.2e}, tol {E13_LOSS_CHANGE_TOL:g}); MLPs bitwise "
+              f"across ranks: {mlp_same}; step "
+              f"{_joined(st['s'] * 1e3 for st in steps)} ms, "
+              f"{steps[0]['exchanges']} exchanges taking "
+              f"{_joined(st['exchange_ms'] for st in steps)} ms -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    ok = ok and held
+    print(f"e13 (b): {rows:,} touched table rows and the MLPs after "
+          f"{E13_STEPS} steps against the ep-off run: worst abs error "
+          f"rows {worst['table']:.3e}, MLPs {worst['mlp']:.3e} (rtol "
+          f"{E13_TABLE_TOL['rtol']:g}, atol {E13_TABLE_TOL['atol']:g}); "
+          f"their updates (RMS rows {worst['table_rms']:.3e}, MLP leaves "
+          f"up to {worst['mlp_rms']:.3e}) against the ep-off run's: worst "
+          f"relative norm a table {worst['table_update']:.3e}, an MLP leaf "
+          f"{worst['mlp_update']:.3e} (tol {E13_UPDATE_TOL:g}) -> "
+          f"{'PASS' if held else 'FAIL'}", flush=True)
+    b = runs[0]["steps"]
+    med = sorted(st["s"] for st in b)[len(b) // 2] * 1e3
+    print(f"e13 (b): DLRM at MLPerf's widths, {E13_DLRM['n_tables']} tables "
+          f"x {E13_DLRM['rows_per_table']:,} rows x "
+          f"{E13_DLRM['embed_dim']} ({runs[0]['tables']} a rank, "
+          f"{runs[0]['table_gib']:.2f} GiB), batch {E13_DLRM_BATCH} a rank: "
+          f"step {med:.1f} ms on rank 0 (median of {E13_STEPS}), "
+          f"{n * E13_DLRM_BATCH / med * 1e3:.0f} samples/s, peak "
+          f"{max(st['peak_gib'] for d in runs for st in d['steps']):.2f} "
+          f"GiB a rank [{card}; two ranks on {route}]", flush=True)
+    print(f"e13: two ranks through the launcher in {wall:.1f} s -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    flash = [sum(st["launches"][k] for st in results[0]["moe"]["steps"])
+             for k in range(3)]
+    return ok, dict(flash=flash)
+
+
 def trace_ab_phase(torch, hvd, grads, iters=5):
     """The size-1 counterpart of the JAX bench's trace A/B: the engine's
     grouped allreduce of the gradient set with the tracer detached (the
@@ -5498,6 +5957,8 @@ def main():
                     help=argparse.SUPPRESS)   # E12's elastic driver
     ap.add_argument("--e12-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one worker of E12
+    ap.add_argument("--e13-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of E13
     args = ap.parse_args()
 
     import torch
@@ -5542,6 +6003,8 @@ def main():
         return e12_driver(args)
     if args.e12_worker:
         return e12_worker(args)
+    if args.e13_worker:
+        return e13_worker(args)
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5606,12 +6069,12 @@ def main():
     ab_ok = trace_ab_phase(torch, hvd, grads)
     del grads
     torch.cuda.empty_cache()
-    two_ok, two = two_rank_phase(torch, args.train_layers, args.seed)
-    four_ok, four = e4_phase(torch, args.train_layers, args.seed, card)
+    two_ok, two = two_rank_phase(torch, E3_LAYERS, args.seed)
+    four_ok, four = e4_phase(torch, E3_LAYERS, args.seed, card)
     engine_ok = (loading_ok and fusion_ok and layout_ok and size1_ok
                  and two_ok and four_ok
                  and no_spills)
-    sp_ok, sp = e5_phase(torch, args.train_layers, args.seed, card)
+    sp_ok, sp = e5_phase(torch, E3_LAYERS, args.seed, card)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     resnet_ok, _ = resnet_phase(torch, hvd, fa, args.seed, card, flush)
     del flush
@@ -5637,6 +6100,9 @@ def main():
     t_e12 = time.time()
     e12_ok, e12 = e12_phase(torch, E12_LAYERS, args.seed, card)
     print(f"e12: the phase in {time.time() - t_e12:.1f} s", flush=True)
+    t_e13 = time.time()
+    e13_ok, e13 = e13_phase(torch, E13_LAYERS, args.seed, card)
+    print(f"e13: the phase in {time.time() - t_e13:.1f} s", flush=True)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -5655,23 +6121,28 @@ def main():
     f10 = e10["flash"] if e10 else [0, 0, 0]
     f11 = e11["flash"] if e11 else [0, 0, 0]
     f12 = e12["flash"] if e12 else [0, 0, 0]
+    f13 = e13["flash"] if e13 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
-                + e5[0] + m6[0] + f8[0] + f9[0] + f10[0] + f11[0] + f12[0],
+                + e5[0] + m6[0] + f8[0] + f9[0] + f10[0] + f11[0] + f12[0]
+                + f13[0],
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
-                + m6[1] + f8[1] + f9[1] + f10[1] + f11[1] + f12[1],
+                + m6[1] + f8[1] + f9[1] + f10[1] + f11[1] + f12[1] + f13[1],
                 "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
-                + m6[2] + f8[2] + f9[2] + f10[2] + f11[2] + f12[2]}
+                + m6[2] + f8[2] + f9[2] + f10[2] + f11[2] + f12[2]
+                + f13[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
           f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
           f"size 2) + {f8[0]} observability (E8, rank 0) + {f9[0]} ZeRO "
           f"(E9, rank 0) + {f10[0]} data-plane depth (E10, rank 0) + "
           f"{f11[0]} elastic (E11, rank 0 of each generation) + {f12[0]} "
-          f"drains and autoscaling (E12, rank 0 of each generation); "
+          f"drains and autoscaling (E12, rank 0 of each generation) + "
+          f"{f13[0]} expert parallelism (E13, rank 0); "
           f"flash_bwd_dq {train_launches['flash_bwd_dq']} + {e5[1]} + "
-          f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]} + {f11[1]} + {f12[1]}, "
-          f"flash_bwd_dkv {train_launches['flash_bwd_dkv']} + {e5[2]} + "
-          f"{m6[2]} + {f8[2]} + {f9[2]} + {f10[2]} + {f11[2]} + {f12[2]}",
+          f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]} + {f11[1]} + {f12[1]} "
+          f"+ {f13[1]}, flash_bwd_dkv {train_launches['flash_bwd_dkv']} + "
+          f"{e5[2]} + {m6[2]} + {f8[2]} + {f9[2]} + {f10[2]} + {f11[2]} + "
+          f"{f12[2]} + {f13[2]}",
           flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
@@ -5697,7 +6168,7 @@ def main():
              **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS},
              launches_e6=m6[0], launches_e8=f8[0], launches_e9=f9[0],
              launches_e10=f10[0], launches_e11=f11[0],
-             launches_e12=f12[0],
+             launches_e12=f12[0], launches_e13=f13[0],
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
     ] + [
@@ -5724,6 +6195,7 @@ def main():
              launches_e10=f10[1 if g == "dq" else 2],
              launches_e11=f11[1 if g == "dq" else 2],
              launches_e12=f12[1 if g == "dq" else 2],
+             launches_e13=f13[1 if g == "dq" else 2],
              **{f"{m}_{k}": bwd_by_name[case][g][k]
                 for m, case in MODEL_CASES.items() for k in _CASE_KEYS
                 if k in bwd_by_name[case][g]},
@@ -5791,7 +6263,7 @@ def main():
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and adasum_ok and e7_ok and e8_ok and e9_ok
-                        and e10_ok and e11_ok and e12_ok
+                        and e10_ok and e11_ok and e12_ok and e13_ok
                         and kern["launches"] > 0)
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
@@ -5800,7 +6272,7 @@ def main():
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
-            and e10_ok and e11_ok and e12_ok
+            and e10_ok and e11_ok and e12_ok and e13_ok
             and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
@@ -5814,7 +6286,7 @@ def main():
               f"observability (E8, trace A/B {ab_ok}) ok={e8_ok}, ZeRO (E9) "
               f"ok={e9_ok}, data-plane depth (E10) ok={e10_ok}, elastic "
               f"(E11) ok={e11_ok}, drains and autoscaling (E12) "
-              f"ok={e12_ok}")
+              f"ok={e12_ok}, expert parallelism (E13) ok={e13_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
 """Parameter and optimizer-state broadcast.
 
 Port of ``horovod_tpu/jax/optimizer.py:900-922`` and of the torch binding's
-``horovod_tpu/torch/functions.py:17-85`` (reference:
+``horovod_tpu/torch/functions.py:17-90`` (reference:
 ``horovod/torch/functions.py``).  ``broadcast_parameters`` takes a tree of
 dicts, lists and tuples with tensor leaves (the port's Llama parameters), a
 ``state_dict``, an ``nn.Module`` (through its ``state_dict``, whose tensors
@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from . import mpi_ops
 from .common import basics
 from .common.process_sets import ProcessSet
 from .ops import eager
@@ -155,3 +156,12 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0,
     if not is_root:
         optimizer.load_state_dict(state)
     return optimizer
+
+
+def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None,
+                     process_set: Optional[ProcessSet] = None):
+    """Broadcast a picklable object from ``root_rank``; a pass-through to
+    ``mpi_ops.broadcast_object``, as ``horovod_tpu/torch/functions.py:88-90``
+    is."""
+    return mpi_ops.broadcast_object(obj, root_rank=root_rank, name=name,
+                                    process_set=process_set)

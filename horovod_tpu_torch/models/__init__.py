@@ -3,10 +3,10 @@
 Lazy submodule access, as ``horovod_tpu/models/__init__.py`` gives it:
 ``horovod_tpu_torch.models.resnet`` works after ``import
 horovod_tpu_torch.models`` without importing every family eagerly.  The
-JAX package's ``moe``, ``dlrm`` and ``convert`` are not ported yet.
+JAX package's ``convert`` is not ported yet.
 """
 
-_FAMILIES = ("llama", "gpt2", "bert", "vit", "resnet", "mnist")
+_FAMILIES = ("llama", "gpt2", "bert", "vit", "resnet", "mnist", "moe", "dlrm")
 
 __all__ = list(_FAMILIES)
 

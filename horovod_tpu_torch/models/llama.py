@@ -2,7 +2,8 @@
 sequence parallelism in training.
 
 Port of ``horovod_tpu/models/llama.py:37-230, 313-577, 586-921,
-1023-1044``.  The parameters are a plain dictionary in the JAX package's
+1023-1044``, with the mixture-of-experts MLP (:100-108, 177-189, 204-218,
+252-254, 413-433, 562-575).  The parameters are a plain dictionary in the JAX package's
 own layout (``{"embed", "layers": [...], "final_norm", "lm_head"}``), and
 every weight keeps the JAX ``[in, out]`` layout: a projection is ``x @
 w``, never ``nn.Linear``'s ``x @ w.T``.  :func:`params_from_jax` carries a JAX
@@ -30,8 +31,19 @@ path is the single-rank one.  Prefill and decode take no mesh: they run
 on one rank's whole sequence (a token-at-a-time cache has no sequence to
 split), so the JAX ``_decode_axes_check`` refusal has no input to refuse.
 
-Mixture-of-experts, tensor/pipeline/expert parallelism, the rolling cache
-and speculative decoding are not ported yet.
+Mixture-of-experts: with ``n_experts > 0`` each layer's MLP is
+``models/moe.py``'s routed experts (``"moe"`` in place of w1/w3/w2), and
+:func:`mixtral_8x7b` is Mixtral's geometry.  Where the mesh has
+``cfg.ep_axis``, each rank holds its slab of every layer's experts
+(:func:`shard_experts`), tokens are a data split over dp × ep, and the
+buffer travels by all-to-all; :func:`param_specs` names the sharded leaves
+for ``parallel.ExpertParallel`` (the gradient rule and the broadcast) and
+:func:`make_train_step` steps both optimizers.  ``forward``/``loss_fn``
+add the router losses as the JAX ``loss_fn`` does.  Prefill and decode run
+the MoE MLP with every expert local (ep off).
+
+Tensor and pipeline parallelism, the rolling cache and speculative
+decoding are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ import torch
 
 from ..functions import _leaves
 from ..ops.flash_attention import NEG_INF, flash_attention
+from ..parallel.expert import shard_tree
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
 
@@ -70,6 +83,20 @@ class LlamaConfig:
     # outside the band.  Not with sequence parallelism.
     sliding_window: Optional[int] = None
     norm_eps: float = 1e-5
+    # Mixture-of-experts MLP (models/moe.py): n_experts > 0 replaces the
+    # dense w1/w3/w2 MLP with routed experts; ``ep_axis`` shards them (a
+    # DATA axis for everything else: tokens split over dp × ep).
+    n_experts: int = 0
+    ep_axis: Optional[str] = None
+    capacity_factor: float = 1.25
+    aux_weight: float = 0.01           # router load-balance loss weight
+    router_mode: str = "tokens"        # "tokens" | "expert_choice"
+    router_top_k: int = 1              # 1 = Switch, >=2 = GShard top-k
+    router_z_weight: float = 0.0       # ST-MoE z-loss weight (0 = off)
+    router_noise: float = 0.0          # router jitter std (needs generator=)
+    moe_gated: bool = False            # SwiGLU experts (Mixtral shape)
+    # The data axis of the mesh (its coordinate folds the router noise).
+    dp_axis: Optional[str] = "dp"
 
     @property
     def head_dim(self) -> int:
@@ -88,6 +115,19 @@ class LlamaConfig:
             raise ValueError(f"n_heads={self.n_heads} must be a multiple of "
                              f"n_kv_heads={self.n_kv_heads}")
 
+    def moe_cfg(self):
+        """The ``models.moe`` config of this model's MoE MLP (init, specs
+        and forward all derive from it)."""
+        from . import moe as _moe
+        return _moe.MoEConfig(
+            d_model=self.d_model, d_ff=self.d_ff,
+            n_experts=self.n_experts, capacity_factor=self.capacity_factor,
+            ep_axis=self.ep_axis, router_mode=self.router_mode,
+            router_top_k=self.router_top_k,
+            router_z_weight=self.router_z_weight,
+            router_noise=self.router_noise, gated=self.moe_gated,
+            dtype=self.dtype)
+
 
 def tiny(vocab_size: int = 256, d_model: int = 64, n_layers: int = 2,
          n_heads: int = 4, n_kv_heads: int = 2, d_ff: int = 128,
@@ -102,12 +142,26 @@ def llama3_8b(**kw) -> LlamaConfig:
     return LlamaConfig(**kw)  # defaults above are the 8B geometry
 
 
+def mixtral_8x7b(**kw) -> LlamaConfig:
+    """Mixtral-8x7B geometry: Mistral attention + 8 SwiGLU experts with
+    normalized top-2 routing.  ``capacity_factor=4.0`` (= n_experts /
+    top_k) gives every expert worst-case capacity, so no token is ever
+    dropped (Mixtral has no capacity drops); training at scale usually
+    wants 1.25-2.0, and drops then take the residual path."""
+    return LlamaConfig(**{**dict(
+        vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+        n_kv_heads=8, d_ff=14336, max_seq=32768, rope_theta=1e6,
+        n_experts=8, router_top_k=2, moe_gated=True, capacity_factor=4.0,
+        ep_axis="ep"), **kw})
+
+
 # ------------------------------------------------------------------- params
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None) -> Dict:
-    """Random dense parameters, ``N(0, 1/fan_in)``, drawn from
-    ``generator`` on ``device`` (the generator's own device by default),
-    as leaves that require grad."""
+    """Random parameters, ``N(0, 1/fan_in)``, drawn from ``generator`` on
+    ``device`` (the generator's own device by default), as leaves that
+    require grad.  With ``n_experts`` every layer holds all its experts:
+    :func:`shard_experts` cuts a rank's slab."""
     device = torch.device(device) if device is not None else \
         generator.device
     D, H, K, Hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -125,17 +179,24 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "attn_norm": ones(D),
             "wq": dense(D, (D, H * Hd)),
             "wk": dense(D, (D, K * Hd)),
             "wv": dense(D, (D, K * Hd)),
             "wo": dense(H * Hd, (H * Hd, D)),
             "mlp_norm": ones(D),
-            "w1": dense(D, (D, F)),
-            "w3": dense(D, (D, F)),
-            "w2": dense(F, (F, D)),
-        })
+        }
+        if cfg.n_experts:
+            from . import moe as _moe
+            layer["moe"] = _moe.init_params(cfg.moe_cfg(), generator, device)
+        else:
+            layer |= {
+                "w1": dense(D, (D, F)),
+                "w3": dense(D, (D, F)),
+                "w2": dense(F, (F, D)),
+            }
+        layers.append(layer)
     return {
         "embed": dense(D, (cfg.vocab_size, D)),
         "layers": layers,
@@ -163,6 +224,34 @@ def params_from_jax(tree, device="cpu", dtype: Optional[torch.dtype] = None
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device, dtype) for v in tree]
     return _to_tensor(tree, device, dtype)
+
+
+def param_specs(cfg: LlamaConfig) -> Dict:
+    """The axis each leaf is split over along dim 0, shaped like the
+    parameters: the experts' slabs ``cfg.ep_axis``, everything else None
+    (replicated).  ``parallel.ExpertParallel`` reads it."""
+    layer = {k: None for k in ("attn_norm", "wq", "wk", "wv", "wo",
+                               "mlp_norm")}
+    if cfg.n_experts:
+        from . import moe as _moe
+        layer["moe"] = _moe.param_specs(cfg.moe_cfg())
+    else:
+        layer |= {"w1": None, "w3": None, "w2": None}
+    return {"embed": None, "layers": [dict(layer) for _ in
+                                      range(cfg.n_layers)],
+            "final_norm": None, "lm_head": None}
+
+
+def shard_experts(params, cfg: LlamaConfig, mesh):
+    """``params`` (every expert: :func:`init_params`, or a JAX tree through
+    :func:`params_from_jax`) with each layer's experts cut to this rank's
+    slab along ``cfg.ep_axis`` of ``mesh``; the tree itself without such
+    an axis."""
+    if mesh is None or cfg.ep_axis is None \
+            or cfg.ep_axis not in mesh.axis_names:
+        return params
+    return shard_tree(params, param_specs(cfg), mesh.index(cfg.ep_axis),
+                      mesh.size(cfg.ep_axis), cfg.ep_axis)
 
 
 def named_parameters(params) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -250,31 +339,67 @@ def _mlp(x, p, cfg: LlamaConfig):
     return h @ p["w2"]
 
 
-def _layer_apply(p, x, cfg: LlamaConfig, positions, mesh=None):
+def _moe_mlp(x, p, cfg: LlamaConfig, mesh=None, generator=None):
+    """The routed experts of ``models/moe.py`` in place of :func:`_mlp`:
+    ``(y, [aux, z_loss])``.  The experts' all-to-alls run where ``mesh``
+    has ``cfg.ep_axis``."""
+    from . import moe as _moe
+    B, T, D = x.shape
+    y, aux, zl = _moe.moe_ffn(x.reshape(B * T, D), p["moe"], cfg.moe_cfg(),
+                              mesh, generator)
+    return y.reshape(B, T, D), torch.stack([aux, zl])
+
+
+def _layer_apply(p, x, cfg: LlamaConfig, positions, mesh=None,
+                 generator=None):
+    """``(x, router_losses)``: the router losses None for a dense layer."""
     h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg, positions)
     x = x + _wo_project(_attend(q, k, v, cfg, mesh), p, cfg)
-    return x + _mlp(_rmsnorm(x, p["mlp_norm"], cfg.norm_eps), p, cfg)
+    h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    if not cfg.n_experts:
+        return x + _mlp(h, p, cfg), None
+    y, router = _moe_mlp(h, p, cfg, mesh, generator)
+    return x + y, router
 
 
-def forward(params, tokens, cfg: LlamaConfig, mesh=None):
+def forward(params, tokens, cfg: LlamaConfig, mesh=None, generator=None):
     """Logits ``[B, T, vocab]`` for this rank's ``tokens [B, T]``: with
     the sequence split over ``mesh``, its ``T`` positions start at
-    ``sp_rank · T``."""
+    ``sp_rank · T``.  ``generator`` threads router jitter."""
+    return _forward(params, tokens, cfg, mesh, generator)[0]
+
+
+def _forward(params, tokens, cfg: LlamaConfig, mesh=None, generator=None):
+    """``(logits, router_losses [2])``: the router losses summed over the
+    layers (None for a dense model).  ``generator`` is folded with every
+    data axis's coordinate (dp, ep, sp) and then per layer, as the JAX
+    ``rng`` is."""
+    from .moe import data_generator, fold_in
     T = tokens.shape[1]
     start = mesh.index(cfg.sp_axis) * T if _sp(cfg, mesh) > 1 else 0
     positions = start + torch.arange(T, device=tokens.device)
+    if cfg.n_experts:
+        generator = data_generator(generator, mesh,
+                                   (cfg.dp_axis, cfg.ep_axis, cfg.sp_axis))
     x = params["embed"][tokens.long()]
-    for p in params["layers"]:
-        x = _layer_apply(p, x, cfg, positions, mesh)
+    router = None
+    for i, p in enumerate(params["layers"]):
+        x, r = _layer_apply(p, x, cfg, positions, mesh,
+                            fold_in(generator, i) if cfg.n_experts else None)
+        if r is not None:
+            router = r if router is None else router + r
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    return x @ params["lm_head"], router
 
 
 # ----------------------------------------------------------------- training
-def loss_fn(params, tokens, targets, cfg: LlamaConfig, mesh=None):
+def loss_fn(params, tokens, targets, cfg: LlamaConfig, mesh=None,
+            generator=None):
     """Mean next-token cross-entropy over this rank's tokens, logits in
-    float32 (no mixture-of-experts router loss).
+    float32, plus with ``n_experts`` the router losses (``aux_weight`` ×
+    aux + ``router_z_weight`` × z, each the mean over the layers), as the
+    JAX ``loss_fn`` adds them.
 
     The JAX ``loss_fn`` returns a partial loss scaled by 1/(global token
     count), which ``sync_grads`` sums over the ranks.  Here
@@ -283,10 +408,16 @@ def loss_fn(params, tokens, targets, cfg: LlamaConfig, mesh=None):
     that average is the gradient of the global mean because the ring's
     backward returns every dk/dv contribution to the rank that owns the
     k/v (Ulysses' exchange is its own inverse) and every rank holds the
-    same number of tokens."""
-    logits = forward(params, tokens, cfg, mesh).float()
-    return torch.nn.functional.cross_entropy(
+    same number of tokens.  With experts split over ep (a data axis),
+    the experts' slabs follow ``parallel.ExpertParallel``'s rule."""
+    logits, router = _forward(params, tokens, cfg, mesh, generator)
+    logits = logits.float()
+    loss = torch.nn.functional.cross_entropy(
         logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long())
+    if cfg.n_experts:
+        loss = loss + (cfg.aux_weight * router[0]
+                       + cfg.router_z_weight * router[1]) / cfg.n_layers
+    return loss
 
 
 def psum_loss(loss, cfg: LlamaConfig, mesh=None):
@@ -301,9 +432,11 @@ def psum_loss(loss, cfg: LlamaConfig, mesh=None):
     return mpi_ops.allreduce(loss, op=mpi_ops.Average, name="llama.loss")
 
 
-def make_train_step(cfg: LlamaConfig, optimizer, mesh=None):
-    """Returns ``step(params, tokens, targets) -> loss``: zero the grads,
-    forward, backward, ``optimizer.step()``.  The loss is this rank's (of
+def make_train_step(cfg: LlamaConfig, optimizer, mesh=None, experts=None):
+    """Returns ``step(params, tokens, targets, generator=None) -> loss``:
+    zero the grads, forward, backward, ``optimizer.step()`` and, with
+    ``experts`` (a ``parallel.ExpertParallel`` over the experts' slabs),
+    ``experts.step()``.  The loss is this rank's (of
     its tokens) for the parameters before the update; :func:`psum_loss`
     gives the global mean.  ``params`` must be the leaves ``optimizer``
     updates; with ``hvd.DistributedOptimizer`` the step averages the
@@ -313,13 +446,17 @@ def make_train_step(cfg: LlamaConfig, optimizer, mesh=None):
     :func:`forward`."""
     full = getattr(optimizer, "sharded", False) == "full"
 
-    def step(params, tokens, targets):
+    def step(params, tokens, targets, generator=None):
         if full:
             optimizer.gather_params()
         optimizer.zero_grad()
-        loss = loss_fn(params, tokens, targets, cfg, mesh)
+        if experts is not None:
+            experts.zero_grad()
+        loss = loss_fn(params, tokens, targets, cfg, mesh, generator)
         loss.backward()
         optimizer.step()
+        if experts is not None:
+            experts.step()
         return loss.detach()
 
     return step
@@ -388,7 +525,9 @@ def decode_chunk(params, cache, tokens, pos: int, cfg: LlamaConfig):
         o = torch.einsum("bkrqt,btkd->bqkrd", w.to(cv.dtype).float(),
                          cv.float())
         x = x + _wo_project(o.reshape(B, Tq, H, Hd).to(x.dtype), p, cfg)
-        x = x + _mlp(_rmsnorm(x, p["mlp_norm"], cfg.norm_eps), p, cfg)
+        h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + (_moe_mlp(h, p, cfg)[0] if cfg.n_experts
+                 else _mlp(h, p, cfg))
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), cache
 
@@ -409,7 +548,9 @@ def prefill(params, cache, tokens, cfg: LlamaConfig):
         c["k"][:, :T0] = k.to(c["k"].dtype)
         c["v"][:, :T0] = v.to(c["v"].dtype)
         x = x + _wo_project(_local_attend(q, k, v, cfg), p, cfg)
-        x = x + _mlp(_rmsnorm(x, p["mlp_norm"], cfg.norm_eps), p, cfg)
+        h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + (_moe_mlp(h, p, cfg)[0] if cfg.n_experts
+                 else _mlp(h, p, cfg))
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x[:, -1, :] @ params["lm_head"]).float(), cache
 

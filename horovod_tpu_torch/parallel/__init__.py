@@ -1,6 +1,7 @@
 """Parallel schemes beyond data parallelism: the process mesh, sequence
-parallelism (ring and Ulysses attention), Adasum, the two-level
-collectives and the slice topology they run on.  Port of
+parallelism (ring and Ulysses attention), expert parallelism's gradient
+rule, Adasum, the two-level collectives and the slice topology they run
+on.  Port of
 ``horovod_tpu/parallel/__init__.py:6-14``; ``zero`` holds the ZeRO
 pad+slice convention (its in-graph optimizers have no counterpart);
 ``spmd`` and ``pipeline`` are still to port (``ROADMAP.md`` queue 1)."""
@@ -9,14 +10,17 @@ from .adasum import (  # noqa: F401
     adasum_allreduce, adasum_allreduce_hd, adasum_allreduce_hier,
     adasum_combine, vhd,
 )
+from .expert import (  # noqa: F401
+    ExpertParallel, shard_tree, spec_of, split_named,
+)
 from .hierarchical import (  # noqa: F401
     Legs, hierarchical_allgather, hierarchical_allreduce,
     hierarchical_allreduce_minmax, hierarchical_broadcast,
 )
 
 from .mesh import (  # noqa: F401
-    DP, EP, PP, SP, TP, ProcessMesh, all_to_all, axes_of, infer_mesh,
-    make_mesh, ppermute, require_axis, timed_ms,
+    DP, EP, PP, SP, TP, AllToAll, ProcessMesh, all_gather, all_to_all,
+    axes_of, infer_mesh, make_mesh, ppermute, require_axis, timed_ms,
 )
 from .ring_attention import (  # noqa: F401
     local_flash_attention, ring_attention,

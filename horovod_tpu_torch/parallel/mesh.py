@@ -10,9 +10,12 @@ world's ranks: for each named axis this rank's coordinate, the axis size,
 and a ``torch.distributed`` group over the ranks that share every other
 coordinate.  The **last** axis varies fastest, as in ``make_mesh``.
 
-:func:`ppermute` and :func:`all_to_all` are the counterparts of the
-in-graph collectives that the sequence-parallel schemes use
-(``parallel/ring_attention.py``, ``parallel/ulysses.py``).  Besides the
+:func:`ppermute`, :func:`all_to_all` and :func:`all_gather` are the
+counterparts of the in-graph collectives that the sequence- and
+expert-parallel schemes use (``parallel/ring_attention.py``,
+``parallel/ulysses.py``, ``models/moe.py``, ``models/dlrm.py``);
+:class:`AllToAll` is the all-to-all under autograd, whose backward is the
+inverse exchange, as the transpose of ``lax.all_to_all`` is.  Besides the
 engine's cycle thread they are the port's only collectives, and they run
 only on the mesh's own groups: ``dist.new_group`` groups that this mesh
 creates, never a process set's group, which the engine's cycle thread
@@ -27,8 +30,8 @@ group, those it is not in included, in the same order.
 tears the world down.
 
 Not carried over, for want of a counterpart: ``SpecLayout`` and
-``fsdp_mesh`` (partition specs of ``shard_map``; the port shards no
-parameter yet), ``process_set_mesh``/``_spec``/``_sharding`` (translations
+``fsdp_mesh`` (partition specs of ``shard_map``; an expert-sharded
+model names its sharded leaves itself, ``parallel/expert.py``), ``process_set_mesh``/``_spec``/``_sharding`` (translations
 between process sets and ``jax.sharding``, which the port does not have),
 and the ICI-topology order of ``common/topology.py`` ``ordered_devices``
 (ROADMAP queue 1 item 4): ranks are laid out in rank order.
@@ -268,3 +271,43 @@ def all_to_all(x: torch.Tensor, mesh: ProcessMesh, axis: str,
     if mark is not None:
         mesh.timing.append((mark, _mark(mesh.timing, [x])))
     return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` under autograd: ``AllToAll.apply(x, mesh, axis,
+    split_dim, concat_dim)``.  The backward is the inverse exchange (the
+    split and concatenated dimensions swapped), as the transpose of
+    ``lax.all_to_all`` is: each chunk's cotangent goes back to the rank the
+    chunk came from."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.attrs = (mesh, axis, split_dim, concat_dim)
+        return all_to_all(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.attrs
+        return (all_to_all(g, mesh, axis, concat_dim, split_dim),
+                None, None, None, None)
+
+
+def all_gather(x: torch.Tensor, mesh: ProcessMesh, axis: str,
+               dim: int = 0) -> torch.Tensor:
+    """``lax.all_gather(tiled=True)`` along ``axis``: every coordinate's
+    ``x`` concatenated along ``dim`` in coordinate order.  One
+    ``all_to_all_single`` of ``x`` repeated ``n`` times (each coordinate
+    sends its one tensor to every other), so that the mesh keeps to its two
+    exchange kinds.  Not differentiable: it carries integer ids
+    (``models/dlrm.py``)."""
+    import torch.distributed as dist
+    ax = mesh.axis(axis)
+    if ax.size == 1:
+        return x
+    send = x.unsqueeze(0).expand(ax.size, *x.shape).contiguous()
+    recv = torch.empty_like(send)
+    mark = _mark(mesh.timing, [x])
+    dist.all_to_all_single(recv, send, group=ax.group)
+    if mark is not None:
+        mesh.timing.append((mark, _mark(mesh.timing, [x])))
+    return torch.cat(recv.unbind(0), dim=dim)

@@ -10,8 +10,8 @@ local heads, and a second all-to-all turns the output back (DeepSpeed-
 Ulysses).  Two all-to-alls an attention against the ring's sp - 1
 rotations; it needs the q heads and the kv heads to divide by sp.
 
-The exchange is a ``torch.autograd.Function`` whose backward is the
-inverse exchange (``mesh.all_to_all`` with the split and concatenated
+The exchange is the mesh's :class:`~.mesh.AllToAll`, whose backward is
+the inverse exchange (``mesh.all_to_all`` with the split and concatenated
 dimensions swapped), as the transpose of ``lax.all_to_all`` is.  The
 regrouping around it is plain tensor ops: no Pallas kernel stands behind
 it.  The default inner attention is the port's ``flash_attention``.
@@ -23,32 +23,18 @@ from typing import Callable, Optional
 
 import torch
 
-from .mesh import ProcessMesh, all_to_all
-
-
-class _AllToAll(torch.autograd.Function):
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
-        ctx.attrs = (mesh, axis, split_dim, concat_dim)
-        return all_to_all(x, mesh, axis, split_dim, concat_dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        mesh, axis, split_dim, concat_dim = ctx.attrs
-        return (all_to_all(g, mesh, axis, concat_dim, split_dim), None, None,
-                None, None)
+from .mesh import AllToAll, ProcessMesh
 
 
 def seq_to_heads(x, mesh: ProcessMesh, axis_name: str = "sp"):
     """``[B, T/sp, H, D]`` -> ``[B, T, H/sp, D]`` by an all-to-all along
     ``axis_name``."""
-    return _AllToAll.apply(x, mesh, axis_name, 2, 1)
+    return AllToAll.apply(x, mesh, axis_name, 2, 1)
 
 
 def heads_to_seq(x, mesh: ProcessMesh, axis_name: str = "sp"):
     """``[B, T, H/sp, D]`` -> ``[B, T/sp, H, D]``: the inverse exchange."""
-    return _AllToAll.apply(x, mesh, axis_name, 1, 2)
+    return AllToAll.apply(x, mesh, axis_name, 1, 2)
 
 
 def ulysses_attention(q, k, v, mesh: ProcessMesh,

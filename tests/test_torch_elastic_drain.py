@@ -380,9 +380,18 @@ time.sleep(0.5)
 np.savez(sys.argv[1] + f".{r}.npz",
          **{k: v.numpy() for k, v in outs.items()})
 a = basics._get_state().host_agent
+stats = None
+if a is not None:
+    # The agent's thread goes on with idle rounds and counts a round
+    # before it sends the round's uplink: read the counters between two
+    # rounds (a round without its uplink would never read equal).
+    for _ in range(2000):
+        stats = dict(vars(a.stats))
+        if stats["uplink_frames"] == stats["rounds"]:
+            break
+        time.sleep(0.001)
 with open(sys.argv[1] + f".{r}.json", "w") as fh:
-    json.dump(None if a is None else dict(ranks=a.ranks, **vars(a.stats)),
-              fh)
+    json.dump(None if a is None else dict(ranks=a.ranks, **stats), fh)
 hvd.shutdown()
 '''
 

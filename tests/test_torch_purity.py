@@ -517,6 +517,62 @@ def test_torch_elastic_modules_name_their_origin():
                                  "# Ported from horovod_tpu/")), (path, first)
 
 
+
+# The expert-parallel slice: MoE, DLRM, the gradient rule and the examples.
+EP_MODULES = ("horovod_tpu_torch.models.moe", "horovod_tpu_torch.models.dlrm",
+              "horovod_tpu_torch.parallel.expert",
+              "horovod_tpu_torch.examples",
+              "horovod_tpu_torch.examples.moe_expert_parallel",
+              "horovod_tpu_torch.examples.dlrm_alltoall")
+
+_EP_SRC = _OBSERVE_SRC.replace("print('PURE', len(sys.argv) - 2)", r"""
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import parallel
+from horovod_tpu_torch.models import dlrm, llama, moe
+from horovod_tpu_torch.parallel import expert
+hvd.init(device='cpu')
+cfg = moe.MoEConfig(d_model=8, d_ff=16, n_experts=4, router_top_k=2,
+                    gated=True)
+p = moe.init_params(cfg, torch.Generator().manual_seed(0))
+y, aux, z = moe.moe_ffn(torch.randn(12, 8), p, cfg, parallel.make_mesh(
+    {'ep': 1}))
+assert y.shape == (12, 8) and aux.item() > 0
+dc = dlrm.tiny(n_tables=2, rows_per_table=10, embed_dim=4)
+dp = dlrm.init_params(dc, torch.Generator().manual_seed(0))
+d, ids, lab = dlrm.synthetic_batch(dc, 3)
+assert dlrm.forward(dp, torch.from_numpy(d), torch.from_numpy(ids),
+                    dc).shape == (3,)
+lc = llama.mixtral_8x7b(d_model=16, n_heads=2, n_kv_heads=1, d_ff=8,
+                        n_layers=1, vocab_size=11, dtype=torch.float32)
+assert len(expert.spec_of(llama.param_specs(lc))) == 13
+hvd.shutdown()
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_expert_parallel_modules_stand_alone():
+    """MoE, DLRM, the expert gradient rule and the two examples import
+    with JAX and horovod_tpu blocked, and a gated top-2 MoE layer, a DLRM
+    forward and Mixtral's specs run; each module's first line names its
+    origin."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _EP_SRC, REPO, *EP_MODULES],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == str(len(EP_MODULES))
+    for name in EP_MODULES:
+        rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
+        path = os.path.join(PKG, rel + ".py")
+        if not os.path.exists(path):
+            continue            # the examples' package: a docstring only
+        first = open(path).readline()
+        origin = "examples/" if rel.startswith("examples") else "horovod_tpu/"
+        assert first.startswith(f"# Ported from {origin}"), (path, first)
+
 # World set-up and tear-down (not collectives, but each is a call on a
 # communicator's life): who may make, destroy and abort process groups.
 _WORLD_CALLS = {"init_process_group", "destroy_process_group",

@@ -13,6 +13,9 @@
   to it weakly (a strong reference through a tensor's hook dict is a cycle
   the collector cannot see, which kept the parameters, gradients and
   optimizer state alive for ever).
+- ``functions.broadcast_object`` exists, as the reference's torch binding
+  defines it in its ``functions`` module: a pass-through to
+  ``mpi_ops.broadcast_object``.
 """
 
 import gc
@@ -135,3 +138,32 @@ def test_torch_replicated_optimizer_is_collected(monkeypatch):
     gc.collect()
     assert all(r() is None for r in refs)
 
+
+
+def test_torch_functions_broadcast_object():
+    """``from horovod_tpu_torch.functions import broadcast_object`` works,
+    as ``horovod_tpu/torch/functions.py:88-90`` serves it, and broadcasts
+    through ``mpi_ops`` (the package root exports the same call)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import functions, mpi_ops
+    from horovod_tpu.torch import functions as ref
+    assert "broadcast_object" in vars(ref)
+    from horovod_tpu_torch.functions import broadcast_object
+    seen = []
+
+    def spy(obj, root_rank=0, name=None, process_set=None):
+        seen.append((obj, root_rank, name, process_set))
+        return obj
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(mpi_ops, "broadcast_object", spy)
+    try:
+        assert broadcast_object({"a": 1}, 0, name="n") == {"a": 1}
+    finally:
+        mp.undo()
+    assert seen == [({"a": 1}, 0, "n", None)]
+    hvd.init(device="cpu")
+    try:
+        assert functions.broadcast_object([3, "x"]) == [3, "x"]
+    finally:
+        hvd.shutdown()
