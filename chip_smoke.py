@@ -20,8 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
    then the flash backward's dq and dk/dv kernels (bitwise equal on a second
    call), each in five cases, at the training shape, at the ring's
    off-diagonal block (the training shape non-causal, what a ring step
-   after the first runs) and at Ulysses' inner attention (8,192 tokens
-   causal, 16/4 heads), with TFLOP/s of the causally needed work; then
+   after the first runs), at Ulysses' inner attention (8,192 tokens
+   causal, 16/4 heads) and at a tensor-parallel rank's shard (B=1, 4,096
+   tokens causal, 16/4 heads), with TFLOP/s of the causally needed work;
+   then
    34 bf16 cases at the edges of the tiles (128 rows; 64-row k tiles in
    dq) and with a window that ends mid-tile (correctness only).  Before
    them, ``cuobjdump -sass`` must find HGMMA (tensor-core) instructions in
@@ -248,8 +250,31 @@ Phases (any failure exits non-zero and prints no result line):
    run of the global batch in this process: the losses and their change
    from step 1, the MLPs and every touched table row as values and as
    updates (after minus before).
-16. The whole run's wall time, the kernels line (JSON), the card line, and
+16. Tensor parallelism.  E14 (``--e14-worker``, after E13): two ranks
+   through the launcher as E3, on ``make_mesh({"tp": 2})``.  (a)
+   ``llama3_8b()`` at full width cut to E14_LAYERS, bf16, B=1 x E14_SEQ
+   tokens, the same on both ranks, the replicated leaves through
+   ``DistributedOptimizer(AdamW)``, the tp shards (q heads, kv heads and
+   hidden units by columns, ``wo``/``w2`` by rows) through
+   ``ShardedParallel(AdamW)``, E14_STEPS steps: every leaf's step-1
+   gradient against the matching block of the tp-off model's from the
+   same weights and tokens, the replicated leaves bitwise across the ranks
+   and the shards not, the losses bitwise across the ranks, the flash
+   launches, the tp reductions' time and bytes and the replicated leaves'
+   allreduce.  (b) Prefill of 2 x 512 tokens and 8 greedy tokens at tp =
+   2 against the tp-off run on the same rank, fed its tokens: the logits
+   within DECODE_TOL, 4 kv heads a rank in the cache, the generated tokens
+   bitwise across the ranks.  (c) BERT-Large's width at E14_BERT_LAYERS,
+   B=8, T=512, 8 heads a rank: one step's gradients against tp-off.
+   Every time of two ranks on one card is labelled "sockets".
+17. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
+
+Every process the run starts carries ``CHIP_SMOKE_RUN`` in its
+environment, and the run is their subreaper: after each launch of ranks
+or drivers, before the result lines and at its exit (a failed one too)
+the run kills, reaps and names any of them still alive, so that none
+outlives it.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
 """
@@ -292,6 +317,98 @@ GRAD_TOL = 5e-2
 def _fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+# Every process the run starts inherits this variable (its value names the
+# run's own pid), whatever session or parent it ends under: stop_strays
+# finds the ones still alive by it.
+RUN_TAG = "CHIP_SMOKE_RUN"
+
+
+def tag_run():
+    """Marks this process as the run: the tag in its environment, which
+    every process it starts inherits, and this process the subreaper of
+    its descendants (``PR_SET_CHILD_SUBREAPER``), so that an orphan of a
+    launcher or driver is reparented here and reaped here.  Registers
+    ``stop_strays`` for the run's exit, a failed one too."""
+    import atexit
+    import ctypes
+    os.environ[RUN_TAG] = f"{os.getpid()}.{time.time_ns()}"
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(
+            36, 1, 0, 0, 0)                 # PR_SET_CHILD_SUBREAPER, on
+    except (OSError, AttributeError):
+        pass
+    atexit.register(stop_strays, "exit", sys.stderr)
+
+
+def _strays():
+    """``{pid: (state, command line)}`` of the live processes, this one
+    aside, that carry this run's tag."""
+    mark = f"{RUN_TAG}={os.environ[RUN_TAG]}".encode()
+    found = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/environ", "rb") as fh:
+                if mark not in fh.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{d}/stat") as fh:
+                state = fh.read().rsplit(")", 1)[1].split()[0]
+            with open(f"/proc/{d}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+        except OSError:
+            continue
+        found[int(d)] = (state, cmd)
+    return found
+
+
+def _reap_children():
+    """Reaps every child of this process that has exited (as subreaper,
+    the run's orphans too)."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_strays(where, out=None, timeout_s=30.0):
+    """Kills (SIGKILL) every process of this run still alive when no phase
+    is running, reaps them, and waits until none is left, naming each on
+    ``out`` (stdout by default) under ``where``.  Only the run's own
+    process sweeps (a rank or a test calling a phase does not).  Returns
+    the number found."""
+    import signal
+    tag = os.environ.get(RUN_TAG, "")
+    if tag.split(".")[0] != str(os.getpid()):
+        return 0
+    out = out or sys.stdout
+    _reap_children()
+    found = _strays()
+    for pid in found:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    t_end = time.time() + timeout_s
+    left = dict(found)
+    while left and time.time() < t_end:
+        time.sleep(0.05)
+        _reap_children()
+        left = _strays()
+    if found:
+        print(f"{where}: stopped {len(found)} process(es) of this run still "
+              f"alive after it: " + "; ".join(
+                  f"pid {pid} state {st}: {cmd[:200]}"
+                  for pid, (st, cmd) in sorted(found.items()))
+              + (f"; still alive after {timeout_s:g} s: {sorted(left)}"
+                 if left else ""), file=out, flush=True)
+    return len(found)
 
 
 def card_line() -> str:
@@ -419,6 +536,7 @@ TRAIN_CASE = "training shape: B=2 T=4096 causal GQA rep 4, bf16"
 RING_CASE = "ring off-diagonal block: B=2 T=4096 non-causal GQA rep 4, bf16"
 ULYSSES_CASE = ("Ulysses inner attention: B=2 T=8192 causal, 16/4 heads, "
                 "bf16")
+TP_CASE = "tensor-parallel shard: B=1 T=4096 causal, 16/4 heads, bf16"
 # E6: the models' attention at head_dim 64.
 BERT_CASE = "BERT-Large attention: B=8 T=512 16 heads D=64 non-causal, bf16"
 VIT_CASE = "ViT-B/16 attention: B=32 T=197 12 heads D=64 non-causal, bf16"
@@ -445,6 +563,9 @@ FLASH_CASES = [
     # sequence, causal, with this rank's half of the heads.
     (ULYSSES_CASE, TRAIN_BATCH, 2 * TRAIN_SEQ, 2 * TRAIN_SEQ, 16, 4, 128,
      "bfloat16", True, None, 2e-2, _BF16_REASON),
+    # What a tp rank of E14 runs: half of Llama-3-8B's heads, causal.
+    (TP_CASE, 1, TRAIN_SEQ, TRAIN_SEQ, 16, 4, 128, "bfloat16", True, None,
+     2e-2, _BF16_REASON),
     # What E6's models run: q, k, v [B, T, heads, 64] of each layer.
     (BERT_CASE, 8, 512, 512, 16, 16, 64, "bfloat16", False, None, 2e-2,
      _BF16_REASON),
@@ -1629,6 +1750,7 @@ def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
                 os.killpg(launcher.pid, signal.SIGKILL)
                 launcher.wait()
         wall = time.time() - t0
+        stop_strays(tag)
         results = []
         for r in range(np_):
             path = os.path.join(tmp, f"rank{r}.json")
@@ -4652,6 +4774,7 @@ def e11_phase(torch, layers, seed, card, timeout_s=E11_TIMEOUT_S):
                     os.killpg(driver.pid, signal.SIGKILL)
                     driver.wait()
         wall = time.time() - t0
+        stop_strays("e11")
         with open(os.path.join(tmp, "driver.log")) as fh:
             dtext = fh.read()
         ev = _e11_events(tmp)
@@ -5227,6 +5350,7 @@ def e12_phase(torch, layers, seed, card, timeout_s=E12_TIMEOUT_S):
                     os.killpg(driver.pid, signal.SIGKILL)
                     driver.wait()
         wall = time.time() - t0
+        stop_strays("e12")
         with open(os.path.join(tmp, "driver.log")) as fh:
             dtext = fh.read()
         wtext = ""
@@ -5878,6 +6002,393 @@ def e13_phase(torch, layers, seed, card, timeout_s=E13_TIMEOUT_S):
     return ok, dict(flash=flash)
 
 
+# ---------------------------------------------- E14: tensor parallelism
+E14_LAYERS = 2           # Llama-3-8B at full width, cut to two layers
+E14_SEQ = TRAIN_SEQ      # tokens (B = 1), the same on both tp ranks
+E14_STEPS = 3
+E14_LR = 1e-3            # AdamW, its state in the parameters' bf16
+E14_PROMPTS = 2          # (b): prompts of E14_PROMPT tokens, E14_NEW new
+E14_PROMPT = 512
+E14_NEW = 8
+E14_BERT_LAYERS = 4      # (c): BERT-Large's width, B=8 x T=512 (E6's)
+E14_BERT_BATCH = 8
+E14_BERT_SEQ = 512
+E14_TIMEOUT_S = 300
+
+
+def _e14_ref_grads(torch, tl, parallel, full, loss, specs, mesh):
+    """``loss`` backward through the whole (tp-off) tree ``full``; each
+    leaf's gradient cut to this rank's block, the tree's grads cleared."""
+    loss.backward()
+    spec = parallel.spec_of(specs)
+    ref = {}
+    for name, t in tl.named_parameters(full):
+        s = parallel.split_of(spec[name])
+        g = t.grad
+        if s is not None and s.axis in mesh.axis_names:
+            g = parallel.shard_tree(g, s, mesh.index(s.axis),
+                                    mesh.size(s.axis), s.axis)
+        ref[name] = g
+        t.grad = None
+    return ref
+
+
+def _e14_train(torch, np, hvd, args, mesh, progress):
+    """E14 (a) on this rank: Llama-3-8B width on ``{tp: n}``."""
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    dev = hvd.device()
+    cfg = tl.llama3_8b(n_layers=E14_LAYERS)
+    specs = tl.param_specs(cfg)
+    # Every rank draws the whole model from one seed, then keeps its
+    # blocks; the tokens are the same on every tp rank.
+    full = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 17))
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 18).randint(
+        0, cfg.vocab_size, (1, E14_SEQ + 1)).astype(np.int64)).to(dev)
+    x, y = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+    # The reference: the tp-off model from the same weights and tokens.
+    ref = _e14_ref_grads(torch, tl, parallel, full,
+                         tl.loss_fn(full, x, y, cfg), specs, mesh)
+    params = tl.shard_params(full, cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    progress("(a) reference gradients done")
+    named = list(tl.named_parameters(params))
+    rep, sh = parallel.split_named(named, specs, (cfg.tp_axis,))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([t for _, t in rep], lr=E14_LR),
+        named_parameters=rep)
+    shards = parallel.ShardedParallel(
+        mesh, torch.optim.AdamW([t for _, t in sh], lr=E14_LR), sh, specs)
+    shards.broadcast_parameters(named, specs, root_rank=0)
+    step = tl.make_train_step(cfg, opt, mesh, shards)
+    steps, grad_err = [], {}
+    for i in range(E14_STEPS):
+        _zero_flash(fa)
+        mesh.timing = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if i == 0:
+            # The step opened for the gradient check.
+            opt.zero_grad()
+            shards.zero_grad()
+            loss = tl.loss_fn(params, x, y, cfg, mesh)
+            loss.backward()
+            opt.synchronize()
+            shards.sync_grads()
+            grad_err = {nm: _rel_norm(torch, t.grad, ref[nm])
+                        for nm, t in named}
+            with opt.skip_synchronize():
+                opt.step()
+            shards.optimizer.step()
+            loss = loss.detach()
+        else:
+            loss = step(params, x, y)
+        lv = loss.item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        marks, mesh.timing = mesh.timing, None
+        steps.append(dict(
+            loss=lv, s=dt, psums=len(marks),
+            psum_ms=parallel.timed_ms(marks), launches=_flash_counts(fa),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            rep=_checksum(torch, rep), shards=_checksum(torch, sh)))
+        if i == 0:
+            del ref
+        progress(f"(a) step {i + 1} done")
+    shards.shutdown()
+    d = cfg.d_model
+    return dict(steps=steps, grad_err=grad_err, leaves=[len(rep), len(sh)],
+                psum_bytes=4 * E14_SEQ * d * 2 * E14_LAYERS,
+                allreduce_bytes=sum(t.numel() * t.element_size()
+                                    for _, t in rep),
+                shard_gib=sum(t.numel() * t.element_size()
+                              for _, t in sh) / 2**30)
+
+
+def _e14_decode(torch, np, hvd, args, mesh, progress):
+    """E14 (b) on this rank: prefill and greedy decode at tp = n against
+    the tp-off model on this rank, fed the tp-off run's tokens."""
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    dev = hvd.device()
+    cfg = tl.llama3_8b(n_layers=E14_LAYERS)
+    full = tl.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 19))
+    for _, t in tl.named_parameters(full):
+        t.requires_grad_(False)
+    prompts = torch.from_numpy(np.random.RandomState(args.seed + 20).randint(
+        0, cfg.vocab_size, (E14_PROMPTS, E14_PROMPT)).astype(np.int64)).to(
+        dev)
+    slots = E14_PROMPT + E14_NEW
+    ref_logits, cache = tl.prefill(full, tl.init_cache(cfg, E14_PROMPTS,
+                                                       slots, dev),
+                                   prompts, cfg)
+    toks, ref_steps = [tl.sample_logits(ref_logits)], []
+    for t in range(E14_PROMPT, slots - 1):
+        logits, cache = tl.decode_step(full, cache, toks[-1], t, cfg)
+        ref_steps.append(logits)
+        toks.append(tl.sample_logits(logits))
+    del cache
+    params = tl.shard_params(full, cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    _zero_flash(fa)
+    cache = tl.init_cache(cfg, E14_PROMPTS, slots, dev, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tl.prefill(params, cache, prompts, cfg, mesh)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    errs = [_rel_norm(torch, logits, ref_logits)]
+    step_ms = []
+    for i, t in enumerate(range(E14_PROMPT, slots - 1)):
+        t0 = time.perf_counter()
+        logits, cache = tl.decode_step(params, cache, toks[i], t, cfg, mesh)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        errs.append(_rel_norm(torch, logits, ref_steps[i]))
+    kv_heads = [cache[0]["k"].shape[2], cfg.n_kv_heads // mesh.size("tp")]
+    del cache
+    gen = tl.generate(params, prompts, E14_NEW, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    progress("(b) decode done")
+    return dict(errs=errs, kv_heads=kv_heads, gen=gen.tolist(),
+                ref=torch.stack(toks, dim=1).tolist(),
+                prefill_ms=prefill_ms, step_ms=step_ms,
+                launches=_flash_counts(fa))
+
+
+def _e14_bert(torch, np, hvd, args, mesh, progress):
+    """E14 (c) on this rank: BERT-Large's width at E14_BERT_LAYERS on
+    ``{tp: n}``, one step against the tp-off model's gradients."""
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.models import bert as tb
+    from horovod_tpu_torch.ops import flash_attention as fa
+    dev = hvd.device()
+    cfg = tb.bert_large(n_layers=E14_BERT_LAYERS)
+    specs = tb.param_specs(cfg)
+    full = tb.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 21))
+    batch = _mlm_batch(torch, cfg, E14_BERT_BATCH, E14_BERT_SEQ, 0.15,
+                       args.seed + 22, dev)
+    ref = _e14_ref_grads(torch, tb, parallel, full,
+                         tb.mlm_loss_fn(full, *batch, cfg), specs, mesh)
+    params = parallel.shard_on_mesh(full, specs, mesh)
+    del full
+    named = list(tb.named_parameters(params))
+    rep, sh = parallel.split_named(named, specs, (cfg.tp_axis,))
+    opt = _sgd(torch, hvd, rep, MODEL_LR)
+    shards = parallel.ShardedParallel(
+        mesh, torch.optim.SGD([t for _, t in sh], lr=MODEL_LR), sh, specs)
+    _zero_flash(fa)
+    opt.zero_grad()
+    loss = tb.mlm_loss_fn(params, *batch, cfg, mesh)
+    loss.backward()
+    opt.synchronize()
+    shards.sync_grads()
+    grad_err = {nm: (_rel_norm(torch, t.grad, ref[nm]),
+                     torch.nn.functional.cosine_similarity(
+                         t.grad.float().flatten(), ref[nm].float().flatten(),
+                         dim=0).item()) for nm, t in named}
+    diff2 = sum(float((t.grad.float() - ref[nm].float()).square().sum())
+                for nm, t in named)
+    ref2 = sum(float(ref[nm].float().square().sum()) for nm, _ in named)
+    with opt.skip_synchronize():
+        opt.step()
+    shards.optimizer.step()
+    lv = loss.item()
+    torch.cuda.synchronize()
+    launches = _flash_counts(fa)
+    shards.shutdown()
+    progress("(c) BERT step done")
+    return dict(loss=lv, grad_err=grad_err, launches=launches,
+                whole=(diff2 / max(ref2, 1e-30)) ** 0.5,
+                leaves=[len(rep), len(sh)],
+                heads=cfg.n_heads // mesh.size("tp"))
+
+
+def e14_worker(args):
+    """One rank of E14, started by the port's launcher on ``make_mesh({"tp":
+    2})``: (a) Llama-3-8B at full width, E14_LAYERS deep, bf16, B=1 x
+    E14_SEQ tokens on both ranks, the replicated leaves through
+    ``DistributedOptimizer(AdamW)`` and the tp shards through
+    ``ShardedParallel(AdamW)``, E14_STEPS steps: step 1 opened for the
+    gradient check against the tp-off model from the same weights and
+    tokens, the launch counts zeroed before each step and read after, the
+    reductions' marks, the losses and the checksums of the replicated
+    leaves and of the shards; (b) E14_PROMPTS prompts of E14_PROMPT
+    tokens, prefill and E14_NEW greedy tokens at tp = 2 against the tp-off
+    run on this rank; (c) BERT-Large's width at E14_BERT_LAYERS, one step's
+    gradients against tp-off.  Writes ``rank<HOROVOD_RANK>.json`` in
+    ``args.e14_worker``."""
+    import faulthandler
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stacks = open(os.path.join(args.e14_worker, "stacks"
+                               f"{os.environ['HOROVOD_RANK']}.txt"), "w")
+    faulthandler.dump_traceback_later(E14_TIMEOUT_S - 30, exit=False,
+                                      file=stacks)
+    hvd.init()
+    r, n = hvd.rank(), hvd.size()
+    t_start = time.perf_counter()
+
+    def progress(what):
+        print(f"e14 rank {r}: {what} at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    mesh = parallel.make_mesh({"tp": n})
+    res = dict(rank=r, size=n, card=torch.cuda.get_device_name(
+        hvd.device()))
+    for part, fn in (("train", _e14_train), ("decode", _e14_decode),
+                     ("bert", _e14_bert)):
+        t0 = time.perf_counter()
+        res[part] = fn(torch, np, hvd, args, mesh, progress)
+        res[part]["wall"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    mesh.shutdown()
+    hvd.shutdown()
+    faulthandler.cancel_dump_traceback_later()
+    stacks.close()
+    _write_result(args.e14_worker, res)
+    print(f"e14 rank {r}: done", flush=True)
+    return 0
+
+
+def e14_phase(torch, layers, seed, card, timeout_s=E14_TIMEOUT_S):
+    """E14: tensor parallelism on two ranks through the port's launcher
+    (``e14_worker``), on ``{tp: 2}``.  (a) Llama-3-8B at full width: every
+    leaf's step-1 gradient (the replicated leaves world-averaged, the tp
+    shards through ``ShardedParallel``) within GRAD_TOL (relative norm) of
+    the matching block of the tp-off model's; after every step the
+    replicated leaves bitwise equal across the ranks and the shards not,
+    the losses finite and bitwise equal across the ranks; the flash
+    launches ``layers`` each a step on each rank.  (b) The prefill logits
+    and every decode step's within DECODE_TOL of tp-off's, the cache at
+    n_kv_heads / 2 heads a rank, the generated tokens bitwise equal across
+    the ranks.  (c) BERT-Large's width: the whole gradient and every leaf's
+    but wq/wk within GRAD_TOL (relative norm) of tp-off's, wq/wk by their
+    cosine (QK_COS_TOL, E6's rule and reason), the flash launches
+    E14_BERT_LAYERS each.  The times carry "sockets" where the two ranks
+    share one card."""
+    import numpy as np
+    results, route, wall = launch_ranks(torch, "--e14-worker", layers, seed,
+                                        timeout_s)
+    if results is None:
+        return False, None
+    n = len(results)
+    via = "sockets" if "socket" in route else "NCCL"
+    ok = True
+    # (a) training.
+    runs = [res["train"] for res in results]
+    for i, steps in enumerate(zip(*(t["steps"] for t in runs))):
+        rep_same = len({str(st["rep"]) for st in steps}) == 1
+        shards_differ = len({str(st["shards"]) for st in steps}) == n
+        losses = [st["loss"] for st in steps]
+        same_loss = all(np.isfinite(v) for v in losses) \
+            and len(set(losses)) == 1
+        launches = all(st["launches"] == [layers] * 3 for st in steps)
+        good = rep_same and shards_differ and same_loss and launches
+        ok = ok and good
+        print(f"e14 (a): step {i + 1}: losses {losses} (bitwise equal "
+              f"across ranks: {len(set(losses)) == 1}); replicated leaves "
+              f"bitwise equal across ranks: {rep_same}; tp shards differ: "
+              f"{shards_differ}; flash launches fwd/dq/dkv "
+              f"{[st['launches'] for st in steps]}; step "
+              f"{_joined(st['s'] * 1e3 for st in steps)} ms"
+              f"{' (with the gradient check)' if i == 0 else ''}; "
+              f"{steps[0]['psums']} tp reductions taking "
+              f"{_joined(st['psum_ms'] for st in steps)} ms ({via}); peak "
+              f"{max(st['peak_gib'] for st in steps):.2f} GiB -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    for res, t in zip(results, runs):
+        worst = max(t["grad_err"].values())
+        good = worst <= GRAD_TOL
+        ok = ok and good
+        name = max(t["grad_err"], key=t["grad_err"].get)
+        print(f"e14 (a): rank {res['rank']}: step-1 gradients of "
+              f"{sum(t['leaves'])} leaves ({t['leaves'][1]} of them tp "
+              f"shards, {t['shard_gib']:.2f} GiB) against the tp-off model: "
+              f"worst relative norm {worst:.3e} ({name}; tol {GRAD_TOL:g}) "
+              f"-> {'PASS' if good else 'FAIL'}", flush=True)
+    a = runs[0]["steps"][1:]
+    med = sorted(st["s"] for st in a)[len(a) // 2] * 1e3
+    red = sorted(st["psum_ms"] for st in a)[len(a) // 2]
+    print(f"e14 (a): Llama-3-8B width, {layers} layers, tp = {n}: step "
+          f"{med:.1f} ms on rank 0 (the median of steps 2-{E14_STEPS}), the "
+          f"tp reductions {red:.1f} ms of it ({via}, CUDA events around "
+          f"each), {runs[0]['psum_bytes'] / 1e6:.1f} MB a step and rank "
+          f"through them (4 x B x T x d_model x 2 bytes a layer), the "
+          f"replicated leaves' allreduce "
+          f"{runs[0]['allreduce_bytes'] / 1e9:.3f} GB a step, "
+          f"{E14_SEQ / med * 1e3:.1f} tokens/s, peak "
+          f"{max(st['peak_gib'] for t in runs for st in t['steps']):.2f} "
+          f"GiB a rank, the rank's (a) in {runs[0]['wall']:.1f} s [{card}; "
+          f"two ranks on {route}]", flush=True)
+    # (b) decode.
+    dec = [res["decode"] for res in results]
+    for res, d in zip(results, dec):
+        worst = max(d["errs"])
+        good = worst <= DECODE_TOL and d["kv_heads"][0] == d["kv_heads"][1]
+        ok = ok and good
+        print(f"e14 (b): rank {res['rank']}: prefill of {E14_PROMPTS} x "
+              f"{E14_PROMPT} tokens and {len(d['errs']) - 1} decode steps "
+              f"fed the tp-off run's tokens: logits against tp-off, "
+              f"relative norm prefill {d['errs'][0]:.3e}, steps up to "
+              f"{max(d['errs'][1:]):.3e} (tol {DECODE_TOL:g}); the cache "
+              f"holds {d['kv_heads'][0]} kv heads a rank; prefill "
+              f"{d['prefill_ms']:.1f} ms, a decode step "
+              f"{_joined(d['step_ms'])} ms ({via}); flash launches "
+              f"{d['launches']} -> {'PASS' if good else 'FAIL'}", flush=True)
+    same = all(d["gen"] == dec[0]["gen"] for d in dec)
+    ok = ok and same
+    agree = np.mean(np.array(dec[0]["gen"]) == np.array(dec[0]["ref"]))
+    print(f"e14 (b): generate of {E14_NEW} greedy tokens at tp = {n}: "
+          f"bitwise equal across ranks: {same}; {agree:.0%} of them equal "
+          f"to the tp-off run's (bf16 sums in another order may flip a "
+          f"near tie) -> {'PASS' if same else 'FAIL'}", flush=True)
+    # (c) BERT.
+    for res in results:
+        b = res["bert"]
+        qk = {n: v for n, v in b["grad_err"].items()
+              if n.endswith((".wq", ".wk"))}
+        rest = {n: v for n, v in b["grad_err"].items() if n not in qk}
+        worst = max((v[0], n) for n, v in rest.items())
+        worst_qk = max((v[0], n) for n, v in qk.items())
+        low_cos = min((v[1], n) for n, v in qk.items())
+        good = (b["whole"] <= GRAD_TOL and worst[0] <= GRAD_TOL
+                and low_cos[0] >= QK_COS_TOL
+                and b["launches"] == [E14_BERT_LAYERS] * 3
+                and np.isfinite(b["loss"]))
+        ok = ok and good
+        print(f"e14 (c): rank {res['rank']}: BERT-Large width, "
+              f"{E14_BERT_LAYERS} layers, B={E14_BERT_BATCH} "
+              f"T={E14_BERT_SEQ}, {b['heads']} heads a rank (D = 64): loss "
+              f"{b['loss']:.6f}; gradients of {sum(b['leaves'])} leaves "
+              f"({b['leaves'][1]} tp shards) against tp-off: the whole "
+              f"gradient's relative norm {b['whole']:.3e}, worst of the "
+              f"{len(rest)} leaves but wq/wk {worst[0]:.3e} ({worst[1]}; tol "
+              f"{GRAD_TOL:g}); wq/wk worst relative norm {worst_qk[0]:.3e} "
+              f"({worst_qk[1]}), lowest cosine {low_cos[0]:.5f} "
+              f"({low_cos[1]}; tol {QK_COS_TOL:g}, E6's rule: sums over "
+              f"near-uniform attention rows that cancel, ds rounded to bf16); "
+              f"flash launches {b['launches']} -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    print(f"e14: two ranks through the launcher in {wall:.1f} s -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    r0 = results[0]
+    flash = [sum(st["launches"][k] for st in r0["train"]["steps"])
+             + r0["decode"]["launches"][k] + r0["bert"]["launches"][k]
+             for k in range(3)]
+    return ok, dict(flash=flash)
+
+
 def trace_ab_phase(torch, hvd, grads, iters=5):
     """The size-1 counterpart of the JAX bench's trace A/B: the engine's
     grouped allreduce of the gradient set with the tracer detached (the
@@ -5959,6 +6470,8 @@ def main():
                     help=argparse.SUPPRESS)   # one worker of E12
     ap.add_argument("--e13-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of E13
+    ap.add_argument("--e14-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of E14
     args = ap.parse_args()
 
     import torch
@@ -6005,6 +6518,9 @@ def main():
         return e12_worker(args)
     if args.e13_worker:
         return e13_worker(args)
+    if args.e14_worker:
+        return e14_worker(args)
+    tag_run()
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6103,6 +6619,9 @@ def main():
     t_e13 = time.time()
     e13_ok, e13 = e13_phase(torch, E13_LAYERS, args.seed, card)
     print(f"e13: the phase in {time.time() - t_e13:.1f} s", flush=True)
+    t_e14 = time.time()
+    e14_ok, e14 = e14_phase(torch, E14_LAYERS, args.seed, card)
+    print(f"e14: the phase in {time.time() - t_e14:.1f} s", flush=True)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -6110,6 +6629,7 @@ def main():
     bwd_by_name = {c["case"]: c for c in bwd_cases}
     bwd, bwd_ring = bwd_by_name[TRAIN_CASE], bwd_by_name[RING_CASE]
     bwd_uly = bwd_by_name[ULYSSES_CASE]
+    fwd_tp, bwd_tp = by_name[TP_CASE], bwd_by_name[TP_CASE]
     kernels_ok = all(c["ok"] for c in cases + bwd_cases) and edges_ok \
         and tc_ok
     e5 = sp["launches"] if sp else [0, 0, 0]
@@ -6122,14 +6642,16 @@ def main():
     f11 = e11["flash"] if e11 else [0, 0, 0]
     f12 = e12["flash"] if e12 else [0, 0, 0]
     f13 = e13["flash"] if e13 else [0, 0, 0]
+    f14 = e14["flash"] if e14 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
                 + e5[0] + m6[0] + f8[0] + f9[0] + f10[0] + f11[0] + f12[0]
-                + f13[0],
+                + f13[0] + f14[0],
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
-                + m6[1] + f8[1] + f9[1] + f10[1] + f11[1] + f12[1] + f13[1],
+                + m6[1] + f8[1] + f9[1] + f10[1] + f11[1] + f12[1] + f13[1]
+                + f14[1],
                 "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
                 + m6[2] + f8[2] + f9[2] + f10[2] + f11[2] + f12[2]
-                + f13[2]}
+                + f13[2] + f14[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
           f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
@@ -6137,12 +6659,14 @@ def main():
           f"(E9, rank 0) + {f10[0]} data-plane depth (E10, rank 0) + "
           f"{f11[0]} elastic (E11, rank 0 of each generation) + {f12[0]} "
           f"drains and autoscaling (E12, rank 0 of each generation) + "
-          f"{f13[0]} expert parallelism (E13, rank 0); "
+          f"{f13[0]} expert parallelism (E13, rank 0) + {f14[0]} tensor "
+          f"parallelism (E14, rank 0); "
           f"flash_bwd_dq {train_launches['flash_bwd_dq']} + {e5[1]} + "
           f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]} + {f11[1]} + {f12[1]} "
-          f"+ {f13[1]}, flash_bwd_dkv {train_launches['flash_bwd_dkv']} + "
+          f"+ {f13[1]} + {f14[1]}, flash_bwd_dkv "
+          f"{train_launches['flash_bwd_dkv']} + "
           f"{e5[2]} + {m6[2]} + {f8[2]} + {f9[2]} + {f10[2]} + {f11[2]} + "
-          f"{f12[2]} + {f13[2]}",
+          f"{f12[2]} + {f13[2]} + {f14[2]}",
           flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
@@ -6168,7 +6692,8 @@ def main():
              **{f"ulysses_{k}": fwd_uly[k] for k in _CASE_KEYS},
              launches_e6=m6[0], launches_e8=f8[0], launches_e9=f9[0],
              launches_e10=f10[0], launches_e11=f11[0],
-             launches_e12=f12[0], launches_e13=f13[0],
+             launches_e12=f12[0], launches_e13=f13[0], launches_e14=f14[0],
+             **{f"tp_{k}": fwd_tp[k] for k in _CASE_KEYS},
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
     ] + [
@@ -6196,6 +6721,11 @@ def main():
              launches_e11=f11[1 if g == "dq" else 2],
              launches_e12=f12[1 if g == "dq" else 2],
              launches_e13=f13[1 if g == "dq" else 2],
+             launches_e14=f14[1 if g == "dq" else 2],
+             **{f"tp_{k}": bwd_tp[g][k] for k in _CASE_KEYS
+                if k in bwd_tp[g]},
+             tp_plain_ms=bwd_tp["plain_ms"],
+             tp_library_ms=bwd_tp["library_ms"],
              **{f"{m}_{k}": bwd_by_name[case][g][k]
                 for m, case in MODEL_CASES.items() for k in _CASE_KEYS
                 if k in bwd_by_name[case][g]},
@@ -6264,7 +6794,8 @@ def main():
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and adasum_ok and e7_ok and e8_ok and e9_ok
                         and e10_ok and e11_ok and e12_ok and e13_ok
-                        and kern["launches"] > 0)
+                        and e14_ok and kern["launches"] > 0)
+    stop_strays("chip_smoke")
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6272,7 +6803,7 @@ def main():
     hvd.shutdown()
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
-            and e10_ok and e11_ok and e12_ok and e13_ok
+            and e10_ok and e11_ok and e12_ok and e13_ok and e14_ok
             and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
@@ -6286,7 +6817,8 @@ def main():
               f"observability (E8, trace A/B {ab_ok}) ok={e8_ok}, ZeRO (E9) "
               f"ok={e9_ok}, data-plane depth (E10) ok={e10_ok}, elastic "
               f"(E11) ok={e11_ok}, drains and autoscaling (E12) "
-              f"ok={e12_ok}, expert parallelism (E13) ok={e13_ok}")
+              f"ok={e12_ok}, expert parallelism (E13) ok={e13_ok}, tensor "
+              f"parallelism (E14) ok={e14_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,11 @@
 Lazy submodule access, as ``horovod_tpu/models/__init__.py`` gives it:
 ``horovod_tpu_torch.models.resnet`` works after ``import
 horovod_tpu_torch.models`` without importing every family eagerly.  The
-JAX package's ``convert`` is not ported yet.
+transformer families (``llama``, ``bert``, ``vit``, ``gpt2``) and the
+expert-parallel ones (``moe``, ``dlrm``) each name their split leaves in
+``param_specs(cfg)``, which ``parallel.ShardedParallel`` and
+``llama.shard_params`` read.  The JAX package's ``convert`` is not ported
+yet.
 """
 
 _FAMILIES = ("llama", "gpt2", "bert", "vit", "resnet", "mnist", "moe", "dlrm")

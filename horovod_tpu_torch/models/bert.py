@@ -1,6 +1,7 @@
 """BERT encoder (BERT-Large by default) with the masked-LM loss.
 
-Port of the data-parallel path of ``horovod_tpu/models/bert.py:28-223``.
+Port of ``horovod_tpu/models/bert.py:28-223``: data, tensor and sequence
+parallelism.
 The parameters are a plain dictionary in the JAX package's own layout
 (``[in, out]`` weights: a projection is ``x @ w``);
 :func:`params_from_jax` carries a JAX tree (as numpy arrays) over unchanged.
@@ -17,15 +18,22 @@ JAX functions:
   not PyTorch's exact default.
 
 The masked-LM loss divides this rank's masked NLL sum by the GLOBAL mask
-count, summed over the data-parallel ranks (the whole world, one engine
-allreduce), because the ranks' mask counts differ.  The JAX loss is that
-quotient and its gradients are ``psum``'d; ``hvd.DistributedOptimizer``
-averages instead, so the port's per-rank loss is the quotient times the
-world size, and the average of the gradients is the JAX sum.
-:func:`psum_loss` gives the global masked mean.
+count, summed over the data ranks (dp × sp: those that hold other tokens),
+because the ranks' mask counts differ.  The JAX loss is that quotient
+(divided by tp as well) and its gradients are ``psum``'d;
+``hvd.DistributedOptimizer`` averages instead, so the port's per-rank loss
+is the quotient times the number of data ranks, and the average of the
+gradients is the JAX sum.  :func:`psum_loss` gives the global masked mean.
 
-Tensor and sequence parallelism are not ported: a ``mesh`` whose
-``tp_axis`` or ``sp_axis`` has a size above 1 raises.
+On a ``mesh`` (JAX :92-165): tensor parallelism splits the heads
+(``wq``/``wk``/``wv`` by columns, ``wo`` by rows) and the FFN's hidden
+units (``w_in``/``b_in`` by columns, ``w_out`` by rows) over
+``cfg.tp_axis`` as Llama does, with Megatron's ``f``/``g`` pair
+(``parallel/mesh.py``); ``b_out`` is added once, after ``g``.  Sequence
+parallelism over ``cfg.sp_axis`` attends by Ulysses' head exchange,
+non-causal, and takes positions from the sp coordinate.  Every other axis
+of a size above 1 is refused.  :func:`param_specs` names the split leaves
+for ``parallel.ShardedParallel``.
 """
 
 from __future__ import annotations
@@ -40,11 +48,15 @@ import torch.nn.functional as F
 from .. import mpi_ops
 from ..common import basics
 from ..ops.flash_attention import flash_attention
+from ..parallel.expert import Split, refuse_world_averaged
+from ..parallel.mesh import psum
+from ..parallel.ulysses import ulysses_attention
+from .llama import _copy_in, _reduce_out, _tp
 from .llama import named_parameters, params_from_jax  # noqa: F401
 
 __all__ = ["BertConfig", "bert_large", "tiny", "init_params",
-           "params_from_jax", "named_parameters", "forward", "mlm_loss_fn",
-           "psum_loss", "make_train_step"]
+           "params_from_jax", "named_parameters", "param_specs", "forward",
+           "mlm_loss_fn", "psum_loss", "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +68,8 @@ class BertConfig:
     d_ff: int = 4096
     max_seq: int = 512
     dtype: torch.dtype = torch.bfloat16
-    # The data-parallel axis (the world; None: no exchange) and the axes
-    # a mesh may name, which must have size 1 until tp/sp are ported.
+    # The mesh axes: data (None: no exchange), heads and hidden units
+    # (Megatron), and the sequence (Ulysses).
     dp_axis: Optional[str] = "dp"
     tp_axis: Optional[str] = "tp"
     sp_axis: Optional[str] = "sp"
@@ -130,18 +142,55 @@ def init_params(cfg: BertConfig, generator: torch.Generator,
     }
 
 
+def encoder_specs(n_layers: int, tp: Optional[str]):
+    """The encoder blocks' splits (JAX :92-108): heads and hidden units by
+    columns over ``tp``, their output projections by rows, ``b_in`` with
+    its columns; the rest replicated.  Shared with ViT."""
+    cols, rows = (Split(tp, 1), Split(tp, 0)) if tp else (None, None)
+    layer = {"ln1_scale": None, "ln1_bias": None, "wq": cols, "wk": cols,
+             "wv": cols, "wo": rows, "ln2_scale": None, "ln2_bias": None,
+             "w_in": cols, "b_in": Split(tp, 0) if tp else None,
+             "w_out": rows, "b_out": None}
+    return [dict(layer) for _ in range(n_layers)]
+
+
+def param_specs(cfg: BertConfig) -> Dict:
+    """The mesh axis and dimension each leaf is split over, shaped like the
+    parameters (``parallel.expert.Split``; None: replicated)."""
+    return {"tok_embed": None, "pos_embed": None,
+            "layers": encoder_specs(cfg.n_layers, cfg.tp_axis),
+            "final_ln_scale": None, "final_ln_bias": None, "mlm_head": None}
+
+
 # ------------------------------------------------------------------ forward
+def _axis(cfg, name: str) -> Optional[str]:
+    return getattr(cfg, name, None)
+
+
+def _size(cfg, name: str, mesh) -> int:
+    """The size of the config's ``name`` axis in ``mesh`` (1 without)."""
+    ax = _axis(cfg, name)
+    if mesh is None or ax is None or ax not in mesh.axis_names:
+        return 1
+    return mesh.size(ax)
+
+
 def check_axes(cfg, mesh) -> None:
-    """Refuse a mesh that would split the heads (tp) or the sequence (sp):
-    only the data-parallel path is ported."""
+    """Refuse a mesh axis of a size above 1 that the family does not
+    split over (every axis but the config's dp, tp and sp), and heads that
+    tp does not divide (JAX :119-121)."""
     if mesh is None:
         return
-    for ax in (getattr(cfg, "tp_axis", None), getattr(cfg, "sp_axis", None)):
-        if ax and ax in mesh.axis_names and mesh.size(ax) > 1:
-            raise NotImplementedError(
+    known = {_axis(cfg, a) for a in ("dp_axis", "tp_axis", "sp_axis")}
+    for ax in mesh.axis_names:
+        if ax not in known and mesh.size(ax) > 1:
+            raise ValueError(
                 f"{type(cfg).__name__}: the mesh's {ax!r} axis has size "
-                f"{mesh.size(ax)}; tensor and sequence parallelism are not "
-                f"ported for this family yet (data parallel only)")
+                f"{mesh.size(ax)}, and this family splits over "
+                f"{sorted(a for a in known if a)} only")
+    tp = _size(cfg, "tp_axis", mesh)
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} not divisible by tp={tp}")
 
 
 def _layernorm(x, scale, bias, eps: float = 1e-5):
@@ -151,44 +200,68 @@ def _layernorm(x, scale, bias, eps: float = 1e-5):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
-def _attention(x, p, cfg):
+def _attention(x, p, cfg, mesh=None):
+    """This rank's heads, summed over tp; Ulysses over sp."""
     B, T, _ = x.shape
-    H, Hd = cfg.n_heads, cfg.head_dim
+    H, Hd = cfg.n_heads // _tp(cfg, mesh), cfg.head_dim
+    x = _copy_in(x, cfg, mesh)
     q = (x @ p["wq"]).reshape(B, T, H, Hd)
     k = (x @ p["wk"]).reshape(B, T, H, Hd)
     v = (x @ p["wv"]).reshape(B, T, H, Hd)
-    out = flash_attention(q, k, v, causal=False)
-    return out.reshape(B, T, H * Hd) @ p["wo"]
+    if _size(cfg, "sp_axis", mesh) > 1:
+        out = ulysses_attention(q, k, v, mesh, axis_name=cfg.sp_axis,
+                                causal=False)
+    else:
+        out = flash_attention(q, k, v, causal=False)
+    return _reduce_out(out.reshape(B, T, H * Hd) @ p["wo"], cfg, mesh)
 
 
-def _ffn(x, p):
+def _ffn(x, p, cfg=None, mesh=None):
+    """This rank's hidden units, summed over tp, then ``b_out``."""
+    x = _copy_in(x, cfg, mesh)
     h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return h @ p["w_out"] + p["b_out"]
+    return _reduce_out(h @ p["w_out"], cfg, mesh) + p["b_out"]
 
 
-def encode(x, layers, cfg):
+def encode(x, layers, cfg, mesh=None):
     """The pre-LN encoder blocks over ``x [B, T, D]``."""
     for p in layers:
         x = x + _attention(_layernorm(x, p["ln1_scale"], p["ln1_bias"]),
-                           p, cfg)
-        x = x + _ffn(_layernorm(x, p["ln2_scale"], p["ln2_bias"]), p)
+                           p, cfg, mesh)
+        x = x + _ffn(_layernorm(x, p["ln2_scale"], p["ln2_bias"]), p, cfg,
+                     mesh)
     return x
 
 
 def forward(params, tokens, cfg: BertConfig, mesh=None):
-    """Encoder states ``[B, T, D]`` for ``tokens [B, T]``."""
+    """Encoder states ``[B, T, D]`` for this rank's ``tokens [B, T]``: with
+    the sequence split over ``mesh``, its ``T`` positions start at
+    ``sp_rank · T``."""
     check_axes(cfg, mesh)
     T = tokens.shape[1]
-    x = params["tok_embed"][tokens.long()] + params["pos_embed"][:T][None]
-    x = encode(x, params["layers"], cfg)
+    start = mesh.index(cfg.sp_axis) * T \
+        if _size(cfg, "sp_axis", mesh) > 1 else 0
+    x = params["tok_embed"][tokens.long()] \
+        + params["pos_embed"][start:start + T][None]
+    x = encode(x, params["layers"], cfg, mesh)
     return _layernorm(x, params["final_ln_scale"], params["final_ln_bias"])
 
 
 # ----------------------------------------------------------------- training
-def dp_total(x, cfg, name: str):
-    """``(sum of x over the data-parallel ranks, their number)``: one
-    engine allreduce over the world, or ``(x, 1)`` with no ``dp_axis`` or
-    a world of one."""
+def dp_total(x, cfg, name: str, mesh=None):
+    """``(sum of x over the data ranks, their number)``.  The data ranks
+    are those that hold other tokens: the whole world without a ``mesh``
+    (one engine allreduce; ``(x, 1)`` with no ``dp_axis`` or a world of
+    one), the ranks along the config's dp and sp axes of ``mesh``
+    otherwise (one sum on each axis's group), never the tp ranks, which
+    hold this rank's tokens."""
+    if mesh is not None:
+        n = 1
+        for a in ("dp_axis", "sp_axis"):
+            if _size(cfg, a, mesh) > 1:
+                x = psum(x.reshape(1), mesh, _axis(cfg, a))[0]
+                n *= mesh.size(_axis(cfg, a))
+        return x, n
     if not cfg.dp_axis or not basics.is_initialized() or basics.size() == 1:
         return x, 1
     return mpi_ops.allreduce(x.reshape(1), name=name,
@@ -197,34 +270,57 @@ def dp_total(x, cfg, name: str):
 
 def mlm_loss_fn(params, tokens, targets, mask, cfg: BertConfig, mesh=None):
     """This rank's masked NLL sum over the global mask count, times the
-    data-parallel world size (see the module's docstring); ``mask`` is 1
-    at masked positions.  Logits in float32."""
+    number of data ranks (see the module's docstring); ``mask`` is 1 at
+    masked positions.  Logits in float32."""
     x = forward(params, tokens, cfg, mesh)
     logits = (x @ params["mlm_head"]).float()
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           targets.reshape(-1).long(), reduction="none")
     mask = mask.reshape(-1).float()
-    count, n = dp_total(mask.sum().detach(), cfg, "bert.mask_count")
+    count, n = dp_total(mask.sum().detach(), cfg, "bert.mask_count", mesh)
     return (nll * mask).sum() / count.clamp(min=1.0) * n
 
 
-def psum_loss(loss, cfg, name: str = "bert.loss"):
-    """The global loss for logging: the mean over the data-parallel ranks
-    of their losses (the JAX ``psum`` of the partial losses)."""
-    total, n = dp_total(loss.detach(), cfg, name)
+def psum_loss(loss, cfg, name: str = "bert.loss", mesh=None):
+    """The global loss for logging: the mean over the data ranks of their
+    losses (the JAX ``psum`` of the partial losses)."""
+    total, n = dp_total(loss.detach(), cfg, name, mesh)
     return total / n
 
 
-def make_train_step(cfg: BertConfig, optimizer, mesh=None):
-    """Returns ``step(params, tokens, targets, mask) -> loss``: zero the
-    grads, the masked-LM loss, backward, ``optimizer.step()``.  The loss
-    is this rank's (:func:`mlm_loss_fn`) for the parameters before the
-    update; :func:`psum_loss` gives the global one."""
-    def step(params, tokens, targets, mask):
+def train_step(loss_fn, specs, optimizer, mesh=None, shards=None):
+    """``step(params, *batch) -> loss``: zero the grads, ``loss_fn(params,
+    *batch)``, backward, ``optimizer.step()`` and, with ``shards`` (a
+    ``parallel.ShardedParallel`` over the tp-split leaves),
+    ``shards.step()``.  The first step raises ``ValueError`` if
+    ``optimizer`` is a ``DistributedOptimizer`` that steps a leaf that
+    ``specs`` splits over an axis of ``mesh`` of a size above 1.  Shared
+    by BERT, ViT and GPT-2."""
+    checked = []
+
+    def step(params, *batch):
+        if not checked:
+            refuse_world_averaged(optimizer, params, specs, mesh)
+            checked.append(True)
         optimizer.zero_grad()
-        loss = mlm_loss_fn(params, tokens, targets, mask, cfg, mesh)
+        if shards is not None:
+            shards.zero_grad()
+        loss = loss_fn(params, *batch)
         loss.backward()
         optimizer.step()
+        if shards is not None:
+            shards.step()
         return loss.detach()
 
     return step
+
+
+def make_train_step(cfg: BertConfig, optimizer, mesh=None, shards=None):
+    """Returns ``step(params, tokens, targets, mask) -> loss``
+    (:func:`train_step` of :func:`mlm_loss_fn`).  The loss is this rank's
+    for the parameters before the update; :func:`psum_loss` gives the
+    global one."""
+    return train_step(
+        lambda params, tokens, targets, mask: mlm_loss_fn(
+            params, tokens, targets, mask, cfg, mesh),
+        param_specs(cfg), optimizer, mesh, shards)

@@ -1,7 +1,8 @@
 """GPT-2 decoder (124M by default): learned positions, pre-LN, biased
 projections, tanh GELU and a head tied to the token embedding.
 
-Port of the data-parallel path of ``horovod_tpu/models/gpt2.py:38-408``.
+Port of ``horovod_tpu/models/gpt2.py:38-408``: data and tensor
+parallelism.
 The parameters are a plain dictionary in the JAX package's own layout
 (``[in, out]`` weights); :func:`params_from_jax` carries a JAX tree (as
 numpy arrays) over unchanged, and :func:`from_hf_state_dict` /
@@ -11,14 +12,21 @@ and renames, no transposes) on numpy mappings.
 
 Training attends through ``flash_attention(..., causal=True)`` and
 differentiates through the flash backward.  The loss divides this rank's
-NLL sum by the GLOBAL token count (one engine allreduce over the world),
-times the world size for ``hvd.DistributedOptimizer``'s average, as
-``bert.mlm_loss_fn`` does.  Decode is the JAX package's: a plain masked
-product over the cache in float32 with ``-1e30`` for the slots past the
-position (at one query row there is no score tile to stream), and
-:func:`generate` feeds the prompt one token at a time.  The cache is
-updated in place; the functions still return it.  Tensor parallelism is
-not ported: a ``mesh`` whose ``tp_axis`` has a size above 1 raises.
+NLL sum by the GLOBAL token count (summed over the data ranks), times
+their number for ``hvd.DistributedOptimizer``'s average, as
+``bert.mlm_loss_fn`` does.  Tensor parallelism (JAX :106-123, :132-160)
+splits the heads with ``bq``/``bk``/``bv`` and the MLP's hidden units
+with ``b_in`` by columns, ``wo``/``w_out`` by rows, with Megatron's
+``f``/``g`` pair; ``bo``/``b_out`` are added after ``g``, and the tied
+``wte`` stays replicated (:func:`param_specs`).
+
+Decode is the JAX package's: a plain masked product over the cache in
+float32 with ``-1e30`` for the slots past the position (at one query row
+there is no score tile to stream), and :func:`generate` feeds the prompt
+one token at a time.  The cache is
+updated in place; the functions still return it.  Decode is
+single-rank, as the JAX one: given a ``mesh`` with an axis of a size
+above 1, it raises.
 """
 
 from __future__ import annotations
@@ -32,11 +40,14 @@ import torch.nn.functional as F
 
 from . import bert as _bert
 from ..ops.flash_attention import NEG_INF, flash_attention
+from ..parallel.expert import Split
+from .llama import _copy_in, _reduce_out, _tp
 from .llama import _to_tensor, named_parameters  # noqa: F401
 from .llama import params_from_jax  # noqa: F401
 
 __all__ = ["GPT2Config", "gpt2", "tiny", "init_params", "params_from_jax",
-           "named_parameters", "forward", "loss_fn", "psum_loss",
+           "named_parameters", "param_specs", "forward", "loss_fn",
+           "psum_loss",
            "make_train_step", "init_cache", "decode_step", "generate",
            "from_hf_state_dict", "to_hf_state_dict"]
 
@@ -102,25 +113,47 @@ def init_params(cfg: GPT2Config, generator: torch.Generator,
     }
 
 
+def param_specs(cfg: GPT2Config) -> Dict:
+    """The mesh axis and dimension each leaf is split over (JAX
+    :106-123): q/k/v and the MLP's input by columns over ``cfg.tp_axis``
+    with their biases, ``wo``/``w_out`` by rows; the rest (the tied
+    ``wte`` too) replicated."""
+    tp = cfg.tp_axis
+    cols, rows, bias = ((Split(tp, 1), Split(tp, 0), Split(tp, 0)) if tp
+                        else (None, None, None))
+    layer = {"ln1_scale": None, "ln1_bias": None, "wq": cols, "bq": bias,
+             "wk": cols, "bk": bias, "wv": cols, "bv": bias, "wo": rows,
+             "bo": None, "ln2_scale": None, "ln2_bias": None, "w_in": cols,
+             "b_in": bias, "w_out": rows, "b_out": None}
+    return {"wte": None, "wpe": None,
+            "layers": [dict(layer) for _ in range(cfg.n_layers)],
+            "lnf_scale": None, "lnf_bias": None}
+
+
 # ------------------------------------------------------------------ forward
 def _ln(x, scale, bias, cfg: GPT2Config):
     return _bert._layernorm(x, scale, bias, cfg.ln_eps)
 
 
-def _attention(x, p, cfg: GPT2Config):
+def _attention(x, p, cfg: GPT2Config, mesh=None):
+    """This rank's heads, summed over tp, then ``bo``."""
     B, T, _ = x.shape
-    H, Hd = cfg.n_heads, cfg.head_dim
+    H, Hd = cfg.n_heads // _tp(cfg, mesh), cfg.head_dim
+    x = _copy_in(x, cfg, mesh)
     q = (x @ p["wq"] + p["bq"]).reshape(B, T, H, Hd)
     k = (x @ p["wk"] + p["bk"]).reshape(B, T, H, Hd)
     v = (x @ p["wv"] + p["bv"]).reshape(B, T, H, Hd)
     out = flash_attention(q, k, v, causal=True)
-    return out.reshape(B, T, H * Hd) @ p["wo"] + p["bo"]
+    return _reduce_out(out.reshape(B, T, H * Hd) @ p["wo"], cfg, mesh) \
+        + p["bo"]
 
 
-def _mlp(x, p):
+def _mlp(x, p, cfg: Optional[GPT2Config] = None, mesh=None):
+    """This rank's hidden units, summed over tp, then ``b_out``."""
+    x = _copy_in(x, cfg, mesh)
     # GPT-2's activation is the tanh-approximate GELU ("gelu_new").
     h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return h @ p["w_out"] + p["b_out"]
+    return _reduce_out(h @ p["w_out"], cfg, mesh) + p["b_out"]
 
 
 def forward(params, tokens, cfg: GPT2Config, mesh=None):
@@ -132,40 +165,37 @@ def forward(params, tokens, cfg: GPT2Config, mesh=None):
     x = x.to(cfg.dtype)
     for p in params["layers"]:
         x = x + _attention(_ln(x, p["ln1_scale"], p["ln1_bias"], cfg), p,
-                           cfg)
-        x = x + _mlp(_ln(x, p["ln2_scale"], p["ln2_bias"], cfg), p)
+                           cfg, mesh)
+        x = x + _mlp(_ln(x, p["ln2_scale"], p["ln2_bias"], cfg), p, cfg,
+                     mesh)
     x = _ln(x, params["lnf_scale"], params["lnf_bias"], cfg)
     return (x @ params["wte"].T).float()
 
 
 # ----------------------------------------------------------------- training
 def loss_fn(params, tokens, targets, cfg: GPT2Config, mesh=None):
-    """This rank's NLL sum over the global token count, times the
-    data-parallel world size."""
+    """This rank's NLL sum over the global token count, times the number
+    of data ranks."""
     logits = forward(params, tokens, cfg, mesh)
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           targets.reshape(-1).long(), reduction="sum")
     count = torch.tensor(float(tokens.numel()), device=nll.device)
-    count, n = _bert.dp_total(count, cfg, "gpt2.count")
+    count, n = _bert.dp_total(count, cfg, "gpt2.count", mesh)
     return nll / count * n
 
 
-def psum_loss(loss, cfg: GPT2Config):
+def psum_loss(loss, cfg: GPT2Config, mesh=None):
     """The global loss for logging (see ``bert.psum_loss``)."""
-    return _bert.psum_loss(loss, cfg, "gpt2.loss")
+    return _bert.psum_loss(loss, cfg, "gpt2.loss", mesh)
 
 
-def make_train_step(cfg: GPT2Config, optimizer, mesh=None):
-    """Returns ``step(params, tokens, targets) -> loss``: zero the grads,
-    :func:`loss_fn`, backward, ``optimizer.step()``."""
-    def step(params, tokens, targets):
-        optimizer.zero_grad()
-        loss = loss_fn(params, tokens, targets, cfg, mesh)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    return step
+def make_train_step(cfg: GPT2Config, optimizer, mesh=None, shards=None):
+    """Returns ``step(params, tokens, targets) -> loss``
+    (``bert.train_step`` of :func:`loss_fn`)."""
+    return _bert.train_step(
+        lambda params, tokens, targets: loss_fn(params, tokens, targets,
+                                                cfg, mesh),
+        param_specs(cfg), optimizer, mesh, shards)
 
 
 # ------------------------------------------------------------------ serving
@@ -178,11 +208,21 @@ def init_cache(cfg: GPT2Config, batch: int, max_seq: Optional[int] = None,
             for _ in range(cfg.n_layers)]
 
 
+def _single_rank(mesh, what: str) -> None:
+    """GPT-2's decode is single-rank (JAX :305-307): refuse a mesh with
+    an axis of a size above 1."""
+    if mesh is not None and any(n > 1 for n in mesh.shape.values()):
+        raise ValueError(f"gpt2 {what} is single-rank; the mesh "
+                         f"{mesh.shape} splits it (decode with mesh=None)")
+
+
 @torch.no_grad()
-def decode_step(params, cache, tokens, pos: int, cfg: GPT2Config):
+def decode_step(params, cache, tokens, pos: int, cfg: GPT2Config,
+                mesh=None):
     """One cached step: ``tokens [B]`` at position ``pos`` -> (logits
     ``[B, vocab]`` float32, cache).  Attention over the whole cache is a
     masked product in float32; slots past ``pos`` get ``-1e30``."""
+    _single_rank(mesh, "decode_step")
     B, H, Hd = tokens.shape[0], cfg.n_heads, cfg.head_dim
     T = cache[0]["k"].shape[1]
     if pos >= T:
@@ -211,10 +251,11 @@ def decode_step(params, cache, tokens, pos: int, cfg: GPT2Config):
 
 @torch.no_grad()
 def generate(params, prompt, n_tokens: int, cfg: GPT2Config,
-             max_seq: Optional[int] = None):
+             max_seq: Optional[int] = None, mesh=None):
     """Greedy generation: ``prompt [B, T0]`` -> ``[B, n_tokens]`` int32.
     The prompt goes through the cache one token at a time, as in the JAX
     function."""
+    _single_rank(mesh, "generate")
     B, T0 = prompt.shape
     if n_tokens < 1:
         return torch.zeros((B, 0), dtype=torch.int32, device=prompt.device)

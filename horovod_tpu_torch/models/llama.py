@@ -1,7 +1,8 @@
 """Llama-family decoder: the dense serving and training surface, with
-sequence parallelism in training.
+tensor, sequence and expert parallelism in training and tensor
+parallelism in decode.
 
-Port of ``horovod_tpu/models/llama.py:37-230, 313-577, 586-921,
+Port of ``horovod_tpu/models/llama.py:37-230, 275-577, 586-921,
 1023-1044``, with the mixture-of-experts MLP (:100-108, 177-189, 204-218,
 252-254, 413-433, 562-575).  The parameters are a plain dictionary in the JAX package's
 own layout (``{"embed", "layers": [...], "final_norm", "lm_head"}``), and
@@ -27,9 +28,24 @@ counterpart of ``shard_map`` binding the axis names.  Where the mesh's
 in rank order along it, attention is ``ring_attention`` or
 ``ulysses_attention`` (``cfg.sp_impl``) and positions start at
 ``sp_rank · T/sp``.  With no mesh, no such axis or an axis of size 1 the
-path is the single-rank one.  Prefill and decode take no mesh: they run
-on one rank's whole sequence (a token-at-a-time cache has no sequence to
-split), so the JAX ``_decode_axes_check`` refusal has no input to refuse.
+path is the single-rank one.
+
+Tensor parallelism (Megatron): where the mesh's ``cfg.tp_axis`` has a size
+above 1, each rank holds its block of columns of ``wq``/``wk``/``wv``/
+``w1``/``w3`` and of rows of ``wo``/``w2`` (:func:`param_specs`,
+:func:`shard_params`): q heads ``[r·H/tp, (r+1)·H/tp)`` and kv heads
+``[r·K/tp, (r+1)·K/tp)``, so that GQA groups stay within a rank.  Each
+column-split block takes its input through the mesh's ``CopyInput``
+(``f``) and each row-split product's output goes through ``ReduceOutput``
+(``g``); every tp rank then holds the same activations, logits and loss.
+The tp shards train through ``parallel.ShardedParallel`` (averaged over
+the ranks holding the same block, never over tp), the replicated leaves
+through ``DistributedOptimizer`` as before.  ``init_cache``,
+``prefill``, ``decode_step``, ``decode_chunk`` and ``generate`` take the
+mesh too: the cache holds ``K/tp`` kv heads a rank, every tp rank ends
+with the whole logits and so picks the same tokens, and a mesh with a dp,
+sp, pp or ep axis above size 1 is refused there, as the JAX
+``_decode_axes_check`` refuses those axes.
 
 Mixture-of-experts: with ``n_experts > 0`` each layer's MLP is
 ``models/moe.py``'s routed experts (``"moe"`` in place of w1/w3/w2), and
@@ -40,10 +56,11 @@ buffer travels by all-to-all; :func:`param_specs` names the sharded leaves
 for ``parallel.ExpertParallel`` (the gradient rule and the broadcast) and
 :func:`make_train_step` steps both optimizers.  ``forward``/``loss_fn``
 add the router losses as the JAX ``loss_fn`` does.  Prefill and decode run
-the MoE MLP with every expert local (ep off).
+the MoE MLP with every expert local (ep off).  The MoE MLP is not
+tp-split: the tp ranks compute the same routing and experts redundantly.
 
-Tensor and pipeline parallelism, the rolling cache and speculative
-decoding are not ported yet.
+Pipeline parallelism, the rolling cache and speculative decoding are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -56,7 +73,8 @@ import torch
 
 from ..functions import _leaves
 from ..ops.flash_attention import NEG_INF, flash_attention
-from ..parallel.expert import shard_tree
+from ..parallel.expert import Split, refuse_world_averaged, shard_on_mesh
+from ..parallel.mesh import CopyInput, ReduceOutput
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
 
@@ -78,6 +96,9 @@ class LlamaConfig:
     # kv heads divisible by sp).
     sp_axis: Optional[str] = "sp"
     sp_impl: str = "ring"
+    # The mesh axis the heads and the MLP's hidden units are split over
+    # (Megatron; None: never split).
+    tp_axis: Optional[str] = "tp"
     # Sliding-window (Mistral-style) causal attention over the last
     # ``sliding_window`` positions; the flash kernel skips whole tiles
     # outside the band.  Not with sequence parallelism.
@@ -160,8 +181,8 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None) -> Dict:
     """Random parameters, ``N(0, 1/fan_in)``, drawn from ``generator`` on
     ``device`` (the generator's own device by default), as leaves that
-    require grad.  With ``n_experts`` every layer holds all its experts:
-    :func:`shard_experts` cuts a rank's slab."""
+    require grad.  Every leaf is whole: :func:`shard_params` cuts a rank's
+    tp blocks and expert slab."""
     device = torch.device(device) if device is not None else \
         generator.device
     D, H, K, Hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -227,31 +248,40 @@ def params_from_jax(tree, device="cpu", dtype: Optional[torch.dtype] = None
 
 
 def param_specs(cfg: LlamaConfig) -> Dict:
-    """The axis each leaf is split over along dim 0, shaped like the
-    parameters: the experts' slabs ``cfg.ep_axis``, everything else None
-    (replicated).  ``parallel.ExpertParallel`` reads it."""
-    layer = {k: None for k in ("attn_norm", "wq", "wk", "wv", "wo",
-                               "mlp_norm")}
+    """The mesh axis and dimension each leaf is split over, shaped like the
+    parameters (JAX :275-311): ``wq``/``wk``/``wv``/``w1``/``w3`` by
+    columns over ``cfg.tp_axis`` (``Split(tp, 1)``, the JAX ``P(None,
+    tp)``), ``wo``/``w2`` by rows (``Split(tp, 0)``), the experts' slabs
+    over ``cfg.ep_axis`` along dim 0, everything else None (replicated).
+    ``parallel.ShardedParallel`` and :func:`shard_params` read it."""
+    tp = cfg.tp_axis
+    cols, rows = (Split(tp, 1), Split(tp, 0)) if tp else (None, None)
+    layer = {"attn_norm": None, "wq": cols, "wk": cols, "wv": cols,
+             "wo": rows, "mlp_norm": None}
     if cfg.n_experts:
         from . import moe as _moe
         layer["moe"] = _moe.param_specs(cfg.moe_cfg())
     else:
-        layer |= {"w1": None, "w3": None, "w2": None}
+        layer |= {"w1": cols, "w3": cols, "w2": rows}
     return {"embed": None, "layers": [dict(layer) for _ in
                                       range(cfg.n_layers)],
             "final_norm": None, "lm_head": None}
 
 
+def shard_params(params, cfg: LlamaConfig, mesh, axes=None):
+    """``params`` (whole: :func:`init_params`, or a JAX tree through
+    :func:`params_from_jax`) cut to this rank's blocks along every axis of
+    ``mesh`` of a size above 1 that :func:`param_specs` splits a leaf over
+    (those among ``axes`` only, when given): its tp columns and rows and
+    its expert slab.  A cut leaf is a fresh copy; the tree itself where no
+    axis cuts."""
+    return shard_on_mesh(params, param_specs(cfg), mesh, axes)
+
+
 def shard_experts(params, cfg: LlamaConfig, mesh):
-    """``params`` (every expert: :func:`init_params`, or a JAX tree through
-    :func:`params_from_jax`) with each layer's experts cut to this rank's
-    slab along ``cfg.ep_axis`` of ``mesh``; the tree itself without such
-    an axis."""
-    if mesh is None or cfg.ep_axis is None \
-            or cfg.ep_axis not in mesh.axis_names:
-        return params
-    return shard_tree(params, param_specs(cfg), mesh.index(cfg.ep_axis),
-                      mesh.size(cfg.ep_axis), cfg.ep_axis)
+    """:func:`shard_params` along ``cfg.ep_axis`` alone: each layer's
+    experts cut to this rank's slab."""
+    return shard_params(params, cfg, mesh, (cfg.ep_axis,))
 
 
 def named_parameters(params) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -283,11 +313,42 @@ def _rope(x, positions, theta):
                      dim=-1).to(x.dtype)
 
 
-def _qkv(x, p, cfg: LlamaConfig, positions):
-    """Project + rope: the qkv contract shared by the forward, prefill and
-    decode so the three paths cannot drift."""
+def _tp(cfg: LlamaConfig, mesh) -> int:
+    """The tensor-parallel degree: the size of ``cfg.tp_axis`` in
+    ``mesh``, 1 without a mesh or without that axis."""
+    if mesh is None or cfg.tp_axis is None \
+            or cfg.tp_axis not in mesh.axis_names:
+        return 1
+    return mesh.size(cfg.tp_axis)
+
+
+def _copy_in(x, cfg, mesh):
+    """Megatron's ``f`` on the input of a column-split block (the identity
+    without tensor parallelism).  Shared with BERT and GPT-2, whose
+    configs carry ``tp_axis`` too."""
+    if _tp(cfg, mesh) == 1:
+        return x
+    return CopyInput.apply(x, mesh, cfg.tp_axis)
+
+
+def _reduce_out(x, cfg, mesh):
+    """Megatron's ``g`` after a row-split product: the sum over the tp
+    ranks (JAX ``lax.psum(.., tp)``)."""
+    if _tp(cfg, mesh) == 1:
+        return x
+    return ReduceOutput.apply(x, mesh, cfg.tp_axis)
+
+
+def _qkv(x, p, cfg: LlamaConfig, positions, mesh=None):
+    """Project + rope this rank's head shard: the qkv contract shared by
+    the forward, prefill and decode so the three paths cannot drift."""
     B, T, _ = x.shape
-    H, K, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp = _tp(cfg, mesh)
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads}/n_kv_heads={cfg.n_kv_heads} "
+                         f"must be divisible by tp={tp}")
+    H, K, Hd = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
+    x = _copy_in(x, cfg, mesh)
     q = (x @ p["wq"]).reshape(B, T, H, Hd)
     k = (x @ p["wk"]).reshape(B, T, K, Hd)
     v = (x @ p["wv"]).reshape(B, T, K, Hd)
@@ -295,9 +356,11 @@ def _qkv(x, p, cfg: LlamaConfig, positions):
             _rope(k, positions, cfg.rope_theta), v)
 
 
-def _wo_project(out, p, cfg: LlamaConfig):
+def _wo_project(out, p, cfg: LlamaConfig, mesh=None):
+    """The row-split output projection and its sum over tp: the shared
+    epilogue of every attention path."""
     B, T = out.shape[:2]
-    return out.reshape(B, T, -1) @ p["wo"]
+    return _reduce_out(out.reshape(B, T, -1) @ p["wo"], cfg, mesh)
 
 
 def _local_attend(q, k, v, cfg: LlamaConfig):
@@ -333,10 +396,11 @@ def _attend(q, k, v, cfg: LlamaConfig, mesh):
     return _local_attend(q, k, v, cfg)
 
 
-def _mlp(x, p, cfg: LlamaConfig):
-    """Dense SwiGLU MLP."""
+def _mlp(x, p, cfg: LlamaConfig, mesh=None):
+    """Dense SwiGLU MLP: this rank's hidden units, summed over tp."""
+    x = _copy_in(x, cfg, mesh)
     h = torch.nn.functional.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+    return _reduce_out(h @ p["w2"], cfg, mesh)
 
 
 def _moe_mlp(x, p, cfg: LlamaConfig, mesh=None, generator=None):
@@ -354,11 +418,11 @@ def _layer_apply(p, x, cfg: LlamaConfig, positions, mesh=None,
                  generator=None):
     """``(x, router_losses)``: the router losses None for a dense layer."""
     h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, cfg, positions)
-    x = x + _wo_project(_attend(q, k, v, cfg, mesh), p, cfg)
+    q, k, v = _qkv(h, p, cfg, positions, mesh)
+    x = x + _wo_project(_attend(q, k, v, cfg, mesh), p, cfg, mesh)
     h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     if not cfg.n_experts:
-        return x + _mlp(h, p, cfg), None
+        return x + _mlp(h, p, cfg, mesh), None
     y, router = _moe_mlp(h, p, cfg, mesh, generator)
     return x + y, router
 
@@ -409,7 +473,10 @@ def loss_fn(params, tokens, targets, cfg: LlamaConfig, mesh=None,
     backward returns every dk/dv contribution to the rank that owns the
     k/v (Ulysses' exchange is its own inverse) and every rank holds the
     same number of tokens.  With experts split over ep (a data axis),
-    the experts' slabs follow ``parallel.ExpertParallel``'s rule."""
+    the experts' slabs follow ``parallel.ExpertParallel``'s rule.  Under
+    tensor parallelism every tp rank computes this same loss (the JAX
+    loss divides it by tp instead), and the tp shards' gradients are
+    exact for it (``parallel.ShardedParallel``)."""
     logits, router = _forward(params, tokens, cfg, mesh, generator)
     logits = logits.float()
     loss = torch.nn.functional.cross_entropy(
@@ -424,7 +491,8 @@ def psum_loss(loss, cfg: LlamaConfig, mesh=None):
     """The global mean loss, for logging: the mean of every rank's
     :func:`loss_fn` over the world (the mesh spans it) through the engine,
     as the JAX ``psum_loss`` sums the partial losses; this rank's loss
-    without a mesh or in a world of one."""
+    without a mesh or in a world of one.  The tp ranks hold equal losses,
+    so the world's mean is the data ranks'."""
     from .. import mpi_ops
     loss = loss.detach()
     if mesh is None or all(n == 1 for n in mesh.shape.values()):
@@ -435,8 +503,11 @@ def psum_loss(loss, cfg: LlamaConfig, mesh=None):
 def make_train_step(cfg: LlamaConfig, optimizer, mesh=None, experts=None):
     """Returns ``step(params, tokens, targets, generator=None) -> loss``:
     zero the grads, forward, backward, ``optimizer.step()`` and, with
-    ``experts`` (a ``parallel.ExpertParallel`` over the experts' slabs),
-    ``experts.step()``.  The loss is this rank's (of
+    ``experts`` (a ``parallel.ShardedParallel`` over the split leaves: the
+    tp shards and the experts' slabs; ``ExpertParallel`` for slabs alone),
+    ``experts.step()``.  The first step raises ``ValueError`` if
+    ``optimizer`` is a ``DistributedOptimizer`` that steps a leaf split
+    over an axis of ``mesh`` of a size above 1.  The loss is this rank's (of
     its tokens) for the parameters before the update; :func:`psum_loss`
     gives the global mean.  ``params`` must be the leaves ``optimizer``
     updates; with ``hvd.DistributedOptimizer`` the step averages the
@@ -445,8 +516,12 @@ def make_train_step(cfg: LlamaConfig, optimizer, mesh=None, experts=None):
     only the shards hold between steps.  ``mesh``: as in
     :func:`forward`."""
     full = getattr(optimizer, "sharded", False) == "full"
+    checked = []
 
     def step(params, tokens, targets, generator=None):
+        if not checked:
+            refuse_world_averaged(optimizer, params, param_specs(cfg), mesh)
+            checked.append(True)
         if full:
             optimizer.gather_params()
         optimizer.zero_grad()
@@ -463,13 +538,43 @@ def make_train_step(cfg: LlamaConfig, optimizer, mesh=None, experts=None):
 
 
 # ---------------------------------------------------------------- inference
+def _decode_tp(cfg: LlamaConfig, mesh, what: str) -> int:
+    """The tp degree of a decode call (JAX :679-690): tp heads split with
+    the sum at ``wo``, the training contract; the training-only axes (dp is
+    batching, sp and pp restructure the sequence and the depth, ep would
+    need the all-to-all per token) are refused at a size above 1."""
+    if mesh is not None:
+        bad = [a for a in mesh.axis_names
+               if a != cfg.tp_axis and mesh.size(a) > 1]
+        if bad:
+            raise ValueError(f"{what} supports tp only; the mesh's {bad} "
+                             f"axes have sizes above 1 (decode on a mesh "
+                             f"of the tp axis alone)")
+    return _tp(cfg, mesh)
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_seq: Optional[int] = None,
-               device=None) -> List[Dict]:
-    """Per-layer KV cache ``[B, max_seq, n_kv_heads, head_dim]`` (zeros)."""
-    shape = (batch, max_seq or cfg.max_seq, cfg.n_kv_heads, cfg.head_dim)
+               device=None, mesh=None) -> List[Dict]:
+    """Per-layer KV cache ``[B, max_seq, n_kv_heads / tp, head_dim]``
+    (zeros): this rank's kv heads on a tp ``mesh``."""
+    tp = _decode_tp(cfg, mesh, "init_cache")
+    if cfg.n_kv_heads % tp:
+        raise ValueError(f"n_kv_heads={cfg.n_kv_heads} must divide by "
+                         f"tp={tp} for the sharded cache")
+    shape = (batch, max_seq or cfg.max_seq, cfg.n_kv_heads // tp,
+             cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
             for _ in range(cfg.n_layers)]
+
+
+def cache_specs(cfg: LlamaConfig) -> List[Dict]:
+    """The split of :func:`init_cache`'s tree under tp decode (JAX
+    :799-804): the kv-head axis over ``cfg.tp_axis``, matching the
+    column-split ``wk``/``wv``; ``parallel.shard_tree`` cuts a whole cache
+    with it."""
+    spec = Split(cfg.tp_axis, 2) if cfg.tp_axis else None
+    return [{"k": spec, "v": spec} for _ in range(cfg.n_layers)]
 
 
 def _check_cache_budget(t_final: int, cache_t: int):
@@ -482,23 +587,29 @@ def _check_cache_budget(t_final: int, cache_t: int):
 
 
 @torch.no_grad()
-def decode_step(params, cache, tokens, pos: int, cfg: LlamaConfig):
+def decode_step(params, cache, tokens, pos: int, cfg: LlamaConfig,
+                mesh=None):
     """One decode step: ``tokens [B]`` at position ``pos`` -> (logits
     [B, vocab] float32, cache).  The Tq=1 case of :func:`decode_chunk`."""
-    logits, cache = decode_chunk(params, cache, tokens[:, None], pos, cfg)
+    logits, cache = decode_chunk(params, cache, tokens[:, None], pos, cfg,
+                                 mesh)
     return logits[:, 0, :], cache
 
 
 @torch.no_grad()
-def decode_chunk(params, cache, tokens, pos: int, cfg: LlamaConfig):
+def decode_chunk(params, cache, tokens, pos: int, cfg: LlamaConfig,
+                 mesh=None):
     """Cached forward over a short chunk ``tokens [B, Tq]`` starting at
-    position ``pos`` -> (logits [B, Tq, vocab] float32, cache).
+    position ``pos`` -> (logits [B, Tq, vocab] float32, cache).  On a tp
+    ``mesh`` this rank's heads and hidden units, and its kv heads in the
+    cache; the logits are whole on every rank.
 
     The chunk's kv is written into the cache at ``[pos, pos+Tq)`` and row i
     attends the cache prefix ``<= pos + i`` (the last ``sliding_window`` of
     it with a window).  Attention is a plain masked product in float32 over
     the written prefix: the slots past it are masked in the JAX version and
     contribute exactly zero there."""
+    _decode_tp(cfg, mesh, "decode_chunk")
     B, Tq = tokens.shape
     _check_cache_budget(pos + Tq, cache[0]["k"].shape[1])
     dev = tokens.device
@@ -509,10 +620,10 @@ def decode_chunk(params, cache, tokens, pos: int, cfg: LlamaConfig):
     valid = t <= positions[:, None]                   # [Tq, T]
     if cfg.sliding_window:
         valid = valid & (t > positions[:, None] - cfg.sliding_window)
-    H, K, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     for p, c in zip(params["layers"], cache):
         h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        q, k_new, v_new = _qkv(h, p, cfg, positions)
+        q, k_new, v_new = _qkv(h, p, cfg, positions, mesh)
+        H, K, Hd = q.shape[2], k_new.shape[2], q.shape[3]
         c["k"][:, pos:pos + Tq] = k_new.to(c["k"].dtype)
         c["v"][:, pos:pos + Tq] = v_new.to(c["v"].dtype)
         ck, cv = c["k"][:, :T], c["v"][:, :T]
@@ -524,33 +635,36 @@ def decode_chunk(params, cache, tokens, pos: int, cfg: LlamaConfig):
         w = torch.softmax(s, dim=-1)
         o = torch.einsum("bkrqt,btkd->bqkrd", w.to(cv.dtype).float(),
                          cv.float())
-        x = x + _wo_project(o.reshape(B, Tq, H, Hd).to(x.dtype), p, cfg)
+        x = x + _wo_project(o.reshape(B, Tq, H, Hd).to(x.dtype), p, cfg,
+                            mesh)
         h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
         x = x + (_moe_mlp(h, p, cfg)[0] if cfg.n_experts
-                 else _mlp(h, p, cfg))
+                 else _mlp(h, p, cfg, mesh))
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), cache
 
 
 @torch.no_grad()
-def prefill(params, cache, tokens, cfg: LlamaConfig):
+def prefill(params, cache, tokens, cfg: LlamaConfig, mesh=None):
     """Batched prefill: fill the cache from a prompt ``[B, T0]`` in one pass
     over the layers; returns (last-position logits float32, cache).  Each
     layer projects q/k/v for the whole prompt, writes its kv into the cache
-    at ``[0, T0)`` and attends causally through the flash forward."""
+    at ``[0, T0)`` and attends causally through the flash forward (this
+    rank's heads on a tp ``mesh``)."""
+    _decode_tp(cfg, mesh, "prefill")
     B, T0 = tokens.shape
     _check_cache_budget(T0, cache[0]["k"].shape[1])
     positions = torch.arange(T0, device=tokens.device)
     x = params["embed"][tokens.long()]                # [B, T0, D]
     for p, c in zip(params["layers"], cache):
         h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(h, p, cfg, positions)
+        q, k, v = _qkv(h, p, cfg, positions, mesh)
         c["k"][:, :T0] = k.to(c["k"].dtype)
         c["v"][:, :T0] = v.to(c["v"].dtype)
-        x = x + _wo_project(_local_attend(q, k, v, cfg), p, cfg)
+        x = x + _wo_project(_local_attend(q, k, v, cfg), p, cfg, mesh)
         h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
         x = x + (_moe_mlp(h, p, cfg)[0] if cfg.n_experts
-                 else _mlp(h, p, cfg))
+                 else _mlp(h, p, cfg, mesh))
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x[:, -1, :] @ params["lm_head"]).float(), cache
 
@@ -591,27 +705,30 @@ def sample_logits(logits, generator: Optional[torch.Generator] = None,
 def generate(params, prompt, n_tokens: int, cfg: LlamaConfig,
              max_seq: Optional[int] = None, temperature: float = 0.0,
              top_p: float = 1.0, top_k: int = 0,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, mesh=None):
     """Generation: ``prompt [B, T0]`` -> ``[B, n_tokens]`` int32.
 
     Greedy by default; ``temperature > 0`` samples from ``generator``.
     The cache holds ``max_seq`` slots, by default just the prompt and the
     new tokens (the JAX function defaults to ``cfg.max_seq``; the extra
-    slots are masked there and change nothing but memory)."""
+    slots are masked there and change nothing but memory).  On a tp
+    ``mesh`` every rank holds the whole logits, so greedy and seeded
+    sampling agree across the group as long as every rank passes the same
+    prompt and an equally seeded ``generator``."""
     B, T0 = prompt.shape
     if n_tokens < 1:
         return torch.zeros((B, 0), dtype=torch.int32, device=prompt.device)
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature > 0 requires generator=")
     cache = init_cache(cfg, B, max_seq or T0 + n_tokens,
-                       device=prompt.device)
+                       device=prompt.device, mesh=mesh)
     # The last generated token's own kv is never written back, hence -1.
     _check_cache_budget(T0 + n_tokens - 1, cache[0]["k"].shape[1])
-    logits, cache = prefill(params, cache, prompt, cfg)
+    logits, cache = prefill(params, cache, prompt, cfg, mesh)
     tok = sample_logits(logits, generator, temperature, top_p, top_k)
     out = [tok]
     for t in range(T0, T0 + n_tokens - 1):
-        logits, cache = decode_step(params, cache, tok, t, cfg)
+        logits, cache = decode_step(params, cache, tok, t, cfg, mesh)
         tok = sample_logits(logits, generator, temperature, top_p, top_k)
         out.append(tok)
     return torch.stack(out, dim=1)

@@ -1,6 +1,7 @@
 """Vision Transformer (ViT-B/16 by default) for image classification.
 
-Port of the data-parallel path of ``horovod_tpu/models/vit.py:35-209``.
+Port of ``horovod_tpu/models/vit.py:35-209``: data and tensor
+parallelism.
 As the JAX module does, it reuses BERT's encoder blocks (``bert.encode``:
 the same layer layout, float32 LayerNorm with the affine after the cast,
 tanh GELU, non-causal flash attention).  The ViT pieces are the patch
@@ -9,12 +10,13 @@ learned positions and a classification head.  At 224/16 the sequence is
 196 patches plus CLS, 197 rows: not a multiple of the kernels' 128-row
 tile, which the kernels mask.
 
-The loss divides this rank's NLL sum by the GLOBAL example count (one
-engine allreduce over the world), times the world size for
+The loss divides this rank's NLL sum by the GLOBAL example count (summed
+over the data ranks), times their number for
 ``hvd.DistributedOptimizer``'s average, as ``bert.mlm_loss_fn`` does.
-Sequence parallelism is refused at construction, as in the JAX
-``__post_init__``; a ``mesh`` whose ``tp_axis`` has a size above 1
-raises.
+Tensor parallelism rides BERT's encoder blocks (JAX :118-134), with the
+same splits (:func:`param_specs`).  Sequence parallelism is refused at
+construction, as in the JAX ``__post_init__``, and so is a ``mesh`` with
+any axis but dp and tp of a size above 1.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from . import bert as _bert
 from .llama import named_parameters, params_from_jax  # noqa: F401
 
 __all__ = ["ViTConfig", "vit_b16", "tiny", "init_params", "params_from_jax",
-           "named_parameters", "forward", "logits", "loss_fn", "psum_loss",
-           "make_train_step"]
+           "named_parameters", "param_specs", "forward", "logits", "loss_fn",
+           "psum_loss", "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +103,14 @@ def init_params(cfg: ViTConfig, generator: torch.Generator,
     }
 
 
+def param_specs(cfg: ViTConfig) -> Dict:
+    """The mesh axis and dimension each leaf is split over (JAX
+    :118-134): the encoder blocks' as BERT's, the rest replicated."""
+    return {"patch_proj": None, "cls": None, "pos_embed": None,
+            "layers": _bert.encoder_specs(cfg.n_layers, cfg.tp_axis),
+            "final_ln_scale": None, "final_ln_bias": None, "head": None}
+
+
 def _patchify(images, cfg: ViTConfig):
     """``[B, H, W, C]`` -> ``[B, N, P·P·C]`` (space-to-depth)."""
     B, Himg, Wimg, C = images.shape
@@ -118,7 +128,7 @@ def forward(params, images, cfg: ViTConfig, mesh=None):
     B, _, D = x.shape
     cls = params["cls"].expand(B, 1, D).to(x.dtype)
     x = torch.cat([cls, x], dim=1) + params["pos_embed"][None]
-    x = _bert.encode(x, params["layers"], cfg)
+    x = _bert.encode(x, params["layers"], cfg, mesh)
     x = _bert._layernorm(x, params["final_ln_scale"],
                          params["final_ln_bias"])
     return x[:, 0]
@@ -130,27 +140,23 @@ def logits(params, images, cfg: ViTConfig, mesh=None):
 
 def loss_fn(params, images, labels, cfg: ViTConfig, mesh=None):
     """This rank's NLL sum over the global example count, times the
-    data-parallel world size."""
+    number of data ranks."""
     nll = F.cross_entropy(logits(params, images, cfg, mesh), labels.long(),
                           reduction="sum")
     count = torch.tensor(float(labels.shape[0]), device=nll.device)
-    count, n = _bert.dp_total(count, cfg, "vit.count")
+    count, n = _bert.dp_total(count, cfg, "vit.count", mesh)
     return nll / count * n
 
 
-def psum_loss(loss, cfg: ViTConfig):
+def psum_loss(loss, cfg: ViTConfig, mesh=None):
     """The global loss for logging (see ``bert.psum_loss``)."""
-    return _bert.psum_loss(loss, cfg, "vit.loss")
+    return _bert.psum_loss(loss, cfg, "vit.loss", mesh)
 
 
-def make_train_step(cfg: ViTConfig, optimizer, mesh=None):
-    """Returns ``step(params, images, labels) -> loss``: zero the grads,
-    :func:`loss_fn`, backward, ``optimizer.step()``."""
-    def step(params, images, labels):
-        optimizer.zero_grad()
-        loss = loss_fn(params, images, labels, cfg, mesh)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    return step
+def make_train_step(cfg: ViTConfig, optimizer, mesh=None, shards=None):
+    """Returns ``step(params, images, labels) -> loss``
+    (``bert.train_step`` of :func:`loss_fn`)."""
+    return _bert.train_step(
+        lambda params, images, labels: loss_fn(params, images, labels, cfg,
+                                               mesh),
+        param_specs(cfg), optimizer, mesh, shards)

@@ -1,7 +1,8 @@
-"""Parallel schemes beyond data parallelism: the process mesh, sequence
-parallelism (ring and Ulysses attention), expert parallelism's gradient
-rule, Adasum, the two-level collectives and the slice topology they run
-on.  Port of
+"""Parallel schemes beyond data parallelism: the process mesh with
+Megatron's tensor-parallel pair, sequence parallelism (ring and Ulysses
+attention), the gradient rule of leaves split over mesh axes (tensor and
+expert parallelism), Adasum, the two-level collectives and the slice
+topology they run on.  Port of
 ``horovod_tpu/parallel/__init__.py:6-14``; ``zero`` holds the ZeRO
 pad+slice convention (its in-graph optimizers have no counterpart);
 ``spmd`` and ``pipeline`` are still to port (``ROADMAP.md`` queue 1)."""
@@ -11,7 +12,8 @@ from .adasum import (  # noqa: F401
     adasum_combine, vhd,
 )
 from .expert import (  # noqa: F401
-    ExpertParallel, shard_tree, spec_of, split_named,
+    DATA_AXES, ExpertParallel, ShardedParallel, Split, refuse_world_averaged,
+    shard_on_mesh, shard_tree, spec_of, split_named, split_of,
 )
 from .hierarchical import (  # noqa: F401
     Legs, hierarchical_allgather, hierarchical_allreduce,
@@ -19,8 +21,9 @@ from .hierarchical import (  # noqa: F401
 )
 
 from .mesh import (  # noqa: F401
-    DP, EP, PP, SP, TP, AllToAll, ProcessMesh, all_gather, all_to_all,
-    axes_of, infer_mesh, make_mesh, ppermute, require_axis, timed_ms,
+    DP, EP, PP, SP, TP, AllToAll, CopyInput, ProcessMesh, ReduceOutput,
+    all_gather, all_to_all, axes_of, infer_mesh, make_mesh, ppermute, psum,
+    require_axis, timed_ms,
 )
 from .ring_attention import (  # noqa: F401
     local_flash_attention, ring_attention,

@@ -1,5 +1,7 @@
 # Ported from horovod_tpu/parallel/mesh.py: the axis names :27, axes_of
-# :86-90, require_axis :93-108, make_mesh :111-127 and infer_mesh :130-152.
+# :86-90, require_axis :93-108, make_mesh :111-127 and infer_mesh :130-152;
+# the tensor-parallel reduction stands for the lax.psum calls of
+# horovod_tpu/models/llama.py:366-367, :431-432 and bert.py:137-138, :145-146.
 """A mesh of process groups for dp/tp/sp/ep/pp parallelism.
 
 The JAX package's mesh is a ``jax.sharding.Mesh``: a device array with
@@ -15,8 +17,19 @@ counterparts of the in-graph collectives that the sequence- and
 expert-parallel schemes use (``parallel/ring_attention.py``,
 ``parallel/ulysses.py``, ``models/moe.py``, ``models/dlrm.py``);
 :class:`AllToAll` is the all-to-all under autograd, whose backward is the
-inverse exchange, as the transpose of ``lax.all_to_all`` is.  Besides the
-engine's cycle thread they are the port's only collectives, and they run
+inverse exchange, as the transpose of ``lax.all_to_all`` is.
+:func:`psum` is ``lax.psum``, and :class:`ReduceOutput` and
+:class:`CopyInput` are Megatron's pair over it for tensor parallelism:
+``g``, the sum after a row-split product, whose backward is the identity,
+and ``f``, the identity on the input of a column-split block, whose
+backward sums the cotangent.  The JAX models psum in the forward only
+(psum's transpose is a psum), divide each rank's loss by tp and psum the
+replicated leaves' gradients over tp in ``sync_grads``; with the pair,
+every rank's loss is its own mean, as everywhere in the port, and each
+replicated leaf's gradient comes out whole and equal on every tp rank, so
+that ``DistributedOptimizer``'s average serves it as before.  The two
+give the same gradients.  Besides the
+engine's cycle thread these are the port's only collectives, and they run
 only on the mesh's own groups: ``dist.new_group`` groups that this mesh
 creates, never a process set's group, which the engine's cycle thread
 drives.  A call on a communicator from two threads can be issued in
@@ -30,11 +43,13 @@ group, those it is not in included, in the same order.
 tears the world down.
 
 Not carried over, for want of a counterpart: ``SpecLayout`` and
-``fsdp_mesh`` (partition specs of ``shard_map``; an expert-sharded
-model names its sharded leaves itself, ``parallel/expert.py``), ``process_set_mesh``/``_spec``/``_sharding`` (translations
-between process sets and ``jax.sharding``, which the port does not have),
-and the ICI-topology order of ``common/topology.py`` ``ordered_devices``
-(ROADMAP queue 1 item 4): ranks are laid out in rank order.
+``fsdp_mesh`` (partition specs of ``shard_map``, which the port does not
+have: each model's ``param_specs`` names the axis and dimension a leaf is
+split over, ``parallel/expert.py`` ``Split``),
+``process_set_mesh``/``_spec``/``_sharding`` (translations between process
+sets and ``jax.sharding``), and the ICI-topology order of
+``common/topology.py`` ``ordered_devices`` (ROADMAP queue 1 item 4): ranks
+are laid out in rank order.
 """
 
 from __future__ import annotations
@@ -311,3 +326,51 @@ def all_gather(x: torch.Tensor, mesh: ProcessMesh, axis: str,
     if mark is not None:
         mesh.timing.append((mark, _mark(mesh.timing, [x])))
     return torch.cat(recv.unbind(0), dim=dim)
+
+
+def psum(x: torch.Tensor, mesh: ProcessMesh, axis: str) -> torch.Tensor:
+    """``lax.psum`` along ``axis``: the sum of every coordinate's ``x``, the
+    same on each (a new tensor; ``x`` itself at an axis of size 1)."""
+    import torch.distributed as dist
+    ax = mesh.axis(axis)
+    if ax.size == 1:
+        return x
+    out = x.contiguous().clone()
+    mark = _mark(mesh.timing, [x])
+    dist.all_reduce(out, group=ax.group)
+    if mark is not None:
+        mesh.timing.append((mark, _mark(mesh.timing, [x])))
+    return out
+
+
+class ReduceOutput(torch.autograd.Function):
+    """Megatron's ``g``: ``ReduceOutput.apply(x, mesh, axis)`` sums ``x``
+    over ``axis`` in the forward (after a row-split product) and passes the
+    cotangent through unchanged: every rank downstream holds the same
+    activation and the same loss, so each already holds the whole
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class CopyInput(torch.autograd.Function):
+    """Megatron's ``f``: ``CopyInput.apply(x, mesh, axis)`` is the identity
+    in the forward (on the input of a column-split block) and sums the
+    cotangent over ``axis`` in the backward: each rank's block saw only its
+    columns' share of the input's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.attrs = (mesh, axis)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.attrs
+        return psum(g, mesh, axis), None, None

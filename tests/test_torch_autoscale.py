@@ -448,11 +448,18 @@ def _decisions(pkg):
         "evict_unknown_rank": ([s.ScaleDecision(s.EVICT, reason="gone",
                                                 evict_rank=9)],
                                [("hostA", 1), ("hostB", 1)], 1, ()),
+        # A second scale-in decided while the first one's drain still runs
+        # (its host still assigned): the reference drains the same host
+        # again and runs the scale command again, and so does the port.
+        "scale_in_during_drain": ([s.ScaleDecision(s.SCALE_IN, reason="idle",
+                                                   target_size=1)] * 2,
+                                  [("hostA", 1), ("hostB", 1)], 1, ()),
     }
 
 
 @pytest.mark.parametrize("name", ["evict", "scale_in", "scale_out",
-                                  "min_np_guard", "evict_unknown_rank"])
+                                  "min_np_guard", "evict_unknown_rank",
+                                  "scale_in_during_drain"])
 def test_torch_autoscale_step_executes_as_jax(name, tmp_path):
     """One scripted decision sequence through both drivers: the same
     events (commit requests with their acks, the decision with its host
@@ -467,6 +474,10 @@ def test_torch_autoscale_step_executes_as_jax(name, tmp_path):
     if name == "scale_in":
         assert outs["torch"]["scale"] == ["scale_in|3|hostC"]
         assert outs["torch"]["cordoned"] == ["hostC"]
+    if name == "scale_in_during_drain":
+        assert outs["torch"]["scale"] == ["scale_in|1|hostB"] * 2
+        assert [e["action"] for e in outs["torch"]["events"]
+                if e["action"] == "scale_in"] == ["scale_in"] * 2
     if name == "evict":
         assert outs["torch"]["terminated"] == ["hostB:0"]
         assert outs["torch"]["registry"]["hostB:0"] == (jreg.LEFT, False)

@@ -174,7 +174,13 @@ def test_torch_bert_layernorm_applies_affine_after_the_cast():
     assert (fused == want).mean() < 0.95
 
 
-def test_torch_bert_refuses_tensor_and_sequence_parallel_meshes():
+@pytest.mark.parametrize("case", ["heads-tp-does-not-divide", "vit-sp"])
+def test_torch_bert_refuses_tensor_and_sequence_parallel_meshes(case):
+    """What the reference refuses of tp and sp: heads that tp does not
+    divide (JAX ``bert.py:119-121``), and ViT with sequence parallelism,
+    in its config (``vit.py:61-69``) or from a mesh; a data-parallel mesh
+    passes.  (The tp and sp paths themselves are held against JAX in
+    ``tests/test_torch_tensor_parallel.py``.)"""
     class Mesh2:
         axis_names = ("dp", "tp", "sp")
 
@@ -184,15 +190,23 @@ def test_torch_bert_refuses_tensor_and_sequence_parallel_meshes():
         def size(self, ax):
             return self.sizes[ax]
 
-    cfg = _tcfg(tb)
-    params = tb.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.zeros(1, 8, dtype=torch.int64)
-    tb.forward(params, toks, cfg, mesh=Mesh2(dict(dp=2, tp=1, sp=1)))
-    for sizes in (dict(dp=1, tp=2, sp=1), dict(dp=1, tp=1, sp=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tb.forward(params, toks, cfg, mesh=Mesh2(sizes))
-    with pytest.raises(ValueError, match="sequence parallelism"):
-        tv.tiny(sp_axis="sp")
+    if case == "heads-tp-does-not-divide":
+        cfg = tb.tiny(dtype=torch.float32, n_heads=3, d_model=48)
+        params = tb.init_params(cfg, torch.Generator().manual_seed(0))
+        tb.forward(params, toks, cfg, mesh=Mesh2(dict(dp=2, tp=1, sp=1)))
+        with pytest.raises(ValueError, match="not divisible by tp=2"):
+            tb.forward(params, toks, cfg, mesh=Mesh2(dict(dp=1, tp=2, sp=1)))
+    else:
+        with pytest.raises(ValueError, match="sequence parallelism"):
+            tv.tiny(sp_axis="sp")
+        cfg = _tcfg(tv)
+        params = tv.init_params(cfg, torch.Generator().manual_seed(0))
+        images = torch.zeros(1, 32, 32, 3)
+        tv.forward(params, images, cfg, mesh=Mesh2(dict(dp=2, tp=1, sp=1)))
+        with pytest.raises(ValueError, match="'sp' axis has size 2"):
+            tv.forward(params, images, cfg,
+                       mesh=Mesh2(dict(dp=1, tp=1, sp=2)))
 
 
 # --------------------------------------------------------------------- ViT

@@ -272,7 +272,14 @@ def test_torch_autoscale_scales_an_idle_fleet_in(tmp_path):
     logs = _logs(out)
     _check_gen1(logs, 2)
     assert "autoscale SCALE_IN: draining host 127.0.0.2" in text, text[-4000:]
-    assert scaled.read_text().split() == ["scale_in", "127.0.0.2"]
+    # Counted after the run, the drain over: one scale-in of 127.0.0.2, or
+    # more where the drain outlived the 1 s cooldown and the policy decided
+    # again (the reference driver does the same: ROADMAP queue 3), each
+    # logged as a drain of the same host.
+    lines = scaled.read_text().splitlines()
+    assert lines and set(lines) == {"scale_in 127.0.0.2"}, lines
+    assert text.count("autoscale SCALE_IN: draining host 127.0.0.2") \
+        == len(lines), text[-4000:]
     drained, survivor = logs["127.0.0.2.0"], logs["127.0.0.1.0"]
     assert any(e["ev"] == "commit_on_request" for e in drained), drained
     assert drained[-1]["ev"] == "done" and drained[-1]["res"] is None
@@ -376,10 +383,14 @@ outs["bcast"] = hvd.broadcast(torch.arange(5.0) * (r + 1), root_rank=2)
 # rounds, whose frames are alike on host 0's two ranks.
 for _ in range(20):
     hvd.allreduce(torch.ones(4), name="warm", op=hvd.Sum)
+# The agent drops a rank that leaves: read whom it serves before the
+# allreduce that every rank must join before any can shut down.
+a = basics._get_state().host_agent
+ranks = None if a is None else list(a.ranks)
+hvd.allreduce(torch.ones(1), name="read", op=hvd.Sum)
 time.sleep(0.5)
 np.savez(sys.argv[1] + f".{r}.npz",
          **{k: v.numpy() for k, v in outs.items()})
-a = basics._get_state().host_agent
 stats = None
 if a is not None:
     # The agent's thread goes on with idle rounds and counts a round
@@ -391,7 +402,7 @@ if a is not None:
             break
         time.sleep(0.001)
 with open(sys.argv[1] + f".{r}.json", "w") as fh:
-    json.dump(None if a is None else dict(ranks=a.ranks, **stats), fh)
+    json.dump(None if a is None else dict(ranks=ranks, **stats), fh)
 hvd.shutdown()
 '''
 

@@ -290,7 +290,7 @@ def test_torch_llama_moe_decode_matches_forward_argmax():
 
 def test_torch_mixtral_8x7b_has_the_jax_fields():
     """Every field of the port's ``mixtral_8x7b()`` equals the JAX one's
-    (the dtype by name); the JAX fields the port lacks are its tp/pp/
+    (the dtype by name); the JAX fields the port lacks are its pp/
     serving knobs."""
     t, j = tl.mixtral_8x7b(), jl.mixtral_8x7b()
     names = [f.name for f in dataclasses.fields(t)]
@@ -301,7 +301,7 @@ def test_torch_mixtral_8x7b_has_the_jax_fields():
         else:
             assert a == b, name
     missing = {f.name for f in dataclasses.fields(j)} - set(names)
-    assert missing == {"tp_axis", "pp_axis", "n_microbatches",
+    assert missing == {"pp_axis", "n_microbatches",
                        "remat_stages", "remat_layers", "pp_loss",
                        "use_flash", "rolling_cache", "rolling_slack"}
     assert t.head_dim == j.head_dim == 128
@@ -326,7 +326,9 @@ def test_torch_llama_moe_param_specs_and_shard_experts():
             want = t[2 * i:2 * i + 2] if _is_slab(name) else t
             assert torch.equal(got[name], want), name
     dense = tl.tiny(dtype=torch.float32)
-    assert set(expert.spec_of(tl.param_specs(dense)).values()) == {None}
+    # A dense model splits no leaf over ep (only its tp blocks).
+    assert {expert.split_of(s).axis for s in expert.spec_of(
+        tl.param_specs(dense)).values() if s is not None} == {"tp"}
 
 
 # ------------------------------------------------------------ the worlds

@@ -225,12 +225,14 @@ _COLLECTIVES = {
     "batch_isend_irecv", "gather", "gather_object", "scatter",
     "scatter_object_list"}
 # The modules allowed to issue them, and which: the engine's cycle thread,
-# and the process mesh's exchanges (the counterparts of lax.ppermute and
-# lax.all_to_all, on communicators the engine never uses).
+# and the process mesh's exchanges and reduction (the counterparts of
+# lax.ppermute, lax.all_to_all and lax.psum, on communicators the engine
+# never uses).
 _ENGINE = os.path.join("ops", "engine.py")
 _MESH = os.path.join("parallel", "mesh.py")
 _COLLECTIVE_CALLERS = {_ENGINE, _MESH}
-_MESH_CALLS = {"batch_isend_irecv", "isend", "irecv", "all_to_all_single"}
+_MESH_CALLS = {"batch_isend_irecv", "isend", "irecv", "all_to_all_single",
+               "all_reduce"}
 
 
 def _collective_calls(path):
@@ -271,8 +273,8 @@ def test_torch_only_the_engine_calls_collectives():
     broadcast interleaved with engine-thread allreduces can be issued in
     different orders on different ranks); basics only forms and destroys
     the world.  The process mesh may exchange too, only by point-to-point
-    rotations and all-to-alls, and only on its own groups
-    (``test_torch_mesh_exchanges_run_on_mesh_groups``).  The engine's
+    rotations, all-to-alls and the tensor-parallel all-reduce, and only on
+    its own groups (``test_torch_mesh_exchanges_run_on_mesh_groups``).  The engine's
     Adasum swaps pairs by ``batch_isend_irecv``, in ``_swapper`` only
     (``test_torch_engine_swaps_only_in_its_swapper``)."""
     callers = {}
@@ -326,12 +328,13 @@ def _group_sources(path):
 
 
 def test_torch_mesh_exchanges_run_on_mesh_groups():
-    """Every exchange of the process mesh passes ``group=`` taken from a
-    mesh axis (``ax = mesh.axis(axis)``; ``ax.group``), never a process
-    set's group or the world's default."""
+    """Every exchange of the process mesh, and its all-reduce, passes
+    ``group=`` taken from a mesh axis (``ax = mesh.axis(axis)``;
+    ``ax.group``), never a process set's group or the world's default."""
     found = _group_sources(os.path.join(PKG, _MESH))
     assert {name for _, name, _, _ in found} == {"P2POp",
-                                                 "all_to_all_single"}
+                                                 "all_to_all_single",
+                                                 "all_reduce"}
     for line, name, expr, sources in found:
         assert expr == "ax.group", (line, name, expr)
         assert sources == ["mesh.axis(axis)"], (line, name, sources)
@@ -572,6 +575,68 @@ def test_torch_expert_parallel_modules_stand_alone():
         first = open(path).readline()
         origin = "examples/" if rel.startswith("examples") else "horovod_tpu/"
         assert first.startswith(f"# Ported from {origin}"), (path, first)
+
+# The tensor-parallel slice: the mesh's reduction and Megatron's pair, the
+# split specs and the gradient rule, and the four families.
+TP_MODULES = ("horovod_tpu_torch.parallel.mesh",
+              "horovod_tpu_torch.parallel.expert",
+              "horovod_tpu_torch.models.llama", "horovod_tpu_torch.models.bert",
+              "horovod_tpu_torch.models.vit", "horovod_tpu_torch.models.gpt2")
+
+_TP_SRC = _OBSERVE_SRC.replace("print('PURE', len(sys.argv) - 2)", r"""
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import parallel
+from horovod_tpu_torch.models import bert, gpt2, llama, vit
+hvd.init(device='cpu')
+mesh = parallel.make_mesh({'dp': 1, 'tp': 1})
+cfg = llama.tiny(dtype=torch.float32)
+p = llama.shard_params(llama.init_params(cfg, torch.Generator().manual_seed(
+    0)), cfg, mesh)
+named = list(llama.named_parameters(p))
+rep, sh = parallel.split_named(named, llama.param_specs(cfg), ('tp', 'ep'))
+assert len(sh) == 14, len(sh)
+shards = parallel.ShardedParallel(mesh, torch.optim.SGD(
+    [t for _, t in sh], lr=0.1), sh, llama.param_specs(cfg))
+step = llama.make_train_step(cfg, torch.optim.SGD([t for _, t in rep],
+                                                  lr=0.1), mesh, shards)
+toks = torch.zeros(1, 8, dtype=torch.int64)
+assert torch.isfinite(step(p, toks, toks))
+assert llama.generate(p, toks, 2, cfg, mesh=mesh).shape == (1, 2)
+for mod in (bert, vit, gpt2):
+    assert parallel.spec_of(mod.param_specs(mod.tiny()))
+x = torch.ones(3, requires_grad=True)
+parallel.CopyInput.apply(parallel.ReduceOutput.apply(x, mesh, 'tp'), mesh,
+                         'tp').sum().backward()
+assert torch.equal(x.grad, torch.ones(3))
+shards.shutdown()
+mesh.shutdown()
+hvd.shutdown()
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_tensor_parallel_modules_stand_alone():
+    """The tensor-parallel modules import with JAX and horovod_tpu
+    blocked, and a Llama step with its tp leaves in a ``ShardedParallel``,
+    a tp ``generate``, the families' specs and Megatron's pair run (at tp
+    = 1: one process); each module's first line names its origin."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _TP_SRC, REPO, *TP_MODULES],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == str(len(TP_MODULES))
+    for name in TP_MODULES:
+        rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
+        first = open(os.path.join(PKG, rel + ".py")).readline()
+        assert first.startswith(("# Ported from horovod_tpu/", '"""')), \
+            (name, first)
+        text = open(os.path.join(PKG, rel + ".py")).read()
+        assert "horovod_tpu/" in text.split("\n\n")[0] + text[:2000], name
+
 
 # World set-up and tear-down (not collectives, but each is a call on a
 # communicator's life): who may make, destroy and abort process groups.

@@ -20,7 +20,7 @@ the shards and hold them against the JAX package in this process, under
   (``_reference_run``): the global mean loss within rtol 2e-4, the
   parameters after two steps within rtol 3e-3 / atol 3e-5, as there;
 - the refusals (Ulysses with heads that do not divide by sp, a sliding
-  window with sp > 1, decode given a mesh), and the mesh: every rank creates
+  window with sp > 1, decode on an sp mesh), and the mesh: every rank creates
   every axis group in one order, and no mesh group is a process set's.
 """
 
@@ -136,7 +136,7 @@ _WORKER = textwrap.dedent("""
     try:
         tl.prefill(params_w, tl.init_cache(cfg_w, 1, 8), toks, cfg_w,
                    mesh=sp)
-    except TypeError as exc:
+    except ValueError as exc:
         out["decode"] = str(exc)
     sp.shutdown()
     # Llama training steps.
@@ -372,11 +372,11 @@ def test_torch_ulysses_refuses_heads_sp_does_not_divide(worlds):
 
 
 def test_torch_llama_refuses_window_and_decode_with_sp(worlds):
-    """A window is refused with sp > 1; prefill and decode take no mesh,
-    so a sequence-parallel decode cannot be asked for."""
+    """A window is refused with sp > 1, and so is a sequence-parallel
+    prefill: decode takes a mesh for tp only."""
     for o in worlds[2]:
         assert "sliding_window" in o["window"]
-        assert "unexpected keyword argument 'mesh'" in o["decode"]
+        assert "supports tp only" in o["decode"]
 
 
 def test_torch_llama_config_refuses_unknown_sp_impl():
