@@ -75,9 +75,10 @@ Phases (any failure exits non-zero and prints no result line):
    allgather layout (2 x 39 destination views) and the reducescatter and
    alltoall layout (2 x 39 source views, rank-major) on the gradient set,
    and the promoting casts (bool, int8, uint8, int16 -> int32 and back),
-   bitwise, with times.  E3 and E4 start their two ranks through the
-   port's launcher (``python -m horovod_tpu_torch.runner -np 2 -H
-   localhost:1,127.0.0.1:1``, ``-H localhost:2`` with two cards).  E4, at
+   bitwise, with times.  E3, E4 and E5 share one launch of two ranks
+   through the port's launcher (``python -m horovod_tpu_torch.runner -np
+   2 -H localhost:1,127.0.0.1:1``, ``-H localhost:2`` with two cards; one
+   world formation for the three since PR 18).  E4, at
    the training configuration's width: reducescatter (Sum, Average) of
    the integer-valued bf16 gradient set and an allgather of the shards,
    bitwise against the sums each rank recomputes from both ranks' seeds;
@@ -88,12 +89,13 @@ Phases (any failure exits non-zero and prints no result line):
    global batch; the promoting allreduce and reducescatter dtypes against
    the JAX engine's outcomes; each collective's time and its launches =
    dtype groups.
-7. Sequence parallelism.  E5, two ranks through the launcher as E3, the
+7. Sequence parallelism.  E5, in E3's launch after E4, the
    training configuration's width at the full max_seq of 8,192 tokens
    split over ``make_mesh({"sp": 2})`` (4,096 a rank), with
    ``DistributedOptimizer``'s hooks live: the averaged gradients at 4,096
    tokens against a single-rank full-sequence step (ring, then Ulysses),
-   then 3 steps with ``sp_impl="ring"`` and 3 with ``"ulysses"`` from the
+   then E5_STEPS steps with ``sp_impl="ring"`` and E5_STEPS with
+   ``"ulysses"`` from the
    broadcast weights: each rank loading its kernels eagerly, parameters
    bitwise equal across ranks every step, finite losses, the two engines'
    step-1 losses within 1e-3, the flash launches of the ring's schedule
@@ -221,7 +223,9 @@ Phases (any failure exits non-zero and prints no result line):
    (``e11_phase``) and the recovery, growth, commit, durable-write, peer
    restore and step times.
 14. Drains, autoscaling and the two-level control plane.  E12
-   (``--e12-driver``, after E11): ``run_elastic`` on
+   (``--e12-driver``, after E10, side by side with E11 and then E13-E15:
+   each in a thread of its own, its lines printed together at its end,
+   the sweep held until all three have ended): ``run_elastic`` on
    ``--hierarchical-controller --autoscale --monitor-port <p>
    --preempt-grace-s 90 --commit-max-age-s 600 --scale-command ...`` over
    hosts ``127.0.0.1:2`` and ``127.0.0.2:1`` (three ranks on the card over
@@ -236,8 +240,10 @@ Phases (any failure exits non-zero and prints no result line):
    in through rank 0's ``/health``; generation 4 (size 2) ends.  Eight
    checks (``e12_phase``) and the drain, ack, growth, scale-in and step
    times.
-15. Expert parallelism.  E13 (``--e13-worker``, after E12): two ranks
-   through the launcher as E3, on ``make_mesh({"ep": 2})``.  (a)
+15. Expert parallelism.  E13 (after E11, beside E12): two ranks through the
+   launcher as E3, on ``make_mesh({"ep": 2})``, the first part of the
+   launch E13, E14 and E15 share (``--e14-worker``: one world formation
+   for the three).  (a)
    ``mixtral_8x7b()`` at full width cut to E13_LAYERS (8 gated experts,
    top-2, capacity factor 4.0, bf16), B=1 x E13_SEQ tokens a rank, the
    replicated leaves through ``DistributedOptimizer(AdamW)``, the expert
@@ -250,8 +256,8 @@ Phases (any failure exits non-zero and prints no result line):
    run of the global batch in this process: the losses and their change
    from step 1, the MLPs and every touched table row as values and as
    updates (after minus before).
-16. Tensor parallelism.  E14 (``--e14-worker``, after E13): two ranks
-   through the launcher as E3, on ``make_mesh({"tp": 2})``.  (a)
+16. Tensor parallelism.  E14 (``--e14-worker``, after E13 in its
+   launch): on ``make_mesh({"tp": 2})``.  (a)
    ``llama3_8b()`` at full width cut to E14_LAYERS, bf16, B=1 x E14_SEQ
    tokens, the same on both ranks, the replicated leaves through
    ``DistributedOptimizer(AdamW)``, the tp shards (q heads, kv heads and
@@ -267,14 +273,31 @@ Phases (any failure exits non-zero and prints no result line):
    bitwise across the ranks.  (c) BERT-Large's width at E14_BERT_LAYERS,
    B=8, T=512, 8 heads a rank: one step's gradients against tp-off.
    Every time of two ranks on one card is labelled "sockets".
-17. The whole run's wall time, the kernels line (JSON), the card line, and
+17. Pipeline parallelism.  E15, in E14's launch (one world formation
+   fewer): the ranks shut E14's mesh down and make ``make_mesh({"pp":
+   2})``.  (a) ``llama3_8b()`` cut to E15_LAYERS (one layer a stage),
+   bf16, B=E15_BATCH x E15_SEQ tokens on both stages, E15_MICRO
+   microbatches (mb = 1), ``pp_loss="broadcast"``, the slabs through
+   ``ShardedParallel(AdamW)`` and the replicated leaves through
+   ``DistributedOptimizer(AdamW)``, E15_STEPS steps: every leaf's step-1
+   gradient against the matching slab of the pp-off model's from the same
+   weights and tokens, the losses bitwise across the stages, the
+   replicated leaves bitwise across the ranks and the slabs not, the flash
+   launches (M x layers a stage of each kernel), the pp exchanges' count,
+   bytes and time, the step, tokens/s and peak memory.  (b) One step at
+   ``pp_loss="last_stage"`` with ``remat_stages`` from the same weights
+   and tokens: its step-1 gradients against (a)'s, its peak above the
+   step's start below (a)'s, the forward launches twice (a)'s.
+18. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 Every process the run starts carries ``CHIP_SMOKE_RUN`` in its
 environment, and the run is their subreaper: after each launch of ranks
-or drivers, before the result lines and at its exit (a failed one too)
-the run kills, reaps and names any of them still alive, so that none
-outlives it.
+or drivers, before the result lines and at its exit (a failed one, and one
+by SIGTERM, too) the run kills, reaps and names any of them, and any
+descendant, still alive, and waits until the process table holds none of
+them, so that none outlives it.  At RUN_LIMIT_S seconds the run fails and
+ends so itself.
 
 It imports nothing of JAX and nothing of ``horovod_tpu``.
 """
@@ -288,6 +311,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -312,6 +336,10 @@ TRAIN_LR = 0.75
 # which keeps dense [B, H, T, T] float32 scores per layer: cut T for it.
 GRAD_CHECK_SEQ = 2048
 GRAD_TOL = 5e-2
+# The run ends itself, its processes stopped, at this many seconds after it
+# began, before a harness's limit of 1,200 s would kill it and leave them.
+RUN_LIMIT_S = 1175.0
+_T0 = time.time()
 
 
 def _fail(msg):
@@ -321,8 +349,11 @@ def _fail(msg):
 
 # Every process the run starts inherits this variable (its value names the
 # run's own pid), whatever session or parent it ends under: stop_strays
-# finds the ones still alive by it.
+# finds the ones still alive by it and by their descent from the run.
 RUN_TAG = "CHIP_SMOKE_RUN"
+# The pids alive when the run began: its exit names any other process still
+# alive then that is not the run's own (it stops only its own).
+_BEFORE_RUN = set()
 
 
 def tag_run():
@@ -330,39 +361,77 @@ def tag_run():
     every process it starts inherits, and this process the subreaper of
     its descendants (``PR_SET_CHILD_SUBREAPER``), so that an orphan of a
     launcher or driver is reparented here and reaped here.  Registers
-    ``stop_strays`` for the run's exit, a failed one too."""
+    ``_at_exit`` for the run's exit, a failed one too."""
     import atexit
     import ctypes
     os.environ[RUN_TAG] = f"{os.getpid()}.{time.time_ns()}"
-    try:
-        ctypes.CDLL(None, use_errno=True).prctl(
-            36, 1, 0, 0, 0)                 # PR_SET_CHILD_SUBREAPER, on
-    except (OSError, AttributeError):
-        pass
-    atexit.register(stop_strays, "exit", sys.stderr)
+    _BEFORE_RUN.update(_processes())
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:     # PR_SET_CHILD_SUBREAPER, on
+        print(f"chip_smoke: not the subreaper of its processes (errno "
+              f"{ctypes.get_errno()}); the tag alone finds them",
+              file=sys.stderr, flush=True)
+    atexit.register(_at_exit)
+    # SIGTERM ends the run through its exit, which stops its processes.
+    signal.signal(signal.SIGTERM, lambda signum, _: sys.exit(128 + signum))
+    threading.Thread(target=_run_limit, daemon=True).start()
 
 
-def _strays():
-    """``{pid: (state, command line)}`` of the live processes, this one
-    aside, that carry this run's tag."""
+def _run_limit():
+    """At ``RUN_LIMIT_S`` the run fails: SIGTERM to itself, and if that has
+    not ended it 10 s later, the processes stopped from here and an
+    immediate exit."""
+    time.sleep(max(0.0, _T0 + RUN_LIMIT_S - time.time()))
+    print(f"FAIL: the run passed its limit of {RUN_LIMIT_S:g} s",
+          flush=True)
+    os.kill(os.getpid(), signal.SIGTERM)
+    time.sleep(10)
+    stop_strays("limit", sys.stderr, force=True)
+    os._exit(1)
+
+
+def _processes():
+    """``{pid: (ppid, state, tagged, command line)}`` of every live
+    process, this one aside.  An exiting process's environment reads
+    empty, so it shows untagged."""
     mark = f"{RUN_TAG}={os.environ[RUN_TAG]}".encode()
-    found = {}
+    table = {}
     for d in os.listdir("/proc"):
         if not d.isdigit() or int(d) == os.getpid():
             continue
         try:
-            with open(f"/proc/{d}/environ", "rb") as fh:
-                if mark not in fh.read().split(b"\0"):
-                    continue
             with open(f"/proc/{d}/stat") as fh:
-                state = fh.read().rsplit(")", 1)[1].split()[0]
+                fields = fh.read().rsplit(")", 1)[1].split()
             with open(f"/proc/{d}/cmdline", "rb") as fh:
                 cmd = fh.read().replace(b"\0", b" ").decode(
                     errors="replace").strip()
         except OSError:
             continue
-        found[int(d)] = (state, cmd)
-    return found
+        try:
+            with open(f"/proc/{d}/environ", "rb") as fh:
+                tagged = mark in fh.read().split(b"\0")
+        except OSError:
+            tagged = False
+        table[int(d)] = (int(fields[1]), fields[0], tagged, cmd)
+    return table
+
+
+def _strays():
+    """``{pid: (state, command line)}`` of the run's processes still
+    alive, this one aside: those that carry its tag and every descendant
+    of this process or of them (an exiting one and a zombie too)."""
+    table = _processes()
+    children = {}
+    for pid, (ppid, _, _, _) in table.items():
+        children.setdefault(ppid, []).append(pid)
+    ours = {pid for pid, (_, _, tagged, _) in table.items() if tagged}
+    todo = [os.getpid(), *ours]
+    while todo:
+        for child in children.get(todo.pop(), ()):
+            if child not in ours:
+                ours.add(child)
+                todo.append(child)
+    return {pid: (table[pid][1], table[pid][3]) for pid in ours}
 
 
 def _reap_children():
@@ -377,27 +446,33 @@ def _reap_children():
             return
 
 
-def stop_strays(where, out=None, timeout_s=30.0):
+# Non-empty while phases run side by side: a phase's own sweep would stop
+# the other's processes, so the sweep waits for all of them to end.
+_SWEEPS_HELD = []
+
+
+def stop_strays(where, out=None, timeout_s=30.0, force=False):
     """Kills (SIGKILL) every process of this run still alive when no phase
-    is running, reaps them, and waits until none is left, naming each on
-    ``out`` (stdout by default) under ``where``.  Only the run's own
-    process sweeps (a rank or a test calling a phase does not).  Returns
-    the number found."""
-    import signal
+    is running, reaps them, and waits until none is left in the process
+    table, naming each on ``out`` (stdout by default) under ``where``.
+    Only the run's own process sweeps (a rank or a test calling a phase
+    does not), and only ``force`` sweeps while phases run side by side.
+    Returns the number found."""
     tag = os.environ.get(RUN_TAG, "")
-    if tag.split(".")[0] != str(os.getpid()):
+    if tag.split(".")[0] != str(os.getpid()) or (_SWEEPS_HELD and not force):
         return 0
     out = out or sys.stdout
     _reap_children()
-    found = _strays()
-    for pid in found:
-        try:
-            os.kill(pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
+    found = {}
+    left = _strays()
     t_end = time.time() + timeout_s
-    left = dict(found)
     while left and time.time() < t_end:
+        found.update(left)
+        for pid in left:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
         time.sleep(0.05)
         _reap_children()
         left = _strays()
@@ -409,6 +484,98 @@ def stop_strays(where, out=None, timeout_s=30.0):
               + (f"; still alive after {timeout_s:g} s: {sorted(left)}"
                  if left else ""), file=out, flush=True)
     return len(found)
+
+
+def _at_exit():
+    """The run's last act: stops its strays, then names on stderr any
+    process begun during the run that is not its own and still alive."""
+    stop_strays("exit", sys.stderr, force=True)
+    if os.environ.get(RUN_TAG, "").split(".")[0] != str(os.getpid()):
+        return
+    others = {pid: v for pid, v in _processes().items()
+              if pid not in _BEFORE_RUN}
+    if others:
+        print("exit: alive, begun during the run, not of it: " + "; ".join(
+            f"pid {pid} ppid {ppid} state {st}: {cmd[:200]}"
+            for pid, (ppid, st, _, cmd) in sorted(others.items())),
+            file=sys.stderr, flush=True)
+
+
+class _ThreadLines:
+    """``sys.stdout`` while phases run side by side: what a phase's thread
+    prints goes into that thread's own list, anything else to the real
+    stream, so that each phase's lines are printed together at its end."""
+
+    def __init__(self, real):
+        self.real = real
+        self.lines = {}
+
+    def write(self, text):
+        mine = self.lines.get(threading.get_ident())
+        if mine is None:
+            return self.real.write(text)
+        mine.append(text)
+        return len(text)
+
+    def flush(self):
+        if threading.get_ident() not in self.lines:
+            self.real.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def side_by_side(where, lanes):
+    """Runs ``lanes`` at once, a thread each: a lane runs its ``(name, fn,
+    *args)`` phases one after the other, and stops at a phase that raised.
+    The sweeps are held until every lane has ended; then each phase's lines
+    are printed in the lanes' order, each with its own time, and the run
+    sweeps.  Returns the phases' values by name; raises the first failed
+    phase's exception."""
+    out = _ThreadLines(sys.stdout)
+    lines, res, errs, times = {}, {}, {}, {}
+
+    def run(lane):
+        for name, fn, *args in lane:
+            out.lines[threading.get_ident()] = lines[name] = []
+            t0 = time.time()
+            try:
+                res[name] = fn(*args)
+            except BaseException as exc:    # noqa: B036 -- sys.exit too
+                errs[name] = exc
+            times[name] = time.time() - t0
+            if name in errs:
+                return
+
+    threads = [threading.Thread(target=run, args=(lane,), daemon=True)
+               for lane in lanes]
+    t0 = time.time()
+    _SWEEPS_HELD.append(where)
+    sys.stdout = out
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sys.stdout = out.real
+        _SWEEPS_HELD.remove(where)
+        for lane in lanes:
+            beside = ", ".join(name for other in lanes if other is not lane
+                               for name, *_ in other)
+            for name, *_ in lane:
+                sys.stdout.write("".join(lines.get(name, [])))
+                if name in times:
+                    print(f"{name}: the phase in {times[name]:.1f} s "
+                          f"(beside {beside})", flush=True)
+        sys.stdout.flush()
+    stop_strays(where)
+    print(f"{where}: side by side in {time.time() - t0:.1f} s", flush=True)
+    for lane in lanes:
+        for name, *_ in lane:
+            if name in errs:
+                raise errs[name]
+    return res
 
 
 def card_line() -> str:
@@ -1608,12 +1775,10 @@ def _checksum(torch, named):
     return [s1, s2]
 
 
-def e3_worker(args):
-    """One rank of E3, started by ``two_rank_phase`` with the launcher's
-    env: init -> broadcast_parameters from rank 0 (rank 1 starts from other
-    seeds) -> DistributedOptimizer(SGD) -> 5 steps on this rank's own
-    batch.  Writes its counters and checks as JSON to
-    ``rank<HOROVOD_RANK>.json`` in the directory ``args.e3_worker``."""
+def _e3_rank(args):
+    """E3 on this rank (the first part of ``e3_worker``): broadcast_parameters
+    from rank 0 (rank 1 starts from other seeds) -> DistributedOptimizer(SGD)
+    -> 5 steps on this rank's own batch; its counters and checks."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1621,8 +1786,6 @@ def e3_worker(args):
     from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fusion
-    torch.backends.cuda.matmul.allow_tf32 = False
-    hvd.init()
     r, dev = hvd.rank(), hvd.device()
     eng = hvd.common.basics._get_state().engine
     ctl = eng.controller
@@ -1683,10 +1846,7 @@ def e3_worker(args):
                flash=[fa.flash_attention_fwd.launches,
                       fa.flash_attention_bwd.launches_dq,
                       fa.flash_attention_bwd.launches_dkv])
-    hvd.shutdown()
-    _write_result(args.e3_worker, res)
-    print(f"e3 rank {r}: done", flush=True)
-    return 0
+    return res
 
 
 def _write_result(directory, res):
@@ -1713,7 +1873,7 @@ def launch_ranks(torch, flag, layers, seed, timeout_s, np_=2,
     return."""
     import signal
     import tempfile
-    tag = flag[2:].split("-")[0]        # "e13" of "--e13-worker"
+    tag = flag[2:].split("-")[0]        # "e3" of "--e3-worker"
     ndev = torch.cuda.device_count()
     if ndev >= np_:
         hosts = f"localhost:{np_}"
@@ -1862,22 +2022,20 @@ def _e4_bn(torch, dev, seed, rank):
     return x, g
 
 
-def e4_worker(args):
-    """One rank of E4, started by the port's launcher: reducescatter (Sum,
+def _e4_rank(args):
+    """E4 on this rank (``e3_worker``'s second part): reducescatter (Sum,
     then Average) of the training configuration's gradients and an
     allgather of the Sum's shards back; an even and a ragged alltoall of
     an expert dispatch's activation; allgather_object, then a join in
     which rank 1 submits one allreduce fewer; SyncBatchNorm forward and
     backward; the promoting allreduce dtypes against the JAX engine's
-    outcomes.  Each collective's launches and time are recorded; the
-    result goes to ``rank<HOROVOD_RANK>.json`` in ``args.e4_worker``."""
+    outcomes.  Each collective's launches and time are recorded."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.ops import engine as engine_mod
     from horovod_tpu_torch.ops import fusion
-    hvd.init()
     r, dev = hvd.rank(), hvd.device()
     eng = hvd.common.basics._get_state().engine
     seed = args.seed
@@ -2019,24 +2177,22 @@ def e4_worker(args):
                 promote[f"{what} {name} {op}"] = got == (want_dt, want)
         checks[f"promoting dtypes ({what})"] = all(
             v for k, v in promote.items() if k.startswith(what))
-    hvd.shutdown()
-    _write_result(args.e4_worker, dict(
+    return dict(
         rank=r, checks=checks, timing=timing, bn_err=bn_err,
         promote=promote, grad_bytes=nbytes, leaves=len(shapes),
-        card=torch.cuda.get_device_name(dev)))
-    print(f"e4 rank {r}: done", flush=True)
-    return 0
+        card=torch.cuda.get_device_name(dev))
 
 
-def e4_phase(torch, layers, seed, card, timeout_s=420):
-    """E4: the new collectives on two ranks through the port's launcher at
-    the training configuration's full width (``e4_worker``): every check
-    on both ranks, and pack launches = unpack launches = the dtype groups
-    of the collective's batches (the counts zeroed just before each)."""
-    results, route, wall = launch_ranks(torch, "--e4-worker", layers,
-                                            seed, timeout_s)
+def e4_phase(launch, card):
+    """E4: the new collectives on two ranks at the training
+    configuration's full width (``_e4_rank``, in ``e3_e5_launch``'s
+    world): every check on both ranks, and pack launches = unpack launches
+    = the dtype groups of the collective's batches (the counts zeroed just
+    before each)."""
+    results, route, wall = launch
     if results is None:
         return False, None
+    results = [res["e4"] for res in results]
     ok = True
     for res in results:
         for what, good in res["checks"].items():
@@ -2073,21 +2229,30 @@ def e4_phase(torch, layers, seed, card, timeout_s=420):
               f"pack/unpack launches {t['pack']}/{t['unpack']} -> "
               f"{'PASS' if counts_ok else 'FAIL'} [{card}; two ranks on "
               f"{route}, no NVLink figure]", flush=True)
-    print(f"e4: two ranks through the launcher in {wall:.1f} s -> "
-          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    print(f"e4: E4 on rank 0 in {results[0]['wall']:.1f} s of the launch's "
+          f"{wall:.1f} s -> {'PASS' if ok else 'FAIL'}", flush=True)
     return ok, launches
 
 
-def two_rank_phase(torch, layers, seed, timeout_s=600):
+def e3_e5_launch(torch, layers, seed, timeout_s=None):
+    """E3, E4 and E5's one launch of two ranks (``e3_worker``):
+    ``(results, route, wall)`` for ``two_rank_phase``, ``e4_phase`` and
+    ``e5_phase``."""
+    return launch_ranks(torch, "--e3-worker", layers, seed,
+                        timeout_s or E3_E5_TIMEOUT_S)
+
+
+def two_rank_phase(launch, layers):
     """E3: the training main path on two ranks over NCCL, one process each,
-    started by the port's launcher (``launch_ranks``)."""
+    started by the port's launcher (``e3_e5_launch``)."""
     import numpy as np
-    results, route, wall = launch_ranks(torch, "--e3-worker", layers,
-                                            seed, timeout_s)
+    results, route, wall = launch
     if results is None:
         return False, None
+    results = [res["e3"] for res in results]
     a, b = results
-    print(f"e3: two ranks ({route}) finished in {wall:.1f} s; broadcast of "
+    print(f"e3: two ranks ({route}) finished E3 in {a['wall']:.1f} s of "
+          f"the launch's {wall:.1f} s; broadcast of "
           f"{a['leaves']} parameters {a['bcast_s'] * 1e3:.1f} ms; parameters "
           f"differed before it: {a['sums_before'] != b['sums_before']}",
           flush=True)
@@ -2142,11 +2307,12 @@ def two_rank_phase(torch, layers, seed, timeout_s=600):
 # E5: sequence-parallel training at the full max_seq split over two ranks.
 E5_SEQ = 8192            # Llama-3-8B's max_seq: 4,096 tokens a rank at sp=2
 E5_CHECK_SEQ = 4096      # the gradient check's whole sequence
-E5_STEPS = 3
+E5_STEPS = 2             # cut from 3 in PR 18: the script's time
 # Ring against Ulysses, step 1, relative: bf16 activations, attention by
 # other kernels' schedules (sound runs read 0 and 1.1e-5).
 E5_LOSS_TOL = 1e-3
-E5_TIMEOUT_S = 420
+# E3, E4 and E5 share one launch (PR 18): one world formation for three.
+E3_E5_TIMEOUT_S = 900
 
 
 def _clone_tree(tree):
@@ -2159,8 +2325,8 @@ def _clone_tree(tree):
     return tree.detach().clone().requires_grad_(True)
 
 
-def e5_worker(args):
-    """One rank of E5, started by the port's launcher: the training main
+def _e5_rank(args):
+    """E5 on this rank (``e3_worker``'s third part): the training main
     path with the sequence split over ``make_mesh({"sp": 2})``.  From the
     weights broadcast from rank 0: the gradient check at E5_CHECK_SEQ
     (ring, then Ulysses: the optimizer's averaged gradients before
@@ -2169,8 +2335,7 @@ def e5_worker(args):
     E5_SEQ, each from the broadcast weights, with the launch counts zeroed
     just before each step and read just after, the exchange times (CUDA
     events around each exchange's wait, ``mesh.timing``) and the
-    parameters' checksums.  The result goes to ``rank<HOROVOD_RANK>.json``
-    in ``args.e5_worker``."""
+    parameters' checksums."""
     import dataclasses
     import numpy as np
     import torch
@@ -2179,15 +2344,6 @@ def e5_worker(args):
     from horovod_tpu_torch import parallel
     from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.ops import flash_attention as fa
-    import faulthandler
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # A hang is a failure: every thread's stack goes to the result
-    # directory before the phase's timeout kills the ranks.
-    stacks = open(os.path.join(args.e5_worker, "stacks"
-                               f"{os.environ['HOROVOD_RANK']}.txt"), "w")
-    faulthandler.dump_traceback_later(E5_TIMEOUT_S - 60, exit=False,
-                                      file=stacks)
-    hvd.init()
     r, n, dev = hvd.rank(), hvd.size(), hvd.device()
     from horovod_tpu_torch.common.basics import cuda_module_loading
     loading = cuda_module_loading()
@@ -2287,30 +2443,60 @@ def e5_worker(args):
             progress(f"{cfg.sp_impl} step {len(steps)} done")
         runs[cfg.sp_impl] = steps
     mesh.shutdown()
+    return dict(
+        rank=r, size=n, device=str(dev), card=torch.cuda.get_device_name(dev),
+        loading=loading, grad_check=grad_check, runs=runs)
+
+
+def e3_worker(args):
+    """One rank of E3, E4 and E5, started by ``e3_e5_launch`` through the
+    port's launcher (one world formation for the three): ``_e3_rank``,
+    ``_e4_rank``, ``_e5_rank`` in turn, each part's memory freed before
+    the next.  A hang is a failure: every thread's stack goes to the result
+    directory before the launch's timeout kills the ranks.  Writes
+    ``rank<HOROVOD_RANK>.json`` (``{"e3": ..., "e4": ..., "e5": ...}``) in
+    ``args.e3_worker``."""
+    import faulthandler
+    import gc
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stacks = open(os.path.join(args.e3_worker, "stacks"
+                               f"{os.environ['HOROVOD_RANK']}.txt"), "w")
+    faulthandler.dump_traceback_later(E3_E5_TIMEOUT_S - 60, exit=False,
+                                      file=stacks)
+    hvd.init()
+    res = {}
+    for part, fn in (("e3", _e3_rank), ("e4", _e4_rank), ("e5", _e5_rank)):
+        t0 = time.perf_counter()
+        res[part] = fn(args)
+        res[part]["wall"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    r = hvd.rank()
     hvd.shutdown()
     faulthandler.cancel_dump_traceback_later()
     stacks.close()
-    _write_result(args.e5_worker, dict(
-        rank=r, size=n, device=str(dev), card=torch.cuda.get_device_name(dev),
-        loading=loading, grad_check=grad_check, runs=runs))
-    print(f"e5 rank {r}: done", flush=True)
+    _write_result(args.e3_worker, res)
+    print(f"e3-e5 rank {r}: done", flush=True)
     return 0
 
 
-def e5_phase(torch, layers, seed, card, timeout_s=E5_TIMEOUT_S):
+def e5_phase(launch, layers, card):
     """E5: sequence-parallel training on two ranks through the port's
-    launcher (``e5_worker``), with the optimizer's hooks live: parameters
+    launcher (``_e5_rank``), with the optimizer's hooks live: parameters
     bitwise equal across ranks after every step, finite losses, the ring's
     and Ulysses' step-1 losses within E5_LOSS_TOL, the gradients within
     GRAD_TOL of a single-rank step, and the launch counts of the ring's
     schedule: on rank r of n, per step, the forward ``layers x (r + 1)``
     times and dq, dk/dv ``layers x (n - r)`` times each; Ulysses
-    ``layers`` each."""
+    ``layers`` each.  (``_e5_rank``, in ``e3_e5_launch``'s world.)"""
     import numpy as np
-    results, route, wall = launch_ranks(torch, "--e5-worker", layers,
-                                            seed, timeout_s)
+    results, route, wall = launch
     if results is None:
         return False, None
+    results = [res["e5"] for res in results]
     n, a = len(results), results[0]
     modes = [res["loading"] for res in results]
     ok = all(m == "EAGER" for m in modes)
@@ -2375,8 +2561,8 @@ def e5_phase(torch, layers, seed, card, timeout_s=E5_TIMEOUT_S):
               f"ranks), exchange {exch:.1f} ms a step (CUDA events around "
               f"the waits), peak memory {peak:.2f} GiB a rank [{card}; two "
               f"ranks on {route}]", flush=True)
-    print(f"e5: two ranks through the launcher in {wall:.1f} s -> "
-          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    print(f"e5: E5 on rank 0 in {a['wall']:.1f} s of the launch's "
+          f"{wall:.1f} s -> {'PASS' if ok else 'FAIL'}", flush=True)
     launches = [sum(st["launches"][k] for impl in ("ring", "ulysses")
                     for st in a["runs"][impl]) for k in range(3)]
     return ok, dict(launches=launches, summary=summary)
@@ -2967,7 +3153,7 @@ def adasum_phase(torch, ak, shapes, dev, seed, flush):
 E7_RANKS = 4
 E7_LOCAL = 2             # HOROVOD_HIERARCHICAL_LOCAL_SIZE: 2 slices of 2
 E7_LAYERS = 1             # one layer keeps the whole script in its limit
-E7_STEPS = 2              # two steps keep the whole script in its limit
+E7_STEPS = 1              # one step keeps the whole script in its limit
 # Adasum of four nearly orthogonal gradients is close to their sum, four
 # times the average that E3's TRAIN_LR was chosen for.
 E7_LR = TRAIN_LR / E7_RANKS
@@ -3998,8 +4184,9 @@ E10_CKPT_ITEMS = 8       # (d): checkpoint-lane items of 1 MiB each
 E10_CKPT_BYTES = 1 << 20
 E10_TUNE_LAYERS = 1      # (c): the autotuner over this Llama
 # Enough steps for the search to end on both ranks: at 4 steps it ran 3 of
-# its 4 evaluations, at 8 it ended within the fourth step after the first.
-E10_TUNE_STEPS = 6
+# its 4 evaluations, at 8 it ended within the fourth step after the first;
+# 6 ran 3 of 4 on a machine whose steps made fewer cycles (PR 18), so 9.
+E10_TUNE_STEPS = 9
 E10_TUNE_ENV = {"HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
                 "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
                 "HOROVOD_AUTOTUNE_MAX_EVALS": "4"}
@@ -5590,7 +5777,6 @@ E13_LAYERS = 1           # Mixtral-8x7B at full width, cut to one layer
 E13_SEQ = 2048           # tokens a rank (B = 1)
 E13_STEPS = 3
 E13_LR = 1e-3            # AdamW, its state in the parameters' bf16
-E13_TIMEOUT_S = 300
 # MLPerf DLRM's published widths (Criteo Terabyte): 26 tables x 128, 13
 # dense features, bottom MLP 512-256-128, top MLP 1024-1024-512-256-1 over
 # the JAX model's concatenated interaction; the rows cut from MLPerf's 40 M
@@ -5769,61 +5955,11 @@ def _e13_dlrm(torch, np, hvd, args, mesh, progress):
     mlp = {nm: (t.detach().cpu(), (t.detach() - mlp_before[nm]).cpu())
            for nm, t in rep}
     torch.save(dict(rows=touched, mlp=mlp),
-               os.path.join(args.e13_worker, f"dlrm{r}.pt"))
+               os.path.join(args.e14_worker, f"dlrm{r}.pt"))
     eps.shutdown()
     progress("(b) steps done")
     return dict(steps=steps, tables=len(mine),
                 table_gib=params["tables"].numel() * 4 / 2**30)
-
-
-def e13_worker(args):
-    """One rank of E13, started by the port's launcher on ``make_mesh({"ep":
-    2})``: (a) Mixtral-8x7B at full width, E13_LAYERS deep, bf16, B=1 x
-    E13_SEQ tokens a rank, the replicated leaves through
-    ``DistributedOptimizer(AdamW)`` and the expert slabs through
-    ``ExpertParallel(AdamW)`` (1/ep, never averaged over ep), E13_STEPS
-    steps: step 1 opened for the gradient check against the reference
-    with every expert local, launch counts zeroed before each step and read
-    after, the all-to-all marks, routed and dropped tokens, checksums of
-    the replicated leaves and of the slab; (b) DLRM at MLPerf's widths
-    (E13_DLRM), its tables split over ep, SGD, E13_STEPS steps on
-    E13_DLRM_BATCH rows a rank.  Writes ``rank<HOROVOD_RANK>.json`` (and
-    ``dlrm<rank>.pt``) in ``args.e13_worker``."""
-    import faulthandler
-    import numpy as np
-    import torch
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import parallel
-    torch.backends.cuda.matmul.allow_tf32 = False
-    stacks = open(os.path.join(args.e13_worker, "stacks"
-                               f"{os.environ['HOROVOD_RANK']}.txt"), "w")
-    faulthandler.dump_traceback_later(E13_TIMEOUT_S - 30, exit=False,
-                                      file=stacks)
-    hvd.init()
-    r, n = hvd.rank(), hvd.size()
-    t_start = time.perf_counter()
-
-    def progress(what):
-        print(f"e13 rank {r}: {what} at "
-              f"{time.perf_counter() - t_start:.1f} s", flush=True)
-    mesh = parallel.make_mesh({"ep": n})
-    res = dict(rank=r, size=n, card=torch.cuda.get_device_name(
-        hvd.device()))
-    t0 = time.perf_counter()
-    res["moe"] = _e13_moe(torch, np, hvd, args, mesh, progress)
-    res["moe"]["wall"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    res["dlrm"] = _e13_dlrm(torch, np, hvd, args, mesh, progress)
-    res["dlrm"]["wall"] = time.perf_counter() - t0
-    mesh.shutdown()
-    hvd.shutdown()
-    faulthandler.cancel_dump_traceback_later()
-    stacks.close()
-    _write_result(args.e13_worker, res)
-    print(f"e13 rank {r}: done", flush=True)
-    return 0
 
 
 def _e13_dlrm_reference(torch, seed, n, saved, dev="cuda:0"):
@@ -5881,9 +6017,11 @@ def _e13_dlrm_reference(torch, seed, n, saved, dev="cuda:0"):
     return losses, held, worst, rows
 
 
-def e13_phase(torch, layers, seed, card, timeout_s=E13_TIMEOUT_S):
-    """E13: expert parallelism on two ranks through the port's launcher
-    (``e13_worker``), on ``{ep: 2}``.  (a) Mixtral at full width: every
+def _e13_report(torch, np, results, saved, layers, seed, card, route,
+                wall):
+    """E13's checks and lines, from the ranks' records of the launch E13
+    shares with E14 and E15 (``e14_worker``), on ``{ep: 2}``.  (a) Mixtral
+    at full width: every
     leaf's step-1 gradient (the replicated leaves world-averaged, the slab
     after the 1/ep rule) within GRAD_TOL (relative norm) of the reference
     with every expert local; the replicated leaves bitwise equal across
@@ -5894,15 +6032,8 @@ def e13_phase(torch, layers, seed, card, timeout_s=E13_TIMEOUT_S):
     step 1 within E13_LOSS_CHANGE_TOL of the reference's, the MLPs and
     every table row the steps touched within E13_TABLE_TOL and their
     updates within E13_UPDATE_TOL (relative norm) of the reference's, the
-    MLPs bitwise across the ranks."""
-    import numpy as np
-    results, route, wall = launch_ranks(
-        torch, "--e13-worker", layers, seed, timeout_s,
-        inspect=lambda tmp: [torch.load(os.path.join(tmp, f"dlrm{r}.pt"))
-                             for r in range(2)])
-    if results is None:
-        return False, None
-    saved, results = results[-1], results[:-1]
+    MLPs bitwise across the ranks.  ``saved``: each rank's
+    ``dlrm<rank>.pt``."""
     n = len(results)
     ok = True
     # (a) MoE.
@@ -5995,8 +6126,8 @@ def e13_phase(torch, layers, seed, card, timeout_s=E13_TIMEOUT_S):
           f"{n * E13_DLRM_BATCH / med * 1e3:.0f} samples/s, peak "
           f"{max(st['peak_gib'] for d in runs for st in d['steps']):.2f} "
           f"GiB a rank [{card}; two ranks on {route}]", flush=True)
-    print(f"e13: two ranks through the launcher in {wall:.1f} s -> "
-          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    print(f"e13: E13 on rank 0 in {results[0]['e13_wall']:.1f} s of the "
+          f"launch's {wall:.1f} s -> {'PASS' if ok else 'FAIL'}", flush=True)
     flash = [sum(st["launches"][k] for st in results[0]["moe"]["steps"])
              for k in range(3)]
     return ok, dict(flash=flash)
@@ -6013,7 +6144,7 @@ E14_NEW = 8
 E14_BERT_LAYERS = 4      # (c): BERT-Large's width, B=8 x T=512 (E6's)
 E14_BERT_BATCH = 8
 E14_BERT_SEQ = 512
-E14_TIMEOUT_S = 300
+E14_TIMEOUT_S = 420      # E13, E14 and E15 in one launch
 
 
 def _e14_ref_grads(torch, tl, parallel, full, loss, specs, mesh):
@@ -6211,9 +6342,172 @@ def _e14_bert(torch, np, hvd, args, mesh, progress):
                 heads=cfg.n_heads // mesh.size("tp"))
 
 
+E15_LAYERS = 2           # Llama-3-8B at full width, one layer a stage
+E15_BATCH = 2            # B x E15_SEQ tokens, the same on both stages
+E15_SEQ = TRAIN_SEQ
+E15_MICRO = 2            # microbatches: mb = 1
+E15_STEPS = 2            # cut from 3: the script's time (PERF.md §6 PR 18)
+E15_LR = 1e-3            # AdamW, its state in the parameters' bf16
+
+
+def _e15_params(torch, tl, parallel, args, mesh, cfg, dev, ref=False):
+    """This stage's parameters (the stacked slab cut for ``cfg``) from the
+    pp-off model drawn from the seed, and the tokens; with ``ref`` also the
+    pp-off model's step-1 gradients cut the same way."""
+    import numpy as np
+    cfg0 = tl.llama3_8b(n_layers=E15_LAYERS)
+    full = tl.init_params(cfg0, torch.Generator(device=dev).manual_seed(
+        args.seed + 23))
+    toks = torch.from_numpy(np.random.RandomState(args.seed + 24).randint(
+        0, cfg.vocab_size, (E15_BATCH, E15_SEQ + 1)).astype(np.int64)).to(
+        dev)
+    x, y = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+    grads = None
+    if ref:
+        tl.loss_fn(full, x, y, cfg0).backward()
+        tree = {k: (v.grad if k != "layers" else
+                    [{n: t.grad for n, t in lay.items()} for lay in v])
+                for k, v in full.items()}
+        grads = dict(tl.named_parameters(tl.shard_params(
+            tl.stack_layers(tree), cfg, mesh)))
+        for _, t in tl.named_parameters(full):
+            t.grad = None
+    params = tl.shard_params(tl.stack_layers(full), cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    return params, x, y, grads
+
+
+def _e15_open_step(torch, fa, tl, params, x, y, cfg, mesh, opt, shards):
+    """One step opened after the gradients' sync: ``(loss, the step's
+    peak above its start (GiB), the launches)``; the gradients stay on the
+    leaves until the optimizers step."""
+    _zero_flash(fa)
+    opt.zero_grad()
+    shards.zero_grad()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = tl.loss_fn(params, x, y, cfg, mesh)
+    loss.backward()
+    opt.synchronize()
+    shards.sync_grads()
+    torch.cuda.synchronize()
+    return (loss.detach(), (torch.cuda.max_memory_allocated() - base) / 2**30,
+            _flash_counts(fa))
+
+
+def _e15_optimizers(torch, hvd, parallel, named, specs, mesh):
+    rep, sh = parallel.split_named(named, specs, ("pp",))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([t for _, t in rep], lr=E15_LR),
+        named_parameters=rep)
+    shards = parallel.ShardedParallel(
+        mesh, torch.optim.AdamW([t for _, t in sh], lr=E15_LR), sh, specs)
+    return rep, sh, opt, shards
+
+
+def _e15_train(torch, np, hvd, args, mesh, progress):
+    """E15 (a) on this rank: Llama-3-8B width, one layer a stage on ``{pp:
+    n}``, ``pp_loss="broadcast"``.  Returns its record and the step-1
+    gradients (for (b))."""
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    dev = hvd.device()
+    cfg = tl.llama3_8b(n_layers=E15_LAYERS, pp_axis="pp",
+                       n_microbatches=E15_MICRO, pp_loss="broadcast")
+    specs = tl.param_specs(cfg)
+    params, x, y, ref = _e15_params(torch, tl, parallel, args, mesh, cfg,
+                                    dev, ref=True)
+    progress("(a) reference gradients done")
+    named = list(tl.named_parameters(params))
+    rep, sh, opt, shards = _e15_optimizers(torch, hvd, parallel, named,
+                                           specs, mesh)
+    step = tl.make_train_step(cfg, opt, mesh, shards)
+    steps, grad_err, grads1 = [], {}, {}
+    for i in range(E15_STEPS):
+        mesh.timing = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            loss, peak, launches = _e15_open_step(
+                torch, fa, tl, params, x, y, cfg, mesh, opt, shards)
+            grad_err = {nm: _rel_norm(torch, t.grad, ref[nm])
+                        for nm, t in named}
+            grads1 = {nm: t.grad.clone() for nm, t in named}
+            with opt.skip_synchronize():
+                opt.step()
+            shards.optimizer.step()
+        else:
+            _zero_flash(fa)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss = step(params, x, y)
+            launches = _flash_counts(fa)
+        lv = loss.item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i > 0:
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        marks, mesh.timing = mesh.timing, None
+        steps.append(dict(
+            loss=lv, s=dt, exchanges=len(marks),
+            exchange_ms=parallel.timed_ms(marks), launches=launches,
+            peak_gib=peak, total_gib=torch.cuda.max_memory_allocated() / 2**30,
+            rep=_checksum(torch, rep), shards=_checksum(torch, sh)))
+        if i == 0:
+            del ref
+        progress(f"(a) step {i + 1} done")
+    shards.shutdown()
+    d = cfg.d_model
+    return dict(steps=steps, grad_err=grad_err, leaves=[len(rep), len(sh)],
+                stage=mesh.index("pp"),
+                hop_bytes=E15_BATCH // E15_MICRO * E15_SEQ * d * 2,
+                psum_bytes=E15_BATCH * E15_SEQ * d * 2,
+                slab_gib=sum(t.numel() * t.element_size()
+                             for _, t in sh) / 2**30), grads1
+
+
+def _e15_remat(torch, np, hvd, args, mesh, progress, grads_a):
+    """E15 (b) on this rank: one step at ``pp_loss="last_stage"`` with
+    ``remat_stages``, from (a)'s weights and tokens: its step-1 gradients
+    against (a)'s, its peak, its launches and exchanges."""
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    dev = hvd.device()
+    cfg = tl.llama3_8b(n_layers=E15_LAYERS, pp_axis="pp",
+                       n_microbatches=E15_MICRO, pp_loss="last_stage",
+                       remat_stages=True)
+    specs = tl.param_specs(cfg)
+    params, x, y, _ = _e15_params(torch, tl, parallel, args, mesh, cfg, dev)
+    named = list(tl.named_parameters(params))
+    rep, sh, opt, shards = _e15_optimizers(torch, hvd, parallel, named,
+                                           specs, mesh)
+    mesh.timing = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, peak, launches = _e15_open_step(torch, fa, tl, params, x, y, cfg,
+                                          mesh, opt, shards)
+    dt = time.perf_counter() - t0
+    marks, mesh.timing = mesh.timing, None
+    grad_err = {nm: _rel_norm(torch, t.grad, grads_a[nm]) for nm, t in named}
+    with opt.skip_synchronize():
+        opt.step()
+    shards.optimizer.step()
+    lv = loss.item()
+    shards.shutdown()
+    progress("(b) remat step done")
+    return dict(loss=lv, s=dt, peak_gib=peak, launches=launches,
+                exchanges=len(marks), exchange_ms=parallel.timed_ms(marks),
+                grad_err=grad_err)
+
+
 def e14_worker(args):
-    """One rank of E14, started by the port's launcher on ``make_mesh({"tp":
-    2})``: (a) Llama-3-8B at full width, E14_LAYERS deep, bf16, B=1 x
+    """One rank of E13, E14 and E15, started by the port's launcher: first
+    E13 on ``make_mesh({"ep": 2})`` (``_e13_moe``, ``_e13_dlrm``), then E14
+    on ``make_mesh({"tp": 2})``: (a) Llama-3-8B at full width, E14_LAYERS deep, bf16, B=1 x
     E14_SEQ tokens on both ranks, the replicated leaves through
     ``DistributedOptimizer(AdamW)`` and the tp shards through
     ``ShardedParallel(AdamW)``, E14_STEPS steps: step 1 opened for the
@@ -6223,9 +6517,11 @@ def e14_worker(args):
     leaves and of the shards; (b) E14_PROMPTS prompts of E14_PROMPT
     tokens, prefill and E14_NEW greedy tokens at tp = 2 against the tp-off
     run on this rank; (c) BERT-Large's width at E14_BERT_LAYERS, one step's
-    gradients against tp-off.  Writes ``rank<HOROVOD_RANK>.json`` in
-    ``args.e14_worker``."""
+    gradients against tp-off.  Then E15 in the same world, on
+    ``make_mesh({"pp": 2})`` (``_e15_train``, ``_e15_remat``).  Writes
+    ``rank<HOROVOD_RANK>.json`` in ``args.e14_worker``."""
     import faulthandler
+    import gc
     import numpy as np
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6241,17 +6537,39 @@ def e14_worker(args):
     t_start = time.perf_counter()
 
     def progress(what):
-        print(f"e14 rank {r}: {what} at "
+        print(f"e13-e15 rank {r}: {what} at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
-    mesh = parallel.make_mesh({"tp": n})
     res = dict(rank=r, size=n, card=torch.cuda.get_device_name(
         hvd.device()))
+    # E13 first, in the same world: expert parallelism on {ep: n}.
+    mesh = parallel.make_mesh({"ep": n})
+    for part, fn in (("moe", _e13_moe), ("dlrm", _e13_dlrm)):
+        t0 = time.perf_counter()
+        res[part] = fn(torch, np, hvd, args, mesh, progress)
+        res[part]["wall"] = time.perf_counter() - t0
+        gc.collect()        # the DLRM's 6.7 GB of tables, before E14's
+        torch.cuda.empty_cache()
+    res["e13_wall"] = time.perf_counter() - t_start
+    mesh.shutdown()
+    t14 = time.perf_counter()
+    mesh = parallel.make_mesh({"tp": n})
     for part, fn in (("train", _e14_train), ("decode", _e14_decode),
                      ("bert", _e14_bert)):
         t0 = time.perf_counter()
         res[part] = fn(torch, np, hvd, args, mesh, progress)
         res[part]["wall"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
+    res["e14_wall"] = time.perf_counter() - t14
+    mesh.shutdown()
+    # E15 in the same world: pipeline parallelism on {pp: n}.
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh({"pp": n})
+    res["pp"], grads = _e15_train(torch, np, hvd, args, mesh, progress)
+    res["pp"]["wall"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    res["pp_remat"] = _e15_remat(torch, np, hvd, args, mesh, progress, grads)
+    del grads
+    res["e15_wall"] = time.perf_counter() - t0
     mesh.shutdown()
     hvd.shutdown()
     faulthandler.cancel_dump_traceback_later()
@@ -6278,10 +6596,15 @@ def e14_phase(torch, layers, seed, card, timeout_s=E14_TIMEOUT_S):
     E14_BERT_LAYERS each.  The times carry "sockets" where the two ranks
     share one card."""
     import numpy as np
-    results, route, wall = launch_ranks(torch, "--e14-worker", layers, seed,
-                                        timeout_s)
+    results, route, wall = launch_ranks(
+        torch, "--e14-worker", layers, seed, timeout_s,
+        inspect=lambda tmp: [torch.load(os.path.join(tmp, f"dlrm{r}.pt"))
+                             for r in range(2)])
     if results is None:
         return False, None
+    saved, results = results[-1], results[:-1]
+    ok13, e13 = _e13_report(torch, np, results, saved, E13_LAYERS, seed,
+                            card, route, wall)
     n = len(results)
     via = "sockets" if "socket" in route else "NCCL"
     ok = True
@@ -6380,13 +6703,119 @@ def e14_phase(torch, layers, seed, card, timeout_s=E14_TIMEOUT_S):
               f"near-uniform attention rows that cancel, ds rounded to bf16); "
               f"flash launches {b['launches']} -> "
               f"{'PASS' if good else 'FAIL'}", flush=True)
-    print(f"e14: two ranks through the launcher in {wall:.1f} s -> "
-          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    print(f"e14: E14 on rank 0 in {results[0]['e14_wall']:.1f} s "
+          f"-> {'PASS' if ok else 'FAIL'}", flush=True)
+    ok15, flash15 = _e15_report(np, results, card, via, route)
+    print(f"e14/e15: two ranks through the launcher in {wall:.1f} s (E15 "
+          f"{results[0]['e15_wall']:.1f} s of it on rank 0) -> "
+          f"{'PASS' if ok and ok15 else 'FAIL'}", flush=True)
     r0 = results[0]
     flash = [sum(st["launches"][k] for st in r0["train"]["steps"])
              + r0["decode"]["launches"][k] + r0["bert"]["launches"][k]
              for k in range(3)]
-    return ok, dict(flash=flash)
+    return ok and ok15, dict(flash=flash, flash15=flash15, ok13=ok13,
+                             e13=e13, e13_s=results[0]["e13_wall"],
+                             e15_s=results[0]["e15_wall"])
+
+
+def _e15_report(np, results, card, via, route):
+    """E15's checks and lines, from the ranks' records of E14's launch:
+    (a) every leaf's step-1 gradient (the replicated leaves world-averaged
+    under the pp rule, the slabs through ``ShardedParallel``) within
+    GRAD_TOL (relative norm) of the matching slab of the pp-off model's;
+    the losses finite and bitwise equal across the stages, the replicated
+    leaves bitwise equal after every step and the slabs not; the flash
+    launches E15_MICRO x (layers a stage) of each kernel a step on each
+    rank.  (b) ``last_stage`` with ``remat_stages``: the step-1 gradients
+    within GRAD_TOL of (a)'s, the step's peak above its start below (a)'s
+    step 1 on each rank, the forward launches twice (a)'s (the stage
+    recomputed in the backward) and dq, dk/dv as (a)'s, the losses
+    bitwise equal across the stages.  Returns ``(ok, rank 0's launches)``."""
+    n = len(results)
+    per = E15_MICRO * E15_LAYERS // n
+    runs = [res["pp"] for res in results]
+    ok = True
+    for i, steps in enumerate(zip(*(t["steps"] for t in runs))):
+        rep_same = len({str(st["rep"]) for st in steps}) == 1
+        slabs_differ = len({str(st["shards"]) for st in steps}) == n
+        losses = [st["loss"] for st in steps]
+        same_loss = all(np.isfinite(v) for v in losses) \
+            and len(set(losses)) == 1
+        launches = all(st["launches"] == [per] * 3 for st in steps)
+        good = rep_same and slabs_differ and same_loss and launches
+        ok = ok and good
+        print(f"e15 (a): step {i + 1}: losses {losses} (bitwise equal "
+              f"across stages: {len(set(losses)) == 1}); replicated leaves "
+              f"bitwise equal across ranks: {rep_same}; slabs differ: "
+              f"{slabs_differ}; flash launches fwd/dq/dkv "
+              f"{[st['launches'] for st in steps]}; step "
+              f"{_joined(st['s'] * 1e3 for st in steps)} ms"
+              f"{' (with the gradient check)' if i == 0 else ''}; "
+              f"{[st['exchanges'] for st in steps]} pp exchanges taking "
+              f"{_joined(st['exchange_ms'] for st in steps)} ms ({via}); "
+              f"peak above the step's start "
+              f"{_joined((st['peak_gib'] for st in steps), '{:.2f}')} GiB -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    for res, t in zip(results, runs):
+        worst = max(t["grad_err"].values())
+        good = worst <= GRAD_TOL
+        ok = ok and good
+        name = max(t["grad_err"], key=t["grad_err"].get)
+        print(f"e15 (a): rank {res['rank']} (stage {t['stage']}): step-1 "
+              f"gradients of {sum(t['leaves'])} leaves ({t['leaves'][1]} "
+              f"of them slab leaves, {t['slab_gib']:.2f} GiB) against the "
+              f"pp-off model: worst relative norm {worst:.3e} ({name}; tol "
+              f"{GRAD_TOL:g}); embed {t['grad_err']['embed']:.3e}, lm_head "
+              f"{t['grad_err']['lm_head']:.3e} -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+    a = runs[0]["steps"][1:]
+    med = sorted(st["s"] for st in a)[len(a) // 2] * 1e3
+    exch = sorted(st["exchange_ms"] for st in a)[len(a) // 2]
+    steps_label = ("step 2" if E15_STEPS == 2 else
+                   f"the median of steps 2-{E15_STEPS}")
+    tokens = E15_BATCH * E15_SEQ
+    bubble = (n - 1) / (n + E15_MICRO - 1)
+    print(f"e15 (a): Llama-3-8B width, {E15_LAYERS} layers over pp = {n} "
+          f"({E15_LAYERS // n} a stage), B={E15_BATCH} x T={E15_SEQ}, "
+          f"M={E15_MICRO}, bubble (S-1)/(S+M-1) = {bubble:.3f}: step "
+          f"{med:.1f} ms on rank 0 ({steps_label}), the "
+          f"{a[0]['exchanges']} pp exchanges {exch:.1f} ms of it ({via}, "
+          f"CUDA events around each): {E15_MICRO} activation hops of "
+          f"{runs[0]['hop_bytes'] / 1e6:.1f} MB each way and the output's "
+          f"sum over pp ({runs[0]['psum_bytes'] / 1e6:.1f} MB); "
+          f"{tokens / med * 1e3:.1f} tokens/s; peak "
+          f"{max(st['total_gib'] for t in runs for st in t['steps']):.2f} "
+          f"GiB a rank (allocated), the rank's (a) in {runs[0]['wall']:.1f} s"
+          f" [{card}; two ranks on {route}]", flush=True)
+    for res, t in zip(results, runs):
+        b = res["pp_remat"]
+        worst = max(b["grad_err"].values())
+        name = max(b["grad_err"], key=b["grad_err"].get)
+        peak_a = t["steps"][0]["peak_gib"]
+        good = (worst <= GRAD_TOL and b["peak_gib"] < peak_a
+                and b["launches"] == [2 * per, per, per]
+                and np.isfinite(b["loss"]))
+        ok = ok and good
+        print(f"e15 (b): rank {res['rank']} (stage {t['stage']}): "
+              f"last_stage + remat_stages, one step: loss {b['loss']:.6f}; "
+              f"step-1 gradients against (a)'s: worst relative norm "
+              f"{worst:.3e} ({name}; tol {GRAD_TOL:g}); peak above the "
+              f"step's start {b['peak_gib']:.2f} GiB against (a)'s "
+              f"{peak_a:.2f}; flash launches {b['launches']} (the rule: "
+              f"forward 2 x M x layers a stage, the stage recomputed in the "
+              f"backward; dq, dk/dv M x layers); {b['exchanges']} pp "
+              f"exchanges taking {b['exchange_ms']:.1f} ms; the step "
+              f"{b['s'] * 1e3:.1f} ms -> {'PASS' if good else 'FAIL'}",
+              flush=True)
+    same = len({res["pp_remat"]["loss"] for res in results}) == 1
+    ok = ok and same
+    print(f"e15 (b): losses bitwise equal across the stages (the last "
+          f"stage's, by a scalar sum over pp): {same} -> "
+          f"{'PASS' if same else 'FAIL'}", flush=True)
+    r0 = results[0]
+    flash = [sum(st["launches"][k] for st in r0["pp"]["steps"])
+             + r0["pp_remat"]["launches"][k] for k in range(3)]
+    return ok, flash
 
 
 def trace_ab_phase(torch, hvd, grads, iters=5):
@@ -6446,10 +6875,6 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--e3-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E3
-    ap.add_argument("--e4-worker", metavar="RESULT_DIR",
-                    help=argparse.SUPPRESS)   # one rank of phase E4
-    ap.add_argument("--e5-worker", metavar="RESULT_DIR",
-                    help=argparse.SUPPRESS)   # one rank of phase E5
     ap.add_argument("--e6-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of phase E6
     ap.add_argument("--e7-worker", metavar="RESULT_DIR",
@@ -6468,10 +6893,8 @@ def main():
                     help=argparse.SUPPRESS)   # E12's elastic driver
     ap.add_argument("--e12-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one worker of E12
-    ap.add_argument("--e13-worker", metavar="RESULT_DIR",
-                    help=argparse.SUPPRESS)   # one rank of E13
     ap.add_argument("--e14-worker", metavar="RESULT_DIR",
-                    help=argparse.SUPPRESS)   # one rank of E14
+                    help=argparse.SUPPRESS)   # one rank of E13-E15
     args = ap.parse_args()
 
     import torch
@@ -6494,10 +6917,6 @@ def main():
         return 2
     if args.e3_worker:
         return e3_worker(args)
-    if args.e4_worker:
-        return e4_worker(args)
-    if args.e5_worker:
-        return e5_worker(args)
     if args.e6_worker:
         return e6_worker(args)
     if args.e7_worker:
@@ -6516,8 +6935,6 @@ def main():
         return e12_driver(args)
     if args.e12_worker:
         return e12_worker(args)
-    if args.e13_worker:
-        return e13_worker(args)
     if args.e14_worker:
         return e14_worker(args)
     tag_run()
@@ -6585,12 +7002,17 @@ def main():
     ab_ok = trace_ab_phase(torch, hvd, grads)
     del grads
     torch.cuda.empty_cache()
-    two_ok, two = two_rank_phase(torch, E3_LAYERS, args.seed)
-    four_ok, four = e4_phase(torch, E3_LAYERS, args.seed, card)
+    t_e3 = time.time()
+    launch = e3_e5_launch(torch, E3_LAYERS, args.seed)
+    two_ok, two = two_rank_phase(launch, E3_LAYERS)
+    four_ok, four = e4_phase(launch, card)
     engine_ok = (loading_ok and fusion_ok and layout_ok and size1_ok
                  and two_ok and four_ok
                  and no_spills)
-    sp_ok, sp = e5_phase(torch, E3_LAYERS, args.seed, card)
+    sp_ok, sp = e5_phase(launch, E3_LAYERS, card)
+    del launch
+    print(f"e3-e5: the phase in {time.time() - t_e3:.1f} s (one launch)",
+          flush=True)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     resnet_ok, _ = resnet_phase(torch, hvd, fa, args.seed, card, flush)
     del flush
@@ -6610,18 +7032,20 @@ def main():
     t_e10 = time.time()
     e10_ok, e10 = e10_phase(torch, E10_LAYERS, args.seed, card)
     print(f"e10: the phase in {time.time() - t_e10:.1f} s", flush=True)
-    t_e11 = time.time()
-    e11_ok, e11 = e11_phase(torch, E11_LAYERS, args.seed, card)
-    print(f"e11: the phase in {time.time() - t_e11:.1f} s", flush=True)
-    t_e12 = time.time()
-    e12_ok, e12 = e12_phase(torch, E12_LAYERS, args.seed, card)
-    print(f"e12: the phase in {time.time() - t_e12:.1f} s", flush=True)
-    t_e13 = time.time()
-    e13_ok, e13 = e13_phase(torch, E13_LAYERS, args.seed, card)
-    print(f"e13: the phase in {time.time() - t_e13:.1f} s", flush=True)
-    t_e14 = time.time()
-    e14_ok, e14 = e14_phase(torch, E14_LAYERS, args.seed, card)
-    print(f"e14: the phase in {time.time() - t_e14:.1f} s", flush=True)
+    # The elastic phases wait on world formations, commits and the policy's
+    # clocks far more than on the card, so they run side by side, and
+    # E13-E15 follows E11 into E12's idle wait for the scale-in (PERF.md
+    # §6 PR 18).
+    res = side_by_side("e11-e15", (
+        (("e11", e11_phase, torch, E11_LAYERS, args.seed, card),
+         ("e13-e15", e14_phase, torch, E14_LAYERS, args.seed, card)),
+        (("e12", e12_phase, torch, E12_LAYERS, args.seed, card),)))
+    (e11_ok, e11), (e12_ok, e12) = res["e11"], res["e12"]
+    e14_ok, e14 = res["e13-e15"]
+    e13_ok, e13 = (e14["ok13"], e14["e13"]) if e14 else (False, None)
+    print(f"e13-e15: one launch: E13 {e14['e13_s'] if e14 else 0:.1f} s, "
+          f"E15 {e14['e15_s'] if e14 else 0:.1f} s of it on rank 0, the "
+          f"DLRM reference after it", flush=True)
 
     by_name = {c["case"]: c for c in cases}
     fwd, fwd_train = cases[0], by_name[TRAIN_CASE]   # serving, training
@@ -6643,15 +7067,16 @@ def main():
     f12 = e12["flash"] if e12 else [0, 0, 0]
     f13 = e13["flash"] if e13 else [0, 0, 0]
     f14 = e14["flash"] if e14 else [0, 0, 0]
+    f15 = e14["flash15"] if e14 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
                 + e5[0] + m6[0] + f8[0] + f9[0] + f10[0] + f11[0] + f12[0]
-                + f13[0] + f14[0],
+                + f13[0] + f14[0] + f15[0],
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
                 + m6[1] + f8[1] + f9[1] + f10[1] + f11[1] + f12[1] + f13[1]
-                + f14[1],
+                + f14[1] + f15[1],
                 "flash_bwd_dkv": train_launches["flash_bwd_dkv"] + e5[2]
                 + m6[2] + f8[2] + f9[2] + f10[2] + f11[2] + f12[2]
-                + f13[2] + f14[2]}
+                + f13[2] + f14[2] + f15[2]}
     print(f"launches on the main paths: flash_fwd {serve_launches} serving "
           f"+ {train_launches['flash_fwd']} training + {e5[0]} "
           f"sequence-parallel (E5 rank 0) + {m6[0]} models (E6, rank 0 at "
@@ -6660,13 +7085,14 @@ def main():
           f"{f11[0]} elastic (E11, rank 0 of each generation) + {f12[0]} "
           f"drains and autoscaling (E12, rank 0 of each generation) + "
           f"{f13[0]} expert parallelism (E13, rank 0) + {f14[0]} tensor "
-          f"parallelism (E14, rank 0); "
+          f"parallelism (E14, rank 0) + {f15[0]} pipeline parallelism "
+          f"(E15, rank 0); "
           f"flash_bwd_dq {train_launches['flash_bwd_dq']} + {e5[1]} + "
           f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]} + {f11[1]} + {f12[1]} "
-          f"+ {f13[1]} + {f14[1]}, flash_bwd_dkv "
+          f"+ {f13[1]} + {f14[1]} + {f15[1]}, flash_bwd_dkv "
           f"{train_launches['flash_bwd_dkv']} + "
           f"{e5[2]} + {m6[2]} + {f8[2]} + {f9[2]} + {f10[2]} + {f11[2]} + "
-          f"{f12[2]} + {f13[2]} + {f14[2]}",
+          f"{f12[2]} + {f13[2]} + {f14[2]} + {f15[2]}",
           flush=True)
     src = "horovod_tpu_torch/ops/csrc/"
     kernels = [
@@ -6693,6 +7119,7 @@ def main():
              launches_e6=m6[0], launches_e8=f8[0], launches_e9=f9[0],
              launches_e10=f10[0], launches_e11=f11[0],
              launches_e12=f12[0], launches_e13=f13[0], launches_e14=f14[0],
+             launches_e15=f15[0],
              **{f"tp_{k}": fwd_tp[k] for k in _CASE_KEYS},
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
@@ -6722,6 +7149,7 @@ def main():
              launches_e12=f12[1 if g == "dq" else 2],
              launches_e13=f13[1 if g == "dq" else 2],
              launches_e14=f14[1 if g == "dq" else 2],
+             launches_e15=f15[1 if g == "dq" else 2],
              **{f"tp_{k}": bwd_tp[g][k] for k in _CASE_KEYS
                 if k in bwd_tp[g]},
              tp_plain_ms=bwd_tp["plain_ms"],
@@ -6818,7 +7246,7 @@ def main():
               f"ok={e9_ok}, data-plane depth (E10) ok={e10_ok}, elastic "
               f"(E11) ok={e11_ok}, drains and autoscaling (E12) "
               f"ok={e12_ok}, expert parallelism (E13) ok={e13_ok}, tensor "
-              f"parallelism (E14) ok={e14_ok}")
+              f"and pipeline parallelism (E14, E15) ok={e14_ok}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

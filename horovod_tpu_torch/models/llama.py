@@ -59,8 +59,33 @@ add the router losses as the JAX ``loss_fn`` does.  Prefill and decode run
 the MoE MLP with every expert local (ep off).  The MoE MLP is not
 tp-split: the tp ranks compute the same routing and experts redundantly.
 
-Pipeline parallelism, the rolling cache and speculative decoding are not
-ported yet.
+Pipeline parallelism (GPipe): with ``cfg.pp_axis`` set, the layers are
+stacked as in the JAX package (``params["layers"]`` a dict of ``[n_layers,
+...]`` leaves; :func:`stack_layers` and :func:`unstack_layers` convert), so
+that a JAX pp tree carries over through :func:`params_from_jax` unchanged
+and :func:`param_specs` names each slab's split as the JAX ``P(pp, ...)``
+does (``Splits``).  Stacking keeps one leaf a weight for any pp, the JAX
+layout and the names ``layers.wq``; a stage unbinds its slab once a tick.
+:func:`shard_params` keeps this stage's contiguous slab ``[s·L/pp,
+(s+1)·L/pp)``.  Where the mesh's pp axis has a size above 1, the forward
+runs ``parallel.pipeline_apply`` over ``cfg.n_microbatches``: stage 0
+embeds, each stage runs its slab, and the MoE router losses ride the
+pipeline's aux as per-stage partials, averaged over the microbatches and
+summed over pp.  ``cfg.pp_loss`` places the loss: ``"broadcast"`` sums the
+pipeline's output over pp and every stage computes the head and the loss;
+``"last_stage"`` computes them on the last stage only and hands the loss's
+value to the other stages by a scalar sum over pp, which carries no
+gradient.  The slabs train through ``parallel.ShardedParallel`` (pp is not
+a data axis).  The replicated leaves stay in ``DistributedOptimizer``,
+whose world average would divide a gradient that only one stage holds by
+pp: ``embed``'s (stage 0's) and, under ``"last_stage"``, ``lm_head``'s and
+``final_norm``'s (the last stage's).  So those gradients are scaled by pp
+where they arise (:func:`_pp_grad_scale`), and the average lands on the
+JAX ``sync_grads`` sum over pp.  ``remat_stages`` checkpoints each stage,
+``remat_layers`` each layer of the forward without a pipeline.  Decode
+refuses pp.
+
+The rolling cache and speculative decoding are not ported yet.
 """
 
 from __future__ import annotations
@@ -73,7 +98,8 @@ import torch
 
 from ..functions import _leaves
 from ..ops.flash_attention import NEG_INF, flash_attention
-from ..parallel.expert import Split, refuse_world_averaged, shard_on_mesh
+from ..parallel.expert import (Split, Splits, refuse_world_averaged,
+                               shard_on_mesh, splits_of)
 from ..parallel.mesh import CopyInput, ReduceOutput
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
@@ -118,6 +144,19 @@ class LlamaConfig:
     moe_gated: bool = False            # SwiGLU experts (Mixtral shape)
     # The data axis of the mesh (its coordinate folds the router noise).
     dp_axis: Optional[str] = "dp"
+    # Pipeline parallelism: the mesh axis the stacked layers are split over
+    # in contiguous slabs (None: per-layer list, no pipeline), the
+    # microbatches of its GPipe schedule (the batch must divide by it),
+    # each stage checkpointed (its forward recomputed in the backward),
+    # and where the loss is computed: "broadcast" (every stage, from the
+    # output summed over pp) or "last_stage" (the last stage; a scalar sum
+    # hands its value to the others).
+    pp_axis: Optional[str] = None
+    n_microbatches: int = 2
+    remat_stages: bool = False
+    # Checkpoint each layer of the forward without a pipeline.
+    remat_layers: bool = False
+    pp_loss: str = "broadcast"
 
     @property
     def head_dim(self) -> int:
@@ -135,6 +174,10 @@ class LlamaConfig:
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads={self.n_heads} must be a multiple of "
                              f"n_kv_heads={self.n_kv_heads}")
+        if self.pp_loss not in ("broadcast", "last_stage"):
+            raise ValueError(
+                f"pp_loss must be 'broadcast' or 'last_stage', got "
+                f"{self.pp_loss!r}")
 
     def moe_cfg(self):
         """The ``models.moe`` config of this model's MoE MLP (init, specs
@@ -218,12 +261,50 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 "w2": dense(F, (F, D)),
             }
         layers.append(layer)
-    return {
+    params = {
         "embed": dense(D, (cfg.vocab_size, D)),
         "layers": layers,
         "final_norm": ones(D),
         "lm_head": dense(D, (D, cfg.vocab_size)),
     }
+    return stack_layers(params) if cfg.pp_axis else params
+
+
+def _stacked(layers):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stacked([lay[k] for lay in layers]) for k in first}
+    out = torch.stack([t.detach() for t in layers])
+    return out.requires_grad_(first.requires_grad)
+
+
+def stack_layers(params) -> Dict:
+    """``params`` with its per-layer list as one dict of ``[n_layers,
+    ...]`` leaves (the layout of a ``pp_axis`` config, JAX :262-266); new
+    leaves that require grad where the layers' did."""
+    return {**params, "layers": _stacked(params["layers"])}
+
+
+def _n_stacked(slab) -> int:
+    return next(iter(_leaves(slab)))[1].shape[0]
+
+
+def unstack_layers(params) -> Dict:
+    """The inverse of :func:`stack_layers`: the per-layer list, each leaf
+    a fresh contiguous copy (requiring grad where the stack did)."""
+    slab = params["layers"]
+
+    def copy(t):
+        return t.detach().clone().requires_grad_(t.requires_grad)
+    layers = [_tree_map(copy, lay)
+              for lay in _unbound(slab, _n_stacked(slab))]
+    return {**params, "layers": layers}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _to_tensor(a, device, dtype):
@@ -253,6 +334,8 @@ def param_specs(cfg: LlamaConfig) -> Dict:
     columns over ``cfg.tp_axis`` (``Split(tp, 1)``, the JAX ``P(None,
     tp)``), ``wo``/``w2`` by rows (``Split(tp, 0)``), the experts' slabs
     over ``cfg.ep_axis`` along dim 0, everything else None (replicated).
+    With ``cfg.pp_axis`` every stacked layer leaf is split over pp along
+    dim 0 as well (a ``Splits``, JAX :297-300).
     ``parallel.ShardedParallel`` and :func:`shard_params` read it."""
     tp = cfg.tp_axis
     cols, rows = (Split(tp, 1), Split(tp, 0)) if tp else (None, None)
@@ -263,18 +346,28 @@ def param_specs(cfg: LlamaConfig) -> Dict:
         layer["moe"] = _moe.param_specs(cfg.moe_cfg())
     else:
         layer |= {"w1": cols, "w3": cols, "w2": rows}
-    return {"embed": None, "layers": [dict(layer) for _ in
-                                      range(cfg.n_layers)],
-            "final_norm": None, "lm_head": None}
+    if cfg.pp_axis:
+        # The stacked slabs, the JAX P(pp, *spec): pp along dim 0, every
+        # other split one dimension further.
+        def slab(spec):
+            if isinstance(spec, dict):
+                return {k: slab(v) for k, v in spec.items()}
+            return Splits((Split(cfg.pp_axis, 0),) + tuple(
+                Split(p.axis, p.dim + 1) for p in splits_of(spec)))
+        layers = slab(layer)
+    else:
+        layers = [dict(layer) for _ in range(cfg.n_layers)]
+    return {"embed": None, "layers": layers, "final_norm": None,
+            "lm_head": None}
 
 
 def shard_params(params, cfg: LlamaConfig, mesh, axes=None):
     """``params`` (whole: :func:`init_params`, or a JAX tree through
     :func:`params_from_jax`) cut to this rank's blocks along every axis of
     ``mesh`` of a size above 1 that :func:`param_specs` splits a leaf over
-    (those among ``axes`` only, when given): its tp columns and rows and
-    its expert slab.  A cut leaf is a fresh copy; the tree itself where no
-    axis cuts."""
+    (those among ``axes`` only, when given): its tp columns and rows, its
+    expert slab and its pipeline stage's layers.  A cut leaf is a fresh
+    copy; the tree itself where no axis cuts."""
     return shard_on_mesh(params, param_specs(cfg), mesh, axes)
 
 
@@ -430,15 +523,110 @@ def _layer_apply(p, x, cfg: LlamaConfig, positions, mesh=None,
 def forward(params, tokens, cfg: LlamaConfig, mesh=None, generator=None):
     """Logits ``[B, T, vocab]`` for this rank's ``tokens [B, T]``: with
     the sequence split over ``mesh``, its ``T`` positions start at
-    ``sp_rank · T``.  ``generator`` threads router jitter."""
+    ``sp_rank · T``.  ``generator`` threads router jitter.  Under a
+    pipeline with ``pp_loss="last_stage"`` only the last stage's are
+    real."""
     return _forward(params, tokens, cfg, mesh, generator)[0]
 
 
-def _forward(params, tokens, cfg: LlamaConfig, mesh=None, generator=None):
-    """``(logits, router_losses [2])``: the router losses summed over the
-    layers (None for a dense model).  ``generator`` is folded with every
-    data axis's coordinate (dp, ep, sp) and then per layer, as the JAX
-    ``rng`` is."""
+def _pp(cfg: LlamaConfig, mesh) -> int:
+    """The pipeline degree: the size of ``cfg.pp_axis`` in ``mesh``, 1
+    without a mesh or without that axis."""
+    if mesh is None or cfg.pp_axis is None \
+            or cfg.pp_axis not in mesh.axis_names:
+        return 1
+    return mesh.size(cfg.pp_axis)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity whose backward multiplies the cotangent by a
+    factor."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def _pp_grad_scale(x, cfg: LlamaConfig, mesh):
+    """``x`` with its gradient times pp: the gradient rule of a replicated
+    leaf that one stage alone uses (``embed`` on stage 0; ``lm_head`` and
+    ``final_norm`` on the last stage under ``"last_stage"``).  The other
+    stages hold none, so ``DistributedOptimizer``'s world average divides
+    it by pp; this factor lands the average on the JAX ``sync_grads`` sum
+    over pp (exact for a power of two).  ``optimizer.op=Adasum`` does not
+    average and is refused with pp (:func:`make_train_step`)."""
+    pp = _pp(cfg, mesh)
+    return x if pp == 1 else _ScaleGrad.apply(x, float(pp))
+
+
+def _unbound(slab, n: int) -> List:
+    """A stacked slab as ``n`` per-layer trees (``torch.unbind`` views:
+    one stack of the layers' gradients in the backward)."""
+    if isinstance(slab, dict):
+        parts = {k: _unbound(v, n) for k, v in slab.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(slab))
+
+
+def _pipelined(params, tokens, cfg: LlamaConfig, mesh, positions,
+               generator):
+    """The layers as a GPipe pipeline over ``cfg.pp_axis`` (JAX
+    :479-510): ``(h [B, T, D], router)``, ``h`` real on the last stage
+    (every stage under ``"broadcast"``), the router losses this stage's
+    partial averaged over the microbatches."""
+    from ..parallel.pipeline import microbatch, pipeline_apply
+    from .moe import fold_in
+    B, T = tokens.shape
+    pp = _pp(cfg, mesh)
+    stage = mesh.index(cfg.pp_axis) if pp > 1 else 0
+    if stage == 0:
+        x = _pp_grad_scale(params["embed"][tokens.long()], cfg, mesh)
+    else:
+        # Only stage 0 reads the input: a zero-stride placeholder of its
+        # shape.
+        x = params["embed"].detach().new_zeros(()).expand(
+            B, T, cfg.d_model)
+    slab = params["layers"]
+    per_stage = _n_stacked(slab)
+    if per_stage * pp != cfg.n_layers:
+        raise ValueError(
+            f"this stage holds {per_stage} of {cfg.n_layers} layers over "
+            f"pp={pp}; cut its slab with shard_params(params, cfg, mesh)")
+
+    def stage_fn(slab, h):
+        router = torch.zeros(2, dtype=torch.float32, device=h.device)
+        for j, p in enumerate(_unbound(slab, per_stage)):
+            # The generator is made here, from its seed, so that a
+            # recomputation (remat_stages) draws the same noise.
+            h, r = _layer_apply(
+                p, h, cfg, positions, mesh,
+                fold_in(generator, stage * per_stage + j)
+                if cfg.n_experts else None)
+            if r is not None:
+                router = router + r
+        return h, router
+
+    outs, router = pipeline_apply(
+        stage_fn, slab, microbatch(x, cfg.n_microbatches), mesh,
+        cfg.pp_axis, broadcast_out=(cfg.pp_loss == "broadcast"),
+        remat=cfg.remat_stages, with_aux=True,
+        aux_init=torch.zeros(2, dtype=torch.float32, device=x.device))
+    # The router losses are per-token means: one a microbatch, averaged
+    # (else n_microbatches would scale the objective).
+    return (outs.reshape(B, T, -1),
+            router / cfg.n_microbatches if cfg.n_experts else None)
+
+
+def _trunk(params, tokens, cfg: LlamaConfig, mesh=None, generator=None):
+    """``(h, router)``: the activations after the last layer (before the
+    final norm) and the router losses ``[2]`` summed over the layers (None
+    for a dense model).  ``generator`` is folded with every data axis's
+    coordinate (dp, ep, sp) and then per layer, as the JAX ``rng`` is."""
     from .moe import data_generator, fold_in
     T = tokens.shape[1]
     start = mesh.index(cfg.sp_axis) * T if _sp(cfg, mesh) > 1 else 0
@@ -446,15 +634,32 @@ def _forward(params, tokens, cfg: LlamaConfig, mesh=None, generator=None):
     if cfg.n_experts:
         generator = data_generator(generator, mesh,
                                    (cfg.dp_axis, cfg.ep_axis, cfg.sp_axis))
+    if cfg.pp_axis:
+        return _pipelined(params, tokens, cfg, mesh, positions, generator)
     x = params["embed"][tokens.long()]
     router = None
     for i, p in enumerate(params["layers"]):
-        x, r = _layer_apply(p, x, cfg, positions, mesh,
-                            fold_in(generator, i) if cfg.n_experts else None)
+        def layer(p, x, i=i):
+            # The generator is made inside, so that a recomputation
+            # (remat_layers) draws the same noise.
+            return _layer_apply(p, x, cfg, positions, mesh,
+                                fold_in(generator, i)
+                                if cfg.n_experts else None)
+        if cfg.remat_layers:
+            from torch.utils.checkpoint import checkpoint
+            x, r = checkpoint(layer, p, x, use_reentrant=False)
+        else:
+            x, r = layer(p, x)
         if r is not None:
             router = r if router is None else router + r
-    x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"], router
+    return x, router
+
+
+def _forward(params, tokens, cfg: LlamaConfig, mesh=None, generator=None):
+    """``(logits, router_losses [2])``: see :func:`_trunk`."""
+    h, router = _trunk(params, tokens, cfg, mesh, generator)
+    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return h @ params["lm_head"], router
 
 
 # ----------------------------------------------------------------- training
@@ -476,14 +681,36 @@ def loss_fn(params, tokens, targets, cfg: LlamaConfig, mesh=None,
     the experts' slabs follow ``parallel.ExpertParallel``'s rule.  Under
     tensor parallelism every tp rank computes this same loss (the JAX
     loss divides it by tp instead), and the tp shards' gradients are
-    exact for it (``parallel.ShardedParallel``)."""
-    logits, router = _forward(params, tokens, cfg, mesh, generator)
-    logits = logits.float()
-    loss = torch.nn.functional.cross_entropy(
-        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long())
+    exact for it (``parallel.ShardedParallel``).
+
+    Under a pipeline every stage returns the same value: with
+    ``"broadcast"`` each computes it from the summed output, with
+    ``"last_stage"`` the last stage computes it and a scalar sum over pp
+    (no gradient) hands it to the others, whose own term is a zero that
+    still reaches the pipeline's backward (JAX :553-575).  The router
+    losses, each stage's partial over its own layers, are summed over pp
+    the same way (the backward hands each stage its own cotangent)."""
+    h, router = _trunk(params, tokens, cfg, mesh, generator)
+    pp = _pp(cfg, mesh)
+    last_only = pp > 1 and cfg.pp_loss == "last_stage"
+    if last_only and mesh.index(cfg.pp_axis) != pp - 1:
+        loss = h.sum().float() * 0.0
+    else:
+        norm, head = params["final_norm"], params["lm_head"]
+        if last_only:
+            norm = _pp_grad_scale(norm, cfg, mesh)
+            head = _pp_grad_scale(head, cfg, mesh)
+        logits = (_rmsnorm(h, norm, cfg.norm_eps) @ head).float()
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long())
+    if last_only:
+        loss = ReduceOutput.apply(loss, mesh, cfg.pp_axis)
     if cfg.n_experts:
-        loss = loss + (cfg.aux_weight * router[0]
-                       + cfg.router_z_weight * router[1]) / cfg.n_layers
+        r = (cfg.aux_weight * router[0]
+             + cfg.router_z_weight * router[1]) / cfg.n_layers
+        if pp > 1:
+            r = ReduceOutput.apply(r, mesh, cfg.pp_axis)
+        loss = loss + r
     return loss
 
 
@@ -492,7 +719,8 @@ def psum_loss(loss, cfg: LlamaConfig, mesh=None):
     :func:`loss_fn` over the world (the mesh spans it) through the engine,
     as the JAX ``psum_loss`` sums the partial losses; this rank's loss
     without a mesh or in a world of one.  The tp ranks hold equal losses,
-    so the world's mean is the data ranks'."""
+    and so do the pp stages under both placements (:func:`loss_fn`), so
+    the world's mean is the data ranks'."""
     from .. import mpi_ops
     loss = loss.detach()
     if mesh is None or all(n == 1 for n in mesh.shape.values()):
@@ -514,13 +742,21 @@ def make_train_step(cfg: LlamaConfig, optimizer, mesh=None, experts=None):
     gradients across processes, and with ``sharded="full"`` it first
     rematerializes the parameters (``optimizer.gather_params()``), which
     only the shards hold between steps.  ``mesh``: as in
-    :func:`forward`."""
+    :func:`forward`.  Under a pipeline, ``experts`` holds the stages'
+    slabs too, and an ``optimizer`` with ``op=Adasum`` is refused (the pp
+    factor of :func:`_pp_grad_scale` assumes an average)."""
     full = getattr(optimizer, "sharded", False) == "full"
     checked = []
 
     def step(params, tokens, targets, generator=None):
         if not checked:
             refuse_world_averaged(optimizer, params, param_specs(cfg), mesh)
+            from .. import mpi_ops
+            if _pp(cfg, mesh) > 1 and \
+                    getattr(optimizer, "op", None) == mpi_ops.Adasum:
+                raise ValueError("pipeline parallelism scales the gradients "
+                                 "of the replicated leaves for an average; "
+                                 "op=Adasum does not average")
             checked.append(True)
         if full:
             optimizer.gather_params()
@@ -543,6 +779,11 @@ def _decode_tp(cfg: LlamaConfig, mesh, what: str) -> int:
     the sum at ``wo``, the training contract; the training-only axes (dp is
     batching, sp and pp restructure the sequence and the depth, ep would
     need the all-to-all per token) are refused at a size above 1."""
+    if cfg.pp_axis:
+        raise ValueError(f"{what} runs on the per-layer list; a config "
+                         f"with pp_axis={cfg.pp_axis!r} stacks the layers "
+                         f"for the pipeline (decode on pp_axis=None and "
+                         f"unstack_layers(params))")
     if mesh is not None:
         bad = [a for a in mesh.axis_names
                if a != cfg.tp_axis and mesh.size(a) > 1]

@@ -12,8 +12,11 @@ memory (``channels_last`` views), and the flatten before ``fc1`` walks
 The JAX ``loss_fn`` divides each rank's NLL sum by the global batch and
 ``psum``s the gradients; here each rank's loss is its own mean and
 ``hvd.DistributedOptimizer`` averages the gradients, the same gradient
-when every rank holds as many images.  The ZeRO-sharded step of the JAX
-module waits for the port's ZeRO optimizer.
+when every rank holds as many images.  :func:`make_sharded_train_step`
+(JAX :96-125) takes the global batch through the SPMD harness
+(``parallel/spmd.py``); the JAX ``zero_specs`` (a ZeRO-sharded optimizer
+state) is here an ``hvd.DistributedOptimizer(..., sharded=True)`` handed
+in as ``optimizer``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch.nn.functional as F
 from .llama import named_parameters, params_from_jax  # noqa: F401
 
 __all__ = ["init_params", "params_from_jax", "named_parameters", "forward",
-           "loss_fn", "make_train_step", "synthetic_batch"]
+           "loss_fn", "make_train_step", "make_sharded_train_step",
+           "synthetic_batch"]
 
 
 def init_params(generator: torch.Generator, device=None,
@@ -88,6 +92,17 @@ def make_train_step(optimizer):
         return loss.detach()
 
     return step
+
+
+def make_sharded_train_step(optimizer, mesh, axis_name: str = "dp"):
+    """Returns ``step(params, x, y) -> loss`` over the global batch:
+    :func:`make_train_step` fed this rank's block of ``x`` and ``y`` along
+    ``axis_name`` of ``mesh`` (JAX :96-125).  With
+    ``hvd.DistributedOptimizer(..., sharded=True)`` the optimizer state is
+    sharded over the world (the JAX ``zero_specs`` path)."""
+    from ..parallel.spmd import make_sharded_train_step as _harness
+    return _harness(make_train_step(optimizer), mesh,
+                    data_axes=(axis_name,))
 
 
 def synthetic_batch(batch: int, seed: int = 0) -> Tuple[np.ndarray,

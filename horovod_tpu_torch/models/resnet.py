@@ -35,9 +35,10 @@ Three places follow the JAX model rather than PyTorch's habits:
 The loss is this rank's mean negative log-likelihood.  The JAX ``loss_fn``
 divides the rank's sum by the global batch and ``psum``s the gradients;
 ``hvd.DistributedOptimizer`` averages the per-rank means instead, which is
-the same gradient when every rank holds as many images.  The JAX
-``make_sharded_train_step`` (one controller over a device mesh) has no
-counterpart in a port with one process a card.
+the same gradient when every rank holds as many images.
+:func:`make_sharded_train_step` (JAX :208-215) is the step over
+``parallel.make_sharded_train_step``: it takes the global batch and cuts
+this rank's block along the mesh's data axis.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from .llama import named_parameters, params_from_jax as _tree_from_jax
 
 __all__ = ["BLOCKS", "BOTTLENECK", "ResNetConfig", "init_params",
            "params_from_jax", "named_parameters", "forward", "loss_fn",
-           "make_train_step", "synthetic_batch"]
+           "make_train_step", "make_sharded_train_step", "synthetic_batch"]
 
 BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
           101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -310,6 +311,25 @@ def make_train_step(cfg: ResNetConfig, optimizer):
         loss.backward()
         optimizer.step()
         return loss.detach(), new_stats
+
+    return step
+
+
+def make_sharded_train_step(cfg: ResNetConfig, optimizer, mesh,
+                            axis_name: str = "dp"):
+    """Returns ``step(params, stats, images, labels) -> (loss,
+    new_stats)`` over the global batch: :func:`make_train_step` fed this
+    rank's block of ``images`` and ``labels`` along ``axis_name`` of
+    ``mesh`` (``parallel.make_sharded_train_step``; JAX :208-215, whose
+    ``P(axis_name)`` batch spec this is).  ``params`` and ``stats`` are
+    replicated."""
+    from ..parallel.spmd import make_sharded_train_step as _harness
+    inner = make_train_step(cfg, optimizer)
+    sharded = _harness(lambda ps, x, y: inner(ps[0], ps[1], x, y), mesh,
+                       data_axes=(axis_name,))
+
+    def step(params, stats, images, labels):
+        return sharded((params, stats), images, labels)
 
     return step
 

@@ -1,19 +1,20 @@
 """Parallel schemes beyond data parallelism: the process mesh with
 Megatron's tensor-parallel pair, sequence parallelism (ring and Ulysses
-attention), the gradient rule of leaves split over mesh axes (tensor and
-expert parallelism), Adasum, the two-level collectives and the slice
-topology they run on.  Port of
+attention), pipeline parallelism (GPipe over the mesh's pp groups), the
+gradient rule of leaves split over mesh axes (tensor, expert and pipeline
+parallelism), the eager SPMD harness, Adasum, the two-level collectives
+and the slice topology they run on.  Port of
 ``horovod_tpu/parallel/__init__.py:6-14``; ``zero`` holds the ZeRO
-pad+slice convention (its in-graph optimizers have no counterpart);
-``spmd`` and ``pipeline`` are still to port (``ROADMAP.md`` queue 1)."""
+pad+slice convention (its in-graph optimizers have no counterpart)."""
 
 from .adasum import (  # noqa: F401
     adasum_allreduce, adasum_allreduce_hd, adasum_allreduce_hier,
     adasum_combine, vhd,
 )
 from .expert import (  # noqa: F401
-    DATA_AXES, ExpertParallel, ShardedParallel, Split, refuse_world_averaged,
-    shard_on_mesh, shard_tree, spec_of, split_named, split_of,
+    DATA_AXES, ExpertParallel, ShardedParallel, Split, Splits,
+    refuse_world_averaged, shard_on_mesh, shard_tree, spec_of, split_named,
+    split_of, splits_of,
 )
 from .hierarchical import (  # noqa: F401
     Legs, hierarchical_allgather, hierarchical_allreduce,
@@ -21,12 +22,16 @@ from .hierarchical import (  # noqa: F401
 )
 
 from .mesh import (  # noqa: F401
-    DP, EP, PP, SP, TP, AllToAll, CopyInput, ProcessMesh, ReduceOutput,
-    all_gather, all_to_all, axes_of, infer_mesh, make_mesh, ppermute, psum,
-    require_axis, timed_ms,
+    DP, EP, PP, SP, TP, AllToAll, CopyInput, PPermute, ProcessMesh,
+    ReduceOutput, all_gather, all_to_all, axes_of, infer_mesh, make_mesh,
+    ppermute, psum, require_axis, send_recv, timed_ms,
 )
+from .pipeline import microbatch, pipeline_apply, stage_index  # noqa: F401
 from .ring_attention import (  # noqa: F401
     local_flash_attention, ring_attention,
+)
+from .spmd import (  # noqa: F401
+    infer_specs_like, local_batch, make_sharded_train_step, shard_params,
 )
 from .topology import (  # noqa: F401
     SliceTopology, cross_fraction, hier_bit_orders, modeled_leg_bytes,

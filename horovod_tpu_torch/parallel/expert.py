@@ -34,7 +34,9 @@ own tokens, the tp ranks run Megatron's ``f``/``g`` pair
   axis (dp, sp, ep: each rank there has other tokens), the leaf's gradient
   sums that axis's ranks' mean losses' cotangents, ``size`` times the
   gradient of their global mean, so it is scaled by ``1/size`` first; a tp
-  shard's gradient is already exact for this rank's loss and is not.
+  shard's gradient is already exact for this rank's loss and is not, nor
+  is a pipeline stage's slab (pp is not a data axis: every stage sees the
+  same tokens).
 
 :class:`ExpertParallel` is the case of leaves split over ep.  At tp = 2 a
 tp shard has the same shape on both ranks: handed to
@@ -76,12 +78,38 @@ class Split:
     dim: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Splits:
+    """A spec leaf split over several mesh axes, each along its own
+    dimension: ``Splits((Split("pp", 0), Split("tp", 2)))`` is the JAX
+    ``P(pp, None, tp)``."""
+    parts: Tuple[Split, ...]
+
+
+def splits_of(spec) -> Tuple[Split, ...]:
+    """Every :class:`Split` of a spec leaf: none for a replicated leaf,
+    one for an axis name or a :class:`Split`, the parts of a
+    :class:`Splits`."""
+    if spec is None:
+        return ()
+    if isinstance(spec, Splits):
+        return tuple(spec.parts)
+    return (spec if isinstance(spec, Split) else Split(str(spec), 0),)
+
+
 def split_of(spec) -> Optional[Split]:
-    """A spec leaf as a :class:`Split` (an axis name alone splits dim 0),
-    None for a replicated leaf."""
-    if spec is None or isinstance(spec, Split):
-        return spec
-    return Split(str(spec), 0)
+    """A spec leaf of one axis as a :class:`Split` (an axis name alone
+    splits dim 0), None for a replicated leaf; a :class:`Splits` of
+    several axes raises (read it with :func:`splits_of`)."""
+    parts = splits_of(spec)
+    if len(parts) > 1:
+        raise ValueError(f"{spec} splits over several axes; read it with "
+                         f"splits_of")
+    return parts[0] if parts else None
+
+
+def _axes_of_spec(spec) -> Tuple[str, ...]:
+    return tuple(sorted(p.axis for p in splits_of(spec)))
 
 
 def spec_of(specs) -> Dict[str, object]:
@@ -102,8 +130,7 @@ def split_named(named: Iterable[Tuple[str, torch.Tensor]], specs,
     for name, t in named:
         if name not in by_name:
             raise KeyError(f"{name!r} has no spec in the model's param_specs")
-        s = split_of(by_name[name])
-        (sharded if s is not None and s.axis in axes
+        (sharded if axes.intersection(_axes_of_spec(by_name[name]))
          else replicated).append((name, t))
     return replicated, sharded
 
@@ -130,10 +157,10 @@ def shard_tree(tree, specs, index: int, size: int, axis: str = "ep"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(shard_tree(v, s, index, size, axis)
                           for v, s in zip(tree, specs))
-    s = split_of(specs)
-    if s is None or s.axis != axis:
+    dims = [p.dim for p in splits_of(specs) if p.axis == axis]
+    if not dims:
         return tree
-    out = _block(tree, index, size, s.dim)
+    out = _block(tree, index, size, dims[0])
     if isinstance(out, torch.Tensor):
         return out.detach().clone(memory_format=torch.contiguous_format
                                   ).requires_grad_(tree.requires_grad)
@@ -178,9 +205,9 @@ def refuse_world_averaged(optimizer, params, specs,
     bad = []
     for path, t in _leaves(params):
         name = ".".join(map(str, path))
-        s = split_of(by_name.get(name))
-        if id(t) in stepped and s is not None and s.axis in live:
-            bad.append(f"{name} ({s.axis})")
+        axes = [a for a in _axes_of_spec(by_name.get(name)) if a in live]
+        if id(t) in stepped and axes:
+            bad.append(f"{name} ({', '.join(axes)})")
     if bad:
         raise ValueError(
             f"DistributedOptimizer steps {len(bad)} leaves split over the "
@@ -224,8 +251,7 @@ class ShardedParallel:
             if name not in by_name:
                 raise KeyError(f"{name!r} has no spec in the model's "
                                f"param_specs")
-            s = split_of(by_name[name])
-            self._axes[id(t)] = _live(mesh, () if s is None else (s.axis,))
+            self._axes[id(t)] = _live(mesh, _axes_of_spec(by_name[name]))
         self._default: Optional[Tuple[str, ...]] = None
         self._groups: Dict[Tuple[str, ...], Tuple[object, float]] = {}
         for axes in sorted(set(self._axes.values())):
@@ -322,10 +348,9 @@ class ShardedParallel:
         replicated, split = [], {}
         by_name = spec_of(specs)
         for name, t in named:
-            s = split_of(by_name[name])
             axes = self._axes.get(id(t))
-            if axes is None and s is not None:
-                axes = _live(self._mesh, (s.axis,))
+            if axes is None:
+                axes = _live(self._mesh, _axes_of_spec(by_name[name]))
             if axes:
                 split.setdefault(axes, []).append((name, t))
             else:

@@ -17,7 +17,11 @@ counterparts of the in-graph collectives that the sequence- and
 expert-parallel schemes use (``parallel/ring_attention.py``,
 ``parallel/ulysses.py``, ``models/moe.py``, ``models/dlrm.py``);
 :class:`AllToAll` is the all-to-all under autograd, whose backward is the
-inverse exchange, as the transpose of ``lax.all_to_all`` is.
+inverse exchange, as the transpose of ``lax.all_to_all`` is, and
+:class:`PPermute` the rotation under autograd, whose backward is the
+inverse rotation.  :func:`send_recv` is one hop of a rotation without
+its wrap, each side taken only where it carries data: the pipeline's
+stage-to-stage hop (``parallel/pipeline.py``).
 :func:`psum` is ``lax.psum``, and :class:`ReduceOutput` and
 :class:`CopyInput` are Megatron's pair over it for tensor parallelism:
 ``g``, the sum after a row-split product, whose backward is the identity,
@@ -97,6 +101,9 @@ class ProcessMesh:
         # A list to collect the (start, end) marks around each exchange's
         # wait (CUDA events on the card, host times on the CPU), or None.
         self.timing: Optional[list] = None
+        # The axes whose group has carried a point-to-point exchange in
+        # which every rank took part (see send_recv).
+        self._p2p_ready: set = set()
         grid = np.arange(world).reshape(sizes)
         coords = np.argwhere(grid == rank)[0]
         self._groups: List[object] = []
@@ -261,7 +268,62 @@ def ppermute(tensors: Sequence[torch.Tensor], mesh: ProcessMesh,
     ops += [dist.P2POp(dist.irecv, r, src, group=ax.group)
             for r in received]
     pending = Exchange(dist.batch_isend_irecv(ops), received, mesh.timing)
+    mesh._p2p_ready.add(axis)
     return pending if async_op else pending.wait()
+
+
+class PPermute(torch.autograd.Function):
+    """:func:`ppermute` of one tensor under autograd: ``PPermute.apply(x,
+    mesh, axis, shift)``.  The backward is the inverse rotation (``-shift``),
+    as the transpose of ``lax.ppermute`` is: each cotangent goes back to
+    the coordinate its tensor came from.  Every rank of the axis must reach
+    the backward, as every rank rotated in the forward: a rank whose loss
+    does not depend on what it received still passes a zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift=1):
+        ctx.attrs = (mesh, axis, shift)
+        return ppermute([x], mesh, axis, shift)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, shift = ctx.attrs
+        return ppermute([g], mesh, axis, -shift)[0], None, None, None
+
+
+def send_recv(x: torch.Tensor, mesh: ProcessMesh, axis: str, send: bool,
+              recv: bool, shift: int = 1) -> Optional[torch.Tensor]:
+    """One hop along ``axis`` that does not wrap: coordinate ``i`` sends
+    ``x`` to ``i + shift`` when ``send``, and receives a tensor shaped like
+    ``x`` from ``i - shift`` when ``recv`` (None otherwise), as one
+    ``batch_isend_irecv`` group; a side whose peer falls off the end of
+    the axis is skipped.  Both ends must agree on which hops carry data
+    (the pipeline decides it from the tick, which every stage knows).
+    Every rank of the axis calls it at the same points, with nothing to
+    do or not: the first call on an axis first rotates one element around
+    the whole group, because NCCL requires every rank of a group in its
+    first point-to-point batch.  ``mesh.timing`` marks the hops that carry
+    data."""
+    import torch.distributed as dist
+    ax = mesh.axis(axis)
+    if ax.size == 1:
+        return None
+    if axis not in mesh._p2p_ready:
+        ppermute([x.new_zeros(1)], mesh, axis)
+    dst, src = ax.index + shift, ax.index - shift
+    ops, received = [], None
+    if send and 0 <= dst < ax.size:
+        ops.append(dist.P2POp(dist.isend, x.contiguous(), ax.ranks[dst],
+                              group=ax.group))
+    if recv and 0 <= src < ax.size:
+        received = torch.empty_like(x, memory_format=torch.contiguous_format)
+        ops.append(dist.P2POp(dist.irecv, received, ax.ranks[src],
+                              group=ax.group))
+    if ops:
+        Exchange(dist.batch_isend_irecv(ops), [received if received
+                                               is not None else x],
+                 mesh.timing).wait()
+    return received
 
 
 def all_to_all(x: torch.Tensor, mesh: ProcessMesh, axis: str,

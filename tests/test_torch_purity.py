@@ -708,3 +708,96 @@ def test_torch_socket_sites():
                 if any(p in open(path).read() for p in pat):
                     users.add(os.path.relpath(path, PKG))
     assert users == _SOCKET_USERS, users
+
+
+# The pipeline-parallel slice: the schedule, the mesh's rotation under
+# autograd and its one-sided hop, the SPMD harness, the pipelined Llama
+# and the families' sharded steps.
+PP_MODULES = ("horovod_tpu_torch.parallel.pipeline",
+              "horovod_tpu_torch.parallel.spmd",
+              "horovod_tpu_torch.parallel.mesh",
+              "horovod_tpu_torch.models.llama",
+              "horovod_tpu_torch.models.resnet",
+              "horovod_tpu_torch.models.mnist")
+
+_PP_SRC = _OBSERVE_SRC.replace("print('PURE', len(sys.argv) - 2)", r"""
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import parallel
+from horovod_tpu_torch.models import llama, mnist
+hvd.init(device='cpu')
+mesh = parallel.make_mesh({'dp': 1, 'pp': 1})
+cfg = llama.tiny(dtype=torch.float32, pp_axis='pp', n_microbatches=2,
+                 remat_stages=True)
+p = llama.shard_params(llama.init_params(cfg, torch.Generator().manual_seed(
+    0)), cfg, mesh)
+named = list(llama.named_parameters(p))
+rep, sh = parallel.split_named(named, llama.param_specs(cfg), ('pp',))
+assert [n for n, _ in sh][:2] == ['layers.attn_norm', 'layers.mlp_norm'], sh
+shards = parallel.ShardedParallel(mesh, torch.optim.SGD(
+    [t for _, t in sh], lr=0.1), sh, llama.param_specs(cfg))
+step = parallel.make_sharded_train_step(llama.make_train_step(
+    cfg, torch.optim.SGD([t for _, t in rep], lr=0.1), mesh, shards), mesh,
+    llama.param_specs(cfg))
+toks = torch.zeros(4, 8, dtype=torch.int64)
+assert torch.isfinite(step(p, toks, toks))
+x = torch.ones(3, requires_grad=True)
+parallel.PPermute.apply(x, mesh, 'pp', 1).sum().backward()
+assert torch.equal(x.grad, torch.ones(3))
+mp = mnist.init_params(torch.Generator().manual_seed(0))
+mstep = mnist.make_sharded_train_step(torch.optim.SGD(
+    [t for _, t in mnist.named_parameters(mp)], lr=0.1), mesh)
+assert torch.isfinite(mstep(mp, torch.zeros(2, 28, 28, 1),
+                            torch.zeros(2, dtype=torch.int64)))
+assert parallel.infer_specs_like({'m': p}, p, llama.param_specs(cfg))[
+    'm'] == llama.param_specs(cfg)
+shards.shutdown()
+mesh.shutdown()
+hvd.shutdown()
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_pipeline_modules_stand_alone():
+    """The pipeline-parallel modules import with JAX and horovod_tpu
+    blocked, and a remat pipelined Llama step through the SPMD harness,
+    the rotation under autograd and MNIST's sharded step run (one process:
+    pp = 1); each new module's first line names its origin."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _PP_SRC, REPO, *PP_MODULES],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == str(len(PP_MODULES))
+    for name in PP_MODULES[:2]:
+        rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
+        first = open(os.path.join(PKG, rel + ".py")).readline()
+        assert first.startswith("# Ported from horovod_tpu/parallel/"), \
+            (name, first)
+
+
+def test_torch_pipeline_exchanges_run_through_the_mesh():
+    """``parallel/pipeline.py`` issues no torch.distributed call: its
+    exchanges are the mesh's one-sided hop (``send_recv``) and its sum
+    (``ReduceOutput``), each on the pipeline's own ``mesh`` and ``axis``,
+    so that they run on the mesh's pp group
+    (``test_torch_mesh_exchanges_run_on_mesh_groups`` holds those)."""
+    path = os.path.join(PKG, "parallel", "pipeline.py")
+    assert not _collective_calls(path)
+    tree = ast.parse(open(path).read(), path)
+    assert not [n for n in ast.walk(tree)
+                if isinstance(n, (ast.Import, ast.ImportFrom))
+                and "distributed" in ast.unparse(n)]
+    found = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        name = ast.unparse(node.func)
+        if name in ("send_recv", "ReduceOutput.apply"):
+            args = [ast.unparse(a) for a in node.args]
+            found.append(name)
+            assert args[1:3] == ["mesh", "axis"], (node.lineno, args)
+    assert sorted(found) == ["ReduceOutput.apply", "send_recv",
+                             "send_recv"], found
