@@ -35,7 +35,14 @@ Phases (any failure exits non-zero and prints no result line):
    are recomputed with the plain attention and compared, and one prompt at
    two rows of one bucket must give identical tokens.  Last, the time of
    one prefill and one decode step, and a profiled ``generate`` for the
-   card's busy share and kernel time by name.
+   card's busy share and kernel time by name.  Then E16 (a) on the same
+   weights (``mistral_phase``; llama3_8b's shapes are mistral_7b's):
+   ``to_hf_state_dict`` and ``from_hf_state_dict`` under ``mistral_7b()``
+   bitwise; a prefill of 2 x 8,192 tokens (twice the window) through the
+   windowed kernel against the plain windowed attention; 16 greedy tokens
+   on the rolling cache against the full windowed cache; two
+   ``speculative_generate`` runs (self, and the first 2 layers as the
+   draft) against greedy up to near-ties.
 5. Training: ``init`` -> ``init_params`` at Llama-3-8B width
    (``--train-layers`` deep, 4 by default) -> ``broadcast_parameters`` ->
    ``DistributedOptimizer(SGD)`` -> ``make_train_step``.  First the
@@ -288,7 +295,17 @@ Phases (any failure exits non-zero and prints no result line):
    ``pp_loss="last_stage"`` with ``remat_stages`` from the same weights
    and tokens: its step-1 gradients against (a)'s, its peak above the
    step's start below (a)'s, the forward launches twice (a)'s.
-18. The whole run's wall time, the kernels line (JSON), the card line, and
+18. Multi-process serving.  E16 (b) (``--e16-worker``, after E12 in its
+   lane): two ranks under ``python -m horovod_tpu_torch.runner -np 2
+   --serve --serve-port P``, ``mistral_7b()`` at full width cut to
+   E16_LAYERS with the rolling cache: each rank's Config reads ``serve``
+   and ``serve_port`` and its front door listens on P + rank; the v1
+   fan-out from rank 0 (rank 1 from zeros, bitwise after; the repeat no
+   broadcast); 8 HTTP requests of 512 tokens, 8 new each, to each rank's
+   front door, the tokens bitwise across the ranks; a v2 update without a
+   restart and its round; the drain (in flight 200, after it 503); the
+   fan-out's GB/s and each front door's p50/p99.
+19. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 Every process the run starts carries ``CHIP_SMOKE_RUN`` in its
@@ -334,6 +351,14 @@ E3_LAYERS = 2
 TRAIN_LR = 0.75
 # The gradient check differentiates the plain attention under autograd,
 # which keeps dense [B, H, T, T] float32 scores per layer: cut T for it.
+# E16 (a): Mistral-7B on the serving phase's weights (llama3_8b's shapes
+# are mistral_7b's): prompts of twice the 4,096-token window.
+E16_BATCH = 2
+E16_PROMPT = 8192
+E16_NEW = 16
+E16_DRAFT = 4            # n_draft of the speculative runs
+E16_DRAFT_LAYERS = 2     # the shallow draft: the target's first layers
+E16_TOL = 5e-2           # logits, relative to the largest (as in serving)
 GRAD_CHECK_SEQ = 2048
 GRAD_TOL = 5e-2
 # The run ends itself, its processes stopped, at this many seconds after it
@@ -704,6 +729,10 @@ RING_CASE = "ring off-diagonal block: B=2 T=4096 non-causal GQA rep 4, bf16"
 ULYSSES_CASE = ("Ulysses inner attention: B=2 T=8192 causal, 16/4 heads, "
                 "bf16")
 TP_CASE = "tensor-parallel shard: B=1 T=4096 causal, 16/4 heads, bf16"
+MISTRAL_CASE = ("Mistral windowed prefill: B=1, T=8192, 32/8 heads, D=128, "
+                "causal, window 4096, bf16")
+# Forward-only cases: a prefill's shape, which no backward runs.
+FWD_ONLY_CASES = (MISTRAL_CASE,)
 # E6: the models' attention at head_dim 64.
 BERT_CASE = "BERT-Large attention: B=8 T=512 16 heads D=64 non-causal, bf16"
 VIT_CASE = "ViT-B/16 attention: B=32 T=197 12 heads D=64 non-causal, bf16"
@@ -733,6 +762,10 @@ FLASH_CASES = [
     # What a tp rank of E14 runs: half of Llama-3-8B's heads, causal.
     (TP_CASE, 1, TRAIN_SEQ, TRAIN_SEQ, 16, 4, 128, "bfloat16", True, None,
      2e-2, _BF16_REASON),
+    # What E16's Mistral prefill runs a layer and prompt: twice the window,
+    # the tiles below the band skipped.
+    (MISTRAL_CASE, 1, 2 * TRAIN_SEQ, 2 * TRAIN_SEQ, 32, 8, 128, "bfloat16",
+     True, 4096, 2e-2, _BF16_REASON),
     # What E6's models run: q, k, v [B, T, heads, 64] of each layer.
     (BERT_CASE, 8, 512, 512, 16, 16, 64, "bfloat16", False, None, 2e-2,
      _BF16_REASON),
@@ -826,13 +859,15 @@ def flash_phase(torch, fa, dev, seed, flush):
 
 def flash_bwd_phase(torch, fa, dev, seed, flush):
     """The dq and dk/dv kernels against the plain backward, in the cases of
-    the forward, with a random do, the forward kernel's own lse and delta
-    from o."""
+    the forward but the forward-only ones (a prefill's), with a random do,
+    the forward kernel's own lse and delta from o."""
     import torch.nn.functional as F
     results = []
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
     for (name, B, Tq, Tk, H, K, D, dt_name, causal, window, _,
          _) in FLASH_CASES:
+        if name in FWD_ONLY_CASES:
+            continue
         dt = getattr(torch, dt_name)
         tol, reason = ((2e-2, _BWD_BF16_REASON) if dt == torch.bfloat16
                        else (1e-4, _F32_REASON))
@@ -1107,6 +1142,253 @@ def serving_phase(torch, hvd, tl, fa, layers, seed):
     except Exception as exc:  # noqa: BLE001 - a measurement, not a check
         print(f"profile: failed ({type(exc).__name__}: {exc}); busy share "
               f"not measured", flush=True)
+    # E16 (a) takes these weights over: nothing else may hold them.
+    replica.params = None
+    del replica, cache, lg_k, lg_p, tok, out
+    torch.cuda.empty_cache()
+    e16 = mistral_phase(torch, tl, fa, params, layers, seed)
+    return ok, launches, e16
+
+
+def _plain_attention(torch, fa, q, k, v, causal, window):
+    """The plain windowed attention a batch row and a kv head's q heads at
+    a time (the plain version computes each head alone, so this is its
+    function; its float32 scores stay one head group's)."""
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([torch.cat([fa.flash_attention_plain(
+        q[b:b + 1, :, j * g:(j + 1) * g], k[b:b + 1, :, j:j + 1],
+        v[b:b + 1, :, j:j + 1], causal=causal, window=window)[0]
+        for j in range(k.shape[2])], dim=2) for b in range(q.shape[0])])
+
+
+def _hf_pairs(params):
+    """``(Hugging Face name, leaf, transposed)`` for every leaf of a dense
+    Llama tree, in the orientation ``to_hf_state_dict`` writes."""
+    pairs = [("model.embed_tokens.weight", params["embed"], False),
+             ("model.norm.weight", params["final_norm"], False),
+             ("lm_head.weight", params["lm_head"], True)]
+    for i, lay in enumerate(params["layers"]):
+        pre = f"model.layers.{i}."
+        pairs += [(pre + "input_layernorm.weight", lay["attn_norm"], False),
+                  (pre + "post_attention_layernorm.weight", lay["mlp_norm"],
+                   False)]
+        pairs += [(f"{pre}{n}.weight", lay[key], True) for n, key in (
+            ("self_attn.q_proj", "wq"), ("self_attn.k_proj", "wk"),
+            ("self_attn.v_proj", "wv"), ("self_attn.o_proj", "wo"),
+            ("mlp.gate_proj", "w1"), ("mlp.up_proj", "w3"),
+            ("mlp.down_proj", "w2"))]
+    return pairs
+
+
+def _margins(torch, logits):
+    """The greedy token's lead over the runner-up, per row."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).tolist()
+
+
+def mistral_phase(torch, tl, fa, params, layers, seed):
+    """E16 (a), in the serving phase's process on its weights (llama3_8b's
+    shapes are mistral_7b's; ``params`` is emptied here).  (1) The weights
+    out through ``to_hf_state_dict`` and back through
+    ``from_hf_state_dict`` under ``mistral_7b()``, each original freed once
+    its export is checked: every leaf bitwise.  (2) A prefill of
+    E16_BATCH x E16_PROMPT seeded tokens (twice the window) through the
+    windowed flash forward, then with the plain windowed attention: the
+    last logits within E16_TOL of the largest, ``layers`` launches.  (3)
+    E16_NEW greedy tokens on the rolling cache, each step's token fed to the
+    full windowed cache too: every step's logits within E16_TOL, the tokens
+    that agree, each decode step's time in both modes.  (4)
+    ``speculative_generate`` with n_draft = E16_DRAFT on the rolling target,
+    self-speculation and a draft of its first E16_DRAFT_LAYERS layers: ε,
+    the largest gap between ``decode_chunk``'s and ``decode_step``'s
+    logits at the same positions, and the tokens equal to greedy's at every
+    position before the first whose top-two margin is below 2ε; rounds,
+    accepted tokens a round, wall time against ``generate``'s.  Returns
+    (ok, the flash launches)."""
+    import numpy as np
+    from horovod_tpu_torch.models import convert
+    dev = params["embed"].device
+    cfg = tl.mistral_7b(n_layers=layers)
+    roll = tl.mistral_7b(n_layers=layers, rolling_cache=True)
+    ok, launches = True, 0
+    t_phase = time.time()
+
+    # (1) export, import.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = convert.to_hf_state_dict(params, cfg)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    export_equal = all(torch.equal(sd[n].t() if tr else sd[n], t)
+                       for n, t, tr in _hf_pairs(params))
+    params.clear()          # the originals: only the export holds them now
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new = convert.from_hf_state_dict(sd, cfg)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    import_equal = all(torch.equal(sd[n].t() if tr else sd[n], t)
+                       for n, t, tr in _hf_pairs(new))
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    del sd
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = new
+    print(f"e16: to_hf_state_dict {export_s:.3f} s, from_hf_state_dict "
+          f"under mistral_7b() {import_s:.3f} s ({nbytes / 1e9:.2f} GB, "
+          f"on the card), every exported tensor bitwise the original's: "
+          f"{export_equal}, every imported leaf bitwise the export's: "
+          f"{import_equal}, peak {peak:.2f} GiB allocated", flush=True)
+    ok = ok and export_equal and import_equal
+
+    # (2) the windowed prefill, kernel against plain.
+    prompts = torch.from_numpy(np.random.RandomState(seed + 16).randint(
+        0, cfg.vocab_size, (E16_BATCH, E16_PROMPT)).astype(np.int64)).to(dev)
+    slots = E16_PROMPT + E16_NEW
+    full_cache = tl.init_cache(cfg, E16_BATCH, slots, dev)
+    _zero_flash(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg_k, _ = tl.prefill(params, full_cache, prompts, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre_launches = fa.flash_attention_fwd.launches
+    kernel_attend = tl.flash_attention
+    tl.flash_attention = lambda q, k, v, causal, window: _plain_attention(
+        torch, fa, q, k, v, causal, window)
+    try:
+        t0 = time.perf_counter()
+        lg_p, _ = tl.prefill(params, tl.init_cache(cfg, E16_BATCH, E16_PROMPT,
+                                                   dev), prompts, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tl.flash_attention = kernel_attend
+    rel = (lg_k - lg_p).abs().max().item() / lg_p.abs().max().item()
+    same = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
+    good = rel <= E16_TOL and pre_launches == layers
+    print(f"e16: prefill B={E16_BATCH} x T0={E16_PROMPT} (window "
+          f"{cfg.sliding_window}) through the kernel {prefill_ms:.1f} ms, "
+          f"flash launches {pre_launches} (want {layers}); with the plain "
+          f"windowed attention {plain_ms:.1f} ms; last logits "
+          f"max_rel_err={rel:.4e} (tol {E16_TOL:g} relative to the largest "
+          f"logit), first token agrees on {same}/{E16_BATCH} rows -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    ok = ok and good
+    launches += pre_launches
+    del lg_p
+    torch.cuda.empty_cache()
+
+    # (3) rolling against full: the rolling loop's greedy tokens fed to
+    # both caches.
+    ring = tl.init_cache(roll, E16_BATCH, device=dev)
+    _zero_flash(fa)
+    lg_r, _ = tl.prefill(params, ring, prompts, roll)
+    torch.cuda.synchronize()
+    roll_launches = fa.flash_attention_fwd.launches
+    launches += roll_launches
+    ring_after_prefill = [{k: v.clone() for k, v in c.items()} for c in ring]
+    ring_gb = sum(t.numel() * t.element_size() for c in ring
+                  for t in c.values()) / 1e9
+    full_gb = sum(t.numel() * t.element_size() for c in full_cache
+                  for t in c.values()) / 1e9
+    errs = [(lg_r - lg_k).abs().max().item() / lg_k.abs().max().item()]
+    step_logits, margins = [lg_r], [_margins(torch, lg_r)]
+    tok = lg_r.argmax(-1).to(torch.int32)
+    toks_r, toks_f = [tok], [lg_k.argmax(-1).to(torch.int32)]
+    ms = {"rolling": [], "full": []}
+    for pos in range(E16_PROMPT, E16_PROMPT + E16_NEW - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lr, _ = tl.decode_step(params, ring, tok, pos, roll)
+        torch.cuda.synchronize()
+        ms["rolling"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        lf, _ = tl.decode_step(params, full_cache, tok, pos, cfg)
+        torch.cuda.synchronize()
+        ms["full"].append((time.perf_counter() - t0) * 1e3)
+        errs.append((lr - lf).abs().max().item() / lf.abs().max().item())
+        step_logits.append(lr)
+        margins.append(_margins(torch, lr))
+        toks_f.append(lf.argmax(-1).to(torch.int32))
+        tok = lr.argmax(-1).to(torch.int32)
+        toks_r.append(tok)
+    greedy = torch.stack(toks_r, dim=1)
+    agree = int((greedy == torch.stack(toks_f, dim=1)).sum())
+    good = max(errs) <= E16_TOL and tuple(ring[0]["k"].shape) == (
+        E16_BATCH, cfg.sliding_window + roll.rolling_slack, cfg.n_kv_heads,
+        cfg.head_dim) and roll_launches == layers
+    print(f"e16: {E16_NEW} greedy tokens on the rolling cache (ring "
+          f"{list(ring[0]['k'].shape)} a layer, {ring_gb:.2f} GB in all) "
+          f"against the full windowed cache ({list(full_cache[0]['k'].shape)}"
+          f", {full_gb:.2f} GB): worst step logits max_rel_err="
+          f"{max(errs):.4e} (tol {E16_TOL:g}), tokens agreeing "
+          f"{agree}/{greedy.numel()}; decode step median rolling "
+          f"{float(np.median(ms['rolling'])):.3f} ms, full "
+          f"{float(np.median(ms['full'])):.3f} ms (host clock around "
+          f"synchronised work); flash launches of the rolling prefill "
+          f"{roll_launches} -> {'PASS' if good else 'FAIL'}", flush=True)
+    ok = ok and good
+    del full_cache, lg_k
+    torch.cuda.empty_cache()
+
+    # (4) speculative decoding.  ε: decode_chunk against decode_step at
+    # the same positions, from the ring as the prefill left it.
+    chunk = greedy[:, :E16_DRAFT + 1]
+    lc, _ = tl.decode_chunk(params, ring_after_prefill, chunk, E16_PROMPT,
+                            roll)
+    eps = max((lc[:, i] - step_logits[i + 1]).abs().max().item()
+              for i in range(E16_DRAFT + 1))
+    del ring_after_prefill, ring, lc
+    torch.cuda.empty_cache()
+    _zero_flash(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tl.generate(params, prompts, E16_NEW, roll)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches += fa.flash_attention_fwd.launches
+    m = np.asarray(margins).T                   # [B, E16_NEW]
+    drafts = (("self", params, roll),
+              (f"first {E16_DRAFT_LAYERS} layers",
+               {**params, "layers": params["layers"][:E16_DRAFT_LAYERS]},
+               tl.mistral_7b(n_layers=E16_DRAFT_LAYERS, rolling_cache=True)))
+    for name, dparams, dcfg in drafts:
+        tl.speculative_generate.rounds = tl.speculative_generate.accepted = 0
+        _zero_flash(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spec = tl.speculative_generate(params, dparams, prompts, E16_NEW,
+                                       roll, draft_cfg=dcfg,
+                                       n_draft=E16_DRAFT)
+        torch.cuda.synchronize()
+        spec_s = time.perf_counter() - t0
+        launches += fa.flash_attention_fwd.launches
+        rounds = tl.speculative_generate.rounds
+        accepted = tl.speculative_generate.accepted
+        equal = (spec == greedy).cpu().numpy()
+        held, first_tie = True, []
+        for b in range(E16_BATCH):
+            tie = np.nonzero(m[b] < 2 * eps)[0]
+            upto = int(tie[0]) if len(tie) else E16_NEW
+            first_tie.append(upto)
+            held = held and bool(equal[b, :upto].all())
+        print(f"e16: speculative_generate, draft {name}, n_draft "
+              f"{E16_DRAFT}: {rounds} rounds, {accepted / max(rounds, 1):.2f}"
+              f" draft tokens accepted a round, {spec_s:.3f} s against "
+              f"generate's {gen_s:.3f} s; tokens equal to greedy "
+              f"{int(equal.sum())}/{equal.size}, every one before the first "
+              f"near-tie (top-two margin < 2 eps, eps={eps:.4e} the largest "
+              f"gap of decode_chunk's logits to decode_step's; first at "
+              f"{first_tie}): {held}; flash launches "
+              f"{fa.flash_attention_fwd.launches} -> "
+              f"{'PASS' if held else 'FAIL'}", flush=True)
+        ok = ok and held
+    del drafts, dparams, params, new
+    torch.cuda.empty_cache()
+    print(f"e16: (a) in {time.time() - t_phase:.1f} s, flash launches "
+          f"{launches}", flush=True)
     return ok, launches
 
 
@@ -6818,6 +7100,241 @@ def _e15_report(np, results, card, via, route):
     return ok, flash
 
 
+E16_LAYERS = 1           # (b): Mistral-7B at full width cut to one layer
+E16_REQUESTS = 8         # a serving round: 8 prompts of E16_REQ_PROMPT
+E16_REQ_PROMPT = PROMPT_LEN
+E16_REQ_NEW = 8
+E16_DRAIN = 4            # requests in flight when the drain begins
+E16_TIMEOUT_S = 300
+E16_ENV = {"HOROVOD_SERVE_MAX_BATCH": str(E16_REQUESTS),
+           "HOROVOD_SERVE_BUCKETS": str(E16_REQUESTS),
+           "HOROVOD_SERVE_DEADLINE_MS": "120000"}
+
+
+def _post(port, inputs, timeout=120):
+    """One ``POST /v1/infer``: ``(status, outputs or None)``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/infer",
+        data=json.dumps({"inputs": inputs}).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())["outputs"]
+    except urllib.error.HTTPError as exc:
+        return exc.code, None
+
+
+def e16_worker(args):
+    """One rank of E16 (b), started by the port's launcher with ``--serve
+    --serve-port P``: the worker side of ``--serve`` as the JAX workers
+    build it.  ``Config.from_env()`` (``serve``, ``serve_port``, the
+    batcher's knobs) -> ``ContinuousBatcher`` -> ``FrontDoor`` on
+    ``serve_port + rank`` -> ``Replica.load`` of ``mistral_7b()`` at full
+    width, ``--train-layers`` deep, with the rolling cache (rank 0 seeded,
+    rank 1 zeros) -> ``serve_loop``.  A round: E16_REQUESTS HTTP requests
+    of E16_REQ_PROMPT tokens and E16_REQ_NEW new ones, all queued before the
+    loop starts (so both ranks serve one batch of the same rows).  Version
+    1, its repeat, a round; version 2, a round; then the drain with
+    E16_DRAIN requests in flight and one more after it.  Writes
+    ``rank<HOROVOD_RANK>.json`` in ``args.e16_worker``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.config import Config
+    from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.serve import (ContinuousBatcher, FrontDoor,
+                                         Replica, parse_buckets)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r, n = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    cfg = Config.from_env()
+    res = dict(rank=r, size=n, serve=cfg.serve, serve_port=cfg.serve_port,
+               card=torch.cuda.get_device_name(dev))
+    mcfg = tl.mistral_7b(n_layers=args.train_layers, rolling_cache=True)
+
+    def weights(version):
+        p = tl.init_params(mcfg, torch.Generator(device=dev).manual_seed(
+            args.seed + 30 + version))
+        for _, t in tl.named_parameters(p):
+            t.requires_grad_(False)
+            if r != 0:
+                t.zero_()
+        return p
+
+    rep = Replica(lambda p, x: tl.generate(p, x, E16_REQ_NEW, mcfg))
+    batcher = ContinuousBatcher(
+        cfg.serve_max_batch, parse_buckets(cfg.serve_buckets,
+                                           cfg.serve_max_batch),
+        cfg.serve_deadline_ms, cfg.serve_max_inflight or cfg.max_inflight,
+        cfg.serve_queue_depth)
+    door = FrontDoor(batcher, port=cfg.serve_port + r).start()
+    res["door_port"] = door.port
+    prompts = np.random.RandomState(args.seed + 31).randint(
+        0, mcfg.vocab_size, (E16_REQUESTS, E16_REQ_PROMPT)).tolist()
+
+    def load(version):
+        params = weights(version)
+        named = list(tl.named_parameters(params))
+        before = _checksum(torch, named)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = rep.load(params, version=version)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for _, t in named)
+        return dict(loaded=loaded, before=before, s=secs, bytes=nbytes,
+                    after=_checksum(torch, tl.named_parameters(rep.params)))
+
+    def serve(count, then=None):
+        """``count`` requests queued, then the loop; ``then()`` runs while
+        they wait in the queue."""
+        answers = [None] * count
+        clients = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, _post(door.port, prompts[i])), daemon=True)
+            for i in range(count)]
+        for c in clients:
+            c.start()
+        t_end = time.time() + 60
+        while batcher.pending() < count and time.time() < t_end:
+            time.sleep(0.005)
+        late = then() if then is not None else None
+        _zero_flash(fa)
+        stop = threading.Event()
+        loop = threading.Thread(target=rep.serve_loop, args=(batcher, stop),
+                                daemon=True)
+        t0 = time.perf_counter()
+        loop.start()
+        for c in clients:
+            c.join(120)
+        wall = time.perf_counter() - t0
+        stop.set()
+        loop.join(60)
+        return dict(codes=[a[0] if a else None for a in answers],
+                    tokens=[a[1] if a else None for a in answers],
+                    wall=wall, late=late,
+                    launches=fa.flash_attention_fwd.launches)
+
+    res["v1"] = load(1)
+    res["repeat"] = rep.load(weights(1), version=1)
+    res["loads_after_repeat"] = rep.loads
+    # Warm-up outside the rounds (cuBLAS handles, the allocator, the
+    # kernels' first launches), as the serving phase does.
+    t0 = time.perf_counter()
+    rep.forward(np.asarray(prompts[:1])[:, :64])
+    torch.cuda.synchronize()
+    res["warmup_s"] = time.perf_counter() - t0
+    res["round1"] = serve(E16_REQUESTS)
+    res["v2"] = load(2)
+    res["round2"] = serve(E16_REQUESTS)
+
+    def drain():
+        door.drain()
+        return _post(door.port, prompts[0])[0]
+    res["drain"] = serve(E16_DRAIN, then=drain)
+    res["stats"] = door.stats()
+    door.stop()
+    hvd.barrier()
+    hvd.shutdown()
+    _write_result(args.e16_worker, res)
+    print(f"e16 rank {r}: done", flush=True)
+    return 0
+
+
+def e16_phase(torch, layers, seed, card, timeout_s=E16_TIMEOUT_S):
+    """E16 (b): two ranks under ``python -m horovod_tpu_torch.runner -np 2
+    --serve --serve-port P`` (``e16_worker``), Mistral-7B's width at
+    ``layers``.  (1) Each rank's Config reads ``serve`` and ``serve_port``
+    and its front door listens on P + rank; (2) the v1 fan-out: rank 1
+    from zeros to rank 0's checksum, bitwise, and the repeat of v1 no
+    broadcast; (3) a round of HTTP requests: all 200, the tokens bitwise
+    equal across the ranks; (4) the v2 update re-broadcast without a
+    restart, its round all 200 and equal across the ranks; (5) the drain:
+    the requests in flight 200, the one after it 503.  Returns (ok,
+    dict)."""
+    from horovod_tpu_torch.common.net import free_ports
+    import socket
+    for _ in range(50):
+        port, = free_ports(1)
+        with socket.socket() as sk:
+            try:
+                sk.bind(("127.0.0.1", port + 1))
+            except OSError:
+                continue
+        break
+    results, route, wall = launch_ranks(
+        torch, "--e16-worker", layers, seed, timeout_s,
+        launcher_flags=("--serve", "--serve-port", str(port)),
+        env_extra=E16_ENV)
+    if results is None:
+        print(f"e16: (b) FAILED ({route}, {wall:.1f} s)", flush=True)
+        return False, None
+    a, b = results
+    checks = []
+
+    def check(what, good):
+        checks.append(good)
+        print(f"e16: ({len(checks)}) {what} -> {'PASS' if good else 'FAIL'}",
+              flush=True)
+
+    check(f"Config.serve {[x['serve'] for x in results]}, serve_port "
+          f"{[x['serve_port'] for x in results]} (want {port}), front doors "
+          f"on {[x['door_port'] for x in results]}",
+          all(x["serve"] and x["serve_port"] == port
+              and x["door_port"] == port + x["rank"] for x in results))
+    gbps = a["v1"]["bytes"] / a["v1"]["s"] / 1e9
+    check(f"v1 fan-out of {a['v1']['bytes'] / 1e9:.3f} GB in "
+          f"{a['v1']['s']:.3f} s ({gbps:.3f} GB/s, {route}): rank 1 from "
+          f"{b['v1']['before']} to {b['v1']['after']}, rank 0 "
+          f"{a['v1']['after']}; the repeat loaded {a['repeat']}/"
+          f"{b['repeat']}, loads {a['loads_after_repeat']}/"
+          f"{b['loads_after_repeat']}",
+          b["v1"]["before"] == [0, 0] and a["v1"]["after"] ==
+          b["v1"]["after"] == a["v1"]["before"] and a["v1"]["loaded"]
+          and b["v1"]["loaded"] and not a["repeat"] and not b["repeat"]
+          and a["loads_after_repeat"] == b["loads_after_repeat"] == 1)
+    for k, label in (("round1", "v1"), ("round2", "v2")):
+        check(f"{label}: {E16_REQUESTS} HTTP requests of {E16_REQ_PROMPT} "
+              f"tokens, {E16_REQ_NEW} new each, a rank: statuses "
+              f"{sorted(set(a[k]['codes'] + b[k]['codes']))}, "
+              f"{a[k]['wall']:.3f} / {b[k]['wall']:.3f} s, tokens bitwise "
+              f"across the ranks: {a[k]['tokens'] == b[k]['tokens']}",
+              set(a[k]["codes"] + b[k]["codes"]) == {200}
+              and a[k]["tokens"] == b[k]["tokens"]
+              and all(len(t) == E16_REQ_NEW for t in a[k]["tokens"]))
+    check(f"v2 re-broadcast without a restart in {a['v2']['s']:.3f} s: "
+          f"loaded {a['v2']['loaded']}/{b['v2']['loaded']}, checksums equal "
+          f"{a['v2']['after'] == b['v2']['after']}, unlike v1's "
+          f"{a['v2']['after'] != a['v1']['after']}",
+          a["v2"]["loaded"] and b["v2"]["loaded"]
+          and a["v2"]["after"] == b["v2"]["after"] != a["v1"]["after"])
+    check(f"drain: {E16_DRAIN} requests in flight -> "
+          f"{a['drain']['codes']} / {b['drain']['codes']}, one after the "
+          f"drain -> {a['drain']['late']} / {b['drain']['late']}",
+          set(a["drain"]["codes"] + b["drain"]["codes"]) == {200}
+          and a["drain"]["late"] == b["drain"]["late"] == 503)
+    print(f"e16: warm-up forward (one 64-token prompt, outside the rounds) "
+          f"{a['warmup_s']:.3f} / {b['warmup_s']:.3f} s", flush=True)
+    for x in results:
+        st = x["stats"]
+        print(f"e16: rank {x['rank']}'s front door: p50 "
+              f"{st['latency_p50_ms']} ms, p99 {st['latency_p99_ms']} ms, "
+              f"{st['responses_ok_total']} ok, {st['responses_error_total']}"
+              f" errors, availability {st['availability']}", flush=True)
+    launches = sum(a[k]["launches"] for k in ("round1", "round2", "drain"))
+    good = launches == 3 * layers
+    check(f"flash launches on rank 0 {launches} (want {3 * layers}: a "
+          f"prefill batch a round, {layers} layer(s))", good)
+    print(f"e16: (b) in {wall:.1f} s, card {card}", flush=True)
+    return all(checks), dict(flash=launches, gbps=gbps,
+                             p99=[x["stats"]["latency_p99_ms"]
+                                  for x in results])
+
+
 def trace_ab_phase(torch, hvd, grads, iters=5):
     """The size-1 counterpart of the JAX bench's trace A/B: the engine's
     grouped allreduce of the gradient set with the tracer detached (the
@@ -6895,6 +7412,8 @@ def main():
                     help=argparse.SUPPRESS)   # one worker of E12
     ap.add_argument("--e14-worker", metavar="RESULT_DIR",
                     help=argparse.SUPPRESS)   # one rank of E13-E15
+    ap.add_argument("--e16-worker", metavar="RESULT_DIR",
+                    help=argparse.SUPPRESS)   # one rank of E16 (b)
     args = ap.parse_args()
 
     import torch
@@ -6937,6 +7456,8 @@ def main():
         return e12_worker(args)
     if args.e14_worker:
         return e14_worker(args)
+    if args.e16_worker:
+        return e16_worker(args)
     tag_run()
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6980,8 +7501,8 @@ def main():
     edges_ok = edge_phase(torch, fa, dev, args.seed)
     del flush
     torch.cuda.empty_cache()
-    serve_ok, serve_launches = serving_phase(torch, hvd, tl, fa, args.layers,
-                                             args.seed)
+    serve_ok, serve_launches, (e16a_ok, e16a_launches) = serving_phase(
+        torch, hvd, tl, fa, args.layers, args.seed)
     torch.cuda.empty_cache()
     train_ok, train_launches = training_phase(torch, hvd, tl, fa,
                                               args.train_layers, args.seed)
@@ -7039,8 +7560,12 @@ def main():
     res = side_by_side("e11-e15", (
         (("e11", e11_phase, torch, E11_LAYERS, args.seed, card),
          ("e13-e15", e14_phase, torch, E14_LAYERS, args.seed, card)),
-        (("e12", e12_phase, torch, E12_LAYERS, args.seed, card),)))
+        (("e12", e12_phase, torch, E12_LAYERS, args.seed, card),
+         ("e16b", e16_phase, torch, E16_LAYERS, args.seed, card))))
     (e11_ok, e11), (e12_ok, e12) = res["e11"], res["e12"]
+    e16b_ok, e16b = res.get("e16b", (False, None))
+    e16_ok = e16a_ok and e16b_ok
+    f16 = e16a_launches + (e16b["flash"] if e16b else 0)
     e14_ok, e14 = res["e13-e15"]
     e13_ok, e13 = (e14["ok13"], e14["e13"]) if e14 else (False, None)
     print(f"e13-e15: one launch: E13 {e14['e13_s'] if e14 else 0:.1f} s, "
@@ -7070,7 +7595,7 @@ def main():
     f15 = e14["flash15"] if e14 else [0, 0, 0]
     launches = {"flash_fwd": serve_launches + train_launches["flash_fwd"]
                 + e5[0] + m6[0] + f8[0] + f9[0] + f10[0] + f11[0] + f12[0]
-                + f13[0] + f14[0] + f15[0],
+                + f13[0] + f14[0] + f15[0] + f16,
                 "flash_bwd_dq": train_launches["flash_bwd_dq"] + e5[1]
                 + m6[1] + f8[1] + f9[1] + f10[1] + f11[1] + f12[1] + f13[1]
                 + f14[1] + f15[1],
@@ -7086,7 +7611,8 @@ def main():
           f"drains and autoscaling (E12, rank 0 of each generation) + "
           f"{f13[0]} expert parallelism (E13, rank 0) + {f14[0]} tensor "
           f"parallelism (E14, rank 0) + {f15[0]} pipeline parallelism "
-          f"(E15, rank 0); "
+          f"(E15, rank 0) + {f16} serving surface (E16: (a) "
+          f"{e16a_launches}, (b) rank 0 {f16 - e16a_launches}); "
           f"flash_bwd_dq {train_launches['flash_bwd_dq']} + {e5[1]} + "
           f"{m6[1]} + {f8[1]} + {f9[1]} + {f10[1]} + {f11[1]} + {f12[1]} "
           f"+ {f13[1]} + {f14[1]} + {f15[1]}, flash_bwd_dkv "
@@ -7119,8 +7645,10 @@ def main():
              launches_e6=m6[0], launches_e8=f8[0], launches_e9=f9[0],
              launches_e10=f10[0], launches_e11=f11[0],
              launches_e12=f12[0], launches_e13=f13[0], launches_e14=f14[0],
-             launches_e15=f15[0],
+             launches_e15=f15[0], launches_e16=f16,
              **{f"tp_{k}": fwd_tp[k] for k in _CASE_KEYS},
+             **{f"mistral_{k}": by_name[MISTRAL_CASE][k]
+                for k in _CASE_KEYS},
              **{f"{m}_{k}": by_name[case][k] for m, case in MODEL_CASES.items()
                 for k in _CASE_KEYS}),
     ] + [
@@ -7222,7 +7750,7 @@ def main():
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and adasum_ok and e7_ok and e8_ok and e9_ok
                         and e10_ok and e11_ok and e12_ok and e13_ok
-                        and e14_ok and kern["launches"] > 0)
+                        and e14_ok and e16_ok and kern["launches"] > 0)
     stop_strays("chip_smoke")
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
@@ -7232,7 +7760,7 @@ def main():
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
             and e10_ok and e11_ok and e12_ok and e13_ok and e14_ok
-            and all(k["pass"] for k in kernels)):
+            and e16_ok and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
               f", engine ok={engine_ok} (module loading {loading_ok}, "
@@ -7246,7 +7774,8 @@ def main():
               f"ok={e9_ok}, data-plane depth (E10) ok={e10_ok}, elastic "
               f"(E11) ok={e11_ok}, drains and autoscaling (E12) "
               f"ok={e12_ok}, expert parallelism (E13) ok={e13_ok}, tensor "
-              f"and pipeline parallelism (E14, E15) ok={e14_ok}")
+              f"and pipeline parallelism (E14, E15) ok={e14_ok}, serving "
+              f"surface (E16) ok={e16_ok} ((a) {e16a_ok}, (b) {e16b_ok})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

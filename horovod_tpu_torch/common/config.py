@@ -9,7 +9,8 @@
 # (:372-376), and their parsing (:418-419, :445-446, :477-481); ckpt_dir and
 # elastic (:258-271, 407) and their parsing (:444, 497); the hierarchical
 # controller, agent port, preemption grace, commit age and autoscale fields
-# (:229-256, 267-274, 306-330) and their parsing (:440-443, 447, 451-463).
+# (:229-256, 267-274, 306-330) and their parsing (:440-443, 447, 451-463);
+# the serving plane's fields (:332-370) and their parsing (:464-476).
 """Environment-variable configuration surface.
 
 TPU-native equivalent of the reference's env parser
@@ -338,6 +339,39 @@ class Config:
     autoscale_latency_target_ms: float = 0.0
     autoscale_idle_qps: float = 0.0
 
+    # Data-parallel serving plane (docs/serving.md).  HOROVOD_SERVE=1 turns
+    # a launched worker fleet into inference replicas (the launcher's
+    # --serve); HOROVOD_SERVE_PORT is the front-door HTTP port base (rank r
+    # listens on serve_port + r; 0 = in-process API only).
+    # serve_max_batch bounds one forward's batch; serve_buckets ("1,2,4,8")
+    # pins the padded batch shapes the forward may see (empty = powers of
+    # two up to serve_max_batch).  serve_deadline_ms is the per-request
+    # admission deadline; serve_max_inflight bounds admitted-but-unsettled
+    # batches (0 = inherit max_inflight); serve_queue_depth bounds the
+    # ingest queue (a full queue is HTTP 429, the signal to shed or grow).
+    serve: bool = False
+    serve_port: int = 0
+    serve_max_batch: int = 8
+    serve_buckets: str = ""
+    serve_deadline_ms: float = 1000.0
+    serve_max_inflight: int = 0
+    serve_queue_depth: int = 128
+    # Serving fault tolerance, all local to a rank (the front door and the
+    # batcher read them): serve_retries bounds the front door's
+    # deadline-charged retries of retryable failures; serve_hedge_ms > 0
+    # arms tail-latency hedging (the delay until an observed p99 exists);
+    # the breaker trips after serve_breaker_threshold consecutive retryable
+    # failures, fast-fails 503 for serve_breaker_reset_s, then half-opens
+    # and closes after serve_breaker_probes good probes;
+    # serve_quarantine_after consecutive forward failures of one request
+    # fail it for good.
+    serve_retries: int = 2
+    serve_hedge_ms: float = 0.0
+    serve_breaker_threshold: int = 5
+    serve_breaker_reset_s: float = 5.0
+    serve_breaker_probes: int = 2
+    serve_quarantine_after: int = 3
+
     # Run the coordinator cycle inline on the submitting thread for blocking
     # single-controller ops (HOROVOD_INLINE_KICK; the small-tensor latency
     # fast path — off = legacy wake-the-cycle-thread dispatch).
@@ -409,6 +443,19 @@ class Config:
             autoscale_latency_target_ms=_env_float(
                 "AUTOSCALE_LATENCY_TARGET_MS", 0.0),
             autoscale_idle_qps=_env_float("AUTOSCALE_IDLE_QPS", 0.0),
+            serve=_env_bool("SERVE", False),
+            serve_port=_env_int("SERVE_PORT", 0),
+            serve_max_batch=_env_int("SERVE_MAX_BATCH", 8),
+            serve_buckets=_env("SERVE_BUCKETS", "") or "",
+            serve_deadline_ms=_env_float("SERVE_DEADLINE_MS", 1000.0),
+            serve_max_inflight=_env_int("SERVE_MAX_INFLIGHT", 0),
+            serve_queue_depth=_env_int("SERVE_QUEUE_DEPTH", 128),
+            serve_retries=_env_int("SERVE_RETRIES", 2),
+            serve_hedge_ms=_env_float("SERVE_HEDGE_MS", 0.0),
+            serve_breaker_threshold=_env_int("SERVE_BREAKER_THRESHOLD", 5),
+            serve_breaker_reset_s=_env_float("SERVE_BREAKER_RESET_S", 5.0),
+            serve_breaker_probes=_env_int("SERVE_BREAKER_PROBES", 2),
+            serve_quarantine_after=_env_int("SERVE_QUARANTINE_AFTER", 3),
             inline_kick=_env_bool("INLINE_KICK", True),
             controller_addr=_env("CONTROLLER_ADDR", "") or "",
             controller_port=_env_int("CONTROLLER_PORT", 0),

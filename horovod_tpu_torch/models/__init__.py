@@ -6,11 +6,12 @@ horovod_tpu_torch.models`` without importing every family eagerly.  The
 transformer families (``llama``, ``bert``, ``vit``, ``gpt2``) and the
 expert-parallel ones (``moe``, ``dlrm``) each name their split leaves in
 ``param_specs(cfg)``, which ``parallel.ShardedParallel`` and
-``llama.shard_params`` read.  The JAX package's ``convert`` is not ported
-yet.
+``llama.shard_params`` read.  ``convert`` maps Hugging Face Llama,
+Mistral and Mixtral state dicts onto Llama's parameters and back.
 """
 
-_FAMILIES = ("llama", "gpt2", "bert", "vit", "resnet", "mnist", "moe", "dlrm")
+_FAMILIES = ("llama", "gpt2", "bert", "vit", "resnet", "mnist", "moe", "dlrm",
+             "convert")
 
 __all__ = list(_FAMILIES)
 

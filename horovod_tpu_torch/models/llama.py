@@ -2,9 +2,9 @@
 tensor, sequence and expert parallelism in training and tensor
 parallelism in decode.
 
-Port of ``horovod_tpu/models/llama.py:37-230, 275-577, 586-921,
-1023-1044``, with the mixture-of-experts MLP (:100-108, 177-189, 204-218,
-252-254, 413-433, 562-575).  The parameters are a plain dictionary in the JAX package's
+Port of ``horovod_tpu/models/llama.py:37-230, 275-577, 586-1044``, with
+the mixture-of-experts MLP (:100-108, 177-189, 204-218, 252-254, 413-433,
+562-575).  The parameters are a plain dictionary in the JAX package's
 own layout (``{"embed", "layers": [...], "final_norm", "lm_head"}``), and
 every weight keeps the JAX ``[in, out]`` layout: a projection is ``x @
 w``, never ``nn.Linear``'s ``x @ w.T``.  :func:`params_from_jax` carries a JAX
@@ -85,7 +85,19 @@ JAX ``sync_grads`` sum over pp.  ``remat_stages`` checkpoints each stage,
 ``remat_layers`` each layer of the forward without a pipeline.  Decode
 refuses pp.
 
-The rolling cache and speculative decoding are not ported yet.
+Serving surface (JAX :117-130, 153-159, 221-227, 626-676, 710-851,
+923-1020): :func:`mistral_7b` is Mistral-7B's geometry (Llama with a
+4,096-token sliding window).  With ``rolling_cache`` the KV cache is a
+ring of ``sliding_window + rolling_slack`` slots (position p at slot p mod
+R): :func:`init_cache` allocates the ring, :func:`prefill` writes the last
+``min(T0, R)`` prompt positions at their slots while the whole prompt
+attends through the windowed flash forward, :func:`decode_chunk` maps each
+slot back to the position it holds, and :func:`generate` has no length
+budget.  :func:`speculative_generate` is greedy speculative decoding: a
+draft model proposes ``n_draft`` tokens a round, the target verifies them
+in one :func:`decode_chunk`, and the output is greedy :func:`generate`'s
+up to near-ties of the two products.  ``models/convert.py`` maps Hugging
+Face state dicts onto these parameters and back.
 """
 
 from __future__ import annotations
@@ -129,6 +141,14 @@ class LlamaConfig:
     # ``sliding_window`` positions; the flash kernel skips whole tiles
     # outside the band.  Not with sequence parallelism.
     sliding_window: Optional[int] = None
+    # Rolling KV cache for windowed decode: a ring of ``sliding_window +
+    # rolling_slack`` slots (position p at slot p mod R) in place of
+    # max_seq, so serving memory is O(W) and generation unbounded.  The
+    # slack keeps a chunk's writes (decode_chunk, the speculative verify)
+    # off slots its own earlier rows still attend: any chunk of up to
+    # ``rolling_slack`` tokens is safe.
+    rolling_cache: bool = False
+    rolling_slack: int = 8
     norm_eps: float = 1e-5
     # Mixture-of-experts MLP (models/moe.py): n_experts > 0 replaces the
     # dense w1/w3/w2 MLP with routed experts; ``ep_axis`` shards them (a
@@ -171,6 +191,13 @@ class LlamaConfig:
             raise ValueError(
                 f"sliding_window must be >= 1 (or None to disable), got "
                 f"{self.sliding_window!r}")
+        if self.rolling_cache:
+            if not self.sliding_window:
+                raise ValueError("rolling_cache requires sliding_window "
+                                 "(a full-attention model needs every "
+                                 "past position)")
+            if self.rolling_slack < 1:
+                raise ValueError("rolling_slack must be >= 1")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads={self.n_heads} must be a multiple of "
                              f"n_kv_heads={self.n_kv_heads}")
@@ -217,6 +244,16 @@ def mixtral_8x7b(**kw) -> LlamaConfig:
         n_kv_heads=8, d_ff=14336, max_seq=32768, rope_theta=1e6,
         n_experts=8, router_top_k=2, moe_gated=True, capacity_factor=4.0,
         ep_axis="ep"), **kw})
+
+
+def mistral_7b(**kw) -> LlamaConfig:
+    """Mistral-7B geometry (JAX :221-227): the Llama architecture with
+    sliding-window attention over 4,096 positions (the flash kernel skips
+    whole tiles outside the band)."""
+    return LlamaConfig(**{**dict(
+        vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+        n_kv_heads=8, d_ff=14336, max_seq=32768, rope_theta=10000.0,
+        sliding_window=4096), **kw})
 
 
 # ------------------------------------------------------------------- params
@@ -797,13 +834,16 @@ def _decode_tp(cfg: LlamaConfig, mesh, what: str) -> int:
 def init_cache(cfg: LlamaConfig, batch: int, max_seq: Optional[int] = None,
                device=None, mesh=None) -> List[Dict]:
     """Per-layer KV cache ``[B, max_seq, n_kv_heads / tp, head_dim]``
-    (zeros): this rank's kv heads on a tp ``mesh``."""
+    (zeros): this rank's kv heads on a tp ``mesh``.  With
+    ``cfg.rolling_cache`` the cache is a ring of ``sliding_window +
+    rolling_slack`` slots and ``max_seq`` is ignored (JAX :635-638)."""
     tp = _decode_tp(cfg, mesh, "init_cache")
     if cfg.n_kv_heads % tp:
         raise ValueError(f"n_kv_heads={cfg.n_kv_heads} must divide by "
                          f"tp={tp} for the sharded cache")
-    shape = (batch, max_seq or cfg.max_seq, cfg.n_kv_heads // tp,
-             cfg.head_dim)
+    T = (cfg.sliding_window + cfg.rolling_slack if cfg.rolling_cache
+         else max_seq or cfg.max_seq)
+    shape = (batch, T, cfg.n_kv_heads // tp, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
             for _ in range(cfg.n_layers)]
@@ -818,8 +858,12 @@ def cache_specs(cfg: LlamaConfig) -> List[Dict]:
     return [{"k": spec, "v": spec} for _ in range(cfg.n_layers)]
 
 
-def _check_cache_budget(t_final: int, cache_t: int):
-    """Refuse to decode past the cache instead of writing out of range."""
+def _check_cache_budget(t_final: int, cache_t: int,
+                        cfg: Optional[LlamaConfig] = None):
+    """Refuse to decode past the cache instead of writing out of range.  A
+    rolling cache has no length budget: positions wrap (JAX :664-676)."""
+    if cfg is not None and cfg.rolling_cache:
+        return
     if t_final > cache_t:
         raise ValueError(
             f"decode would write position {t_final - 1} but the KV cache "
@@ -849,24 +893,58 @@ def decode_chunk(params, cache, tokens, pos: int, cfg: LlamaConfig,
     attends the cache prefix ``<= pos + i`` (the last ``sliding_window`` of
     it with a window).  Attention is a plain masked product in float32 over
     the written prefix: the slots past it are masked in the JAX version and
-    contribute exactly zero there."""
+    contribute exactly zero there.
+
+    On a rolling cache (JAX :726-745, 760-775) position p lives at slot p
+    mod R, and slot j holds ``p_j = end - ((end - j) mod R)``, the last
+    position up to the chunk's end that maps there; row i attends the
+    slots with ``p_j`` in ``(pos + i - W, pos + i]`` and ``p_j >= 0`` (a
+    slot never written derives a negative position, which a context
+    shorter than the window would otherwise reach).  A chunk longer than
+    ``rolling_slack`` is refused: its later writes would overwrite slots
+    its earlier rows still attend."""
     _decode_tp(cfg, mesh, "decode_chunk")
     B, Tq = tokens.shape
-    _check_cache_budget(pos + Tq, cache[0]["k"].shape[1])
     dev = tokens.device
     x = params["embed"][tokens.long()]                # [B, Tq, D]
     positions = pos + torch.arange(Tq, device=dev)
-    T = pos + Tq
-    t = torch.arange(T, device=dev)[None, :]
-    valid = t <= positions[:, None]                   # [Tq, T]
-    if cfg.sliding_window:
-        valid = valid & (t > positions[:, None] - cfg.sliding_window)
+    R = cache[0]["k"].shape[1]
+    if cfg.rolling_cache:
+        if Tq > cfg.rolling_slack:
+            raise ValueError(
+                f"decode_chunk of {Tq} tokens exceeds rolling_slack="
+                f"{cfg.rolling_slack}: earlier chunk rows would attend "
+                f"slots the later writes just overwrote; raise "
+                f"rolling_slack")
+        end = pos + Tq - 1
+        p_j = end - torch.remainder(
+            end - torch.arange(R, device=dev)[None, :], R)    # [1, R]
+        qpos = positions[:, None]                             # [Tq, 1]
+        valid = (p_j >= 0) & (p_j <= qpos) \
+            & (p_j > qpos - cfg.sliding_window)               # [Tq, R]
+        slots = torch.remainder(positions, R)
+        T = R
+    else:
+        _check_cache_budget(pos + Tq, R)
+        T = pos + Tq
+        t = torch.arange(T, device=dev)[None, :]
+        valid = t <= positions[:, None]                   # [Tq, T]
+        if cfg.sliding_window:
+            valid = valid & (t > positions[:, None] - cfg.sliding_window)
     for p, c in zip(params["layers"], cache):
         h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         q, k_new, v_new = _qkv(h, p, cfg, positions, mesh)
         H, K, Hd = q.shape[2], k_new.shape[2], q.shape[3]
-        c["k"][:, pos:pos + Tq] = k_new.to(c["k"].dtype)
-        c["v"][:, pos:pos + Tq] = v_new.to(c["v"].dtype)
+        if not cfg.rolling_cache:
+            c["k"][:, pos:pos + Tq] = k_new.to(c["k"].dtype)
+            c["v"][:, pos:pos + Tq] = v_new.to(c["v"].dtype)
+        elif Tq == 1:
+            # The hot decode loop: one position is a contiguous write.
+            c["k"][:, pos % R] = k_new[:, 0].to(c["k"].dtype)
+            c["v"][:, pos % R] = v_new[:, 0].to(c["v"].dtype)
+        else:
+            c["k"][:, slots] = k_new.to(c["k"].dtype)
+            c["v"][:, slots] = v_new.to(c["v"].dtype)
         ck, cv = c["k"][:, :T], c["v"][:, :T]
         # GQA groups against the shared kv, one extra chunk axis q.
         qg = q.reshape(B, Tq, K, H // K, Hd)
@@ -891,17 +969,28 @@ def prefill(params, cache, tokens, cfg: LlamaConfig, mesh=None):
     over the layers; returns (last-position logits float32, cache).  Each
     layer projects q/k/v for the whole prompt, writes its kv into the cache
     at ``[0, T0)`` and attends causally through the flash forward (this
-    rank's heads on a tp ``mesh``)."""
+    rank's heads on a tp ``mesh``).  On a rolling cache only the last
+    ``min(T0, R)`` positions, the only ones attended again, are written, at
+    their ring slots (JAX :829-839); the whole prompt still attends
+    through the windowed flash forward."""
     _decode_tp(cfg, mesh, "prefill")
     B, T0 = tokens.shape
-    _check_cache_budget(T0, cache[0]["k"].shape[1])
+    R = cache[0]["k"].shape[1]
+    _check_cache_budget(T0, R, cfg)
     positions = torch.arange(T0, device=tokens.device)
+    if cfg.rolling_cache:
+        keep = min(T0, R)
+        slots = positions[T0 - keep:] % R
     x = params["embed"][tokens.long()]                # [B, T0, D]
     for p, c in zip(params["layers"], cache):
         h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(h, p, cfg, positions, mesh)
-        c["k"][:, :T0] = k.to(c["k"].dtype)
-        c["v"][:, :T0] = v.to(c["v"].dtype)
+        if cfg.rolling_cache:
+            c["k"][:, slots] = k[:, T0 - keep:].to(c["k"].dtype)
+            c["v"][:, slots] = v[:, T0 - keep:].to(c["v"].dtype)
+        else:
+            c["k"][:, :T0] = k.to(c["k"].dtype)
+            c["v"][:, :T0] = v.to(c["v"].dtype)
         x = x + _wo_project(_local_attend(q, k, v, cfg), p, cfg, mesh)
         h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
         x = x + (_moe_mlp(h, p, cfg)[0] if cfg.n_experts
@@ -952,7 +1041,8 @@ def generate(params, prompt, n_tokens: int, cfg: LlamaConfig,
     Greedy by default; ``temperature > 0`` samples from ``generator``.
     The cache holds ``max_seq`` slots, by default just the prompt and the
     new tokens (the JAX function defaults to ``cfg.max_seq``; the extra
-    slots are masked there and change nothing but memory).  On a tp
+    slots are masked there and change nothing but memory); a rolling cache
+    holds its ring and has no length budget.  On a tp
     ``mesh`` every rank holds the whole logits, so greedy and seeded
     sampling agree across the group as long as every rank passes the same
     prompt and an equally seeded ``generator``."""
@@ -964,7 +1054,7 @@ def generate(params, prompt, n_tokens: int, cfg: LlamaConfig,
     cache = init_cache(cfg, B, max_seq or T0 + n_tokens,
                        device=prompt.device, mesh=mesh)
     # The last generated token's own kv is never written back, hence -1.
-    _check_cache_budget(T0 + n_tokens - 1, cache[0]["k"].shape[1])
+    _check_cache_budget(T0 + n_tokens - 1, cache[0]["k"].shape[1], cfg)
     logits, cache = prefill(params, cache, prompt, cfg, mesh)
     tok = sample_logits(logits, generator, temperature, top_p, top_k)
     out = [tok]
@@ -973,3 +1063,75 @@ def generate(params, prompt, n_tokens: int, cfg: LlamaConfig,
         tok = sample_logits(logits, generator, temperature, top_p, top_k)
         out.append(tok)
     return torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def speculative_generate(params, draft_params, prompt, n_tokens: int,
+                         cfg: LlamaConfig,
+                         draft_cfg: Optional[LlamaConfig] = None,
+                         n_draft: int = 4, max_seq: Optional[int] = None):
+    """Greedy speculative decoding (JAX :923-1020): ``prompt [B, T0]`` ->
+    ``[B, n_tokens]`` int32.  A draft model proposes ``n_draft`` tokens a
+    round; the target verifies them in one :func:`decode_chunk` over
+    ``[last, d_1..d_k]`` and emits every leading match plus its own
+    correction token.  The output is greedy :func:`generate`'s: the draft
+    changes only how many target forwards it takes (1 + the accepted
+    tokens a forward).  In bfloat16 that holds up to near-ties, since the
+    chunk's products and a step's have other GEMM shapes.  Batched:
+    acceptance is the least leading-match length over the rows.
+
+    ``draft_cfg`` defaults to ``cfg`` and must share the vocabulary.  Each
+    cache holds ``max_seq`` slots (by default ``T0 + n_tokens + n_draft``,
+    so the last round's chunk fits) and keeps its own budget: a rolling
+    target does not exempt a fixed draft.  Eager: a Python loop over
+    rounds, with one read of the accepted count to the host a round.
+    ``speculative_generate.rounds`` and ``.accepted`` count the rounds and
+    the accepted draft tokens (reset them to 0 to read one call)."""
+    draft_cfg = draft_cfg or cfg
+    _decode_tp(cfg, None, "speculative_generate")
+    _decode_tp(draft_cfg, None, "speculative_generate (draft)")
+    B, T0 = prompt.shape
+    if n_tokens < 1:
+        return torch.zeros((B, 0), dtype=torch.int32, device=prompt.device)
+    k = int(n_draft)
+    if k < 1:
+        raise ValueError("n_draft must be >= 1")
+    budget = max_seq or (T0 + n_tokens + k)
+    cache_t = init_cache(cfg, B, budget, device=prompt.device)
+    cache_d = init_cache(draft_cfg, B, budget, device=prompt.device)
+    _check_cache_budget(T0 + n_tokens + k, cache_t[0]["k"].shape[1], cfg)
+    _check_cache_budget(T0 + n_tokens + k, cache_d[0]["k"].shape[1],
+                        draft_cfg)
+
+    logits_t, cache_t = prefill(params, cache_t, prompt, cfg)
+    _, cache_d = prefill(draft_params, cache_d, prompt, draft_cfg)
+    last = torch.argmax(logits_t, dim=-1).to(torch.int32)      # [B]
+    out, n_done = [last[:, None]], 1
+    while n_done < n_tokens:
+        p0 = T0 + n_done - 1      # the position of `last`'s unwritten kv
+        # k + 1 draft steps: the last one only writes d_k's own kv, so that
+        # a fully accepted round leaves no hole in the draft cache.
+        tok, drafts = last, []
+        for i in range(k + 1):
+            logits, cache_d = decode_step(draft_params, cache_d, tok,
+                                          p0 + i, draft_cfg)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            drafts.append(tok)
+        drafts = torch.stack(drafts[:k], dim=1)                 # [B, k]
+        # Row i of the verify is the target's next token after p0 + i, so
+        # t_i lines up with d_{i+1}.
+        chunk = torch.cat([last[:, None], drafts], dim=1)
+        logits, cache_t = decode_chunk(params, cache_t, chunk, p0, cfg)
+        targets = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, k+1]
+        match = (drafts == targets[:, :k]).to(torch.int32)
+        a = int(torch.cumprod(match, dim=1).sum(dim=1).min())
+        last = targets[:, a]
+        out.append(torch.cat([drafts[:, :a], last[:, None]], dim=1))
+        n_done += a + 1
+        speculative_generate.rounds += 1
+        speculative_generate.accepted += a
+    return torch.cat(out, dim=1)[:, :n_tokens]
+
+
+speculative_generate.rounds = 0
+speculative_generate.accepted = 0

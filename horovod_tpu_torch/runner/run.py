@@ -9,7 +9,8 @@
 # (:236-249), their forwarding (:415-422) and the route to the elastic
 # driver (:302-307, 625-628); the hierarchical controller, autoscale,
 # preemption and commit-age flags (:198-204, 216-235, 250-253), their
-# forwarding (:417, 444-445) and the agent ports (:501-534, 577-593).
+# forwarding (:417, 444-445) and the agent ports (:501-534, 577-593); the
+# serving flags (:188-197) and their forwarding (:446-453).
 # platform_worker_env (:359-388, JAX and XLA variables) is replaced by the
 # card's counterpart; the flags of what the port lacks are refused.
 """The launcher's argument surface and launch orchestration.
@@ -140,11 +141,9 @@ NOT_PORTED: Dict[str, str] = {
     "--cache-capacity": "the port compiles no fused programs to cache (the "
                         "negotiation response cache is "
                         "HOROVOD_RESPONSE_CACHE_CAPACITY)",
-    "--serve": "ROADMAP queue 1 item 9, multi-process serving",
-    "--serve-port": "ROADMAP queue 1 item 9, multi-process serving",
 }
 # Those of them that take no value.
-_SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery", "--serve"}
+_SWITCHES = {"--tpu-topology-aware", "--tpu-metadata-discovery"}
 
 # Tuning flags forwarded to every worker as HOROVOD_* env: flag, variable,
 # scale.  Each is read by the port's Config.from_env.
@@ -260,6 +259,16 @@ def parse_args(argv: Sequence[str]) -> argparse.Namespace:
                         "root to each slice, then the fan-out inside), "
                         "bitwise the flat one "
                         "(HOROVOD_HIERARCHICAL_BROADCAST)")
+    p.add_argument("--serve", action="store_true",
+                   help="Serving plane (docs/serving.md): each rank runs "
+                        "a continuous-batching front door and a replica's "
+                        "forward loop instead of a training loop.  "
+                        "Forwarded as HOROVOD_SERVE; knobs via "
+                        "HOROVOD_SERVE_* (port, max batch, buckets, "
+                        "deadline, inflight window, queue depth)")
+    p.add_argument("--serve-port", type=int, default=None,
+                   help="Front-door HTTP port base; rank r listens on "
+                        "port+r (HOROVOD_SERVE_PORT; 0/unset = ephemeral)")
     p.add_argument("--timeline-filename", default=None,
                    help="Write a Chrome-trace timeline per rank at "
                         "<base>.<rank> (HOROVOD_TIMELINE)")
@@ -520,6 +529,12 @@ def tuning_env(args) -> Dict[str, str]:
         env["HOROVOD_CKPT_DIR"] = args.ckpt_dir
     if getattr(args, "hierarchical_controller", False):
         env["HOROVOD_HIERARCHICAL_CONTROLLER"] = "1"
+    # The serving plane: the worker derives its own port, serve_port +
+    # rank, from the base.
+    if getattr(args, "serve", False):
+        env["HOROVOD_SERVE"] = "1"
+    if getattr(args, "serve_port", None) is not None:
+        env["HOROVOD_SERVE_PORT"] = str(int(args.serve_port))
     return env
 
 

@@ -1,4 +1,5 @@
-# Copied from horovod_tpu/serve/batcher.py:1-504 (jax-free; the port keeps its own copy).
+# Copied from horovod_tpu/serve/batcher.py:1-504 (jax-free; the port keeps its
+# own copy), its knob read through the port's Config lookup.
 """Continuous-batching admission queue for the serving plane (no jax).
 
 The front half of the data-parallel serving plane (``docs/serving.md``):
@@ -32,12 +33,12 @@ bucketing and backpressure deterministically.
 from __future__ import annotations
 
 import itertools
-import os
 import threading
 import time
 from collections import OrderedDict
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from ..common.config import _env
 from ..utils.logging import get_logger
 
 log = get_logger()
@@ -208,8 +209,7 @@ class ContinuousBatcher:
         self._clock = clock
         if quarantine_after is None:
             try:
-                quarantine_after = int(os.environ.get(
-                    "HOROVOD_SERVE_QUARANTINE_AFTER", "") or 3)
+                quarantine_after = int(_env("SERVE_QUARANTINE_AFTER") or 3)
             except ValueError:
                 quarantine_after = 3
         self.quarantine_after = max(1, int(quarantine_after))

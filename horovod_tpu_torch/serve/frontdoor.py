@@ -1,4 +1,5 @@
-# Copied from horovod_tpu/serve/frontdoor.py:1-485 (jax-free; the port keeps its own copy).
+# Copied from horovod_tpu/serve/frontdoor.py:1-485 (jax-free; the port keeps
+# its own copy), its knobs read through the port's Config lookup.
 """HTTP/in-process ingest for the serving plane (no jax imports).
 
 The front half of the serving plane (``docs/serving.md``): a stdlib
@@ -55,7 +56,6 @@ from __future__ import annotations
 import itertools
 import json
 import math
-import os
 import threading
 import time
 import uuid
@@ -67,6 +67,7 @@ from .batcher import (
     ReplicaFaulted, RequestQuarantined, Retryable,
 )
 from .resilience import CircuitBreaker
+from ..common.config import _env
 from ..common.net import retry_with_backoff
 from ..utils.logging import get_logger
 
@@ -83,16 +84,19 @@ RETRY_BASE_MS = 25.0
 RETRY_MAX_MS = 1000.0
 
 
+# The knobs are read as ``Config.from_env`` reads them (HVD_TPU_<name>,
+# then HOROVOD_<name>), so that the front door and the config agree; a
+# malformed value falls back to the default here.
 def _env_int(name: str, default: int) -> int:
     try:
-        return int(os.environ.get(name, "") or default)
+        return int(_env(name) or default)
     except ValueError:
         return default
 
 
 def _env_float(name: str, default: float) -> float:
     try:
-        return float(os.environ.get(name, "") or default)
+        return float(_env(name) or default)
     except ValueError:
         return default
 
@@ -111,16 +115,16 @@ class FrontDoor:
         self.batcher = batcher
         self._agent = agent
         self._clock = clock
-        self.retries = (_env_int("HOROVOD_SERVE_RETRIES", 2)
+        self.retries = (_env_int("SERVE_RETRIES", 2)
                         if retries is None else max(0, int(retries)))
-        self.hedge_ms = (_env_float("HOROVOD_SERVE_HEDGE_MS", 0.0)
+        self.hedge_ms = (_env_float("SERVE_HEDGE_MS", 0.0)
                          if hedge_ms is None else float(hedge_ms))
-        self.slo = (_env_float("HOROVOD_SERVE_SLO", 0.999)
+        self.slo = (_env_float("SERVE_SLO", 0.999)
                     if slo is None else float(slo))
         self.breaker = breaker if breaker is not None else CircuitBreaker(
-            threshold=_env_int("HOROVOD_SERVE_BREAKER_THRESHOLD", 5),
-            reset_s=_env_float("HOROVOD_SERVE_BREAKER_RESET_S", 5.0),
-            probes=_env_int("HOROVOD_SERVE_BREAKER_PROBES", 2),
+            threshold=_env_int("SERVE_BREAKER_THRESHOLD", 5),
+            reset_s=_env_float("SERVE_BREAKER_RESET_S", 5.0),
+            probes=_env_int("SERVE_BREAKER_PROBES", 2),
             clock=clock)
         reg = batcher.registry
         self._m_retries = reg.counter(

@@ -290,8 +290,9 @@ def test_torch_llama_moe_decode_matches_forward_argmax():
 
 def test_torch_mixtral_8x7b_has_the_jax_fields():
     """Every field of the port's ``mixtral_8x7b()`` equals the JAX one's
-    (the dtype by name); the JAX fields the port lacks are its serving
-    knobs (the pp ones came with the pipeline slice)."""
+    (the dtype by name); the one JAX field the port lacks is the TPU
+    routing knob ``use_flash`` (the pp fields came with the pipeline slice,
+    the rolling cache's with the serving surface)."""
     t, j = tl.mixtral_8x7b(), jl.mixtral_8x7b()
     names = [f.name for f in dataclasses.fields(t)]
     for name in names:
@@ -301,7 +302,7 @@ def test_torch_mixtral_8x7b_has_the_jax_fields():
         else:
             assert a == b, name
     missing = {f.name for f in dataclasses.fields(j)} - set(names)
-    assert missing == {"use_flash", "rolling_cache", "rolling_slack"}
+    assert missing == {"use_flash"}
     assert t.head_dim == j.head_dim == 128
     assert tl.mixtral_8x7b(n_layers=1).n_layers == 1
 

@@ -801,3 +801,39 @@ def test_torch_pipeline_exchanges_run_through_the_mesh():
             assert args[1:3] == ["mesh", "axis"], (node.lineno, args)
     assert sorted(found) == ["ReduceOutput.apply", "send_recv",
                              "send_recv"], found
+
+
+# The serving surface: the Hugging Face converter and the generation
+# example, ported from JAX modules that import JAX.
+SERVING_MODULES = ("horovod_tpu_torch.models.convert",
+                   "horovod_tpu_torch.examples.llama_generate")
+
+_SERVING_SRC = _OBSERVE_SRC.replace("print('PURE', len(sys.argv) - 2)", r"""
+import torch
+from horovod_tpu_torch.examples import llama_generate
+from horovod_tpu_torch.models import convert, llama
+cfg = llama.tiny(dtype=torch.float32, sliding_window=4, rolling_cache=True)
+params = llama.init_params(cfg, torch.Generator().manual_seed(0))
+back = convert.from_hf_state_dict(convert.to_hf_state_dict(params, cfg), cfg)
+assert all(torch.equal(a, b) for a, b in zip(
+    params["layers"][1].values(), back["layers"][1].values()))
+llama_generate.main(["--tiny", "--cpu", "--n-draft", "2", "--n-tokens",
+                     "6"])
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_serving_modules_stand_alone():
+    """The converter and the generation example import with JAX and
+    horovod_tpu blocked; a round trip through Hugging Face names is
+    bitwise, and the example decodes speculatively on the CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _SERVING_SRC, REPO,
+                          *SERVING_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "DONE tokens=12" in res.stdout
+    assert res.stdout.split()[-1] == str(len(SERVING_MODULES))

@@ -11,7 +11,8 @@ observability flags forwarded as the JAX launcher forwards them; the
 host that every worker gets, and four ``-H`` entries of this machine
 spawned here, not by ssh; the three sharded-optimizer flags forwarded as
 the JAX launcher forwards them (the counterpart of
-``test_sharded_flag_forwards_fleet_uniform_env``).
+``test_sharded_flag_forwards_fleet_uniform_env``); ``--serve`` and
+``--serve-port`` forwarded on the static and the elastic path.
 
 No counterpart: ``test_platform_worker_env_cpu_hygiene`` (JAX's CPU
 collectives and XLA device-count flag; the card's env replaces it),
@@ -428,6 +429,76 @@ def test_torch_runner_forwards_observability_flag(flag, monkeypatch):
     plain = port_run.parse_args(["-np", "2", "python", "t.py"])
     assert var not in port_run.worker_envs(plain, port_run.placement(plain),
                                            coord)[0]
+
+
+# ---------------------------------------------------------- serving plane
+# The two serving flags the port once refused: flag, its value on the
+# command line (none for a switch), the variable it forwards, its value
+# there, and the port Config's field and value.
+SERVE_FLAGS = {
+    "--serve": ([], "HOROVOD_SERVE", "1", "serve", True),
+    "--serve-port": (["8500"], "HOROVOD_SERVE_PORT", "8500", "serve_port",
+                     8500),
+}
+
+
+def _elastic_env(monkeypatch, argv):
+    """The env the port's elastic path hands its driver for ``argv``
+    (the driver itself is replaced: nothing is spawned)."""
+    from horovod_tpu_torch.elastic import driver as elastic_driver
+    seen = {}
+
+    class Driver:
+        def __init__(self, discovery, command, env=None, **kw):
+            seen.update(env)
+            self.rendezvous = type("R", (), {"stop": lambda self: None})()
+
+        def run(self):
+            return 0
+
+    monkeypatch.setattr(elastic_driver, "ElasticDriver", Driver)
+    assert port_run.main(["--host-discovery-script", "echo localhost:2",
+                          "--min-np", "1", "--max-np", "2", *argv]) == 0
+    return seen
+
+
+@pytest.mark.parametrize("path", ["static", "elastic"])
+@pytest.mark.parametrize("flag", sorted(SERVE_FLAGS))
+def test_torch_runner_forwards_serve_flag(flag, path, monkeypatch):
+    """``--serve`` and ``--serve-port`` parse and reach every worker's env
+    on both launch paths, the static one (``worker_envs``, beside the JAX
+    launcher's, which sends the same variable and value) and the elastic
+    one (the env its driver gives each worker), and round-trip into the
+    port's Config, from which a rank takes its front door's port
+    (``serve_port + rank``); without the flag the variable is absent."""
+    from horovod_tpu_torch.common.config import Config
+    value, var, want, field, cfg_want = SERVE_FLAGS[flag]
+    assert flag not in port_run.NOT_PORTED
+    argv = [flag, *value, "python", "t.py"]
+    if path == "static":
+        argv = ["-np", "3", "-H", "a:2,b:1", *argv]
+        coord = ("1.2.3.4", 5555, 5556)
+        envs = {}
+        for pkg in RUNNERS:
+            run = _mod(pkg)
+            args = run.parse_args(argv)
+            envs[pkg] = run.worker_envs(args, run.placement(args), coord)
+        got = []
+        for jenv, penv in zip(*envs.values()):
+            assert penv[var] == jenv[var] == want
+            got.append(penv[var])
+        plain = port_run.parse_args(["-np", "2", "python", "t.py"])
+        assert var not in port_run.worker_envs(
+            plain, port_run.placement(plain), coord)[0]
+    else:
+        got = [_elastic_env(monkeypatch, argv)[var]]
+        assert got == [want]
+        assert var not in _elastic_env(monkeypatch, ["python", "t.py"])
+    for v in got:
+        monkeypatch.setenv(var, v)
+        assert getattr(Config.from_env(), field) == cfg_want
+        monkeypatch.delenv(var)
+    assert getattr(Config.from_env(), field) == getattr(Config(), field)
 
 
 # ------------------------------------------------- the two-level data plane
