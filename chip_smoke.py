@@ -305,7 +305,21 @@ Phases (any failure exits non-zero and prints no result line):
    front door, the tokens bitwise across the ranks; a v2 update without a
    restart and its round; the drain (in flight 200, after it 503); the
    fan-out's GB/s and each front door's p50/p99.
-19. The whole run's wall time, the kernels line (JSON), the card line, and
+19. The collective analyzer, E17, in launches that run anyway: (a) in
+   E8's, with ``HVD_TPU_SANITIZER=1`` and ``DistributedOptimizer(...,
+   check="strict")``: the strict lint of this script raises nothing (its
+   finding count and ms printed); after the steps both ranks' sanitizer
+   ledgers (seq, name, digest) are equal and as long as the submissions
+   made, steps 2-3 make no full announce, ``/metrics`` in step 2 has
+   ``hvd_sanitizer_ledger_entries`` > 0; then two bf16 tensors submitted
+   in opposite orders give both ranks a NegotiationError naming both
+   ranks, both call sites and ``seq=0:``, and a control sum after it is
+   exact.  (b) In E14's, before its first step: ``trace_check`` audits the
+   tp Llama loss and gradients at E14's shapes with no error, as many
+   psums as ``mesh.timing`` counts in the first step, and no flash launch
+   and no exchange during the audit.  (c) In the training phase: the
+   content hash of a bf16 gradient on the card equals its CPU copy's.
+20. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 Every process the run starts carries ``CHIP_SMOKE_RUN`` in its
@@ -1535,12 +1549,36 @@ def training_phase(torch, hvd, tl, fa, layers, seed):
     print(f"training: loss finite and lower at step {TRAIN_STEPS} than at "
           f"step 1: {falls}", flush=True)
     ok = ok and falls and all(n == want for n in launches.values())
+    E17["c"] = _e17_hash(torch, named)
     try:
         profile_call(torch, "train step", lambda: step(params, x, y))
     except Exception as exc:  # noqa: BLE001 - a measurement, not a check
         print(f"profile: failed ({type(exc).__name__}: {exc}); busy share "
               f"not measured", flush=True)
     return ok, launches
+
+
+def _e17_hash(torch, named):
+    """E17 (c): the runtime sanitizer's content hash of a bf16 gradient on
+    the card (the last step's, of the first layer's ``wq``) equals its
+    CPU copy's, as the JAX sanitizer's of the same bits would."""
+    from horovod_tpu_torch.analysis.runtime_sanitizer import \
+        CollectiveSanitizer
+    name, t = next(kv for kv in named if kv[0].endswith(".wq"))
+
+    class Entry:
+        def __init__(self, tensor):
+            self.tensor = tensor
+
+    g = t.grad
+    on_card = CollectiveSanitizer._content_hash(Entry(g))
+    on_host = CollectiveSanitizer._content_hash(Entry(g.cpu()))
+    ok = g.dtype == torch.bfloat16 and g.is_cuda and on_card is not None \
+        and on_card == on_host
+    print(f"e17(c): content hash of the bf16 gradient of {name} "
+          f"{tuple(g.shape)} on the card {on_card}, of its CPU copy "
+          f"{on_host} -> {'PASS' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 # ------------------------------------------------------------- the engine
@@ -2395,7 +2433,7 @@ def _e4_rank(args):
         v, op=hvd.Sum, name="e4.join.sum"))
     checks["allreduce before join"] = both.tolist() == [4.5, -6.0, 21.0]
     if r == 0:
-        alone = run("allreduce while rank 1 is joined", lambda: hvd.allreduce(
+        alone = run("allreduce while rank 1 is joined", lambda: hvd.allreduce(  # hvd-lint: disable=HVD101 (E4: rank 1 has joined)
             v, op=hvd.Min, name="e4.join.min"))
         fill = engine_mod._join_fill_value(
             engine_mod.CollectiveType.ALLREDUCE, hvd.Min, torch.float32)
@@ -3659,7 +3697,7 @@ def e7_worker(args):
             torch.cat([t.reshape(-1).double() for t in _e7_tensors(
                 torch, attn, dev, args.seed + 3, q, "f32")])
             for q in range(3)])
-        a3 = eager.grouped_allreduce(x, name="e7.a.3", op=hvd.Adasum,
+        a3 = eager.grouped_allreduce(x, name="e7.a.3", op=hvd.Adasum,  # hvd-lint: disable=HVD101 (E7: ranks 0-2 are the set)
                                      process_set=ps)
         within3, err3 = close(a3, ref3)
         res["adasum3"] = dict(within=within3, max_err=err3,
@@ -3831,6 +3869,10 @@ def e7_phase(torch, layers, seed, card, timeout_s=E7_TIMEOUT_S):
 
 
 # ---------------------------------------------------------- observability
+# E17's verdicts by part ("a" in E8's launch, "b" in E14's, "c" in the
+# training phase), set where each runs and read by main().
+E17 = {}
+
 E8_LAYERS = 1             # one layer keeps the whole script in its limit
 E8_STEPS = 3
 E8_TIMEOUT_S = 300
@@ -3866,8 +3908,38 @@ def _scrape(port, running, out):
         m = re.search(r'^hvd_cycles_total\{rank="0"\} (\S+)$',
                       got["/metrics"].decode(), re.M)
         out["cycles_total"] = float(m.group(1)) if m else None
+        m = re.search(r'^hvd_sanitizer_ledger_entries\{rank="0"\} (\S+)$',
+                      got["/metrics"].decode(), re.M)
+        out["ledger_entries"] = float(m.group(1)) if m else None
         out["health"] = json.loads(got["/health"])["status"]
         out["snapshot"] = sorted(json.loads(got["/snapshot"])["table"])
+
+
+def _e17_swap(torch, hvd, r, dev):
+    """E17 (a)'s order swap: each rank submits the same two bf16 tensors
+    in opposite orders under the same two names (the silent pairing
+    negotiation alone cannot see), then a control sum.  Returns what the
+    NegotiationErrors said and the control's values."""
+    from horovod_tpu_torch.common.controller import NegotiationError
+    a = torch.ones(4096, dtype=torch.bfloat16, device=dev)
+    b = torch.full((4096,), 2.0, dtype=torch.bfloat16, device=dev)
+    if r == 0:  # hvd-lint: disable=HVD101 (E17: the swap under test)
+        hs = [hvd.allreduce_async(a, name="e17.swap.0", op=hvd.Sum),  # hvd-lint: disable=HVD101
+              hvd.allreduce_async(b, name="e17.swap.1", op=hvd.Sum)]  # hvd-lint: disable=HVD101
+    else:
+        hs = [hvd.allreduce_async(b, name="e17.swap.0", op=hvd.Sum),  # hvd-lint: disable=HVD101
+              hvd.allreduce_async(a, name="e17.swap.1", op=hvd.Sum)]  # hvd-lint: disable=HVD101
+    errors, summed = [], []
+    for h in hs:
+        try:
+            summed.append(hvd.synchronize(h).float().sum().item())
+        except NegotiationError as exc:
+            errors.append(str(exc))
+    control = hvd.allreduce(torch.full((8,), 1.5 + r, dtype=torch.bfloat16,
+                                       device=dev), name="e17.control",
+                            op=hvd.Sum)
+    return dict(errors=errors, summed=summed,
+                control=control.float().tolist())
 
 
 def e8_worker(args):
@@ -3877,13 +3949,19 @@ def e8_worker(args):
     ``E8_STEPS`` steps of Llama at full width on this rank's own batch,
     the launch counts zeroed just before and read just after.  Rank 0
     scrapes its monitor port while step 2 runs and profiles step 3 with
-    ``hvd.profile_step``.  Writes ``rank<HOROVOD_RANK>.json`` in
-    ``args.e8_worker``."""
+    ``hvd.profile_step``.  E17 (a) rides this launch: the optimizer is
+    wrapped with ``check="strict"`` (the sanitizer is on, from the
+    launcher's environment), each step's full announces are counted, and
+    after the steps (and the results E8 reads) the ledger is kept and the
+    order swap runs (``_e17_swap``).  Writes ``rank<HOROVOD_RANK>.json``
+    in ``args.e8_worker``."""
+    import logging
     import numpy as np
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.utils.logging import get_logger
     from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fusion
@@ -3903,9 +3981,21 @@ def e8_worker(args):
         args.seed + 1 + 1000 * r))
     named = list(tl.named_parameters(params))
     hvd.broadcast_parameters(params, root_rank=0)
+    # E17 (a): the wrap-time lint of this script, strict: any error
+    # finding raises here and fails the launch.  Its findings are logged.
+    logged = []
+    catch = logging.Handler()
+    catch.emit = lambda rec: logged.append(rec.getMessage())
+    get_logger().addHandler(catch)
+    t0 = time.perf_counter()
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD([t for _, t in named], lr=TRAIN_LR),
-        named_parameters=named)
+        named_parameters=named, check="strict")
+    lint_ms = (time.perf_counter() - t0) * 1e3
+    get_logger().removeHandler(catch)
+    res["e17"] = dict(lint_ms=lint_ms, sanitizer=eng.sanitizer is not None,
+                      findings=sum(1 for m in logged if re.match(
+                          r"\S+:\d+:\d+: HVD\d{3} ", m)))
     step = tl.make_train_step(cfg, opt)
     toks = torch.from_numpy(np.random.RandomState(args.seed + 2 + r).randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
@@ -3932,6 +4022,7 @@ def e8_worker(args):
         prof = (hvd.profile_step(prof_dir) if i == 2 and r == 0
                 else contextlib.nullcontext())
         c0 = counters()
+        full0 = ctl.cache_stats.full_announces
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if poll is not None:
@@ -3940,6 +4031,7 @@ def e8_worker(args):
             loss = step(params, x, y).item()
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        full = ctl.cache_stats.full_announces - full0
         running.clear()
         if poll is not None:
             poll.join(timeout=30)
@@ -3947,7 +4039,7 @@ def e8_worker(args):
         steps.append(dict(loss=loss, s=dt, pack_us=d[0], coll_us=d[1],
                           unpack_us=d[2], timed=d[3], batches=d[4],
                           groups=d[5], pack=d[6], unpack=d[7],
-                          profiled=i == 2 and r == 0,
+                          profiled=i == 2 and r == 0, full_announces=full,
                           sums=_checksum(torch, named)))
     res.update(steps=steps, scraped=scraped, flash=_flash_counts(fa),
                pack=fusion.pack.launches, unpack=fusion.unpack.launches,
@@ -3955,6 +4047,13 @@ def e8_worker(args):
                grad_bytes=_nbytes([t for _, t in named]),
                monitor_bytes=ctl.monitor_bytes_sent,
                frames=st.monitor.frames_sent)
+    # E17 (a): the ledger (every entry observed so far), the submissions
+    # made (a handle each, none partitioned here), then the order swap.
+    res["e17"].update(
+        ledger=[[e.seq, e.name, e.digest] for e in eng.sanitizer.ledger],
+        submissions=next(eng._handle_counter) - 1,
+        capacity=eng.sanitizer.capacity)
+    res["e17"].update(_e17_swap(torch, hvd, r, dev))
     hvd.shutdown()
     _write_result(args.e8_worker, res)
     print(f"e8 rank {r}: done", flush=True)
@@ -4044,8 +4143,10 @@ def e8_phase(torch, layers, seed, card, timeout_s=E8_TIMEOUT_S):
     flags = [f.replace("{port}", str(port)) for f in E8_FLAGS]
     results, route, wall = launch_ranks(
         torch, "--e8-worker", layers, seed, timeout_s, 2, flags,
+        env_extra={"HVD_TPU_SANITIZER": "1"},
         inspect=lambda tmp: _e8_files(tmp, 2))
     if results is None:
+        E17["a"] = False
         return False, None
     *ranks, files = results
     a = ranks[0]
@@ -4145,6 +4246,7 @@ def e8_phase(torch, layers, seed, card, timeout_s=E8_TIMEOUT_S):
           f"-> {'PASS' if good else 'FAIL'}", flush=True)
     steps = a["steps"]
     med = sorted(s["s"] for s in steps)[len(steps) // 2]
+    E17["a"] = _e17a_report(ranks, sc, med, card)
     print(f"e8: Llama at full width, {layers} layers, {a['leaves']} leaves "
           f"({a['grad_bytes'] / 2**30:.2f} GiB of bf16 gradients a rank); "
           f"median step {med:.3f} s armed [{card}; {route}: NCCL's socket "
@@ -4152,6 +4254,64 @@ def e8_phase(torch, layers, seed, card, timeout_s=E8_TIMEOUT_S):
           flush=True)
     return ok, dict(pack=a["pack"], unpack=a["unpack"], flash=a["flash"],
                     step_s=med)
+
+
+def _e17a_report(ranks, scraped, step_s, card):
+    """E17 (a)'s checks on E8's two ranks (``e8_worker``): the strict lint
+    passed on both, the ledgers are equal and as long as the submissions,
+    steps 2-3 made no full announce, the monitor showed the ledger, and
+    the order swap failed on both ranks with both ranks, both sites and
+    the world's sequence named, the control sum after it exact."""
+    e = [x["e17"] for x in ranks]
+    ok = True
+    for r, x in enumerate(e):
+        print(f"e17(a) rank {r}: DistributedOptimizer(check=\"strict\") "
+              f"linted chip_smoke.py in {x['lint_ms']:.1f} ms: "
+              f"{x['findings']} findings, none an error (strict raised "
+              f"nothing); sanitizer armed {x['sanitizer']}", flush=True)
+        ok = ok and x["sanitizer"]
+    same = e[0]["ledger"] == e[1]["ledger"]
+    full = all(e_["ledger"] and len(e_["ledger"]) == e_["submissions"]
+               < e_["capacity"] for e_ in e)
+    good = same and full
+    ok = ok and good
+    print(f"e17(a): ledgers after {E8_STEPS} steps: "
+          f"{[len(x['ledger']) for x in e]} entries for "
+          f"{[x['submissions'] for x in e]} submissions, equal across the "
+          f"ranks (seq, name, digest): {same} -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    fa = [[s["full_announces"] for s in x["steps"]] for x in ranks]
+    good = all(f[1:] == [0] * (E8_STEPS - 1) for f in fa)
+    ok = ok and good
+    print(f"e17(a): full announces a step {fa} (steps 2-{E8_STEPS} on the "
+          f"cached path; no NegotiationError in the steps) -> "
+          f"{'PASS' if good else 'FAIL'}", flush=True)
+    n = scraped.get("ledger_entries")
+    good = (n or 0) > 0
+    ok = ok and good
+    print(f"e17(a): /metrics in step 2: hvd_sanitizer_ledger_entries {n} "
+          f"-> {'PASS' if good else 'FAIL'}", flush=True)
+    good = True
+    for r, x in enumerate(e):
+        msg = " ".join(x["errors"])
+        sites = sorted(set(re.findall(r"site=(chip_smoke\.py:\d+)", msg)))
+        g = (len(x["errors"]) == 2 and "ranks [0]" in msg
+             and "ranks [1]" in msg and "seq=0:" in msg and len(sites) >= 2
+             and x["control"] == [4.0] * 8)
+        good = good and g
+        print(f"e17(a) rank {r}: two bf16 tensors in opposite orders: "
+              f"{len(x['errors'])} NegotiationErrors naming ranks [0] and "
+              f"[1], sites {sites}, seq=0: {'seq=0:' in msg}; control sum "
+              f"{x['control'][:2]}... (4.0 expected) -> "
+              f"{'PASS' if g else 'FAIL'}", flush=True)
+        if not g:
+            print(f"e17(a) rank {r}: {msg[:1500]}", flush=True)
+    ok = ok and good
+    print(f"e17(a): the armed step (sanitizer and strict check on) median "
+          f"{step_s:.3f} s beside E8's 1.06-1.54 s without them (PERF.md) "
+          f"[{card}] -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 # ------------------------------------------------------------ E9: ZeRO
@@ -6477,6 +6637,7 @@ def _e14_train(torch, np, hvd, args, mesh, progress):
         mesh, torch.optim.AdamW([t for _, t in sh], lr=E14_LR), sh, specs)
     shards.broadcast_parameters(named, specs, root_rank=0)
     step = tl.make_train_step(cfg, opt, mesh, shards)
+    audit = _e17_audit(torch, fa, step, params, x, y, mesh)
     steps, grad_err = [], {}
     for i in range(E14_STEPS):
         _zero_flash(fa)
@@ -6515,11 +6676,36 @@ def _e14_train(torch, np, hvd, args, mesh, progress):
     shards.shutdown()
     d = cfg.d_model
     return dict(steps=steps, grad_err=grad_err, leaves=[len(rep), len(sh)],
+                audit=audit,
                 psum_bytes=4 * E14_SEQ * d * 2 * E14_LAYERS,
                 allreduce_bytes=sum(t.numel() * t.element_size()
                                     for _, t in rep),
                 shard_gib=sum(t.numel() * t.element_size()
                               for _, t in sh) / 2**30)
+
+
+def _e17_audit(torch, fa, step, params, x, y, mesh):
+    """E17 (b): ``trace_check`` over the tp Llama loss and gradients
+    (``step.audit``) at E14's shapes, on this rank's parameters on the
+    card, before the first step: its findings, its ledger's psums, and the
+    flash launches and the mesh's exchange marks around it (both must not
+    move: the audit executes nothing)."""
+    from horovod_tpu_torch.analysis import trace_check
+    _zero_flash(fa)
+    mesh.timing = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = trace_check.check_step_fn(step.audit, params, x, y, mesh=mesh)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    marks, mesh.timing = mesh.timing, None
+    return dict(s=dt, errors=[f.render() for f in rep.findings
+                              if f.is_error],
+                findings=len(rep.findings),
+                psums=sum(1 for c in rep.ledger if c.primitive == "psum"),
+                ledger=len(rep.ledger),
+                first=rep.ledger[0].digest() if rep.ledger else None,
+                launches=_flash_counts(fa), marks=len(marks))
 
 
 def _e14_decode(torch, np, hvd, args, mesh, progress):
@@ -6883,10 +7069,12 @@ def e14_phase(torch, layers, seed, card, timeout_s=E14_TIMEOUT_S):
         inspect=lambda tmp: [torch.load(os.path.join(tmp, f"dlrm{r}.pt"))
                              for r in range(2)])
     if results is None:
+        E17["b"] = False
         return False, None
     saved, results = results[-1], results[:-1]
     ok13, e13 = _e13_report(torch, np, results, saved, E13_LAYERS, seed,
                             card, route, wall)
+    E17["b"] = _e17b_report(results, card)
     n = len(results)
     via = "sockets" if "socket" in route else "NCCL"
     ok = True
@@ -6998,6 +7186,30 @@ def e14_phase(torch, layers, seed, card, timeout_s=E14_TIMEOUT_S):
     return ok and ok15, dict(flash=flash, flash15=flash15, ok13=ok13,
                              e13=e13, e13_s=results[0]["e13_wall"],
                              e15_s=results[0]["e15_wall"])
+
+
+def _e17b_report(results, card):
+    """E17 (b)'s checks on each E14 rank (``_e17_audit``): no error, as
+    many psums in the ledger as ``mesh.timing`` marked in the first real
+    step, and nothing launched or exchanged while the audit traced."""
+    ok = True
+    for res in results:
+        a, first = res["train"]["audit"], res["train"]["steps"][0]
+        good = (not a["errors"] and a["psums"] == first["psums"] > 0
+                and a["launches"] == [0, 0, 0] and a["marks"] == 0)
+        ok = ok and good
+        print(f"e17(b) rank {res['rank']}: trace_check of the tp Llama "
+              f"loss and gradients at E14's shapes ({E14_LAYERS} layers, "
+              f"B=1 x T={E14_SEQ}, tp = 2) in {a['s']:.2f} s: "
+              f"{a['findings']} findings, errors {a['errors'][:2]}; "
+              f"{a['psums']} psums in the ledger against {first['psums']} "
+              f"reductions in the first real step's mesh.timing; first "
+              f"record {a['first']}; flash launches during the audit "
+              f"{a['launches']}, exchanges {a['marks']} [{card}] -> "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+        if a["errors"]:
+            print("\n".join(a["errors"])[:2000], flush=True)
+    return ok
 
 
 def _e15_report(np, results, card, via, route):
@@ -7746,11 +7958,16 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], gbps=r["gbps"], n=r["n"]))
+    e17_ok = all(E17.get(k) for k in "abc")
+    print(f"e17: the analyzer in E8's launch (a) {E17.get('a')}, in E14's "
+          f"(b) {E17.get('b')}, in the training phase (c) {E17.get('c')} "
+          f"-> {'PASS' if e17_ok else 'FAIL'}", flush=True)
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and adasum_ok and e7_ok and e8_ok and e9_ok
                         and e10_ok and e11_ok and e12_ok and e13_ok
-                        and e14_ok and e16_ok and kern["launches"] > 0)
+                        and e14_ok and e16_ok and e17_ok
+                        and kern["launches"] > 0)
     stop_strays("chip_smoke")
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
           flush=True)
@@ -7760,7 +7977,7 @@ def main():
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
             and e10_ok and e11_ok and e12_ok and e13_ok and e14_ok
-            and e16_ok and all(k["pass"] for k in kernels)):
+            and e16_ok and e17_ok and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
               f", engine ok={engine_ok} (module loading {loading_ok}, "
@@ -7775,7 +7992,8 @@ def main():
               f"(E11) ok={e11_ok}, drains and autoscaling (E12) "
               f"ok={e12_ok}, expert parallelism (E13) ok={e13_ok}, tensor "
               f"and pipeline parallelism (E14, E15) ok={e14_ok}, serving "
-              f"surface (E16) ok={e16_ok} ((a) {e16a_ok}, (b) {e16b_ok})")
+              f"surface (E16) ok={e16_ok} ((a) {e16a_ok}, (b) {e16b_ok}), "
+              f"analyzer (E17) ok={e17_ok} ({E17})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -63,7 +63,7 @@ def main():
         named_parameters=replicated)
     experts = expert.ExpertParallel(
         mesh, torch.optim.Adam([t for _, t in sharded], lr=1e-3))
-    experts.broadcast_parameters(named, specs, root_rank=0)
+    experts.broadcast_parameters(named, specs, root_rank=0)  # hvd-lint: disable=HVD102 (over the ep sets)
     step = moe.make_train_step(cfg, opt, mesh, experts)
 
     batch = args.batch or 4 * n

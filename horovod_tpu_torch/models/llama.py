@@ -781,7 +781,9 @@ def make_train_step(cfg: LlamaConfig, optimizer, mesh=None, experts=None):
     only the shards hold between steps.  ``mesh``: as in
     :func:`forward`.  Under a pipeline, ``experts`` holds the stages'
     slabs too, and an ``optimizer`` with ``op=Adasum`` is refused (the pp
-    factor of :func:`_pp_grad_scale` assumes an average)."""
+    factor of :func:`_pp_grad_scale` assumes an average).  ``step.audit(
+    params, tokens, targets)`` is the per-rank loss and gradients without
+    the update, which the collective audit traces."""
     full = getattr(optimizer, "sharded", False) == "full"
     checked = []
 
@@ -807,6 +809,15 @@ def make_train_step(cfg: LlamaConfig, optimizer, mesh=None, experts=None):
             experts.step()
         return loss.detach()
 
+    def audit(params, tokens, targets, generator=None):
+        """``(loss, grads)`` of the step without its update: what the
+        collective audit traces (``parallel/spmd.py`` ``check=``)."""
+        leaves = [t for _, t in named_parameters(params)
+                  if t.requires_grad]
+        loss = loss_fn(params, tokens, targets, cfg, mesh, generator)
+        return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    step.audit = audit
     return step
 
 

@@ -5,7 +5,9 @@
 # the pipeline, fast-lane, partition and checkpoint-lane state 218-275 (with
 # the state plane's obtain 273-283 and detach 475-485), the
 # prefetch counters 320-325, the cycle and negotiation accounting 350-377,
-# the tracer 378-386 and 471-474, the autotuner 406-413, the monitor's fault
+# the tracer 378-386 and 471-474, the sanitizer's install 398-405, observe
+# and rollback 662-680 and observe_synthesized 1517-1520 and 1564-1565, the
+# autotuner 406-413, the monitor's fault
 # hook 557-564, the timeline lanes and trace stamps 576-587, 682-685,
 # 957-977, 1021-1047, 1114-1133, 1165-1213, 1270-1272, 1346-1350, 1368-1380,
 # 1391 and 1399-1429, the two-level span share 1825-1840,
@@ -171,7 +173,10 @@ The data plane's depth, each off by default as in the JAX engine:
   engine, dispatched like any batch and settled where it is dispatched,
   so that every rank applies a move at the end of the same cycle.
 
-Out of this slice: the sanitizer.
+The runtime sanitizer (``HVD_TPU_SANITIZER``, ``analysis/
+runtime_sanitizer.py``): installed in the constructor, it tags the
+partitioned entries before the push (and rolls them back if the push is
+refused) and counts the entries synthesized for a joined rank.
 """
 
 from __future__ import annotations
@@ -568,6 +573,14 @@ class CollectiveEngine:
         self.stall = StallInspector(cfg.stall_check_time_s,
                                     cfg.stall_shutdown_time_s,
                                     cfg.stall_check_disable)
+        # Opt-in runtime collective sanitizer (HVD_TPU_SANITIZER=1):
+        # records the per-rank submission ledger and stamps entries with
+        # seq/call-site tags the controller sends beside its negotiation
+        # digest, so cross-rank order divergence fails fast with call-site
+        # attribution (analysis/runtime_sanitizer.py).  May replace
+        # self.stall with a tightened, ledger-reporting inspector.
+        from ..analysis import runtime_sanitizer as _rts
+        self.sanitizer = _rts.maybe_install(self)
         self.cycle_time_s = cfg.cycle_time_ms / 1000.0
         self.inline_kick = cfg.inline_kick
         self.fusion_threshold = cfg.fusion_threshold_bytes
@@ -981,6 +994,11 @@ class CollectiveEngine:
         # the parent stays handle-registered and synchronize waits on its
         # parts, invisibly to the caller.
         queued = self._maybe_partition(entries)
+        if self.sanitizer is not None:
+            # BEFORE the push: the cycle thread may drain a pushed entry
+            # within microseconds, and an untagged digest racing a tagged
+            # peer announce would be a false mismatch.
+            self.sanitizer.observe(queued)
         with self._handles_lock:
             for e in entries:
                 self._handles[e.handle] = e
@@ -990,6 +1008,11 @@ class CollectiveEngine:
             with self._handles_lock:
                 for e in entries:
                     self._handles.pop(e.handle, None)
+            if self.sanitizer is not None:
+                # Duplicate-name rejection is rank-local: peers never see
+                # these entries, so the advanced seq counters must be
+                # rolled back or every later tag skews cross-rank.
+                self.sanitizer.rollback(queued)
             raise
         tl = self._timeline
         if tl is not None:
@@ -1882,6 +1905,10 @@ class CollectiveEngine:
             # Tracer marker: synthesized entries never drain, so their
             # span is claimed at the ready verdict instead.
             e.trace_synthesized = True
+            if self.sanitizer is not None:
+                # The peer advanced its per-set seq by submitting; advance
+                # ours too or every post-join collective mismatches on seq.
+                self.sanitizer.observe_synthesized(e)
             return e
         parts = digest.split("|")
         ctype = CollectiveType(parts[0])
@@ -1913,6 +1940,8 @@ class CollectiveEngine:
         if dev.type == "cuda":
             e.ready = torch.cuda.Event()
             e.ready.record(torch.cuda.current_stream(dev))
+        if self.sanitizer is not None:
+            self.sanitizer.observe_synthesized(e)
         return e
 
     # --------------------------------------------------- two-level data plane

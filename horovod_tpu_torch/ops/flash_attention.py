@@ -29,7 +29,9 @@ its shared kv head, with no repeat in memory.  The forward returns
 ``[BH, Tq]`` reshaped), because ring attention needs both.
 
 Routing is by device only.  A CPU tensor goes through
-:func:`flash_attention_plain`; a CUDA tensor launches the kernel or raises.
+:func:`flash_attention_plain`; a CUDA tensor launches the kernel or raises
+(a fake CUDA tensor, traced by the collective audit, gets stand-ins of
+the outputs' shapes and launches nothing).
 The TPU's routing knobs and tile sizes are measurements of that chip and
 are not carried over.
 
@@ -229,6 +231,13 @@ def _on_cpu(q) -> bool:
     return False
 
 
+def _fake(q) -> bool:
+    """A fake CUDA tensor of a collective audit's trace
+    (``analysis/trace_check.py``): it has no memory to launch on."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(q, FakeTensor)
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None,
                         window: Optional[int] = None
@@ -247,6 +256,10 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, causal, scale, window)
+    if _fake(q):
+        B, Tq, H, _ = q.shape
+        return (torch.empty_like(q),
+                q.new_empty((B, H, Tq), dtype=torch.float32))
     return _flash_kernel(q, k, v, causal, scale, window)
 
 
@@ -391,6 +404,8 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal: bool = False,
     if _on_cpu(q):
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal,
                                          scale, window)
+    if _fake(q):
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ops = _bwd_operands(q, k, v, do, lse, delta)
     dq = _launch_dq(*ops, causal, scale, window)
     return (dq, *_launch_dkv(*ops, causal, scale, window))

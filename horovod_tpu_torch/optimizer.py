@@ -22,8 +22,9 @@ with its reverse-registration priority, negotiated across ranks by name,
 and fused with the others of its cycle.  ``op=Adasum`` combines the
 ranks' gradients by adaptive summation (``parallel/adasum.py``, over each
 fused dtype buffer, as the JAX engine does): a raw Adasum with no divisor,
-and ``gradient_predivide_factor`` is refused with it.  ``check=`` raises
-until the analyzer is ported.
+and ``gradient_predivide_factor`` is refused with it.  ``check=`` lints
+the calling script at wrap time (``analysis/hooks.py``, as the JAX
+package's torch binding does, ``horovod_tpu/torch/optimizer.py:254-255``).
 
 ``sharded=True`` (ZeRO-1) and ``sharded="full"`` (ZeRO-3/FSDP) take the
 JAX package's eager ZeRO path (``horovod_tpu/jax/optimizer.py``): no hook;
@@ -777,8 +778,9 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     Built dynamically as a subclass of the wrapped optimizer's class (the
     reference's pattern), so ``isinstance(opt, torch.optim.SGD)`` holds.
 
-    ``check=`` (the wrap-time lint of the calling script) raises
-    ``NotImplementedError`` until the analyzer is ported.
+    ``check=True`` lints the calling script for deadlock-prone collective
+    patterns at wrap time (``check="strict"`` raises on errors) — see
+    ``horovod_tpu_torch.analysis``.
 
     ``sharded=True`` (ZeRO-1; ``horovod_tpu/jax/optimizer.py:787-812``):
     optimizer state lives 1/world a rank.  No hook: ``step()``
@@ -819,9 +821,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     carry it across ranks.
     """
     if check:
-        raise NotImplementedError(
-            "DistributedOptimizer(check=...) needs the collective analyzer, "
-            "which is not ported yet (ROADMAP queue 1, analyzer)")
+        from .analysis.hooks import run_check_hook
+        run_check_hook(check)
     if sharded is None:
         cfg = basics._get_state().config
         if cfg is not None and getattr(cfg, "sharded_params", False):

@@ -67,6 +67,12 @@ import torch
 
 DP, TP, SP, EP, PP = "dp", "tp", "sp", "ep", "pp"
 
+# The collective audit's recorder (``analysis/trace_check.py``), set only
+# while an audit traces a step: each collective below then hands it its
+# call and returns its stand-in, moving nothing.  One check a call
+# otherwise.
+_audit = None
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshAxis:
@@ -255,6 +261,8 @@ def ppermute(tensors: Sequence[torch.Tensor], mesh: ProcessMesh,
     ``batch_isend_irecv`` group, so that the sends and receives of a
     rotation cannot block each other.  Returns the received tensors, or
     with ``async_op`` an :class:`Exchange` to ``wait()`` on."""
+    if _audit is not None:
+        return _audit.ppermute(tensors, mesh, axis, shift, async_op)
     import torch.distributed as dist
     ax = mesh.axis(axis)
     tensors = [t.contiguous() for t in tensors]
@@ -304,11 +312,13 @@ def send_recv(x: torch.Tensor, mesh: ProcessMesh, axis: str, send: bool,
     the whole group, because NCCL requires every rank of a group in its
     first point-to-point batch.  ``mesh.timing`` marks the hops that carry
     data."""
+    if _audit is not None:
+        return _audit.send_recv(x, mesh, axis, send, recv, shift)
     import torch.distributed as dist
     ax = mesh.axis(axis)
     if ax.size == 1:
         return None
-    if axis not in mesh._p2p_ready:
+    if axis not in mesh._p2p_ready:  # hvd-lint: disable=HVD108 (all ranks call first at one point)
         ppermute([x.new_zeros(1)], mesh, axis)
     dst, src = ax.index + shift, ax.index - shift
     ops, received = [], None
@@ -319,7 +329,7 @@ def send_recv(x: torch.Tensor, mesh: ProcessMesh, axis: str, send: bool,
         received = torch.empty_like(x, memory_format=torch.contiguous_format)
         ops.append(dist.P2POp(dist.irecv, received, ax.ranks[src],
                               group=ax.group))
-    if ops:
+    if ops:  # hvd-lint: disable=HVD108 (both ends of a hop decide it from the tick)
         Exchange(dist.batch_isend_irecv(ops), [received if received
                                                is not None else x],
                  mesh.timing).wait()
@@ -333,6 +343,8 @@ def all_to_all(x: torch.Tensor, mesh: ProcessMesh, axis: str,
     ``j``, and the chunks received are concatenated along ``concat_dim``
     in coordinate order.  The regrouping around the one
     ``all_to_all_single`` is plain tensor ops."""
+    if _audit is not None:
+        return _audit.all_to_all(x, mesh, axis, split_dim, concat_dim)
     import torch.distributed as dist
     ax = mesh.axis(axis)
     if ax.size == 1:
@@ -377,6 +389,8 @@ def all_gather(x: torch.Tensor, mesh: ProcessMesh, axis: str,
     sends its one tensor to every other), so that the mesh keeps to its two
     exchange kinds.  Not differentiable: it carries integer ids
     (``models/dlrm.py``)."""
+    if _audit is not None:
+        return _audit.all_gather(x, mesh, axis, dim)
     import torch.distributed as dist
     ax = mesh.axis(axis)
     if ax.size == 1:
@@ -393,6 +407,8 @@ def all_gather(x: torch.Tensor, mesh: ProcessMesh, axis: str,
 def psum(x: torch.Tensor, mesh: ProcessMesh, axis: str) -> torch.Tensor:
     """``lax.psum`` along ``axis``: the sum of every coordinate's ``x``, the
     same on each (a new tensor; ``x`` itself at an axis of size 1)."""
+    if _audit is not None:
+        return _audit.psum(x, mesh, axis)
     import torch.distributed as dist
     ax = mesh.axis(axis)
     if ax.size == 1:

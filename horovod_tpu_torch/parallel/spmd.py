@@ -1,5 +1,6 @@
 # Ported from horovod_tpu/parallel/spmd.py:23-139 (infer_specs_like,
-# shard_params, make_sharded_train_step).
+# shard_params, make_sharded_train_step with its check= audit :113-138 and
+# _spec_axes :60-74).
 """The SPMD harness, eagerly: a per-rank train step over a process mesh.
 
 The JAX package compiles a per-shard step over the mesh with ``shard_map``
@@ -15,9 +16,12 @@ block along the data axes (``data_axes``, the JAX ``data_spec``:
 over sp).  At the first call it refuses parameters that are not blocks of
 one tree as the specs split it.
 
-``check=`` (the JAX ``trace_check`` audit of the traced step) needs the
-collective analyzer, which is not ported (ROADMAP queue 1 item 10): it is
-refused, as ``DistributedOptimizer(check=)`` is.
+``check=True`` audits the step at its first call (``analysis/
+trace_check.py``, the JAX ``check=``): it traces the per-rank loss and
+gradients, which a model's step carries as ``step.audit`` (the step
+itself, with its optimizer's in-place update, cannot be traced whole),
+with fake tensors, logs the HVD2xx findings, and with ``check="strict"``
+raises on an error finding before any collective moves.
 """
 
 from __future__ import annotations
@@ -146,20 +150,55 @@ def make_sharded_train_step(step_fn: Callable, mesh: Optional[ProcessMesh],
     state and the gradient rule).  The first call runs
     :func:`check_blocks` over ``params``.
 
-    ``check=True`` or ``"strict"`` (the JAX trace audit) raises
-    ``NotImplementedError``: the analyzer is not ported."""
-    if check:
-        raise NotImplementedError(
-            "make_sharded_train_step(check=...) needs the collective "
-            "analyzer's trace check, which is not ported yet (ROADMAP "
-            "queue 1 item 10)")
+    ``check=True`` audits the first call's per-rank step (``step_fn.audit``
+    where the step carries one, else ``step_fn`` itself) with
+    ``trace_check.check_step_fn`` — abstractly, nothing executes — and
+    logs any HVD2xx findings; ``check="strict"`` raises ``RuntimeError``
+    on an error finding instead (JAX :113-138).  The declared partition
+    axes are those ``param_specs`` and ``data_axes`` split over."""
     checked = []
 
     def step(params, *batch):
+        local = [local_batch(b, mesh, data_axes) for b in batch]
         if not checked:
             check_blocks(params, param_specs, mesh)
+            if check:
+                _audit(getattr(step_fn, "audit", step_fn), params, local,
+                       mesh, _spec_axes(param_specs, data_axes), check)
             checked.append(True)
-        return step_fn(params, *(local_batch(b, mesh, data_axes)
-                                 for b in batch))
+        return step_fn(params, *local)
 
     return step
+
+
+def _spec_axes(param_specs, data_axes) -> set:
+    """Every mesh axis the specs and the data axes split over: the
+    declared partition axes of the trace check's HVD112."""
+    axes = set()
+    if param_specs is not None:
+        for spec in spec_of(param_specs).values():
+            axes.update(part.axis for part in splits_of(spec))
+    for entry in data_axes or ():
+        if isinstance(entry, str):
+            axes.add(entry)
+        elif entry:
+            axes.update(a for a in entry if isinstance(a, str))
+    return axes
+
+
+def _audit(fn, params, local, mesh, declared, check) -> None:
+    """The first call's collective audit (JAX :122-136)."""
+    from ..analysis import trace_check
+    from ..utils.logging import get_logger
+    report = trace_check.check_step_fn(
+        fn, params, *local, mesh=mesh,
+        partition_axes=sorted(declared) if declared else None,
+        path="<make_sharded_train_step>")
+    errors = [f for f in report.findings if f.is_error]
+    if errors and check == "strict":
+        raise RuntimeError(
+            "make_sharded_train_step(check='strict'): the traced step "
+            "failed the collective audit:\n"
+            + "\n".join(f.render() for f in errors))
+    for f in report.findings:
+        get_logger().warning("trace check: %s", f.render())

@@ -37,8 +37,8 @@ devices:
   (``tests/test_torch_resnet.py``'s tolerance);
 - refusals: ``microbatch`` with an indivisible batch, a pp slab handed to
   ``DistributedOptimizer``, decode on a pp mesh and on a stacked config,
-  ``make_sharded_train_step(check=True)`` and parameters that are not
-  blocks of one tree.
+  ``make_sharded_train_step(check="strict")`` on an unbound axis, and
+  parameters that are not blocks of one tree.
 
 Each case of a world runs under its own watchdog: a case that hangs (an
 exchange one stage skipped) ends its world with the case's name.
@@ -893,10 +893,19 @@ def test_torch_spmd_local_batch_is_the_data_spec_block():
 
 
 def test_torch_spmd_refusals_and_specs_like():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        spmd.make_sharded_train_step(lambda p: None, None, check=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        spmd.make_sharded_train_step(lambda p: None, None, check="strict")
+    # check= audits the first call's step: "strict" refuses a psum over an
+    # axis nothing binds before it runs; check=True audits and runs.
+    from horovod_tpu_torch.analysis.trace_check import AbstractMesh
+    from horovod_tpu_torch.parallel.mesh import psum
+    tp = AbstractMesh({"tp": 2})
+    bad = spmd.make_sharded_train_step(lambda p, x: psum(x, tp, "tq"), None,
+                                       check="strict")
+    with pytest.raises(RuntimeError, match="HVD201"):
+        bad({"w": torch.zeros(2)}, torch.ones(2, 2))
+    ok = spmd.make_sharded_train_step(lambda p, x: p["w"] * x, None,
+                                      check=True)
+    assert torch.equal(ok({"w": torch.full((2,), 3.0)}, torch.ones(2, 2)),
+                       torch.full((2, 2), 3.0))
     # A spec tree of another layout: the pp specs over unstacked layers.
     cfg = tl.tiny(dtype=torch.float32)
     flat = tl.init_params(cfg, torch.Generator().manual_seed(0))

@@ -837,3 +837,53 @@ def test_torch_serving_modules_stand_alone():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "DONE tokens=12" in res.stdout
     assert res.stdout.split()[-1] == str(len(SERVING_MODULES))
+
+
+# The collective analyzer: copies of the jax-free ``horovod_tpu/analysis``
+# modules (``trace_check`` a torch.fx walk of its own), each importing with
+# JAX and horovod_tpu blocked.
+ANALYSIS_MODULES = tuple(
+    "horovod_tpu_torch.analysis" + m for m in (
+        "", ".findings", ".collective_lint", ".callgraph", ".whole_package",
+        ".baseline", ".sarif", ".gate", ".hooks", ".__main__",
+        ".runtime_sanitizer", ".trace_check"))
+
+_ANALYSIS_SRC = _OBSERVE_SRC.replace("print('PURE', len(sys.argv) - 2)", r"""
+import torch
+from horovod_tpu_torch.analysis import lint_source, trace_check
+from horovod_tpu_torch.parallel.mesh import psum
+fs = lint_source("import torch.distributed as dist\n"
+                 "if dist.get_rank() == 0:\n    dist.all_reduce(t)\n")
+assert [f.rule for f in fs] == ['HVD101'], fs
+mesh = trace_check.AbstractMesh({'tp': 2})
+rep = trace_check.check_step_fn(lambda x: psum(x * 2, mesh, 'tp'),
+                                torch.ones(3), mesh=mesh)
+assert rep.ok and [r.digest() for r in rep.ledger] == [
+    "psum|tp|((3,),)|('float32',)|None"], rep
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_analysis_modules_import_without_jax():
+    """``horovod_tpu_torch.analysis`` and every submodule, ``trace_check``
+    included, import with JAX and horovod_tpu blocked; the lint and an
+    audit run there; each copied module's first line names its origin."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _ANALYSIS_SRC, REPO,
+                          *ANALYSIS_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[-1] == str(len(ANALYSIS_MODULES))
+    for name in ANALYSIS_MODULES:
+        rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
+        path = os.path.join(PKG, rel + ".py")
+        if not os.path.exists(path):
+            path = os.path.join(PKG, rel, "__init__.py")
+        first = open(path).readline()
+        src = os.path.relpath(path, PKG)
+        word = "Ported" if name.endswith("trace_check") else "Copied"
+        assert first.startswith(f"# {word} from horovod_tpu/{src}:1-"), \
+            (path, first)

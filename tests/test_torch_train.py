@@ -181,9 +181,10 @@ def test_torch_distributed_optimizer_isinstance_and_checks(world):
         torch.optim.SGD(model.parameters(), lr=0.1),
         named_parameters=model.named_parameters())
     assert isinstance(opt, torch.optim.SGD)
-    with pytest.raises(NotImplementedError, match="analyzer"):
-        world.DistributedOptimizer(torch.optim.SGD(model.parameters(),
-                                                   lr=0.1), check=True)
+    # check=True lints this file, the calling script, and warns only.
+    checked = world.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1), check=True)
+    assert isinstance(checked, torch.optim.SGD)
     with pytest.raises(ValueError, match="predivide"):
         world.DistributedOptimizer(
             torch.optim.SGD(model.parameters(), lr=0.1), op=world.Sum,
