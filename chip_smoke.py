@@ -319,7 +319,35 @@ Phases (any failure exits non-zero and prints no result line):
    psums as ``mesh.timing`` counts in the first step, and no flash launch
    and no exchange during the audit.  (c) In the training phase: the
    content hash of a bf16 gradient on the card equals its CPU copy's.
-20. The whole run's wall time, the kernels line (JSON), the card line, and
+20. The last modules, E18, in launches that run anyway.  (a) In E6's
+   size-1 process, ResNet-50 as E6 trains it, fed E18_BATCHES seeded host
+   batches (32 x 224² x 3 float32) by ``ShardedBatchIterator``, three runs
+   from the same weights with cuDNN deterministic: through
+   ``prefetch_to_device(size=2)``, through a blocking ``.to(dev)``, and
+   through the prefetcher under ``torch.profiler``: every prefetched batch
+   bitwise its host rows and the runs' losses bitwise equal; images/s both
+   ways, and the copies' stream, ms and overlap with kernels.  (d) Then
+   ``TorchEstimator.fit`` through the local backend on E18_ROWS seeded
+   rows on the card, ``transform``'s predictions bitwise the trained
+   module's forward.  (b) In E9's launch, its tokens from
+   ``ShardedBatchIterator`` shards (the row indices it fed disjoint
+   across the ranks), and its replicated mode under the callbacks, an
+   epoch a step: rank 1 from another seed and
+   ``BroadcastGlobalVariablesCallback`` in place of a broadcast (the
+   parameters and the optimizer's state then rank 0's),
+   ``LearningRateWarmupCallback(E9_LR, 3)`` in every mode and every param
+   group, ``MetricAverageCallback`` within float32 rounding of the mean of
+   the losses both ranks gather by ``allgather_object`` (these exchanges
+   kept out of E9's tracer window), the parameters bitwise across the
+   ranks after every step, and the flash launches layers x steps; then
+   the callback again on the stepped AdamW state with rank 1's moved off,
+   which must arrive as rank 0's.  (c) After E9's torch work, where tensorflow imports,
+   with TF kept off the card: a TF allreduce through the port's engine,
+   ``DistributedGradientTape``'s average, ``broadcast_variables`` and a
+   one-epoch Keras fit with the port's ``DistributedOptimizer`` and Keras
+   callbacks, the weights bitwise across the ranks; where it does not
+   import, one line says so.  E18's seconds in all.
+21. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
 
 Every process the run starts carries ``CHIP_SMOKE_RUN`` in its
@@ -347,6 +375,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core bf16
@@ -4342,7 +4371,12 @@ def e9_worker(args):
     replicated (``sharded=False``), ZeRO-1 (``sharded=None``: the
     launcher's flag), FSDP (``sharded="full"``, whose gathers are timed
     apart from the step).  Then the FSDP saveable loaded into a new
-    optimizer.  Writes ``rank<HOROVOD_RANK>.json`` in ``args.e9_worker``."""
+    optimizer.  E18 (b): the tokens come from ``ShardedBatchIterator``
+    shards, and the replicated mode runs under the callbacks, an epoch a
+    step (rank 1 from another seed, broadcast by
+    ``BroadcastGlobalVariablesCallback``; the warmup in every mode; the
+    metric average); then E18 (c), TF and Keras, where tensorflow imports.
+    Writes ``rank<HOROVOD_RANK>.json`` in ``args.e9_worker``."""
     import gc
     import numpy as np
     import torch
@@ -4352,15 +4386,31 @@ def e9_worker(args):
     from horovod_tpu_torch.models import llama as tl
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch import callbacks as cb
+    from horovod_tpu_torch.data import ShardedBatchIterator
     from horovod_tpu_torch.trace import TraceRecorder
     torch.backends.cuda.matmul.allow_tf32 = False
     hvd.init()
     r, dev = hvd.rank(), hvd.device()
     eng = basics._get_state().engine
     cfg = tl.llama3_8b(n_layers=args.train_layers)
-    toks = torch.from_numpy(np.random.RandomState(args.seed + 2 + r).randint(
-        0, cfg.vocab_size, (E9_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
-            np.int64)).to(dev)
+    # E18 (b): the token rows through ShardedBatchIterator, one batch of
+    # this rank's shard an epoch and a step, the same rows in every mode;
+    # each row's index rides along, so the shards checked are the rows
+    # the iterator fed.
+    rows = np.random.RandomState(args.seed + 2).randint(
+        0, cfg.vocab_size, (2 * TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int64)
+    it = ShardedBatchIterator([rows, np.arange(len(rows))],
+                              batch_size=TRAIN_BATCH, seed=args.seed)
+    epochs, shards, fed_rows = [], [], True
+    for e in range(E9_STEPS):
+        it.set_epoch(e)
+        ((batch, fed),) = list(it)
+        epochs.append(batch)
+        shards.append(fed.tolist())
+        fed_rows = fed_rows and np.array_equal(batch.numpy(),
+                                               rows[fed.numpy()])
+    toks = torch.stack(epochs).to(dev)
 
     def counters():
         return [eng.reduce_pack_us_total + eng.reduce_collective_us_total
@@ -4373,17 +4423,46 @@ def e9_worker(args):
             seed))
         return params, list(tl.named_parameters(params))
 
+    def fusion_counts():
+        return [fusion.pack.launches, fusion.unpack.launches,
+                eng.pipeline_chunks_total, eng.fused_groups]
+
     res = dict(rank=r, card=torch.cuda.get_device_name(dev),
-               tracer=eng.tracer is not None, modes={})
+               tracer=eng.tracer is not None, modes={}, shards=shards,
+               fed_rows=fed_rows)
     for sharded, label in E9_MODES:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        params, named = fresh(args.seed + 1)
+        # E18 (b): in the replicated mode rank 1 starts from another seed
+        # and BroadcastGlobalVariablesCallback gives it rank 0's parameters
+        # and optimizer state; every mode warms its rate up by callback, so
+        # that the modes' parameters stay comparable.
+        e18 = None
+        params, named = fresh(args.seed + 1 + (
+            1000 * r if sharded is False else 0))
         opt = hvd.DistributedOptimizer(
             torch.optim.AdamW([t for _, t in named], lr=E9_LR),
             named_parameters=named, sharded=sharded)
         step = tl.make_train_step(cfg, opt)
+        state = types.SimpleNamespace(params=params, opt_state=opt,
+                                      optimizer=opt, lr=E9_LR)
+        warm = cb.LearningRateWarmupCallback(E9_LR, warmup_epochs=E9_STEPS)
+        apart = [0, 0, 0, 0]        # E18's launches, kept out of E9's
+        if sharded is False:
+            e18 = dict(before=_checksum(torch, named), lr=[], loss=[],
+                       avg=[], gathered=[], sums=[])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cb.BroadcastGlobalVariablesCallback(0).on_train_begin(state)
+            torch.cuda.synchronize()
+            e18.update(bcast_s=time.perf_counter() - t0,
+                       after=_checksum(torch, named),
+                       state_len=len(opt.state),
+                       groups=repr([sorted((k, v) for k, v in g.items()
+                                           if k != "params")
+                                    for g in opt.param_groups]))
+        # (The broadcast's launches fall before the counts are zeroed.)
         eng.tracer = TraceRecorder()
         _zero_flash(fa)
         fusion.pack.launches = fusion.unpack.launches = 0
@@ -4391,10 +4470,12 @@ def e9_worker(args):
         k0, g0 = eng.pipeline_chunks_total, eng.fused_groups
         steps = []
         for i in range(E9_STEPS):
+            warm.on_epoch_begin(i, state)
             x, y = toks[i, :, :-1], toks[i, :, 1:]
             torch.cuda.synchronize()
             _wait_timed(eng)
             c0 = counters()
+            t_start = time.time()       # the ranks' skew at the step's start
             t0 = time.perf_counter()
             gather_s, cg = 0.0, c0
             if label == "fsdp" and i > 0:
@@ -4411,20 +4492,39 @@ def e9_worker(args):
             _wait_timed(eng)
             c1 = counters()
             steps.append(dict(
-                loss=loss, s=dt, gather_s=gather_s,
+                loss=loss, s=dt, gather_s=gather_s, t_start=t_start,
                 gather_us=cg[0] - c0[0], gather_nccl_us=cg[1] - c0[1],
                 step_us=c1[0] - cg[0], step_nccl_us=c1[1] - cg[1],
                 batches=c1[2] - c0[2], pack=c1[3] - c0[3],
                 unpack=c1[4] - c0[4],
                 allocated=torch.cuda.memory_allocated(dev)))
+            if e18 is not None:
+                # E18's exchanges between the timed steps stay out of E9's
+                # tracer window (their spans go to a recorder of their own,
+                # which keeps the engine timing their batches) and out of
+                # its chunk-plan counts.
+                f0 = fusion_counts()
+                tracer, eng.tracer = eng.tracer, TraceRecorder()
+                metrics = {"loss": loss}
+                cb.MetricAverageCallback().on_epoch_end(i, state, metrics)
+                e18["lr"].append([g["lr"] for g in opt.param_groups]
+                                 + [state.lr])
+                e18["loss"].append(loss)
+                e18["avg"].append(metrics["loss"])
+                e18["gathered"].append(hvd.allgather_object(loss))
+                e18["sums"].append(_checksum(torch, named))
+                _wait_timed(eng)
+                eng.tracer = tracer
+                apart = [a + c - b for a, b, c in zip(apart, f0,
+                                                       fusion_counts())]
         if label == "fsdp":
             opt.gather_params()
         torch.cuda.synchronize()
         m = dict(steps=steps, sums=_checksum(torch, named),
-                 flash=_flash_counts(fa), pack=fusion.pack.launches,
-                 unpack=fusion.unpack.launches,
-                 chunks=eng.pipeline_chunks_total - k0,
-                 groups=eng.fused_groups - g0,
+                 flash=_flash_counts(fa), pack=fusion.pack.launches
+                 - apart[0], unpack=fusion.unpack.launches - apart[1],
+                 chunks=eng.pipeline_chunks_total - k0 - apart[2],
+                 groups=eng.fused_groups - g0 - apart[3],
                  summary=eng.tracer.phase_summary(),
                  peak=torch.cuda.max_memory_allocated(dev),
                  overlapped=eng.prefetch_overlapped - o0,
@@ -4435,6 +4535,34 @@ def e9_worker(args):
                              for st in opt.state.values()
                              for v in st.values()
                              if isinstance(v, torch.Tensor))
+            def opt_state():
+                return [(k, v) for g in opt.param_groups
+                        for p in g["params"]
+                        for k, v in sorted(opt.state[p].items())
+                        if isinstance(v, torch.Tensor)]
+
+            e18["opt_sums"] = _checksum(torch, opt_state())
+            # E18 (b) again on a state that is not empty, as at a resume:
+            # rank 1's AdamW state (moments and step counts) is moved off
+            # rank 0's, and the callback, with no parameters this time,
+            # gives it rank 0's through broadcast_optimizer_state.
+            if r == 1:
+                with torch.no_grad():
+                    for _, v in opt_state():
+                        v.add_(1)
+            torch.cuda.synchronize()
+            e18.update(resume_before=_checksum(torch, opt_state()),
+                       resume_tensors=len(opt_state()),
+                       resume_bytes=_nbytes([v for _, v in opt_state()]))
+            t0 = time.perf_counter()
+            cb.BroadcastGlobalVariablesCallback(0).on_train_begin(
+                types.SimpleNamespace(params={}, opt_state=opt))
+            torch.cuda.synchronize()
+            e18.update(resume_s=time.perf_counter() - t0,
+                       resume_after=_checksum(torch, opt_state()),
+                       resume_on=sorted({str(v.device)
+                                         for _, v in opt_state()}))
+            m["e18"] = e18
         else:
             m["state"] = opt.opt_state_bytes()
             m["buckets"] = len(opt._plan.buckets)
@@ -4461,12 +4589,13 @@ def e9_worker(args):
                                      for b in saved["param_shards"]) / 1e9)
             del saved, opt2, named2
         res["modes"][label] = m
-        del opt, step, params, named
+        del opt, step, params, named, state
         # The replicated optimizer's hooks and its parameters refer to each
         # other: only the cycle collector frees them before the next mode.
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    res["tf"] = _e18c_rank(r, args.seed)
     hvd.shutdown()
     _write_result(args.e9_worker, res)
     print(f"e9 rank {r}: done", flush=True)
@@ -4532,6 +4661,15 @@ def e9_phase(torch, layers, seed, card, timeout_s=E9_TIMEOUT_S):
                   + (f"; {m['buckets']} buckets, prefetch_overlapped "
                      f"{m['overlapped']}" if "buckets" in m else ""),
                   flush=True)
+    # How far apart the ranks start each step (host clocks of one
+    # machine): a rank that starts first waits for the other in the step's
+    # collectives, and E18 (b)'s exchanges align the replicated mode's.
+    skew = {label: [abs(s0["t_start"] - s1["t_start"]) * 1e3 for s0, s1 in
+                    zip(*(x["modes"][label]["steps"] for x in results))]
+            for _, label in E9_MODES}
+    print("e9: the ranks' skew at each step's start, ms: " + "; ".join(
+        f"{k} " + " / ".join(f"{v:.1f}" for v in vs)
+        for k, vs in skew.items()), flush=True)
     # (1) the parameters.
     sums = {(x["rank"], label): x["modes"][label]["sums"]
             for x in results for _, label in E9_MODES}
@@ -4603,11 +4741,346 @@ def e9_phase(torch, layers, seed, card, timeout_s=E9_TIMEOUT_S):
           f"[{card}; {route}: NCCL's socket transport, not NVLink] -> "
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     modes = a["modes"].values()
+    e18b_ok, e18c_ok, tf_present = _e18bc_report(results, layers, card)
     return ok, dict(pack=sum(m["pack"] for m in modes),
                     unpack=sum(m["unpack"] for m in modes),
                     flash=[sum(m["flash"][k] for m in modes)
-                           for k in range(3)])
+                           for k in range(3)],
+                    e18b=e18b_ok, e18c=e18c_ok, tf=tf_present,
+                    e18_s=a["modes"]["replicated"]["e18"]["bcast_s"]
+                    + a["modes"]["replicated"]["e18"]["resume_s"]
+                    + (a["tf"].get("import_s", 0.0) + a["tf"].get("s", 0.0)))
 
+
+# ------------------------------------------ E18: the last modules' slice
+# The callbacks, the data helpers, the TF and Keras bindings and the Spark
+# estimator, in launches that run anyway: (a) and (d) in E6's size-1
+# process, (b) and (c) in E9's two ranks.
+E18_BATCHES = 8          # (a): seeded host batches of ResNet-50's input
+E18_PREFETCH = 2         # (a): prefetch_to_device's batches in flight
+E18_ROWS = 4096          # (d): the estimator's seeded rows
+E18_FEATURES = 16
+E18_EPOCHS = 2
+E18_BATCH = 256
+E18_TF_ROWS = 128        # (c): a rank's rows of the Keras fit
+
+
+def _copy_overlap(path):
+    """From a Chrome trace of torch.profiler: the host-to-card copies'
+    streams, their summed ms, and the share of that time during which a
+    kernel ran on another stream."""
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    copies, kernels = [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                (e.get("args") or {}).get("stream"))
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            copies.append(span)
+        elif e.get("cat") == "kernel":
+            kernels.append(span)
+    total = sum(b - a for a, b, _ in copies)
+    over = 0.0
+    for a, b, stream in copies:
+        merged = []
+        for ka, kb, _ in sorted(k for k in kernels if k[2] != stream
+                                and k[1] > a and k[0] < b):
+            if merged and ka <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], kb)
+            else:
+                merged.append([ka, kb])
+        over += sum(min(b, kb) - max(a, ka) for ka, kb in merged)
+    return (sorted({str(st) for _, _, st in copies}),
+            sorted({str(st) for _, _, st in kernels}), total / 1e3,
+            over / total if total else 0.0, len(copies))
+
+
+def e18a_phase(torch, hvd, seed, card):
+    """E18 (a), in E6's size-1 process: ResNet-50 as E6 trains it, fed
+    E18_BATCHES seeded host batches of RESNET_BATCH x 224² x 3 float32 by
+    ``ShardedBatchIterator``, three runs from the same seeded weights:
+    through ``prefetch_to_device(size=E18_PREFETCH)``, through a blocking
+    ``.to(dev)`` of the same batches, and through the prefetcher again
+    under ``torch.profiler``.  Checks: every prefetched batch bitwise its
+    host rows; the three runs' losses bitwise equal (cuDNN deterministic
+    for the phase).  Reports images/s of steps 2-8 both ways and, from the
+    profile, the copies' stream, ms and overlap with kernels.  Returns
+    ``(ok, seconds)``."""
+    import gc
+    import tempfile
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from horovod_tpu_torch.data import (ShardedBatchIterator,
+                                        prefetch_to_device)
+    from horovod_tpu_torch.models import resnet as tr
+    t_phase = time.time()
+    hvd.init()
+    dev = hvd.device()
+    cfg = tr.ResNetConfig()
+    n = E18_BATCHES * RESNET_BATCH
+    rng = np.random.RandomState(seed + 180)
+    X = rng.randn(n, 224, 224, 3).astype(np.float32)
+    Y = rng.randint(0, cfg.num_classes, n).astype(np.int32)
+    it = ShardedBatchIterator([X, Y], batch_size=RESNET_BATCH, shuffle=False)
+
+    def run(feed, keep=None):
+        params, stats = tr.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(seed + 30))
+        named = list(tr.named_parameters(params))
+        step = tr.make_train_step(cfg, _sgd(torch, hvd, named, RESNET_LR,
+                                            0.9))
+        losses = []
+        torch.cuda.synchronize()
+        for i, (x, y) in enumerate(feed()):
+            if keep is not None:
+                keep.append(x)
+            loss, stats = step(params, stats, x, y)
+            losses.append(loss)
+            if i == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        rate = (len(losses) - 1) * RESNET_BATCH / (time.perf_counter() - t0)
+        out = [float(v) for v in losses]
+        del params, stats, named, step
+        gc.collect()
+        return out, rate
+
+    def prefetched():
+        return prefetch_to_device(it, size=E18_PREFETCH)
+
+    def blocking():
+        return ((x.to(dev), y.to(dev)) for x, y in it)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kept = []
+        l_pre, r_pre = run(prefetched, kept)
+        same = [torch.equal(x.cpu(), torch.from_numpy(
+            X[i * RESNET_BATCH:(i + 1) * RESNET_BATCH]))
+            for i, x in enumerate(kept)]
+        del kept
+        l_blk, r_blk = run(blocking)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            l_prof, _ = run(prefetched)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "e18a.json")
+            prof.export_chrome_trace(path)
+            c_streams, k_streams, copy_ms, share, n_copies = \
+                _copy_overlap(path)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    torch.cuda.empty_cache()
+    ok = (len(same) == E18_BATCHES and all(same) and l_pre == l_blk
+          == l_prof and bool(np.isfinite(l_pre).all()))
+    print(f"e18 (a): resnet50 fed {E18_BATCHES} host batches of "
+          f"{RESNET_BATCH} x 224 x 224 x 3 float32 "
+          f"({X[:RESNET_BATCH].nbytes / 1e6:.1f} MB each) by "
+          f"ShardedBatchIterator: prefetch_to_device(size={E18_PREFETCH}) "
+          f"{r_pre:.1f} images/s, blocking .to(dev) {r_blk:.1f} images/s "
+          f"(steps 2-{E18_BATCHES}, cuDNN deterministic) [{card}]; every "
+          f"prefetched batch bitwise its host rows: {all(same)} "
+          f"({sum(same)}/{len(same)}); losses "
+          f"{[round(v, 5) for v in l_pre]}, bitwise equal prefetched, "
+          f"blocking and profiled: {l_pre == l_blk == l_prof} -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    print(f"e18 (a): profile of the prefetched run: {n_copies} host-to-card"
+          f" copies on stream(s) {c_streams} (kernels on {k_streams}), "
+          f"{copy_ms:.3f} ms of copies, {share:.1%} of it beside a kernel "
+          f"on another stream [{card}]; no gain is claimed", flush=True)
+    return ok, time.time() - t_phase
+
+
+def e18d_phase(torch, hvd, seed, card):
+    """E18 (d), at size 1 in E6's process: ``TorchEstimator.fit`` through
+    the local backend (no pyspark) on E18_ROWS seeded rows, a small MLP
+    trained on ``hvd.device()``; ``transform``'s predictions must equal
+    the trained module's forward on the card, bitwise, and its loss be
+    below the initial module's.  Returns ``(ok, seconds)``."""
+    import tempfile
+    import numpy as np
+    from horovod_tpu_torch.spark import LocalStore, TorchEstimator
+    t_phase = time.time()
+    dev = hvd.device()
+    rng = np.random.RandomState(seed + 181)
+    X = rng.randn(E18_ROWS, E18_FEATURES).astype(np.float32)
+    y = np.tanh(X @ rng.randn(E18_FEATURES).astype(np.float32))
+    cols = [f"f{i}" for i in range(E18_FEATURES)]
+    rows = [dict(zip(cols + ["label"], map(float, (*x, t))))
+            for x, t in zip(X, y)]
+
+    def factory():
+        return torch.nn.Sequential(torch.nn.Linear(E18_FEATURES, 64),
+                                   torch.nn.ReLU(), torch.nn.Linear(64, 1))
+
+    def mse(p, t):
+        return torch.nn.functional.mse_loss(p, t.reshape(p.shape))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        est = TorchEstimator(model_factory=factory, loss=mse,
+                             feature_cols=cols, label_cols=["label"],
+                             store=LocalStore(tmp), epochs=E18_EPOCHS,
+                             batch_size=E18_BATCH, learning_rate=0.05,
+                             seed=seed, run_id="e18d")
+        t0 = time.perf_counter()
+        model = est.fit(rows)
+        fit_s = time.perf_counter() - t0
+    out = model.transform(rows)
+    preds = np.array([r["prediction"] for r in out], np.float32)
+    xs = torch.from_numpy(X).to(dev)
+    ref = factory()
+    ref.load_state_dict(model.params)
+    ref.to(dev).eval()
+    torch.manual_seed(seed)
+    init = factory().to(dev).eval()
+    with torch.no_grad():
+        want = ref(xs).cpu().numpy().reshape(-1)
+        loss0 = float(mse(init(xs), torch.from_numpy(y).to(dev)))
+        loss1 = float(mse(ref(xs), torch.from_numpy(y).to(dev)))
+    on_card = {str(p.device) for p in model._model.parameters()}
+    ok = (np.array_equal(preds, want) and loss1 < loss0
+          and on_card == {str(dev)})
+    print(f"e18 (d): TorchEstimator.fit through the local backend, "
+          f"{E18_ROWS} rows x {E18_FEATURES} features, MLP 16-64-1, "
+          f"{E18_EPOCHS} epochs of batch {E18_BATCH} on {sorted(on_card)} "
+          f"in {fit_s:.2f} s [{card}]; mse {loss0:.5f} -> {loss1:.5f}; "
+          f"transform's {len(preds)} predictions bitwise the trained "
+          f"module's forward: {np.array_equal(preds, want)} -> "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    return ok, time.time() - t_phase
+
+
+def _e18c_rank(r, seed):
+    """E18 (c) on one rank of E9's launch, after its torch work: TF and
+    Keras over the port's engine, with TF kept off the card (the ranks
+    share it, and TF would reserve most of its memory).  ``{"absent":
+    why}`` where tensorflow does not import."""
+    t0 = time.perf_counter()
+    try:
+        import tensorflow as tf
+    except ImportError as exc:
+        return {"absent": f"{type(exc).__name__}: {exc}"}
+    tf.config.set_visible_devices([], "GPU")
+    import keras
+    import numpy as np
+    import horovod_tpu_torch.keras as khvd
+    import horovod_tpu_torch.tensorflow as thvd
+    from horovod_tpu_torch.keras import callbacks as kcb
+    out = dict(tf=tf.__version__, keras=keras.__version__,
+               import_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ar = thvd.allreduce(tf.constant([1.0, 2.0]) * float(r + 1),
+                        name="e18c.allreduce", op=thvd.Sum)
+    out["allreduce"] = ar.dtype == tf.float32 and \
+        ar.numpy().tolist() == [3.0, 6.0]
+    v = tf.Variable([1.0, 2.0])
+    with tf.GradientTape() as tape:
+        loss = tf.reduce_sum(v * v) * float(r + 1)
+    (g,) = thvd.DistributedGradientTape(tape).gradient(loss, [v])
+    out["tape"] = g.numpy().tolist() == [3.0, 6.0]
+    w = tf.Variable(np.full(3, float(r + 10), np.float32))
+    thvd.broadcast_variables([w], root_rank=0)
+    out["broadcast"] = w.numpy().tolist() == [10.0] * 3
+    rng = np.random.RandomState(seed + 100 + r)
+    x = rng.randn(E18_TF_ROWS, 8).astype(np.float32)
+    y = (x.sum(axis=1, keepdims=True) > 0).astype(np.float32)
+    keras.utils.set_random_seed(seed + r + 1)
+    model = keras.Sequential([keras.layers.Input((8,)),
+                              keras.layers.Dense(16, activation="relu"),
+                              keras.layers.Dense(1, activation="sigmoid")])
+    model.compile(optimizer=khvd.DistributedOptimizer(
+        keras.optimizers.SGD(learning_rate=0.1)), loss="binary_crossentropy")
+    hist = model.fit(x, y, batch_size=32, epochs=1, verbose=0, shuffle=False,
+                     callbacks=[kcb.BroadcastGlobalVariablesCallback(0),
+                                kcb.MetricAverageCallback(),
+                                kcb.LearningRateWarmupCallback(
+                                    0.1, warmup_epochs=1,
+                                    momentum_correction=False)])
+    flat = np.concatenate([np.asarray(a).ravel()
+                           for a in model.get_weights()])
+    both = thvd.allgather(tf.constant(flat[None]), name="e18c.weights")
+    out["fit"] = bool(np.array_equal(both.numpy()[0], both.numpy()[1]))
+    out["losses"] = thvd.allgather_object(float(hist.history["loss"][0]))
+    out["lr"] = float(model.optimizer.learning_rate.numpy())
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+
+def _e18bc_report(results, layers, card):
+    """E18 (b) and (c) from E9's two ranks: ``(b_ok, c_ok, tf_present)``."""
+    import numpy as np
+    runs = [x["modes"]["replicated"] for x in results]
+    a, b = (m["e18"] for m in runs)
+    lr_want = [E9_LR * (1.0 + (2 - 1.0) * (e + 1) / max(E9_STEPS, 1))
+               for e in range(E9_STEPS)]
+    bcast = (a["before"] != b["before"] and a["after"] == b["after"]
+             == a["before"] and a["state_len"] == b["state_len"] == 0
+             and a["groups"] == b["groups"])
+    lrs = all(all(v == lr_want[e] for v in m["lr"][e])
+              for m in (a, b) for e in range(E9_STEPS))
+    means = [float((np.float32(l0) + np.float32(l1)) / np.float32(2))
+             for l0, l1 in zip(a["loss"], b["loss"])]
+    avg = (a["avg"] == b["avg"] and all(
+        g == [l0, l1] for m in (a, b)
+        for g, l0, l1 in zip(m["gathered"], a["loss"], b["loss"]))
+        and all(abs(v - w) <= float(np.spacing(np.float32(w)))
+                for v, w in zip(a["avg"], means)))
+    shards = [[set(x["shards"][e]) for x in results]
+              for e in range(E9_STEPS)]
+    disjoint = all(x["fed_rows"] for x in results) and all(
+        not s0 & s1 and len(s0) == len(s1) == TRAIN_BATCH
+        for s0, s1 in shards)
+    sums = a["sums"] == b["sums"] and a["opt_sums"] == b["opt_sums"]
+    resume = (a["resume_tensors"] == b["resume_tensors"] > 0
+              and a["resume_before"] != b["resume_before"]
+              and a["resume_after"] == b["resume_after"]
+              == a["resume_before"] == a["opt_sums"])
+    flash = all(m["flash"] == [layers * E9_STEPS] * 3 for m in runs)
+    b_ok = bcast and lrs and avg and disjoint and sums and resume and flash
+    print(f"e18 (b): E9's replicated mode under the callbacks, "
+          f"{E9_STEPS} epochs of one step [{card}]: "
+          f"BroadcastGlobalVariablesCallback in {a['bcast_s']:.2f} s, rank "
+          f"1 from checksum {b['before']} to rank 0's {a['before']}, the "
+          f"optimizer's state and groups rank 0's: {bcast}; warmup lr "
+          f"{a['lr'][0][-1]:.6g}, {a['lr'][1][-1]:.6g}, {a['lr'][2][-1]:.6g}"
+          f" in every group on both ranks: {lrs}; metric average "
+          f"{a['avg']} on both, the float32 mean of the gathered losses "
+          f"{a['gathered']}: {avg}; the rows fed (by index) disjoint, "
+          f"{TRAIN_BATCH} a rank, every epoch: {disjoint}; parameters (and "
+          f"the AdamW state at the end) bitwise across the ranks after every"
+          f" step: {sums}; the callback again on the non-empty AdamW state "
+          f"({a['resume_tensors']} tensors, "
+          f"{a['resume_bytes'] / 2**30:.2f} GiB on {a['resume_on']}), rank "
+          f"1's moved off to {b['resume_before']}, in {a['resume_s']:.2f} "
+          f"s: rank 0's {a['resume_before']} on both: {resume}; flash "
+          f"launches {runs[0]['flash']} = {layers} layers x {E9_STEPS} "
+          f"steps: {flash} -> {'PASS' if b_ok else 'FAIL'}", flush=True)
+    tf = [x["tf"] for x in results]
+    if any("absent" in t for t in tf):
+        print(f"e18 (c): tensorflow does not import on this machine "
+              f"({tf[0].get('absent') or tf[1].get('absent')}): the TF and "
+              f"Keras bindings are not run on the card (CPU tests only)",
+              flush=True)
+        return b_ok, all("absent" in t for t in tf), False
+    c_ok = all(t["allreduce"] and t["tape"] and t["broadcast"] and t["fit"]
+               and len(set(t["losses"])) == 1 and abs(t["lr"] - 0.2) < 1e-7
+               for t in tf) and tf[0]["losses"] == tf[1]["losses"]
+    print(f"e18 (c): tensorflow {tf[0]['tf']}, keras {tf[0]['keras']} "
+          f"(import {max(t['import_s'] for t in tf):.1f} s), TF kept off "
+          f"the card, the port's engine on it [{card}]: allreduce "
+          f"{[t['allreduce'] for t in tf]}, DistributedGradientTape "
+          f"average {[t['tape'] for t in tf]}, broadcast_variables "
+          f"{[t['broadcast'] for t in tf]}; a one-epoch Keras fit with the "
+          f"port's DistributedOptimizer and Keras callbacks: weights "
+          f"bitwise across the ranks {[t['fit'] for t in tf]}, the averaged"
+          f" loss {tf[0]['losses']} on both, lr {tf[0]['lr']:.6g}; "
+          f"{max(t['s'] for t in tf):.1f} s -> "
+          f"{'PASS' if c_ok else 'FAIL'}", flush=True)
+    return b_ok, c_ok, True
 
 # ------------------------------------------------- E10: data-plane depth
 E10_LAYERS = 1            # one layer keeps the whole script in its limit
@@ -7750,6 +8223,9 @@ def main():
     resnet_ok, _ = resnet_phase(torch, hvd, fa, args.seed, card, flush)
     del flush
     torch.cuda.empty_cache()
+    e18a_ok, e18a_s = e18a_phase(torch, hvd, args.seed, card)
+    e18d_ok, e18d_s = e18d_phase(torch, hvd, args.seed, card)
+    torch.cuda.empty_cache()
     tf_ok, tf_launches, _ = transformer_phase(torch, hvd, fa, args.seed,
                                               card)
     e6_ok, e6 = e6_phase(torch, args.seed, card)
@@ -7962,11 +8438,21 @@ def main():
     print(f"e17: the analyzer in E8's launch (a) {E17.get('a')}, in E14's "
           f"(b) {E17.get('b')}, in the training phase (c) {E17.get('c')} "
           f"-> {'PASS' if e17_ok else 'FAIL'}", flush=True)
+    e18b_ok, e18c_ok = bool(e9 and e9["e18b"]), bool(e9 and e9["e18c"])
+    e18_ok = e18a_ok and e18b_ok and e18c_ok and e18d_ok
+    e18_s = e18a_s + e18d_s + (e9["e18_s"] if e9 else 0.0)
+    print(f"e18: the last modules' slice (a) prefetch {e18a_ok}, (b) "
+          f"callbacks in E9 {e18b_ok}, (c) TF and Keras in E9 {e18c_ok} "
+          f"({'run' if e9 and e9['tf'] else 'tensorflow absent'}), (d) "
+          f"estimator {e18d_ok}; {e18_s:.1f} s in all ((a) {e18a_s:.1f}, "
+          f"(d) {e18d_s:.1f}, (b) and (c) on E9's rank 0 "
+          f"{e18_s - e18a_s - e18d_s:.1f}) [{card}] -> "
+          f"{'PASS' if e18_ok else 'FAIL'}", flush=True)
     for kern in kernels:
         kern["pass"] = (kernels_ok and engine_ok and sp_ok and models_ok
                         and adasum_ok and e7_ok and e8_ok and e9_ok
                         and e10_ok and e11_ok and e12_ok and e13_ok
-                        and e14_ok and e16_ok and e17_ok
+                        and e14_ok and e16_ok and e17_ok and e18_ok
                         and kern["launches"] > 0)
     stop_strays("chip_smoke")
     print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s",
@@ -7977,7 +8463,8 @@ def main():
     if not (kernels_ok and serve_ok and train_ok and engine_ok and sp_ok
             and models_ok and adasum_ok and e7_ok and e8_ok and e9_ok
             and e10_ok and e11_ok and e12_ok and e13_ok and e14_ok
-            and e16_ok and e17_ok and all(k["pass"] for k in kernels)):
+            and e16_ok and e17_ok and e18_ok
+            and all(k["pass"] for k in kernels)):
         _fail(f"kernels ok={kernels_ok} (tile edges {edges_ok}, tensor "
               f"cores {tc_ok}), serving ok={serve_ok}, training ok={train_ok}"
               f", engine ok={engine_ok} (module loading {loading_ok}, "
@@ -7993,7 +8480,9 @@ def main():
               f"ok={e12_ok}, expert parallelism (E13) ok={e13_ok}, tensor "
               f"and pipeline parallelism (E14, E15) ok={e14_ok}, serving "
               f"surface (E16) ok={e16_ok} ((a) {e16a_ok}, (b) {e16b_ok}), "
-              f"analyzer (E17) ok={e17_ok} ({E17})")
+              f"analyzer (E17) ok={e17_ok} ({E17}), last modules (E18) "
+              f"ok={e18_ok} ((a) {e18a_ok}, (b) {e18b_ok}, (c) {e18c_ok}, "
+              f"(d) {e18d_ok})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

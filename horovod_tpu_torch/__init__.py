@@ -16,7 +16,11 @@ and the ZeRO-sharded optimizer (``DistributedOptimizer(sharded=True)`` and
 ``sharded="full"``) with its saveables, and elastic training
 (``hvd.elastic``: the elastic driver behind ``--host-discovery-script``,
 ``TorchState``, ``@hvd.elastic.run``, the state plane's sharded
-checkpoints and peer restore).
+checkpoints and peer restore), the training-loop callbacks and data
+helpers (``hvd.callbacks``, ``hvd.data``).  The TensorFlow and Keras
+bindings (``horovod_tpu_torch.tensorflow``, ``.keras``) and the Spark and
+Ray integrations (``.spark``, ``.ray``) are imported on their own: this
+package imports none of tensorflow, keras, pyspark or ray.
 """
 
 from .common.basics import (  # noqa: F401
@@ -47,4 +51,6 @@ from .optimizer import (  # noqa: F401
 )
 from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from . import elastic  # noqa: F401
+from . import callbacks  # noqa: F401
+from . import data  # noqa: F401
 from . import serve  # noqa: F401

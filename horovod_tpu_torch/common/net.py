@@ -1,11 +1,13 @@
-# Copied from horovod_tpu/common/net.py:1-140 (jax-free; the port keeps its own copy).
+# Copied from horovod_tpu/common/net.py:1-140 (jax-free; the port keeps its own copy;
+# free_ports probes below the ephemeral port range).
 """Shared port-selection helpers for launchers/executors.
 
 Two distinct problems, two helpers:
 
-- ``free_ports(n)``: ports free on THIS machine (bind-probed, SO_REUSEADDR,
-  all probes held open so one call can't return duplicates).  Only valid
-  when the service will bind on this same machine.
+- ``free_ports(n)``: ports free on THIS machine (bind-probed below the
+  ephemeral range, all probes held open so one call can't return
+  duplicates).  Only valid when the service will bind on this same
+  machine.
 - ``remote_ports(n, seed)``: ports for a service that binds on a DIFFERENT
   host, where bind-probing here proves nothing.  Picks from a high range,
   deterministically from ``seed`` so (a) every participant that knows the
@@ -56,13 +58,42 @@ def retry_with_backoff(fn: Callable, retries: int = 3,
             attempt += 1
 
 
-def free_ports(n: int) -> List[int]:
-    socks = []
+# Where free_ports draws from: up to the start of the ephemeral range.
+_PROBE_FLOOR = 10000
+_EPHEMERAL_RANGE = "/proc/sys/net/ipv4/ip_local_port_range"
+
+
+def _ephemeral_start() -> int:
     try:
-        for _ in range(n):
+        with open(_EPHEMERAL_RANGE) as fh:
+            return int(fh.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def free_ports(n: int) -> List[int]:
+    """``n`` distinct ports free on this machine.  They are drawn at
+    random from below the ephemeral range: the kernel gives no port there
+    to an outgoing connection or to a bind to port 0, so between this
+    probe and the service's own bind only another explicit bind can take
+    one (in the ephemeral range any process's next connect could).  The
+    probes hold their ports without ``SO_REUSEADDR``, so two probes at
+    once never both hold one port.  Where the range leaves no room, or the
+    draws keep failing, the kernel picks (a bind to port 0)."""
+    top = _ephemeral_start()
+    draw = random.SystemRandom()
+    socks = []
+    misses = 0
+    try:
+        while len(socks) < n:
             s = socket.socket()
-            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            s.bind(("", 0))
+            room = top - _PROBE_FLOOR >= 1024 and misses < 64 * n
+            try:
+                s.bind(("", draw.randrange(_PROBE_FLOOR, top) if room else 0))
+            except OSError:
+                s.close()
+                misses += 1
+                continue
             socks.append(s)
         return [s.getsockname()[1] for s in socks]
     finally:

@@ -133,9 +133,12 @@ def test_torch_depth_modules_import_without_jax():
 
 
 def test_torch_copied_modules_name_their_origin():
-    """Every copied observability module's first line, and the copied
-    autotuner's, names the JAX file it was copied from, with its lines."""
-    for name in OBSERVE_MODULES + DEPTH_MODULES[:1]:
+    """Every copied observability module's first line, the copied
+    autotuner's, the Spark store's and the Ray strategies' and package's,
+    names the JAX file it was copied from, with its lines; the copied
+    ``AsyncDataLoaderMixin`` is named so on the line above it, and is the
+    JAX class line for line."""
+    for name in OBSERVE_MODULES + DEPTH_MODULES[:1] + COPIED_LAST:
         rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
         path = os.path.join(PKG, rel + ".py")
         if not os.path.exists(path):
@@ -144,6 +147,14 @@ def test_torch_copied_modules_name_their_origin():
         src = os.path.relpath(path, PKG)
         assert first.startswith(f"# Copied from horovod_tpu/{src}:1-"), \
             (path, first)
+    rel = os.path.join("data", "__init__.py")
+    port = open(os.path.join(PKG, rel)).read().splitlines()
+    ref = open(os.path.join(REPO, "horovod_tpu", rel)).read().splitlines()
+    start = port.index("class AsyncDataLoaderMixin:")
+    assert port[start - 1] == f"# Copied from horovod_tpu/{rel}:26-94.", \
+        port[start - 1]
+    assert port[start:start + 69] == ref[25:94]
+    assert ref[93] == "_SENTINEL = object()"
 
 
 _ZERO_SRC = _PURITY_SRC.split("import horovod_tpu_torch as hvd")[0] + r"""
@@ -887,3 +898,142 @@ def test_torch_analysis_modules_import_without_jax():
         word = "Ported" if name.endswith("trace_check") else "Copied"
         assert first.startswith(f"# {word} from horovod_tpu/{src}:1-"), \
             (path, first)
+
+
+# The last modules: training-loop callbacks and data helpers, the
+# TensorFlow and Keras bindings, Spark and Ray.  Each imports with JAX and
+# horovod_tpu blocked, and ``import horovod_tpu_torch`` brings in none of
+# tensorflow, keras, pyspark or ray.
+LAST_MODULES = tuple("horovod_tpu_torch." + m for m in (
+    "callbacks", "data", "tensorflow.compression", "tensorflow.mpi_ops",
+    "tensorflow", "keras.callbacks", "keras", "spark.store",
+    "ray.strategy", "ray.runner", "ray.elastic", "ray", "spark.estimator",
+    "spark"))
+COPIED_LAST = ("horovod_tpu_torch.spark.store",
+               "horovod_tpu_torch.ray.strategy", "horovod_tpu_torch.ray")
+
+_LAST_SRC = _OBSERVE_SRC.replace("import importlib\n", r"""
+import importlib
+import horovod_tpu_torch
+heavy = [m for m in ('tensorflow', 'keras', 'pyspark', 'ray')
+         if m in sys.modules]
+assert not heavy, heavy
+""").replace("print('PURE', len(sys.argv) - 2)", r"""
+import torch
+from horovod_tpu_torch import callbacks, data
+horovod_tpu_torch.init(device='cpu')
+st = type('S', (), {})()
+st.lr = 0.0
+callbacks.LearningRateWarmupCallback(0.1, 2).on_epoch_begin(1, st)
+assert st.lr == 0.1, st.lr
+(x,) = next(iter(data.ShardedBatchIterator([list(range(8))], 4, seed=1)))
+assert isinstance(x, torch.Tensor) and x.shape == (4,)
+import horovod_tpu_torch.tensorflow as tfhvd
+import tensorflow as tf
+out = tfhvd.allreduce(tf.constant([1.0, 2.0]), name='pure')
+assert out.numpy().tolist() == [1.0, 2.0], out
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')
+       or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]
+assert not bad, bad
+print('PURE', len(sys.argv) - 2)
+""")
+
+
+def test_torch_last_modules_import_without_jax():
+    """The fourteen modules of the last slice import with JAX and
+    horovod_tpu blocked (TensorFlow and Keras too, which try JAX and do
+    without it), after ``import horovod_tpu_torch`` has imported none of
+    tensorflow, keras, pyspark or ray; a warmup, a batch and a TF
+    allreduce through the engine run there."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["KERAS_BACKEND"] = "tensorflow"
+    res = subprocess.run([sys.executable, "-c", _LAST_SRC, REPO,
+                          *LAST_MODULES], capture_output=True, text=True,
+                         env=env, timeout=180)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert res.stdout.split()[-1] == str(len(LAST_MODULES))
+    for name in LAST_MODULES:
+        rel = name.replace("horovod_tpu_torch.", "").replace(".", os.sep)
+        path = os.path.join(PKG, rel + ".py")
+        if not os.path.exists(path):
+            path = os.path.join(PKG, rel, "__init__.py")
+        first = open(path).readline()
+        src = os.path.relpath(path, PKG)
+        word = "Copied" if name in COPIED_LAST else "Ported"
+        assert first.startswith(f"# {word} from horovod_tpu/{src}:1-"), \
+            (path, first)
+
+
+# The modules of horovod_tpu/ with no counterpart in the port, and why:
+# ROADMAP.md's no-counterpart list.  Every other module of horovod_tpu/
+# has one at the same path.
+NO_COUNTERPART = {
+    "compat.py": "JAX-version glue",
+    "jax/__init__.py": "the JAX binding",
+    "jax/compression.py": "the JAX binding",
+    "jax/optimizer.py": "the JAX binding",
+    "ops/bridge.py": "single-controller stacking; the TF binding hands "
+                     "tensors over by DLPack (tensorflow/mpi_ops.py)",
+    "runner/tpu_vm.py": "the TPU VM launcher",
+    "torch/__init__.py": "the JAX package's torch binding: the port's "
+                         "top-level package is its counterpart",
+    "torch/compression.py": "counterpart: compression.py",
+    "torch/functions.py": "counterpart: functions.py",
+    "torch/mpi_ops.py": "counterpart: mpi_ops.py",
+    "torch/optimizer.py": "counterpart: optimizer.py",
+    "torch/sync_batch_norm.py": "counterpart: sync_batch_norm.py",
+    "torch/elastic/__init__.py": "counterpart: elastic/__init__.py",
+    "torch/elastic/sampler.py": "counterpart: elastic/sampler.py",
+    "torch/elastic/state.py": "counterpart: elastic/state.py",
+}
+# Parts of modules that have a counterpart, left out of it, and why.
+NO_COUNTERPART_NAMES = {
+    "spark/estimator.py": {"JaxEstimator": "a JAX training function",
+                           "JaxModel": "a JAX training function"},
+    "data/__init__.py": {
+        "ShardedBatchIterator._global_batch": "single-controller global "
+                                              "batches: one process is one "
+                                              "rank in the port"},
+    "elastic/discovery.py": {"TPUMetadataDiscovery": "TPU metadata"},
+    "ops/eager.py": {n: "single-controller mode" for n in (
+        "stack_per_rank", "replicated", "to_local", "to_global",
+        "per_process_mode", "broadcast_pytree")},
+}
+
+
+def _py_modules(root):
+    return {os.path.relpath(os.path.join(d, n), root)
+            for d, _, names in os.walk(root) for n in names
+            if n.endswith(".py")}
+
+
+def _names(path):
+    """Top-level classes and functions of a file, and each class's
+    methods as ``Class.method``."""
+    tree = ast.parse(open(path).read(), path)
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            out.update(f"{node.name}.{m.name}" for m in node.body
+                       if isinstance(m, ast.FunctionDef))
+    return out
+
+
+def test_torch_every_module_has_a_counterpart_or_a_reason():
+    """Every module of horovod_tpu/ has a counterpart at its path in the
+    port, or is in NO_COUNTERPART; every name NO_COUNTERPART_NAMES leaves
+    out is in the JAX module and not in the port's, so that neither list
+    goes stale."""
+    ref = _py_modules(os.path.join(REPO, "horovod_tpu"))
+    port = _py_modules(PKG)
+    missing = sorted(ref - port - set(NO_COUNTERPART))
+    assert not missing, missing
+    stale = sorted(set(NO_COUNTERPART) - (ref - port))
+    assert not stale, stale
+    for rel, names in NO_COUNTERPART_NAMES.items():
+        jax_names = _names(os.path.join(REPO, "horovod_tpu", rel))
+        port_names = _names(os.path.join(PKG, rel))
+        for name in names:
+            assert name in jax_names and name not in port_names, (rel, name)
