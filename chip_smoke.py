@@ -136,7 +136,7 @@ Phases (any failure exits non-zero and prints no result line):
    tensor; ``hvd_adasum_dots`` within DOTS_RTOL of a float64 sum and
    bitwise on a second call, ``hvd_adasum_combine`` bitwise its plain
    version (both sides, in place), with CUDA-event times, bounds and the
-   library's calls.  Then E7 (``--e7-worker``, after E6): four ranks
+   library's calls.  Then E7 (``--e7-worker``): four ranks
    through the launcher with ``--hierarchical-allreduce
    --hierarchical-allgather --hierarchical-broadcast`` and
    ``HOROVOD_HIERARCHICAL_LOCAL_SIZE=2`` (two slices of two; one ``-H``
@@ -154,7 +154,7 @@ Phases (any failure exits non-zero and prints no result line):
 10. Observability.  After E2, the trace A/B at size 1: the engine's
    grouped allreduce of the gradient set with the tracer detached and
    attached (off, on, on, off), no batch timed while detached.  Then E8
-   (``--e8-worker``, after E7): two ranks through the launcher as E3 with
+   (``--e8-worker``): two ranks through the launcher as E3 with
    ``--timeline-filename``, ``--timeline-mark-cycles``,
    ``--trace-filename``, ``--monitor``, ``--monitor-port`` (a free port)
    and ``--monitor-interval 1``, Llama at full width cut to E8_LAYERS,
@@ -172,7 +172,7 @@ Phases (any failure exits non-zero and prints no result line):
    NCCL kernel; pack = unpack launches = dtype groups; parameters bitwise
    equal across ranks every step; each rank's cross_rank, cross_size,
    is_homogeneous and capability probes.
-11. ZeRO.  E9 (``--e9-worker``, after E8): two ranks through the launcher
+11. ZeRO.  E9 (``--e9-worker``): two ranks through the launcher
    as E3 with ``--sharded``, ``HOROVOD_TRACE=1`` and
    ``HOROVOD_PIPELINE_CHUNK`` (E9_CHUNK: 6 buckets), Llama at full width
    cut to E9_LAYERS, B=2, T=4096, ``DistributedOptimizer(AdamW)`` for 3
@@ -186,7 +186,7 @@ Phases (any failure exits non-zero and prints no result line):
    loaded bitwise into a new optimizer; for each mode the step's time
    after the first, the tracer's phases, the collectives' card time
    (``reduce_*_us_total``), peak memory and the launches.
-12. Data-plane depth.  E10 (``--e10-worker``, after E9): two ranks through
+12. Data-plane depth.  E10 (``--e10-worker``): two ranks through
    the launcher as E3 with ``--pipeline-chunk-mb 64
    --fast-lane-threshold-kb 64 --partition-threshold-mb 64`` and
    ``HOROVOD_TRACE=1``, the worker setting the engine's knobs between
@@ -215,7 +215,7 @@ Phases (any failure exits non-zero and prints no result line):
    the ranks every step.  E9's
    pack and unpack launches are held to its chunk plan (the replicated
    mode's allreduces chunk under ``HOROVOD_PIPELINE_CHUNK``).
-13. Elastic training.  E11 (``--e11-worker``, after E10): the port's
+13. Elastic training.  E11 (``--e11-worker``): the port's
    elastic launcher (``--host-discovery-script "cat <hosts>" --min-np 1
    --max-np 2 --ckpt-dir <tmp> --ckpt-chunk-mb 16``) over two loopback
    host entries sharing the card over NCCL's sockets; Llama at full width
@@ -230,9 +230,7 @@ Phases (any failure exits non-zero and prints no result line):
    (``e11_phase``) and the recovery, growth, commit, durable-write, peer
    restore and step times.
 14. Drains, autoscaling and the two-level control plane.  E12
-   (``--e12-driver``, after E10, side by side with E11 and then E13-E15:
-   each in a thread of its own, its lines printed together at its end,
-   the sweep held until all three have ended): ``run_elastic`` on
+   (``--e12-driver``): ``run_elastic`` on
    ``--hierarchical-controller --autoscale --monitor-port <p>
    --preempt-grace-s 90 --commit-max-age-s 600 --scale-command ...`` over
    hosts ``127.0.0.1:2`` and ``127.0.0.2:1`` (three ranks on the card over
@@ -247,7 +245,7 @@ Phases (any failure exits non-zero and prints no result line):
    in through rank 0's ``/health``; generation 4 (size 2) ends.  Eight
    checks (``e12_phase``) and the drain, ack, growth, scale-in and step
    times.
-15. Expert parallelism.  E13 (after E11, beside E12): two ranks through the
+15. Expert parallelism.  E13: two ranks through the
    launcher as E3, on ``make_mesh({"ep": 2})``, the first part of the
    launch E13, E14 and E15 share (``--e14-worker``: one world formation
    for the three).  (a)
@@ -295,8 +293,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``pp_loss="last_stage"`` with ``remat_stages`` from the same weights
    and tokens: its step-1 gradients against (a)'s, its peak above the
    step's start below (a)'s, the forward launches twice (a)'s.
-18. Multi-process serving.  E16 (b) (``--e16-worker``, after E12 in its
-   lane): two ranks under ``python -m horovod_tpu_torch.runner -np 2
+18. Multi-process serving.  E16 (b) (``--e16-worker``): two ranks under ``python -m horovod_tpu_torch.runner -np 2
    --serve --serve-port P``, ``mistral_7b()`` at full width cut to
    E16_LAYERS with the rolling cache: each rank's Config reads ``serve``
    and ``serve_port`` and its front door listens on P + rank; the v1
@@ -347,19 +344,32 @@ Phases (any failure exits non-zero and prints no result line):
    one-epoch Keras fit with the port's ``DistributedOptimizer`` and Keras
    callbacks, the weights bitwise across the ranks; where it does not
    import, one line says so.  E18's seconds in all.
-21. The examples, E19 (``--e19-worker``, a lane of its own beside
-   E11-E16): two ranks
-   through the launcher, a launch an example (``E19_EXAMPLE`` names it),
-   each rank calling the port example's ``main(argv)``:
+21. Re-init and the examples, E19 (``--e19-worker``): one launch of two ranks through the launcher, each
+   rank one process through six generations, every ``init()`` after the
+   first on the world kept across ``shutdown()``.  (a) Three engine
+   generations on NCCL: a 64 MiB bf16 allreduce through the fusion
+   kernels, a broadcast, an allreduce on a process set added in the
+   generation and one on the world, each exact against the sum its inputs
+   give; generation 0's mesh raises in generation 1.  (b) The port
+   examples in turn, each through its ``main(argv)``:
    ``resnet_synthetic`` at ResNet-50, 224², batch 32 a rank (1 warmup, 3
-   timed steps, bf16) and ``llama_spmd --tp 2`` at the example's own width
+   timed steps, bf16), ``torch_mnist --epochs 1`` (2,048 rows, batch 64:
+   16 steps a rank) and ``llama_spmd --tp 2`` at the example's own width
    (d_model 1024, 8 layers, 16/8 heads, T = 128).  Each example's marker
-   lines (img/s, tok/s), finite losses, the parameters
-   bitwise equal across the ranks (Llama's losses too, as E14 holds its
-   tp ranks), and the flash launches of Llama's rank 0: at least layers x
-   (steps + 1) of each kernel, counted into the kernels line.
+   lines (img/s, epoch, tok/s), finite losses, the parameters bitwise
+   equal across the ranks (Llama's losses too, as E14 holds its tp ranks),
+   and the flash launches of Llama's rank 0: at least layers x (steps + 1)
+   of each kernel, counted into the kernels line.  Each generation's
+   ``init()``, first collective, main and ``shutdown()`` seconds, and the
+   launch's start up to the first ``init()``.
 22. The whole run's wall time, the kernels line (JSON), the card line, and
    the result line.
+
+E11 and E13-E15, E12 and E16 (b), and E19 run in three lanes side by
+side (``side_by_side``), each phase's lines printed together at its end,
+the sweep held until all have ended; the card's memory in use and the
+host's available memory are sampled meanwhile.  At the limit below
+the run names the phases still running, on stderr too.
 
 Every process the run starts carries ``CHIP_SMOKE_RUN`` in its
 environment, and the run is their subreaper: after each launch of ranks
@@ -423,6 +433,7 @@ _T0 = time.time()
 
 def _fail(msg):
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -461,8 +472,15 @@ def _run_limit():
     not ended it 10 s later, the processes stopped from here and an
     immediate exit."""
     time.sleep(max(0.0, _T0 + RUN_LIMIT_S - time.time()))
-    print(f"FAIL: the run passed its limit of {RUN_LIMIT_S:g} s",
-          flush=True)
+    now = time.time()
+    running = "; ".join(
+        f"{name} for {now - t0:.1f} s, its last line: "
+        f"{''.join(lines).strip().splitlines()[-1:] or ['none']}"
+        for name, (t0, lines) in list(_RUNNING.items()))
+    msg = (f"FAIL: the run passed its limit of {RUN_LIMIT_S:g} s; phases "
+           f"running side by side: {running or 'none'}")
+    print(msg, flush=True)
+    print(msg, file=sys.stderr, flush=True)
     os.kill(os.getpid(), signal.SIGTERM)
     time.sleep(10)
     stop_strays("limit", sys.stderr, force=True)
@@ -528,6 +546,8 @@ def _reap_children():
 # Non-empty while phases run side by side: a phase's own sweep would stop
 # the other's processes, so the sweep waits for all of them to end.
 _SWEEPS_HELD = []
+# The phases running side by side now: name -> (start, lines printed).
+_RUNNING = {}
 
 
 def stop_strays(where, out=None, timeout_s=30.0, force=False):
@@ -604,52 +624,87 @@ class _ThreadLines:
         return getattr(self.real, name)
 
 
-def side_by_side(where, lanes):
+def _host_available():
+    """The host's available memory in bytes (``MemAvailable``)."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def side_by_side(torch, where, lanes):
     """Runs ``lanes`` at once, a thread each: a lane runs its ``(name, fn,
     *args)`` phases one after the other, and stops at a phase that raised.
-    The sweeps are held until every lane has ended; then each phase's lines
-    are printed in the lanes' order, each with its own time, and the run
-    sweeps.  Returns the phases' values by name; raises the first failed
-    phase's exception."""
+    The card's memory in use and the host's available memory are sampled
+    while they run.  The sweeps are held until every lane has ended; then
+    each phase's lines are printed in the lanes' order, each with its own
+    time and the phases it ran beside, and the run sweeps.  Returns the
+    phases' values by name; raises the first failed phase's exception."""
     out = _ThreadLines(sys.stdout)
-    lines, res, errs, times = {}, {}, {}, {}
+    lines, res, errs, spans = {}, {}, {}, {}
+    free, total = torch.cuda.mem_get_info()
+    card = [total - free, ()]
+    host = [_host_available(), ()]
+    done = threading.Event()
 
     def run(lane):
         for name, fn, *args in lane:
             out.lines[threading.get_ident()] = lines[name] = []
             t0 = time.time()
+            _RUNNING[name] = (t0, lines[name])
             try:
                 res[name] = fn(*args)
             except BaseException as exc:    # noqa: B036 -- sys.exit too
                 errs[name] = exc
-            times[name] = time.time() - t0
+            spans[name] = (t0, time.time())
+            del _RUNNING[name]
             if name in errs:
                 return
 
+    def sample():
+        while not done.wait(0.5):
+            used = total - torch.cuda.mem_get_info()[0]
+            avail = _host_available()
+            now = tuple(_RUNNING)
+            if used > card[0]:
+                card[:] = [used, now]
+            if avail < host[0]:
+                host[:] = [avail, now]
+
     threads = [threading.Thread(target=run, args=(lane,), daemon=True)
                for lane in lanes]
+    sampler = threading.Thread(target=sample, daemon=True)
     t0 = time.time()
     _SWEEPS_HELD.append(where)
     sys.stdout = out
     try:
+        sampler.start()
         for th in threads:
             th.start()
         for th in threads:
             th.join()
     finally:
+        done.set()
         sys.stdout = out.real
         _SWEEPS_HELD.remove(where)
         for lane in lanes:
-            beside = ", ".join(name for other in lanes if other is not lane
-                               for name, *_ in other)
             for name, *_ in lane:
                 sys.stdout.write("".join(lines.get(name, [])))
-                if name in times:
-                    print(f"{name}: the phase in {times[name]:.1f} s "
-                          f"(beside {beside})", flush=True)
+                if name in spans:
+                    a, b = spans[name]
+                    beside = ", ".join(n for n, (c, d) in spans.items()
+                                       if n != name and c < b and d > a)
+                    print(f"{name}: the phase in {b - a:.1f} s, from "
+                          f"{a - t0:.1f} s (beside {beside or 'none'})",
+                          flush=True)
         sys.stdout.flush()
     stop_strays(where)
-    print(f"{where}: side by side in {time.time() - t0:.1f} s", flush=True)
+    print(f"{where}: side by side in {time.time() - t0:.1f} s; the card's "
+          f"memory in use at most {card[0] / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB (with {', '.join(card[1]) or 'none'} "
+          f"running), the host's available at least {host[0] / 2**30:.2f} "
+          f"GiB (with {', '.join(host[1]) or 'none'} running)", flush=True)
     for lane in lanes:
         for name, *_ in lane:
             if name in errs:
@@ -2600,6 +2655,14 @@ def e3_e5_launch(torch, layers, seed, timeout_s=None):
     ``e5_phase``."""
     return launch_ranks(torch, "--e3-worker", layers, seed,
                         timeout_s or E3_E5_TIMEOUT_S)
+
+
+def e3_e5_phase(torch, layers, seed, card):
+    """E3, E4 and E5 from their one launch: ``(two_ok, two, four_ok, four,
+    sp_ok, sp)`` of ``two_rank_phase``, ``e4_phase`` and ``e5_phase``."""
+    launch = e3_e5_launch(torch, layers, seed)
+    return (*two_rank_phase(launch, layers), *e4_phase(launch, card),
+            *e5_phase(launch, layers, card))
 
 
 def two_rank_phase(launch, layers):
@@ -8032,17 +8095,25 @@ def e16_phase(torch, layers, seed, card, timeout_s=E16_TIMEOUT_S):
 
 
 # --------------------------------------------------------------- examples
-# E19: the port's example programs on the card, as a user starts them,
-# each with the JAX script's own flags where the card runs it at full size.
-# torch_mnist is not among them: its launch took the script past its time
-# (PERF.md §6, the examples); the CPU tests run it against the reference.
+# E19: one launch of two ranks, each rank one process through every
+# generation: (a) E19_GENERATIONS short engine generations, then (b) the
+# port's example programs as a user starts them, each through its
+# main(argv) (which inits and shuts the world down itself), with the JAX
+# script's own flags where the card runs it at full size.  The world is
+# kept across shutdown() (common/basics.py), so every init() after the
+# first runs on it.
 E19_RUNS = (
     ("resnet_synthetic", ("--depth", "50", "--image-size", "224",
                           "--batch-size", "32", "--num-warmup", "1",
                           "--num-iters", "3")),
+    # Its default 2,048 rows at batch 64: 16 steps a rank.
+    ("torch_mnist", ("--epochs", "1")),
     ("llama_spmd", ("--tp", "2", "--steps", "2")),
 )
-E19_TIMEOUT_S = 300
+E19_GENERATIONS = 3
+E19_FUSED_MIB = 64       # (a)'s allreduce, bf16
+E19_BCAST = 1 << 20      # (a)'s broadcast, float32 elements
+E19_TIMEOUT_S = 240
 
 
 class _Tee:
@@ -8063,69 +8134,280 @@ class _Tee:
         return "".join(self.lines)
 
 
+def _process_start_time():
+    """This process's start on the wall clock, from its start in clock
+    ticks after boot (``/proc/self/stat``) and the time since boot
+    (``/proc/uptime``)."""
+    with open("/proc/self/stat") as fh:
+        ticks = int(fh.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as fh:
+        up = float(fh.read().split()[0])
+    return time.time() - (up - ticks / os.sysconf("SC_CLK_TCK"))
+
+
+class _GenClock:
+    """The seconds of each generation on this rank: ``hvd.init`` and
+    ``hvd.shutdown`` wrapped where the examples call them, and the first
+    collective after each ``init()``, from its first submission to the
+    return of its first wait (``CollectiveEngine.enqueue``/
+    ``enqueue_group``/``synchronize``)."""
+
+    def __init__(self, hvd, engine_cls):
+        self.gens = []
+        self.first_init_at = None
+        inner_init, inner_shutdown = hvd.init, hvd.shutdown
+        calls = {k: getattr(engine_cls, k)
+                 for k in ("enqueue", "enqueue_group", "synchronize")}
+        clock = self
+
+        def init(*a, **kw):
+            if clock.first_init_at is None:
+                clock.first_init_at = time.time()
+            t0 = time.perf_counter()
+            inner_init(*a, **kw)
+            clock.gens.append(dict(init_s=time.perf_counter() - t0,
+                                   submitted=None, first_s=None,
+                                   shutdown_s=None))
+            clock.mark("init() returned")
+
+        def shutdown(*a, **kw):
+            clock.mark("shutdown() called")
+            t0 = time.perf_counter()
+            inner_shutdown(*a, **kw)
+            if clock.gens:
+                clock.gens[-1]["shutdown_s"] = time.perf_counter() - t0
+            clock.mark("shutdown() returned")
+
+        def submits(name):
+            def call(eng, *a, **kw):
+                g = clock.gens[-1] if clock.gens else None
+                if g is not None and g["submitted"] is None:
+                    g["submitted"] = time.perf_counter()
+                return calls[name](eng, *a, **kw)
+            return call
+
+        def synchronize(eng, *a, **kw):
+            out = calls["synchronize"](eng, *a, **kw)
+            g = clock.gens[-1] if clock.gens else None
+            if g is not None and g["first_s"] is None \
+                    and g["submitted"] is not None:
+                g["first_s"] = time.perf_counter() - g["submitted"]
+            return out
+
+        hvd.init, hvd.shutdown = init, shutdown
+        self.t0 = time.time()
+        engine_cls.enqueue = submits("enqueue")
+        engine_cls.enqueue_group = submits("enqueue_group")
+        engine_cls.synchronize = synchronize
+
+
+    def mark(self, what):
+        """A line on stderr: where this rank is, so that a hang's output
+        shows the generation it stopped in."""
+        print(f"e19 rank {os.environ.get('HOROVOD_RANK')}: generation "
+              f"{len(self.gens) - 1} {what} at {time.time() - self.t0:.2f} "
+              f"s", file=sys.stderr, flush=True)
+
+
+@contextlib.contextmanager
+def _resnet_split(torch, hvd, resnet, split):
+    """Times ``resnet_synthetic``'s ``main`` in parts, into ``split``: the
+    seeded weights (``resnet.init_params``), ``broadcast_parameters`` and
+    the first (warmup) step, each up to a ``torch.cuda.synchronize()``
+    (the example itself waits for the warmup's loss right after it)."""
+    saved = resnet.init_params, hvd.broadcast_parameters, \
+        resnet.make_train_step
+
+    def timed(label, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[label] = time.perf_counter() - t0
+            return out
+        return call
+
+    def make_train_step(*a, **kw):
+        step = saved[2](*a, **kw)
+        first = timed("first_step", step)
+
+        def call(*sa, **skw):
+            return (step if "first_step" in split else first)(*sa, **skw)
+        return call
+
+    resnet.init_params = timed("init_params", saved[0])
+    hvd.broadcast_parameters = timed("broadcast", saved[1])
+    resnet.make_train_step = make_train_step
+    try:
+        yield
+    finally:
+        resnet.init_params, hvd.broadcast_parameters, \
+            resnet.make_train_step = saved
+
+
+def _e19_generation(torch, hvd, parallel, fusion, g, stale):
+    """One of E19 (a)'s generations on this rank: ``init()``, an allreduce
+    of E19_FUSED_MIB MiB of bf16 (small integers, so that the sum is
+    exact), a broadcast from rank 1, an allreduce on a process set added
+    in this generation, a last world allreduce, ``shutdown()``; each
+    result checked exactly against the sum its inputs give.  Generation 0
+    also makes a mesh, which generation 1 must find stale.  Returns the
+    generation's record."""
+    t0 = time.perf_counter()
+    hvd.init()
+    r, size, dev = hvd.rank(), hvd.size(), hvd.device()
+    n = E19_FUSED_MIB * 2**20 // 2
+    base = torch.arange(n, device=dev) % 7
+    x = (base + r + g).to(torch.bfloat16)
+    want = (size * base + sum(range(size)) + size * g).to(torch.bfloat16)
+    packs = fusion.pack.launches, fusion.unpack.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = hvd.allreduce(x, op=hvd.Sum, name=f"e19.g{g}.fused")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    fused = bool(torch.equal(out, want))
+    packed = [fusion.pack.launches - packs[0],
+              fusion.unpack.launches - packs[1]]
+    b = hvd.broadcast(torch.full((E19_BCAST,), float(10 * r + g),
+                                 device=dev), root_rank=1,
+                      name=f"e19.g{g}.bcast")
+    bcast = bool(torch.all(b == float(10 + g)))
+    sets = [hvd.add_process_set([k]) for k in range(size)]
+    mine = torch.full((4096,), float(r + 1 + 10 * g), device=dev)
+    ps = hvd.allreduce(mine, op=hvd.Sum, process_set=sets[r],
+                       name=f"e19.g{g}.set")
+    in_set = bool(torch.equal(ps, mine))
+    tail = hvd.allreduce(torch.ones(8, dtype=torch.int32, device=dev),
+                         op=hvd.Sum, name=f"e19.g{g}.tail")
+    in_world = bool(torch.all(tail == size))
+    stale_raised = None
+    if g == 0:
+        stale["mesh"] = parallel.make_mesh({"tp": size})
+    elif g == 1:
+        try:
+            stale["mesh"].axis("tp")
+            stale_raised = False
+        except RuntimeError:
+            stale_raised = True
+    torch.cuda.synchronize()
+    del x, out, want, base
+    main_s = time.perf_counter() - t0
+    hvd.shutdown()
+    return dict(fused=fused, bcast=bcast, in_set=in_set, in_world=in_world,
+                packed=packed, stale=stale_raised, first_s=first_s,
+                main_s=main_s)
+
+
 def e19_worker(args):
-    """One rank of E19, started by the port's launcher: the example that
-    ``E19_EXAMPLE`` names in its environment, through its ``main(argv)``
-    with E19_RUNS' flags (the example inits and shuts the world down
-    itself), the flash and fusion launch counts zeroed just before and
-    read just after.  What the rank printed, the losses, the figures and
-    the parameters' checksums (llama_spmd's replicated leaves' apart, with
-    its depth) go to ``rank<HOROVOD_RANK>.json`` in ``args.e19_worker``."""
+    """One rank of E19, started by the port's launcher; one process
+    through every generation.  (a) E19_GENERATIONS engine generations
+    (``_e19_generation``); (b) each example of E19_RUNS through its
+    ``main(argv)``, the flash and fusion launch counts zeroed just before
+    and read just after.  What the rank printed, the losses, the figures,
+    the parameters' checksums (llama_spmd's replicated leaves' apart,
+    with its depth), each generation's seconds (``_GenClock``) and the
+    launch's start up to the first ``init()`` go to
+    ``rank<HOROVOD_RANK>.json`` in ``args.e19_worker``.  A hang is a
+    failure: every thread's stack goes to the result directory before the
+    launch's timeout kills the ranks."""
+    import faulthandler
     import importlib
     import numpy as np
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import parallel
     from horovod_tpu_torch.models import llama as tl
+    from horovod_tpu_torch.ops import engine as ops_engine
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fusion
-    name = os.environ["E19_EXAMPLE"]
-    mod = importlib.import_module(f"horovod_tpu_torch.examples.{name}")
-    _zero_flash(fa)
+    started = _process_start_time()
+    stacks = open(os.path.join(args.e19_worker, "stacks"
+                               f"{os.environ['HOROVOD_RANK']}.txt"), "w")
+    faulthandler.dump_traceback_later(
+        float(os.environ["E19_STACKS_AFTER_S"]), exit=False, file=stacks)
+    clock = _GenClock(hvd, ops_engine.CollectiveEngine)
+    gens, stale = [], {}
     fusion.pack.launches = fusion.unpack.launches = 0
-    tee = _Tee(sys.stdout)
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
-        out = mod.main(list(dict(E19_RUNS)[name]))
-    wall = time.perf_counter() - t0
-    extra = {}
-    if name == "llama_spmd":
-        named = out["named"]
-        rep = set(out["replicated"])
-        extra = dict(n_layers=out["n_layers"], replicated=sorted(rep),
-                     rep_sums=_checksum(torch, [(k, t) for k, t in named
-                                                if k in rep]))
-    else:
-        named = list(tl.named_parameters(out["params"]))
-    losses = [float(x) for x in out["losses"]]
+    for g in range(E19_GENERATIONS):
+        gens.append(_e19_generation(torch, hvd, parallel, fusion, g, stale))
+    packed_a = [fusion.pack.launches, fusion.unpack.launches]
+    examples = {}
+    for name, argv in E19_RUNS:
+        mod = importlib.import_module(f"horovod_tpu_torch.examples.{name}")
+        _zero_flash(fa)
+        fusion.pack.launches = fusion.unpack.launches = 0
+        tee = _Tee(sys.stdout)
+        split = {}
+        timing = (_resnet_split(torch, hvd, mod.resnet, split)
+                  if name == "resnet_synthetic" else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee), timing:
+            out = mod.main(list(argv))
+        wall = time.perf_counter() - t0
+        extra = {}
+        if name == "llama_spmd":
+            named = out["named"]
+            rep = set(out["replicated"])
+            extra = dict(n_layers=out["n_layers"], replicated=sorted(rep),
+                         rep_sums=_checksum(torch, [(k, t) for k, t in named
+                                                    if k in rep]))
+        elif name == "torch_mnist":
+            named = list(out["model"].named_parameters())
+        else:
+            named = list(tl.named_parameters(out["params"]))
+        losses = [float(x) for x in out["losses"]]
+        examples[name] = dict(
+            printed=tee.text(), losses=losses, s=wall, split=split,
+            finite=bool(losses) and bool(np.isfinite(losses).all()),
+            sums=_checksum(torch, named), flash=_flash_counts(fa),
+            pack=fusion.pack.launches, unpack=fusion.unpack.launches,
+            **extra, **{k: out[k] for k in ("img_per_sec", "total", "tok_s",
+                                             "loss") if k in out})
+        del out, named
+        torch.cuda.empty_cache()
+    for g, rec in zip(gens, clock.gens):
+        g.update(init_s=rec["init_s"], shutdown_s=rec["shutdown_s"])
+    for (name, _), rec in zip(E19_RUNS, clock.gens[len(gens):]):
+        examples[name].update(init_s=rec["init_s"], first_s=rec["first_s"],
+                              shutdown_s=rec["shutdown_s"])
+    faulthandler.cancel_dump_traceback_later()
+    stacks.close()
+    launched = float(os.environ["E19_T_LAUNCH"])
     _write_result(args.e19_worker, dict(
-        printed=tee.text(), losses=losses, s=wall,
-        finite=bool(losses) and bool(np.isfinite(losses).all()),
-        sums=_checksum(torch, named), flash=_flash_counts(fa),
-        pack=fusion.pack.launches, unpack=fusion.unpack.launches, **extra,
-        **{k: out[k] for k in ("img_per_sec", "total", "tok_s", "loss")
-           if k in out}))
+        gens=gens, examples=examples, packed_a=packed_a,
+        inits=len(clock.gens), spawn_s=started - launched,
+        imports_s=clock.first_init_at - started))
     print(f"e19 rank {os.environ['HOROVOD_RANK']}: done", flush=True)
     return 0
 
 
 def e19_phase(torch, seed, card, timeout_s=E19_TIMEOUT_S):
-    """E19: the examples of E19_RUNS on two ranks under the port's launcher
-    (``e19_worker``), a launch each.  (1) ``resnet_synthetic``: the per-rank
-    and total img/s printed, finite losses, the parameters bitwise equal
-    across the ranks; (2) ``llama_spmd --tp 2``: tok/s printed, finite
-    losses and the replicated leaves (embedding, norms, head) bitwise equal
-    across the tp ranks, and rank 0's flash launches at least layers x
-    (steps + 1) of each kernel.  Returns (ok, dict)."""
-    a, b, walls = {}, {}, {}
-    for name, _ in E19_RUNS:
-        results, route, walls[name] = launch_ranks(
-            torch, "--e19-worker", 0, seed, timeout_s,
-            env_extra={"E19_EXAMPLE": name})
-        if results is None:
-            print(f"e19: {name} FAILED ({route}, {walls[name]:.1f} s)",
-                  flush=True)
-            return False, None
-        a[name], b[name] = results
+    """E19: one launch of two ranks under the port's launcher
+    (``e19_worker``), every ``init()`` after the first on the kept world.
+    (a) E19_GENERATIONS engine generations on NCCL: the fused allreduce,
+    the broadcast, the process set's and the world's allreduces exact on
+    both ranks in each, pack and unpack launched, and generation 0's mesh
+    stale in generation 1.  (b) ``resnet_synthetic``: the per-rank and
+    total img/s printed, finite losses, the parameters bitwise equal
+    across the ranks; ``torch_mnist``: its epoch line, a finite
+    world-averaged loss equal on both ranks, the parameters bitwise equal;
+    ``llama_spmd --tp 2``: tok/s printed, finite losses and the replicated
+    leaves (embedding, norms, head) bitwise equal across the tp ranks, and
+    rank 0's flash launches at least layers x (steps + 1) of each kernel.
+    Prints each generation's init(), first collective, main and
+    shutdown() seconds and the launch's start up to the first init().
+    Returns (ok, dict)."""
+    t_launch = time.time()
+    results, route, wall = launch_ranks(
+        torch, "--e19-worker", 0, seed, timeout_s,
+        env_extra={"E19_T_LAUNCH": repr(t_launch),
+                   "E19_STACKS_AFTER_S": repr(max(timeout_s - 30, 1))})
+    if results is None:
+        print(f"e19: FAILED ({route}, {wall:.1f} s)", flush=True)
+        return False, None
+    a, b = results
     checks = []
 
     def check(what, good):
@@ -8133,18 +8415,55 @@ def e19_phase(torch, seed, card, timeout_s=E19_TIMEOUT_S):
         print(f"e19: ({len(checks)}) {what} -> {'PASS' if good else 'FAIL'}",
               flush=True)
 
-    def printed(name, *markers):
-        return all(m in a[name]["printed"] for m in markers) \
-            and a[name]["printed"].rstrip().endswith("DONE")
-
+    for rank, x in enumerate(results):
+        print(f"e19: rank {rank}: launch -> process start "
+              f"{x['spawn_s']:.2f} s, process start -> first init() "
+              f"{x['imports_s']:.2f} s, {x['inits']} init()s in one "
+              f"process", flush=True)
+    for g in range(E19_GENERATIONS):
+        ga, gb = a["gens"][g], b["gens"][g]
+        good = all(x[k] for x in (ga, gb)
+                   for k in ("fused", "bcast", "in_set", "in_world")) \
+            and all(n >= 1 for x in (ga, gb) for n in x["packed"]) \
+            and (g != 1 or (ga["stale"] and gb["stale"]))
+        check(f"generation {g} (engine): {E19_FUSED_MIB} MiB bf16 allreduce "
+              f"{ga['fused']}/{gb['fused']} (pack/unpack {ga['packed']}), "
+              f"broadcast {ga['bcast']}/{gb['bcast']}, a set's allreduce "
+              f"{ga['in_set']}/{gb['in_set']}, the world's "
+              f"{ga['in_world']}/{gb['in_world']}, all exact"
+              + (f"; generation 0's mesh stale {ga['stale']}/{gb['stale']}"
+                 if g == 1 else ""), good)
     for name, _ in E19_RUNS:
-        line = [x for x in a[name]["printed"].splitlines()
-                if "img/s" in x or "tok/s" in x]
-        print(f"e19: {name} printed on rank 0: {' | '.join(line)} "
-              f"({a[name]['s']:.1f} s in main on rank 0, the launch "
-              f"{walls[name]:.1f} s)", flush=True)
-    r = a["resnet_synthetic"], b["resnet_synthetic"]
-    ll = a["llama_spmd"], b["llama_spmd"]
+        line = [x for x in a["examples"][name]["printed"].splitlines()
+                if "img/s" in x or "tok/s" in x or "epoch" in x]
+        print(f"e19: {name} printed on rank 0: {' | '.join(line)}",
+              flush=True)
+    for r, x in enumerate(results):
+        for g, gen in enumerate(x["gens"]):
+            print(f"e19: rank {r} generation {g} (engine): init() "
+                  f"{gen['init_s']:.3f} s, first collective "
+                  f"({E19_FUSED_MIB} MiB allreduce) {gen['first_s']:.3f} s, "
+                  f"main {gen['main_s']:.3f} s, shutdown() "
+                  f"{gen['shutdown_s']:.3f} s [{card}]", flush=True)
+        for g, (name, _) in enumerate(E19_RUNS, E19_GENERATIONS):
+            e = x["examples"][name]
+            first = ("none" if e["first_s"] is None
+                     else f"{e['first_s']:.3f} s")
+            parts = "".join(f", {k} {v:.3f} s"
+                            for k, v in e["split"].items())
+            print(f"e19: rank {r} generation {g} ({name}): init() "
+                  f"{e['init_s']:.3f} s, first collective {first}, main "
+                  f"{e['s']:.3f} s{parts}, shutdown() "
+                  f"{e['shutdown_s']:.3f} s [{card}]", flush=True)
+    ex_a, ex_b = a["examples"], b["examples"]
+
+    def printed(name, *markers):
+        return all(m in ex_a[name]["printed"] for m in markers) \
+            and ex_a[name]["printed"].rstrip().endswith("DONE")
+
+    r = ex_a["resnet_synthetic"], ex_b["resnet_synthetic"]
+    m = ex_a["torch_mnist"], ex_b["torch_mnist"]
+    ll = ex_a["llama_spmd"], ex_b["llama_spmd"]
     check(f"resnet_synthetic (ResNet-50, 224², batch 32 a rank, bf16): "
           f"{r[0]['img_per_sec']:.1f} / {r[1]['img_per_sec']:.1f} img/s a "
           f"rank, {r[0]['total']:.1f} in all; losses {r[0]['losses']} / "
@@ -8153,6 +8472,13 @@ def e19_phase(torch, seed, card, timeout_s=E19_TIMEOUT_S):
           printed("resnet_synthetic", "per-rank:", "total:", "img/s")
           and r[0]["finite"] and r[1]["finite"]
           and r[0]["sums"] == r[1]["sums"])
+    check(f"torch_mnist (--epochs 1, 2,048 rows, batch 64: 16 steps a "
+          f"rank): world-averaged loss {m[0]['losses']} / {m[1]['losses']}"
+          f"; parameters bitwise equal across the ranks: "
+          f"{m[0]['sums'] == m[1]['sums']}",
+          printed("torch_mnist", "epoch 0", "world=2")
+          and m[0]["finite"] and m[0]["losses"] == m[1]["losses"]
+          and len(m[0]["losses"]) == 1 and m[0]["sums"] == m[1]["sums"])
     layers = ll[0]["n_layers"]
     want = layers * len(ll[0]["losses"])
     rep_equal = (bool(ll[0]["replicated"])
@@ -8170,15 +8496,18 @@ def e19_phase(torch, seed, card, timeout_s=E19_TIMEOUT_S):
           f"leaves bitwise equal across the tp ranks: {rep_equal}; flash "
           f"launches fwd/dq/dkv on rank 0 {ll[0]['flash']} (want >= {want} "
           f"each: {layers} layers x {len(ll[0]['losses'])} steps)", good)
-    wall = sum(walls.values())
-    print(f"e19: the examples in {wall:.1f} s ({len(walls)} launches: "
-          f"{route}) [{card}]", flush=True)
+    check(f"{a['inits']} / {b['inits']} init()s in one process a rank "
+          f"(want {E19_GENERATIONS + len(E19_RUNS)})",
+          a["inits"] == b["inits"] == E19_GENERATIONS + len(E19_RUNS))
+    print(f"e19: the phase in {wall:.1f} s (one launch: {route}) [{card}]",
+          flush=True)
     return all(checks), dict(
         flash=ll[0]["flash"], s=wall,
-        pack=sum(a[n]["pack"] for n, _ in E19_RUNS),
-        unpack=sum(a[n]["unpack"] for n, _ in E19_RUNS),
+        pack=a["packed_a"][0] + sum(ex_a[n]["pack"] for n, _ in E19_RUNS),
+        unpack=a["packed_a"][1] + sum(ex_a[n]["unpack"]
+                                      for n, _ in E19_RUNS),
         img_s=(r[0]["img_per_sec"], r[0]["total"]), tok_s=ll[0]["tok_s"],
-        mains={n: a[n]["s"] for n, _ in E19_RUNS})
+        mains={n: ex_a[n]["s"] for n, _ in E19_RUNS})
 
 
 def trace_ab_phase(torch, hvd, grads, iters=5):
@@ -8373,17 +8702,6 @@ def main():
     ab_ok = trace_ab_phase(torch, hvd, grads)
     del grads
     torch.cuda.empty_cache()
-    t_e3 = time.time()
-    launch = e3_e5_launch(torch, E3_LAYERS, args.seed)
-    two_ok, two = two_rank_phase(launch, E3_LAYERS)
-    four_ok, four = e4_phase(launch, card)
-    engine_ok = (loading_ok and fusion_ok and layout_ok and size1_ok
-                 and two_ok and four_ok
-                 and no_spills)
-    sp_ok, sp = e5_phase(launch, E3_LAYERS, card)
-    del launch
-    print(f"e3-e5: the phase in {time.time() - t_e3:.1f} s (one launch)",
-          flush=True)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     resnet_ok, _ = resnet_phase(torch, hvd, fa, args.seed, card, flush)
     del flush
@@ -8393,6 +8711,14 @@ def main():
     torch.cuda.empty_cache()
     tf_ok, tf_launches, _ = transformer_phase(torch, hvd, fa, args.seed,
                                               card)
+    t_e3 = time.time()
+    two_ok, two, four_ok, four, sp_ok, sp = e3_e5_phase(torch, E3_LAYERS,
+                                                        args.seed, card)
+    print(f"e3-e5: the phase in {time.time() - t_e3:.1f} s (one launch)",
+          flush=True)
+    engine_ok = (loading_ok and fusion_ok and layout_ok and size1_ok
+                 and two_ok and four_ok
+                 and no_spills)
     e6_ok, e6 = e6_phase(torch, args.seed, card)
     models_ok = resnet_ok and tf_ok and e6_ok
     e7_ok, e7 = e7_phase(torch, E7_LAYERS, args.seed, card)
@@ -8409,18 +8735,20 @@ def main():
     # The elastic phases wait on world formations, commits and the policy's
     # clocks far more than on the card, so they run side by side, and
     # E13-E15 follows E11 into E12's idle wait for the scale-in (PERF.md
-    # §6 PR 18).
-    # E19's launches, mostly process start and world formation, take a
-    # lane of their own (PERF.md §6, the examples).
-    res = side_by_side("e11-e19", (
+    # §6).  E19's launch, mostly process start and world formation, takes
+    # a lane of its own (PERF.md §6, the examples).  Nothing more fits
+    # beside E11 and E12: with E3-E5 there the card's 80 GB ran out (7 GiB
+    # of the host's 96 left), with E7 the card's, with E10 the host's
+    # (PERF.md §6, the re-init).
+    res = side_by_side(torch, "e11-e19", (
         (("e11", e11_phase, torch, E11_LAYERS, args.seed, card),
          ("e13-e15", e14_phase, torch, E14_LAYERS, args.seed, card)),
         (("e12", e12_phase, torch, E12_LAYERS, args.seed, card),
          ("e16b", e16_phase, torch, E16_LAYERS, args.seed, card)),
         (("e19", e19_phase, torch, args.seed, card),)))
     (e11_ok, e11), (e12_ok, e12) = res["e11"], res["e12"]
-    e16b_ok, e16b = res.get("e16b", (False, None))
-    e19_ok, e19 = res.get("e19", (False, None))
+    e16b_ok, e16b = res["e16b"]
+    e19_ok, e19 = res["e19"]
     e16_ok = e16a_ok and e16b_ok
     f16 = e16a_launches + (e16b["flash"] if e16b else 0)
     e14_ok, e14 = res["e13-e15"]

@@ -70,6 +70,24 @@ gone before the next ``init()``, process sets of the dead generation are
 unregistered, and a mesh made in it refuses to run
 (``parallel/mesh.py``).
 
+A static world (launched without the elastic driver) is kept across
+``shutdown()``, as the JAX package keeps its ``jax.distributed`` client
+(``horovod_tpu/common/basics.py:109-110``, torn down only in an elastic
+world, :357-371): ``shutdown()`` destroys the groups the generation made
+beside the default one (the process sets', the two-level groups, every
+mesh's) and keeps the default group and its store, and the next
+``init()`` runs on them, with no second rendezvous at the same address.
+The store orders each generation's control plane: rank 0 sets
+``hvd/gen/<n>/coordinator`` once its coordinator listens, each host
+agent's owner ``hvd/gen/<n>/agent/<host>`` once its agent does, and every
+other rank waits for the key of the server it connects to, so that no
+rank reaches a server of the last generation that is still closing.  A
+world of another size or rank than the env gives is refused.  After a
+peer fault the world's communicators are aborted and the world cannot
+form again at its address: the next ``init()`` raises (the elastic
+driver re-forms worlds).  At interpreter exit a process that formed a
+kept world destroys it, once no generation is live.
+
 The two-level control plane (``HOROVOD_HIERARCHICAL_CONTROLLER=1``), as
 the JAX ``init()``/``shutdown()`` run it (:163-230, 342-353): every
 rank's negotiation client connects to its host's ``HostAgent``
@@ -86,8 +104,10 @@ stable port (the rendezvous assignment's ``agent_port``).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
+import datetime
 import os
 import threading
 import warnings
@@ -146,6 +166,123 @@ _state = GlobalState()
 # ``_elastic_carry``): the engagement hint a clean shutdown captures, which
 # the next generation's controller starts from; a fault clears it.
 _elastic_carry = {"spec_seed": 0}
+
+
+class _StaticWorld:
+    """The ``torch.distributed`` world of a static launch, kept across
+    ``shutdown()``: whether this process formed it, the ``init()``s run on
+    it (each generation's store keys carry the count), whether a peer
+    fault ended it, and the groups the live generation made beside the
+    default one, in the order every rank made them."""
+
+    def __init__(self):
+        self.owned = False
+        self.generations = 0
+        self.faulted = False
+        self.groups: list = []
+        self.exit_hook = False
+
+
+_world = _StaticWorld()
+
+# How long a rank waits for the server of its generation to listen: the
+# controller's own connect budget (common/controller.py).
+_SERVER_WAIT_S = 60.0
+# How long a rank whose control link died waits for the peers' records of
+# a clean leave before it takes the loss for a fault.
+_LEAVE_WAIT_S = 5.0
+
+
+def _new_generation_group(ranks):
+    """``dist.new_group(ranks)``, kept with the generation's groups, which
+    ``shutdown()`` destroys (a collective: every rank makes every group,
+    those it is not in included, in one order)."""
+    import torch.distributed as dist
+    g = dist.new_group(list(ranks))
+    if g is not None and g is not dist.GroupMember.NON_GROUP_MEMBER:
+        _world.groups.append(g)
+    return g
+
+
+def _destroy_generation_group(g) -> None:
+    """Destroy a group of the generation, once: a group that
+    ``shutdown()``, a fault or an earlier call has already ended is
+    left alone."""
+    if any(x is g for x in _world.groups):
+        _world.groups = [x for x in _world.groups if x is not g]
+        import torch.distributed as dist
+        dist.destroy_process_group(g)
+
+
+def _destroy_kept_world() -> None:
+    """At interpreter exit: destroy the kept world this process formed,
+    unless a generation is still live."""
+    if _world.owned and not _state.initialized:
+        _world.owned = False
+        from ..elastic.worker import teardown_distributed
+        teardown_distributed()
+
+
+def _default_store():
+    from torch.distributed import distributed_c10d as c10d
+    return c10d._get_default_store()
+
+
+def _announce(key: str) -> None:
+    """Tell the world's other ranks that this generation's server named by
+    ``key`` listens."""
+    _default_store().set(f"hvd/gen/{_world.generations}/{key}", "1")
+
+
+def _await(key: str, what: str) -> None:
+    """Wait until this generation's server named by ``key`` listens."""
+    full = f"hvd/gen/{_world.generations}/{key}"
+    try:
+        _default_store().wait(
+            [full], datetime.timedelta(seconds=_SERVER_WAIT_S))
+    except Exception as exc:  # noqa: BLE001 - the store's timeout types
+        raise RuntimeError(
+            f"horovod_tpu_torch.init(): {what} of generation "
+            f"{_world.generations} did not listen within {_SERVER_WAIT_S:.0f}"
+            f" s (store key {full}): {exc}") from exc
+
+
+def _mark_left(rank: int) -> None:
+    """Record in the kept world's store that ``rank`` shuts this
+    generation down cleanly."""
+    try:
+        _announce(f"left/{rank}")
+    except Exception as exc:  # noqa: BLE001 - shutdown must go on
+        from ..utils.logging import get_logger
+        get_logger().warning("shutdown: could not record a clean leave in "
+                             "the world's store: %s", exc)
+
+
+def _fault_is_a_clean_departure(st: GlobalState, fault) -> bool:
+    """Whether a control-plane fault in a static world is only a peer's
+    clean shutdown: the ranks it names dead, or else the ranks this rank's
+    control link runs through (rank 0's coordinator, and under the
+    two-level plane this host's agent owner), all recorded a clean leave
+    in this generation (``_mark_left``), or do within ``_LEAVE_WAIT_S``.
+    Their collectives all completed before they left, so the world's
+    communicators are sound.  A peer that died records nothing, and rank
+    0's death takes the store with it."""
+    dead = set(getattr(fault, "dead_ranks", None) or ())
+    links = {0}
+    if st.config is not None and st.config.hierarchical_controller:
+        links.add(st.rank - st.local_rank)
+    suspects = (dead or links) - {st.rank}
+    if not suspects:
+        return False
+    prefix = f"hvd/gen/{_world.generations}/left/"
+    try:
+        # A peer that leaves cleanly records it before its link can die,
+        # but this rank may read the store before the record lands.
+        _default_store().wait([prefix + str(r) for r in sorted(suspects)],
+                              datetime.timedelta(seconds=_LEAVE_WAIT_S))
+        return True
+    except Exception:  # noqa: BLE001 - no record in time, or no store
+        return False
 
 
 def _env_has_rendezvous() -> bool:
@@ -227,7 +364,8 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         # into the env read below, and returns the config with this
         # rank's output file names.
         boot = None
-        if Config.from_env().elastic and _env_has_rendezvous():
+        elastic = Config.from_env().elastic
+        if elastic and _env_has_rendezvous():
             from ..elastic.worker import elastic_bootstrap
             boot = elastic_bootstrap()
         size = _env_int("HOROVOD_SIZE", 1)
@@ -251,7 +389,27 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
         st.owns_process_group = False
         if size > 1:
             import torch.distributed as dist
-            if not dist.is_initialized():
+            if not elastic and _world.faulted and not dist.is_initialized():
+                raise RuntimeError(
+                    "horovod_tpu_torch.init(): a peer fault ended this "
+                    "static world and aborted its communicators; a static "
+                    "world cannot form again at its address after a peer "
+                    "fault.  Restart the job, or run it under the elastic "
+                    "driver (python -m horovod_tpu_torch.runner with "
+                    "--min-np/--host-discovery-script), which re-forms "
+                    "worlds")
+            if dist.is_initialized():
+                # The world kept from an earlier generation (or one the
+                # caller formed): it must be the one the env describes.
+                if (dist.get_world_size(), dist.get_rank()) != (size, rank):
+                    raise RuntimeError(
+                        f"horovod_tpu_torch.init(): the env gives rank "
+                        f"{rank} of {size}, but this process is already "
+                        f"rank {dist.get_rank()} of a world of "
+                        f"{dist.get_world_size()}; a static world keeps its "
+                        f"size and ranks across shutdown()")
+                st.owns_process_group = _world.owned and not elastic
+            else:
                 addr = os.environ.get("HOROVOD_CONTROLLER_ADDR", "")
                 port = os.environ.get("HOROVOD_CONTROLLER_PORT", "")
                 if not addr or not port:
@@ -268,6 +426,13 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                         backend=backend, init_method=f"tcp://{addr}:{port}",
                         world_size=size, rank=rank)
                 st.owns_process_group = True
+                if not elastic:
+                    _world.owned, _world.generations = True, 0
+                    if not _world.exit_hook:
+                        atexit.register(_destroy_kept_world)
+                        _world.exit_hook = True
+            if not elastic:
+                _world.generations += 1
         st.rank, st.size = rank, size
         st.local_rank, st.local_size = local_rank, local_size
         st.device = dev
@@ -298,6 +463,11 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
             ctrl_port = cfg.controller_port2 or cfg.controller_port + 1
             connect_addr, connect_port = cfg.controller_addr, ctrl_port
             server_port = None
+            # In a kept world the last generation's servers may still be
+            # closing: connect only to this generation's.
+            ordered = not cfg.elastic
+            if ordered and rank != 0:
+                _await("coordinator", "the coordinator (rank 0)")
             if cfg.hierarchical_controller:
                 agent_at = _host_agent_for(st, cfg, rank, size, local_rank,
                                            local_size, ctrl_port)
@@ -305,6 +475,11 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                     connect_addr, connect_port = "127.0.0.1", agent_at
                     if rank == 0:
                         server_port = ctrl_port
+                    host = cfg.cross_rank_env
+                    if ordered and local_rank == 0:
+                        _announce(f"agent/{host}")
+                    elif ordered:
+                        _await(f"agent/{host}", f"host {host}'s agent")
             carry = _elastic_carry["spec_seed"] if cfg.elastic else 0
             st.controller = TCPController(
                 connect_addr, connect_port,
@@ -318,6 +493,8 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                 spec_ready_after=cfg.spec_ready_after,
                 round_pipeline=cfg.round_pipeline,
                 spec_seed=carry, spec_streak_hint=carry)
+            if ordered and rank == 0:
+                _announce("coordinator")
             st.engine.controller = st.controller
         if cfg.monitor:
             # Installed before engine.start() so that the very first cycle
@@ -393,13 +570,14 @@ def _host_agent_for(st: GlobalState, cfg: Config, rank: int, size: int,
 
 def _make_group(ranks):
     """The process group of a set: none in a world of one process, the
-    default group for the global set, a new group for a subset."""
+    default group for the global set, a new group of the generation for a
+    subset."""
     if _state.size == 1:
         return None
     import torch.distributed as dist
     if len(ranks) == dist.get_world_size():
         return dist.group.WORLD
-    return dist.new_group(ranks)
+    return _new_generation_group(ranks)
 
 
 def shutdown() -> None:
@@ -422,21 +600,36 @@ def shutdown() -> None:
         # take part in no teardown of the world.
         peers_left = bool(getattr(ctl, "left_ranks", None))
         leave_sent = False
+        elastic = st.config is not None and st.config.elastic
+        static = st.size > 1 and not elastic
+        marked = False
         if ctl is not None and eng is not None and not abrupt:
             # A wedged thread (a peer already died) falls back to the sever
             # below; a healthy world's in-flight round completes first.
             if eng.quiesce(timeout=5.0) and eng.fault is None:
+                if static:
+                    # Before the LEAVE and before this rank's servers
+                    # close: a peer whose link dies with them finds the
+                    # record and keeps the world.
+                    _mark_left(st.rank)
+                    marked = True
                 leave_sent = bool(ctl.leave())
             else:
                 abrupt = eng.fault is not None
+        if static:
+            if not abrupt and not marked:
+                _mark_left(st.rank)
+            elif abrupt and _fault_is_a_clean_departure(st, eng.fault):
+                abrupt = False
         if ctl is not None:
             # Unblock any lock-step round FIRST so the engine thread can't
             # be left inside the native client when we free it.
             ctl.interrupt()
-        elastic = st.config is not None and st.config.elastic
         if st.owns_process_group and abrupt:
             from ..elastic.worker import teardown_distributed
             teardown_distributed(abrupt=True)
+            if not elastic:
+                _world.owned, _world.faulted = False, True
         if eng is not None:
             eng.stop()
             st.engine = None
@@ -467,13 +660,19 @@ def shutdown() -> None:
         if st.timeline is not None:
             st.timeline.close()
             st.timeline = None
-        if st.owns_process_group and not abrupt:
+        if elastic and st.owns_process_group and not abrupt:
             from ..elastic.worker import teardown_distributed
             # In an elastic world a clean LEAVE, ours or a peer's, leaves
             # ranks that take no part in a destroy: abort, as after a
             # fault.  A world ending together destroys its groups.
-            teardown_distributed(
-                abrupt=elastic and (leave_sent or peers_left))
+            teardown_distributed(abrupt=leave_sent or peers_left)
+        if abrupt or (elastic and st.owns_process_group):
+            # Ended with the world, or not to be touched after a fault.
+            _world.groups = []
+        else:
+            # A static world is kept; the generation's own groups go.
+            for g in list(_world.groups):
+                _destroy_generation_group(g)
         st.owns_process_group = False
         # Sets of this generation name groups that are gone: unregister
         # them, so that a later call with one raises instead of running on

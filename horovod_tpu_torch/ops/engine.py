@@ -1992,12 +1992,12 @@ class CollectiveEngine:
         st = self._slice_topology(0)
         if st is None or self._state.size == 1:
             return
-        import torch.distributed as dist
+        from ..common.basics import _new_generation_group
         L, C = st.local_size, st.num_slices
         local = [tuple(range(s * L, (s + 1) * L)) for s in range(C)]
         cross = [tuple(c * L + i for c in range(C)) for i in range(L)]
-        local_groups = [dist.new_group(list(r)) for r in local]
-        cross_groups = [dist.new_group(list(r)) for r in cross]
+        local_groups = [_new_generation_group(r) for r in local]
+        cross_groups = [_new_generation_group(r) for r in cross]
         s, i = divmod(self._state.rank, L)
         self._hier = _HierGroups(st, local_groups[s], local[s],
                                  cross_groups[i], cross[i])

@@ -42,9 +42,9 @@ mesh's communicators run on their own NCCL streams, apart from the
 engine's.
 
 ``dist.new_group`` is itself a collective: every rank creates every axis
-group, those it is not in included, in the same order.
-:meth:`ProcessMesh.shutdown` destroys the groups before ``hvd.shutdown()``
-tears the world down.
+group, those it is not in included, in the same order; they are the
+generation's (``basics._new_generation_group``), destroyed by
+:meth:`ProcessMesh.shutdown`, or else by ``hvd.shutdown()``.
 
 Not carried over, for want of a counterpart: ``SpecLayout`` and
 ``fsdp_mesh`` (partition specs of ``shard_map``, which the port does not
@@ -100,8 +100,8 @@ class ProcessMesh:
             raise ValueError(f"Mesh axes {dict(axis_sizes)} require "
                              f"{int(np.prod(sizes))} ranks, have {world}")
         self._names = tuple(str(a) for a in axis_sizes)
-        # The runtime's generation: an elastic re-init tears down every
-        # group this mesh holds, and the mesh then refuses to run.
+        # The runtime's generation: hvd.shutdown() destroys this mesh's
+        # groups, and in a later generation the mesh refuses to run.
         from ..common import basics
         self._generation = basics._get_state().generation
         # A list to collect the (start, end) marks around each exchange's
@@ -119,11 +119,10 @@ class ProcessMesh:
                 tuple(np.delete(coords, d))])
             group = None
             if sizes[d] > 1:
-                import torch.distributed as dist
                 others = [range(n) for i, n in enumerate(sizes) if i != d]
                 for rest in itertools.product(*others):
                     ranks = [int(r) for r in np.moveaxis(grid, d, -1)[rest]]
-                    g = dist.new_group(ranks)
+                    g = basics._new_generation_group(ranks)
                     if rank in ranks:
                         group = g
                         self._groups.append(g)
@@ -146,7 +145,7 @@ class ProcessMesh:
         if self._stale():
             raise RuntimeError(
                 "this mesh was made in an earlier generation of the world "
-                "(an elastic reset has torn its process groups down); make "
+                "(hvd.shutdown() has destroyed its process groups); make "
                 "a new one with make_mesh() after hvd.init()")
         return self._axes[require_axis(self, name)]
 
@@ -157,13 +156,14 @@ class ProcessMesh:
         return self.axis(name).index
 
     def shutdown(self) -> None:
-        """Destroy this mesh's process groups (before ``hvd.shutdown()``)."""
-        import torch.distributed as dist
+        """Destroy this mesh's process groups, before ``hvd.shutdown()``.
+        The groups of a mesh not shut down so, or of a stale one, went
+        with their generation: ``hvd.shutdown()`` destroyed them, and a
+        second destroy does nothing."""
+        from ..common import basics
         groups, self._groups = self._groups, []
-        if self._stale():
-            return          # torn down with its generation
         for g in groups:
-            dist.destroy_process_group(g)
+            basics._destroy_generation_group(g)
 
     def __repr__(self):
         return f"ProcessMesh({self.shape})"

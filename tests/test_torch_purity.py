@@ -655,12 +655,11 @@ _WORLD_CALLS = {"init_process_group", "destroy_process_group",
                 "_abort_process_group", "new_group"}
 _WORLD_CALLERS = {
     os.path.join("common", "basics.py"): {"init_process_group",
-                                          "new_group"},
+                                          "new_group",
+                                          "destroy_process_group"},
     os.path.join("elastic", "worker.py"): {"init_process_group",
                                            "destroy_process_group",
                                            "_abort_process_group"},
-    _ENGINE: {"new_group"},
-    _MESH: {"new_group", "destroy_process_group"},
 }
 
 
@@ -674,9 +673,10 @@ def _world_calls(path):
 def test_torch_world_setup_and_teardown_sites():
     """The world is formed in basics (and, in an elastic job, in the
     worker's resilient form), torn down (destroyed, or its communicators
-    aborted) only by the elastic worker's teardown, and groups are made
-    by basics (process sets), the engine (the two-level groups) and the
-    mesh (which destroys its own)."""
+    aborted) only by the elastic worker's teardown, and the groups beside
+    it are made and destroyed only by basics, which keeps them with their
+    generation: the process sets', the engine's two-level groups and the
+    mesh's (which asks basics to destroy its own)."""
     found = {}
     for root, _, names in os.walk(PKG):
         for n in names:
@@ -998,6 +998,53 @@ NO_COUNTERPART_NAMES = {
     "ops/eager.py": {n: "single-controller mode" for n in (
         "stack_per_rank", "replicated", "to_local", "to_global",
         "per_process_mode", "broadcast_pytree")},
+    "common/basics.py": {
+        "mesh": "a jax.sharding.Mesh over the devices; the port's meshes "
+                "are parallel.make_mesh's process groups",
+        "xla_built": "an XLA probe; the port has nccl_built/cuda_built",
+        "tpu_available": "a TPU probe; the port has nccl_built/cuda_built"},
+    "common/topology.py": {n: "GPU ranks carry no torus coordinates"
+                           for n in ("ordered_devices", "torus_dims")},
+    "parallel/adasum.py": {
+        "torus_bit_order": "GPU ranks carry no torus coordinates"},
+    "parallel/mesh.py": {
+        "SpecLayout": "shard_map partition specs (each model's param_specs "
+                      "and parallel/expert.py Split name a leaf's split)",
+        "fsdp_mesh": "shard_map partition specs",
+        **{n: "jax.sharding translations" for n in (
+            "process_set_mesh", "process_set_spec",
+            "process_set_sharding")}},
+    "parallel/zero.py": {n: "in-graph under shard_map, single-controller "
+                            "mode; one process is one rank in the port, "
+                            "whose sharded optimizer is the eager one"
+                         for n in ("sharded_optimizer",
+                                   "full_sharded_optimizer",
+                                   "init_sharded_state",
+                                   "init_full_sharded_state",
+                                   "gather_full_params", "state_specs")},
+    "ops/flash_attention.py": {n: "the TPU routing knobs" for n in (
+        "flash_enabled", "flash_min_seq", "resolve_blocks",
+        "resolve_flash")},
+    "ops/collectives.py": {n: "in-jit collectives; the mesh's ppermute, "
+                              "all_to_all, all_gather and psum are their "
+                              "counterparts"
+                           for n in ("allgather", "allreduce", "alltoall",
+                                     "axis_rank", "axis_size",
+                                     "barrier_value", "broadcast",
+                                     "grouped_allreduce", "neighbor_shift",
+                                     "ppermute", "reducescatter")},
+    "elastic/worker.py": {
+        "exit_guard_note_clean_shutdown": "the exit guard: a JAX world "
+                                          "cannot be torn down after a "
+                                          "peer dies, an NCCL world's "
+                                          "communicators are aborted"},
+    "elastic/state.py": {"JaxState": "a JAX pytree's state; the port's is "
+                                     "TorchState"},
+    **{f"models/{m}.py": {"sync_grads": "DistributedOptimizer and "
+                                        "parallel/expert.py replace it"}
+       for m in ("llama", "bert", "vit", "gpt2", "dlrm")},
+    "models/moe.py": {"lm_sync_grads": "DistributedOptimizer and "
+                                       "parallel/expert.py replace it"},
 }
 
 
@@ -1037,6 +1084,38 @@ def test_torch_every_module_has_a_counterpart_or_a_reason():
         port_names = _names(os.path.join(PKG, rel))
         for name in names:
             assert name in jax_names and name not in port_names, (rel, name)
+
+
+def _public_names(path):
+    """Top-level public classes and functions of a file."""
+    return {n for n in _names(path) if "." not in n
+            and not n.startswith("_")}
+
+
+def test_torch_every_public_name_has_a_counterpart_or_a_reason():
+    """Every public top-level class and function of a JAX module that has
+    a counterpart is in the counterpart or in NO_COUNTERPART_NAMES, which
+    names no public top-level name the AST diff of the two trees does not
+    find: the list is the whole diff."""
+    ref = _py_modules(os.path.join(REPO, "horovod_tpu"))
+    port = _py_modules(PKG)
+    diff = {}
+    for rel in sorted(ref & port):
+        gone = (_public_names(os.path.join(REPO, "horovod_tpu", rel))
+                - _public_names(os.path.join(PKG, rel)))
+        if gone:
+            diff[rel] = gone
+    listed = {rel: {n for n in names if "." not in n
+                    and not n.startswith("_")}
+              for rel, names in NO_COUNTERPART_NAMES.items()}
+    listed = {rel: names for rel, names in listed.items() if names}
+    assert diff == listed, {
+        rel: (sorted(diff.get(rel, set()) - listed.get(rel, set())),
+              sorted(listed.get(rel, set()) - diff.get(rel, set())))
+        for rel in set(diff) | set(listed)
+        if diff.get(rel) != listed.get(rel)}
+    assert all(NO_COUNTERPART_NAMES[rel][n] for rel in listed
+               for n in listed[rel])
 
 
 # The user-facing programs: every script of examples/ has a counterpart in
