@@ -8249,10 +8249,13 @@ def _e19_generation(torch, hvd, parallel, fusion, g, stale):
     """One of E19 (a)'s generations on this rank: ``init()``, an allreduce
     of E19_FUSED_MIB MiB of bf16 (small integers, so that the sum is
     exact), a broadcast from rank 1, an allreduce on a process set added
-    in this generation, a last world allreduce, ``shutdown()``; each
-    result checked exactly against the sum its inputs give.  Generation 0
-    also makes a mesh, which generation 1 must find stale.  Returns the
-    generation's record."""
+    in this generation, a last world allreduce, then a mesh over the ranks
+    and a process set made and destroyed right before ``shutdown()`` (a
+    rank that leaves a group just made must not fail its peer's
+    ``new_group``: the ranks meet in the store after each, counted in
+    ``cycle``); each result checked exactly against the sum its inputs
+    give.  Generation 0 also makes a mesh, which generation 1 must find
+    stale.  Returns the generation's record."""
     t0 = time.perf_counter()
     hvd.init()
     r, size, dev = hvd.rank(), hvd.size(), hvd.device()
@@ -8293,10 +8296,20 @@ def _e19_generation(torch, hvd, parallel, fusion, g, stale):
     torch.cuda.synchronize()
     del x, out, want, base
     main_s = time.perf_counter() - t0
+    from horovod_tpu_torch.common import basics
+    world = basics._world
+    for gone in sets:
+        hvd.remove_process_set(gone)
+    meets, meet_s = world.meets, world.meet_s
+    mesh = parallel.make_mesh({"tp": size})
+    made = hvd.add_process_set([0])
+    cycle = dict(meets=world.meets - meets, meet_s=world.meet_s - meet_s)
+    mesh.shutdown()
+    hvd.remove_process_set(made)
     hvd.shutdown()
     return dict(fused=fused, bcast=bcast, in_set=in_set, in_world=in_world,
                 packed=packed, stale=stale_raised, first_s=first_s,
-                main_s=main_s)
+                main_s=main_s, cycle=cycle)
 
 
 def e19_worker(args):
@@ -8375,10 +8388,12 @@ def e19_worker(args):
     faulthandler.cancel_dump_traceback_later()
     stacks.close()
     launched = float(os.environ["E19_T_LAUNCH"])
+    from horovod_tpu_torch.common import basics
     _write_result(args.e19_worker, dict(
         gens=gens, examples=examples, packed_a=packed_a,
         inits=len(clock.gens), spawn_s=started - launched,
-        imports_s=clock.first_init_at - started))
+        imports_s=clock.first_init_at - started,
+        meets=basics._world.meets, meet_s=basics._world.meet_s))
     print(f"e19 rank {os.environ['HOROVOD_RANK']}: done", flush=True)
     return 0
 
@@ -8388,16 +8403,19 @@ def e19_phase(torch, seed, card, timeout_s=E19_TIMEOUT_S):
     (``e19_worker``), every ``init()`` after the first on the kept world.
     (a) E19_GENERATIONS engine generations on NCCL: the fused allreduce,
     the broadcast, the process set's and the world's allreduces exact on
-    both ranks in each, pack and unpack launched, and generation 0's mesh
-    stale in generation 1.  (b) ``resnet_synthetic``: the per-rank and
-    total img/s printed, finite losses, the parameters bitwise equal
-    across the ranks; ``torch_mnist``: its epoch line, a finite
+    both ranks in each, pack and unpack launched, generation 0's mesh
+    stale in generation 1, and in each a mesh and a set made and
+    destroyed just before ``shutdown()`` with both ranks on to the next
+    generation (two group meets each).  (b) ``resnet_synthetic``: the
+    per-rank and total img/s printed, finite losses, the parameters
+    bitwise equal across the ranks; ``torch_mnist``: its epoch line, a finite
     world-averaged loss equal on both ranks, the parameters bitwise equal;
     ``llama_spmd --tp 2``: tok/s printed, finite losses and the replicated
     leaves (embedding, norms, head) bitwise equal across the tp ranks, and
     rank 0's flash launches at least layers x (steps + 1) of each kernel.
     Prints each generation's init(), first collective, main and
-    shutdown() seconds and the launch's start up to the first init().
+    shutdown() seconds, the launch's start up to the first init(), and
+    the group meets' milliseconds a group.
     Returns (ok, dict)."""
     t_launch = time.time()
     results, route, wall = launch_ranks(
@@ -8425,20 +8443,33 @@ def e19_phase(torch, seed, card, timeout_s=E19_TIMEOUT_S):
         good = all(x[k] for x in (ga, gb)
                    for k in ("fused", "bcast", "in_set", "in_world")) \
             and all(n >= 1 for x in (ga, gb) for n in x["packed"]) \
-            and (g != 1 or (ga["stale"] and gb["stale"]))
+            and (g != 1 or (ga["stale"] and gb["stale"])) \
+            and ga["cycle"]["meets"] == gb["cycle"]["meets"] == 2
+        nxt = (f"generation {g + 1}" if g + 1 < E19_GENERATIONS
+               else E19_RUNS[0][0])
         check(f"generation {g} (engine): {E19_FUSED_MIB} MiB bf16 allreduce "
               f"{ga['fused']}/{gb['fused']} (pack/unpack {ga['packed']}), "
               f"broadcast {ga['bcast']}/{gb['bcast']}, a set's allreduce "
               f"{ga['in_set']}/{gb['in_set']}, the world's "
               f"{ga['in_world']}/{gb['in_world']}, all exact"
               + (f"; generation 0's mesh stale {ga['stale']}/{gb['stale']}"
-                 if g == 1 else ""), good)
+                 if g == 1 else "")
+              + f"; a mesh and a set made and destroyed just before "
+              f"shutdown(), {ga['cycle']['meets']}/{gb['cycle']['meets']} "
+              f"group meets (want 2), both ranks on to {nxt}", good)
     for name, _ in E19_RUNS:
         line = [x for x in a["examples"][name]["printed"].splitlines()
                 if "img/s" in x or "tok/s" in x or "epoch" in x]
         print(f"e19: {name} printed on rank 0: {' | '.join(line)}",
               flush=True)
     for r, x in enumerate(results):
+        cyc = [gen["cycle"] for gen in x["gens"]]
+        n = sum(c["meets"] for c in cyc)
+        print(f"e19: rank {r}: group meets (NCCL) {x['meets']} in all, "
+              f"{1e3 * x['meet_s'] / max(x['meets'], 1):.3f} ms a group; "
+              f"the make-and-destroy cycles' {n}, "
+              f"{1e3 * sum(c['meet_s'] for c in cyc) / max(n, 1):.3f} ms a "
+              f"group [{card}]", flush=True)
         for g, gen in enumerate(x["gens"]):
             print(f"e19: rank {r} generation {g} (engine): init() "
                   f"{gen['init_s']:.3f} s, first collective "

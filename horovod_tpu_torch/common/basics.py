@@ -88,6 +88,17 @@ form again at its address: the next ``init()`` raises (the elastic
 driver re-forms worlds).  At interpreter exit a process that formed a
 kept world destroys it, once no generation is live.
 
+Every group a generation makes beside the default one (a process set's,
+a mesh's axes, the two-level groups) goes through
+``_new_generation_group``, which returns only once every rank of the
+world has made the group: the ranks meet in the world's store right after
+``dist.new_group`` (``_meet``, under ``hvd/gen/<n>/group/<name>`` in a
+static world and ``hvd/elastic/<version>/group/<name>`` in an elastic
+one).  On gloo a rank may return from ``new_group`` while a peer is still
+connecting the group's pairs; destroying the group then, or leaving the
+process, closes the sockets under the peer, whose ``new_group`` fails
+(``Gloo connectFullMesh failed ... Connection closed by peer``).
+
 The two-level control plane (``HOROVOD_HIERARCHICAL_CONTROLLER=1``), as
 the JAX ``init()``/``shutdown()`` run it (:163-230, 342-353): every
 rank's negotiation client connects to its host's ``HostAgent``
@@ -110,6 +121,7 @@ import ctypes
 import datetime
 import os
 import threading
+import time
 import warnings
 from typing import Optional, Sequence
 
@@ -181,6 +193,14 @@ class _StaticWorld:
         self.faulted = False
         self.groups: list = []
         self.exit_hook = False
+        # The store keys of the live world's group meets start so: per
+        # generation in a static world, per rendezvous version in an
+        # elastic one (set by init()).
+        self.meet_prefix = "hvd/gen/0"
+        # The meets this process made and their seconds in all, each from
+        # the return of dist.new_group until this rank leaves the meet.
+        self.meets = 0
+        self.meet_s = 0.0
 
 
 _world = _StaticWorld()
@@ -196,12 +216,59 @@ _LEAVE_WAIT_S = 5.0
 def _new_generation_group(ranks):
     """``dist.new_group(ranks)``, kept with the generation's groups, which
     ``shutdown()`` destroys (a collective: every rank makes every group,
-    those it is not in included, in one order)."""
+    those it is not in included, in one order).  Returns once every rank
+    of the world has made the group, so that this rank may destroy it, or
+    leave the process, at once.
+
+    Gloo connects a group's pairs inside ``new_group``, and a rank whose
+    own pairs are up returns while a peer may still be connecting; if the
+    rank then destroys the group or exits, the peer's ``new_group`` fails
+    with ``Connection closed by peer``.  NCCL, in a world formed with no
+    ``device_id`` (as ``init()`` forms it), makes a group's communicator
+    at its first collective, so ``new_group`` opens no connection and
+    ``destroy_process_group`` of a group no collective has used aborts no
+    communicator and reaches no peer: there the meet is not needed for
+    this race.  It is kept on every backend all the same, so that the
+    guarantee does not hang on how the world was formed (a world bound to
+    a device makes NCCL communicators eagerly, in ``new_group``), and it
+    costs two store round trips a rank.  torch's own barrier after
+    ``new_group`` (``TORCH_DIST_INIT_BARRIER=1``) is process-wide and is
+    not set."""
     import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+    # The name torch gives the group: the world's count of the groups
+    # made so far, the same on every rank, members or not.
+    name = c10d._world.group_count
     g = dist.new_group(list(ranks))
     if g is not None and g is not dist.GroupMember.NON_GROUP_MEMBER:
         _world.groups.append(g)
+    # Rank 0 serves the world's store (the tcp:// rendezvous's).
+    _meet(f"{_world.meet_prefix}/group/{name}", dist.get_world_size(),
+          dist.get_rank() == 0)
     return g
+
+
+def _meet(key: str, world: int, serves_store: bool) -> None:
+    """Return once all ``world`` ranks have reached ``key``: each adds one
+    to a count in the world's store; the last to arrive sets ``<key>/all``
+    and goes on, and the others wait for it (under the store's timeout,
+    the world's).  No rank touches the store after the set has woken the
+    others, for a woken rank 0 may end the process that serves it."""
+    t0 = time.perf_counter()
+    store = _default_store()
+    done = f"{key}/all"
+    if store.add(key, 1) == world:
+        store.set(done, "1")
+        if serves_store:
+            # The store answers no set.  A query that it answers after
+            # the set (it serves one client's queries in order) means
+            # the set has been served and the waiting ranks woken before
+            # this process goes on, and perhaps ends, taking the store.
+            store.check([done])
+    else:
+        store.wait([done])
+    _world.meets += 1
+    _world.meet_s += time.perf_counter() - t0
 
 
 def _destroy_generation_group(g) -> None:
@@ -433,6 +500,11 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None,
                         _world.exit_hook = True
             if not elastic:
                 _world.generations += 1
+                _world.meet_prefix = f"hvd/gen/{_world.generations}"
+            else:
+                from ..elastic import worker as _elastic_worker
+                _world.meet_prefix = (
+                    f"hvd/elastic/{_elastic_worker._current_version}")
         st.rank, st.size = rank, size
         st.local_rank, st.local_size = local_rank, local_size
         st.device = dev

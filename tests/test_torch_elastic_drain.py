@@ -57,13 +57,16 @@ def agent():
                                        **vars(a.stats))
 
 
-hvd.init(device="cpu")
 torch.manual_seed(0)
 model = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
                             torch.nn.Linear(16, 2))
-opt = hvd.DistributedOptimizer(
-    torch.optim.AdamW(model.parameters(), lr=1e-2),
-    named_parameters=model.named_parameters())
+# Before init(): torch's first optimizer imports its compiler stack, which
+# takes seconds on a loaded host, and from init() on the autoscaler reads
+# a fleet with no dispatches as idle.
+inner = torch.optim.AdamW(model.parameters(), lr=1e-2)
+hvd.init(device="cpu")
+opt = hvd.DistributedOptimizer(inner,
+                               named_parameters=model.named_parameters())
 state = hvd.elastic.TorchState(model=model, optimizer=opt, step=0)
 # A rollback (the wrapper's answer to HorovodInternalError) is recorded.
 _restore = state.restore

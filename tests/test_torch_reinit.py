@@ -17,18 +17,25 @@ own timeout, so that a hang fails its case and does not stall the suite:
   generation 1, and an env naming another rank is refused;
 - rank 0 held 2 s before each ``shutdown()`` while rank 1 re-inits at
   once (the race made certain), rank 1 held so while rank 0's coordinator
-  closes under it, and ten launches with no hold;
+  closes under it, and ten times three worlds side by side with no hold;
 - the two-level control plane (``--hierarchical-controller``) on one host
   and on two, its agents bound again each generation;
 - a planted peer fault: the next ``init()`` raises within 10 s;
+- a world that hangs (one rank of two started) reports its rank's stack;
 - a rank whose control link died keeps the world when the peer's leave
   record is in the store or lands there within the wait, and not else;
 - ``resnet_synthetic``, ``torch_mnist`` and ``llama_spmd`` in turn in one
   world, bitwise equal to each run alone in its own launch.
+
+Worlds started together run side by side, each rank on one thread (a host
+of 8 cores ran 8 ranks of 8 threads each, beside the rest of the suite).
+A world killed at its timeout reports every rank's stacks, dumped by the
+worker (``REINIT_TEST_STACKS_AFTER_S``) before the kill.
 """
 
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -42,6 +49,8 @@ WORKER = os.path.join(REPO, "tests", "torch_reinit_worker.py")
 # A world of two takes well under 20 s on its own; the limit only keeps a
 # hung world from holding the suite.
 WORLD_TIMEOUT_S = 120
+# Each rank dumps its stacks this long after it started: before the kill.
+STACKS_AFTER_S = WORLD_TIMEOUT_S - 20
 GENS = 3
 STAGGER_S = 2.0
 EXAMPLES = ("resnet_synthetic", "torch_mnist", "llama_spmd")
@@ -60,15 +69,20 @@ def _ref_cmd(out, *args):
 def _run_all(worlds):
     """Start every ``{key: (cmd, env, out_dir)}`` world at once and wait
     for each under its timeout; ``{key: CompletedProcess}`` (rc None for a
-    world that hung, after it was killed)."""
+    world that hung, after it was killed, with its ranks' stacks in
+    ``stacks``).  Worlds run side by side get one thread a rank."""
     procs = {}
     for key, (cmd, env, out) in worlds.items():
         os.makedirs(out, exist_ok=True)
+        env = dict(env, REINIT_TEST_STACKS_AFTER_S=str(STACKS_AFTER_S))
+        if len(worlds) > 1:
+            env.setdefault("OMP_NUM_THREADS", "1")
         procs[key] = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True,
                                       start_new_session=True)
     done, deadline = {}, time.time() + WORLD_TIMEOUT_S
     for key, proc in procs.items():
+        stacks = ""
         try:
             stdout, stderr = proc.communicate(
                 timeout=max(1.0, deadline - time.time()))
@@ -77,14 +91,19 @@ def _run_all(worlds):
             os.killpg(proc.pid, 9)
             stdout, stderr = proc.communicate()
             rc = None
+            stacks = "".join(
+                f"--- {f.name}\n{f.read_text()}"
+                for f in sorted(pathlib.Path(worlds[key][2]).glob(
+                    "stacks.rank*.txt")))
         done[key] = subprocess.CompletedProcess(proc.args, rc, stdout,
                                                 stderr)
+        done[key].stacks = stacks
     return done
 
 
 def _ok(done):
     assert done.returncode == 0, (done.returncode, done.stdout[-3000:],
-                                  done.stderr[-4000:])
+                                  done.stderr[-4000:], done.stacks)
 
 
 def _load(out):
@@ -178,13 +197,17 @@ def test_torch_reinit_staggered_shutdown(tmp_path, late, ref_generations):
 
 @pytest.mark.parametrize("launch", range(10))
 def test_torch_reinit_repeated_launches(tmp_path, launch, ref_generations):
-    done = _run_all({"port": (_port_cmd(tmp_path, "--gens", "2"),
-                              example_env(), tmp_path)})
-    _ok(done["port"])
-    mine = _load(tmp_path)
+    """Three worlds side by side: the load under which a rank that left a
+    group just made crashed its peer's ``new_group`` (generation 1's
+    mesh, ``_port_stale``)."""
+    outs = {f"port{i}": tmp_path / f"port{i}" for i in range(3)}
+    done = _run_all({key: (_port_cmd(out, "--gens", "2"), example_env(), out)
+                     for key, out in outs.items()})
     theirs = [({k: v for k, v in res.items() if k.startswith(("g0.", "g1."))},
                rec) for res, rec in ref_generations]
-    _assert_equal_results(mine, theirs)
+    for key, out in outs.items():
+        _ok(done[key])
+        _assert_equal_results(_load(out), theirs)
 
 
 @pytest.mark.parametrize("hosts", ["localhost:2", "localhost:1,127.0.0.1:1"],
@@ -227,6 +250,25 @@ def test_torch_reinit_after_peer_fault_raises(tmp_path):
     assert seen["init"] == "RuntimeError", seen
     assert "cannot form again" in seen["message"], seen
     assert seen["init_s"] < 10.0, seen
+
+
+def test_torch_reinit_hung_world_reports_its_stacks(tmp_path, monkeypatch):
+    """A world killed at its timeout shows where each rank waited: here
+    rank 0 of two, started alone, in the world's rendezvous."""
+    from horovod_tpu_torch.common.net import free_ports
+    monkeypatch.setattr(sys.modules[__name__], "WORLD_TIMEOUT_S", 25)
+    monkeypatch.setattr(sys.modules[__name__], "STACKS_AFTER_S", 6)
+    p1, p2 = free_ports(2)
+    env = example_env(
+        HOROVOD_RANK="0", HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK="0",
+        HOROVOD_LOCAL_SIZE="1", HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+        HOROVOD_CONTROLLER_PORT=str(p1), HOROVOD_CONTROLLER_PORT2=str(p2))
+    done = _run_all({"alone": ([sys.executable, WORKER, "port",
+                                str(tmp_path), "--gens", "1"], env,
+                               tmp_path)})["alone"]
+    assert done.returncode is None, (done.returncode, done.stderr[-3000:])
+    assert done.stacks.startswith("--- stacks.rank0.txt"), done.stacks
+    assert "init_process_group" in done.stacks, done.stacks
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,7 @@ Run under a launcher (``python -m horovod_tpu_torch.runner -np 2`` for
     python tests/torch_reinit_worker.py {port|ref} OUT_DIR [--gens N]
     python tests/torch_reinit_worker.py port OUT_DIR --examples NAME,...
     python tests/torch_reinit_worker.py port OUT_DIR --fault
+    python tests/torch_reinit_worker.py port OUT_DIR --race [--held R]
 
 The first form runs N generations, each ``init()``, the collectives of
 :func:`_collectives` on seeded numpy inputs, ``shutdown()``; each rank
@@ -25,7 +26,12 @@ The second form runs the port's examples, each through its ``main(argv)``
 with ``--cpu`` (each example inits and shuts down itself), in turn in one
 world, and writes each one's losses and parameters to
 ``OUT_DIR/<name>.rank<r>.npz``.  The third plants a peer fault
-(:func:`run_fault`).
+(:func:`run_fault`).  The fourth makes a mesh and a process set, destroys
+them and exits at once, one rank held busy (:func:`run_race`).
+
+With ``REINIT_TEST_STACKS_AFTER_S`` in its environment, each rank writes
+every thread's stack to ``OUT_DIR/stacks.rank<r>.txt`` once it has run
+that long, so that a world killed at its timeout shows where it waited.
 """
 
 import argparse
@@ -41,6 +47,11 @@ sys.path.insert(0, REPO)
 
 STAGGER_ENV = "REINIT_TEST_STAGGER_S"
 STAGGER_RANK_ENV = "REINIT_TEST_STAGGER_RANK"
+STACKS_ENV = "REINIT_TEST_STACKS_AFTER_S"
+# How long the held rank of --race shares its core, and with how many
+# spinning processes.
+HOLD_S = 3.0
+SPINNERS = 6
 
 # The examples at the CPU sizes of tests/test_torch_examples_*.py.
 EXAMPLE_ARGS = {
@@ -258,6 +269,53 @@ def run_fault(out_dir):
         json.dump(seen, fh)
 
 
+def _hold_busy():
+    """Pin every thread of this process to one core and start SPINNERS
+    processes spinning on that core for HOLD_S seconds: the process
+    still runs, at a fraction of a core, as a rank of a loaded host does.
+    Returns the spinners."""
+    import subprocess
+    cpu = max(os.sched_getaffinity(0))
+    spin = (f"import os, time\nos.sched_setaffinity(0, {{{cpu}}})\n"
+            f"t = time.time() + {HOLD_S}\nwhile time.time() < t: pass\n")
+    spinners = [subprocess.Popen([sys.executable, "-c", spin])
+                for _ in range(SPINNERS)]
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), {cpu})
+        except OSError:     # a thread that has ended since
+            pass
+    time.sleep(0.2)
+    return spinners
+
+
+def run_race(out_dir, held):
+    """Each rank makes a mesh over the world and a process set of ranks
+    0 and 1, destroys the mesh, shuts down (which destroys the set's
+    group) and exits at once; rank ``held`` shares one core with spinning
+    processes while it makes them, so that its peers finish their own
+    ``new_group`` first.  Each rank writes ``race.rank<r>.json``: its
+    group meets and their seconds (None where the runtime has none)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.common import basics
+    hvd.init(device="cpu")
+    rank, size = hvd.rank(), hvd.size()
+    spinners = _hold_busy() if rank == held else []
+    mesh = parallel.make_mesh({"dp": size})
+    hvd.add_process_set([0, 1])
+    prefix = getattr(basics._world, "meet_prefix", None)
+    mesh.shutdown()
+    hvd.shutdown()
+    for p in spinners:
+        p.kill()
+        p.wait()
+    with open(os.path.join(out_dir, f"race.rank{rank}.json"), "w") as fh:
+        json.dump(dict(meets=getattr(basics._world, "meets", None),
+                       meet_s=getattr(basics._world, "meet_s", None),
+                       prefix=prefix), fh)
+
+
 def _port_refuses_another_rank(hvd, rank, size):
     """``init()`` on the kept world with the env naming the other rank:
     the error's text, or "ran"."""
@@ -299,9 +357,19 @@ def main():
     p.add_argument("--gens", type=int, default=3)
     p.add_argument("--examples", default="")
     p.add_argument("--fault", action="store_true")
+    p.add_argument("--race", action="store_true")
+    p.add_argument("--held", type=int, default=1)
     args = p.parse_args()
+    if os.environ.get(STACKS_ENV):
+        import faulthandler
+        rank = os.environ.get("HOROVOD_RANK", str(os.getpid()))
+        stacks = open(os.path.join(args.out, f"stacks.rank{rank}.txt"), "w")
+        faulthandler.dump_traceback_later(float(os.environ[STACKS_ENV]),
+                                          file=stacks)
     if args.fault:
         run_fault(args.out)
+    elif args.race:
+        run_race(args.out, args.held)
     elif args.examples:
         run_examples(args.out, args.examples.split(","))
     else:
