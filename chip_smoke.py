@@ -4241,13 +4241,14 @@ def e8_phase(torch, layers, seed, card, timeout_s=E8_TIMEOUT_S):
     Returns ``(ok, counts)``."""
     import numpy as np
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from horovod_tpu_torch.common.net import free_ports
-    port, = free_ports(1)
-    flags = [f.replace("{port}", str(port)) for f in E8_FLAGS]
-    results, route, wall = launch_ranks(
-        torch, "--e8-worker", layers, seed, timeout_s, 2, flags,
-        env_extra={"HVD_TPU_SANITIZER": "1"},
-        inspect=lambda tmp: _e8_files(tmp, 2))
+    from horovod_tpu_torch.common.net import reserve_ports
+    with reserve_ports(1) as held:      # until rank 0's monitor binds it
+        port, = held.ports
+        flags = [f.replace("{port}", str(port)) for f in E8_FLAGS]
+        results, route, wall = launch_ranks(
+            torch, "--e8-worker", layers, seed, timeout_s, 2, flags,
+            env_extra={"HVD_TPU_SANITIZER": "1"},
+            inspect=lambda tmp: _e8_files(tmp, 2))
     if results is None:
         E17["a"] = False
         return False, None
@@ -6190,7 +6191,7 @@ def e12_driver(args):
     LEFT, the times of its COMMIT fan-outs and DRAIN pings and its exit
     code into ``<dir>/driver.json``."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from horovod_tpu_torch.common.net import free_ports
+    from horovod_tpu_torch.common.net import reserve_ports
     from horovod_tpu_torch.elastic import driver as drv
     from horovod_tpu_torch.runner import run as prun
     p = _e12_paths(args.e12_driver)
@@ -6238,7 +6239,8 @@ def e12_driver(args):
 
     drv.HostDiscoveryScript = NoticeDiscovery
     drv.ElasticDriver = Recording
-    mon, = free_ports(1)
+    held = reserve_ports(1)             # until the driver ends
+    mon, = held.ports
     argv = ["--host-discovery-script", f"cat {p['hosts']}", "--min-np",
             str(E12_MIN_NP), "--max-np", "3", "--hierarchical-controller",
             "--autoscale", "--autoscale-interval", "1", "--monitor",
@@ -6251,7 +6253,8 @@ def e12_driver(args):
             sys.executable, os.path.abspath(__file__), "--train-layers",
             str(args.train_layers), "--seed", str(args.seed),
             "--e12-worker", args.e12_driver]
-    return drv.run_elastic(prun.parse_args(argv))
+    with held:
+        return drv.run_elastic(prun.parse_args(argv))
 
 
 def e12_worker(args):
@@ -8015,20 +8018,14 @@ def e16_phase(torch, layers, seed, card, timeout_s=E16_TIMEOUT_S):
     restart, its round all 200 and equal across the ranks; (5) the drain:
     the requests in flight 200, the one after it 503.  Returns (ok,
     dict)."""
-    from horovod_tpu_torch.common.net import free_ports
-    import socket
-    for _ in range(50):
-        port, = free_ports(1)
-        with socket.socket() as sk:
-            try:
-                sk.bind(("127.0.0.1", port + 1))
-            except OSError:
-                continue
-        break
-    results, route, wall = launch_ranks(
-        torch, "--e16-worker", layers, seed, timeout_s,
-        launcher_flags=("--serve", "--serve-port", str(port)),
-        env_extra=E16_ENV)
+    from horovod_tpu_torch.common.net import reserve_ports
+    # P and P + 1 held until the front doors bind them.
+    with reserve_ports(2, consecutive=True) as held:
+        port = held.ports[0]
+        results, route, wall = launch_ranks(
+            torch, "--e16-worker", layers, seed, timeout_s,
+            launcher_flags=("--serve", "--serve-port", str(port)),
+            env_extra=E16_ENV)
     if results is None:
         print(f"e16: (b) FAILED ({route}, {wall:.1f} s)", flush=True)
         return False, None

@@ -1,13 +1,16 @@
 # Copied from horovod_tpu/common/net.py:1-140 (jax-free; the port keeps its own copy;
-# free_ports probes below the ephemeral port range).
+# free_ports probes below the ephemeral port range; reserve_ports holds the ports it draws
+# until their listeners have bound them, so launches side by side cannot draw one port).
 """Shared port-selection helpers for launchers/executors.
 
 Two distinct problems, two helpers:
 
-- ``free_ports(n)``: ports free on THIS machine (bind-probed below the
-  ephemeral range, all probes held open so one call can't return
-  duplicates).  Only valid when the service will bind on this same
-  machine.
+- ``reserve_ports(n)``: ports free on THIS machine (bind-probed below the
+  ephemeral range), HELD until the caller releases them: a launcher
+  holds its world's ports until the workers exit, so no other launch can
+  draw them before the world's listeners bind them.  ``free_ports(n)``
+  is a reservation released at once.  Only valid when the service will
+  bind on this same machine.
 - ``remote_ports(n, seed)``: ports for a service that binds on a DIFFERENT
   host, where bind-probing here proves nothing.  Picks from a high range,
   deterministically from ``seed`` so (a) every participant that knows the
@@ -71,34 +74,121 @@ def _ephemeral_start() -> int:
         return 32768
 
 
-def free_ports(n: int) -> List[int]:
-    """``n`` distinct ports free on this machine.  They are drawn at
-    random from below the ephemeral range: the kernel gives no port there
-    to an outgoing connection or to a bind to port 0, so between this
-    probe and the service's own bind only another explicit bind can take
-    one (in the ephemeral range any process's next connect could).  The
-    probes hold their ports without ``SO_REUSEADDR``, so two probes at
-    once never both hold one port.  Where the range leaves no room, or the
-    draws keep failing, the kernel picks (a bind to port 0)."""
-    top = _ephemeral_start()
-    draw = random.SystemRandom()
-    socks = []
-    misses = 0
-    try:
-        while len(socks) < n:
-            s = socket.socket()
-            room = top - _PROBE_FLOOR >= 1024 and misses < 64 * n
-            try:
-                s.bind(("", draw.randrange(_PROBE_FLOOR, top) if room else 0))
-            except OSError:
-                s.close()
-                misses += 1
-                continue
-            socks.append(s)
-        return [s.getsockname()[1] for s in socks]
-    finally:
+class Reservation:
+    """Ports held on this machine, each by two sockets that never listen
+    (``_hold``): a TCP socket bound with ``SO_REUSEADDR``, beside which a
+    listener that sets it too (the coordinator, the world's store, the
+    HTTP servers, the host agent) binds the port, while a probe, which
+    binds without it, cannot; and a lock, an abstract Unix socket named
+    for the port, which another reservation cannot take.  So no draw on
+    this machine takes a held port until ``release()``.  A context
+    manager: the ``with`` block holds the ports."""
+
+    def __init__(self, ports: List[int], socks: List[socket.socket]):
+        self.ports = ports
+        self._socks = socks
+
+    def release(self) -> None:
+        socks, self._socks = self._socks, []
         for s in socks:
             s.close()
+
+    def __enter__(self) -> "Reservation":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+# One reservation a port on this machine: the abstract Unix name a hold binds.
+_LOCK = "\0horovod_tpu_torch.port.{}"
+
+
+def _hold(port: int) -> Optional[Tuple[int, List[socket.socket]]]:
+    """``(port, [lock, holder])`` for ``port`` (0: the kernel picks), or
+    None where it is taken.  The probe binds without ``SO_REUSEADDR`` and
+    so fails wherever any socket holds the port; the lock is taken while
+    the probe still holds it, and the holder binds after the probe closes.
+    The holder sets ``SO_REUSEADDR`` before its bind: some stacks (gVisor)
+    ignore the option set on a socket already bound."""
+    probe = socket.socket()
+    try:
+        probe.bind(("", port))
+    except (OSError, OverflowError):
+        probe.close()
+        return None
+    port = probe.getsockname()[1]
+    lock = socket.socket(socket.AF_UNIX)
+    try:
+        lock.bind(_LOCK.format(port))
+    except OSError:
+        lock.close()
+        probe.close()
+        return None
+    probe.close()
+    holder = socket.socket()
+    holder.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        holder.bind(("", port))
+    except OSError:
+        holder.close()
+        lock.close()
+        return None
+    return port, [lock, holder]
+
+
+def reserve_ports(n: int, consecutive: bool = False) -> Reservation:
+    """``n`` distinct ports free on this machine, held until released
+    (``consecutive``: one run ``p .. p + n - 1``).  They are drawn at
+    random from below the ephemeral range: the kernel gives no port there
+    to an outgoing connection or to a bind to port 0, so only another
+    explicit bind could take one, and the hold refuses every bind but a
+    listener's.  Where the range leaves no room, or the draws keep
+    failing, the kernel picks (a bind to port 0)."""
+    top = _ephemeral_start()
+    draw = random.SystemRandom()
+    step = n if consecutive else 1
+    ports: List[int] = []
+    socks: List[socket.socket] = []
+    misses = 0
+    try:
+        while len(ports) < n:
+            room = top - _PROBE_FLOOR >= 1024 and misses < 64 * n
+            if not room and misses >= 128 * n:
+                raise OSError(f"no run of {step} free ports on this machine")
+            port = draw.randrange(_PROBE_FLOOR, top - step + 1) if room else 0
+            run: List[int] = []
+            held: List[socket.socket] = []
+            while len(run) < step:
+                got = _hold(port)
+                if got is None:
+                    break
+                run.append(got[0])
+                held += got[1]
+                port = got[0] + 1
+            if len(run) < step:
+                for s in held:
+                    s.close()
+                misses += 1
+                continue
+            ports += run
+            socks += held
+    except BaseException:
+        for s in socks:
+            s.close()
+        raise
+    return Reservation(ports, socks)
+
+
+def free_ports(n: int) -> List[int]:
+    """``n`` distinct ports free on this machine, drawn as
+    ``reserve_ports`` draws them and released on return: a service that
+    binds one later has no hold to protect it, so a launch that starts
+    other processes before their listeners bind takes a reservation
+    instead.  Two probes at once never both take one port, and a port a
+    reservation holds is never returned."""
+    with reserve_ports(n) as held:
+        return held.ports
 
 
 def remote_ports(n: int, seed: int) -> List[int]:

@@ -35,8 +35,8 @@ from ..utils.logging import get_logger
 log = get_logger()
 
 
-from ..common.net import free_ports as _free_ports  # noqa: E402
 from ..common.net import is_local_host, remote_ports  # noqa: E402
+from ..common.net import reserve_ports  # noqa: E402
 
 
 class ElasticDriver:
@@ -119,6 +119,13 @@ class ElasticDriver:
         self._hier = str(raw_hier).strip().lower() in (
             "1", "true", "yes", "on")
         self._agent_ports: Dict[str, int] = {}
+        # The live generation's local ports, held until the next
+        # generation replaces it (``_held``), and those of the assignments
+        # computed last, held until published or dropped (``_drawn``): a
+        # launch beside this driver cannot draw them before the ranks and
+        # agents bind them.
+        self._held = reserve_ports(0)
+        self._drawn = reserve_ports(0)
 
         self.registry = WorkerStateRegistry()
         self.rendezvous = RendezvousServer()
@@ -215,13 +222,10 @@ class ElasticDriver:
         # allocated on the host's first generation and reused for every
         # later one — the generation-surviving HostAgent holds the listen
         # socket across re-rendezvous, so the port must never churn.
-        # New LOCAL agent ports are allocated in the SAME free_ports call
-        # as the controller ports: probing them separately would close
-        # the controller probes first, and the kernel may hand the agent
-        # the just-freed controller port — a same-process EADDRINUSE on
-        # the rank-0 host.  (Already-cached agent ports can't collide:
-        # their agents still hold the listeners, so free_ports skips
-        # them.)
+        # New LOCAL agent ports are drawn in the SAME reservation as the
+        # controller ports, which holds them until the generation is
+        # replaced.  (Already-cached agent ports can't collide: their
+        # agents still hold the listeners, so a draw skips them.)
         new_local_agents = []
         if self._hier:
             for hn in hosts_in_use:
@@ -232,16 +236,16 @@ class ElasticDriver:
                         (ap,) = remote_ports(
                             1, 7919 + len(self._agent_ports))
                         self._agent_ports[hn] = ap
-        if is_local_host(coord_host):
-            ports = _free_ports(2 + len(new_local_agents))
+        local_coord = is_local_host(coord_host)
+        self._drawn.release()
+        self._drawn = reserve_ports(2 * local_coord + len(new_local_agents))
+        ports = self._drawn.ports
+        if local_coord:
             p1, p2 = ports[0], ports[1]
-            for hn, ap in zip(new_local_agents, ports[2:]):
-                self._agent_ports[hn] = ap
         else:
             p1, p2 = remote_ports(2, self.rendezvous.version + 1)
-            for hn in new_local_agents:
-                (ap,) = _free_ports(1)
-                self._agent_ports[hn] = ap
+        for hn, ap in zip(new_local_agents, ports[2 * local_coord:]):
+            self._agent_ports[hn] = ap
         assignments = {}
         for rank, (hn, lr) in enumerate(slots):
             assignments[f"{hn}:{lr}"] = {
@@ -360,9 +364,12 @@ class ElasticDriver:
 
     def _new_generation(self, hosts: List[DiscoveredHost]) -> bool:
         assignments = self.compute_assignments(hosts)
+        drawn, self._drawn = self._drawn, reserve_ports(0)
         if not assignments:
+            drawn.release()
             return False
         if self._same_layout(assignments):
+            drawn.release()
             # No-op regeneration guard: the active membership
             # and rank layout are IDENTICAL to the live generation — the
             # only delta would be freshly-allocated controller ports.
@@ -380,6 +387,8 @@ class ElasticDriver:
                     self._spawn(identity, a)
             return True
         self._assigned = assignments
+        self._held.release()
+        self._held = drawn
         if self._rdv_addr_explicit is None:
             from ..common.net import routable_addr
             self._rdv_addr = ("127.0.0.1"
@@ -912,6 +921,7 @@ class ElasticDriver:
         self._procs.clear()
         for identity in list(self._out_files):
             self._close_out_files(identity)
+        self._held.release()
         self.rendezvous.stop()
 
 

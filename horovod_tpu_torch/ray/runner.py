@@ -61,6 +61,9 @@ class RayExecutor:
         self.env_vars = dict(env_vars or {})
         self.workers: List[Any] = []
         self._allocations: List[_strategy.Allocation] = []
+        # The coordinator's ports, held from start() to shutdown() when it
+        # is this machine (common/net.py reserve_ports).
+        self._held = None
 
     # ------------------------------------------------------------ placement
     def compute_placement(self, nodes) -> List[_strategy.Allocation]:
@@ -106,7 +109,7 @@ class RayExecutor:
         ray = _require_ray()
         from ray.util.scheduling_strategies import (
             NodeAffinitySchedulingStrategy)
-        from ..common.net import free_ports, is_local_host, remote_ports
+        from ..common.net import is_local_host, remote_ports, reserve_ports
 
         live = [n for n in ray.nodes() if n.get("Alive")]
         nodes = [
@@ -121,8 +124,11 @@ class RayExecutor:
         # Ports must be free on the COORDINATOR node, not the driver; when
         # it is a different machine bind-probing here proves nothing.
         coord_host = allocations[0].hostname
-        ports = (free_ports(2) if is_local_host(coord_host)
-                 else remote_ports(2, os.getpid()))
+        if is_local_host(coord_host):
+            self._held = reserve_ports(2)
+            ports = self._held.ports
+        else:
+            ports = remote_ports(2, os.getpid())
         coord = (coord_host, *ports)
 
         @ray.remote(num_cpus=self.cpus_per_worker)
@@ -158,6 +164,9 @@ class RayExecutor:
         return ray.get([w.execute.remote(fn) for w in self.workers])
 
     def shutdown(self):
+        if self._held is not None:
+            self._held.release()
+            self._held = None
         if not self.workers:
             return
         ray = _require_ray()

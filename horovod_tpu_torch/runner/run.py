@@ -442,11 +442,6 @@ def placement(args) -> List[HostSpec]:
     return hosts
 
 
-def _free_ports(n: int) -> List[int]:
-    from ..common.net import free_ports
-    return free_ports(n)
-
-
 def _is_loopback(hostname: str) -> bool:
     return hostname == "localhost" or hostname.startswith("127.")
 
@@ -662,47 +657,48 @@ def launch_workers(args, hosts: List[HostSpec],
     ``addrs`` (from the bootstrap probe phase) overrides the coordinator
     address with host 0's resolved control-plane address — this is what
     makes ``--network-interface`` actually select the control plane."""
-    from ..common.net import is_local_host
+    from ..common.net import is_local_host, reserve_ports
     # Hierarchical control plane: one extra port per host for its
     # aggregation agent.  Bind-probed HERE only for local/loopback hosts
     # — a port free on the launcher proves nothing on a remote host, so
     # remote hosts get NO injection and derive their own from the
     # controller port and their host index (common/basics.py).
-    agent_ports = None
-    if getattr(args, "hierarchical_controller", False):
-        local_hosts = [is_local_host(h.hostname) for h in hosts]
-        probed = iter(_free_ports(2 + sum(local_hosts)))
+    hier = getattr(args, "hierarchical_controller", False)
+    local_hosts = [is_local_host(h.hostname) for h in hosts] if hier else []
+    # The ports stay held until the workers exit, so a launch beside this
+    # one cannot draw them before rank 0 and the agents bind them.
+    with reserve_ports(2 + sum(local_hosts)) as held:
+        probed = iter(held.ports)
         ports = [next(probed), next(probed)]
-        agent_ports = [next(probed) if loc else None for loc in local_hosts]
-    else:
-        ports = _free_ports(2)
-    if addrs:
-        coord_host = addrs[hosts[0].hostname]
-    else:
-        coord_host = (hosts[0].hostname if hosts[0].hostname != "localhost"
-                      else "127.0.0.1")
-    coord = (coord_host, ports[0], ports[1])
-    envs = worker_envs(args, hosts, coord, agent_ports=agent_ports)
-    procs: List[subprocess.Popen] = []
-    for rank, env in enumerate(envs):
-        host = env["HOROVOD_HOSTNAME"]
-        full_env = {**os.environ, **env}
-        stdout = stderr = None
-        if args.output_filename:
-            d = os.path.join(args.output_filename, f"rank.{rank}")
-            os.makedirs(d, exist_ok=True)
-            stdout = open(os.path.join(d, "stdout"), "w")
-            stderr = open(os.path.join(d, "stderr"), "w")
-        if is_local_host(host):
-            proc = subprocess.Popen(args.command, env=full_env,
-                                    stdout=stdout, stderr=stderr)
+        agent_ports = ([next(probed) if loc else None for loc in local_hosts]
+                       if hier else None)
+        if addrs:
+            coord_host = addrs[hosts[0].hostname]
         else:
-            cmd = ssh_command(host, env, args.command, args.ssh_port,
-                              args.ssh_identity_file)
-            proc = subprocess.Popen(cmd, env=os.environ.copy(),
-                                    stdout=stdout, stderr=stderr)
-        procs.append(proc)
-    return wait_and_reap(procs)
+            coord_host = (hosts[0].hostname if hosts[0].hostname != "localhost"
+                          else "127.0.0.1")
+        coord = (coord_host, ports[0], ports[1])
+        envs = worker_envs(args, hosts, coord, agent_ports=agent_ports)
+        procs: List[subprocess.Popen] = []
+        for rank, env in enumerate(envs):
+            host = env["HOROVOD_HOSTNAME"]
+            full_env = {**os.environ, **env}
+            stdout = stderr = None
+            if args.output_filename:
+                d = os.path.join(args.output_filename, f"rank.{rank}")
+                os.makedirs(d, exist_ok=True)
+                stdout = open(os.path.join(d, "stdout"), "w")
+                stderr = open(os.path.join(d, "stderr"), "w")
+            if is_local_host(host):
+                proc = subprocess.Popen(args.command, env=full_env,
+                                        stdout=stdout, stderr=stderr)
+            else:
+                cmd = ssh_command(host, env, args.command, args.ssh_port,
+                                  args.ssh_identity_file)
+                proc = subprocess.Popen(cmd, env=os.environ.copy(),
+                                        stdout=stdout, stderr=stderr)
+            procs.append(proc)
+        return wait_and_reap(procs)
 
 
 def main(argv: Sequence[str]) -> int:

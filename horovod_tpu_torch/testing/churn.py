@@ -460,15 +460,16 @@ class ChurnRunner:
     def run(self) -> dict:
         from ..common.host_agent import HostAgent
         from ..common.native import load as _load
-        from ..common.net import free_ports
+        from ..common.net import reserve_ports
 
         lib = _load()
         if self._needs_state and not self._planes:
             self._state_setup()
-        (port,) = free_ports(1)
-        server = lib.hvdtpu_server_start(
-            port, self.world, ctypes.c_double(600.0), 2048,
-            self.round_deadline_ms, 0, 0)
+        with reserve_ports(1) as held:
+            (port,) = held.ports
+            server = lib.hvdtpu_server_start(
+                port, self.world, ctypes.c_double(600.0), 2048,
+                self.round_deadline_ms, 0, 0)
         if not server:
             raise RuntimeError(f"churn server failed to start on {port}")
         agents: List[HostAgent] = []

@@ -25,7 +25,7 @@ import torch
 from horovod_tpu.common.controller import TCPController as JaxController
 from horovod_tpu.ops import engine as jax_engine
 from horovod_tpu_torch.common.controller import TCPController
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.ops import engine as port_engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,30 +52,31 @@ class JE:
 def _pair(fn, cls0=TCPController, cls1=TCPController):
     """Run ``fn(ctl, rank)`` on two connected controller clients (rank 0
     hosts the server and keeps it alive until rank 1 finishes)."""
-    port, = free_ports(1)
-    results, errors = {}, {}
-    peer_done = threading.Event()
+    with reserve_ports(1) as held:
+        port, = held.ports
+        results, errors = {}, {}
+        peer_done = threading.Event()
 
-    def worker(rank):
-        cls = cls0 if rank == 0 else cls1
-        ctl = cls("127.0.0.1", port, rank=rank, world=2, stall_warn_s=60.0,
-                  cache_capacity=2048)
-        try:
-            results[rank] = fn(ctl, rank)
-        except Exception as exc:  # noqa: BLE001 - surfaced by the assert
-            errors[rank] = exc
-        finally:
-            if rank == 1:
-                peer_done.set()
-                ctl.shutdown()
-            else:
-                peer_done.wait(timeout=20)
-                ctl.shutdown()
+        def worker(rank):
+            cls = cls0 if rank == 0 else cls1
+            ctl = cls("127.0.0.1", port, rank=rank, world=2, stall_warn_s=60.0,
+                      cache_capacity=2048)
+            try:
+                results[rank] = fn(ctl, rank)
+            except Exception as exc:  # noqa: BLE001 - surfaced by the assert
+                errors[rank] = exc
+            finally:
+                if rank == 1:
+                    peer_done.set()
+                    ctl.shutdown()
+                else:
+                    peer_done.wait(timeout=20)
+                    ctl.shutdown()
 
-    t1 = threading.Thread(target=worker, args=(1,), daemon=True)
-    t1.start()
-    worker(0)
-    t1.join(timeout=20)
+        t1 = threading.Thread(target=worker, args=(1,), daemon=True)
+        t1.start()
+        worker(0)
+        t1.join(timeout=20)
     assert not errors, errors
     assert set(results) == {0, 1}, results
     return results

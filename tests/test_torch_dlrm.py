@@ -5,7 +5,8 @@ In this process, ep off: the forward, the loss and every gradient against
 atol 2e-5), ``synthetic_batch`` bytewise, and a rank's tables drawn alone
 (``tables=``) equal to the same rows of the whole draw.
 
-Two gloo worlds, of 2 and 4 processes (side by side), train the port two
+Two gloo worlds, of 2 and 4 processes (side by side, one thread a rank;
+a rank's stacks are in its log where a world outlives its limit), train the port two
 SGD(0.1) steps at (ep, dp) = (2, 1), (4, 1) and (2, 2), each rank its
 block of the batch (dp major, ep fastest), against
 ``tests/test_models.py::test_dlrm_sharded_matches_reference``'s unsharded
@@ -17,9 +18,11 @@ the port's launcher.
 import functools
 import os
 import pickle
+import signal
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +32,7 @@ import pytest
 import torch
 
 from horovod_tpu.models import dlrm as jd
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.models import dlrm as td
 from horovod_tpu_torch.models import llama as tl
 
@@ -67,7 +70,8 @@ def _reference_run():
 
 
 _WORKER = textwrap.dedent("""
-    import pickle, sys
+    import faulthandler, pickle, signal, sys
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     import numpy as np, torch
     sys.path.insert(0, sys.argv[1])
     import horovod_tpu_torch as hvd
@@ -117,7 +121,7 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-def _start(tmp, n):
+def _start(tmp, n, port, port2):
     cfg = jd.tiny(dp_axis=None, ep_axis=None)
     job = dict(params=_jax_params(), batch=jd.synthetic_batch(cfg, 16),
                meshes=MESHES[n])
@@ -125,14 +129,14 @@ def _start(tmp, n):
         pickle.dump(job, fh)
     script = tmp / "dlrm.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
     procs = []
     for r in range(n):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
                    HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE=str(n),
                    HOROVOD_CONTROLLER_ADDR="127.0.0.1",
                    HOROVOD_CONTROLLER_PORT=str(port),
-                   HOROVOD_CONTROLLER_PORT2=str(port2))
+                   HOROVOD_CONTROLLER_PORT2=str(port2),
+                   OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen(
             [sys.executable, str(script), REPO, str(tmp / "job.pkl"),
              str(tmp / "out")], env=env, stdout=subprocess.PIPE,
@@ -141,12 +145,22 @@ def _start(tmp, n):
 
 
 def _collect(tmp, procs):
-    logs = []
-    for p in procs:
-        try:
-            logs.append(p.communicate(timeout=240)[0])
-        finally:
+    logs = {}
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(timeout=240)[0]
+    except subprocess.TimeoutExpired:
+        # Each rank's stacks before the kill: what the world waited on.
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGUSR1)
+        time.sleep(2)
+    finally:
+        for r, p in enumerate(procs):
             p.kill()
+            if r not in logs:
+                logs[r] = p.communicate()[0]
+    logs = [logs[r] for r in range(len(procs))]
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, log
         assert f"DLRM_OK {r}" in log, log
@@ -161,14 +175,17 @@ def _collect(tmp, procs):
 def worlds(tmp_path_factory):
     tmps = {n: tmp_path_factory.mktemp(f"dlrm{n}") for n in (2, 4)}
     procs = {}
+    # One reservation for both worlds, held until they exit.
+    held = reserve_ports(4)
     try:
-        for n in (2, 4):
-            procs[n] = _start(tmps[n], n)
+        for n, ports in ((2, held.ports[:2]), (4, held.ports[2:])):
+            procs[n] = _start(tmps[n], n, *ports)
         return {n: _collect(tmps[n], procs[n]) for n in (2, 4)}
     finally:
         for ps in procs.values():
             for p in ps:
                 p.kill()
+        held.release()
 
 
 # ------------------------------------------------------------- ep off

@@ -38,7 +38,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.common.config import Config
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.common.process_sets import ProcessSetTable
 from horovod_tpu_torch.ops import engine as port_engine
 from horovod_tpu_torch.ops import fusion
@@ -237,24 +237,25 @@ def gloo_world(tmp_path_factory):
         pickle.dump(ins, fh)
     script = tmp / "dtypes.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
-    procs = []
-    for r in range(2):
-        env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
-                   HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
-                   HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                   HOROVOD_CONTROLLER_PORT=str(port),
-                   HOROVOD_CONTROLLER_PORT2=str(port2))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(script), REPO, str(tmp / "ins.pkl"),
-             str(tmp / "out")], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    logs = []
-    for p in procs:
-        try:
-            logs.append(p.communicate(timeout=90)[0])
-        finally:
-            p.kill()
+    with reserve_ports(2) as held:
+        port, port2 = held.ports
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
+                       HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
+                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                       HOROVOD_CONTROLLER_PORT=str(port),
+                       HOROVOD_CONTROLLER_PORT2=str(port2))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), REPO, str(tmp / "ins.pkl"),
+                 str(tmp / "out")], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=90)[0])
+            finally:
+                p.kill()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, log
         assert f"DTYPES_OK {r}" in log, log

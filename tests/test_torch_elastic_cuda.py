@@ -49,12 +49,14 @@ def test_torch_state_round_trip_of_cuda_tensors(cuda_device):
 @pytest.mark.cuda
 def test_torch_nccl_world_aborts_and_forms_again(cuda_device):
     import torch.distributed as dist
-    from horovod_tpu_torch.common.net import free_ports
+    from horovod_tpu_torch.common.net import reserve_ports
     from horovod_tpu_torch.elastic import worker
     torch.cuda.set_device(cuda_device)
     for _ in range(2):
-        (port,) = free_ports(1)
-        worker.init_distributed_resilient("nccl", "127.0.0.1", port, 1, 0)
+        with reserve_ports(1) as held:
+            (port,) = held.ports
+            worker.init_distributed_resilient("nccl", "127.0.0.1", port, 1,
+                                              0)
         t = torch.ones(1024, device=cuda_device)
         dist.all_reduce(t)
         torch.cuda.synchronize()

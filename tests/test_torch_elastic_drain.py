@@ -29,7 +29,7 @@ import sys
 
 import numpy as np
 
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -253,23 +253,26 @@ def _check_gen1(logs, size):
 
 def test_torch_autoscale_scales_an_idle_fleet_in(tmp_path):
     out, hosts, env = _setup(tmp_path)
-    mon, = free_ports(1)
-    scaled = tmp_path / "scaled"
-    env.update(HOROVOD_AUTOSCALE_IDLE_S="3", HOROVOD_AUTOSCALE_PERSISTENCE="2",
-               HOROVOD_AUTOSCALE_COOLDOWN="1",
-               HOROVOD_AUTOSCALE_STRAGGLER_FACTOR="50")
-    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner",
-           "--host-discovery-script", f"cat {hosts}", "--min-np", "1",
-           "--max-np", "2", "--hierarchical-controller", "--autoscale",
-           "--autoscale-interval", "0.5", "--monitor-port", str(mon),
-           "--monitor-interval", "0.5", "--ckpt-dir", str(tmp_path / "ckpt"),
-           "--commit-max-age-s", "600", "--scale-command",
-           f'echo "$HVD_AUTOSCALE_ACTION $HVD_AUTOSCALE_HOST" >> {scaled}',
-           "-v", "--output-filename", str(tmp_path / "logs"),
-           sys.executable, str(tmp_path / "worker.py"), str(out), "autoscale",
-           str(tmp_path / "notice"), str(hosts)]
-    res = subprocess.run(cmd, cwd=str(tmp_path), env=env, capture_output=True,
-                         text=True, timeout=150)
+    with reserve_ports(1) as held:
+        mon, = held.ports
+        scaled = tmp_path / "scaled"
+        env.update(HOROVOD_AUTOSCALE_IDLE_S="3",
+                   HOROVOD_AUTOSCALE_PERSISTENCE="2",
+                   HOROVOD_AUTOSCALE_COOLDOWN="1",
+                   HOROVOD_AUTOSCALE_STRAGGLER_FACTOR="50")
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner",
+               "--host-discovery-script", f"cat {hosts}", "--min-np", "1",
+               "--max-np", "2", "--hierarchical-controller", "--autoscale",
+               "--autoscale-interval", "0.5", "--monitor-port", str(mon),
+               "--monitor-interval", "0.5", "--ckpt-dir",
+               str(tmp_path / "ckpt"),
+               "--commit-max-age-s", "600", "--scale-command",
+               f'echo "$HVD_AUTOSCALE_ACTION $HVD_AUTOSCALE_HOST" >> {scaled}',
+               "-v", "--output-filename", str(tmp_path / "logs"),
+               sys.executable, str(tmp_path / "worker.py"), str(out),
+               "autoscale", str(tmp_path / "notice"), str(hosts)]
+        res = subprocess.run(cmd, cwd=str(tmp_path), env=env,
+                             capture_output=True, text=True, timeout=150)
     text = res.stderr + _stderr(tmp_path / "logs")
     assert res.returncode == 0, text[-6000:]
     logs = _logs(out)

@@ -43,7 +43,7 @@ from horovod_tpu.models import llama as jl
 from horovod_tpu.ops import collectives as jax_C
 from horovod_tpu.ops import engine as jax_engine
 from horovod_tpu_torch.common.config import Config
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.common.process_sets import ProcessSetTable
 from horovod_tpu_torch.models import llama as tl
 from horovod_tpu_torch.ops import collectives as C
@@ -450,25 +450,26 @@ def test_torch_engine_two_process_gloo(tmp_path):
         pickle.dump(jax.tree_util.tree_map(np.asarray, jparams), fh)
     script = tmp_path / "engine2.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
-    t0 = time.monotonic()
-    procs = []
-    for r in range(2):
-        env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
-                   HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
-                   HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                   HOROVOD_CONTROLLER_PORT=str(port),
-                   HOROVOD_CONTROLLER_PORT2=str(port2))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(script), REPO, str(tmp_path),
-             str(tmp_path / "params.pkl")], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    outs = []
-    for p in procs:
-        try:
-            outs.append(p.communicate(timeout=90)[0])
-        finally:
-            p.kill()
+    with reserve_ports(2) as held:
+        port, port2 = held.ports
+        t0 = time.monotonic()
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
+                       HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
+                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                       HOROVOD_CONTROLLER_PORT=str(port),
+                       HOROVOD_CONTROLLER_PORT2=str(port2))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), REPO, str(tmp_path),
+                 str(tmp_path / "params.pkl")], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=90)[0])
+            finally:
+                p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, out
         assert f"ENGINE2_OK {r}" in out, out

@@ -102,16 +102,17 @@ def test_torch_meet_returns_once_the_last_rank_arrives(monkeypatch,
 
     import torch.distributed as dist
     from horovod_tpu_torch.common import basics
-    from horovod_tpu_torch.common.net import free_ports
-    port = free_ports(1)[0]
-    local = threading.local()
-    monkeypatch.setattr(basics, "_default_store", lambda: local.store)
-    stores = [dist.TCPStore("127.0.0.1", port, 3, True,
-                            timeout=timedelta(seconds=10),
-                            wait_for_workers=False)]
-    stores += [dist.TCPStore("127.0.0.1", port, 3, False,
-                             timeout=timedelta(seconds=10))
-               for _ in range(2)]
+    from horovod_tpu_torch.common.net import reserve_ports
+    with reserve_ports(1) as held:
+        port, = held.ports
+        local = threading.local()
+        monkeypatch.setattr(basics, "_default_store", lambda: local.store)
+        stores = [dist.TCPStore("127.0.0.1", port, 3, True,
+                                timeout=timedelta(seconds=10),
+                                wait_for_workers=False)]
+        stores += [dist.TCPStore("127.0.0.1", port, 3, False,
+                                 timeout=timedelta(seconds=10))
+                   for _ in range(2)]
     order = [1, 2, 0] if host_last else [0, 1, 2]
     t0 = time.perf_counter()
     returned, errors = {}, []

@@ -34,7 +34,7 @@ from horovod_tpu_torch.common.controller import TCPController as PController
 from horovod_tpu_torch.common.exceptions import (
     HorovodInternalError, PeerFailureError,
 )
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 
 AGENTS = {"jax": jagent, "torch": pagent}
 
@@ -188,39 +188,40 @@ def run_hier(hosts, fn, agents="torch", ctls="torch", round_timeout_s=0.0,
     each host gets a real agent of package ``agents``, every rank a
     controller of package ``ctls``; rank 0 hosts the native root."""
     world = sum(len(h) for h in hosts)
-    root_port, = free_ports(1)
-    mod = AGENTS[agents]
-    ags = [mod.HostAgent(0, "127.0.0.1", root_port, ranks, host_index=i,
-                         connect_timeout_ms=20000).start()
-           for i, ranks in enumerate(hosts)]
-    agent_of = {r: a for a, ranks in zip(ags, hosts) for r in ranks}
-    cls, entry = CTLS[ctls]
-    results, errors = {}, {}
-    all_done = threading.Event()
+    with reserve_ports(1) as held:
+        root_port, = held.ports
+        mod = AGENTS[agents]
+        ags = [mod.HostAgent(0, "127.0.0.1", root_port, ranks, host_index=i,
+                             connect_timeout_ms=20000).start()
+               for i, ranks in enumerate(hosts)]
+        agent_of = {r: a for a, ranks in zip(ags, hosts) for r in ranks}
+        cls, entry = CTLS[ctls]
+        results, errors = {}, {}
+        all_done = threading.Event()
 
-    def worker(rank):
-        ctl = cls("127.0.0.1", agent_of[rank].port, rank=rank, world=world,
-                  stall_warn_s=60.0, round_timeout_s=round_timeout_s,
-                  server_port=root_port if rank == 0 else None)
-        try:
-            results[rank] = fn(ctl, rank, entry)
-        except Exception as exc:  # noqa: BLE001 - surfaced by the assert
-            errors[rank] = exc
-        finally:
-            if len(results) + len(errors) == world:
-                all_done.set()
-            all_done.wait(timeout=30)
-            ctl.shutdown()
+        def worker(rank):
+            ctl = cls("127.0.0.1", agent_of[rank].port, rank=rank, world=world,
+                      stall_warn_s=60.0, round_timeout_s=round_timeout_s,
+                      server_port=root_port if rank == 0 else None)
+            try:
+                results[rank] = fn(ctl, rank, entry)
+            except Exception as exc:  # noqa: BLE001 - surfaced by the assert
+                errors[rank] = exc
+            finally:
+                if len(results) + len(errors) == world:
+                    all_done.set()
+                all_done.wait(timeout=30)
+                ctl.shutdown()
 
-    threads = [threading.Thread(target=worker, args=(r,), daemon=True)
-               for h in hosts for r in h if r != 0]
-    for t in threads:
-        t.start()
-    worker(0)
-    for t in threads:
-        t.join(timeout=30)
-    for a in ags:
-        a.stop()
+        threads = [threading.Thread(target=worker, args=(r,), daemon=True)
+                   for h in hosts for r in h if r != 0]
+        for t in threads:
+            t.start()
+        worker(0)
+        for t in threads:
+            t.join(timeout=30)
+        for a in ags:
+            a.stop()
     if not expect_errors:
         assert not errors, errors
         assert len(results) == world, sorted(results)
@@ -264,52 +265,54 @@ def test_torch_agent_serves_generations():
     then three (grown), then one (shrunk), each against a fresh native
     root; cumulative stats, ``generations == 3``, the warm aggregate in
     the multi-rank ones."""
-    ports = free_ports(3)
-    agent = pagent.HostAgent(0, "127.0.0.1", ports[0], [0, 1], host_index=0,
-                             connect_timeout_ms=20000).start()
-    stable = agent.port
+    with reserve_ports(3) as held:
+        ports = held.ports
+        agent = pagent.HostAgent(0, "127.0.0.1", ports[0], [0, 1],
+                                 host_index=0,
+                                 connect_timeout_ms=20000).start()
+        stable = agent.port
 
-    def generation(world, root_port):
-        results, errors = {}, {}
-        all_done = threading.Event()
+        def generation(world, root_port):
+            results, errors = {}, {}
+            all_done = threading.Event()
 
-        def worker(rank):
-            ctl = PController("127.0.0.1", stable, rank=rank, world=world,
-                              stall_warn_s=60.0,
-                              server_port=root_port if rank == 0 else None)
-            try:
-                results[rank] = _steps(ctl, lambda: [PE("g")], 3)
-                assert ctl.leave() is True
-            except Exception as exc:  # noqa: BLE001
-                errors[rank] = exc
-            finally:
-                if len(results) + len(errors) == world:
-                    all_done.set()
-                all_done.wait(timeout=20)
-                ctl.shutdown()
+            def worker(rank):
+                ctl = PController("127.0.0.1", stable, rank=rank, world=world,
+                                  stall_warn_s=60.0,
+                                  server_port=root_port if rank == 0 else None)
+                try:
+                    results[rank] = _steps(ctl, lambda: [PE("g")], 3)
+                    assert ctl.leave() is True
+                except Exception as exc:  # noqa: BLE001
+                    errors[rank] = exc
+                finally:
+                    if len(results) + len(errors) == world:
+                        all_done.set()
+                    all_done.wait(timeout=20)
+                    ctl.shutdown()
 
-        threads = [threading.Thread(target=worker, args=(r,), daemon=True)
-                   for r in range(1, world)]
-        for t in threads:
-            t.start()
-        worker(0)
-        for t in threads:
-            t.join(timeout=20)
-        assert not errors, errors
-        assert len({tuple(o) for o in results.values()}) == 1, results
+            threads = [threading.Thread(target=worker, args=(r,), daemon=True)
+                       for r in range(1, world)]
+            for t in threads:
+                t.start()
+            worker(0)
+            for t in threads:
+                t.join(timeout=20)
+            assert not errors, errors
+            assert len({tuple(o) for o in results.values()}) == 1, results
 
-    generation(2, ports[0])
-    agent.end_generation()
-    agg1 = agent.stats.agg_rounds
-    agent.new_generation("127.0.0.1", ports[1], [0, 1, 2], host_index=0)
-    assert agent.port == stable
-    generation(3, ports[1])
-    agent.end_generation()
-    agg2 = agent.stats.agg_rounds
-    agent.new_generation("127.0.0.1", ports[2], [0], host_index=0)
-    assert agent.ranks == [0]
-    generation(1, ports[2])
-    agent.stop()
+        generation(2, ports[0])
+        agent.end_generation()
+        agg1 = agent.stats.agg_rounds
+        agent.new_generation("127.0.0.1", ports[1], [0, 1, 2], host_index=0)
+        assert agent.port == stable
+        generation(3, ports[1])
+        agent.end_generation()
+        agg2 = agent.stats.agg_rounds
+        agent.new_generation("127.0.0.1", ports[2], [0], host_index=0)
+        assert agent.ranks == [0]
+        generation(1, ports[2])
+        agent.stop()
     assert agent.stats.generations == 3, vars(agent.stats)
     assert 0 < agg1 < agg2, vars(agent.stats)
     assert agent.error is None, agent.error

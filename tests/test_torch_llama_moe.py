@@ -37,7 +37,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from horovod_tpu.compat import shard_map
 from horovod_tpu.models import llama as jl
 from horovod_tpu.parallel import spmd
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.models import llama as tl
 from horovod_tpu_torch.parallel import expert
 
@@ -155,7 +155,7 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-def _start(tmp, n):
+def _start(tmp, n, port, port2):
     job = dict(params={a: _jax_params(a) for a in (False, True)},
                kw={False: BASE, True: AUX}, data=_data(),
                runs=[(m, a) for m in MESHES[n] for a in (False, True)])
@@ -163,7 +163,6 @@ def _start(tmp, n):
         pickle.dump(job, fh)
     script = tmp / "llama_moe.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
     procs = []
     for r in range(n):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
@@ -199,14 +198,17 @@ def _collect(tmp, procs):
 def worlds(tmp_path_factory):
     tmps = {n: tmp_path_factory.mktemp(f"llama_moe{n}") for n in (2, 4)}
     procs = {}
+    # One reservation for both worlds, held until they exit.
+    held = reserve_ports(4)
     try:
-        for n in (2, 4):
-            procs[n] = _start(tmps[n], n)
+        for n, ports in ((2, held.ports[:2]), (4, held.ports[2:])):
+            procs[n] = _start(tmps[n], n, *ports)
         return {n: _collect(tmps[n], procs[n]) for n in (2, 4)}
     finally:
         for ps in procs.values():
             for p in ps:
                 p.kill()
+        held.release()
 
 
 def _is_slab(name):

@@ -45,7 +45,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from horovod_tpu.compat import shard_map
 from horovod_tpu.models import moe as jm
 from horovod_tpu.parallel import spmd
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.models import moe as tm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -238,7 +238,7 @@ def _ffn_jobs():
     return jobs
 
 
-def _start(tmp, n):
+def _start(tmp, n, port, port2):
     lm_kw = {False: dict(vocab_size=64, d_model=32, n_layers=2,
                          aux_weight=0.0, dp_axis="dp"),
              True: dict(vocab_size=64, d_model=32, n_layers=2,
@@ -255,7 +255,6 @@ def _start(tmp, n):
         pickle.dump(job, fh)
     script = tmp / "moe.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
     procs = []
     for r in range(n):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
@@ -292,14 +291,17 @@ def worlds(tmp_path_factory):
     """Both worlds, run side by side."""
     tmps = {n: tmp_path_factory.mktemp(f"moe{n}") for n in (2, 4)}
     procs = {}
+    # One reservation for both worlds, held until they exit.
+    held = reserve_ports(4)
     try:
-        for n in (2, 4):
-            procs[n] = _start(tmps[n], n)
+        for n, ports in ((2, held.ports[:2]), (4, held.ports[2:])):
+            procs[n] = _start(tmps[n], n, *ports)
         return {n: _collect(tmps[n], procs[n]) for n in (2, 4)}
     finally:
         for ps in procs.values():
             for p in ps:
                 p.kill()
+        held.release()
 
 
 # ------------------------------------------------------- ep off: routing

@@ -31,7 +31,7 @@ import horovod_tpu_torch as hvd
 from horovod_tpu.monitor import MonitorAgent as JaxAgent
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.controller import TCPController
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.monitor import MonitorAgent
 
 
@@ -68,29 +68,30 @@ class FakeEngine:
 
 
 def _pair(fn):
-    port, = free_ports(1)
-    results, errors = {}, {}
-    peer_done = threading.Event()
+    with reserve_ports(1) as held:
+        port, = held.ports
+        results, errors = {}, {}
+        peer_done = threading.Event()
 
-    def worker(rank):
-        ctl = TCPController("127.0.0.1", port, rank=rank, world=2,
-                            stall_warn_s=60.0, cache_capacity=2048)
-        try:
-            results[rank] = fn(ctl, rank)
-        except Exception as exc:  # noqa: BLE001 - surfaced by the assert
-            errors[rank] = exc
-        finally:
-            if rank == 1:
-                peer_done.set()
-                ctl.shutdown()
-            else:
-                peer_done.wait(timeout=20)
-                ctl.shutdown()
+        def worker(rank):
+            ctl = TCPController("127.0.0.1", port, rank=rank, world=2,
+                                stall_warn_s=60.0, cache_capacity=2048)
+            try:
+                results[rank] = fn(ctl, rank)
+            except Exception as exc:  # noqa: BLE001 - surfaced by the assert
+                errors[rank] = exc
+            finally:
+                if rank == 1:
+                    peer_done.set()
+                    ctl.shutdown()
+                else:
+                    peer_done.wait(timeout=20)
+                    ctl.shutdown()
 
-    t1 = threading.Thread(target=worker, args=(1,), daemon=True)
-    t1.start()
-    worker(0)
-    t1.join(timeout=20)
+        t1 = threading.Thread(target=worker, args=(1,), daemon=True)
+        t1.start()
+        worker(0)
+        t1.join(timeout=20)
     assert not errors, errors
     assert set(results) == {0, 1}, results
     return results
@@ -168,8 +169,9 @@ def test_torch_frame_guard_holds_with_monitoring_enabled():
 def test_torch_http_exporter_metrics_health_snapshot():
     agent = MonitorAgent(engine=FakeEngine(), rank=0, world=1,
                          interval_s=0.1)
-    port, = free_ports(1)
-    srv = agent.serve_http(port)
+    with reserve_ports(1) as held:
+        port, = held.ports
+        srv = agent.serve_http(port)
     try:
         assert srv.port == port
         base = f"http://127.0.0.1:{port}"

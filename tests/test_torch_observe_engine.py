@@ -30,7 +30,7 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.config import Config
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.common.process_sets import ProcessSetTable
 from horovod_tpu_torch.ops import engine as port_engine
 from horovod_tpu_torch.trace import TraceRecorder, TraceWriter
@@ -104,17 +104,19 @@ def _lanes(path):
 def test_torch_two_ranks_with_the_seven_flags(tmp_path):
     worker = tmp_path / "w.py"
     worker.write_text(WORKER.format(repo=REPO))
-    port, = free_ports(1)
-    env = dict(os.environ, PYTHONPATH=REPO)
-    run = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
-         "--timeline-filename", str(tmp_path / "tl"),
-         "--timeline-mark-cycles", "--trace-filename", str(tmp_path / "tr"),
-         "--trace-ring", "512", "--monitor", "--monitor-port", str(port),
-         "--monitor-interval", "1", sys.executable, str(worker),
-         str(tmp_path)],
-        cwd=str(tmp_path), env=env, capture_output=True, text=True,
-        timeout=180)
+    with reserve_ports(1) as held:
+        port, = held.ports
+        env = dict(os.environ, PYTHONPATH=REPO)
+        run = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
+             "--timeline-filename", str(tmp_path / "tl"),
+             "--timeline-mark-cycles", "--trace-filename",
+             str(tmp_path / "tr"),
+             "--trace-ring", "512", "--monitor", "--monitor-port", str(port),
+             "--monitor-interval", "1", sys.executable, str(worker),
+             str(tmp_path)],
+            cwd=str(tmp_path), env=env, capture_output=True, text=True,
+            timeout=180)
     assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
     res = [json.loads((tmp_path / f"rank{r}.json").read_text())
            for r in range(2)]

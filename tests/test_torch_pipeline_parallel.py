@@ -64,7 +64,7 @@ from horovod_tpu.models import llama as jl, mnist as jm, resnet as jr
 from horovod_tpu.parallel import pipeline as jp
 from horovod_tpu.parallel import spmd as jspmd
 from horovod_tpu.parallel import zero as jzero
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.models import llama as tl, mnist as tm
 from horovod_tpu_torch.models import resnet as tr
 from horovod_tpu_torch.parallel import expert, pipeline as tp, spmd
@@ -537,7 +537,7 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-def _start(tmp, n):
+def _start(tmp, n, port, port2):
     job = dict(
         case_timeout=CASE_TIMEOUT_S, axes=LLAMA_AXES, data=_data(),
         lr=FAMILY_LR, noise=NOISE,
@@ -550,7 +550,6 @@ def _start(tmp, n):
         pickle.dump(job, fh)
     script = tmp / "pp.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
     procs = []
     for r in range(n):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
@@ -593,9 +592,11 @@ def _collect(tmp, procs):
 def worlds(tmp_path_factory):
     tmps = {n: tmp_path_factory.mktemp(f"pp{n}") for n in (2, 4)}
     procs = {}
+    # One reservation for both worlds, held until they exit.
+    held = reserve_ports(4)
     try:
-        for n in (2, 4):
-            procs[n] = _start(tmps[n], n)
+        for n, ports in ((2, held.ports[:2]), (4, held.ports[2:])):
+            procs[n] = _start(tmps[n], n, *ports)
         # The JAX references while the worlds run.
         for key in TOY:
             _jax_toy(key)
@@ -607,6 +608,7 @@ def worlds(tmp_path_factory):
         for ps in procs.values():
             for p in ps:
                 p.kill()
+        held.release()
 
 
 def _ran(outs, key):

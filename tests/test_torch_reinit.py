@@ -231,18 +231,19 @@ def test_torch_reinit_hierarchical_controller(tmp_path, hosts,
 def test_torch_reinit_after_peer_fault_raises(tmp_path):
     """A static world whose peer died cannot form again at its address:
     ``init()`` says so within 10 s instead of waiting for the dead peer."""
-    from horovod_tpu_torch.common.net import free_ports
-    p1, p2 = free_ports(2)
-    worlds = {}
-    for r in range(2):
-        env = example_env(
-            HOROVOD_RANK=str(r), HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK="0",
-            HOROVOD_LOCAL_SIZE="1", HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-            HOROVOD_CONTROLLER_PORT=str(p1),
-            HOROVOD_CONTROLLER_PORT2=str(p2))
-        worlds[r] = ([sys.executable, WORKER, "port", str(tmp_path),
-                      "--fault"], env, tmp_path)
-    done = _run_all(worlds)
+    from horovod_tpu_torch.common.net import reserve_ports
+    with reserve_ports(2) as held:
+        p1, p2 = held.ports
+        worlds = {}
+        for r in range(2):
+            env = example_env(
+                HOROVOD_RANK=str(r), HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK="0",
+                HOROVOD_LOCAL_SIZE="1", HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                HOROVOD_CONTROLLER_PORT=str(p1),
+                HOROVOD_CONTROLLER_PORT2=str(p2))
+            worlds[r] = ([sys.executable, WORKER, "port", str(tmp_path),
+                          "--fault"], env, tmp_path)
+        done = _run_all(worlds)
     assert done[1].returncode == 13, done[1].stderr[-3000:]
     _ok(done[0])
     seen = json.load(open(tmp_path / "fault.json"))
@@ -255,17 +256,18 @@ def test_torch_reinit_after_peer_fault_raises(tmp_path):
 def test_torch_reinit_hung_world_reports_its_stacks(tmp_path, monkeypatch):
     """A world killed at its timeout shows where each rank waited: here
     rank 0 of two, started alone, in the world's rendezvous."""
-    from horovod_tpu_torch.common.net import free_ports
+    from horovod_tpu_torch.common.net import reserve_ports
     monkeypatch.setattr(sys.modules[__name__], "WORLD_TIMEOUT_S", 25)
     monkeypatch.setattr(sys.modules[__name__], "STACKS_AFTER_S", 6)
-    p1, p2 = free_ports(2)
-    env = example_env(
-        HOROVOD_RANK="0", HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK="0",
-        HOROVOD_LOCAL_SIZE="1", HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-        HOROVOD_CONTROLLER_PORT=str(p1), HOROVOD_CONTROLLER_PORT2=str(p2))
-    done = _run_all({"alone": ([sys.executable, WORKER, "port",
-                                str(tmp_path), "--gens", "1"], env,
-                               tmp_path)})["alone"]
+    with reserve_ports(2) as held:
+        p1, p2 = held.ports
+        env = example_env(
+            HOROVOD_RANK="0", HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK="0",
+            HOROVOD_LOCAL_SIZE="1", HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+            HOROVOD_CONTROLLER_PORT=str(p1), HOROVOD_CONTROLLER_PORT2=str(p2))
+        done = _run_all({"alone": ([sys.executable, WORKER, "port",
+                                    str(tmp_path), "--gens", "1"], env,
+                                   tmp_path)})["alone"]
     assert done.returncode is None, (done.returncode, done.stderr[-3000:])
     assert done.stacks.startswith("--- stacks.rank0.txt"), done.stacks
     assert "init_process_group" in done.stacks, done.stacks
@@ -313,13 +315,15 @@ def test_torch_reinit_clean_departure_waits_for_the_record(monkeypatch,
 
     import torch.distributed as dist
     from horovod_tpu_torch.common import basics
-    from horovod_tpu_torch.common.net import free_ports
-    port = free_ports(1)[0]
-    store = dist.TCPStore("127.0.0.1", port, 2, True,
-                          timeout=timedelta(seconds=10), wait_for_workers=False)
-    # The peer records through a client of its own, as from its process.
-    peer = dist.TCPStore("127.0.0.1", port, 2, False,
-                         timeout=timedelta(seconds=10))
+    from horovod_tpu_torch.common.net import reserve_ports
+    with reserve_ports(1) as held:
+        port, = held.ports
+        store = dist.TCPStore("127.0.0.1", port, 2, True,
+                              timeout=timedelta(seconds=10),
+                              wait_for_workers=False)
+        # The peer records through a client of its own, as from its process.
+        peer = dist.TCPStore("127.0.0.1", port, 2, False,
+                             timeout=timedelta(seconds=10))
     monkeypatch.setattr(basics, "_default_store", lambda: store)
     monkeypatch.setattr(basics, "_LEAVE_WAIT_S", 2.0)
     monkeypatch.setattr(basics._world, "generations", 7)

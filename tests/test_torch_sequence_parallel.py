@@ -41,7 +41,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from horovod_tpu.compat import shard_map
 from horovod_tpu.models import llama as jl
 from horovod_tpu.parallel.ulysses import ulysses_attention as j_ulysses
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.models import llama as tl
 from horovod_tpu_torch.parallel import local_flash_attention, make_mesh
 from horovod_tpu_torch.parallel import ring_attention
@@ -188,7 +188,7 @@ def _attn_jobs(n):
     return jobs
 
 
-def _start(tmp, n):
+def _start(tmp, n, port, port2):
     vocab = jl.tiny().vocab_size
     llama = [({"sp": 2}, "ring"), ({"sp": 2}, "ulysses")] if n == 2 else \
         [({"dp": 2, "sp": 2}, "ring"), ({"dp": 2, "sp": 2}, "ulysses")]
@@ -198,7 +198,6 @@ def _start(tmp, n):
         pickle.dump(job, fh)
     script = tmp / "sp.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
     procs = []
     for r in range(n):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
@@ -235,14 +234,17 @@ def worlds(tmp_path_factory):
     """Both worlds, run side by side."""
     tmps = {n: tmp_path_factory.mktemp(f"sp{n}") for n in (2, 4)}
     procs = {}
+    # One reservation for both worlds, held until they exit.
+    held = reserve_ports(4)
     try:
-        for n in (2, 4):
-            procs[n] = _start(tmps[n], n)
+        for n, ports in ((2, held.ports[:2]), (4, held.ports[2:])):
+            procs[n] = _start(tmps[n], n, *ports)
         return {n: _collect(tmps[n], procs[n]) for n in (2, 4)}
     finally:
         for ps in procs.values():
             for p in ps:
                 p.kill()
+        held.release()
 
 
 def _gathered(outs, key, i):

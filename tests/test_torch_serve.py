@@ -23,7 +23,7 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common.exceptions import PeerFailureError
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.models import llama as tl
 from horovod_tpu_torch.serve import (ContinuousBatcher, ForwardFailed,
                                      FrontDoor, ReplicaFaulted, Replica)
@@ -255,23 +255,24 @@ _BCAST_WORKER = textwrap.dedent("""
 def test_torch_broadcast_parameters_two_process_gloo(tmp_path):
     script = tmp_path / "bcast.py"
     script.write_text(_BCAST_WORKER)
-    port, port2 = free_ports(2)
-    procs = []
-    for r in range(2):
-        env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
-                   HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
-                   HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                   HOROVOD_CONTROLLER_PORT=str(port),
-                   HOROVOD_CONTROLLER_PORT2=str(port2))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(script), REPO], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    outs = []
-    for p in procs:
-        try:
-            outs.append(p.communicate(timeout=60)[0])
-        finally:
-            p.kill()
+    with reserve_ports(2) as held:
+        port, port2 = held.ports
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
+                       HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
+                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                       HOROVOD_CONTROLLER_PORT=str(port),
+                       HOROVOD_CONTROLLER_PORT2=str(port2))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), REPO], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=60)[0])
+            finally:
+                p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, out
         assert f"BCAST_OK {r}" in out, out

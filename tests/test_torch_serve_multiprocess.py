@@ -26,13 +26,12 @@ flat and the hierarchical control plane.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
 import pytest
 
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -296,19 +295,6 @@ hvd.shutdown()
 '''
 
 
-def _port_pair():
-    """A base port P with P and P + 1 both free (rank r listens on P + r)."""
-    for _ in range(50):
-        p = free_ports(1)[0]
-        with socket.socket() as s:
-            try:
-                s.bind(("127.0.0.1", p + 1))
-            except OSError:
-                continue
-        return p
-    raise RuntimeError("no free pair of ports")
-
-
 def _env():
     env = dict(os.environ, PYTHONPATH=REPO)
     for k in ("HVD_TPU_FAULT", "HOROVOD_TIMELINE"):
@@ -320,17 +306,19 @@ def _env():
 def test_torch_serve_under_the_launcher(tmp_path, controller):
     worker = tmp_path / "serve_worker.py"
     worker.write_text(SERVE_WORKER)
-    port = _port_pair()
-    env = _env()
-    env.update(HOROVOD_SERVE_BUCKETS="4", HOROVOD_SERVE_MAX_BATCH="4",
-               HOROVOD_SERVE_DEADLINE_MS="30000")
-    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
-           "--serve", "--serve-port", str(port)]
-    if controller == "hierarchical":
-        cmd.append("--hierarchical-controller")
-    cmd += [sys.executable, str(worker), str(port)]
-    res = subprocess.run(cmd, cwd=str(tmp_path), env=env,
-                         capture_output=True, text=True, timeout=180)
+    # Rank r's front door listens on P + r.
+    with reserve_ports(2, consecutive=True) as held:
+        port = held.ports[0]
+        env = _env()
+        env.update(HOROVOD_SERVE_BUCKETS="4", HOROVOD_SERVE_MAX_BATCH="4",
+                   HOROVOD_SERVE_DEADLINE_MS="30000")
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "2",
+               "--serve", "--serve-port", str(port)]
+        if controller == "hierarchical":
+            cmd.append("--hierarchical-controller")
+        cmd += [sys.executable, str(worker), str(port)]
+        res = subprocess.run(cmd, cwd=str(tmp_path), env=env,
+                             capture_output=True, text=True, timeout=180)
     assert res.returncode == 0 and res.stdout.count("SERVE_OK") == 2, (
         f"rc={res.returncode}\nstdout:\n{res.stdout[-3000:]}\n"
         f"stderr:\n{res.stderr[-3000:]}")

@@ -46,7 +46,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from horovod_tpu.compat import shard_map
 from horovod_tpu.models import bert as jb, gpt2 as jg, llama as jl, vit as jv
 from horovod_tpu.parallel import spmd
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.models import bert as tb, gpt2 as tg, llama as tl
 from horovod_tpu_torch.models import vit as tv
 from horovod_tpu_torch.parallel import expert
@@ -432,7 +432,7 @@ def _ops_inputs():
             rng.randn(2, 3, 5).astype(np.float32))
 
 
-def _start(tmp, n):
+def _start(tmp, n, port, port2):
     job = dict(
         llama_axes=LLAMA_AXES, llama_data=_llama_data(),
         llama={k: (sizes, kw, _llama_params(k))
@@ -445,7 +445,6 @@ def _start(tmp, n):
         pickle.dump(job, fh)
     script = tmp / "tp.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
     procs = []
     for r in range(n):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
@@ -481,14 +480,17 @@ def _collect(tmp, procs):
 def worlds(tmp_path_factory):
     tmps = {n: tmp_path_factory.mktemp(f"tp{n}") for n in (2, 4)}
     procs = {}
+    # One reservation for both worlds, held until they exit.
+    held = reserve_ports(4)
     try:
-        for n in (2, 4):
-            procs[n] = _start(tmps[n], n)
+        for n, ports in ((2, held.ports[:2]), (4, held.ports[2:])):
+            procs[n] = _start(tmps[n], n, *ports)
         return {n: _collect(tmps[n], procs[n]) for n in (2, 4)}
     finally:
         for ps in procs.values():
             for p in ps:
                 p.kill()
+        held.release()
 
 
 def _want(ref, name, spec, o):

@@ -32,7 +32,7 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu.models import llama as jl
-from horovod_tpu_torch.common.net import free_ports
+from horovod_tpu_torch.common.net import reserve_ports
 from horovod_tpu_torch.models import llama as tl
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -349,23 +349,24 @@ _WORKER = textwrap.dedent("""
 def test_torch_train_two_process_gloo(tmp_path):
     script = tmp_path / "train2.py"
     script.write_text(_WORKER)
-    port, port2 = free_ports(2)
-    procs = []
-    for r in range(2):
-        env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
-                   HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
-                   HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                   HOROVOD_CONTROLLER_PORT=str(port),
-                   HOROVOD_CONTROLLER_PORT2=str(port2))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(script), REPO], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    outs = []
-    for p in procs:
-        try:
-            outs.append(p.communicate(timeout=90)[0])
-        finally:
-            p.kill()
+    with reserve_ports(2) as held:
+        port, port2 = held.ports
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",
+                       HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE="2",
+                       HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                       HOROVOD_CONTROLLER_PORT=str(port),
+                       HOROVOD_CONTROLLER_PORT2=str(port2))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), REPO], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=90)[0])
+            finally:
+                p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, out
         assert f"TRAIN2_OK {r}" in out, out
